@@ -29,7 +29,31 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the card against the CPU: a reduced Yi-6B (4 layers, float32) with
      identical weights serves the same greedy trace on the card (kernels)
      and on the CPU (plain versions): identical tokens, first logits within
-     1e-4.
+     1e-4;
+  6. the training slice: Yi-6B widths at 8 of its 32 layers in bf16 with
+     per-layer remat, weights from a seeded generator, trained 12 steps
+     through ``repro_torch.train.StepEngine.for_lm`` (sgd with momentum 0.9,
+     micro batch 2, sequences of 2048 tokens from ``TokenStream``,
+     ``attn_impl="pallas"``) under a tick-fired DiveBatch program (m0 4,
+     m_max 16, granule 2, a tick every 4 steps).  Every loss must be
+     finite, and the launch counts, set to 0 just before and read just
+     after, must be exactly 16 chunk-attention (forward, and again under
+     remat), 8 flash-dq and 8 flash-dk/dv launches per microbatch;
+  7. training on the card against the CPU: a reduced float32 Yi-6B (hd 64)
+     with identical weights trains 6 steps with a DiveBatch program (a tick
+     every 2 steps) on the card (kernels) and on the CPU (plain versions):
+     losses within 1e-4 relative, parameters within 1e-4 absolute, the same
+     batch schedule and num_micro buckets.
+
+Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
+their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
+8, softcap, window, a single tile) at 1e-4, the same in bf16, and the
+training shape (B 2, S 2048, Yi-6B heads, bf16), timed beside the plain
+version and the backward of ``F.scaled_dot_product_attention``.  Their
+outputs are float32 from bf16 inputs, rounded at the same points as the
+plain version, so the bf16 cases are held at 2e-3 absolute (no relative
+term), a tenth of a typical dq at S 2048; each case prints the RMS of the
+plain dq, dk and dv beside its error.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -54,6 +78,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
+from repro_torch.launch import train_lm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
@@ -62,6 +87,8 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (atol, rtol) of the flash backward's float32 outputs, by input dtype
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 0.0)}
 YI = get_config("yi-6b")
 
 
@@ -106,14 +133,22 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def check(name: str, got: torch.Tensor, want: torch.Tensor, dtype, *,
+          tol: tuple[float, float] | None = None) -> float:
+    """Max abs error of ``got``; fails where it passes ``atol + rtol * |want|``
+    (both ``TOL[dtype]`` unless ``tol`` gives them)."""
     err = (got.float() - want.float()).abs()
-    tol = TOL[dtype]
-    bad = err > tol + tol * want.float().abs()
+    atol, rtol = tol if tol is not None else (TOL[dtype], TOL[dtype])
+    bad = err > atol + rtol * want.float().abs()
     if bad.any() or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
-                             f"over tolerance {tol} ({int(bad.sum())} elements)")
+                             f"over tolerance atol {atol}, rtol {rtol} "
+                             f"({int(bad.sum())} elements)")
     return err.max().item()
+
+
+def rms(t: torch.Tensor) -> float:
+    return t.float().square().mean().sqrt().item()
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +278,77 @@ def decode_kernel_record(r) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
 
 
+def flash_inputs(r, dtype, *, b, s, h, kv, hd, window=None, softcap=None) -> dict:
+    """One flash backward call: q, k, v, dout and the card forward's out and
+    lse, the pairing the training path uses."""
+    dev = "cuda"
+    q = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
+    k = torch.from_numpy(r.standard_normal((b, s, kv, hd))).to(dev, dtype)
+    v = torch.from_numpy(r.standard_normal((b, s, kv, hd))).to(dev, dtype)
+    dout = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    out, lse = kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos),
+                                         window=window, softcap=softcap)
+    return dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse,
+                delta=ref.flash_delta(out, dout), window=window, softcap=softcap)
+
+
+def flash_case(name, inp) -> tuple[float, float]:
+    dtype = inp["q"].dtype
+    kw = dict(window=inp["window"], softcap=inp["softcap"])
+    args = (inp["q"], inp["k"], inp["v"], inp["dout"], inp["lse"], inp["delta"])
+    dq = kattn.flash_dq(*args, **kw)
+    dk, dv = kattn.flash_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_backward_ref(inp["q"], inp["k"], inp["v"], inp["out"], inp["lse"],
+                                  inp["dout"], **kw)
+    tol = FLASH_TOL[dtype]
+    err_dq = check(name + " dq", dq, want[0], dtype, tol=tol)
+    err_dkv = max(check(name + " dk", dk, want[1], dtype, tol=tol),
+                  check(name + " dv", dv, want[2], dtype, tol=tol))
+    print(f"  flash backward {name}: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
+          f"(atol {tol[0]}, rtol {tol[1]}); rms of the plain dq {rms(want[0]):.3e}, "
+          f"dk {rms(want[1]):.3e}, dv {rms(want[2]):.3e}")
+    return err_dq, err_dkv
+
+
+def flash_kernel_records(r) -> list[dict]:
+    """dq and dk/dv at the training shape: B 2, S 2048, Yi-6B heads, bf16."""
+    b, s = 2, 2048
+    h, kv, hd = YI.num_heads, YI.num_kv_heads, YI.resolved_head_dim
+    inp = flash_inputs(r, torch.bfloat16, b=b, s=s, h=h, kv=kv, hd=hd)
+    err_dq, err_dkv = flash_case(f"slice shape bf16 (B {b}, S {s})", inp)
+    q, k, v, dout, lse, delta = (inp[n] for n in ("q", "k", "v", "dout", "lse", "delta"))
+    dq_ms = timed_ms(lambda: kattn.flash_dq(q, k, v, dout, lse, delta))
+    dkv_ms = timed_ms(lambda: kattn.flash_dkv(q, k, v, dout, lse, delta))
+    # the plain version computes dq, dk and dv in one call
+    plain_ms = timed_ms(lambda: ref.flash_grads_ref(q, k, v, lse, delta, dout))
+    # library yardstick: the backward of SDPA (dq, dk and dv in one call)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    gt = dout.transpose(1, 2)
+    library_ms = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                                      retain_graph=True))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    fwd_ms = timed_ms(lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos,
+                                                        torch.ones_like(pos)))
+    print(f"  chunk_attention at the training shape (S {s}, causal): {fwd_ms:.4f} ms")
+    pairs = b * h * s * (s + 1) // 2  # causal (row, key) pairs over all (b, h)
+    read = nbytes(q, k, v, dout, lse, delta)
+    dq_bound, dq_by = bound(read + b * s * h * hd * 4, 3 * 2 * hd * pairs)
+    dkv_bound, dkv_by = bound(read + 2 * b * s * kv * hd * 4, 4 * 2 * hd * pairs)
+    del out, qt, kt, vt, inp
+    common = {"route": "cuda", "plain_ms": plain_ms, "library_ms": library_ms}
+    return [
+        {"name": "flash_dq", "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
+         "replaces": "src/repro/kernels/attention.py:218", "max_abs_err": err_dq,
+         "ms": dq_ms, "bound_ms": dq_bound, "bound_by": dq_by, **common},
+        {"name": "flash_dkv", "source": "src/repro_torch/kernels/csrc/flash_dkv.cu",
+         "replaces": "src/repro/kernels/attention.py:245", "max_abs_err": err_dkv,
+         "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by, **common},
+    ]
+
+
 def kernels_phase() -> list[dict]:
     phase("3. kernels against their plain versions (TF32 off)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,7 +371,17 @@ def kernels_phase() -> list[dict]:
         decode_case(f"{tag} n_rep 8",
                     decode_inputs(r, dtype, b=3, blk=16, n_max=5, nb=20, kv=2, h=16,
                                   hd=128, max_len=80))
-    records = [chunk_kernel_record(r), decode_kernel_record(r)]
+        flash_case(f"{tag} ragged S 37, n_rep 1, softcap 30",
+                   flash_inputs(r, dtype, b=2, s=37, h=4, kv=4, hd=64, softcap=30.0))
+        flash_case(f"{tag} ragged S 300, n_rep 8",
+                   flash_inputs(r, dtype, b=1, s=300, h=16, kv=2, hd=128))
+        flash_case(f"{tag} window 40 across tiles, softcap 20",
+                   flash_inputs(r, dtype, b=1, s=150, h=8, kv=2, hd=128, window=40,
+                                softcap=20.0))
+        flash_case(f"{tag} a single tile (S 16), hd 32",
+                   flash_inputs(r, dtype, b=2, s=16, h=4, kv=2, hd=32))
+    records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r)]
+    torch.cuda.empty_cache()
     for rec in records:
         print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
               f"library {rec['library_ms']:.4f}); bound {rec['bound_ms']:.4f} ms by "
@@ -358,8 +474,9 @@ def full_width_phase() -> dict:
     if [len(res.tokens) for res in results] != [32] * len(reqs):
         raise AssertionError(f"unfinished requests: {[len(x.tokens) for x in results]}")
     want = {"chunk_attention": st.prefill_chunks * cfg.num_layers,
-            "paged_decode_attention": st.steps * cfg.num_layers}
-    if counts != want or 0 in counts.values():
+            "paged_decode_attention": st.steps * cfg.num_layers,
+            "flash_dq": 0, "flash_dkv": 0}
+    if counts != want or 0 in (want["chunk_attention"], want["paged_decode_attention"]):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     if st.shared_blocks == 0:
         raise AssertionError("the shared prefix was not adopted")
@@ -368,7 +485,7 @@ def full_width_phase() -> dict:
     chunk_ms = [1e3 * (s - (decode_ms / 1e3 if d else 0.0)) / c
                 for s, c, d in steps if c > 0]
     print(f"  launches: {counts} (= 32 x {st.prefill_chunks} chunks, "
-          f"32 x {st.steps} decode steps)")
+          f"32 x {st.steps} decode steps, no backward)")
     print(f"  decode step: median {decode_ms:.2f} ms over {len(decode_only)} "
           f"decode-only steps (batch bucket {st.buckets})")
     print(f"  prefill chunk: median {statistics.median(chunk_ms):.2f} ms over "
@@ -421,10 +538,129 @@ def card_vs_cpu_phase() -> None:
     tc = [o.tokens.tolist() for o in out_card]
     if tc != [o.tokens.tolist() for o in out_cpu]:
         raise AssertionError("card and CPU tokens differ")
-    if 0 in launched.values():
+    if not (launched["chunk_attention"] and launched["paged_decode_attention"]):
         raise AssertionError(f"the card run did not use the kernels: {launched}")
     print(f"  first logits max abs diff {err:.3e} (tol 1e-4); tokens identical "
           f"over {sum(len(t) for t in tc)} tokens; card launches {launched}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 2048, 2, 12, 0.02
+
+
+def train_phase() -> dict:
+    phase(f"6. Yi-6B widths, {TRAIN_LAYERS} of 32 layers, bf16, remat: DiveBatch "
+          f"training through repro_torch.train.StepEngine.for_lm")
+    cfg = YI.replace(num_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_matmul = n_params - params.embed.weight.numel()  # the lookup does no products
+    print(f"  init: {n_params / 1e9:.3f} B parameters ({n_matmul / 1e9:.3f} B in "
+          f"matrix products) in {time.perf_counter() - t0:.2f} s")
+    program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                    granule=TRAIN_MICRO, lr=TRAIN_LR, tick_every=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kattn.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                         micro_batch=TRAIN_MICRO, attn_impl="pallas",
+                         log=lambda line: print("  " + line))
+    torch.cuda.synchronize()
+    counts = kattn.launch_counts()
+    recs = out["records"]
+    for rec in recs:
+        print(f"  step {rec['step']:2d}: batch {rec['batch']:2d} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms")
+    for rec in recs:
+        if "diversity" in rec:
+            print(f"  tick at step {rec['step']}: Delta {rec['diversity']:.6f}, gns "
+                  f"{rec['gns']:.6g}, batch {rec['batch']} -> {rec['next_batch']}")
+    if not all(np.isfinite(rec["loss"]) for rec in recs):
+        raise AssertionError(f"non-finite loss: {[rec['loss'] for rec in recs]}")
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers = cfg.num_layers
+    want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+          f"microbatches)")
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+
+    def model_flops(batch: int) -> float:
+        # 6 N per token for the products, plus causal attention: 2 products
+        # forward and 4 backward of 2 * hd per (row, key) pair per head
+        return (6 * n_matmul * batch * TRAIN_SEQ
+                + 12 * hd * h * layers * batch * pairs)
+
+    steady = recs[1:]
+    secs = [rec["seconds"] for rec in steady]
+    flops = [model_flops(rec["batch"]) for rec in steady]
+    tokens = [rec["batch"] * TRAIN_SEQ for rec in steady]
+    print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
+          f"{TRAIN_STEPS}; by batch: " + ", ".join(
+              f"{m}: {1e3 * statistics.median([x['seconds'] for x in steady if x['batch'] == m]):.1f}"
+              for m in sorted({x['batch'] for x in steady})))
+    print(f"  tokens/s: {sum(tokens) / sum(secs):.1f} over steps 2-{TRAIN_STEPS}")
+    print(f"  model FLOPs per step: " + ", ".join(
+        f"batch {m}: {model_flops(m):.4e}" for m in sorted({x['batch'] for x in steady}))
+          + f"; achieved {sum(flops) / sum(secs) / 1e12:.2f} TFLOP/s = "
+          f"{100 * sum(flops) / sum(secs) / PEAK_BF16:.2f}% of 989 TFLOP/s")
+    print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  stats: {json.dumps(out['engine'].stats.as_dict())}")
+    del out, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def train_card_vs_cpu_phase() -> None:
+    phase("7. reduced Yi-6B, float32: training on the card (kernels) against the CPU "
+          "(plain versions)")
+    # hd 64: the reduced config's hd 16 has no kernel instance
+    cfg = get_config("yi-6b", reduced=True).replace(
+        num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, d_ff=512, remat=True,
+        attn_impl="pallas")
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    card = tf.build(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                        granule=2, lr=0.05, tick_every=2)
+        kattn.reset_launch_counts()
+        out = train_lm.train(cfg, model, program, steps=6, seq_len=64, micro_batch=2,
+                             attn_impl="pallas", log=lambda line: None)
+        runs[dev] = (out, kattn.launch_counts())
+    (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
+    losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
+    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    if rel > 1e-4:
+        raise AssertionError(f"losses differ by {rel:.3e} relative > 1e-4: {losses}")
+    err = max((a.detach().cpu() - b.detach()).abs().max().item()
+              for a, b in zip(card.parameters(), cpu.parameters()))
+    if err > 1e-4:
+        raise AssertionError(f"parameters differ by {err:.3e} > 1e-4")
+    sched = {d: [x["batch"] for x in o["records"]] for d, (o, _) in runs.items()}
+    buckets = {d: o["engine"].stats.buckets for d, (o, _) in runs.items()}
+    if sched["cuda"] != sched["cpu"] or buckets["cuda"] != buckets["cpu"]:
+        raise AssertionError(f"batch schedules {sched} / buckets {buckets} differ")
+    if any(card_counts[k] == 0 for k in ("chunk_attention", "flash_dq", "flash_dkv")) \
+            or any(cpu_counts.values()):
+        raise AssertionError(f"launches: card {card_counts}, CPU {cpu_counts}")
+    print(f"  losses within {rel:.3e} relative (tol 1e-4), parameters within {err:.3e} "
+          f"(tol 1e-4); batch schedule {sched['cuda']}, buckets {buckets['cuda']} on "
+          f"both; card launches {card_counts}")
 
 
 def main() -> int:
@@ -451,10 +687,14 @@ def main() -> int:
                 print(f"    {line}")
 
     records = kernels_phase()
-    counts = full_width_phase()
+    serve_counts = full_width_phase()
     card_vs_cpu_phase()
+    train_counts = train_phase()
+    train_card_vs_cpu_phase()
+    # launches on the two main paths (serving, phase 4; training, phase 6)
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
+        rec["launches"] = serve_counts[rec["name"]] + train_counts[rec["name"]]
+    print(f"\n  launches by path: serving {serve_counts}, training {train_counts}")
 
     print()
     print(smi)

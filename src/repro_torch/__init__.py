@@ -5,8 +5,10 @@ held against; this package imports ``torch``, numpy and the standard library
 and never ``jax`` or anything of ``repro``.  ``repro_torch/<sub>/<module>.py``
 mirrors ``repro/<sub>/<module>.py``.
 
-This slice carries paged serving (``serve.ServeEngine`` over
-``models.transformer``) with two hand-written Hopper kernels
+The port carries paged serving (``serve.ServeEngine`` over
+``models.transformer``) and DiveBatch LM training (``train.StepEngine``
+with the ``adapt`` layer), with hand-written Hopper kernels for chunk
+attention, paged decode and the flash-attention backward
 (``kernels/csrc/``).  Every entry point defaults to ``device="cuda"`` and
 raises on a machine without a capable card (:func:`resolve_device`); it never
 moves to the CPU by itself.  The CPU runs only when the caller asks for it,

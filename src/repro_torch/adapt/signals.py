@@ -1,9 +1,19 @@
-"""The tensor-free part of the reference ``repro.adapt.signals``.
+"""Training signals for adaptation policies.
 
-``Clock`` (when a policy observes) and ``ThroughputWindow`` (the windowed
-events/second estimator behind ``ServeStats.tokens_per_sec``), copied with
-identical semantics.  ``Signals`` and the device-side signal readers belong
-to the training slice and are not ported yet.
+Counterpart of ``repro/adapt/signals.py``.  ``Signals`` is the record every
+policy observes; ``Clock`` says when (epoch end, every-k-steps tick, or an
+external event); ``ThroughputWindow`` is the windowed events/second
+estimator (also behind ``ServeStats.tokens_per_sec``).
+
+The device-side inputs come from the ``DiversityState`` accumulators the
+train step fills on every step: :func:`read_signals` computes the diversity
+estimate, the gradient-noise-scale proxy, the sample count and the
+diversity batch bound on the device and brings them to the host in ONE
+stacked read.
+
+Gradient-noise scale (McCandlish et al. 2018): ``B_noise = tr(Sigma) /
+||mu||^2``, recovered from the same accumulators by the moment inversion of
+the ``moment`` diversity tier, with zero additional per-step work.
 """
 
 from __future__ import annotations
@@ -11,7 +21,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import diversity
+from repro_torch.utils import pytree as ptu
+
+EPS = 1e-20
 
 #: boundary kinds a Clock can carry
 BOUNDARIES = ("epoch", "tick", "event")
@@ -37,6 +54,32 @@ class Clock:
             raise ValueError(
                 f"unknown boundary {self.boundary!r}; expected one of {BOUNDARIES}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class Signals:
+    """What a policy observes at a boundary.  ``None`` = not measured.
+
+    diversity   Delta_hat over the accumulation window (DiveBatch's signal).
+    gns         gradient-noise-scale proxy tr(Sigma)/||mu||^2 over the same
+                window (GradNoisePolicy's signal).
+    loss        most recent per-step mean loss (already host-side).
+    throughput  steps/sec over a trailing window (host-side).
+    batch_size  the live global batch size.
+    samples     samples accumulated since the last reset.
+    event       name of the external event for ``boundary='event'``.
+    diversity_bound  Yin et al.'s batch-size cap ``n * Delta_hat`` over the
+                same window, read in the same transfer.
+    """
+
+    diversity: float | None = None
+    gns: float | None = None
+    loss: float | None = None
+    throughput: float | None = None
+    batch_size: int = 0
+    samples: float = 0.0
+    event: str | None = None
+    diversity_bound: float | None = None
 
 
 class ThroughputWindow:
@@ -91,3 +134,65 @@ class ThroughputWindow:
         if span <= 0.0:
             return count / self.window_s
         return count / span
+
+
+def gns_from_accumulators(div_state: Any, estimator: str = "moment") -> torch.Tensor:
+    """tr(Sigma)/||mu||^2 from the ``DiversityState`` accumulators, a 0-d
+    device tensor.
+
+    The moment inversion of ``diversity.diversity_moment``: with ``Q`` the
+    sum of small-batch squared norms (batch size ``m`` = 1 for the
+    exact/gram tiers, the microbatch size for moment) and ``R =
+    ||grad_sum||^2``,
+
+        M  = (R - Q) / (n (n - m))      ~ ||mu||^2        (clamped >= 0)
+        E2 = Q/n - (m - 1) M            ~ E||g||^2        (clamped >= eps)
+        tr(Sigma) = E2 - M
+
+    Degenerate windows (a single small batch, or empty accumulators) give 0.
+    """
+    n = div_state.sample_count.clamp_min(1.0)
+    if estimator in ("exact", "gram"):
+        m = torch.ones_like(n)
+    else:
+        m = n / div_state.mb_count.clamp_min(1.0)
+    q = div_state.sq_norm_sum
+    r = ptu.tree_sq_norm(div_state.grad_sum)
+    big_m = ((r - q) / (n * (n - m)).clamp_min(EPS)).clamp_min(0.0)
+    e2 = (q / n - (m - 1.0) * big_m).clamp_min(EPS)
+    tr_sigma = (e2 - big_m).clamp_min(0.0)
+    gns = tr_sigma / big_m.clamp_min(EPS)
+    degenerate = (n - m < 0.5) | (r < EPS)
+    return torch.where(degenerate, torch.zeros_like(gns), gns)
+
+
+@torch.no_grad()
+def read_signals(state: Any, estimator: str = "moment", *, reset: bool,
+                 batch_size: int = 0, loss: float | None = None,
+                 throughput: float | None = None,
+                 event: str | None = None) -> tuple[Signals, Any]:
+    """Read boundary signals off a ``TrainState``'s diversity accumulators.
+
+    Returns ``(signals, state)``.  Exactly ONE device -> host transfer
+    whatever the number of scalars (they come back stacked).  With
+    ``reset=True`` the accumulators are zeroed in place after the read (the
+    epoch-boundary semantics); with ``reset=False`` they are left as they
+    are (mid-epoch ticks observe the running window)."""
+    div = state.div_state
+    est = diversity.estimate(div, estimator)
+    scalars = torch.stack([est, gns_from_accumulators(div, estimator), div.sample_count,
+                           div.sample_count * est])
+    vals = scalars.tolist()  # the single host transfer
+    if reset:
+        diversity.reset_state(div)
+    sig = Signals(
+        diversity=vals[0],
+        gns=vals[1],
+        samples=vals[2],
+        loss=loss,
+        throughput=throughput,
+        batch_size=int(batch_size),
+        event=event,
+        diversity_bound=vals[3],
+    )
+    return sig, state

@@ -1,1 +1,3 @@
-"""Host-side core of the port: a copy of ``repro.core.batch_policy``."""
+"""DiveBatch core: gradient-diversity estimation (``diversity``), the
+batch policies (a copy of ``repro.core.batch_policy``) and the lr rules
+(``controller``)."""

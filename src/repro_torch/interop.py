@@ -1,10 +1,13 @@
-"""Carry parameters from the JAX reference into the port.
+"""Carry parameters between the JAX reference and the port.
 
 ``params_from_jax`` takes the reference ``repro.models.transformer
 .init_params`` tree with every leaf converted to a numpy array (the caller
 does ``jax.tree.map(np.asarray, params)``; this module never imports JAX)
 and returns the port's ``Transformer`` with the same weights, so both
-packages compute with identical numbers.
+packages compute with identical numbers; ``trainable=True`` gives
+parameters that take gradients.  ``params_to_numpy`` is the reverse: the
+port's model as the reference's tree of numpy arrays, so a test can hold
+parameters after a training step against the reference's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig) -> tf.Transformer:
+def params_from_jax(tree: dict, cfg: ModelConfig, *, trainable: bool = False
+                    ) -> tf.Transformer:
     """The port's model (on the CPU) holding the weights of ``tree``.
 
     The reference stacks each pattern position ``pos{p}`` over a leading
@@ -59,4 +63,41 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> tf.Transformer:
                 for name in ("w_gate", "w_up", "w_in", "w_out"):
                     if name in src["ffn"]:
                         linear(getattr(blk.ffn, name), src["ffn"][name], r)
-    return model
+    return model.requires_grad_(trainable)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().cpu().numpy()
+
+
+def params_to_numpy(model: tf.Transformer, cfg: ModelConfig) -> dict:
+    """The reference's parameter tree of ``model``'s weights as numpy
+    arrays: pattern positions stacked over repeats, dense kernels in
+    ``(d_in, d_out)`` layout (bf16 weights come back as float32)."""
+
+    def linear(lins: list) -> dict:
+        out = {"kernel": np.stack([_array(lin.weight).T for lin in lins])}
+        if lins[0].bias is not None:
+            out["bias"] = np.stack([_array(lin.bias) for lin in lins])
+        return out
+
+    def scale(norms: list) -> dict:
+        return {"scale": np.stack([_array(n.scale) for n in norms])}
+
+    tree: dict = {
+        "embed": {"embedding": _array(model.embed.weight)},
+        "final_norm": {"scale": _array(model.final_norm.scale)},
+        "lm_head": {"kernel": _array(model.lm_head.weight).T},
+    }
+    for p in range(cfg.period):
+        blks = [model.blocks[r * cfg.period + p] for r in range(cfg.repeats)]
+        pos = {"norm": scale([b.norm for b in blks]),
+               "attn": {n: linear([getattr(b.attn, n) for b in blks])
+                        for n in ("q", "k", "v", "o")}}
+        if blks[0].ffn is not None:
+            pos["ffn_norm"] = scale([b.ffn_norm for b in blks])
+            names = ("w_gate", "w_up", "w_out") if cfg.ffn_glu else ("w_in", "w_out")
+            pos["ffn"] = {n: linear([getattr(b.ffn, n) for b in blks]) for n in names}
+        tree[f"pos{p}"] = pos
+    return tree

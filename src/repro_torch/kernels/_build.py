@@ -50,6 +50,20 @@ SIGNATURES = {
         [_I, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     ),
+    "flash_dq": (
+        "flash_dq_bwd",
+        # dtype, q, k, v, dout, lse, delta, dq,
+        # B, S, H, KV, hd, scale, softcap, window, stream
+        [_I, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    ),
+    "flash_dkv": (
+        "flash_dkv_bwd",
+        # dtype, q, k, v, dout, lse, delta, dk, dv,
+        # B, S, H, KV, hd, scale, softcap, window, stream
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Serving attention kernels: chunk attention and fused paged decode.
+"""Attention kernels: chunk attention, fused paged decode, and flash
+attention with its recompute backward.
 
 Wrappers over the hand-written CUDA kernels in ``csrc/`` (built by
 ``_build.py``), with the signatures and layouts of
@@ -11,14 +12,24 @@ Wrappers over the hand-written CUDA kernels in ``csrc/`` (built by
   paged_decode_attention  q (B, 1, H, hd) against the shared pool
                           (num_blocks, block, KV, hd) through per-row block
                           tables and lengths, the gather inside the kernel.
+  flash_dq, flash_dkv     the flash backward's two passes for causal
+                          self-attention: dq (B, S, H, hd), and dk, dv
+                          (B, S, KV, hd) summed over each KV head's query
+                          heads, all float32, from the forward's lse and
+                          ``delta = rowsum(dout * out)``.
+  flash_attention         the training attention: an autograd function whose
+                          forward is the chunk kernel at positions
+                          ``arange(S)`` and whose backward is the two
+                          kernels above.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``), cast to
 q's type.  A tensor on the card goes to the kernel, or the wrapper raises: a
 failed build, a refused launch, an unsupported shape or a card below sm_90
 is an error, never a fall back to the plain version.  Each wrapper counts
 its kernel launches in a plain integer attribute (``chunk_attention.launches``,
-``paged_decode_attention.launches``), so a run can show that its path went
-through the kernels.
+``paged_decode_attention.launches``, ``flash_dq.launches``,
+``flash_dkv.launches``), so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -179,12 +190,144 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
 paged_decode_attention.launches = 0
 
 
+def _check_backward(name: str, q, k, v, dout, lse, delta) -> None:
+    """Shapes of a flash backward call: causal self-attention, so Sk == S."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if k.shape != (b, s, kv, hd) or v.shape != k.shape or dout.shape != q.shape \
+            or h % kv:
+        raise ValueError(f"{name}: q/dout {tuple(q.shape)}, {tuple(dout.shape)} with "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if lse.shape != (b, h, s) or delta.shape != (b, h, s):
+        raise ValueError(f"{name}: lse and delta must be (B, H, S) = {(b, h, s)}")
+
+
+def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap):
+    """Validate a card call of ``flash_dq``/``flash_dkv`` and launch it."""
+    hd = q.shape[-1]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no path for device {q.device}")
+    if hd not in CHUNK_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} has no kernel instance "
+                         f"(built: {CHUNK_HEAD_DIMS})")
+    if k.dtype != q.dtype or v.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v and dout must share one dtype")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"{name}: lse and delta must be float32")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    _check_cuda(name, {"q": q, "k": k, "v": v, "dout": dout, "lse": lse,
+                       "delta": delta}, q.dtype)
+    b, s, h, hd = q.shape
+    lib = _build.library(name)
+    rc = getattr(lib, f"{name}_bwd")(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+        b, s, h, k.shape[2], hd, hd ** -0.5, _cap(softcap), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(lib, name, rc)
+
+
+def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+             lse: torch.Tensor, delta: torch.Tensor, *, window: int | None = None,
+             softcap: float | None = None) -> torch.Tensor:
+    """dq of causal flash attention, float32 (B, S, H, hd).
+
+    q, dout (B, S, H, hd); k, v (B, S, KV, hd); ``lse`` the forward's and
+    ``delta = rowsum(dout * out)``, both (B, H, S) float32."""
+    _check_backward("flash_dq", q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
+                                   softcap=softcap)[0]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap)
+    flash_dq.launches += 1
+    return dq
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+              lse: torch.Tensor, delta: torch.Tensor, *, window: int | None = None,
+              softcap: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of causal flash attention, float32 (B, S, KV, hd) each,
+    summed over the query heads of each KV head.  Arguments as
+    :func:`flash_dq`."""
+    _check_backward("flash_dkv", q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        _, dk, dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
+                                        softcap=softcap)
+        return dk, dv
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    _backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), window, softcap)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Causal self-attention: the chunk kernel forward at positions
+    ``arange(S)`` with every key valid, saving ``(q, k, v, out, lse)``; the
+    recompute backward ``delta = rowsum(dout * out)`` (plain torch, as the
+    reference does) then the dq and dk/dv kernels.  On the CPU both
+    directions take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap):
+        s = q.shape[1]
+        if k.shape[1] != s:
+            raise ValueError(f"flash_attention: self-attention needs Sk == Sq, got "
+                             f"{k.shape[1]} and {s}")
+        pos = torch.arange(s, dtype=torch.int32, device=q.device)
+        valid = torch.ones(s, dtype=torch.int32, device=q.device)
+        out, lse = chunk_attention_fwd(q, k, v, pos, pos, valid, window=window,
+                                       softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        kw = dict(window=ctx.window, softcap=ctx.softcap)
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
+        else:
+            delta = ref.flash_delta(out, dout)
+            dq = flash_dq(q, k, v, dout, lse, delta, **kw)
+            dk, dv = flash_dkv(q, k, v, dout, lse, delta, **kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Flash self-attention with the recompute backward, (B, S, H, hd) in
+    q's type: scale ``hd**-0.5``, the softcap before the causal /
+    sliding-window mask, as ``repro/kernels/attention.py::flash_attention``.
+    Only the causal form has kernels: ``causal=False`` raises."""
+    if not causal:
+        raise NotImplementedError(
+            "non-causal flash attention (encoder configs) is not ported to "
+            "repro_torch yet (ROADMAP.md, Queue C)")
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 window, softcap)
+
+
+_COUNTED = (chunk_attention, paged_decode_attention, flash_dq, flash_dkv)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    chunk_attention.launches = 0
-    paged_decode_attention.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"chunk_attention": chunk_attention.launches,
-            "paged_decode_attention": paged_decode_attention.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the serving kernels: float32 oracles.
+"""Plain PyTorch versions of the kernels: float32 oracles.
 
 Counterparts of ``attention_ref`` and ``paged_decode_ref`` in
-``repro/kernels/ref.py``.  They are what ``kernels/attention.py``'s wrappers
-run for a tensor on the CPU, and what the CUDA kernels are held against on
-the card: every input is upcast to float32, the softcap comes before the
-mask, and the softmax runs over the whole key axis at once.
+``repro/kernels/ref.py``, and of the flash backward's recompute
+(``_recompute_dlogits`` / ``_flash_backward`` in
+``repro/kernels/attention.py``).  They are what ``kernels/attention.py``'s
+wrappers run for a tensor on the CPU, and what the CUDA kernels are held
+against on the card: every input is upcast to float32, the softcap comes
+before the mask, and the softmax (or its recompute) runs over the whole key
+axis at once.
 """
 
 from __future__ import annotations
@@ -57,6 +60,68 @@ def attention_ref(q, k, v, q_pos, k_pos, k_valid, *, causal: bool = True,
     """The output half of :func:`attention_ref_lse` (float32)."""
     return attention_ref_lse(q, k, v, q_pos, k_pos, k_valid, causal=causal,
                              window=window, softcap=softcap)[0]
+
+
+def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor, *,
+                    window: int | None = None, softcap: float | None = None,
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash-attention backward from the forward's ``lse`` and
+    ``delta = rowsum(dout * out)`` (both (B, H, S) float32): causal
+    self-attention, positions ``arange(S)``.
+
+    Follows ``_recompute_dlogits`` and ``_flash_backward`` of
+    ``repro/kernels/attention.py``, casts included: dots in float32 from the
+    inputs' values, the softcap before the mask, ``p`` forced to 0 where the
+    mask is false, ``dlogits`` rounded to q's type before the dq and dk
+    products and ``p`` to dout's type before the dv product, per-query-head
+    dk/dv summed onto their KV head.  Returns float32 ``(dq (B, S, H, hd),
+    dk (B, S, KV, hd), dv (B, S, KV, hd))``; the caller casts."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    n_rep = h // kv
+    scale = hd ** -0.5
+    kr = _repeat(k.float(), n_rep)
+    vr = _repeat(v.float(), n_rep)
+    raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    if softcap is not None:
+        capped = torch.tanh(raw / softcap)
+        logits = capped * softcap
+    else:
+        logits = raw
+    pos = torch.arange(s, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    ok = rel >= 0
+    if window is not None:
+        ok = ok & (rel < window)
+    p = torch.where(ok, torch.exp(logits - lse[..., None]), torch.zeros_like(logits))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vr)
+    ds = p * (dp - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - capped * capped)
+    ds_q = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_q, kr) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_q, q.float()) * scale
+    return (dq, dk.reshape(b, s, kv, n_rep, hd).sum(3),
+            dv.reshape(b, s, kv, n_rep, hd).sum(3))
+
+
+def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dout * out)`` in float32, (B, H, S): the backward's
+    row statistic, taken outside the kernels as the reference does."""
+    return torch.einsum("bqhd,bqhd->bhq", dout.float(), out.float()).contiguous()
+
+
+def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                       window: int | None = None, softcap: float | None = None,
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 ``(dq, dk, dv)`` of causal flash attention from its saved
+    ``(q, k, v, out, lse)`` and the output gradient (see
+    :func:`flash_grads_ref`)."""
+    return flash_grads_ref(q, k, v, lse, flash_delta(out, dout), dout,
+                           window=window, softcap=softcap)
 
 
 def paged_decode_ref(q: torch.Tensor, pool_k: torch.Tensor,

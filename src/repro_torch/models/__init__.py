@@ -1,2 +1,2 @@
 """Models of the port: primitive layers, the plain attention lanes, and
-the serving half of the transformer."""
+the transformer (its training forward and its serving half)."""

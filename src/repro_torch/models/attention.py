@@ -11,8 +11,10 @@ float32, probabilities cast back before the value product):
 
 All take q:(B,Sq,H,hd), k/v:(B,Sk,KV,hd) with H % KV == 0 and return
 (B,Sq,H,hd).  Query head ``h`` reads KV head ``h // n_rep``.  These are the
-plain lanes the serving kernels in ``kernels/attention.py`` stand in for;
-the kernels' own float32 oracles are in ``kernels/ref.py``.
+plain lanes the kernels in ``kernels/attention.py`` stand in for (the
+kernels' own float32 oracles are in ``kernels/ref.py``); ``attention()`` is
+also the training path's ``attn_impl="dense"`` lane, differentiated by
+autograd.  ``resolve_impl`` picks the lane for a config.
 """
 
 from __future__ import annotations
@@ -103,3 +105,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def resolve_impl(cfg, s: int) -> str:
+    """Resolve ``cfg.attn_impl`` for a length-``s`` self-attention call site,
+    as the reference does: 'auto' flips from dense to flash above
+    ``cfg.flash_threshold`` when the length tiles by ``cfg.flash_q_block``;
+    'dense' / 'flash' / 'pallas' pass through.  'pallas' is the kernel lane
+    (``kernels/attention.py``); the XLA 'flash' lane is not ported and the
+    transformer raises on it."""
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = ("flash" if s > cfg.flash_threshold and s % cfg.flash_q_block == 0
+                else "dense")
+    return impl

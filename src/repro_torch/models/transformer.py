@@ -1,20 +1,38 @@
-"""The decoder stack, serving half: parameters, the paged KV pool, paged
-decode and chunked prefill.
+"""The decoder stack: parameters, the training forward with its chunked
+cross-entropy, and serving (the paged KV pool, paged decode, chunked
+prefill).
 
-Counterpart of the serving functions of ``repro/models/transformer.py``.
-The reference stacks each pattern position's parameters over a repeats axis
-and scans; here the model is an ``nn.Module`` with a ``ModuleList`` of
-blocks (layer ``r * period + p`` is repeat ``r`` of pattern position ``p``)
-and ``nn.Linear`` weights in ``(out, in)`` layout.  The KV pool keeps the
-reference's layout: per full-attention pattern position a
-``(repeats, num_blocks, block, KV, hd)`` tensor, so ``pages[...][r]`` is one
-layer's contiguous ``(num_blocks, block, KV, hd)`` pool.
+Counterpart of ``repro/models/transformer.py``.  The reference stacks each
+pattern position's parameters over a repeats axis and scans; here the model
+is an ``nn.Module`` with a ``ModuleList`` of blocks (layer ``r * period +
+p`` is repeat ``r`` of pattern position ``p``) and ``nn.Linear`` weights in
+``(out, in)`` layout, and the stack is a Python loop (``cfg.scan_layers``
+has no counterpart).  The KV pool keeps the reference's layout: per
+full-attention pattern position a ``(repeats, num_blocks, block, KV, hd)``
+tensor, so ``pages[...][r]`` is one layer's contiguous
+``(num_blocks, block, KV, hd)`` pool.
 
-Attention always goes through ``kernels/attention.py``: the CUDA kernels for
-tensors on the card, their plain versions for tensors on the CPU.
+Training: ``loss_fn`` runs the stack with gradients.  ``cfg.remat``
+checkpoints each layer (``torch.utils.checkpoint``, non-reentrant), so the
+backward runs the layer's forward again, attention kernel included.
+``cfg.attn_impl`` picks the attention lane (``models/attention.py::
+resolve_impl``): "pallas" is ``kernels/attention.py::flash_attention`` (the
+chunk kernel forward and the dq / dk-dv backward kernels on the card),
+"dense" the plain lane under autograd; the XLA "flash" lane is not ported.
+The ``flash_*_block`` settings tile the reference's Pallas kernels and do
+not set the CUDA kernels' tiling.  ``xent_chunked`` never forms the
+(B, S, V) logits and recomputes each chunk's in its backward.  Parameters
+take gradients once ``train.state.init_state`` makes them trainable;
+``build()`` (serving) keeps them frozen.
+
+Serving attention always goes through ``kernels/attention.py``: the CUDA
+kernels for tensors on the card, their plain versions for tensors on the
+CPU.
 
 Entry points:
   init_params(cfg, generator, device, dtype)    the model (random weights)
+  loss_fn(cfg, params, batch)                   mean CE loss, metrics
+  xent_chunked(x, weight, targets, chunk, softcap)
   init_cache / init_pages / paged_positions     serving state
   decode_step(cfg, params, cache, tokens, pages=, tables=)
   prefill_chunk(cfg, params, row, pages, batch, offset, prior_tab, write_tab)
@@ -28,10 +46,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import attention as kernels_attn
+from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import ACTIVATIONS, apply_rope, dense, embed, layer_norm, rms_norm
 
 _NOT_PORTED = {
@@ -172,6 +192,138 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         elif isinstance(mod, Norm):
             mod.scale.fill_(1.0)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _embed_input(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Tensor:
+    return embed(params.embed.weight, batch["tokens"].long()).to(_dtype(cfg.compute_dtype))
+
+
+def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
+                   positions: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, ap, x, positions)
+    window = cfg.window if kind == "attn_local" else None
+    impl = attn_lib.resolve_impl(cfg, s)
+    if impl == "pallas":
+        out = kernels_attn.flash_attention(q, k, v, cfg.causal, window, cfg.attn_softcap)
+    elif impl == "dense":
+        out = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
+                                 softcap=cfg.attn_softcap)
+    else:
+        raise NotImplementedError(
+            f"the XLA {impl!r} attention lane is not ported to repro_torch "
+            f"(ROADMAP.md, Queue C); use attn_impl='pallas' or 'dense'")
+    return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
+
+
+def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One layer: pre-norm attention, then the pre-norm dense FFN (MoE FFNs,
+    and their aux loss, are not ported)."""
+    x = x + _attn_sublayer(cfg, blk.attn, blk.norm(x), kind, positions)
+    return _ffn(blk, x)
+
+
+def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every layer in order; ``(x, moe_aux)`` with the aux loss 0 (no MoE).
+    Under ``cfg.remat`` each layer is checkpointed: only its input is kept,
+    and the backward runs its forward again."""
+    for _, p, blk in _layers(cfg, params):
+        if cfg.remat:
+            # the forward draws no random numbers: no RNG state to replay
+            x = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_apply(cfg, cfg.pattern[p], blk, x, positions)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_logits(xc: torch.Tensor, w: torch.Tensor, softcap):
+    """float32 logits of one chunk (and the tanh of the cap, or None)."""
+    logits = (xc @ w.t()).float()
+    if softcap is None:
+        return logits, None
+    capped = torch.tanh(logits / softcap)
+    return capped * softcap, capped
+
+
+class _XentChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, targets, chunk, softcap):
+        b, s, _ = x.shape
+        w = weight.to(x.dtype)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            logits, _ = _chunk_logits(x[:, i:i + chunk], w, softcap)
+            tgt = logits.gather(-1, targets[:, i:i + chunk, None].long())[..., 0]
+            loss_sum = loss_sum + (torch.logsumexp(logits, dim=-1) - tgt).sum()
+        ctx.save_for_backward(x, weight, targets)
+        ctx.chunk, ctx.softcap = chunk, softcap
+        return loss_sum / (b * s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, targets = ctx.saved_tensors
+        chunk, softcap = ctx.chunk, ctx.softcap
+        b, s, d = x.shape
+        scale = g / (b * s)
+        w = weight.to(x.dtype)
+        dx = torch.empty_like(x)
+        dw = torch.zeros(weight.shape, dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            xc = x[:, i:i + chunk]
+            logits, capped = _chunk_logits(xc, w, softcap)
+            dlogits = torch.softmax(logits, dim=-1)
+            # probs - one_hot(targets)
+            dlogits.scatter_add_(-1, targets[:, i:i + chunk, None].long(),
+                                 torch.full(xc.shape[:2] + (1,), -1.0, device=x.device))
+            if capped is not None:
+                dlogits = dlogits * (1.0 - capped * capped)
+            dlogits = (dlogits * scale).to(x.dtype)
+            dx[:, i:i + chunk] = dlogits @ w
+            dw.addmm_(dlogits.reshape(-1, dlogits.shape[-1]).t().float(),
+                      xc.reshape(-1, d).float())
+        return dx, dw.to(weight.dtype), None, None, None
+
+
+def xent_chunked(x: torch.Tensor, weight: torch.Tensor, targets: torch.Tensor,
+                 chunk: int = 512, softcap: float | None = None) -> torch.Tensor:
+    """Mean token cross-entropy, chunked over the SEQUENCE axis so the
+    (B, S, V) logits never exist at once.
+
+    x (B, S, d); ``weight`` the LM head in ``(V, d)`` layout (the reference
+    takes its ``(d, V)`` kernel); targets (B, S) int.  The backward
+    recomputes each chunk's logits and accumulates dW in float32: it keeps
+    only (x, weight, targets), as the reference's custom_vjp does."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the xent chunk {chunk}")
+    return _XentChunked.apply(x, weight, targets, chunk, softcap)
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict,
+            ) -> tuple[torch.Tensor, dict]:
+    """Mean CE loss of ``batch`` ({"tokens", "targets"}: (B, S) int) and
+    ``{"ce_loss", "moe_aux"}``."""
+    x = _embed_input(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, aux = _run_stack(cfg, params, x, positions)
+    x = params.final_norm(x)
+    loss = xent_chunked(x, params.lm_head.weight, batch["targets"], cfg.xent_chunk,
+                        cfg.final_softcap)
+    return loss, {"ce_loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

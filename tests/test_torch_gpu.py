@@ -4,7 +4,10 @@ Each kernel is held against its plain PyTorch version on the same inputs on
 the card: float32 at 1e-4 (the kernel sums in another order), bfloat16 at
 2e-2 against the plain version computed in float32 from the same bf16
 inputs (the kernel rounds p to bf16 before the PV product and the output to
-bf16).  TF32 is off.  Whether a card is present is decided inside the
+bf16).  The flash backward kernels write float32 dq, dk and dv from bf16
+inputs, rounding at the same points as their plain version, so their bf16
+cases are held at 2e-3 absolute: the measured error at the training shape
+is 5e-4, and 2e-2 would be as large as a typical dq.  TF32 is off.  Whether a card is present is decided inside the
 ``cuda`` fixture, so every worker collects the same tests; without a
 Hopper card they skip.
 
@@ -24,6 +27,8 @@ from repro_torch.serve import Request, ServeEngine
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (atol, rtol) of the flash backward's float32 outputs, by input dtype
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 0.0)}
 
 
 @pytest.fixture
@@ -131,12 +136,92 @@ def test_launch_counters_and_refusals(cuda):
                                                  1, 8, 8, 8, 4, 2, 32)
     kattn.reset_launch_counts()
     kattn.chunk_attention(q, k, v, q_pos, k_pos, k_valid)
-    assert kattn.launch_counts() == {"chunk_attention": 1, "paged_decode_attention": 0}
+    assert kattn.launch_counts() == {"chunk_attention": 1, "paged_decode_attention": 0,
+                                     "flash_dq": 0, "flash_dkv": 0}
     bad = torch.zeros((1, 8, 4, 48), device=cuda)  # no head-dim-48 instance
     with pytest.raises(ValueError, match="head dim"):
         kattn.chunk_attention(bad, bad[:, :, :2], bad[:, :, :2], q_pos,
                               q_pos, torch.ones(8, dtype=torch.bool, device=cuda))
     assert kattn.chunk_attention.launches == 1
+
+
+def _flash_case(r, dev, dtype, b, s, h, kv, hd, window, softcap):
+    """Inputs of one flash backward: q, k, v, dout and the card forward's
+    out and lse (the pairing the training path uses)."""
+    q = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
+    k = torch.from_numpy(r.standard_normal((b, s, kv, hd))).to(dev, dtype)
+    v = torch.from_numpy(r.standard_normal((b, s, kv, hd))).to(dev, dtype)
+    dout = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    out, lse = kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos),
+                                         window=window, softcap=softcap)
+    return q, k, v, dout, out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, s, h, kv, hd, window, softcap
+    (1, 16, 4, 4, 32, None, None),      # a single tile, n_rep 1
+    (2, 37, 8, 1, 64, None, 30.0),      # ragged S, n_rep 8, softcap
+    (1, 300, 8, 2, 128, None, None),    # ragged S over 10 tiles
+    (1, 100, 4, 2, 128, 6, None),       # sliding window
+    (1, 70, 8, 8, 64, 40, 20.0),        # window across tiles + softcap
+])
+def test_flash_backward_kernels_match_plain(cuda, dtype, case):
+    b, s, h, kv, hd, window, softcap = case
+    r = np.random.default_rng(s * 7 + h)
+    q, k, v, dout, out, lse = _flash_case(r, cuda, dtype, b, s, h, kv, hd, window,
+                                          softcap)
+    delta = ref.flash_delta(out, dout)
+    kattn.reset_launch_counts()
+    dq = kattn.flash_dq(q, k, v, dout, lse, delta, window=window, softcap=softcap)
+    dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kattn.flash_dq.launches == 1 and kattn.flash_dkv.launches == 1
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, window=window,
+                                  softcap=softcap)
+    atol, rtol = FLASH_TOL[dtype]
+    for got, exp in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and got.shape == exp.shape
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+def test_flash_attention_autograd_on_card_matches_cpu(cuda):
+    """The autograd function: forward kernel, then the two backward kernels,
+    against the same function on the CPU (plain versions), float32."""
+    r = np.random.default_rng(3)
+    arrays = [r.standard_normal(shape).astype(np.float32)
+              for shape in ((2, 45, 8, 64), (2, 45, 2, 64), (2, 45, 2, 64))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays)
+        out = kattn.flash_attention(q, k, v, True, None, 15.0)
+        out.square().sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)] + [out.detach().cpu()]
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        _close(got, want, torch.float32)
+
+
+def test_flash_backward_refusals(cuda):
+    r = np.random.default_rng(8)
+    q, k, v, dout, out, lse = _flash_case(r, cuda, torch.float32, 1, 8, 4, 2, 32,
+                                          None, None)
+    delta = ref.flash_delta(out, dout)
+    kattn.reset_launch_counts()
+    half = [t.half() for t in (q, k, v, dout)]
+    with pytest.raises(TypeError, match="dtype"):
+        kattn.flash_dq(*half, lse, delta)
+    with pytest.raises(TypeError, match="dtype"):
+        kattn.flash_dkv(*half, lse, delta)
+    bad = torch.zeros((1, 8, 4, 48), device=cuda)  # no head-dim-48 instance
+    stat = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        kattn.flash_dq(bad, bad[:, :, :2], bad[:, :, :2], bad, stat, stat)
+    with pytest.raises(ValueError, match="head dim"):
+        kattn.flash_dkv(bad, bad[:, :, :2], bad[:, :, :2], bad, stat, stat)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        kattn.flash_attention(q, k, v, causal=False)
+    assert kattn.flash_dq.launches == 0 and kattn.flash_dkv.launches == 0
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -158,3 +243,36 @@ def test_engine_on_card_matches_cpu(cuda):
     out_cpu = ServeEngine(cfg, cpu_params, device="cpu", **kw).generate(reqs)
     assert [o.tokens.tolist() for o in out_card] == [o.tokens.tolist() for o in out_cpu]
     assert counts["chunk_attention"] > 0 and counts["paged_decode_attention"] > 0
+
+
+def test_training_on_card_matches_cpu(cuda):
+    """Reduced Yi-6B (hd 64, remat on) in float32 with identical weights:
+    4 steps of ``StepEngine.for_lm(attn_impl="pallas")`` with a tick-fired
+    DiveBatch program on the card (kernels) and on the CPU (plain
+    versions) give the same losses, parameters and batch schedule."""
+    from repro_torch.launch import train_lm
+
+    cfg = get_config("yi-6b", reduced=True).replace(d_model=256, num_heads=4,
+                                                    num_kv_heads=2, remat=True)
+    cpu_params = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card_params = tf.build(cfg, cuda)
+    card_params.load_state_dict(cpu_params.state_dict())
+    outs, counts = {}, {}
+    for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
+        program = train_lm.make_program("divebatch", m0=4, m_max=8, delta=0.5,
+                                        granule=2, lr=0.05, tick_every=2)
+        kattn.reset_launch_counts()
+        outs[dev] = train_lm.train(cfg, params, program, steps=4, seq_len=32,
+                                   micro_batch=2, log=lambda line: None)
+        counts[dev] = kattn.launch_counts()
+    np.testing.assert_allclose([r["loss"] for r in outs["cuda"]["records"]],
+                               [r["loss"] for r in outs["cpu"]["records"]], rtol=1e-4)
+    for a, b in zip(card_params.parameters(), cpu_params.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)
+    assert ([r["batch"] for r in outs["cuda"]["records"]]
+            == [r["batch"] for r in outs["cpu"]["records"]])
+    n_micro = sum(r["num_micro"] for r in outs["cuda"]["records"])
+    assert counts["cuda"] == {"chunk_attention": 2 * 2 * n_micro,
+                              "paged_decode_attention": 0,
+                              "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro}
+    assert not any(counts["cpu"].values())

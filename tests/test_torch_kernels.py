@@ -177,7 +177,11 @@ def test_cpu_path_launches_nothing():
     tk.reset_launch_counts()
     tk.chunk_attention(*_t(*_chunk_case(5)))
     tk.paged_decode_attention(*_t(*_paged_case(5)))
-    assert tk.launch_counts() == {"chunk_attention": 0, "paged_decode_attention": 0}
+    q, k, v = (t.requires_grad_(True) for t in _t(*_qkv(np.random.default_rng(5),
+                                                       1, 9, 9, 4, 2, 16)))
+    tk.flash_attention(q, k, v).sum().backward()
+    assert tk.launch_counts() == {"chunk_attention": 0, "paged_decode_attention": 0,
+                                  "flash_dq": 0, "flash_dkv": 0}
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
@@ -238,3 +242,89 @@ def test_plain_versions_equal_the_oracle_module():
     case = _t(*_chunk_case(9))
     torch.testing.assert_close(tk.chunk_attention(*case),
                                tref.attention_ref(*case), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# flash attention with its recompute backward (the training path)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # b, s, h, kv, hd, window, softcap
+    (1, 16, 2, 2, 16, None, None),   # one block, n_rep 1
+    (2, 37, 4, 1, 32, None, None),   # ragged S, GQA n_rep 4
+    (1, 45, 4, 2, 16, None, 20.0),   # softcap
+    (1, 50, 4, 2, 16, 7, None),      # sliding window
+    (1, 64, 2, 1, 32, 20, 15.0),     # window across blocks + softcap
+]
+
+
+def _jax_flash_vjp(q, k, v, dout, window, softcap):
+    """The reference Pallas flash kernel (interpret mode, 16-blocks) and its
+    custom_vjp backward."""
+    import jax
+
+    def f(q_, k_, v_):
+        return jk.flash_attention(q_, k_, v_, True, window, softcap, 16, 16, True)
+
+    out, vjp = jax.vjp(f, *_j(q, k, v))
+    return (out, *vjp(jnp.asarray(dout)))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_and_grads_match_reference(case):
+    """``flash_attention`` forward and its dq, dk, dv (autograd through the
+    plain versions on the CPU) against the reference kernel through
+    ``jax.vjp``: ragged S, GQA, softcap and window, atol 1e-5."""
+    b, s, h, kv, hd, window, softcap = case
+    r = np.random.default_rng(s + h)
+    q, k, v = _qkv(r, b, s, s, h, kv, hd)
+    dout = r.standard_normal(q.shape).astype(np.float32)
+    tq, tk_, tv = (t.requires_grad_(True) for t in _t(q, k, v))
+    out = tk.flash_attention(tq, tk_, tv, True, window, softcap)
+    out.backward(torch.from_numpy(dout))
+    want = _jax_flash_vjp(q, k, v, dout, window, softcap)
+    for got, exp in zip((out.detach(), tq.grad, tk_.grad, tv.grad), want):
+        assert got.shape == exp.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[1:3])
+def test_flash_backward_wrappers_match_reference_passes(case):
+    """The dq and dk/dv wrappers' CPU paths, fed the forward's lse and
+    ``delta = rowsum(dout * out)``, equal the reference's ``_flash_backward``
+    (its two Pallas passes plus the n_rep fold)."""
+    b, s, h, kv, hd, window, softcap = case
+    r = np.random.default_rng(11 * s)
+    q, k, v = _qkv(r, b, s, s, h, kv, hd)
+    dout = r.standard_normal(q.shape).astype(np.float32)
+    tq, tkk, tv, tdo = _t(q, k, v, dout)
+    pos = torch.arange(s)
+    out, lse = tk.chunk_attention_fwd(tq, tkk, tv, pos, pos, torch.ones(s, dtype=torch.bool),
+                                      window=window, softcap=softcap)
+    delta = tref.flash_delta(out, tdo)
+    dq = tk.flash_dq(tq, tkk, tv, tdo, lse, delta, window=window, softcap=softcap)
+    dk, dv = tk.flash_dkv(tq, tkk, tv, tdo, lse, delta, window=window, softcap=softcap)
+    jout, jlse = jk._flash_forward(
+        *_j(q, k, v), jnp.arange(s), jnp.arange(s), jnp.ones((s,), jnp.int32), True,
+        window, softcap, 16, 16, True)
+    want = jk._flash_backward(*_j(q, k, v), jout, jlse, jnp.asarray(dout), True, window,
+                              softcap, 16, 16, True)
+    for got, exp in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+    # and the plain backward is those two wrappers together
+    for got, exp in zip(tref.flash_backward_ref(tq, tkk, tv, out, lse, tdo, window=window,
+                                                softcap=softcap), (dq, dk, dv)):
+        torch.testing.assert_close(got, exp, rtol=0, atol=0)
+
+
+def test_flash_attention_refuses_what_it_has_no_kernel_for():
+    q, k, v = _t(*_qkv(np.random.default_rng(1), 1, 8, 8, 2, 2, 16))
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        tk.flash_attention(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="Sk == Sq"):
+        tk.flash_attention(q, k[:, :-1], v[:, :-1])
+    stat = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="lse and delta"):
+        tk.flash_dq(q, k, v, q, stat[:, :1], stat)
+    with pytest.raises(ValueError, match="no path for device"):
+        tk.flash_dkv(*[x.to("meta") for x in (q, k, v, q, stat, stat)])
