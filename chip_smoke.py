@@ -43,7 +43,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      with identical weights trains 6 steps with a DiveBatch program (a tick
      every 2 steps) on the card (kernels) and on the CPU (plain versions):
      losses within 1e-4 relative, parameters within 1e-4 absolute, the same
-     batch schedule and num_micro buckets.
+     batch schedule and num_micro buckets;
+  8. the gram tier: phase 6's model and cut (``attn_impl="pallas"``) trained
+     8 steps through a hand-built tiered ``StepEngine`` (``estimator=
+     "gram"``, probes from ``repro_torch.models.probes``) under a DiveBatch
+     program reading the gram signals (m0 4, m_max 8, delta 2, a tick every
+     4 steps), which must resize once.  Launches per microbatch exactly 16
+     chunk, 8 dq, 8 dk/dv, 2 psgn_fused (the q/o and the k/v groups), 24
+     psgn_gram (gate, up, down) and no psgn_direct.  Then one microbatch
+     timed in parts (main pass, probe pass, psgn kernels), and
+     ``probes.persample_sq_norms_gram`` on it: 32 psgn_direct and 24
+     psgn_gram launches, its (B,) result within 1e-4 relative of the tree's
+     (direct against fused, on the card);
+  9. the gram tier on the card against the CPU: a reduced float32 Yi-6B (hd
+     64, d_ff 1024, S 128, where every layer takes the dispatch Yi-6B takes
+     at S 2048) trains 5 steps (a tick every 2): losses, Delta at the ticks
+     and ``sq_norm_sum`` within 1e-4 relative, parameters within 1e-4, one
+     batch schedule.
 
 Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
 their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
@@ -54,6 +70,16 @@ outputs are float32 from bf16 inputs, rounded at the same points as the
 plain version, so the bf16 cases are held at 2e-3 absolute (no relative
 term), a tenth of a typical dq at S 2048; each case prints the RMS of the
 plain dq, dk and dv beside its error.
+
+Phase 3 also holds the per-sample gradient-norm kernels (psgn direct, gram
+and fused over 3 layers) against their plain versions: float32, bf16 and
+bf16 activations with float32 deltas, ragged S and widths, a single
+position, tile edges; then the gram tier's slice shapes (B 2, S 2048, bf16):
+fused over the 16 q/o layers (the record) and the 16 k/v layers, gram at
+4096 -> 11008, direct at q with float32 deltas as the standalone entry point
+calls it, timed beside the plain version and a cuBLAS yardstick.  Products
+of bf16 values are exact in float32, so every psgn case is held at 1e-4
+relative, and prints the plain values beside its error.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -75,21 +101,28 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.data import TokenStream  # noqa: E402
+from repro_torch.kernels import _build, ops, psgn, ref  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
+from repro_torch.models import probes  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.train import StepEngine, lm_bucket_of, make_train_step  # noqa: E402
 
-# H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM3 bytes/s and
-# dense bf16 tensor-core FLOP/s
+# H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM3 bytes/s, dense
+# bf16 tensor-core FLOP/s, and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (atol, rtol) of the flash backward's float32 outputs, by input dtype
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 0.0)}
 YI = get_config("yi-6b")
+NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
 
 
 def phase(name: str) -> None:
@@ -124,8 +157,8 @@ def timed_ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_BF16
+def bound(n_bytes: float, flops: float, peak: float = PEAK_BF16) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -349,6 +382,120 @@ def flash_kernel_records(r) -> list[dict]:
     ]
 
 
+# per-sample gradient norms: f32 and bf16 inputs, and bf16 activations with
+# the float32 deltas the standalone entry point passes; products of bf16
+# values are exact in float32, so every case is held at 1e-4 relative
+PSGN_TOL = 1e-4
+PSGN_TYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16,) * 2,
+              "bf16 x f32": (torch.bfloat16, torch.float32)}
+
+
+def psgn_inputs(r, shape, dtypes):
+    """x (..., S, Din) and delta (..., S, Dout) on the card for the shape
+    (..., S, Din, Dout)."""
+    *lead, s, d_in, d_out = shape
+    x = torch.from_numpy(r.standard_normal((*lead, s, d_in))).to("cuda", dtypes[0])
+    d = torch.from_numpy(r.standard_normal((*lead, s, d_out))).to("cuda", dtypes[1])
+    return x, d
+
+
+def psgn_check(name, got, want) -> tuple[float, float]:
+    """(max abs err, max rel err) of a (B,) psgn result; fails over
+    PSGN_TOL relative."""
+    err = (got - want.float()).abs()
+    rel = (err / want.float().abs()).max().item()
+    if rel > PSGN_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: max rel err {rel:.3e} > {PSGN_TOL}")
+    return err.max().item(), rel
+
+
+def psgn_case(name, shape, dtypes, r) -> None:
+    x, d = psgn_inputs(r, shape, dtypes)
+    xs, ds = psgn_inputs(r, (3, *shape), dtypes)
+    for label, got, want in (
+            ("direct", psgn.psgn_direct(x, d), ref.psgn_ref(x, d)),
+            ("gram", psgn.psgn_gram(x, d), ref.psgn_gram_ref(x, d)),
+            ("fused (L 3)", psgn.psgn_fused(xs, ds), ref.psgn_fused_ref(xs, ds))):
+        torch.cuda.synchronize()
+        _, rel = psgn_check(f"psgn {label} {name}", got, want)
+        print(f"  psgn {label} {name}: max rel err {rel:.3e} (tol {PSGN_TOL}); plain "
+              f"{want.min().item():.6e}..{want.max().item():.6e}")
+
+
+def psgn_record(name, run, plain, library, *, err, moved, flops, peak, replaces,
+                source) -> dict:
+    ms, plain_ms, library_ms = timed_ms(run), timed_ms(plain), timed_ms(library)
+    bound_ms, by = bound(moved, flops, peak)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def psgn_kernel_records(r) -> list[dict]:
+    """The gram tier's launches at Yi-6B widths, B 2, S 2048: fused over the
+    16 q/o layers (the record) and the 16 k/v layers, gram at gate/up
+    (4096 -> 11008), direct at q as the standalone entry point calls it (bf16
+    activations, float32 deltas)."""
+    b, s, d, f = 2, 2048, YI.d_model, YI.d_ff
+    kv = YI.num_kv_heads * YI.resolved_head_dim
+    src = "src/repro_torch/kernels/csrc/"
+    bf16 = PSGN_TYPES["bf16"]
+
+    def fused_case(d_out):
+        xs, ds = psgn_inputs(r, (16, b, s, d, d_out), bf16)
+        got = psgn.psgn_fused(xs, ds)
+        want = ref.psgn_fused_ref(xs, ds)
+        err, rel = psgn_check(f"psgn_fused slice (L 16, {d} -> {d_out})", got, want)
+        print(f"  psgn_fused slice bf16 (L 16, B {b}, S {s}, {d} -> {d_out}): max rel err "
+              f"{rel:.3e}; plain {want.min().item():.6e}..{want.max().item():.6e}")
+        rec = psgn_record(
+            "psgn_fused", lambda: psgn.psgn_fused(xs, ds), lambda: ref.psgn_fused_ref(xs, ds),
+            lambda: torch.bmm(xs.flatten(0, 1).mT, ds.flatten(0, 1)).float().square()
+            .sum((1, 2)).view(16, b).sum(0),
+            err=err, moved=nbytes(xs, ds) + 4 * b, flops=2 * 16 * b * s * d * d_out,
+            peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:182",
+            source=src + "psgn_direct.cu")
+        del xs, ds
+        return rec
+
+    fused = fused_case(d)
+    fused_kv = fused_case(kv)
+    print(f"  psgn_fused at the k/v group (L 16, {d} -> {kv}): {fused_kv['ms']:.4f} ms "
+          f"(plain {fused_kv['plain_ms']:.4f}, library {fused_kv['library_ms']:.4f}); "
+          f"bound {fused_kv['bound_ms']:.4f} ms by {fused_kv['bound_by']}")
+
+    x, dl = psgn_inputs(r, (b, s, d, f), bf16)
+    got, want = psgn.psgn_gram(x, dl), ref.psgn_gram_ref(x, dl)
+    err, rel = psgn_check("psgn_gram slice", got, want)
+    print(f"  psgn_gram slice bf16 (B {b}, S {s}, {d} -> {f}): max rel err {rel:.3e}; "
+          f"plain {want.min().item():.6e}..{want.max().item():.6e}")
+    # the kernel forms the upper triangle of both Gram matrices: S(S+1)/2
+    # position pairs, a multiply-add per feature of each
+    gram = psgn_record(
+        "psgn_gram", lambda: psgn.psgn_gram(x, dl), lambda: ref.psgn_gram_ref(x, dl),
+        lambda: (torch.bmm(x, x.mT) * torch.bmm(dl, dl.mT)).sum((1, 2)),
+        err=err, moved=nbytes(x, dl) + 4 * b, flops=b * s * (s + 1) * (d + f),
+        peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:129",
+        source=src + "psgn_gram.cu")
+    del x, dl
+
+    x, dl = psgn_inputs(r, (b, s, d, d), PSGN_TYPES["bf16 x f32"])
+    got, want = psgn.psgn_direct(x, dl), ref.psgn_ref(x, dl)
+    err, rel = psgn_check("psgn_direct slice", got, want)
+    print(f"  psgn_direct slice bf16 x f32 (B {b}, S {s}, {d} -> {d}): max rel err "
+          f"{rel:.3e}; plain {want.min().item():.6e}..{want.max().item():.6e}")
+    # float32 deltas: no tensor-core type takes bf16 x float32 exactly, so
+    # the bound is at the float32 rate
+    direct = psgn_record(
+        "psgn_direct", lambda: psgn.psgn_direct(x, dl), lambda: ref.psgn_ref(x, dl),
+        lambda: torch.bmm(x.float().mT, dl).square().sum((1, 2)),
+        err=err, moved=nbytes(x, dl) + 4 * b, flops=2 * b * s * d * d, peak=PEAK_F32,
+        replaces="src/repro/kernels/psgn.py:65", source=src + "psgn_direct.cu")
+    del x, dl
+    torch.cuda.empty_cache()
+    return [direct, gram, fused]
+
+
 def kernels_phase() -> list[dict]:
     phase("3. kernels against their plain versions (TF32 off)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -380,7 +527,12 @@ def kernels_phase() -> list[dict]:
                                 softcap=20.0))
         flash_case(f"{tag} a single tile (S 16), hd 32",
                    flash_inputs(r, dtype, b=2, s=16, h=4, kv=2, hd=32))
-    records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r)]
+    for tag, dtypes in PSGN_TYPES.items():
+        for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
+                      (2, 129, 257, 129), (3, 1, 5, 9)):
+            psgn_case(f"{tag} (B, S, Din, Dout) {shape}", shape, dtypes, r)
+    records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
+               *psgn_kernel_records(r)]
     torch.cuda.empty_cache()
     for rec in records:
         print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
@@ -440,7 +592,7 @@ def full_width_phase() -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kattn.reset_launch_counts()
+        kernels.reset_launch_counts()
         t_start = time.perf_counter()
         rids = [engine.submit(q) for q in reqs[:-1]]
         steps = []  # (seconds, chunks run, decoded?) per engine step
@@ -464,7 +616,7 @@ def full_width_phase() -> dict:
             pass
         engine.pool.check()
         wall = time.perf_counter() - t_start
-        counts = kattn.launch_counts()
+        counts = kernels.launch_counts()
     finally:
         tf.decode_step, tf.prefill_chunk = orig_decode, orig_chunk
     results = [engine.result(rid) for rid in rids]
@@ -475,7 +627,7 @@ def full_width_phase() -> dict:
         raise AssertionError(f"unfinished requests: {[len(x.tokens) for x in results]}")
     want = {"chunk_attention": st.prefill_chunks * cfg.num_layers,
             "paged_decode_attention": st.steps * cfg.num_layers,
-            "flash_dq": 0, "flash_dkv": 0}
+            "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
     if counts != want or 0 in (want["chunk_attention"], want["paged_decode_attention"]):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     if st.shared_blocks == 0:
@@ -531,9 +683,9 @@ def card_vs_cpu_phase() -> None:
                     max_new_tokens=12) for n in (7, 40, 23, 64)]
     kw = dict(max_slots=4, max_seq=128, block_size=16, prompt_granule=16,
               prefill_chunk=32)
-    kattn.reset_launch_counts()
+    kernels.reset_launch_counts()
     out_card = ServeEngine(cfg, card, device="cuda", **kw).generate(reqs)
-    launched = kattn.launch_counts()
+    launched = kernels.launch_counts()
     out_cpu = ServeEngine(cfg, cpu, device="cpu", **kw).generate(reqs)
     tc = [o.tokens.tolist() for o in out_card]
     if tc != [o.tokens.tolist() for o in out_cpu]:
@@ -566,12 +718,12 @@ def train_phase() -> dict:
                                     granule=TRAIN_MICRO, lr=TRAIN_LR, tick_every=4)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kattn.reset_launch_counts()
+    kernels.reset_launch_counts()
     out = train_lm.train(cfg, params, program, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
                          micro_batch=TRAIN_MICRO, attn_impl="pallas",
                          log=lambda line: print("  " + line))
     torch.cuda.synchronize()
-    counts = kattn.launch_counts()
+    counts = kernels.launch_counts()
     recs = out["records"]
     for rec in recs:
         print(f"  step {rec['step']:2d}: batch {rec['batch']:2d} ({rec['num_micro']} "
@@ -585,7 +737,7 @@ def train_phase() -> dict:
     n_micro = sum(rec["num_micro"] for rec in recs)
     layers = cfg.num_layers
     want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
-            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro}
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
@@ -638,10 +790,10 @@ def train_card_vs_cpu_phase() -> None:
     for dev, model in (("cuda", card), ("cpu", cpu)):
         program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
                                         granule=2, lr=0.05, tick_every=2)
-        kattn.reset_launch_counts()
+        kernels.reset_launch_counts()
         out = train_lm.train(cfg, model, program, steps=6, seq_len=64, micro_batch=2,
                              attn_impl="pallas", log=lambda line: None)
-        runs[dev] = (out, kattn.launch_counts())
+        runs[dev] = (out, kernels.launch_counts())
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
     losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
     rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
@@ -661,6 +813,188 @@ def train_card_vs_cpu_phase() -> None:
     print(f"  losses within {rel:.3e} relative (tol 1e-4), parameters within {err:.3e} "
           f"(tol 1e-4); batch schedule {sched['cuda']}, buckets {buckets['cuda']} on "
           f"both; card launches {card_counts}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the gram tier at full width
+# ---------------------------------------------------------------------------
+
+GRAM_STEPS, GRAM_DELTA = 8, 2.0
+
+
+def gram_engine(cfg, optimizer, seq: int, micro_batch: int, device) -> StepEngine:
+    """The hand-built gram-tier engine: probes from
+    ``repro_torch.models.probes`` on every dense layer."""
+
+    def build(num_micro: int, tier: str):
+        return make_train_step(
+            cfg, optimizer, num_micro, estimator=tier,
+            probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+            probe_specs=lambda p, bsz: probes.probe_specs(cfg, bsz, seq, device=device))
+
+    engine = StepEngine(build, lm_bucket_of(micro_batch))
+    engine.tier = "gram"
+    return engine
+
+
+def timed_s(fn):
+    """(result, seconds) of ``fn()`` on the host clock, the card drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gram_train_phase() -> tuple[dict, dict]:
+    """Returns the launch counts of the training run and of the standalone
+    ``persample_sq_norms_gram`` call."""
+    phase(f"8. Yi-6B widths, {TRAIN_LAYERS} of 32 layers, bf16, remat: gram-tier DiveBatch "
+          f"through a hand-built tiered StepEngine")
+    cfg = YI.replace(num_layers=TRAIN_LAYERS, attn_impl="pallas")
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    print(f"  coverage of the probes: {probes.coverage(cfg):.4f} of the parameters")
+    engine = gram_engine(cfg, sgd(momentum=0.9), TRAIN_SEQ, TRAIN_MICRO, "cuda")
+    program = train_lm.make_program("divebatch", m0=4, m_max=8, delta=GRAM_DELTA,
+                                    granule=TRAIN_MICRO, lr=TRAIN_LR, tick_every=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=GRAM_STEPS, seq_len=TRAIN_SEQ,
+                         micro_batch=TRAIN_MICRO, engine=engine, estimator="gram",
+                         log=lambda line: print("  " + line))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = out["records"]
+    for rec in recs:
+        print(f"  step {rec['step']:2d}: batch {rec['batch']:2d} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms")
+    for rec in recs:
+        if "diversity" in rec:
+            print(f"  tick at step {rec['step']}: Delta {rec['diversity']:.6f}, gns "
+                  f"{rec['gns']:.6g}, batch {rec['batch']} -> {rec['next_batch']}")
+    if not all(np.isfinite(rec["loss"]) for rec in recs):
+        raise AssertionError(f"non-finite loss: {[rec['loss'] for rec in recs]}")
+    if len({rec["batch"] for rec in recs}) < 2:
+        raise AssertionError(f"no resize: {[rec['batch'] for rec in recs]}")
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers = cfg.num_layers
+    want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro,
+            "psgn_direct": 0, "psgn_gram": 3 * layers * n_micro, "psgn_fused": 2 * n_micro}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers}, 0 direct, "
+          f"{3 * layers} gram, 2 fused x {n_micro} microbatches)")
+    steady = recs[1:]
+    secs = [rec["seconds"] for rec in steady]
+    print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
+          f"{GRAM_STEPS}; by batch: " + ", ".join(
+              f"{m}: {1e3 * statistics.median([x['seconds'] for x in steady if x['batch'] == m]):.1f}"
+              for m in sorted({x['batch'] for x in steady})))
+    print(f"  tokens/s: {sum(rec['batch'] * TRAIN_SEQ for rec in steady) / sum(secs):.1f} "
+          f"over steps 2-{GRAM_STEPS}")
+    print(f"  peak device memory: {peak:.2f} GiB")
+    print(f"  stats: {json.dumps(engine.stats.as_dict())}")
+
+    # one microbatch, its parts timed apart: the main pass (loss and
+    # gradient), the probe pass, the psgn kernels over the probed layers
+    mb = {k: torch.from_numpy(v).to("cuda")
+          for k, v in TokenStream(cfg.vocab_size, seed=1).batch(
+              0, TRAIN_MICRO, TRAIN_SEQ).items()}
+    state_params = list(params.parameters())
+    hook = lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b)  # noqa: E731
+    specs = probes.probe_specs(cfg, TRAIN_MICRO, TRAIN_SEQ, device="cuda")
+    split = {}
+    for _ in range(2):  # the second round is the one kept
+        _, split["main pass"] = timed_s(lambda: torch.autograd.grad(
+            tf.loss_fn(cfg, params, mb)[0], state_params))
+        (_, acts, pgrads), split["probe pass"] = timed_s(
+            lambda: probes.probe_grads(hook, params, specs, mb))
+        tree, split["psgn kernels"] = timed_s(
+            lambda: ops.persample_sq_norm_tree(acts, pgrads, scale=float(TRAIN_MICRO)))
+    print("  one gram-tier microbatch: " + ", ".join(
+        f"{k} {1e3 * v:.1f} ms" for k, v in split.items())
+        + f"; total {1e3 * sum(split.values()):.1f} ms")
+
+    # the standalone entry point: every layer alone, so q, k, v, o go direct
+    kernels.reset_launch_counts()
+    alone = probes.persample_sq_norms_gram(cfg, params, mb)
+    torch.cuda.synchronize()
+    counts_alone = kernels.launch_counts()
+    want_alone = {**{k: 0 for k in counts_alone}, "psgn_direct": 4 * layers,
+                  "psgn_gram": 3 * layers}
+    if counts_alone != want_alone:
+        raise AssertionError(f"persample_sq_norms_gram launches {counts_alone}, "
+                             f"expected {want_alone}")
+    rel = ((alone - tree).abs() / tree.abs()).max().item()
+    if rel > PSGN_TOL or not torch.isfinite(alone).all():
+        raise AssertionError(f"direct against fused: {alone.tolist()} vs {tree.tolist()}")
+    print(f"  persample_sq_norms_gram: {alone.tolist()} (launches {4 * layers} direct, "
+          f"{3 * layers} gram); the tree (fused) {tree.tolist()}: max rel diff "
+          f"{rel:.3e} (tol {PSGN_TOL})")
+    del out, params, acts, pgrads, engine
+    torch.cuda.empty_cache()
+    return counts, counts_alone
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the gram tier, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def gram_card_vs_cpu_phase() -> None:
+    phase("9. reduced Yi-6B, float32: gram-tier training on the card (kernels) against "
+          "the CPU (plain versions)")
+    # hd 64 and d_ff 1024 at S 128: every layer takes the dispatch Yi-6B
+    # takes at S 2048 (q/o and k/v fused, gate/up/down gram)
+    cfg = get_config("yi-6b", reduced=True).replace(
+        num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, d_ff=1024, remat=True,
+        attn_impl="pallas")
+    seq = 128
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    card = tf.build(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                        granule=2, lr=0.05, tick_every=2)
+        engine = gram_engine(cfg, sgd(momentum=0.9), seq, 2, dev)
+        kernels.reset_launch_counts()
+        out = train_lm.train(cfg, model, program, steps=5, seq_len=seq, micro_batch=2,
+                             engine=engine, estimator="gram", log=lambda line: None)
+        runs[dev] = (out, kernels.launch_counts())
+    (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
+
+    def rel_err(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    losses = {d: [x["loss"] for x in o["records"]] for d, (o, _) in runs.items()}
+    deltas = {d: [x["diversity"] for x in o["records"] if "diversity" in x]
+              for d, (o, _) in runs.items()}
+    sq = {d: o["state"].div_state.sq_norm_sum.item() for d, (o, _) in runs.items()}
+    rels = {"losses": rel_err(losses["cuda"], losses["cpu"]),
+            "Delta at ticks": rel_err(deltas["cuda"], deltas["cpu"]),
+            "sq_norm_sum": rel_err([sq["cuda"]], [sq["cpu"]])}
+    if max(rels.values()) > 1e-4:
+        raise AssertionError(f"card against CPU: {rels} > 1e-4 relative")
+    err = max((a.detach().cpu() - b.detach()).abs().max().item()
+              for a, b in zip(card.parameters(), cpu.parameters()))
+    if err > 1e-4:
+        raise AssertionError(f"parameters differ by {err:.3e} > 1e-4")
+    sched = {d: [x["batch"] for x in o["records"]] for d, (o, _) in runs.items()}
+    if sched["cuda"] != sched["cpu"]:
+        raise AssertionError(f"batch schedules {sched} differ")
+    n_micro = sum(x["num_micro"] for x in card_out["records"])
+    if (card_counts["psgn_fused"], card_counts["psgn_gram"]) != (2 * n_micro, 6 * n_micro) \
+            or card_counts["psgn_direct"] or any(cpu_counts.values()):
+        raise AssertionError(f"launches: card {card_counts}, CPU {cpu_counts}")
+    print("  " + ", ".join(f"{k} within {v:.3e} relative" for k, v in rels.items())
+          + f" (tol 1e-4); parameters within {err:.3e} (tol 1e-4); batch schedule "
+          f"{sched['cuda']} on both; card launches {card_counts}")
 
 
 def main() -> int:
@@ -691,10 +1025,18 @@ def main() -> int:
     card_vs_cpu_phase()
     train_counts = train_phase()
     train_card_vs_cpu_phase()
-    # launches on the two main paths (serving, phase 4; training, phase 6)
+    gram_counts, alone_counts = gram_train_phase()
+    gram_card_vs_cpu_phase()
+    # launches on the main paths: serving (phase 4), training on the moment
+    # tier (phase 6), on the gram tier (phase 8) and the standalone
+    # per-sample norms (phase 8, last)
+    paths = {"serving": serve_counts, "training": train_counts,
+             "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts}
     for rec in records:
-        rec["launches"] = serve_counts[rec["name"]] + train_counts[rec["name"]]
-    print(f"\n  launches by path: serving {serve_counts}, training {train_counts}")
+        rec["launches"] = sum(c[rec["name"]] for c in paths.values())
+        if rec["launches"] == 0:
+            raise AssertionError(f"{rec['name']} was launched on no path")
+    print("\n  launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
 
     print()
     print(smi)

@@ -13,8 +13,10 @@ m_{k+1} = min(m_max, delta * n * Delta_hat).
 
 The moment tier recovers sum_i ||g_i||^2 from microbatch-sum norms with
 E||sum_{i<=m} g_i||^2 = m E||g||^2 + m(m-1) ||mu||^2: zero extra backward
-work.  The per-sample tiers (``persample_sq_norms``) come with the
-gram/exact tiers on transformer probes (ROADMAP.md, Queue A).
+work.  The gram tier, and the exact tier on its probe path, run in the
+train step (``train/step.py``, ``models/probes.py``); ``persample_sq_norms``,
+the exact tier's vmap path, comes with the paper's small models
+(ROADMAP.md, Queue A 4).
 
 The state lives on the device; the scalars are 0-d float32 tensors and the
 estimates are computed there, so a boundary reads one stacked result.
@@ -136,7 +138,7 @@ def estimate(state: DiversityState, estimator: str) -> torch.Tensor:
 
 
 def persample_sq_norms(*args, **kwargs):
-    """Per-sample gradient squared norms (the exact tier)."""
+    """Per-sample gradient squared norms (the exact tier's vmap path)."""
     raise NotImplementedError(
-        "persample_sq_norms (the exact tier) is not ported to repro_torch yet "
-        "(ROADMAP.md, Queue A: gram/exact tiers)")
+        "persample_sq_norms (the exact tier's vmap path, torch.func) is not "
+        "ported to repro_torch yet (ROADMAP.md, Queue A 4: the paper's own models)")

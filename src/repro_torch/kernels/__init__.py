@@ -1,8 +1,28 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-``attention.py`` holds the wrappers (chunk attention, fused paged decode,
-the flash-attention backward's dq and dk/dv) and ``flash_attention``, the
-autograd function over them; ``ref.py`` the float32 plain versions the CPU
+``attention.py`` holds the attention wrappers (chunk attention, fused paged
+decode, the flash-attention backward's dq and dk/dv) and ``flash_attention``,
+the autograd function over them; ``psgn.py`` the per-sample gradient-norm
+wrappers (direct, gram, fused) and ``ops.py`` their cost-model dispatch over
+a layer or a tree of layers; ``ref.py`` the float32 plain versions the CPU
 runs and the kernels are held against, ``_build.py`` the nvcc build, and
-``csrc/`` the CUDA sources.
+``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
+launch count.
 """
+
+from repro_torch.kernels import attention, psgn
+
+_COUNTED = (attention.chunk_attention, attention.paged_decode_attention,
+            attention.flash_dq, attention.flash_dkv,
+            psgn.psgn_direct, psgn.psgn_gram, psgn.psgn_fused)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in _COUNTED:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """``{wrapper name: kernel launches}`` for every kernel of the package."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -64,6 +64,18 @@ SIGNATURES = {
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _F, _F, _I, _P],
     ),
+    "psgn_direct": (
+        "psgn_direct_fwd",
+        # x_dtype, d_dtype, x, delta, partials, out, L, B, S, Din, Dout,
+        # n_partials, stream
+        [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "psgn_gram": (
+        "psgn_gram_fwd",
+        # x_dtype, d_dtype, x, delta, partials, out, B, S, Din, Dout,
+        # n_partials, stream
+        [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -318,16 +318,3 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "repro_torch yet (ROADMAP.md, Queue C)")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                  window, softcap)
-
-
-_COUNTED = (chunk_attention, paged_decode_attention, flash_dq, flash_dkv)
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in _COUNTED:
-        fn.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _COUNTED}

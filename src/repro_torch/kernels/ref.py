@@ -1,13 +1,14 @@
 """Plain PyTorch versions of the kernels: float32 oracles.
 
-Counterparts of ``attention_ref`` and ``paged_decode_ref`` in
-``repro/kernels/ref.py``, and of the flash backward's recompute
-(``_recompute_dlogits`` / ``_flash_backward`` in
-``repro/kernels/attention.py``).  They are what ``kernels/attention.py``'s
-wrappers run for a tensor on the CPU, and what the CUDA kernels are held
-against on the card: every input is upcast to float32, the softcap comes
-before the mask, and the softmax (or its recompute) runs over the whole key
-axis at once.
+Counterparts of ``psgn_ref``, ``psgn_gram_ref``, ``attention_ref`` and
+``paged_decode_ref`` in ``repro/kernels/ref.py``, of the flash backward's
+recompute (``_recompute_dlogits`` / ``_flash_backward`` in
+``repro/kernels/attention.py``), and ``psgn_fused_ref``, the sum over
+stacked layers ``psgn_fused`` computes.  They are what the wrappers in
+``kernels/attention.py`` and ``kernels/psgn.py`` run for a tensor on the
+CPU, and what the CUDA kernels are held against on the card: every input is
+upcast to float32; in attention the softcap comes before the mask, and the
+softmax (or its recompute) runs over the whole key axis at once.
 """
 
 from __future__ import annotations
@@ -15,6 +16,32 @@ from __future__ import annotations
 import torch
 
 _NEG_INF = -1e30
+
+
+def psgn_ref(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """(B,) per-sample ``||X_b^T Delta_b||_F^2`` in float32, forming the
+    per-sample gradient (the thing the kernels avoid).  x (B, S, Din),
+    delta (B, S, Dout)."""
+    g = torch.einsum("bsi,bsj->bij", x.float(), delta.float())
+    return (g * g).sum(dim=(1, 2))
+
+
+def psgn_gram_ref(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The same value through the Gram identity
+    ``sum_{t,t'} (x_t . x_t') (d_t . d_t')`` (an independent derivation)."""
+    xf, df = x.float(), delta.float()
+    gx = torch.einsum("bsi,bti->bst", xf, xf)
+    gd = torch.einsum("bsi,bti->bst", df, df)
+    return (gx * gd).sum(dim=(1, 2))
+
+
+def psgn_fused_ref(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """(B,) sum over L stacked layers of :func:`psgn_ref`, layer 0 first.
+    x (L, B, S, Din), delta (L, B, S, Dout)."""
+    total = psgn_ref(x[0], delta[0])
+    for layer in range(1, x.shape[0]):
+        total = total + psgn_ref(x[layer], delta[layer])
+    return total
 
 
 def _repeat(x: torch.Tensor, n_rep: int) -> torch.Tensor:

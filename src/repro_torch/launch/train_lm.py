@@ -76,20 +76,25 @@ def make_program(method: str, *, m0: int, m_max: int, delta: float, granule: int
 
 def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, *,
           steps: int, seq_len: int, micro_batch: int, attn_impl: str = "pallas",
-          data_seed: int = 0, log=print) -> dict:
+          data_seed: int = 0, log=print, engine: StepEngine | None = None,
+          estimator: str = "moment") -> dict:
     """Train ``params`` in place for ``steps`` optimizer steps.
 
     Each step's loss is read back (so a step's wall time covers its device
-    work); at every tick the signals are read, the accumulators reset and
-    the program decides the next batch.  Returns ``{"records": [per-step
-    dicts], "engine": StepEngine, "state": TrainState}``; a record holds
-    ``step, batch, num_micro, loss, seconds`` and, at ticks, ``diversity,
-    gns, next_batch``."""
+    work); at every tick the signals are read with ``estimator``, the
+    accumulators reset and the program decides the next batch.  ``engine``
+    defaults to ``StepEngine.for_lm`` (the moment tier); a prebuilt one (the
+    gram tier's, say) must have been built with ``sgd(momentum=0.9)`` and
+    ``micro_batch``.  Returns ``{"records": [per-step dicts], "engine":
+    StepEngine, "state": TrainState}``; a record holds ``step, batch,
+    num_micro, loss, seconds`` and, at ticks, ``diversity, gns,
+    next_batch``."""
     dev = next(params.parameters()).device
     opt = sgd(momentum=0.9)
     state = init_state(params, opt)
     stream = TokenStream(cfg.vocab_size, seed=data_seed)
-    engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl)
+    if engine is None:
+        engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl)
     m = program.batch_size
     records = []
     for step in range(steps):
@@ -101,7 +106,7 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
         rec = {"step": step + 1, "batch": m, "num_micro": m // micro_batch, "loss": loss,
                "seconds": time.perf_counter() - t0}
         if (step + 1) % program.tick_every == 0:
-            sig, state = read_signals(state, "moment", reset=True, batch_size=m, loss=loss)
+            sig, state = read_signals(state, estimator, reset=True, batch_size=m, loss=loss)
             program.observe(sig, Clock(epoch=step // program.tick_every, step=step + 1,
                                        boundary="tick"))
             rec.update(diversity=sig.diversity, gns=sig.gns, next_batch=program.batch_size)

@@ -14,12 +14,16 @@ import torch
 import torch.nn.functional as F
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor,
-          bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``x @ weight.T (+ bias)`` with the weight cast to ``x``'s type."""
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+          probe: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ weight.T (+ bias) (+ probe)`` with the weight, bias and probe
+    cast to ``x``'s type.  A zero ``probe`` leaves the value unchanged; its
+    gradient is the gradient of the layer's output (``models/probes.py``)."""
     y = x @ weight.to(x.dtype).t()
     if bias is not None:
         y = y + bias.to(x.dtype)
+    if probe is not None:
+        y = y + probe.to(x.dtype)
     return y
 
 

@@ -37,9 +37,10 @@ Entry points:
   decode_step(cfg, params, cache, tokens, pages=, tables=)
   prefill_chunk(cfg, params, row, pages, batch, offset, prior_tab, write_tab)
 
-Only the full-attention ('attn') mixer with a dense FFN is ported: the
-'attn_local' ring, 'mamba' state and MoE FFNs raise ``NotImplementedError``
-(ROADMAP.md, Queue C).
+Only attention mixers with a dense FFN are ported: training runs 'attn'
+and 'attn_local' (the sliding window goes to the attention lane), serving
+only 'attn' (the 'attn_local' ring raises there); 'mamba' state and MoE FFNs
+raise ``NotImplementedError`` (ROADMAP.md, Queue C).
 """
 
 from __future__ import annotations
@@ -66,6 +67,10 @@ def _not_ported(kind: str) -> NotImplementedError:
         f"{_NOT_PORTED.get(kind, repr(kind))} is not ported to repro_torch yet "
         f"(ROADMAP.md, Queue C)"
     )
+
+
+#: the mixers the training forward runs; serving runs only "attn"
+TRAIN_MIXERS = ("attn", "attn_local")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -127,7 +132,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, pos: int, dtype: torch.dtype):
         super().__init__()
         kind = cfg.pattern[pos]
-        if kind != "attn":
+        if kind not in TRAIN_MIXERS:
             raise _not_ported(kind)
         self.norm = Norm(cfg.d_model, cfg.norm_type, dtype)
         self.attn = Attention(cfg, dtype)
@@ -234,7 +239,7 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
     """Every layer in order; ``(x, moe_aux)`` with the aux loss 0 (no MoE).
     Under ``cfg.remat`` each layer is checkpointed: only its input is kept,
     and the backward runs its forward again."""
-    for _, p, blk in _layers(cfg, params):
+    for _, p, blk in _layers(cfg, params, TRAIN_MIXERS):
         if cfg.remat:
             # the forward draws no random numbers: no RNG state to replay
             x = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
@@ -280,7 +285,10 @@ class _XentChunked(torch.autograd.Function):
         scale = g / (b * s)
         w = weight.to(x.dtype)
         dx = torch.empty_like(x)
-        dw = torch.zeros(weight.shape, dtype=torch.float32, device=x.device)
+        # the float32 dW product runs only where the head takes a gradient
+        # (the probe pass of the gram tier differentiates w.r.t. probes only)
+        dw = (torch.zeros(weight.shape, dtype=torch.float32, device=x.device)
+              if ctx.needs_input_grad[1] else None)
         for i in range(0, s, chunk):
             xc = x[:, i:i + chunk]
             logits, capped = _chunk_logits(xc, w, softcap)
@@ -292,9 +300,10 @@ class _XentChunked(torch.autograd.Function):
                 dlogits = dlogits * (1.0 - capped * capped)
             dlogits = (dlogits * scale).to(x.dtype)
             dx[:, i:i + chunk] = dlogits @ w
-            dw.addmm_(dlogits.reshape(-1, dlogits.shape[-1]).t().float(),
-                      xc.reshape(-1, d).float())
-        return dx, dw.to(weight.dtype), None, None, None
+            if dw is not None:
+                dw.addmm_(dlogits.reshape(-1, dlogits.shape[-1]).t().float(),
+                          xc.reshape(-1, d).float())
+        return dx, None if dw is None else dw.to(weight.dtype), None, None, None
 
 
 def xent_chunked(x: torch.Tensor, weight: torch.Tensor, targets: torch.Tensor,
@@ -372,11 +381,12 @@ def init_pages(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     }
 
 
-def _layers(cfg: ModelConfig, params: Transformer):
-    """(repeat, pattern position, block) in layer order."""
+def _layers(cfg: ModelConfig, params: Transformer, kinds: tuple[str, ...] = ("attn",)):
+    """(repeat, pattern position, block) in layer order; a mixer outside
+    ``kinds`` raises."""
     for r in range(cfg.repeats):
         for p in range(cfg.period):
-            if cfg.pattern[p] != "attn":
+            if cfg.pattern[p] not in kinds:
                 raise _not_ported(cfg.pattern[p])
             yield r, p, params.blocks[r * cfg.period + p]
 

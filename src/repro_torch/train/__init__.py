@@ -1,7 +1,7 @@
 """The training path: state, the microbatched step with the in-step
 diversity tier, and the bucketed ``StepEngine``."""
 
-from repro_torch.train.engine import EngineStats, ModelFns, StepEngine
+from repro_torch.train.engine import EngineStats, ModelFns, StepEngine, lm_bucket_of
 from repro_torch.train.state import TrainState, init_state
 from repro_torch.train.step import epoch_end_host, make_train_step
 
@@ -13,4 +13,5 @@ __all__ = [
     "StepEngine",
     "EngineStats",
     "ModelFns",
+    "lm_bucket_of",
 ]

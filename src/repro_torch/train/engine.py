@@ -7,7 +7,9 @@ Counterpart of ``repro/train/engine.py``.  The engine owns
     cache is key accounting: ``EngineStats`` counts a "compile" per new key
     and a hit per reuse, which keeps ``compiles``, ``bucket_hits`` and
     ``buckets`` comparable with the reference engine (``compile_s`` stays 0).
-    The tier is always "moment", the one in-step tier ported;
+    A build of ``(key, tier)`` makes the engine tier-parameterised: setting
+    ``engine.tier`` switches the in-step estimator, and a flip back onto a
+    seen tier is a hit;
   * donation: the step updates the state's tensors in place, so the
     steady-state footprint is one state;
   * the step of ``train/step.py::make_train_step`` with the diversity tier
@@ -15,14 +17,17 @@ Counterpart of ``repro/train/engine.py``.  The engine owns
 
 Only ``for_lm`` builds an engine here; ``for_model_fns`` and the
 evaluation hooks the reference's ``Trainer`` uses come with the paper's
-small models (ROADMAP.md, Queue A).  There is no sharding and no elastic
-rung: the port runs on one device until the scale-out slice, and
-``as_dict()`` reports every rung as None.
+small models (ROADMAP.md, Queue A 4).  The gram tier on the LM runs on a
+hand-built engine: ``StepEngine(lambda n, tier: make_train_step(cfg, opt,
+n, estimator=tier, probe_loss=..., probe_specs=...), lm_bucket_of(m))``.
+There is no sharding and no elastic rung: the port runs on one device until
+the scale-out slice, and ``as_dict()`` reports every rung as None.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from typing import Callable
 
@@ -91,31 +96,66 @@ class EngineStats(metrics_lib.StatsView):
         }
 
 
+def lm_bucket_of(micro_batch: int | None) -> Callable[[dict], int]:
+    """The LM engines' bucket key: a global batch of B sequences runs as
+    ``B // micro_batch`` microbatches."""
+
+    def bucket_of(batch: dict) -> int:
+        if micro_batch is None:
+            raise ValueError(
+                "StepEngine.for_lm was built without micro_batch: use "
+                ".jitted(num_micro) directly, or pass micro_batch= to "
+                "enable .step()")
+        b = int(next(iter(batch.values())).shape[0])
+        if b % micro_batch != 0:
+            raise ValueError(
+                f"global batch {b} is not a multiple of micro_batch "
+                f"{micro_batch}; batch sizes must land on the bucket "
+                f"lattice (core/batch_policy.bucket)")
+        return max(b // micro_batch, 1)
+
+    return bucket_of
+
+
 class StepEngine:
     """Bucketed step cache around ``make_train_step``.
 
     ``build_step(key)`` returns the step function of one bucket key;
-    ``bucket_of(batch)`` maps a batch to its key.  ``tier`` is part of every
-    key, as in the reference, and is always "moment".
+    ``bucket_of(batch)`` maps a batch to its key.  ``build_step`` may
+    instead take ``(key, tier)``: the engine is then tier-parameterised, and
+    ``engine.tier`` (None until set; ``for_lm`` sets "moment") is passed to
+    the build and keys the cache by (bucket, tier), so a flip back onto a
+    seen tier is a hit.  As in the reference, setting ``tier`` on an engine
+    whose build takes no tier raises at the next step.
     """
 
-    tier = "moment"
-
-    def __init__(self, build_step: Callable[[int], Callable],
+    def __init__(self, build_step: Callable[..., Callable],
                  bucket_of: Callable[[dict], int]):
         self._build = build_step
         self._bucket_of = bucket_of
-        self._steps: dict[int, Callable] = {}
+        n_params = sum(1 for p in inspect.signature(build_step).parameters.values()
+                       if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD))
+        #: whether build_step takes the tier (see the class docstring)
+        self.tiered = n_params >= 2
+        #: the active estimator tier, part of every step key
+        self.tier = None
+        self._steps: dict[tuple, Callable] = {}
         self._keys: set[tuple] = set()
         self.stats = EngineStats()
 
     # -- step cache ------------------------------------------------------------
     def jitted(self, key: int) -> Callable:
-        """The step function of bucket ``key``, built on first use (the
-        reference's name for its not-yet-compiled jit)."""
-        if key not in self._steps:
-            self._steps[key] = self._build(key)
-        return self._steps[key]
+        """The step function of bucket ``key`` at the active tier, built on
+        first use (the reference's name for its not-yet-compiled jit)."""
+        if self.tier is not None and not self.tiered:
+            raise ValueError(
+                "engine.tier was set but build_step takes no tier argument; "
+                "tier flips on hand-built engines need a (key, tier) build")
+        skey = (key, self.tier)
+        if skey not in self._steps:
+            self._steps[skey] = (self._build(key, self.tier) if self.tiered
+                                 else self._build(key))
+        return self._steps[skey]
 
     def _executable(self, key: int, batch: dict) -> Callable:
         sig = (key, self.tier, tuple(batch),
@@ -148,7 +188,7 @@ class StepEngine:
         """Engine over ``ModelFns`` (the paper's reference models)."""
         raise NotImplementedError(
             "StepEngine.for_model_fns (the paper's small models) is not ported "
-            "to repro_torch yet (ROADMAP.md, Queue A)")
+            "to repro_torch yet (ROADMAP.md, Queue A 4)")
 
     @classmethod
     def for_lm(cls, cfg, optimizer: Optimizer, *, micro_batch: int | None = None,
@@ -162,19 +202,12 @@ class StepEngine:
         if attn_impl is not None:
             cfg = cfg.replace(attn_impl=attn_impl)
 
-        def bucket_of(batch: dict) -> int:
-            if micro_batch is None:
-                raise ValueError(
-                    "StepEngine.for_lm was built without micro_batch: use "
-                    ".jitted(num_micro) directly, or pass micro_batch= to "
-                    "enable .step()")
-            b = int(next(iter(batch.values())).shape[0])
-            if b % micro_batch != 0:
-                raise ValueError(
-                    f"global batch {b} is not a multiple of micro_batch "
-                    f"{micro_batch}; batch sizes must land on the bucket "
-                    f"lattice (core/batch_policy.bucket)")
-            return max(b // micro_batch, 1)
+        def build(num_micro: int, tier: str | None = None) -> Callable:
+            return step_lib.make_train_step(
+                cfg, optimizer, num_micro,
+                **({"estimator": tier} if tier is not None else {}))
 
-        return cls(lambda num_micro: step_lib.make_train_step(cfg, optimizer, num_micro),
-                   bucket_of)
+        eng = cls(build, lm_bucket_of(micro_batch))
+        # name the default tier so a flip away and back lands on the warm key
+        eng.tier = "moment"
+        return eng

@@ -7,13 +7,17 @@ fixed, the global batch is ``num_micro * micro_batch``, and
 ``train/engine.py::StepEngine`` keys its step programs by the pow2
 ``num_micro`` bucket.
 
-The diversity tier runs inside the step:
+The diversity tier runs inside the step (``estimator``):
 
   moment  Q += ||microbatch_sum_grad||^2 per microbatch: zero extra backward
           work, the tier used at 7B..1T scale.
-
-The per-sample tiers (``estimator="exact"`` / ``"gram"``) come with the
-gram/exact tiers on transformer probes (ROADMAP.md, Queue A) and raise here.
+  gram    Q += probe-trick per-sample norms (``kernels/psgn.py``) from one
+          extra probe-gradient pass after each microbatch's main gradient:
+          exact for the dense weights that dominate.
+  exact   with ``psn_impl="kernel"``: the same probe pass plus each probed
+          layer's bias term.  The vmap path (``psn_impl="vmap"``, per-sample
+          gradients of ``example_loss``) belongs with the paper's small
+          models and raises (ROADMAP.md, Queue A 4).
 
 What differs from the reference: the step runs eagerly, a Python loop over
 microbatches in place of ``lax.scan``, and updates the state's tensors in
@@ -33,12 +37,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import diversity
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
+from repro_torch.models.probes import probe_grads
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.train.state import TrainState
 from repro_torch.utils import pytree as ptu
-
-TIERS_NOT_PORTED = ("exact", "gram")
 
 
 def _to_micro(x: torch.Tensor, num_micro: int) -> torch.Tensor:
@@ -53,13 +57,31 @@ def _to_micro(x: torch.Tensor, num_micro: int) -> torch.Tensor:
     return x.reshape(num_micro, b // num_micro, *x.shape[1:])
 
 
-def _check_estimator(estimator: str) -> None:
-    if estimator in TIERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"estimator={estimator!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md, Queue A: gram/exact tiers)")
-    if estimator != "moment":
+def _check_estimator(estimator: str, example_loss, probe_loss, probe_specs,
+                     psn_impl: str) -> None:
+    """The reference's checks and messages, then the port's refusal of the
+    vmap path."""
+    if psn_impl not in ("auto", "vmap", "kernel"):
+        raise ValueError(f"unknown psn_impl {psn_impl!r}")
+    if psn_impl == "auto":
+        psn_impl = "vmap" if example_loss is not None else "kernel"
+    if estimator == "exact":
+        if psn_impl == "vmap" and example_loss is None:
+            raise ValueError("estimator='exact' needs example_loss")
+        if psn_impl == "kernel" and (probe_loss is None or probe_specs is None):
+            raise ValueError(
+                "estimator='exact' with psn_impl='kernel' needs "
+                "probe_loss and probe_specs"
+            )
+    if estimator == "gram" and (probe_loss is None or probe_specs is None):
+        raise ValueError("estimator='gram' needs probe_loss and probe_specs")
+    if estimator not in ("exact", "gram", "moment"):
         raise ValueError(f"unknown in-step estimator {estimator!r}")
+    if estimator == "exact" and psn_impl == "vmap":
+        raise NotImplementedError(
+            "psn_impl='vmap' (per-sample gradients of example_loss through "
+            "torch.func) is not ported to repro_torch yet (ROADMAP.md, Queue A 4: "
+            "the paper's own models); use psn_impl='kernel' with probes")
 
 
 def make_train_step(
@@ -68,13 +90,35 @@ def make_train_step(
     num_micro: int,
     *,
     estimator: str = "moment",
+    example_loss: Callable | None = None,
+    probe_loss: Callable | None = None,
+    probe_specs: Callable | None = None,
+    psn_chunk: int | None = None,
+    psn_impl: str = "auto",
 ) -> Callable[[TrainState, dict, float], tuple[TrainState, dict]]:
     """Returns ``train_step(state, batch, lr) -> (state, metrics)`` over the
     transformer LM loss.  ``batch`` holds tensors (or arrays) with a leading
     global-batch axis; they move to the parameters' device.  ``metrics``
     holds device scalars: ``loss`` (the mean over microbatches) and
-    ``grad_norm_sq``."""
-    _check_estimator(estimator)
+    ``grad_norm_sq``.
+
+    ``estimator`` selects the in-step tier (see the module docstring):
+    "moment" needs nothing extra; "gram", and "exact" with
+    ``psn_impl="kernel"``, need ``probe_loss(params, probes, batch) ->
+    (loss, acts)`` and ``probe_specs(params, batch_size) -> probes``
+    (``models/probes.py``).  ``psn_impl="auto"`` resolves as in the
+    reference: vmap when ``example_loss`` is given, else kernel.
+    ``psn_chunk`` bounds the vmap width and rides along until that path is
+    ported."""
+    _check_estimator(estimator, example_loss, probe_loss, probe_specs, psn_impl)
+
+    def _probe_sq_norms(params, mb: dict, *, bias: bool) -> torch.Tensor:
+        """One probe-gradient pass -> the summed per-sample sq-norms through
+        the psgn kernels (same-shape layers fused into one launch)."""
+        bsz = next(iter(mb.values())).shape[0]
+        _, acts, pgrads = probe_grads(probe_loss, params, probe_specs(params, bsz), mb)
+        return kernel_ops.persample_sq_norm_tree(acts, pgrads, scale=float(bsz),
+                                                 bias=bias).sum()
 
     def train_step(state: TrainState, batch: dict, lr) -> tuple[TrainState, dict]:
         params = ptu.leaves(state.params)
@@ -88,15 +132,20 @@ def make_train_step(
         sq_sum = torch.zeros((), dtype=torch.float32, device=dev)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for j in range(num_micro):
-            loss, _ = tf.loss_fn(cfg, state.params, {k: v[j] for k, v in micro.items()})
+            mb = {k: v[j] for k, v in micro.items()}
+            loss, _ = tf.loss_fn(cfg, state.params, mb)
             grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
                 for a, g in zip(grads_acc, grads):
                     a.add_(g)
-                # the moment statistic ||m * g_j||^2
-                sq_sum += (micro_global * micro_global) * ptu.tree_sq_norm(grads)
+                if estimator == "moment":  # the statistic ||m * g_j||^2
+                    sq_sum += (micro_global * micro_global) * ptu.tree_sq_norm(grads)
                 loss_sum += loss.detach().float()
+            # the main pass's graph is gone (autograd.grad freed it): the probe
+            # pass never holds activations beside it
             del grads, loss
+            if estimator != "moment":
+                sq_sum += _probe_sq_norms(state.params, mb, bias=estimator == "exact")
         with torch.no_grad():
             torch._foreach_div_(grads_acc, float(num_micro))
             grads = grads_acc

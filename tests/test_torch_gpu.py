@@ -7,9 +7,12 @@ inputs (the kernel rounds p to bf16 before the PV product and the output to
 bf16).  The flash backward kernels write float32 dq, dk and dv from bf16
 inputs, rounding at the same points as their plain version, so their bf16
 cases are held at 2e-3 absolute: the measured error at the training shape
-is 5e-4, and 2e-2 would be as large as a typical dq.  TF32 is off.  Whether a card is present is decided inside the
-``cuda`` fixture, so every worker collects the same tests; without a
-Hopper card they skip.
+is 5e-4, and 2e-2 would be as large as a typical dq.  The per-sample
+gradient-norm kernels write float32 from float32 or bf16 inputs, whose
+products are exact in float32: they are held at 1e-4 relative (the largest
+difference seen is 4e-6).  TF32 is off.  Whether a card is present is
+decided inside the ``cuda`` fixture, so every worker collects the same
+tests; without a Hopper card they skip.
 
 Run on the card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -18,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import attention as kattn
+from repro_torch.kernels import psgn
 from repro_torch.models import transformer as tf
 from repro_torch.serve import Request, ServeEngine
 
@@ -134,10 +139,11 @@ def test_launch_counters_and_refusals(cuda):
     r = np.random.default_rng(2)
     q, k, v, q_pos, k_pos, k_valid = _chunk_case(r, cuda, torch.float32,
                                                  1, 8, 8, 8, 4, 2, 32)
-    kattn.reset_launch_counts()
+    kernels.reset_launch_counts()
     kattn.chunk_attention(q, k, v, q_pos, k_pos, k_valid)
-    assert kattn.launch_counts() == {"chunk_attention": 1, "paged_decode_attention": 0,
-                                     "flash_dq": 0, "flash_dkv": 0}
+    assert kernels.launch_counts() == {"chunk_attention": 1, "paged_decode_attention": 0,
+                                       "flash_dq": 0, "flash_dkv": 0, "psgn_direct": 0,
+                                       "psgn_gram": 0, "psgn_fused": 0}
     bad = torch.zeros((1, 8, 4, 48), device=cuda)  # no head-dim-48 instance
     with pytest.raises(ValueError, match="head dim"):
         kattn.chunk_attention(bad, bad[:, :, :2], bad[:, :, :2], q_pos,
@@ -173,7 +179,7 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, case):
     q, k, v, dout, out, lse = _flash_case(r, cuda, dtype, b, s, h, kv, hd, window,
                                           softcap)
     delta = ref.flash_delta(out, dout)
-    kattn.reset_launch_counts()
+    kernels.reset_launch_counts()
     dq = kattn.flash_dq(q, k, v, dout, lse, delta, window=window, softcap=softcap)
     dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, window=window, softcap=softcap)
     torch.cuda.synchronize()
@@ -207,7 +213,7 @@ def test_flash_backward_refusals(cuda):
     q, k, v, dout, out, lse = _flash_case(r, cuda, torch.float32, 1, 8, 4, 2, 32,
                                           None, None)
     delta = ref.flash_delta(out, dout)
-    kattn.reset_launch_counts()
+    kernels.reset_launch_counts()
     half = [t.half() for t in (q, k, v, dout)]
     with pytest.raises(TypeError, match="dtype"):
         kattn.flash_dq(*half, lse, delta)
@@ -237,9 +243,9 @@ def test_engine_on_card_matches_cpu(cuda):
     reqs = [Request(prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
                     max_new_tokens=8) for n in (5, 30, 17)]
     kw = dict(max_slots=4, max_seq=64, prefill_chunk=16, block_size=8)
-    kattn.reset_launch_counts()
+    kernels.reset_launch_counts()
     out_card = ServeEngine(cfg, card_params, device=cuda, **kw).generate(reqs)
-    counts = kattn.launch_counts()
+    counts = kernels.launch_counts()
     out_cpu = ServeEngine(cfg, cpu_params, device="cpu", **kw).generate(reqs)
     assert [o.tokens.tolist() for o in out_card] == [o.tokens.tolist() for o in out_cpu]
     assert counts["chunk_attention"] > 0 and counts["paged_decode_attention"] > 0
@@ -261,10 +267,10 @@ def test_training_on_card_matches_cpu(cuda):
     for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
         program = train_lm.make_program("divebatch", m0=4, m_max=8, delta=0.5,
                                         granule=2, lr=0.05, tick_every=2)
-        kattn.reset_launch_counts()
+        kernels.reset_launch_counts()
         outs[dev] = train_lm.train(cfg, params, program, steps=4, seq_len=32,
                                    micro_batch=2, log=lambda line: None)
-        counts[dev] = kattn.launch_counts()
+        counts[dev] = kernels.launch_counts()
     np.testing.assert_allclose([r["loss"] for r in outs["cuda"]["records"]],
                                [r["loss"] for r in outs["cpu"]["records"]], rtol=1e-4)
     for a, b in zip(card_params.parameters(), cpu_params.parameters()):
@@ -274,5 +280,129 @@ def test_training_on_card_matches_cpu(cuda):
     n_micro = sum(r["num_micro"] for r in outs["cuda"]["records"])
     assert counts["cuda"] == {"chunk_attention": 2 * 2 * n_micro,
                               "paged_decode_attention": 0,
-                              "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro}
+                              "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro,
+                              "psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
+    assert not any(counts["cpu"].values())
+
+
+# (B, S, Din, Dout): ragged widths and S, one position, a tile edge, and the
+# slice's k/v width at a short S
+PSGN_CASES = [(2, 64, 32, 48), (1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
+              (3, 1, 5, 9), (2, 128, 128, 128), (1, 200, 512, 64)]
+PSGN_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
+
+
+def _psgn_pair(r, dev, shape, dtypes):
+    *lead, s, d_in, d_out = shape
+    x = torch.from_numpy(r.standard_normal((*lead, s, d_in))).to(dev, dtypes[0])
+    d = torch.from_numpy(r.standard_normal((*lead, s, d_out))).to(dev, dtypes[1])
+    return x, d
+
+
+@pytest.mark.parametrize("dtypes", PSGN_DTYPES, ids=["f32", "bf16", "bf16-f32"])
+@pytest.mark.parametrize("shape", PSGN_CASES)
+def test_psgn_kernels_match_plain(cuda, shape, dtypes):
+    """direct, gram and fused (3 stacked layers) against their plain versions
+    on the same inputs, each one launch; two runs give the same bits."""
+    r = np.random.default_rng(sum(shape))
+    x, d = _psgn_pair(r, cuda, shape, dtypes)
+    xs, ds = _psgn_pair(r, cuda, (3, *shape), dtypes)
+    kernels.reset_launch_counts()
+    got = {"direct": psgn.psgn_direct(x, d), "gram": psgn.psgn_gram(x, d),
+           "fused": psgn.psgn_fused(xs, ds)}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["psgn_direct"], counts["psgn_gram"], counts["psgn_fused"]) == (1, 1, 1)
+    want = {"direct": ref.psgn_ref(x, d), "gram": ref.psgn_gram_ref(x, d),
+            "fused": ref.psgn_fused_ref(xs, ds)}
+    for name, val in got.items():
+        assert val.dtype == torch.float32 and val.shape == (shape[0],)
+        torch.testing.assert_close(val.cpu(), want[name].cpu(), rtol=1e-4, atol=0)
+    assert torch.equal(psgn.psgn_gram(x, d), got["gram"])
+    assert torch.equal(psgn.psgn_fused(xs, ds), got["fused"])
+
+
+def test_psgn_kernels_at_the_slice_shapes(cuda):
+    """Yi-6B's gram-tier launches at S 2048, bf16: the fused k/v group (16
+    layers, 4096 -> 512) and the gram gate/up layer (4096 -> 11008)."""
+    r = np.random.default_rng(1)
+    xs, ds = _psgn_pair(r, cuda, (16, 2, 2048, 4096, 512), (torch.bfloat16,) * 2)
+    torch.testing.assert_close(psgn.psgn_fused(xs, ds).cpu(),
+                               ref.psgn_fused_ref(xs, ds).cpu(), rtol=1e-4, atol=0)
+    del xs, ds
+    x, d = _psgn_pair(r, cuda, (2, 2048, 4096, 11008), (torch.bfloat16,) * 2)
+    torch.testing.assert_close(psgn.psgn_gram(x, d).cpu(), ref.psgn_ref(x, d).cpu(),
+                               rtol=1e-4, atol=0)
+
+
+def test_psgn_refusals(cuda):
+    r = np.random.default_rng(3)
+    x, d = _psgn_pair(r, cuda, (2, 16, 8, 8), (torch.float32,) * 2)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="dtype"):
+        psgn.psgn_direct(x.half(), d)
+    with pytest.raises(TypeError, match="dtype"):
+        psgn.psgn_gram(x, d.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        psgn.psgn_direct(x.transpose(0, 1), d.transpose(0, 1))
+    with pytest.raises(ValueError, match="4-D"):
+        psgn.psgn_fused(x, d)
+    assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("tier", ["gram", "exact"])
+def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
+    """Reduced Yi-6B (hd 64, d_ff 1024) in float32 with identical weights at
+    S 128, where every layer takes the dispatch Yi-6B takes at S 2048: 4
+    steps of a hand-built engine on the gram tier (or the exact tier's
+    kernel path, which adds the bias terms), the kernel attention lane in
+    the main pass, with a tick-fired DiveBatch program reading that tier's
+    signals, on the card (kernels) and on the CPU (plain versions).  Losses,
+    Delta and parameters within 1e-4, one batch schedule, and the card's
+    psgn launches per microbatch exactly 2 fused and 3 * layers gram."""
+    from repro_torch.launch import train_lm
+    from repro_torch.models import probes
+    from repro_torch.optim import sgd
+    from repro_torch.train import StepEngine, lm_bucket_of, make_train_step
+
+    cfg = get_config("yi-6b", reduced=True).replace(d_model=256, num_heads=4,
+                                                    num_kv_heads=2, d_ff=1024,
+                                                    remat=True, attn_impl="pallas")
+    seq = 128
+    cpu_params = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card_params = tf.build(cfg, cuda)
+    card_params.load_state_dict(cpu_params.state_dict())
+    outs, counts = {}, {}
+    for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
+        opt = sgd(momentum=0.9)
+        eng = StepEngine(
+            lambda n, tier, dev=dev, opt=opt: make_train_step(
+                cfg, opt, n, estimator=tier, psn_impl="kernel",
+                probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+                probe_specs=lambda p, bsz: probes.probe_specs(cfg, bsz, seq, device=dev)),
+            lm_bucket_of(2))
+        eng.tier = tier
+        program = train_lm.make_program("divebatch", m0=4, m_max=8, delta=0.5,
+                                        granule=2, lr=0.05, tick_every=2)
+        kernels.reset_launch_counts()
+        outs[dev] = train_lm.train(cfg, params, program, steps=4, seq_len=seq,
+                                   micro_batch=2, engine=eng, estimator=tier,
+                                   log=lambda line: None)
+        counts[dev] = kernels.launch_counts()
+    recs = {d: o["records"] for d, o in outs.items()}
+    np.testing.assert_allclose([r["loss"] for r in recs["cuda"]],
+                               [r["loss"] for r in recs["cpu"]], rtol=1e-4)
+    np.testing.assert_allclose([r["diversity"] for r in recs["cuda"] if "diversity" in r],
+                               [r["diversity"] for r in recs["cpu"] if "diversity" in r],
+                               rtol=1e-4)
+    for a, b in zip(card_params.parameters(), cpu_params.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4)
+    assert [r["batch"] for r in recs["cuda"]] == [r["batch"] for r in recs["cpu"]]
+    n_micro = sum(r["num_micro"] for r in recs["cuda"])
+    assert counts["cuda"] == {"chunk_attention": 2 * 2 * n_micro,
+                              "paged_decode_attention": 0,
+                              "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro,
+                              "psgn_direct": 0, "psgn_gram": 3 * 2 * n_micro,
+                              "psgn_fused": 2 * n_micro}
     assert not any(counts["cpu"].values())

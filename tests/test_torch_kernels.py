@@ -1,4 +1,4 @@
-"""The port's serving-kernel wrappers against the JAX reference, on the CPU.
+"""The port's kernel wrappers against the JAX reference, on the CPU.
 
 On the CPU the wrappers in ``repro_torch.kernels.attention`` run their plain
 versions (``repro_torch.kernels.ref``); here they are held against the
@@ -10,6 +10,14 @@ with numpy from a seed and handed to both packages.  Tolerance: 2e-5
 absolute and relative in float32 (the two sum in different orders).  The
 plain attention lanes of ``repro_torch.models.attention`` are held against
 ``repro.models.attention`` the same way.
+
+The per-sample gradient-norm wrappers (``repro_torch.kernels.psgn``) and
+their dispatch (``repro_torch.kernels.ops``) are held against the
+reference's ``psgn_direct`` / ``psgn_gram`` / ``psgn_fused`` (interpret mode)
+and ``ref.psgn_ref`` over the shapes of ``tests/test_kernels.py``: 1e-5
+relative, float32 and bf16 inputs alike (bf16 values are exact in float32,
+so only the summation order differs).  Method choice and the tree's
+grouping must match exactly.
 """
 
 import jax.numpy as jnp
@@ -19,11 +27,16 @@ import torch
 from _hypothesis_compat import given, settings, strategies as st
 
 from repro.kernels import attention as jk
+from repro.kernels import ops as jops
+from repro.kernels import psgn as jpsgn
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.serve.blocks import BlockPool as JBlockPool
+from repro_torch import kernels as tkernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import attention as tk
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import psgn as tpsgn
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
 
@@ -174,14 +187,19 @@ def test_wrappers_keep_the_input_dtype_on_cpu():
 def test_cpu_path_launches_nothing():
     """The launch counts move only where a kernel launches: the CPU path
     never does."""
-    tk.reset_launch_counts()
+    tkernels.reset_launch_counts()
     tk.chunk_attention(*_t(*_chunk_case(5)))
     tk.paged_decode_attention(*_t(*_paged_case(5)))
     q, k, v = (t.requires_grad_(True) for t in _t(*_qkv(np.random.default_rng(5),
                                                        1, 9, 9, 4, 2, 16)))
     tk.flash_attention(q, k, v).sum().backward()
-    assert tk.launch_counts() == {"chunk_attention": 0, "paged_decode_attention": 0,
-                                  "flash_dq": 0, "flash_dkv": 0}
+    x, d = _t(*_psgn_inputs(np.random.default_rng(5), (2, 2, 12, 6, 5), np.float32))
+    tpsgn.psgn_direct(x[0], d[0])
+    tpsgn.psgn_gram(x[0], d[0])
+    tpsgn.psgn_fused(x, d)
+    assert tkernels.launch_counts() == {
+        "chunk_attention": 0, "paged_decode_attention": 0, "flash_dq": 0,
+        "flash_dkv": 0, "psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
@@ -328,3 +346,166 @@ def test_flash_attention_refuses_what_it_has_no_kernel_for():
         tk.flash_dq(q, k, v, q, stat[:, :1], stat)
     with pytest.raises(ValueError, match="no path for device"):
         tk.flash_dkv(*[x.to("meta") for x in (q, k, v, q, stat, stat)])
+
+
+# ---------------------------------------------------------------------------
+# per-sample gradient norms (the gram tier's kernels)
+# ---------------------------------------------------------------------------
+
+# the sweep of tests/test_kernels.py (B, S, Din, Dout), ragged ones included
+PSGN_SHAPES = [(2, 64, 32, 48), (3, 128, 16, 96), (1, 37, 19, 23), (2, 256, 128, 128),
+               (4, 33, 7, 130)]
+PSGN_DTYPES = {"f32": (np.float32, np.float32), "bf16": ("bfloat16", "bfloat16"),
+               "bf16-x-f32-delta": ("bfloat16", np.float32)}
+PSGN_TOL = dict(rtol=1e-5, atol=0)
+
+
+def _psgn_inputs(r, shape, dtype):
+    """float32 numpy x (..., S, Din) and delta (..., S, Dout) for the shape
+    (..., S, Din, Dout); values exact in ``dtype``."""
+    *lead, s, d_in, d_out = shape
+    x = r.standard_normal((*lead, s, d_in)).astype(np.float32)
+    d = r.standard_normal((*lead, s, d_out)).astype(np.float32)
+    if dtype == "bfloat16":  # round once; both packages get the same values
+        x, d = (torch.from_numpy(a).bfloat16().float().numpy() for a in (x, d))
+    return x, d
+
+
+def _both(x, d, dtypes):
+    """(torch, jax) pairs of x and delta in the named dtypes."""
+    tdt = {np.float32: torch.float32, "bfloat16": torch.bfloat16}
+    jdt = {np.float32: jnp.float32, "bfloat16": jnp.bfloat16}
+    tx, td = (torch.from_numpy(a).to(tdt[dt]) for a, dt in zip((x, d), dtypes))
+    jx, jd = (jnp.asarray(a, jdt[dt]) for a, dt in zip((x, d), dtypes))
+    return (tx, td), (jx, jd)
+
+
+def _close_rel(got, want):
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                               **PSGN_TOL)
+
+
+@pytest.mark.parametrize("dtypes", list(PSGN_DTYPES), ids=list(PSGN_DTYPES))
+@pytest.mark.parametrize("shape", PSGN_SHAPES)
+def test_psgn_direct_and_gram_match_reference(shape, dtypes):
+    """Both wrappers (CPU path) against the reference kernels in interpret
+    mode, at the ops dispatch's block sizes, and against ``ref.psgn_ref``."""
+    dts = PSGN_DTYPES[dtypes]
+    x, d = _psgn_inputs(np.random.default_rng(sum(shape)), shape, dts[0])
+    (tx, td), (jx, jd) = _both(x, d, dts)
+    want = np.asarray(jref.psgn_ref(jx, jd))
+    for method, fn in (("direct", tpsgn.psgn_direct), ("gram", tpsgn.psgn_gram)):
+        got = fn(tx, td)
+        assert got.dtype == torch.float32 and got.shape == (shape[0],)
+        _close_rel(got, want)
+        _close_rel(got, jops.persample_sq_norm(jx, jd, method=method, interpret=True))
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16"])
+def test_psgn_fused_matches_reference_kernel(dtypes):
+    """One fused call over L stacked layers against the reference's fused
+    kernel (interpret) and the sum of per-layer oracles; the CPU path is
+    ``ref.psgn_fused_ref``."""
+    dts = PSGN_DTYPES[dtypes]
+    x, d = _psgn_inputs(np.random.default_rng(11), (3, 4, 24, 10, 6), dts[0])
+    (tx, td), (jx, jd) = _both(x, d, dts)
+    got = tpsgn.psgn_fused(tx, td)
+    _close_rel(got, jpsgn.psgn_fused(jx, jd, block_i=8, block_j=8, block_s=16,
+                                     interpret=True))
+    _close_rel(got, sum(np.asarray(jref.psgn_ref(jx[i], jd[i])) for i in range(3)))
+    torch.testing.assert_close(got, tref.psgn_fused_ref(tx, td), rtol=0, atol=0)
+
+
+def test_psgn_gram_identity_refs_agree():
+    x, d = _t(*_psgn_inputs(np.random.default_rng(3), (2, 50, 12, 20), np.float32))
+    torch.testing.assert_close(tref.psgn_gram_ref(x, d), tref.psgn_ref(x, d),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_psgn_property_random_shapes(case):
+    """The reference's property sweep: random (B, S, Din, Dout) and dtype,
+    both factorisations against the reference oracle."""
+    r = np.random.default_rng(1000 + case)
+    shape = (int(r.integers(1, 5)), int(r.integers(1, 97)), int(r.integers(1, 90)),
+             int(r.integers(1, 90)))
+    dts = PSGN_DTYPES[("f32", "bf16")[case % 2]]
+    (tx, td), (jx, jd) = _both(*_psgn_inputs(r, shape, dts[0]), dts)
+    want = np.asarray(jref.psgn_ref(jx, jd))
+    _close_rel(tpsgn.psgn_direct(tx, td), want)
+    _close_rel(tpsgn.psgn_gram(tx, td), want)
+
+
+def test_choose_method_matches_reference_exactly():
+    """The FLOP-count dispatch on a grid of shapes, ties included (S 2048
+    at Yi-6B's q/o widths is a tie that goes to direct)."""
+    for s in (1, 16, 32, 37, 512, 2048, 4096):
+        for d_in in (7, 32, 64, 512, 4096, 11008):
+            for d_out in (5, 32, 128, 512, 4096, 11008):
+                assert tops.choose_method(s, d_in, d_out) == \
+                    jops.choose_method(s, d_in, d_out), (s, d_in, d_out)
+    assert tops.choose_method(2048, 4096, 4096) == "direct"
+    assert tops.choose_method(2048, 4096, 512) == "direct"
+    assert tops.choose_method(2048, 4096, 11008) == "gram"
+    assert tops.choose_method(2048, 11008, 4096) == "gram"
+    assert [tops._round_pow2(n) for n in (1, 2, 3, 37, 512, 513)] == [1, 2, 2, 32, 512, 512]
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16"])
+def test_persample_sq_norm_dispatch_and_2d_closed_form(dtypes):
+    """``ops.persample_sq_norm``: auto dispatch at a direct and a gram
+    shape, both methods forced, and the 2-D closed form."""
+    dts = PSGN_DTYPES[dtypes]
+    r = np.random.default_rng(21)
+    for shape in ((2, 40, 6, 5), (2, 8, 24, 40)):
+        (tx, td), (jx, jd) = _both(*_psgn_inputs(r, shape, dts[0]), dts)
+        for method in ("auto", "direct", "gram"):
+            _close_rel(tops.persample_sq_norm(tx, td, method=method),
+                       jops.persample_sq_norm(jx, jd, method=method, interpret=True))
+    (tx, td), (jx, jd) = _both(*_psgn_inputs(r, (5, 33, 7), dts[0]), dts)
+    _close_rel(tops.persample_sq_norm(tx, td), jops.persample_sq_norm(jx, jd))
+    with pytest.raises(ValueError, match="unknown method"):
+        tops.persample_sq_norm(tx[:, None], td[:, None], method="vmap")
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_persample_sq_norm_tree_matches_reference(bias):
+    """A tree of 7 layers in the gram tier's shape mix: two same-shape
+    direct groups (fused), a lone direct layer, gram layers and a 2-D layer;
+    the grouping exactly and the total against the reference's tree."""
+    r = np.random.default_rng(5 + bias)
+    b, s = 3, 16
+    widths = {"a.q": (32, 32), "a.k": (32, 16), "a.o": (32, 32), "b.q": (32, 32),
+              "b.k": (32, 16), "a.gate": (32, 64), "a.down": (64, 32), "lone": (9, 3)}
+    acts, deltas = {}, {}
+    for name, (d_in, d_out) in widths.items():
+        acts[name] = r.standard_normal((b, s, d_in)).astype(np.float32)
+        deltas[name] = r.standard_normal((b, s, d_out)).astype(np.float32)
+    acts["flat"] = r.standard_normal((b, 12)).astype(np.float32)
+    deltas["flat"] = r.standard_normal((b, 5)).astype(np.float32)
+    tacts = {n: torch.from_numpy(a) for n, a in acts.items()}
+    tdel = {n: torch.from_numpy(a) for n, a in deltas.items()}
+    groups = tops.group_layers(tacts, tdel)
+    assert [names for names in groups.values()] == [
+        ["a.q", "a.o", "b.q"], ["a.k", "b.k"], ["a.gate"], ["a.down"], ["lone"], ["flat"]]
+    assert [k[0] == "solo" for k in groups] == [False, False, True, True, False, True]
+    got = tops.persample_sq_norm_tree(tacts, tdel, scale=3.0, bias=bias)
+    want = jops.persample_sq_norm_tree(
+        {n: jnp.asarray(a) for n, a in acts.items()},
+        {n: jnp.asarray(a) for n, a in deltas.items()}, scale=3.0, bias=bias,
+        interpret=True)
+    _close_rel(got, want)
+
+
+def test_psgn_wrappers_refuse_bad_shapes_and_devices():
+    x, d = _t(*_psgn_inputs(np.random.default_rng(8), (2, 3, 10, 4, 6), np.float32))
+    with pytest.raises(ValueError, match="agree"):
+        tpsgn.psgn_direct(x[0], d[0, :, :-1])
+    with pytest.raises(ValueError, match="4-D"):
+        tpsgn.psgn_fused(x[0], d[0])
+    with pytest.raises(ValueError, match="empty"):
+        tpsgn.psgn_gram(x[0, :, :0], d[0, :, :0])
+    for fn, args in ((tpsgn.psgn_direct, (x[0], d[0])), (tpsgn.psgn_gram, (x[0], d[0])),
+                     (tpsgn.psgn_fused, (x, d))):
+        with pytest.raises(ValueError, match="no path for device"):
+            fn(*[a.to("meta") for a in args])

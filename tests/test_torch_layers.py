@@ -69,18 +69,23 @@ def test_rope_frequencies():
     _close(got, jl.rope_frequencies(128, 5_000_000.0), 1e-6)
 
 
+@pytest.mark.parametrize("with_probe", [False, True])
 @pytest.mark.parametrize("with_bias", [False, True])
-def test_dense(with_bias):
+def test_dense(with_bias, with_probe):
+    """The probe is added after the bias, as in the reference."""
     r = np.random.default_rng(4)
     x = r.standard_normal((2, 3, 16)).astype(np.float32)
     kernel = r.standard_normal((16, 24)).astype(np.float32)
     bias = r.standard_normal(24).astype(np.float32)
+    probe = r.standard_normal((2, 3, 24)).astype(np.float32)
     params = {"kernel": jnp.asarray(kernel)}
     if with_bias:
         params["bias"] = jnp.asarray(bias)
     got = tl.dense(torch.from_numpy(x), torch.from_numpy(kernel.T.copy()),
-                   torch.from_numpy(bias) if with_bias else None)
-    _close(got, jl.dense(params, jnp.asarray(x)), 1e-5)
+                   torch.from_numpy(bias) if with_bias else None,
+                   probe=torch.from_numpy(probe) if with_probe else None)
+    want = jl.dense(params, jnp.asarray(x), probe=jnp.asarray(probe) if with_probe else None)
+    _close(got, want, 1e-5)
 
 
 def test_embed():

@@ -216,12 +216,12 @@ def test_package_imports_without_jax():
     mods = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     ]
-    # the training slice's modules are among those walked
+    # the training slice's and the gram tier's modules are among those walked
     assert {f"repro_torch.{m}" for m in (
         "utils.pytree", "core.diversity", "core.controller", "optim.optimizer",
         "optim.schedules", "data.synthetic", "train.state", "train.step",
         "train.engine", "adapt.policy", "adapt.combinators", "adapt.program",
-        "launch.train_lm")} <= set(mods)
+        "launch.train_lm", "kernels.psgn", "kernels.ops", "models.probes")} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -11,6 +11,16 @@ pallas-vs-dense trajectory (``tests/test_engine.py``): losses 1e-5 relative,
 parameters 2e-4 absolute; the diversity accumulators and the signals read
 off them within 1e-4 relative.  Discrete outputs (batch sizes, buckets,
 engine counts, decisions) must match exactly.
+
+The gram tier and the exact tier on its probe path (``psn_impl="kernel"``)
+are held against the reference's ``make_train_step(..., estimator=...,
+probe_loss=..., probe_specs=..., psn_interpret=True)`` on reduced Yi-6B
+(``scan_layers=False`` in the reference, the dense attention lane in both):
+losses and ``sq_norm_sum`` within 1e-5 relative; ``grad_sum`` and the
+parameters within 1e-5 relative plus 5e-5 of each tensor's RMS (entries pass
+through zero, and ``grad_sum`` sums three steps of B times the mean
+gradient: the largest difference seen is 1.7e-5 of the RMS).  Decisions
+match in every discrete field, their float fields within 1e-5.
 """
 
 import dataclasses
@@ -26,12 +36,14 @@ from repro.configs import get_config as jget
 from repro.core import batch_policy as jbp
 from repro.core import diversity as jdiv
 from repro.data import TokenStream as JTokenStream
+from repro.models import probes as jprobes
 from repro.models import transformer as jtf
 from repro.optim import adamw as jadamw
 from repro.optim import apply_updates as japply
 from repro.optim import sgd as jsgd
 from repro.train import StepEngine as JStepEngine
 from repro.train import init_state as jinit_state
+from repro.train import make_train_step as jmake_train_step
 from repro_torch import adapt
 from repro_torch.configs import get_config
 from repro_torch.core import batch_policy as bp
@@ -39,9 +51,10 @@ from repro_torch.core import diversity
 from repro_torch.data import TokenStream
 from repro_torch.interop import params_from_jax, params_to_numpy
 from repro_torch.launch import train_lm
+from repro_torch.models import probes
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw, apply_updates, sgd
-from repro_torch.train import ModelFns, StepEngine, init_state, make_train_step
+from repro_torch.train import ModelFns, StepEngine, init_state, lm_bucket_of, make_train_step
 from repro_torch.train.step import _to_micro
 
 torch.set_num_threads(2)
@@ -169,7 +182,7 @@ def test_accumulate_and_reset_match_reference():
     diversity.reset_state(t)
     assert t.sample_count.item() == 0 and all(
         not v.any() for v in t.grad_sum.values())
-    with pytest.raises(NotImplementedError, match="gram/exact"):
+    with pytest.raises(NotImplementedError, match="Queue A 4"):
         diversity.persample_sq_norms(None, None, None)
 
 
@@ -371,14 +384,34 @@ def test_remat_and_dense_lane_give_the_same_gradients():
 
 
 def test_unported_paths_raise_and_name_the_queue():
+    """The per-sample tiers without their hooks raise the reference's
+    ValueErrors; the vmap path (per-sample gradients of example_loss) and
+    for_model_fns wait for the paper's models (Queue A 4)."""
     cfg = get_config("yi-6b", reduced=True)
-    for est in ("exact", "gram"):
-        with pytest.raises(NotImplementedError, match="gram/exact tiers"):
-            make_train_step(cfg, sgd(), 1, estimator=est)
+    with pytest.raises(ValueError, match="estimator='gram' needs probe_loss"):
+        make_train_step(cfg, sgd(), 1, estimator="gram")
+    with pytest.raises(ValueError, match="estimator='gram' needs probe_loss"):
+        StepEngine.for_lm(cfg, sgd(), micro_batch=2).jitted(1)  # tier moment: fine
+        eng = StepEngine.for_lm(cfg, sgd(), micro_batch=2)
+        eng.tier = "gram"
+        eng.jitted(1)
+    with pytest.raises(ValueError, match="psn_impl='kernel' needs"):
+        make_train_step(cfg, sgd(), 1, estimator="exact")
+    with pytest.raises(ValueError, match="unknown psn_impl"):
+        make_train_step(cfg, sgd(), 1, psn_impl="jvp")
+    example = lambda p, e: 0.0  # noqa: E731
+    for kw in (dict(psn_impl="vmap"), dict(psn_impl="auto")):
+        with pytest.raises(NotImplementedError, match="Queue A 4"):
+            make_train_step(cfg, sgd(), 1, estimator="exact", example_loss=example, **kw)
+    make_train_step(cfg, sgd(), 1, estimator="moment", example_loss=example)
     with pytest.raises(ValueError, match="unknown in-step estimator"):
         make_train_step(cfg, sgd(), 1, estimator="vmap")
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    with pytest.raises(NotImplementedError, match="Queue A 4"):
         StepEngine.for_model_fns(ModelFns(batch_loss=lambda p, b: 0.0), sgd())
+    eng = StepEngine(lambda n: make_train_step(cfg, sgd(), n), lm_bucket_of(2))
+    eng.tier = "gram"
+    with pytest.raises(ValueError, match="takes no tier argument"):
+        eng.jitted(1)
     model = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="Queue C"):
@@ -433,6 +466,132 @@ def test_train_lm_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train_lm.main(["--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# the gram tier and the exact tier's probe path
+# ---------------------------------------------------------------------------
+
+
+def _jax_probe_hooks(jcfg):
+    return dict(probe_loss=lambda p, pr, b: jprobes.loss_with_probes(jcfg, p, pr, b),
+                probe_specs=lambda p, n: jprobes.probe_specs(jcfg, n, SEQ))
+
+
+def _port_probe_hooks(cfg):
+    return dict(probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+                probe_specs=lambda p, n: probes.probe_specs(cfg, n, SEQ, device="cpu"))
+
+
+def _reduced_pair(seed):
+    jcfg = jget("yi-6b", reduced=True).replace(scan_layers=False)
+    cfg = get_config("yi-6b", reduced=True)
+    jparams = jtf.init_params(jcfg, jax.random.key(seed))
+    return jcfg, cfg, jparams, params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+
+
+def _tree_close(got, want):
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=5e-5 * np.sqrt(np.mean(b ** 2)))
+
+
+def _grad_sum_tree(div, cfg):
+    """The port's grad_sum (keyed by parameter name) as the reference tree."""
+    model = tf.build(cfg, "cpu", torch.float32)
+    model.load_state_dict(div.grad_sum)
+    return params_to_numpy(model, cfg)
+
+
+@pytest.mark.parametrize("num_micro", [1, 2])
+@pytest.mark.parametrize("estimator", ["gram", "exact"])
+def test_probe_tier_steps_match_reference(estimator, num_micro):
+    """3 sgd steps of the gram tier (or the exact tier with
+    ``psn_impl="kernel"``, which adds each layer's bias term) on batches of
+    4 sequences: losses, the diversity accumulators and the parameters."""
+    jcfg, cfg, jparams, params = _reduced_pair(5)
+    kw = dict(estimator=estimator, **({"psn_impl": "kernel"} if estimator == "exact" else {}))
+    jstep = jax.jit(jmake_train_step(jcfg, jsgd(), num_micro, psn_interpret=True,
+                                     **kw, **_jax_probe_hooks(jcfg)))
+    tstep = make_train_step(cfg, sgd(), num_micro, **kw, **_port_probe_hooks(cfg))
+    jstate, tstate = jinit_state(jparams, jsgd()), init_state(params, sgd())
+    stream = TokenStream(cfg.vocab_size, seed=3)
+    for step in range(3):
+        b = stream.batch(step, 4, SEQ)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                           jnp.float32(0.1))
+        tstate, tm = tstep(tstate, b, 0.1)
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(tstate.div_state.sq_norm_sum.item(),
+                                   float(jstate.div_state.sq_norm_sum), rtol=1e-5)
+    for name in ("mb_count", "sample_count"):
+        assert getattr(tstate.div_state, name).item() == \
+            float(getattr(jstate.div_state, name))
+    _tree_close(_grad_sum_tree(tstate.div_state, cfg), jstate.div_state.grad_sum)
+    _tree_close(params_to_numpy(tstate.params, cfg), jstate.params)
+
+
+def test_tier_flips_and_gram_signals_match_reference():
+    """Hand-built tiered engines in both packages over moment -> gram ->
+    moment flips and a resize: the same step keys, tiers and hit counts; at
+    two ticks the signals read with "gram" feed a DiveBatch program each,
+    which must decide identically."""
+    jcfg, cfg, jparams, params = _reduced_pair(7)
+    jeng = JStepEngine(
+        lambda n, tier: jmake_train_step(jcfg, jsgd(momentum=0.9), n, estimator=tier,
+                                         psn_interpret=True, **_jax_probe_hooks(jcfg)),
+        bucket_of=lambda batch: int(jax.tree.leaves(batch)[0].shape[0]) // 2)
+    teng = StepEngine(
+        lambda n, tier: make_train_step(cfg, sgd(momentum=0.9), n, estimator=tier,
+                                        **_port_probe_hooks(cfg)),
+        lm_bucket_of(2))
+    assert teng.tiered and teng.tier is None
+    jstate = jinit_state(jparams, jsgd(momentum=0.9))
+    tstate = init_state(params, sgd(momentum=0.9))
+    stream = TokenStream(cfg.vocab_size, seed=4)
+
+    def program(pkg):
+        return pkg.AdaptationProgram(
+            pkg.DiveBatchPolicy(4, 8, delta=4.0, dataset_size=None, granule=2,
+                                on_tick=True), 0.1, estimator="gram", tick_every=2)
+
+    jprog, tprog = program(jadapt), program(adapt)
+    tiers = ["moment", "gram", "gram", "moment", "gram", "gram"]
+    m, decided = 4, []
+    for step, tier in enumerate(tiers):
+        jeng.tier = teng.tier = tier
+        b = stream.batch(step, m, SEQ)
+        jstate, jm = jeng.step(jstate, {k: jnp.asarray(v) for k, v in b.items()}, 0.1)
+        tstate, tm = teng.step(tstate, b, 0.1)
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), rtol=1e-5)
+        if step in (2, 5):  # a tick over a window of two gram steps
+            jsig, jstate = jadapt.read_signals(jstate, "gram", reset=True, batch_size=m)
+            tsig, tstate = adapt.read_signals(tstate, "gram", reset=True, batch_size=m)
+            for field in ("diversity", "gns", "diversity_bound"):
+                np.testing.assert_allclose(getattr(tsig, field), getattr(jsig, field),
+                                           rtol=1e-4)
+            clock = dict(epoch=0, step=step + 1, boundary="tick")
+            ja = jprog.observe(jsig, jadapt.Clock(**clock))
+            ta = tprog.observe(tsig, adapt.Clock(**clock))
+            td, jd = dataclasses.asdict(ta), dataclasses.asdict(ja)
+            assert td.keys() == jd.keys()
+            for key, val in td.items():
+                if isinstance(val, float):
+                    np.testing.assert_allclose(val, jd[key], rtol=1e-5)
+                else:
+                    assert val == jd[key], key
+            m = tprog.batch_size
+        elif tier == "moment":  # a moment step leaves no statistic in a gram window
+            jsig, jstate = jadapt.read_signals(jstate, "moment", reset=True, batch_size=m)
+            adapt.read_signals(tstate, "moment", reset=True, batch_size=m)
+        decided.append(m)
+    assert len(set(decided)) > 1  # the gram signals resized the batch
+    t, j = teng.stats.as_dict(), jeng.stats.as_dict()
+    for key in ("compiles", "bucket_hits", "bucket_misses", "steps", "buckets", "rungs",
+                "tiers"):
+        assert t[key] == j[key], key
+    assert t["tiers"][:2] == ["moment", "gram"] and t["bucket_hits"] >= 2
 
 
 def test_schedules_match_reference():
