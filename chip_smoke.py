@@ -81,12 +81,42 @@ calls it, timed beside the plain version and a cuBLAS yardstick.  Products
 of bf16 values are exact in float32, so every psgn case is held at 1e-4
 relative, and prints the plain values beside its error.
 
+Phase 3 also holds the int8 quantisation kernel against its plain version,
+codes and scales BIT FOR BIT, float32 and bf16: rows not a multiple of a
+block, C of 1 and ragged, a row over several 4096-element chunks, an
+all-zero row, exact .5 ties, negative-max rows, rows holding a NaN or an
+infinity (NaN in the same rows), the pod slice's MLP leaves; then Yi-6B-width leaves, per tensor (1, 4096 x 11008) float32 (the
+record: the compressor views a leaf as one row) and rowwise (11008, 4096)
+in float32 and bf16, timed beside the plain version and a library
+yardstick (amax, divide, round, clamp, cast); bound = bytes / 3.35 TB/s.
+
+ 10. the pod slice: the paper's ``Trainer`` on ``PodLadder(pods=2,
+     granule=16)`` over eight virtual devices on the card, the MLP (512 ->
+     64 -> 1) on ``sigmoid_synthetic(n=20000, d=512)``, sgd with momentum
+     0.9 (lr 0.1), DiveBatch on the moment tier (m0 64 on rung 2, m_max
+     128, delta 0.1: Delta is near 1 at the first boundary, so the run moves
+     to batch 128 on the cross-pod rung 3); 3 epochs, then pod 1 is marked
+     lost, ``demote`` moves the run 3 -> 2, and one more epoch.  The launch
+     counts, set to 0 before and read after, must be exactly 2 pods x 4
+     leaves ``quantize_int8`` launches per cross-pod step and nothing else;
+     prints per epoch the batch, rung, losses and ms per step, the wire
+     bytes per exchange and the peak memory;
+ 11. the pod slice on the card against the CPU: the same run for 2 epochs
+     on ``[cuda:0] * 8`` and ``[cpu] * 8`` from identical weights: the same
+     (batch, rung, steps) schedule, losses within 1e-3 relative,
+     parameters within 1e-2; the codes that differ at the last exchange
+     are counted and printed (the runs have drifted apart by then), and at
+     one exchange from the same state and batch on both devices at most 8
+     of the 65794 codes may differ, and the others' residuals by at most
+     1e-3 quanta.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -103,15 +133,19 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data import TokenStream  # noqa: E402
-from repro_torch.kernels import _build, ops, psgn, ref  # noqa: E402
+from repro_torch.adapt import AdaptationProgram, DiveBatchPolicy  # noqa: E402
+from repro_torch.data import TokenStream, sigmoid_synthetic  # noqa: E402
+from repro_torch.elastic import place  # noqa: E402
+from repro_torch.kernels import _build, ops, psgn, quant, ref  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
-from repro_torch.models import probes  # noqa: E402
+from repro_torch.models import probes, small  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from repro_torch.pod import PodLadder  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.train import StepEngine, lm_bucket_of, make_train_step  # noqa: E402
+from repro_torch.train.loop import ModelFns, Trainer  # noqa: E402
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, and float32 FLOP/s outside the tensor cores
@@ -122,7 +156,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (atol, rtol) of the flash backward's float32 outputs, by input dtype
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 0.0)}
 YI = get_config("yi-6b")
-NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
+NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0, "quantize_int8": 0}
 
 
 def phase(name: str) -> None:
@@ -496,6 +530,97 @@ def psgn_kernel_records(r) -> list[dict]:
     return [direct, gram, fused]
 
 
+def quant_cases(r) -> dict:
+    """The int8 quantisation's edge cases (float32 values): rows not a
+    multiple of a 256-row block, C of 1 and ragged, a row over several
+    4096-element chunks, an all-zero row, exact .5 ties, rows whose absmax
+    is a negative entry, rows holding a NaN or an infinity (a NaN or
+    infinite scale, every code 0); and the pod slice's four MLP leaves as
+    one row."""
+    ties = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 3.5]],
+                    np.float32)
+    neg = r.uniform(-1, 1, (6, 50)).astype(np.float32)
+    neg[np.arange(6), r.integers(0, 50, 6)] = -np.arange(2, 8, dtype=np.float32)
+    zero = r.standard_normal((5, 40)).astype(np.float32)
+    zero[2] = 0.0
+    bad = r.standard_normal((5, 4099)).astype(np.float32)
+    bad[0, 7], bad[1, 4098], bad[2, 901] = np.nan, np.inf, -np.inf
+    bad[3, [1, 4097]] = np.inf, np.nan
+    mlp = {f"MLP leaf {shape}": (r.standard_normal((1, int(np.prod(shape)))) * 0.01)
+           .astype(np.float32) for shape in ((POD_HIDDEN, POD_D), (POD_HIDDEN,),
+                                             (1, POD_HIDDEN), (1,))}
+    return {"ragged rows (300, 64)": r.standard_normal((300, 64)).astype(np.float32) * 3,
+            "C 1 (7, 1)": r.standard_normal((7, 1)).astype(np.float32),
+            "ragged C (33, 4099)": r.standard_normal((33, 4099)).astype(np.float32),
+            "one row over 3 chunks + 5": r.standard_normal((1, 3 * 4096 + 5)).astype(np.float32),
+            "zero row": zero, "ties": np.concatenate([ties, 2 * ties, ties / 4]),
+            "negative max": neg, "NaN and inf rows": bad, **mlp}
+
+
+def same_scales(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal scales, a NaN counting as equal to a NaN in the same row."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+def quant_case(name: str, x: torch.Tensor) -> float:
+    """The kernel against its plain version: codes and scales EQUAL.
+    Returns the largest difference of either (0.0)."""
+    q, s = quant.quantize_int8(x)
+    torch.cuda.synchronize()
+    want_q, want_s = ref.quantize_int8(x)
+    flipped = int((q != want_q).sum())
+    if flipped or not same_scales(s, want_s):
+        raise AssertionError(f"quantize_int8 {name} {x.dtype}: {flipped} codes and "
+                             f"{int((s != want_s).sum())} scales differ")
+    tag = "f32" if x.dtype == torch.float32 else "bf16"
+    finite = want_s.isfinite()
+    print(f"  quantize_int8 {tag} {name}: codes and scales bit-exact ({q.numel()} codes"
+          + (f"; {int((~finite).sum())} rows with NaN or infinite scales on both"
+             if not finite.all() else "") + ")")
+    return max((q.int() - want_q.int()).abs().max().item(),
+               (s[finite] - want_s[finite]).abs().max().item())
+
+
+def quant_library(x: torch.Tensor):
+    """The library yardstick: amax, divide, round, clamp, cast (timed only)."""
+    s = torch.amax(x.abs(), 1).float().clamp_min(1e-12) / 127.0
+    return torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8), s
+
+
+def quant_kernel_record() -> dict:
+    """Yi-6B-width gradient leaves: the gate weight per tensor (1, 4096 x
+    11008) in float32 (the record: the compressor views a leaf as one row),
+    and rowwise (11008, 4096) in float32 and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for shape, dtype in (((1, YI.d_model * YI.d_ff), torch.float32),
+                         ((YI.d_ff, YI.d_model), torch.float32),
+                         ((YI.d_ff, YI.d_model), torch.bfloat16)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
+        err = quant_case(f"Yi-6B leaf {shape}", x)
+        ms = timed_ms(lambda: quant.quantize_int8(x))
+        plain_ms = timed_ms(lambda: ref.quantize_int8(x))
+        library_ms = timed_ms(lambda: quant_library(x))
+        # x read once, the codes and the scales written once
+        bound_ms, by = bound(nbytes(x) + x.numel() + 4 * shape[0], 0.0)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"  quantize_int8 {tag} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
+              f"{library_ms:.4f}); bound {bound_ms:.4f} ms by {by}, "
+              f"{100 * bound_ms / ms:.1f}% of it")
+        rows.append((err, ms, plain_ms, library_ms, bound_ms, by))
+        del x
+    leaf = torch.randn((1, POD_HIDDEN * POD_D), generator=gen, device="cuda") * 0.01
+    print(f"  quantize_int8 at the pod slice's largest leaf (1, {POD_HIDDEN * POD_D}): "
+          f"{timed_ms(lambda: quant.quantize_int8(leaf)):.4f} ms")
+    err, ms, plain_ms, library_ms, bound_ms, by = rows[0]
+    return {"name": "quantize_int8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quant_int8.cu",
+            "replaces": "src/repro/kernels/quant.py:20", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": library_ms}
+
+
 def kernels_phase() -> list[dict]:
     phase("3. kernels against their plain versions (TF32 off)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -531,8 +656,11 @@ def kernels_phase() -> list[dict]:
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
                       (2, 129, 257, 129), (3, 1, 5, 9)):
             psgn_case(f"{tag} (B, S, Din, Dout) {shape}", shape, dtypes, r)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, x32 in quant_cases(r).items():
+            quant_case(name, torch.from_numpy(x32).to("cuda", dtype))
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
-               *psgn_kernel_records(r)]
+               *psgn_kernel_records(r), quant_kernel_record()]
     torch.cuda.empty_cache()
     for rec in records:
         print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
@@ -883,7 +1011,8 @@ def gram_train_phase() -> tuple[dict, dict]:
     layers = cfg.num_layers
     want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
             "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro,
-            "psgn_direct": 0, "psgn_gram": 3 * layers * n_micro, "psgn_fused": 2 * n_micro}
+            "psgn_direct": 0, "psgn_gram": 3 * layers * n_micro, "psgn_fused": 2 * n_micro,
+            "quantize_int8": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers}, 0 direct, "
@@ -997,6 +1126,191 @@ def gram_card_vs_cpu_phase() -> None:
           f"{sched['cuda']} on both; card launches {card_counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's Trainer on a two-pod PodLadder
+# ---------------------------------------------------------------------------
+
+# the paper's synthetic non-convex task (repro/launch/train.py): n 20000, d
+# 512, the 2-layer MLP with hidden d // 8; DiveBatch on the moment tier from
+# m0 64 (rung 2, pod 0 only) with the reference launcher's delta 0.1 and lr
+# 0.1.  At the first epoch boundary Delta is near 1, so m = min(128, 0.1 x
+# 16000 x Delta) = 128, and the run moves onto rung 3 (2 pods x 4)
+POD_N, POD_D, POD_HIDDEN, POD_LR = 20_000, 512, 64, 0.1
+POD_M0, POD_M_MAX, POD_DELTA = 64, 128, 0.1
+
+
+def pod_trainer(device, seed: int = 0) -> Trainer:
+    train, val, _ = sigmoid_synthetic(n=POD_N, d=POD_D, seed=seed)
+    params = small.mlp_init(torch.Generator().manual_seed(seed), POD_D, POD_HIDDEN,
+                            device=device)
+    fns = ModelFns(batch_loss=small.mlp_batch_loss, example_loss=small.mlp_loss,
+                   metrics=lambda p, b: {"acc": small.mlp_accuracy(p, b)})
+    program = AdaptationProgram(
+        DiveBatchPolicy(POD_M0, POD_M_MAX, POD_DELTA, dataset_size=len(train), granule=16),
+        POD_LR, estimator="moment")
+    return Trainer(fns, params, sgd(momentum=0.9), program, train, val,
+                   estimator="moment", seed=seed,
+                   elastic=PodLadder(pods=2, devices=[device] * 8, granule=16))
+
+
+def run_pod_epochs(trainer: Trainer, epochs: int, log=None) -> list[tuple]:
+    """``(batch, rung index, record)`` per epoch: the batch size and rung
+    the epoch ran at (a resize applies at the start of the next epoch; the
+    record's batch_size is the decision for the next)."""
+    out = []
+    for _ in range(epochs):
+        bsz = trainer.adapt.batch_size
+        rec = trainer.run_epoch()
+        out.append((bsz, trainer.rung.index, rec))
+        if log:
+            log(*out[-1])
+    return out
+
+
+def print_epoch(bsz, rung, rec) -> None:
+    print(f"  epoch {rec.epoch}: batch {bsz}, rung {rung}, {rec.steps} steps, train loss "
+          f"{rec.train_loss:.6f}, val loss {rec.val_loss:.6f}, val acc "
+          f"{rec.val_metrics['acc']:.4f}, Delta {rec.diversity:.6f} -> batch "
+          f"{rec.batch_size}; {1e3 * rec.wall_s / rec.steps:.3f} ms per step (epoch wall / "
+          f"steps)")
+
+
+def pod_phase() -> dict:
+    phase("10. the paper's Trainer on a two-pod PodLadder (8 virtual devices on the card): "
+          f"MLP {POD_D} -> {POD_HIDDEN} -> 1 on sigmoid_synthetic(n={POD_N})")
+    trainer = pod_trainer("cuda")
+    n_leaves = len(list(trainer.params.parameters()))
+    numel = sum(p.numel() for p in trainer.params.parameters())
+    print(f"  {numel} parameters in {n_leaves} leaves; DiveBatch m0 {POD_M0}, m_max "
+          f"{POD_M_MAX}, delta {POD_DELTA}, lr {POD_LR}, momentum 0.9, moment tier; "
+          f"ladder {trainer.elastic}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = run_pod_epochs(trainer, 3, print_epoch)
+    if runs[-1][1] != 3:
+        raise AssertionError(f"the run did not reach the cross-pod rung: {runs}")
+    if runs[0][:2] != (POD_M0, 2):
+        raise AssertionError(f"the run did not start at batch {POD_M0} on rung 2: {runs}")
+    trainer.elastic.health.mark_lost(1)
+    src, dst = trainer.demote(note="pod 1 lost")
+    if (src, dst) != (3, 2) or trainer.state.err_state is not None:
+        raise AssertionError(f"demote gave {src} -> {dst}, residuals "
+                             f"{trainer.state.err_state is not None}")
+    print(f"  pod 1 lost: demoted rung {src} -> {dst}, residuals dropped")
+    runs += run_pod_epochs(trainer, 1, print_epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    cross_steps = sum(rec.steps for _, rung, rec in runs
+                      if trainer.elastic.rungs[rung].pods > 1)
+    want = {k: 0 for k in counts} | {"quantize_int8": 2 * n_leaves * cross_steps}
+    if counts != want or cross_steps == 0:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    if not all(np.isfinite(rec.val_loss) for _, _, rec in runs):
+        raise AssertionError(f"non-finite val loss: {runs}")
+    if runs[-1][2].val_loss > runs[0][2].val_loss:
+        raise AssertionError("the val loss rose over the run")
+    print(f"  quantize_int8 launches {counts['quantize_int8']} (= 2 pods x {n_leaves} leaves "
+          f"x {cross_steps} cross-pod steps); no other kernel")
+    wire = numel + 4 * n_leaves
+    print(f"  wire bytes per pod per exchange: {wire} (int8 codes + a float32 scale per "
+          f"leaf) against {4 * numel} in float32, {4 * numel / wire:.3f}x fewer")
+    print(f"  {len(runs)} epochs in {wall:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.2f} MiB")
+    print(f"  stats: {json.dumps(trainer.engine.stats.as_dict())}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the pod slice, card against CPU
+# ---------------------------------------------------------------------------
+
+# limits set from an H100 run (NVIDIA H100 80GB HBM3, 700 W): the losses
+# agreed to 5.3e-5 relative, the parameters after 375 steps to 6.372e-3, and
+# one exchange from the same state and batch flipped 1 of 65794 codes and
+# left the other residuals within 9.4e-5 quanta
+POD_LOSS_RTOL = 1e-3
+POD_PARAM_ATOL = 1e-2
+POD_STEP_FLIPS_MAX = 8
+POD_STEP_KEPT_QUANTA = 1e-3
+
+
+def residual_gap(ours: list, theirs: list, scales: torch.Tensor) -> tuple[int, float]:
+    """(codes that flipped, largest residual difference of the others in
+    quanta) between stacked per-pod residuals; ``scales`` is (pods, leaves),
+    a pod's leaf's quantum.  Codes that agree leave residuals within
+    rounding of each other; a flipped code moves one by about a quantum
+    (|r| <= quantum / 2 on both sides)."""
+    flipped, worst = 0, 0.0
+    for i, (a, b) in enumerate(zip(ours, theirs)):
+        d = (a.cpu() - b.cpu()).abs() / scales[:, i].reshape((-1,) + (1,) * (a.dim() - 1))
+        flipped += int((d > 0.5).sum())
+        kept = d[d <= 0.5]
+        worst = max(worst, kept.max().item() if kept.numel() else 0.0)
+    return flipped, worst
+
+
+def pod_card_vs_cpu_phase() -> None:
+    phase("11. the pod slice on the card ([cuda:0] * 8) against the CPU ([cpu] * 8), "
+          "identical weights, 2 epochs")
+    runs, scales = {}, {}
+    for dev in ("cuda", "cpu"):
+        trainer = pod_trainer(dev)
+        step = trainer.engine.step
+
+        def capture(state, batch, lr, step=step, dev=dev):
+            new, metrics = step(state, batch, lr)
+            if "scales" in metrics:
+                scales[dev] = metrics["scales"]
+            return new, metrics
+
+        trainer.engine.step = capture
+        runs[dev] = (trainer, run_pod_epochs(trainer, 2))
+    (tc, rc), (tp, rp) = runs["cuda"], runs["cpu"]
+    sched = {d: [(bsz, rung, rec.steps) for bsz, rung, rec in r]
+             for d, (_, r) in runs.items()}
+    if sched["cuda"] != sched["cpu"] or sched["cuda"][-1][1] != 3:
+        raise AssertionError(f"schedules (batch, rung, steps) differ: {sched}")
+    rels = {}
+    for field in ("train_loss", "val_loss"):
+        a = np.array([getattr(rec, field) for _, _, rec in rc])
+        b = np.array([getattr(rec, field) for _, _, rec in rp])
+        rels[field] = float(np.max(np.abs(a - b) / np.abs(b)))
+    if max(rels.values()) > POD_LOSS_RTOL:
+        raise AssertionError(f"losses differ: {rels} > {POD_LOSS_RTOL} relative")
+    flipped, worst_kept = residual_gap(tc.state.err_state, tp.state.err_state,
+                                       scales["cpu"])
+    perr = max((a.detach().cpu() - b.detach()).abs().max().item()
+               for a, b in zip(tc.params.parameters(), tp.params.parameters()))
+    if perr > POD_PARAM_ATOL:
+        raise AssertionError(f"parameters differ by {perr:.3e} > {POD_PARAM_ATOL}")
+    n_res = sum(e.numel() for e in tp.state.err_state)
+    # the runs have drifted apart by then; one exchange from the SAME state
+    # and batch on both devices shows what a single step makes of rounding
+    batch = {k: torch.from_numpy(v)
+             for k, v in tp.train_data.get(np.arange(2 * POD_M0)).items()}
+    one = {}
+    for dev, t in (("cuda", tc), ("cpu", tp)):
+        state = place(copy.deepcopy(tp.state), t.rung.plan)
+        new, metrics = t.engine.jitted(2 * POD_M0)(state, batch, POD_LR)
+        one[dev] = ([e.cpu() for e in new.err_state], metrics["scales"].cpu())
+    step_flips, step_kept = residual_gap(one["cuda"][0], one["cpu"][0], one["cpu"][1])
+    if step_flips > POD_STEP_FLIPS_MAX or step_kept > POD_STEP_KEPT_QUANTA:
+        raise AssertionError(
+            f"one exchange from the same state: {step_flips} of {n_res} codes flipped (tol "
+            f"{POD_STEP_FLIPS_MAX}), the others' residuals within {step_kept:.3e} quanta "
+            f"(tol {POD_STEP_KEPT_QUANTA})")
+    print(f"  schedule (batch, rung, steps) {sched['cuda']} on both; train/val losses "
+          f"within {rels['train_loss']:.3e} / {rels['val_loss']:.3e} relative (tol "
+          f"{POD_LOSS_RTOL}); parameters within {perr:.3e} (tol {POD_PARAM_ATOL}); "
+          f"{flipped} of {n_res} codes flipped at the last exchange, the others within "
+          f"{worst_kept:.2e} quanta; one exchange from the same state and batch: "
+          f"{step_flips} of {n_res} codes flipped (tol {POD_STEP_FLIPS_MAX}), the others' "
+          f"residuals within {step_kept:.3e} quanta (tol {POD_STEP_KEPT_QUANTA})")
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -1027,11 +1341,14 @@ def main() -> int:
     train_card_vs_cpu_phase()
     gram_counts, alone_counts = gram_train_phase()
     gram_card_vs_cpu_phase()
+    pod_counts = pod_phase()
+    pod_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
-    # tier (phase 6), on the gram tier (phase 8) and the standalone
-    # per-sample norms (phase 8, last)
+    # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
+    # norms (phase 8, last) and the pod slice (phase 10)
     paths = {"serving": serve_counts, "training": train_counts,
-             "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts}
+             "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts,
+             "pod training": pod_counts}
     for rec in records:
         rec["launches"] = sum(c[rec["name"]] for c in paths.values())
         if rec["launches"] == 0:

@@ -6,10 +6,14 @@ and never ``jax`` or anything of ``repro``.  ``repro_torch/<sub>/<module>.py``
 mirrors ``repro/<sub>/<module>.py``.
 
 The port carries paged serving (``serve.ServeEngine`` over
-``models.transformer``) and DiveBatch LM training (``train.StepEngine``
-with the ``adapt`` layer), with hand-written Hopper kernels for chunk
-attention, paged decode and the flash-attention backward
-(``kernels/csrc/``).  Every entry point defaults to ``device="cuda"`` and
+``models.transformer``), DiveBatch LM training (``train.StepEngine`` with
+the ``adapt`` layer, the moment and gram tiers), and the paper's own
+``train.loop.Trainer`` on its small models, elastic over a two-pod
+``pod.PodLadder`` of virtual devices with the compressed cross-pod
+gradient exchange (``dist.compression``).  Every TPU kernel of the
+reference has a hand-written Hopper counterpart in ``kernels/csrc/``: chunk
+attention, paged decode, the flash-attention backward, the per-sample
+gradient norms and the int8 quantisation.  Every entry point defaults to ``device="cuda"`` and
 raises on a machine without a capable card (:func:`resolve_device`); it never
 moves to the CPU by itself.  The CPU runs only when the caller asks for it,
 and there every kernel wrapper takes its plain PyTorch version.

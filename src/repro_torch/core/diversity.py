@@ -14,9 +14,9 @@ m_{k+1} = min(m_max, delta * n * Delta_hat).
 The moment tier recovers sum_i ||g_i||^2 from microbatch-sum norms with
 E||sum_{i<=m} g_i||^2 = m E||g||^2 + m(m-1) ||mu||^2: zero extra backward
 work.  The gram tier, and the exact tier on its probe path, run in the
-train step (``train/step.py``, ``models/probes.py``); ``persample_sq_norms``,
-the exact tier's vmap path, comes with the paper's small models
-(ROADMAP.md, Queue A 4).
+train step (``train/step.py``, ``models/probes.py``); the exact tier's vmap
+path, :func:`persample_sq_norms`, takes per-sample gradients through
+``torch.func.vmap(grad(...))`` over ``functional_call``.
 
 The state lives on the device; the scalars are 0-d float32 tensors and the
 estimates are computed there, so a boundary reads one stacked result.
@@ -25,9 +25,10 @@ estimates are computed there, so a boundary reads one stacked result.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from repro_torch.utils import pytree as ptu
 
@@ -137,8 +138,69 @@ def estimate(state: DiversityState, estimator: str) -> torch.Tensor:
     raise ValueError(f"unknown estimator {estimator!r}")
 
 
-def persample_sq_norms(*args, **kwargs):
-    """Per-sample gradient squared norms (the exact tier's vmap path)."""
-    raise NotImplementedError(
-        "persample_sq_norms (the exact tier's vmap path, torch.func) is not "
-        "ported to repro_torch yet (ROADMAP.md, Queue A 4: the paper's own models)")
+# ---------------------------------------------------------------------------
+# Per-sample gradient helpers (exact tier + Oracle)
+# ---------------------------------------------------------------------------
+
+
+class _Bound(nn.Module):
+    """``loss_fn(model, example)`` as a module's forward, so
+    ``torch.func.functional_call`` can swap the model's parameters."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, example):
+        return self.loss_fn(self.model, example)
+
+
+def persample_grads(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
+                    params: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
+    """``vmap(grad)``: per-sample gradients ``{name: (B, *shape)}`` of
+    ``loss_fn(params, example) -> scalar`` over the batch's leading axis,
+    through ``torch.func`` on ``functional_call``."""
+    bound = _Bound(params, loss_fn)
+    names = [n for n, _ in params.named_parameters()]
+    values = {n: p.detach() for n, p in params.named_parameters()}
+
+    def one(pvals: dict, example: dict) -> torch.Tensor:
+        return torch.func.functional_call(
+            bound, {f"model.{n}": v for n, v in pvals.items()}, (example,))
+
+    grads = torch.func.vmap(torch.func.grad(one), in_dims=(None, 0))(values, batch)
+    return {n: grads[n] for n in names}
+
+
+def persample_sq_norms(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
+                       params: nn.Module, batch: dict) -> torch.Tensor:
+    """(B,) float32 per-sample gradient squared norms (the exact tier)."""
+    total = None
+    for g in persample_grads(loss_fn, params, batch).values():
+        v = g.float().square().reshape(g.shape[0], -1).sum(dim=-1)
+        total = v if total is None else total + v
+    return total
+
+
+@torch.no_grad()
+def dataset_diversity(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
+                      params: nn.Module, batches) -> torch.Tensor:
+    """ORACLE: exact Delta_S(theta) over an iterable of batches (one pass).
+
+    Every gradient is taken at the same fixed params (unlike DiveBatch's
+    within-epoch accumulation): the paper's Oracle baseline.  The gradient
+    sum is the sum of the per-sample gradients (the reference takes ``B``
+    times the gradient of the batch mean)."""
+    total_sq = None
+    grad_sum = None
+    for batch in batches:
+        grads = persample_grads(loss_fn, params, batch)
+        sq = sum(g.float().square().reshape(g.shape[0], -1).sum(-1)
+                 for g in grads.values()).sum()
+        gs = [g.float().sum(dim=0) for g in grads.values()]
+        total_sq = sq if total_sq is None else total_sq + sq
+        grad_sum = gs if grad_sum is None else [a + b for a, b in zip(grad_sum, gs)]
+    if grad_sum is None:
+        raise ValueError("dataset_diversity: empty dataset")
+    return total_sq / ptu.tree_sq_norm(grad_sum).clamp_min(EPS)

@@ -8,6 +8,9 @@ packages compute with identical numbers; ``trainable=True`` gives
 parameters that take gradients.  ``params_to_numpy`` is the reverse: the
 port's model as the reference's tree of numpy arrays, so a test can hold
 parameters after a training step against the reference's leaf by leaf.
+``small_params_from_jax`` / ``small_params_to_numpy`` do the same for the
+paper's small models (``repro.models.small``: the ``logreg_init`` and
+``mlp_init`` dicts).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import small
 from repro_torch.models import transformer as tf
 
 
@@ -101,3 +105,29 @@ def params_to_numpy(model: tf.Transformer, cfg: ModelConfig) -> dict:
             pos["ffn"] = {n: linear([getattr(b.ffn, n) for b in blks]) for n in names}
         tree[f"pos{p}"] = pos
     return tree
+
+
+def small_params_from_jax(tree: dict, *, trainable: bool = True):
+    """The port's ``Logreg`` (a ``{"linear": ...}`` tree) or ``MLP`` (a
+    ``{"fc1": ..., "fc2": ...}`` tree) on the CPU with the weights of
+    ``tree``, kernels transposed into ``nn.Linear``'s layout."""
+    if set(tree) == {"linear"}:
+        d = np.asarray(tree["linear"]["kernel"]).shape[0]
+        model = small.Logreg(d)
+    elif set(tree) == {"fc1", "fc2"}:
+        d, hidden = np.asarray(tree["fc1"]["kernel"]).shape
+        model = small.MLP(d, hidden)
+    else:
+        raise ValueError(f"not a small-model tree: keys {sorted(tree)}")
+    with torch.no_grad():
+        for name, leaf in tree.items():
+            lin = getattr(model, name)
+            lin.weight.copy_(_tensor(leaf["kernel"]).t())
+            lin.bias.copy_(_tensor(leaf["bias"]))
+    return model.requires_grad_(trainable)
+
+
+def small_params_to_numpy(model) -> dict:
+    """The reference's tree of a ``Logreg`` or ``MLP`` as numpy arrays."""
+    return {name: {"kernel": _array(lin.weight).T, "bias": _array(lin.bias)}
+            for name, lin in model.named_children()}

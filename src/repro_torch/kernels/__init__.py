@@ -4,17 +4,18 @@
 decode, the flash-attention backward's dq and dk/dv) and ``flash_attention``,
 the autograd function over them; ``psgn.py`` the per-sample gradient-norm
 wrappers (direct, gram, fused) and ``ops.py`` their cost-model dispatch over
-a layer or a tree of layers; ``ref.py`` the float32 plain versions the CPU
-runs and the kernels are held against, ``_build.py`` the nvcc build, and
-``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
+a layer or a tree of layers, and the int8 entry points; ``quant.py`` the
+row-wise int8 quantisation of the gradient compressor; ``ref.py`` the
+float32 plain versions the CPU runs and the kernels are held against,
+``_build.py`` the nvcc build, and ``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
 launch count.
 """
 
-from repro_torch.kernels import attention, psgn
+from repro_torch.kernels import attention, psgn, quant
 
 _COUNTED = (attention.chunk_attention, attention.paged_decode_attention,
             attention.flash_dq, attention.flash_dkv,
-            psgn.psgn_direct, psgn.psgn_gram, psgn.psgn_fused)
+            psgn.psgn_direct, psgn.psgn_gram, psgn.psgn_fused, quant.quantize_int8)
 
 
 def reset_launch_counts() -> None:

@@ -76,6 +76,11 @@ SIGNATURES = {
         # n_partials, stream
         [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "quant_int8": (
+        "quant_int8_fwd",
+        # dtype, x, q, scales, amax scratch, R, C, stream
+        [_I, _P, _P, _P, _P, _I, _I, _P],
+    ),
 }
 
 _lock = threading.Lock()

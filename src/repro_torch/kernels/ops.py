@@ -1,9 +1,10 @@
-"""Cost-model dispatch over the per-sample gradient-norm kernels.
+"""Cost-model dispatch over the per-sample gradient-norm kernels, and the
+int8 quantisation entry points.
 
 Counterpart of ``repro/kernels/ops.py``.  The reference's ``interpret``
 switch has no counterpart: the tensors' device decides (the kernels on the
-card, their plain versions on the CPU, ``kernels/psgn.py``).
-``quantize_int8`` is not ported yet (ROADMAP.md, Queue B 8).
+card, their plain versions on the CPU; ``kernels/psgn.py``,
+``kernels/quant.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import psgn as psgn_kernels
+from repro_torch.kernels import quant as quant_kernels
 
 
 def choose_method(s: int, d_in: int, d_out: int) -> str:
@@ -118,3 +120,7 @@ def persample_sq_norm_tree(acts: dict, deltas: dict, scale: float = 1.0, *,
                 v = v + _bias_sq_norm(deltas[n] * scale)
         total = v if total is None else total + v
     return total
+
+
+quantize_int8 = quant_kernels.quantize_int8
+dequantize_int8 = quant_kernels.dequantize_int8

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the kernels: float32 oracles.
 
-Counterparts of ``psgn_ref``, ``psgn_gram_ref``, ``attention_ref`` and
-``paged_decode_ref`` in ``repro/kernels/ref.py``, of the flash backward's
+Counterparts of ``psgn_ref``, ``psgn_gram_ref``, ``quantize_int8_ref``,
+``dequantize_int8_ref``, ``attention_ref`` and ``paged_decode_ref`` in
+``repro/kernels/ref.py``, of the flash backward's
 recompute (``_recompute_dlogits`` / ``_flash_backward`` in
 ``repro/kernels/attention.py``), and ``psgn_fused_ref``, the sum over
 stacked layers ``psgn_fused`` computes.  They are what the wrappers in
-``kernels/attention.py`` and ``kernels/psgn.py`` run for a tensor on the
-CPU, and what the CUDA kernels are held against on the card: every input is
+``kernels/attention.py``, ``kernels/psgn.py`` and ``kernels/quant.py`` run
+for a tensor on the CPU, and what the CUDA kernels are held against on the card: every input is
 upcast to float32; in attention the softcap comes before the mask, and the
 softmax (or its recompute) runs over the whole key axis at once.
 """
@@ -42,6 +43,27 @@ def psgn_fused_ref(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     for layer in range(1, x.shape[0]):
         total = total + psgn_ref(x[layer], delta[layer])
     return total
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise absmax int8 of x (R, C): ``(q int8 (R, C), scales f32 (R,))``
+    with ``scale = max(absmax, 1e-12) / 127`` and ``q = clip(round(x /
+    scale), -127, 127)``, rounding half to even, all in float32.  A NaN
+    or an infinity in a row makes its scale NaN or infinite and its codes
+    0 (a NaN code casts to 0), as in the reference."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=1).clamp_min(1e-12)
+    # a tensor divisor: on a card, division by a Python scalar runs as a
+    # product with its float32 reciprocal, one ulp off the division
+    scale = absmax / torch.full_like(absmax, 127.0)
+    q = torch.round(xf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``q * scale`` per row in float32, cast to ``dtype``."""
+    return (q.float() * scales[:, None]).to(dtype)
 
 
 def _repeat(x: torch.Tensor, n_rep: int) -> torch.Tensor:

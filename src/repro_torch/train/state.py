@@ -24,6 +24,11 @@ class TrainState:
     opt_state: Any
     div_state: diversity.DiversityState
     step: int = 0
+    # Cross-pod compression error-feedback residuals (repro_torch.pod): a
+    # list of stacked ``(pods, *param_shape)`` float32 tensors on cross-pod
+    # rungs, None everywhere else.  Transient wire state, installed and
+    # re-zeroed by PodLadder.adapt_state at rung transitions.
+    err_state: Any = None
 
     def _replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)

@@ -18,6 +18,17 @@ and ``ref.psgn_ref`` over the shapes of ``tests/test_kernels.py``: 1e-5
 relative, float32 and bf16 inputs alike (bf16 values are exact in float32,
 so only the summation order differs).  Method choice and the tree's
 grouping must match exactly.
+
+The int8 quantisation (``repro_torch.kernels.quant``) is held against the
+reference's ``ref.quantize_int8_ref`` (run op by op) and its
+``quantize_int8`` (interpret mode, ``block_rows=32``).  Codes and scales
+must be EQUAL to the plain reference, which divides by 127 as the source
+says.  Against the interpret-mode kernel the scales are held to one float32
+ulp, because XLA compiles ``absmax / 127.0`` inside a jit as ``absmax *
+float32(1/127)`` (the compiled HLO multiplies by 0.00787401572), one ulp
+off the division in a few percent of rows; its codes must be EQUAL to the
+port's arithmetic run with the kernel's own scales (so the scale is the
+only difference), and equal to the port's wherever the scales agree.
 """
 
 import jax.numpy as jnp
@@ -29,6 +40,7 @@ from _hypothesis_compat import given, settings, strategies as st
 from repro.kernels import attention as jk
 from repro.kernels import ops as jops
 from repro.kernels import psgn as jpsgn
+from repro.kernels import quant as jquant
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.serve.blocks import BlockPool as JBlockPool
@@ -37,6 +49,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import attention as tk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import psgn as tpsgn
+from repro_torch.kernels import quant as tquant
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
 
@@ -197,9 +210,11 @@ def test_cpu_path_launches_nothing():
     tpsgn.psgn_direct(x[0], d[0])
     tpsgn.psgn_gram(x[0], d[0])
     tpsgn.psgn_fused(x, d)
+    tquant.quantize_int8(x[0, 0])
     assert tkernels.launch_counts() == {
         "chunk_attention": 0, "paged_decode_attention": 0, "flash_dq": 0,
-        "flash_dkv": 0, "psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
+        "flash_dkv": 0, "psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0,
+        "quantize_int8": 0}
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
@@ -509,3 +524,104 @@ def test_psgn_wrappers_refuse_bad_shapes_and_devices():
                      (tpsgn.psgn_fused, (x, d))):
         with pytest.raises(ValueError, match="no path for device"):
             fn(*[a.to("meta") for a in args])
+
+
+# ---------------------------------------------------------------------------
+# int8 quantisation
+# ---------------------------------------------------------------------------
+
+
+def _quant_input(case: str) -> np.ndarray:
+    """float32 (R, C) inputs for the quantisation cases."""
+    r = np.random.default_rng(len(case))
+    if case == "ragged rows":  # R not a multiple of the 32-row block
+        return r.standard_normal((45, 64)).astype(np.float32) * 3
+    if case == "C 1":
+        return r.standard_normal((7, 1)).astype(np.float32)
+    if case == "ragged C":
+        return r.standard_normal((33, 129)).astype(np.float32)
+    if case == "one element":
+        return np.array([[-2.5]], np.float32)
+    if case == "zero row":
+        x = r.standard_normal((5, 40)).astype(np.float32)
+        x[2] = 0.0
+        return x
+    if case == "ties":  # absmax 127 -> scale exactly 1: every x.5 is a tie
+        x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 3.5]],
+                     np.float32)
+        return np.concatenate([x, 2 * x, x / 4])
+    if case == "negative max":  # the absmax of each row is a negative entry
+        x = r.uniform(-1, 1, (6, 50)).astype(np.float32)
+        x[np.arange(6), r.integers(0, 50, 6)] = -np.arange(2, 8, dtype=np.float32)
+        return x
+    if case == "NaN and inf rows":  # NaN or infinite scales, every code 0
+        x = r.standard_normal((5, 40)).astype(np.float32)
+        x[0, 7], x[1, 39], x[2, 20] = np.nan, np.inf, -np.inf
+        x[3, [1, 30]] = np.inf, np.nan
+        return x
+    raise KeyError(case)
+
+
+QUANT_CASES = ["ragged rows", "C 1", "ragged C", "one element", "zero row", "ties",
+               "negative max", "NaN and inf rows"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quantize_int8_matches_reference(case, dtype):
+    """Codes and scales equal to the Pallas kernel (interpret, 32-row
+    blocks) and to the reference's plain version; dequantised values equal."""
+    x32 = _quant_input(case)
+    if dtype == "bfloat16":  # values on the bf16 grid, the same in both
+        tx = torch.from_numpy(x32).to(torch.bfloat16)
+        jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
+    else:
+        tx, jx = torch.from_numpy(x32), jnp.asarray(x32)
+    q, s = tquant.quantize_int8(tx, block_rows=32)
+    jq, js = jquant.quantize_int8(jx, block_rows=32, interpret=True)
+    rq, rs = jref.quantize_int8_ref(jx)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == tx.shape and s.shape == (tx.shape[0],)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
+    js, jq = np.asarray(js), np.asarray(jq)
+    fin = np.isfinite(js)
+    np.testing.assert_array_equal(s.numpy()[~fin], js[~fin])  # NaN and inf alike
+    assert np.all(np.abs(s.numpy() - js)[fin] <= np.spacing(js[fin])), (s.numpy(), js)
+    same = s.numpy() == js
+    np.testing.assert_array_equal(q.numpy()[same], jq[same])
+    with_js = torch.round(tx.float() / torch.from_numpy(js)[:, None]).clamp(-127, 127)
+    np.testing.assert_array_equal(with_js.to(torch.int8).numpy(), jq)
+    np.testing.assert_array_equal(
+        tquant.dequantize_int8(q, s).numpy(),
+        np.asarray(jref.dequantize_int8_ref(rq, rs)))
+    if case == "ties":
+        assert q[0, 1:8].tolist() == [0, 2, 2, 0, -2, -2, 126]  # half to even
+    if case == "NaN and inf rows":
+        assert np.isnan(s[[0, 3]].numpy()).all() and np.isposinf(s[[1, 2]].numpy()).all()
+        assert not q[:4].any() and np.isfinite(s[4].item())
+
+
+def test_compiled_reference_scale_is_the_reciprocal_product():
+    """Where the interpret-mode scales differ from the division, they are
+    the compiled product ``absmax * float32(1/127)``: the port's plain
+    version keeps the division the source writes."""
+    x = (np.random.default_rng(0).standard_normal((2000, 64)) * 3).astype(np.float32)
+    _, js = jquant.quantize_int8(jnp.asarray(x), block_rows=32, interpret=True)
+    absmax = np.maximum(np.abs(x).max(1), np.float32(1e-12))
+    np.testing.assert_array_equal(np.asarray(js), absmax * (np.float32(1) / np.float32(127)))
+    _, s = tquant.quantize_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(s.numpy(), absmax / np.float32(127))
+    assert (s.numpy() != np.asarray(js)).sum() > 0
+
+
+def test_quantize_int8_ops_exports_and_refusals():
+    assert tops.quantize_int8 is tquant.quantize_int8
+    assert tops.dequantize_int8 is tquant.dequantize_int8
+    with pytest.raises(ValueError, match="2-D"):
+        tquant.quantize_int8(torch.zeros(4))
+    with pytest.raises(ValueError, match="empty"):
+        tquant.quantize_int8(torch.zeros(0, 3))
+    with pytest.raises(ValueError, match="no path for device"):
+        tquant.quantize_int8(torch.zeros(2, 3, device="meta"))
+    assert "quant_int8" in _build.SIGNATURES

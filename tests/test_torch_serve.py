@@ -221,7 +221,10 @@ def test_package_imports_without_jax():
         "utils.pytree", "core.diversity", "core.controller", "optim.optimizer",
         "optim.schedules", "data.synthetic", "train.state", "train.step",
         "train.engine", "adapt.policy", "adapt.combinators", "adapt.program",
-        "launch.train_lm", "kernels.psgn", "kernels.ops", "models.probes")} <= set(mods)
+        "launch.train_lm", "kernels.psgn", "kernels.ops", "models.probes",
+        "kernels.quant", "models.small", "data.pipeline", "dist.plan", "dist.compression",
+        "elastic.ladder", "elastic.reshard", "pod.topology", "pod.health", "pod.ladder",
+        "pod.step", "train.loop", "utils.logging")} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -237,6 +240,21 @@ def test_package_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) > 20
+
+
+def test_pod_slice_imports_without_jax():
+    """Importing the pod slice and the Trainer alone pulls in no ``jax`` and
+    nothing of ``repro``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.pod, repro_torch.train.loop\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith(('repro.', 'jax'))]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_sources_import_no_jax_and_no_reference():
