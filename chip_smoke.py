@@ -50,11 +50,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      program reading the gram signals (m0 4, m_max 8, delta 2, a tick every
      4 steps), which must resize once.  Launches per microbatch exactly 16
      chunk, 8 dq, 8 dk/dv, 2 psgn_fused (the q/o and the k/v groups), 24
-     psgn_gram (gate, up, down) and no psgn_direct.  Then one microbatch
-     timed in parts (main pass, probe pass, psgn kernels), and
-     ``probes.persample_sq_norms_gram`` on it: 32 psgn_direct and 24
-     psgn_gram launches, its (B,) result within 1e-4 relative of the tree's
-     (direct against fused, on the card);
+     psgn_gram (gate, up, down) and no psgn_direct, every psgn launch on
+     the tensor-core route.  Then one microbatch timed in parts (main pass,
+     probe pass, psgn kernels), and ``probes.persample_sq_norms_gram`` on
+     it: 32 psgn_direct and 24 psgn_gram launches, all on the FMA route
+     (its deltas are float32), its (B,) result within 1e-4 relative of the
+     tree's (the two routes against each other, on the card);
   9. the gram tier on the card against the CPU: a reduced float32 Yi-6B (hd
      64, d_ff 1024, S 128, where every layer takes the dispatch Yi-6B takes
      at S 2048) trains 5 steps (a tick every 2): losses, Delta at the ticks
@@ -74,12 +75,18 @@ plain dq, dk and dv beside its error.
 Phase 3 also holds the per-sample gradient-norm kernels (psgn direct, gram
 and fused over 3 layers) against their plain versions: float32, bf16 and
 bf16 activations with float32 deltas, ragged S and widths, a single
-position, tile edges; then the gram tier's slice shapes (B 2, S 2048, bf16):
-fused over the 16 q/o layers (the record) and the 16 k/v layers, gram at
-4096 -> 11008, direct at q with float32 deltas as the standalone entry point
-calls it, timed beside the plain version and a cuBLAS yardstick.  Products
-of bf16 values are exact in float32, so every psgn case is held at 1e-4
-relative, and prints the plain values beside its error.
+position, tile edges (the FMA route), and bf16 at widths that are multiples
+of 8 (the tensor-core route, S up to 2049, widths up to 4104); it counts
+the HGMMA instructions in the tensor-core libraries' SASS (``cuobjdump``).
+Then the gram tier's slice shapes (B 2, S 2048, bf16): fused over the 16
+q/o layers (the record; the layer table must give the stack's bits) and
+the 16 k/v layers, gram at 4096 -> 11008 (tensor cores), direct at q with
+float32 deltas as the standalone entry point calls it (FMA), timed beside
+the plain version and a cuBLAS yardstick, each with its route and achieved
+TFLOP/s.  Products of bf16 values are exact in float32, so every psgn case
+is held at 1e-4 relative, and prints the plain values beside its error.
+The chunk forward is also timed at the training shape (B 2, S 2048)
+beside the forward of ``F.scaled_dot_product_attention``, with its bound.
 
 Phase 3 also holds the int8 quantisation kernel against its plain version,
 codes and scales BIT FOR BIT, float32 and bf16: rows not a multiple of a
@@ -399,8 +406,16 @@ def flash_kernel_records(r) -> list[dict]:
     pos = torch.arange(s, dtype=torch.int32, device="cuda")
     fwd_ms = timed_ms(lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos,
                                                         torch.ones_like(pos)))
-    print(f"  chunk_attention at the training shape (S {s}, causal): {fwd_ms:.4f} ms")
+    with torch.no_grad():
+        sdpa_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
     pairs = b * h * s * (s + 1) // 2  # causal (row, key) pairs over all (b, h)
+    # the forward: q k^T and p v, 2 hd multiply-adds per causal pair; q, k, v
+    # read once and the output written once
+    fwd_bound, fwd_by = bound(nbytes(q, k, v, q), 4 * hd * pairs)
+    print(f"  chunk_attention at the training shape (B {b}, S {s}, causal): {fwd_ms:.4f} ms "
+          f"(library {sdpa_ms:.4f}: SDPA forward); bound {fwd_bound:.4f} ms by {fwd_by}, "
+          f"{100 * fwd_bound / fwd_ms:.1f}% of it")
     read = nbytes(q, k, v, dout, lse, delta)
     dq_bound, dq_by = bound(read + b * s * h * hd * 4, 3 * 2 * hd * pairs)
     dkv_bound, dkv_by = bound(read + 2 * b * s * kv * hd * 4, 4 * 2 * hd * pairs)
@@ -446,23 +461,54 @@ def psgn_check(name, got, want) -> tuple[float, float]:
 def psgn_case(name, shape, dtypes, r) -> None:
     x, d = psgn_inputs(r, shape, dtypes)
     xs, ds = psgn_inputs(r, (3, *shape), dtypes)
-    for label, got, want in (
-            ("direct", psgn.psgn_direct(x, d), ref.psgn_ref(x, d)),
-            ("gram", psgn.psgn_gram(x, d), ref.psgn_gram_ref(x, d)),
-            ("fused (L 3)", psgn.psgn_fused(xs, ds), ref.psgn_fused_ref(xs, ds))):
+    s, d_in, d_out = shape[1:]
+    for label, kind, got, want in (
+            ("direct", "direct", psgn.psgn_direct(x, d), ref.psgn_ref(x, d)),
+            ("gram", "gram", psgn.psgn_gram(x, d), ref.psgn_gram_ref(x, d)),
+            ("fused (L 3)", "direct", psgn.psgn_fused(xs, ds), ref.psgn_fused_ref(xs, ds))):
         torch.cuda.synchronize()
         _, rel = psgn_check(f"psgn {label} {name}", got, want)
-        print(f"  psgn {label} {name}: max rel err {rel:.3e} (tol {PSGN_TOL}); plain "
-              f"{want.min().item():.6e}..{want.max().item():.6e}")
+        route = psgn.plan(kind, x.dtype, d.dtype, s, d_in, d_out).route
+        print(f"  psgn {label} {name} [{route}]: max rel err {rel:.3e} (tol {PSGN_TOL}); "
+              f"plain {want.min().item():.6e}..{want.max().item():.6e}")
 
 
 def psgn_record(name, run, plain, library, *, err, moved, flops, peak, replaces,
-                source) -> dict:
+                dispatch) -> dict:
+    """A psgn kernel's record; ``dispatch`` is its route, "tc" (tensor
+    cores) or "fma", which names its source.  Adds the achieved TFLOP/s."""
     ms, plain_ms, library_ms = timed_ms(run), timed_ms(plain), timed_ms(library)
     bound_ms, by = bound(moved, flops, peak)
+    lib = "psgn_gram" if name == "psgn_gram" else "psgn_direct"
+    source = f"src/repro_torch/kernels/csrc/{lib}{'_tc' if dispatch == 'tc' else ''}.cu"
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": library_ms}
+            "bound_by": by, "library_ms": library_ms, "dispatch": dispatch,
+            "tflops": flops / ms / 1e9}
+
+
+def psgn_line(label, rec) -> None:
+    print(f"  {label} [{rec['dispatch']}]: {rec['ms']:.4f} ms, {rec['tflops']:.1f} TFLOP/s "
+          f"(plain {rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}); bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
+          f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
+
+
+def sass_hgmma() -> None:
+    """How many HGMMA (wgmma) instructions the tensor-core libraries hold,
+    where the toolkit has ``cuobjdump``."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("  HGMMA in SASS: no cuobjdump beside nvcc")
+        return
+    counts = {}
+    for name in ("psgn_direct_tc", "psgn_gram_tc"):
+        sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+    print("  HGMMA in SASS: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if not all(counts.values()):
+        raise AssertionError(f"a tensor-core library has no HGMMA: {counts}")
 
 
 def psgn_kernel_records(r) -> list[dict]:
@@ -472,7 +518,6 @@ def psgn_kernel_records(r) -> list[dict]:
     activations, float32 deltas)."""
     b, s, d, f = 2, 2048, YI.d_model, YI.d_ff
     kv = YI.num_kv_heads * YI.resolved_head_dim
-    src = "src/repro_torch/kernels/csrc/"
     bf16 = PSGN_TYPES["bf16"]
 
     def fused_case(d_out):
@@ -488,15 +533,18 @@ def psgn_kernel_records(r) -> list[dict]:
             .sum((1, 2)).view(16, b).sum(0),
             err=err, moved=nbytes(xs, ds) + 4 * b, flops=2 * 16 * b * s * d * d_out,
             peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:182",
-            source=src + "psgn_direct.cu")
+            dispatch=psgn.plan("direct", xs.dtype, ds.dtype, s, d, d_out, 16).route)
+        # the layer table the gram tier launches: the same bits as the stack
+        table = psgn.psgn_fused_layers(list(xs), list(ds))
+        if not torch.equal(table, got):
+            raise AssertionError(f"psgn_fused_layers {table.tolist()} != stacked {got.tolist()}")
         del xs, ds
         return rec
 
     fused = fused_case(d)
+    psgn_line(f"psgn_fused at the q/o group (L 16, {d} -> {d})", fused)
     fused_kv = fused_case(kv)
-    print(f"  psgn_fused at the k/v group (L 16, {d} -> {kv}): {fused_kv['ms']:.4f} ms "
-          f"(plain {fused_kv['plain_ms']:.4f}, library {fused_kv['library_ms']:.4f}); "
-          f"bound {fused_kv['bound_ms']:.4f} ms by {fused_kv['bound_by']}")
+    psgn_line(f"psgn_fused at the k/v group (L 16, {d} -> {kv})", fused_kv)
 
     x, dl = psgn_inputs(r, (b, s, d, f), bf16)
     got, want = psgn.psgn_gram(x, dl), ref.psgn_gram_ref(x, dl)
@@ -510,7 +558,8 @@ def psgn_kernel_records(r) -> list[dict]:
         lambda: (torch.bmm(x, x.mT) * torch.bmm(dl, dl.mT)).sum((1, 2)),
         err=err, moved=nbytes(x, dl) + 4 * b, flops=b * s * (s + 1) * (d + f),
         peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:129",
-        source=src + "psgn_gram.cu")
+        dispatch=psgn.plan("gram", x.dtype, dl.dtype, s, d, f).route)
+    psgn_line(f"psgn_gram at gate/up ({d} -> {f})", gram)
     del x, dl
 
     x, dl = psgn_inputs(r, (b, s, d, d), PSGN_TYPES["bf16 x f32"])
@@ -524,7 +573,9 @@ def psgn_kernel_records(r) -> list[dict]:
         "psgn_direct", lambda: psgn.psgn_direct(x, dl), lambda: ref.psgn_ref(x, dl),
         lambda: torch.bmm(x.float().mT, dl).square().sum((1, 2)),
         err=err, moved=nbytes(x, dl) + 4 * b, flops=2 * b * s * d * d, peak=PEAK_F32,
-        replaces="src/repro/kernels/psgn.py:65", source=src + "psgn_direct.cu")
+        replaces="src/repro/kernels/psgn.py:65",
+        dispatch=psgn.plan("direct", x.dtype, dl.dtype, s, d, d).route)
+    psgn_line(f"psgn_direct at q, float32 deltas ({d} -> {d})", direct)
     del x, dl
     torch.cuda.empty_cache()
     return [direct, gram, fused]
@@ -656,6 +707,13 @@ def kernels_phase() -> list[dict]:
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
                       (2, 129, 257, 129), (3, 1, 5, 9)):
             psgn_case(f"{tag} (B, S, Din, Dout) {shape}", shape, dtypes, r)
+    # the tensor-core route: bf16, widths multiples of 8 at the FMA cases'
+    # edges, ragged 64-position stages and 128-position tiles, ragged
+    # 128- and 256-wide tiles, one box
+    for shape in ((1, 37, 24, 24), (4, 33, 8, 136), (1, 300, 136, 264),
+                  (2, 129, 264, 136), (3, 1, 8, 16), (2, 2049, 4104, 264)):
+        psgn_case(f"bf16 (B, S, Din, Dout) {shape}", shape, PSGN_TYPES["bf16"], r)
+    sass_hgmma()
     for dtype in (torch.float32, torch.bfloat16):
         for name, x32 in quant_cases(r).items():
             quant_case(name, torch.from_numpy(x32).to("cuda", dtype))
@@ -975,6 +1033,26 @@ def timed_s(fn):
     return out, time.perf_counter() - t0
 
 
+def peak_gib(fn) -> float:
+    """The device memory ``fn()`` allocates at its peak above what was
+    allocated before it, GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def stacked_groups(acts, pgrads, scale):
+    """The fused groups as ``persample_sq_norm_tree`` ran them before the
+    layer table: each group stacked, then one ``psgn_fused``."""
+    for key, names in ops.group_layers(acts, pgrads).items():
+        if key[0] != "solo" and len(names) >= 2:
+            psgn.psgn_fused(torch.stack([acts[n] for n in names]),
+                            torch.stack([pgrads[n] * scale for n in names]))
+
+
 def gram_train_phase() -> tuple[dict, dict]:
     """Returns the launch counts of the training run and of the standalone
     ``persample_sq_norms_gram`` call."""
@@ -1017,6 +1095,15 @@ def gram_train_phase() -> tuple[dict, dict]:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers}, 0 direct, "
           f"{3 * layers} gram, 2 fused x {n_micro} microbatches)")
+    # bf16 activations and probe gradients at widths that are multiples of
+    # 8: every psgn launch of the tier takes the tensor cores
+    routes = kernels.route_counts()
+    want_routes = {"psgn_direct": {"tc": 0, "fma": 0},
+                   "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
+                   "psgn_fused": {"tc": want["psgn_fused"], "fma": 0}}
+    if routes != want_routes:
+        raise AssertionError(f"psgn routes {routes}, expected {want_routes}")
+    print(f"  psgn routes: {routes}")
     steady = recs[1:]
     secs = [rec["seconds"] for rec in steady]
     print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
@@ -1047,6 +1134,19 @@ def gram_train_phase() -> tuple[dict, dict]:
     print("  one gram-tier microbatch: " + ", ".join(
         f"{k} {1e3 * v:.1f} ms" for k, v in split.items())
         + f"; total {1e3 * sum(split.values()):.1f} ms")
+    # where the step's memory peak is: each part's own peak above what is
+    # allocated before it (weights, optimizer state and, for the psgn
+    # kernels, the probe pass's activations and gradients)
+    peaks = {
+        "main pass": peak_gib(lambda: torch.autograd.grad(
+            tf.loss_fn(cfg, params, mb)[0], state_params)),
+        "probe pass": peak_gib(lambda: probes.probe_grads(hook, params, specs, mb)),
+        "psgn kernels": peak_gib(
+            lambda: ops.persample_sq_norm_tree(acts, pgrads, scale=float(TRAIN_MICRO))),
+        "psgn kernels, groups stacked": peak_gib(
+            lambda: stacked_groups(acts, pgrads, float(TRAIN_MICRO)))}
+    print(f"  resident before the parts {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+          "peak above it: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()))
 
     # the standalone entry point: every layer alone, so q, k, v, o go direct
     kernels.reset_launch_counts()
@@ -1058,12 +1158,22 @@ def gram_train_phase() -> tuple[dict, dict]:
     if counts_alone != want_alone:
         raise AssertionError(f"persample_sq_norms_gram launches {counts_alone}, "
                              f"expected {want_alone}")
+    # its float32 deltas take the FMA kernels: the check below holds the two
+    # routes against each other on the same activations and gradients
+    routes_alone = kernels.route_counts()
+    want_routes = {"psgn_direct": {"tc": 0, "fma": 4 * layers},
+                   "psgn_gram": {"tc": 0, "fma": 3 * layers},
+                   "psgn_fused": {"tc": 0, "fma": 0}}
+    if routes_alone != want_routes:
+        raise AssertionError(f"persample_sq_norms_gram routes {routes_alone}, "
+                             f"expected {want_routes}")
     rel = ((alone - tree).abs() / tree.abs()).max().item()
     if rel > PSGN_TOL or not torch.isfinite(alone).all():
-        raise AssertionError(f"direct against fused: {alone.tolist()} vs {tree.tolist()}")
-    print(f"  persample_sq_norms_gram: {alone.tolist()} (launches {4 * layers} direct, "
-          f"{3 * layers} gram); the tree (fused) {tree.tolist()}: max rel diff "
-          f"{rel:.3e} (tol {PSGN_TOL})")
+        raise AssertionError(f"FMA route against tensor cores: {alone.tolist()} vs "
+                             f"{tree.tolist()}")
+    print(f"  persample_sq_norms_gram (FMA route: {4 * layers} direct, {3 * layers} gram): "
+          f"{alone.tolist()}; the tree (tensor cores: fused, gram) {tree.tolist()}: max "
+          f"rel diff {rel:.3e} (tol {PSGN_TOL})")
     del out, params, acts, pgrads, engine
     torch.cuda.empty_cache()
     return counts, counts_alone

@@ -8,7 +8,7 @@ a layer or a tree of layers, and the int8 entry points; ``quant.py`` the
 row-wise int8 quantisation of the gradient compressor; ``ref.py`` the
 float32 plain versions the CPU runs and the kernels are held against,
 ``_build.py`` the nvcc build, and ``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
-launch count.
+launch count, :func:`route_counts` the psgn wrappers' counts by route.
 """
 
 from repro_torch.kernels import attention, psgn, quant
@@ -19,11 +19,19 @@ _COUNTED = (attention.chunk_attention, attention.paged_decode_attention,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the psgn wrappers' counts by
+    route, to 0."""
     for fn in _COUNTED:
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def launch_counts() -> dict[str, int]:
     """``{wrapper name: kernel launches}`` for every kernel of the package."""
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """``{psgn wrapper name: {"tc": launches, "fma": launches}}``."""
+    return {fn.__name__: dict(fn.routes) for fn in _COUNTED if hasattr(fn, "routes")}

@@ -76,6 +76,17 @@ SIGNATURES = {
         # n_partials, stream
         [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "psgn_direct_tc": (
+        "psgn_direct_tc_fwd",
+        # x pointers, delta pointers (host arrays of L), L, partials, out,
+        # B, S, Din, Dout, n_partials, stream
+        [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "psgn_gram_tc": (
+        "psgn_gram_tc_fwd",
+        # x, delta, partials, out, B, S, Din, Dout, n_partials, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
     "quant_int8": (
         "quant_int8_fwd",
         # dtype, x, q, scales, amax scratch, R, C, stream

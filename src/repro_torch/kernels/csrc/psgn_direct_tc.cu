@@ -1,0 +1,194 @@
+// Per-sample gradient squared norms of dense layers, DIRECT factorisation,
+// on Hopper's tensor cores (sm_90a), bf16 inputs:
+//
+//   out[b] = sum_l ||X_lb^T D_lb||_F^2 over L same-shape layers
+//
+// Replaces, on bf16 x and delta whose widths are multiples of 8:
+// _direct_kernel (psgn_direct, L = 1) and _fused_kernel (psgn_fused) in
+// repro/kernels/psgn.py.  Other inputs take psgn_direct.cu.
+//
+//   layer l: X_l (B, S, Din), D_l (B, S, Dout), bf16, each its own tensor:
+//   the L layers come as a table of TMA maps (one per layer and operand, a
+//   __grid_constant__ kernel parameter), so a group of layers is never
+//   stacked in memory.  G_lb = X_lb^T D_lb (Din, Dout) never leaves the
+//   block that owns its tile.
+//
+// Grid: one block per (Din tile of 128, Dout tile of 256) of one (l, b),
+// those of one (l, b) consecutive in launch order, so X_lb and D_lb (16 + 16
+// MB at Yi-6B's q/o widths, S 2048) stay in the 50 MB L2 while their tiles
+// run.  The contraction runs over S, the OUTER axis of both X and D: both
+// wgmma operands are MN-major (features contiguous), staged by TMA as boxes
+// of 64 positions x 64 features with the 128-byte swizzle and read with
+// wgmma's transpose bits set.  A stage holds 64 positions: 2 boxes of X, 4
+// of D (48 KB); 4 stages ring through shared memory.  One producer warp
+// issues the TMA loads, two consumer warpgroups each multiply their 64 Din
+// rows by the 256 Dout columns (m64n256k16, 128 float32 accumulators per
+// thread, registers rebalanced with setmaxnreg), keeping one stage's wgmma
+// group in flight while the next is issued.  The epilogue squares and sums
+// the accumulators in registers, then warps, then the block in a fixed
+// order, and writes ONE partial per (l, b, Din tile, Dout tile); the second
+// pass (psgn_tile.cuh) sums each sample's partials in a fixed order: no
+// float atomics, the same bits on every run.  Ragged S, Din and Dout read
+// zeros from TMA's out-of-bounds fill; nothing is padded in memory.
+//
+// What bounds it on the H100: FLOPs, 2 S Din Dout per (l, b), at the bf16
+// tensor-core rate (989 TFLOP/s).  Products of bf16 values are exact in
+// float32, so the result differs from the plain version only in summation
+// order.  L2 traffic is the next limit: each tile reads (128 + 256) S 2
+// bytes, 24 GB over the 16 q/o layers at S 2048, B 2; the 128 x 256 tile
+// is the widest two warpgroups can hold.
+
+#include "psgn_tc.cuh"
+
+namespace repro {
+namespace {
+
+using namespace tc;
+
+constexpr int kTileI = 128;   // Din rows of a block's tile: 2 warpgroups x 64
+constexpr int kTileJ = 256;   // Dout columns
+constexpr int kK = 64;        // positions per stage
+constexpr int kStages = 4;
+constexpr int kXBytes = kK * kTileI * 2;      // 16 KB, 2 boxes
+constexpr int kDBytes = kK * kTileJ * 2;      // 32 KB, 4 boxes
+constexpr int kStageBytes = kXBytes + kDBytes;
+constexpr int kSmemBytes = kStages * kStageBytes + kSwizzleAtom;
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kMaxLayers = 32;  // layers per launch: 64 maps, 8 KB of parameters
+
+struct Maps {
+  CUtensorMap x[kMaxLayers];
+  CUtensorMap d[kMaxLayers];
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+psgn_direct_tc_kernel(const __grid_constant__ Maps maps, float* __restrict__ partials,
+                      int l0, int n_partials, int B, int S, int nI, int nJ) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  __shared__ float warp_sums[8];
+  uint8_t* smem = align_1024(smem_raw);
+
+  const int l = blockIdx.y / B, b = blockIdx.y % B;
+  const int it = blockIdx.x / nJ, jt = blockIdx.x % nJ;
+  const int nk = (S + kK - 1) / kK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full.  setmaxnreg moves registers
+    // within the block: the launch bounds give 168 a thread (384 x 168 =
+    // 64512), and 128 x 40 + 256 x 232 is the same total, so the consumers'
+    // increase is covered by the producer's decrease and cannot stall.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      const CUtensorMap* mx = &maps.x[l];
+      const CUtensorMap* md = &maps.d[l];
+      prefetch_map(mx);
+      prefetch_map(md);
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % kStages;
+        if (k >= kStages) mbar_wait(&empty[s], ((k / kStages) - 1) & 1);
+        uint8_t* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+#pragma unroll
+        for (int q = 0; q < kTileI / kBox; ++q)
+          tma_box(st + q * kBoxBytes, mx, &full[s], it * kTileI + q * kBox, k * kK, b);
+#pragma unroll
+        for (int q = 0; q < kTileJ / kBox; ++q)
+          tma_box(st + kXBytes + q * kBoxBytes, md, &full[s], jt * kTileJ + q * kBox, k * kK, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns Din rows 64 wg .. 64 wg + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[128];  // the first product overwrites it (scale-d 0)
+    for (int k = 0; k < nk; ++k) {
+      const int s = k % kStages;
+      mbar_wait(&full[s], (k / kStages) & 1);
+      const uint8_t* st = smem + s * kStageBytes;
+      // a k16 slice is 16 rows of 128 bytes further into each box
+      const uint64_t da = smem_desc(st + wg * kBoxBytes, kBoxBytes, kSwizzleAtom);
+      const uint64_t db = smem_desc(st + kXBytes, kBoxBytes, kSwizzleAtom);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk)
+        wgmma_m64n256k16_mn(acc, da + kk * (16 * 128 >> 4), db + kk * (16 * 128 >> 4),
+                            k > 0 || kk > 0);
+      wgmma_commit();
+      // the previous stage's products are done: hand its buffer back
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (k > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(k - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    float sq = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 128; ++r) sq = fmaf(acc[r], acc[r], sq);
+    sq = warp_sum(sq);
+    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = sq;
+    asm volatile("bar.sync 1, 256;" ::: "memory");  // the consumer warps only
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) total += warp_sums[w];
+      partials[(size_t)b * n_partials + ((size_t)(l0 + l) * nI + it) * nJ + jt] = total;
+    }
+  }
+}
+
+}  // namespace
+}  // namespace repro
+
+// xs, ds: host arrays of L device pointers, layer l's x (B, S, Din) and
+// delta (B, S, Dout), bf16, contiguous, 16-byte aligned; Din and Dout
+// multiples of 8.  partials: (B, n_partials) float32 scratch with n_partials
+// = L * ceil(Din / 128) * ceil(Dout / 256); out: (B,) float32.  Launches on
+// `stream`: the tile kernel once per 32 layers, then the per-sample sum.
+// Returns the cudaError_t (0 on success), or repro::tc::kTensorMapError +
+// the CUresult when a tensor map cannot be made.
+extern "C" int psgn_direct_tc_fwd(const void* const* xs, const void* const* ds, int L,
+                                  void* partials, void* out, int B, int S, int Din, int Dout,
+                                  int n_partials, void* stream) {
+  using namespace repro;
+  if (L < 1 || B < 1 || S < 1 || Din < 8 || Dout < 8 || Din % 8 || Dout % 8 ||
+      (long long)(L < kMaxLayers ? L : kMaxLayers) * B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nI = (Din + kTileI - 1) / kTileI, nJ = (Dout + kTileJ - 1) / kTileJ;
+  if (nI * nJ > 0x7fffffffLL || n_partials != L * nI * nJ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      psgn_direct_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partials);
+  Maps maps = {};
+  for (int l0 = 0; l0 < L; l0 += kMaxLayers) {
+    const int n = L - l0 < kMaxLayers ? L - l0 : kMaxLayers;
+    for (int l = 0; l < n; ++l) {
+      int rc = tc::encode_rows(&maps.x[l], xs[l0 + l], B, S, Din);
+      if (rc == 0) rc = tc::encode_rows(&maps.d[l], ds[l0 + l], B, S, Dout);
+      if (rc != 0) return rc;
+    }
+    const dim3 grid(static_cast<unsigned>(nI * nJ), n * B);
+    psgn_direct_tc_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+        maps, p, l0, n_partials, B, S, static_cast<int>(nI), static_cast<int>(nJ));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return psgn::sum_partials(p, static_cast<float*>(out), B, n_partials, st);
+}
+
+extern "C" const char* psgn_direct_tc_error(int code) { return repro::tc::error_string(code); }

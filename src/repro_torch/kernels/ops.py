@@ -91,8 +91,9 @@ def persample_sq_norm_tree(acts: dict, deltas: dict, scale: float = 1.0, *,
 
     ``deltas`` are probe gradients of a MEAN loss: ``scale`` (the batch
     size) undoes the 1/B factor.  Same-shape layers that the cost model
-    sends to the direct kernel are STACKED and go to ``psgn_fused``, one
-    launch for the group, instead of one launch per layer.  ``bias=True``
+    sends to the direct kernel go to ``psgn_fused_layers`` as one group,
+    one launch instead of one per layer; on the tensor-core route the
+    kernel reads each layer in place (the reference stacks them).  ``bias=True``
     adds each layer's bias-gradient sq-norm ``||sum_s d_s||^2`` (exact for
     bias-complete dense models; a probe sees the same delta its bias does).
     Groups and their members are summed in ``acts`` order, as the
@@ -100,16 +101,9 @@ def persample_sq_norm_tree(acts: dict, deltas: dict, scale: float = 1.0, *,
     total = None
     for key, names in group_layers(acts, deltas).items():
         if key[0] != "solo" and len(names) >= 2:
-            xs = torch.stack([acts[n] for n in names])
-            ds = torch.stack([deltas[n] * scale for n in names])
-            s, d_in = xs.shape[2], xs.shape[3]
-            d_out = ds.shape[3]
-            v = psgn_kernels.psgn_fused(
-                xs, ds,
-                block_s=min(512, _round_pow2(s)),
-                block_i=min(128, _round_pow2(d_in)),
-                block_j=min(128, _round_pow2(d_out)),
-            )
+            v = psgn_kernels.psgn_fused_layers(
+                [acts[n].contiguous() for n in names],
+                [(deltas[n] * scale).contiguous() for n in names])
         else:
             v = None
             for n in names:

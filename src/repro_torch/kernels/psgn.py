@@ -4,9 +4,8 @@ For a dense layer ``y = x @ W`` applied over a sequence, the per-sample
 gradient is ``G_b = X_b^T Delta_b`` (Din, Dout), from the saved input
 activation and the upstream output gradient (which the probe trick of
 ``models/probes.py`` delivers).  DiveBatch needs ``||G_b||_F^2``, never
-``G_b`` itself.  Counterpart of ``repro/kernels/psgn.py``; wrappers over the
-hand-written CUDA kernels in ``csrc/psgn_direct.cu`` and ``csrc/psgn_gram.cu``
-(built by ``_build.py``):
+``G_b`` itself.  Counterpart of ``repro/kernels/psgn.py``; wrappers over
+hand-written CUDA kernels (built by ``_build.py``):
 
   psgn_direct  ||X^T D||_F^2 tile by tile, a loop over S inside each
                (Din, Dout) tile: x (B, S, Din), delta (B, S, Dout).
@@ -14,29 +13,80 @@ hand-written CUDA kernels in ``csrc/psgn_direct.cu`` and ``csrc/psgn_gram.cu``
                pairs of sequence positions, each contracting the full widths.
   psgn_fused   the sum over L stacked same-shape layers of psgn_direct, in
                one launch: x (L, B, S, Din), delta (L, B, S, Dout).
+               :func:`psgn_fused_layers` takes the L layers as separate
+               tensors instead, never stacking them on the card.
 
 Each returns (B,) float32; inputs are float32 or bfloat16 (x and delta may
 differ) and the products accumulate in float32.  The block keywords keep the
-reference's signatures: they tile the TPU kernels, not these (the CUDA
-kernels tile 128 x 128, :data:`TILE`).
+reference's signatures: they tile the TPU kernels, not these.
 
-A tensor on the CPU goes to the plain version (``kernels/ref.py``).  A
-tensor on the card goes to the kernel, or the wrapper raises: a failed build,
-a refused launch, an unsupported type or a card below sm_90 is an error,
-never a fall back to the plain version.  Each wrapper counts its kernel
-launches in ``.launches``.
+Two routes, chosen by :func:`plan` from dtypes and widths before any launch:
+
+  tc   bf16 x and delta, Din and Dout multiples of 8 (TMA's 16-byte row
+       stride): wgmma tensor-core kernels fed by TMA, ``csrc/psgn_direct_tc.cu``
+       (tiles 128 Din x 256 Dout) and ``csrc/psgn_gram_tc.cu`` (64 x 128
+       halves of 128 x 128 position pairs);
+  fma  anything else (a float32 operand, a width not a multiple of 8): the
+       float32 FMA kernels ``csrc/psgn_direct.cu`` and ``csrc/psgn_gram.cu``
+       (tiles 128 x 128).
+
+This is a dispatch between two kernels decided up front, not a fallback: a
+tensor-core launch that fails raises.  A tensor on the CPU goes to the plain
+version (``kernels/ref.py``).  A tensor on the card goes to a kernel, or
+the wrapper raises: a failed build, a refused launch, an unsupported type or
+a card below sm_90 is an error, never a fall back to the plain version.
+Each wrapper counts its launches in ``.launches`` and, by route, in
+``.routes`` (``{"tc": n, "fma": m}``).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.attention import _DTYPES, _check_cuda, _raise_on
 
-#: the CUDA kernels' output tile (``kTile`` in ``csrc/psgn_tile.cuh``); it
-#: sizes the per-sample partials the kernels write
+#: the FMA kernels' output tile (``kTile`` in ``csrc/psgn_tile.cuh``)
 TILE = 128
+#: the tensor-core direct kernel's (Din, Dout) tile (``psgn_direct_tc.cu``)
+TC_DIRECT_TILE = (128, 256)
+#: a tensor-core gram block: (rows, columns) of positions, half of a
+#: TILE x TILE tile pair (``psgn_gram_tc.cu``)
+TC_GRAM_TILE = (64, 128)
+
+
+class Plan(NamedTuple):
+    """How a call runs on the card: ``route`` "tc" or "fma", the output
+    ``tile`` of one block, and ``n_partials``, the partial sums per sample
+    the blocks write (the second pass adds them in a fixed order)."""
+    route: str
+    tile: tuple[int, int]
+    n_partials: int
+
+
+def _tiles(n: int, tile: int = TILE) -> int:
+    return -(-n // tile)
+
+
+def plan(kind: str, x_dtype: torch.dtype, d_dtype: torch.dtype, s: int, d_in: int,
+         d_out: int, n_layers: int = 1) -> Plan:
+    """The route and tile plan of a ``kind`` ("direct", covering fused, or
+    "gram") call on the card: tensor cores for bf16 x and delta whose widths
+    are multiples of 8, the FMA kernels otherwise."""
+    tc = x_dtype == d_dtype == torch.bfloat16 and d_in % 8 == 0 and d_out % 8 == 0
+    if kind == "gram":
+        n_t = _tiles(s)
+        pairs = n_t * (n_t + 1) // 2
+        return Plan("tc", TC_GRAM_TILE, 2 * pairs) if tc else Plan("fma", (TILE, TILE), pairs)
+    if kind != "direct":
+        raise ValueError(f"unknown kind {kind!r}")
+    if tc:
+        ti, tj = TC_DIRECT_TILE
+        return Plan("tc", TC_DIRECT_TILE, n_layers * _tiles(d_in, ti) * _tiles(d_out, tj))
+    return Plan("fma", (TILE, TILE), n_layers * _tiles(d_in) * _tiles(d_out))
 
 
 def _check_pair(name: str, x: torch.Tensor, delta: torch.Tensor, ndim: int) -> None:
@@ -47,38 +97,67 @@ def _check_pair(name: str, x: torch.Tensor, delta: torch.Tensor, ndim: int) -> N
         raise ValueError(f"{name}: empty input {tuple(x.shape)}, {tuple(delta.shape)}")
 
 
-def _launch(name: str, lib_name: str, x: torch.Tensor, delta: torch.Tensor,
-            dims: tuple[int, ...], n_partials: int) -> torch.Tensor:
-    """Validate a card call and launch the entry of library ``lib_name`` on
-    (x, delta), whose batch axis is x's third from last; ``dims`` are the
-    entry's shape arguments.  Returns the (B,) float32 result."""
+def _check_card(name: str, tensors: dict[str, torch.Tensor]) -> None:
+    x = next(iter(tensors.values()))
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no path for device {x.device}")
-    if delta.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {delta.dtype} has no kernel (float32, bfloat16)")
-    _check_cuda(name, {"x": x, "delta": delta}, x.dtype)
-    b = x.shape[-3]
-    partials = torch.empty((b, n_partials), dtype=torch.float32, device=x.device)
-    out = torch.empty((b,), dtype=torch.float32, device=x.device)
+    for t in tensors.values():
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name}: dtype {t.dtype} has no kernel (float32, bfloat16)")
+    _check_cuda(name, tensors, x.dtype)
+
+
+def _outputs(x: torch.Tensor, b: int, n_partials: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((b, n_partials), dtype=torch.float32, device=x.device),
+            torch.empty((b,), dtype=torch.float32, device=x.device))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.routes[route] += 1
+
+
+def _fma_launch(lib_name: str, x: torch.Tensor, delta: torch.Tensor,
+                dims: tuple[int, ...], n_partials: int) -> torch.Tensor:
+    """The FMA kernel of library ``lib_name`` on (x, delta), whose batch axis
+    is x's third from last; ``dims`` are the entry's shape arguments."""
+    partials, out = _outputs(x, x.shape[-3], n_partials)
     lib = _build.library(lib_name)
     rc = getattr(lib, f"{lib_name}_fwd")(
         _DTYPES[x.dtype], _DTYPES[delta.dtype], x.data_ptr(), delta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), *dims, n_partials,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+        partials.data_ptr(), out.data_ptr(), *dims, n_partials, _stream(x))
     _raise_on(lib, lib_name, rc)
     return out
 
 
-def _tiles(n: int) -> int:
-    return -(-n // TILE)
-
-
-def _direct_launch(name: str, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    n_l, b, s, d_in = x.shape
-    d_out = delta.shape[-1]
-    return _launch(name, "psgn_direct", x, delta, (n_l, b, s, d_in, d_out),
-                   n_l * _tiles(d_in) * _tiles(d_out))
+def _direct(xs: list[torch.Tensor], ds: list[torch.Tensor],
+            stacked: tuple[torch.Tensor, torch.Tensor] | None = None,
+            ) -> tuple[torch.Tensor, str]:
+    """``sum_l ||X_l^T D_l||^2`` over the layer tensors xs[l] (B, S, Din),
+    ds[l] (B, S, Dout), validated and on the card; returns (out, route).
+    The tensor-core route takes the layers as a table of pointers, the FMA
+    route one (L, B, S, .) pair: ``stacked`` where the caller has it, else
+    a stacked copy."""
+    b, s, d_in = xs[0].shape
+    d_out = ds[0].shape[-1]
+    p = plan("direct", xs[0].dtype, ds[0].dtype, s, d_in, d_out, len(xs))
+    if p.route == "fma":
+        x, d = stacked if stacked is not None else (torch.stack(xs), torch.stack(ds))
+        return _fma_launch("psgn_direct", x, d, (len(xs), b, s, d_in, d_out),
+                           p.n_partials), p.route
+    partials, out = _outputs(xs[0], b, p.n_partials)
+    x_ptrs = (ctypes.c_void_p * len(xs))(*[t.data_ptr() for t in xs])
+    d_ptrs = (ctypes.c_void_p * len(ds))(*[t.data_ptr() for t in ds])
+    lib = _build.library("psgn_direct_tc")
+    rc = lib.psgn_direct_tc_fwd(ctypes.addressof(x_ptrs), ctypes.addressof(d_ptrs), len(xs),
+                                partials.data_ptr(), out.data_ptr(), b, s, d_in, d_out,
+                                p.n_partials, _stream(xs[0]))
+    _raise_on(lib, "psgn_direct_tc", rc)
+    return out, p.route
 
 
 def psgn_direct(x: torch.Tensor, delta: torch.Tensor, *, block_i: int = 128,
@@ -88,12 +167,10 @@ def psgn_direct(x: torch.Tensor, delta: torch.Tensor, *, block_i: int = 128,
     _check_pair("psgn_direct", x, delta, 3)
     if x.device.type == "cpu":
         return ref.psgn_ref(x, delta)
-    out = _direct_launch("psgn_direct", x[None], delta[None])
-    psgn_direct.launches += 1
+    _check_card("psgn_direct", {"x": x, "delta": delta})
+    out, route = _direct([x], [delta], (x[None], delta[None]))
+    _count(psgn_direct, route)
     return out
-
-
-psgn_direct.launches = 0
 
 
 def psgn_gram(x: torch.Tensor, delta: torch.Tensor, *, block_si: int = 256,
@@ -103,15 +180,20 @@ def psgn_gram(x: torch.Tensor, delta: torch.Tensor, *, block_si: int = 256,
     _check_pair("psgn_gram", x, delta, 3)
     if x.device.type == "cpu":
         return ref.psgn_gram_ref(x, delta)
+    _check_card("psgn_gram", {"x": x, "delta": delta})
     b, s, d_in = x.shape
-    n_t = _tiles(s)
-    out = _launch("psgn_gram", "psgn_gram", x, delta, (b, s, d_in, delta.shape[-1]),
-                  n_t * (n_t + 1) // 2)
-    psgn_gram.launches += 1
+    d_out = delta.shape[-1]
+    p = plan("gram", x.dtype, delta.dtype, s, d_in, d_out)
+    if p.route == "fma":
+        out = _fma_launch("psgn_gram", x, delta, (b, s, d_in, d_out), p.n_partials)
+    else:
+        partials, out = _outputs(x, b, p.n_partials)
+        lib = _build.library("psgn_gram_tc")
+        rc = lib.psgn_gram_tc_fwd(x.data_ptr(), delta.data_ptr(), partials.data_ptr(),
+                                  out.data_ptr(), b, s, d_in, d_out, p.n_partials, _stream(x))
+        _raise_on(lib, "psgn_gram_tc", rc)
+    _count(psgn_gram, p.route)
     return out
-
-
-psgn_gram.launches = 0
 
 
 def psgn_fused(x: torch.Tensor, delta: torch.Tensor, *, block_i: int = 128,
@@ -121,9 +203,36 @@ def psgn_fused(x: torch.Tensor, delta: torch.Tensor, *, block_i: int = 128,
     _check_pair("psgn_fused", x, delta, 4)
     if x.device.type == "cpu":
         return ref.psgn_fused_ref(x, delta)
-    out = _direct_launch("psgn_fused", x, delta)
-    psgn_fused.launches += 1
+    _check_card("psgn_fused", {"x": x, "delta": delta})
+    out, route = _direct(list(x.unbind(0)), list(delta.unbind(0)), (x, delta))
+    _count(psgn_fused, route)
     return out
 
 
-psgn_fused.launches = 0
+def psgn_fused_layers(xs: list[torch.Tensor], deltas: list[torch.Tensor]) -> torch.Tensor:
+    """:func:`psgn_fused` over L same-shape layers given as separate tensors,
+    xs[l] (B, S, Din) and deltas[l] (B, S, Dout): on the tensor-core route
+    the kernel reads each layer where it lies (a table of TMA maps), so the
+    group is never stacked on the card; the FMA route stacks it.  On the CPU
+    the layers are stacked into the plain version.  Counts as a
+    ``psgn_fused`` launch."""
+    if not xs or len(xs) != len(deltas):
+        raise ValueError(f"psgn_fused_layers: {len(xs)} activations, {len(deltas)} deltas")
+    for x, d in zip(xs, deltas):
+        _check_pair("psgn_fused_layers", x, d, 3)
+        if (x.shape, d.shape, x.dtype, d.dtype) != (xs[0].shape, deltas[0].shape,
+                                                    xs[0].dtype, deltas[0].dtype):
+            raise ValueError("psgn_fused_layers: the layers differ in shape or dtype")
+    if xs[0].device.type == "cpu":
+        return ref.psgn_fused_ref(torch.stack(xs), torch.stack(deltas))
+    tensors = {f"x[{i}]": t for i, t in enumerate(xs)}
+    tensors.update({f"delta[{i}]": t for i, t in enumerate(deltas)})
+    _check_card("psgn_fused_layers", tensors)
+    out, route = _direct(xs, deltas)
+    _count(psgn_fused, route)
+    return out
+
+
+for _fn in (psgn_direct, psgn_gram, psgn_fused):
+    _fn.launches = 0
+    _fn.routes = {"tc": 0, "fma": 0}

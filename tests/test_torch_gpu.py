@@ -9,8 +9,10 @@ inputs, rounding at the same points as their plain version, so their bf16
 cases are held at 2e-3 absolute: the measured error at the training shape
 is 5e-4, and 2e-2 would be as large as a typical dq.  The per-sample
 gradient-norm kernels write float32 from float32 or bf16 inputs, whose
-products are exact in float32: they are held at 1e-4 relative (the largest
-difference seen is 4e-6).  The int8 quantisation kernel must match its
+products are exact in float32, on either route (tensor cores for bf16 at
+widths that are multiples of 8, FMA kernels otherwise): they are held at
+1e-4 relative (the largest difference seen is 4e-6), the routes against
+each other too.  The int8 quantisation kernel must match its
 plain version BIT FOR BIT (codes and scales, a NaN scale in the same
 rows): its arithmetic is one IEEE division, round half to even and a max,
 in no order that matters.  The pod-path Trainer on the card is held
@@ -356,6 +358,72 @@ def test_psgn_refusals(cuda):
     with pytest.raises(ValueError, match="4-D"):
         psgn.psgn_fused(x, d)
     assert not any(kernels.launch_counts().values())
+
+
+# (L, B, S, Din, Dout) on the tensor-core route (bf16, widths multiples of
+# 8): S of 1, 37, 300 and 2049 (a 64-position stage, a 128-position tile
+# and their ragged ends), widths 8, 136, 264 and 4104 (one box, ragged
+# 128- and 256-wide tiles), L 1 and 3
+PSGN_TC_CASES = [(1, 2, 1, 8, 8), (3, 2, 37, 136, 264), (1, 1, 300, 264, 136),
+                 (3, 1, 2049, 8, 4104), (1, 2, 2049, 4104, 264), (3, 2, 300, 4104, 8)]
+
+
+@pytest.mark.parametrize("case", PSGN_TC_CASES)
+def test_psgn_tensor_core_route_at_ragged_edges(cuda, case):
+    """direct, gram, fused (stacked) and the layer table against their plain
+    versions within 1e-4 relative, every launch on the tensor-core route;
+    a second run gives the same bits."""
+    n_l, *shape = case
+    r = np.random.default_rng(sum(case))
+    xs, ds = _psgn_pair(r, cuda, (n_l, *shape), (torch.bfloat16,) * 2)
+    x, d = xs[0], ds[0]
+    kernels.reset_launch_counts()
+    runs = [{"direct": psgn.psgn_direct(x, d), "gram": psgn.psgn_gram(x, d),
+             "fused": psgn.psgn_fused(xs, ds),
+             "layers": psgn.psgn_fused_layers(list(xs), list(ds))} for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.route_counts() == {"psgn_direct": {"tc": 2, "fma": 0},
+                                      "psgn_gram": {"tc": 2, "fma": 0},
+                                      "psgn_fused": {"tc": 4, "fma": 0}}
+    want = {"direct": ref.psgn_ref(x, d), "gram": ref.psgn_gram_ref(x, d),
+            "fused": ref.psgn_fused_ref(xs, ds), "layers": ref.psgn_fused_ref(xs, ds)}
+    for name, val in runs[0].items():
+        assert val.dtype == torch.float32 and val.shape == (shape[0],)
+        torch.testing.assert_close(val.cpu(), want[name].cpu(), rtol=1e-4, atol=0)
+        assert torch.equal(val, runs[1][name]), name
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 136, 264), (1, 2049, 264, 4104)])
+def test_psgn_routes_agree(cuda, shape):
+    """The same bf16 values through both routes: as bf16 (tensor cores) and
+    with delta cast to float32 (FMA kernels), within 1e-4 relative."""
+    r = np.random.default_rng(sum(shape))
+    xs, ds = _psgn_pair(r, cuda, (3, *shape), (torch.bfloat16,) * 2)
+    ds32 = ds.float()
+    kernels.reset_launch_counts()
+    for fn, x, d, d32 in ((psgn.psgn_direct, xs[0], ds[0], ds32[0]),
+                          (psgn.psgn_gram, xs[0], ds[0], ds32[0]),
+                          (psgn.psgn_fused, xs, ds, ds32)):
+        torch.testing.assert_close(fn(x, d).cpu(), fn(x, d32).cpu(), rtol=1e-4, atol=0)
+    assert kernels.route_counts() == {name: {"tc": 1, "fma": 1} for name in
+                                      ("psgn_direct", "psgn_gram", "psgn_fused")}
+
+
+@pytest.mark.parametrize("n_l", [2, 40])
+def test_psgn_layer_table_matches_stacked_launch(cuda, n_l):
+    """``psgn_fused_layers`` (one TMA map per layer, 32 layers per launch:
+    40 takes two) gives the same bits as ``psgn_fused`` on the stacked
+    layers, and as ``persample_sq_norm_tree``'s group."""
+    from repro_torch.kernels import ops
+    r = np.random.default_rng(n_l)
+    xs, ds = _psgn_pair(r, cuda, (n_l, 2, 100, 136, 64), (torch.bfloat16,) * 2)
+    stacked = psgn.psgn_fused(xs, ds)
+    table = psgn.psgn_fused_layers(list(xs), list(ds))
+    tree = ops.persample_sq_norm_tree({f"l{i}": xs[i] for i in range(n_l)},
+                                      {f"l{i}": ds[i] for i in range(n_l)})
+    assert torch.equal(stacked, table) and torch.equal(stacked, tree)
+    torch.testing.assert_close(stacked.cpu(), ref.psgn_fused_ref(xs, ds).cpu(),
+                               rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("tier", ["gram", "exact"])

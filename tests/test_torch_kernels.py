@@ -526,6 +526,68 @@ def test_psgn_wrappers_refuse_bad_shapes_and_devices():
             fn(*[a.to("meta") for a in args])
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtypes", [(BF16, BF16), (F32, F32), (BF16, F32), (F32, BF16)],
+                         ids=["bf16", "f32", "bf16-f32", "f32-bf16"])
+@pytest.mark.parametrize("widths", [(8, 8), (136, 4096), (4096, 11008), (19, 8),
+                                    (8, 19), (4096, 4100)])
+def test_psgn_route_plan(dtypes, widths):
+    """The tensor cores take bf16 x and delta whose widths are multiples of
+    8; anything else takes the FMA kernels, with their 128 x 128 tiles."""
+    d_in, d_out = widths
+    tc = dtypes == (BF16, BF16) and d_in % 8 == 0 and d_out % 8 == 0
+    direct = tpsgn.plan("direct", *dtypes, 300, d_in, d_out, n_layers=3)
+    gram = tpsgn.plan("gram", *dtypes, 300, d_in, d_out)
+    assert (direct.route, gram.route) == (("tc", "tc") if tc else ("fma", "fma"))
+    ceil = lambda n, t: -(-n // t)  # noqa: E731
+    if tc:
+        assert direct == ("tc", (128, 256), 3 * ceil(d_in, 128) * ceil(d_out, 256))
+        assert gram == ("tc", (64, 128), 2 * 3 * 4 // 2)  # 3 tiles of S: 6 pairs, 2 halves
+    else:
+        assert direct == ("fma", (128, 128), 3 * ceil(d_in, 128) * ceil(d_out, 128))
+        assert gram == ("fma", (128, 128), 3 * 4 // 2)
+
+
+@pytest.mark.parametrize("s, d_in, d_out, n_layers, want_direct, want_gram", [
+    (1, 8, 8, 1, 1, 2),                # one position: one tile, one half-pair each
+    (2048, 4096, 4096, 16, 16 * 32 * 16, 16 * 17),  # the q/o group; 136 pairs
+    (2048, 4096, 512, 16, 16 * 32 * 2, 16 * 17),    # the k/v group
+    (2049, 4104, 264, 3, 3 * 33 * 2, 17 * 18),      # ragged S and both widths
+])
+def test_psgn_tc_partial_counts(s, d_in, d_out, n_layers, want_direct, want_gram):
+    assert tpsgn.plan("direct", BF16, BF16, s, d_in, d_out, n_layers).n_partials == want_direct
+    assert tpsgn.plan("gram", BF16, BF16, s, d_in, d_out).n_partials == want_gram
+    with pytest.raises(ValueError, match="unknown kind"):
+        tpsgn.plan("fused", BF16, BF16, s, d_in, d_out)
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16"])
+def test_psgn_fused_layers_plain_matches_stacked_and_reference(dtypes):
+    """The layer-table entry's CPU path (the layers stacked into the plain
+    version) gives the stacked call's bits, and the reference tree's value
+    for the same group; it counts no launch."""
+    dts = PSGN_DTYPES[dtypes]
+    x, d = _psgn_inputs(np.random.default_rng(13), (3, 2, 16, 24, 16), dts[0])
+    (tx, td), (jx, jd) = _both(x, d, dts)
+    tkernels.reset_launch_counts()
+    got = tpsgn.psgn_fused_layers(list(tx), list(td))
+    torch.testing.assert_close(got, tpsgn.psgn_fused(tx, td), rtol=0, atol=0)
+    names = [f"l{i}.q" for i in range(3)]
+    want = jops.persample_sq_norm_tree(dict(zip(names, jx)), dict(zip(names, jd)),
+                                       interpret=True)
+    _close_rel(got, want)
+    _close_rel(tops.persample_sq_norm_tree(dict(zip(names, tx)), dict(zip(names, td))), want)
+    assert not any(tkernels.launch_counts().values())
+    assert tkernels.route_counts() == {n: {"tc": 0, "fma": 0} for n in
+                                       ("psgn_direct", "psgn_gram", "psgn_fused")}
+    with pytest.raises(ValueError, match="differ"):
+        tpsgn.psgn_fused_layers([tx[0], tx[1][:, :8]], [td[0], td[1][:, :8]])
+    with pytest.raises(ValueError, match="activations"):
+        tpsgn.psgn_fused_layers([tx[0]], [])
+
+
 # ---------------------------------------------------------------------------
 # int8 quantisation
 # ---------------------------------------------------------------------------
