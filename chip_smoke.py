@@ -62,6 +62,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      and ``sq_norm_sum`` within 1e-4 relative, parameters within 1e-4, one
      batch schedule.
 
+The chunk forward and dk/dv have two routes (``kattn.attention_plan``):
+bf16 at head dims 64 and 128 takes the tensor-core kernels
+(``chunk_attention_tc.cu``, ``flash_dkv_tc.cu``), float32 and hd 32 the FMA
+kernels.  Phase 3 holds both against the plain versions and prints each
+case's route in brackets (``[tc]``, ``[fma]``; ``[dk/dv tc]`` for the
+backward), with the key tiles the tensor-core forward visited out of all,
+as its blocks counted them on the card (it skips tiles by position); its
+tensor-core cases add ragged C and S, C <
+64, n_rep 1, 4 and 8, hd 64 and 128, softcap, a window across tiles, padded
+rows, a live row with no attendable key, a sentinel-only prior tail,
+shuffled keys at positions past the array bounds, 128-row blocks, the
+serving shape and the training shape.  Phases 4, 6 and 8 assert that every
+chunk and dk/dv launch took the tensor cores, phases 5, 7 and 9 (float32)
+the FMA kernels.
+
 Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
 their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
 8, softcap, window, a single tile) at 1e-4, the same in bf16, and the
@@ -118,7 +133,10 @@ yardstick (amax, divide, round, clamp, cast); bound = bytes / 3.35 TB/s.
      1e-3 quanta.
 
 The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
+around the call, the host's queueing included where the card waits for it;
+``device_ms`` is the same call with the card kept busy until the host has
+queued it, the card's time alone.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -177,9 +195,19 @@ def phase(name: str) -> None:
 _FLUSH = None
 
 
-def timed_ms(fn, iters: int = 10) -> float:
-    """Median device time of one call: CUDA events around each call, a
-    64 MiB write between calls so the 50 MB L2 starts cold."""
+# cycles the card spins before a call timed with ``spin=True`` (about 1 ms
+# at the H100's clock), so the host has queued the whole call before its
+# start event runs
+SPIN_CYCLES = 2_000_000
+
+
+def timed_ms(fn, iters: int = 10, *, spin: bool = False) -> float:
+    """Median time of one call: CUDA events around each call, a 64 MiB
+    write between calls so the 50 MB L2 starts cold.  The time includes
+    whatever part of the host's work to queue the call (argument checks,
+    tensor maps, the launch) the card waits for.  With ``spin`` the card
+    spins before the start event, so that host work is hidden and the time
+    is the card's alone (the kernel records' ``device_ms``)."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -188,6 +216,8 @@ def timed_ms(fn, iters: int = 10) -> float:
     times = []
     for _ in range(iters):
         _FLUSH.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -225,6 +255,20 @@ def rms(t: torch.Tensor) -> float:
     return t.float().square().mean().sqrt().item()
 
 
+def attention_routes() -> dict:
+    routes = kernels.route_counts()
+    return {k: routes[k] for k in ("chunk_attention", "flash_dkv")}
+
+
+def attn_routes(counts: dict, *, tc: bool, what: str) -> None:
+    """Every chunk-forward and dk/dv launch of the run just read took the
+    tensor cores (``tc``, bf16) or the FMA kernels (float32)."""
+    route, other = ("tc", "fma") if tc else ("fma", "tc")
+    want = {name: {route: counts[name], other: 0} for name in ("chunk_attention", "flash_dkv")}
+    if attention_routes() != want or counts["chunk_attention"] == 0:
+        raise AssertionError(f"{what}: attention routes {attention_routes()}, expected {want}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -255,12 +299,20 @@ def chunk_inputs(r, dtype, *, b, c, prior_real, prior_blocks, blk, h, kv, hd,
 def chunk_case(name, inp, softcap=None):
     dtype = inp["q"].dtype
     args = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
+    route = kattn.attention_plan(dtype, inp["q"].shape[-1])
+    if route == "tc":
+        kattn.tc_key_tiles(reset=True)
     out, lse = kattn.chunk_attention_fwd(*args, window=inp["window"], softcap=softcap)
     torch.cuda.synchronize()
     want, want_lse = ref.attention_ref_lse(*args, window=inp["window"], softcap=softcap)
     err = check(name, out, want, dtype)
     check(name + " lse", lse, want_lse, dtype)
-    print(f"  chunk {name}: max abs err {err:.3e} (tol {TOL[dtype]})")
+    tiles = ""
+    if route == "tc":
+        # counted by the kernel's blocks: tiles loaded and multiplied
+        seen, total = kattn.tc_key_tiles(reset=True)
+        tiles = f"; key tiles visited {seen} of {total}"
+    print(f"  chunk {name} [{route}]: max abs err {err:.3e} (tol {TOL[dtype]}){tiles}")
     return err
 
 
@@ -279,6 +331,7 @@ def chunk_kernel_record(r) -> dict:
     err = chunk_case("slice shape bf16 (C 256, 768 prior in 64 blocks, Sk 1280)", inp)
     args = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
     ms = timed_ms(lambda: kattn.chunk_attention_fwd(*args))
+    device_ms = timed_ms(lambda: kattn.chunk_attention_fwd(*args), spin=True)
     plain_ms = timed_ms(lambda: ref.attention_ref_lse(*args))
     # library yardstick: SDPA with the same boolean mask, GQA grouping
     rel = inp["q_pos"][:, None].long() - inp["k_pos"][None, :].long()
@@ -288,12 +341,18 @@ def chunk_kernel_record(r) -> dict:
         qt, kt, vt, attn_mask=mask[None, None], enable_gqa=True))
     pairs = valid_pairs(inp["q_pos"], inp["k_pos"], inp["k_valid"])
     moved = nbytes(*args) + nbytes(inp["q"]) + 256 * h * 4  # + out + lse
-    bound_ms, by = bound(moved, 4 * pairs * h * hd)
+    flops = 4 * pairs * h * hd
+    bound_ms, by = bound(moved, flops)
+    dispatch = kattn.attention_plan(inp["q"].dtype, hd)
+    print(f"  chunk_attention at the serving shape [{dispatch}]: {ms:.4f} ms ({device_ms:.4f} "
+          f"on the card alone), {flops / ms / 1e9:.1f} TFLOP/s (library {library_ms:.4f}); "
+          f"bound {bound_ms:.4f} ms by {by}, {100 * bound_ms / ms:.1f}% of it")
     return {"name": "chunk_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/chunk_attention.cu",
+            "source": f"src/repro_torch/kernels/csrc/chunk_attention{'_tc' if dispatch == 'tc' else ''}.cu",
             "replaces": "src/repro/kernels/attention.py:92",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+            "device_ms": device_ms, "dispatch": dispatch, "tflops": flops / ms / 1e9}
 
 
 def decode_inputs(r, dtype, *, b, blk, n_max, nb, kv, h, hd, max_len):
@@ -331,6 +390,7 @@ def decode_kernel_record(r) -> dict:
     err = decode_case("slice shape bf16 (B 8, block 16, lengths <= 1100)", args)
     q, pool_k, pool_v, tables, lengths = args
     ms = timed_ms(lambda: kattn.paged_decode_attention(*args))
+    device_ms = timed_ms(lambda: kattn.paged_decode_attention(*args), spin=True)
     plain_ms = timed_ms(lambda: ref.paged_decode_ref(*args))
     # library yardstick on the materialised gather (the gather is not timed)
     b = q.shape[0]
@@ -349,7 +409,8 @@ def decode_kernel_record(r) -> dict:
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/attention.py:448",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+            "device_ms": device_ms}
 
 
 def flash_inputs(r, dtype, *, b, s, h, kv, hd, window=None, softcap=None) -> dict:
@@ -380,7 +441,8 @@ def flash_case(name, inp) -> tuple[float, float]:
     err_dq = check(name + " dq", dq, want[0], dtype, tol=tol)
     err_dkv = max(check(name + " dk", dk, want[1], dtype, tol=tol),
                   check(name + " dv", dv, want[2], dtype, tol=tol))
-    print(f"  flash backward {name}: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
+    route = kattn.attention_plan(dtype, inp["q"].shape[-1])
+    print(f"  flash backward {name} [dk/dv {route}]: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
           f"(atol {tol[0]}, rtol {tol[1]}); rms of the plain dq {rms(want[0]):.3e}, "
           f"dk {rms(want[1]):.3e}, dv {rms(want[2]):.3e}")
     return err_dq, err_dkv
@@ -395,6 +457,8 @@ def flash_kernel_records(r) -> list[dict]:
     q, k, v, dout, lse, delta = (inp[n] for n in ("q", "k", "v", "dout", "lse", "delta"))
     dq_ms = timed_ms(lambda: kattn.flash_dq(q, k, v, dout, lse, delta))
     dkv_ms = timed_ms(lambda: kattn.flash_dkv(q, k, v, dout, lse, delta))
+    dq_dev = timed_ms(lambda: kattn.flash_dq(q, k, v, dout, lse, delta), spin=True)
+    dkv_dev = timed_ms(lambda: kattn.flash_dkv(q, k, v, dout, lse, delta), spin=True)
     # the plain version computes dq, dk and dv in one call
     plain_ms = timed_ms(lambda: ref.flash_grads_ref(q, k, v, lse, delta, dout))
     # library yardstick: the backward of SDPA (dq, dk and dv in one call)
@@ -404,8 +468,12 @@ def flash_kernel_records(r) -> list[dict]:
     library_ms = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
                                                       retain_graph=True))
     pos = torch.arange(s, dtype=torch.int32, device="cuda")
-    fwd_ms = timed_ms(lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos,
-                                                        torch.ones_like(pos)))
+    ones = torch.ones_like(pos)
+    # the forward at the training shape against its plain version
+    fwd_err = chunk_case(f"training shape bf16 (B {b}, S {s}, {h}/{kv} heads)",
+                         dict(q=q, k=k, v=v, q_pos=pos, k_pos=pos, k_valid=ones, window=None))
+    fwd_ms = timed_ms(lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos, ones))
+    fwd_dev = timed_ms(lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos, ones), spin=True)
     with torch.no_grad():
         sdpa_ms = timed_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -413,22 +481,76 @@ def flash_kernel_records(r) -> list[dict]:
     # the forward: q k^T and p v, 2 hd multiply-adds per causal pair; q, k, v
     # read once and the output written once
     fwd_bound, fwd_by = bound(nbytes(q, k, v, q), 4 * hd * pairs)
-    print(f"  chunk_attention at the training shape (B {b}, S {s}, causal): {fwd_ms:.4f} ms "
-          f"(library {sdpa_ms:.4f}: SDPA forward); bound {fwd_bound:.4f} ms by {fwd_by}, "
-          f"{100 * fwd_bound / fwd_ms:.1f}% of it")
+    print(f"  chunk_attention at the training shape (B {b}, S {s}, causal) "
+          f"[{kattn.attention_plan(q.dtype, hd)}]: {fwd_ms:.4f} ms ({fwd_dev:.4f} on the card "
+          f"alone), {4 * hd * pairs / fwd_ms / 1e9:.1f} TFLOP/s (library {sdpa_ms:.4f}: SDPA "
+          f"forward); bound {fwd_bound:.4f} ms by {fwd_by}, {100 * fwd_bound / fwd_ms:.1f}% of "
+          f"it; max abs err {fwd_err:.3e}")
     read = nbytes(q, k, v, dout, lse, delta)
     dq_bound, dq_by = bound(read + b * s * h * hd * 4, 3 * 2 * hd * pairs)
     dkv_bound, dkv_by = bound(read + 2 * b * s * kv * hd * 4, 4 * 2 * hd * pairs)
+    dkv_route = kattn.attention_plan(q.dtype, hd)
+    for label, ms, dev, flops, bnd in (
+            ("flash_dq [fma]", dq_ms, dq_dev, 3 * 2 * hd * pairs, dq_bound),
+            (f"flash_dkv [{dkv_route}]", dkv_ms, dkv_dev, 4 * 2 * hd * pairs, dkv_bound)):
+        print(f"  {label} at the training shape: {ms:.4f} ms ({dev:.4f} on the card alone), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s (library {library_ms:.4f}: SDPA backward); "
+              f"bound {bnd:.4f} ms, {100 * bnd / ms:.1f}% of it")
     del out, qt, kt, vt, inp
     common = {"route": "cuda", "plain_ms": plain_ms, "library_ms": library_ms}
+    dkv_source = f"flash_dkv{'_tc' if dkv_route == 'tc' else ''}.cu"
     return [
         {"name": "flash_dq", "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
          "replaces": "src/repro/kernels/attention.py:218", "max_abs_err": err_dq,
-         "ms": dq_ms, "bound_ms": dq_bound, "bound_by": dq_by, **common},
-        {"name": "flash_dkv", "source": "src/repro_torch/kernels/csrc/flash_dkv.cu",
+         "ms": dq_ms, "bound_ms": dq_bound, "bound_by": dq_by, **common,
+         "device_ms": dq_dev, "dispatch": "fma",
+         "tflops": 3 * 2 * hd * pairs / dq_ms / 1e9},
+        {"name": "flash_dkv", "source": f"src/repro_torch/kernels/csrc/{dkv_source}",
          "replaces": "src/repro/kernels/attention.py:245", "max_abs_err": err_dkv,
-         "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by, **common},
+         "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by, **common,
+         "device_ms": dkv_dev, "dispatch": dkv_route,
+         "tflops": 4 * 2 * hd * pairs / dkv_ms / 1e9},
     ]
+
+
+def tc_attention_cases(r) -> None:
+    """The tensor-core chunk forward and dk/dv (bf16, hd 64 and 128) at the
+    edges the loops above do not reach."""
+    bf = torch.bfloat16
+    chunk_case("tc n_rep 4, C 45 < 64, Sk 301, softcap 30, window 50 across tiles",
+               chunk_inputs(r, bf, b=2, c=45, prior_real=200, prior_blocks=16, blk=16,
+                            h=8, kv=2, hd=128, window=50), softcap=30.0)
+    chunk_case("tc hd 64, n_rep 1, a prior table of 40 blocks with 100 valid tokens "
+               "(sentinel-only tail tiles)",
+               chunk_inputs(r, bf, b=1, c=70, prior_real=100, prior_blocks=40, blk=16,
+                            h=4, kv=4, hd=64))
+    chunk_case("tc hd 64, one query row (C 1)",
+               chunk_inputs(r, bf, b=3, c=1, prior_real=33, prior_blocks=4, blk=16, h=4,
+                            kv=2, hd=64))
+    # rows 10-12's keys within the window (3) are all invalid: row 12 attends
+    # no key at all and takes the mean of v over every key
+    inp = chunk_inputs(r, bf, b=1, c=40, prior_real=0, prior_blocks=0, blk=16, h=8, kv=1,
+                       hd=128, window=3)
+    inp["k_valid"][10:13] = False
+    chunk_case("tc n_rep 8, a live row with no attendable key (window 3)", inp)
+    # keys shuffled (k_pos not monotonic) at positions past the array bounds
+    inp = chunk_inputs(r, bf, b=2, c=100, prior_real=300, prior_blocks=25, blk=16, h=8,
+                       kv=2, hd=64)
+    perm = torch.from_numpy(r.permutation(inp["k"].shape[1])).to("cuda")
+    for key in ("k", "v"):
+        inp[key] = inp[key][:, perm].contiguous()
+    inp["k_pos"] = inp["k_pos"][perm] + 5000
+    inp["k_valid"] = inp["k_valid"][perm]
+    inp["q_pos"] = inp["q_pos"] + 5000
+    chunk_case("tc shuffled keys, positions past the array bounds (+5000)", inp)
+    chunk_case("tc 128-row blocks (B 2, C 300, 32/4 heads), 7 padded rows, softcap 20, "
+               "window 200",
+               chunk_inputs(r, bf, b=2, c=300, prior_real=500, prior_blocks=40, blk=16,
+                            h=32, kv=4, hd=128, window=200, pad_rows=7), softcap=20.0)
+    flash_case("tc n_rep 4, hd 64, ragged S 200, window 70",
+               flash_inputs(r, bf, b=2, s=200, h=8, kv=2, hd=64, window=70))
+    flash_case("tc n_rep 4, hd 128, ragged S 129, softcap 30",
+               flash_inputs(r, bf, b=1, s=129, h=16, kv=4, hd=128, softcap=30.0))
 
 
 # per-sample gradient norms: f32 and bf16 inputs, and bf16 activations with
@@ -478,17 +600,19 @@ def psgn_record(name, run, plain, library, *, err, moved, flops, peak, replaces,
     """A psgn kernel's record; ``dispatch`` is its route, "tc" (tensor
     cores) or "fma", which names its source.  Adds the achieved TFLOP/s."""
     ms, plain_ms, library_ms = timed_ms(run), timed_ms(plain), timed_ms(library)
+    device_ms = timed_ms(run, spin=True)
     bound_ms, by = bound(moved, flops, peak)
     lib = "psgn_gram" if name == "psgn_gram" else "psgn_direct"
     source = f"src/repro_torch/kernels/csrc/{lib}{'_tc' if dispatch == 'tc' else ''}.cu"
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": library_ms, "dispatch": dispatch,
-            "tflops": flops / ms / 1e9}
+            "bound_by": by, "library_ms": library_ms, "device_ms": device_ms,
+            "dispatch": dispatch, "tflops": flops / ms / 1e9}
 
 
 def psgn_line(label, rec) -> None:
-    print(f"  {label} [{rec['dispatch']}]: {rec['ms']:.4f} ms, {rec['tflops']:.1f} TFLOP/s "
+    print(f"  {label} [{rec['dispatch']}]: {rec['ms']:.4f} ms ({rec['device_ms']:.4f} on the "
+          f"card alone), {rec['tflops']:.1f} TFLOP/s "
           f"(plain {rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}); bound "
           f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
           f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
@@ -502,7 +626,7 @@ def sass_hgmma() -> None:
         print("  HGMMA in SASS: no cuobjdump beside nvcc")
         return
     counts = {}
-    for name in ("psgn_direct_tc", "psgn_gram_tc"):
+    for name in ("psgn_direct_tc", "psgn_gram_tc", "chunk_attention_tc", "flash_dkv_tc"):
         sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
         counts[name] = sum("HGMMA" in line for line in sass.splitlines())
@@ -651,25 +775,27 @@ def quant_kernel_record() -> dict:
         x = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
         err = quant_case(f"Yi-6B leaf {shape}", x)
         ms = timed_ms(lambda: quant.quantize_int8(x))
+        device_ms = timed_ms(lambda: quant.quantize_int8(x), spin=True)
         plain_ms = timed_ms(lambda: ref.quantize_int8(x))
         library_ms = timed_ms(lambda: quant_library(x))
         # x read once, the codes and the scales written once
         bound_ms, by = bound(nbytes(x) + x.numel() + 4 * shape[0], 0.0)
         tag = "f32" if dtype == torch.float32 else "bf16"
-        print(f"  quantize_int8 {tag} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
+        print(f"  quantize_int8 {tag} {shape}: {ms:.4f} ms ({device_ms:.4f} on the card "
+              f"alone; plain {plain_ms:.4f}, library "
               f"{library_ms:.4f}); bound {bound_ms:.4f} ms by {by}, "
               f"{100 * bound_ms / ms:.1f}% of it")
-        rows.append((err, ms, plain_ms, library_ms, bound_ms, by))
+        rows.append((err, ms, device_ms, plain_ms, library_ms, bound_ms, by))
         del x
     leaf = torch.randn((1, POD_HIDDEN * POD_D), generator=gen, device="cuda") * 0.01
     print(f"  quantize_int8 at the pod slice's largest leaf (1, {POD_HIDDEN * POD_D}): "
           f"{timed_ms(lambda: quant.quantize_int8(leaf)):.4f} ms")
-    err, ms, plain_ms, library_ms, bound_ms, by = rows[0]
+    err, ms, device_ms, plain_ms, library_ms, bound_ms, by = rows[0]
     return {"name": "quantize_int8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quant_int8.cu",
             "replaces": "src/repro/kernels/quant.py:20", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": device_ms}
 
 
 def kernels_phase() -> list[dict]:
@@ -703,6 +829,7 @@ def kernels_phase() -> list[dict]:
                                 softcap=20.0))
         flash_case(f"{tag} a single tile (S 16), hd 32",
                    flash_inputs(r, dtype, b=2, s=16, h=4, kv=2, hd=32))
+    tc_attention_cases(r)
     for tag, dtypes in PSGN_TYPES.items():
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
                       (2, 129, 257, 129), (3, 1, 5, 9)):
@@ -816,6 +943,7 @@ def full_width_phase() -> dict:
             "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
     if counts != want or 0 in (want["chunk_attention"], want["paged_decode_attention"]):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
+    attn_routes(counts, tc=True, what="serving")
     if st.shared_blocks == 0:
         raise AssertionError("the shared prefix was not adopted")
     decode_only = [s for s, c, d in steps if c == 0 and d == 1]
@@ -823,7 +951,8 @@ def full_width_phase() -> dict:
     chunk_ms = [1e3 * (s - (decode_ms / 1e3 if d else 0.0)) / c
                 for s, c, d in steps if c > 0]
     print(f"  launches: {counts} (= 32 x {st.prefill_chunks} chunks, "
-          f"32 x {st.steps} decode steps, no backward)")
+          f"32 x {st.steps} decode steps, no backward); attention routes "
+          f"{attention_routes()}")
     print(f"  decode step: median {decode_ms:.2f} ms over {len(decode_only)} "
           f"decode-only steps (batch bucket {st.buckets})")
     print(f"  prefill chunk: median {statistics.median(chunk_ms):.2f} ms over "
@@ -878,6 +1007,7 @@ def card_vs_cpu_phase() -> None:
         raise AssertionError("card and CPU tokens differ")
     if not (launched["chunk_attention"] and launched["paged_decode_attention"]):
         raise AssertionError(f"the card run did not use the kernels: {launched}")
+    attn_routes(launched, tc=False, what="float32 serving")
     print(f"  first logits max abs diff {err:.3e} (tol 1e-4); tokens identical "
           f"over {sum(len(t) for t in tc)} tokens; card launches {launched}")
 
@@ -926,8 +1056,9 @@ def train_phase() -> dict:
             "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
+    attn_routes(counts, tc=True, what="training")
     print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
-          f"microbatches)")
+          f"microbatches); attention routes {attention_routes()}")
     hd, h = cfg.resolved_head_dim, cfg.num_heads
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
 
@@ -980,6 +1111,8 @@ def train_card_vs_cpu_phase() -> None:
         out = train_lm.train(cfg, model, program, steps=6, seq_len=64, micro_batch=2,
                              attn_impl="pallas", log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
+        if dev == "cuda":
+            attn_routes(runs[dev][1], tc=False, what="float32 training")
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
     losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
     rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
@@ -1097,13 +1230,16 @@ def gram_train_phase() -> tuple[dict, dict]:
           f"{3 * layers} gram, 2 fused x {n_micro} microbatches)")
     # bf16 activations and probe gradients at widths that are multiples of
     # 8: every psgn launch of the tier takes the tensor cores
+    attn_routes(counts, tc=True, what="gram-tier training")
     routes = kernels.route_counts()
-    want_routes = {"psgn_direct": {"tc": 0, "fma": 0},
+    want_routes = {"chunk_attention": {"tc": want["chunk_attention"], "fma": 0},
+                   "flash_dkv": {"tc": want["flash_dkv"], "fma": 0},
+                   "psgn_direct": {"tc": 0, "fma": 0},
                    "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
                    "psgn_fused": {"tc": want["psgn_fused"], "fma": 0}}
     if routes != want_routes:
         raise AssertionError(f"psgn routes {routes}, expected {want_routes}")
-    print(f"  psgn routes: {routes}")
+    print(f"  routes: {routes}")
     steady = recs[1:]
     secs = [rec["seconds"] for rec in steady]
     print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
@@ -1161,7 +1297,9 @@ def gram_train_phase() -> tuple[dict, dict]:
     # its float32 deltas take the FMA kernels: the check below holds the two
     # routes against each other on the same activations and gradients
     routes_alone = kernels.route_counts()
-    want_routes = {"psgn_direct": {"tc": 0, "fma": 4 * layers},
+    want_routes = {"chunk_attention": {"tc": 0, "fma": 0},
+                   "flash_dkv": {"tc": 0, "fma": 0},
+                   "psgn_direct": {"tc": 0, "fma": 4 * layers},
                    "psgn_gram": {"tc": 0, "fma": 3 * layers},
                    "psgn_fused": {"tc": 0, "fma": 0}}
     if routes_alone != want_routes:
@@ -1205,6 +1343,8 @@ def gram_card_vs_cpu_phase() -> None:
         out = train_lm.train(cfg, model, program, steps=5, seq_len=seq, micro_batch=2,
                              engine=engine, estimator="gram", log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
+        if dev == "cuda":
+            attn_routes(runs[dev][1], tc=False, what="float32 gram-tier training")
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
 
     def rel_err(a, b) -> float:
@@ -1441,7 +1581,7 @@ def main() -> int:
     for name, rec in info.items():
         print(f"  {name}: nvcc {rec['seconds']:.1f} s")
         for line in rec["ptxas"]:
-            if "Used" in line:
+            if "Used" in line or ("spill" in line and not line.startswith("0 bytes stack")):
                 print(f"    {line}")
 
     records = kernels_phase()

@@ -8,7 +8,9 @@ a layer or a tree of layers, and the int8 entry points; ``quant.py`` the
 row-wise int8 quantisation of the gradient compressor; ``ref.py`` the
 float32 plain versions the CPU runs and the kernels are held against,
 ``_build.py`` the nvcc build, and ``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
-launch count, :func:`route_counts` the psgn wrappers' counts by route.
+launch count, :func:`route_counts` the counts by route ("tc" tensor cores,
+"fma" float32 FMA kernels) of the wrappers that have two: the chunk
+forward, dk/dv and the psgn wrappers.
 """
 
 from repro_torch.kernels import attention, psgn, quant
@@ -19,8 +21,7 @@ _COUNTED = (attention.chunk_attention, attention.paged_decode_attention,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, and the psgn wrappers' counts by
-    route, to 0."""
+    """Set every kernel's launch count, and the counts by route, to 0."""
     for fn in _COUNTED:
         fn.launches = 0
         if hasattr(fn, "routes"):
@@ -33,5 +34,6 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """``{psgn wrapper name: {"tc": launches, "fma": launches}}``."""
+    """``{wrapper name: {"tc": launches, "fma": launches}}`` for the chunk
+    forward, dk/dv and the psgn wrappers."""
     return {fn.__name__: dict(fn.routes) for fn in _COUNTED if hasattr(fn, "routes")}

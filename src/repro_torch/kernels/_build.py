@@ -43,6 +43,12 @@ SIGNATURES = {
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     ),
+    "chunk_attention_tc": (
+        "chunk_attention_tc_fwd",
+        # chunk_attention_fwd's arguments (dtype must be bfloat16)
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    ),
     "paged_decode": (
         "paged_decode_fwd",
         # dtype, q, pool_k, pool_v, tables, lengths, out,
@@ -61,6 +67,12 @@ SIGNATURES = {
         "flash_dkv_bwd",
         # dtype, q, k, v, dout, lse, delta, dk, dv,
         # B, S, H, KV, hd, scale, softcap, window, stream
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    ),
+    "flash_dkv_tc": (
+        "flash_dkv_tc_bwd",
+        # flash_dkv_bwd's arguments (dtype must be bfloat16)
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _F, _F, _I, _P],
     ),
@@ -97,6 +109,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: source name -> {"seconds": build time (0.0 when reused), "ptxas": [lines]}
+#: (ptxas's register and shared-memory lines and its spill counts)
 BUILD_INFO: dict[str, dict] = {}
 
 
@@ -158,7 +171,7 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, path)  # atomic: a concurrent build sees whole files only
     BUILD_INFO[name] = {
         "seconds": time.perf_counter() - t0,
-        "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas" in ln],
+        "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln],
     }
 
 

@@ -30,9 +30,26 @@ its kernel launches in a plain integer attribute (``chunk_attention.launches``,
 ``paged_decode_attention.launches``, ``flash_dq.launches``,
 ``flash_dkv.launches``), so a run can show that its path went through the
 kernels.
+
+The chunk forward and dk/dv have two routes, chosen by :func:`attention_plan`
+from the type and head dim before any launch:
+
+  tc   bf16 at head dims 64 and 128: wgmma tensor-core kernels fed by TMA,
+       ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key tiles,
+       key tiles skipped by position) and ``csrc/flash_dkv_tc.cu`` (64-key
+       blocks over 64-row query tiles);
+  fma  float32, and head dim 32: the float32 FMA kernels
+       ``csrc/chunk_attention.cu`` and ``csrc/flash_dkv.cu``.
+
+This is a dispatch decided up front, not a fallback: a tensor-core launch
+that fails raises.  ``chunk_attention.routes`` and ``flash_dkv.routes``
+count launches by route (``{"tc": n, "fma": m}``).  ``flash_dq`` has the FMA
+kernel alone, for both types.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -41,6 +58,10 @@ from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK_HEAD_DIMS = (32, 64, 128)
+#: head dims the tensor-core kernels are instantiated for
+TC_HEAD_DIMS = (64, 128)
+#: keys the tensor-core chunk kernel lists per block (512 tiles of 128)
+TC_MAX_KEYS = 512 * 128
 #: the decode kernel's per-thread output registers hold (H / KV) * hd <= this
 DECODE_MAX_GROUP = 2048
 
@@ -63,6 +84,20 @@ def _raise_on(lib, name: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+
+
+def attention_plan(dtype: torch.dtype, hd: int) -> str:
+    """The route of a chunk-forward or dk/dv call on the card: "tc" (tensor
+    cores) for bf16 at head dims 64 and 128, "fma" (float32 FMA kernels) for
+    float32 and for head dim 32.  float32 stays off the tensor cores: TF32
+    would miss the 1e-4 its card tests hold.  Raises for a type or head dim
+    that has no kernel."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"attention: dtype {dtype} has no kernel (float32, bfloat16)")
+    if hd not in CHUNK_HEAD_DIMS:
+        raise ValueError(f"attention: head dim {hd} has no kernel instance "
+                         f"(built: {CHUNK_HEAD_DIMS})")
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
 
 
 def _cap(softcap: float | None) -> float:
@@ -101,11 +136,12 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.to(q.dtype), lse
     if q.device.type != "cuda":
         raise ValueError(f"chunk_attention: no path for device {q.device}")
-    if hd not in CHUNK_HEAD_DIMS:
-        raise ValueError(f"chunk_attention: head dim {hd} has no kernel "
-                         f"instance (built: {CHUNK_HEAD_DIMS})")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("chunk_attention: q, k and v must share one dtype")
+    route = attention_plan(q.dtype, hd)
+    if route == "tc" and sk > TC_MAX_KEYS:
+        raise ValueError(f"chunk_attention: {sk} keys, the tensor-core kernel takes "
+                         f"at most {TC_MAX_KEYS}")
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
     k_valid = k_valid.to(torch.int32).contiguous()
@@ -113,16 +149,18 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     "k_pos": k_pos, "k_valid": k_valid}, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, c), dtype=torch.float32, device=q.device)
-    lib = _build.library("chunk_attention")
-    rc = lib.chunk_attention_fwd(
+    name = "chunk_attention_tc" if route == "tc" else "chunk_attention"
+    lib = _build.library(name)
+    rc = getattr(lib, f"{name}_fwd")(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q_pos.data_ptr(), k_pos.data_ptr(), k_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, c, sk, h, kv, hd, hd ** -0.5,
         _cap(softcap), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(lib, "chunk_attention", rc)
+    _raise_on(lib, name, rc)
     chunk_attention.launches += 1
+    chunk_attention.routes[route] += 1
     return out, lse
 
 
@@ -137,6 +175,28 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 chunk_attention.launches = 0
+chunk_attention.routes = {"tc": 0, "fma": 0}
+
+#: argument types of ``chunk_attention_tc_key_tiles(counts, reset)``
+KEY_TILES_ARGTYPES = [ctypes.c_void_p, ctypes.c_int]
+
+
+def tc_key_tiles(*, reset: bool = False) -> tuple[int, int]:
+    """(key tiles listed, key tiles in all), summed over the blocks of every
+    tensor-core chunk launch on the current card since the last reset, as
+    the kernel's blocks counted them: a listed tile is one a block loaded
+    and multiplied, the others it skipped by position.  ``reset`` zeroes the
+    counts after the read.  Waits for the card."""
+    lib = _build.library("chunk_attention_tc")
+    fn = lib.chunk_attention_tc_key_tiles
+    fn.argtypes, fn.restype = KEY_TILES_ARGTYPES, ctypes.c_int
+    counts = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize()
+    rc = fn(counts, int(reset))
+    if rc != 0:
+        msg = lib.chunk_attention_tc_error(rc).decode()
+        raise RuntimeError(f"chunk_attention_tc_key_tiles failed: {msg} (cudaError {rc})")
+    return int(counts[0]), int(counts[1])
 
 
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -202,8 +262,10 @@ def _check_backward(name: str, q, k, v, dout, lse, delta) -> None:
         raise ValueError(f"{name}: lse and delta must be (B, H, S) = {(b, h, s)}")
 
 
-def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap):
-    """Validate a card call of ``flash_dq``/``flash_dkv`` and launch it."""
+def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap,
+                     lib_name: str | None = None):
+    """Validate a card call of ``flash_dq``/``flash_dkv`` and launch it from
+    library ``lib_name`` (``name`` unless given), entry ``<lib_name>_bwd``."""
     hd = q.shape[-1]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no path for device {q.device}")
@@ -219,14 +281,15 @@ def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap
     _check_cuda(name, {"q": q, "k": k, "v": v, "dout": dout, "lse": lse,
                        "delta": delta}, q.dtype)
     b, s, h, hd = q.shape
-    lib = _build.library(name)
-    rc = getattr(lib, f"{name}_bwd")(
+    lib_name = lib_name or name
+    lib = _build.library(lib_name)
+    rc = getattr(lib, f"{lib_name}_bwd")(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, s, h, k.shape[2], hd, hd ** -0.5, _cap(softcap), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(lib, name, rc)
+    _raise_on(lib, lib_name, rc)
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
@@ -260,14 +323,18 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
         _, dk, dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
                                         softcap=softcap)
         return dk, dv
+    route = attention_plan(q.dtype, q.shape[-1]) if q.device.type == "cuda" else "fma"
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    _backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), window, softcap)
+    _backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), window, softcap,
+                     "flash_dkv_tc" if route == "tc" else "flash_dkv")
     flash_dkv.launches += 1
+    flash_dkv.routes[route] += 1
     return dk, dv
 
 
 flash_dkv.launches = 0
+flash_dkv.routes = {"tc": 0, "fma": 0}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,6 +4,8 @@
 //
 // Replaces: _flash_fwd_kernel in repro/kernels/attention.py (reached through
 // _flash_forward by chunk_attention, and by flash_attention's forward).
+// The float32 route (and bf16 at hd 32); bf16 at hd 64 and 128 takes
+// chunk_attention_tc.cu.
 //
 // Numerics follow the reference kernel: scale hd**-0.5 after the q.k dot,
 // tanh softcap BEFORE the mask, an additive -1e30 bias (never -inf) for
@@ -26,6 +28,8 @@
 // so it sits far from the FLOP bound; wgmma tiles with TMA staging are a
 // later step.  Shared memory at hd=128 is 41 KB (16x132 q, 32x132 k, 32x128
 // v floats), under the 48 KB static limit, which is why the tiles are small.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -195,19 +199,27 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
                 const void* k_pos, const void* k_valid, void* out, void* lse, int B,
                 int C, int Sk, int H, int KV, float scale, float softcap, int window,
                 cudaStream_t stream) {
+  // bf16 at hd 64 and 128 is the tensor-core kernel's (chunk_attention_tc.cu): only
+  // float32 has instances there
+  constexpr bool kWide = std::is_same<T, float>::value;
   switch (hd) {
     case 32:
       return launch<T, 32>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
                            scale, softcap, window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
-                           scale, softcap, window, stream);
+      if constexpr (kWide)
+        return launch<T, 64>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
+                             scale, softcap, window, stream);
+      break;
     case 128:
-      return launch<T, 128>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
-                            scale, softcap, window, stream);
+      if constexpr (kWide)
+        return launch<T, 128>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
+                              scale, softcap, window, stream);
+      break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -215,7 +227,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 
 // q: (B, C, H, hd); k, v: (B, Sk, KV, hd); q_pos: (C,) int32; k_pos, k_valid:
 // (Sk,) int32 -> out: (B, C, H, hd) in q's type, lse: (B, H, C) float32.
-// dtype: 0 float32, 1 bfloat16; hd in {32, 64, 128}; softcap <= 0 means none,
+// dtype: 0 float32 (hd 32, 64 or 128), 1 bfloat16 (hd 32: bf16 at
+// 64 and 128 is the tensor-core kernel's); softcap <= 0 means none,
 // window <= 0 means none.  Returns the launch's cudaError_t (0 on success).
 extern "C" int chunk_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* k_pos,

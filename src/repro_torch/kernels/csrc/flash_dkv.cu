@@ -24,13 +24,18 @@
 // writes the reference's (B, S, H, hd) float32 per-query-head partials.
 // Each of the 4 warps owns 8 keys and keeps their dk and dv rows in
 // registers; in the score phase lane i scores query row i against them
-// (q.k and dO.v in the forward kernel's fmaf order, so the logits match the
-// forward's bit for bit), in the accumulation phase lane l owns head-dim
-// columns l, l+32, ...
+// (q.k and dO.v in the FMA forward kernel's fmaf order, so the logits match
+// chunk_attention.cu's bit for bit), in the accumulation phase lane l owns
+// head-dim columns l, l+32, ...
+//
+// The float32 route (and bf16 at hd 32); bf16 at hd 64 and 128 takes
+// flash_dkv_tc.cu.
 //
 // What bounds it on the H100: FLOPs, 4 matrix products of 2*hd per causal
 // (row, key) pair.  This first version runs them on the float32 FMA pipes
 // (67 TFLOP/s peak), not the tensor cores; wgmma tiles are a later step.
+
+#include <type_traits>
 
 #include "flash_bwd.cuh"
 
@@ -177,19 +182,27 @@ template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
                 int KV, float scale, float softcap, int window, cudaStream_t stream) {
+  // bf16 at hd 64 and 128 is the tensor-core kernel's (flash_dkv_tc.cu): only
+  // float32 has instances there
+  constexpr bool kWide = std::is_same<T, float>::value;
   switch (hd) {
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
                            window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
-                           window, stream);
+      if constexpr (kWide)
+        return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
+                             window, stream);
+      break;
     case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
-                            window, stream);
+      if constexpr (kWide)
+        return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
+                              window, stream);
+      break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -197,9 +210,10 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd); lse, delta: (B, H, S)
 // float32 -> dk, dv: (B, S, KV, hd) float32, summed over each KV head's
-// H / KV query heads.  dtype: 0 float32, 1 bfloat16; hd in {32, 64, 128};
-// softcap <= 0 means none, window <= 0 means none.  Returns the launch's
-// cudaError_t (0 on success).
+// H / KV query heads.  dtype: 0 float32 (hd 32, 64 or 128), 1 bfloat16
+// (hd 32: bf16 at 64 and 128 is the tensor-core kernel's); softcap <= 0
+// means none, window <= 0 means none.  Returns the launch's cudaError_t (0
+// on success).
 extern "C" int flash_dkv_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta, void* dk,
                              void* dv, int B, int S, int H, int KV, int hd, float scale,

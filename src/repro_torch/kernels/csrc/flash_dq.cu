@@ -17,9 +17,11 @@
 // tile the window reaches to the diagonal: key tiles wholly above the
 // diagonal have p == 0 for every row, so skipping them leaves dq unchanged
 // and halves the work.  Each of the 4 warps owns 8 query rows; in the score
-// phase lane j scores key j against them (q.k and dO.v, each in the forward
-// kernel's fmaf order, so the logits match the forward's bit for bit), in
-// the accumulation phase lane l owns head-dim columns l, l+32, ...
+// phase lane j scores key j against them (q.k and dO.v, each in the FMA
+// forward kernel's fmaf order, so the logits match chunk_attention.cu's bit
+// for bit; a bf16 forward at hd 64 or 128 runs chunk_attention_tc.cu, whose
+// tensor-core sums differ from these in rounding only), in the accumulation
+// phase lane l owns head-dim columns l, l+32, ...
 //
 // What bounds it on the H100: FLOPs, 3 matrix products of 2*hd per causal
 // (row, key) pair.  This first version runs them on the float32 FMA pipes

@@ -1,6 +1,8 @@
-// Hopper pieces of the tensor-core per-sample gradient-norm kernels
-// (psgn_direct_tc.cu, psgn_gram_tc.cu): TMA tensor maps and loads, mbarriers,
-// wgmma shared-memory descriptors and the two bf16 wgmma products they use.
+// Hopper pieces of the tensor-core kernels (psgn_direct_tc.cu,
+// psgn_gram_tc.cu, chunk_attention_tc.cu, flash_dkv_tc.cu): TMA tensor maps
+// and loads, mbarriers, wgmma shared-memory descriptors, the bf16 wgmma
+// products they use (operands from shared memory, or A from registers) and
+// the register fragment that turns an accumulator into such an A.
 //
 // Every operand tile is staged by TMA in boxes of 64 bf16 features (one
 // 128-byte row, the swizzle span) by 64 rows, with the 128-byte swizzle;
@@ -10,7 +12,9 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 
-#include "psgn_tile.cuh"
+#include <atomic>
+
+#include "common.cuh"
 
 namespace repro {
 namespace tc {
@@ -70,6 +74,46 @@ inline const char* error_string(int code) {
   if (code >= kTensorMapError) return "cuTensorMapEncodeTiled unavailable or refused the map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// ---------------------------------------------------------------------------
+// host: launch settings made once per device
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// The current device's SM count, asked of the runtime once per device.
+inline int device_sms(int* sms) {
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int n = dev < kMaxDevices ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) cached[dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return 0;
+}
+
+// A kernel's opt-in to more than 48 KB of dynamic shared memory, set the
+// first time it launches on a device.  One instance per kernel: a static
+// local of the kernel's launcher.
+struct SmemOptIn {
+  std::atomic<bool> done[kMaxDevices] = {};
+
+  template <typename Kernel>
+  int apply(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+    return static_cast<int>(err);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // device: mbarriers and TMA
@@ -245,6 +289,82 @@ __device__ __forceinline__ void wgmma_m64n128k16_k(float (&d)[64], uint64_t da, 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, float32) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), bf16,
+// both operands K-major in shared memory, as wgmma_m64n128k16_k.
+__device__ __forceinline__ void wgmma_m64n64k16_k(float (&d)[32], uint64_t da, uint64_t db,
+                                                  uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, float32) = A (64 x 16, registers) B (16 x 64) + (scale_d ? d : 0),
+// bf16, B MN-major in shared memory (trans-b = 1); A's fragment as rs_fragment.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, float32) = A (64 x 16, registers) B (16 x 128) + (scale_d ? d : 0),
+// bf16, B MN-major in shared memory (trans-b = 1); A's fragment as rs_fragment.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The A fragment of a register-sourced wgmma (k16 step kk) from a float32
+// accumulator of the m64nNk16 layout above whose columns are that product's
+// k: columns 16 kk .. 16 kk + 15 of the thread's two rows, rounded to bf16
+// (round to nearest even).  The accumulator's octets 2 kk and 2 kk + 1 are
+// exactly the fragment's registers {row, row + 8} x {low, high 8 columns}.
+template <int R>
+__device__ __forceinline__ void rs_fragment(uint32_t (&a)[4], const float (&d)[R], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+    a[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// A barrier over the `threads` threads (a multiple of 32) that name it.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace tc

@@ -38,7 +38,8 @@
 // bytes, 24 GB over the 16 q/o layers at S 2048, B 2; the 128 x 256 tile
 // is the widest two warpgroups can hold.
 
-#include "psgn_tc.cuh"
+#include "hopper.cuh"
+#include "psgn_tile.cuh"
 
 namespace repro {
 namespace {

@@ -39,7 +39,8 @@
 // values are exact in float32, so only the summation order differs from the
 // plain version.
 
-#include "psgn_tc.cuh"
+#include "hopper.cuh"
+#include "psgn_tile.cuh"
 
 namespace repro {
 namespace {

@@ -66,6 +66,14 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
     return (q.float() * scales[:, None]).to(dtype)
 
 
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """``tanh`` taken in float64 and rounded to ``x``'s type: the correctly
+    rounded value of every element, whichever float32 tanh path the CPU
+    takes in this process.  The plain versions are the oracle the card is
+    held against at 1e-4, so their softcap must not move between runs."""
+    return torch.tanh(x.double()).to(x.dtype)
+
+
 def _repeat(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(x, n_rep, dim=2) if n_rep > 1 else x
 
@@ -87,7 +95,7 @@ def attention_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vr = _repeat(v.float(), n_rep)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * hd ** -0.5
     if softcap is not None:
-        logits = torch.tanh(logits / softcap) * softcap
+        logits = _tanh(logits / softcap) * softcap
     rel = q_pos[:, None].long() - k_pos[None, :].long()
     ok = k_valid.bool()[None, :].expand(rel.shape)
     if causal:
@@ -134,7 +142,7 @@ def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vr = _repeat(v.float(), n_rep)
     raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
     if softcap is not None:
-        capped = torch.tanh(raw / softcap)
+        capped = _tanh(raw / softcap)
         logits = capped * softcap
     else:
         logits = raw
@@ -191,7 +199,7 @@ def paged_decode_ref(q: torch.Tensor, pool_k: torch.Tensor,
     gv = _repeat(pool_v[idx].reshape(b, n_max * blk, kv, hd).float(), n_rep)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), gk) * hd ** -0.5
     if softcap is not None:
-        logits = torch.tanh(logits / softcap) * softcap
+        logits = _tanh(logits / softcap) * softcap
     pos = torch.arange(n_max * blk, device=q.device)
     ok = pos[None, :] < lengths.reshape(-1, 1).long()  # (B, S)
     logits = torch.where(ok[:, None, None, :], logits,

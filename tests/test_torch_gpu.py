@@ -216,6 +216,142 @@ def test_flash_attention_autograd_on_card_matches_cpu(cuda):
         _close(got, want, torch.float32)
 
 
+def _autograd_on(dev, arrays, dtype, weights=None):
+    """out, dq, dk, dv (float32, on the CPU) of ``sum(out**2)``, or of
+    ``sum(out * weights)``, through ``flash_attention`` (softcap 15) on
+    ``dev``."""
+    q, k, v = (torch.from_numpy(a).to(dev, dtype).requires_grad_(True) for a in arrays)
+    out = kattn.flash_attention(q, k, v, True, None, 15.0)
+    if weights is None:
+        out.float().square().sum().backward()
+    else:
+        out.backward(torch.from_numpy(weights).to(dev, dtype))
+    return [x.float().cpu() for x in (out.detach(), q.grad, k.grad, v.grad)]
+
+
+def test_flash_attention_autograd_repeated_on_card(cuda):
+    """The float32 autograd case above 50 times in one process: out, dq, dk
+    and dv within 1e-4 of the CPU every time, and the same bits every
+    time."""
+    r = np.random.default_rng(3)
+    arrays = [r.standard_normal(shape).astype(np.float32)
+              for shape in ((2, 45, 8, 64), (2, 45, 2, 64), (2, 45, 2, 64))]
+    want = _autograd_on("cpu", arrays, torch.float32)
+    first = None
+    for _ in range(50):
+        got = _autograd_on(cuda, arrays, torch.float32)
+        for g, w in zip(got, want):
+            _close(g, w, torch.float32)
+        first = first or got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+def test_flash_attention_autograd_bf16_on_card_matches_cpu(cuda):
+    """The autograd function in bf16 (forward and dk/dv on the tensor cores,
+    dq on the FMA kernel) against the same function on the CPU, under the
+    loss ``sum(out * w)``: both devices backpropagate the same bf16 output
+    gradient (``sum(out**2)`` would feed each its own rounding of out)."""
+    r = np.random.default_rng(4)
+    arrays = [r.standard_normal(shape).astype(np.float32)
+              for shape in ((2, 130, 8, 128), (2, 130, 2, 128), (2, 130, 2, 128),
+                            (2, 130, 8, 128))]
+    w = arrays.pop()
+    kernels.reset_launch_counts()
+    got = _autograd_on(cuda, arrays, torch.bfloat16, w)
+    assert kernels.route_counts()["chunk_attention"] == {"tc": 1, "fma": 0}
+    assert kernels.route_counts()["flash_dkv"] == {"tc": 1, "fma": 0}
+    assert kernels.launch_counts()["flash_dq"] == 1
+    for g, want in zip(got, _autograd_on("cpu", arrays, torch.bfloat16, w)):
+        _close(g, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    # b, c, prior, off, h, kv, hd, window, softcap, padded rows
+    (2, 45, 256, 200, 8, 2, 128, 50, 30.0, 0),    # C < 64, window across tiles
+    (1, 70, 640, 100, 4, 4, 64, None, None, 0),   # sentinel-only tail tiles
+    (1, 37, 32, 20, 8, 1, 128, 6, None, 5),       # padded rows, n_rep 8
+    (2, 300, 640, 500, 32, 4, 128, 200, 20.0, 7),  # 128-row blocks, ragged
+])
+def test_chunk_tc_kernel_at_its_edges(cuda, case):
+    """The tensor-core chunk forward against its plain version (out and lse
+    at 2e-2) where it skips key tiles by position, on the tc route, and the
+    same bits on a second run."""
+    b, c, prior, off, h, kv, hd, window, softcap, pad = case
+    r = np.random.default_rng(c + prior)
+    args = list(_chunk_case(r, cuda, torch.bfloat16, b, c, prior, off, h, kv, hd))
+    if pad:
+        args[3][-pad:] = -(2 ** 30)
+    kernels.reset_launch_counts()
+    runs = [kattn.chunk_attention_fwd(*args, window=window, softcap=softcap) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["chunk_attention"] == {"tc": 2, "fma": 0}
+    want, want_lse = ref.attention_ref_lse(*args, window=window, softcap=softcap)
+    _close(runs[0][0], want, torch.bfloat16)
+    _close(runs[0][1], want_lse, torch.bfloat16)
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_chunk_tc_kernel_shuffled_keys_and_a_row_without_keys(cuda, hd):
+    """Keys out of position order at positions past the array bounds, and a
+    live row whose window holds only invalid keys (it takes the mean of v
+    over all keys, lse -1e30)."""
+    r = np.random.default_rng(hd)
+    q, k, v, q_pos, k_pos, k_valid = _chunk_case(r, cuda, torch.bfloat16, 2, 90, 300, 250,
+                                                 8, 2, hd)
+    k_valid[300 + 20:300 + 23] = False  # row 22 sees only these within window 3
+    perm = torch.from_numpy(r.permutation(k.shape[1])).to(cuda)
+    k, v = k[:, perm].contiguous(), v[:, perm].contiguous()
+    k_pos, k_valid = k_pos[perm] + 7000, k_valid[perm]
+    q_pos = q_pos + 7000
+    got, lse = kattn.chunk_attention_fwd(q, k, v, q_pos, k_pos, k_valid, window=3)
+    torch.cuda.synchronize()
+    want, want_lse = ref.attention_ref_lse(q, k, v, q_pos, k_pos, k_valid, window=3)
+    _close(got, want, torch.bfloat16)
+    _close(lse, want_lse, torch.bfloat16)
+    assert (lse[:, :, 22] < -1e29).all()
+
+
+def test_chunk_tc_kernel_counts_the_key_tiles_it_visits(cuda):
+    """Causal self-attention at S 512, 2 heads: too few blocks for 128-row
+    ones to fill the card, so 64-row blocks, 8 a head, which list the
+    128-key tiles up to their last row's (1, 1, 2, 2, 3, 3, 4, 4 of 4), as
+    the kernel's own counters show; a reset zeroes them."""
+    r = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, 512, n, 64))).to(cuda, torch.bfloat16)
+               for n in (2, 1, 1))
+    pos = torch.arange(512, device=cuda, dtype=torch.int32)
+    kattn.tc_key_tiles(reset=True)
+    kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos))
+    assert kattn.tc_key_tiles(reset=True) == (2 * 20, 2 * 32)
+    assert kattn.tc_key_tiles() == (0, 0)
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.float32, 128, "fma"), (torch.bfloat16, 32, "fma"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc")])
+def test_attention_routes_on_card(cuda, dtype, hd, route):
+    """The chunk forward and dk/dv launch the library their plan names, and
+    dk/dv gives the same bits on a second run (no atomics on either
+    route)."""
+    r = np.random.default_rng(hd)
+    q, k, v, dout, out, lse = _flash_case(r, cuda, dtype, 1, 150, 8, 2, hd, None, 10.0)
+    delta = ref.flash_delta(out, dout)
+    kernels.reset_launch_counts()
+    runs = [kattn.flash_dkv(q, k, v, dout, lse, delta, softcap=10.0) for _ in range(2)]
+    pos = torch.arange(150, device=cuda, dtype=torch.int32)
+    kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos))
+    torch.cuda.synchronize()
+    other = "fma" if route == "tc" else "tc"
+    assert kernels.route_counts()["flash_dkv"] == {route: 2, other: 0}
+    assert kernels.route_counts()["chunk_attention"] == {route: 1, other: 0}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, softcap=10.0)
+    atol, rtol = FLASH_TOL[dtype]
+    for got, exp in zip(runs[0], want[1:]):
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
 def test_flash_backward_refusals(cuda):
     r = np.random.default_rng(8)
     q, k, v, dout, out, lse = _flash_case(r, cuda, torch.float32, 1, 8, 4, 2, 32,
@@ -382,7 +518,9 @@ def test_psgn_tensor_core_route_at_ragged_edges(cuda, case):
              "fused": psgn.psgn_fused(xs, ds),
              "layers": psgn.psgn_fused_layers(list(xs), list(ds))} for _ in range(2)]
     torch.cuda.synchronize()
-    assert kernels.route_counts() == {"psgn_direct": {"tc": 2, "fma": 0},
+    assert kernels.route_counts() == {"chunk_attention": {"tc": 0, "fma": 0},
+                                      "flash_dkv": {"tc": 0, "fma": 0},
+                                      "psgn_direct": {"tc": 2, "fma": 0},
                                       "psgn_gram": {"tc": 2, "fma": 0},
                                       "psgn_fused": {"tc": 4, "fma": 0}}
     want = {"direct": ref.psgn_ref(x, d), "gram": ref.psgn_gram_ref(x, d),
@@ -405,8 +543,9 @@ def test_psgn_routes_agree(cuda, shape):
                           (psgn.psgn_gram, xs[0], ds[0], ds32[0]),
                           (psgn.psgn_fused, xs, ds, ds32)):
         torch.testing.assert_close(fn(x, d).cpu(), fn(x, d32).cpu(), rtol=1e-4, atol=0)
-    assert kernels.route_counts() == {name: {"tc": 1, "fma": 1} for name in
-                                      ("psgn_direct", "psgn_gram", "psgn_fused")}
+    assert kernels.route_counts() == {
+        "chunk_attention": {"tc": 0, "fma": 0}, "flash_dkv": {"tc": 0, "fma": 0},
+        **{name: {"tc": 1, "fma": 1} for name in ("psgn_direct", "psgn_gram", "psgn_fused")}}
 
 
 @pytest.mark.parametrize("n_l", [2, 40])
