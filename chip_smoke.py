@@ -14,7 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      prior table) and at small edge cases (float32 and bf16, softcap,
      window, ragged C and Sk, padded query rows at -(2**30), n_rep 1 and 8);
      paged decode at B=8, block 16, ragged lengths, dead table entries at 0,
-     out-of-order pool ids.  bf16 is held at 2e-2 against the plain version
+     out-of-order pool ids, split over the context by ``decode_plan`` (9
+     splits at the serving shape; its edges: lengths 1 and one block, a
+     split boundary and one token either side, a full table, free lanes
+     whose tables are all sentinel), and 20 launches giving the same bits.
+     bf16 is held at 2e-2 against the plain version
      in float32 on the same bf16 inputs, float32 at 1e-4.  Times: kernel,
      plain version and the library yardstick
      (``F.scaled_dot_product_attention``, timed here only), each launch
@@ -62,20 +66,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      and ``sq_norm_sum`` within 1e-4 relative, parameters within 1e-4, one
      batch schedule.
 
-The chunk forward and dk/dv have two routes (``kattn.attention_plan``):
+The chunk forward, dq and dk/dv have two routes (``kattn.attention_plan``):
 bf16 at head dims 64 and 128 takes the tensor-core kernels
-(``chunk_attention_tc.cu``, ``flash_dkv_tc.cu``), float32 and hd 32 the FMA
-kernels.  Phase 3 holds both against the plain versions and prints each
-case's route in brackets (``[tc]``, ``[fma]``; ``[dk/dv tc]`` for the
-backward), with the key tiles the tensor-core forward visited out of all,
-as its blocks counted them on the card (it skips tiles by position); its
-tensor-core cases add ragged C and S, C <
-64, n_rep 1, 4 and 8, hd 64 and 128, softcap, a window across tiles, padded
-rows, a live row with no attendable key, a sentinel-only prior tail,
+(``chunk_attention_tc.cu``, ``flash_dq_tc.cu``, ``flash_dkv_tc.cu``), float32
+and hd 32 the FMA kernels.  Phase 3 holds both against the plain versions
+and prints each case's route in brackets (``[tc]``, ``[fma]``; ``[dq, dk/dv
+tc]`` for the backward), with the key tiles the tensor-core forward visited
+out of all, as its blocks counted them on the card (it skips tiles by
+position); its tensor-core cases add ragged C and S, C < 64, n_rep 1, 4 and
+8, hd 64 and 128, softcap, a window across tiles, padded rows, a live row
+with no attendable key, a sentinel-only prior tail,
 shuffled keys at positions past the array bounds, 128-row blocks, the
-serving shape and the training shape.  Phases 4, 6 and 8 assert that every
-chunk and dk/dv launch took the tensor cores, phases 5, 7 and 9 (float32)
-the FMA kernels.
+serving shape and the training shape; the backward's add S 1, 63, 64, 65,
+129 and 300 at hd 64 and 128 with n_rep 1, 2 and 8, a window across tiles
+and softcap 20.  Phases 4, 6 and 8 assert that every chunk, dq and dk/dv
+launch took the tensor cores, phases 5, 7 and 9 (float32) the FMA kernels.
 
 Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
 their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
@@ -255,16 +260,19 @@ def rms(t: torch.Tensor) -> float:
     return t.float().square().mean().sqrt().item()
 
 
+ROUTED_ATTENTION = ("chunk_attention", "flash_dq", "flash_dkv")
+
+
 def attention_routes() -> dict:
     routes = kernels.route_counts()
-    return {k: routes[k] for k in ("chunk_attention", "flash_dkv")}
+    return {k: routes[k] for k in ROUTED_ATTENTION}
 
 
 def attn_routes(counts: dict, *, tc: bool, what: str) -> None:
-    """Every chunk-forward and dk/dv launch of the run just read took the
+    """Every chunk-forward, dq and dk/dv launch of the run just read took the
     tensor cores (``tc``, bf16) or the FMA kernels (float32)."""
     route, other = ("tc", "fma") if tc else ("fma", "tc")
-    want = {name: {route: counts[name], other: 0} for name in ("chunk_attention", "flash_dkv")}
+    want = {name: {route: counts[name], other: 0} for name in ROUTED_ATTENTION}
     if attention_routes() != want or counts["chunk_attention"] == 0:
         raise AssertionError(f"{what}: attention routes {attention_routes()}, expected {want}")
 
@@ -389,6 +397,12 @@ def decode_kernel_record(r) -> dict:
                          kv=kv, h=h, hd=hd, max_len=1100)
     err = decode_case("slice shape bf16 (B 8, block 16, lengths <= 1100)", args)
     q, pool_k, pool_v, tables, lengths = args
+    splits = kattn.paged_decode_attention.splits
+    # a fixed split order and no atomics: the same bits on every launch
+    outs = [kattn.paged_decode_attention(*args) for _ in range(20)]
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("paged decode: 20 launches gave different bits")
+    del outs
     ms = timed_ms(lambda: kattn.paged_decode_attention(*args))
     device_ms = timed_ms(lambda: kattn.paged_decode_attention(*args), spin=True)
     plain_ms = timed_ms(lambda: ref.paged_decode_ref(*args))
@@ -405,12 +419,45 @@ def decode_kernel_record(r) -> dict:
     live_kv = 2 * tokens * kv * hd * pool_k.element_size()
     moved = live_kv + 2 * nbytes(q) + nbytes(tables, lengths)
     bound_ms, by = bound(moved, 4 * tokens * h * hd)
+    print(f"  paged_decode_attention at the serving shape: plan {splits} splits "
+          f"({splits * kv * b} blocks); 20 launches bit-identical; {ms:.4f} ms "
+          f"({device_ms:.4f} on the card alone; plain {plain_ms:.4f}, library "
+          f"{library_ms:.4f}); bound {bound_ms:.4f} ms by {by}, "
+          f"{100 * bound_ms / device_ms:.1f}% of it alone")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/attention.py:448",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
-            "device_ms": device_ms}
+            "device_ms": device_ms, "splits": splits}
+
+
+def decode_split_cases(r) -> None:
+    """The split decode at its edges, at the serving widths (B 8, 32/4
+    heads, hd 128, block 16, n_max 192: the plan's 9 splits on 132 SMs), in
+    both types: lengths 1 and one block, a length on a split boundary (288:
+    18 entries in shares of 2) and one token either side (289 leaves one
+    token in the seventh share and two empty shares), a full table, and two
+    free lanes whose tables are all sentinel (lengths that kept counting,
+    the second past the table)."""
+    h, kv, hd = YI.num_heads, YI.num_kv_heads, YI.resolved_head_dim
+    blk, n_max = 16, 192
+    lens = [1, blk, 287, 288, 289, n_max * blk, 37, 5000]
+    tables = np.zeros((len(lens), n_max), np.int32)
+    ids = list(range(1, 2048))
+    r.shuffle(ids)
+    for row, n in enumerate(lens[:6]):
+        live = -(-n // blk)
+        tables[row, :live] = ids[:live]
+        ids = ids[live:]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, pool_k, pool_v, _, _ = decode_inputs(r, dtype, b=len(lens), blk=blk, n_max=n_max,
+                                                nb=2048, kv=kv, h=h, hd=hd, max_len=1)
+        args = (q, pool_k, pool_v, torch.from_numpy(tables).to("cuda"),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        decode_case(f"{tag} split edges (lengths {lens}, rows 6-7 all sentinel)", args)
+        print(f"    ({kattn.paged_decode_attention.splits} splits)")
 
 
 def flash_inputs(r, dtype, *, b, s, h, kv, hd, window=None, softcap=None) -> dict:
@@ -442,7 +489,7 @@ def flash_case(name, inp) -> tuple[float, float]:
     err_dkv = max(check(name + " dk", dk, want[1], dtype, tol=tol),
                   check(name + " dv", dv, want[2], dtype, tol=tol))
     route = kattn.attention_plan(dtype, inp["q"].shape[-1])
-    print(f"  flash backward {name} [dk/dv {route}]: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
+    print(f"  flash backward {name} [dq, dk/dv {route}]: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
           f"(atol {tol[0]}, rtol {tol[1]}); rms of the plain dq {rms(want[0]):.3e}, "
           f"dk {rms(want[1]):.3e}, dv {rms(want[2]):.3e}")
     return err_dq, err_dkv
@@ -489,27 +536,26 @@ def flash_kernel_records(r) -> list[dict]:
     read = nbytes(q, k, v, dout, lse, delta)
     dq_bound, dq_by = bound(read + b * s * h * hd * 4, 3 * 2 * hd * pairs)
     dkv_bound, dkv_by = bound(read + 2 * b * s * kv * hd * 4, 4 * 2 * hd * pairs)
-    dkv_route = kattn.attention_plan(q.dtype, hd)
+    route = kattn.attention_plan(q.dtype, hd)
     for label, ms, dev, flops, bnd in (
-            ("flash_dq [fma]", dq_ms, dq_dev, 3 * 2 * hd * pairs, dq_bound),
-            (f"flash_dkv [{dkv_route}]", dkv_ms, dkv_dev, 4 * 2 * hd * pairs, dkv_bound)):
+            (f"flash_dq [{route}]", dq_ms, dq_dev, 3 * 2 * hd * pairs, dq_bound),
+            (f"flash_dkv [{route}]", dkv_ms, dkv_dev, 4 * 2 * hd * pairs, dkv_bound)):
         print(f"  {label} at the training shape: {ms:.4f} ms ({dev:.4f} on the card alone), "
               f"{flops / ms / 1e9:.1f} TFLOP/s (library {library_ms:.4f}: SDPA backward); "
               f"bound {bnd:.4f} ms, {100 * bnd / ms:.1f}% of it")
     del out, qt, kt, vt, inp
-    common = {"route": "cuda", "plain_ms": plain_ms, "library_ms": library_ms}
-    dkv_source = f"flash_dkv{'_tc' if dkv_route == 'tc' else ''}.cu"
+    common = {"route": "cuda", "plain_ms": plain_ms, "library_ms": library_ms,
+              "dispatch": route}
+    tc = "_tc" if route == "tc" else ""
     return [
-        {"name": "flash_dq", "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
+        {"name": "flash_dq", "source": f"src/repro_torch/kernels/csrc/flash_dq{tc}.cu",
          "replaces": "src/repro/kernels/attention.py:218", "max_abs_err": err_dq,
          "ms": dq_ms, "bound_ms": dq_bound, "bound_by": dq_by, **common,
-         "device_ms": dq_dev, "dispatch": "fma",
-         "tflops": 3 * 2 * hd * pairs / dq_ms / 1e9},
-        {"name": "flash_dkv", "source": f"src/repro_torch/kernels/csrc/{dkv_source}",
+         "device_ms": dq_dev, "tflops": 3 * 2 * hd * pairs / dq_ms / 1e9},
+        {"name": "flash_dkv", "source": f"src/repro_torch/kernels/csrc/flash_dkv{tc}.cu",
          "replaces": "src/repro/kernels/attention.py:245", "max_abs_err": err_dkv,
          "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by, **common,
-         "device_ms": dkv_dev, "dispatch": dkv_route,
-         "tflops": 4 * 2 * hd * pairs / dkv_ms / 1e9},
+         "device_ms": dkv_dev, "tflops": 4 * 2 * hd * pairs / dkv_ms / 1e9},
     ]
 
 
@@ -551,6 +597,18 @@ def tc_attention_cases(r) -> None:
                flash_inputs(r, bf, b=2, s=200, h=8, kv=2, hd=64, window=70))
     flash_case("tc n_rep 4, hd 128, ragged S 129, softcap 30",
                flash_inputs(r, bf, b=1, s=129, h=16, kv=4, hd=128, softcap=30.0))
+    # dq's 128-row blocks: a single row, ragged and whole 64-row tiles, a
+    # block whose second warpgroup has no row, n_rep 1, 2 and 8 in turn
+    n_reps = (1, 2, 8)
+    for i, (s, hd) in enumerate((s, hd) for s in (1, 63, 64, 65, 129, 300) for hd in (64, 128)):
+        n_rep = n_reps[i % 3]
+        kv = 8 // n_rep if n_rep < 8 else 1
+        flash_case(f"tc S {s}, hd {hd}, n_rep {n_rep}",
+                   flash_inputs(r, bf, b=2, s=s, h=kv * n_rep, kv=kv, hd=hd))
+    flash_case("tc n_rep 2, hd 128, S 300, window 70 across tiles",
+               flash_inputs(r, bf, b=1, s=300, h=8, kv=4, hd=128, window=70))
+    flash_case("tc n_rep 8, hd 64, S 200, softcap 20",
+               flash_inputs(r, bf, b=1, s=200, h=16, kv=2, hd=64, softcap=20.0))
 
 
 # per-sample gradient norms: f32 and bf16 inputs, and bf16 activations with
@@ -626,7 +684,8 @@ def sass_hgmma() -> None:
         print("  HGMMA in SASS: no cuobjdump beside nvcc")
         return
     counts = {}
-    for name in ("psgn_direct_tc", "psgn_gram_tc", "chunk_attention_tc", "flash_dkv_tc"):
+    for name in ("psgn_direct_tc", "psgn_gram_tc", "chunk_attention_tc", "flash_dq_tc",
+                 "flash_dkv_tc"):
         sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
         counts[name] = sum("HGMMA" in line for line in sass.splitlines())
@@ -820,6 +879,9 @@ def kernels_phase() -> list[dict]:
         decode_case(f"{tag} n_rep 8",
                     decode_inputs(r, dtype, b=3, blk=16, n_max=5, nb=20, kv=2, h=16,
                                   hd=128, max_len=80))
+        decode_case(f"{tag} hd 80 (a thread's outputs over several columns)",
+                    decode_inputs(r, dtype, b=3, blk=16, n_max=5, nb=20, kv=2, h=4,
+                                  hd=80, max_len=80))
         flash_case(f"{tag} ragged S 37, n_rep 1, softcap 30",
                    flash_inputs(r, dtype, b=2, s=37, h=4, kv=4, hd=64, softcap=30.0))
         flash_case(f"{tag} ragged S 300, n_rep 8",
@@ -830,6 +892,7 @@ def kernels_phase() -> list[dict]:
         flash_case(f"{tag} a single tile (S 16), hd 32",
                    flash_inputs(r, dtype, b=2, s=16, h=4, kv=2, hd=32))
     tc_attention_cases(r)
+    decode_split_cases(r)
     for tag, dtypes in PSGN_TYPES.items():
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
                       (2, 129, 257, 129), (3, 1, 5, 9)):
@@ -952,7 +1015,8 @@ def full_width_phase() -> dict:
                 for s, c, d in steps if c > 0]
     print(f"  launches: {counts} (= 32 x {st.prefill_chunks} chunks, "
           f"32 x {st.steps} decode steps, no backward); attention routes "
-          f"{attention_routes()}")
+          f"{attention_routes()}; the last decode step's plan "
+          f"{kattn.paged_decode_attention.splits} splits")
     print(f"  decode step: median {decode_ms:.2f} ms over {len(decode_only)} "
           f"decode-only steps (batch bucket {st.buckets})")
     print(f"  prefill chunk: median {statistics.median(chunk_ms):.2f} ms over "
@@ -1233,6 +1297,7 @@ def gram_train_phase() -> tuple[dict, dict]:
     attn_routes(counts, tc=True, what="gram-tier training")
     routes = kernels.route_counts()
     want_routes = {"chunk_attention": {"tc": want["chunk_attention"], "fma": 0},
+                   "flash_dq": {"tc": want["flash_dq"], "fma": 0},
                    "flash_dkv": {"tc": want["flash_dkv"], "fma": 0},
                    "psgn_direct": {"tc": 0, "fma": 0},
                    "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
@@ -1298,6 +1363,7 @@ def gram_train_phase() -> tuple[dict, dict]:
     # routes against each other on the same activations and gradients
     routes_alone = kernels.route_counts()
     want_routes = {"chunk_attention": {"tc": 0, "fma": 0},
+                   "flash_dq": {"tc": 0, "fma": 0},
                    "flash_dkv": {"tc": 0, "fma": 0},
                    "psgn_direct": {"tc": 0, "fma": 4 * layers},
                    "psgn_gram": {"tc": 0, "fma": 3 * layers},

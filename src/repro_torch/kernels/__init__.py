@@ -10,7 +10,7 @@ float32 plain versions the CPU runs and the kernels are held against,
 ``_build.py`` the nvcc build, and ``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
 launch count, :func:`route_counts` the counts by route ("tc" tensor cores,
 "fma" float32 FMA kernels) of the wrappers that have two: the chunk
-forward, dk/dv and the psgn wrappers.
+forward, dq, dk/dv and the psgn wrappers.
 """
 
 from repro_torch.kernels import attention, psgn, quant
@@ -35,5 +35,5 @@ def launch_counts() -> dict[str, int]:
 
 def route_counts() -> dict[str, dict[str, int]]:
     """``{wrapper name: {"tc": launches, "fma": launches}}`` for the chunk
-    forward, dk/dv and the psgn wrappers."""
+    forward, dq, dk/dv and the psgn wrappers."""
     return {fn.__name__: dict(fn.routes) for fn in _COUNTED if hasattr(fn, "routes")}

@@ -51,15 +51,21 @@ SIGNATURES = {
     ),
     "paged_decode": (
         "paged_decode_fwd",
-        # dtype, q, pool_k, pool_v, tables, lengths, out,
-        # B, H, KV, hd, num_blocks, blk, n_max, scale, softcap, stream
-        [_I, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        # dtype, q, pool_k, pool_v, tables, lengths, out, part,
+        # B, H, KV, hd, num_blocks, blk, n_max, splits, scale, softcap, stream
+        [_I, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     ),
     "flash_dq": (
         "flash_dq_bwd",
         # dtype, q, k, v, dout, lse, delta, dq,
         # B, S, H, KV, hd, scale, softcap, window, stream
+        [_I, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    ),
+    "flash_dq_tc": (
+        "flash_dq_tc_bwd",
+        # flash_dq_bwd's arguments (dtype must be bfloat16)
         [_I, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _F, _F, _I, _P],
     ),

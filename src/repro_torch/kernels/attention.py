@@ -11,7 +11,8 @@ Wrappers over the hand-written CUDA kernels in ``csrc/`` (built by
                           also returns the (B, H, C) float32 lse.
   paged_decode_attention  q (B, 1, H, hd) against the shared pool
                           (num_blocks, block, KV, hd) through per-row block
-                          tables and lengths, the gather inside the kernel.
+                          tables and lengths, the gather inside the kernel,
+                          split over the context by :func:`decode_plan`.
   flash_dq, flash_dkv     the flash backward's two passes for causal
                           self-attention: dq (B, S, H, hd), and dk, dv
                           (B, S, KV, hd) summed over each KV head's query
@@ -31,25 +32,28 @@ its kernel launches in a plain integer attribute (``chunk_attention.launches``,
 ``flash_dkv.launches``), so a run can show that its path went through the
 kernels.
 
-The chunk forward and dk/dv have two routes, chosen by :func:`attention_plan`
-from the type and head dim before any launch:
+The chunk forward, dq and dk/dv have two routes, chosen by
+:func:`attention_plan` from the type and head dim before any launch:
 
   tc   bf16 at head dims 64 and 128: wgmma tensor-core kernels fed by TMA,
        ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key tiles,
-       key tiles skipped by position) and ``csrc/flash_dkv_tc.cu`` (64-key
-       blocks over 64-row query tiles);
+       key tiles skipped by position), ``csrc/flash_dq_tc.cu`` (128 query
+       rows over 64-key tiles) and ``csrc/flash_dkv_tc.cu`` (64-key blocks
+       over 64-row query tiles);
   fma  float32, and head dim 32: the float32 FMA kernels
-       ``csrc/chunk_attention.cu`` and ``csrc/flash_dkv.cu``.
+       ``csrc/chunk_attention.cu``, ``csrc/flash_dq.cu`` and
+       ``csrc/flash_dkv.cu``.
 
 This is a dispatch decided up front, not a fallback: a tensor-core launch
-that fails raises.  ``chunk_attention.routes`` and ``flash_dkv.routes``
-count launches by route (``{"tc": n, "fma": m}``).  ``flash_dq`` has the FMA
-kernel alone, for both types.
+that fails raises.  ``chunk_attention.routes``, ``flash_dq.routes`` and
+``flash_dkv.routes`` count launches by route (``{"tc": n, "fma": m}``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -64,6 +68,8 @@ TC_HEAD_DIMS = (64, 128)
 TC_MAX_KEYS = 512 * 128
 #: the decode kernel's per-thread output registers hold (H / KV) * hd <= this
 DECODE_MAX_GROUP = 2048
+#: context tokens a decode split takes at least, where the table allows
+DECODE_SPLIT_TOKENS = 64
 
 
 def _check_cuda(name: str, tensors: dict[str, torch.Tensor], dtype) -> None:
@@ -87,11 +93,11 @@ def _raise_on(lib, name: str, rc: int) -> None:
 
 
 def attention_plan(dtype: torch.dtype, hd: int) -> str:
-    """The route of a chunk-forward or dk/dv call on the card: "tc" (tensor
-    cores) for bf16 at head dims 64 and 128, "fma" (float32 FMA kernels) for
-    float32 and for head dim 32.  float32 stays off the tensor cores: TF32
-    would miss the 1e-4 its card tests hold.  Raises for a type or head dim
-    that has no kernel."""
+    """The route of a chunk-forward, dq or dk/dv call on the card: "tc"
+    (tensor cores) for bf16 at head dims 64 and 128, "fma" (float32 FMA
+    kernels) for float32 and for head dim 32.  float32 stays off the tensor
+    cores: TF32 would miss the 1e-4 its card tests hold.  Raises for a type
+    or head dim that has no kernel."""
     if dtype not in _DTYPES:
         raise TypeError(f"attention: dtype {dtype} has no kernel (float32, bfloat16)")
     if hd not in CHUNK_HEAD_DIMS:
@@ -199,6 +205,21 @@ def tc_key_tiles(*, reset: bool = False) -> tuple[int, int]:
     return int(counts[0]), int(counts[1])
 
 
+def decode_plan(b: int, kv: int, n_max: int, blk: int, sms: int) -> int:
+    """The number of splits of the paged decode kernel's context: about two
+    blocks per SM over the ``b * kv`` (row, KV head) pairs, ``ceil(2 sms /
+    (b kv))``, at least 1 and at most the table's groups of
+    ``DECODE_SPLIT_TOKENS`` tokens, ``ceil(n_max blk / 64)``.  A pure
+    function of shapes: it reads nothing on the card, so it costs no sync."""
+    most = math.ceil(n_max * blk / DECODE_SPLIT_TOKENS)
+    return max(1, min(math.ceil(2 * sms / (b * kv)), most))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, tables: torch.Tensor,
                            lengths: torch.Tensor, *,
@@ -209,7 +230,10 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     pool; tables (B, n_max) int — row b's logical block i lives at pool block
     ``tables[b, i]``, dead entries are the sentinel 0; lengths (B,) int —
     the valid context per row.  Only entries ``i < ceil(length / block)``
-    are read, and positions ``>= length`` are masked."""
+    are read, and positions ``>= length`` are masked.  On the card the
+    context is split :func:`decode_plan` ways (recorded in
+    ``paged_decode_attention.splits``), each split's partial softmax in a
+    float32 workspace combined in split order."""
     b, one, h, hd = q.shape
     nb, blk, kv, _ = pool_k.shape
     if one != 1 or pool_k.shape != (nb, blk, kv, hd) or pool_v.shape != pool_k.shape \
@@ -234,20 +258,28 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     _check_cuda("paged_decode_attention",
                 {"q": q, "pool_k": pool_k, "pool_v": pool_v, "tables": tables,
                  "lengths": lengths}, q.dtype)
+    n_max = tables.shape[1]
+    splits = decode_plan(b, kv, n_max, blk, _sms(q.device.index))
     out = torch.empty_like(q)
+    # the splits' partials: acc (n_rep * hd), then m and l (n_rep each)
+    part = torch.empty(b * kv * splits * (h // kv) * (hd + 2) if splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     lib = _build.library("paged_decode")
     rc = lib.paged_decode_fwd(
         _DTYPES[q.dtype], q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kv, hd, nb, blk, tables.shape[1], hd ** -0.5, _cap(softcap),
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+        b, h, kv, hd, nb, blk, n_max, splits, hd ** -0.5, _cap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, "paged_decode", rc)
     paged_decode_attention.launches += 1
+    paged_decode_attention.splits = splits
     return out
 
 
 paged_decode_attention.launches = 0
+#: the split count of the last card launch (0 before any)
+paged_decode_attention.splits = 0
 
 
 def _check_backward(name: str, q, k, v, dout, lse, delta) -> None:
@@ -303,13 +335,17 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tens
     if q.device.type == "cpu":
         return ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
                                    softcap=softcap)[0]
+    route = attention_plan(q.dtype, q.shape[-1]) if q.device.type == "cuda" else "fma"
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap)
+    _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap,
+                     "flash_dq_tc" if route == "tc" else "flash_dq")
     flash_dq.launches += 1
+    flash_dq.routes[route] += 1
     return dq
 
 
 flash_dq.launches = 0
+flash_dq.routes = {"tc": 0, "fma": 0}
 
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
@@ -382,6 +418,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not causal:
         raise NotImplementedError(
             "non-causal flash attention (encoder configs) is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue C)")
+            "repro_torch yet (ROADMAP.md, Queue B 1)")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                  window, softcap)

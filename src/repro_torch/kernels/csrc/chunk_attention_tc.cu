@@ -109,16 +109,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int HD>
-__device__ __forceinline__ void pv_product(float (&o)[HD / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (HD == 128) {
-    wgmma_m64n128k16_rs(o, a, db, 1);
-  } else {
-    wgmma_m64n64k16_rs(o, a, db, 1);
-  }
-}
-
 template <int HD, int WG>
 __global__ void __launch_bounds__(Shape<HD, WG>::kThreads, 1)
 chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
@@ -336,7 +326,7 @@ chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t db = smem_desc(sv + (kk / 4) * G::kFB * kBoxBytes + (kk % 4) * 2048,
                                     kBoxBytes, kSwizzleAtom);
-      pv_product<HD>(o, pa[kk], db);
+      rs_product<HD>(o, pa[kk], db);
     }
     wgmma_commit();
     wgmma_wait<0>();

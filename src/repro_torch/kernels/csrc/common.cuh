@@ -1,9 +1,12 @@
-// Shared helpers of the serving kernels (float32 and bfloat16 instances).
+// Shared helpers of the kernels (float32 and bfloat16 instances), and the
+// host's once-per-device opt-in to large dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro {
 
@@ -61,6 +64,26 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
 }
+
+constexpr int kMaxDevices = 64;
+
+// A kernel's opt-in to more than 48 KB of dynamic shared memory, set the
+// first time it launches on a device.  One instance per kernel: a static
+// local of the kernel's launcher.
+struct SmemOptIn {
+  std::atomic<bool> done[kMaxDevices] = {};
+
+  template <typename Kernel>
+  int apply(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+    return static_cast<int>(err);
+  }
+};
 
 // dtype codes shared with kernels/attention.py
 constexpr int kFloat32 = 0;

@@ -4,8 +4,8 @@
 //
 // Both kernels run 128 threads (4 warps) over 32 x 32 (query x key) tiles,
 // with four float32 tiles of 32 rows x (hd + 4) in dynamic shared memory:
-// 67.6 KB at hd = 128, above the 48 KB static limit, so the launch raises
-// cudaFuncAttributeMaxDynamicSharedMemorySize.  The row padding of 4 floats
+// 67.6 KB at hd = 128, above the 48 KB static limit, so each kernel opts in
+// to more once per device (SmemOptIn).  The row padding of 4 floats
 // keeps the row-per-lane float4 reads free of bank conflicts.
 #pragma once
 

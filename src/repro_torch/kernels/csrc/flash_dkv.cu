@@ -165,10 +165,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
            const void* delta, void* dk, void* dv, int B, int S, int H, int KV, float scale,
            float softcap, int window, cudaStream_t stream) {
   const size_t bytes = smem_bytes(HD);
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static SmemOptIn opt_in;
+  const int rc = opt_in.apply(flash_dkv_kernel<T, HD>, static_cast<int>(bytes));
+  if (rc != 0) return rc;
   const dim3 grid((S + kT - 1) / kT, KV, B);
   flash_dkv_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

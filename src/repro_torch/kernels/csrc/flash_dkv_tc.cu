@@ -35,15 +35,9 @@
 // order and writes dK (scaled once) and dV: no float atomics, the same bits
 // on every run, and no (B, S, H, hd) per-head partials.
 //
-// Rounding.  p and ds are rounded to bf16 before the products, so a logit
-// or dp a few ulps off the plain version's can put one across a rounding
-// tie, and one such flip at a large p moves dv by ulp(p) |dO| (2e-3 at p
-// near 1/3).  The tensor cores' sums are less exact than fmaf chains; so
-// the scores run in chains of 2 k16 steps added in float32 (tile_dot), and
-// where p or ds lands within 16 float32 ulps of a tie at a size where a
-// flip matters, the logit and dp are taken again as fmaf chains from the
-// same tiles in shared memory (a few elements a tile), which leaves the
-// flips as rare as the FMA kernel's.
+// Rounding.  p and ds are rounded to bf16 before the products: the scores
+// run in short chains, and p or ds near a bf16 tie is taken again as fmaf
+// chains (flash_tc.cuh).
 //
 // Balance.  Under causality key tile t sees (S / 64 - t) query tiles per
 // head: 32 down to 1 at S 2048.  The grid is (KV, B, key tiles) with the
@@ -53,7 +47,7 @@
 // What bounds it on the H100: FLOPs, 4 products of 2 hd per causal (row,
 // key) pair at the bf16 tensor-core rate.
 
-#include "hopper.cuh"
+#include "flash_tc.cuh"
 
 namespace repro {
 namespace {
@@ -65,9 +59,6 @@ constexpr int kBQ = 64;  // query rows per tile
 constexpr int kStages = 2;
 constexpr int kWG = 2;         // consumer warpgroups, each over half the query heads
 constexpr int kThreads = 128 * kWG;  // no producer warp: 256 threads may use 255 registers
-constexpr int kChain = 2;  // k16 steps per wgmma chain of S^T and dP^T (see tile_dot)
-// The mask is written for both forms; only the causal one is instantiated.
-constexpr bool kCausal = true;
 
 template <int HD>
 struct Shape {
@@ -79,93 +70,6 @@ struct Shape {
   static constexpr int kSmem = 2 * kTileBytes + kWG * kStages * kStageBytes + kSwizzleAtom;
   static constexpr int kO = HD / 2;  // accumulator floats of 64 x HD
 };
-
-// Self-attention at positions = indices.
-__device__ __forceinline__ bool attend(int row, int key, int S, int window) {
-  const int rel = row - key;
-  return row < S && key < S && (!kCausal || rel >= 0) && (window <= 0 || rel < window);
-}
-
-// d (64 x 64) = A B^T over hd, A and B K-major 64-row tiles: chains of
-// kChain k16 steps, each begun afresh (the first in d, the others in tmp)
-// and added into d in float32 with round-to-nearest, so no chain's
-// truncating sum runs over all of hd.
-template <int HD>
-__device__ __forceinline__ void tile_dot(float (&d)[32], float (&tmp)[32], const uint8_t* a,
-                                         const uint8_t* b) {
-  constexpr int kSteps = HD / 16;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    const uint64_t da = smem_desc(a + off, 16, kSwizzleAtom), db = smem_desc(b + off, 16, kSwizzleAtom);
-    if (kk < kChain) {
-      wgmma_m64n64k16_k(d, da, db, kk > 0);
-    } else {
-      wgmma_m64n64k16_k(tmp, da, db, kk % kChain > 0);
-    }
-    if (kk % kChain == kChain - 1 || kk == kSteps - 1) {
-      wgmma_commit();
-      if (kk >= kChain) {
-        wgmma_wait<0>();
-        fence_regs(d);
-        fence_regs(tmp);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) d[i] += tmp[i];
-        if (kk < kSteps - 1) wgmma_fence();
-      }
-    }
-  }
-  wgmma_wait<0>();
-  fence_regs(d);
-}
-
-// Where p or ds is recomputed (see the kernel): within 16 float32 ulps of
-// a bf16 tie, at p >= 2^-8 or |ds| >= 2^-5 (below, a flip moves dv or dk by
-// at most 2^-15 |dO| or scale 2^-12 |q|).
-constexpr int kNearTie = 16;
-constexpr float kTieP = 0.00390625f, kTieDs = 0.03125f;
-
-// Whether v lies within kNearTie float32 ulps of a bf16 rounding tie (its
-// low 16 bits near 0x8000), where a logit or dp a few ulps off could round
-// it to the other neighbour.
-__device__ __forceinline__ bool near_tie(float v) {
-  return ((__float_as_uint(v) + (kNearTie - 0x8000)) & 0xFFFFu) < 2 * kNearTie;
-}
-
-// The dot of row ra of tile a with row rb of tile b (64-row bf16 tiles in
-// boxes of 64 features with the 128-byte swizzle: the 16-byte chunk c of
-// row r lies at chunk c ^ (r % 8)), as a float32 fmaf chain in feature
-// order, as the FMA kernel forms it.
-template <int HD>
-__device__ __forceinline__ float row_dot(const uint8_t* a, int ra, const uint8_t* b, int rb) {
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int c = 0; c < HD / 8; ++c) {
-    const int box = (c / 8) * kBoxBytes, ch = c % 8;
-    const uint4 va = *reinterpret_cast<const uint4*>(a + box + ra * 128 + ((ch ^ (ra & 7)) << 4));
-    const uint4 vb = *reinterpret_cast<const uint4*>(b + box + rb * 128 + ((ch ^ (rb & 7)) << 4));
-    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&va);
-    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&vb);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(ha[i]), fb = __bfloat1622float2(hb[i]);
-      acc = fmaf(fa.x, fb.x, acc);
-      acc = fmaf(fa.y, fb.y, acc);
-    }
-  }
-  return acc;
-}
-
-template <int HD>
-__device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (HD == 128) {
-    wgmma_m64n128k16_rs(d, a, db, 1);
-  } else {
-    wgmma_m64n64k16_rs(d, a, db, 1);
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -281,15 +185,8 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
         const int r = 8 * c + 2 * tig + (e & 1);
         const int idx = 4 * c + e;
         const bool ok = whole || attend(q0 + r, e < 2 ? key_a : key_b, S, window);
-        float x = st[idx] * scale;
-        float capped = 0.0f;
-        if (softcap > 0.0f) {
-          capped = tanhf(x / softcap);
-          x = capped * softcap;
-        }
-        const float p = ok ? expf(x - slse[wg][s][r]) : 0.0f;
-        float ds = p * (dpt[idx] - sdelta[wg][s][r]);
-        if (softcap > 0.0f) ds *= 1.0f - capped * capped;
+        float p, ds;
+        p_ds(st[idx], dpt[idx], slse[wg][s][r], sdelta[wg][s][r], ok, scale, softcap, p, ds);
         st[idx] = p;
         dpt[idx] = ds;
         if ((p >= kTieP && near_tie(p)) || (fabsf(ds) >= kTieDs && near_tie(ds)))
@@ -306,15 +203,8 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
         ties &= ties - 1;
         const int r = 8 * (at / 4) + 2 * tig + (at & 1);
         const int kl = kl_a + (at % 4 < 2 ? 0 : 8);
-        float x = row_dot<HD>(sk, kl, sq, r) * scale;
-        float capped = 0.0f;
-        if (softcap > 0.0f) {
-          capped = tanhf(x / softcap);
-          x = capped * softcap;
-        }
-        p = expf(x - slse[wg][s][r]);
-        ds = p * (row_dot<HD>(sv, kl, sdo, r) - sdelta[wg][s][r]);
-        if (softcap > 0.0f) ds *= 1.0f - capped * capped;
+        p_ds(row_dot<HD>(sk, kl, sq, r), row_dot<HD>(sv, kl, sdo, r), slse[wg][s][r],
+             sdelta[wg][s][r], true, scale, softcap, p, ds);
       }
 #pragma unroll
       for (int idx = 0; idx < 32; ++idx) {

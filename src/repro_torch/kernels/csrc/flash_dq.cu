@@ -24,8 +24,9 @@
 // phase lane l owns head-dim columns l, l+32, ...
 //
 // What bounds it on the H100: FLOPs, 3 matrix products of 2*hd per causal
-// (row, key) pair.  This first version runs them on the float32 FMA pipes
-// (67 TFLOP/s peak), not the tensor cores; wgmma tiles are a later step.
+// (row, key) pair, here on the float32 FMA pipes (67 TFLOP/s peak).  bf16
+// inputs at head dims 64 and 128 take flash_dq_tc.cu, on the tensor cores;
+// float32 stays here, since TF32 would miss the 1e-4 its card tests hold.
 
 #include "flash_bwd.cuh"
 
@@ -138,10 +139,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
            const void* delta, void* dq, int B, int S, int H, int KV, float scale,
            float softcap, int window, cudaStream_t stream) {
   const size_t bytes = smem_bytes(HD);
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static SmemOptIn opt_in;
+  const int rc = opt_in.apply(flash_dq_kernel<T, HD>, static_cast<int>(bytes));
+  if (rc != 0) return rc;
   const dim3 grid((S + kT - 1) / kT, H, B);
   flash_dq_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

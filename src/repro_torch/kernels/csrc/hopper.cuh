@@ -1,5 +1,6 @@
 // Hopper pieces of the tensor-core kernels (psgn_direct_tc.cu,
-// psgn_gram_tc.cu, chunk_attention_tc.cu, flash_dkv_tc.cu): TMA tensor maps
+// psgn_gram_tc.cu, chunk_attention_tc.cu, flash_dkv_tc.cu, flash_dq_tc.cu;
+// the flash backward's own shared pieces are in flash_tc.cuh): TMA tensor maps
 // and loads, mbarriers, wgmma shared-memory descriptors, the bf16 wgmma
 // products they use (operands from shared memory, or A from registers) and
 // the register fragment that turns an accumulator into such an A.
@@ -11,8 +12,6 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
-
-#include <atomic>
 
 #include "common.cuh"
 
@@ -79,8 +78,6 @@ inline const char* error_string(int code) {
 // host: launch settings made once per device
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxDevices = 64;
-
 // The current device's SM count, asked of the runtime once per device.
 inline int device_sms(int* sms) {
   static std::atomic<int> cached[kMaxDevices];
@@ -96,24 +93,6 @@ inline int device_sms(int* sms) {
   *sms = n;
   return 0;
 }
-
-// A kernel's opt-in to more than 48 KB of dynamic shared memory, set the
-// first time it launches on a device.  One instance per kernel: a static
-// local of the kernel's launcher.
-struct SmemOptIn {
-  std::atomic<bool> done[kMaxDevices] = {};
-
-  template <typename Kernel>
-  int apply(Kernel kernel, int bytes) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return 0;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
-    return static_cast<int>(err);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // device: mbarriers and TMA
@@ -346,6 +325,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x HD) += A (64 x 16, registers) B (16 x HD), B MN-major in shared
+// memory: the register-sourced product at head dim HD (64 or 128).
+template <int HD>
+__device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_m64n128k16_rs(d, a, db, 1);
+  } else {
+    wgmma_m64n64k16_rs(d, a, db, 1);
+  }
 }
 
 // The A fragment of a register-sourced wgmma (k16 step kk) from a float32

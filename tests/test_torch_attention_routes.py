@@ -1,10 +1,11 @@
-"""The attention kernels' two routes, on the CPU.
+"""The attention kernels' two routes and the decode split, on the CPU.
 
 ``repro_torch.kernels.attention.attention_plan`` picks, before any launch,
 the tensor-core kernels (``csrc/chunk_attention_tc.cu``,
-``csrc/flash_dkv_tc.cu``: bf16 at head dims 64 and 128) or the float32 FMA
-kernels for the chunk forward and dk/dv.  Here: the plan itself, the
-counters by route, that the CPU path launches and routes nothing, that
+``csrc/flash_dq_tc.cu``, ``csrc/flash_dkv_tc.cu``: bf16 at head dims 64 and
+128) or the float32 FMA kernels for the chunk forward, dq and dk/dv.  Here:
+the plan itself, the counters by route, that the CPU path launches and
+routes nothing, that
 ``_build.SIGNATURES`` (and ``KEY_TILES_ARGTYPES``, the tile counter's)
 declares every C entry's argument types as its source writes them, that the
 plain versions the tensor-core chunk kernel is held against on the card
@@ -12,8 +13,16 @@ equal the JAX reference at the edges its tile-skipping has to get right
 (keys out of position order, positions past the array bounds, a
 sentinel-only tail, a live row with no attendable key, padded rows),
 float32 within 2e-5, and that their softcap ``tanh`` is float64's, rounded.
+Then the paged decode kernel's split over the context: ``decode_plan``'s
+values, and a plain-torch emulation of the kernel's split-and-combine
+arithmetic (32-token groups, online softmax per split, partials combined in
+split order) against the JAX kernel in interpret mode and the JAX gather
+oracle, float32 within 1e-5, at empty splits, length 1, split and pool-block
+boundaries and free lanes with all-sentinel tables.
 """
 
+import functools
+import math
 import re
 
 import jax.numpy as jnp
@@ -31,7 +40,7 @@ from repro_torch.kernels import ref
 torch.set_num_threads(2)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-ROUTED = ("chunk_attention", "flash_dkv")
+ROUTED = ("chunk_attention", "flash_dq", "flash_dkv")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -54,13 +63,16 @@ def test_attention_plan_refuses_what_has_no_kernel(dtype, hd, err):
 
 
 def test_route_counts_cover_chunk_and_dkv():
-    """``route_counts`` reads the chunk forward's and dk/dv's counts by
+    """``route_counts`` reads the chunk forward's, dq's and dk/dv's counts by
     route beside the psgn wrappers', and ``reset_launch_counts`` zeroes
     them."""
     tk.chunk_attention.routes["tc"] = 3
+    tk.flash_dq.routes["tc"] = 4
+    tk.flash_dq.routes["fma"] = 1
     tk.flash_dkv.routes["fma"] = 2
     routes = tkernels.route_counts()
     assert routes["chunk_attention"] == {"tc": 3, "fma": 0}
+    assert routes["flash_dq"] == {"tc": 4, "fma": 1}
     assert routes["flash_dkv"] == {"tc": 0, "fma": 2}
     tkernels.reset_launch_counts()
     routes = tkernels.route_counts()
@@ -70,8 +82,8 @@ def test_route_counts_cover_chunk_and_dkv():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_path_launches_and_routes_nothing(dtype):
-    """On the CPU the chunk forward, dk/dv and the autograd function take the
-    plain versions: no launch, no route counted, in either type."""
+    """On the CPU the chunk forward, dq, dk/dv and the autograd function take
+    the plain versions: no launch, no route counted, in either type."""
     r = np.random.default_rng(21)
     q, k, v, dout = (torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(dtype)
                      for shape in ((1, 20, 4, 64), (1, 20, 2, 64), (1, 20, 2, 64),
@@ -80,7 +92,9 @@ def test_cpu_path_launches_and_routes_nothing(dtype):
     tkernels.reset_launch_counts()
     out, lse = tk.chunk_attention_fwd(q, k, v, pos, pos, torch.ones(20, dtype=torch.bool))
     delta = torch.einsum("bqhd,bqhd->bhq", dout.float(), out.float())
+    dq = tk.flash_dq(q, k, v, dout, lse, delta)
     tk.flash_dkv(q, k, v, dout, lse, delta)
+    assert dq.dtype == torch.float32 and dq.shape == q.shape
     tq = q.clone().requires_grad_(True)
     tk.flash_attention(tq, k, v).float().sum().backward()
     assert out.dtype == dtype and tq.grad.dtype == dtype
@@ -127,15 +141,21 @@ def test_key_tile_counter_entry_matches_its_declaration():
 
 
 def test_tensor_core_sources_are_registered():
-    """Both tensor-core attention sources build like every other library,
-    with the chunk and dk/dv FMA entries' signatures, and their library
-    names hash the shared Hopper header."""
-    for tc, fma in (("chunk_attention_tc", "chunk_attention"), ("flash_dkv_tc", "flash_dkv")):
+    """Each tensor-core attention source builds like every other library,
+    with its FMA entry's signature, and its library name hashes the shared
+    Hopper header, which it includes directly or through ``flash_tc.cuh``
+    (the flash backward's shared pieces)."""
+    for tc, fma in (("chunk_attention_tc", "chunk_attention"), ("flash_dq_tc", "flash_dq"),
+                    ("flash_dkv_tc", "flash_dkv")):
         assert tc in _build.SIGNATURES
         assert _build.SIGNATURES[tc][1] == _build.SIGNATURES[fma][1]
         assert _build.CSRC / "hopper.cuh" in _build._sources(tc)
-        assert "hopper.cuh" in (_build.CSRC / f"{tc}.cu").read_text()
-        assert "wgmma" in (_build.CSRC / f"{tc}.cu").read_text()
+        src = (_build.CSRC / f"{tc}.cu").read_text()
+        if tc.startswith("flash"):
+            assert '#include "flash_tc.cuh"' in src
+            src += (_build.CSRC / "flash_tc.cuh").read_text()
+        assert '#include "hopper.cuh"' in src
+        assert "wgmma" in src
 
 
 def _edge_case(kind: str):
@@ -202,3 +222,131 @@ def test_plain_softcap_tanh_is_the_float64_tanh_rounded(dtype):
     want = torch.from_numpy(np.tanh(xt.double().numpy())).to(dtype)
     assert got.dtype == dtype
     assert torch.equal(got, want)
+
+
+# --- the paged decode kernel's split over the context ------------------------
+
+
+@pytest.mark.parametrize("b,kv,n_max,blk,sms,want", [
+    (8, 4, 192, 16, 132, 9),     # the serving record: 288 blocks on 132 SMs
+    (8, 4, 192, 16, 114, 8),     # another SM count
+    (1, 1, 192, 16, 132, 48),    # one (row, head) pair: the table's 48 groups of 64
+    (1, 1, 8, 16, 132, 2),       # a short table: 2 groups of 64 tokens
+    (3, 2, 5, 16, 132, 2),       # 80 tokens: 2 groups
+    (66, 4, 192, 16, 132, 1),    # B KV = 2 sms
+    (64, 8, 192, 16, 132, 1),    # B KV > 2 sms
+])
+def test_decode_plan(b, kv, n_max, blk, sms, want):
+    assert tk.decode_plan(b, kv, n_max, blk, sms) == want
+
+
+def test_decode_plan_bounds():
+    """At least 1, exactly 1 once B KV reaches two blocks per SM, and never
+    more splits than the table has groups of 64 tokens."""
+    for b in (1, 2, 3, 7, 8, 33, 100, 300):
+        for kv in (1, 2, 4, 8):
+            for n_max, blk in ((1, 1), (1, 16), (5, 16), (12, 8), (192, 16), (2048, 16)):
+                for sms in (1, 66, 114, 132):
+                    n = tk.decode_plan(b, kv, n_max, blk, sms)
+                    groups = math.ceil(n_max * blk / 64)
+                    assert 1 <= n <= groups
+                    assert n == (1 if b * kv >= 2 * sms else min(math.ceil(2 * sms / (b * kv)),
+                                                                 groups))
+
+
+_DECODE_TILE = 32  # tokens the kernel stages and scores per group
+
+
+def _split_decode(q, pool_k, pool_v, tables, lengths, splits, softcap=None):
+    """The paged decode kernel's arithmetic in plain torch, float32: each
+    row's live table entries (``ceil(length / block)``, at most n_max) cut
+    into ``splits`` contiguous shares of ``ceil(live / splits)`` entries,
+    each share streamed in 32-token groups through an online softmax (m, l,
+    acc; scale, softcap, the tokens of the share only), then for each (row,
+    KV head) the shares' partials combined in split order: m = max m_s,
+    w_s = e^(m_s - m), out = sum w_s acc_s / max(sum w_s l_s, 1e-30)."""
+    b, _, h, hd = q.shape
+    _, blk, kv, _ = pool_k.shape
+    n_max, n_rep = tables.shape[1], h // kv
+    rows_k = pool_k.reshape(-1, kv, hd).float()
+    rows_v = pool_v.reshape(-1, kv, hd).float()
+    out = torch.zeros(b, 1, h, hd)
+    for row in range(b):
+        length = int(lengths[row])
+        live = max(0, min(n_max, -(-length // blk)))
+        per = -(-live // splits)
+        for hk in range(kv):
+            qh = q[row, 0, hk * n_rep:(hk + 1) * n_rep].float()
+            parts = []
+            for split in range(splits):
+                e0, e1 = split * per, min(live, split * per + per)
+                t0, t1 = e0 * blk, min(e1 * blk, length)
+                m = torch.full((n_rep,), -1e30)
+                l, acc = torch.zeros(n_rep), torch.zeros(n_rep, hd)
+                for g0 in range(t0, t1, _DECODE_TILE):
+                    t = torch.arange(g0, min(g0 + _DECODE_TILE, t1))
+                    pool_rows = tables[row, t // blk].long() * blk + t % blk
+                    x = (qh @ rows_k[pool_rows, hk].T) * hd ** -0.5
+                    if softcap is not None:
+                        x = torch.tanh(x / softcap) * softcap
+                    m_new = torch.maximum(m, x.amax(1))
+                    p = torch.exp(x - m_new[:, None])
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + p @ rows_v[pool_rows, hk]
+                    m = m_new
+                parts.append((m, l, acc))
+            m = torch.stack([p[0] for p in parts]).amax(0)
+            l, acc = torch.zeros(n_rep), torch.zeros(n_rep, hd)
+            for m_s, l_s, acc_s in parts:  # split order
+                w = torch.exp(m_s - m)
+                l = l + l_s * w
+                acc = acc + acc_s * w[:, None]
+            out[row, 0, hk * n_rep:(hk + 1) * n_rep] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+# blk 8, n_max 12 (96 tokens): length 1, a pool block, 47 / 48 / 49 (split
+# and block boundaries for 2-4 splits), the full table, and two free lanes
+# (all-sentinel tables, a length that kept counting, once past the table)
+_DECODE_LENGTHS = (1, 8, 47, 48, 49, 96, 37, 130)
+
+
+def _decode_case():
+    r = np.random.default_rng(17)
+    blk, n_max, kv, h, hd = 8, 12, 2, 4, 16
+    b = len(_DECODE_LENGTHS)
+    nb = 1 + 6 * n_max
+    pool_k = r.standard_normal((nb, blk, kv, hd)).astype(np.float32)
+    pool_v = r.standard_normal((nb, blk, kv, hd)).astype(np.float32)
+    tables = np.zeros((b, n_max), np.int32)
+    ids = list(r.permutation(np.arange(1, nb)))
+    for row, length in enumerate(_DECODE_LENGTHS[:6]):
+        n_live = -(-length // blk)
+        tables[row, :n_live] = ids[:n_live]  # dead entries stay at sentinel 0
+        ids = ids[n_live:]
+    q = r.standard_normal((b, 1, h, hd)).astype(np.float32)
+    return q, pool_k, pool_v, tables, np.array(_DECODE_LENGTHS, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_oracles(softcap):
+    """(JAX kernel in interpret mode, JAX gather oracle) on the case."""
+    jargs = [jnp.asarray(a) for a in _decode_case()]
+    kernel = jk.paged_decode_attention(*jargs, softcap=softcap, interpret=True)
+    return np.asarray(kernel), np.asarray(jref.paged_decode_ref(*jargs, softcap=softcap))
+
+
+@pytest.mark.parametrize("softcap", [None, 10.0])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 20])
+def test_split_decode_emulation_matches_reference(splits, softcap):
+    """The split-and-combine arithmetic equals the one-pass reference: at 20
+    splits every row has empty splits (at most 12 live entries), at 2-4 the
+    lengths 47-49 land beside, on and past share and block boundaries, and
+    the free lanes read sentinel block 0 as the reference reads it."""
+    args = [torch.from_numpy(a) for a in _decode_case()]
+    got = _split_decode(*args, splits=splits, softcap=softcap).numpy()
+    want_kernel, want_ref = _decode_oracles(softcap)
+    np.testing.assert_allclose(got, want_kernel, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-5)
+    assert np.isfinite(got).all()

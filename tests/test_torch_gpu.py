@@ -143,6 +143,61 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, softcap):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_edges(cuda, dtype):
+    """The decode kernel split over the context (``decode_plan``: 9 splits at
+    B 8, KV 4 on 132 SMs) at its edges: lengths 1 and one block, on a split
+    boundary (288: 18 entries in shares of 2) and a token either side, a full
+    table, and free lanes whose tables are all sentinel with lengths that
+    kept counting (one past the table).  Within TOL of the plain version,
+    finite, and the same bits over 20 launches."""
+    r = np.random.default_rng(12)
+    blk, n_max, kv, h, hd = 16, 192, 4, 32, 128
+    lens = [1, blk, 287, 288, 289, n_max * blk, 37, 5000]
+    b, nb = len(lens), 2048
+    tables = np.zeros((b, n_max), np.int32)
+    ids = list(range(1, nb))
+    r.shuffle(ids)
+    for row, n in enumerate(lens[:6]):
+        live = -(-n // blk)
+        tables[row, :live] = ids[:live]
+        ids = ids[live:]
+    pool_k = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    pool_v = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    q = torch.from_numpy(r.standard_normal((b, 1, h, hd))).to(cuda, dtype)
+    args = (q, pool_k, pool_v, torch.from_numpy(tables).to(cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+    kernels.reset_launch_counts()
+    outs = [kattn.paged_decode_attention(*args) for _ in range(20)]
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kattn.paged_decode_attention.splits == kattn.decode_plan(b, kv, n_max, blk, sms) > 1
+    assert kattn.paged_decode_attention.launches == 20
+    assert torch.isfinite(outs[0]).all()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _close(outs[0], ref.paged_decode_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [24, 80])
+def test_paged_decode_at_other_head_dims(cuda, dtype, hd):
+    """Head dims whose column pairs do not divide the block (each thread's
+    outputs over several columns), one (hd 24 in bf16) with an odd count of
+    16-byte chunks a row: within TOL of the plain version over 3 splits."""
+    r = np.random.default_rng(hd)
+    b, blk, n_max, kv, h = 3, 16, 5, 2, 4
+    nb = 1 + b * n_max
+    pool_k = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    pool_v = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    tables = torch.arange(1, nb, dtype=torch.int32, device=cuda).reshape(b, n_max)
+    lengths = torch.tensor([1, 40, n_max * blk], dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(r.standard_normal((b, 1, h, hd))).to(cuda, dtype)
+    got = kattn.paged_decode_attention(q, pool_k, pool_v, tables, lengths, softcap=5.0)
+    torch.cuda.synchronize()
+    assert kattn.paged_decode_attention.splits > 1
+    _close(got, ref.paged_decode_ref(q, pool_k, pool_v, tables, lengths, softcap=5.0), dtype)
+
+
 def test_launch_counters_and_refusals(cuda):
     r = np.random.default_rng(2)
     q, k, v, q_pos, k_pos, k_valid = _chunk_case(r, cuda, torch.float32,
@@ -247,8 +302,8 @@ def test_flash_attention_autograd_repeated_on_card(cuda):
 
 
 def test_flash_attention_autograd_bf16_on_card_matches_cpu(cuda):
-    """The autograd function in bf16 (forward and dk/dv on the tensor cores,
-    dq on the FMA kernel) against the same function on the CPU, under the
+    """The autograd function in bf16 (forward, dq and dk/dv on the tensor
+    cores) against the same function on the CPU, under the
     loss ``sum(out * w)``: both devices backpropagate the same bf16 output
     gradient (``sum(out**2)`` would feed each its own rounding of out)."""
     r = np.random.default_rng(4)
@@ -260,6 +315,7 @@ def test_flash_attention_autograd_bf16_on_card_matches_cpu(cuda):
     got = _autograd_on(cuda, arrays, torch.bfloat16, w)
     assert kernels.route_counts()["chunk_attention"] == {"tc": 1, "fma": 0}
     assert kernels.route_counts()["flash_dkv"] == {"tc": 1, "fma": 0}
+    assert kernels.route_counts()["flash_dq"] == {"tc": 1, "fma": 0}
     assert kernels.launch_counts()["flash_dq"] == 1
     for g, want in zip(got, _autograd_on("cpu", arrays, torch.bfloat16, w)):
         _close(g, want, torch.bfloat16)
@@ -331,25 +387,58 @@ def test_chunk_tc_kernel_counts_the_key_tiles_it_visits(cuda):
     (torch.float32, 128, "fma"), (torch.bfloat16, 32, "fma"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 128, "tc")])
 def test_attention_routes_on_card(cuda, dtype, hd, route):
-    """The chunk forward and dk/dv launch the library their plan names, and
-    dk/dv gives the same bits on a second run (no atomics on either
-    route)."""
+    """The chunk forward, dq and dk/dv launch the library their plan names,
+    and dq and dk/dv give the same bits on a second run (no atomics on
+    either route)."""
     r = np.random.default_rng(hd)
     q, k, v, dout, out, lse = _flash_case(r, cuda, dtype, 1, 150, 8, 2, hd, None, 10.0)
     delta = ref.flash_delta(out, dout)
     kernels.reset_launch_counts()
+    dqs = [kattn.flash_dq(q, k, v, dout, lse, delta, softcap=10.0) for _ in range(2)]
     runs = [kattn.flash_dkv(q, k, v, dout, lse, delta, softcap=10.0) for _ in range(2)]
     pos = torch.arange(150, device=cuda, dtype=torch.int32)
     kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos))
     torch.cuda.synchronize()
     other = "fma" if route == "tc" else "tc"
     assert kernels.route_counts()["flash_dkv"] == {route: 2, other: 0}
+    assert kernels.route_counts()["flash_dq"] == {route: 2, other: 0}
     assert kernels.route_counts()["chunk_attention"] == {route: 1, other: 0}
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(*dqs)
     want = ref.flash_backward_ref(q, k, v, out, lse, dout, softcap=10.0)
     atol, rtol = FLASH_TOL[dtype]
-    for got, exp in zip(runs[0], want[1:]):
+    for got, exp in zip((dqs[0], *runs[0]), want):
         torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", [
+    # s, hd, n_rep, window, softcap
+    *((s, hd, n_rep, None, None) for s in (1, 63, 64, 65, 129, 300)
+      for hd, n_rep in ((64, 1), (128, 2), (128, 8))),
+    (300, 128, 2, 70, None),   # a window across tiles
+    (200, 64, 8, None, 20.0),  # softcap
+    (150, 128, 4, 40, 20.0),   # both
+])
+def test_flash_dq_tc_at_its_edges(cuda, case):
+    """dq on the tensor cores (bf16) against its plain version at 2e-3: a
+    single row, ragged and whole 64-row tiles, 128-row blocks whose second
+    warpgroup has no row, n_rep 1, 2 and 8, a window, a softcap; the tc route
+    only, and the same bits on a second run."""
+    s, hd, n_rep, window, softcap = case
+    kv = 8 // n_rep if n_rep < 8 else 1
+    r = np.random.default_rng(s * 3 + hd + n_rep)
+    q, k, v, dout, out, lse = _flash_case(r, cuda, torch.bfloat16, 2, s, kv * n_rep, kv, hd,
+                                          window, softcap)
+    delta = ref.flash_delta(out, dout)
+    kernels.reset_launch_counts()
+    runs = [kattn.flash_dq(q, k, v, dout, lse, delta, window=window, softcap=softcap)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["flash_dq"] == {"tc": 2, "fma": 0}
+    assert torch.equal(runs[0], runs[1])
+    want = ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window, softcap=softcap)[0]
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(runs[0].cpu(), want.float().cpu(), atol=atol, rtol=rtol)
 
 
 def test_flash_backward_refusals(cuda):
@@ -519,6 +608,7 @@ def test_psgn_tensor_core_route_at_ragged_edges(cuda, case):
              "layers": psgn.psgn_fused_layers(list(xs), list(ds))} for _ in range(2)]
     torch.cuda.synchronize()
     assert kernels.route_counts() == {"chunk_attention": {"tc": 0, "fma": 0},
+                                      "flash_dq": {"tc": 0, "fma": 0},
                                       "flash_dkv": {"tc": 0, "fma": 0},
                                       "psgn_direct": {"tc": 2, "fma": 0},
                                       "psgn_gram": {"tc": 2, "fma": 0},
@@ -544,7 +634,8 @@ def test_psgn_routes_agree(cuda, shape):
                           (psgn.psgn_fused, xs, ds, ds32)):
         torch.testing.assert_close(fn(x, d).cpu(), fn(x, d32).cpu(), rtol=1e-4, atol=0)
     assert kernels.route_counts() == {
-        "chunk_attention": {"tc": 0, "fma": 0}, "flash_dkv": {"tc": 0, "fma": 0},
+        "chunk_attention": {"tc": 0, "fma": 0}, "flash_dq": {"tc": 0, "fma": 0},
+        "flash_dkv": {"tc": 0, "fma": 0},
         **{name: {"tc": 1, "fma": 1} for name in ("psgn_direct", "psgn_gram", "psgn_fused")}}
 
 

@@ -581,8 +581,8 @@ def test_psgn_fused_layers_plain_matches_stacked_and_reference(dtypes):
     _close_rel(tops.persample_sq_norm_tree(dict(zip(names, tx)), dict(zip(names, td))), want)
     assert not any(tkernels.launch_counts().values())
     assert tkernels.route_counts() == {n: {"tc": 0, "fma": 0} for n in
-                                       ("chunk_attention", "flash_dkv", "psgn_direct",
-                                        "psgn_gram", "psgn_fused")}
+                                       ("chunk_attention", "flash_dq", "flash_dkv",
+                                        "psgn_direct", "psgn_gram", "psgn_fused")}
     with pytest.raises(ValueError, match="differ"):
         tpsgn.psgn_fused_layers([tx[0], tx[1][:, :8]], [td[0], td[1][:, :8]])
     with pytest.raises(ValueError, match="activations"):
