@@ -57,14 +57,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      psgn_gram (gate, up, down) and no psgn_direct, every psgn launch on
      the tensor-core route.  Then one microbatch timed in parts (main pass,
      probe pass, psgn kernels), and ``probes.persample_sq_norms_gram`` on
-     it: 32 psgn_direct and 24 psgn_gram launches, all on the FMA route
-     (its deltas are float32), its (B,) result within 1e-4 relative of the
-     tree's (the two routes against each other, on the card);
+     it (timed, with its peak memory): 32 psgn_direct launches on the split
+     route (its deltas are float32) with 32 psgn_split launches, and 24
+     psgn_gram on the FMA route, its (B,) result within 1e-4 relative of
+     the tree's (the routes against each other, on the card);
   9. the gram tier on the card against the CPU: a reduced float32 Yi-6B (hd
      64, d_ff 1024, S 128, where every layer takes the dispatch Yi-6B takes
      at S 2048) trains 5 steps (a tick every 2): losses, Delta at the ticks
      and ``sq_norm_sum`` within 1e-4 relative, parameters within 1e-4, one
-     batch schedule.
+     batch schedule; every psgn_fused launch on the split route (x and
+     delta split once each).
 
 The chunk forward, dq and dk/dv have two routes (``kattn.attention_plan``):
 bf16 at head dims 64 and 128 takes the tensor-core kernels
@@ -95,14 +97,20 @@ plain dq, dk and dv beside its error.
 Phase 3 also holds the per-sample gradient-norm kernels (psgn direct, gram
 and fused over 3 layers) against their plain versions: float32, bf16 and
 bf16 activations with float32 deltas, ragged S and widths, a single
-position, tile edges (the FMA route), and bf16 at widths that are multiples
-of 8 (the tensor-core route, S up to 2049, widths up to 4104); it counts
-the HGMMA instructions in the tensor-core libraries' SASS (``cuobjdump``).
-Then the gram tier's slice shapes (B 2, S 2048, bf16): fused over the 16
-q/o layers (the record; the layer table must give the stack's bits) and
-the 16 k/v layers, gram at 4096 -> 11008 (tensor cores), direct at q with
-float32 deltas as the standalone entry point calls it (FMA), timed beside
-the plain version and a cuBLAS yardstick, each with its route and achieved
+position, tile edges (the FMA route), bf16 at widths that are multiples of
+8 (the tensor-core route, S up to 2049, widths up to 4104), and the same
+widths with a float32 operand, bf16 x f32, f32 x bf16 and f32 x f32 (the
+split route for direct and fused); it counts the HGMMA instructions in the
+tensor-core libraries' SASS (``cuobjdump``).  Then the gram tier's slice
+shapes (B 2, S 2048, bf16): fused over the 16 q/o layers (the record; the
+layer table must give the stack's bits) and the 16 k/v layers, gram at
+4096 -> 11008 (tensor cores), direct at q with float32 deltas as the
+standalone entry point calls it (the split route, bound by the function's
+one product at the bf16 rate, the floor of its 3 products beside it; its
+peak memory) and the split of those deltas alone
+(bit for bit against its plain version), direct at q in f32 x f32 (6
+products) and gram at 4096 -> 11008 in float32 (FMA), timed beside the
+plain version and a cuBLAS yardstick, each with its route and achieved
 TFLOP/s.  Products of bf16 values are exact in float32, so every psgn case
 is held at 1e-4 relative, and prints the plain values beside its error.
 The chunk forward is also timed at the training shape (B 2, S 2048)
@@ -110,12 +118,17 @@ beside the forward of ``F.scaled_dot_product_attention``, with its bound.
 
 Phase 3 also holds the int8 quantisation kernel against its plain version,
 codes and scales BIT FOR BIT, float32 and bf16: rows not a multiple of a
-block, C of 1 and ragged, a row over several 4096-element chunks, an
-all-zero row, exact .5 ties, negative-max rows, rows holding a NaN or an
-infinity (NaN in the same rows), the pod slice's MLP leaves; then Yi-6B-width leaves, per tensor (1, 4096 x 11008) float32 (the
-record: the compressor views a leaf as one row) and rowwise (11008, 4096)
-in float32 and bf16, timed beside the plain version and a library
-yardstick (amax, divide, round, clamp, cast); bound = bytes / 3.35 TB/s.
+block, C of 1 and ragged, a long row, an all-zero row, exact .5 ties,
+negative-max rows, rows holding a NaN or an infinity (NaN in the same
+rows), the pod slice's MLP leaves, the one-pass design's longest row
+(32768) and one either side, views at an offset (1 and 8 elements) in both
+designs, ragged rows over the two-pass design; then Yi-6B-width leaves, per
+tensor (1, 4096 x 11008) float32 (the record: the compressor views a leaf
+as one row), rowwise (11008, 4096) in float32 and bf16, and the pod
+slice's largest leaf, each with its design, timed beside the plain version
+and a library yardstick (amax, divide, round, clamp, cast); bound = bytes
+/ 3.35 TB/s, and the two-read floor beside it where a row outgrows the 50
+MB L2.
 
  10. the pod slice: the paper's ``Trainer`` on ``PodLadder(pods=2,
      granule=16)`` over eight virtual devices on the card, the MLP (512 ->
@@ -186,7 +199,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (atol, rtol) of the flash backward's float32 outputs, by input dtype
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 0.0)}
 YI = get_config("yi-6b")
-NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0, "quantize_int8": 0}
+NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0, "psgn_split": 0,
+           "quantize_int8": 0}
 
 
 def phase(name: str) -> None:
@@ -616,7 +630,8 @@ def tc_attention_cases(r) -> None:
 # values are exact in float32, so every case is held at 1e-4 relative
 PSGN_TOL = 1e-4
 PSGN_TYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16,) * 2,
-              "bf16 x f32": (torch.bfloat16, torch.float32)}
+              "bf16 x f32": (torch.bfloat16, torch.float32),
+              "f32 x bf16": (torch.float32, torch.bfloat16)}
 
 
 def psgn_inputs(r, shape, dtypes):
@@ -654,26 +669,39 @@ def psgn_case(name, shape, dtypes, r) -> None:
 
 
 def psgn_record(name, run, plain, library, *, err, moved, flops, peak, replaces,
-                dispatch) -> dict:
+                dispatch, pairs=1) -> dict:
     """A psgn kernel's record; ``dispatch`` is its route, "tc" (tensor
-    cores) or "fma", which names its source.  Adds the achieved TFLOP/s."""
+    cores), "split" (float32 operands split for the tensor cores) or "fma",
+    which names its source.  ``flops`` is the function's, and the bound
+    counts those; the split route runs ``pairs`` bf16 products of them, and
+    its own floor (``split_floor_ms``, at the bf16 rate) is kept beside the
+    bound.  Adds the achieved TFLOP/s of the function."""
     ms, plain_ms, library_ms = timed_ms(run), timed_ms(plain), timed_ms(library)
     device_ms = timed_ms(run, spin=True)
     bound_ms, by = bound(moved, flops, peak)
     lib = "psgn_gram" if name == "psgn_gram" else "psgn_direct"
-    source = f"src/repro_torch/kernels/csrc/{lib}{'_tc' if dispatch == 'tc' else ''}.cu"
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": library_ms, "device_ms": device_ms,
-            "dispatch": dispatch, "tflops": flops / ms / 1e9}
+    source = f"src/repro_torch/kernels/csrc/{lib}{'' if dispatch == 'fma' else '_tc'}.cu"
+    rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "library_ms": library_ms, "device_ms": device_ms,
+           "dispatch": dispatch, "tflops": flops / ms / 1e9}
+    if dispatch == "split":
+        rec["pairs"] = pairs
+        rec["split_floor_ms"] = bound(moved, pairs * flops, PEAK_BF16)[0]
+    return rec
 
 
 def psgn_line(label, rec) -> None:
+    floor = ""
+    if "split_floor_ms" in rec:
+        floor = (f"; the split design's own floor ({rec['pairs']} bf16 products) "
+                 f"{rec['split_floor_ms']:.4f} ms, {100 * rec['split_floor_ms'] / rec['ms']:.1f}%"
+                 f" of it, {rec['pairs'] * rec['tflops']:.1f} TFLOP/s on the tensor cores")
     print(f"  {label} [{rec['dispatch']}]: {rec['ms']:.4f} ms ({rec['device_ms']:.4f} on the "
           f"card alone), {rec['tflops']:.1f} TFLOP/s "
           f"(plain {rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}); bound "
           f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
-          f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
+          f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it{floor}")
 
 
 def sass_hgmma() -> None:
@@ -694,11 +722,36 @@ def sass_hgmma() -> None:
         raise AssertionError(f"a tensor-core library has no HGMMA: {counts}")
 
 
+def split_record(d: torch.Tensor) -> dict:
+    """The split of float32 ``d`` into bf16 terms, held bit for bit against
+    its plain version; bound by bytes (4 read, 6 written per element), no
+    library call computes it."""
+    got, want = psgn.psgn_split([d]), ref.split_bf16(d)[:, None]
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("psgn_split: the terms differ from the plain version's bits")
+    del got, want
+    ms = timed_ms(lambda: psgn.psgn_split([d]))
+    device_ms = timed_ms(lambda: psgn.psgn_split([d]), spin=True)
+    plain_ms = timed_ms(lambda: ref.split_bf16(d))
+    bound_ms, by = bound(nbytes(d) + 3 * 2 * d.numel(), 0.0)
+    print(f"  psgn_split of the float32 deltas at q {tuple(d.shape)}: bit-exact; {ms:.4f} ms "
+          f"({device_ms:.4f} on the card alone; plain {plain_ms:.4f}, no library call); "
+          f"bound {bound_ms:.4f} ms by {by}, {100 * bound_ms / ms:.1f}% of it")
+    return {"name": "psgn_split", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psgn_split.cu",
+            "replaces": "src/repro/kernels/psgn.py:65", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "device_ms": device_ms}
+
+
 def psgn_kernel_records(r) -> list[dict]:
     """The gram tier's launches at Yi-6B widths, B 2, S 2048: fused over the
     16 q/o layers (the record) and the 16 k/v layers, gram at gate/up
     (4096 -> 11008), direct at q as the standalone entry point calls it (bf16
-    activations, float32 deltas)."""
+    activations, float32 deltas: the split route, and the split itself);
+    then, printed beside them, direct at q with float32 activations too (6
+    term pairs) and gram at gate/up in float32 (the FMA kernel)."""
     b, s, d, f = 2, 2048, YI.d_model, YI.d_ff
     kv = YI.num_kv_heads * YI.resolved_head_dim
     bf16 = PSGN_TYPES["bf16"]
@@ -750,18 +803,53 @@ def psgn_kernel_records(r) -> list[dict]:
     err, rel = psgn_check("psgn_direct slice", got, want)
     print(f"  psgn_direct slice bf16 x f32 (B {b}, S {s}, {d} -> {d}): max rel err "
           f"{rel:.3e}; plain {want.min().item():.6e}..{want.max().item():.6e}")
-    # float32 deltas: no tensor-core type takes bf16 x float32 exactly, so
-    # the bound is at the float32 rate
+    # the split route: T products of bf16 terms on the tensor cores; the
+    # bound counts the function's one product at the bf16 rate
+    p = psgn.plan("direct", x.dtype, dl.dtype, s, d, d)
     direct = psgn_record(
         "psgn_direct", lambda: psgn.psgn_direct(x, dl), lambda: ref.psgn_ref(x, dl),
         lambda: torch.bmm(x.float().mT, dl).square().sum((1, 2)),
-        err=err, moved=nbytes(x, dl) + 4 * b, flops=2 * b * s * d * d, peak=PEAK_F32,
-        replaces="src/repro/kernels/psgn.py:65",
-        dispatch=psgn.plan("direct", x.dtype, dl.dtype, s, d, d).route)
-    psgn_line(f"psgn_direct at q, float32 deltas ({d} -> {d})", direct)
+        err=err, moved=nbytes(x, dl) + 4 * b, flops=2 * b * s * d * d,
+        peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:65", dispatch=p.route,
+        pairs=p.pairs)
+    psgn_line(f"psgn_direct at q, float32 deltas ({d} -> {d}, {p.pairs} term pairs)", direct)
+    print(f"  psgn_direct at q, float32 deltas: peak device memory above its inputs "
+          f"{1024 * peak_gib(lambda: psgn.psgn_direct(x, dl)):.1f} MiB (the split terms "
+          f"{3 * 2 * dl.numel() / 2**20:.1f} MiB)")
+    split = split_record(dl)
+    del x, dl
+
+    x, dl = psgn_inputs(r, (b, s, d, d), PSGN_TYPES["f32"])
+    got, want = psgn.psgn_direct(x, dl), ref.psgn_ref(x, dl)
+    err, rel = psgn_check("psgn_direct slice f32", got, want)
+    p = psgn.plan("direct", x.dtype, dl.dtype, s, d, d)
+    both = psgn_record(
+        "psgn_direct", lambda: psgn.psgn_direct(x, dl), lambda: ref.psgn_ref(x, dl),
+        lambda: torch.bmm(x.mT, dl).square().sum((1, 2)),
+        err=err, moved=nbytes(x, dl) + 4 * b, flops=2 * b * s * d * d,
+        peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:65", dispatch=p.route,
+        pairs=p.pairs)
+    print(f"  psgn_direct slice f32 x f32: max rel err {rel:.3e}; plain "
+          f"{want.min().item():.6e}..{want.max().item():.6e}")
+    psgn_line(f"psgn_direct at q, float32 x and deltas ({d} -> {d}, {p.pairs} term pairs)",
+              both)
+    del x, dl
+
+    x, dl = psgn_inputs(r, (b, s, d, f), PSGN_TYPES["f32"])
+    got, want = psgn.psgn_gram(x, dl), ref.psgn_gram_ref(x, dl)
+    err, rel = psgn_check("psgn_gram slice f32", got, want)
+    print(f"  psgn_gram slice f32 (B {b}, S {s}, {d} -> {f}): max rel err {rel:.3e}; plain "
+          f"{want.min().item():.6e}..{want.max().item():.6e}")
+    gram32 = psgn_record(
+        "psgn_gram", lambda: psgn.psgn_gram(x, dl), lambda: ref.psgn_gram_ref(x, dl),
+        lambda: (torch.bmm(x, x.mT) * torch.bmm(dl, dl.mT)).sum((1, 2)),
+        err=err, moved=nbytes(x, dl) + 4 * b, flops=b * s * (s + 1) * (d + f),
+        peak=PEAK_F32, replaces="src/repro/kernels/psgn.py:129",
+        dispatch=psgn.plan("gram", x.dtype, dl.dtype, s, d, f).route)
+    psgn_line(f"psgn_gram at gate/up, float32 ({d} -> {f})", gram32)
     del x, dl
     torch.cuda.empty_cache()
-    return [direct, gram, fused]
+    return [direct, split, gram, fused]
 
 
 def quant_cases(r) -> dict:
@@ -789,6 +877,23 @@ def quant_cases(r) -> dict:
             "one row over 3 chunks + 5": r.standard_normal((1, 3 * 4096 + 5)).astype(np.float32),
             "zero row": zero, "ties": np.concatenate([ties, 2 * ties, ties / 4]),
             "negative max": neg, "NaN and inf rows": bad, **mlp}
+
+
+def quant_design_cases(flat: torch.Tensor) -> dict:
+    """The kernel's two designs at their edges, views of ``flat`` (131072
+    values): the one-pass design's longest row (32768) and one either side,
+    rows of it, views at an offset of 1 element (no 16-byte aligned
+    element) and of 8 (a head before each row's first aligned unit), in
+    either design, and ragged rows over the two-pass design."""
+    return {"the one-pass design's longest row (1, 32768)": flat[:32768].reshape(1, -1),
+            "one less (1, 32767)": flat[:32767].reshape(1, -1),
+            "one more: two passes (1, 32769)": flat[:32769].reshape(1, -1),
+            "rows at the threshold (4, 32768)": flat.reshape(4, -1),
+            "a view at 1 element (1, 32000)": flat[1:32001].reshape(1, -1),
+            "a view at 8 elements (5, 13105)": flat[8:65533].reshape(5, -1),
+            "a view at 1 element, two passes (1, 65530)": flat[1:65531].reshape(1, -1),
+            "a view at 8 elements, two passes (2, 50001)": flat[8:100010].reshape(2, -1),
+            "ragged two-pass rows (3, 40001)": flat[:120003].reshape(3, -1)}
 
 
 def same_scales(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -822,33 +927,44 @@ def quant_library(x: torch.Tensor):
     return torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8), s
 
 
+L2_BYTES = 50e6
+#: the longest row ``csrc/quant_int8.cu`` quantises in one pass
+ONE_PASS_ROW = 32768
+
+
 def quant_kernel_record() -> dict:
     """Yi-6B-width gradient leaves: the gate weight per tensor (1, 4096 x
     11008) in float32 (the record: the compressor views a leaf as one row),
-    and rowwise (11008, 4096) in float32 and bf16."""
+    and rowwise (11008, 4096) in float32 and bf16; then the pod slice's
+    largest leaf.  Each with its design, the bound (x read once) and, where
+    a row outgrows the L2, the floor of a design that reads x twice."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for shape, dtype in (((1, YI.d_model * YI.d_ff), torch.float32),
                          ((YI.d_ff, YI.d_model), torch.float32),
-                         ((YI.d_ff, YI.d_model), torch.bfloat16)):
+                         ((YI.d_ff, YI.d_model), torch.bfloat16),
+                         ((1, POD_HIDDEN * POD_D), torch.float32)):
         x = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
-        err = quant_case(f"Yi-6B leaf {shape}", x)
+        err = quant_case(f"Yi-6B leaf {shape}" if shape[1] != POD_HIDDEN * POD_D
+                         else f"pod leaf {shape}", x)
         ms = timed_ms(lambda: quant.quantize_int8(x))
         device_ms = timed_ms(lambda: quant.quantize_int8(x), spin=True)
         plain_ms = timed_ms(lambda: ref.quantize_int8(x))
         library_ms = timed_ms(lambda: quant_library(x))
         # x read once, the codes and the scales written once
         bound_ms, by = bound(nbytes(x) + x.numel() + 4 * shape[0], 0.0)
+        row_bytes = nbytes(x) // shape[0]
+        floor = (f"; two-read floor {1e3 * (2 * nbytes(x) + x.numel()) / PEAK_BYTES:.4f} ms "
+                 f"(a row of {row_bytes / 1e6:.1f} MB outgrows the L2)"
+                 if row_bytes > L2_BYTES else "")
         tag = "f32" if dtype == torch.float32 else "bf16"
-        print(f"  quantize_int8 {tag} {shape}: {ms:.4f} ms ({device_ms:.4f} on the card "
-              f"alone; plain {plain_ms:.4f}, library "
-              f"{library_ms:.4f}); bound {bound_ms:.4f} ms by {by}, "
-              f"{100 * bound_ms / ms:.1f}% of it")
+        design = "one pass" if shape[1] <= ONE_PASS_ROW else "two passes"
+        print(f"  quantize_int8 {tag} {shape} [{design}]: {ms:.4f} ms ({device_ms:.4f} on the "
+              f"card alone; plain {plain_ms:.4f}, library {library_ms:.4f}); bound "
+              f"{bound_ms:.4f} ms by {by}, {100 * bound_ms / ms:.1f}% of it ("
+              f"{100 * bound_ms / device_ms:.1f}% alone){floor}")
         rows.append((err, ms, device_ms, plain_ms, library_ms, bound_ms, by))
         del x
-    leaf = torch.randn((1, POD_HIDDEN * POD_D), generator=gen, device="cuda") * 0.01
-    print(f"  quantize_int8 at the pod slice's largest leaf (1, {POD_HIDDEN * POD_D}): "
-          f"{timed_ms(lambda: quant.quantize_int8(leaf)):.4f} ms")
     err, ms, device_ms, plain_ms, library_ms, bound_ms, by = rows[0]
     return {"name": "quantize_int8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quant_int8.cu",
@@ -903,16 +1019,25 @@ def kernels_phase() -> list[dict]:
     for shape in ((1, 37, 24, 24), (4, 33, 8, 136), (1, 300, 136, 264),
                   (2, 129, 264, 136), (3, 1, 8, 16), (2, 2049, 4104, 264)):
         psgn_case(f"bf16 (B, S, Din, Dout) {shape}", shape, PSGN_TYPES["bf16"], r)
+    # the split route: a float32 operand at widths that are multiples of 8
+    for tag in ("bf16 x f32", "f32 x bf16", "f32"):
+        for shape in ((1, 37, 24, 24), (4, 33, 8, 136), (1, 300, 136, 264), (3, 1, 8, 16),
+                      (2, 2049, 4104, 264)):
+            psgn_case(f"{tag} (B, S, Din, Dout) {shape}", shape, PSGN_TYPES[tag], r)
     sass_hgmma()
     for dtype in (torch.float32, torch.bfloat16):
         for name, x32 in quant_cases(r).items():
             quant_case(name, torch.from_numpy(x32).to("cuda", dtype))
+        flat = torch.from_numpy(r.standard_normal(1 << 17).astype(np.float32)).to("cuda", dtype)
+        for name, x in quant_design_cases(flat).items():
+            quant_case(name, x)
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
                *psgn_kernel_records(r), quant_kernel_record()]
     torch.cuda.empty_cache()
     for rec in records:
+        lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
         print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
-              f"library {rec['library_ms']:.4f}); bound {rec['bound_ms']:.4f} ms by "
+              f"library {lib}); bound {rec['bound_ms']:.4f} ms by "
               f"{rec['bound_by']}, {100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
     return records
 
@@ -1287,7 +1412,7 @@ def gram_train_phase() -> tuple[dict, dict]:
     want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
             "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro,
             "psgn_direct": 0, "psgn_gram": 3 * layers * n_micro, "psgn_fused": 2 * n_micro,
-            "quantize_int8": 0}
+            "psgn_split": 0, "quantize_int8": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers}, 0 direct, "
@@ -1299,9 +1424,9 @@ def gram_train_phase() -> tuple[dict, dict]:
     want_routes = {"chunk_attention": {"tc": want["chunk_attention"], "fma": 0},
                    "flash_dq": {"tc": want["flash_dq"], "fma": 0},
                    "flash_dkv": {"tc": want["flash_dkv"], "fma": 0},
-                   "psgn_direct": {"tc": 0, "fma": 0},
+                   "psgn_direct": {"tc": 0, "split": 0, "fma": 0},
                    "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
-                   "psgn_fused": {"tc": want["psgn_fused"], "fma": 0}}
+                   "psgn_fused": {"tc": want["psgn_fused"], "split": 0, "fma": 0}}
     if routes != want_routes:
         raise AssertionError(f"psgn routes {routes}, expected {want_routes}")
     print(f"  routes: {routes}")
@@ -1351,33 +1476,36 @@ def gram_train_phase() -> tuple[dict, dict]:
 
     # the standalone entry point: every layer alone, so q, k, v, o go direct
     kernels.reset_launch_counts()
-    alone = probes.persample_sq_norms_gram(cfg, params, mb)
-    torch.cuda.synchronize()
+    alone, alone_s = timed_s(lambda: probes.persample_sq_norms_gram(cfg, params, mb))
     counts_alone = kernels.launch_counts()
     want_alone = {**{k: 0 for k in counts_alone}, "psgn_direct": 4 * layers,
-                  "psgn_gram": 3 * layers}
+                  "psgn_gram": 3 * layers, "psgn_split": 4 * layers}
     if counts_alone != want_alone:
         raise AssertionError(f"persample_sq_norms_gram launches {counts_alone}, "
                              f"expected {want_alone}")
-    # its float32 deltas take the FMA kernels: the check below holds the two
-    # routes against each other on the same activations and gradients
+    # its float32 deltas take the split route for direct (each delta split
+    # once), the FMA kernel for gram: the check below holds them against the
+    # tree's tensor-core launches on the same activations and gradients
     routes_alone = kernels.route_counts()
     want_routes = {"chunk_attention": {"tc": 0, "fma": 0},
                    "flash_dq": {"tc": 0, "fma": 0},
                    "flash_dkv": {"tc": 0, "fma": 0},
-                   "psgn_direct": {"tc": 0, "fma": 4 * layers},
+                   "psgn_direct": {"tc": 0, "split": 4 * layers, "fma": 0},
                    "psgn_gram": {"tc": 0, "fma": 3 * layers},
-                   "psgn_fused": {"tc": 0, "fma": 0}}
+                   "psgn_fused": {"tc": 0, "split": 0, "fma": 0}}
     if routes_alone != want_routes:
         raise AssertionError(f"persample_sq_norms_gram routes {routes_alone}, "
                              f"expected {want_routes}")
     rel = ((alone - tree).abs() / tree.abs()).max().item()
     if rel > PSGN_TOL or not torch.isfinite(alone).all():
-        raise AssertionError(f"FMA route against tensor cores: {alone.tolist()} vs "
+        raise AssertionError(f"split and FMA routes against tensor cores: {alone.tolist()} vs "
                              f"{tree.tolist()}")
-    print(f"  persample_sq_norms_gram (FMA route: {4 * layers} direct, {3 * layers} gram): "
-          f"{alone.tolist()}; the tree (tensor cores: fused, gram) {tree.tolist()}: max "
-          f"rel diff {rel:.3e} (tol {PSGN_TOL})")
+    print(f"  persample_sq_norms_gram (split route: {4 * layers} direct, {4 * layers} splits; "
+          f"FMA: {3 * layers} gram): {alone.tolist()}; the tree (tensor cores: fused, gram) "
+          f"{tree.tolist()}: max rel diff {rel:.3e} (tol {PSGN_TOL})")
+    alone_peak = peak_gib(lambda: probes.persample_sq_norms_gram(cfg, params, mb))
+    print(f"  persample_sq_norms_gram: {1e3 * alone_s:.1f} ms (host clock, its probe pass "
+          f"included); peak device memory above the resident {alone_peak:.2f} GiB")
     del out, params, acts, pgrads, engine
     torch.cuda.empty_cache()
     return counts, counts_alone
@@ -1411,6 +1539,7 @@ def gram_card_vs_cpu_phase() -> None:
         runs[dev] = (out, kernels.launch_counts())
         if dev == "cuda":
             attn_routes(runs[dev][1], tc=False, what="float32 gram-tier training")
+            fused_routes = kernels.route_counts()["psgn_fused"]
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
 
     def rel_err(a, b) -> float:
@@ -1434,12 +1563,18 @@ def gram_card_vs_cpu_phase() -> None:
     if sched["cuda"] != sched["cpu"]:
         raise AssertionError(f"batch schedules {sched} differ")
     n_micro = sum(x["num_micro"] for x in card_out["records"])
-    if (card_counts["psgn_fused"], card_counts["psgn_gram"]) != (2 * n_micro, 6 * n_micro) \
-            or card_counts["psgn_direct"] or any(cpu_counts.values()):
-        raise AssertionError(f"launches: card {card_counts}, CPU {cpu_counts}")
+    # float32 x and deltas: each fused group on the split route, x and
+    # delta split once each
+    if (card_counts["psgn_fused"], card_counts["psgn_gram"], card_counts["psgn_split"]) != \
+            (2 * n_micro, 6 * n_micro, 4 * n_micro) or card_counts["psgn_direct"] \
+            or any(cpu_counts.values()) \
+            or fused_routes != {"tc": 0, "split": 2 * n_micro, "fma": 0}:
+        raise AssertionError(f"launches: card {card_counts}, fused routes {fused_routes}, "
+                             f"CPU {cpu_counts}")
     print("  " + ", ".join(f"{k} within {v:.3e} relative" for k, v in rels.items())
           + f" (tol 1e-4); parameters within {err:.3e} (tol 1e-4); batch schedule "
-          f"{sched['cuda']} on both; card launches {card_counts}")
+          f"{sched['cuda']} on both; card launches {card_counts}; psgn_fused routes "
+          f"{fused_routes}")
 
 
 # ---------------------------------------------------------------------------

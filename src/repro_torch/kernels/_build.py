@@ -96,9 +96,14 @@ SIGNATURES = {
     ),
     "psgn_direct_tc": (
         "psgn_direct_tc_fwd",
-        # x pointers, delta pointers (host arrays of L), L, partials, out,
-        # B, S, Din, Dout, n_partials, stream
-        [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x term pointers, delta term pointers (host arrays of L x T), L,
+        # T term pairs, partials, out, B, S, Din, Dout, n_partials, stream
+        [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "psgn_split": (
+        "psgn_split_fwd",
+        # source pointers (a host array), n_src, n, terms, stream
+        [_P, _I, _I, _P, _P],
     ),
     "psgn_gram_tc": (
         "psgn_gram_tc_fwd",

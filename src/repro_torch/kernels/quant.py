@@ -13,16 +13,19 @@ exchange across pods, with error feedback keeping SGD unbiased over time
                    a NaN scale, one holding an infinity (and no NaN) an
                    infinite scale, and every code of such a row is 0.  A
                    wrapper over the hand-written CUDA kernel in
-                   ``csrc/quant_int8.cu`` (built by ``_build.py``).
+                   ``csrc/quant_int8.cu`` (built by ``_build.py``), which
+                   picks its design from C: a row of at most 32768
+                   elements takes one launch, a block per row, x read
+                   once; a longer row takes two passes over 16384-element
+                   chunks (its absmax, then its codes), x read twice.
   dequantize_int8  ``q * scale`` per row, plain ops (as in the reference).
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``).  A
 tensor on the card goes to the kernel, or the wrapper raises: a failed
 build, a refused launch, an unsupported type or a card below sm_90 is an
 error, never a fall back to the plain version.  The wrapper counts its
-kernel launches in ``quantize_int8.launches``.  ``block_rows`` keeps the
-reference's signature: it tiles the TPU kernel, not this one (the CUDA
-kernel cuts each row into chunks of 4096 elements).
+calls of the kernel's entry in ``quantize_int8.launches``.  ``block_rows``
+keeps the reference's signature: it tiles the TPU kernel, not this one.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ Counterparts of ``psgn_ref``, ``psgn_gram_ref``, ``quantize_int8_ref``,
 ``dequantize_int8_ref``, ``attention_ref`` and ``paged_decode_ref`` in
 ``repro/kernels/ref.py``, of the flash backward's
 recompute (``_recompute_dlogits`` / ``_flash_backward`` in
-``repro/kernels/attention.py``), and ``psgn_fused_ref``, the sum over
-stacked layers ``psgn_fused`` computes.  They are what the wrappers in
+``repro/kernels/attention.py``), ``psgn_fused_ref``, the sum over
+stacked layers ``psgn_fused`` computes, and ``split_bf16``, the split of a
+float32 operand that the psgn kernels' split route contracts on the tensor
+cores.  They are what the wrappers in
 ``kernels/attention.py``, ``kernels/psgn.py`` and ``kernels/quant.py`` run
 for a tensor on the CPU, and what the CUDA kernels are held against on the card: every input is
 upcast to float32; in attention the softcap comes before the mask, and the
@@ -43,6 +45,37 @@ def psgn_fused_ref(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     for layer in range(1, x.shape[0]):
         total = total + psgn_ref(x[layer], delta[layer])
     return total
+
+
+def _cut(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` cut to its top 16 bits (a bf16 value, held in float32)."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _bf16_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 whose bits are the top half of float32 ``v``'s."""
+    return (v.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """(3, *x.shape) bf16 terms hi, mid, lo of float32 ``x``, the split of
+    ``csrc/psgn_split.cu`` bit for bit: hi is x cut to its top 16 bits, mid
+    the remainder ``x - hi`` cut the same way, lo the remainder of that
+    (both subtractions exact in float32).  ``hi + mid + lo == x`` wherever x
+    is a multiple of 2^-133, bf16's least subnormal (every ``|x| >=
+    2^-110``); below that the sum is x cut toward zero to such a multiple.
+    A non-finite x gives (x, 0, 0), a NaN with its quiet bit set."""
+    v = x.float().contiguous()
+    r = v - _cut(v)
+    s = r - _cut(r)
+    terms = torch.stack([_bf16_bits(v), _bf16_bits(r), _bf16_bits(s)])
+    bad = ~torch.isfinite(v)
+    if bad.any():
+        hi = (v.view(torch.int32) >> 16) | torch.where(torch.isnan(v), 0x40, 0)
+        terms[0] = torch.where(bad, hi.to(torch.int16), terms[0].view(torch.int16)).view(
+            torch.bfloat16)
+        terms[1:, bad] = 0
+    return terms
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

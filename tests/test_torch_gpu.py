@@ -206,7 +206,8 @@ def test_launch_counters_and_refusals(cuda):
     kattn.chunk_attention(q, k, v, q_pos, k_pos, k_valid)
     assert kernels.launch_counts() == {"chunk_attention": 1, "paged_decode_attention": 0,
                                        "flash_dq": 0, "flash_dkv": 0, "psgn_direct": 0,
-                                       "psgn_gram": 0, "psgn_fused": 0, "quantize_int8": 0}
+                                       "psgn_gram": 0, "psgn_fused": 0, "psgn_split": 0,
+                                       "quantize_int8": 0}
     bad = torch.zeros((1, 8, 4, 48), device=cuda)  # no head-dim-48 instance
     with pytest.raises(ValueError, match="head dim"):
         kattn.chunk_attention(bad, bad[:, :, :2], bad[:, :, :2], q_pos,
@@ -515,7 +516,7 @@ def test_training_on_card_matches_cpu(cuda):
                               "paged_decode_attention": 0,
                               "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro,
                               "psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0,
-                              "quantize_int8": 0}
+                              "psgn_split": 0, "quantize_int8": 0}
     assert not any(counts["cpu"].values())
 
 
@@ -610,9 +611,9 @@ def test_psgn_tensor_core_route_at_ragged_edges(cuda, case):
     assert kernels.route_counts() == {"chunk_attention": {"tc": 0, "fma": 0},
                                       "flash_dq": {"tc": 0, "fma": 0},
                                       "flash_dkv": {"tc": 0, "fma": 0},
-                                      "psgn_direct": {"tc": 2, "fma": 0},
+                                      "psgn_direct": {"tc": 2, "split": 0, "fma": 0},
                                       "psgn_gram": {"tc": 2, "fma": 0},
-                                      "psgn_fused": {"tc": 4, "fma": 0}}
+                                      "psgn_fused": {"tc": 4, "split": 0, "fma": 0}}
     want = {"direct": ref.psgn_ref(x, d), "gram": ref.psgn_gram_ref(x, d),
             "fused": ref.psgn_fused_ref(xs, ds), "layers": ref.psgn_fused_ref(xs, ds)}
     for name, val in runs[0].items():
@@ -621,10 +622,22 @@ def test_psgn_tensor_core_route_at_ragged_edges(cuda, case):
         assert torch.equal(val, runs[1][name]), name
 
 
+def _fma_direct(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The float32 FMA direct kernel (``csrc/psgn_direct.cu``) on stacked
+    (L, B, S, .) x and d, whatever route ``plan`` would give them."""
+    n_l, b, s, d_in = x.shape
+    d_out = d.shape[-1]
+    n_partials = n_l * -(-d_in // psgn.TILE) * -(-d_out // psgn.TILE)
+    return psgn._fma_launch("psgn_direct", x, d, (n_l, b, s, d_in, d_out), n_partials)
+
+
 @pytest.mark.parametrize("shape", [(2, 300, 136, 264), (1, 2049, 264, 4104)])
 def test_psgn_routes_agree(cuda, shape):
-    """The same bf16 values through both routes: as bf16 (tensor cores) and
-    with delta cast to float32 (FMA kernels), within 1e-4 relative."""
+    """The same bf16 values through every route: as bf16 (tensor cores),
+    with delta cast to float32 (direct and fused on the split route, gram on
+    the FMA kernel) and through the FMA direct kernel, within 1e-4
+    relative.  bf16 values split into (v, 0, 0), so the split route here is
+    the tensor-core product plus two zero products."""
     r = np.random.default_rng(sum(shape))
     xs, ds = _psgn_pair(r, cuda, (3, *shape), (torch.bfloat16,) * 2)
     ds32 = ds.float()
@@ -635,8 +648,79 @@ def test_psgn_routes_agree(cuda, shape):
         torch.testing.assert_close(fn(x, d).cpu(), fn(x, d32).cpu(), rtol=1e-4, atol=0)
     assert kernels.route_counts() == {
         "chunk_attention": {"tc": 0, "fma": 0}, "flash_dq": {"tc": 0, "fma": 0},
-        "flash_dkv": {"tc": 0, "fma": 0},
-        **{name: {"tc": 1, "fma": 1} for name in ("psgn_direct", "psgn_gram", "psgn_fused")}}
+        "flash_dkv": {"tc": 0, "fma": 0}, "psgn_gram": {"tc": 1, "fma": 1},
+        **{name: {"tc": 1, "split": 1, "fma": 0} for name in ("psgn_direct", "psgn_fused")}}
+    torch.testing.assert_close(psgn.psgn_fused(xs, ds32).cpu(), _fma_direct(xs, ds32).cpu(),
+                               rtol=1e-4, atol=0)
+
+
+# (L, B, S, Din, Dout) on the split route: L 1, 3 and 16, ragged S (a
+# 64-position stage's and a 128-position tile's ends), widths up to 4104
+PSGN_SPLIT_CASES = [(1, 2, 37, 136, 264), (3, 1, 300, 264, 136), (3, 2, 2049, 8, 4104),
+                    (16, 2, 129, 136, 64), (1, 1, 2049, 4104, 264)]
+PSGN_SPLIT_DTYPES = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+                     (torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("dtypes", PSGN_SPLIT_DTYPES, ids=["bf16-f32", "f32-bf16", "f32-f32"])
+@pytest.mark.parametrize("case", PSGN_SPLIT_CASES)
+def test_psgn_split_route_against_fma(cuda, case, dtypes):
+    """direct (L 1) or fused (stacked) and the layer table on the split
+    route, against the FMA direct kernel on the same float32 values and
+    against the plain version, within 1e-4 relative: every float32 operand
+    split once per call, the same bits on a second run and through the
+    table."""
+    n_l, *shape = case
+    r = np.random.default_rng(sum(case))
+    xs, ds = _psgn_pair(r, cuda, (n_l, *shape), dtypes)
+    kernels.reset_launch_counts()
+    runs = [psgn.psgn_direct(xs[0], ds[0]) if n_l == 1 else psgn.psgn_fused(xs, ds)
+            for _ in range(2)]
+    table = psgn.psgn_fused_layers(list(xs), list(ds))
+    torch.cuda.synchronize()
+    routes = kernels.route_counts()
+    direct = 2 if n_l == 1 else 0
+    assert routes["psgn_direct"] == {"tc": 0, "split": direct, "fma": 0}
+    assert routes["psgn_fused"] == {"tc": 0, "split": 3 - direct, "fma": 0}
+    n_f32 = sum(dt == torch.float32 for dt in dtypes)
+    assert kernels.launch_counts()["psgn_split"] == 3 * n_f32
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], table)
+    want = ref.psgn_fused_ref(xs, ds).cpu()
+    torch.testing.assert_close(runs[0].cpu(), want, rtol=1e-4, atol=0)
+    torch.testing.assert_close(runs[0].cpu(), _fma_direct(xs.float(), ds.float()).cpu(),
+                               rtol=1e-4, atol=0)
+
+
+def test_psgn_split_kernel_matches_plain_bit_for_bit(cuda):
+    """The split kernel against ``ref.split_bf16`` (on the card and on the
+    CPU) bit for bit: random values over 2^-100 .. 2^100, every power of
+    two, +-0, FLT_MAX, subnormals, inf, -inf and NaNs; 70 tensors in one
+    call (two launches of the 64-source table)."""
+    r = np.random.default_rng(7)
+    f = np.finfo(np.float32)
+    special = np.concatenate([np.exp2(np.arange(-149, 128.0)), [0.0, -0.0, f.max, -f.max,
+                                                               np.inf, -np.inf, np.nan]])
+    sub = r.integers(1, 1 << 23, 1000).astype(np.uint32).view(np.float32)
+    n = 4096
+    vals = [np.resize(np.concatenate([special, sub, -sub]), n).astype(np.float32)]
+    vals += [(r.standard_normal(n) * np.exp2(r.uniform(-100, 100, n))).astype(np.float32)
+             for _ in range(69)]
+    xs = [torch.from_numpy(v).to(cuda) for v in vals]
+    xs[1] = torch.tensor([0x7F800001, 0x7FC00000, 0xFF800123 - (1 << 32), 0x7F80FFFF] * (n // 4),
+                         dtype=torch.int32).view(torch.float32).to(cuda)  # NaN payloads
+    kernels.reset_launch_counts()
+    got = psgn.psgn_split(xs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["psgn_split"] == 1
+    assert got.shape == (3, 70, n) and got.dtype == torch.bfloat16
+    for i, x in enumerate(xs):
+        want = ref.split_bf16(x)
+        assert torch.equal(got[:, i].view(torch.int16), want.view(torch.int16)), i
+        assert torch.equal(want.cpu().view(torch.int16),
+                           ref.split_bf16(x.cpu()).view(torch.int16)), i
+    with pytest.raises(ValueError, match="multiple of 8"):
+        psgn.psgn_split([xs[2][:12]])
+    assert kernels.launch_counts()["psgn_split"] == 1
 
 
 @pytest.mark.parametrize("n_l", [2, 40])
@@ -665,7 +749,8 @@ def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
     the main pass, with a tick-fired DiveBatch program reading that tier's
     signals, on the card (kernels) and on the CPU (plain versions).  Losses,
     Delta and parameters within 1e-4, one batch schedule, and the card's
-    psgn launches per microbatch exactly 2 fused and 3 * layers gram."""
+    psgn launches per microbatch exactly 2 fused (on the split route: two
+    splits each, x and delta) and 3 * layers gram."""
     from repro_torch.launch import train_lm
     from repro_torch.models import probes
     from repro_torch.optim import sgd
@@ -695,6 +780,8 @@ def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
                                    micro_batch=2, engine=eng, estimator=tier,
                                    log=lambda line: None)
         counts[dev] = kernels.launch_counts()
+        if dev == "cuda":
+            assert kernels.route_counts()["psgn_fused"]["split"] == counts[dev]["psgn_fused"]
     recs = {d: o["records"] for d, o in outs.items()}
     np.testing.assert_allclose([r["loss"] for r in recs["cuda"]],
                                [r["loss"] for r in recs["cpu"]], rtol=1e-4)
@@ -709,7 +796,8 @@ def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
                               "paged_decode_attention": 0,
                               "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro,
                               "psgn_direct": 0, "psgn_gram": 3 * 2 * n_micro,
-                              "psgn_fused": 2 * n_micro, "quantize_int8": 0}
+                              "psgn_fused": 2 * n_micro, "psgn_split": 2 * 2 * n_micro,
+                              "quantize_int8": 0}
     assert not any(counts["cpu"].values())
 
 
@@ -756,6 +844,48 @@ def test_quant_kernel_matches_plain_bit_for_bit(cuda, dtype):
         q2, s2 = quant.quantize_int8(x)
         # the same bits every run
         assert torch.equal(q, q2) and torch.equal(s.view(torch.int32), s2.view(torch.int32))
+
+
+def _quant_design_cases(r, dtype):
+    """The kernel's two designs at their edges: the one-pass design's
+    longest row (32768) and one either side, several rows of it, a view at
+    an offset (no 16-byte aligned element: its units go element by element)
+    and with a head before its first aligned unit, rows over the two-pass
+    design (one long row with a NaN, two rows of 40000) and ragged two-pass
+    rows."""
+    def x(*shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+    flat = x(1 << 16)
+    nan_row = x(1, 3 * 32768 + 5)
+    nan_row[0, 70001] = float("nan")
+    return {
+        "one-pass design's longest row - 1 (1, 32767)": x(1, 32767),
+        "one-pass design's longest row (1, 32768)": x(1, 32768),
+        "two-pass design at one more (1, 32769)": x(1, 32769),
+        "rows at the threshold (3, 32768)": x(3, 32768),
+        "a view at 1 element (1, 65535)": flat[1:].reshape(1, -1),
+        "a view at 8 elements (5, 13105)": flat[8:65533].reshape(5, -1),
+        "a view at 1 element, a two-pass row (1, 65530)": flat[1:65531].reshape(1, -1),
+        "two-pass row with a NaN (1, 98309)": nan_row,
+        "two two-pass rows (2, 40000)": x(2, 40000),
+        "ragged two-pass rows (3, 33333)": x(3, 33333),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernel_designs_bit_for_bit(cuda, dtype):
+    """Both designs of the kernel, codes and scales bit for bit against the
+    plain version, one call of its entry counted per call."""
+    r = np.random.default_rng(9)
+    for name, x in _quant_design_cases(r, dtype).items():
+        kernels.reset_launch_counts()
+        q, s = quant.quantize_int8(x)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["quantize_int8"] == 1
+        want_q, want_s = ref.quantize_int8(x)
+        assert torch.equal(q, want_q), name
+        nan = want_s.isnan()
+        assert torch.equal(s.isnan(), nan) and torch.equal(s[~nan], want_s[~nan]), name
 
 
 def test_quant_kernel_at_the_slice_shapes(cuda):

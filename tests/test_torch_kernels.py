@@ -210,11 +210,12 @@ def test_cpu_path_launches_nothing():
     tpsgn.psgn_direct(x[0], d[0])
     tpsgn.psgn_gram(x[0], d[0])
     tpsgn.psgn_fused(x, d)
+    tpsgn.psgn_split([x[0, 0]])
     tquant.quantize_int8(x[0, 0])
     assert tkernels.launch_counts() == {
         "chunk_attention": 0, "paged_decode_attention": 0, "flash_dq": 0,
         "flash_dkv": 0, "psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0,
-        "quantize_int8": 0}
+        "psgn_split": 0, "quantize_int8": 0}
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
@@ -535,19 +536,41 @@ BF16, F32 = torch.bfloat16, torch.float32
                                     (8, 19), (4096, 4100)])
 def test_psgn_route_plan(dtypes, widths):
     """The tensor cores take bf16 x and delta whose widths are multiples of
-    8; anything else takes the FMA kernels, with their 128 x 128 tiles."""
+    8; direct with a float32 operand at such widths takes the split route
+    (3 term pairs with one float32 operand, 6 with two) on the same tiles;
+    anything else takes the FMA kernels, with their 128 x 128 tiles."""
     d_in, d_out = widths
-    tc = dtypes == (BF16, BF16) and d_in % 8 == 0 and d_out % 8 == 0
+    widths8 = d_in % 8 == 0 and d_out % 8 == 0
+    tc = dtypes == (BF16, BF16) and widths8
     direct = tpsgn.plan("direct", *dtypes, 300, d_in, d_out, n_layers=3)
     gram = tpsgn.plan("gram", *dtypes, 300, d_in, d_out)
-    assert (direct.route, gram.route) == (("tc", "tc") if tc else ("fma", "fma"))
+    want_direct = "tc" if tc else ("split" if widths8 else "fma")
+    assert (direct.route, gram.route) == (want_direct, "tc" if tc else "fma")
     ceil = lambda n, t: -(-n // t)  # noqa: E731
-    if tc:
-        assert direct == ("tc", (128, 256), 3 * ceil(d_in, 128) * ceil(d_out, 256))
-        assert gram == ("tc", (64, 128), 2 * 3 * 4 // 2)  # 3 tiles of S: 6 pairs, 2 halves
+    pairs = {(BF16, BF16): 1, (BF16, F32): 3, (F32, BF16): 3, (F32, F32): 6}[dtypes]
+    if widths8:
+        assert direct == (want_direct, (128, 256), 3 * ceil(d_in, 128) * ceil(d_out, 256),
+                          pairs)
     else:
-        assert direct == ("fma", (128, 128), 3 * ceil(d_in, 128) * ceil(d_out, 128))
-        assert gram == ("fma", (128, 128), 3 * 4 // 2)
+        assert direct == ("fma", (128, 128), 3 * ceil(d_in, 128) * ceil(d_out, 128), 1)
+    if tc:
+        assert gram == ("tc", (64, 128), 2 * 3 * 4 // 2, 1)  # 3 tiles of S: 6 pairs, 2 halves
+    else:
+        assert gram == ("fma", (128, 128), 3 * 4 // 2, 1)
+
+
+@pytest.mark.parametrize("dtypes, want", [
+    ((BF16, BF16), ((0, 0),)),
+    ((BF16, F32), ((0, 0), (0, 1), (0, 2))),
+    ((F32, BF16), ((0, 0), (1, 0), (2, 0))),
+    ((F32, F32), ((0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (2, 0))),
+])
+def test_split_pairs(dtypes, want):
+    """The term pairs the split route sums: every pair of a bf16 operand's
+    one term with a float32 operand's three, and with two float32 operands
+    the six with i + j <= 2."""
+    assert tpsgn.split_pairs(*dtypes) == want
+    assert tpsgn.plan("direct", *dtypes, 64, 8, 8).pairs == len(want)
 
 
 @pytest.mark.parametrize("s, d_in, d_out, n_layers, want_direct, want_gram", [
@@ -561,6 +584,107 @@ def test_psgn_tc_partial_counts(s, d_in, d_out, n_layers, want_direct, want_gram
     assert tpsgn.plan("gram", BF16, BF16, s, d_in, d_out).n_partials == want_gram
     with pytest.raises(ValueError, match="unknown kind"):
         tpsgn.plan("fused", BF16, BF16, s, d_in, d_out)
+
+
+def _split_values(case: str) -> torch.Tensor:
+    """float32 values for the split's cases."""
+    r = np.random.default_rng(len(case))
+    if case == "random":  # normals over 2^-100 .. 2^100
+        v = r.standard_normal(4096) * np.exp2(r.uniform(-100, 100, 4096))
+    elif case == "powers of two":
+        e = np.arange(-149, 128, dtype=np.float64)
+        v = np.concatenate([np.exp2(e), -np.exp2(e)])
+    elif case == "edges":  # +-0, FLT_MAX, the least normal, 1 and its neighbours
+        f = np.finfo(np.float32)
+        v = np.array([0.0, -0.0, f.max, -f.max, f.tiny, -f.tiny, 1.0,
+                      np.nextafter(np.float32(1), np.float32(2)),
+                      np.nextafter(np.float32(1), np.float32(0)), f.max / 3])
+    else:  # "subnormals": every bit pattern class below the least normal
+        bits = np.concatenate([r.integers(1, 1 << 23, 2000), r.integers(1, 1 << 7, 100) << 16,
+                               np.arange(1, 64)])
+        v = bits.astype(np.uint32).view(np.float32) * np.where(r.random(bits.size) < 0.5, 1, -1)
+    return torch.from_numpy(np.asarray(v, np.float32))
+
+
+@pytest.mark.parametrize("case", ["random", "powers of two", "edges", "subnormals"])
+def test_split_bf16_terms_sum_to_the_value(case):
+    """hi + mid + lo equals v bit for bit wherever v is a multiple of 2^-133,
+    bf16's least subnormal (every |v| >= 2^-110, and the subnormals whose low
+    16 bits are 0); below that it is v cut toward zero to such a multiple.
+    Each term is v's or a remainder's top 16 bits, so |mid| < 2^-7 |hi| and
+    |lo| < 2^-14 |hi|; the wrapper's CPU path stacks the plain version."""
+    v = _split_values(case)
+    t = tref.split_bf16(v)
+    assert t.dtype == torch.bfloat16 and t.shape == (3, *v.shape)
+    total = (t[0].float() + t[1].float()) + t[2].float()  # hi + mid is exact
+    exact = (v.double() / 2 ** -133).frac() == 0
+    assert (v.abs()[~exact] < 2 ** -110).all()
+    assert torch.equal(total[exact], v[exact])
+    cut = torch.trunc(v.double()[~exact] / 2 ** -133) * 2 ** -133
+    assert torch.equal(total[~exact].double(), cut)
+    assert torch.equal(t[0].view(torch.int16), (v.view(torch.int32) >> 16).to(torch.int16))
+    big = v.abs() >= 2 ** -110
+    assert (t[1].float().abs() < 2 ** -7 * t[0].float().abs())[big & (t[1] != 0)].all()
+    assert (t[2].float().abs() < 2 ** -14 * t[0].float().abs())[big & (t[2] != 0)].all()
+    assert torch.isfinite(t.float()).all()
+    torch.testing.assert_close(tpsgn.psgn_split([v, -v]), torch.stack(
+        [t, tref.split_bf16(-v)], 1), rtol=0, atol=0)
+
+
+def test_split_bf16_non_finite_values():
+    """inf, -inf and NaN map to (v, 0, 0): an infinity stays one (never inf -
+    inf), a NaN stays a NaN, with its quiet bit set (a NaN whose payload is
+    in its low 16 bits would otherwise cut to an infinity)."""
+    v = torch.tensor([np.inf, -np.inf, np.nan, 1.5], dtype=torch.float32)
+    v = torch.cat([v, torch.tensor([0x7F800001, 0xFF800001 - (1 << 32)],
+                                   dtype=torch.int32).view(torch.float32)])
+    t = tref.split_bf16(v)
+    assert t[0, 0].item() == np.inf and t[0, 1].item() == -np.inf
+    assert torch.isnan(t[0, [2, 4, 5]].float()).all()
+    assert t[0, 3].item() == 1.5
+    assert not t[1:, [0, 1, 2, 4, 5]].float().any()
+    assert (t[0, [4, 5]].view(torch.int16) & 0x40).all()
+
+
+def _split_route_emulation(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The split route's arithmetic in plain torch: each float32 operand of
+    (L, B, S, .) split into bf16 terms, the products of ``split_pairs``'
+    term pairs summed in one float32 product per layer (bf16 products are
+    exact in float32), squared, summed over the layers."""
+    terms = [tref.split_bf16(t) if t.dtype == torch.float32 else t[None] for t in (x, d)]
+    total = torch.zeros(x.shape[1])
+    for layer in range(x.shape[0]):
+        g = sum(torch.einsum("bsi,bsj->bij", terms[0][i, layer].float(),
+                             terms[1][j, layer].float())
+                for i, j in tpsgn.split_pairs(x.dtype, d.dtype))
+        total = total + g.square().sum((1, 2))
+    return total
+
+
+@pytest.mark.parametrize("dtypes", ["bf16-f32", "f32-bf16", "f32-f32"])
+@pytest.mark.parametrize("shape", [(1, 2, 64, 32, 48), (3, 2, 37, 24, 16),
+                                   (2, 3, 130, 16, 40)])
+def test_split_route_emulation_matches_reference(shape, dtypes):
+    """The split route's arithmetic against the reference's psgn_direct (L =
+    1) and psgn_fused (interpret mode) and ``ref.psgn_ref``, 1e-5 relative,
+    for each dtype pair: the pairs the f32 x f32 route leaves out are below
+    2^-21 of |x||d| each."""
+    names = {"bf16": "bfloat16", "f32": np.float32}
+    dts = tuple(names[n] for n in dtypes.split("-"))
+    r = np.random.default_rng(sum(shape))
+    *lead, s_, d_in, d_out = shape
+    x = r.standard_normal((*lead, s_, d_in)).astype(np.float32)
+    d = r.standard_normal((*lead, s_, d_out)).astype(np.float32)
+    (tx, td), (jx, jd) = _both(x, d, dts)
+    got = _split_route_emulation(tx, td)
+    want = sum(np.asarray(jref.psgn_ref(jx[i], jd[i]), np.float64) for i in range(shape[0]))
+    _close_rel(got, want)
+    _close_rel(got, jpsgn.psgn_fused(jx, jd, block_i=8, block_j=8, block_s=16,
+                                     interpret=True))
+    _close_rel(_split_route_emulation(tx[:1], td[:1]),
+               jpsgn.psgn_direct(jx[0], jd[0], block_i=8, block_j=8, block_s=16,
+                                 interpret=True))
+    assert tpsgn.plan("direct", tx.dtype, td.dtype, s_, d_in, d_out, shape[0]).route == "split"
 
 
 @pytest.mark.parametrize("dtypes", ["f32", "bf16"])
@@ -580,9 +704,11 @@ def test_psgn_fused_layers_plain_matches_stacked_and_reference(dtypes):
     _close_rel(got, want)
     _close_rel(tops.persample_sq_norm_tree(dict(zip(names, tx)), dict(zip(names, td))), want)
     assert not any(tkernels.launch_counts().values())
-    assert tkernels.route_counts() == {n: {"tc": 0, "fma": 0} for n in
-                                       ("chunk_attention", "flash_dq", "flash_dkv",
-                                        "psgn_direct", "psgn_gram", "psgn_fused")}
+    assert tkernels.route_counts() == {
+        **{n: {"tc": 0, "fma": 0} for n in ("chunk_attention", "flash_dq", "flash_dkv",
+                                            "psgn_gram")},
+        "psgn_direct": {"tc": 0, "split": 0, "fma": 0},
+        "psgn_fused": {"tc": 0, "split": 0, "fma": 0}}
     with pytest.raises(ValueError, match="differ"):
         tpsgn.psgn_fused_layers([tx[0], tx[1][:, :8]], [td[0], td[1][:, :8]])
     with pytest.raises(ValueError, match="activations"):
@@ -617,6 +743,12 @@ def _quant_input(case: str) -> np.ndarray:
         x = r.uniform(-1, 1, (6, 50)).astype(np.float32)
         x[np.arange(6), r.integers(0, 50, 6)] = -np.arange(2, 8, dtype=np.float32)
         return x
+    if case == "rows at 32768":  # the card's one-pass design's longest row
+        return r.standard_normal((2, 32768)).astype(np.float32)
+    if case == "long ragged rows":  # the card's two-pass design, a ragged last chunk
+        x = r.standard_normal((2, 40001)).astype(np.float32)
+        x[1, 39999] = -7.0
+        return x
     if case == "NaN and inf rows":  # NaN or infinite scales, every code 0
         x = r.standard_normal((5, 40)).astype(np.float32)
         x[0, 7], x[1, 39], x[2, 20] = np.nan, np.inf, -np.inf
@@ -626,7 +758,7 @@ def _quant_input(case: str) -> np.ndarray:
 
 
 QUANT_CASES = ["ragged rows", "C 1", "ragged C", "one element", "zero row", "ties",
-               "negative max", "NaN and inf rows"]
+               "negative max", "rows at 32768", "long ragged rows", "NaN and inf rows"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
