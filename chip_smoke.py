@@ -148,7 +148,35 @@ MB L2.
      are counted and printed (the runs have drifted apart by then), and at
      one exchange from the same state and batch on both devices at most 8
      of the 65794 codes may differ, and the others' residuals by at most
-     1e-3 quanta.
+     1e-3 quanta;
+ 12. checkpoint and resume on the card (``repro_torch.ckpt``, the
+     reference's format), checkpoints in a temporary directory under
+     ``build/`` removed afterwards: (a) phase 6's model and cut trains 8 steps through
+     ``train_lm.train`` with a checkpoint at each tick (steps 4 and 8;
+     bytes, volumes, device -> host and write seconds and GB/s); a fresh
+     state with other weights restored from the step-4 checkpoint
+     (``train_lm.resume``) runs steps 5-8: the batch schedule and the
+     losses must be the uninterrupted run's to the bit, and the launches
+     16 chunk, 8 dq and 8 dk/dv per microbatch; (b) phase 10's ``Trainer``
+     with ``ckpt_every=1`` runs 2 epochs (rung 3), a fresh ``Trainer`` on a
+     fresh ladder ``resume``s onto rung 3 and runs epoch 3: the same
+     (batch, rung, steps) as phase 10's epoch 3, losses and parameters
+     within phase 11's tolerances (the compression residuals restart at
+     zero: they are never checkpointed), 8 ``quantize_int8`` launches per
+     cross-pod step; (c) the paper's ResNet-20 (GroupNorm, width 16) on
+     ``imagelike_classification(n=50000, hw=32)`` under
+     ``launch/train.py``'s DiveBatch defaults on the exact tier, 3 epochs
+     with a checkpoint each (per epoch: batch, steps, ms per step,
+     images/s, val accuracy, Delta, peak memory and the exact tier's share
+     of a step); a fresh ``Trainer`` resumed from the epoch-2 checkpoint
+     must repeat epoch 3 to the bit (cuDNN's deterministic algorithms);
+     this path launches no hand-written kernel;
+ 13. ``launch/train.py``'s imagelike task (ResNet depth 8, width 8, hw 16,
+     n 6000) on the card and on the CPU with cuDNN and matmul TF32 off
+     (cuDNN's deterministic algorithms), 2 epochs from identical weights: one schedule, losses and Delta within
+     1e-4 relative, parameters within 1e-4; then the card's checkpoint
+     resumes on the CPU and the CPU's on the card, each continuing one
+     epoch to the same schedule.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -161,9 +189,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -177,17 +208,21 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.adapt import AdaptationProgram, DiveBatchPolicy  # noqa: E402
-from repro_torch.data import TokenStream, sigmoid_synthetic  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.data import TokenStream, imagelike_classification  # noqa: E402
+from repro_torch.data import sigmoid_synthetic  # noqa: E402
 from repro_torch.elastic import place  # noqa: E402
 from repro_torch.kernels import _build, ops, psgn, quant, ref  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
-from repro_torch.models import probes, small  # noqa: E402
+from repro_torch.models import probes, resnet, small  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.pod import PodLadder  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.train import StepEngine, lm_bucket_of, make_train_step  # noqa: E402
+from repro_torch.train import StepEngine, init_state, lm_bucket_of  # noqa: E402
+from repro_torch.train import make_train_step  # noqa: E402
 from repro_torch.train.loop import ModelFns, Trainer  # noqa: E402
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM3 bytes/s, dense
@@ -1590,7 +1625,7 @@ POD_N, POD_D, POD_HIDDEN, POD_LR = 20_000, 512, 64, 0.1
 POD_M0, POD_M_MAX, POD_DELTA = 64, 128, 0.1
 
 
-def pod_trainer(device, seed: int = 0) -> Trainer:
+def pod_trainer(device, seed: int = 0, **kw) -> Trainer:
     train, val, _ = sigmoid_synthetic(n=POD_N, d=POD_D, seed=seed)
     params = small.mlp_init(torch.Generator().manual_seed(seed), POD_D, POD_HIDDEN,
                             device=device)
@@ -1601,7 +1636,7 @@ def pod_trainer(device, seed: int = 0) -> Trainer:
         POD_LR, estimator="moment")
     return Trainer(fns, params, sgd(momentum=0.9), program, train, val,
                    estimator="moment", seed=seed,
-                   elastic=PodLadder(pods=2, devices=[device] * 8, granule=16))
+                   elastic=PodLadder(pods=2, devices=[device] * 8, granule=16), **kw)
 
 
 def run_pod_epochs(trainer: Trainer, epochs: int, log=None) -> list[tuple]:
@@ -1640,6 +1675,9 @@ def pod_phase() -> dict:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     runs = run_pod_epochs(trainer, 3, print_epoch)
+    # phase 12b resumes epoch 3 from a checkpoint and is held against this
+    after_3 = {"runs": list(runs),
+               "params": [p.detach().cpu().clone() for p in trainer.params.parameters()]}
     if runs[-1][1] != 3:
         raise AssertionError(f"the run did not reach the cross-pod rung: {runs}")
     if runs[0][:2] != (POD_M0, 2):
@@ -1671,7 +1709,7 @@ def pod_phase() -> dict:
     print(f"  {len(runs)} epochs in {wall:.2f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.2f} MiB")
     print(f"  stats: {json.dumps(trainer.engine.stats.as_dict())}")
-    return counts
+    return counts, after_3
 
 
 # ---------------------------------------------------------------------------
@@ -1762,6 +1800,304 @@ def pod_card_vs_cpu_phase() -> None:
           f"residuals within {step_kept:.3e} quanta (tol {POD_STEP_KEPT_QUANTA})")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: checkpoint and resume on the card
+# ---------------------------------------------------------------------------
+
+
+def ckpt_bytes(path: str) -> tuple[int, int]:
+    """(bytes, npz volumes) of a checkpoint directory."""
+    n, vols = 0, 0
+    for root, _, files in os.walk(path):
+        for f in files:
+            n += os.path.getsize(os.path.join(root, f))
+            vols += f.endswith(".npz")
+    return n, vols
+
+
+def ckpt_root(tag: str) -> str:
+    """A temporary checkpoint root inside the checkout's ``build/`` (removed
+    by the caller)."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=ROOT / "build")
+
+
+def lm_resume_phase() -> dict:
+    phase(f"12a. checkpoint and resume at full width: Yi-6B widths, {TRAIN_LAYERS} of 32 "
+          f"layers, bf16, remat, 8 steps through train_lm.train with a checkpoint at each "
+          f"tick; steps 5-8 again from the step-4 checkpoint")
+    cfg = YI.replace(num_layers=TRAIN_LAYERS)
+
+    def program():
+        return train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                     granule=TRAIN_MICRO, lr=TRAIN_LR, tick_every=4)
+
+    root = ckpt_root("lm")
+    try:
+        mgr = CheckpointManager(root, keep=2)
+        params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        print(f"  checkpoints under {root}: {shutil.disk_usage(root).free / 1e9:.1f} GB free")
+        full = train_lm.train(cfg, params, program(), steps=8, seq_len=TRAIN_SEQ,
+                              micro_batch=TRAIN_MICRO, attn_impl="pallas", ckpt=mgr,
+                              log=lambda line: None)
+        torch.cuda.synchronize()
+        for rec in full["records"]:
+            if "ckpt_copy_s" in rec:
+                n, vols = ckpt_bytes(os.path.join(root, f"step_{rec['step']:010d}"))
+                print(f"  checkpoint at step {rec['step']}: {n / 1e9:.3f} GB in {vols} npz "
+                      f"volumes; device -> host {rec['ckpt_copy_s']:.2f} s "
+                      f"({n / rec['ckpt_copy_s'] / 1e9:.2f} GB/s), writes "
+                      f"{rec['ckpt_write_s']:.2f} s ({n / rec['ckpt_write_s'] / 1e9:.2f} GB/s)")
+        want = [(r["step"], r["batch"], r["loss"]) for r in full["records"][4:]]
+        del full, params
+        torch.cuda.empty_cache()
+        # a fresh state (other weights) restored from the step-4 checkpoint
+        params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+        state = init_state(params, sgd(momentum=0.9))
+        prog = program()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (state, step), restore_s = timed_s(
+            lambda: train_lm.resume(mgr, state, prog, step=4))
+        print(f"  restore of step {step}: {restore_s:.2f} s; program at batch "
+              f"{prog.batch_size}")
+        kernels.reset_launch_counts()
+        out = train_lm.train(cfg, params, prog, steps=8, seq_len=TRAIN_SEQ,
+                             micro_batch=TRAIN_MICRO, attn_impl="pallas", state=state,
+                             start_step=step, log=lambda line: None)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        got = [(r["step"], r["batch"], r["loss"]) for r in out["records"]]
+        for (s_, b, loss), (_, _, ref) in zip(got, want):
+            print(f"  step {s_}: batch {b}, loss {loss!r} resumed, {ref!r} uninterrupted")
+        if got != want:
+            raise AssertionError(f"resumed steps {got} differ from the uninterrupted {want}")
+        n_micro = sum(r["num_micro"] for r in out["records"])
+        layers = cfg.num_layers
+        want_counts = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+                       "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro,
+                       **NO_PSGN}
+        if counts != want_counts:
+            raise AssertionError(f"kernel launches {counts}, expected {want_counts}")
+        attn_routes(counts, tc=True, what="resumed training")
+        print(f"  resumed steps 5-8: batch schedule and losses bit-identical to the "
+              f"uninterrupted run; launches {counts} (= {2 * layers}, {layers}, {layers} "
+              f"x {n_micro} microbatches); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del out, state, params
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def pod_resume_phase(after_3: dict) -> dict:
+    phase("12b. checkpoint and resume on the two-pod PodLadder: 2 epochs with a checkpoint "
+          "each, then a fresh Trainer on a fresh ladder resumes and runs epoch 3")
+    root = ckpt_root("pod")
+    try:
+        first = pod_trainer("cuda", ckpt=CheckpointManager(root), ckpt_every=1)
+        runs = run_pod_epochs(first, 2)
+        same = [(b, r, rec.train_loss, rec.val_loss) for b, r, rec in runs] == \
+            [(b, r, rec.train_loss, rec.val_loss) for b, r, rec in after_3["runs"][:2]]
+        print(f"  epochs 1-2 with checkpoints: schedule {[(b, r, x.steps) for b, r, x in runs]}"
+              f"; bit-identical to phase 10's first two: {same}")
+        second = pod_trainer("cuda", ckpt=CheckpointManager(root))
+        start = second.rung.index
+        if not second.resume() or second.rung.index != 3:
+            raise AssertionError(f"resume landed on rung {second.rung.index}, not 3")
+        print(f"  fresh Trainer on rung {start} resumed epoch {second.cursor.epoch} onto rung "
+              f"{second.rung.index} at batch {second.adapt.batch_size}")
+        kernels.reset_launch_counts()
+        resumed = run_pod_epochs(second, 1, print_epoch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        b, r, rec = resumed[0]
+        rb, rr, ref = after_3["runs"][2]
+        if (b, r, rec.steps) != (rb, rr, ref.steps):
+            raise AssertionError(f"epoch 3 ran {(b, r, rec.steps)}, phase 10 {(rb, rr, ref.steps)}")
+        rels = {f: abs(getattr(rec, f) - getattr(ref, f)) / abs(getattr(ref, f))
+                for f in ("train_loss", "val_loss")}
+        perr = max((a.detach().cpu() - p).abs().max().item()
+                   for a, p in zip(second.params.parameters(), after_3["params"]))
+        if max(rels.values()) > POD_LOSS_RTOL or perr > POD_PARAM_ATOL:
+            raise AssertionError(f"epoch 3 losses {rels} (tol {POD_LOSS_RTOL}), parameters "
+                                 f"{perr:.3e} (tol {POD_PARAM_ATOL})")
+        want = {k: 0 for k in counts} | {"quantize_int8": 2 * 4 * rec.steps}
+        if counts != want:
+            raise AssertionError(f"kernel launches {counts}, expected {want}")
+        print(f"  epoch 3 against phase 10's: schedule (batch, rung, steps) {(b, r, rec.steps)} "
+              f"on both; train/val losses within {rels['train_loss']:.3e} / "
+              f"{rels['val_loss']:.3e} relative (tol {POD_LOSS_RTOL}), parameters within "
+              f"{perr:.3e} (tol {POD_PARAM_ATOL}): not to the bit, because the compression "
+              f"residuals are transient wire state, never checkpointed (as in the reference), "
+              f"so the resumed run starts them at zero; quantize_int8 launches "
+              f"{counts['quantize_int8']} (= 2 pods x 4 leaves x {rec.steps} cross-pod steps)")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# the paper's CIFAR model and launch/train.py's defaults (m0 128, m_max 2048,
+# delta 0.1, granule 16, lr 0.1, momentum 0.9) on CIFAR-10's 50 000 images
+# (imagelike_classification at hw 32 splits them 45 000 / 5 000)
+CIFAR_N, CIFAR_EPOCHS = 50_000, 3
+
+
+def step_ms(engine, state, batch, n: int = 5) -> float:
+    """Median ms of ``n`` steps of ``engine`` on a copy of ``state``."""
+    state = copy.deepcopy(state)
+    engine.step(state, batch, 0.1)
+    times = []
+    for _ in range(n):
+        _, dt = timed_s(lambda: engine.step(state, batch, 0.1))
+        times.append(1e3 * dt)
+    return statistics.median(times)
+
+
+def resnet_resume_phase() -> None:
+    phase(f"12c. the paper's ResNet-20 (GroupNorm, width 16, 10 classes) on CIFAR-shaped "
+          f"imagelike_classification(n={CIFAR_N}, hw=32): DiveBatch on the exact tier, "
+          f"{CIFAR_EPOCHS} epochs with a checkpoint each, then epoch 3 again from the "
+          f"epoch-2 checkpoint")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    print(f"  cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN deterministic algorithms on")
+    train, val = imagelike_classification(n=CIFAR_N, hw=32, num_classes=10, seed=0)
+    args = train_cli.parser().parse_args(["--task", "imagelike"])
+    fns = ModelFns(batch_loss=resnet.resnet_batch_loss, example_loss=resnet.resnet_loss,
+                   metrics=lambda p, b: {"acc": resnet.resnet_accuracy(p, b)})
+    root = ckpt_root("resnet")
+
+    def trainer(mgr) -> Trainer:
+        params = resnet.resnet_init(torch.Generator().manual_seed(0), depth=20, width=16,
+                                    device="cuda")
+        return Trainer(fns, params, sgd(momentum=args.momentum),
+                       train_cli.make_program(args, len(train)), train, val,
+                       estimator="exact", seed=0, ckpt=mgr, ckpt_every=1)
+
+    try:
+        t = trainer(CheckpointManager(root, keep=CIFAR_EPOCHS))
+        n_params = sum(p.numel() for p in t.params.parameters())
+        print(f"  {n_params} parameters; {len(train)} train / {len(val)} val images; "
+              f"m0 {args.batch_size}, m_max {args.max_batch_size}, delta {args.delta}, lr "
+              f"{args.lr}, momentum {args.momentum}")
+        moment = StepEngine.for_model_fns(fns, sgd(momentum=0.9), estimator="moment")
+        kernels.reset_launch_counts()
+        for _ in range(CIFAR_EPOCHS):
+            bsz = t.adapt.batch_size
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = t.run_epoch()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            batch = place(train.get(np.arange(bsz)), None)
+            exact_ms = step_ms(t.engine, t.state, batch)
+            moment_ms = step_ms(moment, t.state, batch)
+            print(f"  epoch {rec.epoch}: batch {bsz}, {rec.steps} steps, "
+                  f"{1e3 * rec.wall_s / rec.steps:.2f} ms per step (epoch wall / steps), "
+                  f"{rec.steps * bsz / rec.wall_s:.0f} images/s, val acc "
+                  f"{rec.val_metrics['acc']:.4f}, val loss {rec.val_loss:.6f}, Delta "
+                  f"{rec.diversity:.6f} -> batch {rec.batch_size}; peak "
+                  f"{peak:.2f} GiB; one step at batch {bsz}: exact tier {exact_ms:.2f} ms, "
+                  f"moment tier {moment_ms:.2f} ms: per-sample gradients by vmap "
+                  f"{100 * (1 - moment_ms / exact_ms):.1f}% of the step")
+        counts = kernels.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"the ResNet path launched kernels: {counts}")
+        n, vols = ckpt_bytes(os.path.join(root, "step_0000000002"))
+        print(f"  checkpoints {t.ckpt.all_steps()}, {n / 1e6:.2f} MB and {vols} volumes each; "
+              f"no hand-written kernel on this path (convolutions on cuDNN): {counts}")
+        want = t.history[-1]
+        shutil.rmtree(os.path.join(root, f"step_{CIFAR_EPOCHS:010d}"))
+        again = trainer(CheckpointManager(root))
+        (_, restore_s) = timed_s(again.resume)
+        rec = again.run_epoch()
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(again.params.parameters(), t.params.parameters()))
+        print(f"  resumed from the epoch-{CIFAR_EPOCHS - 1} checkpoint in {restore_s:.3f} s "
+              f"(the epoch-{CIFAR_EPOCHS} one removed): epoch {rec.epoch} batch "
+              f"{rec.batch_size}, {rec.steps} steps, val loss {rec.val_loss!r} against "
+              f"{want.val_loss!r}, train loss {rec.train_loss!r} against "
+              f"{want.train_loss!r}; parameters differ by {diff}")
+        if (rec.batch_size, rec.steps, rec.train_loss, rec.val_loss, rec.diversity) != \
+                (want.batch_size, want.steps, want.train_loss, want.val_loss, want.diversity) \
+                or diff != 0.0:
+            raise AssertionError("the resumed epoch is not the uninterrupted one")
+        print("  the resumed epoch is the uninterrupted one to the bit")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the new paths, card against CPU
+# ---------------------------------------------------------------------------
+
+# launch/train.py's imagelike task at its own size (ResNet depth 8, width 8,
+# hw 16, n 6000).  Its training amplifies rounding fast: at lr 0.1, batch
+# 128, a one-ulp change of every weight moves the parameters past 1e-3
+# within 30 steps (tests/test_torch_resnet.py), so the run is kept to a few
+# large-batch steps at lr 0.02 (m0 1024, delta 10)
+CLI_FLAGS = ["--task", "imagelike", "--batch-size", "1024", "--delta", "10", "--lr", "0.02",
+             "--ckpt-every", "1"]
+
+
+def cli_card_vs_cpu_phase() -> None:
+    phase("13. launch/train.py's imagelike task on the card against the CPU (cuDNN and "
+          "matmul TF32 off, cuDNN's deterministic algorithms), identical weights, 2 "
+          "epochs; checkpoints resumed across devices")
+    # the gap sits in Delta (per-sample norms by vmap); cuDNN's algorithm
+    # choice moved it between 2.4e-5 and 6.2e-5 over runs of the default
+    # algorithms, the deterministic ones repeat their result
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    roots = {dev: ckpt_root(f"cli_{dev}") for dev in ("cuda", "cpu")}
+    try:
+        runs = {dev: train_cli.main(["--device", dev, "--epochs", "2",
+                                     "--ckpt-dir", roots[dev]] + CLI_FLAGS)
+                for dev in ("cuda", "cpu")}
+        hist = {d: r["history"] for d, r in runs.items()}
+        sched = {d: [(h.batch_size, h.steps) for h in hs] for d, hs in hist.items()}
+        if sched["cuda"] != sched["cpu"]:
+            raise AssertionError(f"schedules (next batch, steps) differ: {sched}")
+        gaps = {f: max(abs(getattr(a, f) - getattr(b, f)) / abs(getattr(b, f))
+                       for a, b in zip(hist["cuda"], hist["cpu"]))
+                for f in ("train_loss", "val_loss", "diversity")}
+        rel = max(gaps.values())
+        perr = max((a.detach().cpu() - b.detach()).abs().max().item()
+                   for a, b in zip(runs["cuda"]["trainer"].params.parameters(),
+                                   runs["cpu"]["trainer"].params.parameters()))
+        if rel > 1e-4 or perr > 1e-4:
+            raise AssertionError(f"losses and Delta within {rel:.3e} relative (tol 1e-4), "
+                                 f"parameters within {perr:.3e} (tol 1e-4)")
+        print(f"  schedule (next batch, steps) {sched['cuda']} on both; losses and Delta "
+              f"within {rel:.3e} relative (tol 1e-4; "
+              + ", ".join(f"{f} {g:.3e}" for f, g in gaps.items())
+              + f"), parameters within {perr:.3e} (tol 1e-4)")
+        cont = {}
+        for dev, src in (("cpu", "cuda"), ("cuda", "cpu")):
+            out = train_cli.main(["--device", dev, "--epochs", "3", "--resume",
+                                  "--ckpt-dir", roots[src]] + CLI_FLAGS)
+            cont[dev] = out["history"][-1]
+            print(f"  the {src} checkpoint resumed on {dev}: epoch {cont[dev].epoch} at batch "
+                  f"{hist[src][-1].batch_size}, {cont[dev].steps} steps, val loss "
+                  f"{cont[dev].val_loss:.6f}, next batch {cont[dev].batch_size}")
+        a, b = cont["cpu"], cont["cuda"]
+        if (a.epoch, a.batch_size, a.steps) != (b.epoch, b.batch_size, b.steps):
+            raise AssertionError(f"the continued epochs differ: {a} / {b}")
+        print(f"  both continue epoch {a.epoch} to the same schedule; val losses within "
+              f"{abs(a.val_loss - b.val_loss) / abs(b.val_loss):.3e} relative")
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -1792,14 +2128,20 @@ def main() -> int:
     train_card_vs_cpu_phase()
     gram_counts, alone_counts = gram_train_phase()
     gram_card_vs_cpu_phase()
-    pod_counts = pod_phase()
+    pod_counts, pod_after_3 = pod_phase()
     pod_card_vs_cpu_phase()
+    lm_resume_counts = lm_resume_phase()
+    pod_resume_counts = pod_resume_phase(pod_after_3)
+    resnet_resume_phase()
+    cli_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
-    # norms (phase 8, last) and the pod slice (phase 10)
+    # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
+    # (phase 12: the LM's steps 5-8, the pod's epoch 3)
     paths = {"serving": serve_counts, "training": train_counts,
              "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts,
-             "pod training": pod_counts}
+             "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
+             "checkpoint-resume pod": pod_resume_counts}
     for rec in records:
         rec["launches"] = sum(c[rec["name"]] for c in paths.values())
         if rec["launches"] == 0:

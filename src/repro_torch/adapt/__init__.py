@@ -3,12 +3,22 @@ reference's ``repro.adapt`` over the port's train state).
 
 A policy observes :class:`Signals` (diversity estimate, gradient-noise
 scale, loss, throughput, events) at :class:`Clock` boundaries and emits
-typed :class:`Decision` records; ``AdaptationProgram`` drives a policy
-against the clock with an :class:`LrCoupling`.  ``ThroughputWindow`` also
+typed :class:`Decision` records; combinators (``Clamped``, ``BoundedRung``,
+``Warmup``, ``Hysteresis``, ``Chain``, ``Switch``) wrap policies, and
+``AdaptationProgram`` drives a policy against the clock with an
+:class:`LrCoupling`.  ``ThroughputWindow`` also
 feeds the serving stats.
 """
 
-from repro_torch.adapt.combinators import LrCoupling
+from repro_torch.adapt.combinators import (
+    BoundedRung,
+    Chain,
+    Clamped,
+    Hysteresis,
+    LrCoupling,
+    Switch,
+    Warmup,
+)
 from repro_torch.adapt.policy import (
     AdaBatchPolicy,
     AdaptationPolicy,
@@ -43,6 +53,12 @@ __all__ = [
     "DiveBatchPolicy",
     "GradNoisePolicy",
     "LrCoupling",
+    "Clamped",
+    "BoundedRung",
+    "Warmup",
+    "Hysteresis",
+    "Chain",
+    "Switch",
     "AdaptationProgram",
     "Applied",
     "SCHEMA_VERSION",

@@ -66,6 +66,8 @@ def _move(obj: Any, device: torch.device) -> Any:
                                            for f in dataclasses.fields(obj) if f.init})
     if isinstance(obj, dict):
         return {k: _move(v, device) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # a named tuple
+        return type(obj)(*(_move(v, device) for v in obj))
     if isinstance(obj, (list, tuple)):
         return type(obj)(_move(v, device) for v in obj)
     return obj

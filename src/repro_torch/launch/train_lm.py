@@ -18,8 +18,11 @@ The default model is the ~20M-parameter ``lm-20m`` (float32);
 ``--full-width N`` trains Yi-6B's widths (d_model 4096, 32/4 heads, d_ff
 11008, vocab 64000) at N of its 32 layers, bf16 with per-layer remat.
 Weights are random, from ``--seed``.  The device defaults to ``cuda`` and
-raises without a Hopper card.  Checkpointing (``--ckpt-dir``) comes with the
-port of ``ckpt/`` (ROADMAP.md, Queue A).
+raises without a Hopper card.  ``--ckpt-dir`` saves ``{"state": state}``
+with ``extra={"program": ...}`` at every tick, as the reference example
+does, in the reference's format and paths (the layers stacked into
+``pos{p}``, kernels ``(d_in, d_out)``); ``resume`` restores such a
+checkpoint into a state, and ``train(start_step=...)`` continues from it.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import time
 
 import torch
 
-from repro_torch import DEFAULT_DEVICE, resolve_device
+from repro_torch import DEFAULT_DEVICE, interop, resolve_device
 from repro_torch.adapt import (
     AdaptationProgram,
     Clock,
@@ -37,12 +40,13 @@ from repro_torch.adapt import (
     GradNoisePolicy,
     read_signals,
 )
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenStream
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
-from repro_torch.train import StepEngine, init_state
+from repro_torch.train import StepEngine, TrainState, init_state
 from repro_torch.utils import pytree as ptu
 
 
@@ -74,30 +78,50 @@ def make_program(method: str, *, m0: int, m_max: int, delta: float, granule: int
     return AdaptationProgram(policy, base_lr=lr, estimator="moment", tick_every=tick_every)
 
 
+def resume(mgr: CheckpointManager, state: TrainState, program: AdaptationProgram,
+           step: int | None = None) -> tuple[TrainState, int]:
+    """Restore checkpoint ``step`` (the latest when None) of a ``--ckpt-dir``
+    run into ``state`` (in place, on its device) and ``program``; returns
+    ``(state, step)``: ``train(..., state=state, start_step=step)`` takes
+    the run on from there."""
+    out, extra = mgr.restore({"state": interop.reference_state(state, target=True)}, step)
+    ref = out["state"]
+    state = interop.load_reference_state(state, params=ref.params, opt_state=ref.opt_state,
+                                         div_state=ref.div_state, step=int(ref.step))
+    program.load_state_dict(extra["program"])
+    return state, int(extra["step"])
+
+
 def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, *,
           steps: int, seq_len: int, micro_batch: int, attn_impl: str = "pallas",
           data_seed: int = 0, log=print, engine: StepEngine | None = None,
-          estimator: str = "moment") -> dict:
-    """Train ``params`` in place for ``steps`` optimizer steps.
+          estimator: str = "moment", ckpt: CheckpointManager | None = None,
+          state: TrainState | None = None, start_step: int = 0) -> dict:
+    """Train ``params`` in place up to optimizer step ``steps``.
 
     Each step's loss is read back (so a step's wall time covers its device
     work); at every tick the signals are read with ``estimator``, the
     accumulators reset and the program decides the next batch.  ``engine``
     defaults to ``StepEngine.for_lm`` (the moment tier); a prebuilt one (the
     gram tier's, say) must have been built with ``sgd(momentum=0.9)`` and
-    ``micro_batch``.  Returns ``{"records": [per-step dicts], "engine":
-    StepEngine, "state": TrainState}``; a record holds ``step, batch,
-    num_micro, loss, seconds`` and, at ticks, ``diversity, gns,
-    next_batch``."""
+    ``micro_batch``.  With ``ckpt`` the state and program are saved at every
+    tick, at step + 1 (a record then holds ``ckpt_copy_s`` and
+    ``ckpt_write_s``: the device -> host copy and the file writes).  A
+    resumed run passes the restored ``state`` (holding ``params``) and
+    ``start_step``: the batches are the stream's from that step on.  Returns
+    ``{"records": [per-step dicts], "engine": StepEngine, "state":
+    TrainState}``; a record holds ``step, batch, num_micro, loss, seconds``
+    and, at ticks, ``diversity, gns, next_batch``."""
     dev = next(params.parameters()).device
     opt = sgd(momentum=0.9)
-    state = init_state(params, opt)
+    if state is None:
+        state = init_state(params, opt)
     stream = TokenStream(cfg.vocab_size, seed=data_seed)
     if engine is None:
         engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl)
     m = program.batch_size
     records = []
-    for step in range(steps):
+    for step in range(start_step, steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in stream.batch(step, m, seq_len).items()}
         t0 = time.perf_counter()
@@ -114,6 +138,10 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
                 f"Delta={sig.diversity:.4f} gns={sig.gns:.1f} -> batch {m} -> "
                 f"{program.batch_size}")
             m = program.batch_size
+            if ckpt is not None:
+                ckpt.save(step + 1, {"state": interop.reference_state(state)},
+                          extra={"program": program.state_dict()})
+                rec.update(ckpt_copy_s=ckpt.last_copy_s, ckpt_write_s=ckpt.last_write_s)
         elif step % 5 == 0:
             log(f"step {step + 1:4d} loss={loss:.4f} dt={rec['seconds']:.2f}s batch={m}")
         records.append(rec)
@@ -143,9 +171,6 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt-dir needs ckpt/, not ported to repro_torch "
-                                  "yet (ROADMAP.md, Queue A)")
     dev = resolve_device(args.device)
     cfg = model_config(args.full_width)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -156,7 +181,8 @@ def main(argv: list[str] | None = None) -> dict:
                            granule=args.micro_batch, lr=args.lr,
                            tick_every=args.epoch_steps)
     return train(cfg, params, program, steps=args.steps, seq_len=args.seq_len,
-                 micro_batch=args.micro_batch, attn_impl=args.attn_impl)
+                 micro_batch=args.micro_batch, attn_impl=args.attn_impl,
+                 ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None)
 
 
 if __name__ == "__main__":

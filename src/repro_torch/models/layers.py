@@ -1,5 +1,6 @@
 """Primitive layers as plain functions on tensors: dense, embed, norms,
-rotary embeddings, activations.
+rotary embeddings, activations; and the norm parameters (``NormParams``,
+the reference's ``norm_init``).
 
 Counterpart of ``repro/models/layers.py``.  The reference passes parameter
 dicts with ``(d_in, d_out)`` kernels; here weights are tensors in
@@ -12,6 +13,19 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class NormParams(nn.Module):
+    """A norm's ``scale`` (ones) and, ``with_bias``, ``bias`` (zeros): the
+    reference's ``norm_init(d, dtype, with_bias)``."""
+
+    def __init__(self, d: int, dtype=torch.float32, with_bias: bool = False,
+                 device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        self.bias = (nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+                     if with_bias else None)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
@@ -52,6 +66,23 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     y = (x - mean) * torch.rsqrt(var + eps)
     y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
+               groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """NHWC group norm: per sample, so per-sample gradients are well defined
+    (it replaces BatchNorm).  Statistics in float32 over (H, W, C / groups),
+    population variance, ``eps`` inside the rsqrt."""
+    n, h, w, c = x.shape
+    dtype = x.dtype
+    xg = x.float().reshape(n, h, w, groups, c // groups)
+    mean = xg.mean(dim=(1, 2, 4), keepdim=True)
+    var = xg.var(dim=(1, 2, 4), keepdim=True, unbiased=False)
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    y = xg.reshape(n, h, w, c) * scale.float()
     if bias is not None:
         y = y + bias.float()
     return y.to(dtype)

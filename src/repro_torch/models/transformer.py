@@ -40,7 +40,7 @@ Entry points:
 Only attention mixers with a dense FFN are ported: training runs 'attn'
 and 'attn_local' (the sliding window goes to the attention lane), serving
 only 'attn' (the 'attn_local' ring raises there); 'mamba' state and MoE FFNs
-raise ``NotImplementedError`` (ROADMAP.md, Queue C).
+raise ``NotImplementedError`` (ROADMAP.md, Queue A 7).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ _NOT_PORTED = {
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"{_NOT_PORTED.get(kind, repr(kind))} is not ported to repro_torch yet "
-        f"(ROADMAP.md, Queue C)"
+        f"(ROADMAP.md, Queue A 7)"
     )
 
 
@@ -152,7 +152,7 @@ class Transformer(nn.Module):
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
                 "embedding-input frontends are not ported to repro_torch yet "
-                "(ROADMAP.md, Queue C)"
+                "(ROADMAP.md, Queue A 7)"
             )
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype)
@@ -222,7 +222,7 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
     else:
         raise NotImplementedError(
             f"the XLA {impl!r} attention lane is not ported to repro_torch "
-            f"(ROADMAP.md, Queue C); use attn_impl='pallas' or 'dense'")
+            f"(ROADMAP.md, Queue A 7); use attn_impl='pallas' or 'dense'")
     return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
 
 
@@ -359,7 +359,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, skip: tuple = (),
         if cfg.pattern[p] != "attn":
             raise _not_ported(cfg.pattern[p])
         raise NotImplementedError("the dense (non-paged) KV cache is not "
-                                  "ported to repro_torch (ROADMAP.md, Queue C)")
+                                  "ported to repro_torch (ROADMAP.md, Queue A 7)")
     return cache
 
 
@@ -432,7 +432,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
     new cache, pages)."""
     if pages is None or tables is None:
         raise NotImplementedError("decode against the dense (non-paged) KV "
-                                  "cache is not ported (ROADMAP.md, Queue C)")
+                                  "cache is not ported (ROADMAP.md, Queue A 7)")
     x = embed(params.embed.weight, tokens).to(_dtype(cfg.compute_dtype))
     b = x.shape[0]
     pos_now = cache["len"]

@@ -18,7 +18,7 @@ What differs from the reference:
     the distinct program keys the engine uses, so ``ServeStats`` keeps its
     keys and ``compiles == len(set(zip(buckets, rungs)))`` still holds
     (``compile_s`` stays 0).
-  * no elastic ladder: ``elastic=`` raises (scale-out is ROADMAP Queue C),
+  * no elastic ladder: ``elastic=`` raises (scale-out is ROADMAP Queue A 5),
     so every rung is ``None``.
   * the categorical sampler seeds a ``torch.Generator`` from
     ``(seed, rid, pos)``: per-request deterministic whatever the slot layout,
@@ -207,7 +207,7 @@ class ServeEngine:
         if elastic is not None:
             raise NotImplementedError(
                 "ServeEngine(elastic=...) is not ported: scale-out over a mesh "
-                "ladder is ROADMAP.md Queue C"
+                "ladder is ROADMAP.md Queue A 5"
             )
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")

@@ -19,7 +19,12 @@ Counterpart of ``repro/train/engine.py``.  The engine owns
     with ``donate=False`` it steps a copy and the caller's ``TrainState``
     keeps its old values, as the reference's undonated buffers do;
   * the step of ``train/step.py::make_train_step`` with the diversity tier
-    inside it: no per-step host transfer.
+    inside it: no per-step host transfer;
+  * telemetry (``tracer=``, ``runlog=``, ``repro_torch.obs``): a new step key
+    opens a ``compile`` span and emits a run-log ``compile`` event, and each
+    step runs under a ``dispatch`` span, with the reference's names and
+    fields, so one monitor reads both packages' logs.  The null defaults
+    cost one attribute load and a branch per step.
 
 ``for_model_fns`` builds the engine of the paper's small models
 (``ModelFns``), ``for_lm`` the LM's.  The gram tier on the LM runs on a
@@ -40,6 +45,8 @@ from typing import Callable
 import torch
 
 from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import runlog as runlog_lib
+from repro_torch.obs import trace as trace_lib
 from repro_torch.optim import Optimizer
 from repro_torch.train import step as step_lib
 from repro_torch.train.state import TrainState
@@ -163,8 +170,12 @@ class StepEngine:
 
     def __init__(self, build_step: Callable[..., Callable],
                  bucket_of: Callable[[dict], int] | None = None, *,
-                 donate: bool = True, eval_fn: Callable | None = None):
+                 donate: bool = True, eval_fn: Callable | None = None,
+                 tracer=None, runlog=None):
         self._build = build_step
+        # telemetry sinks (repro_torch.obs); the null defaults are no-ops
+        self.tracer = tracer if tracer is not None else trace_lib.NULL
+        self.runlog = runlog if runlog is not None else runlog_lib.NULL
         self._bucket_of = bucket_of or _leading_dim
         # only positional parameters count: a (key, **opts) or keyword-only
         # second parameter cannot take a positional tier
@@ -211,7 +222,14 @@ class StepEngine:
             self.stats.bucket_hits += 1
             return self.jitted(key)
         self.stats.bucket_misses += 1
-        fn = self.jitted(key)
+        t0 = time.perf_counter()
+        with self.tracer.span("compile", scope="train", bucket=key, rung=self.rung,
+                              tier=str(self.tier)):
+            fn = self.jitted(key)
+        dt = time.perf_counter() - t0
+        if self.runlog.enabled:
+            self.runlog.emit("compile", scope="train", what=f"bucket={key}", seconds=dt,
+                             bucket=key, rung=self.rung, tier=str(self.tier))
         self.stats.compiles += 1
         self.stats.buckets.append(key)
         self.stats.rungs.append(self.rung)
@@ -224,11 +242,18 @@ class StepEngine:
         """One optimizer step at whatever bucket ``batch`` lands on.  With
         donation the state is updated in place and returned; without it the
         step runs on a copy and ``state`` is left as it was."""
-        fn = self._executable(self._bucket_of(batch), batch)
+        key = self._bucket_of(batch)
+        fn = self._executable(key, batch)
         t0 = time.perf_counter()
         if not self.donate:
             state = copy.deepcopy(state)
-        out = fn(state, batch, lr)
+        tr = self.tracer
+        if tr.enabled:
+            with tr.span("dispatch", bucket=key, rung=self.rung, tier=str(self.tier),
+                         step_num=self.stats.steps):
+                out = fn(state, batch, lr)
+        else:
+            out = fn(state, batch, lr)
         self.stats.dispatch_wall_s += time.perf_counter() - t0
         self.stats.steps += 1
         return out

@@ -36,9 +36,14 @@ three).
 The state lives on the device of the parameters passed in, or, in elastic
 mode, of the live rung.  With ``donate=True`` (the default) the engine
 trains the state's tensors in place; the initial placement onto a rung
-copies (it must not alias the caller's parameters).  Checkpointing
-(``ckpt=``, ``save``, ``resume``) waits for the port of ``ckpt/``
-(ROADMAP.md, Queue A 4) and raises.
+copies (it must not alias the caller's parameters).
+
+Checkpointing (``ckpt=CheckpointManager(...)``, ``save``, ``resume``, and
+``ckpt_every`` epochs between automatic saves) captures the full adaptive
+state in the reference's format and paths (``interop.reference_state``):
+a checkpoint written by either package resumes in the other.  As in the
+reference, no RNG state is stored: the epoch permutation is a function of
+``(seed, epoch)``, and program schema v1 and v2 both load.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import interop
 from repro_torch.adapt import (
     AdaptationProgram,
     Clock,
@@ -63,7 +69,7 @@ from repro_torch.data import ArrayDataset, Cursor, EpochLoader
 from repro_torch.data.pipeline import epoch_permutation, prefetch as prefetch_iter
 from repro_torch.data.pipeline import put_global_batch
 from repro_torch.dist.plan import current_plan
-from repro_torch.elastic import MeshLadder, reshard
+from repro_torch.elastic import MeshLadder, place, reshard
 from repro_torch.obs import runlog as runlog_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.train.engine import ModelFns, StepEngine, eval_fn_for
@@ -77,9 +83,6 @@ __all__ = ["ModelFns", "EpochRecord", "Trainer"]
 
 #: estimator tiers that run inside the step
 _INJIT_TIERS = ("exact", "gram", "moment")
-
-_NO_CKPT = ("checkpointing (ckpt/) is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A 4)")
 
 
 def _lr(x: float) -> float:
@@ -122,8 +125,6 @@ class Trainer:
         tracer=None,
         runlog=None,
     ):
-        if ckpt is not None:
-            raise NotImplementedError(_NO_CKPT)
         self.fns = fns
         self._tracer = trace_lib.NULL
         self._runlog = runlog_lib.NULL
@@ -139,7 +140,7 @@ class Trainer:
         self.estimator = estimator
         self.seed = seed
         self.psn_microbatch = psn_microbatch  # exact-tier vmap width / oracle chunk
-        self.ckpt = None
+        self.ckpt = ckpt
         self.ckpt_every = ckpt_every
         self.cursor = Cursor()
         self.history: list[EpochRecord] = []
@@ -223,12 +224,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def bind_obs(self, *, tracer=None, runlog=None) -> None:
-        """Attach telemetry sinks (``repro_torch.obs``) to the trainer and its
-        adaptation program.  ``None`` leaves a sink unchanged."""
+        """Attach telemetry sinks (``repro_torch.obs``) to the trainer, its
+        engine and its adaptation program.  ``None`` leaves a sink
+        unchanged."""
         if tracer is not None:
             self._tracer = tracer
+            self.engine.tracer = tracer
         if runlog is not None:
             self._runlog = runlog
+            self.engine.runlog = runlog
         bind = getattr(self.adapt, "bind_obs", None)
         if bind is not None:
             bind(tracer=tracer, runlog=runlog)
@@ -521,6 +525,8 @@ class Trainer:
         self.cursor.epoch += 1
         self.cursor.batch_index = 0
         self.cursor.sample_index = 0
+        if self.ckpt and self.ckpt_every and self.cursor.epoch % self.ckpt_every == 0:
+            self.save()
         return rec
 
     def run(self, epochs: int, verbose: bool = True) -> list[EpochRecord]:
@@ -537,7 +543,53 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save(self):
-        raise NotImplementedError(_NO_CKPT)
+        """Checkpoint the full state at the current epoch: every tensor is on
+        the host before this returns (the next step updates them in
+        place)."""
+        if self.ckpt is None:
+            raise ValueError("save() needs a CheckpointManager (Trainer(ckpt=...))")
+        ref = interop.reference_state(self.state)
+        self.ckpt.save(
+            step=self.cursor.epoch,
+            state={"params": ref.params, "opt_state": ref.opt_state,
+                   "div_state": ref.div_state},
+            extra={
+                "controller": self.adapt.state_dict(),
+                "cursor": self.cursor.state_dict(),
+                "history": [dataclasses.asdict(r) for r in self.history],
+                "step": int(self.state.step),
+            },
+        )
+        if self._runlog.enabled:
+            self._runlog.emit("checkpoint", epoch=self.cursor.epoch,
+                              step=int(self.state.step))
 
     def resume(self) -> bool:
-        raise NotImplementedError(_NO_CKPT)
+        """Restore the latest checkpoint (False when there is none).  With a
+        ladder, the rung is the one for the RESTORED batch size, chosen
+        before the state is placed; its ladder state (the compression
+        residuals) is installed afresh."""
+        if self.ckpt is None:
+            raise ValueError("resume() needs a CheckpointManager (Trainer(ckpt=...))")
+        if self.ckpt.latest_step() is None:
+            return False
+        ref = interop.reference_state(self.state, target=True)
+        out, extra = self.ckpt.restore(
+            {"params": ref.params, "opt_state": ref.opt_state, "div_state": ref.div_state})
+        # both schema versions load (v1: pre-redesign controller dicts)
+        self.adapt.load_state_dict(extra["controller"])
+        self.cursor.load_state_dict(extra["cursor"])
+        self.history = [EpochRecord(**r) for r in extra.get("history", [])]
+        if self._elastic is not None:
+            rung = self._elastic.rung_for_batch(self.adapt.batch_size)
+            self._rung = rung
+            self.engine.rung = rung.index
+            self.state = place(self.state._replace(err_state=None), rung.plan)
+        self.state = interop.load_reference_state(
+            self.state, step=extra.get("step", 0), **out)
+        if self._elastic is not None:
+            # checkpoints never carry ladder state (the residuals are
+            # transient wire state): install it for the restored rung
+            self.state = self._elastic.adapt_state(self.state, None, self._rung)
+        log.info("resumed from epoch %d", self.cursor.epoch)
+        return True

@@ -980,3 +980,65 @@ def test_prefetch_on_a_side_stream(cuda, host_overlap):
                     estimator="exact", prefetch=mode)
         losses[mode] = [h.val_loss for h in t.run(2, verbose=False)]
     assert losses[True] == losses[False] == losses["thread"]
+
+
+def test_checkpoint_of_a_card_state_round_trips(cuda, tmp_path):
+    """A bf16 LM state on the card goes to the reference's format and back
+    into a fresh card state bit for bit; the host copy is complete when
+    ``save`` returns, so a step that then updates the state in place
+    (donation) does not reach an async write."""
+    from repro_torch import interop
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state
+
+    cfg = get_config("yi-6b", reduced=True).replace(param_dtype="bfloat16",
+                                                    compute_dtype="bfloat16")
+    state = init_state(tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                      "cuda"), sgd(momentum=0.9))
+    with torch.no_grad():
+        for m, g in zip(state.opt_state.momentum, state.div_state.grad_sum.values()):
+            m.normal_()
+            g.normal_()
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, {"state": interop.reference_state(state)})
+    want = [p.detach().clone() for p in state.params.parameters()]
+    with torch.no_grad():
+        for p in state.params.parameters():
+            p.add_(1.0)
+    mgr.wait()
+    fresh = init_state(tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                      "cuda"), sgd(momentum=0.9))
+    out, _ = mgr.restore({"state": interop.reference_state(fresh, target=True)})
+    ref = out["state"]
+    fresh = interop.load_reference_state(fresh, params=ref.params, opt_state=ref.opt_state,
+                                         div_state=ref.div_state)
+    for a, b in zip(fresh.params.parameters(), want):
+        assert a.device.type == "cuda" and a.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for a, b in zip(fresh.opt_state.momentum, state.opt_state.momentum):
+        assert torch.equal(a, b)
+    for k, g in state.div_state.grad_sum.items():
+        assert torch.equal(fresh.div_state.grad_sum[k], g)
+
+
+def test_resnet_on_card_matches_cpu(cuda):
+    """The ResNet's forward (cuDNN convolutions, explicit "SAME" pads) and
+    its exact-tier per-sample gradient norms on the card against the CPU,
+    TF32 off: forward within 1e-5, norms within 1e-4 relative."""
+    from repro_torch.core import diversity
+    from repro_torch.data import imagelike_classification
+    from repro_torch.models import resnet
+
+    cpu = resnet.resnet_init(torch.Generator().manual_seed(0), depth=8, width=8, device="cpu")
+    card = resnet.resnet_init(torch.Generator().manual_seed(0), depth=8, width=8,
+                              device="cuda")
+    train, _ = imagelike_classification(n=64, hw=16, seed=0)
+    batch = {k: torch.from_numpy(v) for k, v in train.get(np.arange(16)).items()}
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        torch.testing.assert_close(resnet.resnet_forward(card, on_card["x"]).cpu(),
+                                   resnet.resnet_forward(cpu, batch["x"]), rtol=0, atol=1e-5)
+    torch.testing.assert_close(
+        diversity.persample_sq_norms(resnet.resnet_loss, card, on_card).cpu(),
+        diversity.persample_sq_norms(resnet.resnet_loss, cpu, batch), rtol=1e-4, atol=0)

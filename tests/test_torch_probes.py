@@ -165,9 +165,9 @@ def test_moe_and_mamba_positions_raise():
     moe = cfg.replace(num_experts=4, top_k=2, ffn_pattern=("moe",))
     mamba = cfg.replace(pattern=("attn", "mamba"))
     for bad in (moe, mamba):
-        with pytest.raises(NotImplementedError, match="Queue C"):
+        with pytest.raises(NotImplementedError, match="Queue A 7"):
             probes.loss_with_probes(bad, params, pr, batch)
-        with pytest.raises(NotImplementedError, match="Queue C"):
+        with pytest.raises(NotImplementedError, match="Queue A 7"):
             probes.coverage(bad)
 
 

@@ -24,6 +24,7 @@ match in every discrete field, their float fields within 1e-5.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -381,11 +382,13 @@ def test_remat_and_dense_lane_give_the_same_gradients():
 # ---------------------------------------------------------------------------
 
 
-def test_unported_paths_raise_and_name_the_queue():
+def test_unported_paths_raise_and_name_the_queue(tmp_path):
     """The per-sample tiers without their hooks raise the reference's
     ValueErrors; the vmap path (per-sample gradients of example_loss) runs
     on ``ModelFns`` models only: on the LM loss it raises (torch.func cannot
-    transform its old-style autograd functions)."""
+    transform its old-style autograd functions).  Unported lanes name their
+    queue; ``--ckpt-dir``, once unported, now writes a checkpoint at each
+    tick."""
     cfg = get_config("yi-6b", reduced=True)
     with pytest.raises(ValueError, match="estimator='gram' needs probe_loss"):
         make_train_step(cfg, sgd(), 1, estimator="gram")
@@ -414,11 +417,14 @@ def test_unported_paths_raise_and_name_the_queue():
         eng.jitted(1)
     model = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue C"):
+    with pytest.raises(NotImplementedError, match="Queue A 7"):
         tf.loss_fn(cfg.replace(attn_impl="flash"), model,
                    {"tokens": toks, "targets": toks})
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        train_lm.main(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
+    ck = tmp_path / "ck"
+    train_lm.main(["--device", "cpu", "--steps", "2", "--seq-len", "16",
+                   "--epoch-steps", "2", "--ckpt-dir", str(ck)])
+    assert sorted(os.listdir(ck)) == ["step_0000000002"]
+    assert sorted(os.listdir(ck / "step_0000000002")) == ["extra.json", "state"]
 
 
 def test_engine_bucket_keys_and_donation():

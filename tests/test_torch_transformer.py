@@ -210,7 +210,7 @@ def test_unported_mixers_raise(pattern, kind):
     if kind == "attn_local":
         tf.init_params(cfg, device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue C"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 7"):
             tf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue C"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 7"):
         tf.init_cache(cfg, 1, 16, skip=tf.paged_positions(cfg), device="cpu")
