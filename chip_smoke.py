@@ -69,9 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      delta split once each).
 
 The chunk forward, dq and dk/dv have two routes (``kattn.attention_plan``):
-bf16 at head dims 64 and 128 takes the tensor-core kernels
-(``chunk_attention_tc.cu``, ``flash_dq_tc.cu``, ``flash_dkv_tc.cu``), float32
-and hd 32 the FMA kernels.  Phase 3 holds both against the plain versions
+causal bf16 at head dims 64 and 128 takes the tensor-core kernels
+(``chunk_attention_tc.cu``, ``flash_dq_tc.cu``, ``flash_dkv_tc.cu``);
+float32, hd 32, 80 and 112, and the non-causal form the FMA kernels.  Phase 3 holds both against the plain versions
 and prints each case's route in brackets (``[tc]``, ``[fma]``; ``[dq, dk/dv
 tc]`` for the backward), with the key tiles the tensor-core forward visited
 out of all, as its blocks counted them on the card (it skips tiles by
@@ -82,7 +82,19 @@ shuffled keys at positions past the array bounds, 128-row blocks, the
 serving shape and the training shape; the backward's add S 1, 63, 64, 65,
 129 and 300 at hd 64 and 128 with n_rep 1, 2 and 8, a window across tiles
 and softcap 20.  Phases 4, 6 and 8 assert that every chunk, dq and dk/dv
-launch took the tensor cores, phases 5, 7 and 9 (float32) the FMA kernels.
+launch took the tensor cores, phases 5, 7 and 9 (float32) the FMA kernels,
+and so do every launch of phases 14 and 15 (non-causal).
+
+Phase 3 also holds the non-causal chunk forward, dq and dk/dv against their
+plain versions: float32 (1e-4) and bf16 (2e-2 forward, the backward at
+2e-3 absolute as above) at hd 32, 64, 80, 112 and 128, each without a
+window and with a one-sided one, n_rep 1 and 4, softcaps, ragged S, and a
+prefill chunk with sentinel keys and padded rows; every launch on the FMA
+route.  Then the three at hubert-xlarge's training shape (B 2, S 1024, 16
+heads of hd 80, non-causal, bf16), the three records ``... (non-causal, hd
+80)``: timed beside the plain version and SDPA (``is_causal=False``: the
+forward, and its backward for dq and dk/dv), with the bound at 989 TFLOP/s
+(the record's) and at the float32 FMA rate (``fma_bound_ms``).
 
 Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
 their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
@@ -177,6 +189,31 @@ MB L2.
      1e-4 relative, parameters within 1e-4; then the card's checkpoint
      resumes on the CPU and the CPU's on the card, each continuing one
      epoch to the same schedule.
+
+ 14. hubert-xlarge (the encoder: 48 layers, d_model 1280, 16 heads of hd
+     80, non-causal, an embedding frontend, layer norm, GELU MLP, vocab
+     504) in bf16 with per-layer remat and ``attn_impl="pallas"``, weights
+     from a seeded generator (0.946 B parameters), on sequences of 1024
+     frames (frame embeddings N(0, 1) and uniform targets from
+     ``default_rng((seed, step))``): (a) ``transformer.prefill_step`` on 4
+     sequences, finite (4, 1024, 504) float32 logits and exactly 48
+     chunk-forward launches (FMA) and nothing else, ms and peak memory;
+     (b) 12 moment-tier steps through ``StepEngine.for_lm`` (sgd with
+     momentum 0.9, lr 0.02, micro batch 2) under phase 6's DiveBatch
+     program, exactly 96 chunk, 48 dq and 48 dk/dv launches per
+     microbatch, all FMA, step ms by batch, frames/s, the model-FLOP share
+     and peak memory; (c) the gram tier at 12 of the 48 layers (a depth
+     cut), 8 steps under phase 8's program with a resize, the psgn
+     launches exactly those of ``ops.group_layers``' grouping (all on the
+     tensor cores), and one microbatch in parts;
+ 15. the encoder on the card against the CPU: a hubert-shaped float32
+     model (2 layers, d_model 320, 4 heads of hd 80, d_ff 640) with
+     identical weights: ``prefill_step`` logits within 1e-4, 6 DiveBatch
+     steps (a tick every 2) with losses within 1e-4 relative, parameters
+     within 1e-4 and one batch schedule and bucket list.
+
+The launches of the non-causal records count phase 14's three paths, the
+other records the causal paths (phases 4, 6, 8, 10, 12).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -353,15 +390,17 @@ def chunk_inputs(r, dtype, *, b, c, prior_real, prior_blocks, blk, h, kv, hd,
                 window=window)
 
 
-def chunk_case(name, inp, softcap=None):
+def chunk_case(name, inp, softcap=None, causal=True):
     dtype = inp["q"].dtype
     args = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
-    route = kattn.attention_plan(dtype, inp["q"].shape[-1])
+    route = kattn.attention_plan(dtype, inp["q"].shape[-1], causal)
     if route == "tc":
         kattn.tc_key_tiles(reset=True)
-    out, lse = kattn.chunk_attention_fwd(*args, window=inp["window"], softcap=softcap)
+    out, lse = kattn.chunk_attention_fwd(*args, window=inp["window"], softcap=softcap,
+                                         causal=causal)
     torch.cuda.synchronize()
-    want, want_lse = ref.attention_ref_lse(*args, window=inp["window"], softcap=softcap)
+    want, want_lse = ref.attention_ref_lse(*args, window=inp["window"], softcap=softcap,
+                                           causal=causal)
     err = check(name, out, want, dtype)
     check(name + " lse", lse, want_lse, dtype)
     tiles = ""
@@ -509,7 +548,8 @@ def decode_split_cases(r) -> None:
         print(f"    ({kattn.paged_decode_attention.splits} splits)")
 
 
-def flash_inputs(r, dtype, *, b, s, h, kv, hd, window=None, softcap=None) -> dict:
+def flash_inputs(r, dtype, *, b, s, h, kv, hd, window=None, softcap=None,
+                 causal=True) -> dict:
     """One flash backward call: q, k, v, dout and the card forward's out and
     lse, the pairing the training path uses."""
     dev = "cuda"
@@ -519,14 +559,15 @@ def flash_inputs(r, dtype, *, b, s, h, kv, hd, window=None, softcap=None) -> dic
     dout = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     out, lse = kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos),
-                                         window=window, softcap=softcap)
+                                         window=window, softcap=softcap, causal=causal)
     return dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse,
-                delta=ref.flash_delta(out, dout), window=window, softcap=softcap)
+                delta=ref.flash_delta(out, dout), window=window, softcap=softcap,
+                causal=causal)
 
 
 def flash_case(name, inp) -> tuple[float, float]:
     dtype = inp["q"].dtype
-    kw = dict(window=inp["window"], softcap=inp["softcap"])
+    kw = dict(window=inp["window"], softcap=inp["softcap"], causal=inp["causal"])
     args = (inp["q"], inp["k"], inp["v"], inp["dout"], inp["lse"], inp["delta"])
     dq = kattn.flash_dq(*args, **kw)
     dk, dv = kattn.flash_dkv(*args, **kw)
@@ -537,7 +578,7 @@ def flash_case(name, inp) -> tuple[float, float]:
     err_dq = check(name + " dq", dq, want[0], dtype, tol=tol)
     err_dkv = max(check(name + " dk", dk, want[1], dtype, tol=tol),
                   check(name + " dv", dv, want[2], dtype, tol=tol))
-    route = kattn.attention_plan(dtype, inp["q"].shape[-1])
+    route = kattn.attention_plan(dtype, inp["q"].shape[-1], inp["causal"])
     print(f"  flash backward {name} [dq, dk/dv {route}]: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
           f"(atol {tol[0]}, rtol {tol[1]}); rms of the plain dq {rms(want[0]):.3e}, "
           f"dk {rms(want[1]):.3e}, dv {rms(want[2]):.3e}")
@@ -658,6 +699,111 @@ def tc_attention_cases(r) -> None:
                flash_inputs(r, bf, b=1, s=300, h=8, kv=4, hd=128, window=70))
     flash_case("tc n_rep 8, hd 64, S 200, softcap 20",
                flash_inputs(r, bf, b=1, s=200, h=16, kv=2, hd=64, softcap=20.0))
+
+
+# the non-causal cases: (hd, n_rep, S, softcap) at each head dim with a
+# kernel, each run without a window and with one (one-sided without
+# causality: a row sees every later key)
+NONCAUSAL_CASES = ((32, 1, 16, None), (64, 4, 150, 30.0), (80, 1, 300, None),
+                   (112, 4, 129, 20.0), (128, 4, 70, None))
+
+
+def noncausal_cases(r) -> None:
+    """The chunk forward, dq and dk/dv without causality against their plain
+    versions, float32 and bf16, at hd 32, 64, 80, 112 and 128, with and
+    without a window, n_rep 1 and 4, softcaps and ragged S; then a prefill
+    chunk with sentinel keys and padded rows.  Every launch takes the FMA
+    kernels."""
+    kernels.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for hd, n_rep, s, cap in NONCAUSAL_CASES:
+            for window in (None, s // 3):
+                kv = 4 // n_rep if n_rep < 4 else 2
+                inp = flash_inputs(r, dtype, b=2, s=s, h=kv * n_rep, kv=kv, hd=hd,
+                                   window=window, softcap=cap, causal=False)
+                name = (f"non-causal {tag} hd {hd}, n_rep {n_rep}, S {s}"
+                        + (f", window {window}" if window else "")
+                        + (f", softcap {cap}" if cap else ""))
+                pos = torch.arange(s, dtype=torch.int32, device="cuda")
+                chunk_case(name, dict(q=inp["q"], k=inp["k"], v=inp["v"], q_pos=pos,
+                                      k_pos=pos, k_valid=torch.ones_like(pos),
+                                      window=window), softcap=cap, causal=False)
+                flash_case(name, inp)
+        chunk_case(f"non-causal {tag} hd 80 prefill chunk (sentinel keys, 5 padded rows, "
+                   f"window 30)",
+                   chunk_inputs(r, dtype, b=1, c=64, prior_real=90, prior_blocks=8, blk=16,
+                                h=4, kv=2, hd=80, window=30, pad_rows=5), causal=False)
+    routes = attention_routes()
+    counts = kernels.launch_counts()
+    if any(routes[n]["tc"] for n in ROUTED_ATTENTION) or counts["flash_dq"] == 0:
+        raise AssertionError(f"non-causal cases: routes {routes}, expected FMA only")
+    print(f"  non-causal attention routes {routes} (FMA only)")
+
+
+HUBERT = get_config("hubert-xlarge")
+# hubert-xlarge's training microbatch: 2 sequences of 1024 frames (20.48 s of
+# 16 kHz audio at the 20 ms frame stride of HuBERT's convolutional encoder)
+HUBERT_SEQ, HUBERT_MICRO = 1024, 2
+
+
+def encoder_attention_records(r) -> list[dict]:
+    """The chunk forward, dq and dk/dv at hubert-xlarge's training shape (B
+    2, S 1024, 16 heads of hd 80, non-causal, bf16): against the plain
+    version, timed beside it and SDPA (``is_causal=False``: forward for the
+    chunk forward, backward for dq and dk/dv, as the causal rows), with two
+    bounds: the work at the bf16 tensor-core rate (the record's bound) and
+    at the float32 FMA rate these kernels run at."""
+    b, s, h, hd = HUBERT_MICRO, HUBERT_SEQ, HUBERT.num_heads, HUBERT.resolved_head_dim
+    inp = flash_inputs(r, torch.bfloat16, b=b, s=s, h=h, kv=h, hd=hd, causal=False)
+    q, k, v, dout, lse, delta = (inp[n] for n in ("q", "k", "v", "dout", "lse", "delta"))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    ones = torch.ones_like(pos)
+    fwd_err = chunk_case(f"hubert training shape bf16 (B {b}, S {s}, {h} heads of hd {hd}, "
+                         f"non-causal)", dict(q=q, k=k, v=v, q_pos=pos, k_pos=pos,
+                                              k_valid=ones, window=None), causal=False)
+    err_dq, err_dkv = flash_case(f"hubert training shape bf16 (B {b}, S {s}, non-causal)",
+                                 inp)
+    kw = dict(causal=False)
+    fwd = lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos, ones, **kw)  # noqa: E731
+    dq = lambda: kattn.flash_dq(q, k, v, dout, lse, delta, **kw)  # noqa: E731
+    dkv = lambda: kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)  # noqa: E731
+    times = {name: (timed_ms(fn), timed_ms(fn, spin=True))
+             for name, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv))}
+    plain_fwd = timed_ms(lambda: ref.attention_ref_lse(q, k, v, pos, pos, ones, causal=False))
+    plain_bwd = timed_ms(lambda: ref.flash_grads_ref(q, k, v, lse, delta, dout, causal=False))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = dout.transpose(1, 2)
+    sdpa_bwd = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    pairs = b * h * s * s  # every (row, key) pair over all (b, h)
+    read = nbytes(q, k, v, dout, lse, delta)
+    rows = []
+    for name, counter, flops, moved, plain, library, err, src, line in (
+            ("fwd", "chunk_attention", 4 * hd * pairs, nbytes(q, k, v, q) + b * h * s * 4,
+             plain_fwd, sdpa_fwd, fwd_err, "chunk_attention", 92),
+            ("dq", "flash_dq", 6 * hd * pairs, read + b * s * h * hd * 4, plain_bwd, sdpa_bwd,
+             err_dq, "flash_dq", 218),
+            ("dkv", "flash_dkv", 8 * hd * pairs, read + 2 * b * s * h * hd * 4, plain_bwd,
+             sdpa_bwd, err_dkv, "flash_dkv", 245)):
+        ms, dev = times[name]
+        bound_ms, by = bound(moved, flops)
+        fma_ms, _ = bound(moved, flops, PEAK_F32)
+        print(f"  {counter} at hubert's training shape (B {b}, S {s}, hd {hd}, non-causal) "
+              f"[fma]: {ms:.4f} ms ({dev:.4f} on the card alone), {flops / ms / 1e9:.1f} "
+              f"TFLOP/s; plain {plain:.4f}, SDPA {library:.4f} ({ms / library:.1f}x); bound "
+              f"{bound_ms:.4f} ms by {by} at 989 TFLOP/s ({100 * bound_ms / ms:.1f}% of it), "
+              f"{fma_ms:.4f} ms at the float32 FMA rate ({100 * fma_ms / ms:.1f}% of it)")
+        rows.append({"name": f"{counter} (non-causal, hd {hd})", "counter": counter,
+                     "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                     "replaces": f"src/repro/kernels/attention.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": library, "device_ms": dev,
+                     "fma_bound_ms": fma_ms, "dispatch": "fma", "tflops": flops / ms / 1e9})
+    del out, qt, kt, vt, inp
+    return rows
 
 
 # per-sample gradient norms: f32 and bf16 inputs, and bf16 activations with
@@ -1043,6 +1189,7 @@ def kernels_phase() -> list[dict]:
         flash_case(f"{tag} a single tile (S 16), hd 32",
                    flash_inputs(r, dtype, b=2, s=16, h=4, kv=2, hd=32))
     tc_attention_cases(r)
+    noncausal_cases(r)
     decode_split_cases(r)
     for tag, dtypes in PSGN_TYPES.items():
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
@@ -1067,7 +1214,7 @@ def kernels_phase() -> list[dict]:
         for name, x in quant_design_cases(flat).items():
             quant_case(name, x)
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
-               *psgn_kernel_records(r), quant_kernel_record()]
+               *encoder_attention_records(r), *psgn_kernel_records(r), quant_kernel_record()]
     torch.cuda.empty_cache()
     for rec in records:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
@@ -2098,6 +2245,273 @@ def cli_card_vs_cpu_phase() -> None:
             shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: hubert-xlarge, the encoder, at full width
+# ---------------------------------------------------------------------------
+
+HUBERT_STEPS, HUBERT_GRAM_LAYERS = 12, 12
+
+
+def encode_phase(cfg, params) -> dict:
+    """(a) ``prefill_step`` on 4 sequences: finite (4, S, V) logits, one
+    chunk-forward launch per layer and nothing else."""
+    n_layers = cfg.num_layers
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in train_lm.frame_batches(cfg, 0)(0, 4, HUBERT_SEQ).items()}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    (logits, cache), _ = timed_s(lambda: tf.prefill_step(cfg, params, batch))
+    counts = kernels.launch_counts()
+    if logits.shape != (4, HUBERT_SEQ, cfg.vocab_size) or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all() or cache != {}:
+        raise AssertionError(f"encoder logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"finite {bool(torch.isfinite(logits).all())}, cache {cache}")
+    want = {**{k: 0 for k in counts}, "chunk_attention": n_layers}
+    if counts != want:
+        raise AssertionError(f"encode launches {counts}, expected {want}")
+    attn_routes(counts, tc=False, what="encoding")
+    _, secs = timed_s(lambda: tf.prefill_step(cfg, params, batch))
+    peak = peak_gib(lambda: tf.prefill_step(cfg, params, batch))
+    print(f"  (a) encode 4 x {HUBERT_SEQ} frames through prefill_step: logits "
+          f"{tuple(logits.shape)} float32, finite; launches {counts} (= {n_layers} chunk "
+          f"forwards, FMA); {1e3 * secs:.1f} ms (host clock, second call), "
+          f"{4 * HUBERT_SEQ / secs:.1f} frames/s; peak device memory above the resident "
+          f"{peak:.2f} GiB")
+    del logits, batch
+    return counts
+
+
+def encoder_train_phase(cfg, params, n_matmul: int) -> dict:
+    """(b) 12 moment-tier steps through ``StepEngine.for_lm`` under DiveBatch."""
+    program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                    granule=HUBERT_MICRO, lr=TRAIN_LR, tick_every=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=HUBERT_STEPS, seq_len=HUBERT_SEQ,
+                         micro_batch=HUBERT_MICRO, attn_impl="pallas",
+                         batches=train_lm.frame_batches(cfg, 1),
+                         log=lambda line: print("    " + line))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = out["records"]
+    for rec in recs:
+        print(f"    step {rec['step']:2d}: batch {rec['batch']:2d} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms")
+    if not all(np.isfinite(rec["loss"]) for rec in recs):
+        raise AssertionError(f"non-finite loss: {[rec['loss'] for rec in recs]}")
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers = cfg.num_layers
+    want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    attn_routes(counts, tc=False, what="encoder training")
+    print(f"  (b) launches: {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+          f"microbatches); attention routes {attention_routes()}")
+    hd, h, s = cfg.resolved_head_dim, cfg.num_heads, HUBERT_SEQ
+
+    def model_flops(batch: int) -> float:
+        # 6 N per frame for the products, plus non-causal attention: 2
+        # products forward and 4 backward of 2 * hd per (row, key) pair
+        return 6 * n_matmul * batch * s + 12 * hd * h * layers * batch * s * s
+
+    steady = recs[1:]
+    secs = [rec["seconds"] for rec in steady]
+    flops = [model_flops(rec["batch"]) for rec in steady]
+    print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
+          f"{HUBERT_STEPS}; by batch: " + ", ".join(
+              f"{m}: {1e3 * statistics.median([x['seconds'] for x in steady if x['batch'] == m]):.1f}"
+              for m in sorted({x['batch'] for x in steady})))
+    print(f"  frames/s: {sum(rec['batch'] * s for rec in steady) / sum(secs):.1f} over steps "
+          f"2-{HUBERT_STEPS}")
+    print("  model FLOPs per step: " + ", ".join(
+        f"batch {m}: {model_flops(m):.4e}" for m in sorted({x['batch'] for x in steady}))
+          + f"; achieved {sum(flops) / sum(secs) / 1e12:.2f} TFLOP/s = "
+          f"{100 * sum(flops) / sum(secs) / PEAK_BF16:.2f}% of 989 TFLOP/s")
+    print(f"  peak device memory: {peak:.2f} GiB")
+    print(f"  stats: {json.dumps(out['engine'].stats.as_dict())}")
+    del out
+    return counts
+
+
+def encoder_gram_phase(cfg) -> dict:
+    """(c) the gram tier at a depth cut, 8 steps with a resize; exact launch
+    counts from ``ops.group_layers``' grouping; one microbatch in parts."""
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    engine = gram_engine(cfg, sgd(momentum=0.9), HUBERT_SEQ, HUBERT_MICRO, "cuda")
+    program = train_lm.make_program("divebatch", m0=4, m_max=8, delta=GRAM_DELTA,
+                                    granule=HUBERT_MICRO, lr=TRAIN_LR, tick_every=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=GRAM_STEPS, seq_len=HUBERT_SEQ,
+                         micro_batch=HUBERT_MICRO, engine=engine, estimator="gram",
+                         batches=train_lm.frame_batches(cfg, 2),
+                         log=lambda line: print("    " + line))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    routes = kernels.route_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = out["records"]
+    for rec in recs:
+        print(f"    step {rec['step']:2d}: batch {rec['batch']:2d} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms")
+    if not all(np.isfinite(rec["loss"]) for rec in recs):
+        raise AssertionError(f"non-finite loss: {[rec['loss'] for rec in recs]}")
+    if len({rec["batch"] for rec in recs}) < 2:
+        raise AssertionError(f"no resize: {[rec['batch'] for rec in recs]}")
+    # one microbatch in parts: the main pass, the probe pass, the psgn kernels
+    mb = {k: torch.from_numpy(v).to("cuda")
+          for k, v in train_lm.frame_batches(cfg, 3)(0, HUBERT_MICRO, HUBERT_SEQ).items()}
+    hook = lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b)  # noqa: E731
+    specs = probes.probe_specs(cfg, HUBERT_MICRO, HUBERT_SEQ, device="cuda")
+    state_params = list(params.parameters())
+    split = {}
+    for _ in range(2):  # the second round is the one kept
+        _, split["main pass"] = timed_s(lambda: torch.autograd.grad(
+            tf.loss_fn(cfg, params, mb)[0], state_params))
+        (_, acts, pgrads), split["probe pass"] = timed_s(
+            lambda: probes.probe_grads(hook, params, specs, mb))
+        _, split["psgn kernels"] = timed_s(
+            lambda: ops.persample_sq_norm_tree(acts, pgrads, scale=float(HUBERT_MICRO)))
+    # the launches one microbatch makes, from the tree's grouping: a group of
+    # two or more same-shape direct layers is one fused launch, every other
+    # layer one direct or gram launch
+    per_mb = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
+    groups = ops.group_layers(acts, pgrads)
+    for key, names in groups.items():
+        if key[0] != "solo" and len(names) >= 2:
+            per_mb["psgn_fused"] += 1
+        else:
+            for n in names:
+                x, d = acts[n], pgrads[n]
+                per_mb["psgn_" + ops.choose_method(x.shape[1], x.shape[2], d.shape[2])] += 1
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers = cfg.num_layers
+    want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro,
+            **{k: v * n_micro for k, v in per_mb.items()}, "psgn_split": 0,
+            "quantize_int8": 0}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    # bf16 activations and probe gradients at widths that are multiples of
+    # 8: every psgn launch takes the tensor cores; attention the FMA kernels
+    want_routes = {"chunk_attention": {"tc": 0, "fma": want["chunk_attention"]},
+                   "flash_dq": {"tc": 0, "fma": want["flash_dq"]},
+                   "flash_dkv": {"tc": 0, "fma": want["flash_dkv"]},
+                   "psgn_direct": {"tc": want["psgn_direct"], "split": 0, "fma": 0},
+                   "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
+                   "psgn_fused": {"tc": want["psgn_fused"], "split": 0, "fma": 0}}
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}, expected {want_routes}")
+    print(f"  (c) groups per microbatch: " + "; ".join(
+        f"{len(names)} x {tuple(acts[names[0]].shape[1:])} -> "
+        f"{tuple(pgrads[names[0]].shape[1:])}" for names in groups.values()))
+    print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers}, "
+          f"{per_mb['psgn_direct']} direct, {per_mb['psgn_gram']} gram, "
+          f"{per_mb['psgn_fused']} fused x {n_micro} microbatches); routes {routes}")
+    steady = recs[1:]
+    secs = [rec["seconds"] for rec in steady]
+    print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
+          f"{GRAM_STEPS}; by batch: " + ", ".join(
+              f"{m}: {1e3 * statistics.median([x['seconds'] for x in steady if x['batch'] == m]):.1f}"
+              for m in sorted({x['batch'] for x in steady})))
+    print(f"  frames/s: {sum(rec['batch'] * HUBERT_SEQ for rec in steady) / sum(secs):.1f}; "
+          f"peak device memory {peak:.2f} GiB")
+    print("  one gram-tier microbatch: " + ", ".join(
+        f"{k} {1e3 * v:.1f} ms" for k, v in split.items())
+        + f"; total {1e3 * sum(split.values()):.1f} ms")
+    del out, params, acts, pgrads, engine
+    return counts
+
+
+def hubert_phase() -> dict[str, dict]:
+    """Returns the launch counts of the three encoder paths."""
+    phase(f"14. hubert-xlarge, {HUBERT.num_layers} layers, d_model {HUBERT.d_model}, "
+          f"{HUBERT.num_heads} heads of hd {HUBERT.resolved_head_dim}, non-causal, bf16, "
+          f"remat, attn_impl='pallas': encode, moment-tier and gram-tier DiveBatch on "
+          f"{HUBERT_SEQ}-frame sequences")
+    cfg = HUBERT.replace(attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_matmul = sum(p.numel() for p in params.parameters() if p.dim() == 2)
+    print(f"  init: {n_params / 1e9:.3f} B parameters ({n_matmul / 1e9:.3f} B in matrix "
+          f"products) in {time.perf_counter() - t0:.2f} s")
+    paths = {"encoding": encode_phase(cfg, params),
+             "encoder training": encoder_train_phase(cfg, params, n_matmul)}
+    del params
+    torch.cuda.empty_cache()
+    phase(f"14c. the gram tier: hubert-xlarge widths at {HUBERT_GRAM_LAYERS} of "
+          f"{HUBERT.num_layers} layers, {GRAM_STEPS} steps (m0 4, m_max 8, delta "
+          f"{GRAM_DELTA}, a tick every 4 steps)")
+    paths["encoder gram-tier training"] = encoder_gram_phase(
+        cfg.replace(num_layers=HUBERT_GRAM_LAYERS))
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the encoder, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def encoder_card_vs_cpu_phase() -> None:
+    phase("15. hubert-shaped encoder, float32 (2 layers, d_model 320, 4 heads of hd 80, "
+          "d_ff 640): card (kernels) against CPU (plain versions)")
+    # hd 80, hubert's own: the reference's reduced config has hd 16, which no
+    # kernel takes
+    cfg = HUBERT.replace(num_layers=2, d_model=320, num_heads=4, num_kv_heads=4, d_ff=640,
+                         param_dtype="float32", compute_dtype="float32", attn_impl="pallas")
+    seq = 128
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = tf.build(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    batch = train_lm.frame_batches(cfg, 5)(0, 3, seq)
+    kernels.reset_launch_counts()
+    logits = {dev: tf.prefill_step(cfg, model, {k: torch.from_numpy(v).to(dev)
+                                                for k, v in batch.items()})[0].cpu()
+              for dev, model in (("cuda", card), ("cpu", cpu))}
+    attn_routes(kernels.launch_counts(), tc=False, what="encoding on the card")
+    logit_err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    if logit_err > 1e-4:
+        raise AssertionError(f"encoder logits differ by {logit_err:.3e} > 1e-4")
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                        granule=2, lr=0.05, tick_every=2)
+        kernels.reset_launch_counts()
+        out = train_lm.train(cfg, model, program, steps=6, seq_len=seq, micro_batch=2,
+                             attn_impl="pallas",
+                             batches=train_lm.frame_batches(cfg, 6),
+                             log=lambda line: None)
+        runs[dev] = (out, kernels.launch_counts())
+        if dev == "cuda":
+            attn_routes(runs[dev][1], tc=False, what="encoder training on the card")
+    (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
+    losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
+    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    if rel > 1e-4:
+        raise AssertionError(f"losses differ by {rel:.3e} relative > 1e-4: {losses}")
+    err = max((a.detach().cpu() - b.detach()).abs().max().item()
+              for a, b in zip(card.parameters(), cpu.parameters()))
+    if err > 1e-4:
+        raise AssertionError(f"parameters differ by {err:.3e} > 1e-4")
+    sched = {d: [x["batch"] for x in o["records"]] for d, (o, _) in runs.items()}
+    buckets = {d: o["engine"].stats.buckets for d, (o, _) in runs.items()}
+    if sched["cuda"] != sched["cpu"] or buckets["cuda"] != buckets["cpu"]:
+        raise AssertionError(f"batch schedules {sched} / buckets {buckets} differ")
+    if any(card_counts[k] == 0 for k in ROUTED_ATTENTION) or any(cpu_counts.values()):
+        raise AssertionError(f"launches: card {card_counts}, CPU {cpu_counts}")
+    print(f"  prefill_step logits within {logit_err:.3e} (tol 1e-4); losses within "
+          f"{rel:.3e} relative (tol 1e-4), parameters within {err:.3e} (tol 1e-4); batch "
+          f"schedule {sched['cuda']}, buckets {buckets['cuda']} on both; card launches "
+          f"{card_counts}")
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -2134,6 +2548,8 @@ def main() -> int:
     pod_resume_counts = pod_resume_phase(pod_after_3)
     resnet_resume_phase()
     cli_card_vs_cpu_phase()
+    encoder_paths = hubert_phase()
+    encoder_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -2142,11 +2558,16 @@ def main() -> int:
              "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts,
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
              "checkpoint-resume pod": pod_resume_counts}
+    # the non-causal records count the encoder's paths (phase 14), the others
+    # the rest
     for rec in records:
-        rec["launches"] = sum(c[rec["name"]] for c in paths.values())
+        counter = rec.pop("counter", rec["name"])
+        on = encoder_paths if counter != rec["name"] else paths
+        rec["launches"] = sum(c[counter] for c in on.values())
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was launched on no path")
-    print("\n  launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    print("\n  launches by path: " + "; ".join(
+        f"{k} {v}" for k, v in {**paths, **encoder_paths}.items()))
 
     print()
     print(smi)

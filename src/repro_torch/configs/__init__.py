@@ -1,7 +1,10 @@
-"""Config registry of the port: the architectures whose serving path exists.
+"""Config registry of the port: the architectures whose paths exist.
 
-Only ``yi-6b`` (pure full attention, dense SwiGLU) is ported so far.  The
-reference package's other nine archs need MoE, SSM, windowed or encoder
+Two are ported: ``yi-6b`` (pure full attention, dense SwiGLU; training and
+serving) and ``hubert-xlarge`` (the encoder: non-causal attention at head
+dim 80, an embedding frontend, layer norm, a GELU MLP; encoding through
+``transformer.prefill_step`` and training, no decode).  The reference
+package's other eight archs need MoE, SSM, windowed or embedding-decode
 paths that are still on the ROADMAP (Queue A 7), and asking for one raises.
 """
 
@@ -13,6 +16,7 @@ from repro_torch.configs.base import FLASH_THRESHOLD, ModelConfig
 
 _MODULES = {
     "yi-6b": "yi_6b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 

@@ -13,7 +13,8 @@ holds and the change of layout between them:
   * the transformer's layer ``r * period + p`` is slice ``r`` of the
     reference's pattern position ``pos{p}``, stacked over a leading repeats
     axis;
-  * the embedding table is ``embed/embedding``.
+  * the embedding table is ``embed/embedding``; an embedding-input model's
+    frontend is the dense kernel ``frontend/kernel``.
 
 The same layout carries every tree shaped like the parameters: the
 optimizer's momenta (a list in ``named_parameters`` order in the port),
@@ -255,8 +256,10 @@ def _load(model: nn.Module, tree: dict, trainable: bool) -> nn.Module:
 
 def params_from_jax(tree: dict, cfg: ModelConfig, *, trainable: bool = False
                     ) -> tf.Transformer:
-    """The port's transformer (on the CPU) holding the weights of ``tree``."""
-    model = tf.build(cfg, "cpu", _tensor(tree["embed"]["embedding"]).dtype)
+    """The port's transformer (on the CPU) holding the weights of ``tree``
+    (its dtype: the token table's, or the embedding frontend's)."""
+    first = tree["embed"]["embedding"] if "embed" in tree else tree["frontend"]["kernel"]
+    model = tf.build(cfg, "cpu", _tensor(first).dtype)
     return _load(model, tree, trainable)
 
 

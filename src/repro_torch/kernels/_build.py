@@ -39,15 +39,15 @@ SIGNATURES = {
     "chunk_attention": (
         "chunk_attention_fwd",
         # dtype, q, k, v, q_pos, k_pos, k_valid, out, lse,
-        # B, C, Sk, H, KV, hd, scale, softcap, window, stream
+        # B, C, Sk, H, KV, hd, scale, softcap, window, causal, stream
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+         _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "chunk_attention_tc": (
         "chunk_attention_tc_fwd",
-        # chunk_attention_fwd's arguments (dtype must be bfloat16)
+        # chunk_attention_fwd's arguments (dtype bfloat16, causal 1)
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+         _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "paged_decode": (
         "paged_decode_fwd",
@@ -59,28 +59,28 @@ SIGNATURES = {
     "flash_dq": (
         "flash_dq_bwd",
         # dtype, q, k, v, dout, lse, delta, dq,
-        # B, S, H, KV, hd, scale, softcap, window, stream
+        # B, S, H, KV, hd, scale, softcap, window, causal, stream
         [_I, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "flash_dq_tc": (
         "flash_dq_tc_bwd",
-        # flash_dq_bwd's arguments (dtype must be bfloat16)
+        # flash_dq_bwd's arguments (dtype bfloat16, causal 1)
         [_I, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "flash_dkv": (
         "flash_dkv_bwd",
         # dtype, q, k, v, dout, lse, delta, dk, dv,
-        # B, S, H, KV, hd, scale, softcap, window, stream
+        # B, S, H, KV, hd, scale, softcap, window, causal, stream
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "flash_dkv_tc": (
         "flash_dkv_tc_bwd",
-        # flash_dkv_bwd's arguments (dtype must be bfloat16)
+        # flash_dkv_bwd's arguments (dtype bfloat16, causal 1)
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _P],
+         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "psgn_direct": (
         "psgn_direct_fwd",

@@ -8,13 +8,14 @@ Wrappers over the hand-written CUDA kernels in ``csrc/`` (built by
   chunk_attention         q (B, C, H, hd), k/v (B, Sk, KV, hd) at explicit
                           absolute positions with a key-validity mask — the
                           chunked-prefill attention.  ``chunk_attention_fwd``
-                          also returns the (B, H, C) float32 lse.
+                          also returns the (B, H, C) float32 lse, and takes
+                          ``causal=False`` (the encoder's form).
   paged_decode_attention  q (B, 1, H, hd) against the shared pool
                           (num_blocks, block, KV, hd) through per-row block
                           tables and lengths, the gather inside the kernel,
                           split over the context by :func:`decode_plan`.
-  flash_dq, flash_dkv     the flash backward's two passes for causal
-                          self-attention: dq (B, S, H, hd), and dk, dv
+  flash_dq, flash_dkv     the flash backward's two passes for causal or
+                          non-causal self-attention: dq (B, S, H, hd), and dk, dv
                           (B, S, KV, hd) summed over each KV head's query
                           heads, all float32, from the forward's lse and
                           ``delta = rowsum(dout * out)``.
@@ -33,16 +34,18 @@ its kernel launches in a plain integer attribute (``chunk_attention.launches``,
 kernels.
 
 The chunk forward, dq and dk/dv have two routes, chosen by
-:func:`attention_plan` from the type and head dim before any launch:
+:func:`attention_plan` from the type, head dim and causality before any
+launch:
 
-  tc   bf16 at head dims 64 and 128: wgmma tensor-core kernels fed by TMA,
-       ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key tiles,
-       key tiles skipped by position), ``csrc/flash_dq_tc.cu`` (128 query
-       rows over 64-key tiles) and ``csrc/flash_dkv_tc.cu`` (64-key blocks
-       over 64-row query tiles);
-  fma  float32, and head dim 32: the float32 FMA kernels
-       ``csrc/chunk_attention.cu``, ``csrc/flash_dq.cu`` and
-       ``csrc/flash_dkv.cu``.
+  tc   causal bf16 at head dims 64 and 128: wgmma tensor-core kernels fed
+       by TMA, ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key
+       tiles, key tiles skipped by position), ``csrc/flash_dq_tc.cu`` (128
+       query rows over 64-key tiles) and ``csrc/flash_dkv_tc.cu`` (64-key
+       blocks over 64-row query tiles);
+  fma  float32, head dims 32, 80 and 112, and the non-causal form at every
+       head dim: the float32 FMA kernels ``csrc/chunk_attention.cu``,
+       ``csrc/flash_dq.cu`` and ``csrc/flash_dkv.cu`` (causality a template
+       parameter there).
 
 This is a dispatch decided up front, not a fallback: a tensor-core launch
 that fails raises.  ``chunk_attention.routes``, ``flash_dq.routes`` and
@@ -61,7 +64,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK_HEAD_DIMS = (32, 64, 128)
+#: head dims the FMA kernels are instantiated for (multiples of 16 up to 128)
+CHUNK_HEAD_DIMS = (32, 64, 80, 112, 128)
 #: head dims the tensor-core kernels are instantiated for
 TC_HEAD_DIMS = (64, 128)
 #: keys the tensor-core chunk kernel lists per block (512 tiles of 128)
@@ -92,18 +96,24 @@ def _raise_on(lib, name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def attention_plan(dtype: torch.dtype, hd: int) -> str:
+def _no_instance(name: str, hd: int) -> ValueError:
+    return ValueError(f"{name}: head dim {hd} has no kernel instance (built: "
+                      f"{CHUNK_HEAD_DIMS}; other head dims are ROADMAP.md, Queue B 2)")
+
+
+def attention_plan(dtype: torch.dtype, hd: int, causal: bool = True) -> str:
     """The route of a chunk-forward, dq or dk/dv call on the card: "tc"
-    (tensor cores) for bf16 at head dims 64 and 128, "fma" (float32 FMA
-    kernels) for float32 and for head dim 32.  float32 stays off the tensor
-    cores: TF32 would miss the 1e-4 its card tests hold.  Raises for a type
-    or head dim that has no kernel."""
+    (tensor cores) for causal bf16 at head dims 64 and 128, "fma" (float32
+    FMA kernels) for float32, for head dims 32, 80 and 112 and for the
+    non-causal form.  float32 stays off the tensor cores: TF32 would miss
+    the 1e-4 its card tests hold.  Raises for a type or head dim that has no
+    kernel."""
     if dtype not in _DTYPES:
         raise TypeError(f"attention: dtype {dtype} has no kernel (float32, bfloat16)")
     if hd not in CHUNK_HEAD_DIMS:
-        raise ValueError(f"attention: head dim {hd} has no kernel instance "
-                         f"(built: {CHUNK_HEAD_DIMS})")
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
+        raise _no_instance("attention", hd)
+    tc = causal and dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+    return "tc" if tc else "fma"
 
 
 def _cap(softcap: float | None) -> float:
@@ -117,14 +127,16 @@ def _cap(softcap: float | None) -> float:
 def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, k_pos: torch.Tensor,
                         k_valid: torch.Tensor, *, window: int | None = None,
-                        softcap: float | None = None,
+                        softcap: float | None = None, causal: bool = True,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal streaming attention at explicit positions: ``(out, lse)``.
+    """Streaming attention at explicit positions: ``(out, lse)``.
 
     q (B, C, H, hd); k, v (B, Sk, KV, hd); q_pos (C,), k_pos (Sk,) absolute
     positions; k_valid (Sk,) — False/0 for padding or garbage key rows.
-    Query rows with q_pos < 0 are padding.  Returns out (B, C, H, hd) in q's
-    type and lse (B, H, C) float32."""
+    Query rows with q_pos < 0 are padding.  ``causal=False`` drops the
+    ``q_pos >= k_pos`` mask; a window then cuts one side only (``q_pos -
+    k_pos < window``), as the reference's ``_block_bias``.  Returns out (B,
+    C, H, hd) in q's type and lse (B, H, C) float32."""
     b, c, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if k.shape != (b, sk, kv, hd) or v.shape != k.shape or h % kv:
@@ -137,14 +149,14 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
         out, lse = ref.attention_ref_lse(q, k, v, q_pos, k_pos, k_valid,
-                                         causal=True, window=window,
+                                         causal=causal, window=window,
                                          softcap=softcap)
         return out.to(q.dtype), lse
     if q.device.type != "cuda":
         raise ValueError(f"chunk_attention: no path for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("chunk_attention: q, k and v must share one dtype")
-    route = attention_plan(q.dtype, hd)
+    route = attention_plan(q.dtype, hd, causal)
     if route == "tc" and sk > TC_MAX_KEYS:
         raise ValueError(f"chunk_attention: {sk} keys, the tensor-core kernel takes "
                          f"at most {TC_MAX_KEYS}")
@@ -161,7 +173,7 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q_pos.data_ptr(), k_pos.data_ptr(), k_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, c, sk, h, kv, hd, hd ** -0.5,
-        _cap(softcap), int(window or 0),
+        _cap(softcap), int(window or 0), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, name, rc)
@@ -283,7 +295,7 @@ paged_decode_attention.splits = 0
 
 
 def _check_backward(name: str, q, k, v, dout, lse, delta) -> None:
-    """Shapes of a flash backward call: causal self-attention, so Sk == S."""
+    """Shapes of a flash backward call: self-attention, so Sk == S."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     if k.shape != (b, s, kv, hd) or v.shape != k.shape or dout.shape != q.shape \
@@ -295,15 +307,14 @@ def _check_backward(name: str, q, k, v, dout, lse, delta) -> None:
 
 
 def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap,
-                     lib_name: str | None = None):
+                     causal: bool, lib_name: str | None = None):
     """Validate a card call of ``flash_dq``/``flash_dkv`` and launch it from
     library ``lib_name`` (``name`` unless given), entry ``<lib_name>_bwd``."""
     hd = q.shape[-1]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no path for device {q.device}")
     if hd not in CHUNK_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} has no kernel instance "
-                         f"(built: {CHUNK_HEAD_DIMS})")
+        raise _no_instance(name, hd)
     if k.dtype != q.dtype or v.dtype != q.dtype or dout.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v and dout must share one dtype")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
@@ -319,25 +330,25 @@ def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, s, h, k.shape[2], hd, hd ** -0.5, _cap(softcap), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, lib_name, rc)
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
              lse: torch.Tensor, delta: torch.Tensor, *, window: int | None = None,
-             softcap: float | None = None) -> torch.Tensor:
-    """dq of causal flash attention, float32 (B, S, H, hd).
+             softcap: float | None = None, causal: bool = True) -> torch.Tensor:
+    """dq of flash attention, float32 (B, S, H, hd).
 
     q, dout (B, S, H, hd); k, v (B, S, KV, hd); ``lse`` the forward's and
     ``delta = rowsum(dout * out)``, both (B, H, S) float32."""
     _check_backward("flash_dq", q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
-                                   softcap=softcap)[0]
-    route = attention_plan(q.dtype, q.shape[-1]) if q.device.type == "cuda" else "fma"
+                                   softcap=softcap, causal=causal)[0]
+    route = attention_plan(q.dtype, q.shape[-1], causal) if q.device.type == "cuda" else "fma"
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap,
+    _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap, causal,
                      "flash_dq_tc" if route == "tc" else "flash_dq")
     flash_dq.launches += 1
     flash_dq.routes[route] += 1
@@ -350,20 +361,20 @@ flash_dq.routes = {"tc": 0, "fma": 0}
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
               lse: torch.Tensor, delta: torch.Tensor, *, window: int | None = None,
-              softcap: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of causal flash attention, float32 (B, S, KV, hd) each,
-    summed over the query heads of each KV head.  Arguments as
-    :func:`flash_dq`."""
+              softcap: float | None = None, causal: bool = True,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of flash attention, float32 (B, S, KV, hd) each, summed over
+    the query heads of each KV head.  Arguments as :func:`flash_dq`."""
     _check_backward("flash_dkv", q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         _, dk, dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
-                                        softcap=softcap)
+                                        softcap=softcap, causal=causal)
         return dk, dv
-    route = attention_plan(q.dtype, q.shape[-1]) if q.device.type == "cuda" else "fma"
+    route = attention_plan(q.dtype, q.shape[-1], causal) if q.device.type == "cuda" else "fma"
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     _backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), window, softcap,
-                     "flash_dkv_tc" if route == "tc" else "flash_dkv")
+                     causal, "flash_dkv_tc" if route == "tc" else "flash_dkv")
     flash_dkv.launches += 1
     flash_dkv.routes[route] += 1
     return dk, dv
@@ -374,14 +385,14 @@ flash_dkv.routes = {"tc": 0, "fma": 0}
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal self-attention: the chunk kernel forward at positions
+    """Self-attention, causal or not: the chunk kernel forward at positions
     ``arange(S)`` with every key valid, saving ``(q, k, v, out, lse)``; the
     recompute backward ``delta = rowsum(dout * out)`` (plain torch, as the
     reference does) then the dq and dk/dv kernels.  On the CPU both
     directions take the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap):
         s = q.shape[1]
         if k.shape[1] != s:
             raise ValueError(f"flash_attention: self-attention needs Sk == Sq, got "
@@ -389,23 +400,23 @@ class _FlashAttention(torch.autograd.Function):
         pos = torch.arange(s, dtype=torch.int32, device=q.device)
         valid = torch.ones(s, dtype=torch.int32, device=q.device)
         out, lse = chunk_attention_fwd(q, k, v, pos, pos, valid, window=window,
-                                       softcap=softcap)
+                                       softcap=softcap, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.softcap = window, softcap
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        kw = dict(window=ctx.window, softcap=ctx.softcap)
+        kw = dict(window=ctx.window, softcap=ctx.softcap, causal=ctx.causal)
         if q.device.type == "cpu":
             dq, dk, dv = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
         else:
             delta = ref.flash_delta(out, dout)
             dq = flash_dq(q, k, v, dout, lse, delta, **kw)
             dk, dv = flash_dkv(q, k, v, dout, lse, delta, **kw)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -414,10 +425,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash self-attention with the recompute backward, (B, S, H, hd) in
     q's type: scale ``hd**-0.5``, the softcap before the causal /
     sliding-window mask, as ``repro/kernels/attention.py::flash_attention``.
-    Only the causal form has kernels: ``causal=False`` raises."""
-    if not causal:
-        raise NotImplementedError(
-            "non-causal flash attention (encoder configs) is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue B 1)")
+    ``causal=False`` is the encoder's form (a window then cuts one side
+    only); it runs on the FMA kernels."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                 window, softcap)
+                                 bool(causal), window, softcap)

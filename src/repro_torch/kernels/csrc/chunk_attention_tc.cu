@@ -434,18 +434,19 @@ int launch_rows(const void* q, const void* k, const void* v, const void* q_pos,
 // q: (B, C, H, hd); k, v: (B, Sk, KV, hd), bf16, contiguous, 16-byte
 // aligned; q_pos: (C,) int32; k_pos, k_valid: (Sk,) int32 -> out: (B, C, H,
 // hd) bf16, lse: (B, H, C) float32.  dtype must be 1 (bfloat16); hd 64 or
-// 128; Sk <= 65536; softcap <= 0 means none, window <= 0 means none.  The
-// signature is chunk_attention_fwd's.  Returns the launch's cudaError_t (0 on
+// 128; Sk <= 65536; softcap <= 0 means none, window <= 0 means none; causal
+// must be 1 (the non-causal form is the FMA kernel's).  The signature is
+// chunk_attention_fwd's.  Returns the launch's cudaError_t (0 on
 // success), or repro::tc::kTensorMapError + the CUresult when a tensor map
 // cannot be made.
 extern "C" int chunk_attention_tc_fwd(int dtype, const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* k_pos,
                                       const void* k_valid, void* out, void* lse, int B, int C,
                                       int Sk, int H, int KV, int hd, float scale, float softcap,
-                                      int window, void* stream) {
+                                      int window, int causal, void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || B < 1 || B > 65535 || C < 1 || Sk < 1 || KV < 1 || H % KV != 0 ||
-      H > 65535 || (Sk + kBK - 1) / kBK > kMaxTiles)
+  if (dtype != kBFloat16 || !causal || B < 1 || B > 65535 || C < 1 || Sk < 1 || KV < 1 ||
+      H % KV != 0 || H > 65535 || (Sk + kBK - 1) / kBK > kMaxTiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128)

@@ -65,6 +65,17 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+// The attention kernels' head-dim columns over a warp: lane l owns columns
+// l + 32 i below HD, so a head dim that is not a multiple of 32 leaves the
+// last round's upper lanes idle.  Head dims are multiples of 16 (the bf16
+// rows' 16-byte staging loads need 8) up to 128.
+template <int HD>
+struct Cols {
+  static_assert(HD % 16 == 0 && HD <= 128, "head dims are multiples of 16 up to 128");
+  static constexpr int per_lane = (HD + 31) / 32;
+  __device__ static __forceinline__ bool live(int lane, int i) { return lane + 32 * i < HD; }
+};
+
 constexpr int kMaxDevices = 64;
 
 // A kernel's opt-in to more than 48 KB of dynamic shared memory, set the

@@ -4,9 +4,13 @@
 //
 // Both kernels run 128 threads (4 warps) over 32 x 32 (query x key) tiles,
 // with four float32 tiles of 32 rows x (hd + 4) in dynamic shared memory:
-// 67.6 KB at hd = 128, above the 48 KB static limit, so each kernel opts in
-// to more once per device (SmemOptIn).  The row padding of 4 floats
-// keeps the row-per-lane float4 reads free of bank conflicts.
+// 59.4 KB at hd = 112 and 67.6 KB at hd = 128, above the 48 KB static limit,
+// so each kernel opts in to more once per device (SmemOptIn).  The row
+// padding of 4 floats keeps the row-per-lane float4 reads free of bank
+// conflicts (a row is 4 or 20 words past a multiple of 32 banks).  Head
+// dims are multiples of 16 up to 128: the 16-byte staging loads of a bf16
+// row need a multiple of 8, and in the accumulation phases lane l owns
+// columns l, l+32, ... below hd (PER_LANE rounds up).
 #pragma once
 
 #include "common.cuh"
@@ -61,10 +65,13 @@ __device__ __forceinline__ void recompute(float s, float dp, float lse, float de
   if (softcap > 0.f) ds *= 1.f - capped * capped;
 }
 
-// Causal, sliding-window mask on absolute positions (= indices here).
+// The reference's _block_bias on positions = indices: in range, rel =
+// row - key >= 0 under causality, and rel < window where a window is set
+// (without causality a window cuts one side only).
+template <bool kCausal>
 __device__ __forceinline__ bool attend(int row, int key, int S, int window) {
   const int rel = row - key;
-  return row < S && key < S && rel >= 0 && (window <= 0 || rel < window);
+  return row < S && key < S && (!kCausal || rel >= 0) && (window <= 0 || rel < window);
 }
 
 }  // namespace flash_bwd

@@ -1,7 +1,7 @@
-// Flash-attention backward, dk/dv pass, for Hopper (sm_90a): causal
-// (optionally sliding-window, softcapped) self-attention with grouped KV
-// heads, recomputing p from the lse the forward kernel (chunk_attention.cu)
-// wrote.
+// Flash-attention backward, dk/dv pass, for Hopper (sm_90a): causal or
+// non-causal (optionally sliding-window, softcapped) self-attention with
+// grouped KV heads, recomputing p from the lse the forward kernel
+// (chunk_attention.cu) wrote.
 //
 // Replaces: _flash_dkv_kernel (with _recompute_dlogits) in
 // repro/kernels/attention.py, launched by _flash_backward, AND the sum over
@@ -15,23 +15,24 @@
 // dlogits.astype(q.dtype)).  dk and dv leave in float32.
 //
 // Grid: one block per (32-key tile, KV head, batch row), the first tiles
-// (seen by the most queries under causality) first.  The block stages its k
-// and v tile once and loops over the n_rep query heads of its KV head and,
-// for each, over the 32-row query tiles from the diagonal to the last row
-// the window lets see the tile: query tiles wholly below the diagonal's
-// other side see p == 0 and are skipped.  Summing the query heads inside
+// (seen by the most queries under causality; without it every tile has the
+// same work) first.  The block stages its k and v tile once and loops over
+// the n_rep query heads of its KV head and, for each, over the 32-row query
+// tiles from the diagonal (under causality; from row 0 without it) to the
+// last row the window lets see the tile (row < last key + window): query
+// tiles wholly before the diagonal see p == 0 and are skipped.  Summing the query heads inside
 // the block needs no atomics, gives one fixed summation order, and never
 // writes the reference's (B, S, H, hd) float32 per-query-head partials.
 // Each of the 4 warps owns 8 keys and keeps their dk and dv rows in
 // registers; in the score phase lane i scores query row i against them
 // (q.k and dO.v in the FMA forward kernel's fmaf order, so the logits match
 // chunk_attention.cu's bit for bit), in the accumulation phase lane l owns
-// head-dim columns l, l+32, ...
+// head-dim columns l, l+32, ... below hd.  Causality is a template parameter.
 //
-// The float32 route (and bf16 at hd 32); bf16 at hd 64 and 128 takes
-// flash_dkv_tc.cu.
+// The float32 route, bf16 at hd 32, 80 and 112, and bf16 without causality;
+// causal bf16 at hd 64 and 128 takes flash_dkv_tc.cu.
 //
-// What bounds it on the H100: FLOPs, 4 matrix products of 2*hd per causal
+// What bounds it on the H100: FLOPs, 4 matrix products of 2*hd per attended
 // (row, key) pair.  This first version runs them on the float32 FMA pipes
 // (67 TFLOP/s peak), not the tensor cores; wgmma tiles are a later step.
 
@@ -44,7 +45,7 @@ namespace {
 
 using namespace flash_bwd;
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
@@ -52,7 +53,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  float* __restrict__ dv, int S, int H, int KV, float scale, float softcap,
                  int window) {
   constexpr int LD = HD + 4;
-  constexpr int PER_LANE = HD / 32;
+  constexpr int PER_LANE = Cols<HD>::per_lane;
   extern __shared__ __align__(16) float smem[];
   float* sk = smem;
   float* sv = sk + kT * LD;
@@ -82,13 +83,14 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // rows before the tile's first key see none of it (causal); rows at or
   // past its last key + window see none of it either
   const int k_last = min(k0 + kT, S) - 1;
+  const int q_begin = kCausal ? k0 : 0;
   const int q_end = window > 0 ? min(S, k_last + window) : S;
 
   for (int hh = 0; hh < n_rep; ++hh) {
     const int h = hk * n_rep + hh;
     const size_t q_base = (size_t)b * S * q_stride + (size_t)h * HD;
     const size_t row_base = ((size_t)b * H + h) * S;
-    for (int q0 = k0; q0 < q_end; q0 += kT) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kT) {
       __syncthreads();  // the previous query tile is consumed
       stage_rows<T, HD>(sq, q + q_base, q0, S, q_stride);
       stage_rows<T, HD>(sdo, dout + q_base, q0, S, q_stride);
@@ -121,7 +123,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int c = 0; c < kPerWarp; ++c) {
         float p, ds;
         recompute(s[c], dp[c], slse[lane], sdelta[lane],
-                  attend(row, k0 + c0 + c, S, window), scale, softcap, p, ds);
+                  attend<kCausal>(row, k0 + c0 + c, S, window), scale, softcap, p, ds);
         p_t[c] = to_f<T>(from_f<T>(p));    // p in dO's type before the product
         ds_t[c] = to_f<T>(from_f<T>(ds));  // dlogits in q's type before the product
       }
@@ -130,8 +132,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         float qi[PER_LANE], oi[PER_LANE];
 #pragma unroll
         for (int x = 0; x < PER_LANE; ++x) {
-          qi[x] = sq[i * LD + lane + 32 * x];
-          oi[x] = sdo[i * LD + lane + 32 * x];
+          const bool live = Cols<HD>::live(lane, x);
+          qi[x] = live ? sq[i * LD + lane + 32 * x] : 0.f;
+          oi[x] = live ? sdo[i * LD + lane + 32 * x] : 0.f;
         }
 #pragma unroll
         for (int c = 0; c < kPerWarp; ++c) {
@@ -154,22 +157,23 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const size_t at = ((size_t)b * S + key) * k_stride + (size_t)hk * HD + lane;
 #pragma unroll
     for (int x = 0; x < PER_LANE; ++x) {
+      if (!Cols<HD>::live(lane, x)) continue;
       dk[at + 32 * x] = dk_acc[c][x] * scale;
       dv[at + 32 * x] = dv_acc[c][x];
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dk, void* dv, int B, int S, int H, int KV, float scale,
            float softcap, int window, cudaStream_t stream) {
   const size_t bytes = smem_bytes(HD);
   static SmemOptIn opt_in;
-  const int rc = opt_in.apply(flash_dkv_kernel<T, HD>, static_cast<int>(bytes));
+  const int rc = opt_in.apply(flash_dkv_kernel<T, HD, kCausal>, static_cast<int>(bytes));
   if (rc != 0) return rc;
   const dim3 grid((S + kT - 1) / kT, KV, B);
-  flash_dkv_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_dkv_kernel<T, HD, kCausal><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), S,
@@ -177,31 +181,43 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
                 int KV, float scale, float softcap, int window, cudaStream_t stream) {
-  // bf16 at hd 64 and 128 is the tensor-core kernel's (flash_dkv_tc.cu): only
-  // float32 has instances there
-  constexpr bool kWide = std::is_same<T, float>::value;
+  // causal bf16 at hd 64 and 128 is the tensor-core kernel's (flash_dkv_tc.cu):
+  // it has no instance here
+  constexpr bool kAll = std::is_same<T, float>::value || !kCausal;
+#define REPRO_DKV_LAUNCH(HD)                                                          \
+  return launch<T, HD, kCausal>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, \
+                                softcap, window, stream)
   switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
-                           window, stream);
+    case 32: REPRO_DKV_LAUNCH(32);
+    case 80: REPRO_DKV_LAUNCH(80);
+    case 112: REPRO_DKV_LAUNCH(112);
     case 64:
-      if constexpr (kWide)
-        return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
-                             window, stream);
+      if constexpr (kAll) REPRO_DKV_LAUNCH(64);
       break;
     case 128:
-      if constexpr (kWide)
-        return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap,
-                              window, stream);
+      if constexpr (kAll) REPRO_DKV_LAUNCH(128);
       break;
     default:
       break;
   }
+#undef REPRO_DKV_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
+             int S, int H, int KV, float scale, float softcap, int window,
+             cudaStream_t stream) {
+  if (causal)
+    return dispatch_hd<T, true>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                softcap, window, stream);
+  return dispatch_hd<T, false>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                               softcap, window, stream);
 }
 
 }  // namespace
@@ -209,23 +225,23 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd); lse, delta: (B, H, S)
 // float32 -> dk, dv: (B, S, KV, hd) float32, summed over each KV head's
-// H / KV query heads.  dtype: 0 float32 (hd 32, 64 or 128), 1 bfloat16
-// (hd 32: bf16 at 64 and 128 is the tensor-core kernel's); softcap <= 0
-// means none, window <= 0 means none.  Returns the launch's cudaError_t (0
-// on success).
+// H / KV query heads.  dtype: 0 float32, 1 bfloat16; hd 32, 64, 80, 112 or
+// 128 (causal bf16 at 64 and 128 is the tensor-core kernel's); softcap <= 0
+// means none, window <= 0 means none; causal 0 or 1.  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int flash_dkv_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta, void* dk,
                              void* dv, int B, int S, int H, int KV, int hd, float scale,
-                             float softcap, int window, void* stream) {
+                             float softcap, int window, int causal, void* stream) {
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::dispatch_hd<float>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV,
-                                     scale, softcap, window, s);
+    return repro::dispatch<float>(causal, hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV,
+                                  scale, softcap, window, s);
   if (dtype == repro::kBFloat16)
-    return repro::dispatch_hd<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                                             KV, scale, softcap, window, s);
+    return repro::dispatch<__nv_bfloat16>(causal, hd, q, k, v, dout, lse, delta, dk, dv, B,
+                                          S, H, KV, scale, softcap, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

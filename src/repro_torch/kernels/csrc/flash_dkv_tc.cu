@@ -309,16 +309,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // aligned; lse, delta: (B, H, S) float32 -> dk, dv: (B, S, KV, hd) float32,
 // summed over each KV head's H / KV query heads.  dtype must be 1
 // (bfloat16); hd 64 or 128; softcap <= 0 means none, window <= 0 means
-// none.  The signature is flash_dkv_bwd's.  Returns the launch's cudaError_t
+// none; causal must be 1 (the non-causal form is the FMA kernel's).  The
+// signature is flash_dkv_bwd's.  Returns the launch's cudaError_t
 // (0 on success), or repro::tc::kTensorMapError + the CUresult when a tensor
 // map cannot be made.
 extern "C" int flash_dkv_tc_bwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta, void* dk,
                                 void* dv, int B, int S, int H, int KV, int hd, float scale,
-                                float softcap, int window, void* stream) {
+                                float softcap, int window, int causal, void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || B < 1 || B > 65535 || S < 1 || KV < 1 || KV > 65535 ||
-      H % KV != 0 || (S + kBK - 1) / kBK > 65535)
+  if (dtype != kBFloat16 || !causal || B < 1 || B > 65535 || S < 1 || KV < 1 ||
+      KV > 65535 || H % KV != 0 || (S + kBK - 1) / kBK > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128)

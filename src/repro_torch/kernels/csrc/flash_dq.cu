@@ -1,6 +1,6 @@
-// Flash-attention backward, dq pass, for Hopper (sm_90a): causal (optionally
-// sliding-window, softcapped) self-attention, recomputing p from the lse the
-// forward kernel (chunk_attention.cu) wrote.
+// Flash-attention backward, dq pass, for Hopper (sm_90a): causal or
+// non-causal (optionally sliding-window, softcapped) self-attention,
+// recomputing p from the lse the forward kernel (chunk_attention.cu) wrote.
 //
 // Replaces: _flash_dq_kernel (with _recompute_dlogits) in
 // repro/kernels/attention.py, launched by _flash_backward.
@@ -12,21 +12,27 @@
 // dlogits.astype(k.dtype).  dq leaves in float32.
 //
 // Grid: one block per (32-row query tile, query head, batch row), the latest
-// tiles (the most keys under causality) first.  The TPU's sequential KV grid
-// axis becomes a loop over 32-key tiles of KV head h / n_rep, from the first
-// tile the window reaches to the diagonal: key tiles wholly above the
-// diagonal have p == 0 for every row, so skipping them leaves dq unchanged
-// and halves the work.  Each of the 4 warps owns 8 query rows; in the score
-// phase lane j scores key j against them (q.k and dO.v, each in the FMA
-// forward kernel's fmaf order, so the logits match chunk_attention.cu's bit
-// for bit; a bf16 forward at hd 64 or 128 runs chunk_attention_tc.cu, whose
-// tensor-core sums differ from these in rounding only), in the accumulation
-// phase lane l owns head-dim columns l, l+32, ...
+// tiles (the most keys under causality; without it every tile has the same
+// work) first.  The TPU's sequential KV grid axis becomes a loop over 32-key
+// tiles of KV head h / n_rep, from the first tile the window reaches (row -
+// key < window for the tile's first row) to the diagonal under causality, to
+// S without it: key tiles wholly above the diagonal have p == 0 for every
+// row, so skipping them leaves dq unchanged and halves the causal work.
+// Each of the 4 warps owns 8 query rows; in the score phase lane j scores
+// key j against them (q.k and dO.v, each in the FMA forward kernel's fmaf
+// order, so the logits match chunk_attention.cu's bit for bit; a causal bf16
+// forward at hd 64 or 128 runs chunk_attention_tc.cu, whose tensor-core sums
+// differ from these in rounding only), in the accumulation
+// phase lane l owns head-dim columns l, l+32, ... below hd.  Causality is a
+// template parameter.
 //
-// What bounds it on the H100: FLOPs, 3 matrix products of 2*hd per causal
-// (row, key) pair, here on the float32 FMA pipes (67 TFLOP/s peak).  bf16
-// inputs at head dims 64 and 128 take flash_dq_tc.cu, on the tensor cores;
-// float32 stays here, since TF32 would miss the 1e-4 its card tests hold.
+// What bounds it on the H100: FLOPs, 3 matrix products of 2*hd per attended
+// (row, key) pair, here on the float32 FMA pipes (67 TFLOP/s peak).  Causal
+// bf16 inputs at head dims 64 and 128 take flash_dq_tc.cu, on the tensor
+// cores; float32 stays here, since TF32 would miss the 1e-4 its card tests
+// hold, and so do the non-causal form and hd 32, 80 and 112.
+
+#include <type_traits>
 
 #include "flash_bwd.cuh"
 
@@ -35,14 +41,14 @@ namespace {
 
 using namespace flash_bwd;
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq, int S, int H,
                 int KV, float scale, float softcap, int window) {
   constexpr int LD = HD + 4;
-  constexpr int PER_LANE = HD / 32;
+  constexpr int PER_LANE = Cols<HD>::per_lane;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;
   float* sdo = sq + kT * LD;
@@ -76,7 +82,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const bool warp_live = q0 + r0 < S;
   // keys past the block's last row are masked for all its rows (causal);
   // keys before q0 - window + 1 are out of every row's window
-  const int k_end = min(q0 + kT, S);
+  const int k_end = kCausal ? min(q0 + kT, S) : S;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / kT * kT : 0;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kT) {
@@ -106,15 +112,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
     for (int r = 0; r < kPerWarp; ++r) {
       float p, ds;
-      recompute(s[r], dp[r], lse_r[r], delta_r[r], attend(q0 + r0 + r, key, S, window),
-                scale, softcap, p, ds);
+      recompute(s[r], dp[r], lse_r[r], delta_r[r],
+                attend<kCausal>(q0 + r0 + r, key, S, window), scale, softcap, p, ds);
       ds_t[r] = to_f<T>(from_f<T>(ds));  // dlogits in k's type before the product
     }
 #pragma unroll 4
     for (int j = 0; j < kT; ++j) {
       float kj[PER_LANE];
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) kj[i] = sk[j * LD + lane + 32 * i];
+      for (int i = 0; i < PER_LANE; ++i)
+        kj[i] = Cols<HD>::live(lane, i) ? sk[j * LD + lane + 32 * i] : 0.f;
 #pragma unroll
       for (int r = 0; r < kPerWarp; ++r) {
         const float dsj = __shfl_sync(0xffffffffu, ds_t[r], j);
@@ -130,20 +137,22 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     if (row >= S) continue;
 #pragma unroll
     for (int i = 0; i < PER_LANE; ++i)
-      dq[((size_t)b * S + row) * q_stride + (size_t)h * HD + lane + 32 * i] = acc[r][i] * scale;
+      if (Cols<HD>::live(lane, i))
+        dq[((size_t)b * S + row) * q_stride + (size_t)h * HD + lane + 32 * i] =
+            acc[r][i] * scale;
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int B, int S, int H, int KV, float scale,
            float softcap, int window, cudaStream_t stream) {
   const size_t bytes = smem_bytes(HD);
   static SmemOptIn opt_in;
-  const int rc = opt_in.apply(flash_dq_kernel<T, HD>, static_cast<int>(bytes));
+  const int rc = opt_in.apply(flash_dq_kernel<T, HD, kCausal>, static_cast<int>(bytes));
   if (rc != 0) return rc;
   const dim3 grid((S + kT - 1) / kT, H, B);
-  flash_dq_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_dq_kernel<T, HD, kCausal><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq), S, H, KV, scale, softcap,
@@ -151,45 +160,65 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, int B, int S, int H, int KV,
                 float scale, float softcap, int window, cudaStream_t stream) {
+  // causal bf16 at hd 64 and 128 is the tensor-core kernel's (flash_dq_tc.cu):
+  // it has no instance here
+  constexpr bool kAll = std::is_same<T, float>::value || !kCausal;
+#define REPRO_DQ_LAUNCH(HD)                                                                 \
+  return launch<T, HD, kCausal>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, \
+                                window, stream)
   switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
-                           window, stream);
+    case 32: REPRO_DQ_LAUNCH(32);
+    case 80: REPRO_DQ_LAUNCH(80);
+    case 112: REPRO_DQ_LAUNCH(112);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
-                           window, stream);
+      if constexpr (kAll) REPRO_DQ_LAUNCH(64);
+      break;
     case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
-                            window, stream);
+      if constexpr (kAll) REPRO_DQ_LAUNCH(128);
+      break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+#undef REPRO_DQ_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta, void* dq, int B, int S,
+             int H, int KV, float scale, float softcap, int window, cudaStream_t stream) {
+  if (causal)
+    return dispatch_hd<T, true>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale,
+                                softcap, window, stream);
+  return dispatch_hd<T, false>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale,
+                               softcap, window, stream);
 }
 
 }  // namespace
 }  // namespace repro
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd); lse, delta: (B, H, S)
-// float32 -> dq: (B, S, H, hd) float32.  dtype: 0 float32, 1 bfloat16; hd in
-// {32, 64, 128}; softcap <= 0 means none, window <= 0 means none.  Returns
-// the launch's cudaError_t (0 on success).
+// float32 -> dq: (B, S, H, hd) float32.  dtype: 0 float32, 1 bfloat16; hd
+// 32, 64, 80, 112 or 128 (causal bf16 at 64 and 128 is the tensor-core
+// kernel's); softcap <= 0 means none, window <= 0 means none; causal 0 or 1.
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_dq_bwd(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta, void* dq,
                             int B, int S, int H, int KV, int hd, float scale, float softcap,
-                            int window, void* stream) {
+                            int window, int causal, void* stream) {
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::dispatch_hd<float>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale,
-                                     softcap, window, s);
+    return repro::dispatch<float>(causal, hd, q, k, v, dout, lse, delta, dq, B, S, H, KV,
+                                  scale, softcap, window, s);
   if (dtype == repro::kBFloat16)
-    return repro::dispatch_hd<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV,
-                                             scale, softcap, window, s);
+    return repro::dispatch<__nv_bfloat16>(causal, hd, q, k, v, dout, lse, delta, dq, B, S, H,
+                                          KV, scale, softcap, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -119,9 +119,14 @@ def attention_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense masked attention at explicit positions.
 
-    Returns ``(out (B, Sq, H, hd) float32, lse (B, H, Sq) float32)``, where
-    ``lse = max + log(max(sum, 1e-30))`` of the masked logits, the row
-    statistic the streaming kernel writes beside its output."""
+    The mask is the reference kernel's ``_block_bias``: a valid key, a valid
+    query row (``q_pos >= 0``; a padded row attends nothing and comes out as
+    the mean of v, whatever the form), ``rel >= 0`` under causality and ``rel
+    < window`` where a window is set.  (``repro/kernels/ref.py`` leaves
+    padded rows live, which differs only without causality.)  Returns
+    ``(out (B, Sq, H, hd) float32, lse (B, H, Sq) float32)``, where ``lse =
+    max + log(max(sum, 1e-30))`` of the masked logits, the row statistic the
+    streaming kernel writes beside its output."""
     hd = q.shape[-1]
     n_rep = q.shape[2] // k.shape[2]
     kr = _repeat(k.float(), n_rep)
@@ -130,7 +135,7 @@ def attention_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None:
         logits = _tanh(logits / softcap) * softcap
     rel = q_pos[:, None].long() - k_pos[None, :].long()
-    ok = k_valid.bool()[None, :].expand(rel.shape)
+    ok = k_valid.bool()[None, :] & (q_pos[:, None] >= 0)
     if causal:
         ok = ok & (rel >= 0)
     if window is not None:
@@ -155,10 +160,11 @@ def attention_ref(q, k, v, q_pos, k_pos, k_valid, *, causal: bool = True,
 def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor, *,
                     window: int | None = None, softcap: float | None = None,
+                    causal: bool = True,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash-attention backward from the forward's ``lse`` and
-    ``delta = rowsum(dout * out)`` (both (B, H, S) float32): causal
-    self-attention, positions ``arange(S)``.
+    ``delta = rowsum(dout * out)`` (both (B, H, S) float32): self-attention,
+    causal or not, positions ``arange(S)``.
 
     Follows ``_recompute_dlogits`` and ``_flash_backward`` of
     ``repro/kernels/attention.py``, casts included: dots in float32 from the
@@ -181,7 +187,7 @@ def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = raw
     pos = torch.arange(s, device=q.device)
     rel = pos[:, None] - pos[None, :]
-    ok = rel >= 0
+    ok = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
     if window is not None:
         ok = ok & (rel < window)
     p = torch.where(ok, torch.exp(logits - lse[..., None]), torch.zeros_like(logits))
@@ -206,12 +212,12 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                        window: int | None = None, softcap: float | None = None,
+                       causal: bool = True,
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """float32 ``(dq, dk, dv)`` of causal flash attention from its saved
-    ``(q, k, v, out, lse)`` and the output gradient (see
-    :func:`flash_grads_ref`)."""
+    """float32 ``(dq, dk, dv)`` of flash attention from its saved ``(q, k,
+    v, out, lse)`` and the output gradient (see :func:`flash_grads_ref`)."""
     return flash_grads_ref(q, k, v, lse, flash_delta(out, dout), dout,
-                           window=window, softcap=softcap)
+                           window=window, softcap=softcap, causal=causal)
 
 
 def paged_decode_ref(q: torch.Tensor, pool_k: torch.Tensor,

@@ -13,12 +13,20 @@ Attention runs on the kernel lane (``--attn-impl pallas``, the default).
   python -m repro_torch.launch.train_lm --device cpu --steps 6 --seq-len 32
   python -m repro_torch.launch.train_lm --full-width 8 --seq-len 2048 \\
       --micro-batch 2 --m0 4 --m-max 16 --epoch-steps 4 --steps 12
+  python -m repro_torch.launch.train_lm --arch hubert-xlarge --full-width 48 \\
+      --seq-len 1024 --micro-batch 2 --m0 4 --m-max 4 --lr 0.02 --steps 3 \\
+      --profile /tmp/hubert.json
 
 The default model is the ~20M-parameter ``lm-20m`` (float32);
 ``--full-width N`` trains Yi-6B's widths (d_model 4096, 32/4 heads, d_ff
-11008, vocab 64000) at N of its 32 layers, bf16 with per-layer remat.
-Weights are random, from ``--seed``.  The device defaults to ``cuda`` and
-raises without a Hopper card.  ``--ckpt-dir`` saves ``{"state": state}``
+11008, vocab 64000) at N of its 32 layers, bf16 with per-layer remat, or
+with ``--arch hubert-xlarge`` the encoder's (d_model 1280, 16 heads of hd
+80, non-causal, d_ff 5120, vocab 504) at N of its 48 layers, on frame
+batches from :func:`frame_batches`.  Weights are random, from ``--seed``.
+``--profile PATH`` runs the first step unprofiled (warm-up), then the rest
+under ``torch.profiler``: a Chrome trace to PATH (write it outside the
+repository), the ops by device time, and the device's busy and idle
+share.  The device defaults to ``cuda`` and raises without a Hopper card.  ``--ckpt-dir`` saves ``{"state": state}``
 with ``extra={"program": ...}`` at every tick, as the reference example
 does, in the reference's format and paths (the layers stacked into
 ``pos{p}``, kernels ``(d_in, d_out)``); ``resume`` restores such a
@@ -29,7 +37,9 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, interop, resolve_device
@@ -50,17 +60,31 @@ from repro_torch.train import StepEngine, TrainState, init_state
 from repro_torch.utils import pytree as ptu
 
 
-def model_config(full_width: int | None = None) -> ModelConfig:
-    """``lm-20m`` (the reference example's default), or Yi-6B's widths at
-    ``full_width`` layers."""
+def model_config(full_width: int | None = None, arch: str = "yi-6b") -> ModelConfig:
+    """``lm-20m`` (the reference example's default), or ``arch``'s widths
+    (Yi-6B's unless named) at ``full_width`` layers."""
     if full_width:
-        return get_config("yi-6b").replace(num_layers=int(full_width))
+        return get_config(arch).replace(num_layers=int(full_width))
     return ModelConfig(
         name="lm-20m", family="dense", num_layers=6, d_model=384,
         num_heads=6, num_kv_heads=2, d_ff=1024, vocab_size=8_000,
         param_dtype="float32", compute_dtype="float32", xent_chunk=128,
         remat=False,
     )
+
+
+def frame_batches(cfg: ModelConfig, seed: int = 0) -> Callable[[int, int, int], dict]:
+    """The batch source of an embedding-input config (hubert-xlarge's frames):
+    ``(step, batch, seq) -> {"embeddings", "targets"}``, embeddings N(0, 1)
+    float32 (batch, seq, d_model) and targets uniform in ``[0, vocab)``
+    int32, from ``numpy.random.default_rng((seed, step))``."""
+
+    def batch(step: int, m: int, s: int) -> dict:
+        r = np.random.default_rng((seed, step))
+        return {"embeddings": r.standard_normal((m, s, cfg.d_model), dtype=np.float32),
+                "targets": r.integers(0, cfg.vocab_size, size=(m, s)).astype(np.int32)}
+
+    return batch
 
 
 def make_program(method: str, *, m0: int, m_max: int, delta: float, granule: int,
@@ -96,8 +120,14 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
           steps: int, seq_len: int, micro_batch: int, attn_impl: str = "pallas",
           data_seed: int = 0, log=print, engine: StepEngine | None = None,
           estimator: str = "moment", ckpt: CheckpointManager | None = None,
-          state: TrainState | None = None, start_step: int = 0) -> dict:
+          state: TrainState | None = None, start_step: int = 0,
+          batches: Callable[[int, int, int], dict] | None = None) -> dict:
     """Train ``params`` in place up to optimizer step ``steps``.
+
+    ``batches(step, batch, seq_len)`` gives step ``step``'s global batch as
+    a dict of arrays (numpy or tensors; ``{"tokens", "targets"}``, or
+    ``{"embeddings", "targets"}`` for an embedding-input config); it
+    defaults to ``TokenStream(cfg.vocab_size, seed=data_seed).batch``.
 
     Each step's loss is read back (so a step's wall time covers its device
     work); at every tick the signals are read with ``estimator``, the
@@ -116,14 +146,15 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
     opt = sgd(momentum=0.9)
     if state is None:
         state = init_state(params, opt)
-    stream = TokenStream(cfg.vocab_size, seed=data_seed)
+    if batches is None:
+        batches = TokenStream(cfg.vocab_size, seed=data_seed).batch
     if engine is None:
         engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl)
     m = program.batch_size
     records = []
     for step in range(start_step, steps):
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in stream.batch(step, m, seq_len).items()}
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batches(step, m, seq_len).items()}
         t0 = time.perf_counter()
         state, metrics = engine.step(state, batch, program.lr)
         loss = float(metrics["loss"])
@@ -157,7 +188,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--method", default="divebatch", choices=["divebatch", "gns"])
     ap.add_argument("--full-width", type=int, default=None, metavar="N",
-                    help="Yi-6B widths at N layers (bf16, remat)")
+                    help="--arch's widths at N layers (bf16, remat)")
+    ap.add_argument("--arch", default="yi-6b", choices=["yi-6b", "hubert-xlarge"],
+                    help="the architecture --full-width trains")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--micro-batch", type=int, default=4)
     ap.add_argument("--m0", type=int, default=8, help="initial global batch (sequences)")
@@ -170,9 +203,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--attn-impl", default="pallas", choices=["pallas", "dense"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="profile the steps after the first with torch.profiler: a "
+                         "Chrome trace to PATH, the ops by device time, the busy share")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = model_config(args.full_width)
+    cfg = model_config(args.full_width, args.arch)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     n_params = ptu.tree_count(params)
     print(f"model: {cfg.name} x {cfg.num_layers} layers, {n_params / 1e6:.1f}M params "
@@ -180,9 +216,34 @@ def main(argv: list[str] | None = None) -> dict:
     program = make_program(args.method, m0=args.m0, m_max=args.m_max, delta=args.delta,
                            granule=args.micro_batch, lr=args.lr,
                            tick_every=args.epoch_steps)
-    return train(cfg, params, program, steps=args.steps, seq_len=args.seq_len,
-                 micro_batch=args.micro_batch, attn_impl=args.attn_impl,
-                 ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None)
+    kw = dict(seq_len=args.seq_len, micro_batch=args.micro_batch, attn_impl=args.attn_impl,
+              data_seed=args.seed,
+              batches=frame_batches(cfg, args.seed) if cfg.input_mode == "embeddings" else None,
+              ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None)
+    if not args.profile:
+        return train(cfg, params, program, steps=args.steps, **kw)
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = dev.type == "cuda"
+    warm = train(cfg, params, program, steps=1, **kw)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = train(cfg, params, program, steps=args.steps, state=warm["state"],
+                    start_step=1, engine=warm["engine"], **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(args.profile)
+    key = "self_device_time_total" if on_card else "self_cpu_time_total"
+    print(prof.key_averages().table(sort_by=key, row_limit=25))
+    if on_card:
+        # device kernels only: an op's self device time repeats its kernels'
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        print(f"profile: steps 2-{args.steps}: device busy {busy:.4f} s of {wall:.4f} s "
+              f"wall (idle share {1 - busy / wall:.3f}, profiler on)")
+    return out
 
 
 if __name__ == "__main__":

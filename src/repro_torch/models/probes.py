@@ -10,8 +10,9 @@ squared norm of each dense weight is
                                               never formed)
 
 Coverage: attention q/k/v/o and the dense FFN weights (the matrix products
-that dominate the parameter count).  Embeddings, norms and the LM head are
-excluded; ``coverage(cfg)`` reports the covered fraction.  MoE and 'mamba'
+that dominate the parameter count).  Embeddings (or the embedding frontend),
+norms and the LM head are excluded, as in the reference; ``coverage(cfg)``
+reports the covered fraction.  MoE and 'mamba'
 positions raise ``NotImplementedError``, as the port's transformer does.
 
 The probe forward runs the plain dense attention lane
@@ -33,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import apply_rope, dense, embed
+from repro_torch.models.layers import apply_rope, dense
 
 
 def _dense_probe_names(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -104,7 +105,7 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
             return dense(x, lin.weight, lin.bias, probe=probes[name])
         return dense(x, lin.weight, lin.bias)
 
-    x = embed(params.embed.weight, batch["tokens"].long()).to(getattr(torch, cfg.compute_dtype))
+    x = tf._embed_input(cfg, params, batch)  # the frontend is not probed
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     hd = cfg.resolved_head_dim
@@ -168,10 +169,11 @@ def persample_sq_norms_gram(cfg: ModelConfig, params: tf.Transformer,
     The sample is a SEQUENCE; its loss is that sequence's mean token CE.
     The loss is the batch mean, so the probe gradients are scaled by B, in
     float32 (the reference multiplies by an ``np.float32``, which promotes).
-    Each layer goes through ``ops.persample_sq_norm`` on its own."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape[0], tokens.shape[1]
-    probes = probe_specs(cfg, b, s, device=tokens.device)
+    Each layer goes through ``ops.persample_sq_norm`` on its own.  ``batch``
+    holds "tokens" or, for an embedding-input config, "embeddings"."""
+    inputs = batch["tokens"] if "tokens" in batch else batch["embeddings"]
+    b, s = inputs.shape[0], inputs.shape[1]
+    probes = probe_specs(cfg, b, s, device=inputs.device)
     _, acts, pgrads = probe_grads(
         lambda p, pr, mb: loss_with_probes(cfg, p, pr, mb), params, probes, batch)
     total = None

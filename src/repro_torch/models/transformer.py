@@ -1,6 +1,6 @@
-"""The decoder stack: parameters, the training forward with its chunked
-cross-entropy, and serving (the paged KV pool, paged decode, chunked
-prefill).
+"""The decoder/encoder stack: parameters, the training forward with its
+chunked cross-entropy, the encoder's forward, and serving (the paged KV
+pool, paged decode, chunked prefill).
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks each
 pattern position's parameters over a repeats axis and scans; here the model
@@ -29,10 +29,18 @@ Serving attention always goes through ``kernels/attention.py``: the CUDA
 kernels for tensors on the card, their plain versions for tensors on the
 CPU.
 
+Inputs: ``cfg.input_mode == "tokens"`` reads ``batch["tokens"]`` (B, S)
+through the ``embed`` table; ``"embeddings"`` (the audio and vision
+configs' stub frontend) reads ``batch["embeddings"]`` (B, S, d_model),
+cast to the compute type, through ``frontend``, a bias-free dense layer in
+the table's place.  An encoder (``cfg.causal == False``) runs its attention
+without the causal mask, in training and in ``prefill_step``.
+
 Entry points:
   init_params(cfg, generator, device, dtype)    the model (random weights)
   loss_fn(cfg, params, batch)                   mean CE loss, metrics
   xent_chunked(x, weight, targets, chunk, softcap)
+  prefill_step(cfg, params, batch)              the encoder's logits
   init_cache / init_pages / paged_positions     serving state
   decode_step(cfg, params, cache, tokens, pages=, tables=)
   prefill_chunk(cfg, params, row, pages, batch, offset, prior_tab, write_tab)
@@ -40,7 +48,9 @@ Entry points:
 Only attention mixers with a dense FFN are ported: training runs 'attn'
 and 'attn_local' (the sliding window goes to the attention lane), serving
 only 'attn' (the 'attn_local' ring raises there); 'mamba' state and MoE FFNs
-raise ``NotImplementedError`` (ROADMAP.md, Queue A 7).
+raise ``NotImplementedError`` (ROADMAP.md, Queue A 7), and so does
+``prefill_step`` for a causal config (the dense KV cache it fills is not
+ported).
 """
 
 from __future__ import annotations
@@ -145,17 +155,18 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Token embedding, ``num_layers`` blocks, final norm, LM head."""
+    """Token embedding (or the embedding frontend), ``num_layers`` blocks,
+    final norm, LM head."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
-        if cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                "embedding-input frontends are not ported to repro_torch yet "
-                "(ROADMAP.md, Queue A 7)"
-            )
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype)
+        if cfg.input_mode == "tokens":
+            self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype)
+        elif cfg.input_mode == "embeddings":
+            self.frontend = nn.Linear(cfg.d_model, cfg.d_model, bias=False, dtype=dtype)
+        else:
+            raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
         self.blocks = nn.ModuleList(
             Block(cfg, layer % cfg.period, dtype) for layer in range(cfg.num_layers)
         )
@@ -177,7 +188,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device: torch.device | str = "cuda",
                 dtype: torch.dtype | None = None) -> Transformer:
     """Random weights with the reference's distributions: dense kernels
-    N(0, 1/d_in), embeddings N(0, 0.02^2), norm scales 1, biases 0.
+    (the embedding frontend's too) N(0, 1/d_in), embeddings N(0, 0.02^2),
+    norm scales 1, biases 0.
 
     ``generator`` must live on ``device`` (default: a fresh one seeded 0);
     ``dtype`` defaults to ``cfg.param_dtype``.  The numbers differ from the
@@ -205,7 +217,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 def _embed_input(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Tensor:
-    return embed(params.embed.weight, batch["tokens"].long()).to(_dtype(cfg.compute_dtype))
+    """(B, S, d_model) in the compute type: the token embedding, or the
+    frontend applied to ``batch["embeddings"]`` cast to the compute type."""
+    cdt = _dtype(cfg.compute_dtype)
+    if cfg.input_mode == "tokens":
+        return embed(params.embed.weight, batch["tokens"].long()).to(cdt)
+    return dense(batch["embeddings"].to(cdt), params.frontend.weight)
 
 
 def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
@@ -237,10 +254,10 @@ def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer in order; ``(x, moe_aux)`` with the aux loss 0 (no MoE).
-    Under ``cfg.remat`` each layer is checkpointed: only its input is kept,
-    and the backward runs its forward again."""
+    Under ``cfg.remat`` each layer is checkpointed where gradients are on:
+    only its input is kept, and the backward runs its forward again."""
     for _, p, blk in _layers(cfg, params, TRAIN_MIXERS):
-        if cfg.remat:
+        if cfg.remat and torch.is_grad_enabled():
             # the forward draws no random numbers: no RNG state to replay
             x = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
                            use_reentrant=False, preserve_rng_state=False)
@@ -324,8 +341,8 @@ def xent_chunked(x: torch.Tensor, weight: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict,
             ) -> tuple[torch.Tensor, dict]:
-    """Mean CE loss of ``batch`` ({"tokens", "targets"}: (B, S) int) and
-    ``{"ce_loss", "moe_aux"}``."""
+    """Mean CE loss of ``batch`` ({"tokens" (B, S) int, or "embeddings" (B,
+    S, d_model); "targets" (B, S) int}) and ``{"ce_loss", "moe_aux"}``."""
     x = _embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_stack(cfg, params, x, positions)
@@ -333,6 +350,26 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict,
     loss = xent_chunked(x, params.lm_head.weight, batch["targets"], cfg.xent_chunk,
                         cfg.final_softcap)
     return loss, {"ce_loss": loss, "moe_aux": aux}
+
+
+@torch.no_grad()
+def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict,
+                 ) -> tuple[torch.Tensor, dict]:
+    """Encode ``batch`` (``{"tokens"}`` or ``{"embeddings"}``): an encoder
+    config (``cfg.causal == False``) returns the float32 logits at every
+    position, (B, S, V), and an empty cache, as the reference's encoder
+    branch.  A causal config raises: its branch fills the dense KV cache,
+    which is not ported (serving prefills through ``prefill_chunk``)."""
+    if cfg.causal:
+        raise NotImplementedError(
+            "prefill_step for a causal config fills the dense (non-paged) KV "
+            "cache, which is not ported to repro_torch (ROADMAP.md, Queue A 7); "
+            "serving prefills through prefill_chunk")
+    x = _embed_input(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _ = _run_stack(cfg, params, x, positions)
+    # the reference's encoder branch: no final softcap
+    return dense(params.final_norm(x), params.lm_head.weight).float(), {}
 
 
 # ---------------------------------------------------------------------------

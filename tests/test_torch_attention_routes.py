@@ -43,23 +43,31 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 ROUTED = ("chunk_attention", "flash_dq", "flash_dkv")
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
-def test_attention_plan(dtype, hd):
-    """bf16 at hd 64 and 128 takes the tensor cores; float32 (which TF32
-    would take below its 1e-4) and hd 32 the FMA kernels."""
-    want = "tc" if dtype == torch.bfloat16 and hd in (64, 128) else "fma"
-    assert tk.attention_plan(dtype, hd) == want
+@pytest.mark.parametrize("hd", [32, 64, 80, 112, 128])
+def test_attention_plan(dtype, hd, causal):
+    """Causal bf16 at hd 64 and 128 takes the tensor cores; float32 (which
+    TF32 would take below its 1e-4), hd 32, 80 and 112, and the non-causal
+    form at every head dim the FMA kernels.  The default is causal."""
+    want = "tc" if causal and dtype == torch.bfloat16 and hd in (64, 128) else "fma"
+    assert tk.attention_plan(dtype, hd, causal) == want
+    if causal:
+        assert tk.attention_plan(dtype, hd) == want
 
 
 @pytest.mark.parametrize("dtype,hd,err", [
-    (torch.bfloat16, 16, ValueError), (torch.bfloat16, 80, ValueError),
+    (torch.bfloat16, 16, ValueError), (torch.bfloat16, 96, ValueError),
     (torch.float32, 256, ValueError), (torch.float16, 64, TypeError),
     (torch.float64, 128, TypeError),
 ])
 def test_attention_plan_refuses_what_has_no_kernel(dtype, hd, err):
+    """A head dim with no instance names the built ones and Queue B 2."""
     with pytest.raises(err, match="head dim|dtype"):
         tk.attention_plan(dtype, hd)
+    if err is ValueError:
+        with pytest.raises(ValueError, match=r"\(32, 64, 80, 112, 128\).*Queue B 2"):
+            tk.attention_plan(dtype, hd, causal=False)
 
 
 def test_route_counts_cover_chunk_and_dkv():
@@ -126,7 +134,8 @@ def _c_entry(name: str, entry: str = r"\w+") -> tuple[str, list[str]]:
 def test_signatures_match_the_c_entries(name):
     """Every library's declared argtypes are its C entry's, pointer for
     pointer, int for int, float for float (ctypes would otherwise cut a
-    pointer to 32 bits or pass a float as an int)."""
+    pointer to 32 bits or pass a float as an int); the attention entries
+    take ``causal`` as an int after ``window``."""
     entry, argtypes = _build.SIGNATURES[name]
     want_entry, want = _c_entry(name)
     assert entry == want_entry

@@ -215,7 +215,7 @@ def test_launch_counters_and_refusals(cuda):
     assert kattn.chunk_attention.launches == 1
 
 
-def _flash_case(r, dev, dtype, b, s, h, kv, hd, window, softcap):
+def _flash_case(r, dev, dtype, b, s, h, kv, hd, window, softcap, causal=True):
     """Inputs of one flash backward: q, k, v, dout and the card forward's
     out and lse (the pairing the training path uses)."""
     q = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
@@ -224,7 +224,7 @@ def _flash_case(r, dev, dtype, b, s, h, kv, hd, window, softcap):
     dout = torch.from_numpy(r.standard_normal((b, s, h, hd))).to(dev, dtype)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     out, lse = kattn.chunk_attention_fwd(q, k, v, pos, pos, torch.ones_like(pos),
-                                         window=window, softcap=softcap)
+                                         window=window, softcap=softcap, causal=causal)
     return q, k, v, dout, out, lse
 
 
@@ -254,6 +254,64 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, case):
     for got, exp in zip((dq, dk, dv), want):
         assert got.dtype == torch.float32 and got.shape == exp.shape
         torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, s, h, kv, hd, window, softcap, causal
+    (2, 37, 4, 4, 80, None, None, False),     # ragged S, n_rep 1
+    (1, 300, 8, 2, 80, None, 30.0, False),    # n_rep 4 over 10 tiles, softcap
+    (1, 150, 4, 1, 112, 40, None, False),     # one-sided window across tiles
+    (2, 70, 8, 2, 112, None, 20.0, False),    # n_rep 4, softcap
+    (1, 129, 4, 4, 64, 30, None, False),      # non-causal at a tensor-core head dim
+    (1, 100, 4, 2, 80, 20, 15.0, True),       # causal hd 80, window + softcap
+    (1, 65, 4, 4, 112, None, None, True),     # causal hd 112
+])
+def test_noncausal_kernels_match_plain(cuda, dtype, case):
+    """The chunk forward, dq and dk/dv without causality (and causal at the
+    new head dims 80 and 112) against their plain versions: out and lse at
+    TOL, dq, dk and dv at FLASH_TOL; every launch on the FMA route."""
+    b, s, h, kv, hd, window, softcap, causal = case
+    r = np.random.default_rng(s * 5 + hd)
+    kernels.reset_launch_counts()
+    q, k, v, dout, out, lse = _flash_case(r, cuda, dtype, b, s, h, kv, hd, window,
+                                          softcap, causal)
+    pos = torch.arange(s, device=cuda)
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, torch.ones_like(pos),
+                                               causal=causal, window=window,
+                                               softcap=softcap)
+    _close(out, want_out, dtype)
+    _close(lse, want_lse, dtype)
+    delta = ref.flash_delta(out, dout)
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    dq = kattn.flash_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    routes = kernels.route_counts()
+    assert all(routes[n] == {"tc": 0, "fma": 1}
+               for n in ("chunk_attention", "flash_dq", "flash_dkv"))
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
+    atol, rtol = FLASH_TOL[dtype]
+    for got, exp in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and got.shape == exp.shape
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+def test_noncausal_flash_attention_autograd_on_card_matches_cpu(cuda):
+    """The autograd function without causality at hd 80 (hubert-xlarge's
+    head dim): forward and the two backward kernels against the same
+    function on the CPU, float32."""
+    r = np.random.default_rng(5)
+    arrays = [r.standard_normal(shape).astype(np.float32)
+              for shape in ((2, 53, 4, 80), (2, 53, 4, 80), (2, 53, 4, 80))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays)
+        out = kattn.flash_attention(q, k, v, False, None, None)
+        out.square().sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)] + [out.detach().cpu()]
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        _close(got, want, torch.float32)
 
 
 def test_flash_attention_autograd_on_card_matches_cpu(cuda):
@@ -459,9 +517,15 @@ def test_flash_backward_refusals(cuda):
         kattn.flash_dq(bad, bad[:, :, :2], bad[:, :, :2], bad, stat, stat)
     with pytest.raises(ValueError, match="head dim"):
         kattn.flash_dkv(bad, bad[:, :, :2], bad[:, :, :2], bad, stat, stat)
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        kattn.flash_attention(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="Queue B 2"):
+        kattn.flash_dq(bad, bad[:, :, :2], bad[:, :, :2], bad, stat, stat, causal=False)
     assert kattn.flash_dq.launches == 0 and kattn.flash_dkv.launches == 0
+    # the non-causal form, once refused here, runs on the FMA kernels
+    got = kattn.flash_attention(q, k, v, causal=False)
+    pos = torch.arange(8, device=cuda)
+    _close(got, ref.attention_ref(q, k, v, pos, pos, torch.ones_like(pos), causal=False),
+           torch.float32)
+    assert kernels.route_counts()["chunk_attention"] == {"tc": 0, "fma": 1}
 
 
 def test_engine_on_card_matches_cpu(cuda):

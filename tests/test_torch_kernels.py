@@ -292,13 +292,13 @@ FLASH_CASES = [
 ]
 
 
-def _jax_flash_vjp(q, k, v, dout, window, softcap):
+def _jax_flash_vjp(q, k, v, dout, window, softcap, causal=True):
     """The reference Pallas flash kernel (interpret mode, 16-blocks) and its
     custom_vjp backward."""
     import jax
 
     def f(q_, k_, v_):
-        return jk.flash_attention(q_, k_, v_, True, window, softcap, 16, 16, True)
+        return jk.flash_attention(q_, k_, v_, causal, window, softcap, 16, 16, True)
 
     out, vjp = jax.vjp(f, *_j(q, k, v))
     return (out, *vjp(jnp.asarray(dout)))
@@ -351,10 +351,102 @@ def test_flash_backward_wrappers_match_reference_passes(case):
         torch.testing.assert_close(got, exp, rtol=0, atol=0)
 
 
+# the encoder's form: no causal mask; a window then cuts one side only.  hd
+# 80 (hubert-xlarge) and 112 (kimi-k2), the head dims the FMA kernels take
+# beyond 32, 64 and 128
+NONCAUSAL_CASES = [
+    # b, s, h, kv, hd, window, softcap
+    (2, 37, 4, 4, 80, None, None),   # ragged S, n_rep 1
+    (1, 45, 4, 1, 112, None, 20.0),  # GQA n_rep 4, softcap
+    (1, 40, 2, 2, 80, 7, None),      # one-sided window across blocks
+    (1, 33, 4, 2, 112, 20, 15.0),    # window + softcap
+]
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_noncausal_flash_attention_and_grads_match_reference(case):
+    """``flash_attention(causal=False)`` forward and its dq, dk, dv (the
+    plain versions under autograd) against the reference Pallas kernel with
+    ``causal=False`` through ``jax.vjp`` (interpret mode), atol 1e-5 as the
+    causal cases."""
+    b, s, h, kv, hd, window, softcap = case
+    r = np.random.default_rng(s + hd)
+    q, k, v = _qkv(r, b, s, s, h, kv, hd)
+    dout = r.standard_normal(q.shape).astype(np.float32)
+    tq, tk_, tv = (t.requires_grad_(True) for t in _t(q, k, v))
+    out = tk.flash_attention(tq, tk_, tv, False, window, softcap)
+    out.backward(torch.from_numpy(dout))
+    want = _jax_flash_vjp(q, k, v, dout, window, softcap, causal=False)
+    for got, exp in zip((out.detach(), tq.grad, tk_.grad, tv.grad), want):
+        assert got.shape == exp.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES[1:3])
+def test_noncausal_backward_wrappers_match_reference_passes(case):
+    """The non-causal chunk forward, dq and dk/dv wrappers (CPU paths) against
+    the reference's ``_flash_forward`` and ``_flash_backward`` with
+    ``causal=False``: out, lse, dq, dk, dv."""
+    b, s, h, kv, hd, window, softcap = case
+    r = np.random.default_rng(7 * s)
+    q, k, v = _qkv(r, b, s, s, h, kv, hd)
+    dout = r.standard_normal(q.shape).astype(np.float32)
+    tq, tkk, tv, tdo = _t(q, k, v, dout)
+    pos = torch.arange(s)
+    kw = dict(window=window, softcap=softcap, causal=False)
+    out, lse = tk.chunk_attention_fwd(tq, tkk, tv, pos, pos, torch.ones(s, dtype=torch.bool),
+                                      **kw)
+    delta = tref.flash_delta(out, tdo)
+    dq = tk.flash_dq(tq, tkk, tv, tdo, lse, delta, **kw)
+    dk, dv = tk.flash_dkv(tq, tkk, tv, tdo, lse, delta, **kw)
+    jout, jlse = jk._flash_forward(
+        *_j(q, k, v), jnp.arange(s), jnp.arange(s), jnp.ones((s,), jnp.int32), False,
+        window, softcap, 16, 16, True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., :s], rtol=1e-5, atol=1e-5)
+    want = jk._flash_backward(*_j(q, k, v), jout, jlse, jnp.asarray(dout), False, window,
+                              softcap, 16, 16, True)
+    for got, exp in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+    # the causal mask really is off: the causal backward differs
+    causal_dq = tk.flash_dq(tq, tkk, tv, tdo, lse, delta, window=window, softcap=softcap)
+    assert not torch.allclose(causal_dq, dq)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_noncausal_chunk_forward_with_padding_matches_reference_kernel(window):
+    """A non-causal prefill chunk with sentinel prior keys and padded query
+    rows: the plain chunk forward equals the reference Pallas kernel
+    (interpret mode), whose ``_block_bias`` masks a padded row
+    (``q_pos < 0``) entirely, out and lse; its valid rows equal the JAX
+    oracle's."""
+    r = np.random.default_rng(17)
+    c, prior, off = 16, 32, 20
+    q, k, v = _qkv(r, 1, c, prior + c, 4, 2, 80)
+    q_pos = (off + np.arange(c)).astype(np.int32)
+    q_pos[-3:] = -(2 ** 30)
+    k_pos = np.concatenate([np.arange(prior), q_pos]).astype(np.int32)
+    k_valid = np.concatenate([np.arange(prior) < off, np.ones(c, bool)])
+    k_valid[-3:] = False  # the padded rows' own keys are garbage too
+    out, lse = tk.chunk_attention_fwd(*_t(q, k, v, q_pos, k_pos, k_valid), window=window,
+                                      causal=False)
+    jout, jlse = jk._flash_forward(*_j(q, k, v, q_pos, k_pos, k_valid.astype(np.int32)),
+                                   False, window, None, 16, 16, True)
+    _close(out.numpy(), jout)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., :c], rtol=2e-5)
+    want = jref.attention_ref(*_j(q, k, v, q_pos, k_pos, k_valid), causal=False,
+                              window=window)
+    _close(out.numpy()[:, :-3], np.asarray(want)[:, :-3])
+
+
 def test_flash_attention_refuses_what_it_has_no_kernel_for():
-    q, k, v = _t(*_qkv(np.random.default_rng(1), 1, 8, 8, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        tk.flash_attention(q, k, v, causal=False)
+    """``causal=False`` runs (the encoder's form, once refused) and equals the
+    reference's dense non-causal attention; what has no kernel still raises."""
+    qa, ka, va = _qkv(np.random.default_rng(1), 1, 8, 8, 2, 2, 16)
+    q, k, v = _t(qa, ka, va)
+    pos = np.arange(8)
+    want = jref.attention_ref(*_j(qa, ka, va, pos, pos, np.ones(8, bool)), causal=False)
+    _close(tk.flash_attention(q, k, v, causal=False).numpy(), want)
     with pytest.raises(ValueError, match="Sk == Sq"):
         tk.flash_attention(q, k[:, :-1], v[:, :-1])
     stat = torch.zeros(1, 2, 8)

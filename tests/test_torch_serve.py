@@ -225,7 +225,7 @@ def test_package_imports_without_jax():
         "kernels.quant", "models.small", "data.pipeline", "dist.plan", "dist.compression",
         "elastic.ladder", "elastic.reshard", "pod.topology", "pod.health", "pod.ladder",
         "pod.step", "train.loop", "utils.logging", "ckpt.checkpoint", "launch.monitor",
-        "launch.train", "models.resnet", "interop")} <= set(mods)
+        "launch.train", "models.resnet", "interop", "configs.hubert_xlarge")} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
