@@ -43,8 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      finite, and the launch counts, set to 0 just before and read just
      after, must be exactly 16 chunk-attention (forward, and again under
      remat), 8 flash-dq and 8 flash-dk/dv launches per microbatch;
-  7. training on the card against the CPU: a reduced float32 Yi-6B (hd 64)
-     with identical weights trains 6 steps with a DiveBatch program (a tick
+  7. training on the card against the CPU: a reduced float32 Yi-6B widened
+     to hd 64, then the reference's own reduced Yi-6B (hd 16), each with
+     identical weights, trains 6 steps with a DiveBatch program (a tick
      every 2 steps) on the card (kernels) and on the CPU (plain versions):
      losses within 1e-4 relative, parameters within 1e-4 absolute, the same
      batch schedule and num_micro buckets;
@@ -68,33 +69,42 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch schedule; every psgn_fused launch on the split route (x and
      delta split once each).
 
-The chunk forward, dq and dk/dv have two routes (``kattn.attention_plan``):
-causal bf16 at head dims 64 and 128 takes the tensor-core kernels
-(``chunk_attention_tc.cu``, ``flash_dq_tc.cu``, ``flash_dkv_tc.cu``);
-float32, hd 32, 80 and 112, and the non-causal form the FMA kernels.  Phase 3 holds both against the plain versions
-and prints each case's route in brackets (``[tc]``, ``[fma]``; ``[dq, dk/dv
-tc]`` for the backward), with the key tiles the tensor-core forward visited
-out of all, as its blocks counted them on the card (it skips tiles by
-position); its tensor-core cases add ragged C and S, C < 64, n_rep 1, 4 and
+The chunk forward, dq and dk/dv have two routes each, chosen per kernel by
+``kattn.attention_plan``: in bf16 the forward and dk/dv take the
+tensor-core kernels (``chunk_attention_tc.cu``, ``flash_dkv_tc.cu``) at hd
+64, 80, 112 and 128 causal or not, dq (``flash_dq_tc.cu``) causal at 64 and
+128; float32, hd 16 and 32, and every other dq the FMA kernels.  Phase 3
+holds both against the plain versions and prints each case's routes in
+brackets (``[tc]``, ``[fma]``; ``[dq fma, dk/dv tc]`` for the backward),
+with the key tiles the tensor-core forward visited out of all, as its
+blocks counted them on the card (it skips tiles by position); its
+tensor-core cases add ragged C and S, C < 64, n_rep 1, 4 and
 8, hd 64 and 128, softcap, a window across tiles, padded rows, a live row
 with no attendable key, a sentinel-only prior tail,
 shuffled keys at positions past the array bounds, 128-row blocks, the
 serving shape and the training shape; the backward's add S 1, 63, 64, 65,
 129 and 300 at hd 64 and 128 with n_rep 1, 2 and 8, a window across tiles
-and softcap 20.  Phases 4, 6 and 8 assert that every chunk, dq and dk/dv
-launch took the tensor cores, phases 5, 7 and 9 (float32) the FMA kernels,
-and so do every launch of phases 14 and 15 (non-causal).
+and softcap 20, and causal cases at hd 80 and 112.  Every phase asserts
+that each chunk, dq and dk/dv launch took the route the plan names for its
+kernel at the phase's type, head dim and causality: phases 4, 6, 8 and 12
+the tensor cores for all three, phases 5, 7, 9 and 15 (float32) the FMA
+kernels, phase 14 (bf16, non-causal) the tensor cores for the forward and
+dk/dv and the FMA kernel for dq.
 
 Phase 3 also holds the non-causal chunk forward, dq and dk/dv against their
 plain versions: float32 (1e-4) and bf16 (2e-2 forward, the backward at
-2e-3 absolute as above) at hd 32, 64, 80, 112 and 128, each without a
+2e-3 absolute as above) at hd 16, 32, 64, 80, 112 and 128, each without a
 window and with a one-sided one, n_rep 1 and 4, softcaps, ragged S, and a
-prefill chunk with sentinel keys and padded rows; every launch on the FMA
-route.  Then the three at hubert-xlarge's training shape (B 2, S 1024, 16
-heads of hd 80, non-causal, bf16), the three records ``... (non-causal, hd
-80)``: timed beside the plain version and SDPA (``is_causal=False``: the
-forward, and its backward for dq and dk/dv), with the bound at 989 TFLOP/s
-(the record's) and at the float32 FMA rate (``fma_bound_ms``).
+prefill chunk with sentinel keys and padded rows; every launch on its
+kernel's planned route.  Then the three at hubert-xlarge's training shape
+(B 2, S 1024, 16 heads of hd 80, non-causal, bf16), the three records
+``... (non-causal, hd 80)``: the forward and dk/dv on the tensor cores, dq
+on the FMA kernel, each timed beside the plain version and SDPA
+(``is_causal=False``: the forward, and its backward for dq and dk/dv), the
+tensor-core records also beside the FMA kernel at the same call, launched
+directly (``fma_ms``, ``fma_device_ms``: the kernels this PR's route
+replaced), with the bound at 989 TFLOP/s (the record's) and at the float32
+FMA rate (``fma_bound_ms``).
 
 Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
 their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
@@ -188,7 +198,10 @@ MB L2.
      (cuDNN's deterministic algorithms), 2 epochs from identical weights: one schedule, losses and Delta within
      1e-4 relative, parameters within 1e-4; then the card's checkpoint
      resumes on the CPU and the CPU's on the card, each continuing one
-     epoch to the same schedule.
+     epoch to the same schedule.  The same 2 epochs run once more on the CPU
+     with every float32 the port asks for made float64 (parameters and data
+     cast up, ``float32_as_float64``): each side's gap to that run says
+     which side carries the card-against-CPU gap (ROADMAP Queue C 1).
 
  14. hubert-xlarge (the encoder: 48 layers, d_model 1280, 16 heads of hd
      80, non-causal, an embedding frontend, layer norm, GELU MLP, vocab
@@ -197,20 +210,24 @@ MB L2.
      frames (frame embeddings N(0, 1) and uniform targets from
      ``default_rng((seed, step))``): (a) ``transformer.prefill_step`` on 4
      sequences, finite (4, 1024, 504) float32 logits and exactly 48
-     chunk-forward launches (FMA) and nothing else, ms and peak memory;
-     (b) 12 moment-tier steps through ``StepEngine.for_lm`` (sgd with
-     momentum 0.9, lr 0.02, micro batch 2) under phase 6's DiveBatch
-     program, exactly 96 chunk, 48 dq and 48 dk/dv launches per
-     microbatch, all FMA, step ms by batch, frames/s, the model-FLOP share
-     and peak memory; (c) the gram tier at 12 of the 48 layers (a depth
+     chunk-forward launches (tensor cores) and nothing else, ms and peak
+     memory, then the same frames through the plain dense attention lane
+     (``attn_impl="dense"``, no kernel), the largest logit gap within 5e-2
+     of the largest logit (``DENSE_GAP_TOL``); (b) 12 moment-tier steps
+     through ``StepEngine.for_lm`` (sgd with momentum 0.9, lr 0.02, micro
+     batch 2) under phase 6's DiveBatch program, exactly 96 chunk, 48 dq and
+     48 dk/dv launches per microbatch, the chunk forward and dk/dv on the
+     tensor cores and dq on the FMA kernel, step ms by batch, frames/s, the
+     model-FLOP share and peak memory; (c) the gram tier at 12 of the 48 layers (a depth
      cut), 8 steps under phase 8's program with a resize, the psgn
      launches exactly those of ``ops.group_layers``' grouping (all on the
      tensor cores), and one microbatch in parts;
  15. the encoder on the card against the CPU: a hubert-shaped float32
-     model (2 layers, d_model 320, 4 heads of hd 80, d_ff 640) with
-     identical weights: ``prefill_step`` logits within 1e-4, 6 DiveBatch
-     steps (a tick every 2) with losses within 1e-4 relative, parameters
-     within 1e-4 and one batch schedule and bucket list.
+     model (2 layers, d_model 320, 4 heads of hd 80, d_ff 640), then the
+     reference's own reduced hubert-xlarge (hd 16, on the FMA kernels), each
+     with identical weights: ``prefill_step`` logits within 1e-4, 6
+     DiveBatch steps (a tick every 2) with losses within 1e-4 relative,
+     parameters within 1e-4 and one batch schedule and bucket list.
 
 The launches of the non-causal records count phase 14's three paths, the
 other records the causal paths (phases 4, 6, 8, 10, 12).
@@ -224,7 +241,9 @@ queued it, the card's time alone.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
@@ -248,6 +267,7 @@ from repro_torch.adapt import AdaptationProgram, DiveBatchPolicy  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.data import TokenStream, imagelike_classification  # noqa: E402
 from repro_torch.data import sigmoid_synthetic  # noqa: E402
+from repro_torch.data.synthetic import ArrayDataset  # noqa: E402
 from repro_torch.elastic import place  # noqa: E402
 from repro_torch.kernels import _build, ops, psgn, quant, ref  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
@@ -346,7 +366,7 @@ def rms(t: torch.Tensor) -> float:
     return t.float().square().mean().sqrt().item()
 
 
-ROUTED_ATTENTION = ("chunk_attention", "flash_dq", "flash_dkv")
+ROUTED_ATTENTION = kattn.ROUTED
 
 
 def attention_routes() -> dict:
@@ -354,11 +374,16 @@ def attention_routes() -> dict:
     return {k: routes[k] for k in ROUTED_ATTENTION}
 
 
-def attn_routes(counts: dict, *, tc: bool, what: str) -> None:
+def plan_of(cfg, dtype) -> dict:
+    """``kattn.attention_plan`` at a config's head dim and causality."""
+    return kattn.attention_plan(dtype, cfg.resolved_head_dim, cfg.causal)
+
+
+def attn_routes(counts: dict, plan: dict, *, what: str) -> None:
     """Every chunk-forward, dq and dk/dv launch of the run just read took the
-    tensor cores (``tc``, bf16) or the FMA kernels (float32)."""
-    route, other = ("tc", "fma") if tc else ("fma", "tc")
-    want = {name: {route: counts[name], other: 0} for name in ROUTED_ATTENTION}
+    route ``plan`` (``kattn.attention_plan``'s) names for its kernel."""
+    want = {name: {"tc": 0, "fma": 0, plan[name]: counts[name]}
+            for name in ROUTED_ATTENTION}
     if attention_routes() != want or counts["chunk_attention"] == 0:
         raise AssertionError(f"{what}: attention routes {attention_routes()}, expected {want}")
 
@@ -393,7 +418,7 @@ def chunk_inputs(r, dtype, *, b, c, prior_real, prior_blocks, blk, h, kv, hd,
 def chunk_case(name, inp, softcap=None, causal=True):
     dtype = inp["q"].dtype
     args = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
-    route = kattn.attention_plan(dtype, inp["q"].shape[-1], causal)
+    route = kattn.attention_plan(dtype, inp["q"].shape[-1], causal)["chunk_attention"]
     if route == "tc":
         kattn.tc_key_tiles(reset=True)
     out, lse = kattn.chunk_attention_fwd(*args, window=inp["window"], softcap=softcap,
@@ -439,7 +464,7 @@ def chunk_kernel_record(r) -> dict:
     moved = nbytes(*args) + nbytes(inp["q"]) + 256 * h * 4  # + out + lse
     flops = 4 * pairs * h * hd
     bound_ms, by = bound(moved, flops)
-    dispatch = kattn.attention_plan(inp["q"].dtype, hd)
+    dispatch = kattn.attention_plan(inp["q"].dtype, hd)["chunk_attention"]
     print(f"  chunk_attention at the serving shape [{dispatch}]: {ms:.4f} ms ({device_ms:.4f} "
           f"on the card alone), {flops / ms / 1e9:.1f} TFLOP/s (library {library_ms:.4f}); "
           f"bound {bound_ms:.4f} ms by {by}, {100 * bound_ms / ms:.1f}% of it")
@@ -578,8 +603,10 @@ def flash_case(name, inp) -> tuple[float, float]:
     err_dq = check(name + " dq", dq, want[0], dtype, tol=tol)
     err_dkv = max(check(name + " dk", dk, want[1], dtype, tol=tol),
                   check(name + " dv", dv, want[2], dtype, tol=tol))
-    route = kattn.attention_plan(dtype, inp["q"].shape[-1], inp["causal"])
-    print(f"  flash backward {name} [dq, dk/dv {route}]: max abs err dq {err_dq:.3e}, dk/dv {err_dkv:.3e} "
+    plan = kattn.attention_plan(dtype, inp["q"].shape[-1], inp["causal"])
+    print(f"  flash backward {name} [dq {plan['flash_dq']}, dk/dv {plan['flash_dkv']}]: "
+          f"max abs err dq {err_dq:.3e}, "
+          f"dk/dv {err_dkv:.3e} "
           f"(atol {tol[0]}, rtol {tol[1]}); rms of the plain dq {rms(want[0]):.3e}, "
           f"dk {rms(want[1]):.3e}, dv {rms(want[2]):.3e}")
     return err_dq, err_dkv
@@ -618,34 +645,37 @@ def flash_kernel_records(r) -> list[dict]:
     # the forward: q k^T and p v, 2 hd multiply-adds per causal pair; q, k, v
     # read once and the output written once
     fwd_bound, fwd_by = bound(nbytes(q, k, v, q), 4 * hd * pairs)
+    plan = kattn.attention_plan(q.dtype, hd)
     print(f"  chunk_attention at the training shape (B {b}, S {s}, causal) "
-          f"[{kattn.attention_plan(q.dtype, hd)}]: {fwd_ms:.4f} ms ({fwd_dev:.4f} on the card "
+          f"[{plan['chunk_attention']}]: {fwd_ms:.4f} ms ({fwd_dev:.4f} on the card "
           f"alone), {4 * hd * pairs / fwd_ms / 1e9:.1f} TFLOP/s (library {sdpa_ms:.4f}: SDPA "
           f"forward); bound {fwd_bound:.4f} ms by {fwd_by}, {100 * fwd_bound / fwd_ms:.1f}% of "
           f"it; max abs err {fwd_err:.3e}")
     read = nbytes(q, k, v, dout, lse, delta)
     dq_bound, dq_by = bound(read + b * s * h * hd * 4, 3 * 2 * hd * pairs)
     dkv_bound, dkv_by = bound(read + 2 * b * s * kv * hd * 4, 4 * 2 * hd * pairs)
-    route = kattn.attention_plan(q.dtype, hd)
     for label, ms, dev, flops, bnd in (
-            (f"flash_dq [{route}]", dq_ms, dq_dev, 3 * 2 * hd * pairs, dq_bound),
-            (f"flash_dkv [{route}]", dkv_ms, dkv_dev, 4 * 2 * hd * pairs, dkv_bound)):
+            (f"flash_dq [{plan['flash_dq']}]", dq_ms, dq_dev, 3 * 2 * hd * pairs, dq_bound),
+            (f"flash_dkv [{plan['flash_dkv']}]", dkv_ms, dkv_dev, 4 * 2 * hd * pairs,
+             dkv_bound)):
         print(f"  {label} at the training shape: {ms:.4f} ms ({dev:.4f} on the card alone), "
               f"{flops / ms / 1e9:.1f} TFLOP/s (library {library_ms:.4f}: SDPA backward); "
               f"bound {bnd:.4f} ms, {100 * bnd / ms:.1f}% of it")
     del out, qt, kt, vt, inp
-    common = {"route": "cuda", "plain_ms": plain_ms, "library_ms": library_ms,
-              "dispatch": route}
-    tc = "_tc" if route == "tc" else ""
+    common = {"route": "cuda", "plain_ms": plain_ms, "library_ms": library_ms}
+    tc = {n: "_tc" if plan[n] == "tc" else "" for n in ROUTED_ATTENTION}
     return [
-        {"name": "flash_dq", "source": f"src/repro_torch/kernels/csrc/flash_dq{tc}.cu",
+        {"name": "flash_dq", "source": f"src/repro_torch/kernels/csrc/flash_dq{tc['flash_dq']}.cu",
          "replaces": "src/repro/kernels/attention.py:218", "max_abs_err": err_dq,
          "ms": dq_ms, "bound_ms": dq_bound, "bound_by": dq_by, **common,
-         "device_ms": dq_dev, "tflops": 3 * 2 * hd * pairs / dq_ms / 1e9},
-        {"name": "flash_dkv", "source": f"src/repro_torch/kernels/csrc/flash_dkv{tc}.cu",
+         "device_ms": dq_dev, "dispatch": plan["flash_dq"],
+         "tflops": 3 * 2 * hd * pairs / dq_ms / 1e9},
+        {"name": "flash_dkv",
+         "source": f"src/repro_torch/kernels/csrc/flash_dkv{tc['flash_dkv']}.cu",
          "replaces": "src/repro/kernels/attention.py:245", "max_abs_err": err_dkv,
          "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by, **common,
-         "device_ms": dkv_dev, "tflops": 4 * 2 * hd * pairs / dkv_ms / 1e9},
+         "device_ms": dkv_dev, "dispatch": plan["flash_dkv"],
+         "tflops": 4 * 2 * hd * pairs / dkv_ms / 1e9},
     ]
 
 
@@ -699,22 +729,33 @@ def tc_attention_cases(r) -> None:
                flash_inputs(r, bf, b=1, s=300, h=8, kv=4, hd=128, window=70))
     flash_case("tc n_rep 8, hd 64, S 200, softcap 20",
                flash_inputs(r, bf, b=1, s=200, h=16, kv=2, hd=64, softcap=20.0))
+    # causal at hd 80 and 112 (kimi-k2's head dim): the forward and dk/dv on
+    # the tensor cores, dq on the FMA kernel
+    flash_case("causal hd 80, n_rep 1, ragged S 300",
+               flash_inputs(r, bf, b=2, s=300, h=4, kv=4, hd=80))
+    flash_case("causal hd 112, n_rep 4, S 129, window 50, softcap 30",
+               flash_inputs(r, bf, b=1, s=129, h=8, kv=2, hd=112, window=50, softcap=30.0))
+    chunk_case("causal hd 112, n_rep 4, a prefill chunk (sentinel keys, 5 padded rows)",
+               chunk_inputs(r, bf, b=1, c=70, prior_real=90, prior_blocks=8, blk=16, h=8,
+                            kv=2, hd=112, pad_rows=5))
 
 
 # the non-causal cases: (hd, n_rep, S, softcap) at each head dim with a
 # kernel, each run without a window and with one (one-sided without
 # causality: a row sees every later key)
-NONCAUSAL_CASES = ((32, 1, 16, None), (64, 4, 150, 30.0), (80, 1, 300, None),
-                   (112, 4, 129, 20.0), (128, 4, 70, None))
+NONCAUSAL_CASES = ((16, 4, 45, 15.0), (32, 1, 16, None), (64, 4, 150, 30.0),
+                   (80, 1, 300, None), (112, 4, 129, 20.0), (128, 4, 70, None))
 
 
 def noncausal_cases(r) -> None:
     """The chunk forward, dq and dk/dv without causality against their plain
-    versions, float32 and bf16, at hd 32, 64, 80, 112 and 128, with and
+    versions, float32 and bf16, at hd 16, 32, 64, 80, 112 and 128, with and
     without a window, n_rep 1 and 4, softcaps and ragged S; then a prefill
-    chunk with sentinel keys and padded rows.  Every launch takes the FMA
-    kernels."""
+    chunk with sentinel keys and padded rows.  Every launch takes the route
+    the plan names for its kernel (in bf16 at hd 64 and above the forward
+    and dk/dv the tensor cores, dq the FMA kernel)."""
     kernels.reset_launch_counts()
+    want = {n: {"tc": 0, "fma": 0} for n in ROUTED_ATTENTION}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         for hd, n_rep, s, cap in NONCAUSAL_CASES:
@@ -730,15 +771,19 @@ def noncausal_cases(r) -> None:
                                       k_pos=pos, k_valid=torch.ones_like(pos),
                                       window=window), softcap=cap, causal=False)
                 flash_case(name, inp)
+                # two chunk forwards (the inputs' and the case's), one dq, one dk/dv
+                plan = kattn.attention_plan(dtype, hd, False)
+                for n, k in (("chunk_attention", 2), ("flash_dq", 1), ("flash_dkv", 1)):
+                    want[n][plan[n]] += k
         chunk_case(f"non-causal {tag} hd 80 prefill chunk (sentinel keys, 5 padded rows, "
                    f"window 30)",
                    chunk_inputs(r, dtype, b=1, c=64, prior_real=90, prior_blocks=8, blk=16,
                                 h=4, kv=2, hd=80, window=30, pad_rows=5), causal=False)
+        want["chunk_attention"][kattn.attention_plan(dtype, 80, False)["chunk_attention"]] += 1
     routes = attention_routes()
-    counts = kernels.launch_counts()
-    if any(routes[n]["tc"] for n in ROUTED_ATTENTION) or counts["flash_dq"] == 0:
-        raise AssertionError(f"non-causal cases: routes {routes}, expected FMA only")
-    print(f"  non-causal attention routes {routes} (FMA only)")
+    if routes != want:
+        raise AssertionError(f"non-causal cases: routes {routes}, expected {want}")
+    print(f"  non-causal attention routes {routes} (each kernel on its planned route)")
 
 
 HUBERT = get_config("hubert-xlarge")
@@ -749,11 +794,14 @@ HUBERT_SEQ, HUBERT_MICRO = 1024, 2
 
 def encoder_attention_records(r) -> list[dict]:
     """The chunk forward, dq and dk/dv at hubert-xlarge's training shape (B
-    2, S 1024, 16 heads of hd 80, non-causal, bf16): against the plain
-    version, timed beside it and SDPA (``is_causal=False``: forward for the
-    chunk forward, backward for dq and dk/dv, as the causal rows), with two
-    bounds: the work at the bf16 tensor-core rate (the record's bound) and
-    at the float32 FMA rate these kernels run at."""
+    2, S 1024, 16 heads of hd 80, non-causal, bf16), each on its planned
+    route: against the plain version, timed beside it and SDPA
+    (``is_causal=False``: forward for the chunk forward, backward for dq and
+    dk/dv, as the causal rows) and, for the tensor-core forward and dk/dv,
+    beside the FMA kernel at the same call (launched directly, counted
+    nowhere, held against the plain version too), with two bounds: the work
+    at the bf16 tensor-core rate (the record's bound) and at the float32 FMA
+    rate."""
     b, s, h, hd = HUBERT_MICRO, HUBERT_SEQ, HUBERT.num_heads, HUBERT.resolved_head_dim
     inp = flash_inputs(r, torch.bfloat16, b=b, s=s, h=h, kv=h, hd=hd, causal=False)
     q, k, v, dout, lse, delta = (inp[n] for n in ("q", "k", "v", "dout", "lse", "delta"))
@@ -765,11 +813,32 @@ def encoder_attention_records(r) -> list[dict]:
     err_dq, err_dkv = flash_case(f"hubert training shape bf16 (B {b}, S {s}, non-causal)",
                                  inp)
     kw = dict(causal=False)
+    plan = kattn.attention_plan(q.dtype, hd, False)
     fwd = lambda: kattn.chunk_attention_fwd(q, k, v, pos, pos, ones, **kw)  # noqa: E731
     dq = lambda: kattn.flash_dq(q, k, v, dout, lse, delta, **kw)  # noqa: E731
     dkv = lambda: kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)  # noqa: E731
     times = {name: (timed_ms(fn), timed_ms(fn, spin=True))
              for name, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv))}
+    # the FMA kernels at the same call, launched directly (the private
+    # launchers count no launch and take no plan)
+    fma_dk = torch.empty(k.shape, dtype=torch.float32, device="cuda")
+    fma_dv = torch.empty_like(fma_dk)
+    fma_fwd = lambda: kattn._chunk_launch(  # noqa: E731
+        "chunk_attention", q, k, v, pos, pos, ones, None, None, False)
+    fma_dkv = lambda: kattn._backward_launch(  # noqa: E731
+        "flash_dkv", q, k, v, dout, lse, delta, (fma_dk, fma_dv), None, None, False,
+        "flash_dkv")
+    fma_out, fma_lse = fma_fwd()
+    fma_dkv()
+    torch.cuda.synchronize()
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, ones, causal=False)
+    _, want_dk, want_dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, causal=False)
+    fma_err = {"fwd": max(check("FMA forward", fma_out, want_out, q.dtype),
+                          check("FMA forward lse", fma_lse, want_lse, q.dtype)),
+               "dkv": max(check("FMA dk", fma_dk, want_dk, q.dtype, tol=FLASH_TOL[q.dtype]),
+                          check("FMA dv", fma_dv, want_dv, q.dtype, tol=FLASH_TOL[q.dtype]))}
+    fma_times = {name: (timed_ms(fn), timed_ms(fn, spin=True))
+                 for name, fn in (("fwd", fma_fwd), ("dkv", fma_dkv))}
     plain_fwd = timed_ms(lambda: ref.attention_ref_lse(q, k, v, pos, pos, ones, causal=False))
     plain_bwd = timed_ms(lambda: ref.flash_grads_ref(q, k, v, lse, delta, dout, causal=False))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -789,20 +858,31 @@ def encoder_attention_records(r) -> list[dict]:
             ("dkv", "flash_dkv", 8 * hd * pairs, read + 2 * b * s * h * hd * 4, plain_bwd,
              sdpa_bwd, err_dkv, "flash_dkv", 245)):
         ms, dev = times[name]
+        route = plan[counter]
         bound_ms, by = bound(moved, flops)
-        fma_ms, _ = bound(moved, flops, PEAK_F32)
+        fma_bound, _ = bound(moved, flops, PEAK_F32)
+        rec = {"name": f"{counter} (non-causal, hd {hd})", "counter": counter,
+               "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}{'_tc' if route == 'tc' else ''}.cu",
+               "replaces": f"src/repro/kernels/attention.py:{line}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+               "bound_by": by, "library_ms": library, "device_ms": dev,
+               "fma_bound_ms": fma_bound, "dispatch": route, "tflops": flops / ms / 1e9}
+        fma = ""
+        if name in fma_times:
+            f_ms, f_dev = fma_times[name]
+            rec.update(fma_ms=f_ms, fma_device_ms=f_dev, fma_max_abs_err=fma_err[name],
+                       fma_source=f"src/repro_torch/kernels/csrc/{src}.cu")
+            fma = (f"; the FMA kernel at the same call {f_ms:.4f} ms ({f_dev:.4f} alone, "
+                   f"{flops / f_ms / 1e9:.1f} TFLOP/s, max abs err {fma_err[name]:.3e}): "
+                   f"{f_ms / ms:.1f}x the tensor cores' time")
         print(f"  {counter} at hubert's training shape (B {b}, S {s}, hd {hd}, non-causal) "
-              f"[fma]: {ms:.4f} ms ({dev:.4f} on the card alone), {flops / ms / 1e9:.1f} "
-              f"TFLOP/s; plain {plain:.4f}, SDPA {library:.4f} ({ms / library:.1f}x); bound "
+              f"[{route}]: {ms:.4f} ms ({dev:.4f} on the card alone), {flops / ms / 1e9:.1f} "
+              f"TFLOP/s; plain {plain:.4f}, SDPA {library:.4f} ({ms / library:.2f}x); bound "
               f"{bound_ms:.4f} ms by {by} at 989 TFLOP/s ({100 * bound_ms / ms:.1f}% of it), "
-              f"{fma_ms:.4f} ms at the float32 FMA rate ({100 * fma_ms / ms:.1f}% of it)")
-        rows.append({"name": f"{counter} (non-causal, hd {hd})", "counter": counter,
-                     "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-                     "replaces": f"src/repro/kernels/attention.py:{line}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                     "bound_by": by, "library_ms": library, "device_ms": dev,
-                     "fma_bound_ms": fma_ms, "dispatch": "fma", "tflops": flops / ms / 1e9})
-    del out, qt, kt, vt, inp
+              f"{fma_bound:.4f} ms at the float32 FMA rate{fma}")
+        rows.append(rec)
+    del out, qt, kt, vt, inp, fma_dk, fma_dv, fma_out, fma_lse
     return rows
 
 
@@ -1313,7 +1393,7 @@ def full_width_phase() -> dict:
             "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
     if counts != want or 0 in (want["chunk_attention"], want["paged_decode_attention"]):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
-    attn_routes(counts, tc=True, what="serving")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="serving")
     if st.shared_blocks == 0:
         raise AssertionError("the shared prefix was not adopted")
     decode_only = [s for s, c, d in steps if c == 0 and d == 1]
@@ -1378,7 +1458,7 @@ def card_vs_cpu_phase() -> None:
         raise AssertionError("card and CPU tokens differ")
     if not (launched["chunk_attention"] and launched["paged_decode_attention"]):
         raise AssertionError(f"the card run did not use the kernels: {launched}")
-    attn_routes(launched, tc=False, what="float32 serving")
+    attn_routes(launched, plan_of(cfg, torch.float32), what="float32 serving")
     print(f"  first logits max abs diff {err:.3e} (tol 1e-4); tokens identical "
           f"over {sum(len(t) for t in tc)} tokens; card launches {launched}")
 
@@ -1427,7 +1507,7 @@ def train_phase() -> dict:
             "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
-    attn_routes(counts, tc=True, what="training")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="training")
     print(f"  launches: {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
           f"microbatches); attention routes {attention_routes()}")
     hd, h = cfg.resolved_head_dim, cfg.num_heads
@@ -1466,11 +1546,19 @@ def train_phase() -> dict:
 
 def train_card_vs_cpu_phase() -> None:
     phase("7. reduced Yi-6B, float32: training on the card (kernels) against the CPU "
-          "(plain versions)")
-    # hd 64: the reduced config's hd 16 has no kernel instance
-    cfg = get_config("yi-6b", reduced=True).replace(
-        num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, d_ff=512, remat=True,
-        attn_impl="pallas")
+          "(plain versions), widened to hd 64, then the reference's reduced config (hd 16)")
+    reduced = get_config("yi-6b", reduced=True)
+    for cfg in (reduced.replace(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+                                d_ff=512, remat=True, attn_impl="pallas"),
+                reduced.replace(attn_impl="pallas")):
+        print(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}:")
+        lm_train_card_vs_cpu(cfg)
+
+
+def lm_train_card_vs_cpu(cfg) -> None:
+    """6 DiveBatch steps of ``cfg`` (float32) on the card and on the CPU from
+    identical weights: losses and parameters within 1e-4, one schedule."""
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     card = tf.build(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
@@ -1483,7 +1571,7 @@ def train_card_vs_cpu_phase() -> None:
                              attn_impl="pallas", log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
         if dev == "cuda":
-            attn_routes(runs[dev][1], tc=False, what="float32 training")
+            attn_routes(runs[dev][1], plan_of(cfg, torch.float32), what="float32 training")
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
     losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
     rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
@@ -1601,7 +1689,7 @@ def gram_train_phase() -> tuple[dict, dict]:
           f"{3 * layers} gram, 2 fused x {n_micro} microbatches)")
     # bf16 activations and probe gradients at widths that are multiples of
     # 8: every psgn launch of the tier takes the tensor cores
-    attn_routes(counts, tc=True, what="gram-tier training")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="gram-tier training")
     routes = kernels.route_counts()
     want_routes = {"chunk_attention": {"tc": want["chunk_attention"], "fma": 0},
                    "flash_dq": {"tc": want["flash_dq"], "fma": 0},
@@ -1720,7 +1808,8 @@ def gram_card_vs_cpu_phase() -> None:
                              engine=engine, estimator="gram", log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
         if dev == "cuda":
-            attn_routes(runs[dev][1], tc=False, what="float32 gram-tier training")
+            attn_routes(runs[dev][1], plan_of(cfg, torch.float32),
+                        what="float32 gram-tier training")
             fused_routes = kernels.route_counts()["psgn_fused"]
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
 
@@ -2026,7 +2115,7 @@ def lm_resume_phase() -> dict:
                        **NO_PSGN}
         if counts != want_counts:
             raise AssertionError(f"kernel launches {counts}, expected {want_counts}")
-        attn_routes(counts, tc=True, what="resumed training")
+        attn_routes(counts, plan_of(cfg, torch.bfloat16), what="resumed training")
         print(f"  resumed steps 5-8: batch schedule and losses bit-identical to the "
               f"uninterrupted run; launches {counts} (= {2 * layers}, {layers}, {layers} "
               f"x {n_micro} microbatches); peak device memory "
@@ -2191,6 +2280,54 @@ CLI_FLAGS = ["--task", "imagelike", "--batch-size", "1024", "--delta", "10", "--
              "--ckpt-every", "1"]
 
 
+@contextlib.contextmanager
+def float32_as_float64():
+    """Inside: every float32 the port asks for is float64 (``dtype=`` of the
+    tensor factories and ``vector_norm``, ``Tensor.to``, ``Tensor.float``),
+    and ``launch/train.py``'s tasks build float64 parameters and data, so a
+    CPU run computes in float64 where the port pins float32 (norm
+    statistics, accumulators, the loss, the optimizer's update).  The lr
+    stays the float32 value both runs take."""
+    f32, f64 = torch.float32, torch.float64
+    saved = []
+
+    def patch(owner, name, new):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, new)
+
+    def widening(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if kw.get("dtype") is f32:
+                kw["dtype"] = f64
+            return fn(*args, **kw)
+        return call
+
+    for name in ("zeros", "zeros_like", "ones", "empty", "full", "tensor", "as_tensor"):
+        patch(torch, name, widening(getattr(torch, name)))
+    patch(torch.linalg, "vector_norm", widening(torch.linalg.vector_norm))
+    to = torch.Tensor.to
+    patch(torch.Tensor, "to", lambda self, *args, **kw: to(
+        self, *(f64 if a is f32 else a for a in args),
+        **{k: f64 if v is f32 else v for k, v in kw.items()}))
+    patch(torch.Tensor, "float", lambda self, *args, **kw: to(self, f64))
+    build = train_cli.build_task
+
+    def build64(task, seed, device):
+        fns, params, train, val = build(task, seed, device)
+        def wide(d):
+            return ArrayDataset({k: v.astype(np.float64) if v.dtype == np.float32 else v
+                                 for k, v in d.arrays.items()})
+        return fns, params.double(), wide(train), wide(val)
+
+    patch(train_cli, "build_task", build64)
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
 def cli_card_vs_cpu_phase() -> None:
     phase("13. launch/train.py's imagelike task on the card against the CPU (cuDNN and "
           "matmul TF32 off, cuDNN's deterministic algorithms), identical weights, 2 "
@@ -2199,7 +2336,7 @@ def cli_card_vs_cpu_phase() -> None:
     # choice moved it between 2.4e-5 and 6.2e-5 over runs of the default
     # algorithms, the deterministic ones repeat their result
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     roots = {dev: ckpt_root(f"cli_{dev}") for dev in ("cuda", "cpu")}
@@ -2225,6 +2362,48 @@ def cli_card_vs_cpu_phase() -> None:
               f"within {rel:.3e} relative (tol 1e-4; "
               + ", ".join(f"{f} {g:.3e}" for f, g in gaps.items())
               + f"), parameters within {perr:.3e} (tol 1e-4)")
+        # which side carries the gap: each against the same run in float64,
+        # with the card again on PyTorch's own convolutions (im2col and
+        # cuBLAS products, TF32 off) in place of cuDNN's algorithms, and the
+        # CPU again at 1 and 4 threads (other summation orders, float32 all)
+        threads = torch.get_num_threads()
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            runs[f"cpu, {n} threads"] = train_cli.main(["--device", "cpu", "--epochs", "2"]
+                                                       + CLI_FLAGS[:-2])
+        torch.set_num_threads(threads)
+        with float32_as_float64():
+            wide = train_cli.main(["--device", "cpu", "--epochs", "2"] + CLI_FLAGS[:-2])
+        wide_params = list(wide["trainer"].params.parameters())
+        if {p.dtype for p in wide_params} != {torch.float64}:
+            raise AssertionError("the float64 run kept a float32 parameter")
+        torch.backends.cudnn.enabled = False
+        try:
+            t0 = time.perf_counter()
+            runs["cuda, no cuDNN"] = train_cli.main(["--device", "cuda", "--epochs", "2"]
+                                                    + CLI_FLAGS[:-2])
+            native_s = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.enabled = True
+        off = {}
+        for run, label in (("cuda", "card (cuDNN)"), ("cuda, no cuDNN", "card (no cuDNN)"),
+                           ("cpu", f"CPU ({threads} threads)"),
+                           ("cpu, 1 threads", "CPU (1 thread)"),
+                           ("cpu, 4 threads", "CPU (4 threads)")):
+            gaps64 = {f: max(abs(getattr(a, f) - getattr(b, f)) / abs(getattr(b, f))
+                             for a, b in zip(runs[run]["history"], wide["history"]))
+                      for f in ("train_loss", "val_loss", "diversity")}
+            p_off = max((a.detach().cpu().double() - b.detach()).abs().max().item()
+                        for a, b in zip(runs[run]["trainer"].params.parameters(),
+                                        wide_params))
+            off[label] = gaps64["diversity"]
+            print(f"  {label}, float32, against the CPU in float64: "
+                  + ", ".join(f"{f} {g:.3e}" for f, g in gaps64.items())
+                  + f" relative; parameters within {p_off:.3e}")
+        cpu_off = [v for k, v in off.items() if k.startswith("CPU")]
+        print(f"  Delta's distance to float64 (relative): card {off['card (cuDNN)']:.3e} "
+              f"with cuDNN, {off['card (no cuDNN)']:.3e} without ({native_s:.1f} s); CPU "
+              f"{min(cpu_off):.3e} to {max(cpu_off):.3e} over thread counts")
         cont = {}
         for dev, src in (("cpu", "cuda"), ("cuda", "cpu")):
             out = train_cli.main(["--device", dev, "--epochs", "3", "--resume",
@@ -2240,7 +2419,7 @@ def cli_card_vs_cpu_phase() -> None:
               f"{abs(a.val_loss - b.val_loss) / abs(b.val_loss):.3e} relative")
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = saved
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled) = saved
         for root in roots.values():
             shutil.rmtree(root, ignore_errors=True)
 
@@ -2252,9 +2431,20 @@ def cli_card_vs_cpu_phase() -> None:
 HUBERT_STEPS, HUBERT_GRAM_LAYERS = 12, 12
 
 
+# the largest logit gap allowed between the kernel lane and the plain dense
+# lane (``attn_impl="dense"``) of one bf16 encoder, relative to the largest
+# logit: both round the attention output to bf16 at 48 layers, at different
+# points (the kernel rounds p before P V, the dense lane its softmax), which
+# a random walk over the layers puts near sqrt(48) x 2^-8 = 2.7e-2; 5e-2 is
+# about 13 bf16 ulps at the logits' scale
+DENSE_GAP_TOL = 5e-2
+
+
 def encode_phase(cfg, params) -> dict:
     """(a) ``prefill_step`` on 4 sequences: finite (4, S, V) logits, one
-    chunk-forward launch per layer and nothing else."""
+    chunk-forward launch per layer (on its planned route) and nothing else;
+    then the same frames through the plain dense attention lane, the logits
+    within ``DENSE_GAP_TOL`` of the largest one."""
     n_layers = cfg.num_layers
     batch = {k: torch.from_numpy(v).to("cuda")
              for k, v in train_lm.frame_batches(cfg, 0)(0, 4, HUBERT_SEQ).items()}
@@ -2269,15 +2459,29 @@ def encode_phase(cfg, params) -> dict:
     want = {**{k: 0 for k in counts}, "chunk_attention": n_layers}
     if counts != want:
         raise AssertionError(f"encode launches {counts}, expected {want}")
-    attn_routes(counts, tc=False, what="encoding")
+    plan = plan_of(cfg, torch.bfloat16)
+    attn_routes(counts, plan, what="encoding")
     _, secs = timed_s(lambda: tf.prefill_step(cfg, params, batch))
     peak = peak_gib(lambda: tf.prefill_step(cfg, params, batch))
     print(f"  (a) encode 4 x {HUBERT_SEQ} frames through prefill_step: logits "
           f"{tuple(logits.shape)} float32, finite; launches {counts} (= {n_layers} chunk "
-          f"forwards, FMA); {1e3 * secs:.1f} ms (host clock, second call), "
-          f"{4 * HUBERT_SEQ / secs:.1f} frames/s; peak device memory above the resident "
-          f"{peak:.2f} GiB")
-    del logits, batch
+          f"forwards, {plan['chunk_attention']}); {1e3 * secs:.1f} ms (host clock, second "
+          f"call), {4 * HUBERT_SEQ / secs:.1f} frames/s; peak device memory above the "
+          f"resident {peak:.2f} GiB")
+    kernels.reset_launch_counts()
+    dense = tf.prefill_step(cfg.replace(attn_impl="dense"), params, batch)[0]
+    torch.cuda.synchronize()
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the dense lane launched {kernels.launch_counts()}")
+    gap = (logits - dense).abs().max().item()
+    scale = dense.abs().max().item()
+    if not gap <= DENSE_GAP_TOL * scale:
+        raise AssertionError(f"kernel lane against the dense lane: largest logit gap "
+                             f"{gap:.4e} > {DENSE_GAP_TOL} x {scale:.4e}")
+    print(f"  the same frames through the dense lane (attn_impl='dense', no kernel): "
+          f"largest logit gap {gap:.4e}, {gap / scale:.3e} of the largest logit "
+          f"{scale:.4e} (tol {DENSE_GAP_TOL}); logit rms {rms(dense):.4e}")
+    del logits, batch, dense
     return counts
 
 
@@ -2307,9 +2511,10 @@ def encoder_train_phase(cfg, params, n_matmul: int) -> dict:
             "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
-    attn_routes(counts, tc=False, what="encoder training")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="encoder training")
     print(f"  (b) launches: {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
-          f"microbatches); attention routes {attention_routes()}")
+          f"microbatches); attention routes {attention_routes()} (the plan's: "
+          f"{plan_of(cfg, torch.bfloat16)})")
     hd, h, s = cfg.resolved_head_dim, cfg.num_heads, HUBERT_SEQ
 
     def model_flops(batch: int) -> float:
@@ -2397,10 +2602,10 @@ def encoder_gram_phase(cfg) -> dict:
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     # bf16 activations and probe gradients at widths that are multiples of
-    # 8: every psgn launch takes the tensor cores; attention the FMA kernels
-    want_routes = {"chunk_attention": {"tc": 0, "fma": want["chunk_attention"]},
-                   "flash_dq": {"tc": 0, "fma": want["flash_dq"]},
-                   "flash_dkv": {"tc": 0, "fma": want["flash_dkv"]},
+    # 8: every psgn launch takes the tensor cores; attention the plan's
+    # routes (the forward and dk/dv the tensor cores, dq the FMA kernel)
+    plan = plan_of(cfg, torch.bfloat16)
+    want_routes = {**{n: {"tc": 0, "fma": 0, plan[n]: want[n]} for n in ROUTED_ATTENTION},
                    "psgn_direct": {"tc": want["psgn_direct"], "split": 0, "fma": 0},
                    "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
                    "psgn_fused": {"tc": want["psgn_fused"], "split": 0, "fma": 0}}
@@ -2461,11 +2666,20 @@ def hubert_phase() -> dict[str, dict]:
 
 def encoder_card_vs_cpu_phase() -> None:
     phase("15. hubert-shaped encoder, float32 (2 layers, d_model 320, 4 heads of hd 80, "
-          "d_ff 640): card (kernels) against CPU (plain versions)")
-    # hd 80, hubert's own: the reference's reduced config has hd 16, which no
-    # kernel takes
-    cfg = HUBERT.replace(num_layers=2, d_model=320, num_heads=4, num_kv_heads=4, d_ff=640,
-                         param_dtype="float32", compute_dtype="float32", attn_impl="pallas")
+          "d_ff 640), then the reference's reduced hubert-xlarge (hd 16): card (kernels) "
+          "against CPU (plain versions)")
+    for cfg in (HUBERT.replace(num_layers=2, d_model=320, num_heads=4, num_kv_heads=4,
+                               d_ff=640, param_dtype="float32", compute_dtype="float32",
+                               attn_impl="pallas"),
+                get_config("hubert-xlarge", reduced=True).replace(attn_impl="pallas")):
+        print(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+              f"hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}:")
+        encoder_card_vs_cpu(cfg)
+
+
+def encoder_card_vs_cpu(cfg) -> None:
+    """``prefill_step`` logits and 6 DiveBatch steps of the float32 encoder
+    ``cfg`` on the card and on the CPU from identical weights."""
     seq = 128
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
     card = tf.build(cfg, "cuda")
@@ -2475,7 +2689,7 @@ def encoder_card_vs_cpu_phase() -> None:
     logits = {dev: tf.prefill_step(cfg, model, {k: torch.from_numpy(v).to(dev)
                                                 for k, v in batch.items()})[0].cpu()
               for dev, model in (("cuda", card), ("cpu", cpu))}
-    attn_routes(kernels.launch_counts(), tc=False, what="encoding on the card")
+    attn_routes(kernels.launch_counts(), plan_of(cfg, torch.float32), what="encoding on the card")
     logit_err = (logits["cuda"] - logits["cpu"]).abs().max().item()
     if logit_err > 1e-4:
         raise AssertionError(f"encoder logits differ by {logit_err:.3e} > 1e-4")
@@ -2490,7 +2704,8 @@ def encoder_card_vs_cpu_phase() -> None:
                              log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
         if dev == "cuda":
-            attn_routes(runs[dev][1], tc=False, what="encoder training on the card")
+            attn_routes(runs[dev][1], plan_of(cfg, torch.float32),
+                        what="encoder training on the card")
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
     losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
     rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))

@@ -33,19 +33,21 @@ its kernel launches in a plain integer attribute (``chunk_attention.launches``,
 ``flash_dkv.launches``), so a run can show that its path went through the
 kernels.
 
-The chunk forward, dq and dk/dv have two routes, chosen by
+The chunk forward, dq and dk/dv have two routes each, chosen per kernel by
 :func:`attention_plan` from the type, head dim and causality before any
-launch:
+launch (:data:`TC_HEAD_DIMS` and :data:`TC_CAUSAL_ONLY` say what each
+tensor-core library is built for):
 
-  tc   causal bf16 at head dims 64 and 128: wgmma tensor-core kernels fed
-       by TMA, ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key
-       tiles, key tiles skipped by position), ``csrc/flash_dq_tc.cu`` (128
-       query rows over 64-key tiles) and ``csrc/flash_dkv_tc.cu`` (64-key
-       blocks over 64-row query tiles);
-  fma  float32, head dims 32, 80 and 112, and the non-causal form at every
-       head dim: the float32 FMA kernels ``csrc/chunk_attention.cu``,
-       ``csrc/flash_dq.cu`` and ``csrc/flash_dkv.cu`` (causality a template
-       parameter there).
+  tc   bf16 on wgmma tensor-core kernels fed by TMA:
+       ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key tiles,
+       key tiles skipped by position) and ``csrc/flash_dkv_tc.cu`` (64-key
+       blocks over 64-row query tiles) at head dims 64, 80, 112 and 128,
+       causal or not; ``csrc/flash_dq_tc.cu`` (128 query rows over 64-key
+       tiles) causal at 64 and 128;
+  fma  everything else: float32, head dims 16 and 32, and dq without
+       causality or at 80 and 112, on the float32 FMA kernels
+       ``csrc/chunk_attention.cu``, ``csrc/flash_dq.cu`` and
+       ``csrc/flash_dkv.cu`` (causality a template parameter there).
 
 This is a dispatch decided up front, not a fallback: a tensor-core launch
 that fails raises.  ``chunk_attention.routes``, ``flash_dq.routes`` and
@@ -65,9 +67,14 @@ from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the FMA kernels are instantiated for (multiples of 16 up to 128)
-CHUNK_HEAD_DIMS = (32, 64, 80, 112, 128)
-#: head dims the tensor-core kernels are instantiated for
-TC_HEAD_DIMS = (64, 128)
+CHUNK_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+#: the three routed kernels, by their wrappers' names
+ROUTED = ("chunk_attention", "flash_dq", "flash_dkv")
+#: head dims each tensor-core library is instantiated for
+TC_HEAD_DIMS = {"chunk_attention": (64, 80, 112, 128), "flash_dq": (64, 128),
+                "flash_dkv": (64, 80, 112, 128)}
+#: the tensor-core libraries built for the causal form only
+TC_CAUSAL_ONLY = frozenset({"flash_dq"})
 #: keys the tensor-core chunk kernel lists per block (512 tiles of 128)
 TC_MAX_KEYS = 512 * 128
 #: the decode kernel's per-thread output registers hold (H / KV) * hd <= this
@@ -101,19 +108,20 @@ def _no_instance(name: str, hd: int) -> ValueError:
                       f"{CHUNK_HEAD_DIMS}; other head dims are ROADMAP.md, Queue B 2)")
 
 
-def attention_plan(dtype: torch.dtype, hd: int, causal: bool = True) -> str:
-    """The route of a chunk-forward, dq or dk/dv call on the card: "tc"
-    (tensor cores) for causal bf16 at head dims 64 and 128, "fma" (float32
-    FMA kernels) for float32, for head dims 32, 80 and 112 and for the
-    non-causal form.  float32 stays off the tensor cores: TF32 would miss
-    the 1e-4 its card tests hold.  Raises for a type or head dim that has no
-    kernel."""
+def attention_plan(dtype: torch.dtype, hd: int, causal: bool = True) -> dict[str, str]:
+    """The route of each of the chunk forward, dq and dk/dv on the card,
+    ``{"chunk_attention": r, "flash_dq": r, "flash_dkv": r}``: "tc" (tensor
+    cores) for bf16 where that kernel's library is built for the head dim
+    and form (:data:`TC_HEAD_DIMS`, :data:`TC_CAUSAL_ONLY`), else "fma"
+    (float32 FMA kernels).  float32 stays off the tensor cores: TF32 would
+    miss the 1e-4 its card tests hold.  Raises for a type or head dim that
+    has no kernel."""
     if dtype not in _DTYPES:
         raise TypeError(f"attention: dtype {dtype} has no kernel (float32, bfloat16)")
     if hd not in CHUNK_HEAD_DIMS:
         raise _no_instance("attention", hd)
-    tc = causal and dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
-    return "tc" if tc else "fma"
+    return {name: "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS[name]
+            and (causal or name not in TC_CAUSAL_ONLY) else "fma" for name in ROUTED}
 
 
 def _cap(softcap: float | None) -> float:
@@ -156,8 +164,23 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"chunk_attention: no path for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("chunk_attention: q, k and v must share one dtype")
-    route = attention_plan(q.dtype, hd, causal)
-    if route == "tc" and sk > TC_MAX_KEYS:
+    route = attention_plan(q.dtype, hd, causal)["chunk_attention"]
+    out, lse = _chunk_launch("chunk_attention_tc" if route == "tc" else "chunk_attention",
+                             q, k, v, q_pos, k_pos, k_valid, window, softcap, causal)
+    chunk_attention.launches += 1
+    chunk_attention.routes[route] += 1
+    return out, lse
+
+
+def _chunk_launch(name: str, q, k, v, q_pos, k_pos, k_valid, window, softcap,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the chunk forward of library ``name`` (``chunk_attention`` or
+    ``chunk_attention_tc``) on card tensors whose shapes the caller checked,
+    counting nothing: the wrapper's route, or another library at the same
+    call where a check or a timing compares the two."""
+    b, c, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if name == "chunk_attention_tc" and sk > TC_MAX_KEYS:
         raise ValueError(f"chunk_attention: {sk} keys, the tensor-core kernel takes "
                          f"at most {TC_MAX_KEYS}")
     q_pos = q_pos.to(torch.int32).contiguous()
@@ -167,7 +190,6 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     "k_pos": k_pos, "k_valid": k_valid}, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, c), dtype=torch.float32, device=q.device)
-    name = "chunk_attention_tc" if route == "tc" else "chunk_attention"
     lib = _build.library(name)
     rc = getattr(lib, f"{name}_fwd")(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -177,8 +199,6 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, name, rc)
-    chunk_attention.launches += 1
-    chunk_attention.routes[route] += 1
     return out, lse
 
 
@@ -346,7 +366,8 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tens
     if q.device.type == "cpu":
         return ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
                                    softcap=softcap, causal=causal)[0]
-    route = attention_plan(q.dtype, q.shape[-1], causal) if q.device.type == "cuda" else "fma"
+    route = attention_plan(q.dtype, q.shape[-1], causal)["flash_dq"] \
+        if q.device.type == "cuda" else "fma"
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap, causal,
                      "flash_dq_tc" if route == "tc" else "flash_dq")
@@ -370,7 +391,8 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
         _, dk, dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
                                         softcap=softcap, causal=causal)
         return dk, dv
-    route = attention_plan(q.dtype, q.shape[-1], causal) if q.device.type == "cuda" else "fma"
+    route = attention_plan(q.dtype, q.shape[-1], causal)["flash_dkv"] \
+        if q.device.type == "cuda" else "fma"
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     _backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), window, softcap,
@@ -426,6 +448,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's type: scale ``hd**-0.5``, the softcap before the causal /
     sliding-window mask, as ``repro/kernels/attention.py::flash_attention``.
     ``causal=False`` is the encoder's form (a window then cuts one side
-    only); it runs on the FMA kernels."""
+    only): in bf16 its forward and dk/dv take the tensor cores, its dq the
+    FMA kernel."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                  bool(causal), window, softcap)

@@ -4,8 +4,11 @@
 //
 // Replaces: _flash_fwd_kernel in repro/kernels/attention.py (reached through
 // _flash_forward by chunk_attention, and by flash_attention's forward).
-// The float32 route, bf16 at hd 32, 80 and 112, and bf16 without causality;
-// causal bf16 at hd 64 and 128 takes chunk_attention_tc.cu.
+// The float32 route and bf16 at hd 16 and 32; bf16 at hd 64, 80, 112 and
+// 128 takes chunk_attention_tc.cu on the main path, and this kernel's bf16
+// instances at 80 and 112 (either form) and 64 and 128 (non-causal) are
+// reached only to compare the two kernels (kernels/attention.py's
+// _chunk_launch).
 //
 // Numerics follow the reference kernel: scale hd**-0.5 after the q.k dot,
 // tanh softcap BEFORE the mask, an additive -1e30 bias (never -inf) for
@@ -34,7 +37,7 @@
 // so it sits far from the FLOP bound; wgmma tiles with TMA staging are a
 // later step.  Shared memory at hd=128 is 41 KB (16x132 q, 32x132 k, 32x128
 // v floats), under the 48 KB static limit, which is why the tiles are small.
-// The padded row of HD + 4 floats ends 4 (hd 32, 64, 128) or 20 (hd 80, 112)
+// The padded row of HD + 4 floats ends 4 (hd 32, 64, 128) or 20 (hd 16, 80, 112)
 // words past a multiple of 32 banks, so the 8 lanes of a float4 phase start
 // on distinct 4-bank groups: no bank conflicts at any instantiated head dim.
 
@@ -217,6 +220,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
   return launch<T, HD, kCausal>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, \
                                 KV, scale, softcap, window, stream)
   switch (hd) {
+    case 16: REPRO_CHUNK_LAUNCH(16);
     case 32: REPRO_CHUNK_LAUNCH(32);
     case 80: REPRO_CHUNK_LAUNCH(80);
     case 112: REPRO_CHUNK_LAUNCH(112);
@@ -250,7 +254,7 @@ int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
 
 // q: (B, C, H, hd); k, v: (B, Sk, KV, hd); q_pos: (C,) int32; k_pos, k_valid:
 // (Sk,) int32 -> out: (B, C, H, hd) in q's type, lse: (B, H, C) float32.
-// dtype: 0 float32, 1 bfloat16; hd 32, 64, 80, 112 or 128 (causal bf16 at 64
+// dtype: 0 float32, 1 bfloat16; hd 16, 32, 64, 80, 112 or 128 (causal bf16 at 64
 // and 128 is the tensor-core kernel's); softcap <= 0 means none, window <= 0
 // means none; causal 0 or 1.  Returns the launch's cudaError_t (0 on
 // success).

@@ -1,11 +1,13 @@
 // Chunk attention forward on Hopper's tensor cores (sm_90a), bf16 q, k, v:
 // streaming-softmax attention of queries at explicit absolute positions
-// over keys at explicit absolute positions with a per-key validity mask.
+// over keys at explicit absolute positions with a per-key validity mask,
+// causal or not (the encoder's form).
 //
-// Replaces, on bf16 inputs at head dims 64 and 128: _flash_fwd_kernel in
-// repro/kernels/attention.py (reached through _flash_forward by
-// chunk_attention, and by flash_attention's forward).  float32 inputs and
-// head dim 32 take chunk_attention.cu, the FMA kernel.
+// Replaces, on bf16 inputs at head dims 64, 80, 112 and 128, causal or not:
+// _flash_fwd_kernel in repro/kernels/attention.py (reached through
+// _flash_forward by chunk_attention, and by flash_attention's forward).
+// float32 inputs and head dims 16 and 32 take chunk_attention.cu, the FMA
+// kernel.
 //
 // Numerics follow the reference kernel: scale hd**-0.5 after the q.k dot,
 // the tanh softcap BEFORE the mask, an additive -1e30 bias (never -inf) for
@@ -13,11 +15,13 @@
 // rounded to bf16 before the PV product, l_safe = max(l, 1e-30), and lse = m
 // + log(l_safe) beside the output.
 //
-// Layout.  q (B, C, H, hd) and k, v (B, Sk, KV, hd) are viewed as (B, rows,
-// heads * hd) for the TMA tensor maps; the column offset picks the head.
-// Boxes are 64 features x 64 rows with the 128-byte swizzle, so hd 128 takes
-// two boxes per row.  One warpgroup owns 64 query rows of one head; a block
-// holds WG (1 or 2) of them, and its thread 0 loads the block's q once and
+// Layout.  q (B, C, H, hd) and k, v (B, Sk, KV, hd) are 4-D TMA tensor maps
+// (encode_heads) read one head at a time.  Boxes are 64 features x 64 rows
+// with the 128-byte swizzle, so hd 80, 112 and 128 take two boxes per row;
+// at 80 and 112 TMA fills the second box's columns past hd with zeros,
+// which no product reads: q.k^T takes hd / 16 k16 steps and P V's N is hd
+// (m64n80k16, m64n112k16).  One warpgroup owns 64 query rows of one head;
+// a block holds WG (1 or 2) of them, and its thread 0 loads the block's q once and
 // then K/V tiles of 128 keys through a 2-stage ring (mbarriers), refilling
 // a stage once every warpgroup has read it (no producer warp: see kThreads).  Per key tile a warpgroup forms S = Q K^T with wgmma (both
 // operands in shared memory, K-major, hd / 16 k16 steps), runs the softmax
@@ -44,6 +48,10 @@
 // counters (one atomic each a block), which chunk_attention_tc_key_tiles
 // reads and resets: the visited share is the kernel's own count.
 //
+// Without causality every listed tile of an unpadded, unwindowed block is
+// full: the block lists all Sk / 128 of them and masks none.  Causality is a
+// template parameter, so neither form branches on it in the inner loop.
+//
 // Order and fill.  Grid (H, B, row blocks), the latest row blocks (the most
 // keys under causality) launched first.  WG is 2 (128 rows a block) where
 // that still gives a block to every SM, else 1 (the serving chunk, C 256 at
@@ -68,8 +76,6 @@ constexpr int kBK = 128;           // keys per tile
 constexpr int kStages = 2;
 constexpr int kMaxTiles = 512;     // key tiles a block lists: Sk <= 65536
 constexpr int kFullBit = 1 << 16;  // a listed tile every live row attends in full
-// The mask is written for both forms; only the causal one is instantiated.
-constexpr bool kCausal = true;
 
 // key tiles listed, and key tiles in all, summed over the blocks of every
 // launch since the last reset
@@ -77,10 +83,10 @@ __device__ unsigned long long key_tiles[2];
 
 template <int HD, int WG>
 struct Shape {
-  static constexpr int kFB = HD / kBox;          // feature boxes per row
-  static constexpr int kKB = kBK / kBox;         // key boxes per tile
-  static constexpr int kQBytes = kBox * HD * 2;  // one warpgroup's 64 rows of q
-  static constexpr int kKVBytes = kBK * HD * 2;  // one tile of K (or V)
+  static constexpr int kFB = (HD + kBox - 1) / kBox;  // feature boxes per row
+  static constexpr int kKB = kBK / kBox;              // key boxes per tile
+  static constexpr int kQBytes = kFB * kBoxBytes;     // one warpgroup's 64 rows of q
+  static constexpr int kKVBytes = kKB * kFB * kBoxBytes;  // one tile of K (or V)
   static constexpr int kStageBytes = 2 * kKVBytes;
   static constexpr int kSmem = WG * kQBytes + kStages * kStageBytes + kSwizzleAtom;
   static constexpr int kRows = WG * kBox;
@@ -93,6 +99,7 @@ struct Shape {
 
 // Whether a query at position qp attends a valid key at kp (a negative qp
 // is a padded row).
+template <bool kCausal>
 __device__ __forceinline__ bool attends(int qp, int kp, int window) {
   if (qp < 0) return false;
   const int rel = qp - kp;
@@ -109,7 +116,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int HD, int WG>
+template <int HD, int WG, bool kCausal>
 __global__ void __launch_bounds__(Shape<HD, WG>::kThreads, 1)
 chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
@@ -202,13 +209,13 @@ chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
     const int key0 = (tiles[i] & (kFullBit - 1)) * kBK;
     uint8_t* sk = skv + s * G::kStageBytes;
     uint8_t* sv = sk + G::kKVBytes;
-    mbar_expect_tx(&full[s], G::kStageBytes);
+    mbar_expect_tx(&full[s], G::kStageBytes);  // every box's bytes, zero fill included
     for (int f = 0; f < G::kFB; ++f)
       for (int kb = 0; kb < G::kKB; ++kb) {
-        tma_box(sk + (f * G::kKB + kb) * kBoxBytes, &mk, &full[s], hk * HD + f * kBox,
-                key0 + kb * kBox, b);
-        tma_box(sv + (kb * G::kFB + f) * kBoxBytes, &mv, &full[s], hk * HD + f * kBox,
-                key0 + kb * kBox, b);
+        tma_head_box(sk + (f * G::kKB + kb) * kBoxBytes, &mk, &full[s], f * kBox, hk,
+                     key0 + kb * kBox, b);
+        tma_head_box(sv + (kb * G::kFB + f) * kBoxBytes, &mv, &full[s], f * kBox, hk,
+                     key0 + kb * kBox, b);
       }
   };
   if (tid == 0) {
@@ -218,8 +225,8 @@ chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
     mbar_expect_tx(&qbar, WG * G::kQBytes);
     for (int w = 0; w < WG; ++w)
       for (int f = 0; f < G::kFB; ++f)
-        tma_box(sq + w * G::kQBytes + f * kBoxBytes, &mq, &qbar, h * HD + f * kBox,
-                q0 + w * kBox, b);
+        tma_head_box(sq + w * G::kQBytes + f * kBoxBytes, &mq, &qbar, f * kBox, h,
+                     q0 + w * kBox, b);
     for (int i = 0; i < kStages && i < n; ++i) issue_kv(i);
   }
 
@@ -279,8 +286,8 @@ chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
           }
           const int kp = __ldg(k_pos + key);
           const bool kok = __ldg(k_valid + key) != 0;
-          if (!(kok && attends(qp_a, kp, window))) sc[4 * c + e] += kNegInf;
-          if (!(kok && attends(qp_b, kp, window))) sc[4 * c + 2 + e] += kNegInf;
+          if (!(kok && attends<kCausal>(qp_a, kp, window))) sc[4 * c + e] += kNegInf;
+          if (!(kok && attends<kCausal>(qp_b, kp, window))) sc[4 * c + 2 + e] += kNegInf;
         }
       }
     }
@@ -345,13 +352,15 @@ chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const bool mean_a = m_a < 0.5f * kNegInf, mean_b = m_b < 0.5f * kNegInf;
   if ((mean_a && row_a < C) || (mean_b && row_b < C)) need_mean[wg] = 1;
   named_barrier(1 + wg, 128);
-  constexpr int kParts = 128 / HD;  // threads per column
+  constexpr int kParts = 128 / HD;  // threads per column: 2 at hd 64, else 1
   if (need_mean[wg]) {
-    const int col = lt % HD;
-    float acc = 0.0f;
-    for (int j = lt / HD; j < Sk; j += kParts)
-      acc += __bfloat162float(v[(((size_t)b * Sk + j) * KV + hk) * HD + col]);
-    colsum[wg][lt] = acc;
+    if (lt < kParts * HD) {
+      const int col = lt % HD;
+      float acc = 0.0f;
+      for (int j = lt / HD; j < Sk; j += kParts)
+        acc += __bfloat162float(v[(((size_t)b * Sk + j) * KV + hk) * HD + col]);
+      colsum[wg][lt] = acc;
+    }
     named_barrier(1 + wg, 128);
   }
 
@@ -388,17 +397,17 @@ chunk_attention_tc_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int HD, int WG>
+template <int HD, int WG, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* k_pos,
            const void* k_valid, void* out, void* lse, int B, int C, int Sk, int H, int KV,
            float scale, float softcap, int window, cudaStream_t stream) {
   using G = Shape<HD, WG>;
   CUtensorMap mq, mk, mv;
-  int rc = encode_rows(&mq, q, B, C, H * HD);
-  if (rc == 0) rc = encode_rows(&mk, k, B, Sk, KV * HD);
-  if (rc == 0) rc = encode_rows(&mv, v, B, Sk, KV * HD);
+  int rc = encode_heads(&mq, q, B, C, H, HD);
+  if (rc == 0) rc = encode_heads(&mk, k, B, Sk, KV, HD);
+  if (rc == 0) rc = encode_heads(&mv, v, B, Sk, KV, HD);
   if (rc != 0) return rc;
-  auto kernel = chunk_attention_tc_kernel<HD, WG>;
+  auto kernel = chunk_attention_tc_kernel<HD, WG, kCausal>;
   static SmemOptIn opt_in;
   rc = opt_in.apply(kernel, G::kSmem);
   if (rc != 0) return rc;
@@ -412,7 +421,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
 }
 
 // 128-row blocks where they still give every SM a block, else 64-row ones.
-template <int HD>
+template <int HD, bool kCausal>
 int launch_rows(const void* q, const void* k, const void* v, const void* q_pos,
                 const void* k_pos, const void* k_valid, void* out, void* lse, int B, int C,
                 int Sk, int H, int KV, float scale, float softcap, int window,
@@ -422,10 +431,29 @@ int launch_rows(const void* q, const void* k, const void* v, const void* q_pos,
   if (rc != 0) return rc;
   const long long wide = (long long)((C + 127) / 128) * H * B;
   if (wide >= sms)
-    return launch<HD, 2>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV, scale,
-                         softcap, window, stream);
-  return launch<HD, 1>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV, scale,
-                       softcap, window, stream);
+    return launch<HD, 2, kCausal>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
+                                  scale, softcap, window, stream);
+  return launch<HD, 1, kCausal>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
+                                scale, softcap, window, stream);
+}
+
+template <bool kCausal>
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* q_pos,
+                const void* k_pos, const void* k_valid, void* out, void* lse, int B, int C,
+                int Sk, int H, int KV, float scale, float softcap, int window,
+                cudaStream_t stream) {
+#define REPRO_CHUNK_TC_LAUNCH(HD)                                                       \
+  return launch_rows<HD, kCausal>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, \
+                                  KV, scale, softcap, window, stream)
+  switch (hd) {
+    case 64: REPRO_CHUNK_TC_LAUNCH(64);
+    case 80: REPRO_CHUNK_TC_LAUNCH(80);
+    case 112: REPRO_CHUNK_TC_LAUNCH(112);
+    case 128: REPRO_CHUNK_TC_LAUNCH(128);
+    default: break;
+  }
+#undef REPRO_CHUNK_TC_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -433,10 +461,9 @@ int launch_rows(const void* q, const void* k, const void* v, const void* q_pos,
 
 // q: (B, C, H, hd); k, v: (B, Sk, KV, hd), bf16, contiguous, 16-byte
 // aligned; q_pos: (C,) int32; k_pos, k_valid: (Sk,) int32 -> out: (B, C, H,
-// hd) bf16, lse: (B, H, C) float32.  dtype must be 1 (bfloat16); hd 64 or
-// 128; Sk <= 65536; softcap <= 0 means none, window <= 0 means none; causal
-// must be 1 (the non-causal form is the FMA kernel's).  The signature is
-// chunk_attention_fwd's.  Returns the launch's cudaError_t (0 on
+// hd) bf16, lse: (B, H, C) float32.  dtype must be 1 (bfloat16); hd 64,
+// 80, 112 or 128; Sk <= 65536; softcap <= 0 means none, window <= 0 means
+// none; causal 0 or 1.  The signature is chunk_attention_fwd's.  Returns the launch's cudaError_t (0 on
 // success), or repro::tc::kTensorMapError + the CUresult when a tensor map
 // cannot be made.
 extern "C" int chunk_attention_tc_fwd(int dtype, const void* q, const void* k, const void* v,
@@ -445,17 +472,15 @@ extern "C" int chunk_attention_tc_fwd(int dtype, const void* q, const void* k, c
                                       int Sk, int H, int KV, int hd, float scale, float softcap,
                                       int window, int causal, void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || !causal || B < 1 || B > 65535 || C < 1 || Sk < 1 || KV < 1 ||
+  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || C < 1 || Sk < 1 || KV < 1 ||
       H % KV != 0 || H > 65535 || (Sk + kBK - 1) / kBK > kMaxTiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return launch_rows<128>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV, scale,
-                            softcap, window, s);
-  if (hd == 64)
-    return launch_rows<64>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV, scale,
-                           softcap, window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (causal)
+    return dispatch_hd<true>(hd, q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
+                             scale, softcap, window, s);
+  return dispatch_hd<false>(hd, q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, KV,
+                            scale, softcap, window, s);
 }
 
 // counts[0]: key tiles the kernel's blocks listed (loaded and multiplied),

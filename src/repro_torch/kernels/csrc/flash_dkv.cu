@@ -29,8 +29,11 @@
 // chunk_attention.cu's bit for bit), in the accumulation phase lane l owns
 // head-dim columns l, l+32, ... below hd.  Causality is a template parameter.
 //
-// The float32 route, bf16 at hd 32, 80 and 112, and bf16 without causality;
-// causal bf16 at hd 64 and 128 takes flash_dkv_tc.cu.
+// The float32 route and bf16 at hd 16 and 32; bf16 at hd 64, 80, 112 and
+// 128 takes flash_dkv_tc.cu on the main path, and this kernel's bf16
+// instances at 80 and 112 (either form) and 64 and 128 (non-causal) are
+// reached only to compare the two kernels (kernels/attention.py's
+// _backward_launch with this library named).
 //
 // What bounds it on the H100: FLOPs, 4 matrix products of 2*hd per attended
 // (row, key) pair.  This first version runs them on the float32 FMA pipes
@@ -192,6 +195,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
   return launch<T, HD, kCausal>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, \
                                 softcap, window, stream)
   switch (hd) {
+    case 16: REPRO_DKV_LAUNCH(16);
     case 32: REPRO_DKV_LAUNCH(32);
     case 80: REPRO_DKV_LAUNCH(80);
     case 112: REPRO_DKV_LAUNCH(112);
@@ -225,8 +229,8 @@ int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd); lse, delta: (B, H, S)
 // float32 -> dk, dv: (B, S, KV, hd) float32, summed over each KV head's
-// H / KV query heads.  dtype: 0 float32, 1 bfloat16; hd 32, 64, 80, 112 or
-// 128 (causal bf16 at 64 and 128 is the tensor-core kernel's); softcap <= 0
+// H / KV query heads.  dtype: 0 float32, 1 bfloat16; hd 16, 32, 64, 80, 112
+// or 128 (causal bf16 at 64 and 128 is the tensor-core kernel's); softcap <= 0
 // means none, window <= 0 means none; causal 0 or 1.  Returns the launch's
 // cudaError_t (0 on success).
 extern "C" int flash_dkv_bwd(int dtype, const void* q, const void* k, const void* v,

@@ -1,9 +1,10 @@
 // Flash-attention backward, dk/dv pass, on Hopper's tensor cores (sm_90a),
-// bf16 q, k, v, dout: causal (optionally sliding-window, softcapped)
+// bf16 q, k, v, dout: causal or not (optionally sliding-window, softcapped)
 // self-attention with grouped KV heads, recomputing p from the lse the
 // forward wrote.
 //
-// Replaces, on bf16 inputs at head dims 64 and 128: _flash_dkv_kernel (with
+// Replaces, on bf16 inputs at head dims 64, 80, 112 and 128, causal or not:
+// _flash_dkv_kernel (with
 // _recompute_dlogits) in repro/kernels/attention.py, launched by
 // _flash_backward, AND the sum over the n_rep query heads of each KV head
 // that the reference takes outside the kernel (attention.py:367-368):
@@ -14,16 +15,23 @@
 // with p recomputed from the forward's lse and forced to 0 where the mask is
 // false, ds = p (dp - delta) [* (1 - tanh^2) under a softcap], bf() the
 // rounding to bf16 (p.astype(do.dtype), dlogits.astype(q.dtype)); dk and dv
-// leave in float32.  float32 inputs and head dim 32 take flash_dkv.cu.
+// leave in float32.  float32 inputs and head dims 16 and 32 take
+// flash_dkv.cu.  Causality is a template parameter.
 //
 // Structure.  One block per (64-key tile, KV head, batch row), two
 // warpgroups of 128 threads and no producer warp (256 threads may use 255
 // registers a thread; a 288- or 384-thread block gets 168, and these
-// accumulators need more).  Thread 0 loads K and V once by TMA; each
-// warpgroup keeps its own 64 x hd float32 dK and dV in registers and takes
-// half the n_rep query heads (wg, wg + 2, ...), for each the query tiles
-// from the diagonal to the last row the window lets see the tile, streamed
-// as (q, dO) tiles of 64 rows through its own 2-stage TMA ring: its thread
+// accumulators need more).  Thread 0 loads K and V once by TMA (4-D maps,
+// one head at a time: at hd 80 and 112 a row's second box is zero-filled
+// past hd); each warpgroup keeps its own 64 x hd float32 dK and dV in
+// registers and takes half the block's items, an item one query head's
+// tile of 64 rows among those that see the key tile (from the diagonal
+// under causality, from row 0 without, to the last row the window lets
+// see it).  With an even n_rep a warpgroup takes every other head (wg, wg
+// + 2, ...) and all their tiles; with an odd one (n_rep 1: MHA, the
+// encoder) every other item of the list ordered by (head, tile), so
+// neither warpgroup idles.  The items stream as (q, dO) tiles of 64 rows
+// through the warpgroup's own 2-stage TMA ring: its thread
 // 0 refills a stage, and its threads put the rows' lse and delta beside it,
 // once a named barrier says the warpgroup has read it.  Per tile: S^T = K
 // Q^T and dP^T = V dO^T (wgmma, both operands in shared memory, K-major),
@@ -42,7 +50,9 @@
 // Balance.  Under causality key tile t sees (S / 64 - t) query tiles per
 // head: 32 down to 1 at S 2048.  The grid is (KV, B, key tiles) with the
 // heaviest tiles launched first: 256 blocks at the training shape, the
-// heaviest 32 tiles x 4 heads per warpgroup.
+// heaviest 32 tiles x 4 heads per warpgroup.  Without causality every key
+// tile sees every query tile: at hubert's shape (S 1024, 16 KV heads, B 2)
+// 512 blocks of 16 tiles, 8 per warpgroup.
 //
 // What bounds it on the H100: FLOPs, 4 products of 2 hd per causal (row,
 // key) pair at the bf16 tensor-core rate.
@@ -57,21 +67,22 @@ using namespace tc;
 constexpr int kBK = 64;  // keys per block
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kStages = 2;
-constexpr int kWG = 2;         // consumer warpgroups, each over half the query heads
+constexpr int kWG = 2;         // consumer warpgroups, each over half the block's items
 constexpr int kThreads = 128 * kWG;  // no producer warp: 256 threads may use 255 registers
 
 template <int HD>
 struct Shape {
-  static constexpr int kFB = HD / kBox;         // feature boxes per row
-  static constexpr int kTileBytes = kBox * HD * 2;  // 64 rows of q, dO, k or v
+  static constexpr int kFB = (HD + kBox - 1) / kBox;  // feature boxes per row
+  static constexpr int kTileBytes = kFB * kBoxBytes;  // 64 rows of q, dO, k or v
   static constexpr int kStageBytes = 2 * kTileBytes;  // q, then dO
   // K and V, then each warpgroup's ring (warpgroup 1's later holds its dK
-  // and dV sums for warpgroup 0: 2 x 64 x HD floats, the size of a ring)
+  // and dV sums for warpgroup 0: 2 x 64 x HD floats, at most a ring)
   static constexpr int kSmem = 2 * kTileBytes + kWG * kStages * kStageBytes + kSwizzleAtom;
   static constexpr int kO = HD / 2;  // accumulator floats of 64 x HD
+  static_assert(2 * kBK * HD * 4 <= kStages * kStageBytes, "the hand-off fits a ring");
 };
 
-template <int HD>
+template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
                     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
@@ -94,13 +105,15 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
   uint8_t* ring = smem + 2 * G::kTileBytes + wg * kStages * G::kStageBytes;
   // the query tiles that see this key tile: from the diagonal (causal) to
-  // the last row within the window of its last key; warpgroup wg takes the
-  // query heads wg, wg + 2, ...
+  // the last row within the window of its last key
   const int k_last = min(k0 + kBK, S) - 1;
   const int q_end = window > 0 ? min(S, k_last + window) : S;
   const int qt_begin = kCausal ? k0 / kBQ : 0;
   const int n_q = (q_end + kBQ - 1) / kBQ - qt_begin;
-  const int items = (n_rep - wg + kWG - 1) / kWG * n_q;
+  // warpgroup wg's items: the query heads wg, wg + 2, ... (n_rep even), or
+  // items wg, wg + 2, ... of the list ordered by (head, tile) (n_rep odd)
+  const bool by_head = n_rep % 2 == 0;
+  const int items = by_head ? n_rep / kWG * n_q : (n_rep * n_q - wg + kWG - 1) / kWG;
 
   if (tid == 0) {
     for (int w = 0; w < kWG; ++w)
@@ -110,18 +123,22 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   }
   __syncthreads();
 
-  // item it of this warpgroup: query head hk n_rep + wg + kWG (it / n_q),
-  // rows q0 .. q0 + 63; its q and dO come by TMA (issued by thread 0 of the
-  // warpgroup), its lse and delta through registers into shared memory
-  auto head_of = [&](int it) { return hk * n_rep + wg + kWG * (it / n_q); };
-  auto rows_of = [&](int it) { return (qt_begin + it % n_q) * kBQ; };
+  // item it of this warpgroup: the list's entry g (head g / n_q of the KV
+  // head's group, query tile g % n_q), rows q0 .. q0 + 63; its q and dO come
+  // by TMA (issued by thread 0 of the warpgroup), its lse and delta through
+  // registers into shared memory
+  auto entry_of = [&](int it) {
+    return by_head ? (wg + kWG * (it / n_q)) * n_q + it % n_q : wg + kWG * it;
+  };
+  auto head_of = [&](int it) { return hk * n_rep + entry_of(it) / n_q; };
+  auto rows_of = [&](int it) { return (qt_begin + entry_of(it) % n_q) * kBQ; };
   auto issue = [&](int it) {
     const int s = it % kStages, h = head_of(it), q0 = rows_of(it);
     uint8_t* st = ring + s * G::kStageBytes;
-    mbar_expect_tx(&full[wg][s], G::kStageBytes);
+    mbar_expect_tx(&full[wg][s], G::kStageBytes);  // every box's bytes, zero fill included
     for (int f = 0; f < G::kFB; ++f) {
-      tma_box(st + f * kBoxBytes, &mq, &full[wg][s], h * HD + f * kBox, q0, b);
-      tma_box(st + G::kTileBytes + f * kBoxBytes, &mdo, &full[wg][s], h * HD + f * kBox, q0, b);
+      tma_head_box(st + f * kBoxBytes, &mq, &full[wg][s], f * kBox, h, q0, b);
+      tma_head_box(st + G::kTileBytes + f * kBoxBytes, &mdo, &full[wg][s], f * kBox, h, q0, b);
     }
   };
   // thread lt holds lse (lt < 64) or delta (lt >= 64) of row lt % 64
@@ -140,8 +157,8 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     prefetch_map(&mdo);
     mbar_expect_tx(&kvbar, 2 * G::kTileBytes);
     for (int f = 0; f < G::kFB; ++f) {
-      tma_box(sk + f * kBoxBytes, &mk, &kvbar, hk * HD + f * kBox, k0, b);
-      tma_box(sv + f * kBoxBytes, &mv, &kvbar, hk * HD + f * kBox, k0, b);
+      tma_head_box(sk + f * kBoxBytes, &mk, &kvbar, f * kBox, hk, k0, b);
+      tma_head_box(sv + f * kBoxBytes, &mv, &kvbar, f * kBox, hk, k0, b);
     }
   }
   for (int it = 0; it < kStages && it < items; ++it) {
@@ -184,7 +201,7 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
       for (int e = 0; e < 4; ++e) {
         const int r = 8 * c + 2 * tig + (e & 1);
         const int idx = 4 * c + e;
-        const bool ok = whole || attend(q0 + r, e < 2 ? key_a : key_b, S, window);
+        const bool ok = whole || attend<kCausal>(q0 + r, e < 2 ? key_a : key_b, S, window);
         float p, ds;
         p_ds(st[idx], dpt[idx], slse[wg][s][r], sdelta[wg][s][r], ok, scale, softcap, p, ds);
         st[idx] = p;
@@ -280,18 +297,18 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   }
 }
 
-template <int HD>
+template <int HD, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dk, void* dv, int B, int S, int H, int KV, float scale,
            float softcap, int window, cudaStream_t stream) {
   using G = Shape<HD>;
   CUtensorMap mq, mdo, mk, mv;
-  int rc = encode_rows(&mq, q, B, S, H * HD);
-  if (rc == 0) rc = encode_rows(&mdo, dout, B, S, H * HD);
-  if (rc == 0) rc = encode_rows(&mk, k, B, S, KV * HD);
-  if (rc == 0) rc = encode_rows(&mv, v, B, S, KV * HD);
+  int rc = encode_heads(&mq, q, B, S, H, HD);
+  if (rc == 0) rc = encode_heads(&mdo, dout, B, S, H, HD);
+  if (rc == 0) rc = encode_heads(&mk, k, B, S, KV, HD);
+  if (rc == 0) rc = encode_heads(&mv, v, B, S, KV, HD);
   if (rc != 0) return rc;
-  auto kernel = flash_dkv_tc_kernel<HD>;
+  auto kernel = flash_dkv_tc_kernel<HD, kCausal>;
   static SmemOptIn opt_in;
   rc = opt_in.apply(kernel, G::kSmem);
   if (rc != 0) return rc;
@@ -302,15 +319,32 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kCausal>
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
+                int KV, float scale, float softcap, int window, cudaStream_t stream) {
+#define REPRO_DKV_TC_LAUNCH(HD)                                                              \
+  return launch<HD, kCausal>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap, \
+                             window, stream)
+  switch (hd) {
+    case 64: REPRO_DKV_TC_LAUNCH(64);
+    case 80: REPRO_DKV_TC_LAUNCH(80);
+    case 112: REPRO_DKV_TC_LAUNCH(112);
+    case 128: REPRO_DKV_TC_LAUNCH(128);
+    default: break;
+  }
+#undef REPRO_DKV_TC_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 }  // namespace repro
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd), bf16, contiguous, 16-byte
 // aligned; lse, delta: (B, H, S) float32 -> dk, dv: (B, S, KV, hd) float32,
 // summed over each KV head's H / KV query heads.  dtype must be 1
-// (bfloat16); hd 64 or 128; softcap <= 0 means none, window <= 0 means
-// none; causal must be 1 (the non-causal form is the FMA kernel's).  The
-// signature is flash_dkv_bwd's.  Returns the launch's cudaError_t
+// (bfloat16); hd 64, 80, 112 or 128; softcap <= 0 means none, window <= 0
+// means none; causal 0 or 1.  The signature is flash_dkv_bwd's.  Returns the launch's cudaError_t
 // (0 on success), or repro::tc::kTensorMapError + the CUresult when a tensor
 // map cannot be made.
 extern "C" int flash_dkv_tc_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -318,15 +352,15 @@ extern "C" int flash_dkv_tc_bwd(int dtype, const void* q, const void* k, const v
                                 void* dv, int B, int S, int H, int KV, int hd, float scale,
                                 float softcap, int window, int causal, void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || !causal || B < 1 || B > 65535 || S < 1 || KV < 1 ||
+  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || S < 1 || KV < 1 ||
       KV > 65535 || H % KV != 0 || (S + kBK - 1) / kBK > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return launch<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap, window, s);
-  if (hd == 64)
-    return launch<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap, window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (causal)
+    return dispatch_hd<true>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                             softcap, window, s);
+  return dispatch_hd<false>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                            softcap, window, s);
 }
 
 extern "C" const char* flash_dkv_tc_error(int code) { return repro::tc::error_string(code); }

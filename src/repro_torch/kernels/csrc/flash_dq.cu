@@ -30,7 +30,8 @@
 // (row, key) pair, here on the float32 FMA pipes (67 TFLOP/s peak).  Causal
 // bf16 inputs at head dims 64 and 128 take flash_dq_tc.cu, on the tensor
 // cores; float32 stays here, since TF32 would miss the 1e-4 its card tests
-// hold, and so do the non-causal form and hd 32, 80 and 112.
+// hold, and so do the non-causal form and hd 16, 32, 80 and 112 (ROADMAP
+// Queue B, redesign 1: the non-causal form onto the tensor cores next).
 
 #include <type_traits>
 
@@ -171,6 +172,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
   return launch<T, HD, kCausal>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, \
                                 window, stream)
   switch (hd) {
+    case 16: REPRO_DQ_LAUNCH(16);
     case 32: REPRO_DQ_LAUNCH(32);
     case 80: REPRO_DQ_LAUNCH(80);
     case 112: REPRO_DQ_LAUNCH(112);
@@ -203,7 +205,7 @@ int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd); lse, delta: (B, H, S)
 // float32 -> dq: (B, S, H, hd) float32.  dtype: 0 float32, 1 bfloat16; hd
-// 32, 64, 80, 112 or 128 (causal bf16 at 64 and 128 is the tensor-core
+// 16, 32, 64, 80, 112 or 128 (causal bf16 at 64 and 128 is the tensor-core
 // kernel's); softcap <= 0 means none, window <= 0 means none; causal 0 or 1.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_dq_bwd(int dtype, const void* q, const void* k, const void* v,

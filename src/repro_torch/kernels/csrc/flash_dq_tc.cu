@@ -54,6 +54,9 @@ constexpr int kStages = 3;
 constexpr int kWG = 2;                // warpgroups, over adjacent 64-row tiles
 constexpr int kThreads = 128 * kWG;   // no producer warp: 256 threads may use 255 registers
 constexpr int kRows = kWG * kBQ;      // query rows per block
+// The masks are written for both forms; only the causal one is instantiated
+// (without causality dq takes flash_dq.cu).
+constexpr bool kCausal = true;
 
 template <int HD>
 struct Shape {
@@ -172,7 +175,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
         for (int e = 0; e < 4; ++e) {
           const int rl = rl_a + (e < 2 ? 0 : 8);
           const int idx = 4 * c + e;
-          const bool ok = whole || attend(r0 + rl, k0 + 8 * c + 2 * tig + (e & 1), S, window);
+          const bool ok =
+              whole || attend<kCausal>(r0 + rl, k0 + 8 * c + 2 * tig + (e & 1), S, window);
           float p, ds;
           p_ds(st[idx], dpt[idx], my_lse[rl], my_delta[rl], ok, scale, softcap, p, ds);
           dpt[idx] = ds;

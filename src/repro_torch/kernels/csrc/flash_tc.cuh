@@ -1,7 +1,9 @@
 // Shared pieces of the tensor-core flash backward kernels (flash_dq_tc.cu,
-// flash_dkv_tc.cu): the causal / sliding-window mask, the 64 x 64 score
-// product over hd in short wgmma chains, and the near-tie recompute of a
-// score as a float32 fmaf chain.
+// flash_dkv_tc.cu): the causal (or not) / sliding-window mask, the 64 x 64
+// score product over hd in short wgmma chains, and the near-tie recompute
+// of a score as a float32 fmaf chain.  Head dims 64, 80, 112 and 128: a
+// 64-row tile holds hd / 64 boxes rounded up (the last zero-filled past hd
+// at 80 and 112), and both the chains and the recompute stop at hd.
 //
 // Rounding.  Both kernels round p or ds to bf16 before a product, so a
 // logit or dp a few ulps off the plain version's can put one across a
@@ -21,10 +23,10 @@ namespace repro {
 namespace tc {
 
 constexpr int kChain = 2;  // k16 steps per wgmma chain of a score tile (see tile_dot)
-// The mask is written for both forms; only the causal one is instantiated.
-constexpr bool kCausal = true;
 
-// Self-attention at positions = indices.
+// Self-attention at positions = indices; without causality a window cuts
+// one side only (a row sees every later key).
+template <bool kCausal>
 __device__ __forceinline__ bool attend(int row, int key, int S, int window) {
   const int rel = row - key;
   return row < S && key < S && (!kCausal || rel >= 0) && (window <= 0 || rel < window);

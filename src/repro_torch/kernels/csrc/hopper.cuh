@@ -6,7 +6,8 @@
 // the register fragment that turns an accumulator into such an A.
 //
 // Every operand tile is staged by TMA in boxes of 64 bf16 features (one
-// 128-byte row, the swizzle span) by 64 rows, with the 128-byte swizzle;
+// 128-byte row, the swizzle span) by 64 rows, with the 128-byte swizzle (a
+// head dim of 80 or 112 takes two boxes, the second zero-filled past hd);
 // a stage buffer is 1024-byte aligned, so the swizzle atoms (8 rows of 128
 // bytes) start at multiples of 1024 and the descriptors' base offset is 0.
 #pragma once
@@ -63,6 +64,28 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int S, int W) 
   const cuuint32_t box[3] = {kBox, kBox, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// The map of a contiguous bf16 tensor (B, S, heads, hd) read one head at a
+// time: boxes of 64 features x 1 head x 64 rows x 1 sample, 128-byte
+// swizzle, the same 64 x 128-byte box in shared memory as encode_rows'.
+// Reads past hd or S fill with zeros, so at hd 80 or 112 a head's second
+// box holds its last 16 or 48 features and zeros, never the next head's.
+// hd % 8 == 0 and a 16-byte aligned base are the caller's to check.
+// Returns 0 or kTensorMapError + the CUresult.
+inline int encode_heads(CUtensorMap* map, const void* base, int B, int S, int heads, int hd) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kTensorMapError;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {kBox, 1, kBox, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -160,6 +183,19 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint6
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a (B, S, heads, hd) map (encode_heads) at (feature c0, head
+// c1, row c2, sample c3) into `dst`; completion (the whole box's bytes,
+// zeros past the edges included) is counted on `bar`.
+__device__ __forceinline__ void tma_head_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -327,13 +363,63 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 80, float32) = A (64 x 16, registers) B (16 x 80) + (scale_d ? d : 0),
+// bf16, B MN-major in shared memory (trans-b = 1); A's fragment as rs_fragment.
+// B's columns 64 .. 79 lie in the second TMA box (the leading offset).
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                    uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 112, float32) = A (64 x 16, registers) B (16 x 112) + (scale_d ? d : 0),
+// bf16, B MN-major in shared memory (trans-b = 1); A's fragment as rs_fragment.
+// B's columns 64 .. 111 lie in the second TMA box (the leading offset).
+__device__ __forceinline__ void wgmma_m64n112k16_rs(float (&d)[56], const uint32_t (&a)[4],
+                                                    uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d (64 x HD) += A (64 x 16, registers) B (16 x HD), B MN-major in shared
-// memory: the register-sourced product at head dim HD (64 or 128).
+// memory: the register-sourced product at head dim HD (64, 80, 112 or 128;
+// past 64, B's columns continue in the next TMA box).
 template <int HD>
 __device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
+  static_assert(HD == 64 || HD == 80 || HD == 112 || HD == 128,
+                "the register-sourced product is instantiated at hd 64, 80, 112 and 128");
   if constexpr (HD == 128) {
     wgmma_m64n128k16_rs(d, a, db, 1);
+  } else if constexpr (HD == 112) {
+    wgmma_m64n112k16_rs(d, a, db, 1);
+  } else if constexpr (HD == 80) {
+    wgmma_m64n80k16_rs(d, a, db, 1);
   } else {
     wgmma_m64n64k16_rs(d, a, db, 1);
   }

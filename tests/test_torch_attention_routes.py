@@ -1,10 +1,10 @@
 """The attention kernels' two routes and the decode split, on the CPU.
 
-``repro_torch.kernels.attention.attention_plan`` picks, before any launch,
-the tensor-core kernels (``csrc/chunk_attention_tc.cu``,
-``csrc/flash_dq_tc.cu``, ``csrc/flash_dkv_tc.cu``: bf16 at head dims 64 and
-128) or the float32 FMA kernels for the chunk forward, dq and dk/dv.  Here:
-the plan itself, the counters by route, that the CPU path launches and
+``repro_torch.kernels.attention.attention_plan`` picks, before any launch
+and per kernel, the tensor-core kernels (``csrc/chunk_attention_tc.cu`` and
+``csrc/flash_dkv_tc.cu``: bf16 at head dims 64, 80, 112 and 128, causal or
+not; ``csrc/flash_dq_tc.cu``: causal bf16 at 64 and 128) or the float32 FMA
+kernels for the chunk forward, dq and dk/dv.  Here: the plan itself, the counters by route, that the CPU path launches and
 routes nothing, that
 ``_build.SIGNATURES`` (and ``KEY_TILES_ARGTYPES``, the tile counter's)
 declares every C entry's argument types as its source writes them, that the
@@ -45,19 +45,24 @@ ROUTED = ("chunk_attention", "flash_dq", "flash_dkv")
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 80, 112, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128])
 def test_attention_plan(dtype, hd, causal):
-    """Causal bf16 at hd 64 and 128 takes the tensor cores; float32 (which
-    TF32 would take below its 1e-4), hd 32, 80 and 112, and the non-causal
-    form at every head dim the FMA kernels.  The default is causal."""
-    want = "tc" if causal and dtype == torch.bfloat16 and hd in (64, 128) else "fma"
+    """Per kernel: in bf16 the chunk forward and dk/dv take the tensor cores
+    at hd 64, 80, 112 and 128 under either causality, dq only causal at 64
+    and 128; float32 (which TF32 would take below its 1e-4), hd 16 and 32,
+    and every other dq the FMA kernels.  The default is causal."""
+    bf = dtype == torch.bfloat16
+    want = {"chunk_attention": "tc" if bf and hd >= 64 else "fma",
+            "flash_dq": "tc" if bf and causal and hd in (64, 128) else "fma",
+            "flash_dkv": "tc" if bf and hd >= 64 else "fma"}
     assert tk.attention_plan(dtype, hd, causal) == want
+    assert set(want) == set(tk.ROUTED) == set(ROUTED)
     if causal:
         assert tk.attention_plan(dtype, hd) == want
 
 
 @pytest.mark.parametrize("dtype,hd,err", [
-    (torch.bfloat16, 16, ValueError), (torch.bfloat16, 96, ValueError),
+    (torch.bfloat16, 48, ValueError), (torch.bfloat16, 96, ValueError),
     (torch.float32, 256, ValueError), (torch.float16, 64, TypeError),
     (torch.float64, 128, TypeError),
 ])
@@ -66,7 +71,7 @@ def test_attention_plan_refuses_what_has_no_kernel(dtype, hd, err):
     with pytest.raises(err, match="head dim|dtype"):
         tk.attention_plan(dtype, hd)
     if err is ValueError:
-        with pytest.raises(ValueError, match=r"\(32, 64, 80, 112, 128\).*Queue B 2"):
+        with pytest.raises(ValueError, match=r"\(16, 32, 64, 80, 112, 128\).*Queue B 2"):
             tk.attention_plan(dtype, hd, causal=False)
 
 

@@ -269,8 +269,10 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, case):
 ])
 def test_noncausal_kernels_match_plain(cuda, dtype, case):
     """The chunk forward, dq and dk/dv without causality (and causal at the
-    new head dims 80 and 112) against their plain versions: out and lse at
-    TOL, dq, dk and dv at FLASH_TOL; every launch on the FMA route."""
+    head dims 80 and 112) against their plain versions: out and lse at TOL,
+    dq, dk and dv at FLASH_TOL; every launch on the route ``attention_plan``
+    names for its kernel (in bf16 the forward and dk/dv on the tensor cores,
+    dq on the FMA kernel but for causal hd 64)."""
     b, s, h, kv, hd, window, softcap, causal = case
     r = np.random.default_rng(s * 5 + hd)
     kernels.reset_launch_counts()
@@ -288,12 +290,141 @@ def test_noncausal_kernels_match_plain(cuda, dtype, case):
     dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)
     torch.cuda.synchronize()
     routes = kernels.route_counts()
-    assert all(routes[n] == {"tc": 0, "fma": 1}
-               for n in ("chunk_attention", "flash_dq", "flash_dkv"))
+    plan = kattn.attention_plan(dtype, hd, causal)
+    assert all(routes[n] == {"tc": 0, "fma": 0, plan[n]: 1} for n in kattn.ROUTED)
     want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
     atol, rtol = FLASH_TOL[dtype]
     for got, exp in zip((dq, dk, dv), want):
         assert got.dtype == torch.float32 and got.shape == exp.shape
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [80, 112])
+def test_fma_forward_and_dkv_in_bf16_match_plain(cuda, hd, causal):
+    """The bf16 FMA forward and dk/dv at the head dims the tensor cores now
+    take, launched directly (the private launchers, which count nothing),
+    against their plain versions: out and lse at TOL, dk and dv at
+    FLASH_TOL.  They stay the comparison the tensor-core kernels are timed
+    against."""
+    b, s, h, kv = 2, 129, 8, 2
+    r = np.random.default_rng(hd + causal)
+    q, k, v, dout = (torch.from_numpy(r.standard_normal(shape)).to(cuda, torch.bfloat16)
+                     for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+                                   (b, s, h, hd)))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    ones = torch.ones_like(pos)
+    kernels.reset_launch_counts()
+    out, lse = kattn._chunk_launch("chunk_attention", q, k, v, pos, pos, ones, 40, 20.0,
+                                   causal)
+    delta = ref.flash_delta(out, dout)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=cuda)
+    dv = torch.empty_like(dk)
+    kattn._backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), 40, 20.0, causal,
+                           "flash_dkv")
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts().values())
+    kw = dict(window=40, softcap=20.0, causal=causal)
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, ones, **kw)
+    _close(out, want_out, torch.bfloat16)
+    _close(lse, want_lse, torch.bfloat16)
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    for got, exp in zip((dk, dv), want[1:]):
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", [
+    # b, s, h, kv, hd, window, softcap, causal
+    (2, 37, 4, 4, 80, None, None, False),     # n_rep 1, ragged S
+    (1, 300, 8, 2, 80, 70, 30.0, False),      # n_rep 4, window + softcap
+    (2, 129, 4, 4, 112, None, 20.0, False),   # n_rep 1, softcap
+    (1, 300, 8, 2, 112, 50, None, False),     # n_rep 4, window across tiles
+    (1, 129, 8, 2, 64, None, None, False),
+    (2, 300, 4, 4, 64, 40, 15.0, False),
+    (1, 129, 4, 4, 128, 30, None, False),
+    (2, 37, 8, 2, 128, None, 30.0, False),
+    (1, 300, 4, 4, 80, None, None, True),     # causal hd 80, n_rep 1
+    (2, 129, 8, 2, 80, 40, 20.0, True),
+    (1, 37, 4, 4, 112, None, 30.0, True),
+    (1, 300, 8, 2, 112, 70, None, True),
+    (2, 1024, 4, 4, 80, None, None, False),   # hubert's sequence, 4 heads
+])
+def test_tc_forward_and_dkv_at_new_forms(cuda, case):
+    """The tensor-core chunk forward and dk/dv without causality at hd 64,
+    80, 112 and 128 and with it at 80 and 112, n_rep 1 and 4, ragged S,
+    windows and softcaps, against their plain versions (out and lse at TOL,
+    dq, dk and dv at FLASH_TOL), each on the route its plan names (dq on the
+    FMA kernel), and dk/dv the same bits on two runs."""
+    b, s, h, kv, hd, window, softcap, causal = case
+    r = np.random.default_rng(s * 11 + hd + causal)
+    kernels.reset_launch_counts()
+    q, k, v, dout, out, lse = _flash_case(r, cuda, torch.bfloat16, b, s, h, kv, hd, window,
+                                          softcap, causal)
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    pos = torch.arange(s, device=cuda)
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, torch.ones_like(pos), **kw)
+    _close(out, want_out, torch.bfloat16)
+    _close(lse, want_lse, torch.bfloat16)
+    delta = ref.flash_delta(out, dout)
+    dq = kattn.flash_dq(q, k, v, dout, lse, delta, **kw)
+    runs = [kattn.flash_dkv(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    routes = kernels.route_counts()
+    assert routes["chunk_attention"] == {"tc": 1, "fma": 0}
+    assert routes["flash_dkv"] == {"tc": 2, "fma": 0}
+    assert routes["flash_dq"] == {"tc": 0, "fma": 1}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    for got, exp in zip((dq, *runs[0]), want):
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [80, 112])
+def test_tc_chunk_forward_with_sentinel_keys_and_padded_rows(cuda, hd, causal):
+    """A prefill chunk on the tensor cores at hd 80 and 112: a sentinel-padded
+    prior table, 5 padded query rows, a window, n_rep 4; out and lse against
+    the plain version at TOL, a padded row the mean of v over every key, and
+    the same bits on a second run."""
+    r = np.random.default_rng(hd * 3 + causal)
+    args = list(_chunk_case(r, cuda, torch.bfloat16, 2, 70, 128, 90, 8, 2, hd))
+    args[3][-5:] = -(2 ** 30)
+    kernels.reset_launch_counts()
+    runs = [kattn.chunk_attention_fwd(*args, window=30, causal=causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["chunk_attention"] == {"tc": 2, "fma": 0}
+    want, want_lse = ref.attention_ref_lse(*args, window=30, causal=causal)
+    _close(runs[0][0], want, torch.bfloat16)
+    _close(runs[0][1], want_lse, torch.bfloat16)
+    assert (runs[0][1][:, :, -5:] < -1e29).all()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_16_on_the_fma_kernels(cuda, dtype, causal):
+    """hd 16 (every reference ``reduced()`` config's head dim) on the FMA
+    kernels: the chunk forward, dq and dk/dv against their plain versions
+    (TOL, FLASH_TOL), with a window and a softcap, n_rep 2, ragged S."""
+    b, s, h, kv, hd = 2, 45, 4, 2, 16
+    r = np.random.default_rng(16 + causal)
+    kernels.reset_launch_counts()
+    q, k, v, dout, out, lse = _flash_case(r, cuda, dtype, b, s, h, kv, hd, 20, 15.0, causal)
+    kw = dict(window=20, softcap=15.0, causal=causal)
+    pos = torch.arange(s, device=cuda)
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, torch.ones_like(pos), **kw)
+    _close(out, want_out, dtype)
+    _close(lse, want_lse, dtype)
+    delta = ref.flash_delta(out, dout)
+    dq = kattn.flash_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(kernels.route_counts()[n] == {"tc": 0, "fma": 1} for n in kattn.ROUTED)
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
+    atol, rtol = FLASH_TOL[dtype]
+    for got, exp in zip((dq, dk, dv), want):
         torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
 
 

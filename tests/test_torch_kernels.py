@@ -439,6 +439,23 @@ def test_noncausal_chunk_forward_with_padding_matches_reference_kernel(window):
     _close(out.numpy()[:, :-3], np.asarray(want)[:, :-3])
 
 
+@pytest.mark.parametrize("window", [None, 5])
+def test_noncausal_flash_at_head_dim_16_matches_reference(window):
+    """hd 16 (every reference ``reduced()`` config's head dim, now with an
+    instance in the FMA kernels) without causality: ``flash_attention`` and
+    its dq, dk, dv against the reference Pallas kernel through ``jax.vjp``
+    (interpret mode), atol 1e-5 as the other cases."""
+    r = np.random.default_rng(16 if window is None else 21)
+    q, k, v = _qkv(r, 2, 23, 23, 4, 2, 16)
+    dout = r.standard_normal(q.shape).astype(np.float32)
+    tq, tk_, tv = (t.requires_grad_(True) for t in _t(q, k, v))
+    out = tk.flash_attention(tq, tk_, tv, False, window, None)
+    out.backward(torch.from_numpy(dout))
+    want = _jax_flash_vjp(q, k, v, dout, window, None, causal=False)
+    for got, exp in zip((out.detach(), tq.grad, tk_.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+
+
 def test_flash_attention_refuses_what_it_has_no_kernel_for():
     """``causal=False`` runs (the encoder's form, once refused) and equals the
     reference's dense non-causal attention; what has no kernel still raises."""
