@@ -58,24 +58,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      psgn_gram (gate, up, down) and no psgn_direct, every psgn launch on
      the tensor-core route.  Then one microbatch timed in parts (main pass,
      probe pass, psgn kernels), and ``probes.persample_sq_norms_gram`` on
-     it (timed, with its peak memory): 32 psgn_direct launches on the split
-     route (its deltas are float32) with 32 psgn_split launches, and 24
-     psgn_gram on the FMA route, its (B,) result within 1e-4 relative of
-     the tree's (the routes against each other, on the card);
+     it (timed, with its peak memory): 32 psgn_direct and 24 psgn_gram
+     launches, all on the split route (its deltas are float32), with 56
+     psgn_split launches (each delta split once) and no FMA launch, its
+     (B,) result within 1e-4 relative of the tree's (the routes against
+     each other, on the card);
   9. the gram tier on the card against the CPU: a reduced float32 Yi-6B (hd
      64, d_ff 1024, S 128, where every layer takes the dispatch Yi-6B takes
      at S 2048) trains 5 steps (a tick every 2): losses, Delta at the ticks
      and ``sq_norm_sum`` within 1e-4 relative, parameters within 1e-4, one
-     batch schedule; every psgn_fused launch on the split route (x and
-     delta split once each).
+     batch schedule; every psgn_fused and psgn_gram launch on the split
+     route (x and delta split once each).
 
 The chunk forward, dq and dk/dv have two routes each, chosen per kernel by
-``kattn.attention_plan``: in bf16 the forward and dk/dv take the
-tensor-core kernels (``chunk_attention_tc.cu``, ``flash_dkv_tc.cu``) at hd
-64, 80, 112 and 128 causal or not, dq (``flash_dq_tc.cu``) causal at 64 and
-128; float32, hd 16 and 32, and every other dq the FMA kernels.  Phase 3
-holds both against the plain versions and prints each case's routes in
-brackets (``[tc]``, ``[fma]``; ``[dq fma, dk/dv tc]`` for the backward),
+``kattn.attention_plan``: in bf16 the forward, dq and dk/dv take the
+tensor-core kernels (``chunk_attention_tc.cu``, ``flash_dq_tc.cu``,
+``flash_dkv_tc.cu``) at hd 64, 80, 112 and 128 causal or not (the forward
+up to 65536 keys); float32, hd 16 and 32, and a forward over more keys the
+FMA kernels.  Phase 3 holds both against the plain versions and prints each
+case's routes in brackets (``[tc]``, ``[fma]``; ``[dq tc, dk/dv tc]`` for
+the backward),
 with the key tiles the tensor-core forward visited out of all, as its
 blocks counted them on the card (it skips tiles by position); its
 tensor-core cases add ragged C and S, C < 64, n_rep 1, 4 and
@@ -84,12 +86,12 @@ with no attendable key, a sentinel-only prior tail,
 shuffled keys at positions past the array bounds, 128-row blocks, the
 serving shape and the training shape; the backward's add S 1, 63, 64, 65,
 129 and 300 at hd 64 and 128 with n_rep 1, 2 and 8, a window across tiles
-and softcap 20, and causal cases at hd 80 and 112.  Every phase asserts
-that each chunk, dq and dk/dv launch took the route the plan names for its
-kernel at the phase's type, head dim and causality: phases 4, 6, 8 and 12
-the tensor cores for all three, phases 5, 7, 9 and 15 (float32) the FMA
-kernels, phase 14 (bf16, non-causal) the tensor cores for the forward and
-dk/dv and the FMA kernel for dq.
+and softcap 20, causal cases at hd 80 and 112, and a bf16 forward over
+65537 keys (one past the tensor-core kernel's tile list: the FMA route).
+Every phase asserts that each chunk, dq and dk/dv launch took the route the
+plan names for its kernel at the phase's type, head dim and causality:
+phases 4, 6, 8, 12 and 14 (bf16, hubert's non-causal hd 80) the tensor
+cores for all three, phases 5, 7, 9 and 15 (float32) the FMA kernels.
 
 Phase 3 also holds the non-causal chunk forward, dq and dk/dv against their
 plain versions: float32 (1e-4) and bf16 (2e-2 forward, the backward at
@@ -98,13 +100,12 @@ window and with a one-sided one, n_rep 1 and 4, softcaps, ragged S, and a
 prefill chunk with sentinel keys and padded rows; every launch on its
 kernel's planned route.  Then the three at hubert-xlarge's training shape
 (B 2, S 1024, 16 heads of hd 80, non-causal, bf16), the three records
-``... (non-causal, hd 80)``: the forward and dk/dv on the tensor cores, dq
-on the FMA kernel, each timed beside the plain version and SDPA
-(``is_causal=False``: the forward, and its backward for dq and dk/dv), the
-tensor-core records also beside the FMA kernel at the same call, launched
-directly (``fma_ms``, ``fma_device_ms``: the kernels this PR's route
-replaced), with the bound at 989 TFLOP/s (the record's) and at the float32
-FMA rate (``fma_bound_ms``).
+``... (non-causal, hd 80)``: all three on the tensor cores, each timed
+beside the plain version and SDPA (``is_causal=False``: the forward, and
+its backward for dq and dk/dv) and beside the FMA kernel at the same call,
+launched directly (``fma_ms``, ``fma_device_ms``, ``fma_max_abs_err``: the
+kernels the tensor-core routes replaced), with the bound at 989 TFLOP/s
+(the record's) and at the float32 FMA rate (``fma_bound_ms``).
 
 Phase 3 also holds the flash-attention backward kernels (dq, dk/dv) against
 their plain version: float32 edge cases (ragged S 37 and 300, n_rep 1 and
@@ -122,7 +123,7 @@ bf16 activations with float32 deltas, ragged S and widths, a single
 position, tile edges (the FMA route), bf16 at widths that are multiples of
 8 (the tensor-core route, S up to 2049, widths up to 4104), and the same
 widths with a float32 operand, bf16 x f32, f32 x bf16 and f32 x f32 (the
-split route for direct and fused); it counts the HGMMA instructions in the
+split route); it counts the HGMMA instructions in the
 tensor-core libraries' SASS (``cuobjdump``).  Then the gram tier's slice
 shapes (B 2, S 2048, bf16): fused over the 16 q/o layers (the record; the
 layer table must give the stack's bits) and the 16 k/v layers, gram at
@@ -131,9 +132,11 @@ standalone entry point calls it (the split route, bound by the function's
 one product at the bf16 rate, the floor of its 3 products beside it; its
 peak memory) and the split of those deltas alone
 (bit for bit against its plain version), direct at q in f32 x f32 (6
-products) and gram at 4096 -> 11008 in float32 (FMA), timed beside the
-plain version and a cuBLAS yardstick, each with its route and achieved
-TFLOP/s.  Products of bf16 values are exact in float32, so every psgn case
+products) and gram at 4096 -> 11008 with float32 deltas (the standalone
+entry point's form) and in float32 (the split route, 6 term pairs for each
+float32 operand's Gram, also held against the split's plain version, and
+the FMA kernel timed beside it at the same call), timed beside the plain
+version and a cuBLAS yardstick, each with its route and achieved TFLOP/s.  Products of bf16 values are exact in float32, so every psgn case
 is held at 1e-4 relative, and prints the plain values beside its error.
 The chunk forward is also timed at the training shape (B 2, S 2048)
 beside the forward of ``F.scaled_dot_product_attention``, with its bound.
@@ -216,8 +219,8 @@ MB L2.
      of the largest logit (``DENSE_GAP_TOL``); (b) 12 moment-tier steps
      through ``StepEngine.for_lm`` (sgd with momentum 0.9, lr 0.02, micro
      batch 2) under phase 6's DiveBatch program, exactly 96 chunk, 48 dq and
-     48 dk/dv launches per microbatch, the chunk forward and dk/dv on the
-     tensor cores and dq on the FMA kernel, step ms by batch, frames/s, the
+     48 dk/dv launches per microbatch, all three on the tensor cores, step
+     ms by batch, frames/s, the
      model-FLOP share and peak memory; (c) the gram tier at 12 of the 48 layers (a depth
      cut), 8 steps under phase 8's program with a resize, the psgn
      launches exactly those of ``ops.group_layers``' grouping (all on the
@@ -418,7 +421,8 @@ def chunk_inputs(r, dtype, *, b, c, prior_real, prior_blocks, blk, h, kv, hd,
 def chunk_case(name, inp, softcap=None, causal=True):
     dtype = inp["q"].dtype
     args = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
-    route = kattn.attention_plan(dtype, inp["q"].shape[-1], causal)["chunk_attention"]
+    route = kattn.attention_plan(dtype, inp["q"].shape[-1], causal,
+                                 keys=inp["k"].shape[1])["chunk_attention"]
     if route == "tc":
         kattn.tc_key_tiles(reset=True)
     out, lse = kattn.chunk_attention_fwd(*args, window=inp["window"], softcap=softcap,
@@ -680,8 +684,8 @@ def flash_kernel_records(r) -> list[dict]:
 
 
 def tc_attention_cases(r) -> None:
-    """The tensor-core chunk forward and dk/dv (bf16, hd 64 and 128) at the
-    edges the loops above do not reach."""
+    """The tensor-core chunk forward, dq and dk/dv (bf16) at the edges the
+    loops above do not reach, and a forward past the tensor-core key cap."""
     bf = torch.bfloat16
     chunk_case("tc n_rep 4, C 45 < 64, Sk 301, softcap 30, window 50 across tiles",
                chunk_inputs(r, bf, b=2, c=45, prior_real=200, prior_blocks=16, blk=16,
@@ -729,8 +733,8 @@ def tc_attention_cases(r) -> None:
                flash_inputs(r, bf, b=1, s=300, h=8, kv=4, hd=128, window=70))
     flash_case("tc n_rep 8, hd 64, S 200, softcap 20",
                flash_inputs(r, bf, b=1, s=200, h=16, kv=2, hd=64, softcap=20.0))
-    # causal at hd 80 and 112 (kimi-k2's head dim): the forward and dk/dv on
-    # the tensor cores, dq on the FMA kernel
+    # causal at hd 80 and 112 (kimi-k2's head dim): all three on the tensor
+    # cores
     flash_case("causal hd 80, n_rep 1, ragged S 300",
                flash_inputs(r, bf, b=2, s=300, h=4, kv=4, hd=80))
     flash_case("causal hd 112, n_rep 4, S 129, window 50, softcap 30",
@@ -738,6 +742,26 @@ def tc_attention_cases(r) -> None:
     chunk_case("causal hd 112, n_rep 4, a prefill chunk (sentinel keys, 5 padded rows)",
                chunk_inputs(r, bf, b=1, c=70, prior_real=90, prior_blocks=8, blk=16, h=8,
                             kv=2, hd=112, pad_rows=5))
+    key_cap_case(r)
+
+
+def key_cap_case(r) -> None:
+    """A bf16 chunk forward over one key more than the tensor-core kernel's
+    tile list holds (hd 128, causal, a 16-row chunk at the end of the
+    context): planned onto the FMA kernel, against the plain version."""
+    sk, c, h, kv, hd = kattn.TC_MAX_KEYS + 1, 16, 8, 2, 128
+    bf = torch.bfloat16
+    k_pos = torch.arange(sk, dtype=torch.int32, device="cuda")
+    inp = dict(q=torch.from_numpy(r.standard_normal((1, c, h, hd))).to("cuda", bf),
+               k=torch.from_numpy(r.standard_normal((1, sk, kv, hd))).to("cuda", bf),
+               v=torch.from_numpy(r.standard_normal((1, sk, kv, hd))).to("cuda", bf),
+               q_pos=k_pos[-c:].clone(), k_pos=k_pos, k_valid=torch.ones_like(k_pos),
+               window=None)
+    before = dict(kattn.chunk_attention.routes)
+    chunk_case(f"bf16 hd {hd}, {sk} keys (one past the tensor-core cap), C {c}", inp)
+    if kattn.chunk_attention.routes != {**before, "fma": before["fma"] + 1}:
+        raise AssertionError(f"{sk} keys: routes {kattn.chunk_attention.routes}, before "
+                             f"{before}")
 
 
 # the non-causal cases: (hd, n_rep, S, softcap) at each head dim with a
@@ -752,8 +776,8 @@ def noncausal_cases(r) -> None:
     versions, float32 and bf16, at hd 16, 32, 64, 80, 112 and 128, with and
     without a window, n_rep 1 and 4, softcaps and ragged S; then a prefill
     chunk with sentinel keys and padded rows.  Every launch takes the route
-    the plan names for its kernel (in bf16 at hd 64 and above the forward
-    and dk/dv the tensor cores, dq the FMA kernel)."""
+    the plan names for its kernel (in bf16 at hd 64 and above all three on
+    the tensor cores)."""
     kernels.reset_launch_counts()
     want = {n: {"tc": 0, "fma": 0} for n in ROUTED_ATTENTION}
     for dtype in (torch.float32, torch.bfloat16):
@@ -797,7 +821,7 @@ def encoder_attention_records(r) -> list[dict]:
     2, S 1024, 16 heads of hd 80, non-causal, bf16), each on its planned
     route: against the plain version, timed beside it and SDPA
     (``is_causal=False``: forward for the chunk forward, backward for dq and
-    dk/dv, as the causal rows) and, for the tensor-core forward and dk/dv,
+    dk/dv, as the causal rows) and, for each kernel on the tensor cores,
     beside the FMA kernel at the same call (launched directly, counted
     nowhere, held against the plain version too), with two bounds: the work
     at the bf16 tensor-core rate (the record's bound) and at the float32 FMA
@@ -821,24 +845,30 @@ def encoder_attention_records(r) -> list[dict]:
              for name, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv))}
     # the FMA kernels at the same call, launched directly (the private
     # launchers count no launch and take no plan)
+    fma_dq = torch.empty(q.shape, dtype=torch.float32, device="cuda")
     fma_dk = torch.empty(k.shape, dtype=torch.float32, device="cuda")
     fma_dv = torch.empty_like(fma_dk)
     fma_fwd = lambda: kattn._chunk_launch(  # noqa: E731
         "chunk_attention", q, k, v, pos, pos, ones, None, None, False)
+    fma_dq_call = lambda: kattn._backward_launch(  # noqa: E731
+        "flash_dq", q, k, v, dout, lse, delta, (fma_dq,), None, None, False, "flash_dq")
     fma_dkv = lambda: kattn._backward_launch(  # noqa: E731
         "flash_dkv", q, k, v, dout, lse, delta, (fma_dk, fma_dv), None, None, False,
         "flash_dkv")
     fma_out, fma_lse = fma_fwd()
+    fma_dq_call()
     fma_dkv()
     torch.cuda.synchronize()
     want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, ones, causal=False)
-    _, want_dk, want_dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, causal=False)
+    want_dq, want_dk, want_dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, causal=False)
+    tol = FLASH_TOL[q.dtype]
     fma_err = {"fwd": max(check("FMA forward", fma_out, want_out, q.dtype),
                           check("FMA forward lse", fma_lse, want_lse, q.dtype)),
-               "dkv": max(check("FMA dk", fma_dk, want_dk, q.dtype, tol=FLASH_TOL[q.dtype]),
-                          check("FMA dv", fma_dv, want_dv, q.dtype, tol=FLASH_TOL[q.dtype]))}
+               "dq": check("FMA dq", fma_dq, want_dq, q.dtype, tol=tol),
+               "dkv": max(check("FMA dk", fma_dk, want_dk, q.dtype, tol=tol),
+                          check("FMA dv", fma_dv, want_dv, q.dtype, tol=tol))}
     fma_times = {name: (timed_ms(fn), timed_ms(fn, spin=True))
-                 for name, fn in (("fwd", fma_fwd), ("dkv", fma_dkv))}
+                 for name, fn in (("fwd", fma_fwd), ("dq", fma_dq_call), ("dkv", fma_dkv))}
     plain_fwd = timed_ms(lambda: ref.attention_ref_lse(q, k, v, pos, pos, ones, causal=False))
     plain_bwd = timed_ms(lambda: ref.flash_grads_ref(q, k, v, lse, delta, dout, causal=False))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -869,7 +899,7 @@ def encoder_attention_records(r) -> list[dict]:
                "bound_by": by, "library_ms": library, "device_ms": dev,
                "fma_bound_ms": fma_bound, "dispatch": route, "tflops": flops / ms / 1e9}
         fma = ""
-        if name in fma_times:
+        if route == "tc":
             f_ms, f_dev = fma_times[name]
             rec.update(fma_ms=f_ms, fma_device_ms=f_dev, fma_max_abs_err=fma_err[name],
                        fma_source=f"src/repro_torch/kernels/csrc/{src}.cu")
@@ -882,7 +912,7 @@ def encoder_attention_records(r) -> list[dict]:
               f"{bound_ms:.4f} ms by {by} at 989 TFLOP/s ({100 * bound_ms / ms:.1f}% of it), "
               f"{fma_bound:.4f} ms at the float32 FMA rate{fma}")
         rows.append(rec)
-    del out, qt, kt, vt, inp, fma_dk, fma_dv, fma_out, fma_lse
+    del out, qt, kt, vt, inp, fma_dq, fma_dk, fma_dv, fma_out, fma_lse
     return rows
 
 
@@ -930,13 +960,14 @@ def psgn_case(name, shape, dtypes, r) -> None:
 
 
 def psgn_record(name, run, plain, library, *, err, moved, flops, peak, replaces,
-                dispatch, pairs=1) -> dict:
+                dispatch, pairs=1, floor_flops=None) -> dict:
     """A psgn kernel's record; ``dispatch`` is its route, "tc" (tensor
     cores), "split" (float32 operands split for the tensor cores) or "fma",
     which names its source.  ``flops`` is the function's, and the bound
-    counts those; the split route runs ``pairs`` bf16 products of them, and
-    its own floor (``split_floor_ms``, at the bf16 rate) is kept beside the
-    bound.  Adds the achieved TFLOP/s of the function."""
+    counts those; the split route runs ``pairs`` term pairs, ``floor_flops``
+    of bf16 work (``pairs * flops`` unless given), and its own floor
+    (``split_floor_ms``, at the bf16 rate) is kept beside the bound.  Adds
+    the achieved TFLOP/s of the function."""
     ms, plain_ms, library_ms = timed_ms(run), timed_ms(plain), timed_ms(library)
     device_ms = timed_ms(run, spin=True)
     bound_ms, by = bound(moved, flops, peak)
@@ -947,17 +978,19 @@ def psgn_record(name, run, plain, library, *, err, moved, flops, peak, replaces,
            "bound_by": by, "library_ms": library_ms, "device_ms": device_ms,
            "dispatch": dispatch, "tflops": flops / ms / 1e9}
     if dispatch == "split":
+        floor_flops = pairs * flops if floor_flops is None else floor_flops
         rec["pairs"] = pairs
-        rec["split_floor_ms"] = bound(moved, pairs * flops, PEAK_BF16)[0]
+        rec["split_floor_ms"] = bound(moved, floor_flops, PEAK_BF16)[0]
+        rec["floor_tflops"] = floor_flops / ms / 1e9
     return rec
 
 
 def psgn_line(label, rec) -> None:
     floor = ""
     if "split_floor_ms" in rec:
-        floor = (f"; the split design's own floor ({rec['pairs']} bf16 products) "
+        floor = (f"; the split design's own floor ({rec['pairs']} term pairs) "
                  f"{rec['split_floor_ms']:.4f} ms, {100 * rec['split_floor_ms'] / rec['ms']:.1f}%"
-                 f" of it, {rec['pairs'] * rec['tflops']:.1f} TFLOP/s on the tensor cores")
+                 f" of it, {rec['floor_tflops']:.1f} TFLOP/s on the tensor cores")
     print(f"  {label} [{rec['dispatch']}]: {rec['ms']:.4f} ms ({rec['device_ms']:.4f} on the "
           f"card alone), {rec['tflops']:.1f} TFLOP/s "
           f"(plain {rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}); bound "
@@ -1006,13 +1039,60 @@ def split_record(d: torch.Tensor) -> dict:
             "device_ms": device_ms}
 
 
+def gram_split_record(r, shape, tag) -> None:
+    """gram at ``shape`` (B, S, Din, Dout) with a float32 operand (``tag``
+    names the pair): the split route, each float32 operand's Gram 6
+    term-pair products on the tensor cores, held against the plain Gram and
+    the split's plain version, timed beside the plain version, two bmm and
+    the FMA kernel at the same call (launched directly, counted nowhere).
+    The bound counts the function's products at the bf16 rate, the floor
+    the split's."""
+    b, s, d, f = shape
+    x, dl = psgn_inputs(r, shape, PSGN_TYPES[tag])
+    got, want = psgn.psgn_gram(x, dl), ref.psgn_gram_ref(x, dl)
+    err, rel = psgn_check(f"psgn_gram slice {tag}", got, want)
+    _, rel_split = psgn_check(f"psgn_gram slice {tag} against the split's plain version", got,
+                              ref.psgn_gram_split_ref(x, dl))
+    print(f"  psgn_gram slice {tag} (B {b}, S {s}, {d} -> {f}): max rel err {rel:.3e}, "
+          f"{rel_split:.3e} against the split route's plain version; plain "
+          f"{want.min().item():.6e}..{want.max().item():.6e}")
+    p = psgn.plan("gram", x.dtype, dl.dtype, s, d, f)
+    rec = psgn_record(
+        "psgn_gram", lambda: psgn.psgn_gram(x, dl), lambda: ref.psgn_gram_ref(x, dl),
+        lambda: (torch.bmm(x.float(), x.float().mT) * torch.bmm(dl.float(), dl.float().mT))
+        .sum((1, 2)),
+        err=err, moved=nbytes(x, dl) + 4 * b, flops=b * s * (s + 1) * (d + f),
+        peak=PEAK_BF16, replaces="src/repro/kernels/psgn.py:129", dispatch=p.route,
+        pairs=p.pairs, floor_flops=b * s * (s + 1) * (p.pairs[0] * d + p.pairs[1] * f))
+    # one partial per 128 x 128 tile pair i <= j
+    n_t = -(-s // psgn.TILE)
+    fma_gram = lambda: psgn._fma_launch(  # noqa: E731
+        "psgn_gram", x, dl, (b, s, d, f), n_t * (n_t + 1) // 2)
+    fma_got = fma_gram()
+    torch.cuda.synchronize()
+    _, fma_rel = psgn_check(f"psgn_gram FMA slice {tag}", fma_got, want)
+    fma_ms, fma_dev = timed_ms(fma_gram), timed_ms(fma_gram, spin=True)
+    rec.update(fma_ms=fma_ms, fma_device_ms=fma_dev,
+               fma_bound_ms=bound(nbytes(x, dl) + 4 * b, b * s * (s + 1) * (d + f),
+                                  PEAK_F32)[0])
+    psgn_line(f"psgn_gram at gate/up, {tag} ({d} -> {f}, {p.pairs} term pairs)", rec)
+    print(f"  psgn_gram at gate/up, {tag}: the FMA kernel at the same call {fma_ms:.4f} ms "
+          f"({fma_dev:.4f} alone, max rel err {fma_rel:.3e}, bound "
+          f"{rec['fma_bound_ms']:.4f} ms at the float32 FMA rate): "
+          f"{fma_ms / rec['ms']:.2f}x the split route's time; the split route "
+          f"{rec['ms'] / rec['library_ms']:.2f}x the library call")
+    del x, dl, fma_got
+
+
 def psgn_kernel_records(r) -> list[dict]:
     """The gram tier's launches at Yi-6B widths, B 2, S 2048: fused over the
     16 q/o layers (the record) and the 16 k/v layers, gram at gate/up
     (4096 -> 11008), direct at q as the standalone entry point calls it (bf16
     activations, float32 deltas: the split route, and the split itself);
     then, printed beside them, direct at q with float32 activations too (6
-    term pairs) and gram at gate/up in float32 (the FMA kernel)."""
+    term pairs) and gram at gate/up with float32 deltas (the standalone
+    entry point's form) and in float32 (the split route, beside the FMA
+    kernel)."""
     b, s, d, f = 2, 2048, YI.d_model, YI.d_ff
     kv = YI.num_kv_heads * YI.resolved_head_dim
     bf16 = PSGN_TYPES["bf16"]
@@ -1096,19 +1176,8 @@ def psgn_kernel_records(r) -> list[dict]:
               both)
     del x, dl
 
-    x, dl = psgn_inputs(r, (b, s, d, f), PSGN_TYPES["f32"])
-    got, want = psgn.psgn_gram(x, dl), ref.psgn_gram_ref(x, dl)
-    err, rel = psgn_check("psgn_gram slice f32", got, want)
-    print(f"  psgn_gram slice f32 (B {b}, S {s}, {d} -> {f}): max rel err {rel:.3e}; plain "
-          f"{want.min().item():.6e}..{want.max().item():.6e}")
-    gram32 = psgn_record(
-        "psgn_gram", lambda: psgn.psgn_gram(x, dl), lambda: ref.psgn_gram_ref(x, dl),
-        lambda: (torch.bmm(x, x.mT) * torch.bmm(dl, dl.mT)).sum((1, 2)),
-        err=err, moved=nbytes(x, dl) + 4 * b, flops=b * s * (s + 1) * (d + f),
-        peak=PEAK_F32, replaces="src/repro/kernels/psgn.py:129",
-        dispatch=psgn.plan("gram", x.dtype, dl.dtype, s, d, f).route)
-    psgn_line(f"psgn_gram at gate/up, float32 ({d} -> {f})", gram32)
-    del x, dl
+    for tag in ("bf16 x f32", "f32"):
+        gram_split_record(r, (b, s, d, f), tag)
     torch.cuda.empty_cache()
     return [direct, split, gram, fused]
 
@@ -1695,7 +1764,7 @@ def gram_train_phase() -> tuple[dict, dict]:
                    "flash_dq": {"tc": want["flash_dq"], "fma": 0},
                    "flash_dkv": {"tc": want["flash_dkv"], "fma": 0},
                    "psgn_direct": {"tc": 0, "split": 0, "fma": 0},
-                   "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
+                   "psgn_gram": {"tc": want["psgn_gram"], "split": 0, "fma": 0},
                    "psgn_fused": {"tc": want["psgn_fused"], "split": 0, "fma": 0}}
     if routes != want_routes:
         raise AssertionError(f"psgn routes {routes}, expected {want_routes}")
@@ -1749,30 +1818,31 @@ def gram_train_phase() -> tuple[dict, dict]:
     alone, alone_s = timed_s(lambda: probes.persample_sq_norms_gram(cfg, params, mb))
     counts_alone = kernels.launch_counts()
     want_alone = {**{k: 0 for k in counts_alone}, "psgn_direct": 4 * layers,
-                  "psgn_gram": 3 * layers, "psgn_split": 4 * layers}
+                  "psgn_gram": 3 * layers, "psgn_split": 7 * layers}
     if counts_alone != want_alone:
         raise AssertionError(f"persample_sq_norms_gram launches {counts_alone}, "
                              f"expected {want_alone}")
-    # its float32 deltas take the split route for direct (each delta split
-    # once), the FMA kernel for gram: the check below holds them against the
-    # tree's tensor-core launches on the same activations and gradients
+    # its float32 deltas take the split route for direct and gram (each
+    # delta split once; the activations are bf16), no FMA kernel: the check
+    # below holds them against the tree's tensor-core launches on the same
+    # activations and gradients
     routes_alone = kernels.route_counts()
     want_routes = {"chunk_attention": {"tc": 0, "fma": 0},
                    "flash_dq": {"tc": 0, "fma": 0},
                    "flash_dkv": {"tc": 0, "fma": 0},
                    "psgn_direct": {"tc": 0, "split": 4 * layers, "fma": 0},
-                   "psgn_gram": {"tc": 0, "fma": 3 * layers},
+                   "psgn_gram": {"tc": 0, "split": 3 * layers, "fma": 0},
                    "psgn_fused": {"tc": 0, "split": 0, "fma": 0}}
     if routes_alone != want_routes:
         raise AssertionError(f"persample_sq_norms_gram routes {routes_alone}, "
                              f"expected {want_routes}")
     rel = ((alone - tree).abs() / tree.abs()).max().item()
     if rel > PSGN_TOL or not torch.isfinite(alone).all():
-        raise AssertionError(f"split and FMA routes against tensor cores: {alone.tolist()} vs "
+        raise AssertionError(f"split route against tensor cores: {alone.tolist()} vs "
                              f"{tree.tolist()}")
-    print(f"  persample_sq_norms_gram (split route: {4 * layers} direct, {4 * layers} splits; "
-          f"FMA: {3 * layers} gram): {alone.tolist()}; the tree (tensor cores: fused, gram) "
-          f"{tree.tolist()}: max rel diff {rel:.3e} (tol {PSGN_TOL})")
+    print(f"  persample_sq_norms_gram (split route: {4 * layers} direct, {3 * layers} gram, "
+          f"{7 * layers} splits; no FMA launch): {alone.tolist()}; the tree (tensor cores: "
+          f"fused, gram) {tree.tolist()}: max rel diff {rel:.3e} (tol {PSGN_TOL})")
     alone_peak = peak_gib(lambda: probes.persample_sq_norms_gram(cfg, params, mb))
     print(f"  persample_sq_norms_gram: {1e3 * alone_s:.1f} ms (host clock, its probe pass "
           f"included); peak device memory above the resident {alone_peak:.2f} GiB")
@@ -1811,6 +1881,7 @@ def gram_card_vs_cpu_phase() -> None:
             attn_routes(runs[dev][1], plan_of(cfg, torch.float32),
                         what="float32 gram-tier training")
             fused_routes = kernels.route_counts()["psgn_fused"]
+            gram_routes = kernels.route_counts()["psgn_gram"]
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
 
     def rel_err(a, b) -> float:
@@ -1834,18 +1905,20 @@ def gram_card_vs_cpu_phase() -> None:
     if sched["cuda"] != sched["cpu"]:
         raise AssertionError(f"batch schedules {sched} differ")
     n_micro = sum(x["num_micro"] for x in card_out["records"])
-    # float32 x and deltas: each fused group on the split route, x and
-    # delta split once each
+    # float32 x and deltas: each fused group and each gram layer (gate, up,
+    # down) on the split route, the x and delta of each split once: 2 x 2
+    # for the groups, 6 x 2 for the gram layers
     if (card_counts["psgn_fused"], card_counts["psgn_gram"], card_counts["psgn_split"]) != \
-            (2 * n_micro, 6 * n_micro, 4 * n_micro) or card_counts["psgn_direct"] \
+            (2 * n_micro, 6 * n_micro, 16 * n_micro) or card_counts["psgn_direct"] \
             or any(cpu_counts.values()) \
-            or fused_routes != {"tc": 0, "split": 2 * n_micro, "fma": 0}:
+            or fused_routes != {"tc": 0, "split": 2 * n_micro, "fma": 0} \
+            or gram_routes != {"tc": 0, "split": 6 * n_micro, "fma": 0}:
         raise AssertionError(f"launches: card {card_counts}, fused routes {fused_routes}, "
-                             f"CPU {cpu_counts}")
+                             f"gram routes {gram_routes}, CPU {cpu_counts}")
     print("  " + ", ".join(f"{k} within {v:.3e} relative" for k, v in rels.items())
           + f" (tol 1e-4); parameters within {err:.3e} (tol 1e-4); batch schedule "
           f"{sched['cuda']} on both; card launches {card_counts}; psgn_fused routes "
-          f"{fused_routes}")
+          f"{fused_routes}, psgn_gram routes {gram_routes}")
 
 
 # ---------------------------------------------------------------------------
@@ -2603,11 +2676,11 @@ def encoder_gram_phase(cfg) -> dict:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     # bf16 activations and probe gradients at widths that are multiples of
     # 8: every psgn launch takes the tensor cores; attention the plan's
-    # routes (the forward and dk/dv the tensor cores, dq the FMA kernel)
+    # routes (all three on the tensor cores)
     plan = plan_of(cfg, torch.bfloat16)
     want_routes = {**{n: {"tc": 0, "fma": 0, plan[n]: want[n]} for n in ROUTED_ATTENTION},
                    "psgn_direct": {"tc": want["psgn_direct"], "split": 0, "fma": 0},
-                   "psgn_gram": {"tc": want["psgn_gram"], "fma": 0},
+                   "psgn_gram": {"tc": want["psgn_gram"], "split": 0, "fma": 0},
                    "psgn_fused": {"tc": want["psgn_fused"], "split": 0, "fma": 0}}
     if routes != want_routes:
         raise AssertionError(f"routes {routes}, expected {want_routes}")

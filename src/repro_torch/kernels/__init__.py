@@ -10,7 +10,7 @@ row-wise int8 quantisation of the gradient compressor; ``ref.py`` the
 float32 plain versions the CPU runs and the kernels are held against,
 ``_build.py`` the nvcc build, and ``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
 launch count, :func:`route_counts` the counts by route ("tc" tensor cores,
-"fma" float32 FMA kernels, and for psgn direct and fused "split", float32
+"fma" float32 FMA kernels, and for the psgn wrappers "split", float32
 operands split into bf16 terms for the tensor cores) of the wrappers that
 have several: the chunk forward, dq, dk/dv and the psgn wrappers.
 """
@@ -38,5 +38,5 @@ def launch_counts() -> dict[str, int]:
 
 def route_counts() -> dict[str, dict[str, int]]:
     """``{wrapper name: {route: launches}}`` for the chunk forward, dq, dk/dv
-    ("tc", "fma") and the psgn wrappers (direct and fused also "split")."""
+    ("tc", "fma") and the psgn wrappers (also "split")."""
     return {fn.__name__: dict(fn.routes) for fn in _COUNTED if hasattr(fn, "routes")}

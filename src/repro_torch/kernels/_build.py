@@ -65,7 +65,7 @@ SIGNATURES = {
     ),
     "flash_dq_tc": (
         "flash_dq_tc_bwd",
-        # flash_dq_bwd's arguments (dtype bfloat16, causal 1)
+        # flash_dq_bwd's arguments (dtype bfloat16)
         [_I, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
@@ -78,7 +78,7 @@ SIGNATURES = {
     ),
     "flash_dkv_tc": (
         "flash_dkv_tc_bwd",
-        # flash_dkv_bwd's arguments (dtype bfloat16, causal 1)
+        # flash_dkv_bwd's arguments (dtype bfloat16)
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
@@ -107,8 +107,10 @@ SIGNATURES = {
     ),
     "psgn_gram_tc": (
         "psgn_gram_tc_fwd",
-        # x, delta, partials, out, B, S, Din, Dout, n_partials, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x plane pointers (a host array), nx, x plane pairs (host ints), px,
+        # the same for delta, partials, out, B, S, Din, Dout, n_partials,
+        # stream
+        [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "quant_int8": (
         "quant_int8_fwd",

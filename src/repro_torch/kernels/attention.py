@@ -34,18 +34,18 @@ its kernel launches in a plain integer attribute (``chunk_attention.launches``,
 kernels.
 
 The chunk forward, dq and dk/dv have two routes each, chosen per kernel by
-:func:`attention_plan` from the type, head dim and causality before any
-launch (:data:`TC_HEAD_DIMS` and :data:`TC_CAUSAL_ONLY` say what each
-tensor-core library is built for):
+:func:`attention_plan` from the type, head dim, causality and (for the
+forward) the key count before any launch (:data:`TC_HEAD_DIMS` says what
+each tensor-core library is built for):
 
-  tc   bf16 on wgmma tensor-core kernels fed by TMA:
-       ``csrc/chunk_attention_tc.cu`` (64-row warpgroups, 128-key tiles,
-       key tiles skipped by position) and ``csrc/flash_dkv_tc.cu`` (64-key
-       blocks over 64-row query tiles) at head dims 64, 80, 112 and 128,
-       causal or not; ``csrc/flash_dq_tc.cu`` (128 query rows over 64-key
-       tiles) causal at 64 and 128;
-  fma  everything else: float32, head dims 16 and 32, and dq without
-       causality or at 80 and 112, on the float32 FMA kernels
+  tc   bf16 on wgmma tensor-core kernels fed by TMA, at head dims 64, 80,
+       112 and 128, causal or not: ``csrc/chunk_attention_tc.cu`` (64-row
+       warpgroups, 128-key tiles, key tiles skipped by position; at most
+       :data:`TC_MAX_KEYS` keys), ``csrc/flash_dq_tc.cu`` (128 query rows
+       over 64-key tiles) and ``csrc/flash_dkv_tc.cu`` (64-key blocks over
+       64-row query tiles);
+  fma  everything else: float32, head dims 16 and 32, and a forward over
+       more than :data:`TC_MAX_KEYS` keys, on the float32 FMA kernels
        ``csrc/chunk_attention.cu``, ``csrc/flash_dq.cu`` and
        ``csrc/flash_dkv.cu`` (causality a template parameter there).
 
@@ -71,11 +71,10 @@ CHUNK_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 #: the three routed kernels, by their wrappers' names
 ROUTED = ("chunk_attention", "flash_dq", "flash_dkv")
 #: head dims each tensor-core library is instantiated for
-TC_HEAD_DIMS = {"chunk_attention": (64, 80, 112, 128), "flash_dq": (64, 128),
+TC_HEAD_DIMS = {"chunk_attention": (64, 80, 112, 128), "flash_dq": (64, 80, 112, 128),
                 "flash_dkv": (64, 80, 112, 128)}
-#: the tensor-core libraries built for the causal form only
-TC_CAUSAL_ONLY = frozenset({"flash_dq"})
-#: keys the tensor-core chunk kernel lists per block (512 tiles of 128)
+#: keys the tensor-core chunk kernel lists per block (512 tiles of 128); a
+#: forward over more takes the FMA kernel
 TC_MAX_KEYS = 512 * 128
 #: the decode kernel's per-thread output registers hold (H / KV) * hd <= this
 DECODE_MAX_GROUP = 2048
@@ -108,20 +107,26 @@ def _no_instance(name: str, hd: int) -> ValueError:
                       f"{CHUNK_HEAD_DIMS}; other head dims are ROADMAP.md, Queue B 2)")
 
 
-def attention_plan(dtype: torch.dtype, hd: int, causal: bool = True) -> dict[str, str]:
+def attention_plan(dtype: torch.dtype, hd: int, causal: bool = True,
+                   keys: int = 0) -> dict[str, str]:
     """The route of each of the chunk forward, dq and dk/dv on the card,
     ``{"chunk_attention": r, "flash_dq": r, "flash_dkv": r}``: "tc" (tensor
     cores) for bf16 where that kernel's library is built for the head dim
-    and form (:data:`TC_HEAD_DIMS`, :data:`TC_CAUSAL_ONLY`), else "fma"
-    (float32 FMA kernels).  float32 stays off the tensor cores: TF32 would
-    miss the 1e-4 its card tests hold.  Raises for a type or head dim that
-    has no kernel."""
+    (:data:`TC_HEAD_DIMS`; either causality), else "fma" (float32 FMA
+    kernels); a forward over ``keys`` > :data:`TC_MAX_KEYS` takes "fma".
+    float32 stays off the tensor cores: TF32 would miss the 1e-4 its card
+    tests hold.  Every library takes both forms, so ``causal`` changes no
+    route; callers name the form they run.  Raises for a type or head dim
+    that has no kernel."""
     if dtype not in _DTYPES:
         raise TypeError(f"attention: dtype {dtype} has no kernel (float32, bfloat16)")
     if hd not in CHUNK_HEAD_DIMS:
         raise _no_instance("attention", hd)
-    return {name: "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS[name]
-            and (causal or name not in TC_CAUSAL_ONLY) else "fma" for name in ROUTED}
+    plan = {name: "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS[name] else "fma"
+            for name in ROUTED}
+    if keys > TC_MAX_KEYS:
+        plan["chunk_attention"] = "fma"
+    return plan
 
 
 def _cap(softcap: float | None) -> float:
@@ -164,7 +169,7 @@ def chunk_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"chunk_attention: no path for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("chunk_attention: q, k and v must share one dtype")
-    route = attention_plan(q.dtype, hd, causal)["chunk_attention"]
+    route = attention_plan(q.dtype, hd, causal, keys=sk)["chunk_attention"]
     out, lse = _chunk_launch("chunk_attention_tc" if route == "tc" else "chunk_attention",
                              q, k, v, q_pos, k_pos, k_valid, window, softcap, causal)
     chunk_attention.launches += 1
@@ -180,9 +185,6 @@ def _chunk_launch(name: str, q, k, v, q_pos, k_pos, k_valid, window, softcap,
     call where a check or a timing compares the two."""
     b, c, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if name == "chunk_attention_tc" and sk > TC_MAX_KEYS:
-        raise ValueError(f"chunk_attention: {sk} keys, the tensor-core kernel takes "
-                         f"at most {TC_MAX_KEYS}")
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
     k_valid = k_valid.to(torch.int32).contiguous()
@@ -448,7 +450,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's type: scale ``hd**-0.5``, the softcap before the causal /
     sliding-window mask, as ``repro/kernels/attention.py::flash_attention``.
     ``causal=False`` is the encoder's form (a window then cuts one side
-    only): in bf16 its forward and dk/dv take the tensor cores, its dq the
-    FMA kernel."""
+    only).  In bf16 at head dims 64, 80, 112 and 128 the forward, dq and
+    dk/dv take the tensor cores under either causality."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                  bool(causal), window, softcap)

@@ -4,11 +4,11 @@
 //
 // Replaces: _flash_fwd_kernel in repro/kernels/attention.py (reached through
 // _flash_forward by chunk_attention, and by flash_attention's forward).
-// The float32 route and bf16 at hd 16 and 32; bf16 at hd 64, 80, 112 and
-// 128 takes chunk_attention_tc.cu on the main path, and this kernel's bf16
-// instances at 80 and 112 (either form) and 64 and 128 (non-causal) are
-// reached only to compare the two kernels (kernels/attention.py's
-// _chunk_launch).
+// The float32 route, bf16 at hd 16 and 32, and bf16 over more keys than
+// chunk_attention_tc.cu's tile list holds (65536); bf16 at hd 64, 80, 112
+// and 128 otherwise takes chunk_attention_tc.cu, and this kernel's bf16
+// instances there are reached only past that cap or to compare the two
+// kernels (kernels/attention.py's _chunk_launch).
 //
 // Numerics follow the reference kernel: scale hd**-0.5 after the q.k dot,
 // tanh softcap BEFORE the mask, an additive -1e30 bias (never -inf) for
@@ -40,8 +40,6 @@
 // The padded row of HD + 4 floats ends 4 (hd 32, 64, 128) or 20 (hd 16, 80, 112)
 // words past a multiple of 32 banks, so the 8 lanes of a float4 phase start
 // on distinct 4-bank groups: no bank conflicts at any instantiated head dim.
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -213,23 +211,16 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
                 const void* k_pos, const void* k_valid, void* out, void* lse, int B,
                 int C, int Sk, int H, int KV, float scale, float softcap, int window,
                 cudaStream_t stream) {
-  // causal bf16 at hd 64 and 128 is the tensor-core kernel's (chunk_attention_tc.cu):
-  // it has no instance here
-  constexpr bool kAll = std::is_same<T, float>::value || !kCausal;
 #define REPRO_CHUNK_LAUNCH(HD)                                                          \
   return launch<T, HD, kCausal>(q, k, v, q_pos, k_pos, k_valid, out, lse, B, C, Sk, H, \
                                 KV, scale, softcap, window, stream)
   switch (hd) {
     case 16: REPRO_CHUNK_LAUNCH(16);
     case 32: REPRO_CHUNK_LAUNCH(32);
+    case 64: REPRO_CHUNK_LAUNCH(64);
     case 80: REPRO_CHUNK_LAUNCH(80);
     case 112: REPRO_CHUNK_LAUNCH(112);
-    case 64:
-      if constexpr (kAll) REPRO_CHUNK_LAUNCH(64);
-      break;
-    case 128:
-      if constexpr (kAll) REPRO_CHUNK_LAUNCH(128);
-      break;
+    case 128: REPRO_CHUNK_LAUNCH(128);
     default:
       break;
   }
@@ -254,9 +245,8 @@ int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
 
 // q: (B, C, H, hd); k, v: (B, Sk, KV, hd); q_pos: (C,) int32; k_pos, k_valid:
 // (Sk,) int32 -> out: (B, C, H, hd) in q's type, lse: (B, H, C) float32.
-// dtype: 0 float32, 1 bfloat16; hd 16, 32, 64, 80, 112 or 128 (causal bf16 at 64
-// and 128 is the tensor-core kernel's); softcap <= 0 means none, window <= 0
-// means none; causal 0 or 1.  Returns the launch's cudaError_t (0 on
+// dtype: 0 float32, 1 bfloat16; hd 16, 32, 64, 80, 112 or 128; softcap <= 0
+// means none, window <= 0 means none; causal 0 or 1.  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int chunk_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* k_pos,

@@ -20,20 +20,19 @@
 // row, so skipping them leaves dq unchanged and halves the causal work.
 // Each of the 4 warps owns 8 query rows; in the score phase lane j scores
 // key j against them (q.k and dO.v, each in the FMA forward kernel's fmaf
-// order, so the logits match chunk_attention.cu's bit for bit; a causal bf16
-// forward at hd 64 or 128 runs chunk_attention_tc.cu, whose tensor-core sums
+// order, so the logits match chunk_attention.cu's bit for bit; a bf16
+// forward at hd 64, 80, 112 or 128 runs chunk_attention_tc.cu, whose tensor-core sums
 // differ from these in rounding only), in the accumulation
 // phase lane l owns head-dim columns l, l+32, ... below hd.  Causality is a
 // template parameter.
 //
 // What bounds it on the H100: FLOPs, 3 matrix products of 2*hd per attended
-// (row, key) pair, here on the float32 FMA pipes (67 TFLOP/s peak).  Causal
-// bf16 inputs at head dims 64 and 128 take flash_dq_tc.cu, on the tensor
-// cores; float32 stays here, since TF32 would miss the 1e-4 its card tests
-// hold, and so do the non-causal form and hd 16, 32, 80 and 112 (ROADMAP
-// Queue B, redesign 1: the non-causal form onto the tensor cores next).
-
-#include <type_traits>
+// (row, key) pair, here on the float32 FMA pipes (67 TFLOP/s peak).  bf16
+// inputs at head dims 64, 80, 112 and 128, causal or not, take
+// flash_dq_tc.cu, on the tensor cores; float32 stays here, since TF32 would
+// miss the 1e-4 its card tests hold, and so do hd 16 and 32.  The bf16
+// instances at the tensor cores' head dims stay built, so that a check or a
+// timing can hold that kernel against this one at the same call.
 
 #include "flash_bwd.cuh"
 
@@ -165,23 +164,16 @@ template <typename T, bool kCausal>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, int B, int S, int H, int KV,
                 float scale, float softcap, int window, cudaStream_t stream) {
-  // causal bf16 at hd 64 and 128 is the tensor-core kernel's (flash_dq_tc.cu):
-  // it has no instance here
-  constexpr bool kAll = std::is_same<T, float>::value || !kCausal;
 #define REPRO_DQ_LAUNCH(HD)                                                                 \
   return launch<T, HD, kCausal>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, \
                                 window, stream)
   switch (hd) {
     case 16: REPRO_DQ_LAUNCH(16);
     case 32: REPRO_DQ_LAUNCH(32);
+    case 64: REPRO_DQ_LAUNCH(64);
     case 80: REPRO_DQ_LAUNCH(80);
     case 112: REPRO_DQ_LAUNCH(112);
-    case 64:
-      if constexpr (kAll) REPRO_DQ_LAUNCH(64);
-      break;
-    case 128:
-      if constexpr (kAll) REPRO_DQ_LAUNCH(128);
-      break;
+    case 128: REPRO_DQ_LAUNCH(128);
     default:
       break;
   }
@@ -205,8 +197,8 @@ int dispatch(int causal, int hd, const void* q, const void* k, const void* v,
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd); lse, delta: (B, H, S)
 // float32 -> dq: (B, S, H, hd) float32.  dtype: 0 float32, 1 bfloat16; hd
-// 16, 32, 64, 80, 112 or 128 (causal bf16 at 64 and 128 is the tensor-core
-// kernel's); softcap <= 0 means none, window <= 0 means none; causal 0 or 1.
+// 16, 32, 64, 80, 112 or 128; softcap <= 0 means none, window <= 0 means
+// none; causal 0 or 1.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_dq_bwd(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta, void* dq,

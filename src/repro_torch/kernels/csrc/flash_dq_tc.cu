@@ -1,45 +1,53 @@
 // Flash-attention backward, dq pass, on Hopper's tensor cores (sm_90a), bf16
-// q, k, v, dout: causal (optionally sliding-window, softcapped)
+// q, k, v, dout: causal or not (optionally sliding-window, softcapped)
 // self-attention with grouped KV heads, recomputing p from the lse the
 // forward wrote.
 //
-// Replaces, on bf16 inputs at head dims 64 and 128: _flash_dq_kernel (with
-// _recompute_dlogits) in repro/kernels/attention.py, launched by
-// _flash_backward:
+// Replaces, on bf16 inputs at head dims 64, 80, 112 and 128, causal or not:
+// _flash_dq_kernel (with _recompute_dlogits) in repro/kernels/attention.py,
+// launched by _flash_backward:
 //
 //   dq_i = scale * sum_j bf(ds_ij) k_j,   ds_ij = p_ij (dO_i.v_j - delta_i)
 //                                          [* (1 - tanh^2) under a softcap]
 //
 // with p_ij = exp(logit_ij - lse_i) where the mask allows and exactly 0
 // elsewhere, bf() the rounding to bf16 (dlogits.astype(k.dtype)); dq leaves
-// in float32.  float32 inputs and head dim 32 take flash_dq.cu.
+// in float32.  float32 inputs and head dims 16 and 32 take flash_dq.cu.
+// Causality is a template parameter.
 //
 // Structure.  One block per (128 query rows, query head, batch row): two
 // warpgroups of 128 threads, each over 64 adjacent rows of the same head,
 // and no producer warp (256 threads may use 255 registers a thread; a 288-
 // or 384-thread block gets 168).  Thread 0 loads both warpgroups' q and dO
-// once by TMA, then streams K/V tiles of 64 keys of KV head h / n_rep
+// once by TMA (4-D maps, one head at a time: at hd 80 and 112 a row's
+// second box holds the head's last 16 or 48 features and zeros, never the
+// next head's), then streams K/V tiles of 64 keys of KV head h / n_rep
 // through a 3-stage ring, from the first tile the window reaches to the
-// diagonal: both warpgroups read every tile, so K and V are read once per
-// 128 rows, and the earlier warpgroup skips the last tile (past its
-// diagonal), the later one any first tile out of its window.  Pairing
-// adjacent rows of one head, not two heads of one KV group, works for any
-// n_rep, MHA included.  Per tile a warpgroup forms S = Q K^T and dP = dO V^T
-// (wgmma, both operands in shared memory, K-major, in the short chains of
-// flash_tc.cuh), p and ds in registers with the mask, ds rounded to bf16 (a
-// ds near a rounding tie taken again as fmaf chains, flash_tc.cuh), then dQ
-// += dS K with dS in registers (the accumulator's layout is the A
-// fragment's) and K MN-major (transpose bit set), 4 k16 steps.  dQ (64 x hd
-// float32) stays in registers and is written once, scaled: no atomics, the
-// same bits on every run.  A stage is refilled by the second warpgroup to
-// say it has read it (a counter in shared memory), so neither waits for the
-// other.
+// diagonal (causal) or to the last tile below S (not): both warpgroups
+// read every tile, so K and V are read once per 128 rows.  Under causality
+// the earlier warpgroup skips the last tile (past its diagonal); with a
+// window the later one skips any first tile out of its window (without
+// causality a window cuts one side only, so that is the one difference).
+// Pairing adjacent rows of one head, not two heads of one KV group, works
+// for any n_rep, MHA included.  Per tile a warpgroup forms S = Q K^T and dP
+// = dO V^T (wgmma, both operands in shared memory, K-major, in the short
+// chains of flash_tc.cuh, hd / 16 k16 steps), p and ds in registers with
+// the mask, ds rounded to bf16 (a ds near a rounding tie taken again as
+// fmaf chains, flash_tc.cuh), then dQ += dS K with dS in registers (the
+// accumulator's layout is the A fragment's) and K MN-major (transpose bit
+// set), 4 k16 steps of N = hd (no zero column multiplied at 80 and 112).
+// dQ (64 x hd float32) stays in registers and is written once, scaled: no
+// atomics, the same bits on every run.  A stage is refilled by the second
+// warpgroup to say it has read it (a counter in shared memory), so neither
+// waits for the other.
 //
 // Balance.  Grid (S / 128, H, B), the latest row blocks (the most key tiles
-// under causality) launched first: 1024 blocks at the training shape.
+// under causality) launched first: 1024 blocks at Yi-6B's training shape;
+// without causality every block reads every tile, 256 blocks of 16 tiles
+// at hubert's (S 1024, 16 heads, B 2), one a SM at 161 KB of shared memory.
 //
-// What bounds it on the H100: FLOPs, 3 products of 2 hd per causal (row,
-// key) pair at the bf16 tensor-core rate.
+// What bounds it on the H100: FLOPs, 3 products of 2 hd per (row, key) pair
+// the mask lets through, at the bf16 tensor-core rate.
 
 #include "flash_tc.cuh"
 
@@ -54,21 +62,18 @@ constexpr int kStages = 3;
 constexpr int kWG = 2;                // warpgroups, over adjacent 64-row tiles
 constexpr int kThreads = 128 * kWG;   // no producer warp: 256 threads may use 255 registers
 constexpr int kRows = kWG * kBQ;      // query rows per block
-// The masks are written for both forms; only the causal one is instantiated
-// (without causality dq takes flash_dq.cu).
-constexpr bool kCausal = true;
 
 template <int HD>
 struct Shape {
-  static constexpr int kFB = HD / kBox;               // feature boxes per row
-  static constexpr int kTileBytes = kBox * HD * 2;    // 64 rows of q, dO, k or v
+  static constexpr int kFB = (HD + kBox - 1) / kBox;  // feature boxes per row
+  static constexpr int kTileBytes = kFB * kBoxBytes;  // 64 rows of q, dO, k or v
   static constexpr int kStageBytes = 2 * kTileBytes;  // k, then v
   // q of both warpgroups, dO of both, then the K/V ring
   static constexpr int kSmem = 2 * kWG * kTileBytes + kStages * kStageBytes + kSwizzleAtom;
   static constexpr int kO = HD / 2;  // accumulator floats of 64 x HD
 };
 
-template <int HD>
+template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
                    const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
@@ -93,9 +98,13 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
 
   // the key tiles rows r0 .. r0 + 63 see: from the first the window reaches
-  // of row r0 to the diagonal of the last row below S (none if r0 >= S)
+  // of row r0 to the diagonal of the last row below S (causal) or to the
+  // last tile below S (not); none if r0 >= S
   auto first_tile = [&](int r0) { return window > 0 ? max(0, r0 - window + 1) / kBK : 0; };
-  auto end_tile = [&](int r0) { return r0 < S ? (min(r0 + kBQ, S) - 1) / kBK + 1 : 0; };
+  auto end_tile = [&](int r0) {
+    if (r0 >= S) return 0;
+    return kCausal ? (min(r0 + kBQ, S) - 1) / kBK + 1 : (S - 1) / kBK + 1;
+  };
   const int r0 = q0 + wg * kBQ;
   const int my_begin = first_tile(r0), my_end = end_tile(r0);
   const int t_begin = first_tile(q0);  // the block's tiles: the union of both
@@ -115,15 +124,15 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   }
   __syncthreads();
 
-  // tile i of the block's range into stage i % kStages: K then V, one box
-  // of 64 keys x 64 features each
+  // tile i of the block's range into stage i % kStages: K then V, kFB
+  // boxes of 64 keys x 64 features each
   auto issue = [&](int i) {
     const int s = i % kStages, key0 = (t_begin + i) * kBK;
     uint8_t* st = ring + s * G::kStageBytes;
-    mbar_expect_tx(&full[s], G::kStageBytes);
+    mbar_expect_tx(&full[s], G::kStageBytes);  // every box's bytes, zero fill included
     for (int f = 0; f < G::kFB; ++f) {
-      tma_box(st + f * kBoxBytes, &mk, &full[s], hk * HD + f * kBox, key0, b);
-      tma_box(st + G::kTileBytes + f * kBoxBytes, &mv, &full[s], hk * HD + f * kBox, key0, b);
+      tma_head_box(st + f * kBoxBytes, &mk, &full[s], f * kBox, hk, key0, b);
+      tma_head_box(st + G::kTileBytes + f * kBoxBytes, &mv, &full[s], f * kBox, hk, key0, b);
     }
   };
   if (tid == 0) {
@@ -132,10 +141,10 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     mbar_expect_tx(&qbar, 2 * kWG * G::kTileBytes);
     for (int w = 0; w < kWG; ++w)
       for (int f = 0; f < G::kFB; ++f) {
-        tma_box(sq + w * G::kTileBytes + f * kBoxBytes, &mq, &qbar, h * HD + f * kBox,
-                q0 + w * kBQ, b);
-        tma_box(sdo + w * G::kTileBytes + f * kBoxBytes, &mdo, &qbar, h * HD + f * kBox,
-                q0 + w * kBQ, b);
+        tma_head_box(sq + w * G::kTileBytes + f * kBoxBytes, &mq, &qbar, f * kBox, h,
+                     q0 + w * kBQ, b);
+        tma_head_box(sdo + w * G::kTileBytes + f * kBoxBytes, &mdo, &qbar, f * kBox, h,
+                     q0 + w * kBQ, b);
       }
     for (int i = 0; i < kStages && i < n; ++i) issue(i);
   }
@@ -159,7 +168,7 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     // every warpgroup waits on every tile, so each tracks the stages' phases
     mbar_wait(&full[s], (i / kStages) & 1);
     if (t >= my_begin && t < my_end) {
-      // S = Q K^T and dP = dO V^T over hd
+      // S = Q K^T and dP = dO V^T over hd (hd / 16 k16 steps)
       float st[32], dpt[32], tmp[32];
       tile_dot<HD>(st, tmp, my_q, sk);
       tile_dot<HD>(dpt, tmp, my_do, sv);
@@ -205,8 +214,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) rs_fragment(da[kk], dpt, kk);
 
-      // dQ += dS K: K's k16 slices 16 keys (2 KB) apart, the next feature
-      // box (8 KB) along N
+      // dQ += dS K: K's k16 slices 16 keys (2 KB) apart, N = hd, the next
+      // feature box (8 KB) along N
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
@@ -233,18 +242,18 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   }
 }
 
-template <int HD>
+template <int HD, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int B, int S, int H, int KV, float scale, float softcap,
            int window, cudaStream_t stream) {
   using G = Shape<HD>;
   CUtensorMap mq, mdo, mk, mv;
-  int rc = encode_rows(&mq, q, B, S, H * HD);
-  if (rc == 0) rc = encode_rows(&mdo, dout, B, S, H * HD);
-  if (rc == 0) rc = encode_rows(&mk, k, B, S, KV * HD);
-  if (rc == 0) rc = encode_rows(&mv, v, B, S, KV * HD);
+  int rc = encode_heads(&mq, q, B, S, H, HD);
+  if (rc == 0) rc = encode_heads(&mdo, dout, B, S, H, HD);
+  if (rc == 0) rc = encode_heads(&mk, k, B, S, KV, HD);
+  if (rc == 0) rc = encode_heads(&mv, v, B, S, KV, HD);
   if (rc != 0) return rc;
-  auto kernel = flash_dq_tc_kernel<HD>;
+  auto kernel = flash_dq_tc_kernel<HD, kCausal>;
   static SmemOptIn opt_in;
   rc = opt_in.apply(kernel, G::kSmem);
   if (rc != 0) return rc;
@@ -255,30 +264,47 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kCausal>
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, int B, int S, int H, int KV,
+                float scale, float softcap, int window, cudaStream_t stream) {
+#define REPRO_DQ_TC_LAUNCH(HD)                                                                \
+  return launch<HD, kCausal>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, window, \
+                             stream)
+  switch (hd) {
+    case 64: REPRO_DQ_TC_LAUNCH(64);
+    case 80: REPRO_DQ_TC_LAUNCH(80);
+    case 112: REPRO_DQ_TC_LAUNCH(112);
+    case 128: REPRO_DQ_TC_LAUNCH(128);
+    default: break;
+  }
+#undef REPRO_DQ_TC_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 }  // namespace repro
 
 // q, dout: (B, S, H, hd); k, v: (B, S, KV, hd), bf16, contiguous, 16-byte
 // aligned; lse, delta: (B, H, S) float32 -> dq: (B, S, H, hd) float32.
-// dtype must be 1 (bfloat16); hd 64 or 128; softcap <= 0 means none, window
-// <= 0 means none; causal must be 1 (the non-causal form is the FMA
-// kernel's).  The signature is flash_dq_bwd's.  Returns the launch's
-// cudaError_t (0 on success), or repro::tc::kTensorMapError + the CUresult
-// when a tensor map cannot be made.
+// dtype must be 1 (bfloat16); hd 64, 80, 112 or 128; softcap <= 0 means
+// none, window <= 0 means none; causal 0 or 1.  The signature is
+// flash_dq_bwd's.  Returns the launch's cudaError_t (0 on success), or
+// repro::tc::kTensorMapError + the CUresult when a tensor map cannot be made.
 extern "C" int flash_dq_tc_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta, void* dq,
                                int B, int S, int H, int KV, int hd, float scale, float softcap,
                                int window, int causal, void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || !causal || B < 1 || B > 65535 || S < 1 || KV < 1 ||
-      H % KV != 0 || H > 65535)
+  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || S < 1 ||
+      KV < 1 || H % KV != 0 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return launch<128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, window, s);
-  if (hd == 64)
-    return launch<64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (causal)
+    return dispatch_hd<true>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
+                             window, s);
+  return dispatch_hd<false>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
+                            window, s);
 }
 
 extern "C" const char* flash_dq_tc_error(int code) { return repro::tc::error_string(code); }

@@ -27,17 +27,20 @@ Three routes, chosen by :func:`plan` from dtypes and widths before any launch:
          ``csrc/psgn_direct_tc.cu`` (tiles 128 Din x 256 Dout) and
          ``csrc/psgn_gram_tc.cu`` (64 x 128 halves of 128 x 128 position
          pairs);
-  split  direct and fused with a float32 operand, widths multiples of 8:
-         :func:`psgn_split` (``csrc/psgn_split.cu``) splits each float32
-         operand into three bf16 terms, hi + mid + lo, and
-         ``psgn_direct_tc.cu`` sums the products of :func:`split_pairs`'
-         term pairs, 3 or 6, in one float32 accumulator per tile: products of
-         bf16 values are exact in float32, so this is the float32 product up
-         to the order of the sums and the pairs left out (below 2^-21 of
-         |x||d| each).  The terms are scratch of the call;
-  fma    anything else (gram with a float32 operand, a width not a multiple
-         of 8): the float32 FMA kernels ``csrc/psgn_direct.cu`` and
-         ``csrc/psgn_gram.cu`` (tiles 128 x 128).
+  split  a float32 operand, widths multiples of 8: :func:`psgn_split`
+         (``csrc/psgn_split.cu``) splits each float32 operand into three
+         bf16 terms, hi + mid + lo, and the same tensor-core kernels sum
+         term products in one float32 accumulator per tile: direct and
+         fused :func:`split_pairs`' 3 or 6 pairs of an x term and a delta
+         term, gram for each operand's Gram :func:`gram_pairs`' 6 pairs of
+         its own terms (1 for bf16), a set closed under swapping so the Gram
+         stays symmetric.  Products of bf16 values are exact in float32, so
+         this is the float32 result up to the order of the sums and the
+         pairs left out (below 2^-21 of |x||d| or |v|^2 each).  The terms
+         are scratch of the call;
+  fma    a width not a multiple of 8: the float32 FMA kernels
+         ``csrc/psgn_direct.cu`` and ``csrc/psgn_gram.cu`` (tiles 128 x
+         128).
 
 This is a dispatch between kernels decided up front, not a fallback: a
 tensor-core or split launch that fails raises.  A tensor on the CPU goes to
@@ -45,8 +48,8 @@ the plain version (``kernels/ref.py``).  A tensor on the card goes to a
 kernel, or the wrapper raises: a failed build, a refused launch, an
 unsupported type or a card below sm_90 is an error, never a fall back to the
 plain version.  Each wrapper counts its launches in ``.launches`` and, by
-route, in ``.routes`` (``{"tc": n, "fma": m}``, and ``"split"`` for direct and
-fused); :func:`psgn_split` counts its own launches.
+route, in ``.routes`` (``{"tc": n, "split": s, "fma": m}``); :func:`psgn_split`
+counts its own launches.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.attention import _DTYPES, _check_cuda, _raise_on
+from repro_torch.kernels.ref import gram_pairs
 
 #: the FMA kernels' output tile (``kTile`` in ``csrc/psgn_tile.cuh``)
 TILE = 128
@@ -72,11 +76,12 @@ class Plan(NamedTuple):
     """How a call runs on the card: ``route`` "tc", "split" or "fma", the
     output ``tile`` of one block, ``n_partials``, the partial sums per sample
     the blocks write (the second pass adds them in a fixed order), and
-    ``pairs``, the term products each tile sums (1 but on the split route)."""
+    ``pairs``, the term products each tile sums (1 but on the split route):
+    for gram a pair ``(x's Gram, delta's Gram)``."""
     route: str
     tile: tuple[int, int]
     n_partials: int
-    pairs: int = 1
+    pairs: int | tuple[int, int] = 1
 
 
 def split_pairs(x_dtype: torch.dtype, d_dtype: torch.dtype) -> tuple[tuple[int, int], ...]:
@@ -97,14 +102,17 @@ def plan(kind: str, x_dtype: torch.dtype, d_dtype: torch.dtype, s: int, d_in: in
          d_out: int, n_layers: int = 1) -> Plan:
     """The route and tile plan of a ``kind`` ("direct", covering fused, or
     "gram") call on the card: tensor cores for bf16 x and delta whose widths
-    are multiples of 8, the split route for direct with a float32 operand at
-    such widths, the FMA kernels otherwise."""
+    are multiples of 8, the split route for a float32 operand at such
+    widths, the FMA kernels otherwise."""
     widths8 = d_in % 8 == 0 and d_out % 8 == 0
     tc = x_dtype == d_dtype == torch.bfloat16 and widths8
     if kind == "gram":
         n_t = _tiles(s)
-        pairs = n_t * (n_t + 1) // 2
-        return Plan("tc", TC_GRAM_TILE, 2 * pairs) if tc else Plan("fma", (TILE, TILE), pairs)
+        tile_pairs = n_t * (n_t + 1) // 2
+        if not widths8:
+            return Plan("fma", (TILE, TILE), tile_pairs, (1, 1))
+        return Plan("tc" if tc else "split", TC_GRAM_TILE, 2 * tile_pairs,
+                    (len(gram_pairs(x_dtype)), len(gram_pairs(d_dtype))))
     if kind != "direct":
         raise ValueError(f"unknown kind {kind!r}")
     if widths8:
@@ -238,6 +246,20 @@ def psgn_direct(x: torch.Tensor, delta: torch.Tensor, *, block_i: int = 128,
     return out
 
 
+def _gram_operand(v: torch.Tensor) -> tuple:
+    """The gram kernel's arguments for one operand: its bf16 planes (``v``
+    itself, or the split of a float32 ``v``) as a host array of pointers,
+    their count, :func:`gram_pairs`' pairs as a host array of ints, their
+    count; and what the host arrays point into, held until the call
+    returns."""
+    planes = _terms([v])[0]
+    pairs = gram_pairs(v.dtype)
+    ptrs = (ctypes.c_void_p * len(planes))(*[t.data_ptr() for t in planes])
+    flat = (ctypes.c_int * (2 * len(pairs)))(*[i for pair in pairs for i in pair])
+    return (ctypes.addressof(ptrs), len(planes), ctypes.addressof(flat), len(pairs)), \
+        (planes, ptrs, flat)
+
+
 def psgn_gram(x: torch.Tensor, delta: torch.Tensor, *, block_si: int = 256,
               block_sj: int = 256) -> torch.Tensor:
     """(B,) per-sample ``sum_{t,t'} (x_t . x_t')(d_t . d_t')``, equal to
@@ -252,10 +274,12 @@ def psgn_gram(x: torch.Tensor, delta: torch.Tensor, *, block_si: int = 256,
     if p.route == "fma":
         out = _fma_launch("psgn_gram", x, delta, (b, s, d_in, d_out), p.n_partials)
     else:
+        x_args, _x_held = _gram_operand(x)
+        d_args, _d_held = _gram_operand(delta)
         partials, out = _outputs(x, b, p.n_partials)
         lib = _build.library("psgn_gram_tc")
-        rc = lib.psgn_gram_tc_fwd(x.data_ptr(), delta.data_ptr(), partials.data_ptr(),
-                                  out.data_ptr(), b, s, d_in, d_out, p.n_partials, _stream(x))
+        rc = lib.psgn_gram_tc_fwd(*x_args, *d_args, partials.data_ptr(), out.data_ptr(), b, s,
+                                  d_in, d_out, p.n_partials, _stream(x))
         _raise_on(lib, "psgn_gram_tc", rc)
     _count(psgn_gram, p.route)
     return out
@@ -300,8 +324,6 @@ def psgn_fused_layers(xs: list[torch.Tensor], deltas: list[torch.Tensor]) -> tor
 
 
 psgn_split.launches = 0
-psgn_gram.launches = 0
-psgn_gram.routes = {"tc": 0, "fma": 0}
-for _fn in (psgn_direct, psgn_fused):
+for _fn in (psgn_direct, psgn_gram, psgn_fused):
     _fn.launches = 0
     _fn.routes = {"tc": 0, "split": 0, "fma": 0}

@@ -5,11 +5,12 @@ Counterparts of ``psgn_ref``, ``psgn_gram_ref``, ``quantize_int8_ref``,
 ``repro/kernels/ref.py``, of the flash backward's
 recompute (``_recompute_dlogits`` / ``_flash_backward`` in
 ``repro/kernels/attention.py``), ``psgn_fused_ref``, the sum over
-stacked layers ``psgn_fused`` computes, and ``split_bf16``, the split of a
+stacked layers ``psgn_fused`` computes, ``split_bf16``, the split of a
 float32 operand that the psgn kernels' split route contracts on the tensor
-cores.  They are what the wrappers in
-``kernels/attention.py``, ``kernels/psgn.py`` and ``kernels/quant.py`` run
-for a tensor on the CPU, and what the CUDA kernels are held against on the card: every input is
+cores, and ``psgn_gram_split_ref``, the gram kernel's split route.  They
+are what the wrappers in ``kernels/attention.py``, ``kernels/psgn.py`` and
+``kernels/quant.py`` run for a tensor on the CPU, and what the CUDA kernels
+are held against on the card: every input is
 upcast to float32; in attention the softcap comes before the mask, and the
 softmax (or its recompute) runs over the whole key axis at once.
 """
@@ -76,6 +77,34 @@ def split_bf16(x: torch.Tensor) -> torch.Tensor:
             torch.bfloat16)
         terms[1:, bad] = 0
     return terms
+
+
+#: the term pairs (a, b) whose Grams ``V_a V_b^T`` the split route sums for
+#: a float32 operand, terms 0, 1, 2 being hi, mid, lo: every pair with a + b
+#: <= 2, closed under swapping so the sum stays symmetric; a bf16 operand
+#: takes the first, hi.hi, alone
+GRAM_PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
+
+
+def gram_pairs(dtype: torch.dtype) -> tuple[tuple[int, int], ...]:
+    """The term pairs an operand's Gram sums on the split route: 6 for
+    float32 (:data:`GRAM_PAIRS`), hi.hi alone for bf16."""
+    return GRAM_PAIRS if dtype == torch.float32 else GRAM_PAIRS[:1]
+
+
+def psgn_gram_split_ref(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """(B,) float32: the gram route's split arithmetic, each float32 operand
+    split into bf16 terms (:func:`split_bf16`), its Gram the sum of the term
+    products of :func:`gram_pairs` in float32 (bf16 products are exact
+    there), then ``sum(Gx * Gd)``.  Off :func:`psgn_gram_ref` by the pairs
+    left out (mid.lo, lo.mid, lo.lo: below 2^-21 of |v|^2 each) and the
+    order of the sums."""
+    grams = []
+    for v in (x, delta):
+        terms = split_bf16(v).float() if v.dtype == torch.float32 else v.float()[None]
+        grams.append(sum(torch.einsum("bsi,bti->bst", terms[a], terms[b])
+                         for a, b in gram_pairs(v.dtype)))
+    return (grams[0] * grams[1]).sum(dim=(1, 2))
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

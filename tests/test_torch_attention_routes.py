@@ -1,11 +1,12 @@
 """The attention kernels' two routes and the decode split, on the CPU.
 
 ``repro_torch.kernels.attention.attention_plan`` picks, before any launch
-and per kernel, the tensor-core kernels (``csrc/chunk_attention_tc.cu`` and
-``csrc/flash_dkv_tc.cu``: bf16 at head dims 64, 80, 112 and 128, causal or
-not; ``csrc/flash_dq_tc.cu``: causal bf16 at 64 and 128) or the float32 FMA
-kernels for the chunk forward, dq and dk/dv.  Here: the plan itself, the counters by route, that the CPU path launches and
-routes nothing, that
+and per kernel, the tensor-core kernels (``csrc/chunk_attention_tc.cu``,
+``csrc/flash_dq_tc.cu`` and ``csrc/flash_dkv_tc.cu``: bf16 at head dims 64,
+80, 112 and 128, causal or not; the forward up to ``TC_MAX_KEYS`` keys) or
+the float32 FMA kernels for the chunk forward, dq and dk/dv.  Here: the
+plan itself, the counters by route, that the CPU path launches and routes
+nothing, that
 ``_build.SIGNATURES`` (and ``KEY_TILES_ARGTYPES``, the tile counter's)
 declares every C entry's argument types as its source writes them, that the
 plain versions the tensor-core chunk kernel is held against on the card
@@ -47,18 +48,32 @@ ROUTED = ("chunk_attention", "flash_dq", "flash_dkv")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128])
 def test_attention_plan(dtype, hd, causal):
-    """Per kernel: in bf16 the chunk forward and dk/dv take the tensor cores
-    at hd 64, 80, 112 and 128 under either causality, dq only causal at 64
-    and 128; float32 (which TF32 would take below its 1e-4), hd 16 and 32,
-    and every other dq the FMA kernels.  The default is causal."""
+    """Per kernel: in bf16 the chunk forward, dq and dk/dv take the tensor
+    cores at hd 64, 80, 112 and 128 under either causality; float32 (which
+    TF32 would take below its 1e-4), hd 16 and 32 the FMA kernels.  The
+    default is causal."""
     bf = dtype == torch.bfloat16
-    want = {"chunk_attention": "tc" if bf and hd >= 64 else "fma",
-            "flash_dq": "tc" if bf and causal and hd in (64, 128) else "fma",
-            "flash_dkv": "tc" if bf and hd >= 64 else "fma"}
+    want = {name: "tc" if bf and hd >= 64 else "fma" for name in ROUTED}
     assert tk.attention_plan(dtype, hd, causal) == want
     assert set(want) == set(tk.ROUTED) == set(ROUTED)
     if causal:
         assert tk.attention_plan(dtype, hd) == want
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 80, 112, 128])
+def test_attention_plan_above_the_key_cap(hd, causal):
+    """A bf16 forward over more than ``TC_MAX_KEYS`` (65536) keys, which the
+    tensor-core kernel's tile list cannot hold, is planned onto the FMA
+    kernel before launch (the reference takes any key count); at the cap
+    it stays on the tensor cores, and dq and dk/dv keep theirs."""
+    assert tk.TC_MAX_KEYS == 65536
+    at_cap = tk.attention_plan(torch.bfloat16, hd, causal, keys=tk.TC_MAX_KEYS)
+    above = tk.attention_plan(torch.bfloat16, hd, causal, keys=tk.TC_MAX_KEYS + 1)
+    assert at_cap == dict.fromkeys(ROUTED, "tc")
+    assert above == {"chunk_attention": "fma", "flash_dq": "tc", "flash_dkv": "tc"}
+    assert tk.attention_plan(torch.float32, hd, causal, keys=10 ** 6) == \
+        dict.fromkeys(ROUTED, "fma")
 
 
 @pytest.mark.parametrize("dtype,hd,err", [
@@ -91,7 +106,8 @@ def test_route_counts_cover_chunk_and_dkv():
     routes = tkernels.route_counts()
     assert set(routes) == {*ROUTED, "psgn_direct", "psgn_gram", "psgn_fused"}
     assert all(not any(v.values()) for v in routes.values())
-    assert routes["psgn_direct"] == routes["psgn_fused"] == {"tc": 0, "split": 0, "fma": 0}
+    assert routes["psgn_direct"] == routes["psgn_fused"] == routes["psgn_gram"] == \
+        {"tc": 0, "split": 0, "fma": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

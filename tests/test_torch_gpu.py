@@ -271,8 +271,8 @@ def test_noncausal_kernels_match_plain(cuda, dtype, case):
     """The chunk forward, dq and dk/dv without causality (and causal at the
     head dims 80 and 112) against their plain versions: out and lse at TOL,
     dq, dk and dv at FLASH_TOL; every launch on the route ``attention_plan``
-    names for its kernel (in bf16 the forward and dk/dv on the tensor cores,
-    dq on the FMA kernel but for causal hd 64)."""
+    names for its kernel (in bf16 at hd 64 and above all three on the
+    tensor cores)."""
     b, s, h, kv, hd, window, softcap, causal = case
     r = np.random.default_rng(s * 5 + hd)
     kernels.reset_launch_counts()
@@ -354,8 +354,8 @@ def test_tc_forward_and_dkv_at_new_forms(cuda, case):
     """The tensor-core chunk forward and dk/dv without causality at hd 64,
     80, 112 and 128 and with it at 80 and 112, n_rep 1 and 4, ragged S,
     windows and softcaps, against their plain versions (out and lse at TOL,
-    dq, dk and dv at FLASH_TOL), each on the route its plan names (dq on the
-    FMA kernel), and dk/dv the same bits on two runs."""
+    dq, dk and dv at FLASH_TOL), each on the route its plan names (all three
+    on the tensor cores), and dk/dv the same bits on two runs."""
     b, s, h, kv, hd, window, softcap, causal = case
     r = np.random.default_rng(s * 11 + hd + causal)
     kernels.reset_launch_counts()
@@ -373,7 +373,7 @@ def test_tc_forward_and_dkv_at_new_forms(cuda, case):
     routes = kernels.route_counts()
     assert routes["chunk_attention"] == {"tc": 1, "fma": 0}
     assert routes["flash_dkv"] == {"tc": 2, "fma": 0}
-    assert routes["flash_dq"] == {"tc": 0, "fma": 1}
+    assert routes["flash_dq"] == {"tc": 1, "fma": 0}
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
     atol, rtol = FLASH_TOL[torch.bfloat16]
@@ -631,6 +631,67 @@ def test_flash_dq_tc_at_its_edges(cuda, case):
     torch.testing.assert_close(runs[0].cpu(), want.float().cpu(), atol=atol, rtol=rtol)
 
 
+# (s, hd, n_rep, window, softcap) for dq on the tensor cores at every head
+# dim and either causality: ragged S 77 and 1000, n_rep 1, 2 and 8, windows
+# across tiles (one-sided without causality), softcaps
+DQ_TC_FORMS = [(s, hd, n_rep, window, softcap)
+               for hd in (64, 80, 112, 128)
+               for s, n_rep, window, softcap in ((77, 1, None, None), (1000, 2, None, 20.0),
+                                                 (77, 8, 30, None), (1000, 1, 300, 30.0))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", DQ_TC_FORMS)
+def test_flash_dq_tc_at_every_form(cuda, case, causal):
+    """dq on the tensor cores (bf16) at hd 64, 80, 112 and 128, causal or
+    not, against its plain version at FLASH_TOL and against the FMA dq
+    (``csrc/flash_dq.cu``, launched directly) at the same call at
+    FLASH_TOL; the tc route only, and the same bits on a second run."""
+    s, hd, n_rep, window, softcap = case
+    kv = 8 // n_rep if n_rep < 8 else 1
+    r = np.random.default_rng(s * 3 + hd + n_rep + causal)
+    q, k, v, dout, out, lse = _flash_case(r, cuda, torch.bfloat16, 1, s, kv * n_rep, kv, hd,
+                                          window, softcap, causal)
+    delta = ref.flash_delta(out, dout)
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    kernels.reset_launch_counts()
+    runs = [kattn.flash_dq(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    fma = torch.empty_like(runs[0])
+    kattn._backward_launch("flash_dq", q, k, v, dout, lse, delta, (fma,), window, softcap,
+                           causal, "flash_dq")
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["flash_dq"] == {"tc": 2, "fma": 0}
+    assert torch.equal(runs[0], runs[1])
+    want = ref.flash_grads_ref(q, k, v, lse, delta, dout, **kw)[0]
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(runs[0].cpu(), want.float().cpu(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(fma.cpu(), want.float().cpu(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(runs[0].cpu(), fma.cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunk_forward_above_the_tc_key_cap(cuda, causal):
+    """A bf16 chunk forward over 65537 keys (hd 128, a 16-row query chunk at
+    the end of the context), past what the tensor-core kernel's tile list
+    holds, is planned onto the FMA kernel and matches its plain version
+    instead of raising."""
+    sk, c, h, kv, hd = kattn.TC_MAX_KEYS + 1, 16, 4, 2, 128
+    r = np.random.default_rng(sk)
+    q = torch.from_numpy(r.standard_normal((1, c, h, hd))).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(r.standard_normal((1, sk, kv, hd))).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(r.standard_normal((1, sk, kv, hd))).to(cuda, torch.bfloat16)
+    k_pos = torch.arange(sk, device=cuda)
+    q_pos = k_pos[-c:]
+    valid = torch.ones(sk, dtype=torch.bool, device=cuda)
+    kernels.reset_launch_counts()
+    out, lse = kattn.chunk_attention_fwd(q, k, v, q_pos, k_pos, valid, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["chunk_attention"] == {"tc": 0, "fma": 1}
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, q_pos, k_pos, valid, causal=causal)
+    _close(out, want_out, torch.bfloat16)
+    _close(lse, want_lse, torch.bfloat16)
+
+
 def test_flash_backward_refusals(cuda):
     r = np.random.default_rng(8)
     q, k, v, dout, out, lse = _flash_case(r, cuda, torch.float32, 1, 8, 4, 2, 32,
@@ -807,7 +868,7 @@ def test_psgn_tensor_core_route_at_ragged_edges(cuda, case):
                                       "flash_dq": {"tc": 0, "fma": 0},
                                       "flash_dkv": {"tc": 0, "fma": 0},
                                       "psgn_direct": {"tc": 2, "split": 0, "fma": 0},
-                                      "psgn_gram": {"tc": 2, "fma": 0},
+                                      "psgn_gram": {"tc": 2, "split": 0, "fma": 0},
                                       "psgn_fused": {"tc": 4, "split": 0, "fma": 0}}
     want = {"direct": ref.psgn_ref(x, d), "gram": ref.psgn_gram_ref(x, d),
             "fused": ref.psgn_fused_ref(xs, ds), "layers": ref.psgn_fused_ref(xs, ds)}
@@ -826,13 +887,20 @@ def _fma_direct(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return psgn._fma_launch("psgn_direct", x, d, (n_l, b, s, d_in, d_out), n_partials)
 
 
+def _fma_gram(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The float32 FMA gram kernel (``csrc/psgn_gram.cu``) on (B, S, .) x and
+    d, whatever route ``plan`` would give them."""
+    n_t = -(-x.shape[1] // psgn.TILE)
+    return psgn._fma_launch("psgn_gram", x, d, (*x.shape, d.shape[-1]), n_t * (n_t + 1) // 2)
+
+
 @pytest.mark.parametrize("shape", [(2, 300, 136, 264), (1, 2049, 264, 4104)])
 def test_psgn_routes_agree(cuda, shape):
     """The same bf16 values through every route: as bf16 (tensor cores),
-    with delta cast to float32 (direct and fused on the split route, gram on
-    the FMA kernel) and through the FMA direct kernel, within 1e-4
-    relative.  bf16 values split into (v, 0, 0), so the split route here is
-    the tensor-core product plus two zero products."""
+    with delta cast to float32 (direct, gram and fused on the split route)
+    and through the FMA direct and gram kernels, within 1e-4 relative.  bf16
+    values split into (v, 0, 0), so the split route here is the tensor-core
+    product plus zero products."""
     r = np.random.default_rng(sum(shape))
     xs, ds = _psgn_pair(r, cuda, (3, *shape), (torch.bfloat16,) * 2)
     ds32 = ds.float()
@@ -843,10 +911,13 @@ def test_psgn_routes_agree(cuda, shape):
         torch.testing.assert_close(fn(x, d).cpu(), fn(x, d32).cpu(), rtol=1e-4, atol=0)
     assert kernels.route_counts() == {
         "chunk_attention": {"tc": 0, "fma": 0}, "flash_dq": {"tc": 0, "fma": 0},
-        "flash_dkv": {"tc": 0, "fma": 0}, "psgn_gram": {"tc": 1, "fma": 1},
-        **{name: {"tc": 1, "split": 1, "fma": 0} for name in ("psgn_direct", "psgn_fused")}}
+        "flash_dkv": {"tc": 0, "fma": 0},
+        **{name: {"tc": 1, "split": 1, "fma": 0}
+           for name in ("psgn_direct", "psgn_gram", "psgn_fused")}}
     torch.testing.assert_close(psgn.psgn_fused(xs, ds32).cpu(), _fma_direct(xs, ds32).cpu(),
                                rtol=1e-4, atol=0)
+    torch.testing.assert_close(psgn.psgn_gram(xs[0], ds32[0]).cpu(),
+                               _fma_gram(xs[0].float(), ds32[0]).cpu(), rtol=1e-4, atol=0)
 
 
 # (L, B, S, Din, Dout) on the split route: L 1, 3 and 16, ragged S (a
@@ -884,6 +955,34 @@ def test_psgn_split_route_against_fma(cuda, case, dtypes):
     torch.testing.assert_close(runs[0].cpu(), want, rtol=1e-4, atol=0)
     torch.testing.assert_close(runs[0].cpu(), _fma_direct(xs.float(), ds.float()).cpu(),
                                rtol=1e-4, atol=0)
+
+
+# (B, S, Din, Dout) for gram on the split route: ragged S (a 128-position
+# tile's end, one position), widths up to 4104
+PSGN_GRAM_SPLIT_CASES = [(2, 37, 136, 264), (1, 300, 264, 136), (3, 1, 8, 16),
+                         (1, 2049, 4104, 264)]
+
+
+@pytest.mark.parametrize("dtypes", PSGN_SPLIT_DTYPES, ids=["bf16-f32", "f32-bf16", "f32-f32"])
+@pytest.mark.parametrize("shape", PSGN_GRAM_SPLIT_CASES)
+def test_psgn_gram_split_route(cuda, shape, dtypes):
+    """gram on the split route (each float32 operand split once, its Gram
+    summed over 6 term pairs on the tensor cores) against the split
+    route's plain version, the float32 plain Gram and the FMA gram kernel
+    on the same values, within 1e-4 relative; the same bits on a second
+    run."""
+    r = np.random.default_rng(sum(shape) + 17)
+    x, d = _psgn_pair(r, cuda, shape, dtypes)
+    kernels.reset_launch_counts()
+    runs = [psgn.psgn_gram(x, d) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["psgn_gram"] == {"tc": 0, "split": 2, "fma": 0}
+    n_f32 = sum(dt == torch.float32 for dt in dtypes)
+    assert kernels.launch_counts()["psgn_split"] == 2 * n_f32
+    assert torch.equal(runs[0], runs[1])
+    for want in (ref.psgn_gram_split_ref(x, d), ref.psgn_gram_ref(x, d),
+                 _fma_gram(x.float(), d.float())):
+        torch.testing.assert_close(runs[0].cpu(), want.cpu(), rtol=1e-4, atol=0)
 
 
 def test_psgn_split_kernel_matches_plain_bit_for_bit(cuda):
@@ -944,8 +1043,8 @@ def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
     the main pass, with a tick-fired DiveBatch program reading that tier's
     signals, on the card (kernels) and on the CPU (plain versions).  Losses,
     Delta and parameters within 1e-4, one batch schedule, and the card's
-    psgn launches per microbatch exactly 2 fused (on the split route: two
-    splits each, x and delta) and 3 * layers gram."""
+    psgn launches per microbatch exactly 2 fused and 3 * layers gram, all
+    on the split route, each splitting its x and delta once."""
     from repro_torch.launch import train_lm
     from repro_torch.models import probes
     from repro_torch.optim import sgd
@@ -977,6 +1076,7 @@ def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
         counts[dev] = kernels.launch_counts()
         if dev == "cuda":
             assert kernels.route_counts()["psgn_fused"]["split"] == counts[dev]["psgn_fused"]
+            assert kernels.route_counts()["psgn_gram"]["split"] == counts[dev]["psgn_gram"]
     recs = {d: o["records"] for d, o in outs.items()}
     np.testing.assert_allclose([r["loss"] for r in recs["cuda"]],
                                [r["loss"] for r in recs["cpu"]], rtol=1e-4)
@@ -991,7 +1091,8 @@ def test_gram_tier_training_on_card_matches_cpu(cuda, tier):
                               "paged_decode_attention": 0,
                               "flash_dq": 2 * n_micro, "flash_dkv": 2 * n_micro,
                               "psgn_direct": 0, "psgn_gram": 3 * 2 * n_micro,
-                              "psgn_fused": 2 * n_micro, "psgn_split": 2 * 2 * n_micro,
+                              "psgn_fused": 2 * n_micro,
+                              "psgn_split": 2 * (2 + 3 * 2) * n_micro,
                               "quantize_int8": 0}
     assert not any(counts["cpu"].values())
 

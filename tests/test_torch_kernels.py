@@ -645,27 +645,28 @@ BF16, F32 = torch.bfloat16, torch.float32
                                     (8, 19), (4096, 4100)])
 def test_psgn_route_plan(dtypes, widths):
     """The tensor cores take bf16 x and delta whose widths are multiples of
-    8; direct with a float32 operand at such widths takes the split route
-    (3 term pairs with one float32 operand, 6 with two) on the same tiles;
-    anything else takes the FMA kernels, with their 128 x 128 tiles."""
+    8; a float32 operand at such widths takes the split route on the same
+    tiles (direct: 3 term pairs with one float32 operand, 6 with two; gram:
+    each operand's Gram 1 pair for bf16, 6 for float32); anything else takes
+    the FMA kernels, with their 128 x 128 tiles."""
     d_in, d_out = widths
     widths8 = d_in % 8 == 0 and d_out % 8 == 0
     tc = dtypes == (BF16, BF16) and widths8
     direct = tpsgn.plan("direct", *dtypes, 300, d_in, d_out, n_layers=3)
     gram = tpsgn.plan("gram", *dtypes, 300, d_in, d_out)
-    want_direct = "tc" if tc else ("split" if widths8 else "fma")
-    assert (direct.route, gram.route) == (want_direct, "tc" if tc else "fma")
+    want_route = "tc" if tc else ("split" if widths8 else "fma")
+    assert (direct.route, gram.route) == (want_route, want_route)
     ceil = lambda n, t: -(-n // t)  # noqa: E731
     pairs = {(BF16, BF16): 1, (BF16, F32): 3, (F32, BF16): 3, (F32, F32): 6}[dtypes]
     if widths8:
-        assert direct == (want_direct, (128, 256), 3 * ceil(d_in, 128) * ceil(d_out, 256),
+        assert direct == (want_route, (128, 256), 3 * ceil(d_in, 128) * ceil(d_out, 256),
                           pairs)
+        gram_pairs = tuple(6 if dt == F32 else 1 for dt in dtypes)
+        # 3 tiles of S: 6 tile pairs, 2 halves each
+        assert gram == (want_route, (64, 128), 2 * 3 * 4 // 2, gram_pairs)
     else:
         assert direct == ("fma", (128, 128), 3 * ceil(d_in, 128) * ceil(d_out, 128), 1)
-    if tc:
-        assert gram == ("tc", (64, 128), 2 * 3 * 4 // 2, 1)  # 3 tiles of S: 6 pairs, 2 halves
-    else:
-        assert gram == ("fma", (128, 128), 3 * 4 // 2, 1)
+        assert gram == ("fma", (128, 128), 3 * 4 // 2, (1, 1))
 
 
 @pytest.mark.parametrize("dtypes, want", [
@@ -693,6 +694,54 @@ def test_psgn_tc_partial_counts(s, d_in, d_out, n_layers, want_direct, want_gram
     assert tpsgn.plan("gram", BF16, BF16, s, d_in, d_out).n_partials == want_gram
     with pytest.raises(ValueError, match="unknown kind"):
         tpsgn.plan("fused", BF16, BF16, s, d_in, d_out)
+
+
+@pytest.mark.parametrize("dtype, n", [(BF16, 1), (F32, 6)])
+def test_gram_pairs_are_closed_under_swapping(dtype, n):
+    """The term pairs of one operand's Gram on the split route: hi.hi alone
+    for bf16; for float32 the six with a + b <= 2, a set closed under
+    swapping (a, b) -> (b, a), so the summed Gram is symmetric and the
+    kernel's doubling of off-diagonal tile pairs stays exact; hi.hi first,
+    so a bf16 operand's list is the float32 one's head."""
+    pairs = tpsgn.gram_pairs(dtype)
+    assert len(pairs) == n and pairs[0] == (0, 0)
+    assert set(pairs) == {(b, a) for a, b in pairs}
+    assert len(set(pairs)) == n and all(a + b <= 2 and 0 <= min(a, b) for a, b in pairs)
+    assert tpsgn.gram_pairs(F32)[:n] == pairs
+    if dtype == F32:
+        assert set(pairs) == {(a, b) for a in range(3) for b in range(3) if a + b <= 2}
+
+
+@pytest.mark.parametrize("dtypes", ["bf16-f32", "f32-bf16", "f32-f32"])
+@pytest.mark.parametrize("shape", [(2, 37, 24, 16), (1, 130, 8, 40), (3, 257, 16, 8)])
+def test_split_gram_plain_matches_reference(shape, dtypes):
+    """The gram kernel's split route in plain torch (``ref.psgn_gram_split_ref``:
+    each float32 operand split into bf16 terms, its Gram the six term-pair
+    products, a bf16 operand's one) against the reference's interpret-mode
+    Pallas ``psgn_gram`` and its ``ref.psgn_gram_ref``, at ragged S and
+    widths that are multiples of 8, 1e-5 relative (the dropped mid.lo,
+    lo.mid and lo.lo products are below 2^-21 of |v|^2 each); the plan
+    names the split route with these pair counts."""
+    names = {"bf16": "bfloat16", "f32": np.float32}
+    dts = tuple(names[n] for n in dtypes.split("-"))
+    x, d = _psgn_inputs(np.random.default_rng(sum(shape) + len(dtypes)), shape, np.float32)
+    (tx, td), (jx, jd) = _both(x, d, dts)
+    got = tref.psgn_gram_split_ref(tx, td)
+    assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    _close_rel(got, jref.psgn_gram_ref(jx, jd))
+    _close_rel(got, jpsgn.psgn_gram(jx, jd, block_si=16, block_sj=16, interpret=True))
+    _close_rel(got, tref.psgn_gram_ref(tx, td))
+    p = tpsgn.plan("gram", tx.dtype, td.dtype, *shape[1:])
+    assert p.route == "split"
+    assert p.pairs == tuple(len(tpsgn.gram_pairs(t.dtype)) for t in (tx, td))
+
+
+def test_split_gram_plain_of_bf16_operands_is_the_gram():
+    """On bf16 operands the split arithmetic is the plain Gram identity to
+    the bit: one plane each, the pair hi.hi."""
+    x, d = _psgn_inputs(np.random.default_rng(12), (2, 45, 16, 24), "bfloat16")
+    (tx, td), _ = _both(x, d, ("bfloat16", "bfloat16"))
+    assert torch.equal(tref.psgn_gram_split_ref(tx, td), tref.psgn_gram_ref(tx, td))
 
 
 def _split_values(case: str) -> torch.Tensor:
@@ -814,10 +863,9 @@ def test_psgn_fused_layers_plain_matches_stacked_and_reference(dtypes):
     _close_rel(tops.persample_sq_norm_tree(dict(zip(names, tx)), dict(zip(names, td))), want)
     assert not any(tkernels.launch_counts().values())
     assert tkernels.route_counts() == {
-        **{n: {"tc": 0, "fma": 0} for n in ("chunk_attention", "flash_dq", "flash_dkv",
-                                            "psgn_gram")},
-        "psgn_direct": {"tc": 0, "split": 0, "fma": 0},
-        "psgn_fused": {"tc": 0, "split": 0, "fma": 0}}
+        **{n: {"tc": 0, "fma": 0} for n in ("chunk_attention", "flash_dq", "flash_dkv")},
+        **{n: {"tc": 0, "split": 0, "fma": 0} for n in ("psgn_direct", "psgn_gram",
+                                                         "psgn_fused")}}
     with pytest.raises(ValueError, match="differ"):
         tpsgn.psgn_fused_layers([tx[0], tx[1][:, :8]], [td[0], td[1][:, :8]])
     with pytest.raises(ValueError, match="activations"):
