@@ -231,9 +231,34 @@ MB L2.
      with identical weights: ``prefill_step`` logits within 1e-4, 6
      DiveBatch steps (a tick every 2) with losses within 1e-4 relative,
      parameters within 1e-4 and one batch schedule and bucket list.
+ 16. scale-out over process groups: ranks spawned from this script
+     (``multiprocessing``'s spawn context) after phase 2's build, which they
+     load and do not build again, meeting through a ``FileStore`` under
+     ``build/``; each line names its backend, world and rank.  (a) NCCL at
+     a world of one: phase 15's hubert-shaped float32 encoder, 4 DiveBatch
+     steps under a rank plan (``train_lm.train(plan=...)``, every
+     microbatch's gradient all-reduced) equal to the run without a plan,
+     losses and parameters to the bit; (b) gloo at a world of two on the
+     one card: the same encoder data-parallel against one process (losses
+     within 1e-5 relative, parameters within 1e-5), then hubert-xlarge at
+     full width (48 layers, bf16) through ``for_lm(dp_size=2)``, 2
+     sequences of 1024 frames per rank in each microbatch, global batch 8
+     then 16 under a DiveBatch program (a tick every 2 steps, delta 16), 4
+     steps: finite losses, equal parameter checksums on both ranks at every
+     step, exactly 96 chunk, 48 dq and 48 dk/dv launches per microbatch on
+     each rank, all on the tensor cores; step ms by batch, all-reduce ms and
+     bytes a step, peak memory per rank; (c) phase 10's cell with each pod
+     a rank (4 virtual devices each) through ``run_supervised(lose_pod=
+     [3])``: the (batch, rung, steps) schedule, losses, Delta and
+     parameters equal phase 10's to the bit, the demotion 3 -> 2 included
+     (pod 1's rank leaves with phase 10's first 3 epochs), 4
+     ``quantize_int8`` launches per rank per cross-pod step, the bytes
+     gathered.  Multi-rank numbers on one card go through gloo's host
+     staging: no yardstick for NCCL across cards.
 
-The launches of the non-causal records count phase 14's three paths, the
-other records the causal paths (phases 4, 6, 8, 10, 12).
+The launches of the non-causal records count phase 14's three paths and
+phase 16's hubert run (both ranks), the other records the causal paths
+(phases 4, 6, 8, 10, 12, and 16's pod cell on both ranks).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -262,6 +287,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
@@ -271,10 +297,12 @@ from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.data import TokenStream, imagelike_classification  # noqa: E402
 from repro_torch.data import sigmoid_synthetic  # noqa: E402
 from repro_torch.data.synthetic import ArrayDataset  # noqa: E402
+from repro_torch.dist.plan import broadcast_, rank_devices  # noqa: E402
 from repro_torch.elastic import place  # noqa: E402
 from repro_torch.kernels import _build, ops, psgn, quant, ref  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import data_plan  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
 from repro_torch.models import probes, resnet, small  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -382,13 +410,15 @@ def plan_of(cfg, dtype) -> dict:
     return kattn.attention_plan(dtype, cfg.resolved_head_dim, cfg.causal)
 
 
-def attn_routes(counts: dict, plan: dict, *, what: str) -> None:
+def attn_routes(counts: dict, plan: dict, *, what: str, routes: dict | None = None) -> None:
     """Every chunk-forward, dq and dk/dv launch of the run just read took the
-    route ``plan`` (``kattn.attention_plan``'s) names for its kernel."""
+    route ``plan`` (``kattn.attention_plan``'s) names for its kernel;
+    ``routes`` are another process's counts by route (default this one's)."""
     want = {name: {"tc": 0, "fma": 0, plan[name]: counts[name]}
             for name in ROUTED_ATTENTION}
-    if attention_routes() != want or counts["chunk_attention"] == 0:
-        raise AssertionError(f"{what}: attention routes {attention_routes()}, expected {want}")
+    got = attention_routes() if routes is None else {k: routes[k] for k in ROUTED_ATTENTION}
+    if got != want or counts["chunk_attention"] == 0:
+        raise AssertionError(f"{what}: attention routes {got}, expected {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -1934,7 +1964,7 @@ POD_N, POD_D, POD_HIDDEN, POD_LR = 20_000, 512, 64, 0.1
 POD_M0, POD_M_MAX, POD_DELTA = 64, 128, 0.1
 
 
-def pod_trainer(device, seed: int = 0, **kw) -> Trainer:
+def pod_trainer(device, seed: int = 0, devices=None, **kw) -> Trainer:
     train, val, _ = sigmoid_synthetic(n=POD_N, d=POD_D, seed=seed)
     params = small.mlp_init(torch.Generator().manual_seed(seed), POD_D, POD_HIDDEN,
                             device=device)
@@ -1945,7 +1975,8 @@ def pod_trainer(device, seed: int = 0, **kw) -> Trainer:
         POD_LR, estimator="moment")
     return Trainer(fns, params, sgd(momentum=0.9), program, train, val,
                    estimator="moment", seed=seed,
-                   elastic=PodLadder(pods=2, devices=[device] * 8, granule=16), **kw)
+                   elastic=PodLadder(pods=2, devices=devices or [device] * 8, granule=16),
+                   **kw)
 
 
 def run_pod_epochs(trainer: Trainer, epochs: int, log=None) -> list[tuple]:
@@ -2000,6 +2031,9 @@ def pod_phase() -> dict:
     runs += run_pod_epochs(trainer, 1, print_epoch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # phase 16c runs the same cell with each pod a rank and is held against this
+    final = {"epochs": [pod_epoch(bsz, rung, rec) for bsz, rung, rec in runs],
+             "params": [p.detach().cpu().clone() for p in trainer.params.parameters()]}
     counts = kernels.launch_counts()
     cross_steps = sum(rec.steps for _, rung, rec in runs
                       if trainer.elastic.rungs[rung].pods > 1)
@@ -2018,7 +2052,13 @@ def pod_phase() -> dict:
     print(f"  {len(runs)} epochs in {wall:.2f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.2f} MiB")
     print(f"  stats: {json.dumps(trainer.engine.stats.as_dict())}")
-    return counts, after_3
+    return counts, after_3, final
+
+
+def pod_epoch(bsz, rung, rec) -> tuple:
+    """An epoch of the pod cell as phase 16c compares it: (batch, rung,
+    steps, train loss, val loss, Delta)."""
+    return (bsz, rung, rec.steps, rec.train_loss, rec.val_loss, rec.diversity)
 
 
 # ---------------------------------------------------------------------------
@@ -2800,6 +2840,389 @@ def encoder_card_vs_cpu(cfg) -> None:
           f"{card_counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: scale-out over process groups on the card
+# ---------------------------------------------------------------------------
+
+# the hubert-shaped float32 encoder of phase 15 and its DiveBatch program
+SMALL_ENCODER = HUBERT.replace(num_layers=2, d_model=320, num_heads=4, num_kv_heads=4,
+                               d_ff=640, param_dtype="float32", compute_dtype="float32",
+                               attn_impl="pallas")
+SMALL_SEQ, SMALL_STEPS = 128, 4
+# hubert-xlarge data-parallel: 2 sequences per rank in each microbatch, a
+# tick every 2 steps; delta 16 (phase 14b's 0.5 shrinks the batch on these
+# random frames) takes the batch from 8 to the cap 16 at the first tick
+DP_WORLD, DP_MICRO, DP_M0, DP_M_MAX, DP_DELTA, DP_STEPS = 2, 4, 8, 16, 16.0, 4
+DP_DEADLINE_S = 600
+
+
+def small_encoder_run(dev, plan, micro_batch: int) -> dict:
+    """``SMALL_STEPS`` DiveBatch steps of ``SMALL_ENCODER`` from phase 15's
+    weights (seed 4, drawn on the CPU); losses, batches and parameters."""
+    cpu = tf.init_params(SMALL_ENCODER, torch.Generator().manual_seed(4), "cpu")
+    model = tf.build(SMALL_ENCODER, dev)
+    model.load_state_dict(cpu.state_dict())
+    program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5, granule=2,
+                                    lr=0.05, tick_every=2)
+    out = train_lm.train(SMALL_ENCODER, model, program, steps=SMALL_STEPS,
+                         seq_len=SMALL_SEQ, micro_batch=micro_batch, attn_impl="pallas",
+                         batches=train_lm.frame_batches(SMALL_ENCODER, 6),
+                         log=lambda line: None, plan=plan)
+    return {"loss": [r["loss"] for r in out["records"]],
+            "batch": [r["batch"] for r in out["records"]],
+            "params": [p.detach().cpu().numpy().copy() for p in model.parameters()]}
+
+
+def param_checksum(model) -> float:
+    return float(sum(p.detach().double().sum().item() * (i + 1)
+                     for i, p in enumerate(model.parameters())))
+
+
+class CollectiveClock:
+    """Wraps ``torch.distributed``'s ``all_reduce`` and ``all_gather`` (what
+    ``repro_torch.dist`` calls) to count their bytes and time them between
+    two synchronisations of the card."""
+
+    def __init__(self):
+        self.ms = {"all_reduce": 0.0, "all_gather": 0.0}
+        self.bytes = {"all_reduce": 0, "all_gather": 0}
+        self.calls = {"all_reduce": 0, "all_gather": 0}
+        self._inner = {n: getattr(dist, n) for n in self.ms}
+        for name, fn in self._inner.items():
+            setattr(dist, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[name] += 1e3 * (time.perf_counter() - t0)
+            t = args[1] if name == "all_gather" else args[0]
+            self.bytes[name] += t.numel() * t.element_size()
+            self.calls[name] += 1
+            return out
+        return run
+
+    def snapshot(self) -> dict:
+        return {"ms": dict(self.ms), "bytes": dict(self.bytes), "calls": dict(self.calls)}
+
+    def close(self) -> None:
+        for name, fn in self._inner.items():
+            setattr(dist, name, fn)
+
+
+def rank_world_one(dev, args) -> dict:
+    """16a, NCCL at a world of one: the small encoder without a plan and
+    under a rank plan."""
+    base = small_encoder_run(dev, None, 2)
+    kernels.reset_launch_counts()
+    ranked = small_encoder_run(dev, data_plan(dev), 2)
+    return {"base": base, "ranked": ranked, "launches": kernels.launch_counts(),
+            "routes": kernels.route_counts(), "backend": dist.get_backend()}
+
+
+def rank_hubert_dp(dev) -> dict:
+    """16b, hubert-xlarge at full width, data-parallel over the ranks."""
+    cfg = HUBERT.replace(attn_impl="pallas")
+    plan = data_plan(dev)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    broadcast_([p.data for p in params.parameters()], 0, plan.mesh.group("data"))
+    torch.cuda.synchronize()
+    bcast_s = time.perf_counter() - t0
+    engine = StepEngine.for_lm(cfg, sgd(momentum=0.9), micro_batch=DP_MICRO,
+                               attn_impl="pallas", dp_size=DP_WORLD, plan=plan)
+    clock = CollectiveClock()
+    steps = []
+    inner = engine.step
+
+    def step(state, batch, lr):
+        before = clock.snapshot()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = inner(state, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1)
+        after = clock.snapshot()
+        steps.append({"batch": int(next(iter(batch.values())).shape[0]), "ms": ms,
+                      "loss": loss, "checksum": param_checksum(state.params),
+                      "all_reduce_ms": after["ms"]["all_reduce"] - before["ms"]["all_reduce"],
+                      "all_reduce_bytes": (after["bytes"]["all_reduce"]
+                                           - before["bytes"]["all_reduce"]),
+                      "all_reduce_calls": (after["calls"]["all_reduce"]
+                                           - before["calls"]["all_reduce"])})
+        return state, metrics
+
+    engine.step = step
+    program = train_lm.make_program("divebatch", m0=DP_M0, m_max=DP_M_MAX, delta=DP_DELTA,
+                                    granule=DP_MICRO, lr=TRAIN_LR, tick_every=2)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        out = train_lm.train(cfg, params, program, steps=DP_STEPS, seq_len=HUBERT_SEQ,
+                             micro_batch=DP_MICRO, engine=engine, plan=plan,
+                             batches=train_lm.frame_batches(cfg, 1), log=lambda line: None)
+    finally:
+        clock.close()
+    torch.cuda.synchronize()
+    return {"steps": steps, "num_micro": [r["num_micro"] for r in out["records"]],
+            "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "broadcast_s": bcast_s, "n_params": sum(p.numel() for p in params.parameters()),
+            "plan": plan_of(cfg, torch.bfloat16)}
+
+
+def rank_pod(dev, ckpt_dir: str) -> dict:
+    """16c, phase 10's cell with each pod a rank, through ``run_supervised``
+    with pod 1 lost at epoch 3."""
+    from repro_torch.launch.supervisor import run_supervised
+
+    epochs, trainers = [], []
+
+    def make_trainer(mgr):
+        trainer = pod_trainer(dev, devices=rank_devices(dev, per_rank=4), ckpt=mgr)
+        inner = trainer.run_epoch
+
+        def run_epoch():
+            bsz = trainer.adapt.batch_size
+            rec = inner()
+            epochs.append(pod_epoch(bsz, trainer.rung.index, rec))
+            return rec
+
+        trainer.run_epoch = run_epoch
+        trainers.append(trainer)
+        return trainer
+
+    clock = CollectiveClock()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_supervised(make_trainer, 4, [], ckpt_dir, lose_pod=[3])
+    finally:
+        clock.close()
+    torch.cuda.synchronize()
+    trainer = trainers[-1]
+    cross = sum(steps for _, rung, steps, *_ in epochs
+                if trainer.elastic.rungs[rung].pods > 1)
+    return {"epochs": epochs, "cross_steps": cross, "launches": kernels.launch_counts(),
+            "params": [p.detach().cpu().numpy().copy() for p in trainer.params.parameters()],
+            "gather": clock.snapshot(), "wall_s": time.perf_counter() - t0,
+            "final_rung": trainer.rung.index}
+
+
+def rank_scale_out(dev, args) -> dict:
+    """16b and 16c on the ranks of one gloo world."""
+    plan = data_plan(dev)
+    small = small_encoder_run(dev, plan, 2)
+    base = small_encoder_run(dev, None, 2) if dist.get_rank() == 0 else None
+    dist.barrier()
+    hubert = rank_hubert_dp(dev)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    pod = rank_pod(dev, args["ckpt_dir"])
+    return {"small": small, "base": base, "hubert": hubert, "pod": pod,
+            "backend": dist.get_backend()}
+
+
+RANK_JOBS = {"world_one": rank_world_one, "scale_out": rank_scale_out}
+
+
+def rank_main(rank: int, world: int, backend: str, store: str, job: str, args: dict,
+              queue) -> None:
+    """A spawned rank: join the world, run ``job``, report on ``queue``."""
+    import traceback
+
+    from repro_torch.launch.mesh import init_ranks
+
+    try:
+        dev = init_ranks(backend, store=dist.FileStore(store, world), rank=rank,
+                         world=world, timeout_s=DP_DEADLINE_S)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out = RANK_JOBS[job](dev, args)
+        # every library loaded from phase 2's build, none built again
+        out["rebuilt"] = {n: r["seconds"] for n, r in _build.BUILD_INFO.items()
+                          if r["seconds"] > 0}
+        dist.barrier()
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(job: str, backend: str, world: int, args: dict) -> dict:
+    """``{rank: result}`` of ``job`` on ``world`` spawned ranks meeting
+    through a ``FileStore`` under ``build/``; every rank is stopped before
+    this returns, and any rank's failure raises."""
+    import multiprocessing as mproc
+
+    ctx = mproc.get_context("spawn")
+    queue = ctx.Queue()
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = ROOT / "build" / f"store_{job}_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    procs = [ctx.Process(target=rank_main, args=(r, world, backend, str(store), job, args,
+                                                 queue)) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        results = dict(queue.get(timeout=DP_DEADLINE_S) for _ in procs)
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        store.unlink(missing_ok=True)
+    errors = {r: v for r, v in results.items() if isinstance(v, str)}
+    if errors:
+        raise AssertionError("\n".join(f"[{backend}, rank {r}] failed:\n{v}"
+                                        for r, v in errors.items()))
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"[{backend}] rank exit codes {[p.exitcode for p in procs]}")
+    for r, out in results.items():
+        if out["rebuilt"]:
+            raise AssertionError(f"[{backend}, rank {r}] rebuilt {out['rebuilt']}")
+    return results
+
+
+def bitwise_equal(a: list, b: list) -> bool:
+    """Whether two lists of arrays (or tensors) hold the same bits."""
+    return len(a) == len(b) and all(
+        np.asarray(x).dtype == np.asarray(y).dtype
+        and np.array_equal(np.asarray(x).view(np.uint8), np.asarray(y).view(np.uint8))
+        for x, y in zip(a, b))
+
+
+def scale_out_phase(pod_final: dict) -> dict[str, dict]:
+    """Returns the launch counts of the rank paths, summed over the ranks."""
+    phase("16. scale-out over process groups: ranks spawned on the one card")
+    t_phase = time.perf_counter()
+    # (a) NCCL at a world of one
+    t0 = time.perf_counter()
+    one = spawn_ranks("world_one", "nccl", 1, {})[0]
+    tag = f"[{one['backend']}, world 1, rank 0]"
+    same = ([float.hex(x) for x in one["base"]["loss"]]
+            == [float.hex(x) for x in one["ranked"]["loss"]]
+            and one["base"]["batch"] == one["ranked"]["batch"]
+            and bitwise_equal(one["base"]["params"], one["ranked"]["params"]))
+    if not same:
+        raise AssertionError(f"{tag} under a plan: losses {one['ranked']['loss']} against "
+                             f"{one['base']['loss']}, or parameters differ")
+    attn_routes(one["launches"], plan_of(SMALL_ENCODER, torch.float32),
+                what=f"{tag} the small encoder", routes=one["routes"])
+    print(f"  (a) {tag} the hubert-shaped float32 encoder, {SMALL_STEPS} DiveBatch steps "
+          f"under a rank plan (every microbatch's gradient all-reduced): losses "
+          f"{[round(x, 6) for x in one['ranked']['loss']]}, batches "
+          f"{one['ranked']['batch']}, the run without a plan's to the bit, parameters "
+          f"too; launches {one['launches']}; {time.perf_counter() - t0:.1f} s with the "
+          f"spawn")
+    # (b), (c) gloo at a world of two on the one card
+    t0 = time.perf_counter()
+    ckpt_dir = ckpt_root("scale_out")
+    try:
+        res = spawn_ranks("scale_out", "gloo", DP_WORLD, {"ckpt_dir": ckpt_dir})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    tags = {r: f"[{res[r]['backend']}, world {DP_WORLD}, rank {r}]" for r in res}
+    # (b) the small encoder on the ranks against one process
+    base = res[0]["base"]
+    for r in res:
+        got = res[r]["small"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], base["loss"]))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got["params"], base["params"]))
+        if got["batch"] != base["batch"] or rel > 1e-5 or err > 1e-5:
+            raise AssertionError(f"{tags[r]} small encoder: batches {got['batch']} against "
+                                 f"{base['batch']}, losses within {rel:.3e} (tol 1e-5), "
+                                 f"parameters within {err:.3e} (tol 1e-5)")
+        print(f"  (b) {tags[r]} the small encoder data-parallel (1 sequence per rank per "
+              f"microbatch) against one process: batches {got['batch']}, losses within "
+              f"{rel:.3e} relative (tol 1e-5), parameters within {err:.3e} (tol 1e-5)")
+    # (b) hubert-xlarge at full width
+    hub = {r: res[r]["hubert"] for r in res}
+    sched = {r: [s["batch"] for s in h["steps"]] for r, h in hub.items()}
+    if any(v != [8, 8, 16, 16] for v in sched.values()):
+        raise AssertionError(f"hubert schedules {sched}, expected [8, 8, 16, 16]")
+    checks = [[s["checksum"] for s in h["steps"]] for h in hub.values()]
+    if any(c != checks[0] for c in checks):
+        raise AssertionError(f"the replicas differ: parameter checksums {checks}")
+    layers = HUBERT.num_layers
+    for r, h in hub.items():
+        if not all(np.isfinite(s["loss"]) for s in h["steps"]):
+            raise AssertionError(f"{tags[r]} non-finite loss {h['steps']}")
+        n_micro = sum(h["num_micro"])
+        want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+                "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+        if h["launches"] != want:
+            raise AssertionError(f"{tags[r]} launches {h['launches']}, expected {want}")
+        if any(h["plan"][n] != "tc" for n in ROUTED_ATTENTION):
+            raise AssertionError(f"{tags[r]} the plan {h['plan']} is not the tensor cores'")
+        attn_routes(h["launches"], h["plan"], what=f"{tags[r]} hubert", routes=h["routes"])
+        print(f"  (b) {tags[r]} hubert-xlarge, {layers} layers, bf16, {h['n_params'] / 1e9:.3f} "
+              f"B parameters (rank 0's broadcast to the others in {h['broadcast_s']:.2f} s), "
+              f"for_lm(dp_size={DP_WORLD}), {DP_MICRO // DP_WORLD} sequences of "
+              f"{HUBERT_SEQ} frames per rank per microbatch:")
+        for i, st in enumerate(h["steps"]):
+            print(f"    step {i + 1}: batch {st['batch']} ({h['num_micro'][i]} microbatches), "
+                  f"loss {st['loss']:.5f}, {st['ms']:.1f} ms; all-reduce "
+                  f"{st['all_reduce_calls']} calls, {st['all_reduce_bytes'] / 1e9:.3f} GB, "
+                  f"{st['all_reduce_ms']:.1f} ms; parameter checksum {st['checksum']:.6e}")
+        by_batch = {m: statistics.median(s["ms"] for s in h["steps"] if s["batch"] == m)
+                    for m in sorted(set(sched[r]))}
+        print(f"    launches {h['launches']} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+              f"microbatches), all three on tc; step ms by batch (median) "
+              + ", ".join(f"{m}: {v:.1f}" for m, v in by_batch.items())
+              + f"; peak device memory {h['peak_gib']:.2f} GiB")
+    print(f"  (b) the replicas' parameter checksums are equal at every step: "
+          f"{checks[0] == checks[1]}; the numbers are gloo's through the host, on one card: "
+          f"no yardstick for NCCL across cards")
+    # (c) the pod cell with each pod a rank
+    pods = {r: res[r]["pod"] for r in res}
+    first = pods[0]
+    want_epochs = pod_final["epochs"]
+    if first["epochs"] != want_epochs:
+        raise AssertionError(f"pod ranks: epochs {first['epochs']} against phase 10's "
+                             f"{want_epochs}")
+    if pods[1]["epochs"] != want_epochs[:3]:
+        raise AssertionError(f"pod 1's rank: epochs {pods[1]['epochs']}, expected phase "
+                             f"10's first 3")
+    if not bitwise_equal(first["params"], [p.numpy() for p in pod_final["params"]]):
+        raise AssertionError("pod ranks: parameters differ from phase 10's")
+    if first["final_rung"] != 2:
+        raise AssertionError(f"pod ranks: final rung {first['final_rung']}")
+    n_leaves = len(pod_final["params"])
+    for r, pd in pods.items():
+        want = {k: 0 for k in pd["launches"]} | {"quantize_int8": n_leaves * pd["cross_steps"]}
+        if pd["launches"] != want or pd["cross_steps"] == 0:
+            raise AssertionError(f"{tags[r]} pod launches {pd['launches']}, expected {want}")
+    for bsz, rung, steps, train_loss, val_loss, delta in first["epochs"]:
+        print(f"  (c) {tags[0]} epoch: batch {bsz}, rung {rung}, {steps} steps, train loss "
+              f"{train_loss:.6f}, val loss {val_loss:.6f}, Delta {delta:.6f}")
+    g = first["gather"]
+    numel = sum(int(p.numel()) for p in pod_final["params"])
+    print(f"  (c) schedule (batch, rung, steps), losses, Delta and parameters equal phase "
+          f"10's to the bit, pod 1 lost and the demotion 3 -> 2 through run_supervised "
+          f"included (pod 1's rank left after epoch 3 with phase 10's first 3 epochs); "
+          f"quantize_int8 launches per rank {[pods[r]['launches']['quantize_int8'] for r in pods]}"
+          f" (= {n_leaves} leaves x {first['cross_steps']} cross-pod steps); all-gather "
+          f"{g['calls']['all_gather']} calls, {g['bytes']['all_gather']} bytes sent by rank "
+          f"0 ({numel} int8 codes + float32 scales, losses and moment terms a step), "
+          f"{g['ms']['all_gather']:.1f} ms in all; {first['wall_s']:.1f} s")
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s)")
+    return {"encoder dp training (ranks)": {
+                k: sum(res[r]["hubert"]["launches"][k] for r in res) for k in hub[0]["launches"]},
+            "pod training (ranks)": {
+                k: sum(res[r]["pod"]["launches"][k] for r in res) for k in pods[0]["launches"]}}
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -2830,7 +3253,7 @@ def main() -> int:
     train_card_vs_cpu_phase()
     gram_counts, alone_counts = gram_train_phase()
     gram_card_vs_cpu_phase()
-    pod_counts, pod_after_3 = pod_phase()
+    pod_counts, pod_after_3, pod_final = pod_phase()
     pod_card_vs_cpu_phase()
     lm_resume_counts = lm_resume_phase()
     pod_resume_counts = pod_resume_phase(pod_after_3)
@@ -2838,6 +3261,8 @@ def main() -> int:
     cli_card_vs_cpu_phase()
     encoder_paths = hubert_phase()
     encoder_card_vs_cpu_phase()
+    rank_paths = scale_out_phase(pod_final)
+    encoder_paths["encoder dp training (ranks)"] = rank_paths["encoder dp training (ranks)"]
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -2845,7 +3270,8 @@ def main() -> int:
     paths = {"serving": serve_counts, "training": train_counts,
              "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts,
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
-             "checkpoint-resume pod": pod_resume_counts}
+             "checkpoint-resume pod": pod_resume_counts,
+             "pod training (ranks)": rank_paths["pod training (ranks)"]}
     # the non-causal records count the encoder's paths (phase 14), the others
     # the rest
     for rec in records:

@@ -10,7 +10,9 @@ The port carries paged serving (``serve.ServeEngine`` over
 the ``adapt`` layer, the moment and gram tiers), and the paper's own
 ``train.loop.Trainer`` on its small models, elastic over a two-pod
 ``pod.PodLadder`` of virtual devices with the compressed cross-pod
-gradient exchange (``dist.compression``).  Every TPU kernel of the
+gradient exchange (``dist.compression``), and scale-out over
+``torch.distributed`` process groups: meshes of ``(rank, device)`` entries,
+data-parallel LM training, pods that are ranks (``launch.mesh``).  Every TPU kernel of the
 reference has a hand-written Hopper counterpart in ``kernels/csrc/``: chunk
 attention, paged decode, the flash-attention backward, the per-sample
 gradient norms and the int8 quantisation.  Every entry point defaults to ``device="cuda"`` and

@@ -16,6 +16,10 @@ package loads in the other.
     returns, so a step that then updates the state in place cannot race the
     write; only the file I/O may run on a thread (``async_save=True``).
   * BOUNDED: the ``keep`` most recent steps are retained.
+  * RANKS: with ``group=`` (a ``torch.distributed`` group) only its ``root``
+    rank writes and prunes, after a barrier, and a second barrier holds the
+    group until the files are published; every rank restores from the same
+    files.
 
 Trees are nested dicts (flattened in sorted key order, as JAX flattens
 them), lists and tuples (by index), and named tuples (by field, in field
@@ -41,6 +45,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.logging import get_logger
 
@@ -252,9 +257,22 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save / restore --------------------------------------------------------
-    def save(self, step: int, state: dict[str, Any], extra: dict | None = None) -> None:
+    def save(self, step: int, state: dict[str, Any] | None, extra: dict | None = None, *,
+             group=None, root: int | None = None) -> None:
         """``state``: dict of trees.  ``extra``: JSON-serialisable host state
-        (controller, cursor, python scalars)."""
+        (controller, cursor, python scalars).  With ``group``, every rank of
+        it calls ``save``; rank ``root`` writes (synchronously) between two
+        barriers, and the others' ``state`` is ignored."""
+        if group is not None:
+            dist.barrier(group=group)
+            if dist.get_rank() == root:
+                self._save(step, state, extra, sync=True)
+            dist.barrier(group=group)
+            return
+        self._save(step, state, extra, sync=not self.async_save)
+
+    def _save(self, step: int, state: dict[str, Any], extra: dict | None,
+              sync: bool) -> None:
         self.wait()  # one in-flight save at a time
         t0 = time.perf_counter()
         host = {k: _to_host(v) for k, v in state.items()}
@@ -278,7 +296,7 @@ class CheckpointManager:
             self.last_write_s = time.perf_counter() - t1
             log.info("saved checkpoint step=%d -> %s", step, final)
 
-        if self.async_save:
+        if not sync:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
         else:

@@ -13,10 +13,14 @@ integrates to the true signal over time.
 ``compress_leaf``         one leaf with error feedback: the dequantised
                           transmit value and the new residual.
 ``compressed_pod_mean``   each pod quantises its leaves (folding in its own
-                          residual) on its own device; the "all-gather"
-                          copies every pod's int8 payload and scale to the
-                          device the mean is formed on, where they are
-                          dequantised and averaged with plain ops.
+                          residual) on its own device; the all-gather
+                          brings every pod's int8 payload and scale to
+                          where the mean is formed, where they are
+                          dequantised and averaged with plain ops.  Pods of
+                          one process (virtual devices) gather by a copy;
+                          pods that are ranks gather over the pod process
+                          group (``group=``): one flat all-gather of the
+                          rank's codes and scales, as bytes.
 ``make_compressed_pod_mean``  the same over trees whose leaves carry a
                           leading pod axis, on a mesh's pod axis.
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import quant as quant_kernels
 from repro_torch.utils import pytree as ptu
@@ -87,24 +92,101 @@ def pod_exchange(grads: Sequence[Tree], err: Sequence[Tree],
     if any(len(e) != len(leaves[0]) for e in leaves + err_leaves):
         raise ValueError("grads/err tree mismatch")
     dev = torch.device(device) if device is not None else leaves[0][0].device
-    means, new_errs, scales = [], [[] for _ in range(pods)], []
-    for i, like in enumerate(leaves[0]):
-        q_all, s_all = [], []
-        for p in range(pods):
-            x = leaves[p][i].float() + err_leaves[p][i].float()
+    codes, scales, new_errs = _quantize_pods(leaves, err_leaves)
+    # the all-gather: int8 payload + scale
+    codes = [[q.to(dev) for q in qs] for qs in codes]
+    scales = [[s.to(dev) for s in ss] for ss in scales]
+    means, stacked = _pod_mean(codes, scales, leaves[0])
+    return means, new_errs, stacked
+
+
+def _quantize_pods(leaves: list[list[torch.Tensor]], err_leaves: list[list[torch.Tensor]]):
+    """Each pod's leaves with its residual folded in, quantised:
+    ``(codes[p][i], scales[p][i], new residuals[p][i])``."""
+    codes, scales, new_errs = [], [], []
+    for g, e in zip(leaves, err_leaves):
+        qs, ss, es = [], [], []
+        for gi, ei in zip(g, e):
+            x = gi.float() + ei.float()
             q, scale = _quantize(x)
-            new_errs[p].append(x - q.float() * scale)
-            q_all.append(q.to(dev))  # the all-gather: int8 payload + scale
-            s_all.append(scale.to(dev))
-        s_all = torch.stack(s_all)
-        deq = torch.stack(q_all).float() * s_all.reshape((-1,) + (1,) * like.dim())
-        means.append(deq.mean(dim=0).to(like.dtype))
-        scales.append(s_all)
-    return means, new_errs, torch.stack(scales, dim=1)
+            qs.append(q)
+            ss.append(scale)
+            es.append(x - q.float() * scale)
+        codes.append(qs)
+        scales.append(ss)
+        new_errs.append(es)
+    return codes, scales, new_errs
+
+
+def _pod_mean(codes, scales, like: list[torch.Tensor]):
+    """Dequantise every pod's codes and average over the pods in pod order:
+    ``(means in each leaf's type, (pods, leaves) scales)``."""
+    means, stacked = [], []
+    for i, t in enumerate(like):
+        s_all = torch.stack([s[i] for s in scales])
+        deq = torch.stack([q[i] for q in codes]).float() * s_all.reshape((-1,) + (1,) * t.dim())
+        means.append(deq.mean(dim=0).to(t.dtype))
+        stacked.append(s_all)
+    return means, torch.stack(stacked, dim=1)
+
+
+@torch.no_grad()
+def ranked_pod_exchange(grads: Sequence[Tree], err: Sequence[Tree], group,
+                        pod_ranks: Sequence[int], extras: torch.Tensor | None = None):
+    """The cross-pod exchange when pods are ranks.
+
+    ``grads[k]``, ``err[k]`` are the trees of this rank's pods, in pod order;
+    ``pod_ranks[p]`` is pod p's rank (every rank of ``group`` holds the same
+    number of pods).  Each rank quantises its own leaves, folding in its own
+    residuals, on its own device; the int8 codes (as bytes), the float32
+    scales and ``extras`` (a float32 vector of the rank's own per-step
+    values, the same length on every rank) cross as ONE all-gather over
+    ``group``; every rank then dequantises and averages in pod order with
+    :func:`pod_exchange`'s ops, so the mean has the same bits on every rank
+    and as on one process.  Returns ``(means, new residual leaves of this
+    rank's pods, (pods, leaves) scales, {rank: its extras}, bytes gathered
+    per rank)``."""
+    leaves = [ptu.leaves(g) for g in grads]
+    err_leaves = [ptu.leaves(e) for e in err]
+    codes, scales, new_errs = _quantize_pods(leaves, err_leaves)
+    like = leaves[0]
+    n_local, n_leaves = len(leaves), len(like)
+    extras = extras if extras is not None else torch.zeros(0, device=like[0].device)
+    # float32 first (aligned at byte 0), then the int8 codes
+    floats = torch.cat([torch.stack([s for ss in scales for s in ss]),
+                        extras.float().reshape(-1)])
+    payload = torch.cat([floats.view(torch.uint8)]
+                        + [q.reshape(-1).view(torch.uint8) for qs in codes for q in qs])
+    ranks = sorted(set(int(r) for r in pod_ranks))
+    gathered = [torch.empty_like(payload) for _ in ranks]
+    dist.all_gather(gathered, payload, group=group)
+    n_floats = floats.numel()
+    per_rank = {}
+    for r, buf in zip(ranks, gathered):
+        f = buf[:4 * n_floats].view(torch.float32)
+        s = f[:n_local * n_leaves].reshape(n_local, n_leaves)
+        off, qs_r = 4 * n_floats, []
+        for _ in range(n_local):
+            qs = []
+            for t in like:
+                qs.append(buf[off:off + t.numel()].view(torch.int8).view(t.shape))
+                off += t.numel()
+            qs_r.append(qs)
+        per_rank[r] = (qs_r, [list(row) for row in s], f[n_local * n_leaves:])
+    all_codes, all_scales, seen = [], [], {r: 0 for r in ranks}
+    for r in pod_ranks:
+        qs_r, ss_r, _ = per_rank[int(r)]
+        all_codes.append(qs_r[seen[int(r)]])
+        all_scales.append(ss_r[seen[int(r)]])
+        seen[int(r)] += 1
+    means, stacked = _pod_mean(all_codes, all_scales, like)
+    return (means, new_errs, stacked, {r: v[2] for r, v in per_rank.items()},
+            payload.numel())
 
 
 def compressed_pod_mean(grads: Sequence[Tree], err: Sequence[Tree],
-                        device: torch.device | str | None = None
+                        device: torch.device | str | None = None, *, group=None,
+                        pod_ranks: Sequence[int] | None = None
                         ) -> tuple[Tree, list[Tree]]:
     """The compressed mean over pods.
 
@@ -114,10 +196,16 @@ def compressed_pod_mean(grads: Sequence[Tree], err: Sequence[Tree],
     gathered onto ``device`` (default: pod 0's), the only cross-pod bytes,
     dequantised there and averaged over the pods in pod order.  Returns
     ``(mean tree on device, [new residual tree of pod p])``; each residual
-    stays with its pod."""
-    means, new_errs, _ = pod_exchange(grads, err, device)
+    stays with its pod.  With ``group`` (the pod process group) and
+    ``pod_ranks`` (each pod's rank), ``grads`` and ``err`` are this rank's
+    pods only, the gather is :func:`ranked_pod_exchange`'s, and the
+    residuals returned are this rank's."""
+    if group is not None:
+        means, new_errs = ranked_pod_exchange(grads, err, group, pod_ranks)[:2]
+    else:
+        means, new_errs, _ = pod_exchange(grads, err, device)
     return (_rebuild(grads[0], means),
-            [_rebuild(err[p], new_errs[p]) for p in range(len(grads))])
+            [_rebuild(err[p], new_errs[p]) for p in range(len(new_errs))])
 
 
 def make_compressed_pod_mean(mesh, axis_name: str):

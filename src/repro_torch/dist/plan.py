@@ -8,15 +8,22 @@ so nesting behaves like lexical scoping, also across exceptions) and
 ``current_plan`` reads it.
 
 The port has no ``jax.sharding.Mesh``: its :class:`Mesh` is a numpy array of
-``torch.device`` with axis names, the devices a rung's shards run on in
-mesh order.  The list may name one physical device many times (virtual
-devices: eight of them on one card, or on the CPU in the tests, as the
-reference forces eight host devices).  The port runs a mesh whose devices
-are all one physical device; one spanning several cards belongs to the
-scale-out work over process groups (ROADMAP.md, Queue A 5), and
-:meth:`Mesh.physical_device` raises for it.  The reference's
-``constrain`` activation hook and its PartitionSpec inference have no
-counterpart: nothing is sharded within a device.
+entries with axis names, the shards of a rung in mesh order.  An entry is
+either a ``torch.device`` (a *local* mesh: every entry belongs to this
+process) or a :class:`RankDevice`, a ``(rank, device)`` pair of a
+``torch.distributed`` process group (a *rank* mesh).  Either may name one
+physical device many times: virtual devices, eight of them on one card or
+on the CPU in the tests, as the reference forces eight host devices; a rank
+runs its own entries in mesh order on its device.  A rank mesh builds one
+process group per mesh axis, and one over the whole mesh, when it is
+constructed (``new_group`` is collective over the world, so every rank
+builds every mesh in the same order); a reduction over an axis goes through
+that axis's group (:meth:`Mesh.group`).  A local mesh over several physical
+devices raises in :meth:`Mesh.physical_device`: one process drives one
+device, and several devices take one rank each (``launch.mesh.init_ranks``
+under ``torchrun``).  The reference's ``constrain`` activation hook has no
+counterpart: parameters stay replicated at run time, and
+``dist.sharding`` holds the PartitionSpec rules.
 """
 
 from __future__ import annotations
@@ -29,25 +36,87 @@ from typing import Any, Iterator, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 AxisNames = Any  # str | tuple[str, ...]
 
 
+def process_rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 without one)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RankDevice:
+    """A rank mesh's entry: the shard runs in process ``rank`` on ``device``
+    (as that rank names it)."""
+
+    rank: int
+    device: torch.device
+
+    def __post_init__(self):
+        object.__setattr__(self, "rank", int(self.rank))
+        object.__setattr__(self, "device", torch.device(self.device))
+
+    def __repr__(self) -> str:
+        return f"RankDevice({self.rank}, {self.device})"
+
+
+def rank_devices(device: torch.device | str, world: int | None = None,
+                 per_rank: int = 1) -> list[RankDevice]:
+    """``per_rank`` entries for each rank ``0 .. world - 1`` (the default
+    group's size when None), in rank order, each on ``device``: every rank
+    lists the whole world with its own device, which is the one its own
+    entries run on."""
+    world = world_size() if world is None else int(world)
+    return [RankDevice(r, device) for r in range(world) for _ in range(per_rank)]
+
+
+def _object_array(entries: Any) -> np.ndarray:
+    """``entries`` (a nested sequence) as an object array of its leaves."""
+    src = np.asarray(entries, dtype=object)
+    arr = np.empty(src.shape, dtype=object)
+    for idx in np.ndindex(arr.shape):
+        arr[idx] = src[idx]
+    return arr
+
+
 class Mesh:
-    """Devices arranged on named axes: ``devices`` is an object array of
-    ``torch.device`` whose shape gives each axis's size."""
+    """Shards arranged on named axes.  ``devices`` is an object array of
+    ``torch.device`` whose shape gives each axis's size and ``ranks`` the
+    rank of every entry (this process's rank for a local mesh)."""
 
     def __init__(self, devices: Any, axis_names: Sequence[str]):
-        src = np.asarray(devices, dtype=object)
-        arr = np.empty(src.shape, dtype=object)
-        for idx in np.ndindex(arr.shape):
-            arr[idx] = torch.device(src[idx])
-        if arr.ndim != len(axis_names):
-            raise ValueError(f"devices of shape {arr.shape} do not fit the axes "
+        src = _object_array(devices)
+        kinds = {isinstance(e, RankDevice) for e in src.flat}
+        if len(kinds) > 1:
+            raise ValueError("a mesh's entries are all devices or all RankDevice pairs")
+        #: whether the entries are ``(rank, device)`` pairs (a rank mesh)
+        self.ranked = kinds == {True}
+        #: this process's rank
+        self.rank = process_rank()
+        self.devices = np.empty(src.shape, dtype=object)
+        self.ranks = np.full(src.shape, self.rank, dtype=np.int64)
+        for idx in np.ndindex(src.shape):
+            e = src[idx]
+            if self.ranked:
+                self.devices[idx], self.ranks[idx] = e.device, e.rank
+            else:
+                self.devices[idx] = torch.device(e)
+        if src.ndim != len(axis_names):
+            raise ValueError(f"devices of shape {src.shape} do not fit the axes "
                              f"{tuple(axis_names)}")
-        self.devices = arr
         self.axis_names = tuple(str(a) for a in axis_names)
+        self._groups: dict[tuple[str, ...], tuple[Any, tuple[int, ...]]] = {}
+        if self.ranked:
+            self._build_groups()
 
+    # -- shape -----------------------------------------------------------------
     @property
     def shape(self) -> dict[str, int]:
         """``{axis name: size}`` in axis order."""
@@ -61,31 +130,148 @@ class Mesh:
         """The devices in mesh order (the last axis fastest)."""
         return list(self.devices.flat)
 
+    # -- ranks and groups ------------------------------------------------------
+    def _axes_key(self, axes: AxisNames) -> tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if set(axes) == set(self.axis_names):
+            return self.axis_names
+        if len(axes) != 1 or axes[0] not in self.axis_names:
+            raise KeyError(f"the mesh builds groups over one axis or all of "
+                           f"{self.axis_names}, not {axes}")
+        return axes
+
+    def _rank_sets(self, axes: tuple[str, ...]) -> list[tuple[int, ...]]:
+        """The distinct rank lists (mesh order, repeats dropped) along
+        ``axes``, one per position on the other axes, first seen first."""
+        along = [self.axis_names.index(a) for a in axes]
+        other = [i for i in range(len(self.axis_names)) if i not in along]
+        n = math.prod(self.devices.shape[i] for i in along)
+        rows = self.ranks.transpose(other + along).reshape(-1, n)
+        sets: list[tuple[int, ...]] = []
+        for row in rows:
+            s = tuple(dict.fromkeys(int(r) for r in row))
+            if s not in sets:
+                sets.append(s)
+        return sets
+
+    def _build_groups(self) -> None:
+        """One process group per axis and one over the whole mesh, built on
+        every rank in the same order (``new_group`` is collective over the
+        world); a rank keeps the group it belongs to."""
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "a mesh of RankDevice entries needs torch.distributed initialised "
+                "(repro_torch.launch.mesh.init_ranks, under torchrun)")
+        keys = [(a,) for a in self.axis_names]
+        if len(self.axis_names) > 1:
+            keys.append(self.axis_names)
+        for key in keys:
+            for ranks in self._rank_sets(key):
+                group = dist.new_group(sorted(ranks))
+                if self.rank in ranks:
+                    self._groups[key] = (group, ranks)
+
+    def group(self, axes: AxisNames):
+        """The process group of this rank along ``axes`` (one axis, or all of
+        them); None on a local mesh."""
+        if not self.ranked:
+            return None
+        return self._groups[self._axes_key(axes)][0]
+
+    def group_ranks(self, axes: AxisNames) -> tuple[int, ...]:
+        """The ranks of this rank's group along ``axes``, in mesh order."""
+        if not self.ranked:
+            return (self.rank,)
+        return self._groups[self._axes_key(axes)][1]
+
+    @property
+    def is_member(self) -> bool:
+        """Whether this process holds an entry of the mesh."""
+        return bool((self.ranks == self.rank).any())
+
+    @property
+    def root(self) -> int:
+        """The rank of the mesh's first entry."""
+        return int(self.ranks.flat[0])
+
+    @property
+    def spans_ranks(self) -> bool:
+        return len(set(self.ranks.flat)) > 1
+
+    def local_positions(self, axes: AxisNames) -> list[int]:
+        """Positions along the flattened ``axes`` (in their order) of this
+        rank's entries, sorted."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        along = [self.axis_names.index(a) for a in axes]
+        other = [i for i in range(len(self.axis_names)) if i not in along]
+        n = math.prod(self.devices.shape[i] for i in along)
+        mine = self.ranks.transpose(along + other).reshape(n, -1) == self.rank
+        return [i for i in range(n) if mine[i].any()]
+
     def physical_device(self) -> torch.device:
-        """The one physical device every entry names; raises
-        ``NotImplementedError`` when the mesh spans several."""
+        """The one physical device this process's entries name.  Raises for
+        a local mesh over several physical devices (one rank per device is
+        the launcher's job), and on a rank that holds no entry."""
+        if self.ranked:
+            mine = {d for d, r in zip(self.devices.flat, self.ranks.flat)
+                    if int(r) == self.rank}
+            if not mine:
+                raise ValueError(f"rank {self.rank} holds no entry of {self!r}")
+            if len(mine) > 1:
+                raise NotImplementedError(
+                    f"rank {self.rank} holds entries on {sorted(map(str, mine))}: a rank "
+                    "drives one device; give each device a rank of its own")
+            return mine.pop()
         devs = set(self.flat())
         if len(devs) != 1:
             raise NotImplementedError(
-                f"a mesh over {len(devs)} physical devices ({sorted(map(str, devs))}) "
-                "needs process groups, which come with scale-out (ROADMAP.md, Queue A 5); "
-                "repro_torch runs the virtual devices of one physical device")
+                f"a mesh over {len(devs)} physical devices ({sorted(map(str, devs))}) in "
+                f"one process needs process groups: launch one rank per device "
+                f"(torchrun --nproc-per-node "
+                f"{len(devs)}, repro_torch.launch.mesh.init_ranks) and build the mesh "
+                "from dist.plan.RankDevice entries")
         return devs.pop()
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh) and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
-                and self.flat() == other.flat())
+                and self.flat() == other.flat() and self.ranked == other.ranked
+                and bool((self.ranks == other.ranks).all()))
 
     def __repr__(self) -> str:
+        if self.ranked:
+            return (f"Mesh({self.shape}, ranks={sorted(set(self.ranks.flat.tolist()))}, "
+                    f"devices={sorted(set(map(str, self.flat())))})")
         return f"Mesh({self.shape}, devices={sorted(set(map(str, self.flat())))})"
+
+
+class AbstractMesh:
+    """Axis names and sizes without devices: what the sharding rules and
+    ``launch.mesh.make_plan`` read (the reference's ``AbstractMesh``)."""
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(str(a) for a in axis_names)
+        self.devices = np.empty(tuple(int(s) for s in axis_sizes), dtype=object)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def abstract_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str]) -> AbstractMesh:
+    """A mesh of the given shape with no devices behind it."""
+    return AbstractMesh(axis_sizes, axis_names)
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:
     """Mesh + axis assignment for dp/fsdp/tp/ep parallelism."""
 
-    mesh: Mesh
+    mesh: Any  # Mesh or AbstractMesh
     dp: tuple[str, ...] = ("data",)
     fsdp: tuple[str, ...] = ("data",)
     tp: AxisNames = "model"
@@ -134,3 +320,53 @@ def use_plan(plan: ShardingPlan) -> Iterator[ShardingPlan]:
         yield plan
     finally:
         _ACTIVE.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# collectives over a mesh's groups
+# ---------------------------------------------------------------------------
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> dict[torch.dtype, list[int]]:
+    out: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(tensors):
+        out.setdefault(t.dtype, []).append(i)
+    return out
+
+
+@torch.no_grad()
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group, n: int) -> list[torch.Tensor]:
+    """The mean of ``tensors`` over the ``n`` ranks of ``group``, in each
+    tensor's own type: one all-reduce (sum) per dtype over the tensors
+    flattened into one buffer, then a division by ``n``.  Returns views of
+    the reduced buffers, shaped like the inputs."""
+    out: list[torch.Tensor | None] = [None] * len(tensors)
+    for idx in _by_dtype(tensors).values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+@torch.no_grad()
+def broadcast_(tensors: Sequence[torch.Tensor], src: int, group) -> None:
+    """Overwrite ``tensors`` in place with rank ``src``'s (a global rank):
+    one broadcast per dtype over the tensors flattened into one buffer."""
+    for idx in _by_dtype(tensors).values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.broadcast(flat, src=src, group=group)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            tensors[i].copy_(part.view(tensors[i].shape))
+
+
+def broadcast_object(obj: Any, src: int, group, device: torch.device) -> Any:
+    """Rank ``src``'s ``obj`` (picklable; a small host value) on every rank
+    of ``group``; its bytes travel on ``device`` under NCCL, on the CPU
+    under gloo."""
+    box = [obj]
+    dist.broadcast_object_list(
+        box, src=src, group=group,
+        device=device if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    return box[0]

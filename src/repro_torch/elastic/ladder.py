@@ -13,8 +13,13 @@ divides ``m`` and keeps the per-device microbatch at least ``granule``.
 The devices are ``torch.device``s, and the list may name one physical
 device many times: the default is eight virtual devices on the card (the
 reference forces eight host devices).  A rung's step runs its data-parallel
-shards on its virtual devices; the port runs the rungs whose devices are
-all one physical device (``dist.plan.Mesh.physical_device``).
+shards on its virtual devices; a local ladder runs the rungs whose devices
+are all one physical device (``dist.plan.Mesh.physical_device``).  Over the
+world's ranks the list holds ``dist.plan.RankDevice`` entries
+(``dist.plan.rank_devices``): every rung's mesh, and so its process groups,
+is built at construction on every rank, a rung over several ranks averages
+its gradients over its dp group (``engine_for``), and the widest rung's
+group carries the run's decisions (``control``).
 """
 
 from __future__ import annotations
@@ -114,6 +119,8 @@ class MeshLadder:
                 ep=(dp_axis,),
             )
             self.rungs.append(Rung(index=i, dp=w, plan=plan))
+        #: whether the rungs are rank meshes (``(rank, device)`` entries)
+        self.ranked = self.rungs[0].plan.mesh.ranked
 
     # -- selection -----------------------------------------------------------
     def rung_for_batch(self, m: int) -> Rung:
@@ -138,6 +145,44 @@ class MeshLadder:
         no rung-dependent state: identity.  ``PodLadder`` installs, drops
         or re-zeros the compression residuals (``TrainState.err_state``)."""
         return state
+
+    # -- ranks -----------------------------------------------------------------
+    def control(self) -> tuple[object, tuple[int, ...]]:
+        """``(group, ranks)`` that the run's decisions are broadcast over (the
+        first rank sends): the widest rung's whole-mesh group.  Rank ladders
+        only."""
+        mesh = self.full.plan.mesh
+        return mesh.group(mesh.axis_names), mesh.group_ranks(mesh.axis_names)
+
+    def engine_for(self, fns, optimizer, *, estimator: str = "moment",
+                   diversity_on: bool = True, donate: bool = True,
+                   psn_chunk: int | None = None):
+        """The Trainer's engine: ``StepEngine.for_model_fns`` on a local
+        ladder; on a rank ladder a rung-aware one whose rungs over several
+        ranks average their gradients over the rung's dp group."""
+        from repro_torch.train import step as step_lib
+        from repro_torch.train.engine import StepEngine, eval_fn_for
+
+        if not self.ranked:
+            return StepEngine.for_model_fns(fns, optimizer, estimator=estimator,
+                                            diversity_on=diversity_on, donate=donate,
+                                            psn_chunk=psn_chunk)
+        injit = ("exact", "gram", "moment")
+
+        def build(key: int, tier: str | None = None, rung: int | None = None):
+            est = tier if tier is not None else estimator
+            track = diversity_on and est in injit
+            plan = self.rungs[rung].plan
+            return step_lib.make_train_step(
+                None, optimizer, 1, diversity_on=track, loss_fn=fns.batch_loss,
+                estimator=est if track else "moment", example_loss=fns.example_loss,
+                probe_loss=fns.probe_loss, probe_specs=fns.probe_specs,
+                psn_chunk=psn_chunk, plan=plan if plan.mesh.spans_ranks else None)
+
+        eng = StepEngine(build, donate=donate, eval_fn=eval_fn_for(fns))
+        if diversity_on and estimator in injit:
+            eng.tier = estimator
+        return eng
 
     # -- introspection -------------------------------------------------------
     @property

@@ -16,6 +16,14 @@ returned object is new when ``donate=False``).
 
 ``place`` is the restore-time variant: a host tree (numpy or tensors) onto
 a plan's device, or the CPU when no plan is given.
+
+Between rank rungs (meshes of ``dist.plan.RankDevice`` entries) a rank
+inside the destination moves its state onto its device and, when the rung
+spans several ranks, every rank of it takes the state by a broadcast from
+the rung's first rank over the rung's whole-mesh group (the ranks that
+enter it receive the state, the others receive their own bits back); a
+rank outside the destination keeps its state and waits at the next
+boundary.  A transition within one rank stays a value-exact ``.to``.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.dist.plan import ShardingPlan
+from repro_torch.dist.plan import ShardingPlan, broadcast_
 
 Tree = Any
 
@@ -87,11 +95,42 @@ def reshard(state: Tree, src_plan: ShardingPlan | None, dst_plan: ShardingPlan |
         state = copy.deepcopy(state)
     if dst_plan is None:
         return state
-    return _move(state, dst_plan.mesh.physical_device())
+    mesh = dst_plan.mesh
+    if mesh.ranked and not mesh.is_member:
+        return state  # outside the rung: wait at the next boundary
+    state = _move(state, mesh.physical_device())
+    if mesh.ranked and mesh.spans_ranks:
+        tensors = _tensors(state)
+        step = getattr(state, "step", None)
+        if isinstance(step, int):  # the step count rides as one more tensor
+            tensors.append(torch.tensor([step], dtype=torch.int64, device=tensors[0].device))
+        broadcast_(tensors, mesh.root, mesh.group(mesh.axis_names))
+        if isinstance(step, int):
+            state = dataclasses.replace(state, step=int(tensors[-1]))
+    return state
+
+
+def _tensors(obj: Any) -> list[torch.Tensor]:
+    """Every tensor of ``obj`` (a module's parameters and buffers), in a
+    fixed order."""
+    if isinstance(obj, nn.Module):
+        return [t.data for t in obj.parameters()] + list(obj.buffers())
+    if isinstance(obj, torch.Tensor):
+        return [obj.data]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _tensors(v)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _tensors(v)]
+    return []
 
 
 def place(tree: Tree, plan: ShardingPlan | None) -> Tree:
     """Put a host (or device) tree onto ``plan``'s device; the default
-    device (the card) when ``plan`` is None."""
+    device (the card) when ``plan`` is None.  On a rank outside a rank
+    plan's mesh the tree stays where it is."""
+    if plan is not None and plan.mesh.ranked and not plan.mesh.is_member:
+        return tree
     dev = plan.mesh.physical_device() if plan is not None else resolve_device()
     return _move(tree, dev)

@@ -8,8 +8,17 @@ policy in a tolerance band around the pow2 bucket thresholds.  Checkpoints
 (``--ckpt-dir``, every ``--ckpt-every`` epochs) are in the reference's
 format, and ``--resume`` continues from the latest one, wherever it was
 written.  The device defaults to ``cuda`` and raises without a Hopper card;
-``--device cpu`` runs the plain PyTorch path.  ``--dp`` and ``--elastic``
-need scale-out over process groups (ROADMAP.md, Queue A 5) and raise.
+``--device cpu`` runs the plain PyTorch path.  ``--dp N`` trains
+data-parallel over N ranks and ``--elastic`` on a ``MeshLadder`` over the
+world's ranks (``--dp`` of them, default all); both run under ``torchrun``
+(``--backend``, default nccl) and raise without a process group of the
+right size:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --dp 2
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --backend gloo --elastic
+
+Only the first rank prints, traces and writes checkpoints.
 
 Examples:
   python -m repro_torch.launch.train --task synthetic-convex --method divebatch
@@ -26,8 +35,10 @@ same weights on every device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+from typing import Any
 
 import torch
 
@@ -44,12 +55,22 @@ from repro_torch.adapt import (
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.core.controller import step_decay
 from repro_torch.data import imagelike_classification, sigmoid_synthetic
+from repro_torch.dist.plan import process_rank, rank_devices, use_plan
+from repro_torch.elastic import MeshLadder
+from repro_torch.launch.mesh import data_plan, join_world
 from repro_torch.obs import from_cli as obs_from_cli
 from repro_torch.optim import sgd
 from repro_torch.train.loop import ModelFns, Trainer
 
-_SCALE_OUT = ("needs scale-out over process groups, which is not ported to "
-              "repro_torch yet (ROADMAP.md, Queue A 5)")
+def rank_setup(args) -> tuple[torch.device, Any, Any]:
+    """``(device, plan, ladder)`` for ``--dp`` / ``--elastic``: this
+    process's rank joins the world on ``--backend``; ``--dp N`` needs a world
+    of N ranks, ``--elastic`` alone at least 2."""
+    dev = join_world(args.backend, ranks=args.dp or None, device=args.device,
+                     command="repro_torch.launch.train")
+    if args.elastic:
+        return dev, None, MeshLadder(rank_devices(dev), granule=args.granule)
+    return dev, data_plan(dev), None
 
 
 def build_task(task: str, seed: int, device: torch.device | str = "cuda"):
@@ -149,10 +170,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--weight-decay", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel shards (needs scale-out: raises)")
+                    help="data-parallel ranks (under torchrun, a world of N)")
     ap.add_argument("--elastic", action="store_true",
-                    help="an elastic mesh ladder over local devices (needs scale-out: "
-                         "raises)")
+                    help="co-adapt the ranks with the batch size: a MeshLadder over the "
+                         "world's ranks (under torchrun), rung transitions at the "
+                         "boundaries that resize the batch")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the process group's backend with --dp / --elastic (NCCL needs "
+                         "a card per rank; gloo also runs on the CPU)")
     ap.add_argument("--no-donate", action="store_true",
                     help="train a copy of the state each step (debugging)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -175,33 +200,40 @@ def main(argv: list[str] | None = None) -> dict:
     args = parser().parse_args(argv)
     if args.method == "oracle":
         args.estimator = "oracle"
+    plan = ladder = None
     if args.dp or args.elastic:
-        raise NotImplementedError(f"--dp / --elastic {_SCALE_OUT}")
-    dev = resolve_device(args.device)
-
+        dev, plan, ladder = rank_setup(args)
+    else:
+        dev = resolve_device(args.device)
+    first = process_rank() == 0
     tracer, runlog = obs_from_cli(
-        args.trace, args.runlog,
+        args.trace if first else None, args.runlog if first else None,
         meta={"cmd": "train", "task": args.task, "method": args.method,
-              "estimator": args.estimator, "seed": args.seed, "elastic": False,
-              "device": str(dev)},
+              "estimator": args.estimator, "seed": args.seed,
+              "elastic": bool(args.elastic), "device": str(dev)},
     )
     fns, params, train, val = build_task(args.task, args.seed, dev)
     program = make_program(args, len(train))
-    trainer = Trainer(
-        fns, params, sgd(momentum=args.momentum, weight_decay=args.weight_decay),
-        program, train, val,
-        estimator=args.estimator if args.method in ("divebatch", "oracle", "gns") else "none",
-        seed=args.seed,
-        ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None,
-        ckpt_every=args.ckpt_every,
-        donate=not args.no_donate,
-        tracer=tracer,
-        runlog=runlog,
-    )
+    with use_plan(plan) if plan is not None else contextlib.nullcontext():
+        trainer = Trainer(
+            fns, params, sgd(momentum=args.momentum, weight_decay=args.weight_decay),
+            program, train, val,
+            estimator=args.estimator if args.method in ("divebatch", "oracle", "gns")
+            else "none",
+            seed=args.seed,
+            ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None,
+            ckpt_every=args.ckpt_every,
+            donate=not args.no_donate,
+            elastic=ladder,
+            tracer=tracer,
+            runlog=runlog,
+        )
     if args.resume and trainer.ckpt:
         trainer.resume()
     remaining = args.epochs - trainer.cursor.epoch
-    history = trainer.run(max(remaining, 0))
+    history = trainer.run(max(remaining, 0), verbose=first)
+    if not first:
+        return {"trainer": trainer, "history": history, "program": program}
     if tracer is not None:
         print(f"trace: {tracer.save(args.trace)}")
     if runlog is not None:
@@ -224,6 +256,9 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"adapt: {len(mid)} mid-epoch decisions "
               f"({sum(a.rescaled for a in mid)} resized) via "
               f"{sorted(set(a.boundary for a in mid))}")
+    if ladder is not None:
+        print(f"elastic: ladder dp={ladder.widths} reshards={stats.reshards} "
+              f"rungs-per-compile={stats.rungs}")
     return {"trainer": trainer, "history": history, "program": program}
 
 

@@ -31,6 +31,15 @@ with ``extra={"program": ...}`` at every tick, as the reference example
 does, in the reference's format and paths (the layers stacked into
 ``pos{p}``, kernels ``(d_in, d_out)``); ``resume`` restores such a
 checkpoint into a state, and ``train(start_step=...)`` continues from it.
+
+``--dp N`` trains data-parallel over N ranks under ``torchrun`` on
+``--backend`` (NCCL wants a card per rank; gloo lets several ranks share
+one card, staging each all-reduce through the host): ``--micro-batch`` is
+the global microbatch, each rank taking ``micro_batch / N`` of it; rank 0's
+parameters are broadcast at the start, and only rank 0 prints, profiles
+and writes checkpoints.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --dp 2 --backend gloo
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import DEFAULT_DEVICE, interop, resolve_device
 from repro_torch.adapt import (
@@ -54,6 +64,8 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenStream
+from repro_torch.dist.plan import broadcast_
+from repro_torch.launch.mesh import data_plan, join_world
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
 from repro_torch.train import StepEngine, TrainState, init_state
@@ -121,7 +133,8 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
           data_seed: int = 0, log=print, engine: StepEngine | None = None,
           estimator: str = "moment", ckpt: CheckpointManager | None = None,
           state: TrainState | None = None, start_step: int = 0,
-          batches: Callable[[int, int, int], dict] | None = None) -> dict:
+          batches: Callable[[int, int, int], dict] | None = None,
+          plan=None) -> dict:
     """Train ``params`` in place up to optimizer step ``steps``.
 
     ``batches(step, batch, seq_len)`` gives step ``step``'s global batch as
@@ -141,7 +154,10 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
     ``start_step``: the batches are the stream's from that step on.  Returns
     ``{"records": [per-step dicts], "engine": StepEngine, "state":
     TrainState}``; a record holds ``step, batch, num_micro, loss, seconds``
-    and, at ticks, ``diversity, gns, next_batch``."""
+    and, at ticks, ``diversity, gns, next_batch``.  Under a rank ``plan``
+    every rank calls this with the same arguments and batch stream: the
+    engine steps its share and averages the gradients over the plan's dp
+    group, the checkpoints are the first rank's."""
     dev = next(params.parameters()).device
     opt = sgd(momentum=0.9)
     if state is None:
@@ -149,7 +165,10 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
     if batches is None:
         batches = TokenStream(cfg.vocab_size, seed=data_seed).batch
     if engine is None:
-        engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl)
+        engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl,
+                                   dp_size=plan.dp_size if plan is not None else 1,
+                                   plan=plan)
+    group = plan.mesh.group(plan.dp) if plan is not None and plan.mesh.ranked else None
     m = program.batch_size
     records = []
     for step in range(start_step, steps):
@@ -170,8 +189,11 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
                 f"{program.batch_size}")
             m = program.batch_size
             if ckpt is not None:
-                ckpt.save(step + 1, {"state": interop.reference_state(state)},
-                          extra={"program": program.state_dict()})
+                first = group is None or dist.get_rank() == plan.mesh.root
+                ckpt.save(step + 1,
+                          {"state": interop.reference_state(state)} if first else None,
+                          extra={"program": program.state_dict()}, group=group,
+                          root=plan.mesh.root if group is not None else None)
                 rec.update(ckpt_copy_s=ckpt.last_copy_s, ckpt_write_s=ckpt.last_write_s)
         elif step % 5 == 0:
             log(f"step {step + 1:4d} loss={loss:.4f} dt={rec['seconds']:.2f}s batch={m}")
@@ -203,24 +225,41 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--attn-impl", default="pallas", choices=["pallas", "dense"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel ranks (under torchrun, a world of N)")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the process group's backend with --dp")
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="profile the steps after the first with torch.profiler: a "
                          "Chrome trace to PATH, the ops by device time, the busy share")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    plan = None
+    if args.dp:
+        dev = join_world(args.backend, ranks=args.dp, device=args.device,
+                         command="repro_torch.launch.train_lm")
+        plan = data_plan(dev)
+    else:
+        dev = resolve_device(args.device)
+    first = plan is None or dist.get_rank() == plan.mesh.root
+    log = print if first else (lambda line: None)
     cfg = model_config(args.full_width, args.arch)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if plan is not None:  # every rank starts from the first rank's weights
+        broadcast_([p.data for p in params.parameters()], plan.mesh.root,
+                   plan.mesh.group(plan.dp))
     n_params = ptu.tree_count(params)
-    print(f"model: {cfg.name} x {cfg.num_layers} layers, {n_params / 1e6:.1f}M params "
-          f"on {dev}")
+    log(f"model: {cfg.name} x {cfg.num_layers} layers, {n_params / 1e6:.1f}M params "
+        f"on {dev}" + (f", rank {dist.get_rank()} of {args.dp} ({args.backend})"
+                       if plan is not None else ""))
     program = make_program(args.method, m0=args.m0, m_max=args.m_max, delta=args.delta,
                            granule=args.micro_batch, lr=args.lr,
                            tick_every=args.epoch_steps)
     kw = dict(seq_len=args.seq_len, micro_batch=args.micro_batch, attn_impl=args.attn_impl,
               data_seed=args.seed,
               batches=frame_batches(cfg, args.seed) if cfg.input_mode == "embeddings" else None,
-              ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None)
-    if not args.profile:
+              ckpt=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None,
+              plan=plan, log=log)
+    if not args.profile or not first:
         return train(cfg, params, program, steps=args.steps, **kw)
     from torch.profiler import ProfilerActivity, profile
 

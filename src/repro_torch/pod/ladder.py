@@ -13,6 +13,13 @@ one parameter replica of the rung's physical device.  The compression
 error-feedback residuals ride in ``TrainState.err_state``; ``adapt_state``
 installs, keeps, drops or re-zeros them at every rung transition (a residual
 is meaningless on another pod layout).
+
+Over ranks (``dist.plan.RankDevice`` entries, each pod's entries on one
+rank) the pods are ranks: every rung's groups, and one group over the first
+k pods' ranks for each k, are built at construction on every rank; a rank
+keeps only its own pods' residuals; the decisions travel over the group of
+the healthy pods (``control``), so after a pod loss the survivors carry on
+over groups that existed from the start.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.dist.plan import Mesh, ShardingPlan
 from repro_torch.elastic.ladder import MeshLadder, Rung
@@ -81,6 +89,17 @@ class PodLadder(MeshLadder):
             self.rungs.append(
                 Rung(index=len(self.rungs), dp=p * dpp, plan=plan, pods=p)
             )
+        # one group over the first k pods' ranks, for every k: the decisions'
+        # group while k pods are healthy
+        self._prefix: dict[int, tuple] = {}
+        if self.ranked:
+            me = self.rungs[0].plan.mesh.rank
+            for k in range(1, pods + 1):
+                ranks = tuple(dict.fromkeys(
+                    d.rank for pod in topo.pods[:k] for d in pod))
+                group = dist.new_group(sorted(ranks))
+                if me in ranks:
+                    self._prefix[k] = (group, ranks)
 
     # -- selection -----------------------------------------------------------
     def rung_for_batch(self, m: int) -> Rung:
@@ -104,6 +123,14 @@ class PodLadder(MeshLadder):
             )
         return best
 
+    def control(self) -> tuple[object, tuple[int, ...]]:
+        """``(group, ranks)`` of the healthy pods' ranks, which the run's
+        decisions are broadcast over; raises on a rank outside them."""
+        k = self.health.healthy_prefix
+        if k not in self._prefix:
+            raise RuntimeError(f"this rank is outside the {k} healthy pod(s)")
+        return self._prefix[k]
+
     # -- state hooks ---------------------------------------------------------
     def adapt_state(self, state, src: Rung | None, dst: Rung):
         """Thread the compression residuals across a rung transition.
@@ -112,7 +139,7 @@ class PodLadder(MeshLadder):
         rung gets freshly zeroed stacked ``(pods, *param_shape)`` float32
         tensors on the state's device.  Residuals survive only a transition
         that keeps the pod layout (src.pods == dst.pods); any other move
-        re-zeros them."""
+        re-zeros them.  On ranks the stack holds this rank's pods only."""
         if dst.pods <= 1 or not self.compress:
             # within-pod rungs, and uncompressed cross-pod rungs (a plain
             # mean), carry no residuals
@@ -121,7 +148,10 @@ class PodLadder(MeshLadder):
             return state._replace(err_state=None)
         if src is not None and src.pods == dst.pods and state.err_state is not None:
             return state
-        zeros = [torch.zeros((dst.pods, *p.shape), dtype=torch.float32, device=p.device)
+        mesh = dst.plan.mesh
+        own = dst.pods if not mesh.ranked else \
+            int((mesh.ranks == mesh.rank).sum()) // mesh.shape[self.dp_axis]
+        zeros = [torch.zeros((own, *p.shape), dtype=torch.float32, device=p.device)
                  for p in ptu.leaves(state.params)]
         return state._replace(err_state=zeros)
 

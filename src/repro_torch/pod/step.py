@@ -20,19 +20,33 @@ Diversity accumulates in the same step, as in the reference: the ``moment``
 tier treats each pod's uncompressed mean as one microbatch (``mb_count +=
 pods``), the ``exact`` tier sums the per-sample squared norms over every
 shard.  The ``gram`` tier raises, as it does in the reference.
+
+On a rank mesh (``dist.plan.RankDevice`` entries) each pod is a rank: a
+rank runs its own pods' shards in mesh order on its device, and step 3's
+gather is one all-gather over the pod process group
+(``compression.ranked_pod_exchange``), which also carries each shard's
+loss and diversity term, so every rank forms the same loss, ``sq_norm_sum``
+and update, to the bit of the one-process step.  A rank keeps its own pods'
+residuals.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import diversity
-from repro_torch.dist.compression import pod_exchange
+from repro_torch.dist.compression import pod_exchange, ranked_pod_exchange
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.train.state import TrainState
 from repro_torch.utils import pytree as ptu
+
+
+def _nth(pod_ranks: list[int], p: int) -> int:
+    """Pod p's position among its rank's pods."""
+    return pod_ranks[:p].count(pod_ranks[p])
 
 
 def make_pod_train_step(
@@ -75,8 +89,23 @@ def make_pod_train_step(
         raise ValueError(f"unknown cross-pod estimator {estimator!r}")
     if estimator == "exact" and example_loss is None:
         raise ValueError("estimator='exact' needs example_loss")
-    device = mesh.physical_device()  # raises for a rung over several cards
+    device = mesh.physical_device()  # raises for a local rung over several cards
     n_shards = pods * dpp
+    group = None
+    local_pods = list(range(pods))
+    if mesh.ranked:
+        if not compress:
+            raise NotImplementedError(
+                "an uncompressed cross-pod mean across ranks is not ported "
+                "(ROADMAP.md, Queue A 5); use compress=True")
+        by_pod = np.moveaxis(mesh.ranks, mesh.axis_names.index(pod_axis), 0).reshape(pods, -1)
+        if any(len(set(row.tolist())) != 1 for row in by_pod):
+            raise NotImplementedError(
+                "a pod spanning several ranks is not ported (ROADMAP.md, Queue A 5): "
+                "give each pod's entries one rank")
+        pod_ranks = [int(row[0]) for row in by_pod]
+        local_pods = [p for p in range(pods) if pod_ranks[p] == mesh.rank]
+        group = mesh.group(pod_axis)
 
     def train_step(state: TrainState, batch: dict, lr) -> tuple[TrainState, dict]:
         params = ptu.leaves(state.params)
@@ -91,8 +120,12 @@ def make_pod_train_step(
                 "compress=True needs TrainState.err_state (the stacked "
                 "per-pod residuals PodLadder.adapt_state installs)")
 
-        pod_grads, losses, sq = [], [], torch.zeros((), dtype=torch.float32, device=device)
-        for p in range(pods):
+        # this process's pods: their within-pod means, each shard's loss, and
+        # the diversity terms (per shard on the exact tier, per pod on the
+        # moment tier: the UNCOMPRESSED pod mean is the small-batch
+        # statistic, so quantisation noise never enters Q)
+        pod_grads, losses, terms = [], [], []
+        for p in local_pods:
             acc = None
             for d in range(dpp):
                 k = p * dpp + d  # P((pod, data)): pod-major
@@ -105,34 +138,48 @@ def make_pod_train_step(
                         [a + g for a, g in zip(acc, grads)]
                 del grads, loss
                 if diversity_on and estimator == "exact":
-                    sq = sq + diversity.persample_sq_norms(
-                        example_loss, state.params, shard).sum()
+                    terms.append(diversity.persample_sq_norms(
+                        example_loss, state.params, shard).sum())
             with torch.no_grad():
                 pod_grads.append([a / dpp for a in acc])  # within-pod exact mean
-
+        m_pod = float(global_b // pods)
         with torch.no_grad():
+            if diversity_on and estimator == "moment":
+                terms = [(m_pod * m_pod) * ptu.tree_sq_norm(g) for g in pod_grads]
+
             metrics = {}
-            if compress:
+            if group is not None:
+                err = [[e[i] for e in state.err_state] for i in range(len(local_pods))]
+                extras = torch.stack(losses + terms)
+                mean, new_err, metrics["scales"], extra, _ = ranked_pod_exchange(
+                    pod_grads, err, group, pod_ranks, extras)
+                # every shard's loss and term, in pod order: a rank's extras
+                # are its pods' losses, then their terms
+                n_loc, width = len(local_pods), len(terms) // len(local_pods)
+                losses, terms = [], []
+                for p in range(pods):
+                    v, i = extra[pod_ranks[p]], _nth(pod_ranks, p)
+                    losses += list(v[:n_loc * dpp].reshape(n_loc, dpp)[i])
+                    if width:
+                        terms += list(v[n_loc * dpp:].reshape(n_loc, width)[i])
+            elif compress:
                 err = [[e[p] for e in state.err_state] for p in range(pods)]
                 mean, new_err, metrics["scales"] = pod_exchange(pod_grads, err, device)
-                for p in range(pods):  # residuals stay per pod, stepped in place
-                    for e, ne in zip(state.err_state, new_err[p]):
-                        e[p].copy_(ne)
             else:
                 mean = [sum(gs[1:], gs[0]) / pods for gs in zip(*pod_grads)]
+            if compress:
+                for i in range(len(local_pods)):  # residuals stay per pod, in place
+                    for e, ne in zip(state.err_state, new_err[i]):
+                        e[i].copy_(ne)
 
             if diversity_on:
                 b = float(global_b)
-                if estimator == "moment":
-                    # one "microbatch" per pod: the UNCOMPRESSED pod mean is
-                    # the small-batch statistic, so quantisation noise never
-                    # enters Q
-                    m_pod = float(global_b // pods)
-                    for g in pod_grads:
-                        sq = sq + (m_pod * m_pod) * ptu.tree_sq_norm(g)
-                    mb = float(pods)
-                else:
-                    mb = 1.0  # the decode expects m=1 small batches
+                sq = torch.zeros((), dtype=torch.float32, device=device)
+                for t in terms:
+                    sq = sq + t
+                # one "microbatch" per pod on the moment tier; the exact
+                # tier's decode expects m=1 small batches
+                mb = float(pods) if estimator == "moment" else 1.0
                 div = state.div_state
                 torch._foreach_add_(ptu.leaves(div.grad_sum), mean, alpha=b)
                 div.sq_norm_sum += sq

@@ -30,8 +30,10 @@ Counterpart of ``repro/train/engine.py``.  The engine owns
 (``ModelFns``), ``for_lm`` the LM's.  The gram tier on the LM runs on a
 hand-built engine: ``StepEngine(lambda n, tier: make_train_step(cfg, opt,
 n, estimator=tier, probe_loss=..., probe_specs=...), lm_bucket_of(m))``.
-There is no ``dp_size``: a data-parallel rung runs its shards on the
-virtual devices of one physical device (``pod/step.py``).
+``for_lm(dp_size=, plan=)`` trains data-parallel: under a rank plan (a
+``dist.ShardingPlan`` over ``(rank, device)`` entries) each rank runs its
+share of every microbatch and the gradients are averaged over the plan's
+dp group (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist.plan import ShardingPlan, current_plan
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import runlog as runlog_lib
 from repro_torch.obs import trace as trace_lib
@@ -276,14 +279,16 @@ class StepEngine:
     def for_model_fns(cls, fns: ModelFns, optimizer: Optimizer, *,
                       estimator: str = "moment", diversity_on: bool = True,
                       donate: bool = True, psn_chunk: int | None = None,
-                      psn_impl: str = "auto") -> "StepEngine":
+                      psn_impl: str = "auto",
+                      plan: ShardingPlan | None = None) -> "StepEngine":
         """Engine over ``ModelFns`` (the paper's reference models).
 
         One bucket = one global batch size; ``num_micro`` is 1, so each batch
         is exactly one SGD step (Algorithm 1's step granularity).  The build
         is tier-parameterised: the engine starts on ``estimator`` and a later
         ``engine.tier = "gram"`` builds that tier's steps beside the old
-        ones."""
+        ones.  Under a rank ``plan`` each rank steps its share of the batch
+        and the gradients are averaged over the plan's dp group."""
         injit = ("exact", "gram", "moment")
 
         def build(key: int, tier: str | None = None) -> Callable:
@@ -299,6 +304,7 @@ class StepEngine:
                 probe_specs=fns.probe_specs,
                 psn_chunk=psn_chunk,
                 psn_impl=psn_impl,
+                plan=plan,
             )
 
         eng = cls(build, donate=donate, eval_fn=eval_fn_for(fns))
@@ -309,22 +315,31 @@ class StepEngine:
 
     @classmethod
     def for_lm(cls, cfg, optimizer: Optimizer, *, micro_batch: int | None = None,
-               attn_impl: str | None = None, donate: bool = True) -> "StepEngine":
+               dp_size: int = 1, diversity_on: bool = True,
+               attn_impl: str | None = None, donate: bool = True,
+               plan: ShardingPlan | None = None) -> "StepEngine":
         """Engine over the transformer LM loss (the production path).
 
         One bucket is one ``num_micro`` (accumulation length): the bucket of
-        a global batch of B sequences is ``B // micro_batch``.
-        ``attn_impl`` overrides ``cfg.attn_impl`` for the training forward
-        ("pallas" puts attention, forward and backward, on the kernels)."""
+        a global batch of B sequences is ``B // micro_batch`` (the global
+        microbatch; under a rank plan each of the dp ranks takes
+        ``micro_batch / dp_size`` of it).  ``attn_impl`` overrides
+        ``cfg.attn_impl`` for the training forward ("pallas" puts
+        attention, forward and backward, on the kernels).  ``dp_size`` is
+        the data-parallel width, ``plan`` (default: the active plan) a rank
+        plan whose dp group the gradients are averaged over."""
         if attn_impl is not None:
             cfg = cfg.replace(attn_impl=attn_impl)
+        plan = plan if plan is not None else current_plan()
 
         def build(num_micro: int, tier: str | None = None) -> Callable:
             return step_lib.make_train_step(
-                cfg, optimizer, num_micro,
+                cfg, optimizer, num_micro, dp_size=dp_size, plan=plan,
+                diversity_on=diversity_on,
                 **({"estimator": tier} if tier is not None else {}))
 
         eng = cls(build, lm_bucket_of(micro_batch), donate=donate)
-        # name the default tier so a flip away and back lands on the warm key
-        eng.tier = "moment"
+        if diversity_on:
+            # name the default tier so a flip away and back lands on the warm key
+            eng.tier = "moment"
         return eng

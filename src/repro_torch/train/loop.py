@@ -38,6 +38,17 @@ mode, of the live rung.  With ``donate=True`` (the default) the engine
 trains the state's tensors in place; the initial placement onto a rung
 copies (it must not alias the caller's parameters).
 
+On ranks (a ladder of ``dist.plan.RankDevice`` entries, or an active rank
+plan with ``--dp``) every rank runs this loop with the same data cursor,
+and each rank's step takes its own slice of the global batch.  Every rank
+must make the same decision, so at each boundary the first rank of the
+control group (``MeshLadder.control``: the widest rung's group, on a
+``PodLadder`` the healthy pods') reads the signals and evaluates, and its
+``Signals`` and clock are broadcast; a rank outside a narrow rung skips the
+steps (it holds no accumulators) and follows the decisions until a rung
+takes it back in, when the state reaches it by broadcast
+(``elastic.reshard``).  Injected events are the first rank's.
+
 Checkpointing (``ckpt=CheckpointManager(...)``, ``save``, ``resume``, and
 ``ckpt_every`` epochs between automatic saves) captures the full adaptive
 state in the reference's format and paths (``interop.reference_state``):
@@ -68,7 +79,7 @@ from repro_torch.core.controller import AdaptiveBatchController
 from repro_torch.data import ArrayDataset, Cursor, EpochLoader
 from repro_torch.data.pipeline import epoch_permutation, prefetch as prefetch_iter
 from repro_torch.data.pipeline import put_global_batch
-from repro_torch.dist.plan import current_plan
+from repro_torch.dist.plan import broadcast_object, current_plan, process_rank
 from repro_torch.elastic import MeshLadder, place, reshard
 from repro_torch.obs import runlog as runlog_lib
 from repro_torch.obs import trace as trace_lib
@@ -162,6 +173,11 @@ class Trainer:
         self._prefetch = prefetch
         self._stream = None  # the feed's side stream on a card
         self._thru = ThroughputWindow()
+        mesh = (elastic.full.plan.mesh if elastic is not None
+                else self._plan.mesh if self._plan is not None else None)
+        #: whether the run spans ranks (a rank ladder or rank plan)
+        self.ranked = mesh is not None and getattr(mesh, "ranked", False)
+        self._me = process_rank()
         self.engine = engine or self._build_engine(donate)
         # an injected engine may lack an eval fn; the Trainer owns the fns
         self.engine.ensure_eval_fn(eval_fn_for(fns))
@@ -169,11 +185,14 @@ class Trainer:
         if self._elastic is not None:
             # initial placement: the rung for the starting batch size
             self._ensure_rung(self.adapt.batch_size)
+        elif self.ranked:
+            # every rank starts from the first rank's parameters
+            self.state = reshard(self.state, None, self._plan, donate=True)
 
     def _build_engine(self, donate: bool) -> StepEngine:
-        # A ladder may supply its own rung-aware engine (duck-typed so the
-        # base Trainer never imports repro_torch.pod): PodLadder builds the
-        # compressed cross-pod step on pods>1 rungs.
+        # The ladder supplies the engine (duck-typed so the base Trainer never
+        # imports repro_torch.pod): PodLadder builds the compressed cross-pod
+        # step on pods>1 rungs, a rank ladder the dp step over each rung.
         engine_for = getattr(self._elastic, "engine_for", None)
         if engine_for is not None:
             return engine_for(
@@ -191,6 +210,7 @@ class Trainer:
             diversity_on=self.adapt.needs_diversity,
             donate=donate,
             psn_chunk=self.psn_microbatch,
+            plan=self._plan if self.ranked else None,
         )
 
     # -- read-only views of the engine-owned state ---------------------------
@@ -221,6 +241,33 @@ class Trainer:
     def device(self) -> torch.device:
         """Where the state and the batches live."""
         return ptu.leaves(self.state.params)[0].device
+
+    # -- ranks ---------------------------------------------------------------
+    def _control(self) -> tuple[Any, tuple[int, ...]]:
+        """``(group, ranks)`` the decisions travel over; the first rank
+        decides."""
+        if self._elastic is not None:
+            return self._elastic.control()
+        mesh = self._plan.mesh
+        return mesh.group(mesh.axis_names), mesh.group_ranks(mesh.axis_names)
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this rank decides (always, off ranks)."""
+        return not self.ranked or self._me == self._control()[1][0]
+
+    @property
+    def in_rung(self) -> bool:
+        """Whether this rank steps the live rung (always, off ranks)."""
+        return not self.ranked or self._rung is None or self._rung.plan.mesh.is_member
+
+    def _share(self, obj: Any) -> Any:
+        """The deciding rank's ``obj`` on every rank of the control group
+        (``obj`` itself off ranks)."""
+        if not self.ranked:
+            return obj
+        group, ranks = self._control()
+        return broadcast_object(obj, ranks[0], group, self.device)
 
     # ------------------------------------------------------------------
     def bind_obs(self, *, tracer=None, runlog=None) -> None:
@@ -369,8 +416,10 @@ class Trainer:
         accumulators (one stacked-scalar transfer), only when a boundary is
         due AND the policy can fire on it.  Explicit-rung decisions are
         applied by the step loop, which must also rebuild the feed."""
-        clock = event = None
-        if self._events:
+        clock = event = sig = None
+        if not self.is_root:
+            self._events.clear()  # the deciding rank's events count
+        elif self._events:
             c = Clock(epoch=self.cursor.epoch, step=self.engine.stats.steps,
                       boundary="event")
             if self.adapt.policy.fires(c):
@@ -378,19 +427,21 @@ class Trainer:
             else:
                 log.info("adapt: event %r dropped (policy does not fire on "
                          "events)", self._events.pop(0))
-        if (clock is None and self.adapt.tick_every
+        if (self.is_root and clock is None and self.adapt.tick_every
                 and steps_done % self.adapt.tick_every == 0):
             c = Clock(epoch=self.cursor.epoch, step=self.engine.stats.steps,
                       boundary="tick")
             if self.adapt.policy.fires(c):
                 clock = c
+        if clock is not None:
+            sig, self.state = read_signals(
+                self.state, self._read_estimator(), reset=False,
+                batch_size=bsz, loss=last_loss,
+                throughput=self._throughput(), event=event,
+            )
+        clock, sig = self._share((clock, sig))
         if clock is None:
             return None
-        sig, self.state = read_signals(
-            self.state, self._read_estimator(), reset=False,
-            batch_size=bsz, loss=last_loss,
-            throughput=self._throughput(), event=event,
-        )
         applied = self.adapt.observe(sig, clock)
         if applied is not None:
             self._apply_estimator(applied.estimator)
@@ -428,6 +479,7 @@ class Trainer:
         n = len(self.train_data)
         consumed = self.cursor.sample_index or self.cursor.batch_index * bsz
         losses: list[float] = []
+        n_steps = 0
         # one O(n) shuffle per epoch, shared by every resize segment's loader
         perm = epoch_permutation(n, self.seed, self.cursor.epoch)
 
@@ -446,23 +498,28 @@ class Trainer:
             )
             if len(loader) == 0:
                 break
-            feed = (
-                prefetch_iter(loader, put=self._put,
-                              host_overlap=self._prefetch == "thread",
-                              stream=self._feed_stream())
-                if self._prefetch else (self._put(b) for b in loader)
-            )
+            if not self.in_rung:  # outside the rung: follow the steps only
+                feed = (None for _ in range(len(loader)))
+            elif self._prefetch:
+                feed = prefetch_iter(loader, put=self._put,
+                                     host_overlap=self._prefetch == "thread",
+                                     stream=self._feed_stream())
+            else:
+                feed = (self._put(b) for b in loader)
             rebuild = False
             try:
                 for batch in feed:
-                    self.state, metrics = self.engine.step(self.state, batch, lr)
-                    losses.append(float(metrics["loss"]))  # per-step sync
-                    self._thru.add(1.0)
+                    if batch is not None:
+                        self.state, metrics = self.engine.step(self.state, batch, lr)
+                        losses.append(float(metrics["loss"]))  # per-step sync
+                        self._thru.add(1.0)
+                    n_steps += 1
                     consumed += bsz
                     self.cursor.batch_index += 1
                     self.cursor.sample_index = consumed
                     applied = self._observe_mid_epoch(
-                        self.cursor.batch_index, bsz, losses[-1])
+                        self.cursor.batch_index, bsz,
+                        losses[-1] if losses else float("nan"))
                     if (applied is not None and applied.rung is not None
                             and self._elastic is not None):
                         # explicit rung move: move, then rebuild the feed
@@ -490,26 +547,34 @@ class Trainer:
             if not rebuild:
                 break
 
-        # epoch boundary ------------------------------------------------
-        mean_loss = float(np.mean(losses)) if losses else float("nan")
-        sig = self._epoch_signals(bsz, mean_loss)
-        applied = prog.observe(
-            sig, Clock(epoch=self.cursor.epoch, step=self.engine.stats.steps,
-                       boundary="epoch"),
-        )
+        # epoch boundary: the deciding rank reads the signals and evaluates
+        # (the parameters do not change before the evaluation), the other
+        # ranks of the rung reset their accumulators ----------------------
+        found = None
+        if self.is_root:
+            mean_loss = float(np.mean(losses)) if losses else float("nan")
+            sig = self._epoch_signals(bsz, mean_loss)
+            clock = Clock(epoch=self.cursor.epoch, step=self.engine.stats.steps,
+                          boundary="epoch")
+            val = self._put(self.val_data.get(np.arange(len(self.val_data))))
+            val_loss, val_metrics = self.engine.evaluate(self.state.params, val)
+            found = (sig, clock, mean_loss, float(val_loss),
+                     {k: float(v) for k, v in val_metrics.items()})
+        elif self.in_rung and self.adapt.needs_diversity:
+            diversity.reset_state(self.state.div_state)
+        sig, clock, mean_loss, val_loss, val_metrics = self._share(found)
+        applied = prog.observe(sig, clock)
         self._apply_decision(applied)
 
-        val = self._put(self.val_data.get(np.arange(len(self.val_data))))
-        val_loss, val_metrics = self.engine.evaluate(self.state.params, val)
         rec = EpochRecord(
             epoch=self.cursor.epoch,
             batch_size=prog.batch_size,
             lr=prog.lr,
             train_loss=mean_loss,
-            val_loss=float(val_loss),
-            val_metrics={k: float(v) for k, v in val_metrics.items()},
+            val_loss=val_loss,
+            val_metrics=val_metrics,
             diversity=sig.diversity,
-            steps=len(losses),
+            steps=n_steps,
             wall_s=time.time() - t0,
         )
         self.history.append(rec)
@@ -548,18 +613,20 @@ class Trainer:
         place)."""
         if self.ckpt is None:
             raise ValueError("save() needs a CheckpointManager (Trainer(ckpt=...))")
-        ref = interop.reference_state(self.state)
-        self.ckpt.save(
-            step=self.cursor.epoch,
-            state={"params": ref.params, "opt_state": ref.opt_state,
-                   "div_state": ref.div_state},
-            extra={
+        state = extra = None
+        if self.is_root:  # on ranks, the deciding rank writes
+            ref = interop.reference_state(self.state)
+            state = {"params": ref.params, "opt_state": ref.opt_state,
+                     "div_state": ref.div_state}
+            extra = {
                 "controller": self.adapt.state_dict(),
                 "cursor": self.cursor.state_dict(),
                 "history": [dataclasses.asdict(r) for r in self.history],
                 "step": int(self.state.step),
-            },
-        )
+            }
+        group, ranks = self._control() if self.ranked else (None, (None,))
+        self.ckpt.save(step=self.cursor.epoch, state=state, extra=extra,
+                       group=group, root=ranks[0])
         if self._runlog.enabled:
             self._runlog.emit("checkpoint", epoch=self.cursor.epoch,
                               step=int(self.state.step))

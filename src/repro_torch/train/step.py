@@ -27,6 +27,18 @@ accumulator ``grad_sum`` is updated once per step, outside the microbatch
 loop, with ``global_batch * mean_grad`` (equal to the sum of the
 microbatches' ``m * g_j``).  The step reads nothing back to the host: the
 loss comes back as a device scalar.
+
+Data parallelism (``dp_size``): without a rank plan the step lays each
+microbatch out as the reference's sharded program does (``_to_micro``) and
+runs it whole.  Under a rank plan (``plan=``, a ``dist.ShardingPlan``
+whose mesh holds ``(rank, device)`` entries) each rank runs only its share:
+rank r's rows are the contiguous block ``[r B/dp, (r+1) B/dp)``, cut into
+``num_micro`` pieces, so each microbatch holds the reference's samples.
+Each microbatch's gradient is then averaged over the dp group, in its own
+type, before it reaches the accumulator and the moment tier's ``||m
+g_j||^2`` (which needs the global microbatch's gradient); the exact and
+gram tiers reduce their scalar ``sq_sum`` once a step and the gradient once
+a step, as does a step with ``diversity_on=False``.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import diversity
+from repro_torch.dist.plan import ShardingPlan, all_reduce_mean
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.probes import probe_grads
@@ -45,8 +58,7 @@ from repro_torch.train.state import TrainState
 from repro_torch.utils import pytree as ptu
 
 
-def _to_micro(x: torch.Tensor, num_micro: int) -> torch.Tensor:
-    """``(B, ...) -> (num_micro, B // num_micro, ...)``."""
+def _micro_size(x: torch.Tensor, num_micro: int) -> int:
     b = x.shape[0]
     if b % num_micro != 0:
         raise ValueError(
@@ -54,7 +66,36 @@ def _to_micro(x: torch.Tensor, num_micro: int) -> torch.Tensor:
             f"{num_micro}; batch sizes must land on the bucket lattice "
             f"(core/batch_policy.bucket)"
         )
-    return x.reshape(num_micro, b // num_micro, *x.shape[1:])
+    return b // num_micro
+
+
+def _to_micro(x: torch.Tensor, num_micro: int, dp_size: int = 1) -> torch.Tensor:
+    """``(B, ...) -> (num_micro, B // num_micro, ...)``, the reference's
+    relayout: with ``dp_size > 1`` (and a microbatch it divides) the batch
+    splits as ``(dp, num_micro, m / dp)`` and each microbatch gathers its
+    rows from every dp block."""
+    m = _micro_size(x, num_micro)
+    if dp_size > 1 and m % dp_size == 0:
+        x = x.reshape(dp_size, num_micro, m // dp_size, *x.shape[1:])
+        return x.transpose(0, 1).reshape(num_micro, m, *x.shape[3:])
+    return x.reshape(num_micro, m, *x.shape[1:])
+
+
+def _rank_micro(x: torch.Tensor, num_micro: int, dp_size: int,
+                positions: list[int]) -> torch.Tensor:
+    """This rank's share of each microbatch, ``(num_micro, len(positions) *
+    m / dp, ...)``: the rows of dp blocks ``positions`` of ``_to_micro``'s
+    layout.  Raises when a microbatch does not split over the dp shards."""
+    m = _micro_size(x, num_micro)
+    if m % dp_size:
+        raise ValueError(
+            f"a microbatch of {m} does not split over the {dp_size} data-parallel "
+            f"shards; batch sizes must land on the bucket lattice "
+            f"(core/batch_policy.bucket) with a granule that is a multiple of "
+            f"{dp_size}")
+    x = x.reshape(dp_size, num_micro, m // dp_size, *x.shape[1:])[positions]
+    return x.transpose(0, 1).reshape(num_micro, len(positions) * (m // dp_size),
+                                     *x.shape[3:])
 
 
 def _check_estimator(estimator: str, example_loss, probe_loss, probe_specs,
@@ -84,6 +125,8 @@ def make_train_step(
     optimizer: Optimizer,
     num_micro: int,
     *,
+    dp_size: int = 1,
+    plan: ShardingPlan | None = None,
     diversity_on: bool = True,
     loss_fn: Callable | None = None,
     estimator: str = "moment",
@@ -112,7 +155,12 @@ def make_train_step(
     formed ``psn_chunk`` samples at a time.  The vmap path runs on
     ``ModelFns`` models; on the LM loss it raises (``torch.func`` cannot
     transform the old-style autograd functions ``xent_chunked`` and
-    ``flash_attention`` are made of)."""
+    ``flash_attention`` are made of).
+
+    ``dp_size`` is the data-parallel width the batch is laid out for; with
+    a rank ``plan`` the step runs this rank's share and reduces over the
+    plan's dp group (the module docstring), and ``dp_size`` must be 1 or
+    the plan's."""
     if loss_fn is None:
         if cfg is None:
             raise ValueError("make_train_step needs cfg or loss_fn")
@@ -127,6 +175,16 @@ def make_train_step(
                 "psn_impl='vmap' on the transformer LM: torch.func cannot transform "
                 "the old-style autograd functions of xent_chunked and flash_attention; "
                 "use psn_impl='kernel' with probes")
+
+    group = plan.mesh.group(plan.dp) if plan is not None and plan.mesh.ranked else None
+    if group is not None:
+        if dp_size not in (1, plan.dp_size):
+            raise ValueError(f"dp_size {dp_size} against the plan's {plan.dp_size}")
+        dp_size = plan.dp_size
+        positions = plan.mesh.local_positions(plan.dp)
+        n_ranks = len(plan.mesh.group_ranks(plan.dp))
+    # the moment tier needs each global microbatch's gradient
+    reduce_each = group is not None and diversity_on and estimator == "moment"
 
     def _probe_sq_norms(params, mb: dict, *, bias: bool) -> torch.Tensor:
         """One probe-gradient pass -> the summed per-sample sq-norms through
@@ -150,7 +208,11 @@ def make_train_step(
         params = ptu.leaves(state.params)
         dev = params[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        micro = {k: _to_micro(v, num_micro) for k, v in batch.items()}
+        if group is not None:
+            micro = {k: _rank_micro(v, num_micro, dp_size, positions)
+                     for k, v in batch.items()}
+        else:
+            micro = {k: _to_micro(v, num_micro, dp_size) for k, v in batch.items()}
         global_batch = next(iter(batch.values())).shape[0]
         micro_global = float(global_batch // num_micro)
 
@@ -161,6 +223,8 @@ def make_train_step(
             mb = {k: v[j] for k, v in micro.items()}
             loss = base_loss(state.params, mb)
             grads = torch.autograd.grad(loss, params)
+            if reduce_each:
+                grads = all_reduce_mean(grads, group, n_ranks)
             with torch.no_grad():
                 for a, g in zip(grads_acc, grads):
                     a.add_(g)
@@ -177,6 +241,15 @@ def make_train_step(
                     sq_sum += _probe_sq_norms(state.params, mb,
                                               bias=estimator == "exact")
         with torch.no_grad():
+            if group is not None:
+                if not reduce_each:
+                    grads_acc = all_reduce_mean(grads_acc, group, n_ranks)
+                # summed over the ranks: the loss, and a per-sample tier's
+                # sq_sum (the moment tier's is global already)
+                sums = all_reduce_mean([torch.stack([loss_sum, sq_sum])], group, 1)[0]
+                loss_sum = sums[0] / n_ranks
+                if not reduce_each:
+                    sq_sum = sums[1]
             torch._foreach_div_(grads_acc, float(num_micro))
             grads = grads_acc
             if diversity_on:

@@ -218,14 +218,16 @@ def test_entry_points_default_to_the_card():
 
 
 def test_rungs_over_several_physical_devices_raise():
+    """A single-process mesh over two devices still raises, naming the rank
+    launcher: several devices take one rank each."""
     ladder = PodLadder(pods=2, devices=["cpu"] * 4 + ["meta"] * 4, granule=1)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
+    with pytest.raises(NotImplementedError, match="torchrun --nproc-per-node 2"):
         make_pod_train_step(ladder.rungs[-1], sgd(), loss_fn=small.mlp_batch_loss)
     eng = ladder.engine_for(_fns(), sgd(), estimator="moment")
     eng.rung = 2  # within pod 0: all "cpu", fine
     eng.jitted(64)
     eng.rung = 3
-    with pytest.raises(NotImplementedError, match="process groups"):
+    with pytest.raises(NotImplementedError, match="one rank per device"):
         eng.jitted(64)
 
 

@@ -295,10 +295,14 @@ def test_cli_resume_continues_to_the_same_history(tmp_path, monkeypatch):
 
 
 def test_cli_refusals(monkeypatch):
+    """``--dp`` and ``--elastic`` without a process group of the right size
+    raise and say how to launch."""
     from repro_torch.launch import train as cli
 
-    for flag in (["--dp", "2"], ["--elastic"]):
-        with pytest.raises(NotImplementedError, match="Queue A 5"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for flag, n in ((["--dp", "2"], "2"), (["--elastic"], "N")):
+        with pytest.raises(RuntimeError, match=f"torchrun --nproc-per-node {n} -m "
+                                               "repro_torch.launch.train"):
             cli.main(["--device", "cpu"] + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
