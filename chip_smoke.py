@@ -256,9 +256,56 @@ MB L2.
      gathered.  Multi-rank numbers on one card go through gloo's host
      staging: no yardstick for NCCL across cards.
 
+ 17. the dense family at full width, weights from a seeded generator, bf16,
+     ``attn_impl="pallas"``, each model freed before the next: (a)
+     gemma2-27b at all 46 layers (28.4 B parameters, 52.9 GiB) served
+     through ``ServeEngine`` (4 slots, max_seq 8192, block 16, prefill
+     chunk 256, a 4 GiB pool) on 6 greedy requests of 32 new tokens: two
+     prompts of about 5000 tokens (padded to 8192, so the 4096-key rings
+     wrap and the window cuts keys in the chunk kernel), three of 64-700,
+     and an exact repeat of a long one (a full-prompt hit adopting its 512
+     blocks and replaying its rings); exactly 23 paged decode launches per
+     decode step (the global layers; the sliding-window layers decode
+     their rings on the plain lane, as the reference does in XLA) and 46
+     chunk launches per prefill chunk; the peak memory beside its
+     reckoning (weights, pool, 0.72 GiB of rings per slot, prefill row and
+     cached prompt row); (b) qwen2-7b at all 28 layers (n_rep 7) and
+     llama3-405b at full width **cut to 4 of its 126 layers** (810 GB at
+     full depth; 17 B parameters, n_rep 16, n_rep * hd 2048), each served
+     on phase 4's trace with phase 4's engine, one chunk launch per layer
+     per prefill chunk and one paged decode per layer per decode step;
+     (c) internvl2-1b at all 24 layers: ``prefill_step`` on 4 x 1024
+     embeddings (24 chunk launches), 16 lockstep ``decode_step``s on its
+     dense cache with (4, 1, 896) embeddings (no launch), finite logits,
+     the prompt's logits against the dense lane within ``DENSE_GAP_TOL``;
+     (d) gemma2-27b widths **cut to 4 of 46 layers** (memory: weights,
+     momenta, gradients and the float32 accumulators of 46 layers are
+     ~400 GB) trained at S 8192 (its context; the window cuts the local
+     layers), micro batch 1, remat, sgd with momentum 0.9, a tick-fired
+     DiveBatch program, 6 steps: finite losses, exactly 8 chunk, 4 dq and
+     4 dk/dv launches per microbatch, all on the tensor cores;
+ 18. the reference's own reduced dense configs (hd 16, float32, the FMA
+     kernels) on the card against the CPU: qwen2-7b, llama3-405b and
+     gemma2-27b (window 8: the rings wrap within a few tokens) each serve
+     one greedy trace with a full-prompt hit, tokens identical and the
+     first logits within 1e-4, launches one chunk per layer per prefill
+     chunk and one paged decode per global layer per decode step;
+     internvl2-1b runs ``prefill_step`` and 8 dense-cache decode steps on
+     embeddings, logits within 1e-4 and the same argmax; gemma2 trains 6
+     DiveBatch steps as phase 7, losses within 1e-4 relative, parameters
+     within 1e-4, one batch schedule.
+
+Phase 3 also holds the dense group's new forms at their path's shape and
+times them (records ``chunk_attention (gemma2 local: window 4096, softcap
+50)`` and ``paged_decode_attention (gemma2: softcap 50, n_rep 2)``,
+``(llama3: n_rep 16)``; no single library call computes a softcapped or
+paged attention, so their library time is null).
+
 The launches of the non-causal records count phase 14's three paths and
-phase 16's hubert run (both ranks), the other records the causal paths
-(phases 4, 6, 8, 10, 12, and 16's pod cell on both ranks).
+phase 16's hubert run (both ranks), the dense-form records the phase-17
+path they describe (gemma2's serving, llama3's serving), the other records
+the causal paths (phases 4, 6, 8, 10, 12, and 16's pod cell on both
+ranks).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -577,6 +624,171 @@ def decode_kernel_record(r) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
             "device_ms": device_ms, "splits": splits}
+
+
+GEMMA = get_config("gemma2-27b")
+LLAMA = get_config("llama3-405b")
+# gemma2's serving cell: 4 slots, max_seq 8192, block 16, prefill chunk 256
+GEMMA_SLOTS, GEMMA_MAX_SEQ, GEMMA_CHUNK = 4, 8192, 256
+
+
+def dense_kernel_records(r) -> list[dict]:
+    """The forms the dense group adds to the paths, at their path's shape:
+    row 1c, the chunk forward of gemma2's sliding-window layers (a 256-row
+    chunk over its 4096-key ring read in chronological order, the oldest
+    positions cut by the window, then the chunk's keys; 32/16 heads of hd
+    128, window 4096, softcap 50, bf16); row 4b, paged decode with softcap
+    50 at gemma2's serving shape (4 slots, 32/16 heads, the table of max_seq
+    8192) and at llama3's 128/8 heads (n_rep 16, n_rep * hd = 2048, 8
+    slots).  Each held against its plain version and timed beside it; no
+    single library call computes a softcapped attention or a paged one, so
+    the library column is none."""
+    h, kv, hd = GEMMA.num_heads, GEMMA.num_kv_heads, GEMMA.resolved_head_dim
+    c, s_c, offset = GEMMA_CHUNK, GEMMA.window, 6144
+    dev = "cuda"
+    q = torch.from_numpy(r.standard_normal((1, c, h, hd))).to(dev, torch.bfloat16)
+    k = torch.from_numpy(r.standard_normal((1, s_c + c, kv, hd))).to(dev, torch.bfloat16)
+    v = torch.from_numpy(r.standard_normal((1, s_c + c, kv, hd))).to(dev, torch.bfloat16)
+    q_pos = offset + torch.arange(c, dtype=torch.int32, device=dev)
+    prior = offset - s_c + torch.arange(s_c, dtype=torch.int32, device=dev)
+    inp = dict(q=q, k=k, v=v, q_pos=q_pos, k_pos=torch.cat([prior, q_pos]),
+               k_valid=torch.cat([(prior >= 0).to(torch.int32), torch.ones_like(q_pos)]),
+               window=s_c)
+    cap = GEMMA.attn_softcap
+    err = chunk_case(f"gemma2 local chunk bf16 (C {c} at {offset} over a {s_c}-key ring, "
+                     f"window {s_c}, softcap {cap:g})", inp, softcap=cap)
+    args = (q, inp["k"], inp["v"], q_pos, inp["k_pos"], inp["k_valid"])
+    kw = dict(window=s_c, softcap=cap)
+    ms = timed_ms(lambda: kattn.chunk_attention_fwd(*args, **kw))
+    device_ms = timed_ms(lambda: kattn.chunk_attention_fwd(*args, **kw), spin=True)
+    plain_ms = timed_ms(lambda: ref.attention_ref_lse(*args, **kw))
+    pairs = valid_pairs(q_pos, inp["k_pos"], inp["k_valid"], window=s_c)
+    moved = nbytes(*args) + nbytes(q) + c * h * 4  # + out + lse
+    flops = 4 * pairs * h * hd
+    bound_ms, by = bound(moved, flops)
+    dispatch = kattn.attention_plan(q.dtype, hd, keys=s_c + c)["chunk_attention"]
+    print(f"  chunk_attention at gemma2's local serving shape [{dispatch}]: {ms:.4f} ms "
+          f"({device_ms:.4f} on the card alone), {flops / ms / 1e9:.1f} TFLOP/s; plain "
+          f"{plain_ms:.4f}, library none; bound {bound_ms:.4f} ms by {by}, "
+          f"{100 * bound_ms / ms:.1f}% of it")
+    records = [{"name": "chunk_attention (gemma2 local: window 4096, softcap 50)",
+                "counter": "chunk_attention windowed", "paths": ["gemma2-27b serving"],
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/chunk_attention{'_tc' if dispatch == 'tc' else ''}.cu",
+                "replaces": "src/repro/kernels/attention.py:92",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": None, "device_ms": device_ms,
+                "dispatch": dispatch, "tflops": flops / ms / 1e9}]
+    del q, k, v, inp, args
+    span = GEMMA_MAX_SEQ + GEMMA_MAX_SEQ // 2
+    for cfg, b, n_max, max_len, softcap, path in (
+            (GEMMA, GEMMA_SLOTS, span // 16, span, cap, "gemma2-27b serving"),
+            (LLAMA, 8, 192, 1100, None, "llama3-405b serving")):
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        args = decode_inputs(r, torch.bfloat16, b=b, blk=16, n_max=n_max,
+                             nb=b * n_max + 1, kv=kv, h=h, hd=hd, max_len=max_len)
+        label = (f"{cfg.name} bf16 (B {b}, {h}/{kv} heads, n_rep {h // kv}, block 16, "
+                 f"n_max {n_max}, lengths <= {max_len}"
+                 + (f", softcap {softcap:g})" if softcap else ")"))
+        err = decode_case(label, args, softcap=softcap)
+        splits = kattn.paged_decode_attention.splits
+        ms = timed_ms(lambda: kattn.paged_decode_attention(*args, softcap=softcap))
+        device_ms = timed_ms(lambda: kattn.paged_decode_attention(*args, softcap=softcap),
+                             spin=True)
+        plain_ms = timed_ms(lambda: ref.paged_decode_ref(*args, softcap=softcap))
+        q, pool_k, _, tables, lengths = args
+        tokens = int(lengths.sum())
+        moved = 2 * tokens * kv * hd * pool_k.element_size() + 2 * nbytes(q) + \
+            nbytes(tables, lengths)
+        bound_ms, by = bound(moved, 4 * tokens * h * hd)
+        print(f"  paged_decode_attention at {cfg.name}'s serving shape: {splits} splits; "
+              f"{ms:.4f} ms ({device_ms:.4f} on the card alone; plain {plain_ms:.4f}, "
+              f"library none); bound {bound_ms:.4f} ms by {by}, "
+              f"{100 * bound_ms / device_ms:.1f}% of it alone")
+        form = "softcap 50, n_rep 2" if softcap else "n_rep 16"
+        records.append({
+            "name": f"paged_decode_attention ({cfg.name.split('-')[0]}: {form})",
+            "counter": "paged_decode_attention", "paths": [path], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "replaces": "src/repro/kernels/attention.py:448", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "device_ms": device_ms, "splits": splits})
+        del args, q, pool_k, tables, lengths
+    return records
+
+
+def dense_serving_cases(r) -> None:
+    """The chunk forward and paged decode at the dense group's other serving
+    shapes (phase 17b's engine: prefill chunk 256 over a prior of 768 valid
+    tokens in 64 blocks; decode at B 8, block 16, n_max 192): qwen2-7b's
+    28/4 heads (n_rep 7) and llama3-405b's 128/8 (n_rep 16, n_rep * hd =
+    2048); gemma2's global layers (a chunk over the pool's prior, softcap
+    50, no window); internvl2-1b's ``prefill_step`` (B 4, S 1024, 14/2
+    heads of hd 64)."""
+    bf = torch.bfloat16
+    for cfg in (get_config("qwen2-7b"), LLAMA):
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        chunk_case(f"{cfg.name} serving shape bf16 (C 256, 768 prior in 64 blocks, "
+                   f"{h}/{kv} heads)",
+                   chunk_inputs(r, bf, b=1, c=256, prior_real=768, prior_blocks=64, blk=16,
+                                h=h, kv=kv, hd=hd))
+        decode_case(f"{cfg.name} serving shape bf16 (B 8, {h}/{kv} heads, n_rep {h // kv}, "
+                    f"block 16, n_max 192, lengths <= 1100)",
+                    decode_inputs(r, bf, b=8, blk=16, n_max=192, nb=2048, kv=kv, h=h, hd=hd,
+                                  max_len=1100))
+    h, kv, hd = GEMMA.num_heads, GEMMA.num_kv_heads, GEMMA.resolved_head_dim
+    chunk_case(f"gemma2 global chunk bf16 (C 256 after 4864 pool keys in 320 blocks, "
+               f"softcap {GEMMA.attn_softcap:g})",
+               chunk_inputs(r, bf, b=1, c=256, prior_real=4864, prior_blocks=320, blk=16,
+                            h=h, kv=kv, hd=hd), softcap=GEMMA.attn_softcap)
+    cfg = get_config("internvl2-1b")
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    chunk_case(f"internvl2-1b prefill_step shape bf16 (B 4, S 1024, {h}/{kv} heads of hd {hd})",
+               chunk_inputs(r, bf, b=4, c=1024, prior_real=0, prior_blocks=0, blk=16, h=h,
+                            kv=kv, hd=hd))
+
+
+def gemma_train_attention_case(r) -> None:
+    """gemma2's training attention at phase 17d's shape: B 1, S 8192, 32/16
+    heads of hd 128, window 4096 (it cuts every row past 4096), softcap 50,
+    bf16.  The chunk forward, flash dq and flash dk/dv against their plain
+    versions, each plain call taken over one KV head and its 2 query heads
+    (a (2, S, S) float32 logit block; the heads do not interact)."""
+    h, kv, hd = GEMMA.num_heads, GEMMA.num_kv_heads, GEMMA.resolved_head_dim
+    s, window, cap = GEMMA_TRAIN_SEQ, GEMMA.window, GEMMA.attn_softcap
+    bf = torch.bfloat16
+    inp = flash_inputs(r, bf, b=1, s=s, h=h, kv=kv, hd=hd, window=window, softcap=cap)
+    q, k, v, dout, out, lse, delta = (inp[n] for n in
+                                      ("q", "k", "v", "dout", "out", "lse", "delta"))
+    kw = dict(window=window, softcap=cap)
+    dq = kattn.flash_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    n_rep, tol = h // kv, FLASH_TOL[bf]
+    errs = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0.0)
+    for g in range(kv):
+        hs, ks = slice(g * n_rep, (g + 1) * n_rep), slice(g, g + 1)
+        qg, kg, vg = q[:, :, hs], k[:, :, ks], v[:, :, ks]
+        want_out, want_lse = ref.attention_ref_lse(qg, kg, vg, pos, pos, torch.ones_like(pos),
+                                                   **kw)
+        want = ref.flash_grads_ref(qg, kg, vg, lse[:, hs], delta[:, hs], dout[:, :, hs], **kw)
+        for key, got, plain, t in (("out", out[:, :, hs], want_out, None),
+                                   ("lse", lse[:, hs], want_lse, None),
+                                   ("dq", dq[:, :, hs], want[0], tol),
+                                   ("dk", dk[:, :, ks], want[1], tol),
+                                   ("dv", dv[:, :, ks], want[2], tol)):
+            errs[key] = max(errs[key], check(f"gemma2 training form, KV head {g}, {key}",
+                                             got, plain, bf, tol=t))
+        del want_out, want_lse, want
+    plan = kattn.attention_plan(bf, hd)
+    print(f"  gemma2 training form bf16 (B 1, S {s}, {h}/{kv} heads, window {window}, "
+          f"softcap {cap:g}) [forward {plan['chunk_attention']}, dq {plan['flash_dq']}, "
+          f"dk/dv {plan['flash_dkv']}]: max abs err out {errs['out']:.3e}, lse "
+          f"{errs['lse']:.3e} (tol {TOL[bf]}); dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, "
+          f"dv {errs['dv']:.3e} (atol {tol[0]}, rtol {tol[1]}); rms dq {rms(dq):.3e}, "
+          f"dk {rms(dk):.3e}, dv {rms(dv):.3e}")
+    del inp, q, k, v, dout, out, lse, delta, dq, dk, dv
 
 
 def decode_split_cases(r) -> None:
@@ -1370,6 +1582,9 @@ def kernels_phase() -> list[dict]:
     tc_attention_cases(r)
     noncausal_cases(r)
     decode_split_cases(r)
+    dense_serving_cases(r)
+    gemma_train_attention_case(r)
+    torch.cuda.empty_cache()
     for tag, dtypes in PSGN_TYPES.items():
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
                       (2, 129, 257, 129), (3, 1, 5, 9)):
@@ -1393,7 +1608,8 @@ def kernels_phase() -> list[dict]:
         for name, x in quant_design_cases(flat).items():
             quant_case(name, x)
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
-               *encoder_attention_records(r), *psgn_kernel_records(r), quant_kernel_record()]
+               *encoder_attention_records(r), *psgn_kernel_records(r), quant_kernel_record(),
+               *dense_kernel_records(r)]
     torch.cuda.empty_cache()
     for rec in records:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
@@ -1420,21 +1636,22 @@ def slice_requests(vocab: int, seed: int = 0):
     return [Request(prompt=p.astype(np.int32), max_new_tokens=32) for p in reqs]
 
 
-def full_width_phase() -> dict:
-    phase("4. Yi-6B, 32 layers, bf16, served through repro_torch.serve.ServeEngine")
-    cfg = YI
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = tf.init_params(cfg, gen, "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"  init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.2f} s")
-    engine = ServeEngine(cfg, params, device="cuda", max_slots=8, max_seq=2048,
-                         block_size=16, prompt_granule=16, prefill_chunk=256,
-                         prefix_sharing=True)
-    print(f"  pool: {engine.pool.num_blocks} blocks of 16 tokens, "
-          f"{sum(x.numel() * x.element_size() for leaf in engine._pages.values() for x in leaf.values()) / 2**30:.2f} GiB")
-    reqs = slice_requests(cfg.vocab_size)
+def pool_gib(engine: ServeEngine) -> float:
+    return sum(x.numel() * x.element_size() for leaf in engine._pages.values()
+               for x in leaf.values()) / 2**30
+
+
+def serve_checked(cfg, params, reqs, **engine_kw) -> dict:
+    """Serve ``reqs`` on the card through ``ServeEngine(cfg, params,
+    **engine_kw)``: all but the last up front, the last once the one before
+    it decodes (its prompt is registered by then, so a prompt sharing its
+    prefix, or repeating it, adopts its blocks).  The launch counts are set
+    to 0 just before and read just after; every logit must be finite.
+    Returns the engine, counts, results, per-step (seconds, chunks run,
+    decoded) records, wall seconds and peak GiB."""
+    engine = ServeEngine(cfg, params, device="cuda", **engine_kw)
+    print(f"  pool: {engine.pool.num_blocks} blocks of {engine.block_size} tokens, "
+          f"{pool_gib(engine):.2f} GiB")
 
     # no logits may be NaN: flag them on the device, read once at the end
     nan_flags = []
@@ -1469,8 +1686,8 @@ def full_width_phase() -> dict:
                           engine.stats.steps - s0))
             return more
 
-        # the second sharer arrives once the first has registered its prompt
-        # (it decodes from then on)
+        # the last request arrives once the one before it has registered its
+        # prompt (it decodes from then on)
         while sharer not in {rid for _, rid in engine.sched.running_slots()}:
             step()
         rids.append(engine.submit(reqs[-1]))
@@ -1482,38 +1699,65 @@ def full_width_phase() -> dict:
     finally:
         tf.decode_step, tf.prefill_chunk = orig_decode, orig_chunk
     results = [engine.result(rid) for rid in rids]
-    st = engine.stats
     if any(bool(f) for f in nan_flags):
         raise AssertionError("NaN logits on the full-width path")
-    if [len(res.tokens) for res in results] != [32] * len(reqs):
+    if [len(res.tokens) for res in results] != [q.max_new_tokens for q in reqs]:
         raise AssertionError(f"unfinished requests: {[len(x.tokens) for x in results]}")
-    want = {"chunk_attention": st.prefill_chunks * cfg.num_layers,
-            "paged_decode_attention": st.steps * cfg.num_layers,
+    return {"engine": engine, "counts": counts, "results": results, "steps": steps,
+            "wall": wall, "peak": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def serve_report(out: dict, cfg, reqs, *, per_chunk: int, per_step: int) -> dict:
+    """Hold the launches of a ``serve_checked`` run to exactly ``per_chunk``
+    chunk launches per prefill chunk and ``per_step`` paged decode launches
+    per decode step, every chunk on its planned route, and print the run:
+    launches, decode step and prefill chunk ms, tokens/s, peak memory,
+    stats.  Returns the decode and chunk medians in ms."""
+    st, counts, steps = out["engine"].stats, out["counts"], out["steps"]
+    want = {"chunk_attention": st.prefill_chunks * per_chunk,
+            "paged_decode_attention": st.steps * per_step,
             "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
     if counts != want or 0 in (want["chunk_attention"], want["paged_decode_attention"]):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     attn_routes(counts, plan_of(cfg, torch.bfloat16), what="serving")
-    if st.shared_blocks == 0:
-        raise AssertionError("the shared prefix was not adopted")
     decode_only = [s for s, c, d in steps if c == 0 and d == 1]
     decode_ms = 1e3 * statistics.median(decode_only)
     chunk_ms = [1e3 * (s - (decode_ms / 1e3 if d else 0.0)) / c
                 for s, c, d in steps if c > 0]
-    print(f"  launches: {counts} (= 32 x {st.prefill_chunks} chunks, "
-          f"32 x {st.steps} decode steps, no backward); attention routes "
+    print(f"  launches: {counts} (= {per_chunk} x {st.prefill_chunks} chunks, "
+          f"{per_step} x {st.steps} decode steps, no backward); attention routes "
           f"{attention_routes()}; the last decode step's plan "
           f"{kattn.paged_decode_attention.splits} splits")
     print(f"  decode step: median {decode_ms:.2f} ms over {len(decode_only)} "
           f"decode-only steps (batch bucket {st.buckets})")
     print(f"  prefill chunk: median {statistics.median(chunk_ms):.2f} ms over "
           f"{len(chunk_ms)} steps with chunks (decode share subtracted)")
-    print(f"  end to end: {st.tokens} tokens in {wall:.2f} s = "
-          f"{st.tokens / wall:.1f} tokens/s; prompt tokens "
+    print(f"  end to end: {st.tokens} tokens in {out['wall']:.2f} s = "
+          f"{st.tokens / out['wall']:.1f} tokens/s; prompt tokens "
           f"{sum(len(q.prompt) for q in reqs)}")
-    print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  peak device memory: {out['peak']:.2f} GiB")
     print(f"  stats: {json.dumps(st.as_dict())}")
-    print(f"  first request's tokens: {results[0].tokens.tolist()[:12]} ...")
-    del engine, params
+    print(f"  first request's tokens: {out['results'][0].tokens.tolist()[:12]} ...")
+    return {"decode_ms": decode_ms, "chunk_ms": statistics.median(chunk_ms)}
+
+
+def full_width_phase() -> dict:
+    phase("4. Yi-6B, 32 layers, bf16, served through repro_torch.serve.ServeEngine")
+    cfg = YI
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.2f} s")
+    reqs = slice_requests(cfg.vocab_size)
+    out = serve_checked(cfg, params, reqs, max_slots=8, max_seq=2048, block_size=16,
+                        prompt_granule=16, prefill_chunk=256, prefix_sharing=True)
+    if out["engine"].stats.shared_blocks == 0:
+        raise AssertionError("the shared prefix was not adopted")
+    serve_report(out, cfg, reqs, per_chunk=cfg.num_layers, per_step=cfg.num_layers)
+    counts = out["counts"]
+    del out, params
     torch.cuda.empty_cache()
     return counts
 
@@ -3223,6 +3467,348 @@ def scale_out_phase(pod_final: dict) -> dict[str, dict]:
                 k: sum(res[r]["pod"]["launches"][k] for r in res) for k in pods[0]["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dense family at full width
+# ---------------------------------------------------------------------------
+
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS = 4, 8192, 6
+LLAMA_LAYERS = 4
+INTERN_BATCH, INTERN_SEQ, INTERN_DECODE = 4, 1024, 16
+
+
+def gemma_requests(vocab: int, seed: int = 1) -> list[Request]:
+    """6 greedy requests of 32 new tokens: two prompts of about 5000 tokens
+    (they pad to 8192, so each 4096-key ring wraps and the window cuts keys
+    in the chunk kernel), three of 64-700, and an exact repeat of the
+    second long prompt, last (a full-prompt hit replaying its cached
+    rings)."""
+    r = np.random.default_rng(seed)
+    reqs = [r.integers(1, vocab, size=n) for n in (4950, 64, 700, 333, 5050)]
+    reqs.append(reqs[-1].copy())
+    return [Request(prompt=p.astype(np.int32), max_new_tokens=32) for p in reqs]
+
+
+def init_timed(cfg, seed: int = 0):
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    gib = sum(p.numel() * p.element_size() for p in params.parameters()) / 2**30
+    print(f"  init: {n / 1e9:.3f} B parameters ({gib:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return params, gib
+
+
+def free() -> None:
+    """Return the freed model's blocks to the card before the next one."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def gemma_serve_phase() -> dict:
+    """17a: gemma2-27b at all 46 layers, served; exactly 23 paged decode
+    launches per decode step (the global layers; the local layers' rings
+    decode on the plain lane, as the reference's XLA does) and 46 chunk
+    launches per prefill chunk."""
+    cfg = GEMMA.replace(attn_impl="pallas")
+    print(f"  (a) {cfg.name}, {cfg.num_layers} layers ({len(tf.paged_positions(cfg))} "
+          f"of {cfg.period} positions paged: {cfg.repeats} global layers, {cfg.repeats} "
+          f"sliding-window ones, window {cfg.window}), softcaps {cfg.attn_softcap:g} / "
+          f"{cfg.final_softcap:g}, bf16:")
+    params, w_gib = init_timed(cfg)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    block_bytes = 2 * cfg.repeats * 16 * kv * hd * 2
+    ring_gib = 2 * cfg.repeats * cfg.window * kv * hd * 2 / 2**30  # one slot's rings
+    reqs = gemma_requests(cfg.vocab_size)
+    # the chunk launches of the windowed form (the local layers) apart: the
+    # wrapper's count read around each call that passes a window
+    windowed = [0]
+    orig_fwd = kattn.chunk_attention_fwd
+
+    def fwd_tallied(*a, window=None, **kw):
+        before = kattn.chunk_attention.launches
+        res = orig_fwd(*a, window=window, **kw)
+        if window is not None:
+            windowed[0] += kattn.chunk_attention.launches - before
+        return res
+
+    kattn.chunk_attention_fwd = fwd_tallied
+    try:
+        out = serve_checked(cfg, params, reqs, max_slots=GEMMA_SLOTS, max_seq=GEMMA_MAX_SEQ,
+                            block_size=16, prompt_granule=16, prefill_chunk=GEMMA_CHUNK,
+                            pool_blocks=(4 << 30) // block_bytes, prefix_sharing=True)
+    finally:
+        kattn.chunk_attention_fwd = orig_fwd
+    st = out["engine"].stats
+    if st.shared_prefill_hits != 1 or st.shared_blocks != GEMMA_MAX_SEQ // 16:
+        raise AssertionError(f"the repeated prompt was not a full-prompt hit: hits "
+                             f"{st.shared_prefill_hits}, blocks {st.shared_blocks}")
+    times = serve_report(out, cfg, reqs, per_chunk=cfg.num_layers, per_step=cfg.repeats)
+    if windowed[0] != cfg.repeats * st.prefill_chunks:
+        raise AssertionError(f"windowed chunk launches {windowed[0]}, expected "
+                             f"{cfg.repeats} x {st.prefill_chunks} chunks")
+    print(f"  windowed chunk launches (the local layers): {windowed[0]} = {cfg.repeats} x "
+          f"{st.prefill_chunks} chunks")
+    # the repeat decodes beside other neighbours than its original did, so
+    # bf16 near-ties may part them: printed, not held
+    same = out["results"][-1].tokens.tolist() == out["results"][-2].tokens.tolist()
+    print(f"  the full-prompt hit: {st.shared_blocks} blocks adopted, its 32 tokens "
+          f"equal its original's: {same}")
+    cached = len({q.prompt.tobytes() for q in reqs})
+    reckon = w_gib + pool_gib(out["engine"]) + ring_gib * (2 * GEMMA_SLOTS + cached)
+    print(f"  memory reckoned: weights {w_gib:.2f} + pool {pool_gib(out['engine']):.2f} + "
+          f"rings {ring_gib:.3f} GiB x ({GEMMA_SLOTS} slots + up to {GEMMA_SLOTS} prefill "
+          f"rows + {cached} cached prompt rows) = {reckon:.2f} GiB; measured peak "
+          f"{out['peak']:.2f} GiB")
+    counts = {**out["counts"], "chunk_attention windowed": windowed[0]}
+    del out, params
+    free()
+    return {"counts": counts, **times}
+
+
+def dense_serve_phase(cfg, label: str) -> dict:
+    """17b: ``cfg`` served on phase 4's trace and engine settings; one chunk
+    launch per layer per prefill chunk and one paged decode launch per
+    layer per decode step."""
+    cfg = cfg.replace(attn_impl="pallas")
+    print(f"  (b) {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of hd {cfg.resolved_head_dim} "
+          f"(n_rep {cfg.num_heads // cfg.num_kv_heads}), bf16:")
+    params, _ = init_timed(cfg)
+    reqs = slice_requests(cfg.vocab_size)
+    out = serve_checked(cfg, params, reqs, max_slots=8, max_seq=2048, block_size=16,
+                        prompt_granule=16, prefill_chunk=256, prefix_sharing=True)
+    if out["engine"].stats.shared_blocks == 0:
+        raise AssertionError("the shared prefix was not adopted")
+    times = serve_report(out, cfg, reqs, per_chunk=cfg.num_layers, per_step=cfg.num_layers)
+    counts = out["counts"]
+    del out, params
+    free()
+    return {"counts": counts, **times}
+
+
+def intern_phase() -> dict:
+    """17c: internvl2-1b at full depth: ``prefill_step`` on 4 x 1024
+    embeddings (24 chunk launches), 16 lockstep ``decode_step``s on its
+    dense cache with (4, 1, 896) embeddings (no launch: the dense cache
+    decodes on the plain lane, as the reference's XLA), finite logits; the
+    prompt's logits against the plain dense lane (``DENSE_GAP_TOL``)."""
+    cfg = get_config("internvl2-1b").replace(attn_impl="pallas")
+    print(f"  (c) {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of hd {cfg.resolved_head_dim}, an "
+          f"embedding frontend, bf16:")
+    params, _ = init_timed(cfg)
+    r = np.random.default_rng(7)
+    emb = torch.from_numpy(r.standard_normal(
+        (INTERN_BATCH, INTERN_SEQ, cfg.d_model)).astype(np.float32)).to("cuda")
+    steps = torch.from_numpy(r.standard_normal(
+        (INTERN_DECODE, INTERN_BATCH, 1, cfg.d_model)).astype(np.float32)).to("cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    (logits, cache), pre_s = timed_s(lambda: tf.prefill_step(cfg, params, {"embeddings": emb}))
+    pre = kernels.launch_counts()
+    if pre != {**{k: 0 for k in pre}, "chunk_attention": cfg.num_layers}:
+        raise AssertionError(f"prefill launches {pre}, expected {cfg.num_layers} chunk")
+    attn_routes(pre, plan_of(cfg, torch.bfloat16), what="prefill_step")
+    if logits.shape != (INTERN_BATCH, 1, cfg.vocab_size) or int(cache["len"]) != INTERN_SEQ:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, len {cache['len']}")
+    kernels.reset_launch_counts()
+    dec_s, outs = [], [logits]
+    for i in range(INTERN_DECODE):
+        (lg, cache), secs = timed_s(lambda: tf.decode_step(cfg, params, cache, steps[i]))
+        dec_s.append(secs)
+        outs.append(lg)
+    dec = kernels.launch_counts()
+    if any(dec.values()):
+        raise AssertionError(f"dense-cache decode launched {dec}")
+    if not all(bool(torch.isfinite(x).all()) for x in outs) or int(cache["len"]) != \
+            INTERN_SEQ + INTERN_DECODE:
+        raise AssertionError("non-finite logits or a wrong length after decode")
+    dense = tf.prefill_step(cfg.replace(attn_impl="dense"), params, {"embeddings": emb})[0]
+    gap = (logits - dense).abs().max().item()
+    scale = dense.abs().max().item()
+    if not gap <= DENSE_GAP_TOL * scale:
+        raise AssertionError(f"prefill logits against the dense lane: gap {gap:.4e} > "
+                             f"{DENSE_GAP_TOL} x {scale:.4e}")
+    print(f"  prefill_step on {INTERN_BATCH} x {INTERN_SEQ} embeddings: {1e3 * pre_s:.1f} ms "
+          f"(host clock, first call); launches {pre}; then {INTERN_DECODE} decode steps "
+          f"on the dense cache: median {1e3 * statistics.median(dec_s[1:]):.2f} ms, "
+          f"launches {dec} (the plain lane); logits finite; the prompt's logits against "
+          f"the dense lane: largest gap {gap:.4e}, {gap / scale:.3e} of the largest "
+          f"(tol {DENSE_GAP_TOL})")
+    del params, cache, outs, dense, logits
+    free()
+    return pre
+
+
+def gemma_train_phase() -> dict:
+    """17d: gemma2-27b widths at 4 of its 46 layers, S 8192 (its context
+    length: the window of 4096 cuts the local layers), micro batch 1, remat,
+    a tick-fired DiveBatch program, 6 steps: every loss finite, exactly 8
+    chunk, 4 dq and 4 dk/dv launches per microbatch, all on the tensor
+    cores."""
+    cfg = GEMMA.replace(num_layers=GEMMA_TRAIN_LAYERS, attn_impl="pallas")
+    print(f"  (d) {cfg.name} widths at {cfg.num_layers} of 46 layers, S {GEMMA_TRAIN_SEQ}, "
+          f"window {cfg.window}, softcaps {cfg.attn_softcap:g} / {cfg.final_softcap:g}, "
+          f"bf16, remat, micro batch 1:")
+    params, _ = init_timed(cfg)
+    n_matmul = sum(p.numel() for p in params.parameters()) - params.embed.weight.numel()
+    program = train_lm.make_program("divebatch", m0=2, m_max=4, delta=0.5, granule=1,
+                                    lr=0.02, tick_every=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=GEMMA_TRAIN_STEPS,
+                         seq_len=GEMMA_TRAIN_SEQ, micro_batch=1, attn_impl="pallas",
+                         log=lambda line: None)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    recs = out["records"]
+    for rec in recs:
+        tick = (f"; tick: Delta {rec['diversity']:.6f}, batch {rec['batch']} -> "
+                f"{rec['next_batch']}" if "diversity" in rec else "")
+        print(f"    step {rec['step']}: batch {rec['batch']} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms{tick}")
+    if not all(np.isfinite(rec["loss"]) for rec in recs):
+        raise AssertionError(f"non-finite loss: {[rec['loss'] for rec in recs]}")
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers = cfg.num_layers
+    want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="training")
+    s, hd, h = GEMMA_TRAIN_SEQ, cfg.resolved_head_dim, cfg.num_heads
+    local = sum(min(i + 1, cfg.window) for i in range(s))
+    pairs = (local + s * (s + 1) // 2) * cfg.repeats
+
+    def model_flops(batch: int) -> float:
+        # 6 N per token for the products, plus the attention pairs: 2
+        # products forward and 4 backward of 2 hd per (row, key) pair a head
+        return 6 * n_matmul * batch * s + 12 * hd * h * batch * pairs
+
+    steady = recs[1:]
+    secs = [x["seconds"] for x in steady]
+    flops = sum(model_flops(x["batch"]) for x in steady)
+    step_ms = {m: 1e3 * statistics.median([x["seconds"] for x in steady if x["batch"] == m])
+               for m in sorted({x["batch"] for x in steady})}
+    print(f"  launches {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+          f"microbatches), attention routes {attention_routes()}; step ms by batch "
+          f"(median, steps 2-{GEMMA_TRAIN_STEPS}) " + ", ".join(
+              f"{m}: {v:.1f}" for m, v in step_ms.items())
+          + f"; {sum(x['batch'] * s for x in steady) / sum(secs):.1f} tokens/s; "
+          f"{flops / sum(secs) / 1e12:.1f} TFLOP/s of model FLOPs = "
+          f"{100 * flops / sum(secs) / PEAK_BF16:.1f}% of 989; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del out, params
+    free()
+    return {"counts": counts, "step_ms": step_ms}
+
+
+def dense_phase() -> dict[str, dict]:
+    phase("17. the dense family at full width (weights from a seeded generator, bf16, "
+          "attn_impl='pallas'; each model freed before the next)")
+    t0 = time.perf_counter()
+    paths = {"gemma2-27b serving": gemma_serve_phase()["counts"],
+             "qwen2-7b serving": dense_serve_phase(get_config("qwen2-7b"),
+                                                   "qwen2-7b, all 28 layers")["counts"],
+             "llama3-405b serving": dense_serve_phase(
+                 LLAMA.replace(num_layers=LLAMA_LAYERS),
+                 f"llama3-405b at full width, {LLAMA_LAYERS} of 126 layers (a depth cut: "
+                 f"126 layers are 810 GB)")["counts"],
+             "internvl2-1b prefill_step": intern_phase(),
+             "gemma2-27b training": gemma_train_phase()["counts"]}
+    print(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the dense family, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def dense_first_logits(cfg, card, cpu, toks) -> float:
+    """One whole-prompt chunk into fresh pools and rings on both devices:
+    the largest gap of the last position's logits."""
+    logits = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        pages = tf.init_pages(cfg, 8, 16, device=dev)
+        row = tf.init_cache(cfg, 1, 128, skip=tf.paged_positions(cfg), device=dev)
+        row["len"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        out, _, _ = tf.prefill_chunk(cfg, model, row, pages, {"tokens": toks.to(dev)},
+                                     0, torch.zeros(0, dtype=torch.long, device=dev),
+                                     torch.arange(1, 4, device=dev))
+        logits[dev] = out.cpu()
+    return (logits["cuda"] - logits["cpu"]).abs().max().item()
+
+
+def dense_card_vs_cpu_phase() -> None:
+    phase("18. the reference's reduced dense configs (hd 16, float32): card (kernels) "
+          "against CPU (plain versions)")
+    r = np.random.default_rng(18)
+    for arch in ("qwen2-7b", "llama3-405b", "gemma2-27b"):
+        cfg = get_config(arch, reduced=True).replace(attn_impl="pallas")
+        cpu = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+        card = tf.build(cfg, "cuda")
+        card.load_state_dict(cpu.state_dict())
+        err = dense_first_logits(
+            cfg, card, cpu, torch.from_numpy(r.integers(1, cfg.vocab_size, size=(1, 48))))
+        if err > 1e-4:
+            raise AssertionError(f"{arch}: first logits differ by {err:.3e} > 1e-4")
+        prompts = [r.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in (7, 40, 23, 64)]
+        reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts + [prompts[1]]]
+        kw = dict(max_slots=4, max_seq=128, block_size=16, prompt_granule=16,
+                  prefill_chunk=32)
+        kernels.reset_launch_counts()
+        card_eng = ServeEngine(cfg, card, device="cuda", **kw)
+        out_card = card_eng.generate(reqs)
+        launched = kernels.launch_counts()
+        out_cpu = ServeEngine(cfg, cpu, device="cpu", **kw).generate(reqs)
+        tc = [o.tokens.tolist() for o in out_card]
+        if tc != [o.tokens.tolist() for o in out_cpu]:
+            raise AssertionError(f"{arch}: card and CPU tokens differ")
+        st = card_eng.stats
+        want_chunk = st.prefill_chunks * cfg.num_layers
+        want_dec = st.steps * cfg.repeats * len(tf.paged_positions(cfg))
+        if (launched["chunk_attention"], launched["paged_decode_attention"]) != \
+                (want_chunk, want_dec) or st.shared_prefill_hits != 1:
+            raise AssertionError(f"{arch}: launches {launched}, expected {want_chunk} "
+                                 f"chunk and {want_dec} decode; hits {st.shared_prefill_hits}")
+        attn_routes(launched, plan_of(cfg, torch.float32), what="float32 serving")
+        print(f"  {arch}: first logits max abs diff {err:.3e} (tol 1e-4); tokens "
+              f"identical over {sum(len(t) for t in tc)} tokens (a full-prompt hit "
+              f"included); card launches {launched}")
+    # internvl2: prefill_step then lockstep decode on the dense cache
+    cfg = get_config("internvl2-1b", reduced=True).replace(attn_impl="pallas")
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card = tf.build(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    emb = torch.from_numpy(r.standard_normal((2, 48, cfg.d_model)).astype(np.float32))
+    nxt = torch.from_numpy(r.standard_normal((8, 2, 1, cfg.d_model)).astype(np.float32))
+    logs = {}
+    kernels.reset_launch_counts()
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        lg, cache = tf.prefill_step(cfg, model, {"embeddings": emb.to(dev)})
+        seq = [lg.cpu()]
+        for i in range(8):
+            lg, cache = tf.decode_step(cfg, model, cache, nxt[i].to(dev))
+            seq.append(lg.cpu())
+        logs[dev] = torch.stack(seq)
+        if dev == "cuda":
+            launched = kernels.launch_counts()
+    err = (logs["cuda"] - logs["cpu"]).abs().max().item()
+    same = torch.equal(logs["cuda"].argmax(-1), logs["cpu"].argmax(-1))
+    if err > 1e-4 or not same or launched["chunk_attention"] != cfg.num_layers:
+        raise AssertionError(f"internvl2-1b: logits differ by {err:.3e} (tol 1e-4), argmax "
+                             f"equal {same}, launches {launched}")
+    print(f"  internvl2-1b: prefill_step and 8 dense-cache decode steps on embeddings: "
+          f"logits within {err:.3e} (tol 1e-4), the same argmax at every step; card "
+          f"launches {launched}")
+    print("  gemma2-27b (reduced: window 8 of S 64, softcaps 50 / 30) trains:")
+    lm_train_card_vs_cpu(get_config("gemma2-27b", reduced=True).replace(attn_impl="pallas"))
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -3263,6 +3849,8 @@ def main() -> int:
     encoder_card_vs_cpu_phase()
     rank_paths = scale_out_phase(pod_final)
     encoder_paths["encoder dp training (ranks)"] = rank_paths["encoder dp training (ranks)"]
+    dense_paths = dense_phase()
+    dense_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -3272,16 +3860,19 @@ def main() -> int:
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"]}
-    # the non-causal records count the encoder's paths (phase 14), the others
-    # the rest
+    # a record naming its paths counts those (the dense group's forms, phase
+    # 17), the other non-causal records the encoder's paths (phase 14), the
+    # others the rest
+    every = {**paths, **encoder_paths, **dense_paths}
     for rec in records:
         counter = rec.pop("counter", rec["name"])
         on = encoder_paths if counter != rec["name"] else paths
+        if "paths" in rec:
+            on = {k: every[k] for k in rec.pop("paths")}
         rec["launches"] = sum(c[counter] for c in on.values())
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was launched on no path")
-    print("\n  launches by path: " + "; ".join(
-        f"{k} {v}" for k, v in {**paths, **encoder_paths}.items()))
+    print("\n  launches by path: " + "; ".join(f"{k} {v}" for k, v in every.items()))
 
     print()
     print(smi)

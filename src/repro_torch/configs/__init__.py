@@ -1,11 +1,15 @@
 """Config registry of the port: the architectures whose paths exist.
 
-Two are ported: ``yi-6b`` (pure full attention, dense SwiGLU; training and
-serving) and ``hubert-xlarge`` (the encoder: non-causal attention at head
-dim 80, an embedding frontend, layer norm, a GELU MLP; encoding through
+Six are ported: the dense decoders ``yi-6b`` (pure full attention, dense
+SwiGLU), ``qwen2-7b`` (QKV bias), ``llama3-405b``, ``gemma2-27b``
+(alternating sliding-window ``attn_local`` and global ``attn`` layers, an
+attention and a final logit softcap, GELU) and ``internvl2-1b`` (an
+embedding frontend in front of a dense decoder), trained and served; and
+``hubert-xlarge`` (the encoder: non-causal attention at head dim 80, an
+embedding frontend, layer norm, a GELU MLP; encoding through
 ``transformer.prefill_step`` and training, no decode).  The reference
-package's other eight archs need MoE, SSM, windowed or embedding-decode
-paths that are still on the ROADMAP (Queue A 7), and asking for one raises.
+package's other four archs need the MoE FFN or Mamba state, which are still
+on the ROADMAP (Queue A 7), and asking for one raises.
 """
 
 from __future__ import annotations
@@ -16,8 +20,15 @@ from repro_torch.configs.base import FLASH_THRESHOLD, ModelConfig
 
 _MODULES = {
     "yi-6b": "yi_6b",
+    "qwen2-7b": "qwen2_7b",
+    "llama3-405b": "llama3_405b",
+    "gemma2-27b": "gemma2_27b",
+    "internvl2-1b": "internvl2_1b",
     "hubert-xlarge": "hubert_xlarge",
 }
+
+#: the ported architectures, in registry order
+ARCH_NAMES = tuple(_MODULES)
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
@@ -30,4 +41,4 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return mod.reduced() if reduced else mod.CONFIG
 
 
-__all__ = ["ModelConfig", "FLASH_THRESHOLD", "get_config"]
+__all__ = ["ARCH_NAMES", "ModelConfig", "FLASH_THRESHOLD", "get_config"]

@@ -2,8 +2,8 @@
 
 Field for field the reference package's ``repro.configs.base.ModelConfig``,
 so a config built from the same arguments describes the same model in both
-packages.  The port reads a subset today (the dense full-attention serving
-path); the other fields ride along so configs stay interchangeable.
+packages.  The port reads the fields of the attention mixers and dense
+FFNs; the MoE and SSM fields ride along so configs stay interchangeable.
 """
 
 from __future__ import annotations
@@ -11,9 +11,9 @@ from __future__ import annotations
 import dataclasses
 import math
 
-# The ONE attn_impl="auto" flip point of the reference package (dense at or
-# below, tiled above).  The port always runs the tiled kernel lane; the
-# constant is kept so configs carry the same defaults.
+# The ONE attn_impl="auto" flip point: sequences at or below this run the
+# dense lane, longer ones the streaming flash lane (models/attention.py::
+# resolve_impl); attn_impl="pallas" takes the kernels at every length.
 FLASH_THRESHOLD = 1024
 
 

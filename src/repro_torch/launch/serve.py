@@ -7,6 +7,7 @@ ported.
 
 Examples:
   python -m repro_torch.launch.serve --arch yi-6b --full-size
+  python -m repro_torch.launch.serve --arch gemma2-27b --full-size
   python -m repro_torch.launch.serve --requests 16 --prefill-chunk 8 --block-size 8
   python -m repro_torch.launch.serve --device cpu --policy fair --tenants 2
 """
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels import _build
 from repro_torch.models import transformer as tf
 from repro_torch.obs import from_cli as obs_from_cli
@@ -70,7 +71,10 @@ def serve_trace(engine: ServeEngine, requests: list[Request], ramp: int) -> list
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-6b",
+    # the engine serves causal decoders with token prompts
+    served = [a for a in ARCH_NAMES
+              if get_config(a).input_mode == "tokens" and get_config(a).causal]
+    ap.add_argument("--arch", default="yi-6b", choices=served,
                     help="configs registry arch (served reduced + shrunk "
                          "unless --full-size)")
     ap.add_argument("--full-size", action="store_true")

@@ -61,7 +61,7 @@ from repro_torch.adapt import (
     read_signals,
 )
 from repro_torch.ckpt import CheckpointManager
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenStream
 from repro_torch.dist.plan import broadcast_
@@ -211,7 +211,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--method", default="divebatch", choices=["divebatch", "gns"])
     ap.add_argument("--full-width", type=int, default=None, metavar="N",
                     help="--arch's widths at N layers (bf16, remat)")
-    ap.add_argument("--arch", default="yi-6b", choices=["yi-6b", "hubert-xlarge"],
+    ap.add_argument("--arch", default="yi-6b", choices=list(ARCH_NAMES),
                     help="the architecture --full-width trains")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--micro-batch", type=int, default=4)

@@ -109,7 +109,7 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     hd = cfg.resolved_head_dim
-    for r, p, blk in tf._layers(cfg, params, tf.TRAIN_MIXERS):
+    for r, p, blk in tf._layers(cfg, params):
         kind = cfg.pattern[p]
         base = f"l{r}p{p}"
         ap = blk.attn

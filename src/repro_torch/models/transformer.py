@@ -1,16 +1,17 @@
 """The decoder/encoder stack: parameters, the training forward with its
 chunked cross-entropy, the encoder's forward, and serving (the paged KV
-pool, paged decode, chunked prefill).
+pool, windowed rings and the dense per-slot cache, decode, chunked and
+whole-prompt prefill).
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks each
 pattern position's parameters over a repeats axis and scans; here the model
 is an ``nn.Module`` with a ``ModuleList`` of blocks (layer ``r * period +
 p`` is repeat ``r`` of pattern position ``p``) and ``nn.Linear`` weights in
 ``(out, in)`` layout, and the stack is a Python loop (``cfg.scan_layers``
-has no counterpart).  The KV pool keeps the reference's layout: per
-full-attention pattern position a ``(repeats, num_blocks, block, KV, hd)``
-tensor, so ``pages[...][r]`` is one layer's contiguous
-``(num_blocks, block, KV, hd)`` pool.
+has no counterpart).  Serving state keeps the reference's layout: per
+pattern position a ``(repeats, ...)`` stack, so ``pages[...][r]`` is one
+layer's contiguous ``(num_blocks, block, KV, hd)`` pool and
+``cache[...]["k"][r]`` one layer's ``(B, s_c, KV, hd)`` cache.
 
 Training: ``loss_fn`` runs the stack with gradients.  ``cfg.remat``
 checkpoints each layer (``torch.utils.checkpoint``, non-reentrant), so the
@@ -18,39 +19,47 @@ backward runs the layer's forward again, attention kernel included.
 ``cfg.attn_impl`` picks the attention lane (``models/attention.py::
 resolve_impl``): "pallas" is ``kernels/attention.py::flash_attention`` (the
 chunk kernel forward and the dq / dk-dv backward kernels on the card),
-"dense" the plain lane under autograd; the XLA "flash" lane is not ported.
-The ``flash_*_block`` settings tile the reference's Pallas kernels and do
-not set the CUDA kernels' tiling.  ``xent_chunked`` never forms the
-(B, S, V) logits and recomputes each chunk's in its backward.  Parameters
-take gradients once ``train.state.init_state`` makes them trainable;
-``build()`` (serving) keeps them frozen.
+"flash" the reference's XLA lane (``models/attention.py::flash_attention``,
+streaming softmax and its recompute backward in plain PyTorch: the
+reference runs it on no Pallas kernel), "dense" the plain lane under
+autograd; "auto" takes "flash" above ``cfg.flash_threshold``.  The
+``flash_*_block`` settings tile the flash lane and the reference's Pallas
+kernels, not the CUDA kernels.  ``xent_chunked`` never forms the (B, S, V)
+logits and recomputes each chunk's in its backward.  Parameters take
+gradients once ``train.state.init_state`` makes them trainable; ``build()``
+(serving) keeps them frozen.
 
-Serving attention always goes through ``kernels/attention.py``: the CUDA
-kernels for tensors on the card, their plain versions for tensors on the
-CPU.
+Serving: a full-attention ('attn') position keeps its KV in the block pool
+when serving paged (``paged_positions``), else in the dense per-slot cache
+(``prefill_step`` fills it); a sliding-window ('attn_local') position keeps
+a ring of ``min(window, seq_len)`` keys per slot, written at ``pos mod
+s_c``.  Paged decode and chunked prefill go through ``kernels/attention.py``
+(the CUDA kernels for tensors on the card, their plain versions on the
+CPU); decode against a ring or the dense cache runs the plain
+``models/attention.py::decode_attention``, as the reference runs it in XLA.
+Rings and the dense cache are updated in place, like the pool.
 
 Inputs: ``cfg.input_mode == "tokens"`` reads ``batch["tokens"]`` (B, S)
 through the ``embed`` table; ``"embeddings"`` (the audio and vision
 configs' stub frontend) reads ``batch["embeddings"]`` (B, S, d_model),
 cast to the compute type, through ``frontend``, a bias-free dense layer in
-the table's place.  An encoder (``cfg.causal == False``) runs its attention
-without the causal mask, in training and in ``prefill_step``.
+the table's place; ``decode_step`` takes (B, 1) tokens or (B, 1, d_model)
+embeddings likewise.  An encoder (``cfg.causal == False``) runs its
+attention without the causal mask, in training and in ``prefill_step``.
 
 Entry points:
   init_params(cfg, generator, device, dtype)    the model (random weights)
   loss_fn(cfg, params, batch)                   mean CE loss, metrics
   xent_chunked(x, weight, targets, chunk, softcap)
-  prefill_step(cfg, params, batch)              the encoder's logits
+  prefill_step(cfg, params, batch)              last logits and the cache
+                                                (an encoder: every logit)
   init_cache / init_pages / paged_positions     serving state
   decode_step(cfg, params, cache, tokens, pages=, tables=)
   prefill_chunk(cfg, params, row, pages, batch, offset, prior_tab, write_tab)
 
-Only attention mixers with a dense FFN are ported: training runs 'attn'
-and 'attn_local' (the sliding window goes to the attention lane), serving
-only 'attn' (the 'attn_local' ring raises there); 'mamba' state and MoE FFNs
-raise ``NotImplementedError`` (ROADMAP.md, Queue A 7), and so does
-``prefill_step`` for a causal config (the dense KV cache it fills is not
-ported).
+Attention mixers ('attn', 'attn_local') with a dense FFN are ported;
+'mamba' state and MoE FFNs raise ``NotImplementedError`` (ROADMAP.md, Queue
+A 7).
 """
 
 from __future__ import annotations
@@ -66,8 +75,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import ACTIVATIONS, apply_rope, dense, embed, layer_norm, rms_norm
 
 _NOT_PORTED = {
-    "attn_local": "the windowed-ring ('attn_local') serving path",
-    "mamba": "the Mamba state serving path",
+    "mamba": "the Mamba mixer and its state",
     "moe": "the MoE FFN",
 }
 
@@ -79,8 +87,8 @@ def _not_ported(kind: str) -> NotImplementedError:
     )
 
 
-#: the mixers the training forward runs; serving runs only "attn"
-TRAIN_MIXERS = ("attn", "attn_local")
+#: the mixers the port runs, in training and serving
+MIXERS = ("attn", "attn_local")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -142,7 +150,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, pos: int, dtype: torch.dtype):
         super().__init__()
         kind = cfg.pattern[pos]
-        if kind not in TRAIN_MIXERS:
+        if kind not in MIXERS:
             raise _not_ported(kind)
         self.norm = Norm(cfg.d_model, cfg.norm_type, dtype)
         self.attn = Attention(cfg, dtype)
@@ -225,21 +233,30 @@ def _embed_input(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Te
     return dense(batch["embeddings"].to(cdt), params.frontend.weight)
 
 
+def _self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, window: int | None, causal: bool) -> torch.Tensor:
+    """Self-attention over positions ``arange(S)`` on the lane
+    ``resolve_impl`` names for the length."""
+    s = q.shape[1]
+    impl = attn_lib.resolve_impl(cfg, s)
+    if impl == "pallas":
+        return kernels_attn.flash_attention(q, k, v, causal, window, cfg.attn_softcap)
+    if impl == "flash":
+        return attn_lib.flash_attention(q, k, v, causal, window, cfg.attn_softcap,
+                                        min(cfg.flash_q_block, s),
+                                        min(cfg.flash_kv_block, s))
+    if impl == "dense":
+        return attn_lib.attention(q, k, v, causal=causal, window=window,
+                                  softcap=cfg.attn_softcap)
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
 def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
                    positions: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, ap, x, positions)
     window = cfg.window if kind == "attn_local" else None
-    impl = attn_lib.resolve_impl(cfg, s)
-    if impl == "pallas":
-        out = kernels_attn.flash_attention(q, k, v, cfg.causal, window, cfg.attn_softcap)
-    elif impl == "dense":
-        out = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
-                                 softcap=cfg.attn_softcap)
-    else:
-        raise NotImplementedError(
-            f"the XLA {impl!r} attention lane is not ported to repro_torch "
-            f"(ROADMAP.md, Queue A 7); use attn_impl='pallas' or 'dense'")
+    out = _self_attention(cfg, q, k, v, window, cfg.causal)
     return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
 
 
@@ -256,7 +273,7 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
     """Every layer in order; ``(x, moe_aux)`` with the aux loss 0 (no MoE).
     Under ``cfg.remat`` each layer is checkpointed where gradients are on:
     only its input is kept, and the backward runs its forward again."""
-    for _, p, blk in _layers(cfg, params, TRAIN_MIXERS):
+    for _, p, blk in _layers(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
             # the forward draws no random numbers: no RNG state to replay
             x = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
@@ -352,24 +369,44 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict,
     return loss, {"ce_loss": loss, "moe_aux": aux}
 
 
+
+
 @torch.no_grad()
 def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict,
                  ) -> tuple[torch.Tensor, dict]:
-    """Encode ``batch`` (``{"tokens"}`` or ``{"embeddings"}``): an encoder
-    config (``cfg.causal == False``) returns the float32 logits at every
-    position, (B, S, V), and an empty cache, as the reference's encoder
-    branch.  A causal config raises: its branch fills the dense KV cache,
-    which is not ported (serving prefills through ``prefill_chunk``)."""
-    if cfg.causal:
-        raise NotImplementedError(
-            "prefill_step for a causal config fills the dense (non-paged) KV "
-            "cache, which is not ported to repro_torch (ROADMAP.md, Queue A 7); "
-            "serving prefills through prefill_chunk")
+    """Encode a prompt, ``batch`` ``{"tokens" (B, S)}`` or ``{"embeddings"
+    (B, S, d_model)}``, with no paged pool.
+
+    A causal config returns the last position's float32 logits (B, 1, V),
+    final softcap included, and the dense cache (``init_cache(cfg, B, S)``
+    shapes) holding each layer's last ``_cache_len_for`` keys and values,
+    with ``len`` S: decode continues from it with ``decode_step``.  The
+    stack runs on the lane ``resolve_impl`` names ("pallas": the chunk
+    kernel forward).  An encoder (``cfg.causal == False``) returns the
+    logits at every position, (B, S, V), and an empty cache, as the
+    reference's encoder branch."""
     x = _embed_input(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _run_stack(cfg, params, x, positions)
-    # the reference's encoder branch: no final softcap
-    return dense(params.final_norm(x), params.lm_head.weight).float(), {}
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    if not cfg.causal:
+        x, _ = _run_stack(cfg, params, x, positions)
+        # the reference's encoder branch: no final softcap
+        return dense(params.final_norm(x), params.lm_head.weight).float(), {}
+    cache = init_cache(cfg, b, s, device=x.device)
+    hd = cfg.resolved_head_dim
+    for r, p, blk in _layers(cfg, params):
+        ap = blk.attn
+        q, k, v = _qkv(cfg, ap, blk.norm(x), positions)
+        window = cfg.window if cfg.pattern[p] == "attn_local" else None
+        h = _self_attention(cfg, q, k, v, window, True)
+        x = x + dense(h.reshape(b, s, cfg.num_heads * hd), ap.o.weight)
+        kc, vc = cache[f"pos{p}"]["k"][r], cache[f"pos{p}"]["v"][r]
+        s_c = kc.shape[1]
+        kc.copy_(k[:, s - s_c:])
+        vc.copy_(v[:, s - s_c:])
+        x = _ffn(blk, x)
+    cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
+    return _head(cfg, params, x[:, -1:, :]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -377,26 +414,40 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict,
 # ---------------------------------------------------------------------------
 
 
+def _cache_len_for(cfg: ModelConfig, pos: int, seq_len: int) -> int:
+    """Keys a per-slot cache of pattern position ``pos`` holds: the window
+    for a sliding-window layer (its ring), else the whole context."""
+    if cfg.pattern[pos] == "attn_local" and cfg.window is not None:
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
 def paged_positions(cfg: ModelConfig) -> tuple[int, ...]:
     """Pattern positions whose KV lives in the block pool when serving paged:
-    the full-attention positions."""
+    the full-attention positions.  Windowed rings stay per slot."""
     return tuple(p for p in range(cfg.period) if cfg.pattern[p] == "attn")
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, skip: tuple = (),
                device: torch.device | str) -> dict:
-    """Per-slot decode state: ``{"len": () int32}`` plus one entry per
-    pattern position not in ``skip``.  Paged serving skips every
-    full-attention position (its KV is in the pool); the dense per-slot
-    cache, windowed rings and SSM state are not ported."""
+    """Per-slot decode state for a context of ``seq_len`` tokens:
+    ``{"len": () int32}`` plus, per pattern position not in ``skip``,
+    ``{"k", "v"}`` of shape ``(repeats, batch, s_c, KV, hd)`` in the compute
+    type, ``s_c = min(window, seq_len)`` for a sliding-window position (a
+    ring written at ``pos mod s_c``) and ``seq_len`` for a full-attention one
+    (the dense cache).  Paged serving skips every full-attention position
+    (its KV is in the pool); Mamba state raises."""
     cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=device)}
+    cdt = _dtype(cfg.compute_dtype)
     for p in range(cfg.period):
         if p in skip:
             continue
-        if cfg.pattern[p] != "attn":
+        if cfg.pattern[p] not in MIXERS:
             raise _not_ported(cfg.pattern[p])
-        raise NotImplementedError("the dense (non-paged) KV cache is not "
-                                  "ported to repro_torch (ROADMAP.md, Queue A 7)")
+        shape = (cfg.repeats, batch, _cache_len_for(cfg, p, seq_len), cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache[f"pos{p}"] = {"k": torch.zeros(shape, dtype=cdt, device=device),
+                            "v": torch.zeros(shape, dtype=cdt, device=device)}
     return cache
 
 
@@ -418,12 +469,13 @@ def init_pages(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     }
 
 
-def _layers(cfg: ModelConfig, params: Transformer, kinds: tuple[str, ...] = ("attn",)):
+def _layers(cfg: ModelConfig, params: Transformer):
     """(repeat, pattern position, block) in layer order; a mixer outside
-    ``kinds`` raises."""
+    ``MIXERS`` raises (``cfg`` need not be the config ``params`` was built
+    from)."""
     for r in range(cfg.repeats):
         for p in range(cfg.period):
-            if cfg.pattern[p] not in kinds:
+            if cfg.pattern[p] not in MIXERS:
                 raise _not_ported(cfg.pattern[p])
             yield r, p, params.blocks[r * cfg.period + p]
 
@@ -454,53 +506,75 @@ def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tenso
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
-                tokens: torch.Tensor, *, pages: dict, tables: torch.Tensor):
-    """One token for every slot against the paged pool.
+                tokens: torch.Tensor, *, pages: dict | None = None,
+                tables: torch.Tensor | None = None):
+    """One token for every row: ``tokens`` (B, 1) int, or (B, 1, d_model)
+    embeddings for an embedding-input config.
 
-    tokens: (B, 1) int.  ``cache["len"]`` is a scalar or a ``(B,)`` vector of
-    per-slot positions.  ``tables`` is ``(B, n_max)`` int: slot b's logical
-    block i lives at pool block ``tables[b, i]``.  Each row writes its new
-    k/v at ``tables[b, pos // block]`` offset ``pos % block`` and then
-    attends to its whole context, this token included.  Inactive lanes point
-    at sentinel block 0 (written garbage, never read unmasked).
+    ``cache["len"]`` is a scalar (every row at one position, the lockstep
+    batch) or a ``(B,)`` vector of per-slot positions.  A position held in
+    ``cache`` (a sliding-window ring, or the dense cache of a full-attention
+    layer) takes the new k/v at ``pos mod s_c`` of its row, then the row
+    attends its ``min(pos + 1, s_c)`` valid entries (every retained ring
+    slot is inside the window) through the plain ``decode_attention``.
 
-    The pool is updated IN PLACE (the reference returns a new pool); the
-    returned ``pages`` is the same dict.  Returns (logits (B, 1, V) float32,
-    new cache, pages)."""
-    if pages is None or tables is None:
-        raise NotImplementedError("decode against the dense (non-paged) KV "
-                                  "cache is not ported (ROADMAP.md, Queue A 7)")
-    x = embed(params.embed.weight, tokens).to(_dtype(cfg.compute_dtype))
+    Paged (``pages``/``tables`` given): a full-attention position in
+    ``pages`` writes at ``tables[b, pos // block]`` offset ``pos % block``
+    and attends its whole context through the fused paged-decode kernel.
+    ``tables`` is ``(B, n_max)`` int: slot b's logical block i lives at pool
+    block ``tables[b, i]``; inactive lanes point at sentinel block 0
+    (written garbage, never read unmasked).
+
+    The cache and the pool are updated IN PLACE (the reference returns new
+    ones); the returned dicts hold the same tensors.  Returns (logits
+    (B, 1, V) float32, new cache), and the pool after them when paged."""
+    key = "tokens" if cfg.input_mode == "tokens" else "embeddings"
+    x = _embed_input(cfg, params, {key: tokens})
     b = x.shape[0]
     pos_now = cache["len"]
     posv = pos_now.reshape(b) if pos_now.dim() == 1 else pos_now.expand(b)
     posv = posv.long()
+    pages_in = pages if pages is not None else {}
+    if pages_in and tables is None:
+        raise ValueError("decode_step: paged decode needs the block tables")
     lengths = (posv + 1).to(torch.int32)  # the kernel's type, converted once
     hd = cfg.resolved_head_dim
     rows = torch.arange(b, device=x.device)
-    n_max = tables.shape[1]
     for r, p, blk in _layers(cfg, params):
         ap = blk.attn
         q, k, v = _qkv(cfg, ap, blk.norm(x), posv[:, None])
-        pk, pv = pages[f"pos{p}"]["k"][r], pages[f"pos{p}"]["v"][r]
-        blk_sz = pk.shape[1]
-        # a free lane's position keeps counting while it idles; clamp its
-        # table column (it writes the sentinel block either way)
-        wb = tables[rows, (posv // blk_sz).clamp(max=n_max - 1)]
-        off = posv % blk_sz
-        # write-then-read, in place on the live pool: this token is visible
-        # to its own query.  Plain assignment: duplicate (0, off) targets of
-        # inactive lanes race harmlessly on the never-read sentinel block
-        pk[wb, off] = k[:, 0]
-        pv[wb, off] = v[:, 0]
-        h = kernels_attn.paged_decode_attention(
-            q, pk, pv, tables, lengths, softcap=cfg.attn_softcap
-        )
+        name = f"pos{p}"
+        if name in pages_in:
+            pk, pv = pages_in[name]["k"][r], pages_in[name]["v"][r]
+            blk_sz, n_max = pk.shape[1], tables.shape[1]
+            # a free lane's position keeps counting while it idles; clamp its
+            # table column (it writes the sentinel block either way)
+            wb = tables[rows, (posv // blk_sz).clamp(max=n_max - 1)]
+            off = posv % blk_sz
+            # write-then-read, in place on the live pool: this token is
+            # visible to its own query.  Plain assignment: duplicate (0, off)
+            # targets of inactive lanes race harmlessly on the sentinel block
+            pk[wb, off] = k[:, 0]
+            pv[wb, off] = v[:, 0]
+            h = kernels_attn.paged_decode_attention(
+                q, pk, pv, tables, lengths, softcap=cfg.attn_softcap
+            )
+        else:
+            kc, vc = cache[name]["k"][r], cache[name]["v"][r]
+            s_c = kc.shape[1]
+            slot = posv % s_c  # a full dense cache wraps too, as the reference's
+            kc[rows, slot] = k[:, 0]
+            vc[rows, slot] = v[:, 0]
+            h = attn_lib.decode_attention(q, kc, vc, (posv + 1).clamp(max=s_c),
+                                          softcap=cfg.attn_softcap, window=None)
         x = x + dense(h.reshape(b, 1, cfg.num_heads * hd), ap.o.weight)
         x = _ffn(blk, x)
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
-    return _head(cfg, params, x), new_cache, pages
+    logits = _head(cfg, params, x)
+    if pages is None:
+        return logits, new_cache
+    return logits, new_cache, pages
 
 
 @torch.no_grad()
@@ -510,42 +584,74 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
     """One chunk of a paged, resumable prefill for a SINGLE request.
 
     The chunk's queries sit at absolute positions ``offset + arange(C)`` and
-    attend causally to (a) the prior context gathered from the request's
-    pool blocks ``prior_tab`` — (nbp,) int in logical order, padded with
-    sentinel 0 to a pow2 count; entries past ``offset`` tokens are masked —
-    and (b) the chunk's own keys.  Then the chunk's k/v are written to the
-    pool at ``write_tab`` ((C // block,) int), in place.
+    attend causally to the prior context and the chunk's own keys, through
+    the chunk-attention kernel:
 
-    row: ``{"len": (1,)}`` (full-attention positions carry no row state).
-    batch: ``{"tokens": (1, C)}``, C a multiple of the block size.
-    Returns (last-position logits (1, 1, V) float32, new row, pages)."""
-    x = embed(params.embed.weight, batch["tokens"]).to(_dtype(cfg.compute_dtype))
+      * a full-attention position gathers its prior context from the
+        request's pool blocks ``prior_tab`` — (nbp,) int in logical order,
+        padded with sentinel 0 to a pow2 count; entries past ``offset``
+        tokens are masked — and writes the chunk's k/v to the pool at
+        ``write_tab`` ((C // block,) int), in place;
+      * a sliding-window position reads its ring in ``row`` in
+        chronological order (positions ``offset - s_c .. offset - 1``, the
+        negative ones invalid), attends under ``cfg.window``, and writes the
+        chunk's last ``min(C, s_c)`` keys back into the ring, in place.
+
+    row: ``{"len": (1,)}`` plus the rings
+    (``init_cache(cfg, 1, max_seq, skip=paged_positions(cfg))`` shapes).
+    batch: ``{"tokens": (1, C)}`` or ``{"embeddings": (1, C, d_model)}``, C
+    a multiple of the block size.  Returns (last-position logits (1, 1, V)
+    float32, new row, pages)."""
+    x = _embed_input(cfg, params, batch)
     c = x.shape[1]
     dev = x.device
-    q_pos = int(offset) + torch.arange(c, dtype=torch.int32, device=dev)
+    offset = int(offset)
+    q_pos = offset + torch.arange(c, dtype=torch.int32, device=dev)
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    paged = set(paged_positions(cfg))
     prior_idx = prior_tab.long()
-    k_pos = k_valid = None
+    ones = torch.ones(c, dtype=torch.int32, device=dev)
+    keys: dict = {}  # per layout, (k_pos, k_valid) int32 built once per chunk
     for r, p, blk in _layers(cfg, params):
         ap = blk.attn
         q, k, v = _qkv(cfg, ap, blk.norm(x), q_pos[None, :])
-        pk, pv = pages[f"pos{p}"]["k"][r], pages[f"pos{p}"]["v"][r]
-        blk_sz = pk.shape[1]
-        prior = prior_idx.numel() * blk_sz
-        if k_pos is None:  # int32, the kernel's types, built once per chunk
-            prior_pos = torch.arange(prior, dtype=torch.int32, device=dev)
-            k_pos = torch.cat([prior_pos, q_pos])
-            k_valid = torch.cat([(prior_pos < int(offset)).to(torch.int32),
-                                 torch.ones(c, dtype=torch.int32, device=dev)])
-        gk = pk[prior_idx].reshape(1, prior, kv, hd)
-        gv = pv[prior_idx].reshape(1, prior, kv, hd)
-        h = kernels_attn.chunk_attention(
-            q, torch.cat([gk, k], dim=1), torch.cat([gv, v], dim=1),
-            q_pos, k_pos, k_valid, window=None, softcap=cfg.attn_softcap,
-        )
+        if p in paged:  # full attention: prior context from the pool
+            pk, pv = pages[f"pos{p}"]["k"][r], pages[f"pos{p}"]["v"][r]
+            blk_sz = pk.shape[1]
+            prior = prior_idx.numel() * blk_sz
+            if "pool" not in keys:
+                prior_pos = torch.arange(prior, dtype=torch.int32, device=dev)
+                keys["pool"] = (torch.cat([prior_pos, q_pos]),
+                                torch.cat([(prior_pos < offset).to(torch.int32), ones]))
+            gk = pk[prior_idx].reshape(1, prior, kv, hd)
+            gv = pv[prior_idx].reshape(1, prior, kv, hd)
+            h = kernels_attn.chunk_attention(
+                q, torch.cat([gk, k], dim=1), torch.cat([gv, v], dim=1),
+                q_pos, *keys["pool"], window=None, softcap=cfg.attn_softcap,
+            )
+            pk[write_tab.long()] = k[0].reshape(-1, blk_sz, kv, hd)
+            pv[write_tab.long()] = v[0].reshape(-1, blk_sz, kv, hd)
+        else:  # sliding window: prior context from the ring
+            ring_k, ring_v = row[f"pos{p}"]["k"][r], row[f"pos{p}"]["v"][r]
+            s_c = ring_k.shape[1]
+            if "ring" not in keys:
+                prior_pos = offset - s_c + torch.arange(s_c, dtype=torch.int32, device=dev)
+                w = min(c, s_c)  # the chunk's tail that survives into the ring
+                keys["ring"] = (torch.cat([prior_pos, q_pos]),
+                                torch.cat([(prior_pos >= 0).to(torch.int32), ones]))
+                keys["ring_read"] = torch.remainder(prior_pos, s_c).long()
+                keys["ring_write"] = torch.remainder(
+                    offset + c - w + torch.arange(w, device=dev), s_c)
+            idx = keys["ring_read"]
+            h = kernels_attn.chunk_attention(
+                q, torch.cat([ring_k[:, idx], k], dim=1),
+                torch.cat([ring_v[:, idx], v], dim=1),
+                q_pos, *keys["ring"], window=cfg.window, softcap=cfg.attn_softcap,
+            )
+            w = keys["ring_write"].numel()
+            ring_k[:, keys["ring_write"]] = k[:, c - w:]
+            ring_v[:, keys["ring_write"]] = v[:, c - w:]
         x = x + dense(h.reshape(1, c, cfg.num_heads * hd), ap.o.weight)
-        pk[write_tab.long()] = k[0].reshape(-1, blk_sz, kv, hd)
-        pv[write_tab.long()] = v[0].reshape(-1, blk_sz, kv, hd)
         x = _ffn(blk, x)
     new_row = dict(row)
     new_row["len"] = row["len"] + c

@@ -6,7 +6,13 @@ every step boundary, per-slot EOS/max-token retirement), the ``ServePolicy``
 boundary (retire -> observe -> resize -> admit), the ``BlockPool`` host
 accounting with reservations and chain-hashed prefix sharing, per-request
 block tables, and chunked prefill interleaved with decode (one chunk per
-pending prompt per boundary).
+pending prompt per boundary).  A config with sliding-window layers (gemma2)
+carries their rings per slot and in each prefill job's row, and adopts
+shared prefix blocks only on full-prompt hits, whose cached row holds the
+rings; a config whose every layer is paged also adopts a partial prefix.
+Prompts are tokens, as in the reference: an embedding-input config is
+refused (it serves through ``transformer.prefill_step`` and
+``decode_step``).
 
 What differs from the reference:
 
@@ -74,15 +80,20 @@ def _axis(t: torch.Tensor) -> int:
 
 
 def _insert_row(cache: dict, row: dict, j: int) -> None:
-    """Write one single-request row into batch position ``j``, in place."""
+    """Write one single-request row (nested ring leaves included) into
+    batch position ``j``, in place."""
     for key, full in cache.items():
-        full.narrow(_axis(full), j, 1).copy_(row[key].to(full.dtype))
+        if isinstance(full, dict):
+            _insert_row(full, row[key], j)
+        else:
+            full.narrow(_axis(full), j, 1).copy_(row[key].to(full.dtype))
 
 
 def _gather_rows(cache: dict, idx: torch.Tensor) -> dict:
     """Re-index the batch axis: ``new[i] = old[idx[i]]`` (compaction,
     growth, any slot permutation)."""
-    return {key: x.index_select(_axis(x), idx) for key, x in cache.items()}
+    return {key: _gather_rows(x, idx) if isinstance(x, dict)
+            else x.index_select(_axis(x), idx) for key, x in cache.items()}
 
 
 def _copy_block(pages: dict, src: int, dst: int) -> None:
@@ -116,7 +127,7 @@ class _PrefillJob:
 
     rid: int
     off: int  # next chunk's first position (block-aligned)
-    row: dict  # carried per-request state ({"len": (1,)})
+    row: dict  # carried per-request state ({"len": (1,)} and the rings)
     stepped: bool = False
 
 
@@ -211,6 +222,12 @@ class ServeEngine:
             )
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+        if cfg.input_mode != "tokens" or not cfg.causal:
+            raise ValueError(
+                f"ServeEngine serves causal token-prompt configs, not {cfg.name!r} "
+                f"(input_mode {cfg.input_mode!r}, causal {cfg.causal}); an "
+                f"embedding-input decoder serves through transformer.prefill_step "
+                f"and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = int(max_slots)
@@ -254,6 +271,9 @@ class ServeEngine:
         span = self.max_seq + max(self.prompt_granule, self.max_seq // 2)
         self._n_max = -(-span // self.block_size)
         self._paged = tf.paged_positions(self.cfg)
+        # a partial chain match only covers full-attention state (it lives in
+        # the pool); configs with rings share only on full-prompt hits
+        self._row_trivial = len(self._paged) == self.cfg.period
         if pool_blocks is None:
             # pow2 default: worst-case credits for every slot + the sentinel
             pool_blocks = padded_prompt_len(1 + self.max_slots * self._n_max, 1)
@@ -377,9 +397,9 @@ class ServeEngine:
         A full-chain match is an instant admission only while the prompt
         cache still holds the end-of-prompt row + logits AND the registry
         still maps the whole chain to the entry's blocks; otherwise fall
-        back to a partial match capped at nb_prompt - 1.  (Every ported
-        mixer keeps all its state in the pool, so a partial match is always
-        valid; the reference refuses it for ring/SSM configs.)"""
+        back to a partial match capped at nb_prompt - 1, valid only for a
+        config whose every position is paged: a ring's state is not in the
+        pool, so such a config shares only on full-prompt hits."""
         if not self.prefix_sharing or not bs.keys:
             return [], None
         ent = self._prompt_cache.get(bs.keys[-1])
@@ -389,6 +409,8 @@ class ServeEngine:
                 self._prompt_cache.move_to_end(bs.keys[-1])
                 return ids, ent
             del self._prompt_cache[bs.keys[-1]]  # stale: blocks evicted
+        if not self._row_trivial:
+            return [], None
         return self.pool.match(bs.keys[:bs.nb_prompt - 1]), None
 
     def _gate(self, rid: int, request: Request) -> bool:
@@ -433,7 +455,8 @@ class ServeEngine:
                 ))
 
     def _fresh_row(self, off: int) -> dict:
-        """Per-request prefill carry starting at position ``off``."""
+        """Zeroed per-request prefill carry (``len`` and the rings) starting
+        at position ``off`` (> 0 when a shared prefix was adopted)."""
         row = tf.init_cache(self.cfg, 1, self.max_seq, skip=self._paged,
                             device=self.device)
         row["len"] = torch.full((1,), off, dtype=torch.int32, device=self.device)

@@ -741,6 +741,84 @@ def test_engine_on_card_matches_cpu(cuda):
     assert counts["chunk_attention"] > 0 and counts["paged_decode_attention"] > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1024, 6144])
+def test_chunk_kernel_over_a_ring_gathered_prior(cuda, dtype, offset):
+    """gemma2's local prefill: a 256-row chunk over a 4096-key ring read in
+    chronological order (positions ``offset - 4096 ..``, the negative ones
+    invalid) then the chunk's own keys, window 4096, softcap 50, 32/16 heads
+    of hd 128; at offset 6144 the window cuts every row's oldest keys."""
+    r = np.random.default_rng(offset)
+    c, s_c, h, kv, hd = 256, 4096, 32, 16, 128
+    q = torch.from_numpy(r.standard_normal((1, c, h, hd))).to(cuda, dtype)
+    k = torch.from_numpy(r.standard_normal((1, s_c + c, kv, hd))).to(cuda, dtype)
+    v = torch.from_numpy(r.standard_normal((1, s_c + c, kv, hd))).to(cuda, dtype)
+    q_pos = offset + torch.arange(c, dtype=torch.int32, device=cuda)
+    prior = offset - s_c + torch.arange(s_c, dtype=torch.int32, device=cuda)
+    k_pos = torch.cat([prior, q_pos])
+    k_valid = torch.cat([(prior >= 0).to(torch.int32),
+                         torch.ones(c, dtype=torch.int32, device=cuda)])
+    kernels.reset_launch_counts()
+    got = kattn.chunk_attention(q, k, v, q_pos, k_pos, k_valid, window=4096, softcap=50.0)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, q_pos, k_pos, k_valid, window=4096, softcap=50.0)
+    _close(got, want, dtype)
+    route = "tc" if dtype == torch.bfloat16 else "fma"
+    assert kernels.route_counts()["chunk_attention"][route] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(32, 16), (28, 4), (128, 8)],
+                         ids=["n_rep2", "n_rep7", "n_rep16"])
+def test_paged_decode_softcap_at_the_dense_group_sizes(cuda, dtype, h, kv):
+    """Softcap 50 at hd 128 with gemma2's n_rep 2, qwen2's 7 and llama3's
+    16 (n_rep * hd = 2048, the kernel's ``DECODE_MAX_GROUP``)."""
+    r = np.random.default_rng(h)
+    b, blk, n_max, hd = 4, 16, 40, 128
+    nb = n_max * b + 1
+    pool_k = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    pool_v = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    lengths = np.asarray([1, 300, n_max * blk, 77], np.int32)
+    tables = np.zeros((b, n_max), np.int32)
+    ids = list(range(1, nb))
+    r.shuffle(ids)
+    for row, n in enumerate(lengths):
+        live = -(-int(n) // blk)
+        tables[row, :live] = ids[:live]
+        ids = ids[live:]
+    q = torch.from_numpy(r.standard_normal((b, 1, h, hd))).to(cuda, dtype)
+    args = (q, pool_k, pool_v, torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(lengths).to(cuda))
+    got = kattn.paged_decode_attention(*args, softcap=50.0)
+    torch.cuda.synchronize()
+    _close(got, ref.paged_decode_ref(*args, softcap=50.0), dtype)
+
+
+def test_gemma2_engine_on_card_matches_cpu(cuda):
+    """Reduced gemma2 (window 8, both softcaps) in float32 with identical
+    weights: the card (kernels) and the CPU (plain versions) give the same
+    greedy tokens, rings wrapping in prefill and decode, a full-prompt hit
+    replaying its cached rings."""
+    cfg = get_config("gemma2-27b", reduced=True)
+    cpu_params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = tf.build(cfg, cuda)
+    card_params.load_state_dict(cpu_params.state_dict())
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 30, 17)]
+    reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts + [prompts[1]]]
+    kw = dict(max_slots=2, max_seq=64, prefill_chunk=16, block_size=8)
+    kernels.reset_launch_counts()
+    card = ServeEngine(cfg, card_params, device=cuda, **kw)
+    out_card = card.generate(reqs)
+    counts = kernels.launch_counts()
+    cpu = ServeEngine(cfg, cpu_params, device="cpu", **kw)
+    out_cpu = cpu.generate(reqs)
+    assert [o.tokens.tolist() for o in out_card] == [o.tokens.tolist() for o in out_cpu]
+    assert card.stats.shared_prefill_hits == cpu.stats.shared_prefill_hits == 1
+    assert counts["chunk_attention"] == 2 * card.stats.prefill_chunks
+    assert counts["paged_decode_attention"] == card.stats.steps
+
+
 def test_training_on_card_matches_cpu(cuda):
     """Reduced Yi-6B (hd 64, remat on) in float32 with identical weights:
     4 steps of ``StepEngine.for_lm(attn_impl="pallas")`` with a tick-fired

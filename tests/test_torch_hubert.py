@@ -124,10 +124,21 @@ def test_hubert_prefill_step_matches_reference(extra):
 
 
 def test_prefill_step_refuses_a_causal_config():
-    cfg = get_config("yi-6b", reduced=True)
-    model = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tf.prefill_step(cfg, model, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    """A causal config is no longer refused: ``prefill_step`` runs its causal
+    branch on the kernel lane, the last position's logits and the dense
+    cache (each layer's keys and values) match the reference's."""
+    jcfg = jget("yi-6b", reduced=True).replace(attn_impl="pallas")
+    cfg = get_config("yi-6b", reduced=True).replace(attn_impl="pallas")
+    jparams = jtf.init_params(jcfg, jax.random.key(0))
+    model = interop.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, size=(2, 8)).astype(np.int32)
+    jlogits, jcache = jtf.prefill_step(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    logits, cache = tf.prefill_step(cfg, model, {"tokens": torch.from_numpy(toks).long()})
+    assert logits.shape == (2, 1, cfg.vocab_size) and int(cache["len"]) == 8
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-5, atol=1e-5)
+    for kv in ("k", "v"):
+        np.testing.assert_allclose(cache["pos0"][kv].numpy(), np.asarray(jcache["pos0"][kv]),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("extra", [{}, HD80], ids=["reduced", "hd80"])

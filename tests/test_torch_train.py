@@ -386,9 +386,9 @@ def test_unported_paths_raise_and_name_the_queue(tmp_path):
     """The per-sample tiers without their hooks raise the reference's
     ValueErrors; the vmap path (per-sample gradients of example_loss) runs
     on ``ModelFns`` models only: on the LM loss it raises (torch.func cannot
-    transform its old-style autograd functions).  Unported lanes name their
-    queue; ``--ckpt-dir``, once unported, now writes a checkpoint at each
-    tick."""
+    transform its old-style autograd functions).  The XLA flash lane, once
+    unported, gives the dense lane's loss; ``--ckpt-dir``, once unported,
+    now writes a checkpoint at each tick."""
     cfg = get_config("yi-6b", reduced=True)
     with pytest.raises(ValueError, match="estimator='gram' needs probe_loss"):
         make_train_step(cfg, sgd(), 1, estimator="gram")
@@ -417,9 +417,12 @@ def test_unported_paths_raise_and_name_the_queue(tmp_path):
         eng.jitted(1)
     model = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    # the XLA flash lane is ported: it gives the plain dense lane's loss
+    np.testing.assert_allclose(
         tf.loss_fn(cfg.replace(attn_impl="flash"), model,
-                   {"tokens": toks, "targets": toks})
+                   {"tokens": toks, "targets": toks})[0].item(),
+        tf.loss_fn(cfg.replace(attn_impl="dense"), model,
+                   {"tokens": toks, "targets": toks})[0].item(), rtol=1e-6)
     ck = tmp_path / "ck"
     train_lm.main(["--device", "cpu", "--steps", "2", "--seq-len", "16",
                    "--epoch-steps", "2", "--ckpt-dir", str(ck)])
