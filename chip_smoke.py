@@ -293,17 +293,55 @@ MB L2.
      internvl2-1b runs ``prefill_step`` and 8 dense-cache decode steps on
      embeddings, logits within 1e-4 and the same argmax; gemma2 trains 6
      DiveBatch steps as phase 7, losses within 1e-4 relative, parameters
-     within 1e-4, one batch schedule.
+     within 1e-4, one batch schedule;
+ 19. the MoE family at full width, weights from a seeded generator, bf16,
+     ``attn_impl="pallas"``, each model freed before the next (the MoE FFN
+     is ``models/moe.py``: routing, the capacity buffer and the expert
+     products in plain PyTorch, as the reference runs them in XLA): (a)
+     dbrx-132b **cut to 8 of its 40 layers** (27.3 B parameters, 50.9
+     GiB; 245 GiB at full depth) and (b) kimi-k2-1t-a32b **cut to 2 of its
+     61 layers** (36.4 B parameters, 67.8 GiB; 17 B a layer), each served
+     on phase 4's trace with phase 4's engine (a 2 GiB and a 1 GiB pool):
+     one chunk launch per layer per prefill chunk and one paged decode
+     per layer per decode step (kimi-k2's at hd 112, n_rep 8), decode step
+     and chunk ms, the capacity's drop share per layer in prefill and in
+     decode (factor 1.25), the decode step beside the HBM floor of the
+     capacity form (it reads every expert's weights each step), the peak
+     beside its reckoning; (c) dbrx-132b widths **cut to 1 of 40 layers**
+     (4.49 B parameters; two layers' training state would not fit) trained
+     at S 4096, micro batch 1, remat, ``for_lm(moe_groups=1)`` on the
+     moment tier, sgd with momentum 0.9, DiveBatch (m0 2, m_max 4), 6
+     steps: each step's ms, ``ce_loss`` and ``moe_aux``, exactly 2 chunk, 1
+     dq and 1 dk/dv launches per microbatch on the tensor cores, model
+     FLOP/s (6 N_active S plus attention), the peak beside its reckoning;
+     (d) one full-width layer of each, 256 tokens: ``moe_apply`` at
+     capacity E / top_k against the dense ``moe_reference`` and at 1.25
+     against a plain loop over the kept assignments (dropped counts
+     equal), at 2e-2;
+ 20. the reference's reduced MoE configs (hd 16, float32) on the card
+     against the CPU: dbrx-132b and kimi-k2-1t-a32b each serve phase 18's
+     trace (first logits within 1e-4, tokens identical); one loss at
+     capacity factor 1.0 (B 4, S 64, 2 groups) within 1e-4 with every
+     layer's dropped count above 0 and equal on both; 6 moment-tier
+     DiveBatch steps in 2 groups, losses, ``moe_aux`` and parameters
+     within 1e-4, one schedule; 2 gram-tier steps with probes on the
+     attention layers, losses and ``sq_norm_sum`` within 1e-4.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
 50)`` and ``paged_decode_attention (gemma2: softcap 50, n_rep 2)``,
 ``(llama3: n_rep 16)``; no single library call computes a softcapped or
-paged attention, so their library time is null).
+paged attention, so their library time is null), and the MoE family's:
+paged decode at dbrx-132b's 48/8 heads and at kimi-k2's 64/8 of hd 112,
+kimi-k2's serving chunk, and dbrx's training form (B 1, S 4096, 48/8
+heads: forward, dq and dk/dv on the tensor cores); records ``chunk_attention
+(kimi-k2: hd 112, n_rep 8, serving)`` and ``paged_decode_attention
+(kimi-k2: hd 112, n_rep 8)``, with SDPA's time.
 
 The launches of the non-causal records count phase 14's three paths and
 phase 16's hubert run (both ranks), the dense-form records the phase-17
-path they describe (gemma2's serving, llama3's serving), the other records
+path they describe (gemma2's serving, llama3's serving), the kimi-k2
+records phase 19b's serving path, the other records
 the causal paths (phases 4, 6, 8, 10, 12, and 16's pod cell on both
 ranks).
 
@@ -319,6 +357,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import json
 import os
 import shutil
@@ -351,7 +390,7 @@ from repro_torch.kernels import attention as kattn  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import data_plan  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
-from repro_torch.models import probes, resnet, small  # noqa: E402
+from repro_torch.models import moe, probes, resnet, small  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.pod import PodLadder  # noqa: E402
@@ -526,11 +565,17 @@ def valid_pairs(q_pos, k_pos, k_valid, window=None) -> int:
     return int(ok.sum())
 
 
-def chunk_kernel_record(r) -> dict:
-    h, kv, hd = YI.num_heads, YI.num_kv_heads, YI.resolved_head_dim
+def chunk_kernel_record(r, cfg=YI, where: str = "the serving shape", **extra) -> dict:
+    """The chunk forward at ``cfg``'s serving shape (a 256-token chunk over
+    768 valid prior tokens in 64 blocks, bf16) against its plain version,
+    timed beside it and beside SDPA; ``extra`` joins the record (its name,
+    the paths its launches count)."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     inp = chunk_inputs(r, torch.bfloat16, b=1, c=256, prior_real=768,
                        prior_blocks=64, blk=16, h=h, kv=kv, hd=hd)
-    err = chunk_case("slice shape bf16 (C 256, 768 prior in 64 blocks, Sk 1280)", inp)
+    tag = "slice shape" if cfg is YI else f"{cfg.name} record"
+    err = chunk_case(f"{tag} bf16 (C 256, 768 prior in 64 blocks, Sk 1280, {h}/{kv} heads "
+                     f"of hd {hd})", inp)
     args = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
     ms = timed_ms(lambda: kattn.chunk_attention_fwd(*args))
     device_ms = timed_ms(lambda: kattn.chunk_attention_fwd(*args), spin=True)
@@ -546,7 +591,7 @@ def chunk_kernel_record(r) -> dict:
     flops = 4 * pairs * h * hd
     bound_ms, by = bound(moved, flops)
     dispatch = kattn.attention_plan(inp["q"].dtype, hd)["chunk_attention"]
-    print(f"  chunk_attention at the serving shape [{dispatch}]: {ms:.4f} ms ({device_ms:.4f} "
+    print(f"  chunk_attention at {where} [{dispatch}]: {ms:.4f} ms ({device_ms:.4f} "
           f"on the card alone), {flops / ms / 1e9:.1f} TFLOP/s (library {library_ms:.4f}); "
           f"bound {bound_ms:.4f} ms by {by}, {100 * bound_ms / ms:.1f}% of it")
     return {"name": "chunk_attention", "route": "cuda",
@@ -554,7 +599,8 @@ def chunk_kernel_record(r) -> dict:
             "replaces": "src/repro/kernels/attention.py:92",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
-            "device_ms": device_ms, "dispatch": dispatch, "tflops": flops / ms / 1e9}
+            "device_ms": device_ms, "dispatch": dispatch, "tflops": flops / ms / 1e9,
+            **extra}
 
 
 def decode_inputs(r, dtype, *, b, blk, n_max, nb, kv, h, hd, max_len):
@@ -584,12 +630,18 @@ def decode_case(name, args, softcap=None) -> float:
     return err
 
 
-def decode_kernel_record(r) -> dict:
-    h, kv, hd = YI.num_heads, YI.num_kv_heads, YI.resolved_head_dim
+def decode_kernel_record(r, cfg=YI, where: str = "the serving shape", **extra) -> dict:
+    """Paged decode at ``cfg``'s serving shape (8 slots, block 16, the
+    table of max_seq 2048, lengths <= 1100, bf16) against its plain
+    version, 20 launches bit-identical, timed beside it and beside SDPA
+    over the gathered context; ``extra`` joins the record."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     blk, n_max = 16, 192  # the engine's table width at max_seq 2048
     args = decode_inputs(r, torch.bfloat16, b=8, blk=blk, n_max=n_max, nb=2048,
                          kv=kv, h=h, hd=hd, max_len=1100)
-    err = decode_case("slice shape bf16 (B 8, block 16, lengths <= 1100)", args)
+    tag = "slice shape" if cfg is YI else f"{cfg.name} record"
+    err = decode_case(f"{tag} bf16 (B 8, block 16, lengths <= 1100, {h}/{kv} heads of hd "
+                      f"{hd})", args)
     q, pool_k, pool_v, tables, lengths = args
     splits = kattn.paged_decode_attention.splits
     # a fixed split order and no atomics: the same bits on every launch
@@ -613,7 +665,7 @@ def decode_kernel_record(r) -> dict:
     live_kv = 2 * tokens * kv * hd * pool_k.element_size()
     moved = live_kv + 2 * nbytes(q) + nbytes(tables, lengths)
     bound_ms, by = bound(moved, 4 * tokens * h * hd)
-    print(f"  paged_decode_attention at the serving shape: plan {splits} splits "
+    print(f"  paged_decode_attention at {where}: plan {splits} splits "
           f"({splits * kv * b} blocks); 20 launches bit-identical; {ms:.4f} ms "
           f"({device_ms:.4f} on the card alone; plain {plain_ms:.4f}, library "
           f"{library_ms:.4f}); bound {bound_ms:.4f} ms by {by}, "
@@ -623,7 +675,7 @@ def decode_kernel_record(r) -> dict:
             "replaces": "src/repro/kernels/attention.py:448",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
-            "device_ms": device_ms, "splits": splits}
+            "device_ms": device_ms, "splits": splits, **extra}
 
 
 GEMMA = get_config("gemma2-27b")
@@ -751,11 +803,17 @@ def dense_serving_cases(r) -> None:
 def gemma_train_attention_case(r) -> None:
     """gemma2's training attention at phase 17d's shape: B 1, S 8192, 32/16
     heads of hd 128, window 4096 (it cuts every row past 4096), softcap 50,
-    bf16.  The chunk forward, flash dq and flash dk/dv against their plain
-    versions, each plain call taken over one KV head and its 2 query heads
-    (a (2, S, S) float32 logit block; the heads do not interact)."""
-    h, kv, hd = GEMMA.num_heads, GEMMA.num_kv_heads, GEMMA.resolved_head_dim
-    s, window, cap = GEMMA_TRAIN_SEQ, GEMMA.window, GEMMA.attn_softcap
+    bf16."""
+    train_attention_case(r, "gemma2 training form", GEMMA, GEMMA_TRAIN_SEQ,
+                         window=GEMMA.window, cap=GEMMA.attn_softcap)
+
+
+def train_attention_case(r, label: str, cfg, s: int, *, window=None, cap=None) -> None:
+    """A config's training attention at B 1, S ``s`` in bf16: the chunk
+    forward, flash dq and flash dk/dv against their plain versions, each
+    plain call taken over one KV head and its n_rep query heads (an (n_rep,
+    S, S) float32 logit block; the heads do not interact)."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     bf = torch.bfloat16
     inp = flash_inputs(r, bf, b=1, s=s, h=h, kv=kv, hd=hd, window=window, softcap=cap)
     q, k, v, dout, out, lse, delta = (inp[n] for n in
@@ -778,17 +836,56 @@ def gemma_train_attention_case(r) -> None:
                                    ("dq", dq[:, :, hs], want[0], tol),
                                    ("dk", dk[:, :, ks], want[1], tol),
                                    ("dv", dv[:, :, ks], want[2], tol)):
-            errs[key] = max(errs[key], check(f"gemma2 training form, KV head {g}, {key}",
+            errs[key] = max(errs[key], check(f"{label}, KV head {g}, {key}",
                                              got, plain, bf, tol=t))
         del want_out, want_lse, want
     plan = kattn.attention_plan(bf, hd)
-    print(f"  gemma2 training form bf16 (B 1, S {s}, {h}/{kv} heads, window {window}, "
-          f"softcap {cap:g}) [forward {plan['chunk_attention']}, dq {plan['flash_dq']}, "
+    form = (f", window {window}" if window else "") + (f", softcap {cap:g}" if cap else "")
+    print(f"  {label} bf16 (B 1, S {s}, {h}/{kv} heads{form}) "
+          f"[forward {plan['chunk_attention']}, dq {plan['flash_dq']}, "
           f"dk/dv {plan['flash_dkv']}]: max abs err out {errs['out']:.3e}, lse "
           f"{errs['lse']:.3e} (tol {TOL[bf]}); dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, "
           f"dv {errs['dv']:.3e} (atol {tol[0]}, rtol {tol[1]}); rms dq {rms(dq):.3e}, "
           f"dk {rms(dk):.3e}, dv {rms(dv):.3e}")
     del inp, q, k, v, dout, out, lse, delta, dq, dk, dv
+
+
+DBRX = get_config("dbrx-132b")
+KIMI = get_config("kimi-k2-1t-a32b")
+MOE_TRAIN_SEQ = 4096
+
+
+def moe_attention_cases(r) -> None:
+    """The attention forms the MoE family puts on paths (phase 19) that the
+    kimi-k2 records do not hold, at their path's shapes: dbrx-132b's 48/8
+    heads of hd 128 (n_rep 6) in its serving chunk (C 256 over a prior of
+    768 valid tokens in 64 blocks) and paged decode (8 slots, block 16,
+    n_max 192, lengths <= 1100), and dbrx's training form (B 1, S 4096,
+    48/8 heads: the forward, dq and dk/dv on the tensor cores)."""
+    h, kv, hd = DBRX.num_heads, DBRX.num_kv_heads, DBRX.resolved_head_dim
+    chunk_case(f"{DBRX.name} serving shape bf16 (C 256, 768 prior in 64 blocks, {h}/{kv} "
+               f"heads of hd {hd})",
+               chunk_inputs(r, torch.bfloat16, b=1, c=256, prior_real=768, prior_blocks=64,
+                            blk=16, h=h, kv=kv, hd=hd))
+    decode_case(f"{DBRX.name} serving shape bf16 (B 8, {h}/{kv} heads of hd {hd}, n_rep "
+                f"{h // kv}, block 16, n_max 192, lengths <= 1100)",
+                decode_inputs(r, torch.bfloat16, b=8, blk=16, n_max=192, nb=2048, kv=kv, h=h,
+                              hd=hd, max_len=1100))
+    train_attention_case(r, "dbrx-132b training form", DBRX, MOE_TRAIN_SEQ)
+
+
+def moe_kernel_records(r) -> list[dict]:
+    """Rows 1d and 4c: the chunk forward and paged decode at kimi-k2's
+    serving shapes (64/8 heads of hd 112, n_rep 8), their launches counted
+    on phase 19b's kimi-k2 serving path."""
+    path = {"paths": ["kimi-k2-1t-a32b serving"]}
+    return [chunk_kernel_record(r, KIMI, "kimi-k2's serving shape", counter="chunk_attention",
+                                name="chunk_attention (kimi-k2: hd 112, n_rep 8, serving)",
+                                **path),
+            decode_kernel_record(r, KIMI, "kimi-k2's serving shape",
+                                 counter="paged_decode_attention",
+                                 name="paged_decode_attention (kimi-k2: hd 112, n_rep 8)",
+                                 **path)]
 
 
 def decode_split_cases(r) -> None:
@@ -1584,6 +1681,7 @@ def kernels_phase() -> list[dict]:
     decode_split_cases(r)
     dense_serving_cases(r)
     gemma_train_attention_case(r)
+    moe_attention_cases(r)
     torch.cuda.empty_cache()
     for tag, dtypes in PSGN_TYPES.items():
         for shape in ((1, 37, 19, 23), (4, 33, 7, 130), (1, 300, 130, 260),
@@ -1609,7 +1707,7 @@ def kernels_phase() -> list[dict]:
             quant_case(name, x)
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
                *encoder_attention_records(r), *psgn_kernel_records(r), quant_kernel_record(),
-               *dense_kernel_records(r)]
+               *dense_kernel_records(r), *moe_kernel_records(r)]
     torch.cuda.empty_cache()
     for rec in records:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
@@ -1899,9 +1997,10 @@ def train_card_vs_cpu_phase() -> None:
         lm_train_card_vs_cpu(cfg)
 
 
-def lm_train_card_vs_cpu(cfg) -> None:
+def lm_train_card_vs_cpu(cfg, moe_groups: int = 1) -> None:
     """6 DiveBatch steps of ``cfg`` (float32) on the card and on the CPU from
-    identical weights: losses and parameters within 1e-4, one schedule."""
+    identical weights: losses (and a MoE model's ``moe_aux``, routed in
+    ``moe_groups`` groups) and parameters within 1e-4, one schedule."""
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     card = tf.build(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
@@ -1911,7 +2010,7 @@ def lm_train_card_vs_cpu(cfg) -> None:
                                         granule=2, lr=0.05, tick_every=2)
         kernels.reset_launch_counts()
         out = train_lm.train(cfg, model, program, steps=6, seq_len=64, micro_batch=2,
-                             attn_impl="pallas", log=lambda line: None)
+                             attn_impl="pallas", moe_groups=moe_groups, log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
         if dev == "cuda":
             attn_routes(runs[dev][1], plan_of(cfg, torch.float32), what="float32 training")
@@ -1920,6 +2019,12 @@ def lm_train_card_vs_cpu(cfg) -> None:
     rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
     if rel > 1e-4:
         raise AssertionError(f"losses differ by {rel:.3e} relative > 1e-4: {losses}")
+    aux_rel = None
+    if cfg.num_experts:
+        aux = {d: np.array([x["moe_aux"] for x in o["records"]]) for d, (o, _) in runs.items()}
+        aux_rel = float(np.max(np.abs(aux["cuda"] - aux["cpu"]) / np.abs(aux["cpu"])))
+        if aux_rel > 1e-4:
+            raise AssertionError(f"moe_aux differs by {aux_rel:.3e} relative > 1e-4: {aux}")
     err = max((a.detach().cpu() - b.detach()).abs().max().item()
               for a, b in zip(card.parameters(), cpu.parameters()))
     if err > 1e-4:
@@ -1931,8 +2036,10 @@ def lm_train_card_vs_cpu(cfg) -> None:
     if any(card_counts[k] == 0 for k in ("chunk_attention", "flash_dq", "flash_dkv")) \
             or any(cpu_counts.values()):
         raise AssertionError(f"launches: card {card_counts}, CPU {cpu_counts}")
-    print(f"  losses within {rel:.3e} relative (tol 1e-4), parameters within {err:.3e} "
-          f"(tol 1e-4); batch schedule {sched['cuda']}, buckets {buckets['cuda']} on "
+    aux_line = (f"moe_aux ({moe_groups} groups) within {aux_rel:.3e} relative (tol 1e-4), "
+                if aux_rel is not None else "")
+    print(f"  losses within {rel:.3e} relative (tol 1e-4), {aux_line}parameters within "
+          f"{err:.3e} (tol 1e-4); batch schedule {sched['cuda']}, buckets {buckets['cuda']} on "
           f"both; card launches {card_counts}")
 
 
@@ -1943,14 +2050,16 @@ def lm_train_card_vs_cpu(cfg) -> None:
 GRAM_STEPS, GRAM_DELTA = 8, 2.0
 
 
-def gram_engine(cfg, optimizer, seq: int, micro_batch: int, device) -> StepEngine:
+def gram_engine(cfg, optimizer, seq: int, micro_batch: int, device,
+                moe_groups: int = 1) -> StepEngine:
     """The hand-built gram-tier engine: probes from
-    ``repro_torch.models.probes`` on every dense layer."""
+    ``repro_torch.models.probes`` on every dense layer (a MoE model's FFNs
+    unprobed, routed in ``moe_groups`` groups)."""
 
     def build(num_micro: int, tier: str):
         return make_train_step(
-            cfg, optimizer, num_micro, estimator=tier,
-            probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+            cfg, optimizer, num_micro, estimator=tier, moe_groups=moe_groups,
+            probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b, moe_groups),
             probe_specs=lambda p, bsz: probes.probe_specs(cfg, bsz, seq, device=device))
 
     engine = StepEngine(build, lm_bucket_of(micro_batch))
@@ -3500,7 +3609,9 @@ def init_timed(cfg, seed: int = 0):
 
 
 def free() -> None:
-    """Return the freed model's blocks to the card before the next one."""
+    """Return the freed model's blocks to the card before the next one
+    (tensors held only by reference cycles included)."""
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3742,43 +3853,54 @@ def dense_first_logits(cfg, card, cpu, toks) -> float:
     return (logits["cuda"] - logits["cpu"]).abs().max().item()
 
 
+def reduced_serve_card_vs_cpu(arch: str, r):
+    """The reference's reduced ``arch`` (float32) with identical weights on
+    the card and the CPU: a whole-prompt chunk's first logits within 1e-4,
+    then one greedy trace with a full-prompt hit through ``ServeEngine``,
+    tokens identical, one chunk launch per layer per prefill chunk and one
+    paged decode per global layer per decode step.  Returns the config and
+    both models."""
+    cfg = get_config(arch, reduced=True).replace(attn_impl="pallas")
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card = tf.build(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    err = dense_first_logits(
+        cfg, card, cpu, torch.from_numpy(r.integers(1, cfg.vocab_size, size=(1, 48))))
+    if err > 1e-4:
+        raise AssertionError(f"{arch}: first logits differ by {err:.3e} > 1e-4")
+    prompts = [r.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (7, 40, 23, 64)]
+    reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts + [prompts[1]]]
+    kw = dict(max_slots=4, max_seq=128, block_size=16, prompt_granule=16,
+              prefill_chunk=32)
+    kernels.reset_launch_counts()
+    card_eng = ServeEngine(cfg, card, device="cuda", **kw)
+    out_card = card_eng.generate(reqs)
+    launched = kernels.launch_counts()
+    out_cpu = ServeEngine(cfg, cpu, device="cpu", **kw).generate(reqs)
+    tc = [o.tokens.tolist() for o in out_card]
+    if tc != [o.tokens.tolist() for o in out_cpu]:
+        raise AssertionError(f"{arch}: card and CPU tokens differ")
+    st = card_eng.stats
+    want_chunk = st.prefill_chunks * cfg.num_layers
+    want_dec = st.steps * cfg.repeats * len(tf.paged_positions(cfg))
+    if (launched["chunk_attention"], launched["paged_decode_attention"]) != \
+            (want_chunk, want_dec) or st.shared_prefill_hits != 1:
+        raise AssertionError(f"{arch}: launches {launched}, expected {want_chunk} "
+                             f"chunk and {want_dec} decode; hits {st.shared_prefill_hits}")
+    attn_routes(launched, plan_of(cfg, torch.float32), what="float32 serving")
+    print(f"  {arch}: first logits max abs diff {err:.3e} (tol 1e-4); tokens "
+          f"identical over {sum(len(t) for t in tc)} tokens (a full-prompt hit "
+          f"included); card launches {launched}")
+    return cfg, card, cpu
+
+
 def dense_card_vs_cpu_phase() -> None:
     phase("18. the reference's reduced dense configs (hd 16, float32): card (kernels) "
           "against CPU (plain versions)")
     r = np.random.default_rng(18)
     for arch in ("qwen2-7b", "llama3-405b", "gemma2-27b"):
-        cfg = get_config(arch, reduced=True).replace(attn_impl="pallas")
-        cpu = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-        card = tf.build(cfg, "cuda")
-        card.load_state_dict(cpu.state_dict())
-        err = dense_first_logits(
-            cfg, card, cpu, torch.from_numpy(r.integers(1, cfg.vocab_size, size=(1, 48))))
-        if err > 1e-4:
-            raise AssertionError(f"{arch}: first logits differ by {err:.3e} > 1e-4")
-        prompts = [r.integers(1, cfg.vocab_size, size=n).astype(np.int32)
-                   for n in (7, 40, 23, 64)]
-        reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts + [prompts[1]]]
-        kw = dict(max_slots=4, max_seq=128, block_size=16, prompt_granule=16,
-                  prefill_chunk=32)
-        kernels.reset_launch_counts()
-        card_eng = ServeEngine(cfg, card, device="cuda", **kw)
-        out_card = card_eng.generate(reqs)
-        launched = kernels.launch_counts()
-        out_cpu = ServeEngine(cfg, cpu, device="cpu", **kw).generate(reqs)
-        tc = [o.tokens.tolist() for o in out_card]
-        if tc != [o.tokens.tolist() for o in out_cpu]:
-            raise AssertionError(f"{arch}: card and CPU tokens differ")
-        st = card_eng.stats
-        want_chunk = st.prefill_chunks * cfg.num_layers
-        want_dec = st.steps * cfg.repeats * len(tf.paged_positions(cfg))
-        if (launched["chunk_attention"], launched["paged_decode_attention"]) != \
-                (want_chunk, want_dec) or st.shared_prefill_hits != 1:
-            raise AssertionError(f"{arch}: launches {launched}, expected {want_chunk} "
-                                 f"chunk and {want_dec} decode; hits {st.shared_prefill_hits}")
-        attn_routes(launched, plan_of(cfg, torch.float32), what="float32 serving")
-        print(f"  {arch}: first logits max abs diff {err:.3e} (tol 1e-4); tokens "
-              f"identical over {sum(len(t) for t in tc)} tokens (a full-prompt hit "
-              f"included); card launches {launched}")
+        reduced_serve_card_vs_cpu(arch, r)
     # internvl2: prefill_step then lockstep decode on the dense cache
     cfg = get_config("internvl2-1b", reduced=True).replace(attn_impl="pallas")
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
@@ -3807,6 +3929,346 @@ def dense_card_vs_cpu_phase() -> None:
           f"launches {launched}")
     print("  gemma2-27b (reduced: window 8 of S 64, softcaps 50 / 30) trains:")
     lm_train_card_vs_cpu(get_config("gemma2-27b", reduced=True).replace(attn_impl="pallas"))
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MoE family at full width
+# ---------------------------------------------------------------------------
+
+DBRX_SERVE_LAYERS, KIMI_SERVE_LAYERS, DBRX_TRAIN_LAYERS, MOE_TRAIN_STEPS = 8, 2, 1, 6
+MOE_TOKENS = 256  # phase 19d's tokens
+
+
+@contextlib.contextmanager
+def moe_drop_tally(params):
+    """Each MoE layer's drops counted apart for prefill chunks and decode
+    steps: yields ``{"prefill": [stats per layer], "decode": [...]}``, the
+    per-layer ``MoE.stats`` dicts the wrapped ``tf.prefill_chunk`` and
+    ``tf.decode_step`` switch to before each call."""
+    layers = [blk.ffn for blk in params.blocks]
+    tally = {"prefill": [{} for _ in layers], "decode": [{} for _ in layers]}
+    orig_decode, orig_chunk = tf.decode_step, tf.prefill_chunk
+
+    def counting(kind, fn):
+        def call(*a, **kw):
+            for layer, st in zip(layers, tally[kind]):
+                layer.stats = st
+            return fn(*a, **kw)
+        return call
+
+    tf.decode_step = counting("decode", orig_decode)
+    tf.prefill_chunk = counting("prefill", orig_chunk)
+    try:
+        yield tally
+    finally:
+        tf.decode_step, tf.prefill_chunk = orig_decode, orig_chunk
+        for layer in layers:
+            layer.stats = None
+
+
+def moe_shares(stats: list[dict], top_k: int) -> tuple[list[float], list[float]]:
+    """Per layer: the share of assignments the capacity dropped, and the
+    share of tokens whose first expert is their group's commonest first
+    expert.  A layer that counted nothing raises."""
+    if not all(stats):
+        raise AssertionError(f"a MoE layer counted no call: {stats}")
+    return ([int(st["dropped"]) / st["assignments"] for st in stats],
+            [int(st["first_top"]) * top_k / st["assignments"] for st in stats])
+
+
+def weight_bytes(params, skip=("embed",)) -> int:
+    return sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+               if not n.startswith(skip))
+
+
+def moe_serve_phase(cfg, label: str, pool_bytes: int) -> dict:
+    """19a/b: ``cfg`` served on phase 4's trace and engine settings with a
+    pool of ``pool_bytes``; one chunk launch per layer per prefill chunk,
+    one paged decode launch per layer per decode step; the capacity's drop
+    share per layer in prefill and decode; the peak beside the reckoning
+    (weights and pool); the decode step beside the HBM floor of the
+    capacity form, which reads every expert's weights each step."""
+    cfg = cfg.replace(attn_impl="pallas")
+    print(f"  ({label}) {cfg.name} at full width, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of hd "
+          f"{cfg.resolved_head_dim} (n_rep {cfg.num_heads // cfg.num_kv_heads}), "
+          f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top {cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor:g}, bf16:")
+    params, w_gib = init_timed(cfg)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    block_bytes = 2 * cfg.num_layers * 16 * kv * hd * 2
+    reqs = slice_requests(cfg.vocab_size)
+    with moe_drop_tally(params) as tally:
+        out = serve_checked(cfg, params, reqs, max_slots=8, max_seq=2048, block_size=16,
+                            prompt_granule=16, prefill_chunk=256, prefix_sharing=True,
+                            pool_blocks=pool_bytes // block_bytes)
+        shares = {k: moe_shares(v, cfg.top_k) for k, v in tally.items()}
+    if out["engine"].stats.shared_blocks == 0:
+        raise AssertionError("the shared prefix was not adopted")
+    times = serve_report(out, cfg, reqs, per_chunk=cfg.num_layers, per_step=cfg.num_layers)
+    for kind, (dropped, first) in shares.items():
+        print(f"  capacity drops in {kind} (factor {cfg.capacity_factor:g}), per layer: "
+              + ", ".join(f"{100 * x:.2f}%" for x in dropped))
+        print(f"  tokens on their group's commonest first expert in {kind}, per layer: "
+              + ", ".join(f"{100 * x:.2f}%" for x in first)
+              + f" (1 / E = {100 / cfg.num_experts:.2f}%)")
+    experts = sum(nbytes(blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_out) for blk in params.blocks)
+    floor_ms = 1e3 * weight_bytes(params) / PEAK_BYTES
+    print(f"  the capacity form reads every expert each step: {experts / 1e9:.2f} GB of "
+          f"experts ({experts / cfg.num_layers / 1e9:.2f} GB a layer), "
+          f"{1e3 * experts / PEAK_BYTES:.2f} ms of HBM; every weight but the embedding "
+          f"{floor_ms:.2f} ms: the decode step's floor, beside its median "
+          f"{times['decode_ms']:.2f} ms")
+    reckon = w_gib + pool_gib(out["engine"])
+    print(f"  memory reckoned: weights {w_gib:.2f} + pool {pool_gib(out['engine']):.2f} = "
+          f"{reckon:.2f} GiB; measured peak {out['peak']:.2f} GiB")
+    counts = out["counts"]
+    del out, params
+    free()
+    return {"counts": counts, "floor_ms": floor_ms, **times}
+
+
+def moe_train_phase() -> dict:
+    """19c: dbrx-132b widths at 1 of its 40 layers, S 4096, micro batch 1,
+    remat, ``for_lm(moe_groups=1)`` on the moment tier, sgd with momentum
+    0.9, a DiveBatch program (m0 2, m_max 4), 6 steps: finite losses, each
+    step's ce_loss and moe_aux, exactly 2 chunk, 1 dq and 1 dk/dv launches
+    per microbatch on the tensor cores; model FLOP/s (6 N_active S plus
+    attention); the peak beside the reckoning."""
+    cfg = DBRX.replace(num_layers=DBRX_TRAIN_LAYERS, attn_impl="pallas")
+    print(f"  (c) {cfg.name} widths at {cfg.num_layers} of 40 layers, S {MOE_TRAIN_SEQ}, "
+          f"bf16, remat, micro batch 1, for_lm(moe_groups=1):")
+    params, _ = init_timed(cfg)
+    n = sum(p.numel() for p in params.parameters())
+    blk = params.blocks[0]
+    expert = sum(getattr(blk.ffn, k).numel() for k in ("w_gate", "w_up", "w_out"))
+    # the products a token runs: attention, the router, top_k of E experts, the head
+    n_active = (n - params.embed.weight.numel() - expert * cfg.num_layers
+                + expert * cfg.num_layers * cfg.top_k // cfg.num_experts)
+    largest = max(p.numel() for p in params.parameters())
+    program = train_lm.make_program("divebatch", m0=2, m_max=4, delta=0.5, granule=1,
+                                    lr=0.02, tick_every=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=MOE_TRAIN_STEPS, seq_len=MOE_TRAIN_SEQ,
+                         micro_batch=1, attn_impl="pallas", moe_groups=1,
+                         log=lambda line: None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launch_counts()
+    recs = out["records"]
+    for rec in recs:
+        tick = (f"; tick: Delta {rec['diversity']:.6f}, batch {rec['batch']} -> "
+                f"{rec['next_batch']}" if "diversity" in rec else "")
+        print(f"    step {rec['step']}: batch {rec['batch']} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, ce_loss {rec['ce_loss']:.5f}, "
+              f"moe_aux {rec['moe_aux']:.5f}, {1e3 * rec['seconds']:.1f} ms{tick}")
+    if not all(np.isfinite([rec[k] for rec in recs for k in ("loss", "ce_loss", "moe_aux")])):
+        raise AssertionError(f"non-finite loss: {recs}")
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers = cfg.num_layers
+    want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+            "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="training")
+    s, hd, h = MOE_TRAIN_SEQ, cfg.resolved_head_dim, cfg.num_heads
+    per_seq = 6 * n_active * s + 12 * hd * h * layers * s * (s + 1) // 2
+    steady = recs[1:]
+    secs = [x["seconds"] for x in steady]
+    flops = per_seq * sum(x["batch"] for x in steady)
+    step_ms = {m: 1e3 * statistics.median([x["seconds"] for x in steady if x["batch"] == m])
+               for m in sorted({x["batch"] for x in steady})}
+    # weights, gradients and momenta in bf16, grad_sum and the microbatch
+    # accumulator in float32; sgd's update forms the largest tensor's
+    # float32 momentum copy and its product (8 bytes an element)
+    reckon = (14 * n + 8 * largest) / 2**30
+    print(f"  launches {counts} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+          f"microbatches), attention routes {attention_routes()}; step ms by batch "
+          f"(median, steps 2-{MOE_TRAIN_STEPS}) " + ", ".join(
+              f"{m}: {v:.1f}" for m, v in step_ms.items())
+          + f"; {sum(x['batch'] * s for x in steady) / sum(secs):.1f} tokens/s; "
+          f"{per_seq:.4e} model FLOP a sequence ({n_active / 1e9:.3f} B active of "
+          f"{n / 1e9:.3f} B); {flops / sum(secs) / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / sum(secs) / PEAK_BF16:.1f}% of 989")
+    print(f"  memory reckoned: 14 B x {n / 1e9:.3f} B parameters + 8 B x {largest / 1e9:.3f} B "
+          f"(the largest tensor's float32 update) = {reckon:.2f} GiB; measured peak "
+          f"{peak:.2f} GiB")
+    del out, params
+    free()
+    return {"counts": counts, "step_ms": step_ms, "peak": peak}
+
+
+def moe_kept_plain(layer, x, top_k: int, factor: float) -> tuple[torch.Tensor, int]:
+    """The MoE layer's output as a plain loop: routing by ``torch.topk``
+    (float32 softmax, renormalised), then expert by expert its assignments
+    in token order, the first C kept, each token's weighted outputs summed
+    in float32.  Returns (output, dropped assignments)."""
+    t = x.shape[0]
+    num_e = layer.w_gate.shape[0]
+    probs = torch.softmax(x.float() @ layer.router.weight.float().t(), dim=-1)
+    w, ex = torch.topk(probs, top_k, dim=-1)
+    w = w / w.sum(-1, keepdim=True)
+    cap = max(int(t * top_k * factor / num_e) + 1, 4)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    kept = 0
+    for e in range(num_e):
+        tok, j = (ex == e).nonzero(as_tuple=True)
+        tok, j = tok[:cap], j[:cap]
+        if tok.numel() == 0:
+            continue
+        xe = x[tok]
+        h = F.silu(xe @ layer.w_gate[e]) * (xe @ layer.w_up[e])
+        y.index_add_(0, tok, (h @ layer.w_out[e]).float() * w[tok, j, None])
+        kept += tok.numel()
+    return y, t * top_k - kept
+
+
+def moe_layer_phase() -> None:
+    """19d: one dbrx-132b layer and one kimi-k2 layer at full width, bf16,
+    256 tokens: ``moe_apply`` at capacity E / top_k (nothing drops) against
+    ``moe_reference``, and at 1.25 against the plain loop over the kept
+    assignments, the dropped counts equal; bf16 at 2e-2 (the products run
+    at other shapes and round h at other points)."""
+    for cfg in (DBRX, KIMI):
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        layer = moe.init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts, generator=gen,
+                             device="cuda")
+        x = torch.randn(MOE_TOKENS, cfg.d_model, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, e = cfg.top_k, cfg.num_experts
+        layer.stats = {}
+        y, _ = moe.moe_apply(layer, x, top_k=k, capacity_factor=e / k)
+        if int(layer.stats["dropped"]):
+            raise AssertionError(f"{cfg.name}: {int(layer.stats['dropped'])} dropped at "
+                                 f"{e / k:g}")
+        err_ref = check(f"{cfg.name} layer vs moe_reference", y,
+                        moe.moe_reference(layer, x, top_k=k), torch.bfloat16)
+        layer.stats = {}
+        y, _ = moe.moe_apply(layer, x, top_k=k, capacity_factor=cfg.capacity_factor)
+        want, dropped = moe_kept_plain(layer, x, k, cfg.capacity_factor)
+        err_kept = check(f"{cfg.name} layer at {cfg.capacity_factor:g} vs the plain loop", y,
+                         want, torch.bfloat16)
+        if int(layer.stats["dropped"]) != dropped:
+            raise AssertionError(f"{cfg.name}: dropped {int(layer.stats['dropped'])}, plain "
+                                 f"{dropped}")
+        first = int(layer.stats["first_top"])
+        layer.stats = None
+        ms = timed_ms(lambda: moe.moe_apply(layer, x, top_k=k,
+                                            capacity_factor=cfg.capacity_factor))
+        print(f"  (d) {cfg.name} layer ({e} experts of {cfg.d_model} -> {cfg.d_ff}, top "
+              f"{k}), {MOE_TOKENS} tokens, bf16: at capacity {e / k:g} nothing dropped, max "
+              f"abs err against moe_reference {err_ref:.3e}; at {cfg.capacity_factor:g} "
+              f"{dropped} of {MOE_TOKENS * k} assignments dropped on both sides, max abs "
+              f"err against the plain loop {err_kept:.3e} (tol {TOL[torch.bfloat16]}); "
+              f"{first} of {MOE_TOKENS} tokens on the commonest first expert "
+              f"({100 * first / MOE_TOKENS:.2f}%; 1 / E = {100 / e:.2f}%); moe_apply "
+              f"{ms:.3f} ms")
+        del layer, x, y, want
+        free()
+
+
+def moe_phase() -> dict[str, dict]:
+    phase("19. the MoE family at full width (weights from a seeded generator, bf16, "
+          "attn_impl='pallas'; each model freed before the next)")
+    t0 = time.perf_counter()
+    free()
+    print(f"  live at the start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
+    dbrx = moe_serve_phase(
+        DBRX.replace(num_layers=DBRX_SERVE_LAYERS),
+        f"a, a depth cut: {DBRX_SERVE_LAYERS} of 40 layers; 40 are 245 GiB", 2 << 30)
+    kimi_cfg = KIMI.replace(num_layers=KIMI_SERVE_LAYERS)
+    with torch.device("meta"):
+        need = nbytes(*tf.Transformer(kimi_cfg, torch.bfloat16).parameters()) + (1 << 30)
+    spare = torch.cuda.mem_get_info()[0] - need
+    print(f"  kimi-k2 at {KIMI_SERVE_LAYERS} layers reckoned {need / 2**30:.2f} GiB of weights "
+          f"and pool, {spare / 2**30:.2f} GiB of the card left free")
+    if spare < 4 << 30:
+        raise AssertionError(f"kimi-k2 at {KIMI_SERVE_LAYERS} layers leaves under 4 GiB free")
+    kimi = moe_serve_phase(
+        kimi_cfg, f"b, a depth cut: {KIMI_SERVE_LAYERS} of 61 layers; 61 are 1.9 TiB", 1 << 30)
+    train = moe_train_phase()
+    moe_layer_phase()
+    print(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+    return {"dbrx-132b serving": dbrx["counts"], "kimi-k2-1t-a32b serving": kimi["counts"],
+            "dbrx-132b training": train["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the MoE family, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def moe_drops_card_vs_cpu(cfg, card, cpu, r) -> None:
+    """The loss of one batch (B 4, S 64, 2 groups of 128 tokens) at capacity
+    1.0 on both devices: within 1e-4, and every layer's dropped count above
+    0 and equal."""
+    tight = cfg.replace(capacity_factor=1.0)
+    toks = torch.from_numpy(r.integers(1, cfg.vocab_size, size=(4, 64)))
+    res = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        stats = [{} for _ in model.blocks]
+        for blk, st in zip(model.blocks, stats):
+            blk.ffn.stats = st
+        with torch.no_grad():
+            loss, m = tf.loss_fn(tight, model, {"tokens": toks.to(dev),
+                                                "targets": toks.to(dev)}, moe_groups=2)
+        for blk in model.blocks:
+            blk.ffn.stats = None
+        res[dev] = (loss.item(), m["moe_aux"].item(), [int(st["dropped"]) for st in stats])
+    (loss_c, aux_c, drop_c), (loss_h, aux_h, drop_h) = res["cuda"], res["cpu"]
+    rel = max(abs(loss_c - loss_h) / abs(loss_h), abs(aux_c - aux_h) / abs(aux_h))
+    if rel > 1e-4 or drop_c != drop_h or min(drop_c) == 0:
+        raise AssertionError(f"{cfg.name} at capacity 1.0: card {res['cuda']}, CPU "
+                             f"{res['cpu']}")
+    print(f"  {cfg.name} at capacity factor 1.0 (B 4, S 64, 2 groups): loss and moe_aux "
+          f"within {rel:.3e} relative (tol 1e-4); dropped per layer {drop_c} of "
+          f"{4 * 64 * cfg.top_k} assignments on both")
+
+
+def moe_gram_card_vs_cpu(cfg) -> None:
+    """2 gram-tier steps (probes on the attention layers, the MoE FFNs in 2
+    groups) on the card and the CPU: losses and ``sq_norm_sum`` within
+    1e-4, psgn launches on the card only."""
+    seq = 64
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = tf.build(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
+                                        granule=2, lr=0.05, tick_every=4)
+        engine = gram_engine(cfg, sgd(momentum=0.9), seq, 2, dev, moe_groups=2)
+        kernels.reset_launch_counts()
+        out = train_lm.train(cfg, model, program, steps=2, seq_len=seq, micro_batch=2,
+                             engine=engine, estimator="gram", log=lambda line: None)
+        runs[dev] = (out["state"].div_state.sq_norm_sum.item(),
+                     [x["loss"] for x in out["records"]], kernels.launch_counts())
+    (sq_c, loss_c, counts_c), (sq_h, loss_h, counts_h) = runs["cuda"], runs["cpu"]
+    rel = max([abs(sq_c - sq_h) / abs(sq_h)]
+              + [abs(a - b) / abs(b) for a, b in zip(loss_c, loss_h)])
+    psgn_launches = sum(counts_c[k] for k in ("psgn_direct", "psgn_gram", "psgn_fused"))
+    if rel > 1e-4 or psgn_launches == 0 or any(counts_h.values()):
+        raise AssertionError(f"{cfg.name} gram tier: sq_norm_sum {sq_c} / {sq_h}, losses "
+                             f"{loss_c} / {loss_h}, launches {counts_c} / {counts_h}")
+    print(f"  {cfg.name} gram tier, 2 steps: sq_norm_sum {sq_c:.6g}, losses and sq_norm_sum "
+          f"within {rel:.3e} relative (tol 1e-4); card launches {counts_c}")
+
+
+def moe_card_vs_cpu_phase() -> None:
+    phase("20. the reference's reduced MoE configs (hd 16, float32): card (kernels) "
+          "against CPU (plain versions)")
+    r = np.random.default_rng(20)
+    for arch in ("dbrx-132b", "kimi-k2-1t-a32b"):
+        cfg, card, cpu = reduced_serve_card_vs_cpu(arch, r)
+        moe_drops_card_vs_cpu(cfg, card, cpu, r)
+        print(f"  {arch} trains (moment tier, 2 groups):")
+        lm_train_card_vs_cpu(cfg, moe_groups=2)
+        moe_gram_card_vs_cpu(cfg)
+        del card, cpu
+    free()
 
 
 def main() -> int:
@@ -3851,6 +4313,8 @@ def main() -> int:
     encoder_paths["encoder dp training (ranks)"] = rank_paths["encoder dp training (ranks)"]
     dense_paths = dense_phase()
     dense_card_vs_cpu_phase()
+    moe_paths = moe_phase()
+    moe_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -3861,9 +4325,9 @@ def main() -> int:
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"]}
     # a record naming its paths counts those (the dense group's forms, phase
-    # 17), the other non-causal records the encoder's paths (phase 14), the
-    # others the rest
-    every = {**paths, **encoder_paths, **dense_paths}
+    # 17; kimi-k2's, phase 19), the other non-causal records the encoder's
+    # paths (phase 14), the others the rest
+    every = {**paths, **encoder_paths, **dense_paths, **moe_paths}
     for rec in records:
         counter = rec.pop("counter", rec["name"])
         on = encoder_paths if counter != rec["name"] else paths

@@ -1,15 +1,17 @@
 """Config registry of the port: the architectures whose paths exist.
 
-Six are ported: the dense decoders ``yi-6b`` (pure full attention, dense
+Eight are ported: the dense decoders ``yi-6b`` (pure full attention, dense
 SwiGLU), ``qwen2-7b`` (QKV bias), ``llama3-405b``, ``gemma2-27b``
 (alternating sliding-window ``attn_local`` and global ``attn`` layers, an
 attention and a final logit softcap, GELU) and ``internvl2-1b`` (an
-embedding frontend in front of a dense decoder), trained and served; and
-``hubert-xlarge`` (the encoder: non-causal attention at head dim 80, an
-embedding frontend, layer norm, a GELU MLP; encoding through
-``transformer.prefill_step`` and training, no decode).  The reference
-package's other four archs need the MoE FFN or Mamba state, which are still
-on the ROADMAP (Queue A 7), and asking for one raises.
+embedding frontend in front of a dense decoder), trained and served; the
+MoE decoders ``dbrx-132b`` (16 experts, top 4) and ``kimi-k2-1t-a32b`` (384
+experts, top 8, head dim 112), trained and served through
+``models/moe.py``; and ``hubert-xlarge`` (the encoder: non-causal attention
+at head dim 80, an embedding frontend, layer norm, a GELU MLP; encoding
+through ``transformer.prefill_step`` and training, no decode).  The
+reference package's other two archs need Mamba state, which is still on the
+ROADMAP (Queue A 7), and asking for one raises.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ _MODULES = {
     "llama3-405b": "llama3_405b",
     "gemma2-27b": "gemma2_27b",
     "internvl2-1b": "internvl2_1b",
+    "dbrx-132b": "dbrx_132b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "hubert-xlarge": "hubert_xlarge",
 }
 

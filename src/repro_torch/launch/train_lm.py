@@ -22,7 +22,10 @@ The default model is the ~20M-parameter ``lm-20m`` (float32);
 11008, vocab 64000) at N of its 32 layers, bf16 with per-layer remat, or
 with ``--arch hubert-xlarge`` the encoder's (d_model 1280, 16 heads of hd
 80, non-causal, d_ff 5120, vocab 504) at N of its 48 layers, on frame
-batches from :func:`frame_batches`.  Weights are random, from ``--seed``.
+batches from :func:`frame_batches`; any other ``--arch`` of the registry
+(the dense and the MoE decoders, ``dbrx-132b`` and ``kimi-k2-1t-a32b``
+routing each microbatch in one group) likewise at N of its layers.
+Weights are random, from ``--seed``.
 ``--profile PATH`` runs the first step unprofiled (warm-up), then the rest
 under ``torch.profiler``: a Chrome trace to PATH (write it outside the
 repository), the ops by device time, and the device's busy and idle
@@ -134,7 +137,7 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
           estimator: str = "moment", ckpt: CheckpointManager | None = None,
           state: TrainState | None = None, start_step: int = 0,
           batches: Callable[[int, int, int], dict] | None = None,
-          plan=None) -> dict:
+          plan=None, moe_groups: int = 1) -> dict:
     """Train ``params`` in place up to optimizer step ``steps``.
 
     ``batches(step, batch, seq_len)`` gives step ``step``'s global batch as
@@ -153,8 +156,10 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
     resumed run passes the restored ``state`` (holding ``params``) and
     ``start_step``: the batches are the stream's from that step on.  Returns
     ``{"records": [per-step dicts], "engine": StepEngine, "state":
-    TrainState}``; a record holds ``step, batch, num_micro, loss, seconds``
-    and, at ticks, ``diversity, gns, next_batch``.  Under a rank ``plan``
+    TrainState}``; a record holds ``step, batch, num_micro, loss, seconds``,
+    for a MoE model ``ce_loss`` and ``moe_aux`` (the default engine routes
+    each global microbatch in ``moe_groups`` groups) and, at ticks,
+    ``diversity, gns, next_batch``.  Under a rank ``plan``
     every rank calls this with the same arguments and batch stream: the
     engine steps its share and averages the gradients over the plan's dp
     group, the checkpoints are the first rank's."""
@@ -167,7 +172,7 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
     if engine is None:
         engine = StepEngine.for_lm(cfg, opt, micro_batch=micro_batch, attn_impl=attn_impl,
                                    dp_size=plan.dp_size if plan is not None else 1,
-                                   plan=plan)
+                                   moe_groups=moe_groups, plan=plan)
     group = plan.mesh.group(plan.dp) if plan is not None and plan.mesh.ranked else None
     m = program.batch_size
     records = []
@@ -179,6 +184,8 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
         loss = float(metrics["loss"])
         rec = {"step": step + 1, "batch": m, "num_micro": m // micro_batch, "loss": loss,
                "seconds": time.perf_counter() - t0}
+        if cfg.num_experts and "moe_aux" in metrics:
+            rec.update(ce_loss=float(metrics["ce_loss"]), moe_aux=float(metrics["moe_aux"]))
         if (step + 1) % program.tick_every == 0:
             sig, state = read_signals(state, estimator, reset=True, batch_size=m, loss=loss)
             program.observe(sig, Clock(epoch=step // program.tick_every, step=step + 1,

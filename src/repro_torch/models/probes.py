@@ -11,8 +11,11 @@ squared norm of each dense weight is
 
 Coverage: attention q/k/v/o and the dense FFN weights (the matrix products
 that dominate the parameter count).  Embeddings (or the embedding frontend),
-norms and the LM head are excluded, as in the reference; ``coverage(cfg)``
-reports the covered fraction.  MoE and 'mamba'
+norms, the LM head and the MoE FFNs (router and experts) are excluded, as in
+the reference; ``coverage(cfg)`` reports the covered fraction.  A MoE FFN
+runs unprobed (``models/moe.py::moe_apply`` in ``moe_groups`` groups), and
+``0.01 *`` its layers' summed aux loss joins the loss when
+``cfg.num_experts`` is set, as in ``transformer.loss_fn``.  'mamba'
 positions raise ``NotImplementedError``, as the port's transformer does.
 
 The probe forward runs the plain dense attention lane
@@ -35,6 +38,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import apply_rope, dense
+from repro_torch.models.moe import MoE, moe_apply
 
 
 def _dense_probe_names(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -91,12 +95,10 @@ def coverage(cfg: ModelConfig) -> float:
 
 
 def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
-                     batch: dict) -> tuple[torch.Tensor, dict]:
+                     batch: dict, moe_groups: int = 1) -> tuple[torch.Tensor, dict]:
     """(loss, saved dense-layer inputs ``{name: (B, S, Din)}``): the mean CE
-    of ``batch`` with each probe added to its dense layer's output."""
-    for p in range(cfg.period):
-        if cfg.d_ff > 0 and cfg.ffn_kind(p) != "dense":
-            raise tf._not_ported(cfg.ffn_kind(p))
+    of ``batch`` (plus ``0.01 * moe_aux`` with experts) with each probe added
+    to its dense layer's output."""
     acts: dict = {}
 
     def pdense(x, lin, name):
@@ -109,6 +111,7 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     hd = cfg.resolved_head_dim
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, p, blk in tf._layers(cfg, params):
         kind = cfg.pattern[p]
         base = f"l{r}p{p}"
@@ -123,7 +126,13 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
         o = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
                                softcap=cfg.attn_softcap)
         x = x + pdense(o.reshape(b, s, cfg.num_heads * hd), ap.o, f"{base}.o")
-        if blk.ffn is not None:
+        if isinstance(blk.ffn, MoE):
+            y, a = moe_apply(blk.ffn, blk.ffn_norm(x), top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor, groups=moe_groups,
+                             act=cfg.ffn_act)
+            x = x + y
+            aux = aux + a
+        elif blk.ffn is not None:
             ffn = blk.ffn
             h = blk.ffn_norm(x)
             if ffn.glu:
@@ -135,6 +144,8 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
     x = params.final_norm(x)
     loss = tf.xent_chunked(x, params.lm_head.weight, batch["targets"], cfg.xent_chunk,
                            cfg.final_softcap)
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
     return loss, acts
 
 
@@ -163,7 +174,7 @@ def probe_grads(probe_loss, params: torch.nn.Module, probes: dict, batch: dict
 
 
 def persample_sq_norms_gram(cfg: ModelConfig, params: tf.Transformer,
-                            batch: dict) -> torch.Tensor:
+                            batch: dict, moe_groups: int = 1) -> torch.Tensor:
     """(B,) per-sample gradient sq-norms over the covered dense weights.
 
     The sample is a SEQUENCE; its loss is that sequence's mean token CE.
@@ -175,7 +186,8 @@ def persample_sq_norms_gram(cfg: ModelConfig, params: tf.Transformer,
     b, s = inputs.shape[0], inputs.shape[1]
     probes = probe_specs(cfg, b, s, device=inputs.device)
     _, acts, pgrads = probe_grads(
-        lambda p, pr, mb: loss_with_probes(cfg, p, pr, mb), params, probes, batch)
+        lambda p, pr, mb: loss_with_probes(cfg, p, pr, mb, moe_groups), params, probes,
+        batch)
     total = None
     for name, x in acts.items():
         delta = pgrads[name].float() * float(b)

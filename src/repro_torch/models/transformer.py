@@ -57,9 +57,17 @@ Entry points:
   decode_step(cfg, params, cache, tokens, pages=, tables=)
   prefill_chunk(cfg, params, row, pages, batch, offset, prior_tab, write_tab)
 
-Attention mixers ('attn', 'attn_local') with a dense FFN are ported;
-'mamba' state and MoE FFNs raise ``NotImplementedError`` (ROADMAP.md, Queue
-A 7).
+MoE FFNs: ``cfg.ffn_kind(pos) == "moe"`` builds ``models/moe.py::MoE``
+(the router kept in float32 in any model type) and runs ``moe_apply`` in
+``moe_groups`` groups (``loss_fn``, ``prefill_step``, ``decode_step`` and
+``prefill_chunk`` take them; serving passes 1, as the reference's engine).
+The stack sums the layers' aux losses, and ``loss_fn`` adds ``0.01 * aux``
+when ``cfg.num_experts`` is set.  ``cfg.moe_impl == "ep"`` under a plan with
+an expert axis raises (``models/moe_ep.py``, ROADMAP.md Queue A 5); without
+a plan it takes ``moe_apply``, as the reference does.
+
+Attention mixers ('attn', 'attn_local') are ported; 'mamba' state raises
+``NotImplementedError`` (ROADMAP.md, Queue A 7).
 """
 
 from __future__ import annotations
@@ -70,13 +78,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import current_plan
 from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.moe import MoE, init_experts_, moe_apply
 from repro_torch.models.layers import ACTIVATIONS, apply_rope, dense, embed, layer_norm, rms_norm
 
 _NOT_PORTED = {
     "mamba": "the Mamba mixer and its state",
-    "moe": "the MoE FFN",
 }
 
 
@@ -145,7 +154,8 @@ class FFN(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: pre-norm attention then (optionally) a pre-norm FFN."""
+    """One layer: pre-norm attention then (optionally) a pre-norm FFN, dense
+    or MoE."""
 
     def __init__(self, cfg: ModelConfig, pos: int, dtype: torch.dtype):
         super().__init__()
@@ -156,10 +166,12 @@ class Block(nn.Module):
         self.attn = Attention(cfg, dtype)
         self.ffn_norm = self.ffn = None
         if cfg.d_ff > 0:
-            if cfg.ffn_kind(pos) != "dense":
-                raise _not_ported(cfg.ffn_kind(pos))
+            kind = cfg.ffn_kind(pos)
+            if kind not in ("dense", "moe"):
+                raise ValueError(f"unknown ffn kind {kind!r}")
             self.ffn_norm = Norm(cfg.d_model, cfg.norm_type, dtype)
-            self.ffn = FFN(cfg, dtype)
+            self.ffn = (MoE(cfg.d_model, cfg.d_ff, cfg.num_experts, dtype) if kind == "moe"
+                        else FFN(cfg, dtype))
 
 
 class Transformer(nn.Module):
@@ -196,8 +208,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device: torch.device | str = "cuda",
                 dtype: torch.dtype | None = None) -> Transformer:
     """Random weights with the reference's distributions: dense kernels
-    (the embedding frontend's too) N(0, 1/d_in), embeddings N(0, 0.02^2),
-    norm scales 1, biases 0.
+    (the embedding frontend's and the float32 MoE router's too) N(0,
+    1/d_in), MoE ``w_gate``/``w_up`` N(0, 1/d_model) and ``w_out`` N(0,
+    1/d_ff), embeddings N(0, 0.02^2), norm scales 1, biases 0.
 
     ``generator`` must live on ``device`` (default: a fresh one seeded 0);
     ``dtype`` defaults to ``cfg.param_dtype``.  The numbers differ from the
@@ -216,6 +229,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             mod.weight.normal_(0.0, 0.02, generator=generator)
         elif isinstance(mod, Norm):
             mod.scale.fill_(1.0)
+        elif isinstance(mod, MoE):
+            init_experts_(mod, generator)
     return model
 
 
@@ -261,26 +276,32 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
 
 
 def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """One layer: pre-norm attention, then the pre-norm dense FFN (MoE FFNs,
-    and their aux loss, are not ported)."""
+                 positions: torch.Tensor, moe_groups: int
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer: pre-norm attention, then the pre-norm FFN; ``(x, the
+    layer's MoE aux loss)`` (None without a MoE FFN)."""
     x = x + _attn_sublayer(cfg, blk.attn, blk.norm(x), kind, positions)
-    return _ffn(blk, x)
+    return _ffn(cfg, blk, x, moe_groups)
 
 
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
-               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every layer in order; ``(x, moe_aux)`` with the aux loss 0 (no MoE).
-    Under ``cfg.remat`` each layer is checkpointed where gradients are on:
-    only its input is kept, and the backward runs its forward again."""
+               positions: torch.Tensor, moe_groups: int = 1
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every layer in order; ``(x, moe_aux)``, the aux loss summed over the
+    layers.  Under ``cfg.remat`` each layer is checkpointed where gradients
+    are on: only its input is kept, and the backward runs its forward
+    again."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, p, blk in _layers(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
             # the forward draws no random numbers: no RNG state to replay
-            x = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
+                              moe_groups, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block_apply(cfg, cfg.pattern[p], blk, x, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block_apply(cfg, cfg.pattern[p], blk, x, positions, moe_groups)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -356,23 +377,27 @@ def xent_chunked(x: torch.Tensor, weight: torch.Tensor, targets: torch.Tensor,
     return _XentChunked.apply(x, weight, targets, chunk, softcap)
 
 
-def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict,
+def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups: int = 1,
             ) -> tuple[torch.Tensor, dict]:
     """Mean CE loss of ``batch`` ({"tokens" (B, S) int, or "embeddings" (B,
-    S, d_model); "targets" (B, S) int}) and ``{"ce_loss", "moe_aux"}``."""
+    S, d_model); "targets" (B, S) int}), plus ``0.01 * moe_aux`` when
+    ``cfg.num_experts`` is set, and ``{"ce_loss", "moe_aux"}`` (the CE alone,
+    and the aux loss summed over the layers).  The MoE FFNs route in
+    ``moe_groups`` groups of the batch's tokens."""
     x = _embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux = _run_stack(cfg, params, x, positions)
+    x, aux = _run_stack(cfg, params, x, positions, moe_groups)
     x = params.final_norm(x)
     loss = xent_chunked(x, params.lm_head.weight, batch["targets"], cfg.xent_chunk,
                         cfg.final_softcap)
-    return loss, {"ce_loss": loss, "moe_aux": aux}
-
-
+    metrics = {"ce_loss": loss, "moe_aux": aux}
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
+    return loss, metrics
 
 
 @torch.no_grad()
-def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict,
+def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups: int = 1,
                  ) -> tuple[torch.Tensor, dict]:
     """Encode a prompt, ``batch`` ``{"tokens" (B, S)}`` or ``{"embeddings"
     (B, S, d_model)}``, with no paged pool.
@@ -389,7 +414,7 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     if not cfg.causal:
-        x, _ = _run_stack(cfg, params, x, positions)
+        x, _ = _run_stack(cfg, params, x, positions, moe_groups)
         # the reference's encoder branch: no final softcap
         return dense(params.final_norm(x), params.lm_head.weight).float(), {}
     cache = init_cache(cfg, b, s, device=x.device)
@@ -404,7 +429,7 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict,
         s_c = kc.shape[1]
         kc.copy_(k[:, s - s_c:])
         vc.copy_(v[:, s - s_c:])
-        x = _ffn(blk, x)
+        x, _ = _ffn(cfg, blk, x, moe_groups)
     cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
     return _head(cfg, params, x[:, -1:, :]), cache
 
@@ -490,10 +515,24 @@ def _qkv(cfg: ModelConfig, ap: Attention, h: torch.Tensor, positions: torch.Tens
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _ffn(blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The pre-norm FFN sublayer: ``(x + ffn(norm(x)), the MoE aux loss)``
+    (None for a dense FFN or none)."""
     if blk.ffn is None:
-        return x
-    return x + blk.ffn(blk.ffn_norm(x))
+        return x, None
+    h = blk.ffn_norm(x)
+    if not isinstance(blk.ffn, MoE):
+        return x + blk.ffn(h), None
+    if cfg.moe_impl == "ep":
+        plan = current_plan()
+        if plan is not None and plan.ep:
+            raise NotImplementedError(
+                "moe_impl='ep' (models/moe_ep.py: the explicit all-to-all over the "
+                "expert axis) is not ported to repro_torch yet (ROADMAP.md, Queue A 5)")
+    y, aux = moe_apply(blk.ffn, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       groups=moe_groups, act=cfg.ffn_act)
+    return x + y, aux
 
 
 def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -506,7 +545,7 @@ def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tenso
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
-                tokens: torch.Tensor, *, pages: dict | None = None,
+                tokens: torch.Tensor, moe_groups: int = 1, *, pages: dict | None = None,
                 tables: torch.Tensor | None = None):
     """One token for every row: ``tokens`` (B, 1) int, or (B, 1, d_model)
     embeddings for an embedding-input config.
@@ -568,7 +607,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
             h = attn_lib.decode_attention(q, kc, vc, (posv + 1).clamp(max=s_c),
                                           softcap=cfg.attn_softcap, window=None)
         x = x + dense(h.reshape(b, 1, cfg.num_heads * hd), ap.o.weight)
-        x = _ffn(blk, x)
+        x, _ = _ffn(cfg, blk, x, moe_groups)
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
     logits = _head(cfg, params, x)
@@ -580,7 +619,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
 @torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
                   batch: dict, offset: int, prior_tab: torch.Tensor,
-                  write_tab: torch.Tensor):
+                  write_tab: torch.Tensor, moe_groups: int = 1):
     """One chunk of a paged, resumable prefill for a SINGLE request.
 
     The chunk's queries sit at absolute positions ``offset + arange(C)`` and
@@ -652,7 +691,7 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
             ring_k[:, keys["ring_write"]] = k[:, c - w:]
             ring_v[:, keys["ring_write"]] = v[:, c - w:]
         x = x + dense(h.reshape(1, c, cfg.num_heads * hd), ap.o.weight)
-        x = _ffn(blk, x)
+        x, _ = _ffn(cfg, blk, x, moe_groups)
     new_row = dict(row)
     new_row["len"] = row["len"] + c
     return _head(cfg, params, x[:, -1:, :]), new_row, pages

@@ -315,7 +315,7 @@ class StepEngine:
 
     @classmethod
     def for_lm(cls, cfg, optimizer: Optimizer, *, micro_batch: int | None = None,
-               dp_size: int = 1, diversity_on: bool = True,
+               dp_size: int = 1, moe_groups: int = 1, diversity_on: bool = True,
                attn_impl: str | None = None, donate: bool = True,
                plan: ShardingPlan | None = None) -> "StepEngine":
         """Engine over the transformer LM loss (the production path).
@@ -327,15 +327,18 @@ class StepEngine:
         ``cfg.attn_impl`` for the training forward ("pallas" puts
         attention, forward and backward, on the kernels).  ``dp_size`` is
         the data-parallel width, ``plan`` (default: the active plan) a rank
-        plan whose dp group the gradients are averaged over."""
+        plan whose dp group the gradients are averaged over.
+        ``moe_groups`` is the number of routing groups of a global
+        microbatch's tokens (a MoE model's FFNs; under a rank plan each rank
+        routes ``moe_groups / dp_size`` of them)."""
         if attn_impl is not None:
             cfg = cfg.replace(attn_impl=attn_impl)
         plan = plan if plan is not None else current_plan()
 
         def build(num_micro: int, tier: str | None = None) -> Callable:
             return step_lib.make_train_step(
-                cfg, optimizer, num_micro, dp_size=dp_size, plan=plan,
-                diversity_on=diversity_on,
+                cfg, optimizer, num_micro, dp_size=dp_size, moe_groups=moe_groups,
+                plan=plan, diversity_on=diversity_on,
                 **({"estimator": tier} if tier is not None else {}))
 
         eng = cls(build, lm_bucket_of(micro_batch), donate=donate)

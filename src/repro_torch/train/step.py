@@ -39,6 +39,13 @@ type, before it reaches the accumulator and the moment tier's ``||m
 g_j||^2`` (which needs the global microbatch's gradient); the exact and
 gram tiers reduce their scalar ``sq_sum`` once a step and the gradient once
 a step, as does a step with ``diversity_on=False``.
+
+MoE models (``moe_groups``): the LM loss routes each microbatch's tokens in
+``moe_groups`` groups.  Under a rank plan a rank holds ``1/dp`` of each
+microbatch, a whole number of the reference's groups when ``dp`` divides
+``moe_groups``, so it routes ``moe_groups / dp`` groups of its share: the
+reference's grouping of the global microbatch.  Other values are refused
+(routing across ranks would need the tokens of other ranks).
 """
 
 from __future__ import annotations
@@ -126,6 +133,7 @@ def make_train_step(
     num_micro: int,
     *,
     dp_size: int = 1,
+    moe_groups: int = 1,
     plan: ShardingPlan | None = None,
     diversity_on: bool = True,
     loss_fn: Callable | None = None,
@@ -139,10 +147,12 @@ def make_train_step(
     """Returns ``train_step(state, batch, lr) -> (state, metrics)``.
 
     ``loss_fn(params, batch) -> scalar`` defaults to the transformer LM loss
-    (``cfg`` required then).  ``batch`` holds tensors (or arrays)
+    (``cfg`` required then; its MoE FFNs route in ``moe_groups`` groups of
+    a microbatch's tokens).  ``batch`` holds tensors (or arrays)
     with a leading global-batch axis; they move to the parameters' device.
     ``metrics`` holds device scalars: ``loss`` (the mean over microbatches)
-    and ``grad_norm_sq``.
+    and ``grad_norm_sq``; on the LM loss also the means of its ``ce_loss``
+    and ``moe_aux``.
 
     ``estimator`` selects the in-step tier (see the module docstring):
     "moment" needs nothing extra; "exact" with ``psn_impl="vmap"`` needs
@@ -161,12 +171,8 @@ def make_train_step(
     a rank ``plan`` the step runs this rank's share and reduces over the
     plan's dp group (the module docstring), and ``dp_size`` must be 1 or
     the plan's."""
-    if loss_fn is None:
-        if cfg is None:
-            raise ValueError("make_train_step needs cfg or loss_fn")
-        base_loss = lambda p, b: tf.loss_fn(cfg, p, b)[0]  # noqa: E731
-    else:
-        base_loss = loss_fn
+    if loss_fn is None and cfg is None:
+        raise ValueError("make_train_step needs cfg or loss_fn")
     if diversity_on:
         psn_impl = _check_estimator(estimator, example_loss, probe_loss, probe_specs,
                                     psn_impl)
@@ -183,6 +189,20 @@ def make_train_step(
         dp_size = plan.dp_size
         positions = plan.mesh.local_positions(plan.dp)
         n_ranks = len(plan.mesh.group_ranks(plan.dp))
+    if loss_fn is None:
+        local_groups = moe_groups
+        if group is not None and cfg.num_experts:
+            if moe_groups % dp_size:
+                raise ValueError(
+                    f"moe_groups {moe_groups} does not split over the {dp_size} "
+                    f"data-parallel ranks: each rank routes whole groups of its share")
+            local_groups = moe_groups * len(positions) // dp_size
+
+        def base_loss(p, b):
+            return tf.loss_fn(cfg, p, b, moe_groups=local_groups)
+    else:
+        def base_loss(p, b):
+            return loss_fn(p, b), {}
     # the moment tier needs each global microbatch's gradient
     reduce_each = group is not None and diversity_on and estimator == "moment"
 
@@ -219,9 +239,10 @@ def make_train_step(
         grads_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         sq_sum = torch.zeros((), dtype=torch.float32, device=dev)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        extra_sum: dict = {}
         for j in range(num_micro):
             mb = {k: v[j] for k, v in micro.items()}
-            loss = base_loss(state.params, mb)
+            loss, extra = base_loss(state.params, mb)
             grads = torch.autograd.grad(loss, params)
             if reduce_each:
                 grads = all_reduce_mean(grads, group, n_ranks)
@@ -231,9 +252,11 @@ def make_train_step(
                 if diversity_on and estimator == "moment":  # ||m * g_j||^2
                     sq_sum += (micro_global * micro_global) * ptu.tree_sq_norm(grads)
                 loss_sum += loss.detach().float()
+                for k, v in extra.items():
+                    extra_sum[k] = extra_sum.get(k, 0.0) + v.detach().float()
             # the main pass's graph is gone (autograd.grad freed it): the probe
             # pass never holds activations beside it
-            del grads, loss
+            del grads, loss, extra
             if diversity_on and estimator != "moment":
                 if estimator == "exact" and psn_impl == "vmap":
                     sq_sum += _vmap_sq_norms(state.params, mb)
@@ -244,12 +267,14 @@ def make_train_step(
             if group is not None:
                 if not reduce_each:
                     grads_acc = all_reduce_mean(grads_acc, group, n_ranks)
-                # summed over the ranks: the loss, and a per-sample tier's
-                # sq_sum (the moment tier's is global already)
-                sums = all_reduce_mean([torch.stack([loss_sum, sq_sum])], group, 1)[0]
+                # summed over the ranks: the loss and its metrics, and a
+                # per-sample tier's sq_sum (the moment tier's is global already)
+                sums = all_reduce_mean([torch.stack([loss_sum, sq_sum, *extra_sum.values()])],
+                                       group, 1)[0]
                 loss_sum = sums[0] / n_ranks
                 if not reduce_each:
                     sq_sum = sums[1]
+                extra_sum = {k: sums[2 + i] / n_ranks for i, k in enumerate(extra_sum)}
             torch._foreach_div_(grads_acc, float(num_micro))
             grads = grads_acc
             if diversity_on:
@@ -262,7 +287,8 @@ def make_train_step(
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params, lr)
             apply_updates(state.params, updates)
             del updates
-            metrics = {"loss": loss_sum / num_micro, "grad_norm_sq": ptu.tree_sq_norm(grads)}
+            metrics = {"loss": loss_sum / num_micro, "grad_norm_sq": ptu.tree_sq_norm(grads),
+                       **{k: v / num_micro for k, v in extra_sum.items()}}
         state.opt_state = opt_state
         state.step += 1
         return state, metrics

@@ -126,6 +126,39 @@ def lm_probe_tiers(a: dict) -> dict:
     return out
 
 
+def lm_moe(a: dict) -> dict:
+    """3 moment-tier steps of reduced dbrx-132b at ``num_micro=2,
+    dp_size=2, moe_groups=2`` on batches of 8: each rank routes one group,
+    its share of each microbatch.  ``moe_groups=1`` (a group across the
+    ranks) is refused."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.mesh import data_plan
+    from repro_torch.interop import params_from_jax, params_to_numpy
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get_config("dbrx-132b", reduced=True)
+    plan = data_plan("cpu")
+    try:
+        make_train_step(cfg, sgd(), 2, dp_size=2, plan=plan, moe_groups=1)
+        refused = False
+    except ValueError:
+        refused = True
+    step = make_train_step(cfg, sgd(momentum=0.9), 2, dp_size=2, plan=plan, moe_groups=2)
+    state = init_state(params_from_jax(a["moe_params"], cfg), sgd(momentum=0.9))
+    stream = TokenStream(cfg.vocab_size, seed=4)
+    out = {"loss": [], "moe_aux": [], "sq_norm_sum": [], "checksum": [], "refused": refused}
+    for i in range(3):
+        state, metrics = step(state, stream.batch(i, 8, SEQ), 0.1)
+        out["loss"].append(float(metrics["loss"]))
+        out["moe_aux"].append(float(metrics["moe_aux"]))
+        out["sq_norm_sum"].append(state.div_state.sq_norm_sum.item())
+        out["checksum"].append(checksum(state.params))
+    out["params"] = params_to_numpy(state.params, cfg)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the paper's Trainer on a PodLadder whose pods are ranks
 # ---------------------------------------------------------------------------
@@ -263,5 +296,5 @@ def pod_mean(a: dict) -> dict:
     return {"mean": [t.numpy() for t in mean], "err": [t.numpy() for t in new_err[0]]}
 
 
-JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "pod": pod, "cli": cli,
-        "pod_mean": pod_mean}
+JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_moe,
+        "pod": pod, "cli": cli, "pod_mean": pod_mean}

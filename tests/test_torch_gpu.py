@@ -1416,3 +1416,101 @@ def test_resnet_on_card_matches_cpu(cuda):
     torch.testing.assert_close(
         diversity.persample_sq_norms(resnet.resnet_loss, card, on_card).cpu(),
         diversity.persample_sq_norms(resnet.resnet_loss, cpu, batch), rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN (plain products on the card; no kernel of its own)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_layer_on_card_matches_cpu(cuda, arch):
+    """The reduced config's MoE layer in float32 with identical weights, 2
+    groups of 64 tokens, at capacity 1.0 (assignments dropped) and at the
+    config's 4.0: outputs and aux within 1e-5, the dropped counts equal."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch, reduced=True)
+    cpu = moe.init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                       generator=torch.Generator().manual_seed(0), device="cpu",
+                       dtype=torch.float32)
+    card = moe.init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts, device=cuda,
+                        dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 64, cfg.d_model))
+                         .astype(np.float32))
+    for factor in (1.0, cfg.capacity_factor):
+        got, want = {}, {}
+        card.stats, cpu.stats = got, want
+        y_card, aux_card = moe.moe_apply(card, x.to(cuda), top_k=cfg.top_k,
+                                         capacity_factor=factor, groups=2)
+        y_cpu, aux_cpu = moe.moe_apply(cpu, x, top_k=cfg.top_k, capacity_factor=factor,
+                                       groups=2)
+        torch.testing.assert_close(y_card.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(aux_card.cpu(), aux_cpu, rtol=1e-5, atol=1e-5)
+        assert int(got["dropped"]) == int(want["dropped"])
+        assert int(got["first_top"]) == int(want["first_top"])
+        assert (int(want["dropped"]) > 0) == (factor == 1.0)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_full_width_moe_layer_matches_the_dense_oracle(cuda, arch):
+    """One layer at full width in bf16 (dbrx: 16 experts of 6144 -> 10752;
+    kimi-k2: 384 of 7168 -> 2048), 256 tokens, at the capacity E / top_k
+    where nothing drops: ``moe_apply`` against ``moe_reference`` within
+    bf16 rounding (2e-2: the two run their products at other shapes and
+    round h to bf16 at other points)."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    layer = moe.init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                         generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((256, cfg.d_model))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    layer.stats = {}
+    y, _ = moe.moe_apply(layer, x, top_k=cfg.top_k,
+                         capacity_factor=cfg.num_experts / cfg.top_k)
+    want = moe.moe_reference(layer, x, top_k=cfg.top_k)
+    assert int(layer.stats["dropped"]) == 0
+    _close(y, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_at_kimi_shape(cuda, dtype):
+    """kimi-k2's decode form: 64/8 heads of hd 112 (n_rep 8, n_rep * hd =
+    896), 8 slots, block 16, the table of max_seq 2048, ragged lengths and
+    two free lanes on the sentinel block."""
+    r = np.random.default_rng(112)
+    b, blk, n_max, h, kv, hd = 8, 16, 128, 64, 8, 112
+    nb = n_max * b + 1
+    pool_k = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    pool_v = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    lengths = np.asarray([1, 16, 300, 735, n_max * blk, 77, 5, 9], np.int32)
+    tables = np.zeros((b, n_max), np.int32)
+    ids = list(range(1, nb))
+    r.shuffle(ids)
+    for row, n in enumerate(lengths[:6]):
+        live = -(-int(n) // blk)
+        tables[row, :live] = ids[:live]
+        ids = ids[live:]
+    q = torch.from_numpy(r.standard_normal((b, 1, h, hd))).to(cuda, dtype)
+    args = (q, pool_k, pool_v, torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(lengths).to(cuda))
+    got = kattn.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    _close(got, ref.paged_decode_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_forward_at_kimi_serving_shape(cuda, dtype):
+    """kimi-k2's prefill form: a 256-row chunk over 768 valid prior tokens in
+    a 64-block table, 64/8 heads of hd 112, causal (bf16 on the tensor
+    cores, float32 on the FMA kernel)."""
+    r = np.random.default_rng(7)
+    args = _chunk_case(r, cuda, dtype, 1, 256, 1024, 768, 64, 8, 112)
+    kernels.reset_launch_counts()
+    got = kattn.chunk_attention(*args)
+    torch.cuda.synchronize()
+    _close(got, ref.attention_ref(*args), dtype)
+    route = "tc" if dtype == torch.bfloat16 else "fma"
+    assert kernels.route_counts()["chunk_attention"][route] == 1

@@ -160,15 +160,30 @@ def test_coverage_of_yi_6b():
 
 
 def test_moe_and_mamba_positions_raise():
+    """'mamba' positions raise naming Queue A 7.  MoE positions are ported:
+    their FFNs run unprobed, the probes sit on the attention layers only,
+    the aux term joins the loss, and coverage counts the experts in the
+    total (``tests/test_torch_moe.py`` holds them against the reference)."""
     _, cfg, _, params, _, batch = _setup({})
     pr = probes.probe_specs(cfg, B, S, device="cpu")
-    moe = cfg.replace(num_experts=4, top_k=2, ffn_pattern=("moe",))
     mamba = cfg.replace(pattern=("attn", "mamba"))
-    for bad in (moe, mamba):
-        with pytest.raises(NotImplementedError, match="Queue A 7"):
-            probes.loss_with_probes(bad, params, pr, batch)
-        with pytest.raises(NotImplementedError, match="Queue A 7"):
-            probes.coverage(bad)
+    with pytest.raises(NotImplementedError, match="Queue A 7"):
+        probes.loss_with_probes(mamba, params, pr, batch)
+    with pytest.raises(NotImplementedError, match="Queue A 7"):
+        probes.coverage(mamba)
+    moe = cfg.replace(num_experts=4, top_k=2, ffn_pattern=("moe",))
+    jmoe = JModelConfig(**TINY).replace(num_experts=4, top_k=2, ffn_pattern=("moe",))
+    jparams = jtf.init_params(jmoe, jax.random.key(1))
+    moe_params = params_from_jax(jax.tree.map(np.asarray, jparams), moe)
+    moe_pr = probes.probe_specs(moe, B, S, device="cpu")
+    assert sorted(moe_pr) == sorted(jprobes.probe_specs(jmoe, B, S))
+    assert all(n.split(".")[1] in ("q", "k", "v", "o") for n in moe_pr)
+    loss, acts = probes.loss_with_probes(moe, moe_params, moe_pr, batch)
+    want, _ = jprobes.loss_with_probes(jmoe, jparams, jprobes.probe_specs(jmoe, B, S),
+                                       {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-6)
+    assert sorted(acts) == sorted(moe_pr)
+    assert probes.coverage(moe) == jprobes.coverage(jmoe) < probes.coverage(cfg)
 
 
 def test_probe_specs_default_to_the_card():

@@ -14,7 +14,9 @@ ranks and fails.  The reference (JAX) runs in this process only.
     schedule and buckets, losses within 1e-5 relative, ``sq_norm_sum``
     within 1e-5, parameters within 1e-5 relative plus 5e-5 of each tensor's
     RMS (the one-process parity bound of ``test_torch_train.py``); the
-    replicas equal at every step (a float64 checksum per rank);
+    replicas equal at every step (a float64 checksum per rank); reduced
+    dbrx-132b at ``moe_groups=2`` (each rank routes its share of each
+    microbatch as one group) the same way, ``moe_groups=1`` refused;
   * the ``Trainer`` on a ``PodLadder(pods=2)`` whose pods are the ranks
     (4 virtual devices each) through ``run_supervised(lose_pod=...)``,
     against the same run on one process (``["cpu"] * 8``): the schedule,
@@ -144,16 +146,34 @@ def _reference_probe_tier(jparams, tier):
     return out
 
 
+def _reference_moe(jparams):
+    jcfg = jget("dbrx-132b", reduced=True)
+    step = jax.jit(jmake_train_step(jcfg, jsgd(momentum=0.9), 2, dp_size=2, moe_groups=2))
+    state = jinit_state(jparams, jsgd(momentum=0.9))
+    stream = JTokenStream(jcfg.vocab_size, seed=4)
+    out = {"loss": [], "sq_norm_sum": []}
+    for i in range(3):
+        b = {k: jax.numpy.asarray(v) for k, v in stream.batch(i, 8, ranks.SEQ).items()}
+        state, metrics = step(state, b, jax.numpy.float32(0.1))
+        out["loss"].append(float(metrics["loss"]))
+        out["sq_norm_sum"].append(float(state.div_state.sq_norm_sum))
+    out["params"] = _np_tree(state.params)
+    return out
+
+
 @pytest.fixture(scope="module")
 def lm_runs(tmp_path_factory):
     jcfg = jget("yi-6b", reduced=True)
     moment_params = jtf.init_params(jcfg, jax.random.key(2))
     probe_params = jtf.init_params(jcfg.replace(scan_layers=False), jax.random.key(5))
-    got = spawn(tmp_path_factory.mktemp("lm"), "lm_moment+lm_probe_tiers",
+    moe_params = jtf.init_params(jget("dbrx-132b", reduced=True), jax.random.key(6))
+    got = spawn(tmp_path_factory.mktemp("lm"), "lm_moment+lm_probe_tiers+lm_moe",
                 {"lm_params": _np_tree(moment_params),
-                 "probe_params": _np_tree(probe_params)})
+                 "probe_params": _np_tree(probe_params),
+                 "moe_params": _np_tree(moe_params)})
     want = {"moment": _reference_moment(moment_params),
-            **{t: _reference_probe_tier(probe_params, t) for t in ("exact", "gram")}}
+            **{t: _reference_probe_tier(probe_params, t) for t in ("exact", "gram")},
+            "moe": _reference_moe(moe_params)}
     return got, want
 
 
@@ -183,6 +203,24 @@ def test_lm_dp_on_ranks_matches_reference(lm_runs, tier):
     else:
         for g in per_rank:
             np.testing.assert_allclose(g["sq_norm_sum"], w["sq_norm_sum"], rtol=1e-5)
+
+
+def test_lm_moe_groups_on_ranks_match_reference(lm_runs):
+    """Reduced dbrx-132b, ``moe_groups=2`` over 2 ranks against the
+    reference's ``make_train_step(dp_size=2, moe_groups=2)``: losses,
+    ``sq_norm_sum`` and parameters within the bounds above, the replicas
+    and their ``moe_aux`` equal; ``moe_groups=1`` refused on the ranks."""
+    got, want = lm_runs
+    per_rank = [got[r]["lm_moe"] for r in range(WORLD)]
+    w = want["moe"]
+    for g in per_rank:
+        assert g["refused"]
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5)
+        np.testing.assert_allclose(g["sq_norm_sum"], w["sq_norm_sum"], rtol=1e-5)
+        _tree_close(g["params"], w["params"])
+    assert per_rank[0]["checksum"] == per_rank[1]["checksum"]
+    assert per_rank[0]["moe_aux"] == per_rank[1]["moe_aux"]
+    assert all(np.isfinite(per_rank[0]["moe_aux"]))
 
 
 # ---------------------------------------------------------------------------
