@@ -325,7 +325,39 @@ MB L2.
      layer's dropped count above 0 and equal on both; 6 moment-tier
      DiveBatch steps in 2 groups, losses, ``moe_aux`` and parameters
      within 1e-4, one schedule; 2 gram-tier steps with probes on the
-     attention layers, losses and ``sq_norm_sum`` within 1e-4.
+     attention layers, losses and ``sq_norm_sum`` within 1e-4 relative,
+     parameters within 1e-4;
+ 21. the Mamba family at full width, weights from a seeded generator, bf16,
+     each model freed before the next (the Mamba mixer is
+     ``models/ssm.py``: the projections, the convolution and a log-depth
+     doubling scan in plain PyTorch, as the reference runs them in XLA):
+     (a) falcon-mamba-7b at all 64 layers (7.27 B parameters, 13.56 GiB)
+     served through ``ServeEngine`` (4 slots, max_seq 16384, block 16,
+     prefill chunk 256) on 5 greedy requests of 32 new tokens: one prompt
+     of 8192 tokens, three of 64-700 and a repeat of one (a full-prompt
+     hit replaying its cached Mamba states); no kernel launch (no
+     attention); decode step and chunk ms beside the HBM floor, a slot's
+     36.70 MB of state beside a dense KV cache of the long context, the
+     scan's share of a chunk, the peak beside its reckoning; (b)
+     falcon-mamba widths **cut to 4 of 64 layers**, S 4096, micro batch 2,
+     remat (each layer and each scan chunk checkpointed), ``for_lm`` on the
+     moment tier, DiveBatch (m0 2, m_max 4, granule 2), 4 steps: finite losses, step
+     ms, model FLOP/s (6 x the products' parameters x tokens), the scan's
+     share of a step, the peak beside its reckoning; (c) jamba-v0.1-52b
+     **cut to 8 of 32 layers** (one period: 13.30 B parameters, 24.77 GiB;
+     96 GiB at full depth) on phase 4's trace and engine: one chunk launch
+     per prefill chunk and one paged decode per decode step (its attention
+     layer, 32/8 heads, n_rep 4), decode step and chunk ms, the drop share
+     per MoE layer, the peak beside its reckoning;
+ 22. the reference's reduced Mamba configs (float32) on the card against
+     the CPU: falcon-mamba-7b and jamba-v0.1-52b each serve phase 18's
+     trace (first logits within 1e-4, tokens identical, a full-prompt hit;
+     jamba's chunk and decode on the FMA kernels at hd 16); 6 moment-tier
+     DiveBatch steps each (jamba's MoE in 2 groups, its attention on the
+     FMA forward, dq and dk/dv), losses and parameters within 1e-4, one
+     schedule; jamba's 2 gram-tier steps (probes on the attention and
+     dense-FFN layers), losses, ``sq_norm_sum`` and parameters within
+     1e-4.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -336,12 +368,16 @@ paged decode at dbrx-132b's 48/8 heads and at kimi-k2's 64/8 of hd 112,
 kimi-k2's serving chunk, and dbrx's training form (B 1, S 4096, 48/8
 heads: forward, dq and dk/dv on the tensor cores); records ``chunk_attention
 (kimi-k2: hd 112, n_rep 8, serving)`` and ``paged_decode_attention
-(kimi-k2: hd 112, n_rep 8)``, with SDPA's time.
+(kimi-k2: hd 112, n_rep 8)``, with SDPA's time; and the Mamba family's
+records ``chunk_attention (jamba: n_rep 4, serving)`` and
+``paged_decode_attention (jamba: n_rep 4)`` at jamba's serving shapes (32/8
+heads of hd 128).
 
 The launches of the non-causal records count phase 14's three paths and
 phase 16's hubert run (both ranks), the dense-form records the phase-17
 path they describe (gemma2's serving, llama3's serving), the kimi-k2
-records phase 19b's serving path, the other records
+records phase 19b's serving path, the jamba records phase 21c's, the
+other records
 the causal paths (phases 4, 6, 8, 10, 12, and 16's pod cell on both
 ranks).
 
@@ -390,7 +426,7 @@ from repro_torch.kernels import attention as kattn  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import data_plan  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
-from repro_torch.models import moe, probes, resnet, small  # noqa: E402
+from repro_torch.models import moe, probes, resnet, small, ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.pod import PodLadder  # noqa: E402
@@ -1707,7 +1743,7 @@ def kernels_phase() -> list[dict]:
             quant_case(name, x)
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
                *encoder_attention_records(r), *psgn_kernel_records(r), quant_kernel_record(),
-               *dense_kernel_records(r), *moe_kernel_records(r)]
+               *dense_kernel_records(r), *moe_kernel_records(r), *mamba_kernel_records(r)]
     torch.cuda.empty_cache()
     for rec in records:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
@@ -1818,25 +1854,38 @@ def serve_report(out: dict, cfg, reqs, *, per_chunk: int, per_step: int) -> dict
     if counts != want or 0 in (want["chunk_attention"], want["paged_decode_attention"]):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     attn_routes(counts, plan_of(cfg, torch.bfloat16), what="serving")
-    decode_only = [s for s, c, d in steps if c == 0 and d == 1]
-    decode_ms = 1e3 * statistics.median(decode_only)
-    chunk_ms = [1e3 * (s - (decode_ms / 1e3 if d else 0.0)) / c
-                for s, c, d in steps if c > 0]
+    decode_ms, chunk_ms, n_dec, n_chunk = step_medians(steps)
     print(f"  launches: {counts} (= {per_chunk} x {st.prefill_chunks} chunks, "
           f"{per_step} x {st.steps} decode steps, no backward); attention routes "
           f"{attention_routes()}; the last decode step's plan "
           f"{kattn.paged_decode_attention.splits} splits")
-    print(f"  decode step: median {decode_ms:.2f} ms over {len(decode_only)} "
+    print(f"  decode step: median {decode_ms:.2f} ms over {n_dec} "
           f"decode-only steps (batch bucket {st.buckets})")
-    print(f"  prefill chunk: median {statistics.median(chunk_ms):.2f} ms over "
-          f"{len(chunk_ms)} steps with chunks (decode share subtracted)")
+    print(f"  prefill chunk: median {chunk_ms:.2f} ms over "
+          f"{n_chunk} steps with chunks (decode share subtracted)")
     print(f"  end to end: {st.tokens} tokens in {out['wall']:.2f} s = "
           f"{st.tokens / out['wall']:.1f} tokens/s; prompt tokens "
           f"{sum(len(q.prompt) for q in reqs)}")
     print(f"  peak device memory: {out['peak']:.2f} GiB")
     print(f"  stats: {json.dumps(st.as_dict())}")
     print(f"  first request's tokens: {out['results'][0].tokens.tolist()[:12]} ...")
-    return {"decode_ms": decode_ms, "chunk_ms": statistics.median(chunk_ms)}
+    return {"decode_ms": decode_ms, "chunk_ms": chunk_ms}
+
+
+def step_medians(steps) -> tuple[float, float, int, int]:
+    """From ``serve_checked``'s step records: the median decode-only step
+    and the median prefill chunk (the step's decode share subtracted), in
+    ms, and their counts."""
+    decode_only = [s for s, c, d in steps if c == 0 and d == 1]
+    decode_ms = 1e3 * statistics.median(decode_only)
+    chunk_ms = [1e3 * (s - (decode_ms / 1e3 if d else 0.0)) / c for s, c, d in steps if c > 0]
+    return decode_ms, statistics.median(chunk_ms), len(decode_only), len(chunk_ms)
+
+
+def meta_bytes(cfg) -> int:
+    """The bytes of ``cfg``'s bf16 weights, counted on the meta device."""
+    with torch.device("meta"):
+        return nbytes(*tf.Transformer(cfg, torch.bfloat16).parameters())
 
 
 def full_width_phase() -> dict:
@@ -1997,22 +2046,25 @@ def train_card_vs_cpu_phase() -> None:
         lm_train_card_vs_cpu(cfg)
 
 
-def lm_train_card_vs_cpu(cfg, moe_groups: int = 1) -> None:
-    """6 DiveBatch steps of ``cfg`` (float32) on the card and on the CPU from
+def lm_train_card_vs_cpu(cfg, moe_groups: int = 1, lr: float = 0.05) -> None:
+    """6 DiveBatch steps of ``cfg`` (float32) at ``lr`` on the card and on the CPU from
     identical weights: losses (and a MoE model's ``moe_aux``, routed in
-    ``moe_groups`` groups) and parameters within 1e-4, one schedule."""
+    ``moe_groups`` groups) and parameters within 1e-4, one schedule; the
+    attention kernels launched on the card (none for an attention-free
+    model), none on the CPU."""
+    has_attn = any(kind != "mamba" for kind in cfg.pattern)
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     card = tf.build(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
     runs = {}
     for dev, model in (("cuda", card), ("cpu", cpu)):
         program = train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
-                                        granule=2, lr=0.05, tick_every=2)
+                                        granule=2, lr=lr, tick_every=2)
         kernels.reset_launch_counts()
         out = train_lm.train(cfg, model, program, steps=6, seq_len=64, micro_batch=2,
                              attn_impl="pallas", moe_groups=moe_groups, log=lambda line: None)
         runs[dev] = (out, kernels.launch_counts())
-        if dev == "cuda":
+        if dev == "cuda" and has_attn:
             attn_routes(runs[dev][1], plan_of(cfg, torch.float32), what="float32 training")
     (card_out, card_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
     losses = {d: np.array([x["loss"] for x in o["records"]]) for d, (o, _) in runs.items()}
@@ -2033,8 +2085,8 @@ def lm_train_card_vs_cpu(cfg, moe_groups: int = 1) -> None:
     buckets = {d: o["engine"].stats.buckets for d, (o, _) in runs.items()}
     if sched["cuda"] != sched["cpu"] or buckets["cuda"] != buckets["cpu"]:
         raise AssertionError(f"batch schedules {sched} / buckets {buckets} differ")
-    if any(card_counts[k] == 0 for k in ("chunk_attention", "flash_dq", "flash_dkv")) \
-            or any(cpu_counts.values()):
+    if any((card_counts[k] == 0) == has_attn
+           for k in ("chunk_attention", "flash_dq", "flash_dkv")) or any(cpu_counts.values()):
         raise AssertionError(f"launches: card {card_counts}, CPU {cpu_counts}")
     aux_line = (f"moe_aux ({moe_groups} groups) within {aux_rel:.3e} relative (tol 1e-4), "
                 if aux_rel is not None else "")
@@ -3857,9 +3909,9 @@ def reduced_serve_card_vs_cpu(arch: str, r):
     """The reference's reduced ``arch`` (float32) with identical weights on
     the card and the CPU: a whole-prompt chunk's first logits within 1e-4,
     then one greedy trace with a full-prompt hit through ``ServeEngine``,
-    tokens identical, one chunk launch per layer per prefill chunk and one
-    paged decode per global layer per decode step.  Returns the config and
-    both models."""
+    tokens identical, one chunk launch per attention layer per prefill
+    chunk and one paged decode per global layer per decode step (none for
+    an attention-free model).  Returns the config and both models."""
     cfg = get_config(arch, reduced=True).replace(attn_impl="pallas")
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     card = tf.build(cfg, "cuda")
@@ -3882,13 +3934,15 @@ def reduced_serve_card_vs_cpu(arch: str, r):
     if tc != [o.tokens.tolist() for o in out_cpu]:
         raise AssertionError(f"{arch}: card and CPU tokens differ")
     st = card_eng.stats
-    want_chunk = st.prefill_chunks * cfg.num_layers
+    n_attn = cfg.repeats * sum(kind != "mamba" for kind in cfg.pattern)
+    want_chunk = st.prefill_chunks * n_attn
     want_dec = st.steps * cfg.repeats * len(tf.paged_positions(cfg))
     if (launched["chunk_attention"], launched["paged_decode_attention"]) != \
             (want_chunk, want_dec) or st.shared_prefill_hits != 1:
         raise AssertionError(f"{arch}: launches {launched}, expected {want_chunk} "
                              f"chunk and {want_dec} decode; hits {st.shared_prefill_hits}")
-    attn_routes(launched, plan_of(cfg, torch.float32), what="float32 serving")
+    if n_attn:
+        attn_routes(launched, plan_of(cfg, torch.float32), what="float32 serving")
     print(f"  {arch}: first logits max abs diff {err:.3e} (tol 1e-4); tokens "
           f"identical over {sum(len(t) for t in tc)} tokens (a full-prompt hit "
           f"included); card launches {launched}")
@@ -3944,8 +3998,9 @@ def moe_drop_tally(params):
     """Each MoE layer's drops counted apart for prefill chunks and decode
     steps: yields ``{"prefill": [stats per layer], "decode": [...]}``, the
     per-layer ``MoE.stats`` dicts the wrapped ``tf.prefill_chunk`` and
-    ``tf.decode_step`` switch to before each call."""
-    layers = [blk.ffn for blk in params.blocks]
+    ``tf.decode_step`` switch to before each call (a hybrid's dense FFNs
+    count nothing)."""
+    layers = [blk.ffn for blk in params.blocks if isinstance(blk.ffn, moe.MoE)]
     tally = {"prefill": [{} for _ in layers], "decode": [{} for _ in layers]}
     orig_decode, orig_chunk = tf.decode_step, tf.prefill_chunk
 
@@ -4180,8 +4235,7 @@ def moe_phase() -> dict[str, dict]:
         DBRX.replace(num_layers=DBRX_SERVE_LAYERS),
         f"a, a depth cut: {DBRX_SERVE_LAYERS} of 40 layers; 40 are 245 GiB", 2 << 30)
     kimi_cfg = KIMI.replace(num_layers=KIMI_SERVE_LAYERS)
-    with torch.device("meta"):
-        need = nbytes(*tf.Transformer(kimi_cfg, torch.bfloat16).parameters()) + (1 << 30)
+    need = meta_bytes(kimi_cfg) + (1 << 30)
     spare = torch.cuda.mem_get_info()[0] - need
     print(f"  kimi-k2 at {KIMI_SERVE_LAYERS} layers reckoned {need / 2**30:.2f} GiB of weights "
           f"and pool, {spare / 2**30:.2f} GiB of the card left free")
@@ -4229,9 +4283,10 @@ def moe_drops_card_vs_cpu(cfg, card, cpu, r) -> None:
 
 
 def moe_gram_card_vs_cpu(cfg) -> None:
-    """2 gram-tier steps (probes on the attention layers, the MoE FFNs in 2
-    groups) on the card and the CPU: losses and ``sq_norm_sum`` within
-    1e-4, psgn launches on the card only."""
+    """2 gram-tier steps (probes on the attention layers and the dense FFNs,
+    the MoE FFNs in 2 groups) on the card and the CPU: losses and
+    ``sq_norm_sum`` within 1e-4 relative, parameters within 1e-4, psgn
+    launches on the card only."""
     seq = 64
     cpu = tf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
     card = tf.build(cfg, "cuda")
@@ -4249,12 +4304,16 @@ def moe_gram_card_vs_cpu(cfg) -> None:
     (sq_c, loss_c, counts_c), (sq_h, loss_h, counts_h) = runs["cuda"], runs["cpu"]
     rel = max([abs(sq_c - sq_h) / abs(sq_h)]
               + [abs(a - b) / abs(b) for a, b in zip(loss_c, loss_h)])
+    err = max((a.detach().cpu() - b.detach()).abs().max().item()
+              for a, b in zip(card.parameters(), cpu.parameters()))
     psgn_launches = sum(counts_c[k] for k in ("psgn_direct", "psgn_gram", "psgn_fused"))
-    if rel > 1e-4 or psgn_launches == 0 or any(counts_h.values()):
+    if rel > 1e-4 or err > 1e-4 or psgn_launches == 0 or any(counts_h.values()):
         raise AssertionError(f"{cfg.name} gram tier: sq_norm_sum {sq_c} / {sq_h}, losses "
-                             f"{loss_c} / {loss_h}, launches {counts_c} / {counts_h}")
+                             f"{loss_c} / {loss_h}, parameters within {err:.3e}, launches "
+                             f"{counts_c} / {counts_h}")
     print(f"  {cfg.name} gram tier, 2 steps: sq_norm_sum {sq_c:.6g}, losses and sq_norm_sum "
-          f"within {rel:.3e} relative (tol 1e-4); card launches {counts_c}")
+          f"within {rel:.3e} relative (tol 1e-4), parameters within {err:.3e} (tol 1e-4); "
+          f"card launches {counts_c}")
 
 
 def moe_card_vs_cpu_phase() -> None:
@@ -4268,6 +4327,298 @@ def moe_card_vs_cpu_phase() -> None:
         lm_train_card_vs_cpu(cfg, moe_groups=2)
         moe_gram_card_vs_cpu(cfg)
         del card, cpu
+    free()
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the Mamba family at full width
+# ---------------------------------------------------------------------------
+
+FALCON = get_config("falcon-mamba-7b")
+JAMBA = get_config("jamba-v0.1-52b")
+# 21a's long prompt (tokens), 21b's cut and run, 21c's depth (one period)
+FALCON_PROMPT = 8192
+FALCON_TRAIN_LAYERS, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 4, 4096, 4
+JAMBA_SERVE_LAYERS = 8
+
+
+def mamba_kernel_records(r) -> list[dict]:
+    """Rows 1e and 4d: the chunk forward and paged decode at jamba's serving
+    shapes (32/8 heads of hd 128, n_rep 4: its one attention layer a
+    period), their launches counted on phase 21c's serving path."""
+    path = {"paths": ["jamba-v0.1-52b serving"]}
+    return [chunk_kernel_record(r, JAMBA, "jamba's serving shape", counter="chunk_attention",
+                                name="chunk_attention (jamba: n_rep 4, serving)", **path),
+            decode_kernel_record(r, JAMBA, "jamba's serving shape",
+                                 counter="paged_decode_attention",
+                                 name="paged_decode_attention (jamba: n_rep 4)", **path)]
+
+
+def mamba_state_bytes(cfg) -> int:
+    """One slot's decode state: per Mamba layer a float32 (d_inner, d_state)
+    ``h`` and a (K-1, d_inner) conv tail in the compute type."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    layers = cfg.repeats * sum(kind == "mamba" for kind in cfg.pattern)
+    return layers * (d_inner * cfg.ssm_state * 4 + (cfg.ssm_conv - 1) * d_inner * 2)
+
+
+def scan_args(layer, x: torch.Tensor) -> list[torch.Tensor]:
+    """The inputs of ``ssm.mamba_apply(layer, x)``'s chunk steps (no
+    state): h0, dt, B, C and x after the convolution."""
+    _, _, xi, dt, bmat, cmat = ssm._inputs(layer, x)
+    d_inner, d_state = layer.A_log.shape
+    h0 = torch.zeros((x.shape[0], d_inner, d_state), dtype=torch.float32, device=x.device)
+    return [h0, dt, bmat, cmat, xi]
+
+
+def falcon_requests(vocab: int, seed: int = 21) -> list[Request]:
+    """5 greedy requests of 32 new tokens: one prompt of ``FALCON_PROMPT``
+    tokens (32 chunks of 256), three of 64-700, and a repeat of the 700 one,
+    last (a full-prompt hit replaying its cached Mamba states)."""
+    r = np.random.default_rng(seed)
+    reqs = [r.integers(1, vocab, size=n) for n in (FALCON_PROMPT, 64, 333, 700)]
+    reqs.append(reqs[-1].copy())
+    return [Request(prompt=p.astype(np.int32), max_new_tokens=32) for p in reqs]
+
+
+def falcon_serve_phase() -> dict:
+    """21a: falcon-mamba-7b at all 64 layers served through ``ServeEngine``
+    (4 slots, max_seq 16384, block 16, prefill chunk 256) on
+    ``falcon_requests``: no kernel launch (no attention; the pool holds
+    nothing), every request finished, the full-prompt hit taken; decode
+    step and chunk ms beside the HBM floor; one slot's state beside a dense
+    KV cache of the long context; the scan's share of a chunk; the peak
+    beside its reckoning."""
+    cfg = FALCON
+    state = mamba_state_bytes(cfg)
+    w_bytes = meta_bytes(cfg)
+    slots = 4
+    # weights; the per-slot states, the prefill rows and the cached prompt
+    # rows (5 requests); one chunk's scan (a_bar, bx, the scan's two
+    # tensors and two temporaries, float32, at C 256)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    transient = 6 * 256 * d_inner * cfg.ssm_state * 4
+    reckon = (w_bytes + (slots + 2 * 5) * state + transient) / 2**30
+    print(f"  (a) {cfg.name} at full depth, {cfg.num_layers} Mamba layers, d_model "
+          f"{cfg.d_model}, d_inner {d_inner}, d_state {cfg.ssm_state}, dt_rank {cfg.dt_rank}, "
+          f"no attention and no FFN, bf16; reckoned: weights {w_bytes / 2**30:.2f} GiB, a "
+          f"slot's state {state / 1e6:.2f} MB, one chunk's scan {transient / 2**30:.2f} GiB; "
+          f"{reckon:.2f} GiB in all")
+    params, w_gib = init_timed(cfg)
+    reqs = falcon_requests(cfg.vocab_size)
+    out = serve_checked(cfg, params, reqs, max_slots=slots, max_seq=16384, block_size=16,
+                        prompt_granule=16, prefill_chunk=256, prefix_sharing=True)
+    st, counts = out["engine"].stats, out["counts"]
+    if any(counts.values()) or st.shared_prefill_hits != 1:
+        raise AssertionError(f"falcon-mamba: launches {counts} (expected none), "
+                             f"{st.shared_prefill_hits} full-prompt hits (expected 1)")
+    decode_ms, chunk_ms, n_dec, n_chunk = step_medians(out["steps"])
+    floor_ms = 1e3 * weight_bytes(params) / PEAK_BYTES
+    ctx = FALCON_PROMPT + 32
+    dense_kv = 2 * cfg.num_layers * ctx * cfg.d_model * 2
+    print(f"  launches {counts} (no attention); {st.prefill_chunks} chunks, {st.steps} "
+          f"decode steps, {st.shared_prefill_hits} full-prompt hit")
+    print(f"  decode step: median {decode_ms:.2f} ms over {n_dec} decode-only steps (buckets "
+          f"{st.buckets}); every weight but the embedding {floor_ms:.2f} ms of HBM: the floor")
+    print(f"  prefill chunk: median {chunk_ms:.2f} ms over {n_chunk} steps with chunks (decode "
+          f"share subtracted); end to end {st.tokens} tokens in {out['wall']:.2f} s")
+    print(f"  a slot's state: {state / 1e6:.2f} MB at any context; a dense MHA KV cache of "
+          f"the same depth and width (k and v, bf16) over the long request's {ctx} tokens: "
+          f"{dense_kv / 1e9:.2f} GB ({dense_kv / state:.0f}x)")
+    # the scan's share of a chunk: one layer's mamba_apply at C 256 against
+    # its chunk step alone (the rest: projections, the convolution, dt)
+    layer = params.blocks[0].mamba
+    x = torch.randn(1, 256, cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        args = scan_args(layer, x)
+        layer_ms = timed_ms(lambda: ssm.mamba_apply(layer, x, chunk=256))
+        scan_ms = timed_ms(lambda: ssm._scan(layer, *args, 256, False))
+    print(f"  the scan at C 256: {scan_ms:.3f} ms of a layer's {layer_ms:.3f} ms "
+          f"({100 * scan_ms / layer_ms:.1f}%); {cfg.num_layers} layers' scans "
+          f"{cfg.num_layers * scan_ms:.1f} ms of the chunk's {chunk_ms:.1f} ms "
+          f"({100 * cfg.num_layers * scan_ms / chunk_ms:.1f}%)")
+    print(f"  memory reckoned {reckon:.2f} GiB (weights {w_gib:.2f}); measured peak "
+          f"{out['peak']:.2f} GiB")
+    del out, params, layer, args
+    free()
+    return {"counts": counts, "decode_ms": decode_ms, "chunk_ms": chunk_ms}
+
+
+def falcon_train_phase() -> dict:
+    """21b: falcon-mamba-7b widths at ``FALCON_TRAIN_LAYERS`` of 64 layers,
+    S 4096, micro batch 2, remat (each layer and each scan chunk
+    checkpointed), ``train_lm.train`` (``for_lm``, the moment tier), sgd
+    with momentum 0.9, DiveBatch (m0 2, m_max 4, granule 2), ``FALCON_TRAIN_STEPS``
+    steps: finite losses, no kernel launch; step ms, model FLOP/s (6 x the
+    products' parameters x tokens), the scan's share of a step, the peak
+    beside its reckoning."""
+    cfg = FALCON.replace(num_layers=FALCON_TRAIN_LAYERS)
+    s = FALCON_TRAIN_SEQ
+    print(f"  (b) {cfg.name} widths at {cfg.num_layers} of 64 layers, S {s}, bf16, remat, "
+          f"micro batch 2, for_lm on the moment tier:")
+    params, _ = init_timed(cfg)
+    n = sum(p.numel() for p in params.parameters())
+    largest = max(p.numel() for p in params.parameters())
+    # the products a token runs: the four projections a layer, the head
+    n_prod = sum(p.numel() for name, p in params.named_parameters()
+                 if name.endswith("proj.weight") or name == "lm_head.weight")
+    d_inner = cfg.ssm_expand * cfg.d_model
+    scan_level = 2 * 256 * d_inner * cfg.ssm_state * 4  # one (B, C, d_inner, d_state) f32
+    # weights, gradients and momenta in bf16, grad_sum and the microbatch
+    # accumulator in float32 (14 B); sgd's float32 copy of the largest
+    # tensor (8 B); one chunk's recomputed scan under backward: 2 tensors
+    # a level over log2(256) levels plus a_bar and bx; the recomputed
+    # layer's sequence-long tensors and their gradients, about 40 bytes a
+    # (token, channel): in_proj's output, the convolution and its silu in
+    # bf16, dt and y in float32, twice
+    layer_acts = 40 * 2 * s * d_inner
+    reckon = (14 * n + 8 * largest + (2 * 8 + 2) * scan_level + layer_acts) / 2**30
+    program = train_lm.make_program("divebatch", m0=2, m_max=4, delta=0.5, granule=2,
+                                    lr=0.02, tick_every=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=FALCON_TRAIN_STEPS, seq_len=s,
+                         micro_batch=2, attn_impl="pallas", log=lambda line: None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launch_counts()
+    recs = out["records"]
+    for rec in recs:
+        tick = (f"; tick: Delta {rec['diversity']:.6f}, batch {rec['batch']} -> "
+                f"{rec['next_batch']}" if "diversity" in rec else "")
+        print(f"    step {rec['step']}: batch {rec['batch']} ({rec['num_micro']} "
+              f"microbatches), ce_loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms{tick}")
+    if not all(np.isfinite([rec["loss"] for rec in recs])) or any(counts.values()):
+        raise AssertionError(f"falcon-mamba training: records {recs}, launches {counts}")
+    steady = recs[1:]
+    secs = [x["seconds"] for x in steady]
+    flops = 6 * n_prod * s * sum(x["batch"] for x in steady)
+    step_ms = {m: 1e3 * statistics.median([x["seconds"] for x in steady if x["batch"] == m])
+               for m in sorted({x["batch"] for x in steady})}
+    print(f"  launches {counts} (no attention); step ms by batch (median, steps "
+          f"2-{FALCON_TRAIN_STEPS}) " + ", ".join(f"{m}: {v:.1f}" for m, v in step_ms.items())
+          + f"; {sum(x['batch'] * s for x in steady) / sum(secs):.1f} tokens/s; "
+          f"{6 * n_prod * s:.4e} model FLOP a sequence (6 x {n_prod / 1e9:.3f} B parameters "
+          f"in products x S); {flops / sum(secs) / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / sum(secs) / PEAK_BF16:.1f}% of 989")
+    # the scan's share of a step: one layer's forward and backward at batch
+    # 2, S 4096 under remat, against its chunk steps alone
+    layer = params.blocks[0].mamba
+    x = torch.randn(2, s, cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda").to(torch.bfloat16).requires_grad_(True)
+
+    def layer_fb():
+        ssm.mamba_apply(layer, x, chunk=cfg.ssm_chunk, remat=True).float().sum().backward()
+
+    with torch.no_grad():
+        leaves = [t.detach().requires_grad_(True) for t in scan_args(layer, x)]
+
+    def scan_fb():
+        for t in leaves:
+            t.grad = None
+        ssm._scan(layer, *leaves, cfg.ssm_chunk, True)[1].float().sum().backward()
+
+    layer_ms = timed_ms(layer_fb, iters=3)
+    scan_ms = timed_ms(scan_fb, iters=3)
+    params.zero_grad(set_to_none=True)
+    b2 = step_ms.get(2, next(iter(step_ms.values())))
+    print(f"  the scan, forward and backward at B 2, S {s} under remat: {scan_ms:.1f} ms of "
+          f"a layer's {layer_ms:.1f} ms ({100 * scan_ms / layer_ms:.1f}%; its inputs' "
+          f"projections included in the layer only); {cfg.num_layers} layers' scans "
+          f"{cfg.num_layers * scan_ms:.1f} ms of a batch-2 step's {b2:.1f} ms "
+          f"({100 * cfg.num_layers * scan_ms / b2:.1f}%)")
+    print(f"  memory reckoned: 14 B x {n / 1e9:.3f} B parameters + 8 B x {largest / 1e9:.3f} B "
+          f"+ one chunk's scan under backward {(2 * 8 + 2) * scan_level / 2**30:.2f} GiB + "
+          f"the recomputed layer's activations {layer_acts / 2**30:.2f} GiB = "
+          f"{reckon:.2f} GiB; measured peak {peak:.2f} GiB")
+    del out, params, layer, x, leaves
+    free()
+    return {"counts": counts, "step_ms": step_ms, "peak": peak}
+
+
+def jamba_serve_phase() -> dict:
+    """21c: jamba-v0.1-52b at ``JAMBA_SERVE_LAYERS`` layers (one period:
+    7 Mamba layers, attention at position 4, MoE FFNs at the odd positions)
+    served on phase 4's trace and engine settings: one chunk launch per
+    prefill chunk and one paged decode launch per decode step (its one
+    attention layer), decode step and chunk ms, each MoE layer's drop share
+    in prefill and decode, the peak beside its reckoning."""
+    cfg = JAMBA.replace(num_layers=JAMBA_SERVE_LAYERS, attn_impl="pallas")
+    w_bytes = meta_bytes(cfg)
+    print(f"  (c) {cfg.name}, a depth cut: {cfg.num_layers} of 32 layers (one period; 32 are "
+          f"{4 * w_bytes / 2**30:.0f} GiB), d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of hd {cfg.resolved_head_dim} (n_rep "
+          f"{cfg.num_heads // cfg.num_kv_heads}) at position 4, {cfg.num_experts} experts of "
+          f"d_ff {cfg.d_ff}, top {cfg.top_k}, capacity factor {cfg.capacity_factor:g}, bf16; "
+          f"weights reckoned {w_bytes / 2**30:.2f} GiB:")
+    params, w_gib = init_timed(cfg)
+    reqs = slice_requests(cfg.vocab_size)
+    with moe_drop_tally(params) as tally:
+        out = serve_checked(cfg, params, reqs, max_slots=8, max_seq=2048, block_size=16,
+                            prompt_granule=16, prefill_chunk=256, prefix_sharing=True)
+        shares = {k: moe_shares(v, cfg.top_k) for k, v in tally.items()}
+    n_attn = cfg.repeats * len(tf.paged_positions(cfg))
+    times = serve_report(out, cfg, reqs, per_chunk=n_attn, per_step=n_attn)
+    for kind, (dropped, first) in shares.items():
+        print(f"  capacity drops in {kind} (factor {cfg.capacity_factor:g}), per MoE layer: "
+              + ", ".join(f"{100 * x:.2f}%" for x in dropped))
+        print(f"  tokens on their group's commonest first expert in {kind}, per MoE layer: "
+              + ", ".join(f"{100 * x:.2f}%" for x in first)
+              + f" (1 / E = {100 / cfg.num_experts:.2f}%)")
+    floor_ms = 1e3 * weight_bytes(params) / PEAK_BYTES
+    print(f"  every weight but the embedding (the capacity form reads every expert) "
+          f"{floor_ms:.2f} ms of HBM: the decode step's floor, beside its median "
+          f"{times['decode_ms']:.2f} ms")
+    slots_state = 8 * mamba_state_bytes(cfg) / 2**30
+    reckon = w_gib + pool_gib(out["engine"]) + slots_state
+    print(f"  memory reckoned: weights {w_gib:.2f} + pool {pool_gib(out['engine']):.2f} + 8 "
+          f"slots' Mamba states {slots_state:.3f} = {reckon:.2f} GiB; measured peak "
+          f"{out['peak']:.2f} GiB")
+    counts = out["counts"]
+    del out, params
+    free()
+    return {"counts": counts, "floor_ms": floor_ms, **times}
+
+
+def mamba_phase() -> dict[str, dict]:
+    phase("21. the Mamba family at full width (weights from a seeded generator, bf16, "
+          "attn_impl='pallas'; each model freed before the next)")
+    t0 = time.perf_counter()
+    free()
+    falcon = falcon_serve_phase()
+    train = falcon_train_phase()
+    jamba = jamba_serve_phase()
+    print(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+    return {"falcon-mamba-7b serving": falcon["counts"],
+            "falcon-mamba-7b training": train["counts"],
+            "jamba-v0.1-52b serving": jamba["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the Mamba family, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def mamba_card_vs_cpu_phase() -> None:
+    phase("22. the reference's reduced Mamba configs (float32): card (kernels) against "
+          "CPU (plain versions)")
+    r = np.random.default_rng(22)
+    for arch in ("falcon-mamba-7b", "jamba-v0.1-52b"):
+        cfg, card, cpu = reduced_serve_card_vs_cpu(arch, r)
+        del card, cpu
+        groups = 2 if cfg.num_experts else 1
+        # reduced jamba at lr 0.05 turns a 1e-7 relative change of its weights
+        # into 1e-3 of its parameters in 6 steps, on the CPU alone
+        # (tools/train_drift.py); at lr 0.01 into 6e-6, so 1e-4 still tells a
+        # fault from rounding
+        lr = 0.01 if cfg.num_experts else 0.05
+        print(f"  {arch} trains (moment tier, lr {lr}"
+              f"{', 2 groups' if cfg.num_experts else ''}):")
+        lm_train_card_vs_cpu(cfg, moe_groups=groups, lr=lr)
+        if cfg.num_experts:
+            moe_gram_card_vs_cpu(cfg)
     free()
 
 
@@ -4315,6 +4666,8 @@ def main() -> int:
     dense_card_vs_cpu_phase()
     moe_paths = moe_phase()
     moe_card_vs_cpu_phase()
+    mamba_paths = mamba_phase()
+    mamba_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -4327,7 +4680,7 @@ def main() -> int:
     # a record naming its paths counts those (the dense group's forms, phase
     # 17; kimi-k2's, phase 19), the other non-causal records the encoder's
     # paths (phase 14), the others the rest
-    every = {**paths, **encoder_paths, **dense_paths, **moe_paths}
+    every = {**paths, **encoder_paths, **dense_paths, **moe_paths, **mamba_paths}
     for rec in records:
         counter = rec.pop("counter", rec["name"])
         on = encoder_paths if counter != rec["name"] else paths

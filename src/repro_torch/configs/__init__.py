@@ -1,17 +1,18 @@
-"""Config registry of the port: the architectures whose paths exist.
+"""Config registry of the port: every architecture of the reference package.
 
-Eight are ported: the dense decoders ``yi-6b`` (pure full attention, dense
+Ten are ported: the dense decoders ``yi-6b`` (pure full attention, dense
 SwiGLU), ``qwen2-7b`` (QKV bias), ``llama3-405b``, ``gemma2-27b``
 (alternating sliding-window ``attn_local`` and global ``attn`` layers, an
 attention and a final logit softcap, GELU) and ``internvl2-1b`` (an
 embedding frontend in front of a dense decoder), trained and served; the
 MoE decoders ``dbrx-132b`` (16 experts, top 4) and ``kimi-k2-1t-a32b`` (384
 experts, top 8, head dim 112), trained and served through
-``models/moe.py``; and ``hubert-xlarge`` (the encoder: non-causal attention
-at head dim 80, an embedding frontend, layer norm, a GELU MLP; encoding
-through ``transformer.prefill_step`` and training, no decode).  The
-reference package's other two archs need Mamba state, which is still on the
-ROADMAP (Queue A 7), and asking for one raises.
+``models/moe.py``; the Mamba archs ``falcon-mamba-7b`` (attention-free,
+no FFN) and ``jamba-v0.1-52b`` (a period of 8: seven Mamba layers and one
+attention layer, dense and MoE FFNs alternating), trained and served
+through ``models/ssm.py``; and ``hubert-xlarge`` (the encoder: non-causal
+attention at head dim 80, an embedding frontend, layer norm, a GELU MLP;
+encoding through ``transformer.prefill_step`` and training, no decode).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ _MODULES = {
     "internvl2-1b": "internvl2_1b",
     "dbrx-132b": "dbrx_132b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
     "hubert-xlarge": "hubert_xlarge",
 }
 
@@ -37,10 +40,7 @@ ARCH_NAMES = tuple(_MODULES)
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md, "
-            f"Queue A 7); ported: {sorted(_MODULES)}"
-        )
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.reduced() if reduced else mod.CONFIG
 

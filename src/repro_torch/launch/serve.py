@@ -8,6 +8,7 @@ ported.
 Examples:
   python -m repro_torch.launch.serve --arch yi-6b --full-size
   python -m repro_torch.launch.serve --arch gemma2-27b --full-size
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --full-size --max-seq 8192
   python -m repro_torch.launch.serve --requests 16 --prefill-chunk 8 --block-size 8
   python -m repro_torch.launch.serve --device cpu --policy fair --tenants 2
 """
@@ -122,7 +123,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full_size)
     if not args.full_size:
-        cfg = cfg.replace(num_layers=min(cfg.num_layers, 4), d_model=128,
+        # at most 4 layers, but a whole period of the pattern (jamba's is 8)
+        cfg = cfg.replace(num_layers=min(cfg.num_layers, max(4, cfg.period)), d_model=128,
                           num_heads=4, num_kv_heads=2)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = tf.init_params(cfg, gen, device)

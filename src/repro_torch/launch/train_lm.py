@@ -16,6 +16,8 @@ Attention runs on the kernel lane (``--attn-impl pallas``, the default).
   python -m repro_torch.launch.train_lm --arch hubert-xlarge --full-width 48 \\
       --seq-len 1024 --micro-batch 2 --m0 4 --m-max 4 --lr 0.02 --steps 3 \\
       --profile /tmp/hubert.json
+  python -m repro_torch.launch.train_lm --arch falcon-mamba-7b --full-width 4 \\
+      --seq-len 4096 --micro-batch 2 --m0 2 --m-max 4 --steps 4
 
 The default model is the ~20M-parameter ``lm-20m`` (float32);
 ``--full-width N`` trains Yi-6B's widths (d_model 4096, 32/4 heads, d_ff
@@ -24,7 +26,9 @@ with ``--arch hubert-xlarge`` the encoder's (d_model 1280, 16 heads of hd
 80, non-causal, d_ff 5120, vocab 504) at N of its 48 layers, on frame
 batches from :func:`frame_batches`; any other ``--arch`` of the registry
 (the dense and the MoE decoders, ``dbrx-132b`` and ``kimi-k2-1t-a32b``
-routing each microbatch in one group) likewise at N of its layers.
+routing each microbatch in one group; the Mamba archs, ``falcon-mamba-7b``
+at any N and ``jamba-v0.1-52b`` at a multiple of its period of 8) likewise
+at N of its layers.
 Weights are random, from ``--seed``.
 ``--profile PATH`` runs the first step unprofiled (warm-up), then the rest
 under ``torch.profiler``: a Chrome trace to PATH (write it outside the

@@ -11,12 +11,14 @@ squared norm of each dense weight is
 
 Coverage: attention q/k/v/o and the dense FFN weights (the matrix products
 that dominate the parameter count).  Embeddings (or the embedding frontend),
-norms, the LM head and the MoE FFNs (router and experts) are excluded, as in
-the reference; ``coverage(cfg)`` reports the covered fraction.  A MoE FFN
-runs unprobed (``models/moe.py::moe_apply`` in ``moe_groups`` groups), and
-``0.01 *`` its layers' summed aux loss joins the loss when
-``cfg.num_experts`` is set, as in ``transformer.loss_fn``.  'mamba'
-positions raise ``NotImplementedError``, as the port's transformer does.
+norms, the LM head, the MoE FFNs (router and experts) and the Mamba mixers
+are excluded, as in the reference; ``coverage(cfg)`` reports the covered
+fraction (0 for falcon-mamba, which has neither attention nor FFN).  A MoE
+FFN runs unprobed (``models/moe.py::moe_apply`` in ``moe_groups`` groups),
+and ``0.01 *`` its layers' summed aux loss joins the loss when
+``cfg.num_experts`` is set, as in ``transformer.loss_fn``.  A 'mamba'
+position runs its mixer unprobed (``models/ssm.py::mamba_apply`` over
+chunks of ``cfg.ssm_chunk``), then its FFN as any layer's.
 
 The probe forward runs the plain dense attention lane
 (``models/attention.py::attention``) whatever ``cfg.attn_impl`` says, as
@@ -36,6 +38,7 @@ from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import apply_rope, dense
 from repro_torch.models.moe import MoE, moe_apply
@@ -115,17 +118,20 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
     for r, p, blk in tf._layers(cfg, params):
         kind = cfg.pattern[p]
         base = f"l{r}p{p}"
-        ap = blk.attn
         h = blk.norm(x)
-        q = pdense(h, ap.q, f"{base}.q").reshape(b, s, cfg.num_heads, hd)
-        k = pdense(h, ap.k, f"{base}.k").reshape(b, s, cfg.num_kv_heads, hd)
-        v = pdense(h, ap.v, f"{base}.v").reshape(b, s, cfg.num_kv_heads, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        window = cfg.window if kind == "attn_local" else None
-        o = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
-                               softcap=cfg.attn_softcap)
-        x = x + pdense(o.reshape(b, s, cfg.num_heads * hd), ap.o, f"{base}.o")
+        if kind == "mamba":
+            x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+        else:
+            ap = blk.attn
+            q = pdense(h, ap.q, f"{base}.q").reshape(b, s, cfg.num_heads, hd)
+            k = pdense(h, ap.k, f"{base}.k").reshape(b, s, cfg.num_kv_heads, hd)
+            v = pdense(h, ap.v, f"{base}.v").reshape(b, s, cfg.num_kv_heads, hd)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            window = cfg.window if kind == "attn_local" else None
+            o = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
+                                   softcap=cfg.attn_softcap)
+            x = x + pdense(o.reshape(b, s, cfg.num_heads * hd), ap.o, f"{base}.o")
         if isinstance(blk.ffn, MoE):
             y, a = moe_apply(blk.ffn, blk.ffn_norm(x), top_k=cfg.top_k,
                              capacity_factor=cfg.capacity_factor, groups=moe_groups,

@@ -66,8 +66,18 @@ when ``cfg.num_experts`` is set.  ``cfg.moe_impl == "ep"`` under a plan with
 an expert axis raises (``models/moe_ep.py``, ROADMAP.md Queue A 5); without
 a plan it takes ``moe_apply``, as the reference does.
 
-Attention mixers ('attn', 'attn_local') are ported; 'mamba' state raises
-``NotImplementedError`` (ROADMAP.md, Queue A 7).
+Mamba mixers ('mamba', ``models/ssm.py``): ``Block`` holds a ``Mamba``
+in the attention's place, and the layer still runs its FFN (none when
+``d_ff == 0``, falcon-mamba's case).  Training runs ``mamba_apply`` over
+the sequence in chunks of ``cfg.ssm_chunk`` (``cfg.remat`` checkpoints
+each chunk step as well as the layer).  Serving keeps a Mamba position's
+state per slot and in each prefill job's row, never in the pool:
+``{"h" float32 (repeats, B, d_inner, d_state), "conv" (repeats, B, K-1,
+d_inner)}`` in the compute type, whatever the context's length.
+``prefill_step`` fills it, ``decode_step`` advances it a token, and
+``prefill_chunk`` resumes from the row's state in chunks of
+``min(ssm_chunk, C)`` steps (``C`` when that does not divide ``C``), as the
+reference does; all three write it in place.
 """
 
 from __future__ import annotations
@@ -81,23 +91,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.plan import current_plan
 from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm
 from repro_torch.models.moe import MoE, init_experts_, moe_apply
 from repro_torch.models.layers import ACTIVATIONS, apply_rope, dense, embed, layer_norm, rms_norm
 
-_NOT_PORTED = {
-    "mamba": "the Mamba mixer and its state",
-}
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{_NOT_PORTED.get(kind, repr(kind))} is not ported to repro_torch yet "
-        f"(ROADMAP.md, Queue A 7)"
-    )
-
-
 #: the mixers the port runs, in training and serving
-MIXERS = ("attn", "attn_local")
+MIXERS = ("attn", "attn_local", "mamba")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -154,16 +153,22 @@ class FFN(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: pre-norm attention then (optionally) a pre-norm FFN, dense
-    or MoE."""
+    """One layer: a pre-norm mixer (``attn``, or ``mamba`` at a 'mamba'
+    position; the other is None) then (optionally) a pre-norm FFN, dense or
+    MoE."""
 
     def __init__(self, cfg: ModelConfig, pos: int, dtype: torch.dtype):
         super().__init__()
         kind = cfg.pattern[pos]
         if kind not in MIXERS:
-            raise _not_ported(kind)
+            raise ValueError(f"unknown mixer kind {kind!r}")
         self.norm = Norm(cfg.d_model, cfg.norm_type, dtype)
-        self.attn = Attention(cfg, dtype)
+        self.attn = self.mamba = None
+        if kind == "mamba":
+            self.mamba = ssm.Mamba(cfg.d_model, cfg.ssm_state, cfg.ssm_expand, cfg.ssm_conv,
+                                   cfg.ssm_dt_rank, dtype)
+        else:
+            self.attn = Attention(cfg, dtype)
         self.ffn_norm = self.ffn = None
         if cfg.d_ff > 0:
             kind = cfg.ffn_kind(pos)
@@ -210,7 +215,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random weights with the reference's distributions: dense kernels
     (the embedding frontend's and the float32 MoE router's too) N(0,
     1/d_in), MoE ``w_gate``/``w_up`` N(0, 1/d_model) and ``w_out`` N(0,
-    1/d_ff), embeddings N(0, 0.02^2), norm scales 1, biases 0.
+    1/d_ff), the Mamba mixers' ``ssm.mamba_init_``, embeddings N(0,
+    0.02^2), norm scales 1, biases 0.
 
     ``generator`` must live on ``device`` (default: a fresh one seeded 0);
     ``dtype`` defaults to ``cfg.param_dtype``.  The numbers differ from the
@@ -220,8 +226,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     model = build(cfg, device, dtype)
+    # a Mamba mixer draws its own projections
+    mixers = {id(lin) for mod in model.modules() if isinstance(mod, ssm.Mamba)
+              for lin in mod.children()}
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, ssm.Mamba):
+            ssm.mamba_init_(mod, generator)
+        elif isinstance(mod, nn.Linear) and id(mod) not in mixers:
             mod.weight.normal_(0.0, mod.in_features ** -0.5, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -278,9 +289,14 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
 def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
                  positions: torch.Tensor, moe_groups: int
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One layer: pre-norm attention, then the pre-norm FFN; ``(x, the
-    layer's MoE aux loss)`` (None without a MoE FFN)."""
-    x = x + _attn_sublayer(cfg, blk.attn, blk.norm(x), kind, positions)
+    """One layer: the pre-norm mixer (attention, or Mamba over chunks of
+    ``cfg.ssm_chunk``), then the pre-norm FFN; ``(x, the layer's MoE aux
+    loss)`` (None without a MoE FFN)."""
+    h = blk.norm(x)
+    if kind == "mamba":
+        x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+    else:
+        x = x + _attn_sublayer(cfg, blk.attn, h, kind, positions)
     return _ffn(cfg, blk, x, moe_groups)
 
 
@@ -404,10 +420,11 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups:
 
     A causal config returns the last position's float32 logits (B, 1, V),
     final softcap included, and the dense cache (``init_cache(cfg, B, S)``
-    shapes) holding each layer's last ``_cache_len_for`` keys and values,
-    with ``len`` S: decode continues from it with ``decode_step``.  The
-    stack runs on the lane ``resolve_impl`` names ("pallas": the chunk
-    kernel forward).  An encoder (``cfg.causal == False``) returns the
+    shapes) holding each layer's last ``_cache_len_for`` keys and values
+    (a Mamba layer's final ``h`` and conv tail: S a multiple of
+    ``min(ssm_chunk, S)``), with ``len`` S: decode continues from it with
+    ``decode_step``.  The stack runs on the lane ``resolve_impl`` names
+    ("pallas": the chunk kernel forward).  An encoder (``cfg.causal == False``) returns the
     logits at every position, (B, S, V), and an empty cache, as the
     reference's encoder branch."""
     x = _embed_input(cfg, params, batch)
@@ -420,15 +437,21 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups:
     cache = init_cache(cfg, b, s, device=x.device)
     hd = cfg.resolved_head_dim
     for r, p, blk in _layers(cfg, params):
-        ap = blk.attn
-        q, k, v = _qkv(cfg, ap, blk.norm(x), positions)
-        window = cfg.window if cfg.pattern[p] == "attn_local" else None
-        h = _self_attention(cfg, q, k, v, window, True)
-        x = x + dense(h.reshape(b, s, cfg.num_heads * hd), ap.o.weight)
-        kc, vc = cache[f"pos{p}"]["k"][r], cache[f"pos{p}"]["v"][r]
-        s_c = kc.shape[1]
-        kc.copy_(k[:, s - s_c:])
-        vc.copy_(v[:, s - s_c:])
+        entry, h = cache[f"pos{p}"], blk.norm(x)
+        if cfg.pattern[p] == "mamba":
+            y, state = ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, return_state=True)
+            _write_state(entry, r, state)
+            x = x + y
+        else:
+            ap = blk.attn
+            q, k, v = _qkv(cfg, ap, h, positions)
+            window = cfg.window if cfg.pattern[p] == "attn_local" else None
+            h = _self_attention(cfg, q, k, v, window, True)
+            x = x + dense(h.reshape(b, s, cfg.num_heads * hd), ap.o.weight)
+            kc, vc = entry["k"][r], entry["v"][r]
+            s_c = kc.shape[1]
+            kc.copy_(k[:, s - s_c:])
+            vc.copy_(v[:, s - s_c:])
         x, _ = _ffn(cfg, blk, x, moe_groups)
     cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
     return _head(cfg, params, x[:, -1:, :]), cache
@@ -460,15 +483,23 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, skip: tuple = (),
     ``{"k", "v"}`` of shape ``(repeats, batch, s_c, KV, hd)`` in the compute
     type, ``s_c = min(window, seq_len)`` for a sliding-window position (a
     ring written at ``pos mod s_c``) and ``seq_len`` for a full-attention one
-    (the dense cache).  Paged serving skips every full-attention position
-    (its KV is in the pool); Mamba state raises."""
+    (the dense cache); for a Mamba position ``{"h"}`` float32 ``(repeats,
+    batch, d_inner, d_state)`` and ``{"conv"}`` ``(repeats, batch, K-1,
+    d_inner)`` in the compute type, whatever ``seq_len``.  Paged serving
+    skips every full-attention position (its KV is in the pool)."""
     cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=device)}
     cdt = _dtype(cfg.compute_dtype)
     for p in range(cfg.period):
         if p in skip:
             continue
-        if cfg.pattern[p] not in MIXERS:
-            raise _not_ported(cfg.pattern[p])
+        if cfg.pattern[p] == "mamba":
+            d_inner = cfg.ssm_expand * cfg.d_model
+            cache[f"pos{p}"] = {
+                "h": torch.zeros((cfg.repeats, batch, d_inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+                "conv": torch.zeros((cfg.repeats, batch, cfg.ssm_conv - 1, d_inner),
+                                    dtype=cdt, device=device)}
+            continue
         shape = (cfg.repeats, batch, _cache_len_for(cfg, p, seq_len), cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         cache[f"pos{p}"] = {"k": torch.zeros(shape, dtype=cdt, device=device),
@@ -495,14 +526,22 @@ def init_pages(cfg: ModelConfig, num_blocks: int, block_size: int, *,
 
 
 def _layers(cfg: ModelConfig, params: Transformer):
-    """(repeat, pattern position, block) in layer order; a mixer outside
-    ``MIXERS`` raises (``cfg`` need not be the config ``params`` was built
-    from)."""
+    """(repeat, pattern position, block) in layer order."""
     for r in range(cfg.repeats):
         for p in range(cfg.period):
-            if cfg.pattern[p] not in MIXERS:
-                raise _not_ported(cfg.pattern[p])
             yield r, p, params.blocks[r * cfg.period + p]
+
+
+def _state(entry: dict, r: int) -> dict:
+    """Layer ``r``'s Mamba state in a per-position cache entry."""
+    return {"h": entry["h"][r], "conv": entry["conv"][r]}
+
+
+def _write_state(entry: dict, r: int, state: dict) -> None:
+    """Write a Mamba layer's new state into slice ``r`` of ``entry``, in
+    place (the conv tail in the entry's type)."""
+    entry["h"][r].copy_(state["h"])
+    entry["conv"][r].copy_(state["conv"])
 
 
 def _qkv(cfg: ModelConfig, ap: Attention, h: torch.Tensor, positions: torch.Tensor):
@@ -551,11 +590,13 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
     embeddings for an embedding-input config.
 
     ``cache["len"]`` is a scalar (every row at one position, the lockstep
-    batch) or a ``(B,)`` vector of per-slot positions.  A position held in
-    ``cache`` (a sliding-window ring, or the dense cache of a full-attention
-    layer) takes the new k/v at ``pos mod s_c`` of its row, then the row
-    attends its ``min(pos + 1, s_c)`` valid entries (every retained ring
-    slot is inside the window) through the plain ``decode_attention``.
+    batch) or a ``(B,)`` vector of per-slot positions.  A Mamba position
+    advances its rows' state by one token (``ssm.mamba_decode_step``).  A
+    position held in ``cache`` (a sliding-window ring, or the dense cache
+    of a full-attention layer) takes the new k/v at ``pos mod s_c`` of its
+    row, then the row attends its ``min(pos + 1, s_c)`` valid entries
+    (every retained ring slot is inside the window) through the plain
+    ``decode_attention``.
 
     Paged (``pages``/``tables`` given): a full-attention position in
     ``pages`` writes at ``tables[b, pos // block]`` offset ``pos % block``
@@ -580,9 +621,14 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
     hd = cfg.resolved_head_dim
     rows = torch.arange(b, device=x.device)
     for r, p, blk in _layers(cfg, params):
+        name, hn = f"pos{p}", blk.norm(x)
+        if cfg.pattern[p] == "mamba":
+            y, state = ssm.mamba_decode_step(blk.mamba, _state(cache[name], r), hn)
+            _write_state(cache[name], r, state)
+            x, _ = _ffn(cfg, blk, x + y, moe_groups)
+            continue
         ap = blk.attn
-        q, k, v = _qkv(cfg, ap, blk.norm(x), posv[:, None])
-        name = f"pos{p}"
+        q, k, v = _qkv(cfg, ap, hn, posv[:, None])
         if name in pages_in:
             pk, pv = pages_in[name]["k"][r], pages_in[name]["v"][r]
             blk_sz, n_max = pk.shape[1], tables.shape[1]
@@ -634,9 +680,12 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
       * a sliding-window position reads its ring in ``row`` in
         chronological order (positions ``offset - s_c .. offset - 1``, the
         negative ones invalid), attends under ``cfg.window``, and writes the
-        chunk's last ``min(C, s_c)`` keys back into the ring, in place.
+        chunk's last ``min(C, s_c)`` keys back into the ring, in place;
+      * a Mamba position resumes from its state in ``row`` over chunks of
+        ``min(ssm_chunk, C)`` steps (all C at once when that does not divide
+        C) and writes the new state back, in place.
 
-    row: ``{"len": (1,)}`` plus the rings
+    row: ``{"len": (1,)}`` plus the rings and Mamba states
     (``init_cache(cfg, 1, max_seq, skip=paged_positions(cfg))`` shapes).
     batch: ``{"tokens": (1, C)}`` or ``{"embeddings": (1, C, d_model)}``, C
     a multiple of the block size.  Returns (last-position logits (1, 1, V)
@@ -651,9 +700,20 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
     prior_idx = prior_tab.long()
     ones = torch.ones(c, dtype=torch.int32, device=dev)
     keys: dict = {}  # per layout, (k_pos, k_valid) int32 built once per chunk
+    sc = min(cfg.ssm_chunk, c)
+    if c % sc:  # the scan needs an even split: one chunk of all C
+        sc = c
     for r, p, blk in _layers(cfg, params):
+        hn = blk.norm(x)
+        if cfg.pattern[p] == "mamba":
+            entry = row[f"pos{p}"]
+            y, state = ssm.mamba_apply(blk.mamba, hn, chunk=sc, return_state=True,
+                                       state=_state(entry, r))
+            _write_state(entry, r, state)
+            x, _ = _ffn(cfg, blk, x + y, moe_groups)
+            continue
         ap = blk.attn
-        q, k, v = _qkv(cfg, ap, blk.norm(x), q_pos[None, :])
+        q, k, v = _qkv(cfg, ap, hn, q_pos[None, :])
         if p in paged:  # full attention: prior context from the pool
             pk, pv = pages[f"pos{p}"]["k"][r], pages[f"pos{p}"]["v"][r]
             blk_sz = pk.shape[1]

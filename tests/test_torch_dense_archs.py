@@ -19,7 +19,8 @@ against the reference engine (tokens and sharing counts); the causal
 ``prefill_step`` then lockstep decode on the dense cache (embeddings for
 internvl2); ``init_cache`` against ``cache_specs``; the gram tier and
 ``for_lm`` on gemma2.  The MoE archs have their own file,
-``tests/test_torch_moe.py``; the Mamba archs still raise.
+``tests/test_torch_moe.py``, and so have the Mamba archs,
+``tests/test_torch_mamba_archs.py`` (their config copies are here).
 
 Tolerance: float32 logits, losses, gradients, caches and pools within
 1e-5 relative and 1e-5 absolute (other summation orders over 16-128 wide
@@ -61,7 +62,8 @@ torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ("qwen2-7b", "llama3-405b", "gemma2-27b", "internvl2-1b")
-UNPORTED = ("falcon-mamba-7b", "jamba-v0.1-52b")
+# the Mamba archs' configs (their paths: tests/test_torch_mamba_archs.py)
+MAMBA = ("falcon-mamba-7b", "jamba-v0.1-52b")
 # the flash lane tiled into several query and key blocks at the reduced size
 FLASH = dict(attn_impl="flash", flash_q_block=8, flash_kv_block=8)
 
@@ -115,21 +117,12 @@ def _cache_close(tcache: dict, jcache: dict):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MAMBA)
 def test_config_is_a_copy(arch):
     for reduced in (False, True):
         assert dataclasses.asdict(get_config(arch, reduced)) == \
             dataclasses.asdict(jget(arch, reduced))
     assert arch in ARCH_NAMES
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_moe_and_mamba_archs_still_raise(arch):
-    """The Mamba archs raise naming Queue A 7; the MoE archs are ported
-    (``tests/test_torch_moe.py``)."""
-    jget(arch)  # the reference has it
-    with pytest.raises(KeyError, match="Queue A 7"):
-        get_config(arch)
 
 
 def test_full_width_shapes():

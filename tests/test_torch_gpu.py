@@ -1514,3 +1514,65 @@ def test_chunk_forward_at_kimi_serving_shape(cuda, dtype):
     _close(got, ref.attention_ref(*args), dtype)
     route = "tc" if dtype == torch.bfloat16 else "fma"
     assert kernels.route_counts()["chunk_attention"][route] == 1
+
+
+# ---------------------------------------------------------------------------
+# the Mamba archs (the scan in plain PyTorch on the card; no kernel of its own)
+# ---------------------------------------------------------------------------
+
+
+def test_jamba_engine_on_card_matches_cpu(cuda):
+    """Reduced jamba (7 Mamba layers, an attention layer, MoE FFNs at odd
+    positions) in float32 with identical weights, whole-prompt and chunked
+    prefill: the card (kernels for its attention) and the CPU (plain
+    versions) give the same greedy tokens, a full-prompt hit replaying its
+    cached Mamba states; one chunk launch per prefill chunk and one paged
+    decode per decode step."""
+    cfg = get_config("jamba-v0.1-52b", reduced=True)
+    cpu_params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = tf.build(cfg, cuda)
+    card_params.load_state_dict(cpu_params.state_dict())
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 30, 17)]
+    reqs = [Request(prompt=p, max_new_tokens=10) for p in prompts + [prompts[1]]]
+    for chunk in (0, 16):
+        kw = dict(max_slots=2, max_seq=64, prefill_chunk=chunk, block_size=8)
+        kernels.reset_launch_counts()
+        card = ServeEngine(cfg, card_params, device=cuda, **kw)
+        out_card = card.generate(reqs)
+        counts = kernels.launch_counts()
+        out_cpu = ServeEngine(cfg, cpu_params, device="cpu", **kw).generate(reqs)
+        assert [o.tokens.tolist() for o in out_card] == [o.tokens.tolist() for o in out_cpu]
+        assert card.stats.shared_prefill_hits == 1
+        assert counts["chunk_attention"] == card.stats.prefill_chunks
+        assert counts["paged_decode_attention"] == card.stats.steps
+
+
+def test_falcon_mamba_decode_on_card_matches_cpu(cuda):
+    """Reduced falcon-mamba in float32 with identical weights:
+    ``prefill_step`` on 2 prompts of 32 (two scan chunks), then 16 lockstep
+    decode steps fed back greedily; logits within 1e-4 at every step, the
+    Mamba states within 1e-4, and no kernel launched (no attention)."""
+    cfg = get_config("falcon-mamba-7b", reduced=True)
+    cpu_params = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card_params = tf.build(cfg, cuda)
+    card_params.load_state_dict(cpu_params.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(7).integers(1, cfg.vocab_size, size=(2, 32)))
+    kernels.reset_launch_counts()
+    out = {}
+    for dev, params in ((cuda, card_params), ("cpu", cpu_params)):
+        logits, cache = tf.prefill_step(cfg, params, {"tokens": toks.to(dev)})
+        steps = [logits.cpu()]
+        for _ in range(16):
+            # the CPU feeds back the card's tokens: one sequence on both
+            src = out["cuda"][0] if "cuda" in out else steps
+            nxt = src[len(steps) - 1][:, -1].argmax(-1, keepdim=True)
+            logits, cache = tf.decode_step(cfg, params, cache, nxt.to(dev))
+            steps.append(logits.cpu())
+        out[str(dev)] = (steps, {k: v.cpu() for k, v in cache["pos0"].items()})
+    (card_steps, card_state), (cpu_steps, cpu_state) = out["cuda"], out["cpu"]
+    for a, b in zip(card_steps, cpu_steps):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for key in ("h", "conv"):
+        torch.testing.assert_close(card_state[key], cpu_state[key], rtol=1e-4, atol=1e-4)
+    assert not any(kernels.launch_counts().values())

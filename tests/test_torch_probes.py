@@ -160,17 +160,29 @@ def test_coverage_of_yi_6b():
 
 
 def test_moe_and_mamba_positions_raise():
-    """'mamba' positions raise naming Queue A 7.  MoE positions are ported:
-    their FFNs run unprobed, the probes sit on the attention layers only,
-    the aux term joins the loss, and coverage counts the experts in the
-    total (``tests/test_torch_moe.py`` holds them against the reference)."""
+    """'mamba' and MoE positions are ported.  A 'mamba' position runs its
+    mixer unprobed and its dense FFN probed: the probe names, the zero-probe
+    loss (the port's ``loss_fn`` on the dense lane bit for bit, the
+    reference's within 1e-6), the saved inputs and coverage match the
+    reference.  A MoE position's FFN runs unprobed, the probes sit on the
+    attention layers only, the aux term joins the loss, and coverage counts
+    the experts in the total (``tests/test_torch_moe.py`` holds them against
+    the reference)."""
+    jmamba, mamba, jmparams, mparams, jbatch, batch = _setup(dict(pattern=("attn", "mamba")))
+    pr = probes.probe_specs(mamba, B, S, device="cpu")
+    assert list(pr) == [n for n, _ in jprobes._dense_probe_names(jmamba)] == \
+        ["l0p0.q", "l0p0.k", "l0p0.v", "l0p0.o", "l0p0.gate", "l0p0.up", "l0p0.down",
+         "l0p1.gate", "l0p1.up", "l0p1.down"]
+    loss, acts = probes.loss_with_probes(mamba, mparams, pr, batch)
+    jloss, jacts = jprobes.loss_with_probes(jmamba, jmparams,
+                                            jprobes.probe_specs(jmamba, B, S), jbatch)
+    assert loss.item() == tf.loss_fn(mamba, mparams, batch)[0].item()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
+    for name in acts:
+        np.testing.assert_allclose(acts[name].numpy(), np.asarray(jacts[name]),
+                                   rtol=1e-5, atol=1e-5)
+    assert probes.coverage(mamba) == jprobes.coverage(jmamba)
     _, cfg, _, params, _, batch = _setup({})
-    pr = probes.probe_specs(cfg, B, S, device="cpu")
-    mamba = cfg.replace(pattern=("attn", "mamba"))
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        probes.loss_with_probes(mamba, params, pr, batch)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        probes.coverage(mamba)
     moe = cfg.replace(num_experts=4, top_k=2, ffn_pattern=("moe",))
     jmoe = JModelConfig(**TINY).replace(num_experts=4, top_k=2, ffn_pattern=("moe",))
     jparams = jtf.init_params(jmoe, jax.random.key(1))

@@ -203,23 +203,20 @@ def test_default_device_raises_without_a_card():
 @pytest.mark.parametrize("pattern,kind", [(("attn", "attn_local"), "attn_local"),
                                           (("attn", "mamba"), "mamba")])
 def test_unported_mixers_raise(pattern, kind):
-    """'mamba' is refused by the model and by the serving state.  The
-    sliding-window 'attn_local' is ported: the paged row holds its ring
-    (``min(window, seq_len)`` keys, the reference's shapes), and a
-    whole-prompt prefill then a decode step on the dense cache and the ring
-    match the reference."""
+    """The second position's mixer, 'attn_local' or 'mamba', is ported: the
+    paged row holds its state (a ring of ``min(window, seq_len)`` keys, or
+    the Mamba ``h`` and conv tail; the reference's shapes), and a
+    whole-prompt prefill then a decode step on the dense cache and that
+    state match the reference."""
     cfg = CFG.replace(pattern=pattern, window=4)
-    if kind == "mamba":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 7"):
-            tf.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 7"):
-            tf.init_cache(cfg, 1, 16, skip=tf.paged_positions(cfg), device="cpu")
-        return
     jcfg = JCFG.replace(pattern=pattern, window=4)
     row = tf.init_cache(cfg, 1, 16, skip=tf.paged_positions(cfg), device="cpu")
     jrow = jtf.init_cache(jcfg, 1, 16, skip=jtf.paged_positions(jcfg))
     assert set(row) == set(jrow) == {"len", "pos1"}
-    assert tuple(row["pos1"]["k"].shape) == jrow["pos1"]["k"].shape == (1, 1, 4, 2, 16)
+    assert {n: tuple(t.shape) for n, t in row["pos1"].items()} == \
+        {n: t.shape for n, t in jrow["pos1"].items()} == (
+            {"k": (1, 1, 4, 2, 16), "v": (1, 1, 4, 2, 16)} if kind == "attn_local"
+            else {"h": (1, 1, 128, 16), "conv": (1, 1, 3, 128)})
     jparams = jtf.init_params(jcfg, jax.random.key(3))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
     toks = np.random.default_rng(3).integers(1, CFG.vocab_size, size=(2, 12)).astype(np.int32)
@@ -231,5 +228,6 @@ def test_unported_mixers_raise(pattern, kind):
     tlog, tcache = tf.decode_step(cfg, params, tcache, torch.from_numpy(nxt).long())
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
     for name in ("pos0", "pos1"):
-        np.testing.assert_allclose(tcache[name]["k"].numpy(), np.asarray(jcache[name]["k"]),
-                                   **TOL)
+        for leaf in tcache[name]:
+            np.testing.assert_allclose(tcache[name][leaf].numpy(),
+                                       np.asarray(jcache[name][leaf]), **TOL)
