@@ -357,7 +357,30 @@ MB L2.
      FMA forward, dq and dk/dv), losses and parameters within 1e-4, one
      schedule; jamba's 2 gram-tier steps (probes on the attention and
      dense-FFN layers), losses, ``sq_norm_sum`` and parameters within
-     1e-4.
+     1e-4;
+ 23. the exact tier at full width, per-sample gradients by
+     ``torch.func.vmap(grad(example_loss))`` (``make_train_step(estimator=
+     "exact", psn_impl="vmap", psn_chunk=2)`` through a hand-built
+     ``StepEngine`` and ``train_lm.train``; ``example_loss`` the LM loss of
+     one sequence; the layers run without remat inside the transform): (a)
+     phase 6's model and cut (Yi-6B widths, 8 of 32 layers, bf16, S 2048,
+     micro batch 2, sgd with momentum 0.9, lr 0.02), 4 steps at batch 4:
+     finite losses and Delta, launches exactly 24 forward, 16 dq and 16
+     dk/dv per microbatch (the main pass's 16, 8, 8 plus one of each per
+     layer for the fold of 2 samples: the vmap rule, not a loop), all on
+     the tensor cores; step ms beside phases 6 and 8, the per-sample pass's
+     share of a microbatch, the peak beside its reckoning; the microbatch's
+     norms held against a loop of ``torch.autograd.grad`` over its samples
+     on the card within 1e-3 relative (bf16 gradients; the same kernels at
+     B 1), and the probe path's estimate (``psn_impl="kernel"``) beside
+     them, unchecked; (b) hubert-xlarge widths **cut to 12 of 48 layers**
+     (non-causal hd 80), 2 steps: 36, 24, 24 launches per microbatch;
+ 24. the exact tier on the reference's reduced configs of all ten
+     architectures (float32, remat on): per-sample norms of 3 sequences by
+     vmap on the card (kernels) against the CPU (plain versions) within
+     1e-4 relative, on the ``pallas`` (the FMA kernels at hd 16: one
+     forward, dq and dk/dv per attention layer for the fold of 3),
+     ``flash`` and ``dense`` lanes.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -373,13 +396,13 @@ records ``chunk_attention (jamba: n_rep 4, serving)`` and
 ``paged_decode_attention (jamba: n_rep 4)`` at jamba's serving shapes (32/8
 heads of hd 128).
 
-The launches of the non-causal records count phase 14's three paths and
-phase 16's hubert run (both ranks), the dense-form records the phase-17
+The launches of the non-causal records count phase 14's three paths,
+phase 16's hubert run (both ranks) and phase 23b, the dense-form records the phase-17
 path they describe (gemma2's serving, llama3's serving), the kimi-k2
 records phase 19b's serving path, the jamba records phase 21c's, the
 other records
-the causal paths (phases 4, 6, 8, 10, 12, and 16's pod cell on both
-ranks).
+the causal paths (phases 4, 6, 8, 10, 12, 16's pod cell on both
+ranks, and 23a).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -414,6 +437,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import diversity  # noqa: E402
 from repro_torch.adapt import AdaptationProgram, DiveBatchPolicy  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.data import TokenStream, imagelike_classification  # noqa: E402
@@ -1958,6 +1982,8 @@ def card_vs_cpu_phase() -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 2048, 2, 12, 0.02
+#: median step ms by batch of each tier on this cut: phases 6, 8 and 23
+TIER_MS: dict[str, dict[int, float]] = {}
 
 
 def train_phase() -> dict:
@@ -2011,6 +2037,7 @@ def train_phase() -> dict:
 
     steady = recs[1:]
     secs = [rec["seconds"] for rec in steady]
+    TIER_MS["moment"] = step_ms_by_batch(recs)
     flops = [model_flops(rec["batch"]) for rec in steady]
     tokens = [rec["batch"] * TRAIN_SEQ for rec in steady]
     print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
@@ -2206,6 +2233,7 @@ def gram_train_phase() -> tuple[dict, dict]:
     print(f"  routes: {routes}")
     steady = recs[1:]
     secs = [rec["seconds"] for rec in steady]
+    TIER_MS["gram"] = step_ms_by_batch(recs)
     print(f"  per-step ms: median {1e3 * statistics.median(secs):.1f} over steps 2-"
           f"{GRAM_STEPS}; by batch: " + ", ".join(
               f"{m}: {1e3 * statistics.median([x['seconds'] for x in steady if x['batch'] == m]):.1f}"
@@ -4622,6 +4650,265 @@ def mamba_card_vs_cpu_phase() -> None:
     free()
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the exact tier at full width
+# ---------------------------------------------------------------------------
+
+# the exact tier's vmap path (``make_train_step(estimator="exact",
+# psn_impl="vmap")``): per-sample gradients EXACT_CHUNK samples at a time,
+# EXACT_STEPS steps at batch 4 (2 microbatches of 2); hubert-xlarge at a
+# depth cut (phase 14c's)
+EXACT_STEPS, EXACT_CHUNK = 4, 2
+EXACT_ENCODER_LAYERS, EXACT_ENCODER_STEPS = 12, 2
+# the vmapped norms (bf16 gradients of 2 samples at once, no remat) against
+# a loop over the samples (remat): the same kernels, cuBLAS at other shapes;
+# an H100 run (NVIDIA H100 80GB HBM3, 700 W) put a sample 9.5e-5 apart
+EXACT_LOOP_TOL = 1e-3
+
+
+def example_loss(cfg):
+    """The per-sample LM loss both packages' tests use: one sequence as a
+    batch of one."""
+    return lambda p, e: tf.loss_fn(cfg, p, {k: v[None] for k, v in e.items()})[0]
+
+
+def exact_engine(cfg, optimizer, micro_batch: int) -> StepEngine:
+    """The hand-built exact-tier engine on the LM loss: ``vmap(grad(
+    example_loss))`` over ``EXACT_CHUNK`` samples at a time."""
+
+    def build(num_micro: int, tier: str):
+        return make_train_step(cfg, optimizer, num_micro, estimator=tier,
+                               example_loss=example_loss(cfg), psn_impl="vmap",
+                               psn_chunk=EXACT_CHUNK)
+
+    engine = StepEngine(build, lm_bucket_of(micro_batch))
+    engine.tier = "exact"
+    return engine
+
+
+def exact_run(cfg, params, *, seq: int, steps: int, batches=None) -> tuple[dict, list, float]:
+    """``steps`` exact-tier steps at batch 4 (a tick every 2 steps) through
+    ``train_lm.train``: finite losses; launches exactly the main pass's 2L
+    forward, L dq and L dk/dv per microbatch plus one of each per layer for
+    each fold of ``EXACT_CHUNK`` samples, all on the planned routes.
+    Returns (the launch counts, the records, the peak GiB)."""
+    engine = exact_engine(cfg, sgd(momentum=0.9), TRAIN_MICRO)
+    program = train_lm.make_program("divebatch", m0=4, m_max=4, delta=0.5,
+                                    granule=TRAIN_MICRO, lr=TRAIN_LR, tick_every=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train_lm.train(cfg, params, program, steps=steps, seq_len=seq,
+                         micro_batch=TRAIN_MICRO, engine=engine, estimator="exact",
+                         batches=batches, log=lambda line: None)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = out["records"]
+    for rec in recs:
+        tick = (f"; tick: Delta {rec['diversity']:.6f}, gns {rec['gns']:.6g}"
+                if "diversity" in rec else "")
+        print(f"    step {rec['step']}: batch {rec['batch']} ({rec['num_micro']} "
+              f"microbatches), loss {rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms{tick}")
+    if not all(np.isfinite([rec["loss"] for rec in recs] + [rec["diversity"] for rec in recs
+                                                            if "diversity" in rec])):
+        raise AssertionError(f"exact tier: non-finite loss or Delta: {recs}")
+    n_micro = sum(rec["num_micro"] for rec in recs)
+    layers, folds = cfg.num_layers, -(-TRAIN_MICRO // EXACT_CHUNK)
+    per_mb = {"chunk_attention": (2 + folds) * layers, "flash_dq": (1 + folds) * layers,
+              "flash_dkv": (1 + folds) * layers}
+    want = {**{k: v * n_micro for k, v in per_mb.items()}, "paged_decode_attention": 0,
+            **NO_PSGN}
+    if counts != want:
+        raise AssertionError(f"exact-tier launches {counts}, expected {want}")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="exact-tier training")
+    print(f"  launches: {counts} (= main pass {2 * layers}, {layers}, {layers} + "
+          f"{folds} fold of {EXACT_CHUNK} samples x {layers}, {layers}, {layers} = "
+          f"{per_mb['chunk_attention']}, {per_mb['flash_dq']}, {per_mb['flash_dkv']} x "
+          f"{n_micro} microbatches; one launch per layer for the fold, not one per sample); "
+          f"attention routes {attention_routes()}")
+    del out, engine
+    return counts, recs, peak
+
+
+def step_ms_by_batch(recs) -> dict[int, float]:
+    """Median step ms by batch, the first step excluded."""
+    steady = recs[1:]
+    return {m: 1e3 * statistics.median([x["seconds"] for x in steady if x["batch"] == m])
+            for m in sorted({x["batch"] for x in steady})}
+
+
+def exact_phase() -> tuple[dict, dict]:
+    """Returns the launch counts of the two exact-tier paths (Yi-6B's and
+    hubert-xlarge's)."""
+    phase(f"23. the exact tier at full width: Yi-6B widths, {TRAIN_LAYERS} of 32 layers, "
+          f"bf16, remat, attn_impl='pallas', per-sample gradients by torch.func.vmap "
+          f"(psn_impl='vmap', psn_chunk {EXACT_CHUNK})")
+    free()
+    t0 = time.perf_counter()
+    cfg = YI.replace(num_layers=TRAIN_LAYERS, attn_impl="pallas")
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n = sum(p.numel() for p in params.parameters())
+    largest = max(p.numel() for p in params.parameters())
+    d, f, s = cfg.d_model, cfg.d_ff, TRAIN_SEQ
+    # the reckoning of the per-sample pass's peak: the state it runs beside
+    # (bf16 weights and momenta, the float32 microbatch accumulator and
+    # grad_sum: 12 B a parameter); EXACT_CHUNK per-sample gradient trees in
+    # bf16; the float32 cast and square of the largest leaf for each
+    # sample; the LM head's float32 dW for each sample in the loss's
+    # backward; the activations without remat, about 20 d + 10 f bytes a
+    # token a layer (the norms' inputs and float32 copies, q, k, v and the
+    # attention's output, the FFN's input, gate, up, sigmoid and product)
+    terms = {"state 12 B x N": 12 * n, "per-sample trees": 2 * EXACT_CHUNK * n,
+             "largest leaf cast": 2 * 4 * EXACT_CHUNK * largest,
+             "head dW": 4 * EXACT_CHUNK * cfg.vocab_size * d,
+             "activations": (20 * d + 10 * f) * EXACT_CHUNK * s * cfg.num_layers}
+    reckon = sum(terms.values()) / 2**30
+    print(f"  (a) {n / 1e9:.3f} B parameters, S {s}, micro batch {TRAIN_MICRO}, sgd "
+          f"(momentum 0.9, lr {TRAIN_LR}), {EXACT_STEPS} steps at batch 4; reckoned peak: "
+          + " + ".join(f"{k} {v / 2**30:.2f}" for k, v in terms.items())
+          + f" = {reckon:.2f} GiB (psn_chunk {EXACT_CHUNK} fits 80 GiB)")
+    counts, recs, peak = exact_run(cfg, params, seq=s, steps=EXACT_STEPS)
+    TIER_MS["exact"] = step_ms_by_batch(recs)
+    print("  step ms at batch 4 (median, steps 2-" f"{EXACT_STEPS}): exact "
+          f"{TIER_MS['exact'][4]:.1f}; phase 6's moment tier {TIER_MS['moment'][4]:.1f}, "
+          f"phase 8's gram tier {TIER_MS['gram'][4]:.1f} "
+          f"({TIER_MS['exact'][4] / TIER_MS['moment'][4]:.2f}x the moment tier)")
+    print(f"  peak device memory {peak:.2f} GiB; reckoned {reckon:.2f} GiB")
+
+    # one microbatch: the main pass and the per-sample pass timed apart
+    mb = {k: torch.from_numpy(v).to("cuda")
+          for k, v in TokenStream(cfg.vocab_size, seed=1).batch(0, TRAIN_MICRO, s).items()}
+    state_params = list(params.parameters())
+    ex = example_loss(cfg)
+    split = {}
+    for _ in range(2):  # the second round is the one kept
+        _, split["main pass"] = timed_s(lambda: torch.autograd.grad(
+            tf.loss_fn(cfg, params, mb)[0], state_params))
+        norms, split["per-sample pass"] = timed_s(
+            lambda: diversity.persample_sq_norms(ex, params, mb))
+    share = split["per-sample pass"] / sum(split.values())
+    print("  one exact-tier microbatch: " + ", ".join(
+        f"{k} {1e3 * v:.1f} ms" for k, v in split.items())
+        + f"; the per-sample pass {100 * share:.1f}% of it")
+    pass_peak = peak_gib(lambda: diversity.persample_sq_norms(ex, params, mb))
+    print(f"  the per-sample pass's peak above the resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB: {pass_peak:.2f} GiB")
+
+    # the same microbatch's norms by a loop over its samples: plain autograd
+    # (remat on), one sample at a time through the same kernels
+    loop = []
+    for i in range(TRAIN_MICRO):
+        grads = torch.autograd.grad(ex(params, {k: v[i] for k, v in mb.items()}),
+                                    state_params)
+        loop.append(sum(g.float().square().sum() for g in grads))
+        del grads
+    loop = torch.stack(loop)
+    rel = ((norms.sum() - loop.sum()).abs() / loop.sum()).item()
+    each = ((norms - loop).abs() / loop).max().item()
+    if not torch.isfinite(norms).all() or rel > EXACT_LOOP_TOL or each > EXACT_LOOP_TOL:
+        raise AssertionError(f"vmap norms {norms.tolist()} against the loop's {loop.tolist()}")
+    print(f"  sq_norm_sum of the microbatch by vmap {norms.sum().item():.6g} (per sample "
+          f"{[round(x, 4) for x in norms.tolist()]}), by a loop of torch.autograd.grad "
+          f"{loop.sum().item():.6g}: within {rel:.3e} relative, each sample within "
+          f"{each:.3e} (tol {EXACT_LOOP_TOL})")
+    # the probe path's estimate (psn_impl="kernel"): the probed dense
+    # layers' per-sample norms, bias terms included; not checked
+    hook = lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b)  # noqa: E731
+    specs = probes.probe_specs(cfg, TRAIN_MICRO, s, device="cuda")
+    _, acts, pgrads = probes.probe_grads(hook, params, specs, mb)
+    probe = ops.persample_sq_norm_tree(acts, pgrads, scale=float(TRAIN_MICRO), bias=True)
+    print(f"  the probe path's estimate (psn_impl='kernel') of the same microbatch "
+          f"{probe.sum().item():.6g}: {100 * probe.sum().item() / norms.sum().item():.2f}% "
+          f"of the exact norm (per sample "
+          f"{[f'{100 * a / b:.2f}%' for a, b in zip(probe.tolist(), norms.tolist())]}; "
+          f"probes cover {100 * probes.coverage(cfg):.2f}% of the parameters)")
+    del params, state_params, acts, pgrads, norms, loop
+    free()
+
+    enc = HUBERT.replace(num_layers=EXACT_ENCODER_LAYERS, attn_impl="pallas")
+    print(f"  (b) hubert-xlarge widths at {enc.num_layers} of {HUBERT.num_layers} layers "
+          f"(non-causal, hd {enc.resolved_head_dim}), S {HUBERT_SEQ}, {EXACT_ENCODER_STEPS} "
+          f"steps at batch 4:")
+    params = tf.init_params(enc, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    enc_counts, recs, peak = exact_run(enc, params, seq=HUBERT_SEQ, steps=EXACT_ENCODER_STEPS,
+                                       batches=train_lm.frame_batches(enc, 7))
+    print(f"  step ms at batch 4 (the second step): {1e3 * recs[-1]['seconds']:.1f}; peak "
+          f"device memory {peak:.2f} GiB")
+    del params
+    free()
+    print(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+    return counts, enc_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the exact tier on the reduced configs, card against CPU
+# ---------------------------------------------------------------------------
+
+# every architecture's reduced config with the lane it runs here: the
+# kernel lane where it has attention to take it, the flash lane (plain
+# PyTorch, 8-token blocks) and the dense lane at least once each
+EXACT_LANES = {
+    "yi-6b": dict(attn_impl="pallas"), "qwen2-7b": dict(attn_impl="pallas"),
+    "llama3-405b": dict(attn_impl="dense"),
+    "gemma2-27b": dict(attn_impl="flash", flash_q_block=8, flash_kv_block=8),
+    "internvl2-1b": dict(attn_impl="pallas"), "dbrx-132b": dict(attn_impl="pallas"),
+    "kimi-k2-1t-a32b": dict(attn_impl="flash", flash_q_block=8, flash_kv_block=8),
+    "falcon-mamba-7b": {}, "jamba-v0.1-52b": dict(attn_impl="pallas"),
+    "hubert-xlarge": dict(attn_impl="pallas")}
+EXACT_CPU_TOL = 1e-4
+
+
+def exact_batch(cfg, r, n: int = 3, seq: int = 32) -> dict:
+    """``n`` sequences: tokens or frame embeddings, and their targets."""
+    if cfg.input_mode == "tokens":
+        toks = r.integers(1, cfg.vocab_size, size=(n, seq + 1)).astype(np.int32)
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    return {"embeddings": r.standard_normal((n, seq, cfg.d_model)).astype(np.float32),
+            "targets": r.integers(0, cfg.vocab_size, size=(n, seq)).astype(np.int32)}
+
+
+def exact_card_vs_cpu_phase() -> None:
+    phase("24. the reference's reduced configs (float32, remat on): the exact tier's "
+          "per-sample norms by vmap on the card (kernels) against the CPU (plain versions)")
+    r = np.random.default_rng(24)
+    for arch, lane in EXACT_LANES.items():
+        cfg = get_config(arch, reduced=True).replace(remat=True, **lane)
+        cpu = tf.init_params(cfg, torch.Generator().manual_seed(24), "cpu")
+        card = tf.build(cfg, "cuda")
+        card.load_state_dict(cpu.state_dict())
+        b = exact_batch(cfg, r)
+        kernels.reset_launch_counts()
+        got = diversity.persample_sq_norms(example_loss(cfg), card,
+                                           {k: torch.from_numpy(v).cuda() for k, v in b.items()})
+        torch.cuda.synchronize()
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        want = diversity.persample_sq_norms(example_loss(cfg), cpu,
+                                            {k: torch.from_numpy(v) for k, v in b.items()})
+        gap = ((got.cpu() - want).abs() / want.abs()).max().item()
+        if not torch.isfinite(want).all() or gap > EXACT_CPU_TOL:
+            raise AssertionError(f"{arch}: card {got.tolist()} against the CPU "
+                                 f"{want.tolist()}")
+        # the kernel lane: one forward, dq and dk/dv per attention layer for
+        # the fold of 3 samples, on the FMA kernels (float32, hd 16)
+        n_attn = sum(kind != "mamba" for kind in
+                     (cfg.pattern[i % cfg.period] for i in range(cfg.num_layers)))
+        per = n_attn if cfg.attn_impl == "pallas" else 0
+        expect = {**{k: 0 for k in counts}, "chunk_attention": per, "flash_dq": per,
+                  "flash_dkv": per}
+        if counts != expect:
+            raise AssertionError(f"{arch}: launches {counts}, expected {expect}")
+        if per:
+            attn_routes(counts, plan_of(cfg, torch.float32), what=f"{arch} exact tier",
+                        routes=routes)
+        lane = cfg.attn_impl if n_attn else "no attention"
+        why = (f"1 x {n_attn} attention layers for the fold of 3" if per
+               else "the lane runs no kernel")
+        print(f"  {arch} [{lane}]: card {[round(x, 4) for x in got.tolist()]}, max rel gap "
+              f"{gap:.3e} (tol {EXACT_CPU_TOL}); launches {per}, {per}, {per} ({why})")
+    free()
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -4668,6 +4955,8 @@ def main() -> int:
     moe_card_vs_cpu_phase()
     mamba_paths = mamba_phase()
     mamba_card_vs_cpu_phase()
+    exact_counts, exact_encoder_counts = exact_phase()
+    exact_card_vs_cpu_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -4676,7 +4965,9 @@ def main() -> int:
              "gram-tier training": gram_counts, "persample_sq_norms_gram": alone_counts,
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
              "checkpoint-resume pod": pod_resume_counts,
-             "pod training (ranks)": rank_paths["pod training (ranks)"]}
+             "pod training (ranks)": rank_paths["pod training (ranks)"],
+             "exact-tier training": exact_counts}
+    encoder_paths["exact-tier encoder"] = exact_encoder_counts
     # a record naming its paths counts those (the dense group's forms, phase
     # 17; kimi-k2's, phase 19), the other non-causal records the encoder's
     # paths (phase 14), the others the rest

@@ -22,7 +22,9 @@ Wrappers over the hand-written CUDA kernels in ``csrc/`` (built by
   flash_attention         the training attention: an autograd function whose
                           forward is the chunk kernel at positions
                           ``arange(S)`` and whose backward is the two
-                          kernels above.
+                          kernels above.  Under ``torch.vmap`` (per-sample
+                          gradients) both directions fold the vmapped axis
+                          into B: one launch of each kernel for the fold.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``), cast to
 q's type.  A tensor on the card goes to the kernel, or the wrapper raises: a
@@ -408,38 +410,101 @@ flash_dkv.launches = 0
 flash_dkv.routes = {"tc": 0, "fma": 0}
 
 
+def _fold(t: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:
+    """A vmapped operand as one contiguous batch: its vmapped axis ``dim``
+    moved first (expanded to ``n`` where ``dim`` is None) and folded into
+    B, ``(n * B, ...)``."""
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``(n * B, ...) -> (n, B, ...)``, the vmapped axis first."""
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
+def _flash_forward(q, k, v, causal, window, softcap):
+    s = q.shape[1]
+    if k.shape[1] != s:
+        raise ValueError(f"flash_attention: self-attention needs Sk == Sq, got "
+                         f"{k.shape[1]} and {s}")
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    valid = torch.ones(s, dtype=torch.int32, device=q.device)
+    return chunk_attention_fwd(q, k, v, pos, pos, valid, window=window, softcap=softcap,
+                               causal=causal)
+
+
+def _flash_grads(q, k, v, dout, lse, delta, causal, window, softcap):
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    if q.device.type == "cpu":
+        return ref.flash_grads_ref(q, k, v, lse, delta, dout, **kw)
+    return (flash_dq(q, k, v, dout, lse, delta, **kw),
+            *flash_dkv(q, k, v, dout, lse, delta, **kw))
+
+
+class _FlashGrads(torch.autograd.Function):
+    """The flash backward's kernels as one function, ``(dq, dk, dv)``
+    float32: dq and dk/dv on the card, the plain version on the CPU.  It is
+    what the backward of :class:`_FlashAttention` calls; that backward runs
+    under the outer ``vmap`` of ``vmap(grad(...))``, so this has a fold rule
+    of its own: the vmapped axis folded into B, one dq and one dk/dv launch
+    for the fold.  Not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, dout, lse, delta, causal, window, softcap):
+        return _flash_grads(q, k, v, dout, lse, delta, causal, window, softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, dout, lse, delta, causal, window, softcap):
+        n = info.batch_size
+        args = [_fold(t, d, n) for t, d in zip((q, k, v, dout, lse, delta), in_dims)]
+        grads = _flash_grads(*args, causal, window, softcap)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Self-attention, causal or not: the chunk kernel forward at positions
-    ``arange(S)`` with every key valid, saving ``(q, k, v, out, lse)``; the
-    recompute backward ``delta = rowsum(dout * out)`` (plain torch, as the
-    reference does) then the dq and dk/dv kernels.  On the CPU both
-    directions take the plain versions."""
+    ``arange(S)`` with every key valid, ``(out, lse)`` with ``lse``
+    non-differentiable, saving ``(q, k, v, out, lse)``; the recompute
+    backward ``delta = rowsum(dout * out)`` (plain torch, as the reference
+    does) then :class:`_FlashGrads`.  On the CPU both directions take the
+    plain versions.
+
+    Under ``torch.vmap`` (the exact tier's ``vmap(grad(...))``) the forward
+    folds the vmapped axis into B and launches the chunk kernel once for
+    the fold; the kernels cannot read a batched tensor, so there is no
+    generated rule."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        s = q.shape[1]
-        if k.shape[1] != s:
-            raise ValueError(f"flash_attention: self-attention needs Sk == Sq, got "
-                             f"{k.shape[1]} and {s}")
-        pos = torch.arange(s, dtype=torch.int32, device=q.device)
-        valid = torch.ones(s, dtype=torch.int32, device=q.device)
-        out, lse = chunk_attention_fwd(q, k, v, pos, pos, valid, window=window,
-                                       softcap=softcap, causal=causal)
+    def forward(q, k, v, causal, window, softcap):
+        return _flash_forward(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
-        return out
 
     @staticmethod
-    def backward(ctx, dout):
+    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        n = info.batch_size
+        q, k, v = (_fold(t, d, n) for t, d in zip((q, k, v), in_dims))
+        out, lse = _flash_forward(q, k, v, causal, window, softcap)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        kw = dict(window=ctx.window, softcap=ctx.softcap, causal=ctx.causal)
-        if q.device.type == "cpu":
-            dq, dk, dv = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
-        else:
-            delta = ref.flash_delta(out, dout)
-            dq = flash_dq(q, k, v, dout, lse, delta, **kw)
-            dk, dv = flash_dkv(q, k, v, dout, lse, delta, **kw)
+        delta = ref.flash_delta(out, dout)
+        dq, dk, dv = _FlashGrads.apply(q, k, v, dout, lse, delta, ctx.causal, ctx.window,
+                                       ctx.softcap)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
@@ -453,4 +518,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     only).  In bf16 at head dims 64, 80, 112 and 128 the forward, dq and
     dk/dv take the tensor cores under either causality."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                 bool(causal), window, softcap)
+                                 bool(causal), window, softcap)[0]

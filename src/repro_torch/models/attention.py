@@ -213,7 +213,11 @@ def _flash_backward(q, k, v, out, lse, dout, causal, window, softcap, q_block, k
 
 class _FlashAttention(torch.autograd.Function):
     """The streaming forward, saving ``(q, k, v, out, lse)``; the recompute
-    backward.  ``setup_context`` keeps it a new-style function."""
+    backward.  ``setup_context`` keeps it a new-style function, and both
+    directions are plain PyTorch, so ``torch.vmap`` runs them through a
+    generated rule (the exact tier's per-sample pass)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(q, k, v, causal, window, softcap, q_block, kv_block):

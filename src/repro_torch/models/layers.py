@@ -117,3 +117,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": torch.relu}
+
+
+def in_func_transform() -> bool:
+    """True inside a ``torch.func`` transform (``grad``, ``vmap``): the
+    exact tier's per-sample pass.  ``torch.utils.checkpoint`` cannot run
+    there (torch.func refuses its saved-tensor hooks), and a side table
+    must not collect the transform's batched tensors."""
+    return torch._C._functorch.peek_interpreter_stack() is not None

@@ -29,11 +29,10 @@ the oracle of the tests and the card check; no path runs it.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import ACTIVATIONS
+from repro_torch.models.layers import ACTIVATIONS, in_func_transform
 
 
 class MoE(nn.Module):
@@ -41,7 +40,8 @@ class MoE(nn.Module):
     ``moe_apply``'s calls the ``dropped`` assignments and ``first_top``,
     the tokens whose first expert is their group's commonest first expert
     (device scalars, never read back here), and ``assignments`` (an int);
-    under remat the recomputed forward counts again."""
+    under remat the recomputed forward counts again, inside a ``torch.func``
+    transform (the exact tier's per-sample pass) nothing counts."""
 
     def __init__(self, d_model: int, d_ff: int, num_experts: int, dtype: torch.dtype):
         super().__init__()
@@ -133,7 +133,9 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     weights, experts, probs = _route(params.router.weight, xg, top_k)  # (G, tg, k)
     e_flat = experts.reshape(groups, tg * top_k)
     w_flat = weights.reshape(groups, tg * top_k)
-    oh = F.one_hot(e_flat, num_e)  # (G, tg*k, E)
+    experts_e = torch.arange(num_e, device=dev)
+    # one-hot by comparison: F.one_hot reads its largest index, which vmap refuses
+    oh = (e_flat[..., None] == experts_e).long()  # (G, tg*k, E)
     pos = ((oh.cumsum(dim=1) - 1) * oh).sum(-1)  # 0-based position within its expert
     keep = pos < cap
     slot = torch.where(keep, pos, cap - 1)
@@ -144,11 +146,11 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
         (g_idx, e_flat, slot), x_assign, accumulate=True)
 
     # load balance (Switch eq. 4): E * sum_e f_e * p_e, per group
-    first = F.one_hot(experts[..., 0], num_e).sum(1)  # (G, E) tokens by first expert
+    first = (experts[..., 0, None] == experts_e).long().sum(1)  # (G, E) tokens by first expert
     me = first.float() / tg
     aux = num_e * (me * probs.mean(1)).sum(-1)
     stats = params.stats
-    if stats is not None:
+    if stats is not None and not in_func_transform():  # the per-sample pass counts nothing
         stats["dropped"] = stats.get("dropped", 0) + (~keep).sum()
         stats["first_top"] = stats.get("first_top", 0) + first.amax(-1).sum()
         stats["assignments"] = stats.get("assignments", 0) + t * top_k

@@ -22,7 +22,10 @@ Under autograd the doubling scan keeps two (B, chunk, d_inner, d_state)
 float32 tensors a level.  With ``remat`` (``transformer`` passes
 ``cfg.remat``) each chunk step is checkpointed where gradients are on: only
 the boundary ``h`` and the chunk's inputs are kept, and the backward runs
-the chunk's scan again.  That changes no result.
+the chunk's scan again.  That changes no result.  Inside a ``torch.func``
+transform (the exact tier's per-sample pass) the steps run without the
+checkpoint, which torch.func cannot run: that pass keeps every chunk's
+scan.
 
 ``Mamba`` holds the parameters in the reference's layout: bias-free
 ``nn.Linear`` ``in_proj``, ``x_proj`` and ``out_proj``, ``dt_proj`` with
@@ -40,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import dense, silu
+from repro_torch.models.layers import dense, in_func_transform, silu
 
 
 class Mamba(nn.Module):
@@ -154,9 +157,10 @@ def _scan(layer: Mamba, h: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
           cmat: torch.Tensor, xi: torch.Tensor, chunk: int, remat: bool):
     """The chunk steps over the sequence from the state ``h``: (the final
     state, y (B, L, d_inner) in ``xi``'s type).  With ``remat`` each step
-    is checkpointed where gradients are on."""
+    is checkpointed where gradients are on, outside ``torch.func``
+    transforms."""
     a = -torch.exp(layer.A_log.float())  # (d_inner, d_state)
-    ckpt = remat and torch.is_grad_enabled()
+    ckpt = remat and torch.is_grad_enabled() and not in_func_transform()
     ys = []
     for i in range(0, dt.shape[1], chunk):
         args = (h, a, dt[:, i:i + chunk], bmat[:, i:i + chunk], cmat[:, i:i + chunk],

@@ -16,6 +16,13 @@ layer's contiguous ``(num_blocks, block, KV, hd)`` pool and
 Training: ``loss_fn`` runs the stack with gradients.  ``cfg.remat``
 checkpoints each layer (``torch.utils.checkpoint``, non-reentrant), so the
 backward runs the layer's forward again, attention kernel included.
+Inside a ``torch.func`` transform (the exact tier's ``vmap(grad(...))``,
+``core/diversity.py``) the layers run without the checkpoint, which
+torch.func cannot run: the per-sample pass keeps every layer's activations
+for the samples it takes at once, where the reference's ``jax.checkpoint``
+would not.  Remat changes no result, only memory.  ``xent_chunked`` and
+both flash lanes have vmap rules: the kernel lane folds the vmapped axis
+into B and launches each kernel once for the fold.
 ``cfg.attn_impl`` picks the attention lane (``models/attention.py::
 resolve_impl``): "pallas" is ``kernels/attention.py::flash_attention`` (the
 chunk kernel forward and the dq / dk-dv backward kernels on the card),
@@ -93,7 +100,8 @@ from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm
 from repro_torch.models.moe import MoE, init_experts_, moe_apply
-from repro_torch.models.layers import ACTIVATIONS, apply_rope, dense, embed, layer_norm, rms_norm
+from repro_torch.models.layers import (ACTIVATIONS, apply_rope, dense, embed, in_func_transform,
+                                       layer_norm, rms_norm)
 
 #: the mixers the port runs, in training and serving
 MIXERS = ("attn", "attn_local", "mamba")
@@ -305,11 +313,12 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer in order; ``(x, moe_aux)``, the aux loss summed over the
     layers.  Under ``cfg.remat`` each layer is checkpointed where gradients
-    are on: only its input is kept, and the backward runs its forward
-    again."""
+    are on, outside ``torch.func`` transforms: only its input is kept, and
+    the backward runs its forward again."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt = cfg.remat and torch.is_grad_enabled() and not in_func_transform()
     for _, p, blk in _layers(cfg, params):
-        if cfg.remat and torch.is_grad_enabled():
+        if ckpt:
             # the forward draws no random numbers: no RNG state to replay
             x, a = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
                               moe_groups, use_reentrant=False, preserve_rng_state=False)
@@ -335,8 +344,14 @@ def _chunk_logits(xc: torch.Tensor, w: torch.Tensor, softcap):
 
 
 class _XentChunked(torch.autograd.Function):
+    """The chunked cross-entropy and its recompute backward.  Under
+    ``torch.vmap`` the forward runs once per vmapped index, so each index
+    gets its own mean (one mean over the folded rows would mix them); the
+    backward is plain ops and runs under the transform as written (it
+    accumulates dW out of place)."""
+
     @staticmethod
-    def forward(ctx, x, weight, targets, chunk, softcap):
+    def forward(x, weight, targets, chunk, softcap):
         b, s, _ = x.shape
         w = weight.to(x.dtype)
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -344,9 +359,21 @@ class _XentChunked(torch.autograd.Function):
             logits, _ = _chunk_logits(x[:, i:i + chunk], w, softcap)
             tgt = logits.gather(-1, targets[:, i:i + chunk, None].long())[..., 0]
             loss_sum = loss_sum + (torch.logsumexp(logits, dim=-1) - tgt).sum()
+        return loss_sum / (b * s)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, weight, targets, chunk, softcap = inputs
         ctx.save_for_backward(x, weight, targets)
         ctx.chunk, ctx.softcap = chunk, softcap
-        return loss_sum / (b * s)
+
+    @staticmethod
+    def vmap(info, in_dims, x, weight, targets, chunk, softcap):
+        n = info.batch_size
+        x, weight, targets = (t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+                              for t, d in zip((x, weight, targets), in_dims))
+        return torch.stack([_XentChunked.forward(x[i], weight[i], targets[i], chunk, softcap)
+                            for i in range(n)]), 0
 
     @staticmethod
     def backward(ctx, g):
@@ -372,8 +399,9 @@ class _XentChunked(torch.autograd.Function):
             dlogits = (dlogits * scale).to(x.dtype)
             dx[:, i:i + chunk] = dlogits @ w
             if dw is not None:
-                dw.addmm_(dlogits.reshape(-1, dlogits.shape[-1]).t().float(),
-                          xc.reshape(-1, d).float())
+                # out of place: under vmap dW is batched, its zeros are not
+                dw = torch.addmm(dw, dlogits.reshape(-1, dlogits.shape[-1]).t().float(),
+                                 xc.reshape(-1, d).float())
         return dx, None if dw is None else dw.to(weight.dtype), None, None, None
 
 
@@ -385,7 +413,8 @@ def xent_chunked(x: torch.Tensor, weight: torch.Tensor, targets: torch.Tensor,
     x (B, S, d); ``weight`` the LM head in ``(V, d)`` layout (the reference
     takes its ``(d, V)`` kernel); targets (B, S) int.  The backward
     recomputes each chunk's logits and accumulates dW in float32: it keeps
-    only (x, weight, targets), as the reference's custom_vjp does."""
+    only (x, weight, targets), as the reference's custom_vjp does.  Under
+    ``torch.vmap`` each vmapped index gets its own mean."""
     s = x.shape[1]
     chunk = min(chunk, s)
     if s % chunk:

@@ -16,8 +16,9 @@ The diversity tier runs inside the step (``estimator``):
           exact for the dense weights that dominate.
   exact   with ``psn_impl="vmap"``: per-sample gradients of
           ``example_loss`` through ``torch.func`` (``core/diversity.py``),
-          for ``ModelFns`` models; with ``psn_impl="kernel"``: the gram
-          tier's probe pass plus each probed layer's bias term.
+          ``psn_chunk`` samples at a time, on ``ModelFns`` models and the
+          LM loss alike; with ``psn_impl="kernel"``: the gram tier's probe
+          pass plus each probed layer's bias term.
 
 What differs from the reference: the step runs eagerly, a Python loop over
 microbatches in place of ``lax.scan``, and updates the state's tensors in
@@ -162,10 +163,10 @@ def make_train_step(
     (``models/probes.py``, ``models/small.py``).  ``psn_impl="auto"``
     resolves as in the reference: vmap when ``example_loss`` is given, else
     kernel.  ``psn_chunk`` bounds the vmap width: per-sample gradients are
-    formed ``psn_chunk`` samples at a time.  The vmap path runs on
-    ``ModelFns`` models; on the LM loss it raises (``torch.func`` cannot
-    transform the old-style autograd functions ``xent_chunked`` and
-    ``flash_attention`` are made of).
+    formed ``psn_chunk`` samples at a time.  On the LM loss the vmap path
+    runs ``vmap(grad(example_loss))`` through the model: the layers run
+    without remat there, and the kernel lane launches each attention kernel
+    once per layer for the ``psn_chunk`` samples (``models/transformer.py``).
 
     ``dp_size`` is the data-parallel width the batch is laid out for; with
     a rank ``plan`` the step runs this rank's share and reduces over the
@@ -176,11 +177,6 @@ def make_train_step(
     if diversity_on:
         psn_impl = _check_estimator(estimator, example_loss, probe_loss, probe_specs,
                                     psn_impl)
-        if estimator == "exact" and psn_impl == "vmap" and loss_fn is None:
-            raise NotImplementedError(
-                "psn_impl='vmap' on the transformer LM: torch.func cannot transform "
-                "the old-style autograd functions of xent_chunked and flash_attention; "
-                "use psn_impl='kernel' with probes")
 
     group = plan.mesh.group(plan.dp) if plan is not None and plan.mesh.ranked else None
     if group is not None:

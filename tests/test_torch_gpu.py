@@ -1576,3 +1576,86 @@ def test_falcon_mamba_decode_on_card_matches_cpu(cuda):
     for key in ("h", "conv"):
         torch.testing.assert_close(card_state[key], cpu_state[key], rtol=1e-4, atol=1e-4)
     assert not any(kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the exact tier: per-sample gradients through the kernels under vmap
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,hd,causal,route", [
+    (torch.bfloat16, 128, True, "tc"), (torch.bfloat16, 80, False, "tc"),
+    (torch.float32, 16, True, "fma")], ids=["tc-causal-hd128", "tc-noncausal-hd80",
+                                            "fma-hd16"])
+def test_flash_attention_vmap_grads_on_card_match_a_loop(cuda, dtype, hd, causal, route):
+    """Per-sample gradients of ``sum(flash_attention(q, k, v) * w)`` over 3
+    samples by ``vmap(grad(...))`` on the card against a loop of
+    ``torch.autograd.grad`` on one sample at a time, the same kernels: the
+    vmap launches the forward, dq and dk/dv once each for the fold of 3
+    (the loop 3 times each), all on the route the plan names; q, dq, dk and
+    dv within the kernels' tolerance (float32 1e-4, bf16 2e-2, the
+    gradients cast to the inputs' type)."""
+    r = np.random.default_rng(hd)
+
+    def arr(*shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+
+    h, kv, s = (8, 2, 150) if causal else (4, 4, 130)
+    q, k, v = arr(3, 1, s, h, hd), arr(3, 1, s, kv, hd), arr(3, 1, s, kv, hd)
+    w = arr(1, s, h, hd)
+
+    def f(q_, k_, v_):
+        return (kattn.flash_attention(q_, k_, v_, causal, None, 10.0) * w).float().sum()
+
+    kernels.reset_launch_counts()
+    got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    assert {n: kernels.route_counts()[n] for n in kattn.ROUTED} == \
+        {n: {route: 1, "tc" if route == "fma" else "fma": 0} for n in kattn.ROUTED}
+    kernels.reset_launch_counts()
+    for i in range(3):
+        leaves = [t[i].clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(f(*leaves), leaves)
+        for g, lg in zip(got, want):
+            _close(g[i], lg, dtype)
+    assert {n: kernels.launch_counts()[n] for n in kattn.ROUTED} == \
+        {n: 3 for n in kattn.ROUTED}
+
+
+def test_exact_tier_on_card_matches_cpu(cuda):
+    """Reduced Yi-6B (float32, remat on, the kernel lane: the FMA kernels at
+    hd 16) takes 2 exact-tier steps of 4 sequences, per-sample gradients 2
+    at a time by vmap, on the card and on the CPU from identical weights:
+    losses and ``sq_norm_sum`` within 1e-4 relative, parameters within
+    1e-4; on the card exactly 2 forward, 1 dq and 1 dk/dv launch per layer
+    for the main pass and 1 of each per layer for each fold of 2."""
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get_config("yi-6b", reduced=True).replace(remat=True, attn_impl="pallas")
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = tf.build(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    example = lambda p, e: tf.loss_fn(cfg, p, {k: x[None] for k, x in e.items()})[0]  # noqa: E731
+    out = {}
+    for dev, model in ((cuda, card), ("cpu", cpu)):
+        step = make_train_step(cfg, sgd(), 1, estimator="exact", example_loss=example,
+                               psn_chunk=2)
+        state = init_state(model, sgd())
+        kernels.reset_launch_counts()
+        losses = []
+        for i in range(2):
+            state, m = step(state, TokenStream(cfg.vocab_size, seed=2).batch(i, 4, 32), 0.05)
+            losses.append(m["loss"].item())
+        out[str(dev)] = (losses, state.div_state.sq_norm_sum.item(), kernels.launch_counts())
+    (cl, cs, counts), (pl, ps, cpu_counts) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(cl, pl, rtol=1e-4)
+    np.testing.assert_allclose(cs, ps, rtol=1e-4)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-4)
+    n = cfg.num_layers
+    assert {k: counts[k] for k in kattn.ROUTED} == \
+        {"chunk_attention": 2 * (2 * n + 2 * n), "flash_dq": 2 * (n + 2 * n),
+         "flash_dkv": 2 * (n + 2 * n)}
+    assert not any(cpu_counts.values())

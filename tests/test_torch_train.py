@@ -384,11 +384,11 @@ def test_remat_and_dense_lane_give_the_same_gradients():
 
 def test_unported_paths_raise_and_name_the_queue(tmp_path):
     """The per-sample tiers without their hooks raise the reference's
-    ValueErrors; the vmap path (per-sample gradients of example_loss) runs
-    on ``ModelFns`` models only: on the LM loss it raises (torch.func cannot
-    transform its old-style autograd functions).  The XLA flash lane, once
-    unported, gives the dense lane's loss; ``--ckpt-dir``, once unported,
-    now writes a checkpoint at each tick."""
+    ValueErrors; the vmap path (per-sample gradients of example_loss), once
+    refused on the LM loss, builds and steps there ("vmap" and "auto",
+    ``tests/test_torch_exact_lm_train.py`` holds it against the reference).
+    The XLA flash lane, once unported, gives the dense lane's loss;
+    ``--ckpt-dir``, once unported, now writes a checkpoint at each tick."""
     cfg = get_config("yi-6b", reduced=True)
     with pytest.raises(ValueError, match="estimator='gram' needs probe_loss"):
         make_train_step(cfg, sgd(), 1, estimator="gram")
@@ -401,10 +401,12 @@ def test_unported_paths_raise_and_name_the_queue(tmp_path):
         make_train_step(cfg, sgd(), 1, estimator="exact")
     with pytest.raises(ValueError, match="unknown psn_impl"):
         make_train_step(cfg, sgd(), 1, psn_impl="jvp")
-    example = lambda p, e: 0.0  # noqa: E731
+    example = lambda p, e: tf.loss_fn(cfg, p, {k: v[None] for k, v in e.items()})[0]  # noqa: E731
     for kw in (dict(psn_impl="vmap"), dict(psn_impl="auto")):
-        with pytest.raises(NotImplementedError, match="torch.func"):
-            make_train_step(cfg, sgd(), 1, estimator="exact", example_loss=example, **kw)
+        step = make_train_step(cfg, sgd(), 1, estimator="exact", example_loss=example, **kw)
+        state = init_state(tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), sgd())
+        state, m = step(state, TokenStream(cfg.vocab_size).batch(0, 2, 8), 0.1)
+        assert np.isfinite(m["loss"].item()) and state.div_state.sq_norm_sum.item() > 0
     make_train_step(cfg, sgd(), 1, estimator="moment", example_loss=example)
     with pytest.raises(ValueError, match="unknown in-step estimator"):
         make_train_step(cfg, sgd(), 1, estimator="vmap")
