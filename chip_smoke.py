@@ -380,7 +380,33 @@ MB L2.
      vmap on the card (kernels) against the CPU (plain versions) within
      1e-4 relative, on the ``pallas`` (the FMA kernels at hd 16: one
      forward, dq and dk/dv per attention layer for the fold of 3),
-     ``flash`` and ``dense`` lanes.
+     ``flash`` and ``dense`` lanes;
+ 25. the training state sharded over ranks (``dist.sharding.StateLayout``):
+     (a) Yi-6B widths at 4 of 32 layers, bf16, remat, S 2048, trained 3
+     moment-tier steps under a DiveBatch program (batch 2, a sequence per
+     rank, a tick every 2 steps) on 2 gloo ranks sharing the card, a
+     ``(data 2)`` rung (``fsdp = ep = data``, no tp), against the same run
+     whole on one process: batches and buckets equal, losses within 1e-3
+     relative, the gathered parameters within 1e-3; each rank's resident
+     bytes (parameters, momenta, ``grad_sum``, leaf by leaf) equal to the
+     reckoning from ``infer_pspecs``; the collectives by kind each step
+     (``CollectiveClock``); exactly 8, 4, 4 attention launches a
+     microbatch; then one gram-tier step (8, 4, 4 and 12 gram, 2 fused psgn
+     launches).  (b) The first step at an NCCL world of one, to the bit of
+     the unsharded step.  (c) dbrx-132b at 1 layer with ``moe_impl="ep"``
+     (8 of 16 experts a rank, tokens over ``all_to_all_single``, a
+     256-token sequence a rank): two plain sgd steps at capacity 8.0
+     against ``moe_apply`` on one process, losses
+     within 1e-3 and three gathered leaves within 1e-3; the drops at the
+     config's capacity.  (d) reduced Yi-6B: the 2-rank sharded checkpoint
+     equals the one-process save of the gathered state byte for byte, and
+     restored onto one process its next step's loss is the ranks' within
+     1e-5;
+ 26. reduced Yi-6B, dbrx-132b (``moe_impl="ep"``), falcon-mamba-7b and
+     hubert-xlarge sharded on the same 2 ranks (kernels) against one
+     process on the CPU with whole state: losses, ``sq_norm_sum`` and the
+     gathered parameters within 1e-4, each rank holding fewer parameters
+     than the whole.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -402,7 +428,8 @@ path they describe (gemma2's serving, llama3's serving), the kimi-k2
 records phase 19b's serving path, the jamba records phase 21c's, the
 other records
 the causal paths (phases 4, 6, 8, 10, 12, 16's pod cell on both
-ranks, and 23a).
+ranks, 23a, and 25's sharded training, gram step and dbrx step on both
+ranks).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -418,6 +445,7 @@ import copy
 import functools
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -3312,14 +3340,22 @@ def param_checksum(model) -> float:
 
 
 class CollectiveClock:
-    """Wraps ``torch.distributed``'s ``all_reduce`` and ``all_gather`` (what
-    ``repro_torch.dist`` calls) to count their bytes and time them between
-    two synchronisations of the card."""
+    """Wraps the ``torch.distributed`` collectives ``repro_torch.dist`` calls
+    (``all_reduce``, ``all_gather``, and the sharded state's
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+    ``all_to_all_single``) to count their bytes and time them between two
+    synchronisations of the card.  Bytes are the buffer a call reduces or
+    forms: an all-reduce's tensor, a list gather's input, a gather's whole
+    output, a reduce-scatter's whole input, an all-to-all's send buffer."""
+
+    #: which positional argument's bytes a call counts
+    ARG = {"all_reduce": 0, "all_gather": 1, "all_gather_into_tensor": 0,
+           "reduce_scatter_tensor": 1, "all_to_all_single": 1}
 
     def __init__(self):
-        self.ms = {"all_reduce": 0.0, "all_gather": 0.0}
-        self.bytes = {"all_reduce": 0, "all_gather": 0}
-        self.calls = {"all_reduce": 0, "all_gather": 0}
+        self.ms = {n: 0.0 for n in self.ARG}
+        self.bytes = {n: 0 for n in self.ARG}
+        self.calls = {n: 0 for n in self.ARG}
         self._inner = {n: getattr(dist, n) for n in self.ms}
         for name, fn in self._inner.items():
             setattr(dist, name, self._timed(name, fn))
@@ -3331,7 +3367,7 @@ class CollectiveClock:
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             self.ms[name] += 1e3 * (time.perf_counter() - t0)
-            t = args[1] if name == "all_gather" else args[0]
+            t = args[self.ARG[name]]
             self.bytes[name] += t.numel() * t.element_size()
             self.calls[name] += 1
             return out
@@ -4909,6 +4945,561 @@ def exact_card_vs_cpu_phase() -> None:
     free()
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: the training state sharded over ranks
+# ---------------------------------------------------------------------------
+
+SHARD_LAYERS, SHARD_SEQ, SHARD_MICRO, SHARD_STEPS, SHARD_WORLD = 4, 2048, 2, 3, 2
+# the sharded bf16 run against the whole one: the ranks take one sequence of
+# each microbatch (cuBLAS at other shapes) and sum their bf16 gradient
+# shards; losses relative, parameters absolute (a bf16 flip of a 0.02
+# weight is 6e-5)
+SHARD_LOSS_RTOL, SHARD_PARAM_ATOL = 1e-3, 1e-3
+DBRX_EP_SEQ, DBRX_EP_FACTOR = 256, 8.0
+DBRX_PICKED = ("blocks.0.ffn.w_up", "blocks.0.attn.q.weight", "embed.weight")
+SHARD_REDUCED = ("yi-6b", "dbrx-132b", "falcon-mamba-7b", "hubert-xlarge")
+SHARD_CPU_TOL = 1e-4  # phase 7's bound: the card's kernels against the CPU's plain versions
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
+               "all_reduce")
+
+
+def shard_plan_abstract(world: int):
+    """A rung's roles (``fsdp = ep = data``, no tp) on an abstract mesh: the
+    plan the reckoning reads."""
+    from repro_torch.dist.plan import ShardingPlan, abstract_mesh
+
+    return ShardingPlan(mesh=abstract_mesh((world,), ("data",)), dp=("data",),
+                        fsdp=("data",), tp=None, ep=("data",))
+
+
+def reckoned_state_bytes(cfg, world: int) -> tuple[int, int, int]:
+    """``(per rank, whole, per-rank parameters)``: the bytes of the
+    parameters, the sgd momenta (the parameters' type) and ``grad_sum``
+    (float32), from ``infer_pspecs`` on the reference's paths and stacked
+    shapes (``interop.layout`` of a meta model)."""
+    from repro_torch import interop
+    from repro_torch.dist import sharding
+
+    plan = shard_plan_abstract(world)
+    model = tf.build(cfg, "meta")
+    named = dict(model.named_parameters())
+    tree, size = {}, {}
+    for leaf in interop.layout(model):
+        p = named[leaf.names[0]]
+        perm = sharding._FORM_PERM.get(leaf.form, tuple(range(p.dim())))
+        ref = tuple(p.shape[j] for j in perm)
+        tree[leaf.path] = ((len(leaf.names),) + ref) if leaf.stacked else ref
+        size[leaf.path] = 2 * p.element_size() + 4
+    specs = sharding.infer_pspecs(tree, plan)
+    mine = sum(math.prod(sharding.local_shape(sh, specs[k], plan)) * size[k]
+               for k, sh in tree.items())
+    whole = sum(math.prod(sh) * size[k] for k, sh in tree.items())
+    params = sum(math.prod(sharding.local_shape(sh, specs[k], plan)) for k, sh in tree.items())
+    return mine, whole, params
+
+
+def state_bytes(state) -> int:
+    """Resident bytes of a state's parameter-shaped leaves, leaf by leaf:
+    the parameters, the momenta, ``grad_sum``."""
+    leaves = (list(state.params.parameters()) + list(state.opt_state.momentum)
+              + list(state.div_state.grad_sum.values()))
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def clock_delta(before: dict, after: dict) -> dict:
+    return {k: {n: after[k][n] - before[k][n] for n in COLLECTIVES} for k in after}
+
+
+def whole_params(model, names=None) -> dict:
+    """A model's parameters (those of ``names``, or all) whole, gathered
+    when sharded (a collective over the rung), by name."""
+    from repro_torch.dist import sharding
+
+    layout = sharding.layout_of(model)
+    return {n: p.detach() if layout is None else layout.unshard(n, p.detach())
+            for n, p in model.named_parameters() if names is None or n in names}
+
+
+def shard_yi_cfg():
+    return YI.replace(num_layers=SHARD_LAYERS, attn_impl="pallas")
+
+
+def shard_yi_program():
+    """The tick-fired DiveBatch program of 25a: batch 2 (one microbatch, a
+    sequence per rank), a tick every 2 steps that may grow it to 4."""
+    return train_lm.make_program("divebatch", m0=SHARD_MICRO, m_max=2 * SHARD_MICRO,
+                                 delta=0.5, granule=SHARD_MICRO, lr=TRAIN_LR, tick_every=2)
+
+
+def shard_yi_whole(path: str, dev: str = "cuda") -> dict:
+    """25a's run with whole state on one process (in the parent): losses,
+    batches, buckets; its final parameters to ``path``."""
+    cfg = shard_yi_cfg()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    engine = StepEngine.for_lm(cfg, sgd(momentum=0.9), micro_batch=SHARD_MICRO,
+                               attn_impl="pallas", dp_size=SHARD_WORLD)
+    torch.cuda.reset_peak_memory_stats()
+    out = train_lm.train(cfg, params, shard_yi_program(), steps=SHARD_STEPS,
+                         seq_len=SHARD_SEQ, micro_batch=SHARD_MICRO, engine=engine,
+                         log=lambda line: None)
+    torch.save({n: p.detach().cpu() for n, p in params.named_parameters()}, path)
+    rec = {"loss": [r["loss"] for r in out["records"]],
+           "batch": [r["batch"] for r in out["records"]],
+           "buckets": list(engine.stats.buckets),
+           "bytes": state_bytes(out["state"]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "ms": [1e3 * r["seconds"] for r in out["records"]]}
+    del out, params, engine
+    free()
+    return rec
+
+
+def rank_shard_yi(dev, plan, whole_path: str) -> dict:
+    """25a on a rank: Yi-6B sharded over the rung, the moment tier under the
+    program, collectives by kind per step; then one gram-tier step."""
+    cfg = shard_yi_cfg()
+    opt = sgd(momentum=0.9)
+    params = place(tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), plan)
+    engine = StepEngine.for_lm(cfg, opt, micro_batch=SHARD_MICRO, attn_impl="pallas",
+                               dp_size=SHARD_WORLD, plan=plan)
+    clock = CollectiveClock()
+    steps, inner = [], engine.step
+
+    def step(state, batch, lr):
+        before = clock.snapshot()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = inner(state, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append({"batch": int(next(iter(batch.values())).shape[0]), "loss": loss,
+                      "ms": 1e3 * (time.perf_counter() - t1),
+                      "coll": clock_delta(before, clock.snapshot())})
+        return state, metrics
+
+    engine.step = step
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        out = train_lm.train(cfg, params, shard_yi_program(), steps=SHARD_STEPS,
+                             seq_len=SHARD_SEQ, micro_batch=SHARD_MICRO, engine=engine,
+                             plan=plan, log=lambda line: None)
+        torch.cuda.synchronize()
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        state = out["state"]
+        rec = {"steps": steps, "num_micro": [r["num_micro"] for r in out["records"]],
+               "buckets": list(engine.stats.buckets), "launches": counts, "routes": routes,
+               "bytes": state_bytes(state),
+               "params": sum(p.numel() for p in state.params.parameters()),
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "plan": plan_of(cfg, torch.bfloat16)}
+        # the gathered parameters against the whole run's (rank 0 reads them)
+        whole = torch.load(whole_path) if dist.get_rank() == 0 else None
+        gap = 0.0
+        for n, w in whole_params(state.params).items():
+            if whole is not None:
+                gap = max(gap, (w.float().cpu() - whole[n].float()).abs().max().item())
+        rec["param_gap"] = gap
+        del whole
+        # one gram-tier step from this state: its probe pass on the gathered blocks
+        gram = make_train_step(
+            cfg, opt, 1, plan=plan, estimator="gram",
+            probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+            probe_specs=lambda p, n: probes.probe_specs(cfg, n, SHARD_SEQ, device=dev))
+        batch = TokenStream(cfg.vocab_size, seed=5).batch(0, SHARD_MICRO, SHARD_SEQ)
+        kernels.reset_launch_counts()
+        before = clock.snapshot()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = gram(state, batch, TRAIN_LR)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        rec["gram"] = {"ms": 1e3 * (time.perf_counter() - t1), "loss": loss,
+                       "sq_norm_sum": state.div_state.sq_norm_sum.item(),
+                       "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+                       "coll": clock_delta(before, clock.snapshot())}
+    finally:
+        clock.close()
+    del out, state, params, engine
+    return rec
+
+
+def dbrx_ep_cfg(factor: float = DBRX_EP_FACTOR, ep: bool = True):
+    return DBRX.replace(num_layers=1, attn_impl="pallas", capacity_factor=factor,
+                        **({"moe_impl": "ep"} if ep else {}))
+
+
+def dbrx_ep_batch():
+    return TokenStream(DBRX.vocab_size, seed=2).batch(0, SHARD_WORLD, DBRX_EP_SEQ)
+
+
+def dbrx_one_process(dev: str = "cuda") -> dict:
+    """25c's reference in the parent: dbrx-132b at 1 layer on one process
+    through ``moe_apply`` (2 routing groups: one per rank's sequence), two
+    plain sgd steps at capacity 8.0 (no momentum, no diversity tier: the
+    ranks' state of two such models shares the card)."""
+    cfg = dbrx_ep_cfg(ep=False)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    # plain sgd, no diversity tier: two ranks' dbrx state share the one card
+    opt = sgd()
+    state = init_state(params, opt)
+    step = make_train_step(cfg, opt, 1, dp_size=SHARD_WORLD, moe_groups=SHARD_WORLD,
+                           diversity_on=False)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, dbrx_ep_batch(), TRAIN_LR)
+        losses.append(float(metrics["loss"]))
+    w = {n: params.get_parameter(n).detach().float().cpu() for n in DBRX_PICKED}
+    del state, params
+    free()
+    return {"loss": losses, "w": w}
+
+
+def rank_dbrx_ep(dev, plan) -> dict:
+    """25c on a rank: dbrx-132b at 1 layer, ``moe_impl="ep"``, its 8 of 16
+    experts resident; two plain sgd steps at capacity 8.0 (nothing drops),
+    then a forward at the config's own capacity counting the drops.  Each
+    rank holds its parameters, ``grad_sum`` (bf16: the diversity tier is
+    off) and the step's float32 accumulator: ≈ 26 GB a rank, two ranks on
+    the card."""
+    from repro_torch.dist.plan import use_plan
+
+    cfg = dbrx_ep_cfg()
+    opt = sgd()
+    params = place(tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), plan)
+    layer = params.blocks[0].ffn
+    expert_bytes = sum(w.numel() * w.element_size() for w in (layer.w_gate, layer.w_up,
+                                                               layer.w_out))
+    state = init_state(params, opt, div_dtype=torch.bfloat16)  # grad_sum unread here
+    step = make_train_step(cfg, opt, 1, plan=plan, diversity_on=False)
+    clock = CollectiveClock()
+    kernels.reset_launch_counts()
+    losses, ms = [], []
+    try:
+        before = clock.snapshot()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, dbrx_ep_batch(), TRAIN_LR)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+        coll = clock_delta(before, clock.snapshot())
+        counts = kernels.launch_counts()
+        picked = {n: w.float().cpu() for n, w in whole_params(params, DBRX_PICKED).items()}
+        # the config's own capacity: what drops on this rank's tokens
+        own = dbrx_ep_cfg(DBRX.capacity_factor)
+        layer.stats = {}
+        mine = {k: torch.as_tensor(v)[dist.get_rank():dist.get_rank() + 1].to(dev)
+                for k, v in dbrx_ep_batch().items()}
+        with torch.no_grad(), use_plan(plan):
+            tf.loss_fn(own, params, mine)
+        dropped, assigned = int(layer.stats["dropped"]), int(layer.stats["assignments"])
+        layer.stats = None
+    finally:
+        clock.close()
+    del state, params
+    return {"loss": losses, "ms": ms, "coll": coll, "launches": counts,
+            "expert_bytes": expert_bytes, "w": picked if dist.get_rank() == 0 else None,
+            "dropped": dropped, "assignments": assigned}
+
+
+def reduced_cfg(arch: str):
+    cfg = get_config(arch, reduced=True).replace(attn_impl="pallas")
+    return cfg.replace(moe_impl="ep", capacity_factor=8.0) if cfg.num_experts else cfg
+
+
+def reduced_batch(cfg, step: int) -> dict:
+    if cfg.input_mode == "tokens":
+        return TokenStream(cfg.vocab_size, seed=26).batch(step, 8, 32)
+    return train_lm.frame_batches(cfg, 26)(step, 8, 32)
+
+
+def reduced_run(arch: str, device, plan) -> dict:
+    """Phase 26's run of a reduced config: 3 moment-tier steps at 2
+    microbatches of 4; sharded over the rung under ``plan``, else whole with
+    the batch laid out for 2 ranks (experts in 2 routing groups: one per
+    rank's share, as the ranks' aux losses average)."""
+    cfg = reduced_cfg(arch)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(26), "cpu").to(device)
+    opt = sgd(momentum=0.9)
+    if plan is not None:
+        params = place(params, plan)
+        step = make_train_step(cfg, opt, 2, plan=plan)
+    else:
+        step = make_train_step(cfg, opt, 2, dp_size=SHARD_WORLD,
+                               moe_groups=SHARD_WORLD if cfg.num_experts else 1)
+    state = init_state(params, opt)
+    losses = []
+    for i in range(3):
+        state, metrics = step(state, reduced_batch(cfg, i), 0.05)
+        losses.append(float(metrics["loss"]))
+    return {"loss": losses, "sq_norm_sum": state.div_state.sq_norm_sum.item(),
+            "params": {n: t.cpu().numpy() for n, t in whole_params(state.params).items()},
+            "held": sum(p.numel() for p in state.params.parameters())}
+
+
+def card_ckpt_run(device, plan, root: str | None) -> dict:
+    """25d: reduced Yi-6B (float32) two steps, saved through the rung into
+    ``root``/sharded; the same state gathered and saved by one process into
+    ``root``/whole; then its third step's loss."""
+    from repro_torch import interop
+    from repro_torch.elastic.reshard import unshard_state
+
+    cfg = reduced_cfg("yi-6b")
+    opt = sgd(momentum=0.9)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(25), "cpu").to(device)
+    params = place(params, plan)
+    state = init_state(params, opt)
+    step = make_train_step(cfg, opt, 2, plan=plan)
+    for i in range(2):
+        state, _ = step(state, reduced_batch(cfg, i), 0.05)
+    ref = interop.reference_state(state)
+    tree = {"params": ref.params, "opt_state": ref.opt_state, "div_state": ref.div_state}
+    mesh = plan.mesh
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(root, "sharded")).save(
+        2, tree, group=mesh.group(mesh.axis_names), root=mesh.root)
+    save_s = time.perf_counter() - t0
+    state3, metrics = step(copy.deepcopy(state), reduced_batch(cfg, 2), 0.05)
+    whole = unshard_state(state)
+    if dist.get_rank() == mesh.root:
+        ref = interop.reference_state(whole)
+        CheckpointManager(os.path.join(root, "whole")).save(
+            2, {"params": ref.params, "opt_state": ref.opt_state, "div_state": ref.div_state})
+    return {"next_loss": float(metrics["loss"]), "save_s": save_s}
+
+
+def card_restore_one(device, root: str) -> float:
+    """25d in the parent: 25d's sharded save restored onto one process (a
+    state from other weights first), its third step's loss."""
+    from repro_torch import interop
+
+    cfg = reduced_cfg("yi-6b")
+    opt = sgd(momentum=0.9)
+    state = init_state(tf.init_params(cfg, torch.Generator().manual_seed(3), "cpu").to(device),
+                       opt)
+    ref = interop.reference_state(state, target=True)
+    out, _ = CheckpointManager(os.path.join(root, "sharded")).restore(
+        {"params": ref.params, "opt_state": ref.opt_state, "div_state": ref.div_state})
+    state = interop.load_reference_state(state, step=2, **out)
+    step = make_train_step(cfg, opt, 2, dp_size=SHARD_WORLD)
+    state, metrics = step(state, reduced_batch(cfg, 2), 0.05)
+    return float(metrics["loss"])
+
+
+def rank_sharded(dev, args) -> dict:
+    """25a, 25c, 25d and 26 on the ranks of one gloo world."""
+    plan = data_plan(dev)
+    out = {"backend": dist.get_backend(), "yi": rank_shard_yi(dev, plan, args["yi_whole"])}
+    free()
+    dist.barrier()
+    out["dbrx"] = rank_dbrx_ep(dev, plan)
+    free()
+    dist.barrier()
+    out["ckpt"] = card_ckpt_run(dev, plan, args["ckpt_dir"])
+    out["reduced"] = {arch: reduced_run(arch, dev, plan) for arch in SHARD_REDUCED}
+    return out
+
+
+def rank_sharded_world_one(dev, args) -> dict:
+    """25b, NCCL at a world of one: 25a's first step with whole state and
+    on a 1-rank plan (its specs shard nothing: every collective is an
+    identity)."""
+    cfg = shard_yi_cfg()
+    batch = TokenStream(cfg.vocab_size, seed=1).batch(0, SHARD_MICRO, SHARD_SEQ)
+    runs = {}
+    for tag, plan in (("base", None), ("ranked", data_plan(dev))):
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if plan is not None:
+            params = place(params, plan)
+        state = init_state(params, sgd(momentum=0.9))
+        step = make_train_step(cfg, sgd(momentum=0.9), 1, plan=plan)
+        state, metrics = step(state, batch, TRAIN_LR)
+        runs[tag] = (float.hex(float(metrics["loss"])),
+                     [p.detach().clone() for p in params.parameters()])
+        del state, params
+    same = all(torch.equal(a, b) for a, b in zip(runs["base"][1], runs["ranked"][1]))
+    return {"backend": dist.get_backend(), "loss": [runs["base"][0], runs["ranked"][0]],
+            "same": same and runs["base"][0] == runs["ranked"][0]}
+
+
+RANK_JOBS.update(sharded=rank_sharded, sharded_world_one=rank_sharded_world_one)
+
+
+def coll_line(coll: dict) -> str:
+    return "; ".join(f"{n} {coll['calls'][n]} calls, {coll['bytes'][n] / 1e9:.3f} GB, "
+                     f"{coll['ms'][n]:.1f} ms" for n in COLLECTIVES if coll["calls"][n])
+
+
+def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
+    """Phases 25 and 26; returns the launch counts of the sharded paths,
+    summed over the ranks."""
+    phase(f"25. the training state sharded over 2 gloo ranks on the one card: Yi-6B widths "
+          f"at {SHARD_LAYERS} of 32 layers, dbrx-132b's experts over an explicit all-to-all")
+    t_phase = time.perf_counter()
+    cfg = shard_yi_cfg()
+    mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, SHARD_WORLD)
+    n_params = sum(p.numel() for p in tf.build(cfg, "meta").parameters())
+    print(f"  (a) reckoned from infer_pspecs on a (data 2) rung (fsdp = ep = data, no tp): "
+          f"{mine_params / 1e9:.4f} B parameters per rank of {n_params / 1e9:.4f} B "
+          f"({100 * mine_params / n_params:.1f}%; lm_head (V -> tp) stays whole); state "
+          f"(parameters, momenta bf16, grad_sum float32) {mine / 1e9:.3f} GB per rank of "
+          f"{whole_bytes / 1e9:.3f} GB")
+    root = ckpt_root("sharded")
+    yi_whole_path = os.path.join(root, "yi_whole.pt")
+    os.makedirs(root, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        whole = shard_yi_whole(yi_whole_path, dev)
+        if whole["bytes"] != whole_bytes:
+            raise AssertionError(f"the whole run holds {whole['bytes']} bytes, reckoned "
+                                 f"{whole_bytes}")
+        print(f"  (a) the whole run on one process: losses "
+              f"{[round(x, 5) for x in whole['loss']]}, batches {whole['batch']}, step ms "
+              f"{[round(x, 1) for x in whole['ms']]}, peak {whole['peak_gib']:.2f} GiB "
+              f"({time.perf_counter() - t0:.1f} s)")
+        dbrx_ref = dbrx_one_process(dev)
+        t0 = time.perf_counter()
+        one = spawn_ranks("sharded_world_one", "nccl", 1, {})[0]
+        if not one["same"]:
+            raise AssertionError(f"(b) world 1: losses {one['loss']} or parameters differ")
+        print(f"  (b) [{one['backend']}, world 1, rank 0] 25a's first step on a 1-rank "
+              f"plan (nothing sharded: every collective an identity): loss {one['loss'][1]}, "
+              f"the unsharded run's to the bit, parameters too "
+              f"({time.perf_counter() - t0:.1f} s with the spawn)")
+        t0 = time.perf_counter()
+        res = spawn_ranks("sharded", "gloo", SHARD_WORLD,
+                          {"yi_whole": yi_whole_path, "ckpt_dir": root})
+        spawn_s = time.perf_counter() - t0
+        restored = card_restore_one(dev, root)
+        same_files = all(
+            open(os.path.join(root, "sharded", "step_0000000002", k, f), "rb").read()
+            == open(os.path.join(root, "whole", "step_0000000002", k, f), "rb").read()
+            for k in ("params", "opt_state", "div_state")
+            for f in sorted(os.listdir(os.path.join(root, "whole", "step_0000000002", k))))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = dict(sorted(res.items()))
+    tags = {r: f"[{res[r]['backend']}, world {SHARD_WORLD}, rank {r}]" for r in res}
+    layers = cfg.num_layers
+    for r in res:
+        y = res[r]["yi"]
+        if y["bytes"] != mine or y["params"] != mine_params:
+            raise AssertionError(f"{tags[r]} holds {y['bytes']} bytes ({y['params']} "
+                                 f"parameters), reckoned {mine} ({mine_params})")
+        losses = [s["loss"] for s in y["steps"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, whole["loss"]))
+        batches = [s["batch"] for s in y["steps"]]
+        if batches != whole["batch"] or y["buckets"] != whole["buckets"] \
+                or rel > SHARD_LOSS_RTOL:
+            raise AssertionError(f"{tags[r]} batches {batches} buckets {y['buckets']} losses "
+                                 f"{losses} against {whole}")
+        if r == 0 and y["param_gap"] > SHARD_PARAM_ATOL:
+            raise AssertionError(f"{tags[r]} gathered parameters {y['param_gap']:.3e} from "
+                                 f"the whole run's (tol {SHARD_PARAM_ATOL})")
+        n_micro = sum(y["num_micro"])
+        want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+                "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+        if y["launches"] != want:
+            raise AssertionError(f"{tags[r]} launches {y['launches']}, expected {want}")
+        attn_routes(y["launches"], y["plan"], what=f"{tags[r]} sharded Yi", routes=y["routes"])
+        print(f"  (a) {tags[r]} resident state {y['bytes'] / 1e9:.3f} GB = the reckoning "
+              f"({100 * y['bytes'] / whole_bytes:.1f}% of the whole {whole_bytes / 1e9:.3f} GB), "
+              f"{y['params'] / 1e9:.4f} B parameters; peak {y['peak_gib']:.2f} GiB (the whole "
+              f"run's {whole['peak_gib']:.2f})")
+        for i, st in enumerate(y["steps"]):
+            c = st["coll"]
+            coll_ms = sum(c["ms"][n] for n in COLLECTIVES)
+            print(f"    step {i + 1}: batch {st['batch']} ({y['num_micro'][i]} microbatches), "
+                  f"loss {st['loss']:.5f} (whole {whole['loss'][i]:.5f}), {st['ms']:.1f} ms, "
+                  f"collectives {coll_ms:.1f} ms ({100 * coll_ms / st['ms']:.1f}%): "
+                  f"{coll_line(c)}")
+        print(f"    losses within {rel:.3e} relative (tol {SHARD_LOSS_RTOL}), batches and "
+              f"buckets {y['buckets']} the whole run's"
+              + (f", gathered parameters within {y['param_gap']:.3e} (tol {SHARD_PARAM_ATOL})"
+                 if r == 0 else "")
+              + f"; launches {y['launches']} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+              f"microbatches), all three on tc")
+        g = y["gram"]
+        gram_want = {"chunk_attention": 2 * layers, "paged_decode_attention": 0,
+                     "flash_dq": layers, "flash_dkv": layers, "psgn_direct": 0,
+                     "psgn_gram": 3 * layers, "psgn_fused": 2, "psgn_split": 0,
+                     "quantize_int8": 0}
+        if {k: g["launches"].get(k, 0) for k in gram_want} != gram_want \
+                or not np.isfinite(g["sq_norm_sum"]) or g["sq_norm_sum"] <= 0:
+            raise AssertionError(f"{tags[r]} gram step: launches {g['launches']}, expected "
+                                 f"{gram_want}; sq_norm_sum {g['sq_norm_sum']}")
+        print(f"    gram tier, 1 step (batch {SHARD_MICRO}): loss {g['loss']:.5f}, sq_norm_sum "
+              f"{g['sq_norm_sum']:.6e}, {g['ms']:.1f} ms; launches {g['launches']} (psgn "
+              f"{3 * layers} gram, 2 fused, on {g['routes']}); {coll_line(g['coll'])}")
+    # (c) dbrx-132b's experts resident, the tokens over all_to_all_single
+    ref = dbrx_ref
+    d0 = res[0]["dbrx"]
+    for r in res:
+        d = res[r]["dbrx"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(d["loss"], ref["loss"]))
+        width = torch.finfo(getattr(torch, DBRX.param_dtype)).bits // 8
+        want_bytes = DBRX.num_experts * 3 * DBRX.d_model * DBRX.d_ff * width // SHARD_WORLD
+        if rel > SHARD_LOSS_RTOL or d["expert_bytes"] != want_bytes \
+                or d["coll"]["calls"]["all_to_all_single"] == 0:
+            raise AssertionError(f"{tags[r]} dbrx ep: losses {d['loss']} against {ref['loss']}, "
+                                 f"expert bytes {d['expert_bytes']} ({want_bytes}), "
+                                 f"all-to-alls {d['coll']['calls']}")
+        print(f"  (c) {tags[r]} dbrx-132b, 1 layer, moe_impl='ep', 8 of 16 experts resident "
+              f"({d['expert_bytes'] / 1e9:.3f} GB); forward loss {d['loss'][0]:.5f} and after "
+              f"one step {d['loss'][1]:.5f} against moe_apply on one process "
+              f"{[round(x, 5) for x in ref['loss']]}: within {rel:.3e} (tol {SHARD_LOSS_RTOL}); "
+              f"step ms {[round(x, 1) for x in d['ms']]}; {coll_line(d['coll'])}; at the "
+              f"config's capacity {DBRX.capacity_factor}: {d['dropped']} of "
+              f"{d['assignments']} assignments dropped on this rank")
+    gap = max((d0["w"][n] - ref["w"][n]).abs().max().item() for n in ref["w"])
+    if gap > SHARD_PARAM_ATOL:
+        raise AssertionError(f"dbrx ep: gathered parameters {gap:.3e} from one process")
+    print(f"  (c) after two steps w_up, q and the embedding, gathered, within {gap:.3e} of "
+          f"one process (tol {SHARD_PARAM_ATOL})")
+    # (d) checkpoints
+    ck = res[0]["ckpt"]
+    rel = abs(restored - ck["next_loss"]) / abs(ck["next_loss"])
+    if not same_files or rel > 1e-5:
+        raise AssertionError(f"(d) files equal {same_files}; the restored step {restored} "
+                             f"against {ck['next_loss']}")
+    print(f"  (d) reduced Yi-6B (float32): the 2-rank sharded save ({ck['save_s']:.2f} s, "
+          f"each leaf gathered as rank 0 writes it) equals the one-process save of the "
+          f"gathered state byte for byte: {same_files}; restored onto one process, step 3's "
+          f"loss {restored:.6f} against the ranks' {ck['next_loss']:.6f} (within {rel:.2e}, "
+          f"tol 1e-5)")
+    print(f"  phase 25: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s)")
+
+    phase("26. the reduced dense, MoE (moe_impl='ep'), Mamba and encoder configs sharded on "
+          "2 gloo ranks (card, kernels) against one process on the CPU (whole state)")
+    for arch in SHARD_REDUCED:
+        cpu = reduced_run(arch, "cpu", None)
+        for r in res:
+            got = res[r]["reduced"][arch]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], cpu["loss"]))
+            err = max(float(np.abs(got["params"][n] - v).max()) for n, v in cpu["params"].items())
+            sq = abs(got["sq_norm_sum"] - cpu["sq_norm_sum"]) / cpu["sq_norm_sum"]
+            held = sum(v.size for v in cpu["params"].values())
+            if rel > SHARD_CPU_TOL or err > SHARD_CPU_TOL or sq > SHARD_CPU_TOL \
+                    or got["held"] >= held:
+                raise AssertionError(f"{tags[r]} {arch}: losses {got['loss']} against "
+                                     f"{cpu['loss']}, parameters {err:.3e}, sq {sq:.3e}, "
+                                     f"held {got['held']} of {held}")
+            if r == 0:
+                print(f"  {arch} {tags[r]}: holds {got['held']} of {held} parameters; losses "
+                      f"within {rel:.3e} relative, sq_norm_sum {sq:.3e}, gathered parameters "
+                      f"within {err:.3e} (tol {SHARD_CPU_TOL})")
+    return {"sharded training (ranks)": {
+                k: sum(res[r]["yi"]["launches"][k] for r in res) for k in res[0]["yi"]["launches"]},
+            "sharded gram step (ranks)": {
+                k: sum(res[r]["yi"]["gram"]["launches"][k] for r in res)
+                for k in res[0]["yi"]["gram"]["launches"]},
+            "sharded dbrx ep (ranks)": {
+                k: sum(res[r]["dbrx"]["launches"][k] for r in res)
+                for k in res[0]["dbrx"]["launches"]}}
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -4957,6 +5548,7 @@ def main() -> int:
     mamba_card_vs_cpu_phase()
     exact_counts, exact_encoder_counts = exact_phase()
     exact_card_vs_cpu_phase()
+    sharded_paths = sharded_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -4966,7 +5558,7 @@ def main() -> int:
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"],
-             "exact-tier training": exact_counts}
+             "exact-tier training": exact_counts, **sharded_paths}
     encoder_paths["exact-tier encoder"] = exact_encoder_counts
     # a record naming its paths counts those (the dense group's forms, phase
     # 17; kimi-k2's, phase 19), the other non-causal records the encoder's

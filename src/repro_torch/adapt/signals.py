@@ -157,7 +157,7 @@ def gns_from_accumulators(div_state: Any, estimator: str = "moment") -> torch.Te
     else:
         m = n / div_state.mb_count.clamp_min(1.0)
     q = div_state.sq_norm_sum
-    r = ptu.tree_sq_norm(div_state.grad_sum)
+    r = ptu.tree_sq_norm(div_state.grad_sum, getattr(div_state, "layout", None))
     big_m = ((r - q) / (n * (n - m)).clamp_min(EPS)).clamp_min(0.0)
     e2 = (q / n - (m - 1.0) * big_m).clamp_min(EPS)
     tr_sigma = (e2 - big_m).clamp_min(0.0)

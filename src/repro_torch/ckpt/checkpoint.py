@@ -19,7 +19,10 @@ package loads in the other.
   * RANKS: with ``group=`` (a ``torch.distributed`` group) only its ``root``
     rank writes and prunes, after a barrier, and a second barrier holds the
     group until the files are published; every rank restores from the same
-    files.
+    files.  A rank that passes a state too forms its leaves in the same
+    order as the root and drops them: the leaves of a sharded state gather
+    their shards when formed (a collective), so the root copies one whole
+    leaf at a time to the host and the files are the one-process save's.
 
 Trees are nested dicts (flattened in sorted key order, as JAX flattens
 them), lists and tuples (by index), and named tuples (by field, in field
@@ -262,11 +265,18 @@ class CheckpointManager:
         """``state``: dict of trees.  ``extra``: JSON-serialisable host state
         (controller, cursor, python scalars).  With ``group``, every rank of
         it calls ``save``; rank ``root`` writes (synchronously) between two
-        barriers, and the others' ``state`` is ignored."""
+        barriers; another rank's ``state``, when given, has its function
+        leaves formed in the root's order and dropped (a sharded state's
+        leaves gather as they are formed)."""
         if group is not None:
             dist.barrier(group=group)
             if dist.get_rank() == root:
                 self._save(step, state, extra, sync=True)
+            elif state is not None:
+                for tree in state.values():
+                    for _, leaf in tree_flatten_with_paths(tree):
+                        if callable(leaf):
+                            leaf()
             dist.barrier(group=group)
             return
         self._save(step, state, extra, sync=not self.async_save)

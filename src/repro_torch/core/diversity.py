@@ -45,12 +45,16 @@ class DiversityState:
                   moment: running sum_j ||microbatch_sum_grad_j||^2.
     mb_count      number of microbatches accumulated (moment estimator).
     sample_count  number of samples accumulated.
+    layout        the ``dist.sharding.StateLayout`` that ``grad_sum``'s
+                  leaves are shards of (None: whole leaves); its norms then
+                  sum over the mesh, each element once.
     """
 
     grad_sum: dict
     sq_norm_sum: torch.Tensor
     mb_count: torch.Tensor
     sample_count: torch.Tensor
+    layout: Any = None
 
     def _replace(self, **kw) -> "DiversityState":
         return dataclasses.replace(self, **kw)
@@ -64,7 +68,8 @@ def init_state(params: Any, accum_dtype: torch.dtype = torch.float32) -> Diversi
     grad_sum = ptu.tree_zeros_like(params, dtype=accum_dtype)
     dev = ptu.leaves(grad_sum)[0].device
     return DiversityState(grad_sum=grad_sum, sq_norm_sum=_zero(dev),
-                          mb_count=_zero(dev), sample_count=_zero(dev))
+                          mb_count=_zero(dev), sample_count=_zero(dev),
+                          layout=getattr(params, "shard_layout", None))
 
 
 @torch.no_grad()
@@ -93,7 +98,7 @@ def accumulate(state: DiversityState, mean_grad: Any, microbatch_size: int,
     torch._foreach_add_(acc, [g.to(a.dtype) for a, g in zip(acc, ptu.leaves(mean_grad))],
                         alpha=m)
     if persample_sq_norm_sum is None:
-        contrib = (m * m) * ptu.tree_sq_norm(mean_grad)
+        contrib = (m * m) * ptu.tree_sq_norm(mean_grad, getattr(state, "layout", None))
     else:
         contrib = torch.as_tensor(persample_sq_norm_sum, dtype=torch.float32)
     state.sq_norm_sum.add_(contrib)
@@ -104,7 +109,8 @@ def accumulate(state: DiversityState, mean_grad: Any, microbatch_size: int,
 
 def diversity_exact(state: DiversityState) -> torch.Tensor:
     """Delta_hat for the exact/gram tiers: sq_norm_sum / ||grad_sum||^2."""
-    return state.sq_norm_sum / ptu.tree_sq_norm(state.grad_sum).clamp_min(EPS)
+    r = ptu.tree_sq_norm(state.grad_sum, getattr(state, "layout", None))
+    return state.sq_norm_sum / r.clamp_min(EPS)
 
 
 def diversity_moment(state: DiversityState) -> torch.Tensor:
@@ -123,7 +129,7 @@ def diversity_moment(state: DiversityState) -> torch.Tensor:
     j = state.mb_count.clamp_min(1.0)
     m = n / j
     q = state.sq_norm_sum
-    r = ptu.tree_sq_norm(state.grad_sum)
+    r = ptu.tree_sq_norm(state.grad_sum, getattr(state, "layout", None))
     big_m = ((r - q) / (n * (n - m)).clamp_min(EPS)).clamp_min(0.0)
     e2 = (q / n - (m - 1.0) * big_m).clamp_min(EPS)
     r_safe = r.clamp_min(EPS)
@@ -157,13 +163,17 @@ class _Bound(nn.Module):
 
 
 def persample_grads(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
-                    params: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
+                    params: nn.Module, batch: dict, values: dict | None = None
+                    ) -> dict[str, torch.Tensor]:
     """``vmap(grad)``: per-sample gradients ``{name: (B, *shape)}`` of
     ``loss_fn(params, example) -> scalar`` over the batch's leading axis,
-    through ``torch.func`` on ``functional_call``."""
+    through ``torch.func`` on ``functional_call``.  ``values`` (by name)
+    replaces the parameters' own: the whole tensors of a sharded state,
+    gathered outside the transform, so that no collective is vmapped."""
     bound = _Bound(params, loss_fn)
     names = [n for n, _ in params.named_parameters()]
-    values = {n: p.detach() for n, p in params.named_parameters()}
+    if values is None:
+        values = {n: p.detach() for n, p in params.named_parameters()}
 
     def one(pvals: dict, example: dict) -> torch.Tensor:
         return torch.func.functional_call(
@@ -174,10 +184,11 @@ def persample_grads(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
 
 
 def persample_sq_norms(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
-                       params: nn.Module, batch: dict) -> torch.Tensor:
+                       params: nn.Module, batch: dict, values: dict | None = None
+                       ) -> torch.Tensor:
     """(B,) float32 per-sample gradient squared norms (the exact tier)."""
     total = None
-    for g in persample_grads(loss_fn, params, batch).values():
+    for g in persample_grads(loss_fn, params, batch, values).values():
         v = g.float().square().reshape(g.shape[0], -1).sum(dim=-1)
         total = v if total is None else total + v
     return total

@@ -21,9 +21,23 @@ builds every mesh in the same order); a reduction over an axis goes through
 that axis's group (:meth:`Mesh.group`).  A local mesh over several physical
 devices raises in :meth:`Mesh.physical_device`: one process drives one
 device, and several devices take one rank each (``launch.mesh.init_ranks``
-under ``torchrun``).  The reference's ``constrain`` activation hook has no
-counterpart: parameters stay replicated at run time, and
-``dist.sharding`` holds the PartitionSpec rules.
+under ``torchrun``).  A rank mesh builds a group over every subset of its
+axes, so a spec entry naming several axes (``("pod", "data")``) has one.
+
+On a rank mesh with one entry per rank the training state is sharded at
+run time (``dist.sharding.state_layout``): each rank holds its shard of
+every leaf the rules shard.  The collectives below carry it, each batched
+per dtype into one call over one axis group: :func:`all_gather_dim` and
+:func:`reduce_scatter_dim` along a dim, :func:`all_to_all_dim0` over the
+leading dim; :func:`gather_shards` is the autograd form a block's forward
+calls (its backward reduce-scatters the gradient over the data-parallel
+axes and slices it over the others) and :func:`all_to_all` the one
+``models/moe_ep.py`` routes tokens through (its backward is the reverse
+exchange).  Chunks are ordered by the shard's position along the entry's
+axes, in the entry's order, whatever the groups' rank order.  A local mesh
+keeps whole leaves (its entries share one device, so sharding would save
+no byte).  The reference's ``constrain`` activation hook has no
+counterpart; ``dist.sharding`` holds the PartitionSpec rules.
 """
 
 from __future__ import annotations
@@ -113,6 +127,7 @@ class Mesh:
                              f"{tuple(axis_names)}")
         self.axis_names = tuple(str(a) for a in axis_names)
         self._groups: dict[tuple[str, ...], tuple[Any, tuple[int, ...]]] = {}
+        self._axis_groups: dict[tuple[str, ...], tuple[Any, int, list[int] | None]] = {}
         if self.ranked:
             self._build_groups()
 
@@ -132,13 +147,11 @@ class Mesh:
 
     # -- ranks and groups ------------------------------------------------------
     def _axes_key(self, axes: AxisNames) -> tuple[str, ...]:
+        """``axes`` as a subset of the mesh's axes, in mesh order."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if set(axes) == set(self.axis_names):
-            return self.axis_names
-        if len(axes) != 1 or axes[0] not in self.axis_names:
-            raise KeyError(f"the mesh builds groups over one axis or all of "
-                           f"{self.axis_names}, not {axes}")
-        return axes
+        if not axes or not set(axes) <= set(self.axis_names) or len(set(axes)) < len(axes):
+            raise KeyError(f"{axes} is not a subset of the mesh's axes {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
 
     def _rank_sets(self, axes: tuple[str, ...]) -> list[tuple[int, ...]]:
         """The distinct rank lists (mesh order, repeats dropped) along
@@ -162,9 +175,10 @@ class Mesh:
             raise RuntimeError(
                 "a mesh of RankDevice entries needs torch.distributed initialised "
                 "(repro_torch.launch.mesh.init_ranks, under torchrun)")
-        keys = [(a,) for a in self.axis_names]
-        if len(self.axis_names) > 1:
-            keys.append(self.axis_names)
+        names = self.axis_names
+        keys = [tuple(names[i] for i in range(len(names)) if (mask >> i) & 1)
+                for mask in range(1, 1 << len(names))]
+        keys.sort(key=len)  # one axis first, the whole mesh last
         for key in keys:
             for ranks in self._rank_sets(key):
                 group = dist.new_group(sorted(ranks))
@@ -172,8 +186,8 @@ class Mesh:
                     self._groups[key] = (group, ranks)
 
     def group(self, axes: AxisNames):
-        """The process group of this rank along ``axes`` (one axis, or all of
-        them); None on a local mesh."""
+        """The process group of this rank along ``axes`` (any subset of the
+        mesh's axes); None on a local mesh."""
         if not self.ranked:
             return None
         return self._groups[self._axes_key(axes)][0]
@@ -183,6 +197,45 @@ class Mesh:
         if not self.ranked:
             return (self.rank,)
         return self._groups[self._axes_key(axes)][1]
+
+    @property
+    def one_entry_per_rank(self) -> bool:
+        """Whether every rank holds exactly one entry (a rank mesh whose
+        state can be sharded)."""
+        return self.ranked and len(set(self.ranks.flat)) == self.size
+
+    def coords(self, rank: int | None = None) -> dict[str, int]:
+        """``{axis: position}`` of ``rank``'s entry (this rank's by
+        default); raises unless the rank holds exactly one entry."""
+        rank = self.rank if rank is None else int(rank)
+        where = np.argwhere(self.ranks == rank)
+        if len(where) != 1:
+            raise ValueError(f"rank {rank} holds {len(where)} entries of {self!r}, not one")
+        return dict(zip(self.axis_names, (int(i) for i in where[0])))
+
+    def axis_group(self, axes: AxisNames) -> tuple[Any, int, list[int] | None]:
+        """``(group, n, order)`` for a collective over ``axes`` (a name or
+        a tuple, in the order that numbers the shards): ``n`` shards, and
+        ``order[k]``, the position in the group (ranks sorted) of the rank
+        holding shard ``k``, or None when that is ``k`` itself."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if axes not in self._axis_groups:
+            mine = self.coords()
+            members = sorted(self.group_ranks(axes))
+            index = {}
+            for r in members:
+                c = self.coords(r)
+                if any(c[a] != mine[a] for a in self.axis_names if a not in axes):
+                    raise ValueError(f"rank {r} is off this rank's line along {axes}")
+                k = 0
+                for a in axes:
+                    k = k * self.shape[a] + c[a]
+                index[k] = members.index(r)
+            order = [index[k] for k in range(len(members))]
+            self._axis_groups[axes] = (
+                self.group(axes), len(members),
+                None if order == list(range(len(members))) else order)
+        return self._axis_groups[axes]
 
     @property
     def is_member(self) -> bool:
@@ -370,3 +423,169 @@ def broadcast_object(obj: Any, src: int, group, device: torch.device) -> Any:
         box, src=src, group=group,
         device=device if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     return box[0]
+
+
+# ---------------------------------------------------------------------------
+# collectives along a dim, over one axis group (the sharded state)
+# ---------------------------------------------------------------------------
+
+
+def _axes(axes: AxisNames) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _inverse(order: list[int]) -> list[int]:
+    inv = [0] * len(order)
+    for k, g in enumerate(order):
+        inv[g] = k
+    return inv
+
+
+@torch.no_grad()
+def all_gather_dim(tensors: Sequence[torch.Tensor], dims: Sequence[int], mesh,
+                   axes: AxisNames) -> list[torch.Tensor]:
+    """Each tensor whole along ``dims[i]``: the ``n`` shards over ``axes``
+    laid end to end in shard order; one ``all_gather_into_tensor`` per
+    dtype.  Contiguous results."""
+    group, n, order = mesh.axis_group(_axes(axes))
+    if n == 1:
+        return list(tensors)
+    out: list = [None] * len(tensors)
+    for idx in _by_dtype(tensors).values():
+        moved = [tensors[i].movedim(dims[i], 0) for i in idx]
+        flat = torch.cat([m.reshape(-1) for m in moved])
+        buf = flat.new_empty(n * flat.numel())
+        dist.all_gather_into_tensor(buf, flat, group=group)
+        rows = buf.view(n, -1)
+        if order is not None:
+            rows = rows[order]
+        for i, m, part in zip(idx, moved, rows.split([m.numel() for m in moved], dim=1)):
+            out[i] = part.reshape(n * m.shape[0], *m.shape[1:]).movedim(0, dims[i]).contiguous()
+    return out
+
+
+@torch.no_grad()
+def reduce_scatter_dim(tensors: Sequence[torch.Tensor], dims: Sequence[int], mesh,
+                       axes: AxisNames, mean: bool = True) -> list[torch.Tensor]:
+    """This rank's shard along ``dims[i]`` of each tensor summed (or
+    averaged) over the ``n`` ranks along ``axes``; one
+    ``reduce_scatter_tensor`` per dtype."""
+    group, n, order = mesh.axis_group(_axes(axes))
+    if n == 1:
+        return list(tensors)
+    out: list = [None] * len(tensors)
+    for idx in _by_dtype(tensors).values():
+        moved = [tensors[i].movedim(dims[i], 0) for i in idx]
+        rows = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
+        if order is not None:  # row g goes to the group's g-th rank
+            rows = rows[_inverse(order)]
+        part = rows.new_empty(rows.shape[1])
+        dist.reduce_scatter_tensor(part, rows.contiguous().view(-1), group=group)
+        if mean:
+            part.div_(n)
+        for i, m, piece in zip(idx, moved, part.split([m.numel() // n for m in moved])):
+            out[i] = piece.view(m.shape[0] // n, *m.shape[1:]).movedim(0, dims[i]).contiguous()
+    return out
+
+
+@torch.no_grad()
+def all_to_all_dim0(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """``x`` holds ``n`` chunks along dim 0, chunk ``k`` for shard ``k``
+    along ``axes``; returns chunk ``k`` from shard ``k`` (one
+    ``all_to_all_single``)."""
+    group, n, order = mesh.axis_group(_axes(axes))
+    if n == 1:
+        return x.clone()
+    rows = x.reshape(n, -1)
+    if order is not None:
+        rows = rows[_inverse(order)]
+    out = torch.empty_like(rows)
+    dist.all_to_all_single(out, rows.contiguous(), group=group)
+    if order is not None:
+        out = out[order]
+    return out.reshape(x.shape)
+
+
+def _slice_own(t: torch.Tensor, dim: int, mesh, axes: AxisNames) -> torch.Tensor:
+    """This rank's chunk of ``t`` along ``dim`` over ``axes`` (no exchange)."""
+    axes = _axes(axes)
+    c = mesh.coords()
+    k = 0
+    for a in axes:
+        k = k * mesh.shape[a] + c[a]
+    n = math.prod(mesh.shape[a] for a in axes)
+    return t.narrow(dim, k * (t.shape[dim] // n), t.shape[dim] // n).contiguous()
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: gathers each shard whole, round by round (one axis group a
+    round).  Backward: the rounds in reverse; over data-parallel axes the
+    gradient is reduce-scattered as a mean (the ranks saw different
+    samples), over the others each rank keeps its own slice (they computed
+    the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, mesh, dp, rounds, *shards):
+        ctx.mesh, ctx.dp, ctx.rounds = mesh, dp, rounds
+        out = list(shards)
+        for axes, members in rounds:
+            idx = [i for i, _ in members]
+            whole = all_gather_dim([out[i] for i in idx], [d for _, d in members], mesh, axes)
+            for i, w in zip(idx, whole):
+                out[i] = w
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, dp = ctx.mesh, set(ctx.dp)
+        g = list(grads)
+        for axes, members in reversed(ctx.rounds):
+            idx = [i for i, _ in members]
+            dims = [d for _, d in members]
+            if set(axes) <= dp:
+                parts = reduce_scatter_dim([g[i] for i in idx], dims, mesh, axes, mean=True)
+            elif not set(axes) & dp:
+                parts = [_slice_own(g[i], d, mesh, axes) for i, d in zip(idx, dims)]
+            else:
+                raise NotImplementedError(
+                    f"a dim sharded over {axes}, partly data-parallel ({sorted(dp)})")
+            for i, p in zip(idx, parts):
+                g[i] = p
+        return (None, None, None, *g)
+
+
+def gather_shards(shards: Sequence[torch.Tensor], dims: Sequence[Sequence[tuple[int, Any]]],
+                  mesh, dp: Sequence[str]) -> list[torch.Tensor]:
+    """Every shard whole, under autograd: ``dims[i]`` lists ``(dim, axes)``
+    of shard ``i``'s sharded dims.  One all-gather per axis group and dtype
+    (the groups in mesh order), and the reverse reduce-scatters or slices in
+    the backward (:class:`_GatherShards`); ``dp`` names the data-parallel
+    axes."""
+    rounds: dict[tuple[str, ...], list] = {}
+    for i, entries in enumerate(dims):
+        for d, axes in entries:
+            rounds.setdefault(_axes(axes), []).append((i, d))
+    if not rounds:
+        return list(shards)
+    order = sorted(rounds, key=lambda k: [mesh.axis_names.index(a) for a in k])
+    return list(_GatherShards.apply(mesh, tuple(dp), tuple((k, tuple(rounds[k])) for k in order),
+                                    *shards))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_to_all_dim0(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_dim0(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """:func:`all_to_all_dim0` under autograd: the backward sends each
+    chunk's gradient back where the chunk came from (the same exchange)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _AllToAll.apply(x, mesh, axes)
+    return all_to_all_dim0(x, mesh, axes)

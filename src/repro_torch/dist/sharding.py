@@ -30,16 +30,39 @@ over dp (falling back to the sequence dim for batch-1 decode) and kv-heads
 over tp (falling back to head_dim when kv_heads < tp size).
 
 :func:`shardings_of` maps the specs to DTensor placements over the plan's
-mesh axes.  Parameters stay replicated at run time: the rules are what a
-sharded state and a dry run read.
+mesh axes.
+
+The specs are also what the training state holds at run time.  On a rank
+mesh with one entry per rank (``dist.plan.Mesh.one_entry_per_rank``) each
+rank keeps, of every leaf, exactly the shard the reference's
+``NamedSharding(mesh, spec)`` gives its device: :func:`local_slices` (the
+offset along each sharded dim is the rank's position along the entry's
+axes, in the entry's order), :func:`shard` / :func:`unshard` for one leaf,
+:func:`shard_tree` / :func:`unshard_tree` for a tree keyed by the
+reference's paths.  :func:`state_layout` reads the specs of a model's
+parameters through ``interop.layout`` (a port tensor's dims are the
+reference leaf's, transposed or permuted, one slice of a stacked leaf):
+the :class:`StateLayout` it returns is attached to the model
+(``model.shard_layout``, :func:`layout_of`) and to the diversity state, and
+the parameters, momenta and ``grad_sum`` hold their shards.  A local mesh,
+whose entries share one device, keeps whole leaves, and so does a plan that
+shards nothing (the paper's small models match no rule): no layout then.
+The forward gathers a block's shards on entry (:func:`gathered`, the
+autograd all-gather of ``dist.plan.gather_shards``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping, Sequence
 
-from repro_torch.dist.plan import AxisNames, ShardingPlan
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist.plan import (AxisNames, ShardingPlan, all_gather_dim, all_reduce_mean,
+                                   gather_shards)
 
 
 class P(tuple):
@@ -227,3 +250,330 @@ def placements(spec: P, plan: ShardingPlan) -> tuple:
 def shardings_of(pspecs: Mapping[str, P], plan: ShardingPlan) -> dict[str, tuple]:
     """DTensor placements on the plan's mesh for a spec tree."""
     return {path: placements(spec, plan) for path, spec in pspecs.items()}
+
+
+# ---------------------------------------------------------------------------
+# shards at run time
+# ---------------------------------------------------------------------------
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_slices(shape: Sequence[int], spec: Sequence, mesh_shape: Mapping[str, int],
+                 coords: Mapping[str, int]) -> tuple[slice, ...]:
+    """The slices of a leaf of ``shape`` that the entry at ``coords`` holds
+    under ``spec``: along a dim sharded over axes ``(a, b)`` it holds chunk
+    ``coords[a] * size(b) + coords[b]`` of ``size(a) * size(b)``."""
+    out = []
+    for i, dim in enumerate(shape):
+        axes = _entry_axes(spec[i]) if i < len(spec) else ()
+        n, k = 1, 0
+        for a in axes:
+            n *= mesh_shape[a]
+            k = k * mesh_shape[a] + coords[a]
+        size = dim // n
+        out.append(slice(k * size, (k + 1) * size))
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, plan: ShardingPlan) -> tuple[int, ...]:
+    """The shard shape of a leaf (every rank's: the specs divide evenly)."""
+    return tuple(int(d) // plan.axis_size(_entry_axes(spec[i]) or None) if i < len(spec)
+                 else int(d) for i, d in enumerate(shape))
+
+
+def _sharded_dims(spec: Sequence) -> list[tuple[int, tuple[str, ...]]]:
+    return [(i, _entry_axes(e)) for i, e in enumerate(spec) if _entry_axes(e)]
+
+
+def shard(tensor: torch.Tensor, spec: Sequence, plan: ShardingPlan) -> torch.Tensor:
+    """This rank's shard of a whole leaf (a contiguous copy; the tensor
+    itself when ``spec`` shards nothing)."""
+    if not _sharded_dims(spec):
+        return tensor
+    mesh = plan.mesh
+    return tensor[local_slices(tensor.shape, spec, mesh.shape, mesh.coords())].contiguous()
+
+
+@torch.no_grad()
+def unshard(tensor: torch.Tensor, spec: Sequence, plan: ShardingPlan) -> torch.Tensor:
+    """The whole leaf from every rank's shard (an all-gather over each
+    sharded dim's axis group; a collective over them)."""
+    for d, axes in _sharded_dims(spec):
+        tensor = all_gather_dim([tensor], [d], plan.mesh, axes)[0]
+    return tensor
+
+
+def shard_tree(tree: Mapping[str, torch.Tensor], plan: ShardingPlan) -> dict:
+    """:func:`shard` of every leaf of a tree keyed by the reference's paths,
+    under :func:`infer_pspecs`."""
+    specs = infer_pspecs(tree, plan)
+    return {path: shard(t, specs[path], plan) for path, t in tree.items()}
+
+
+def unshard_tree(tree: Mapping[str, torch.Tensor], shapes: Mapping[str, Sequence[int]],
+                 plan: ShardingPlan) -> dict:
+    """The whole tree of :func:`shard_tree`'s shards (``shapes``: the whole
+    leaves' shapes, which the specs are inferred from)."""
+    specs = infer_pspecs(shapes, plan)
+    return {path: unshard(t, specs[path], plan) for path, t in tree.items()}
+
+
+def shards_state(plan: ShardingPlan | None) -> bool:
+    """Whether ``plan``'s mesh holds sharded state: a rank mesh with one
+    entry per rank, this rank among them."""
+    return (plan is not None and getattr(plan.mesh, "ranked", False)
+            and plan.mesh.one_entry_per_rank and plan.mesh.is_member)
+
+
+#: the port dim of each of the reference leaf's dims, by ``interop`` form
+_FORM_PERM = {"t": (1, 0), "hwio": (2, 3, 1, 0)}
+
+
+def param_pspecs(model: torch.nn.Module, plan: ShardingPlan) -> dict[str, P]:
+    """A :class:`P` per parameter of ``model`` (by ``named_parameters``
+    name), over the port tensor's own dims: the reference leaf's spec
+    (``interop.layout``: its path, and its shape stacked over the repeats)
+    carried through the transpose or the HWIO permutation, the stacked axis
+    dropped.  Whole shapes, also of a sharded model."""
+    from repro_torch.interop import layout  # interop imports the models
+
+    shapes = full_shapes(model)
+    out = {}
+    for leaf in layout(model):
+        shape = shapes[leaf.names[0]]
+        # the reference's dim j is the port tensor's dim perm[j]
+        perm = _FORM_PERM.get(leaf.form, tuple(range(len(shape))))
+        ref_shape = tuple(shape[j] for j in perm)
+        if leaf.stacked:
+            ref_shape = (len(leaf.names),) + ref_shape
+        ent = _param_entries(leaf.path, ref_shape, plan)
+        if leaf.stacked:
+            ent = ent[1:]
+        port = [None] * len(shape)
+        for j, e in enumerate(ent):
+            port[perm[j]] = e
+        for n in leaf.names:
+            out[n] = P(*port)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """One parameter's place in a :class:`StateLayout`: its name, whole
+    shape, ``(dim, axes)`` of each sharded dim, and whether it is a MoE
+    expert tensor (whose expert dim stays resident under ``moe_ep``)."""
+
+    name: str
+    shape: tuple[int, ...]
+    dims: tuple[tuple[int, tuple[str, ...]], ...]
+    expert: bool
+
+    @property
+    def spec(self) -> P:
+        ent: list = [None] * len(self.shape)
+        for d, axes in self.dims:
+            ent[d] = axes[0] if len(axes) == 1 else axes
+        return P(*ent)
+
+
+class StateLayout:
+    """Where each parameter-shaped leaf of a training state is sharded, on
+    one rank of a rank mesh.  Leaves are in ``named_parameters`` order (the
+    momenta's and ``grad_sum``'s order too).  ``ep_resident``: under
+    ``moe_impl="ep"`` the experts stay on their ranks and the tokens move
+    (``models/moe_ep.py``), so a block's gather leaves their expert dim
+    alone.  Shared, never copied (``copy.deepcopy`` returns it)."""
+
+    def __init__(self, plan: ShardingPlan, leaves: Sequence[LeafShard],
+                 ep_resident: bool = False):
+        self.plan = plan
+        self.mesh = plan.mesh
+        self.leaves = list(leaves)
+        self.by_name = {leaf.name: leaf for leaf in self.leaves}
+        self.ep_resident = bool(ep_resident)
+        self.coords = self.mesh.coords()
+        dp = set(plan.dp)
+        #: per leaf, the data-parallel axes its gather's backward does not
+        #: reduce over (the step all-reduces the gradient over them)
+        self.rest: list[tuple[str, ...]] = []
+        for leaf in self.leaves:
+            covered = {a for _, axes in leaf.dims for a in axes}
+            self.rest.append(tuple(a for a in self.mesh.axis_names
+                                   if a in dp and a not in covered))
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def __repr__(self) -> str:
+        n = sum(1 for leaf in self.leaves if leaf.dims)
+        return f"StateLayout({n} of {len(self.leaves)} leaves sharded on {self.mesh!r})"
+
+    # -- shapes ----------------------------------------------------------------
+    def local_shape(self, name: str) -> tuple[int, ...]:
+        leaf = self.by_name[name]
+        return local_shape(leaf.shape, leaf.spec, self.plan)
+
+    def resident(self, leaf: LeafShard) -> tuple[tuple[int, tuple[str, ...]], ...]:
+        """The sharded dims a block's gather leaves alone: an expert tensor's
+        expert dim under ``ep_resident``."""
+        if not (self.ep_resident and leaf.expert):
+            return ()
+        ep = tuple(self.plan.ep)
+        return tuple((d, axes) for d, axes in leaf.dims if axes == ep)
+
+    # -- data ------------------------------------------------------------------
+    def shard(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole leaf named ``name``."""
+        return shard(tensor, self.by_name[name].spec, self.plan)
+
+    def unshard(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """The whole leaf ``name`` from the shards (a collective); a whole
+        tensor comes back as it is."""
+        leaf = self.by_name[name]
+        if tuple(tensor.shape) == leaf.shape:
+            return tensor
+        return unshard(tensor, leaf.spec, self.plan)
+
+    def gather(self, names: Sequence[str], tensors: Sequence[torch.Tensor],
+               keep_resident: bool = True) -> list[torch.Tensor]:
+        """The tensors whole under autograd (``dist.plan.gather_shards``):
+        the sharded ones that are still shards (a whole tensor, as in the
+        exact tier's per-sample pass, passes through), all in one gather per
+        axis group and dtype; expert dims stay resident under
+        ``ep_resident`` unless ``keep_resident`` is False."""
+        out = list(tensors)
+        pick, dims = [], []
+        for i, (n, t) in enumerate(zip(names, tensors)):
+            leaf = self.by_name.get(n)
+            if leaf is None or not leaf.dims or tuple(t.shape) == leaf.shape:
+                continue
+            keep = self.resident(leaf) if keep_resident else ()
+            todo = [e for e in leaf.dims if e not in keep]
+            if todo:
+                pick.append(i)
+                dims.append(todo)
+        if pick:
+            whole = gather_shards([tensors[i] for i in pick], dims, self.mesh, self.plan.dp)
+            for i, w in zip(pick, whole):
+                out[i] = w
+        return out
+
+    # -- gradients and norms ---------------------------------------------------
+    @torch.no_grad()
+    def finish_grads(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Gradient shards (each rank's own samples' where the gather's
+        backward did not average them) into the global microbatch mean: an
+        all-reduce mean over the data-parallel axes each leaf's gather did
+        not cover (one per axis group and dtype), and for resident experts a
+        division by the expert ranks (their tokens' gradients came back
+        summed over the ranks that sent them)."""
+        out = list(grads)
+        by_rest: dict[tuple[str, ...], list[int]] = {}
+        for i, (leaf, rest) in enumerate(zip(self.leaves, self.rest)):
+            if self.resident(leaf):
+                out[i] = out[i] / self.plan.ep_size
+            elif rest:
+                by_rest.setdefault(rest, []).append(i)
+        for rest, idx in by_rest.items():
+            n = self.plan.axis_size(rest)
+            red = all_reduce_mean([out[i] for i in idx], self.mesh.group(rest), n)
+            for i, r in zip(idx, red):
+                out[i] = r
+        return out
+
+    def owned(self, i: int) -> bool:
+        """Whether this rank counts leaf ``i``'s shard in a norm: it holds
+        position 0 on every axis the leaf is not sharded over (so each
+        element counts once over the mesh)."""
+        covered = {a for _, axes in self.leaves[i].dims for a in axes}
+        return all(self.coords[a] == 0 for a in self.mesh.axis_names if a not in covered)
+
+    @torch.no_grad()
+    def sq_norm(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The squared L2 norm of the whole tree from its shards: per leaf
+        the float32 norm squared, the leaves this rank does not own zeroed,
+        summed, then summed over the mesh (one all-reduce)."""
+        norms = torch.stack([torch.linalg.vector_norm(x, dtype=torch.float32)
+                             for x in tensors]).square()
+        mask = torch.tensor([self.owned(i) for i in range(len(tensors))],
+                            dtype=torch.float32, device=norms.device)
+        total = (norms * mask).sum()
+        dist.all_reduce(total, group=self.mesh.group(self.mesh.axis_names))
+        return total
+
+    def numel(self) -> int:
+        """Elements of the parameters this rank holds."""
+        return sum(math.prod(self.local_shape(leaf.name)) for leaf in self.leaves)
+
+
+def state_layout(model: torch.nn.Module, plan: ShardingPlan | None) -> StateLayout | None:
+    """The layout of ``model``'s parameters (whole shapes) on ``plan``; None
+    when ``plan`` holds no sharded state (:func:`shards_state`) or its
+    specs shard nothing."""
+    if not shards_state(plan):
+        return None
+    from repro_torch.models.moe import MoE
+
+    experts = {f"{name}.{p}" for name, mod in model.named_modules() if isinstance(mod, MoE)
+               for p in ("w_gate", "w_up", "w_out")}
+    leaves = []
+    full = full_shapes(model)
+    specs = param_pspecs(model, plan)
+    for name, shape in full.items():  # named_parameters order
+        leaves.append(LeafShard(name, shape, tuple(_sharded_dims(specs[name])),
+                                name in experts))
+    if not any(leaf.dims for leaf in leaves):
+        return None
+    cfg = getattr(model, "cfg", None)
+    ep = cfg is not None and getattr(cfg, "moe_impl", None) == "ep" and plan.ep_size > 1
+    return StateLayout(plan, leaves, ep_resident=ep)
+
+
+def layout_of(model: Any) -> StateLayout | None:
+    """The :class:`StateLayout` a model's parameters are sharded by (None
+    for whole parameters)."""
+    return getattr(model, "shard_layout", None)
+
+
+def full_shapes(model: torch.nn.Module) -> dict[str, tuple[int, ...]]:
+    """Every parameter's whole shape (its shard's under a layout)."""
+    lay = layout_of(model)
+    if lay is not None:
+        return {leaf.name: leaf.shape for leaf in lay.leaves}
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def gathered(module: torch.nn.Module, layout: StateLayout | None, prefix: str = "",
+             keep_resident: bool = True) -> Iterator[torch.nn.Module]:
+    """``module`` with its sharded parameters swapped for whole tensors
+    (gathered under autograd, one call per axis group and dtype) for the
+    block's extent; ``prefix`` is the module's name in the layout's model,
+    ``keep_resident`` as in :meth:`StateLayout.gather`.  No layout: the
+    module as it is."""
+    if layout is None:
+        yield module
+        return
+    names, owners, tensors = [], [], []
+    for name, p in module.named_parameters():
+        leaf = layout.by_name.get(prefix + name)
+        if leaf is not None and leaf.dims:
+            names.append(prefix + name)
+            mod, _, attr = name.rpartition(".")
+            owners.append((module.get_submodule(mod), attr))
+            tensors.append(p)
+    whole = layout.gather(names, tensors, keep_resident)
+    saved = []
+    try:
+        for (mod, attr), w in zip(owners, whole):
+            saved.append((mod, attr, mod._parameters[attr]))
+            mod._parameters[attr] = w
+        yield module
+    finally:
+        for mod, attr, p in reversed(saved):
+            mod._parameters[attr] = p

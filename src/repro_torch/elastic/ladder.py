@@ -17,9 +17,11 @@ shards on its virtual devices; a local ladder runs the rungs whose devices
 are all one physical device (``dist.plan.Mesh.physical_device``).  Over the
 world's ranks the list holds ``dist.plan.RankDevice`` entries
 (``dist.plan.rank_devices``): every rung's mesh, and so its process groups,
-is built at construction on every rank, a rung over several ranks averages
-its gradients over its dp group (``engine_for``), and the widest rung's
-group carries the run's decisions (``control``).
+is built at construction on every rank, a rung over several ranks holds
+the state sharded by the reference's rules (``fsdp = ep =`` the dp axis,
+``tp =`` the model axes: ``elastic.reshard``) and averages its gradients
+over its dp group (``engine_for``), and the widest rung's group carries the
+run's decisions (``control``).
 """
 
 from __future__ import annotations

@@ -1,29 +1,39 @@
 """State movement between ladder rungs.
 
-Counterpart of ``repro/elastic/reshard.py``.  ``reshard`` moves a full
+Counterpart of ``repro/elastic/reshard.py``.  ``state_shardings`` gives the
+specs of a state on a rung (``infer_pspecs``), ``reshard`` moves a full
 ``TrainState`` (parameters, optimizer state, diversity accumulators,
-compression residuals) from one rung's plan onto another's.  Every rung the
-port runs lives on one physical device (``dist.plan.Mesh.physical_device``),
-and nothing is sharded within it: the state moves with ``.to(device)``,
-value-exact.  With ``donate=True`` the source is moved in place (a module's
-``.to`` is in place, tensors already on the device are kept); with
-``donate=False`` the caller's state is copied first and left as it was.
+compression residuals) from one rung's plan onto another's, and ``place``
+puts a host tree onto a rung.
+
+A local rung (every entry a ``torch.device`` of this process) lives on one
+physical device (``dist.plan.Mesh.physical_device``) and keeps whole
+leaves: its entries share the device, so sharding would save no byte.  The
+state moves with ``.to(device)``, value-exact.  With ``donate=True`` the
+source is moved in place (a module's ``.to`` is in place, tensors already
+on the device are kept); with ``donate=False`` the caller's state is copied
+first and left as it was.
 
 When source and destination describe the same rung (``same_plan``) the
-function is a STRICT no-op: it returns the identical state object.  Between
-two rungs over the same physical device nothing moves either (only the
-returned object is new when ``donate=False``).
+function is a STRICT no-op: it returns the identical state object.
 
-``place`` is the restore-time variant: a host tree (numpy or tensors) onto
-a plan's device, or the CPU when no plan is given.
+Between rank rungs (meshes of ``dist.plan.RankDevice`` entries, one per
+rank) the state is sharded: each rank of the destination holds the shard
+of every leaf that the reference's ``NamedSharding`` would give its device
+(``dist.sharding.state_layout``).  The move gathers each sharded leaf whole
+over the source rung's groups, broadcasts it from the destination's first
+rank over the destination's whole-mesh group (the ranks that enter the
+rung receive the state, the others their own bits back), then keeps this
+rank's slice of the destination, leaf by leaf.  A rank outside the
+destination keeps its state (whole, once it has helped the source gather
+it) and waits at the next boundary.  A plan whose specs shard nothing (the
+paper's small models; a rung of one rank) keeps whole leaves and moves
+them by one broadcast per dtype, as before sharding existed.
 
-Between rank rungs (meshes of ``dist.plan.RankDevice`` entries) a rank
-inside the destination moves its state onto its device and, when the rung
-spans several ranks, every rank of it takes the state by a broadcast from
-the rung's first rank over the rung's whole-mesh group (the ranks that
-enter it receive the state, the others receive their own bits back); a
-rank outside the destination keeps its state and waits at the next
-boundary.  A transition within one rank stays a value-exact ``.to``.
+``place`` is the restore-time variant: a host tree onto a plan's device, or
+the CPU when no plan is given; on a rank rung it slices the tree by the
+specs (a ``TrainState`` or a model by their layout, a tree of the
+reference's paths by ``infer_pspecs``).
 """
 
 from __future__ import annotations
@@ -37,9 +47,15 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.dist.plan import ShardingPlan, broadcast_
 
 Tree = Any
+TrainState = Any  # train.state.TrainState (duck-typed: train imports this module)
+
+
+def _is_train_state(obj: Any) -> bool:
+    return isinstance(getattr(obj, "params", None), nn.Module) and hasattr(obj, "div_state")
 
 
 def same_mesh(a, b) -> bool:
@@ -59,6 +75,13 @@ def same_plan(a: ShardingPlan | None, b: ShardingPlan | None) -> bool:
         return False
     return (a.dp == b.dp and a.fsdp == b.fsdp and a.tp == b.tp and a.ep == b.ep
             and same_mesh(a.mesh, b.mesh))
+
+
+def state_shardings(tree: Tree, plan: ShardingPlan) -> dict:
+    """The specs of a tree keyed by the reference's paths on ``plan``
+    (``infer_pspecs``; optimizer and diversity accumulators shard like
+    their parameters, unmatched leaves replicate) as DTensor placements."""
+    return sharding.shardings_of(sharding.infer_pspecs(tree, plan), plan)
 
 
 def _move(obj: Any, device: torch.device) -> Any:
@@ -81,33 +104,134 @@ def _move(obj: Any, device: torch.device) -> Any:
     return obj
 
 
+# ---------------------------------------------------------------------------
+# the parameter-shaped leaves of a state
+# ---------------------------------------------------------------------------
+
+
+def _aligned(state: TrainState) -> list[tuple[list | dict, Any]]:
+    """The containers of a state's parameter-shaped leaves, each aligned
+    with ``named_parameters``: ``(container, keys)``, the parameters' own
+    ``.data`` included (as a list of the parameters)."""
+    names = [n for n, _ in state.params.named_parameters()]
+    out: list = [(list(state.params.parameters()), None)]
+    opt = state.opt_state
+    if dataclasses.is_dataclass(opt):
+        for f in dataclasses.fields(opt):
+            v = getattr(opt, f.name)
+            if isinstance(v, list) and len(v) == len(names):
+                out.append((v, None))
+    out.append((state.div_state.grad_sum, names))
+    return out
+
+
+def _map_aligned(state: TrainState, fn) -> None:
+    """Replace every parameter-shaped leaf ``t`` (parameter ``name``) by
+    ``fn(name, t)``, leaf by leaf, in a fixed order."""
+    names = [n for n, _ in state.params.named_parameters()]
+    for container, keys in _aligned(state):
+        for i, name in enumerate(names):
+            if keys is None:
+                t = container[i]
+                new = fn(name, t.data if isinstance(t, nn.Parameter) else t)
+                if isinstance(t, nn.Parameter):
+                    t.data = new
+                else:
+                    container[i] = new
+            else:
+                container[keys[i]] = fn(name, container[keys[i]])
+
+
+def _set_layout(state: TrainState, layout) -> None:
+    state.params.shard_layout = layout
+    state.div_state.layout = layout
+
+
+def shard_module(model: nn.Module, plan: ShardingPlan | None) -> nn.Module:
+    """Keep this rank's shard of each of ``model``'s whole parameters (in
+    place) and attach their layout; a plan that shards nothing leaves the
+    model as it is."""
+    layout = sharding.state_layout(model, plan)
+    if layout is not None:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.data = layout.shard(name, p.data)
+    model.shard_layout = layout
+    return model
+
+
+def unshard_state(state: TrainState) -> TrainState:
+    """Every parameter-shaped leaf whole (gathered over the layout's groups,
+    leaf by leaf: a collective over them); the layout dropped."""
+    layout = sharding.layout_of(state.params)
+    if layout is not None:
+        _map_aligned(state, layout.unshard)
+        _set_layout(state, None)
+    return state
+
+
+def _other_tensors(state: TrainState) -> list[torch.Tensor]:
+    """The state's tensors that are not parameter-shaped, in a fixed order:
+    the model's buffers, the optimizer's other tensors, the diversity
+    scalars and any compression residuals."""
+    n = len(list(state.params.parameters()))
+    out = list(state.params.buffers())
+    opt = state.opt_state
+    if dataclasses.is_dataclass(opt):
+        for f in dataclasses.fields(opt):
+            v = getattr(opt, f.name)
+            if not (isinstance(v, list) and len(v) == n):
+                out += _tensors(v)
+    div = state.div_state
+    out += [div.sq_norm_sum, div.mb_count, div.sample_count]
+    return out + _tensors(state.err_state)
+
+
 def reshard(state: Tree, src_plan: ShardingPlan | None, dst_plan: ShardingPlan | None,
             *, donate: bool = True) -> Tree:
     """Move ``state`` from ``src_plan``'s rung onto ``dst_plan``'s.
 
     Strict no-op (the very same object) when the rung is unchanged.
-    ``dst_plan=None`` leaves the state on its device.  Raises
-    ``NotImplementedError`` for a destination over several physical
-    devices."""
+    ``dst_plan=None`` leaves the state on its device (whole: a sharded
+    state is gathered).  Raises ``NotImplementedError`` for a destination
+    over several physical devices."""
     if same_plan(src_plan, dst_plan):
         return state
     if not donate:
         state = copy.deepcopy(state)
-    if dst_plan is None:
-        return state
-    mesh = dst_plan.mesh
-    if mesh.ranked and not mesh.is_member:
-        return state  # outside the rung: wait at the next boundary
+    train = _is_train_state(state)
+    mesh = dst_plan.mesh if dst_plan is not None else None
+    if dst_plan is None or (mesh.ranked and not mesh.is_member):
+        # outside the rung: gather with the source, then wait at the next boundary
+        return unshard_state(state) if train else state
     state = _move(state, mesh.physical_device())
-    if mesh.ranked and mesh.spans_ranks:
+    if not (mesh.ranked and mesh.spans_ranks):
+        return unshard_state(state) if train else state
+    layout = sharding.state_layout(state.params, dst_plan) if train else None
+    group = mesh.group(mesh.axis_names)
+    if train:
+        unshard_state(state)
+    if layout is None:
         tensors = _tensors(state)
         step = getattr(state, "step", None)
         if isinstance(step, int):  # the step count rides as one more tensor
             tensors.append(torch.tensor([step], dtype=torch.int64, device=tensors[0].device))
-        broadcast_(tensors, mesh.root, mesh.group(mesh.axis_names))
+        broadcast_(tensors, mesh.root, group)
         if isinstance(step, int):
             state = dataclasses.replace(state, step=int(tensors[-1]))
-    return state
+        return state
+
+    def take(name: str, t: torch.Tensor) -> torch.Tensor:
+        broadcast_([t], mesh.root, group)
+        return layout.shard(name, t)
+
+    with torch.no_grad():
+        _map_aligned(state, take)
+        rest = _other_tensors(state)
+        rest.append(torch.tensor([state.step], dtype=torch.int64, device=rest[0].device))
+        broadcast_(rest, mesh.root, group)
+    _set_layout(state, layout)
+    return dataclasses.replace(state, step=int(rest[-1]))
 
 
 def _tensors(obj: Any) -> list[torch.Tensor]:
@@ -128,9 +252,36 @@ def _tensors(obj: Any) -> list[torch.Tensor]:
 
 def place(tree: Tree, plan: ShardingPlan | None) -> Tree:
     """Put a host (or device) tree onto ``plan``'s device; the default
-    device (the card) when ``plan`` is None.  On a rank outside a rank
-    plan's mesh the tree stays where it is."""
+    device (the card) when ``plan`` is None.  On a rank rung that shards,
+    each rank keeps its slice: a ``TrainState`` or a model by its layout
+    (the values must be the same on every rank, as for the reference's
+    ``device_put`` of a host tree), a tree of the reference's paths by
+    ``infer_pspecs``.  A state already sharded on another rung moves from
+    there (``reshard``).  On a rank outside a rank plan's mesh the tree
+    stays where it is."""
+    if _is_train_state(tree):
+        cur = sharding.layout_of(tree.params)
+        if cur is not None:  # sharded on a rung already: move it from there
+            return tree if same_plan(cur.plan, plan) else place(
+                reshard(tree, cur.plan, plan), plan)
     if plan is not None and plan.mesh.ranked and not plan.mesh.is_member:
         return tree
     dev = plan.mesh.physical_device() if plan is not None else resolve_device()
-    return _move(tree, dev)
+    tree = _move(tree, dev)
+    if not sharding.shards_state(plan):
+        return tree
+    if _is_train_state(tree):
+        layout = sharding.state_layout(tree.params, plan)
+        if layout is not None:
+            with torch.no_grad():
+                _map_aligned(tree, layout.shard)
+            _set_layout(tree, layout)
+        return tree
+    if isinstance(tree, nn.Module):
+        return shard_module(tree, plan)
+    from repro_torch.ckpt.checkpoint import _unflatten, tree_flatten_with_paths
+
+    flat = tree_flatten_with_paths(tree)
+    tensors = {p: t for p, t in flat if isinstance(t, torch.Tensor)}
+    shards = sharding.shard_tree(tensors, plan)
+    return _unflatten(tree, iter(shards.get(p, t) for p, t in flat))

@@ -24,7 +24,11 @@ the diversity accumulators' ``grad_sum`` (a dict by parameter name).
 holds the reference's paths: ``opt_state/momentum/<param path>``,
 ``div_state/grad_sum/...``, ``div_state/sq_norm_sum``, ``step``) and
 ``load_reference_state`` writes such a tree back into a port state, in
-place.
+place.  A sharded state (``dist.sharding.StateLayout``) maps through the
+same layout: its reference leaves are the whole leaves (a lazy leaf gathers
+its shards when it is formed, a collective over the layout's groups, so
+every rank of the rung forms the leaves in the same order), and a tree
+written into it is sliced to each tensor's shard.
 
 For the parity tests: ``params_from_jax`` / ``small_params_from_jax`` /
 ``resnet_params_from_jax`` build the port's model holding the weights of a
@@ -45,6 +49,7 @@ from torch import nn
 
 from repro_torch.ckpt.checkpoint import tree_flatten_with_paths
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.models import resnet, small
 from repro_torch.models import transformer as tf
 from repro_torch.optim.optimizer import AdamWState, SGDState
@@ -92,7 +97,9 @@ def layout(model: nn.Module) -> list[Leaf]:
     return list(groups.values())
 
 
-def _to_ref(tensors: list, form: str, stacked: bool) -> torch.Tensor:
+def _to_ref(tensors: list, form: str, stacked: bool, names=(), shards=None) -> torch.Tensor:
+    if shards is not None:  # whole from the shards
+        tensors = [shards.unshard(n, t.detach()) for n, t in zip(names, tensors)]
     ts = [_TO_REF[form](t.detach()) for t in tensors]
     return torch.stack(ts) if stacked else ts[0].contiguous()
 
@@ -125,9 +132,10 @@ def to_reference(model: nn.Module, named: dict, *, lazy: bool = False) -> dict:
     tree shaped like ``model``'s parameters).  ``lazy`` leaves are functions
     that form the leaf when called (``ckpt`` calls them one at a time)."""
     pairs = []
+    shards = sharding.layout_of(model)
     for leaf in layout(model):
         fn = functools.partial(_to_ref, [named[n] for n in leaf.names], leaf.form,
-                               leaf.stacked)
+                               leaf.stacked, leaf.names, shards)
         pairs.append((leaf.path, fn if lazy else fn()))
     return _nest(pairs)
 
@@ -136,6 +144,7 @@ def to_reference(model: nn.Module, named: dict, *, lazy: bool = False) -> dict:
 def from_reference(model: nn.Module, named: dict, tree: Any) -> None:
     """Write the reference tree ``tree`` into ``named``'s tensors in place."""
     flat = dict(tree_flatten_with_paths(tree))
+    shards = sharding.layout_of(model)
     for leaf in layout(model):
         src = _tensor(flat[leaf.path])
         dst0 = named[leaf.names[0]]
@@ -144,6 +153,8 @@ def from_reference(model: nn.Module, named: dict, tree: Any) -> None:
             part = src[i] if leaf.stacked else src
             dst = named[n]
             part = _FROM_REF[leaf.form](part)
+            if shards is not None:
+                part = shards.shard(n, part)
             if tuple(part.shape) != tuple(dst.shape):
                 raise ValueError(f"{leaf.path}: shape {tuple(part.shape)} does not fit "
                                  f"{n} {tuple(dst.shape)}")
@@ -155,8 +166,8 @@ def from_reference(model: nn.Module, named: dict, tree: Any) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _meta(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+def _meta(t: torch.Tensor, shape=None) -> torch.Tensor:
+    return torch.empty(t.shape if shape is None else shape, dtype=t.dtype, device="meta")
 
 
 def reference_state(state, *, target: bool = False) -> TrainState:
@@ -169,9 +180,11 @@ def reference_state(state, *, target: bool = False) -> TrainState:
     params = dict(model.named_parameters())
     names = list(params)
 
+    whole = sharding.full_shapes(model)
+
     def tree(named: dict) -> dict:
         if target:
-            return to_reference(model, {k: _meta(v) for k, v in named.items()})
+            return to_reference(model, {k: _meta(v, whole[k]) for k, v in named.items()})
         return to_reference(model, named, lazy=True)
 
     def scalar(t: torch.Tensor):
@@ -242,10 +255,12 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 def params_to_numpy(model: nn.Module, cfg: ModelConfig | None = None) -> dict:
     """The reference's parameter tree of ``model``'s weights as numpy arrays
-    (bf16 weights come back as float32)."""
+    (bf16 weights come back as float32; a sharded model's leaves gathered
+    whole, a collective)."""
     named = dict(model.named_parameters())
+    shards = sharding.layout_of(model)
     return _nest((leaf.path, _array(_to_ref([named[n] for n in leaf.names], leaf.form,
-                                            leaf.stacked)))
+                                            leaf.stacked, leaf.names, shards)))
                  for leaf in layout(model))
 
 

@@ -107,16 +107,19 @@ def join_world(backend: str, *, ranks: int | None, device: torch.device | str,
 
 def data_plan(device: torch.device | str) -> ShardingPlan:
     """Data parallelism over the world's ranks: a ``data`` axis with one
-    entry per rank, on ``device`` (this rank's)."""
-    return ShardingPlan(mesh=Mesh(np.asarray(rank_devices(device), dtype=object), ("data",)))
+    entry per rank, on ``device`` (this rank's), as a ``MeshLadder`` rung
+    builds it (``fsdp = ep = data``, no tp axis): the state is sharded over
+    the ranks."""
+    return ShardingPlan(mesh=Mesh(np.asarray(rank_devices(device), dtype=object), ("data",)),
+                        dp=("data",), fsdp=("data",), tp=None, ep=("data",))
 
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device: torch.device | str | None = None) -> Mesh:
     """The world's ranks as a ``(data, model)`` mesh, or ``(pod, data,
     model)`` with two pods; one entry per rank, each on ``device`` (the
-    rank's own; default the card).  Parameters are replicated at run time,
-    so the ``model`` axis has size 1."""
+    rank's own; default the card).  The ``model`` axis has size 1: compute
+    is not split over tp (ROADMAP.md)."""
     world = world_size()
     pods = 2 if multi_pod else 1
     if world % pods:

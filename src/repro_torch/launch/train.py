@@ -12,7 +12,9 @@ written.  The device defaults to ``cuda`` and raises without a Hopper card;
 data-parallel over N ranks and ``--elastic`` on a ``MeshLadder`` over the
 world's ranks (``--dp`` of them, default all); both run under ``torchrun``
 (``--backend``, default nccl) and raise without a process group of the
-right size:
+right size.  Their rungs would shard the state by the reference's rules,
+but the paper's models match none (``fc1/kernel`` and the like), so every
+rank keeps whole leaves and averages its gradients:
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --dp 2
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \

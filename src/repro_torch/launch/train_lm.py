@@ -42,9 +42,13 @@ checkpoint into a state, and ``train(start_step=...)`` continues from it.
 ``--dp N`` trains data-parallel over N ranks under ``torchrun`` on
 ``--backend`` (NCCL wants a card per rank; gloo lets several ranks share
 one card, staging each all-reduce through the host): ``--micro-batch`` is
-the global microbatch, each rank taking ``micro_batch / N`` of it; rank 0's
-parameters are broadcast at the start, and only rank 0 prints, profiles
-and writes checkpoints.
+the global microbatch, each rank taking ``micro_batch / N`` of it.  Every
+rank draws the same weights from ``--seed`` and keeps its shard of the
+state (``elastic.reshard.place``: the reference's ``fsdp``/``ep`` rules over
+the ``data`` axis, so a rank holds half the state on 2 ranks, the LM head
+excepted, which shards over ``tp`` only); only rank 0 prints and profiles,
+and rank 0 writes the checkpoints (each leaf gathered whole as it is
+written).
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --dp 2 --backend gloo
 """
@@ -71,7 +75,8 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenStream
-from repro_torch.dist.plan import broadcast_
+from repro_torch.dist import sharding
+from repro_torch.elastic.reshard import place
 from repro_torch.launch.mesh import data_plan, join_world
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
@@ -200,9 +205,11 @@ def train(cfg: ModelConfig, params: tf.Transformer, program: AdaptationProgram, 
                 f"{program.batch_size}")
             m = program.batch_size
             if ckpt is not None:
+                # a sharded state's leaves are gathered on every rank as formed
                 first = group is None or dist.get_rank() == plan.mesh.root
+                mine = first or sharding.layout_of(state.params) is not None
                 ckpt.save(step + 1,
-                          {"state": interop.reference_state(state)} if first else None,
+                          {"state": interop.reference_state(state)} if mine else None,
                           extra={"program": program.state_dict()}, group=group,
                           root=plan.mesh.root if group is not None else None)
                 rec.update(ckpt_copy_s=ckpt.last_copy_s, ckpt_write_s=ckpt.last_write_s)
@@ -255,10 +262,9 @@ def main(argv: list[str] | None = None) -> dict:
     log = print if first else (lambda line: None)
     cfg = model_config(args.full_width, args.arch)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
-    if plan is not None:  # every rank starts from the first rank's weights
-        broadcast_([p.data for p in params.parameters()], plan.mesh.root,
-                   plan.mesh.group(plan.dp))
     n_params = ptu.tree_count(params)
+    if plan is not None:  # every rank draws the same weights and keeps its shard
+        params = place(params, plan)
     log(f"model: {cfg.name} x {cfg.num_layers} layers, {n_params / 1e6:.1f}M params "
         f"on {dev}" + (f", rank {dist.get_rank()} of {args.dp} ({args.backend})"
                        if plan is not None else ""))

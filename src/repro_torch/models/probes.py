@@ -36,6 +36,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm
@@ -111,48 +112,59 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
         return dense(x, lin.weight, lin.bias)
 
     x = tf._embed_input(cfg, params, batch)  # the frontend is not probed
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
-    hd = cfg.resolved_head_dim
+    layout = sharding.layout_of(params)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, p, blk in tf._layers(cfg, params):
-        kind = cfg.pattern[p]
-        base = f"l{r}p{p}"
-        h = blk.norm(x)
-        if kind == "mamba":
-            x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
-        else:
-            ap = blk.attn
-            q = pdense(h, ap.q, f"{base}.q").reshape(b, s, cfg.num_heads, hd)
-            k = pdense(h, ap.k, f"{base}.k").reshape(b, s, cfg.num_kv_heads, hd)
-            v = pdense(h, ap.v, f"{base}.v").reshape(b, s, cfg.num_kv_heads, hd)
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-            window = cfg.window if kind == "attn_local" else None
-            o = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
-                                   softcap=cfg.attn_softcap)
-            x = x + pdense(o.reshape(b, s, cfg.num_heads * hd), ap.o, f"{base}.o")
-        if isinstance(blk.ffn, MoE):
-            y, a = moe_apply(blk.ffn, blk.ffn_norm(x), top_k=cfg.top_k,
-                             capacity_factor=cfg.capacity_factor, groups=moe_groups,
-                             act=cfg.ffn_act)
-            x = x + y
-            aux = aux + a
-        elif blk.ffn is not None:
-            ffn = blk.ffn
-            h = blk.ffn_norm(x)
-            if ffn.glu:
-                hh = ffn.act(pdense(h, ffn.w_gate, f"{base}.gate"))
-                hh = hh * pdense(h, ffn.w_up, f"{base}.up")
-            else:
-                hh = ffn.act(pdense(h, ffn.w_in, f"{base}.in"))
-            x = x + pdense(hh, ffn.w_out, f"{base}.down")
+        with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}.",
+                               keep_resident=False):
+            x, aux = _probed_block(cfg, blk, x, r, p, positions, pdense, aux, moe_groups)
     x = params.final_norm(x)
-    loss = tf.xent_chunked(x, params.lm_head.weight, batch["targets"], cfg.xent_chunk,
-                           cfg.final_softcap)
+    loss = tf.xent_chunked(x, tf._whole(params, "lm_head.weight"), batch["targets"],
+                           cfg.xent_chunk, cfg.final_softcap)
     if cfg.num_experts:
         loss = loss + 0.01 * aux
     return loss, acts
+
+
+def _probed_block(cfg: ModelConfig, blk, x, r: int, p: int, positions, pdense, aux,
+                  moe_groups: int):
+    """One layer of :func:`loss_with_probes` (its experts gathered whole:
+    the probe pass routes with ``moe_apply``, as the reference's does)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    kind = cfg.pattern[p]
+    base = f"l{r}p{p}"
+    h = blk.norm(x)
+    if kind == "mamba":
+        x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+    else:
+        ap = blk.attn
+        q = pdense(h, ap.q, f"{base}.q").reshape(b, s, cfg.num_heads, hd)
+        k = pdense(h, ap.k, f"{base}.k").reshape(b, s, cfg.num_kv_heads, hd)
+        v = pdense(h, ap.v, f"{base}.v").reshape(b, s, cfg.num_kv_heads, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        window = cfg.window if kind == "attn_local" else None
+        o = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
+                               softcap=cfg.attn_softcap)
+        x = x + pdense(o.reshape(b, s, cfg.num_heads * hd), ap.o, f"{base}.o")
+    if isinstance(blk.ffn, MoE):
+        y, a = moe_apply(blk.ffn, blk.ffn_norm(x), top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, groups=moe_groups,
+                         act=cfg.ffn_act)
+        x = x + y
+        aux = aux + a
+    elif blk.ffn is not None:
+        ffn = blk.ffn
+        h = blk.ffn_norm(x)
+        if ffn.glu:
+            hh = ffn.act(pdense(h, ffn.w_gate, f"{base}.gate"))
+            hh = hh * pdense(h, ffn.w_up, f"{base}.up")
+        else:
+            hh = ffn.act(pdense(h, ffn.w_in, f"{base}.in"))
+        x = x + pdense(hh, ffn.w_out, f"{base}.down")
+    return x, aux
 
 
 def probe_grads(probe_loss, params: torch.nn.Module, probes: dict, batch: dict

@@ -69,9 +69,23 @@ MoE FFNs: ``cfg.ffn_kind(pos) == "moe"`` builds ``models/moe.py::MoE``
 ``moe_groups`` groups (``loss_fn``, ``prefill_step``, ``decode_step`` and
 ``prefill_chunk`` take them; serving passes 1, as the reference's engine).
 The stack sums the layers' aux losses, and ``loss_fn`` adds ``0.01 * aux``
-when ``cfg.num_experts`` is set.  ``cfg.moe_impl == "ep"`` under a plan with
-an expert axis raises (``models/moe_ep.py``, ROADMAP.md Queue A 5); without
-a plan it takes ``moe_apply``, as the reference does.
+when ``cfg.num_experts`` is set.  ``cfg.moe_impl == "ep"`` in training
+under a rank plan (``use_plan``, read once by ``_run_stack``) whose expert
+axes span several ranks takes ``models/moe_ep.py::moe_apply_ep`` (the
+experts stay on their ranks, the tokens move by two all-to-alls;
+``moe_groups`` is not read, as in the reference); without such a plan,
+and inside a ``torch.func`` transform (the exact tier's per-sample pass,
+on experts gathered whole), it takes ``moe_apply``.
+
+Sharded training state (``dist.sharding.StateLayout``, a rank rung's):
+the parameters are this rank's shards.  ``_run_stack`` gathers each
+block's shards whole when the block is entered, inside the remat region,
+so the backward gathers again instead of holding every gathered block
+(``dist.sharding.gathered``; the gather's backward reduce-scatters the
+gradient); ``_embed_input`` and ``loss_fn`` gather the embedding (or
+frontend) and the head.  Under ``moe_impl="ep"`` the experts' expert dim
+stays resident.  Serving (``prefill_step``, ``decode_step``,
+``prefill_chunk``) takes whole parameters.
 
 Mamba mixers ('mamba', ``models/ssm.py``): ``Block`` holds a ``Mamba``
 in the attention's place, and the layer still runs its FFN (none when
@@ -95,11 +109,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.dist.plan import current_plan
 from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm
 from repro_torch.models.moe import MoE, init_experts_, moe_apply
+from repro_torch.models.moe_ep import expert_parallel, moe_apply_ep
 from repro_torch.models.layers import (ACTIVATIONS, apply_rope, dense, embed, in_func_transform,
                                        layer_norm, rms_norm)
 
@@ -263,8 +279,17 @@ def _embed_input(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Te
     frontend applied to ``batch["embeddings"]`` cast to the compute type."""
     cdt = _dtype(cfg.compute_dtype)
     if cfg.input_mode == "tokens":
-        return embed(params.embed.weight, batch["tokens"].long()).to(cdt)
-    return dense(batch["embeddings"].to(cdt), params.frontend.weight)
+        return embed(_whole(params, "embed.weight"), batch["tokens"].long()).to(cdt)
+    return dense(batch["embeddings"].to(cdt), _whole(params, "frontend.weight"))
+
+
+def _whole(params: Transformer, name: str) -> torch.Tensor:
+    """Parameter ``name`` whole: gathered under autograd when the state is
+    sharded."""
+    mod, _, attr = name.rpartition(".")
+    t = getattr(params.get_submodule(mod), attr)  # a plain tensor under functional_call
+    layout = sharding.layout_of(params)
+    return t if layout is None else layout.gather([name], [t])[0]
 
 
 def _self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -295,7 +320,7 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
 
 
 def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
-                 positions: torch.Tensor, moe_groups: int
+                 positions: torch.Tensor, moe_groups: int, plan=None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer: the pre-norm mixer (attention, or Mamba over chunks of
     ``cfg.ssm_chunk``), then the pre-norm FFN; ``(x, the layer's MoE aux
@@ -305,7 +330,7 @@ def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
         x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
     else:
         x = x + _attn_sublayer(cfg, blk.attn, h, kind, positions)
-    return _ffn(cfg, blk, x, moe_groups)
+    return _ffn(cfg, blk, x, moe_groups, plan)
 
 
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
@@ -317,16 +342,30 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
     the backward runs its forward again."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt = cfg.remat and torch.is_grad_enabled() and not in_func_transform()
-    for _, p, blk in _layers(cfg, params):
+    layout = sharding.layout_of(params)
+    # read here, not in the layer: the recompute under remat runs in the
+    # backward, on the autograd engine's thread, outside any use_plan
+    plan = current_plan()
+    for r, p, blk in _layers(cfg, params):
+        args = (cfg, cfg.pattern[p], blk, x, positions, moe_groups, layout,
+                f"blocks.{r * cfg.period + p}.", plan)
         if ckpt:
             # the forward draws no random numbers: no RNG state to replay
-            x, a = checkpoint(_block_apply, cfg, cfg.pattern[p], blk, x, positions,
-                              moe_groups, use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_gathered_block, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x, a = _block_apply(cfg, cfg.pattern[p], blk, x, positions, moe_groups)
+            x, a = _gathered_block(*args)
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+def _gathered_block(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
+                    positions: torch.Tensor, moe_groups: int, layout, prefix: str, plan):
+    """``_block_apply`` on the block's parameters gathered whole (a sharded
+    state; as they are otherwise)."""
+    with sharding.gathered(blk, layout, prefix):
+        return _block_apply(cfg, kind, blk, x, positions, moe_groups, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -433,8 +472,8 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups: int 
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_stack(cfg, params, x, positions, moe_groups)
     x = params.final_norm(x)
-    loss = xent_chunked(x, params.lm_head.weight, batch["targets"], cfg.xent_chunk,
-                        cfg.final_softcap)
+    loss = xent_chunked(x, _whole(params, "lm_head.weight"), batch["targets"],
+                        cfg.xent_chunk, cfg.final_softcap)
     metrics = {"ce_loss": loss, "moe_aux": aux}
     if cfg.num_experts:
         loss = loss + 0.01 * aux
@@ -583,21 +622,21 @@ def _qkv(cfg: ModelConfig, ap: Attention, h: torch.Tensor, positions: torch.Tens
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int
+def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=None
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The pre-norm FFN sublayer: ``(x + ffn(norm(x)), the MoE aux loss)``
-    (None for a dense FFN or none)."""
+    (None for a dense FFN or none).  ``plan`` is the training stack's
+    plan (``moe_impl="ep"`` routes over its expert ranks)."""
     if blk.ffn is None:
         return x, None
     h = blk.ffn_norm(x)
     if not isinstance(blk.ffn, MoE):
         return x + blk.ffn(h), None
-    if cfg.moe_impl == "ep":
-        plan = current_plan()
-        if plan is not None and plan.ep:
-            raise NotImplementedError(
-                "moe_impl='ep' (models/moe_ep.py: the explicit all-to-all over the "
-                "expert axis) is not ported to repro_torch yet (ROADMAP.md, Queue A 5)")
+    if cfg.moe_impl == "ep" and expert_parallel(plan) and not in_func_transform():
+        y, aux = moe_apply_ep(blk.ffn, h, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor, act=cfg.ffn_act,
+                              mesh=plan.mesh, ep_axes=plan.ep)
+        return x + y, aux
     y, aux = moe_apply(blk.ffn, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                        groups=moe_groups, act=cfg.ffn_act)
     return x + y, aux

@@ -33,7 +33,8 @@ n, estimator=tier, probe_loss=..., probe_specs=...), lm_bucket_of(m))``.
 ``for_lm(dp_size=, plan=)`` trains data-parallel: under a rank plan (a
 ``dist.ShardingPlan`` over ``(rank, device)`` entries) each rank runs its
 share of every microbatch and the gradients are averaged over the plan's
-dp group (``train/step.py``).
+dp group (``train/step.py``); a state placed on the plan
+(``elastic.reshard.place``) is sharded, and the step gathers its blocks.
 """
 
 from __future__ import annotations

@@ -47,7 +47,11 @@ control group (``MeshLadder.control``: the widest rung's group, on a
 ``Signals`` and clock are broadcast; a rank outside a narrow rung skips the
 steps (it holds no accumulators) and follows the decisions until a rung
 takes it back in, when the state reaches it by broadcast
-(``elastic.reshard``).  Injected events are the first rank's.
+(``elastic.reshard``).  On a rung whose specs shard the state (an LM's;
+the paper's small models match no rule) each rank holds its shard of
+every leaf; ``save`` then has every rank of the rung form the
+checkpoint's leaves, each gathered whole as the first rank writes it.
+Injected events are the first rank's.
 
 Checkpointing (``ckpt=CheckpointManager(...)``, ``save``, ``resume``, and
 ``ckpt_every`` epochs between automatic saves) captures the full adaptive
@@ -79,6 +83,7 @@ from repro_torch.core.controller import AdaptiveBatchController
 from repro_torch.data import ArrayDataset, Cursor, EpochLoader
 from repro_torch.data.pipeline import epoch_permutation, prefetch as prefetch_iter
 from repro_torch.data.pipeline import put_global_batch
+from repro_torch.dist import sharding
 from repro_torch.dist.plan import broadcast_object, current_plan, process_rank
 from repro_torch.elastic import MeshLadder, place, reshard
 from repro_torch.obs import runlog as runlog_lib
@@ -614,10 +619,13 @@ class Trainer:
         if self.ckpt is None:
             raise ValueError("save() needs a CheckpointManager (Trainer(ckpt=...))")
         state = extra = None
-        if self.is_root:  # on ranks, the deciding rank writes
+        # on ranks, the deciding rank writes; a sharded state's leaves are
+        # gathered as they are formed, on every rank of its rung
+        if self.is_root or sharding.layout_of(self.state.params) is not None:
             ref = interop.reference_state(self.state)
             state = {"params": ref.params, "opt_state": ref.opt_state,
                      "div_state": ref.div_state}
+        if self.is_root:
             extra = {
                 "controller": self.adapt.state_dict(),
                 "cursor": self.cursor.state_dict(),

@@ -41,6 +41,24 @@ g_j||^2`` (which needs the global microbatch's gradient); the exact and
 gram tiers reduce their scalar ``sq_sum`` once a step and the gradient once
 a step, as does a step with ``diversity_on=False``.
 
+Sharded state: when the parameters are shards (``dist.sharding.
+layout_of(state.params)``, a rank rung's layout, ``elastic.reshard``) the
+forward gathers each block's shards on entry and the gather's backward
+reduce-scatters each microbatch's gradient over the data-parallel axes, so
+the gradients come out as shards of the global microbatch's mean; only
+the leaves the specs leave whole over a data-parallel axis are then
+all-reduced (``StateLayout.finish_grads``: per microbatch for the moment
+tier, once a step otherwise).  The accumulator, the momenta and
+``grad_sum`` are shards; the moment tier's ``||m g_j||^2`` and
+``grad_norm_sq`` sum the shards' partial norms over the mesh in one scalar
+all-reduce, each element counted once (``StateLayout.sq_norm``).  The gram
+tier's probe pass gathers each block whole; the exact tier's vmap runs on
+parameters gathered whole outside the transform (so no collective is ever
+vmapped), and holds them for the pass: the memory of whole parameters, as
+without sharding.  Under ``cfg.moe_impl == "ep"`` the experts stay on
+their ranks and the tokens travel (``models/moe_ep.py``); the loss runs
+under ``use_plan(plan)`` so the MoE FFN sees the plan.
+
 MoE models (``moe_groups``): the LM loss routes each microbatch's tokens in
 ``moe_groups`` groups.  Under a rank plan a rank holds ``1/dp`` of each
 microbatch, a whole number of the reference's groups when ``dp`` divides
@@ -51,15 +69,18 @@ reference's grouping of the global microbatch.  Other values are refused
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import diversity
-from repro_torch.dist.plan import ShardingPlan, all_reduce_mean
+from repro_torch.dist import sharding
+from repro_torch.dist.plan import ShardingPlan, all_reduce_mean, use_plan
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
+from repro_torch.models.moe_ep import expert_parallel
 from repro_torch.models.probes import probe_grads
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.train.state import TrainState
@@ -187,7 +208,9 @@ def make_train_step(
         n_ranks = len(plan.mesh.group_ranks(plan.dp))
     if loss_fn is None:
         local_groups = moe_groups
-        if group is not None and cfg.num_experts:
+        # moe_impl="ep" routes each rank's tokens over the expert ranks, no groups
+        if group is not None and cfg.num_experts and not (
+                cfg.moe_impl == "ep" and expert_parallel(plan)):
             if moe_groups % dp_size:
                 raise ValueError(
                     f"moe_groups {moe_groups} does not split over the {dp_size} "
@@ -201,12 +224,21 @@ def make_train_step(
             return loss_fn(p, b), {}
     # the moment tier needs each global microbatch's gradient
     reduce_each = group is not None and diversity_on and estimator == "moment"
+    # the MoE FFN reads the plan (moe_impl="ep" routes over its expert axis)
+    planned = (lambda: use_plan(plan)) if group is not None else contextlib.nullcontext
+
+    def dp_mean(grads, layout):
+        """Each rank's gradients -> the global microbatch mean."""
+        if layout is not None:
+            return layout.finish_grads(grads)
+        return all_reduce_mean(grads, group, n_ranks)
 
     def _probe_sq_norms(params, mb: dict, *, bias: bool) -> torch.Tensor:
         """One probe-gradient pass -> the summed per-sample sq-norms through
         the psgn kernels (same-shape layers fused into one launch)."""
         bsz = next(iter(mb.values())).shape[0]
-        _, acts, pgrads = probe_grads(probe_loss, params, probe_specs(params, bsz), mb)
+        with planned():
+            _, acts, pgrads = probe_grads(probe_loss, params, probe_specs(params, bsz), mb)
         return kernel_ops.persample_sq_norm_tree(acts, pgrads, scale=float(bsz),
                                                  bias=bias).sum()
 
@@ -215,14 +247,21 @@ def make_train_step(
         n = next(iter(mb.values())).shape[0]
         chunk = min(psn_chunk or n, n)
         total = torch.zeros((), dtype=torch.float32, device=ptu.leaves(params)[0].device)
+        layout = sharding.layout_of(params)
+        whole = None if layout is None else {
+            name: layout.unshard(name, p.detach()) for name, p in params.named_parameters()}
         for i in range(0, n, chunk):
             sub = {k: v[i:i + chunk] for k, v in mb.items()}
-            total = total + diversity.persample_sq_norms(example_loss, params, sub).sum()
+            total = total + diversity.persample_sq_norms(example_loss, params, sub,
+                                                         whole).sum()
         return total
 
     def train_step(state: TrainState, batch: dict, lr) -> tuple[TrainState, dict]:
         params = ptu.leaves(state.params)
         dev = params[0].device
+        layout = sharding.layout_of(state.params)
+        if layout is not None and group is None:
+            raise ValueError("a sharded state steps under its rank plan (plan=)")
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if group is not None:
             micro = {k: _rank_micro(v, num_micro, dp_size, positions)
@@ -238,15 +277,16 @@ def make_train_step(
         extra_sum: dict = {}
         for j in range(num_micro):
             mb = {k: v[j] for k, v in micro.items()}
-            loss, extra = base_loss(state.params, mb)
-            grads = torch.autograd.grad(loss, params)
+            with planned():
+                loss, extra = base_loss(state.params, mb)
+                grads = torch.autograd.grad(loss, params)
             if reduce_each:
-                grads = all_reduce_mean(grads, group, n_ranks)
+                grads = dp_mean(grads, layout)
             with torch.no_grad():
                 for a, g in zip(grads_acc, grads):
                     a.add_(g)
                 if diversity_on and estimator == "moment":  # ||m * g_j||^2
-                    sq_sum += (micro_global * micro_global) * ptu.tree_sq_norm(grads)
+                    sq_sum += (micro_global * micro_global) * ptu.tree_sq_norm(grads, layout)
                 loss_sum += loss.detach().float()
                 for k, v in extra.items():
                     extra_sum[k] = extra_sum.get(k, 0.0) + v.detach().float()
@@ -255,14 +295,15 @@ def make_train_step(
             del grads, loss, extra
             if diversity_on and estimator != "moment":
                 if estimator == "exact" and psn_impl == "vmap":
-                    sq_sum += _vmap_sq_norms(state.params, mb)
+                    with planned():
+                        sq_sum += _vmap_sq_norms(state.params, mb)
                 else:
                     sq_sum += _probe_sq_norms(state.params, mb,
                                               bias=estimator == "exact")
         with torch.no_grad():
             if group is not None:
                 if not reduce_each:
-                    grads_acc = all_reduce_mean(grads_acc, group, n_ranks)
+                    grads_acc = dp_mean(grads_acc, layout)
                 # summed over the ranks: the loss and its metrics, and a
                 # per-sample tier's sq_sum (the moment tier's is global already)
                 sums = all_reduce_mean([torch.stack([loss_sum, sq_sum, *extra_sum.values()])],
@@ -283,7 +324,8 @@ def make_train_step(
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params, lr)
             apply_updates(state.params, updates)
             del updates
-            metrics = {"loss": loss_sum / num_micro, "grad_norm_sq": ptu.tree_sq_norm(grads),
+            metrics = {"loss": loss_sum / num_micro,
+                       "grad_norm_sq": ptu.tree_sq_norm(grads, layout),
                        **{k: v / num_micro for k, v in extra_sum.items()}}
         state.opt_state = opt_state
         state.step += 1

@@ -36,9 +36,14 @@ def tree_zeros_like(tree: Tree, dtype: torch.dtype | None = None) -> dict | list
     return [torch.zeros_like(x, dtype=dtype or x.dtype) for x in tree]
 
 
-def tree_sq_norm(tree: Tree) -> torch.Tensor:
-    """Squared L2 norm of the concatenated tree, a 0-d float32 tensor."""
+def tree_sq_norm(tree: Tree, layout: Any = None) -> torch.Tensor:
+    """Squared L2 norm of the concatenated tree, a 0-d float32 tensor.
+    With ``layout`` (a ``dist.sharding.StateLayout``; the tree's leaves are
+    its shards, in parameter order) the norm of the whole tree: each element
+    counted once over the mesh (``StateLayout.sq_norm``, a collective)."""
     xs = leaves(tree)
+    if layout is not None:
+        return layout.sq_norm(xs)
     return torch.stack(
         [torch.linalg.vector_norm(x, dtype=torch.float32) for x in xs]
     ).square().sum()

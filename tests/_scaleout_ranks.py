@@ -39,9 +39,14 @@ def run(rank: int, world: int, store_path: str, job: str, args: dict, queue) -> 
 
 
 def checksum(model) -> float:
-    """A float64 checksum of a model's parameters."""
-    return float(sum(p.detach().double().sum().item() * (i + 1)
-                     for i, p in enumerate(model.parameters())))
+    """A float64 checksum of a model's parameters, whole (a sharded model's
+    are gathered first: a collective over its rung)."""
+    from repro_torch.dist import sharding
+
+    layout = sharding.layout_of(model)
+    params = [p.detach() if layout is None else layout.unshard(n, p.detach())
+              for n, p in model.named_parameters()]
+    return float(sum(p.double().sum().item() * (i + 1) for i, p in enumerate(params)))
 
 
 # ---------------------------------------------------------------------------
@@ -296,5 +301,355 @@ def pod_mean(a: dict) -> dict:
     return {"mean": [t.numpy() for t in mean], "err": [t.numpy() for t in new_err[0]]}
 
 
+# ---------------------------------------------------------------------------
+# the sharded state (tests/test_torch_sharded.py, tests/test_torch_moe_ep.py)
+# ---------------------------------------------------------------------------
+
+
+def rung_plan(shape: tuple):
+    """The widest rung of a ``MeshLadder`` over the world's ranks: ``(data,)``
+    or ``(data, model)`` (``fsdp = ep = data``, ``tp = model``)."""
+    from repro_torch.dist.plan import rank_devices
+    from repro_torch.elastic import MeshLadder
+
+    model = (("model", shape[1]),) if len(shape) > 1 else ()
+    return MeshLadder(rank_devices("cpu"), model_axes=model).full.plan
+
+
+def _whole_numpy(model) -> dict:
+    from repro_torch.dist import sharding
+
+    layout = sharding.layout_of(model)
+    return {n: (p.detach() if layout is None else layout.unshard(n, p.detach())).numpy()
+            for n, p in model.named_parameters()}
+
+
+def sharded_train(a: dict) -> dict:
+    """Each case of ``a["cases"]`` on the rung ``a["shape"]``: the model
+    from the reference weights ``a[case["params"]]``, placed sharded, then
+    steps of ``make_train_step`` (or, with ``program``, of
+    ``StepEngine.for_lm`` under :func:`lm_program`)."""
+    from repro_torch import adapt
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.dist import sharding
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import probes
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import sgd
+    from repro_torch.train import StepEngine, init_state, make_train_step
+
+    plan = rung_plan(tuple(a["shape"]))
+    out = {}
+    for case in a["cases"]:
+        cfg = get_config(case["arch"], reduced=True).replace(**case.get("extra", {}))
+        opt = sgd(momentum=0.9)
+        model = place(params_from_jax(a[case["params"]], cfg), plan)
+        state = init_state(model, opt)
+        tier = case.get("tier", "moment")
+        kw = {}
+        if tier == "gram":
+            kw = dict(probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+                      probe_specs=lambda p, n: probes.probe_specs(cfg, n, SEQ, device="cpu"))
+        elif tier == "exact":
+            kw = dict(example_loss=lambda p, e: tf.loss_fn(
+                cfg, p, {k: v[None] for k, v in e.items()})[0], psn_chunk=2)
+        stream = TokenStream(cfg.vocab_size, seed=case["seed"])
+        layout = sharding.layout_of(state.params)
+        if cfg.moe_impl == "ep":
+            rec_bwd = _ep_backward_outside_the_plan(cfg, state.params, plan, stream)
+        else:
+            rec_bwd = None
+        rec = {"loss": [], "sq_norm_sum": [], "batch": [], "diversity": [],
+               "held": sum(p.numel() for p in state.params.parameters()),
+               "reckoned": layout.numel(), "sharded": sum(1 for x in layout.leaves if x.dims)}
+        if case.get("program"):
+            eng = StepEngine.for_lm(cfg, opt, micro_batch=4, dp_size=plan.dp_size, plan=plan,
+                                    attn_impl="pallas")
+            program = lm_program(adapt)
+            m = program.batch_size
+            for step in range(6):
+                state, metrics = eng.step(state, stream.batch(step, m, SEQ), 0.1)
+                rec["loss"].append(float(metrics["loss"]))
+                rec["batch"].append(m)
+                if step in (2, 5):
+                    sig, state = adapt.read_signals(state, "moment", reset=True, batch_size=m)
+                    program.observe(sig, adapt.Clock(epoch=step // 3, step=step + 1,
+                                                     boundary="tick"))
+                    rec["diversity"].append(sig.diversity)
+                    m = program.batch_size
+            rec["buckets"] = list(eng.stats.buckets)
+        else:
+            step = make_train_step(cfg, opt, 2, plan=plan, estimator=tier,
+                                   moe_groups=case.get("moe_groups", 1), **kw)
+            for i in range(case.get("steps", 3)):
+                state, metrics = step(state, stream.batch(i, 8, SEQ), 0.1)
+                rec["loss"].append(float(metrics["loss"]))
+                rec["sq_norm_sum"].append(state.div_state.sq_norm_sum.item())
+        rec["params"] = _whole_numpy(state.params)
+        rec["ep_backward"] = rec_bwd
+        out[case["name"]] = rec
+    return out
+
+
+def _ep_backward_outside_the_plan(cfg, params, plan, stream) -> bool:
+    """The remat recompute of a ``moe_impl="ep"`` layer runs in the backward,
+    which the autograd engine runs on its own thread on a card, outside the
+    step's ``use_plan``: a gradient taken outside the plan must equal the
+    one taken inside it."""
+    from repro_torch.dist.plan import use_plan
+    from repro_torch.models import transformer as tf
+
+    cfg = cfg.replace(remat=True)
+    k = plan.mesh.local_positions(plan.dp)[0]
+    batch = {n: torch.as_tensor(v[2 * k:2 * k + 2]) for n, v in stream.batch(99, 4, SEQ).items()}
+    leaves = list(params.parameters())
+    with use_plan(plan):
+        inside = torch.autograd.grad(tf.loss_fn(cfg, params, batch)[0], leaves)
+        loss = tf.loss_fn(cfg, params, batch)[0]
+    outside = torch.autograd.grad(loss, leaves)
+    return all(torch.equal(a, b) for a, b in zip(inside, outside))
+
+
+class _SumBack(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group`` (an
+    input replicated over it, each rank reading its own part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sharded_collectives(a: dict) -> dict:
+    """shard/unshard round trips, bit for bit, and ``gradcheck`` in float64
+    of the gather over each axis of the rung ``a["shape"]`` (an input
+    replicated over the axis, sliced, gathered; its gradient summed over
+    the axis: the Jacobian is the identity on every rank when the gather's
+    backward is its adjoint)."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import gather_shards
+
+    plan = rung_plan(tuple(a["shape"]))
+    mesh = plan.mesh
+    r = np.random.default_rng(0)
+    out = {"roundtrip": []}
+    for shape, spec in a["specs"]:
+        x = torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+        spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+        part = sharding.shard(x, spec, plan)
+        out["roundtrip"].append((list(part.shape), bool(torch.equal(
+            sharding.unshard(part, spec, plan), x))))
+        tree = {"params/pos0/ffn/w_up/kernel": x.clone()}
+        back = sharding.unshard_tree(sharding.shard_tree(tree, plan),
+                                     {k: v.shape for k, v in tree.items()}, plan)
+        out["roundtrip"].append((None, bool(torch.equal(back["params/pos0/ffn/w_up/kernel"],
+                                                        x))))
+    out["gradcheck"] = {}
+    for axes in mesh.axis_names:
+        n = mesh.shape[axes]
+        z = torch.from_numpy(r.standard_normal((2 * n, 3))).double().requires_grad_(True)
+
+        def fn(z, axes=axes, n=n):
+            k = mesh.coords()[axes]
+            mine = _SumBack.apply(z, mesh.group(axes))[k * 2:(k + 1) * 2]
+            return gather_shards([mine], [[(0, (axes,))]], mesh, plan.dp)[0] * 1.5
+
+        out["gradcheck"][axes] = bool(torch.autograd.gradcheck(fn, (z,), eps=1e-6,
+                                                               atol=1e-8))
+    return out
+
+
+def _ckpt_state(plan, params):
+    from repro_torch.configs import get_config
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get_config("yi-6b", reduced=True)
+    opt = sgd(momentum=0.9)
+    state = init_state(place(params_from_jax(params, cfg), plan), opt)
+    return cfg, state, make_train_step(cfg, opt, 2, plan=plan)
+
+
+def sharded_ckpt(a: dict) -> dict:
+    """Two steps of reduced Yi-6B sharded on the ranks, saved through the
+    rung (rank 0 writes ``sharded``), then the state gathered whole and
+    saved by rank 0 alone (``whole``); then a third step."""
+    from repro_torch import interop
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import TokenStream
+    from repro_torch.elastic.reshard import unshard_state
+
+    plan = rung_plan((dist.get_world_size(),))
+    cfg, state, step = _ckpt_state(plan, a["ckpt_params"])
+    stream = TokenStream(cfg.vocab_size, seed=12)
+    for i in range(2):
+        state, _ = step(state, stream.batch(i, 8, SEQ), 0.1)
+    ref = interop.reference_state(state)
+    tree = {"params": ref.params, "opt_state": ref.opt_state, "div_state": ref.div_state}
+    CheckpointManager(a["root"] + "/sharded").save(
+        2, tree, group=plan.mesh.group(plan.mesh.axis_names), root=0)
+    held = sum(p.numel() for p in state.params.parameters())
+    state, metrics = step(state, stream.batch(2, 8, SEQ), 0.1)
+    next_loss = float(metrics["loss"])
+    # the whole state of step 2, once more, saved by one process
+    cfg, state, step = _ckpt_state(plan, a["ckpt_params"])
+    stream = TokenStream(cfg.vocab_size, seed=12)
+    for i in range(2):
+        state, _ = step(state, stream.batch(i, 8, SEQ), 0.1)
+    whole = unshard_state(state)
+    if dist.get_rank() == 0:
+        ref = interop.reference_state(whole)
+        CheckpointManager(a["root"] + "/whole").save(
+            2, {"params": ref.params, "opt_state": ref.opt_state,
+                "div_state": ref.div_state})
+    return {"next_loss": next_loss, "step": 2, "held": held}
+
+
+def sharded_restore(a: dict) -> dict:
+    """Restore ``sharded_ckpt``'s save onto the rung ``a["shape"]`` (a state
+    from other weights, placed first) and take its third step."""
+    from repro_torch import interop
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.elastic.reshard import place
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state, make_train_step
+
+    plan = rung_plan(tuple(a["shape"]))
+    cfg = get_config("yi-6b", reduced=True)
+    opt = sgd(momentum=0.9)
+    state = init_state(place(tf.init_params(cfg, torch.Generator().manual_seed(5), "cpu"),
+                             plan), opt)
+    mgr = CheckpointManager(a["root"] + "/sharded")
+    ref = interop.reference_state(state, target=True)
+    out, _ = mgr.restore({"params": ref.params, "opt_state": ref.opt_state,
+                          "div_state": ref.div_state})
+    state = interop.load_reference_state(state, step=2, **out)
+    step = make_train_step(cfg, opt, 2, plan=plan)
+    state, metrics = step(state, TokenStream(cfg.vocab_size, seed=12).batch(2, 8, SEQ), 0.1)
+    return {"loss": float(metrics["loss"]), "step": 2}
+
+
+def moe_ep(a: dict) -> dict:
+    """``moe_apply_ep`` on the 8 ranks of a ``(pod 2, data 2, model 2)``
+    mesh (``dp = ep = (pod, data)``, ``tp = model``), the reference test's:
+    this rank's rows of ``a["x"]``, its 2 of the 8 experts resident, at each
+    capacity factor of ``a["factors"]``: the output rows, the aux loss, the
+    drops, and the gradients of ``sum(y ** 2)`` on the resident experts."""
+    from repro_torch.dist.plan import Mesh, ShardingPlan, rank_devices
+    from repro_torch.models.moe import init_moe
+    from repro_torch.models.moe_ep import moe_apply_ep
+
+    mesh = Mesh(np.asarray(rank_devices("cpu"), dtype=object).reshape(2, 2, 2),
+                ("pod", "data", "model"))
+    plan = ShardingPlan(mesh=mesh, dp=("pod", "data"), fsdp=("pod", "data"), tp="model",
+                        ep=("pod", "data"))
+    c = mesh.coords()
+    k = c["pod"] * 2 + c["data"]
+    w = a["moe"]
+    e, d, f = w["w_gate"].shape
+    layer = init_moe(d, f, e, device="cpu", dtype=torch.float32)
+    e_loc = e // 4
+    with torch.no_grad():
+        layer.router.weight.copy_(torch.from_numpy(w["router"]["kernel"]).t())
+        for name in ("w_gate", "w_up", "w_out"):
+            part = torch.from_numpy(w[name])[k * e_loc:(k + 1) * e_loc]
+            setattr(layer, name, torch.nn.Parameter(part.clone()))
+    x = torch.from_numpy(a["x"])[k:k + 1]
+    out = {}
+    for factor in a["factors"]:
+        layer.zero_grad()
+        layer.stats = {}
+        y, aux = moe_apply_ep(layer, x, top_k=2, capacity_factor=factor, act="silu",
+                              mesh=mesh, ep_axes=plan.ep)
+        (y ** 2).sum().backward()
+        out[factor] = {"y": y.detach().numpy(), "aux": float(aux), "row": k,
+                       "dropped": int(layer.stats["dropped"]),
+                       "grads": {n: getattr(layer, n).grad.numpy()
+                                 for n in ("w_gate", "w_up", "w_out")}}
+    return out
+
+
+def sharded_rungs(a: dict) -> dict:
+    """Reduced Yi-6B across the rungs of a 2-rank ``MeshLadder``: placed
+    sharded on the 2-rank rung, a step; onto the 1-rank rung (rank 1 leaves
+    with the state gathered and waits), a step; back onto 2 ranks, a step.
+    Each rank's losses and held elements, and the final parameters whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import rank_devices
+    from repro_torch.elastic import MeshLadder, reshard
+    from repro_torch.interop import params_from_jax
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get_config("yi-6b", reduced=True)
+    ladder = MeshLadder(rank_devices("cpu"))
+    one, two = ladder.rungs[0].plan, ladder.rungs[1].plan
+    opt = sgd(momentum=0.9)
+    state = init_state(params_from_jax(a["rungs_params"], cfg), opt)
+    stream = TokenStream(cfg.vocab_size, seed=13)
+    out = {"loss": [], "held": [], "same": None}
+    src = None
+    for i, plan in enumerate((two, one, two)):
+        kept = state
+        state = reshard(state, src, plan, donate=True)
+        src = plan
+        if not plan.mesh.is_member:
+            out["same"] = state is kept and sharding.layout_of(state.params) is None
+            continue
+        step = make_train_step(cfg, opt, 2, plan=plan)
+        state, metrics = step(state, stream.batch(i, 8, SEQ), 0.1)
+        out["loss"].append(float(metrics["loss"]))
+        out["held"].append(sum(p.numel() for p in state.params.parameters()))
+    out["params"] = _whole_numpy(state.params)
+    return out
+
+
 JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_moe,
-        "pod": pod, "cli": cli, "pod_mean": pod_mean}
+        "pod": pod, "cli": cli, "pod_mean": pod_mean, "sharded_train": sharded_train,
+        "sharded_collectives": sharded_collectives, "sharded_ckpt": sharded_ckpt,
+        "sharded_restore": sharded_restore, "moe_ep": moe_ep,
+        "sharded_rungs": sharded_rungs}
+
+
+def spawn_ranks(tmp_path, job: str, args: dict, world: int, deadline_s: float = 240) -> dict:
+    """Run ``job`` on ``world`` gloo ranks (spawned, meeting through a
+    ``FileStore`` in ``tmp_path``); ``{rank: result}``.  Kills the ranks and
+    fails past the deadline or on any rank's error."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = str(tmp_path / f"store_{job}")
+    procs = [ctx.Process(target=run, args=(r, world, store, job, args, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        results = dict(queue.get(timeout=deadline_s) for _ in procs)
+        for p in procs:
+            p.join(timeout=60)
+            assert not p.is_alive(), "a rank did not exit"
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    errors = {r: v for r, v in results.items() if isinstance(v, str)}
+    assert not errors, "\n".join(f"rank {r}:\n{v}" for r, v in errors.items())
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    return results

@@ -1659,3 +1659,78 @@ def test_exact_tier_on_card_matches_cpu(cuda):
         {"chunk_attention": 2 * (2 * n + 2 * n), "flash_dq": 2 * (n + 2 * n),
          "flash_dkv": 2 * (n + 2 * n)}
     assert not any(cpu_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# the sharded state's collectives at an NCCL world of one
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world_one(cuda, tmp_path):
+    """This process as the one rank of an NCCL world (a ``FileStore``), and
+    the rung plan over it; the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import data_plan
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        yield data_plan(dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_collectives_on_card_at_world_one(nccl_world_one):
+    """``all_gather_dim``, ``reduce_scatter_dim``, ``all_to_all_dim0`` and
+    the autograd gather on CUDA tensors of every dtype the state holds: at a
+    world of one each is an identity (and so are the NCCL calls they make),
+    gradients flow through the gather."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import plan as dplan
+
+    mesh = nccl_world_one.mesh
+    r = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(8, 6, device="cuda", generator=r).to(dt)
+          for dt in (torch.float32, torch.bfloat16)]
+    for got, x in zip(dplan.all_gather_dim(xs, [0, 1], mesh, "data"), xs):
+        assert torch.equal(got, x)
+    for got, x in zip(dplan.reduce_scatter_dim(xs, [1, 0], mesh, "data"), xs):
+        assert torch.equal(got, x)
+    assert torch.equal(dplan.all_to_all_dim0(xs[0], mesh, "data"), xs[0])
+    group = mesh.group("data")
+    for name, out, inp in (("all_gather_into_tensor", torch.empty_like(xs[1]), xs[1]),
+                           ("reduce_scatter_tensor", torch.empty_like(xs[0]), xs[0]),
+                           ("all_to_all_single", torch.empty_like(xs[0]), xs[0])):
+        getattr(dist, name)(out, inp, group=group)
+        assert torch.equal(out, inp), name
+    w = xs[0].clone().requires_grad_(True)
+    whole = dplan.gather_shards([w], [[(0, ("data",))]], mesh, ("data",))[0]
+    (whole * 2).sum().backward()
+    assert torch.equal(w.grad, torch.full_like(w, 2.0))
+
+
+def test_moe_apply_ep_on_card_matches_moe_apply(nccl_world_one):
+    """``moe_apply_ep`` on the card at a world of one (every expert local,
+    the all-to-alls identities) against ``moe_apply`` where nothing drops
+    (capacity factor 8.0): outputs within 1e-5, bf16 within 2e-2; the aux
+    loss equal."""
+    from repro_torch.models import moe
+    from repro_torch.models.moe_ep import moe_apply_ep
+
+    mesh = nccl_world_one.mesh
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        layer = moe.init_moe(64, 96, 8, generator=g, device="cuda", dtype=dtype)
+        x = torch.randn(2, 32, 64, device="cuda", generator=g).to(dtype)
+        want, aux_want = moe.moe_apply(layer, x, top_k=2, capacity_factor=8.0)
+        got, aux = moe_apply_ep(layer, x, top_k=2, capacity_factor=8.0, act="silu",
+                                mesh=mesh, ep_axes=("data",))
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(aux, aux_want)

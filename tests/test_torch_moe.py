@@ -494,15 +494,22 @@ def test_router_stays_float32_in_a_bf16_model(tmp_path):
                                                  carried.parameters()))
 
 
-def test_ep_moe_impl_under_a_plan_raises():
-    """``moe_impl="ep"`` runs ``moe_apply`` without a plan (as the
-    reference does) and raises under one with an expert axis."""
-    _, cfg, _, params = _pair("kimi-k2-1t-a32b", seed=0)
+def test_ep_moe_impl_under_a_local_plan_matches_reference():
+    """``moe_impl="ep"`` without a rank plan runs ``moe_apply``: with no
+    plan (as the reference does) and under a local mesh's plan (one
+    process: no expert ranks to route to) the loss is the default
+    implementation's to the bit and the reference's within 1e-5; the
+    explicit all-to-all over expert ranks is ``tests/test_torch_moe_ep.py``
+    and ``tests/test_torch_sharded.py``."""
+    jcfg, cfg, jparams, params = _pair("kimi-k2-1t-a32b", seed=0)
     toks = torch.randint(1, cfg.vocab_size, (2, 8))
     batch = {"tokens": toks, "targets": toks}
     ep = cfg.replace(moe_impl="ep")
-    assert tf.loss_fn(ep, params, batch)[0].item() == tf.loss_fn(cfg, params, batch)[0].item()
-    plan = ShardingPlan(Mesh(np.array(["cpu"]), ("data",)))
+    base = tf.loss_fn(cfg, params, batch)[0].item()
+    assert tf.loss_fn(ep, params, batch)[0].item() == base
+    plan = ShardingPlan(Mesh(np.array(["cpu"]), ("data",)), tp=None)
     with use_plan(plan):
-        with pytest.raises(NotImplementedError, match="Queue A 5"):
-            tf.loss_fn(ep, params, batch)
+        assert tf.loss_fn(ep, params, batch)[0].item() == base
+    want = jtf.loss_fn(jcfg.replace(moe_impl="ep"), jparams,
+                       {"tokens": jnp.asarray(toks.numpy()), "targets": jnp.asarray(toks.numpy())})
+    np.testing.assert_allclose(base, float(want[0]), rtol=1e-5)
