@@ -406,7 +406,26 @@ MB L2.
      hubert-xlarge sharded on the same 2 ranks (kernels) against one
      process on the CPU with whole state: losses, ``sq_norm_sum`` and the
      gathered parameters within 1e-4, each rank holding fewer parameters
-     than the whole.
+     than the whole;
+ 27. elastic serving on the card's eight virtual devices: Yi-6B at all 32
+     layers, bf16, through ``ServeEngine(elastic=MeshLadder())`` on a
+     ramping trace (waves of 1, 2 and 3 requests, the first outliving the
+     others): tokens identical to the engine with no ladder, at least 2
+     rung transitions, ``compiles`` the distinct (bucket, rung) pairs, the
+     launches 32 per chunk and per decode step; decode step and chunk ms by
+     rung, each reshard's seconds (a local rung moves no byte);
+ 28. elastic serving over 2 gloo ranks sharing the card: Yi-6B widths at 4
+     of 32 layers on ``MeshLadder(rank_devices, granule=1)`` (widths 1 and
+     2) through a trace that goes 1 -> 2 -> 1.  The paged decode kernel at
+     a rank's rows (B 1, 2, 4) and the chunk kernel at the trace's
+     one-chunk prompts held against their plain versions; a world of one
+     on NCCL equal to the engine with no ladder to the bit (tokens, pool
+     bytes); on each gloo rank the tokens of one process, the parameters
+     it holds on the 2-rank rung equal to the reckoning, the launches 4 per
+     chunk and per decode step it ran, decode and chunk ms by rung, a
+     decode step's collectives by kind (the parameter gathers, the pool
+     entries, the token all-reduce, the policy's broadcast), each reshard's
+     seconds and the peak; the pools equal across the ranks.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -429,7 +448,8 @@ records phase 19b's serving path, the jamba records phase 21c's, the
 other records
 the causal paths (phases 4, 6, 8, 10, 12, 16's pod cell on both
 ranks, 23a, and 25's sharded training, gram step and dbrx step on both
-ranks).
+ranks), and phases 27 and 28 (rows 1 and 4: the local ladder, and both
+ranks of the rank ladder).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -5500,6 +5520,374 @@ def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
                 for k in res[0]["dbrx"]["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 27-28: elastic serving, on the card's virtual devices and on ranks
+# ---------------------------------------------------------------------------
+
+# phase 27: Yi-6B at full depth on the default ladder (8 virtual devices)
+LOCAL_KW = dict(max_slots=8, max_seq=1024, block_size=16, prompt_granule=16,
+                prefill_chunk=256)
+LOCAL_LENS, LOCAL_NEW = (64, 300, 150, 96, 200, 128), (32, 16, 16, 16, 16, 16)
+# phase 28: Yi-6B widths at phase 25's depth on a 2-rank ladder, prompts in one chunk
+ELASTIC_LAYERS, ELASTIC_WORLD = SHARD_LAYERS, 2
+ELASTIC_KW = dict(max_slots=8, max_seq=128, block_size=16, prompt_granule=16,
+                  prefill_chunk=64)
+# the first request outlives the others, so the bucket falls back to 1: rungs 0, 1, 0
+ELASTIC_LENS, ELASTIC_NEW = (40, 64, 17, 52, 33, 60), (24, 8, 8, 8, 8, 8)
+#: the kinds of collective an elastic decode step issues on a rank rung
+SERVE_KINDS = ("parameter gathers", "pool entries", "tokens", "policy")
+
+
+def elastic_requests(vocab: int, lens, new, seed: int) -> list[Request]:
+    r = np.random.default_rng(seed)
+    return [Request(prompt=r.integers(1, vocab, size=n).astype(np.int32), max_new_tokens=m)
+            for n, m in zip(lens, new)]
+
+
+def ramp(engine: ServeEngine, reqs: list[Request], waves=(1, 2)) -> list[list[int]]:
+    """A ramping trace: ``waves[0]`` requests, two steps, ``waves[1]`` more,
+    two steps, the rest, drained; the tokens in submit order."""
+    rids, start = [], 0
+    for n in waves:
+        rids += [engine.submit(q) for q in reqs[start:start + n]]
+        start += n
+        for _ in range(2):
+            engine.step()
+    rids += [engine.submit(q) for q in reqs[start:]]
+    while engine.step():
+        pass
+    engine.pool.check()
+    return [engine.result(rid).tokens.tolist() for rid in rids]
+
+
+def rung_steps(engine: ServeEngine, extra=None) -> list[dict]:
+    """Wrap ``engine.step`` to record, per step, its seconds (the card
+    synchronised), prefill chunks run, decode steps run and the live rung
+    after it; ``extra()`` joins each record."""
+    recs, inner = [], engine.step
+
+    def step():
+        c0, s0 = engine.stats.prefill_chunks, engine.stats.steps
+        before = extra() if extra else None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = inner()
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t, "chunks": engine.stats.prefill_chunks - c0,
+               "decoded": engine.stats.steps - s0, "rung": getattr(engine.rung, "index", None)}
+        if extra:
+            rec["extra"] = (before, extra())
+        recs.append(rec)
+        return more
+
+    engine.step = step
+    return recs
+
+
+def rung_medians(recs: list[dict]) -> dict:
+    """Per rung: the median decode-only step and the median chunk (the
+    rung's decode median subtracted from a step that decoded too), in ms,
+    None where the rung ran none."""
+    out = {}
+    for rung in sorted({r["rung"] for r in recs}):
+        mine = [r for r in recs if r["rung"] == rung]
+        dec = [1e3 * r["s"] for r in mine if r["chunks"] == 0 and r["decoded"]]
+        d = statistics.median(dec) if dec else None
+        ch = [(1e3 * r["s"] - ((d or 0.0) if r["decoded"] else 0.0)) / r["chunks"]
+              for r in mine if r["chunks"]]
+        out[rung] = (d, statistics.median(ch) if ch else None, len(dec), len(ch))
+    return out
+
+
+def medians_line(med: dict) -> str:
+    return "; ".join(
+        f"rung {k}: decode {'-' if d is None else f'{d:.2f}'} ms ({nd} steps), chunk "
+        f"{'-' if c is None else f'{c:.2f}'} ms ({nc})" for k, (d, c, nd, nc) in med.items())
+
+
+def reshard_seconds(tracer) -> list[float]:
+    return [e["dur"] / 1e6 for e in tracer.events
+            if e.get("ph") == "X" and e["name"] == "reshard"]
+
+
+def elastic_local_phase() -> dict:
+    """Phase 27; returns the launch counts of the ladder's run."""
+    from repro_torch.elastic import MeshLadder
+    from repro_torch.obs import Tracer
+
+    phase("27. elastic serving on the card's 8 virtual devices: Yi-6B, 32 layers, bf16, "
+          "ServeEngine(elastic=MeshLadder()) on a ramping trace")
+    cfg = YI
+    params, _ = init_timed(cfg)  # phase 4's weights (the same seed)
+    reqs = elastic_requests(cfg.vocab_size, LOCAL_LENS, LOCAL_NEW, seed=27)
+    base = ServeEngine(cfg, params, device="cuda", **LOCAL_KW)
+    base_recs = rung_steps(base)
+    want = ramp(base, reqs)
+    base_med = rung_medians(base_recs)
+    del base
+    ladder = MeshLadder(granule=1)
+    tracer = Tracer()
+    engine = ServeEngine(cfg, params, elastic=ladder, tracer=tracer, **LOCAL_KW)
+    recs = rung_steps(engine)
+    kernels.reset_launch_counts()
+    got = ramp(engine, reqs)
+    counts = kernels.launch_counts()
+    st = engine.stats
+    want_counts = {"chunk_attention": cfg.num_layers * st.prefill_chunks,
+                   "paged_decode_attention": cfg.num_layers * st.steps,
+                   "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
+    if got != want:
+        raise AssertionError(f"elastic tokens {got} against the engine with no ladder {want}")
+    if counts != want_counts:
+        raise AssertionError(f"launches {counts}, expected {want_counts}")
+    if st.reshards < 2 or st.compiles != len(set(zip(st.buckets, st.rungs))) \
+            or any(r != ladder.rung_for_batch(b).index for b, r in zip(st.buckets, st.rungs)):
+        raise AssertionError(f"reshards {st.reshards}, buckets {st.buckets}, rungs {st.rungs}")
+    attn_routes(counts, plan_of(cfg, torch.bfloat16), what="elastic serving")
+    rs = reshard_seconds(tracer)
+    print(f"  ladder dp={ladder.widths} on {ladder.full.plan.mesh!r}; {len(reqs)} requests "
+          f"(prompts {list(LOCAL_LENS)}, {list(LOCAL_NEW)} new) in waves of 1, 2 and 3")
+    print(f"  tokens identical to the same trace with no ladder ({sum(map(len, got))} tokens)")
+    print(f"  stats.rungs {st.rungs} (buckets {st.buckets}), {st.reshards} reshards, "
+          f"compiles {st.compiles} = distinct (bucket, rung) pairs, hits {st.bucket_hits}")
+    print(f"  reshard seconds per transition: {[f'{x:.6f}' for x in rs]} (no byte moves)")
+    print(f"  by rung: {medians_line(rung_medians(recs))}")
+    print(f"  no ladder: {medians_line(base_med)}")
+    print(f"  launches {counts} (= {cfg.num_layers} x {st.prefill_chunks} chunks, "
+          f"{cfg.num_layers} x {st.steps} decode steps, no backward)")
+    del engine, params
+    free()
+    return counts
+
+
+def pool_digest(pages: dict) -> str:
+    """A digest of every pool block but the sentinel block 0 (inactive lanes
+    write garbage there)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for entry in pages.values():
+        for x in entry.values():
+            h.update(x[:, 1:].contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class ServeClock(CollectiveClock):
+    """``CollectiveClock`` plus ``broadcast`` (the state sent to ranks that
+    enter a rung)."""
+
+    ARG = {**CollectiveClock.ARG, "broadcast": 0}
+
+
+def rank_elastic_serve(dev, args) -> dict:
+    """28 on a gloo rank: Yi-6B at ``ELASTIC_LAYERS`` layers served on a
+    2-rank ladder through the ramping trace, per-step collectives by kind."""
+    from repro_torch.dist import sharding
+    from repro_torch.elastic import MeshLadder
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = YI.replace(num_layers=ELASTIC_LAYERS)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ladder = MeshLadder(rank_devices(dev), granule=1)
+    tracer = Tracer()
+    engine = ServeEngine(cfg, params, elastic=ladder, tracer=tracer, **ELASTIC_KW)
+    del params
+    clock = ServeClock()
+    part = {k: {"ms": 0.0, "bytes": 0, "calls": 0} for k in SERVE_KINDS[1:]}
+
+    def timed_part(kind, fn):
+        """``fn`` counted as one call of ``kind``: its collectives' ms and
+        bytes by the clock (the policy's pickled broadcast, which the clock
+        does not see, by its wall time)."""
+        def run(*a, **kw):
+            before = clock.snapshot()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            after = clock.snapshot()
+            part[kind]["calls"] += 1
+            part[kind]["ms"] += (1e3 * (time.perf_counter() - t) if kind == "policy" else
+                                 sum(after["ms"][n] - before["ms"][n] for n in ServeClock.ARG))
+            part[kind]["bytes"] += sum(after["bytes"][n] - before["bytes"][n]
+                                       for n in ServeClock.ARG)
+            return out
+        return run
+
+    engine._share_entries = timed_part("pool entries", engine._share_entries)
+    engine._agree = timed_part("tokens", engine._agree)
+    inner_bcast = engine_mod.broadcast_object
+    engine_mod.broadcast_object = timed_part("policy", inner_bcast)
+    calls = {"decode": 0, "chunk": 0}
+    inner_decode, inner_chunk = tf.decode_step, tf.prefill_chunk
+
+    def decode(*a, **kw):
+        calls["decode"] += 1
+        return inner_decode(*a, **kw)
+
+    def chunk(*a, **kw):
+        calls["chunk"] += 1
+        return inner_chunk(*a, **kw)
+
+    held = {}
+
+    def snap():
+        lay = sharding.layout_of(engine.params)
+        if lay is not None and "params" not in held:
+            held["params"] = sum(p.numel() for p in engine.params.parameters())
+            held["bytes"] = sum(p.numel() * p.element_size() for p in engine.params.parameters())
+        if engine.rung.index == ladder.full.index:
+            held["pool"] = pool_digest(engine._pages)
+        return clock.snapshot(), copy.deepcopy(part)
+
+    recs = rung_steps(engine, snap)
+    reqs = elastic_requests(cfg.vocab_size, ELASTIC_LENS, ELASTIC_NEW, seed=28)
+    tf.decode_step, tf.prefill_chunk = decode, chunk
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        toks = ramp(engine, reqs, waves=(1,))
+        torch.cuda.synchronize()
+    finally:
+        tf.decode_step, tf.prefill_chunk = inner_decode, inner_chunk
+        engine_mod.broadcast_object = inner_bcast
+        clock.close()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    steps = []
+    for r in recs:
+        (c0, p0), (c1, p1) = r.pop("extra")
+        kinds = {k: {m: p1[k][m] - p0[k][m] for m in ("ms", "bytes", "calls")}
+                 for k in SERVE_KINDS[1:]}
+        tot = {m: sum(c1[m][n] - c0[m][n] for n in ServeClock.ARG)
+               for m in ("ms", "bytes", "calls")}
+        # the rest of the clock's collectives: the blocks' and the embedding's gathers
+        kinds["parameter gathers"] = {
+            m: tot[m] - kinds["pool entries"][m] - kinds["tokens"][m]
+            for m in ("ms", "bytes", "calls")}
+        steps.append({**r, "coll": kinds})
+    return {"tokens": toks, "rungs": list(st.rungs), "buckets": list(st.buckets),
+            "reshards": st.reshards, "steps": steps, "reshard_s": reshard_seconds(tracer),
+            "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+            "calls": calls, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "wall_s": wall, "backend": dist.get_backend(), **held}
+
+
+def rank_elastic_world_one(dev, args) -> dict:
+    """28's world of one on NCCL: the 2-rank ladder's trace on a 1-rank
+    ladder (a rung of one rank shards nothing; every token agreed over the
+    one-rank group) and on the engine with no ladder: tokens and pools."""
+    from repro_torch.elastic import MeshLadder
+
+    cfg = YI.replace(num_layers=ELASTIC_LAYERS)
+    reqs = elastic_requests(cfg.vocab_size, ELASTIC_LENS, ELASTIC_NEW, seed=28)
+    out = {"backend": dist.get_backend()}
+    for tag, ladder in (("base", None), ("ranked", MeshLadder(rank_devices(dev), granule=1))):
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        kw = {"elastic": ladder} if ladder is not None else {"device": dev}
+        engine = ServeEngine(cfg, params, **kw, **ELASTIC_KW)
+        out[tag] = {"tokens": ramp(engine, reqs, waves=(1,)), "pool": pool_digest(engine._pages)}
+        del engine, params
+    out["same"] = out["base"] == out["ranked"]
+    return out
+
+
+RANK_JOBS.update(elastic_serve=rank_elastic_serve, elastic_world_one=rank_elastic_world_one)
+
+
+def elastic_rank_report(rk: int, got: dict, want: list, mine_params: int, plan: dict) -> None:
+    """Hold one rank's phase-28 run (tokens, resident parameters, launches,
+    rungs, routes) and print it."""
+    tag = f"[{got['backend']}, world {ELASTIC_WORLD}, rank {rk}]"
+    want_counts = {"chunk_attention": ELASTIC_LAYERS * got["calls"]["chunk"],
+                   "paged_decode_attention": ELASTIC_LAYERS * got["calls"]["decode"],
+                   "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
+    if got["tokens"] != want:
+        raise AssertionError(f"{tag} tokens {got['tokens']} against one process {want}")
+    if got.get("params") != mine_params:
+        raise AssertionError(f"{tag} holds {got.get('params')} parameters, reckoned "
+                             f"{mine_params}")
+    if got["launches"] != want_counts or 0 in got["calls"].values():
+        raise AssertionError(f"{tag} launches {got['launches']}, expected {want_counts}")
+    if got["reshards"] < 2 or set(got["rungs"]) != {0, 1}:
+        raise AssertionError(f"{tag} rungs {got['rungs']}, reshards {got['reshards']}")
+    attn_routes(got["launches"], plan, what=f"{tag} elastic serving", routes=got["routes"])
+    print(f"  (c) {tag} tokens equal one process's; resident parameters on the 2-rank "
+          f"rung {got['bytes'] / 1e9:.3f} GB ({got['params'] / 1e9:.4f} B) = the "
+          f"reckoning; peak {got['peak_gib']:.2f} GiB; {got['wall_s']:.1f} s")
+    print(f"    stats.rungs {got['rungs']} (buckets {got['buckets']}), reshard seconds "
+          f"{[round(x, 3) for x in got['reshard_s']]}")
+    print(f"    by rung: {medians_line(rung_medians(got['steps']))}")
+    dec = [st for st in got["steps"] if st["rung"] == 1 and st["decoded"]
+           and not st["chunks"]]
+    step_ms = statistics.median(1e3 * st["s"] for st in dec)
+    for kind in SERVE_KINDS:
+        med = {m: statistics.median(st["coll"][kind][m] for st in dec)
+               for m in ("calls", "bytes", "ms")}
+        print(f"    a decode step on rung 1 ({len(dec)} steps, median), {kind}: "
+              f"{med['calls']:.0f} calls, {med['bytes'] / 1e9:.4f} GB, {med['ms']:.1f} ms "
+              f"({100 * med['ms'] / step_ms:.1f}% of the step's {step_ms:.1f})")
+    print(f"    launches {got['launches']} (= {ELASTIC_LAYERS} x {got['calls']['chunk']} "
+          f"chunks, {ELASTIC_LAYERS} x {got['calls']['decode']} decode steps this rank ran)")
+
+
+def elastic_ranks_phase() -> dict:
+    """Phase 28; returns the launch counts of the ranks' run, summed."""
+    phase(f"28. elastic serving over {ELASTIC_WORLD} gloo ranks sharing the one card: Yi-6B "
+          f"widths at {ELASTIC_LAYERS} of 32 layers on MeshLadder(rank_devices, granule=1), "
+          f"the parameters sharded on the 2-rank rung")
+    t_phase = time.perf_counter()
+    cfg = YI.replace(num_layers=ELASTIC_LAYERS)
+    _, _, mine_params = reckoned_state_bytes(cfg, ELASTIC_WORLD)
+    n_params = sum(p.numel() for p in tf.build(cfg, "meta").parameters())
+    print(f"  (a) reckoned from infer_pspecs on the (data 2) rung: {mine_params / 1e9:.4f} B "
+          f"parameters a rank of {n_params / 1e9:.4f} B, {2 * mine_params / 1e9:.3f} GB in bf16")
+    # the kernels at the shapes a rank launches them with: its rows of the
+    # bucket (1, 2, 4 of 8) and a one-chunk prompt
+    r = np.random.default_rng(28)
+    n_max = -(-(ELASTIC_KW["max_seq"] + ELASTIC_KW["max_seq"] // 2) // 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (1, 2, 4):
+        args = decode_inputs(r, torch.bfloat16, b=b, blk=16, n_max=n_max, nb=1 + b * n_max,
+                             kv=cfg.num_kv_heads, h=cfg.num_heads, hd=cfg.resolved_head_dim,
+                             max_len=n_max * 16)
+        decode_case(f"a rank's rows bf16 (B {b}, block 16, {n_max} table entries, "
+                    f"{cfg.num_heads}/{cfg.num_kv_heads} heads of hd 128; decode_plan "
+                    f"{kattn.decode_plan(b, cfg.num_kv_heads, n_max, 16, sms)} splits)", args)
+    chunk_case("a rank rung's prompt bf16 (C 64, no prior, 32/4 heads of hd 128)",
+               chunk_inputs(r, torch.bfloat16, b=1, c=64, prior_real=0, prior_blocks=0,
+                            blk=16, h=cfg.num_heads, kv=cfg.num_kv_heads,
+                            hd=cfg.resolved_head_dim))
+    reqs = elastic_requests(cfg.vocab_size, ELASTIC_LENS, ELASTIC_NEW, seed=28)
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    base = ServeEngine(cfg, params, device="cuda", **ELASTIC_KW)
+    base_recs = rung_steps(base)
+    want = ramp(base, reqs, waves=(1,))
+    print(f"  (a) one process, whole parameters: {medians_line(rung_medians(base_recs))}")
+    del base, params
+    free()
+    t0 = time.perf_counter()
+    one = spawn_ranks("elastic_world_one", "nccl", 1, {})[0]
+    if not one["same"] or one["base"]["tokens"] != want:
+        raise AssertionError(f"(b) world 1: {one} against {want}")
+    print(f"  (b) [{one['backend']}, world 1, rank 0] the trace on a 1-rank ladder: tokens and "
+          f"pool bytes (the sentinel block aside) the engine's with no ladder, to the bit "
+          f"({time.perf_counter() - t0:.1f} s with the spawn)")
+    t0 = time.perf_counter()
+    res = dict(sorted(spawn_ranks("elastic_serve", "gloo", ELASTIC_WORLD, {}).items()))
+    spawn_s = time.perf_counter() - t0
+    plan = plan_of(cfg, torch.bfloat16)
+    for rk, got in res.items():
+        elastic_rank_report(rk, got, want, mine_params, plan)
+    if res[0]["pool"] != res[1]["pool"]:
+        raise AssertionError("the ranks' pools differ after their last step on the 2-rank rung")
+    print(f"  (c) the pools equal across the ranks after the last step on the 2-rank rung; "
+          f"phase 28: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s)")
+    return {k: sum(res[r]["launches"][k] for r in res) for k in res[0]["launches"]}
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -5549,6 +5937,8 @@ def main() -> int:
     exact_counts, exact_encoder_counts = exact_phase()
     exact_card_vs_cpu_phase()
     sharded_paths = sharded_phase()
+    elastic_local = elastic_local_phase()
+    elastic_ranks = elastic_ranks_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -5558,7 +5948,9 @@ def main() -> int:
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"],
-             "exact-tier training": exact_counts, **sharded_paths}
+             "exact-tier training": exact_counts, **sharded_paths,
+             "elastic serving (local ladder)": elastic_local,
+             "elastic serving (ranks)": elastic_ranks}
     encoder_paths["exact-tier encoder"] = exact_encoder_counts
     # a record naming its paths counts those (the dense group's forms, phase
     # 17; kimi-k2's, phase 19), the other non-causal records the encoder's

@@ -102,6 +102,12 @@ def _fit_axes(dim: int, axes: AxisNames, plan: ShardingPlan):
     return best[0] if len(best) == 1 else best
 
 
+def fit_axes(dim: int, axes: AxisNames, plan: ShardingPlan):
+    """The axes a dim of size ``dim`` shards over among ``axes`` (every
+    rule's choice, :func:`_fit_axes`): a name, a tuple of names, or None."""
+    return _fit_axes(dim, axes, plan)
+
+
 # kernels whose OUTPUT dim carries tp (input dim carries fsdp)
 _COLUMN_PARALLEL = (
     "attn/q/kernel",

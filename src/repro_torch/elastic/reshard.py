@@ -30,6 +30,12 @@ it) and waits at the next boundary.  A plan whose specs shard nothing (the
 paper's small models; a rung of one rank) keeps whole leaves and moves
 them by one broadcast per dtype, as before sharding existed.
 
+A model alone (an ``nn.Module``, the served model's case) moves the same
+way without the broadcast: its values are the same on every rank (they are
+never stepped), so a rank gathers its shards over the source rung's groups
+(:func:`unshard_module`) and keeps its slice of the destination from its
+own whole copy; a rank outside the destination keeps the whole model.
+
 ``place`` is the restore-time variant: a host tree onto a plan's device, or
 the CPU when no plan is given; on a rank rung it slices the tree by the
 specs (a ``TrainState`` or a model by their layout, a tree of the
@@ -160,6 +166,19 @@ def shard_module(model: nn.Module, plan: ShardingPlan | None) -> nn.Module:
     return model
 
 
+def unshard_module(model: nn.Module) -> nn.Module:
+    """Every parameter of a sharded model whole (gathered over its layout's
+    groups, leaf by leaf: a collective over them), in place; the layout
+    dropped.  A whole model comes back as it is."""
+    layout = sharding.layout_of(model)
+    if layout is not None:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.data = layout.unshard(name, p.data)
+        model.shard_layout = None
+    return model
+
+
 def unshard_state(state: TrainState) -> TrainState:
     """Every parameter-shaped leaf whole (gathered over the layout's groups,
     leaf by leaf: a collective over them); the layout dropped."""
@@ -201,6 +220,13 @@ def reshard(state: Tree, src_plan: ShardingPlan | None, dst_plan: ShardingPlan |
         state = copy.deepcopy(state)
     train = _is_train_state(state)
     mesh = dst_plan.mesh if dst_plan is not None else None
+    if isinstance(state, nn.Module):
+        lay = sharding.layout_of(state)
+        if lay is not None and lay.mesh.is_member:
+            unshard_module(state)  # a collective over the source rung
+        if dst_plan is None or (mesh.ranked and not mesh.is_member):
+            return state
+        return shard_module(_move(state, mesh.physical_device()), dst_plan)
     if dst_plan is None or (mesh.ranked and not mesh.is_member):
         # outside the rung: gather with the source, then wait at the next boundary
         return unshard_state(state) if train else state
@@ -259,8 +285,8 @@ def place(tree: Tree, plan: ShardingPlan | None) -> Tree:
     ``infer_pspecs``.  A state already sharded on another rung moves from
     there (``reshard``).  On a rank outside a rank plan's mesh the tree
     stays where it is."""
-    if _is_train_state(tree):
-        cur = sharding.layout_of(tree.params)
+    if _is_train_state(tree) or isinstance(tree, nn.Module):
+        cur = sharding.layout_of(tree.params if _is_train_state(tree) else tree)
         if cur is not None:  # sharded on a rung already: move it from there
             return tree if same_plan(cur.plan, plan) else place(
                 reshard(tree, cur.plan, plan), plan)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import datetime
 import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -103,6 +104,21 @@ def join_world(backend: str, *, ranks: int | None, device: torch.device | str,
             f"{command} needs a process group of {n} ranks, found {world or 'none'}: "
             f"launch it with torchrun --nproc-per-node {n} -m {command} ...")
     return init_ranks(backend, device=device)
+
+
+def rank_setup(backend: str, *, dp: int, device: torch.device | str, elastic: bool,
+               granule: int, command: str) -> tuple[torch.device, ShardingPlan | None, Any]:
+    """``(device, plan, ladder)`` of a CLI's ``--dp`` / ``--elastic`` under
+    torchrun: this process's rank joins the world on ``backend`` (``--dp N``
+    needs a world of N ranks, ``--elastic`` alone at least 2); ``--elastic``
+    gives a ``MeshLadder`` over the world's ranks, else the fixed
+    :func:`data_plan`."""
+    from repro_torch.elastic import MeshLadder  # elastic imports dist.plan, not this module
+
+    dev = join_world(backend, ranks=dp or None, device=device, command=command)
+    if elastic:
+        return dev, None, MeshLadder(rank_devices(dev), granule=granule)
+    return dev, data_plan(dev), None
 
 
 def data_plan(device: torch.device | str) -> ShardingPlan:

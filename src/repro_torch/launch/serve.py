@@ -1,9 +1,16 @@
 """Serving CLI of the port: continuous-batching decode of a ported model.
 
-Counterpart of ``repro/launch/serve.py`` on one device.  Runs on the card by
-default (``--device cuda``; it raises without one) and on the CPU only when
-asked (``--device cpu``).  The elastic ladder and fixed dp plans are not
-ported.
+Counterpart of ``repro/launch/serve.py``.  Runs on the card by default
+(``--device cuda``; it raises without one) and on the CPU only when asked
+(``--device cpu``).  ``--elastic`` wires a ``MeshLadder`` into the engine,
+so the live slot bucket picks the rung: on one process over ``--dp``
+(default 8) virtual devices of the device, whose rungs keep whole leaves on
+it; under ``torchrun`` over the world's ranks (``--backend nccl|gloo``;
+NCCL wants a card per rank, gloo lets several ranks share one card), whose
+rungs shard the parameters and split the decode rows.  ``--dp N`` instead
+pins a fixed N-wide data-parallel plan: N virtual devices on one process, a
+world of N ranks under ``torchrun``.  Only the first rank prints and
+writes ``--out``.
 
 Examples:
   python -m repro_torch.launch.serve --arch yi-6b --full-size
@@ -11,6 +18,9 @@ Examples:
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --full-size --max-seq 8192
   python -m repro_torch.launch.serve --requests 16 --prefill-chunk 8 --block-size 8
   python -m repro_torch.launch.serve --device cpu --policy fair --tenants 2
+  python -m repro_torch.launch.serve --device cpu --elastic --requests 8 --ramp 2
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu --elastic \\
+      --backend gloo --requests 8 --ramp 2
 """
 
 from __future__ import annotations
@@ -18,14 +28,20 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.dist.plan import process_rank, use_plan
+from repro_torch.elastic import MeshLadder
+from repro_torch.elastic.ladder import DEFAULT_VIRTUAL_DEVICES
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import rank_setup
 from repro_torch.models import transformer as tf
 from repro_torch.obs import from_cli as obs_from_cli
 from repro_torch.serve import POLICIES, Request, ServeEngine
@@ -70,7 +86,14 @@ def serve_trace(engine: ServeEngine, requests: list[Request], ramp: int) -> list
     return [engine.result(rid) for rid in rids]
 
 
-def main(argv=None):
+def init_model(cfg, seed: int, device: torch.device) -> tf.Transformer:
+    """The served model: random weights from ``seed`` (every rank draws
+    the same ones)."""
+    return tf.init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns ``{"engine", "results"}``."""
     ap = argparse.ArgumentParser()
     # the engine serves causal decoders with token prompts
     served = [a for a in ARCH_NAMES
@@ -107,6 +130,14 @@ def main(argv=None):
     ap.add_argument("--sampler", default="greedy", choices=["greedy", "categorical"])
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp", type=int, default=0,
+                    help="pin a fixed dp-wide plan (the non-elastic baseline): "
+                         "virtual devices, or a world of N ranks under torchrun")
+    ap.add_argument("--elastic", action="store_true",
+                    help="MeshLadder over --dp (default: all) devices; the live slot "
+                         "count picks the rung")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the process group's backend under torchrun")
     ap.add_argument("--out", default=None, help="write {results, stats} JSON")
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="record a Chrome/Perfetto trace and write "
@@ -120,39 +151,51 @@ def main(argv=None):
                          "trace to PATH and print the ops by device time")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    plan = ladder = None
+    ranked = dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if ranked and (args.dp or args.elastic):
+        device, plan, ladder = rank_setup(args.backend, dp=args.dp, device=args.device,
+                                          elastic=args.elastic, granule=1,
+                                          command="repro_torch.launch.serve")
+    else:
+        device = resolve_device(args.device)
+        if args.elastic:
+            ladder = MeshLadder([device] * (args.dp or DEFAULT_VIRTUAL_DEVICES), granule=1)
+        elif args.dp:  # a fixed plan: the widest rung of a ladder over dp virtual devices
+            plan = MeshLadder([device] * args.dp).full.plan
+    first = process_rank() == 0
     cfg = get_config(args.arch, reduced=not args.full_size)
     if not args.full_size:
         # at most 4 layers, but a whole period of the pattern (jamba's is 8)
         cfg = cfg.replace(num_layers=min(cfg.num_layers, max(4, cfg.period)), d_model=128,
                           num_heads=4, num_kv_heads=2)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = tf.init_params(cfg, gen, device)
+    params = init_model(cfg, args.seed, device)
 
     tracer, runlog = obs_from_cli(
-        args.trace, args.runlog,
+        args.trace if first else None, args.runlog if first else None,
         meta={"cmd": "serve", "arch": args.arch, "requests": args.requests,
-              "seed": args.seed, "elastic": False, "policy": args.policy,
+              "seed": args.seed, "elastic": bool(args.elastic), "policy": args.policy,
               "device": str(device)},
     )
-    engine = ServeEngine(
-        cfg, params, device=device, max_slots=args.max_slots,
-        max_seq=args.max_seq, sampler=args.sampler,
-        temperature=args.temperature, seed=args.seed,
-        prompt_granule=args.prompt_granule,
-        block_size=args.block_size or None,
-        pool_blocks=args.pool_blocks or None,
-        prefill_chunk=args.prefill_chunk,
-        prefix_sharing=not args.no_prefix_sharing,
-        policy=args.policy, tracer=tracer, runlog=runlog,
-    )
+    with use_plan(plan) if plan is not None else contextlib.nullcontext():
+        engine = ServeEngine(
+            cfg, params, device=device, max_slots=args.max_slots,
+            max_seq=args.max_seq, sampler=args.sampler,
+            temperature=args.temperature, seed=args.seed,
+            prompt_granule=args.prompt_granule, elastic=ladder,
+            block_size=args.block_size or None,
+            pool_blocks=args.pool_blocks or None,
+            prefill_chunk=args.prefill_chunk,
+            prefix_sharing=not args.no_prefix_sharing,
+            policy=args.policy, tracer=tracer, runlog=runlog,
+        )
     requests = build_requests(cfg, args.requests, max_new=args.max_new,
                               seed=args.seed, tenants=args.tenants)
     on_card = device.type == "cuda"
     if on_card:
         _build.build_all()  # nvcc before the first request, not inside it
     prof_ctx = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and first:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
@@ -163,6 +206,8 @@ def main(argv=None):
         if on_card:
             torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if not first:
+        return {"engine": engine, "results": results}
     if args.profile:
         prof.export_chrome_trace(args.profile)
         key = "self_device_time_total" if on_card else "self_cpu_time_total"
@@ -188,13 +233,16 @@ def main(argv=None):
     print(f"served {len(results)} requests, {total} tokens "
           f"({stats.tokens_per_sec:.1f} tok/s windowed, "
           f"{stats.steps} decode steps, {stats.slot_steps} decoded lanes)")
-    print(f"engine: programs={stats.compiles} (buckets={stats.buckets}) "
-          f"prefill={stats.prefill_compiles} aux={stats.aux_compiles} "
-          f"hits={stats.bucket_hits}")
+    print(f"engine: programs={stats.compiles} (buckets={stats.buckets} "
+          f"rungs={stats.rungs}) prefill={stats.prefill_compiles} "
+          f"aux={stats.aux_compiles} hits={stats.bucket_hits}")
     print(f"pool: {stats.peak_blocks}/{stats.pool_blocks} blocks peak "
           f"(block={stats.block_size}) chunks={stats.prefill_chunks} "
           f"shared_hits={stats.shared_prefill_hits} "
           f"shared_blocks={stats.shared_blocks} cow={stats.cow_copies}")
+    if ladder is not None:
+        print(f"elastic: ladder dp={ladder.widths} reshards={stats.reshards} "
+              f"resizes={stats.resizes}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(
@@ -203,6 +251,7 @@ def main(argv=None):
                  "stats": stats.as_dict()},
                 f, indent=1,
             )
+    return {"engine": engine, "results": results}
 
 
 if __name__ == "__main__":

@@ -57,9 +57,8 @@ from repro_torch.adapt import (
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.core.controller import step_decay
 from repro_torch.data import imagelike_classification, sigmoid_synthetic
-from repro_torch.dist.plan import process_rank, rank_devices, use_plan
-from repro_torch.elastic import MeshLadder
-from repro_torch.launch.mesh import data_plan, join_world
+from repro_torch.dist.plan import process_rank, use_plan
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import from_cli as obs_from_cli
 from repro_torch.optim import sgd
 from repro_torch.train.loop import ModelFns, Trainer
@@ -68,11 +67,9 @@ def rank_setup(args) -> tuple[torch.device, Any, Any]:
     """``(device, plan, ladder)`` for ``--dp`` / ``--elastic``: this
     process's rank joins the world on ``--backend``; ``--dp N`` needs a world
     of N ranks, ``--elastic`` alone at least 2."""
-    dev = join_world(args.backend, ranks=args.dp or None, device=args.device,
-                     command="repro_torch.launch.train")
-    if args.elastic:
-        return dev, None, MeshLadder(rank_devices(dev), granule=args.granule)
-    return dev, data_plan(dev), None
+    return mesh_lib.rank_setup(args.backend, dp=args.dp, device=args.device,
+                               elastic=args.elastic, granule=args.granule,
+                               command="repro_torch.launch.train")
 
 
 def build_task(task: str, seed: int, device: torch.device | str = "cuda"):

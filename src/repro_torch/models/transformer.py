@@ -85,7 +85,10 @@ so the backward gathers again instead of holding every gathered block
 gradient); ``_embed_input`` and ``loss_fn`` gather the embedding (or
 frontend) and the head.  Under ``moe_impl="ep"`` the experts' expert dim
 stays resident.  Serving (``prefill_step``, ``decode_step``,
-``prefill_chunk``) takes whole parameters.
+``prefill_chunk``, under ``no_grad``, no remat) gathers each block whole
+for its extent only (``_serving_layers``), and the embedding and the head
+through ``_whole``, so a sharded model never stands whole on a rank; an
+unsharded model takes the same path with no gather.
 
 Mamba mixers ('mamba', ``models/ssm.py``): ``Block`` holds a ``Mamba``
 in the attention's place, and the layer still runs its FFN (none when
@@ -501,10 +504,10 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups:
     if not cfg.causal:
         x, _ = _run_stack(cfg, params, x, positions, moe_groups)
         # the reference's encoder branch: no final softcap
-        return dense(params.final_norm(x), params.lm_head.weight).float(), {}
+        return dense(params.final_norm(x), _whole(params, "lm_head.weight")).float(), {}
     cache = init_cache(cfg, b, s, device=x.device)
     hd = cfg.resolved_head_dim
-    for r, p, blk in _layers(cfg, params):
+    for r, p, blk in _serving_layers(cfg, params):
         entry, h = cache[f"pos{p}"], blk.norm(x)
         if cfg.pattern[p] == "mamba":
             y, state = ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, return_state=True)
@@ -600,6 +603,16 @@ def _layers(cfg: ModelConfig, params: Transformer):
             yield r, p, params.blocks[r * cfg.period + p]
 
 
+def _serving_layers(cfg: ModelConfig, params: Transformer):
+    """``_layers`` with each block's parameters gathered whole while the
+    caller's loop body runs (a sharded model; as they are otherwise): one
+    block stands whole at a time."""
+    layout = sharding.layout_of(params)
+    for r, p, blk in _layers(cfg, params):
+        with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}."):
+            yield r, p, blk
+
+
 def _state(entry: dict, r: int) -> dict:
     """Layer ``r``'s Mamba state in a per-position cache entry."""
     return {"h": entry["h"][r], "conv": entry["conv"][r]}
@@ -644,7 +657,7 @@ def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=No
 
 def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
     x = params.final_norm(x)
-    logits = dense(x, params.lm_head.weight).float()
+    logits = dense(x, _whole(params, "lm_head.weight")).float()
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -688,7 +701,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
     lengths = (posv + 1).to(torch.int32)  # the kernel's type, converted once
     hd = cfg.resolved_head_dim
     rows = torch.arange(b, device=x.device)
-    for r, p, blk in _layers(cfg, params):
+    for r, p, blk in _serving_layers(cfg, params):
         name, hn = f"pos{p}", blk.norm(x)
         if cfg.pattern[p] == "mamba":
             y, state = ssm.mamba_decode_step(blk.mamba, _state(cache[name], r), hn)
@@ -771,7 +784,7 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
     sc = min(cfg.ssm_chunk, c)
     if c % sc:  # the scan needs an even split: one chunk of all C
         sc = c
-    for r, p, blk in _layers(cfg, params):
+    for r, p, blk in _serving_layers(cfg, params):
         hn = blk.norm(x)
         if cfg.pattern[p] == "mamba":
             entry = row[f"pos{p}"]

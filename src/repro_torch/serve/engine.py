@@ -17,19 +17,59 @@ refused (it serves through ``transformer.prefill_step`` and
 What differs from the reference:
 
   * eager PyTorch on ``device`` (default ``"cuda"``, which raises without a
-    Hopper card).  The pool, the per-slot lengths and the block copies of
-    copy-on-write are updated in place, the counterpart of the reference's
-    buffer donation.  Attention runs through ``kernels/attention.py``.
+    Hopper card) when no plan is given; under a plan (``use_plan``, or the
+    live rung of ``elastic=``) on the device its mesh names for this
+    process (``Mesh.physical_device``).  The pool, the per-slot lengths
+    and the block copies of copy-on-write are updated in place, the
+    counterpart of the reference's buffer donation.  Attention runs
+    through ``kernels/attention.py``.
   * no compilation: the reference's AOT compile cache becomes accounting of
-    the distinct program keys the engine uses, so ``ServeStats`` keeps its
-    keys and ``compiles == len(set(zip(buckets, rungs)))`` still holds
-    (``compile_s`` stays 0).
-  * no elastic ladder: ``elastic=`` raises (scale-out is ROADMAP Queue A 5),
-    so every rung is ``None``.
+    the distinct program keys the engine uses, each carrying the rung as
+    the reference's do, so ``ServeStats`` keeps its keys and ``compiles ==
+    len(set(zip(buckets, rungs)))`` still holds (``compile_s`` stays 0).
   * the categorical sampler seeds a ``torch.Generator`` from
     ``(seed, rid, pos)``: per-request deterministic whatever the slot layout,
     but not the reference's ``jax.random`` stream.  Greedy sampling carries
     token identity across the two packages.
+
+Elastic serving and plans.  ``elastic=MeshLadder(...)`` follows the live
+slot bucket up and down the ladder (``rung_for_batch``) at the boundary
+that resizes the bucket, with a ``reshard`` span and run-log event, as the
+reference does; ``elastic=`` under an ambient plan is ambiguous and
+raises.  A local rung (every entry a ``torch.device`` of this process, the
+default eight virtual devices of the card) keeps whole leaves on its one
+physical device, so a rung change moves no byte.  On a rank rung
+(``dist.plan.rank_devices``) that shards:
+
+  * the parameters are this rank's shards by the reference's rules
+    (``elastic.reshard.place``: ``fsdp = ep =`` the data axis, ``tp =`` the
+    model axes), and ``decode_step``/``prefill_chunk`` gather one block at
+    a time; a rung change gathers over the source rung and slices for the
+    destination, and a rank outside the destination keeps the whole model
+    and waits, running the host engine all the same;
+  * the slot cache's rows follow ``dist.sharding.cache_pspecs``: a batch
+    axis the data axis divides is split into contiguous rows a rank, which
+    that rank decodes (free lanes included, with its slice of the tokens
+    and tables); otherwise (a bucket the rung's width does not divide)
+    every rank decodes every row.  ``len`` stays whole.  At a resize and a
+    rung change the rows move whole: gathered over the source, sliced for
+    the destination;
+  * every token the engine records is agreed over the ladder's control
+    group (an all-reduce of each rank's own rows; the rung's first rank
+    speaks for rows it computes with the others, ranks outside the rung
+    contribute nothing), and so is the policy's decision, so every rank's
+    ``Scheduler``, ``BlockPool`` and policy take the same decisions and
+    issue the same collectives in the same order.
+
+Two layouts differ from the reference's (ROADMAP.md Queue A 5): the block
+pool stays whole on every rank of the rung (each decode step gathers the
+rows' newly written K/V entries, ``rows x layers x 2 x kv x hd`` elements,
+so the pools stay equal; the reference puts its block axis on dp), and a
+prefill chunk (one row) runs on every rank of the rung (the reference
+falls back to the sequence axis).  Ranks that enter a rung take the pool,
+the prefill rows and the cached prompt rows from its first rank.
+``moe_impl="ep"`` is refused on ranks (Queue A 5): serving gathers the
+experts whole.
 """
 
 from __future__ import annotations
@@ -40,11 +80,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.adapt.signals import Clock, ThroughputWindow
+from repro_torch.ckpt.checkpoint import _unflatten, tree_flatten_with_paths
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.batch_policy import bucket
+from repro_torch.dist import sharding
+from repro_torch.dist.plan import (all_gather_dim, broadcast_, broadcast_object, current_plan,
+                                   process_rank)
+from repro_torch.elastic.ladder import MeshLadder
+from repro_torch.elastic.reshard import place
 from repro_torch.models import transformer as tf
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import runlog as runlog_lib
@@ -79,16 +126,6 @@ def _axis(t: torch.Tensor) -> int:
     return 0 if t.dim() == 1 else 1
 
 
-def _insert_row(cache: dict, row: dict, j: int) -> None:
-    """Write one single-request row (nested ring leaves included) into
-    batch position ``j``, in place."""
-    for key, full in cache.items():
-        if isinstance(full, dict):
-            _insert_row(full, row[key], j)
-        else:
-            full.narrow(_axis(full), j, 1).copy_(row[key].to(full.dtype))
-
-
 def _gather_rows(cache: dict, idx: torch.Tensor) -> dict:
     """Re-index the batch axis: ``new[i] = old[idx[i]]`` (compaction,
     growth, any slot permutation)."""
@@ -102,6 +139,10 @@ def _copy_block(pages: dict, src: int, dst: int) -> None:
     for leaf in pages.values():
         for x in leaf.values():
             x[:, dst] = x[:, src]
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
 
 
 @dataclasses.dataclass
@@ -189,14 +230,16 @@ class ServeEngine:
     """Continuous-batching serving of a ported model over a paged KV cache.
 
     ``submit``/``step`` is the streaming interface; ``generate(requests)``
-    submits everything, drains, and collects."""
+    submits everything, drains, and collects.  The engine takes ``params``
+    over: it moves them to its device and, on a rank rung that shards,
+    keeps this rank's shards of them in place (``elastic.reshard.place``)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         params: tf.Transformer,
         *,
-        device: str | torch.device = DEFAULT_DEVICE,
+        device: str | torch.device | None = None,
         max_slots: int = 8,
         max_seq: int = 1024,
         sampler: str = "greedy",
@@ -213,12 +256,16 @@ class ServeEngine:
         tracer=None,
         runlog=None,
         obs_window: int = 16,
-        elastic=None,
+        elastic: MeshLadder | None = None,
     ):
-        if elastic is not None:
-            raise NotImplementedError(
-                "ServeEngine(elastic=...) is not ported: scale-out over a mesh "
-                "ladder is ROADMAP.md Queue A 5"
+        if elastic is not None and not isinstance(elastic, MeshLadder):
+            raise TypeError(f"elastic= takes a MeshLadder, got {type(elastic).__name__}")
+        plan = current_plan()
+        if elastic is not None and plan is not None:
+            raise ValueError(
+                "ServeEngine(elastic=...) under an ambient dist plan is "
+                "ambiguous: the ladder owns the sharding plan per rung — "
+                "drop the use_plan context (or the elastic ladder)"
             )
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
@@ -228,7 +275,28 @@ class ServeEngine:
                 f"(input_mode {cfg.input_mode!r}, causal {cfg.causal}); an "
                 f"embedding-input decoder serves through transformer.prefill_step "
                 f"and decode_step")
-        self.device = resolve_device(device)
+        self._elastic = elastic
+        self._plan = plan
+        self._rung = elastic.rungs[0] if elastic is not None else None
+        mesh = elastic.full.plan.mesh if elastic is not None else (
+            plan.mesh if plan is not None else None)
+        #: whether the engine runs over ranks (a ladder or plan of RankDevice entries)
+        self._ranked = mesh is not None and mesh.ranked
+        if mesh is None:
+            self.device = resolve_device(DEFAULT_DEVICE if device is None else device)
+        else:
+            self.device = mesh.physical_device()
+            if device is not None and not _same_device(torch.device(device), self.device):
+                raise ValueError(f"device={device} but the plan's mesh runs this process "
+                                 f"on {self.device}")
+        if self._ranked and cfg.moe_impl == "ep":
+            raise NotImplementedError(
+                "moe_impl='ep' while serving over ranks is not ported (ROADMAP.md "
+                "Queue A 5): serve with the experts gathered whole (moe_impl='gspmd')")
+        if self._ranked:
+            # the group every rank's tokens and the policy's decisions are agreed over
+            self._control = elastic.control() if elastic is not None else (
+                mesh.group(mesh.axis_names), mesh.group_ranks(mesh.axis_names))
         self.cfg = cfg
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
@@ -251,6 +319,8 @@ class ServeEngine:
             )
         self.sched = Scheduler(self.max_slots, granule=slot_granule)
         self.params = params.to(self.device)
+        if self._live_plan is not None:
+            self.params = place(self.params, self._live_plan)
         self._cache: dict | None = None
         self._bucket = 0
         # grow immediately, shrink only once the smaller target has held for
@@ -295,8 +365,131 @@ class ServeEngine:
 
     # -- plumbing ------------------------------------------------------------
     @property
+    def _live_plan(self):
+        return self._rung.plan if self._rung is not None else self._plan
+
+    @property
+    def _rung_token(self):
+        return self._rung.index if self._rung is not None else None
+
+    @property
+    def rung(self):
+        """The live elastic ladder rung (None outside elastic mode)."""
+        return self._rung
+
+    @property
     def busy(self) -> bool:
         return self.sched.has_work
+
+    @property
+    def _active(self) -> bool:
+        """Whether this process computes on the live rung (every process
+        does off ranks; a rank outside a rank rung waits)."""
+        plan = self._live_plan
+        return plan is None or not plan.mesh.ranked or plan.mesh.is_member
+
+    @property
+    def _speaks(self) -> bool:
+        """Whether this process's tokens count for rows every rank of the
+        rung computes alike: off ranks always; on ranks the rung's first."""
+        return not self._ranked or (self._active
+                                    and process_rank() == self._live_plan.mesh.root)
+
+    def _agree(self, toks, n: int) -> np.ndarray:
+        """The ``n`` tokens every rank records: ``toks`` off ranks; on ranks
+        the sum over the control group of each rank's contribution (its own
+        entries, zeros elsewhere; ``None`` contributes nothing)."""
+        if not self._ranked:
+            return np.asarray(toks)
+        buf = torch.zeros(n, dtype=torch.int64)
+        if toks is not None:
+            buf.copy_(torch.from_numpy(np.asarray(toks, np.int64)))
+        group = self._control[0]
+        if dist.get_backend(group) == "nccl":
+            buf = buf.to(self.device)
+        dist.all_reduce(buf, group=group)
+        return buf.cpu().numpy()
+
+    # -- the rows of a rank rung --------------------------------------------
+    def _splits(self) -> bool:
+        plan = self._live_plan
+        return self._ranked and sharding.shards_state(plan) and plan.dp_size > 1
+
+    def _row_range(self, bucket: int) -> tuple[int, int]:
+        """The slots ``[lo, hi)`` this rank decodes: its contiguous share when
+        the rung's data axes divide ``bucket`` (the batch rule of
+        ``cache_pspecs``), else every slot."""
+        if not (self._splits() and bucket):
+            return 0, bucket
+        plan = self._live_plan
+        entry = sharding.fit_axes(bucket, plan.dp, plan)
+        if entry is None:
+            return 0, bucket
+        rows = sharding.local_slices((bucket,), (entry,), plan.mesh.shape,
+                                     plan.mesh.coords())[0]
+        return rows.start, rows.stop
+
+    def _row_axes(self, tree: dict, bucket: int) -> dict[str, tuple[str, ...]]:
+        """``{path: data axes}`` of the slot-cache leaves whose batch rows
+        are split on the live rung: ``cache_pspecs`` of the whole leaves
+        (``bucket`` rows), its batch entries over the data axes kept (the
+        port keeps every other dim whole)."""
+        if not (self._splits() and bucket):
+            return {}
+        plan = self._live_plan
+        shapes = {}
+        for path, t in tree_flatten_with_paths(tree):
+            shape = list(t.shape)
+            shape[_axis(t)] = bucket
+            shapes[path] = tuple(shape)
+        out = {}
+        for path, spec in sharding.cache_pspecs(shapes, plan).items():
+            e = spec[0 if len(shapes[path]) == 1 else 1]
+            axes = (e,) if isinstance(e, str) else tuple(e or ())
+            if axes and set(axes) <= set(plan.dp):
+                out[path] = axes
+        return out
+
+    def _local_rows(self, whole: dict, bucket: int) -> dict:
+        """This rank's rows of a whole slot cache (the counterpart of the
+        reference's ``_place_cache`` of the slot cache: the leaves ``_row_axes``
+        splits; the others as they are)."""
+        axes = self._row_axes(whole, bucket)
+        if not axes:
+            return whole
+        lo, hi = self._row_range(bucket)
+        return _unflatten(whole, iter(t.narrow(_axis(t), lo, hi - lo).contiguous()
+                                      if p in axes else t
+                                      for p, t in tree_flatten_with_paths(whole)))
+
+    def _whole_rows(self, local: dict, bucket: int) -> dict:
+        """The whole slot cache from every rank's rows (an all-gather over
+        the rung's data axes; a collective over them)."""
+        axes = self._row_axes(local, bucket)
+        if not axes:
+            return local
+        leaves = dict(tree_flatten_with_paths(local))
+        by_axes: dict = {}
+        for p, a in axes.items():
+            by_axes.setdefault(a, []).append(p)
+        for a, paths in by_axes.items():
+            whole = all_gather_dim([leaves[p] for p in paths], [_axis(leaves[p]) for p in paths],
+                                   self._live_plan.mesh, a)
+            leaves.update(zip(paths, whole))
+        return _unflatten(local, iter(leaves.values()))
+
+    def _fresh_cache(self, bucket: int) -> dict:
+        """A zeroed whole slot cache of ``bucket`` rows."""
+        cache = tf.init_cache(self.cfg, bucket, self.max_seq, skip=self._paged,
+                              device=self.device)
+        cache["len"] = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
+        return cache
+
+    def _from_root(self, tensors: list[torch.Tensor]) -> None:
+        """Overwrite ``tensors`` with the live rung's first rank's, over the
+        rung (the ranks that just entered it receive)."""
+        mesh = self._live_plan.mesh
+        broadcast_(tensors, mesh.root, mesh.group(mesh.axis_names))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -331,16 +524,49 @@ class ServeEngine:
             self.stats.bucket_misses += 1
             self.stats.compiles += 1
             self.stats.buckets.append(self._bucket)
-            self.stats.rungs.append(None)
+            self.stats.rungs.append(self._rung_token)
         elif kind == "prefill":
             self.stats.prefill_compiles += 1
         else:
             self.stats.aux_compiles += 1
 
+    # -- elastic -------------------------------------------------------------
+    def _ensure_rung(self) -> bool:
+        """Move the parameters onto the ladder rung for the live slot count
+        (no-op off-ladder or on an unchanged rung); on ranks, the ranks that
+        enter the rung take the pool, the prefill rows and the cached prompt
+        rows from its first rank.  Returns whether ranks entered."""
+        if self._elastic is None:
+            return False
+        rung = self._elastic.rung_for_batch(max(self._bucket, 1))
+        if rung.index == self._rung.index:
+            return False
+        src = self._rung
+        grew = self._ranked and bool(set(rung.plan.mesh.ranks.ravel().tolist())
+                                     - set(src.plan.mesh.ranks.ravel().tolist()))
+        with self.tracer.span("reshard", scope="serve", src=src.index,
+                              dst=rung.index, dp=rung.dp):
+            self._rung = rung
+            self.params = place(self.params, rung.plan)
+            if grew and self._active:
+                rows = [t for _, t in tree_flatten_with_paths(self._pages)]
+                for job in self._jobs:
+                    rows += [t for _, t in tree_flatten_with_paths(job.row)]
+                for ent in self._prompt_cache.values():
+                    rows += [t for _, t in tree_flatten_with_paths(ent["row"])]
+                self._from_root(rows)
+        if self.runlog.enabled:
+            self.runlog.emit("reshard", scope="serve", src=src.index,
+                             dst=rung.index, dp=rung.dp, step=self.stats.steps)
+        self.stats.reshards += 1
+        return grew
+
     def _resize(self, target: int) -> None:
         """Track the scheduler's pow2 slot capacity: grow/shrink the per-slot
         state, compacting live rows via the scheduler's gather map (the POOL
-        never resizes; tables follow their requests)."""
+        never resizes; tables follow their requests), then follow with the
+        rung transition.  On ranks the rows move whole: gathered over the
+        source rung, re-indexed, sliced for the destination."""
         if target == self._bucket:
             return
         idx = self.sched.resize(target)
@@ -351,14 +577,24 @@ class ServeEngine:
             return
         self.stats.resizes += 1
         if self._cache is None:
-            cache = tf.init_cache(self.cfg, target, self.max_seq, skip=self._paged,
-                                  device=self.device)
-            cache["len"] = torch.zeros((target,), dtype=torch.int32,
-                                       device=self.device)
-            self._cache = cache
+            self._ensure_rung()
+            self._cache = self._local_rows(self._fresh_cache(target), target) \
+                if self._active else {}
             return
-        self._program(("gather", old, target, None))
-        self._cache = _gather_rows(self._cache, self._tensor(np.asarray(idx, np.int64)))
+        self._program(("gather", old, target, self._rung_token))
+        cache = None
+        if self._active:
+            cache = _gather_rows(self._whole_rows(self._cache, old),
+                                 self._tensor(np.asarray(idx, np.int64)))
+        grew = self._ensure_rung()
+        if not self._active:  # outside the rung: the rows stay with it
+            self._cache = {}
+            return
+        if grew:
+            if cache is None:  # just entered: the rows come from the first rank
+                cache = self._fresh_cache(target)
+            self._from_root([t for _, t in tree_flatten_with_paths(cache)])
+        self._cache = self._local_rows(cache, target)
 
     # -- admission -----------------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -466,8 +702,10 @@ class ServeEngine:
         """Full-prompt cache hit: replay the cached end-of-prompt logits
         through the sampler (keyed by THIS request's rid) and insert the
         cached row.  Zero prefill compute."""
-        self._program(("sample", None))
-        tok = self._sample(ent["logits"], [adm.rid], [bs.plen])
+        self._program(("sample", self._rung_token))
+        tok = self._sample(ent["logits"], [adm.rid], [bs.plen]).cpu().numpy() \
+            if self._speaks else None
+        tok = self._agree(tok, 1)
         self._insert(adm.slot, ent["row"])
         bs.pos = bs.plen
         self.stats.prefills += 1
@@ -477,8 +715,20 @@ class ServeEngine:
             self._release(adm.rid)
 
     def _insert(self, slot: int, row: dict) -> None:
-        self._program(("insert", self._bucket, None))
-        _insert_row(self._cache, row, slot)
+        """Write one single-request row (nested ring and Mamba leaves
+        included) into slot ``slot``, in place; a leaf whose rows are split
+        takes it only on the rank holding the slot."""
+        self._program(("insert", self._bucket, self._rung_token))
+        if not self._active:
+            return
+        lo, hi = self._row_range(self._bucket)
+        axes = self._row_axes(self._cache, self._bucket)
+        src = dict(tree_flatten_with_paths(row))
+        for path, full in tree_flatten_with_paths(self._cache):
+            if path not in axes:
+                full.narrow(_axis(full), slot, 1).copy_(src[path].to(full.dtype))
+            elif lo <= slot < hi:
+                full.narrow(_axis(full), slot - lo, 1).copy_(src[path].to(full.dtype))
 
     def _count_token(self, n: int) -> None:
         self.stats.tokens += n
@@ -523,6 +773,9 @@ class ServeEngine:
                 d = self.policy.observe(sig, clock)
         else:
             d = self.policy.observe(sig, clock)
+        if self._ranked:  # the first rank's decision (a policy may read clocks)
+            group, ranks = self._control
+            d = broadcast_object(d, ranks[0], group, self.device)
         if d is None:
             return
         reordered = False
@@ -573,25 +826,28 @@ class ServeEngine:
         ptab = np.zeros((nbp,), np.int64)
         ptab[:nbp_real] = bs.table[:nbp_real]
         wtab = np.asarray(bs.table[nbp_real:(job.off + c) // self.block_size], np.int64)
-        self._program(("pfchunk", c, nbp, None), kind="prefill")
-        toks = self._tensor(bs.tokens[None, job.off:job.off + c].astype(np.int64))
-        args = (self.params, job.row, self._pages, {"tokens": toks}, job.off,
-                self._tensor(ptab), self._tensor(wtab))
-        tr = self.tracer
-        if tr.enabled:
-            with tr.span("prefill_chunk", rid=job.rid, off=job.off, chunk=c,
-                         rung=None):
+        self._program(("pfchunk", c, nbp, self._rung_token), kind="prefill")
+        logits = None
+        if self._active:  # every rank of the rung runs the one row
+            toks = self._tensor(bs.tokens[None, job.off:job.off + c].astype(np.int64))
+            args = (self.params, job.row, self._pages, {"tokens": toks}, job.off,
+                    self._tensor(ptab), self._tensor(wtab))
+            tr = self.tracer
+            if tr.enabled:
+                with tr.span("prefill_chunk", rid=job.rid, off=job.off, chunk=c,
+                             rung=self._rung_token):
+                    logits, job.row, self._pages = tf.prefill_chunk(self.cfg, *args)
+            else:
                 logits, job.row, self._pages = tf.prefill_chunk(self.cfg, *args)
-        else:
-            logits, job.row, self._pages = tf.prefill_chunk(self.cfg, *args)
         job.off += c
         self.stats.prefill_chunks += 1
         if job.off == bs.plen:
             # only the FINAL chunk's token is consumed
-            tok = self._sample(logits, [job.rid], [bs.plen])
-            self._finish_job(job, int(tok[0]), logits)
+            tok = self._sample(logits, [job.rid], [bs.plen]).cpu().numpy() \
+                if self._speaks else None
+            self._finish_job(job, int(self._agree(tok, 1)[0]), logits)
 
-    def _finish_job(self, job: _PrefillJob, tok: int, logits: torch.Tensor) -> None:
+    def _finish_job(self, job: _PrefillJob, tok: int, logits: torch.Tensor | None) -> None:
         """Final chunk done: register the prompt chain, cache the
         end-of-prompt state for future full-prompt hits, insert the row, and
         record token 1."""
@@ -665,8 +921,9 @@ class ServeEngine:
                 bs.reserved -= 1
             if not self.pool.writable(bs.table[wi]):
                 new = self.pool.cow(bs.table[wi])
-                self._program(("cow", None))
-                _copy_block(self._pages, bs.table[wi], new)
+                self._program(("cow", self._rung_token))
+                if self._active:
+                    _copy_block(self._pages, bs.table[wi], new)
                 bs.table[wi] = new
                 self.stats.cow_copies = self.pool.cow_copies
             arr[slot, :len(bs.table)] = bs.table
@@ -699,30 +956,22 @@ class ServeEngine:
         running = sch.running_slots()
         if not running:  # nothing decoding (drained, or all mid-prefill)
             return True
-        toks = self._tensor(sch.next_tokens()[:, None].astype(np.int64))
+        toks = sch.next_tokens().astype(np.int64)
         rids = sch.slot_rids()
         pos = np.zeros(self._bucket, np.int64)
         for slot, rid in running:
             pos[slot] = self._req_blocks[rid].pos + 1
-        tables = self._tensor(self._decode_tables(running))
-        self._program(("decode", self._bucket, None), kind="decode")
+        tables = self._decode_tables(running)
+        self._program(("decode", self._bucket, self._rung_token), kind="decode")
         tr = self.tracer
         t0 = time.perf_counter()
         if tr.enabled:
-            with tr.span("decode", bucket=self._bucket, rung=None,
+            with tr.span("decode", bucket=self._bucket, rung=self._rung_token,
                          live=len(running), step_num=self.stats.steps):
-                logits, self._cache, self._pages = tf.decode_step(
-                    self.cfg, self.params, self._cache, toks,
-                    pages=self._pages, tables=tables,
-                )
+                nxt = self._decode(running, toks, rids, pos, tables)
         else:
-            logits, self._cache, self._pages = tf.decode_step(
-                self.cfg, self.params, self._cache, toks,
-                pages=self._pages, tables=tables,
-            )
+            nxt = self._decode(running, toks, rids, pos, tables)
         self.stats.dispatch_wall_s += time.perf_counter() - t0
-        # the per-step host transfer: one (B,) vector
-        nxt = self._sample(logits, rids, pos).cpu().numpy()
         self.stats.steps += 1
         self.stats.slot_steps += self._bucket
         for slot, rid in running:
@@ -736,9 +985,61 @@ class ServeEngine:
             self.runlog.emit(
                 "serve_window", step=self.stats.steps, tokens=self.stats.tokens,
                 tokens_per_sec=self.stats.tokens_per_sec, live=len(running),
-                live_blocks=self.pool.live, bucket=self._bucket, rung=None,
+                live_blocks=self.pool.live, bucket=self._bucket,
+                rung=self._rung_token,
             )
         return True
+
+    def _decode(self, running, toks: np.ndarray, rids: np.ndarray, pos: np.ndarray,
+                tables: np.ndarray) -> np.ndarray:
+        """One decode step over the bucket: the (B,) tokens every rank
+        records.  On a rank rung that splits the rows, this rank decodes its
+        own (with its slice of the tokens, tables and lengths) and the rows'
+        new pool entries are gathered; the per-step host transfer is one
+        (B,) vector."""
+        b = self._bucket
+        if not self._active:
+            return self._agree(None, b)
+        lo, hi = self._row_range(b)
+        view = dict(self._cache)
+        view["len"] = self._cache["len"][lo:hi]
+        logits, _, self._pages = tf.decode_step(
+            self.cfg, self.params, view, self._tensor(toks[lo:hi, None]),
+            pages=self._pages, tables=self._tensor(tables[lo:hi]),
+        )
+        self._cache["len"] = self._cache["len"] + 1
+        out = np.zeros(b, np.int64)
+        out[lo:hi] = self._sample(logits, rids[lo:hi], pos[lo:hi]).cpu().numpy()
+        split = hi - lo < b
+        if split:
+            self._share_entries(running, tables, lo, hi)
+        return self._agree(out if split or self._speaks else None, b)
+
+    def _share_entries(self, running, tables: np.ndarray, lo: int, hi: int) -> None:
+        """Every rank of the rung writes the K/V entries the other ranks'
+        rows just wrote into their pools: one all-gather of each rank's
+        rows' entries (free lanes read from block 0 and are dropped), so the
+        pools stay equal but for the sentinel block's garbage."""
+        leaves = [x for entry in self._pages.values() for x in (entry["k"], entry["v"])]
+        if not leaves:
+            return
+        blk = self.block_size
+        wb = np.zeros(self._bucket, np.int64)
+        off = np.zeros(self._bucket, np.int64)
+        for slot, rid in running:
+            p = self._req_blocks[rid].pos  # the position this step wrote
+            wb[slot], off[slot] = tables[slot, p // blk], p % blk
+        i_wb, i_off = self._tensor(wb[lo:hi]), self._tensor(off[lo:hi])
+        mine = torch.stack([x[:, i_wb, i_off] for x in leaves])  # (2P, R, rows, KV, hd)
+        plan = self._live_plan
+        whole = all_gather_dim([mine], [2], plan.mesh,
+                               sharding.fit_axes(self._bucket, plan.dp, plan))[0]
+        others = [slot for slot, _ in running if not lo <= slot < hi]
+        if others:
+            idx = self._tensor(np.asarray(others, np.int64))
+            o_wb, o_off = self._tensor(wb[others]), self._tensor(off[others])
+            for x, w in zip(leaves, whole):
+                x[:, o_wb, o_off] = w[:, idx]
 
     def drain(self) -> None:
         while self.step():

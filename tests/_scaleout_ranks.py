@@ -1,4 +1,6 @@
-"""What each rank of ``tests/test_torch_scaleout.py`` runs.
+"""What each rank of the process-group tests (``tests/test_torch_scaleout.py``,
+``test_torch_sharded.py``, ``test_torch_moe_ep.py``,
+``test_torch_serve_elastic.py``) runs.
 
 A spawned process imports this module (never JAX: the reference runs in
 the test process) and calls :func:`run`, which joins a gloo group of
@@ -10,6 +12,7 @@ Results are plain Python and numpy values.
 from __future__ import annotations
 
 import hashlib
+import math
 import traceback
 
 import numpy as np
@@ -619,11 +622,165 @@ def sharded_rungs(a: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# elastic serving over the ranks (tests/test_torch_serve_elastic.py)
+# ---------------------------------------------------------------------------
+
+
+def serve_ramp(eng, reqs) -> tuple[list, set]:
+    """The reference's live-transition script: one request, two steps, two
+    more, two steps, the rest, drain.  The tokens and the rung indices seen."""
+    rids = [eng.submit(reqs[0])]
+    for _ in range(2):
+        eng.step()
+    seen = {getattr(eng.rung, "index", None)}
+    rids += [eng.submit(r) for r in reqs[1:3]]
+    for _ in range(2):
+        eng.step()
+    seen.add(getattr(eng.rung, "index", None))
+    rids += [eng.submit(r) for r in reqs[3:]]
+    while eng.step():
+        seen.add(getattr(eng.rung, "index", None))
+    return [eng.result(rid).tokens.tolist() for rid in rids], seen
+
+
+def _pool_digest(pages: dict) -> str:
+    """A digest of every pool block but the sentinel block 0 (inactive lanes
+    write garbage there by design).  A rank outside the live rung holds a
+    stale pool until it enters again."""
+    h = hashlib.sha256()
+    for entry in pages.values():
+        for x in entry.values():
+            h.update(x[:, 1:].contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def serve_ranks(a: dict) -> dict:
+    """Reduced Yi-6B, gemma2-27b and falcon-mamba-7b served on
+    ``MeshLadder(rank_devices("cpu"), granule=1)`` through
+    :func:`serve_ramp`; reduced Yi-6B under ``use_plan`` of the 2-rank rung;
+    and the serving entry points on a sharded module against the whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import rank_devices, use_plan
+    from repro_torch.elastic import MeshLadder
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+
+    def reqs():
+        return [Request(prompt=p, max_new_tokens=m) for p, m in zip(a["prompts"], a["max_new"])]
+
+    kw = dict(max_slots=8, max_seq=a["max_seq"], prompt_granule=a["granule"], block_size=8,
+              prefill_chunk=8)
+    out = {}
+    for arch in ("yi-6b", "gemma2-27b", "falcon-mamba-7b"):
+        cfg = get_config(arch, reduced=True)
+        eng = ServeEngine(cfg, params_from_jax(a["trees"][arch], cfg),
+                          elastic=MeshLadder(rank_devices("cpu"), granule=1), **kw)
+        held = {}
+        step = eng.step
+
+        def held_step(eng=eng, step=step, held=held):
+            more = step()
+            layout = sharding.layout_of(eng.params)
+            if eng.rung.index == 1:  # both ranks on the rung: the pools must agree
+                held["pool"] = _pool_digest(eng._pages)
+            if layout is not None and "held" not in held:
+                held["held"] = sum(p.numel() for p in eng.params.parameters())
+                held["reckoned"] = layout.numel()
+                held["whole"] = sum(math.prod(s) for s in sharding.full_shapes(eng.params).values())
+            return more
+
+        eng.step = held_step
+        toks, _ = serve_ramp(eng, reqs())
+        st = eng.stats
+        out[arch] = {"tokens": toks, "rungs": list(st.rungs), "buckets": list(st.buckets),
+                     "reshards": st.reshards, "resizes": st.resizes, **held}
+    cfg = get_config("yi-6b", reduced=True)
+    two = MeshLadder(rank_devices("cpu")).full.plan
+    with use_plan(two):
+        eng = ServeEngine(cfg, params_from_jax(a["trees"]["yi-6b"], cfg), **kw)
+        res = eng.generate(reqs())
+    out["fixed"] = {"tokens": [r.tokens.tolist() for r in res], "rungs": list(eng.stats.rungs),
+                    "buckets": list(eng.stats.buckets), "reshards": eng.stats.reshards}
+    out["entries"] = _sharded_entries(cfg, a["trees"]["yi-6b"], two, a["max_seq"])
+    try:  # the experts would stay resident: refused on ranks
+        ServeEngine(cfg.replace(moe_impl="ep"), params_from_jax(a["trees"]["yi-6b"], cfg),
+                    elastic=MeshLadder(rank_devices("cpu"), granule=1), **kw)
+        out["ep_refused"] = ""
+    except NotImplementedError as e:
+        out["ep_refused"] = str(e)
+    return out
+
+
+def _sharded_entries(cfg, tree, plan, max_seq: int) -> dict:
+    """``prefill_step``, ``prefill_chunk`` then paged ``decode_step`` on a
+    module sharded on ``plan`` and on the whole module: the largest gap of
+    every output (logits, caches, pools)."""
+    from repro_torch.dist import sharding
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+
+    whole = params_from_jax(tree, cfg)
+    shard = place(params_from_jax(tree, cfg), plan)
+    r = np.random.default_rng(17)
+    toks = torch.from_numpy(r.integers(1, cfg.vocab_size, size=(2, 16)))
+    chunk = torch.from_numpy(r.integers(1, cfg.vocab_size, size=(1, 16)))
+
+    def gap(x, y):
+        if isinstance(x, dict):
+            return max((gap(x[k], y[k]) for k in x), default=0.0)
+        return float((x.double() - y.double()).abs().max())
+
+    def serve(model):
+        pre = tf.prefill_step(cfg, model, {"tokens": toks})
+        pages = tf.init_pages(cfg, 8, 8, device="cpu")
+        row = tf.init_cache(cfg, 1, max_seq, skip=tf.paged_positions(cfg), device="cpu")
+        row["len"] = torch.zeros((1,), dtype=torch.int32)
+        tab = torch.tensor([1, 2])
+        lc, row, pages = tf.prefill_chunk(cfg, model, row, pages, {"tokens": chunk}, 0,
+                                          torch.zeros((0,), dtype=torch.int64), tab)
+        tables = torch.tensor([[1, 2, 3, 0]])
+        ld, _, pages = tf.decode_step(cfg, model, row, chunk[:, -1:], pages=pages,
+                                      tables=tables)
+        return {"prefill_step": pre, "prefill_chunk": (lc, row), "decode_step": (ld, pages)}
+
+    a, b = serve(whole), serve(shard)
+    out = {"sharded": sharding.layout_of(shard) is not None}
+    for k in ("prefill_step", "prefill_chunk", "decode_step"):
+        out[k] = max(gap(x, y) for x, y in zip(a[k], b[k]))
+    return out
+
+
+def serve_cli(a: dict) -> dict:
+    """``launch.serve --device cpu --elastic --backend gloo`` on the ranks;
+    on rank 0 also the one-process CLI on the same flags without a ladder."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    flags = ["--device", "cpu", "--requests", "6", "--ramp", "2", "--max-new", "6",
+             "--prefill-chunk", "8", "--block-size", "8"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = launch_serve.main(flags + ["--elastic", "--backend", "gloo", "--out", a["out"]])
+    out = {"tokens": [r.tokens.tolist() for r in got["results"]], "out": buf.getvalue()}
+    if dist.get_rank() == 0:
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = launch_serve.main(flags)
+        out["one"] = [r.tokens.tolist() for r in one["results"]]
+    return out
+
+
 JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_moe,
         "pod": pod, "cli": cli, "pod_mean": pod_mean, "sharded_train": sharded_train,
         "sharded_collectives": sharded_collectives, "sharded_ckpt": sharded_ckpt,
         "sharded_restore": sharded_restore, "moe_ep": moe_ep,
-        "sharded_rungs": sharded_rungs}
+        "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli}
 
 
 def spawn_ranks(tmp_path, job: str, args: dict, world: int, deadline_s: float = 240) -> dict:

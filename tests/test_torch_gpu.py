@@ -741,6 +741,60 @@ def test_engine_on_card_matches_cpu(cuda):
     assert counts["chunk_attention"] > 0 and counts["paged_decode_attention"] > 0
 
 
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_paged_decode_at_the_rank_row_counts(cuda, b):
+    """Paged decode at a rank's share of a bucket on a rank rung (B 1, 2, 4)
+    at Yi-6B's serving shape (32/4 heads of hd 128, bf16, block 16, 192
+    table entries, ragged lengths): within TOL of the plain version; the
+    split count ``decode_plan`` picks for each B is printed."""
+    r = np.random.default_rng(40 + b)
+    blk, n_max, kv, h, hd, dtype = 16, 192, 4, 32, 128, torch.bfloat16
+    nb = 1 + b * n_max
+    ids = list(range(1, nb))
+    r.shuffle(ids)
+    tables = np.zeros((b, n_max), np.int32)
+    lens = r.integers(1, n_max * blk + 1, size=b).astype(np.int32)
+    for row, n in enumerate(lens):
+        live = -(-int(n) // blk)
+        tables[row, :live] = ids[:live]
+        ids = ids[live:]
+    pool_k = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    pool_v = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, dtype)
+    q = torch.from_numpy(r.standard_normal((b, 1, h, hd))).to(cuda, dtype)
+    args = (q, pool_k, pool_v, torch.from_numpy(tables).to(cuda), torch.from_numpy(lens).to(cuda))
+    got = kattn.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = kattn.paged_decode_attention.splits
+    print(f"B {b}: decode_plan {splits} splits")
+    assert splits == kattn.decode_plan(b, kv, n_max, blk, sms)
+    _close(got, ref.paged_decode_ref(*args), dtype)
+
+
+def test_local_ladder_engine_on_card_matches_cpu(cuda):
+    """Reduced Yi-6B (float32) served on ``elastic=MeshLadder()``, eight
+    virtual devices of the card, gives the same greedy tokens, rungs and
+    reshards as the same ladder over eight CPU entries."""
+    from repro_torch.elastic import MeshLadder
+
+    cfg = get_config("yi-6b", reduced=True).replace(d_model=256, num_heads=4,
+                                                    num_kv_heads=2)
+    cpu_params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = tf.init_params(cfg, torch.Generator(device=cuda), cuda)
+    card_params.load_state_dict(cpu_params.state_dict())
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=m) for n, m in ((5, 20), (30, 8), (17, 8), (9, 6), (3, 6))]
+    kw = dict(max_slots=8, max_seq=64, prefill_chunk=16, block_size=8)
+    card = ServeEngine(cfg, card_params, elastic=MeshLadder(granule=1), **kw)
+    cpu = ServeEngine(cfg, cpu_params, elastic=MeshLadder(["cpu"] * 8, granule=1), **kw)
+    assert card.device.type == "cuda"
+    out_card, out_cpu = card.generate(reqs), cpu.generate(reqs)
+    assert [o.tokens.tolist() for o in out_card] == [o.tokens.tolist() for o in out_cpu]
+    assert card.stats.rungs == cpu.stats.rungs and card.stats.reshards == cpu.stats.reshards
+    assert len(set(card.stats.rungs)) >= 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offset", [1024, 6144])
 def test_chunk_kernel_over_a_ring_gathered_prior(cuda, dtype, offset):

@@ -8,7 +8,8 @@
   * the copied host objects (``BlockPool``, ``Scheduler``, policies) driven
     through identical random operation sequences end in equal state;
   * the package stands alone: every module imports with ``jax`` blocked,
-    and no source line imports ``jax`` or ``repro``;
+    and no source line (the package, ``chip_smoke.py``, the
+    ``examples/torch_*.py``) imports ``jax`` or ``repro``;
   * the entry points default to the card and raise without one;
   * the categorical sampler is per-request deterministic inside torch.
 """
@@ -259,7 +260,9 @@ def test_pod_slice_imports_without_jax():
 
 
 def test_sources_import_no_jax_and_no_reference():
-    files = list(SRC.rglob("*.py")) + [SRC.parents[1] / "chip_smoke.py"]
+    root = SRC.parents[1]
+    files = (list(SRC.rglob("*.py")) + [root / "chip_smoke.py"]
+             + sorted((root / "examples").glob("torch_*.py")))
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -280,7 +283,7 @@ def test_entry_points_default_to_the_card():
         ServeEngine(CFG, PARAMS)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         launch_serve.main(["--requests", "1"])
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
+    with pytest.raises(TypeError, match="MeshLadder"):
         ServeEngine(CFG, PARAMS, device="cpu", elastic=object())
 
 
