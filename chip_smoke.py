@@ -425,7 +425,20 @@ MB L2.
      chunk and per decode step it ran, decode and chunk ms by rung, a
      decode step's collectives by kind (the parameter gathers, the pool
      entries, the token all-reduce, the policy's broadcast), each reshard's
-     seconds and the peak; the pools equal across the ranks.
+     seconds and the peak; the pools equal across the ranks;
+ 29. the dry run's plan against the card: phase 6's cut (Yi-6B widths at 8
+     of 32 layers, bf16, remat, micro batch 2, S 2048, sgd with momentum
+     0.9, 2 microbatches a step) planned on the host by
+     ``launch/dryrun.py::trace_train`` (fake tensors, no card), then run on
+     the card through ``make_train_step`` on the traced lane
+     (``attn_impl="flash"``) and on the kernels (``"pallas"``): the state's
+     bytes must equal the plan's exactly, the flash lane's peak
+     (``max_memory_allocated``) lie within 25% of the plan's either way,
+     and every timed step of both lanes take at least the plan's
+     ``step_time_lower_bound_s`` (NVIDIA H100 published peaks at 700 W).
+     The dry run of ``yi-6b x train_4k`` on the 256-card ``(16, 16)`` mesh
+     runs in a process of its own (CPU only, a fake process group) beside
+     the earlier phases, and its one-line summary is printed here.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -5888,6 +5901,122 @@ def elastic_ranks_phase() -> dict:
     return {k: sum(res[r]["launches"][k] for r in res) for k in res[0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the dry run's plan against the card
+# ---------------------------------------------------------------------------
+
+PLAN_NUM_MICRO, PLAN_STEPS, PLAN_PEAK_TOL = 2, 3, 0.25
+POD_PLAN_DEADLINE_S = 900
+
+
+def start_pod_plan(out_dir: str) -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k``
+    (the 256-card mesh) in a process of its own, on the host with no card
+    visible; its output goes to files in ``out_dir``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    with open(os.path.join(out_dir, "stdout"), "w") as out, \
+            open(os.path.join(out_dir, "stderr"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "yi-6b",
+             "--shape", "train_4k", "--out", out_dir], env=env, stdout=out, stderr=err,
+            cwd=str(ROOT), preexec_fn=lambda: os.nice(10))
+
+
+def plan_phase(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> None:
+    phase(f"29. the dry run's plan against the card: Yi-6B widths, {TRAIN_LAYERS} of 32 "
+          f"layers, bf16, remat, micro batch {TRAIN_MICRO}, S {TRAIN_SEQ}, sgd (momentum "
+          f"0.9), {PLAN_NUM_MICRO} microbatches a step")
+    from repro_torch.launch import dryrun
+    from repro_torch.utils import hlo
+
+    cfg = YI.replace(num_layers=TRAIN_LAYERS, remat=True)
+    t0 = time.perf_counter()
+    plan = dryrun.trace_train(cfg.replace(attn_impl="flash"), None, TRAIN_MICRO, TRAIN_SEQ,
+                              PLAN_NUM_MICRO, torch.float32)
+    a = plan["analysis"]
+    terms = hlo.roofline_terms(a["flops"], a["hbm_bytes_adjusted"],
+                               a["collectives"]["total_time_s"])
+    bound = terms["step_time_lower_bound_s"]
+    print(f"  plan (traced on the host in {time.perf_counter() - t0:.1f} s, flash lane, "
+          f"{a['ops']:.0f} ops): state {plan['state_bytes']} bytes, peak "
+          f"{a['peak_bytes'] / 2**30:.3f} GiB, {a['flops']:.4e} FLOPs, {a['hbm_bytes'] / 1e12:.4f} "
+          f"TB moved op by op ({a['hbm_bytes_adjusted'] / 1e12:.4f} TB without the "
+          f"elementwise ops and conversions)")
+    print(f"  plan's roofline against {hlo.CARD} published peaks at {hlo.POWER_LIMIT_W} W: "
+          f"compute {terms['compute_s']:.4f} s, memory {terms['memory_s']:.4f} s (op by op "
+          f"{a['hbm_bytes'] / hlo.HBM_BW:.4f} s); lower bound {bound:.4f} s "
+          f"({terms['dominant']}); this card: {smi}")
+    for lane in ("flash", "pallas"):
+        c = cfg.replace(attn_impl=lane)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = tf.init_params(c, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        opt = sgd(momentum=0.9, state_dtype=torch.float32)
+        state = init_state(params, opt, torch.float32)
+        held = sum(t.numel() * t.element_size() for t in (
+            list(params.parameters()) + list(state.opt_state.momentum)
+            + list(state.div_state.grad_sum.values())
+            + [state.div_state.sq_norm_sum, state.div_state.mb_count,
+               state.div_state.sample_count]))
+        step = make_train_step(c, opt, PLAN_NUM_MICRO)
+        stream = TokenStream(c.vocab_size, seed=0)
+        secs, losses = [], []
+        for i in range(1 + PLAN_STEPS):
+            batch = stream.batch(i, TRAIN_MICRO * PLAN_NUM_MICRO, TRAIN_SEQ)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch, TRAIN_LR)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated() - base
+        timed = secs[1:]
+        print(f"  {lane}{' (the traced lane)' if lane == 'flash' else ' (the kernels)'}: "
+              f"state {held} bytes (plan {plan['state_bytes']}); peak {peak / 2**30:.3f} GiB "
+              f"(plan {a['peak_bytes'] / 2**30:.3f}, {100 * (peak / a['peak_bytes'] - 1):+.1f}%); "
+              f"step ms {[round(1e3 * x, 1) for x in timed]} after a first of "
+              f"{1e3 * secs[0]:.1f}, median {1e3 * statistics.median(timed):.1f}, "
+              f"{statistics.median(timed) / bound:.2f}x the bound; losses "
+              f"{[round(x, 5) for x in losses]}")
+        if held != plan["state_bytes"]:
+            raise AssertionError(f"{lane}: the state holds {held} bytes, the plan "
+                                 f"{plan['state_bytes']}")
+        if lane == "flash" and abs(peak - a["peak_bytes"]) > PLAN_PEAK_TOL * a["peak_bytes"]:
+            raise AssertionError(f"the flash lane's peak {peak} bytes is not within "
+                                 f"{PLAN_PEAK_TOL:.0%} of the plan's {a['peak_bytes']}")
+        if min(timed) < bound:
+            raise AssertionError(f"{lane}: a step of {min(timed):.4f} s beat the plan's lower "
+                                 f"bound {bound:.4f} s")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{lane}: non-finite loss {losses}")
+        del state, params, step
+    try:
+        rc = pod_plan.wait(timeout=POD_PLAN_DEADLINE_S)
+    finally:
+        if pod_plan.poll() is None:
+            pod_plan.kill()
+            pod_plan.wait()
+    rec_path = os.path.join(pod_dir, "yi-6b__train_4k__pod16x16.json")
+    if rc != 0 or not os.path.exists(rec_path):
+        with open(os.path.join(pod_dir, "stderr")) as f:
+            raise AssertionError(f"the dry run of yi-6b x train_4k exited {rc}: "
+                                 f"{f.read()[-2000:]}")
+    with open(rec_path) as f:
+        rec = json.load(f)
+    if rec["status"] != "ok":
+        raise AssertionError(f"the dry run of yi-6b x train_4k: {rec.get('error')}")
+    print(f"  the dry run (its own process, no card, {rec['trace_s']} s): "
+          f"{dryrun.summary(rec)}")
+    print(f"  (a plan against {hlo.CARD} published peaks at {hlo.POWER_LIMIT_W} W, not a "
+          f"measurement)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     phase("1. the card")
     if not torch.cuda.is_available():
@@ -5911,6 +6040,19 @@ def main() -> int:
             if "Used" in line or ("spill" in line and not line.startswith("0 bytes stack")):
                 print(f"    {line}")
 
+    pod_dir = tempfile.mkdtemp(prefix="pod_plan_")
+    pod_plan = start_pod_plan(pod_dir)
+    try:
+        return phases(smi, pod_plan, pod_dir)
+    finally:
+        if pod_plan.poll() is None:
+            pod_plan.kill()
+            pod_plan.wait()
+        shutil.rmtree(pod_dir, ignore_errors=True)
+
+
+def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
+    """Phases 3-29, then the kernels' JSON line and the last line."""
     records = kernels_phase()
     serve_counts = full_width_phase()
     card_vs_cpu_phase()
@@ -5939,6 +6081,7 @@ def main() -> int:
     sharded_paths = sharded_phase()
     elastic_local = elastic_local_phase()
     elastic_ranks = elastic_ranks_phase()
+    plan_phase(smi, pod_plan, pod_dir)
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs

@@ -12,9 +12,11 @@ the ``adapt`` layer, the moment and gram tiers), and the paper's own
 ``pod.PodLadder`` of virtual devices with the compressed cross-pod
 gradient exchange (``dist.compression``), and scale-out over
 ``torch.distributed`` process groups: meshes of ``(rank, device)`` entries,
-data-parallel LM training, pods that are ranks (``launch.mesh``).  Every TPU kernel of the
-reference has a hand-written Hopper counterpart in ``kernels/csrc/``: chunk
-attention, paged decode, the flash-attention backward, the per-sample
+data-parallel LM training, pods that are ranks (``launch.mesh``).
+``launch.dryrun`` plans memory, FLOPs and collectives of every
+architecture on 256- and 512-card meshes from a step traced on the host,
+touching no card.  Every TPU kernel of the reference has a hand-written
+Hopper counterpart in ``kernels/csrc/``: chunk attention, paged decode, the flash-attention backward, the per-sample
 gradient norms and the int8 quantisation.  Every entry point defaults to ``device="cuda"`` and
 raises on a machine without a capable card (:func:`resolve_device`); it never
 moves to the CPU by itself.  The CPU runs only when the caller asks for it,

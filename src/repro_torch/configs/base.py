@@ -1,15 +1,19 @@
-"""Architecture configuration: a copy of the reference ``ModelConfig``.
+"""Architecture configuration and the shape table: copies of the
+reference's ``ModelConfig``, ``ShapeConfig`` and ``SHAPES``.
 
 Field for field the reference package's ``repro.configs.base.ModelConfig``,
 so a config built from the same arguments describes the same model in both
 packages.  The port reads the fields of the attention mixers and dense
 FFNs; the MoE and SSM fields ride along so configs stay interchangeable.
+``SHAPES`` is the assigned input-shape set the dry run plans
+(``launch/dryrun.py``), and ``cell_supported`` its skips.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Literal
 
 # The ONE attn_impl="auto" flip point: sequences at or below this run the
 # dense lane, longer ones the streaming flash lane (models/attention.py::
@@ -104,3 +108,35 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# Archs whose attention is purely quadratic skip long_500k; encoder-only archs
+# skip decode shapes entirely.
+FULL_ATTENTION_ARCHS = {
+    "yi-6b", "qwen2-7b", "llama3-405b", "dbrx-132b", "kimi-k2-1t-a32b", "internvl2-1b",
+}
+ENCODER_ONLY_ARCHS = {"hubert-xlarge"}
+
+
+def cell_supported(arch_name: str, shape_name: str, causal: bool) -> tuple[bool, str]:
+    shape = SHAPES[shape_name]
+    if arch_name in ENCODER_ONLY_ARCHS and shape.kind == "decode":
+        return False, "encoder-only: no decode step"
+    if shape.name == "long_500k" and arch_name in FULL_ATTENTION_ARCHS:
+        return False, "pure full-attention arch: 500k KV cache needs sub-quadratic attention"
+    return True, ""

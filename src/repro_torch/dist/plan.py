@@ -33,10 +33,15 @@ leading dim; :func:`gather_shards` is the autograd form a block's forward
 calls (its backward reduce-scatters the gradient over the data-parallel
 axes and slices it over the others) and :func:`all_to_all` the one
 ``models/moe_ep.py`` routes tokens through (its backward is the reverse
-exchange).  Chunks are ordered by the shard's position along the entry's
-axes, in the entry's order, whatever the groups' rank order.  A local mesh
-keeps whole leaves (its entries share one device, so sharding would save
-no byte).  The reference's ``constrain`` activation hook has no
+exchange).  Each tensor helper here reports the collective it issues to
+the recorders of :func:`record_collectives` (kind, bytes, the group's
+ranks): what the dry run (``utils/hlo.py``) and the scale-out tests count.
+The training step and the sharded state issue every collective through
+them; the pod exchange's list gather (``dist/compression.py``) and
+:func:`broadcast_object` (serving's policy decisions) report nothing.
+Chunks are ordered by the shard's position along the entry's axes, in the
+entry's order, whatever the groups' rank order.  A local mesh keeps whole
+leaves (its entries share one device, so sharding would save no byte).  The reference's ``constrain`` activation hook has no
 counterpart; ``dist.sharding`` holds the PartitionSpec rules.
 """
 
@@ -379,6 +384,35 @@ def use_plan(plan: ShardingPlan) -> Iterator[ShardingPlan]:
 # collectives over a mesh's groups
 # ---------------------------------------------------------------------------
 
+#: the active recorders of :func:`record_collectives`.  A list, not a
+#: context variable: the backward on the card runs on autograd's own thread
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives(fn) -> Iterator[Any]:
+    """For the block's extent, on any thread, call ``fn(kind,
+    operand_bytes, result_bytes, ranks)`` for each collective the helpers
+    below issue: ``kind`` the reference's HLO name (``all-reduce``,
+    ``all-gather``, ``reduce-scatter``, ``all-to-all``) or ``broadcast``;
+    the bytes of the call's input and output buffers; the group's global
+    ranks."""
+    _RECORDERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _RECORDERS.remove(fn)
+
+
+def _record(kind: str, operand: torch.Tensor, result: torch.Tensor, group) -> None:
+    if not _RECORDERS:
+        return
+    ranks = tuple(dist.get_process_group_ranks(group) if group is not None
+                  else range(dist.get_world_size()))
+    for fn in list(_RECORDERS):
+        fn(kind, operand.numel() * operand.element_size(),
+           result.numel() * result.element_size(), ranks)
+
 
 def _by_dtype(tensors: Sequence[torch.Tensor]) -> dict[torch.dtype, list[int]]:
     out: dict[torch.dtype, list[int]] = {}
@@ -396,11 +430,19 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group, n: int) -> list[torc
     out: list[torch.Tensor | None] = [None] * len(tensors)
     for idx in _by_dtype(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat, group=group)
+        all_reduce_sum_(flat, group)
         flat.div_(n)
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = part.view(tensors[i].shape)
     return out
+
+
+@torch.no_grad()
+def all_reduce_sum_(tensor: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``tensor`` over ``group``'s ranks, in place (one all-reduce)."""
+    _record("all-reduce", tensor, tensor, group)
+    dist.all_reduce(tensor, group=group)
+    return tensor
 
 
 @torch.no_grad()
@@ -409,6 +451,7 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int, group) -> None:
     one broadcast per dtype over the tensors flattened into one buffer."""
     for idx in _by_dtype(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        _record("broadcast", flat, flat, group)
         dist.broadcast(flat, src=src, group=group)
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             tensors[i].copy_(part.view(tensors[i].shape))
@@ -455,6 +498,7 @@ def all_gather_dim(tensors: Sequence[torch.Tensor], dims: Sequence[int], mesh,
         moved = [tensors[i].movedim(dims[i], 0) for i in idx]
         flat = torch.cat([m.reshape(-1) for m in moved])
         buf = flat.new_empty(n * flat.numel())
+        _record("all-gather", flat, buf, group)
         dist.all_gather_into_tensor(buf, flat, group=group)
         rows = buf.view(n, -1)
         if order is not None:
@@ -480,6 +524,7 @@ def reduce_scatter_dim(tensors: Sequence[torch.Tensor], dims: Sequence[int], mes
         if order is not None:  # row g goes to the group's g-th rank
             rows = rows[_inverse(order)]
         part = rows.new_empty(rows.shape[1])
+        _record("reduce-scatter", rows, part, group)
         dist.reduce_scatter_tensor(part, rows.contiguous().view(-1), group=group)
         if mean:
             part.div_(n)
@@ -500,6 +545,7 @@ def all_to_all_dim0(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
     if order is not None:
         rows = rows[_inverse(order)]
     out = torch.empty_like(rows)
+    _record("all-to-all", rows, out, group)
     dist.all_to_all_single(out, rows.contiguous(), group=group)
     if order is not None:
         out = out[order]

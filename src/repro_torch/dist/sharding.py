@@ -59,10 +59,9 @@ import math
 from typing import Any, Iterator, Mapping, Sequence
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.dist.plan import (AxisNames, ShardingPlan, all_gather_dim, all_reduce_mean,
-                                   gather_shards)
+                                   all_reduce_sum_, gather_shards)
 
 
 class P(tuple):
@@ -509,8 +508,7 @@ class StateLayout:
         mask = torch.tensor([self.owned(i) for i in range(len(tensors))],
                             dtype=torch.float32, device=norms.device)
         total = (norms * mask).sum()
-        dist.all_reduce(total, group=self.mesh.group(self.mesh.axis_names))
-        return total
+        return all_reduce_sum_(total, self.mesh.group(self.mesh.axis_names))
 
     def numel(self) -> int:
         """Elements of the parameters this rank holds."""

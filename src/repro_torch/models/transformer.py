@@ -61,6 +61,8 @@ Entry points:
   prefill_step(cfg, params, batch)              last logits and the cache
                                                 (an encoder: every logit)
   init_cache / init_pages / paged_positions     serving state
+  param_specs(cfg) / cache_specs(cfg, B, S)     meta-device stand-ins (the
+                                                dry run's; no storage)
   decode_step(cfg, params, cache, tokens, pages=, tables=)
   prefill_chunk(cfg, params, row, pages, batch, offset, prior_tab, write_tab)
 
@@ -594,6 +596,17 @@ def init_pages(cfg: ModelConfig, num_blocks: int, block_size: int, *,
         }
         for p in paged_positions(cfg)
     }
+
+
+def param_specs(cfg: ModelConfig) -> Transformer:
+    """The model on the ``meta`` device: every parameter's shape and type,
+    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return build(cfg, "meta")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """``init_cache(cfg, batch, seq_len)`` on the ``meta`` device."""
+    return init_cache(cfg, batch, seq_len, device="meta")
 
 
 def _layers(cfg: ModelConfig, params: Transformer):

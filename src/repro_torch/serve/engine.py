@@ -88,8 +88,8 @@ from repro_torch.ckpt.checkpoint import _unflatten, tree_flatten_with_paths
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.batch_policy import bucket
 from repro_torch.dist import sharding
-from repro_torch.dist.plan import (all_gather_dim, broadcast_, broadcast_object, current_plan,
-                                   process_rank)
+from repro_torch.dist.plan import (all_gather_dim, all_reduce_sum_, broadcast_, broadcast_object,
+                                   current_plan, process_rank)
 from repro_torch.elastic.ladder import MeshLadder
 from repro_torch.elastic.reshard import place
 from repro_torch.models import transformer as tf
@@ -407,7 +407,7 @@ class ServeEngine:
         group = self._control[0]
         if dist.get_backend(group) == "nccl":
             buf = buf.to(self.device)
-        dist.all_reduce(buf, group=group)
+        all_reduce_sum_(buf, group)
         return buf.cpu().numpy()
 
     # -- the rows of a rank rung --------------------------------------------

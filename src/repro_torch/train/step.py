@@ -165,6 +165,7 @@ def make_train_step(
     probe_specs: Callable | None = None,
     psn_chunk: int | None = None,
     psn_impl: str = "auto",
+    on_microbatch: Callable[[int], None] | None = None,
 ) -> Callable[[TrainState, dict, float], tuple[TrainState, dict]]:
     """Returns ``train_step(state, batch, lr) -> (state, metrics)``.
 
@@ -276,6 +277,8 @@ def make_train_step(
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         extra_sum: dict = {}
         for j in range(num_micro):
+            if on_microbatch is not None:
+                on_microbatch(j)
             mb = {k: v[j] for k, v in micro.items()}
             with planned():
                 loss, extra = base_loss(state.params, mb)
@@ -300,6 +303,8 @@ def make_train_step(
                 else:
                     sq_sum += _probe_sq_norms(state.params, mb,
                                               bias=estimator == "exact")
+        if on_microbatch is not None:
+            on_microbatch(num_micro)
         with torch.no_grad():
             if group is not None:
                 if not reduce_each:

@@ -1,6 +1,6 @@
 """What each rank of the process-group tests (``tests/test_torch_scaleout.py``,
 ``test_torch_sharded.py``, ``test_torch_moe_ep.py``,
-``test_torch_serve_elastic.py``) runs.
+``test_torch_serve_elastic.py``, ``test_torch_dryrun_ranks.py``) runs.
 
 A spawned process imports this module (never JAX: the reference runs in
 the test process) and calls :func:`run`, which joins a gloo group of
@@ -776,11 +776,49 @@ def serve_cli(a: dict) -> dict:
     return out
 
 
+def dryrun_collectives(a: dict) -> dict:
+    """For each case of ``a["cases"]``, one ``make_train_step`` step of
+    ``num_micro`` microbatches on the 2-rank ``(data 2)`` rung with the
+    state sharded, and the collectives the ``dist.plan`` helpers issued in
+    it: ``{kind: [count, operand bytes]}`` (what the dry run's trace of the
+    same cell in a fake world must give)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.dist.plan import record_collectives
+    from repro_torch.elastic.reshard import place
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import sgd
+    from repro_torch.train import init_state, make_train_step
+
+    plan = rung_plan((2,))
+    out = {}
+    for case in a["cases"]:
+        cfg = get_config(case["arch"], reduced=True).replace(**case.get("extra", {}))
+        opt = sgd(momentum=0.9)
+        model = place(tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), plan)
+        state = init_state(model, opt)
+        step = make_train_step(cfg, opt, case["num_micro"], plan=plan,
+                               moe_groups=case.get("moe_groups", 1))
+        batch = TokenStream(cfg.vocab_size, seed=0).batch(0, case["batch"], case["seq"])
+        seen: dict = {}
+
+        def record(kind, operand, result, ranks):
+            c = seen.setdefault(kind, [0, 0])
+            c[0] += 1
+            c[1] += operand
+
+        with record_collectives(record):
+            step(state, batch, 0.1)
+        out[case["name"]] = seen
+    return out
+
+
 JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_moe,
         "pod": pod, "cli": cli, "pod_mean": pod_mean, "sharded_train": sharded_train,
         "sharded_collectives": sharded_collectives, "sharded_ckpt": sharded_ckpt,
         "sharded_restore": sharded_restore, "moe_ep": moe_ep,
-        "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli}
+        "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli,
+        "dryrun_collectives": dryrun_collectives}
 
 
 def spawn_ranks(tmp_path, job: str, args: dict, world: int, deadline_s: float = 240) -> dict:
