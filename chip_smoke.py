@@ -176,13 +176,14 @@ MB L2.
      1e-3 quanta;
  12. checkpoint and resume on the card (``repro_torch.ckpt``, the
      reference's format), checkpoints in a temporary directory under
-     ``build/`` removed afterwards: (a) phase 6's model and cut trains 8 steps through
+     ``build/`` removed afterwards: (a) phase 6's model at 4 of 32 layers
+     (``CKPT_LAYERS``: the script's time limit) trains 8 steps through
      ``train_lm.train`` with a checkpoint at each tick (steps 4 and 8;
      bytes, volumes, device -> host and write seconds and GB/s); a fresh
      state with other weights restored from the step-4 checkpoint
      (``train_lm.resume``) runs steps 5-8: the batch schedule and the
      losses must be the uninterrupted run's to the bit, and the launches
-     16 chunk, 8 dq and 8 dk/dv per microbatch; (b) phase 10's ``Trainer``
+     8 chunk, 4 dq and 4 dk/dv per microbatch; (b) phase 10's ``Trainer``
      with ``ckpt_every=1`` runs 2 epochs (rung 3), a fresh ``Trainer`` on a
      fresh ladder ``resume``s onto rung 3 and runs epoch 3: the same
      (batch, rung, steps) as phase 10's epoch 3, losses and parameters
@@ -414,9 +415,9 @@ MB L2.
      rung transitions, ``compiles`` the distinct (bucket, rung) pairs, the
      launches 32 per chunk and per decode step; decode step and chunk ms by
      rung, each reshard's seconds (a local rung moves no byte);
- 28. elastic serving over 2 gloo ranks sharing the card: Yi-6B widths at 4
-     of 32 layers on ``MeshLadder(rank_devices, granule=1)`` (widths 1 and
-     2) through a trace that goes 1 -> 2 -> 1.  The paged decode kernel at
+ 28. elastic serving over 2 gloo ranks sharing the card: Yi-6B widths at 2
+     of 32 layers (``ELASTIC_LAYERS``) on ``MeshLadder(rank_devices,
+     granule=1)`` (widths 1 and 2) through a trace that goes 1 -> 2 -> 1.  The paged decode kernel at
      a rank's rows (B 1, 2, 4) and the chunk kernel at the trace's
      one-chunk prompts held against their plain versions; a world of one
      on NCCL equal to the engine with no ladder to the bit (tokens, pool
@@ -438,7 +439,26 @@ MB L2.
      ``step_time_lower_bound_s`` (NVIDIA H100 published peaks at 700 W).
      The dry run of ``yi-6b x train_4k`` on the 256-card ``(16, 16)`` mesh
      runs in a process of its own (CPU only, a fake process group) beside
-     the earlier phases, and its one-line summary is printed here.
+     the earlier phases, and its one-line summary is printed here;
+ 30. tensor-parallel training on ranks, run within phase 25's gloo world
+     (one spawn less) and reported after phase 29: phase 25's cut (Yi-6B
+     widths at 4 of 32 layers, bf16, remat, S 2048, micro batch 2) on its 2
+     gloo ranks sharing the card as a ``(data 1, model 2)`` rung
+     (``launch.mesh.make_production_mesh(tp=2)``), each block's attention
+     heads and FFN widths split over the ranks (``dist.sharding.tp_split``:
+     16 query heads over 2 KV heads and 5504 FFN columns a rank), 3
+     moment-tier steps under 25a's program then 2 gram-tier steps, against
+     the same run on one process with whole state: batches and buckets
+     equal, losses and ``sq_norm_sum`` within 1e-3 relative, the gathered
+     parameters within 1e-3; each rank's resident bytes equal to the
+     reckoning; exactly 8, 4, 4 attention launches a microbatch, the flash
+     wrapper seeing 16/2 heads; in the gram tier the psgn kernels reading
+     the rank's widths (q 4096 -> 2048, k and v 4096 -> 256, o 2048 ->
+     4096, gate and up 4096 -> 5504, down 5504 -> 4096) with the launches
+     their grouping gives; ``tp_counts`` every attention and dense FFN
+     split, the embedding and head whole; per step its ms, the tensor-
+     parallel all-reduces (calls, GB), the collectives by kind beside
+     phase 25's block gathers, and each rank's peak beside phase 25's.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -460,8 +480,9 @@ path they describe (gemma2's serving, llama3's serving), the kimi-k2
 records phase 19b's serving path, the jamba records phase 21c's, the
 other records
 the causal paths (phases 4, 6, 8, 10, 12, 16's pod cell on both
-ranks, 23a, and 25's sharded training, gram step and dbrx step on both
-ranks), and phases 27 and 28 (rows 1 and 4: the local ladder, and both
+ranks, 23a, 25's sharded training, gram step and dbrx step on both
+ranks, and 30's tensor-parallel training and gram steps on both ranks), and
+phases 27 and 28 (rows 1 and 4: the local ladder, and both
 ranks of the rank ladder).
 
 The last two lines are the kernels' JSON record and
@@ -533,8 +554,12 @@ NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0, "psgn_split": 0,
            "quantize_int8": 0}
 
 
+#: the script's start, which each phase's header counts its seconds from
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2043,6 +2068,9 @@ def card_vs_cpu_phase() -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 2048, 2, 12, 0.02
+# phase 12a's depth: half of phase 6's, so that the whole script keeps inside
+# its time limit (its two checkpoints and the restore scale with the depth)
+CKPT_LAYERS = 4
 #: median step ms by batch of each tier on this cut: phases 6, 8 and 23
 TIER_MS: dict[str, dict[int, float]] = {}
 
@@ -2666,10 +2694,10 @@ def ckpt_root(tag: str) -> str:
 
 
 def lm_resume_phase() -> dict:
-    phase(f"12a. checkpoint and resume at full width: Yi-6B widths, {TRAIN_LAYERS} of 32 "
+    phase(f"12a. checkpoint and resume at full width: Yi-6B widths, {CKPT_LAYERS} of 32 "
           f"layers, bf16, remat, 8 steps through train_lm.train with a checkpoint at each "
           f"tick; steps 5-8 again from the step-4 checkpoint")
-    cfg = YI.replace(num_layers=TRAIN_LAYERS)
+    cfg = YI.replace(num_layers=CKPT_LAYERS)
 
     def program():
         return train_lm.make_program("divebatch", m0=4, m_max=16, delta=0.5,
@@ -5005,15 +5033,16 @@ def shard_plan_abstract(world: int):
                         fsdp=("data",), tp=None, ep=("data",))
 
 
-def reckoned_state_bytes(cfg, world: int) -> tuple[int, int, int]:
+def reckoned_state_bytes(cfg, world: int, plan=None) -> tuple[int, int, int]:
     """``(per rank, whole, per-rank parameters)``: the bytes of the
     parameters, the sgd momenta (the parameters' type) and ``grad_sum``
     (float32), from ``infer_pspecs`` on the reference's paths and stacked
-    shapes (``interop.layout`` of a meta model)."""
+    shapes (``interop.layout`` of a meta model), on ``plan`` (default a
+    ``(data world)`` rung)."""
     from repro_torch import interop
     from repro_torch.dist import sharding
 
-    plan = shard_plan_abstract(world)
+    plan = plan or shard_plan_abstract(world)
     model = tf.build(cfg, "meta")
     named = dict(model.named_parameters())
     tree, size = {}, {}
@@ -5322,7 +5351,7 @@ def card_restore_one(device, root: str) -> float:
 
 
 def rank_sharded(dev, args) -> dict:
-    """25a, 25c, 25d and 26 on the ranks of one gloo world."""
+    """25a, 25c, 25d, 26 and 30 on the ranks of one gloo world."""
     plan = data_plan(dev)
     out = {"backend": dist.get_backend(), "yi": rank_shard_yi(dev, plan, args["yi_whole"])}
     free()
@@ -5332,6 +5361,10 @@ def rank_sharded(dev, args) -> dict:
     dist.barrier()
     out["ckpt"] = card_ckpt_run(dev, plan, args["ckpt_dir"])
     out["reduced"] = {arch: reduced_run(arch, dev, plan) for arch in SHARD_REDUCED}
+    # phase 30's ranks: the same world (one spawn less), reported after phase 29
+    free()
+    dist.barrier()
+    out["tp"] = rank_tp(dev, {"whole": args["tp_whole"]})
     return out
 
 
@@ -5363,6 +5396,13 @@ RANK_JOBS.update(sharded=rank_sharded, sharded_world_one=rank_sharded_world_one)
 def coll_line(coll: dict) -> str:
     return "; ".join(f"{n} {coll['calls'][n]} calls, {coll['bytes'][n] / 1e9:.3f} GB, "
                      f"{coll['ms'][n]:.1f} ms" for n in COLLECTIVES if coll["calls"][n])
+
+
+#: phase 25's peaks and collectives by rank, which phase 30 prints beside its own
+PHASE25: dict = {}
+#: phase 30's one-process run and its ranks' results, run within phase 25's
+#: spawn (the same gloo world) and reported after phase 29
+PHASE30: dict = {}
 
 
 def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
@@ -5401,10 +5441,14 @@ def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
               f"plan (nothing sharded: every collective an identity): loss {one['loss'][1]}, "
               f"the unsharded run's to the bit, parameters too "
               f"({time.perf_counter() - t0:.1f} s with the spawn)")
+        tp_whole_path = os.path.join(root, "yi_tp_whole.pt")
+        PHASE30["one"] = tp_one_process(tp_whole_path, dev)
         t0 = time.perf_counter()
         res = spawn_ranks("sharded", "gloo", SHARD_WORLD,
-                          {"yi_whole": yi_whole_path, "ckpt_dir": root})
+                          {"yi_whole": yi_whole_path, "ckpt_dir": root,
+                           "tp_whole": tp_whole_path})
         spawn_s = time.perf_counter() - t0
+        PHASE30["res"] = {r: res[r].pop("tp") for r in res}
         restored = card_restore_one(dev, root)
         same_files = all(
             open(os.path.join(root, "sharded", "step_0000000002", k, f), "rb").read()
@@ -5437,6 +5481,8 @@ def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
         if y["launches"] != want:
             raise AssertionError(f"{tags[r]} launches {y['launches']}, expected {want}")
         attn_routes(y["launches"], y["plan"], what=f"{tags[r]} sharded Yi", routes=y["routes"])
+        PHASE25.setdefault("peak_gib", {})[r] = y["peak_gib"]
+        PHASE25.setdefault("coll", {})[r] = [st["coll"] for st in y["steps"]]
         print(f"  (a) {tags[r]} resident state {y['bytes'] / 1e9:.3f} GB = the reckoning "
               f"({100 * y['bytes'] / whole_bytes:.1f}% of the whole {whole_bytes / 1e9:.3f} GB), "
               f"{y['params'] / 1e9:.4f} B parameters; peak {y['peak_gib']:.2f} GiB (the whole "
@@ -5502,7 +5548,8 @@ def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
           f"gathered state byte for byte: {same_files}; restored onto one process, step 3's "
           f"loss {restored:.6f} against the ranks' {ck['next_loss']:.6f} (within {rel:.2e}, "
           f"tol 1e-5)")
-    print(f"  phase 25: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s)")
+    print(f"  phase 25: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s, "
+          f"phase 30's ranks and one-process run included)")
 
     phase("26. the reduced dense, MoE (moe_impl='ep'), Mamba and encoder configs sharded on "
           "2 gloo ranks (card, kernels) against one process on the CPU (whole state)")
@@ -5541,8 +5588,10 @@ def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
 LOCAL_KW = dict(max_slots=8, max_seq=1024, block_size=16, prompt_granule=16,
                 prefill_chunk=256)
 LOCAL_LENS, LOCAL_NEW = (64, 300, 150, 96, 200, 128), (32, 16, 16, 16, 16, 16)
-# phase 28: Yi-6B widths at phase 25's depth on a 2-rank ladder, prompts in one chunk
-ELASTIC_LAYERS, ELASTIC_WORLD = SHARD_LAYERS, 2
+# phase 28: Yi-6B widths on a 2-rank ladder, prompts in one chunk, at 2 layers
+# (half phase 25's depth: a decode step's block gathers scale with the depth,
+# and the whole script must keep inside its time limit)
+ELASTIC_LAYERS, ELASTIC_WORLD = 2, 2
 ELASTIC_KW = dict(max_slots=8, max_seq=128, block_size=16, prompt_granule=16,
                   prefill_chunk=64)
 # the first request outlives the others, so the bucket falls back to 1: rungs 0, 1, 0
@@ -5902,6 +5951,272 @@ def elastic_ranks_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 30: tensor-parallel training on ranks
+# ---------------------------------------------------------------------------
+
+# phase 25's cut on a (data 1, model 2) rung: 3 moment-tier steps, then 2 gram-tier
+TP_WORLD, TP_GRAM_STEPS = 2, 2
+
+
+def tp_plan_abstract():
+    """Phase 30's rung roles on an abstract mesh (the reckoning's)."""
+    from repro_torch.dist.plan import ShardingPlan, abstract_mesh
+
+    return ShardingPlan(mesh=abstract_mesh((1, TP_WORLD), ("data", "model")), dp=("data",),
+                        fsdp=("data",), tp="model", ep=("data",))
+
+
+def tp_gram_step(cfg, opt, plan, dev):
+    return make_train_step(
+        cfg, opt, 1, plan=plan, estimator="gram",
+        probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+        probe_specs=lambda p, n: probes.probe_specs(cfg, n, SHARD_SEQ, device=dev))
+
+
+def tp_gram_batch(i: int) -> dict:
+    return TokenStream(YI.vocab_size, seed=5).batch(i, SHARD_MICRO, SHARD_SEQ)
+
+
+def tp_one_process(path: str, dev: str = "cuda") -> dict:
+    """30's reference in the parent: the run on one process with whole
+    state, 25a's program on the moment tier (no data-parallel layout), then
+    the gram-tier steps; its final parameters to ``path``."""
+    cfg = shard_yi_cfg()
+    opt = sgd(momentum=0.9)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    engine = StepEngine.for_lm(cfg, opt, micro_batch=SHARD_MICRO, attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    out = train_lm.train(cfg, params, shard_yi_program(), steps=SHARD_STEPS,
+                         seq_len=SHARD_SEQ, micro_batch=SHARD_MICRO, engine=engine,
+                         log=lambda line: None)
+    state, gram = out["state"], tp_gram_step(cfg, opt, None, dev)
+    rec = {"loss": [r["loss"] for r in out["records"]],
+           "batch": [r["batch"] for r in out["records"]],
+           "buckets": list(engine.stats.buckets),
+           "ms": [1e3 * r["seconds"] for r in out["records"]], "gram_loss": [], "gram_ms": []}
+    for i in range(TP_GRAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = gram(state, tp_gram_batch(i), TRAIN_LR)
+        rec["gram_loss"].append(float(metrics["loss"]))
+        rec["gram_ms"].append(1e3 * (time.perf_counter() - t0))
+    rec["sq_norm_sum"] = state.div_state.sq_norm_sum.item()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save({n: p.detach().cpu() for n, p in params.named_parameters()}, path)
+    del out, state, params, engine
+    free()
+    return rec
+
+
+def psgn_expected(widths: dict, b: int, s: int, dtype) -> dict[str, int]:
+    """The psgn launches of ``ops.persample_sq_norm_tree`` over layers of
+    ``{name: (Din, Dout)}`` at (B, S): one fused launch per group of two
+    or more, else one direct or gram launch per layer."""
+    acts = {n: torch.empty((b, s, i), dtype=dtype, device="meta") for n, (i, _) in widths.items()}
+    deltas = {n: torch.empty((b, s, o), dtype=dtype, device="meta")
+              for n, (_, o) in widths.items()}
+    out = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0}
+    for key, names in ops.group_layers(acts, deltas).items():
+        if key[0] != "solo" and len(names) >= 2:
+            out["psgn_fused"] += 1
+        else:
+            for n in names:
+                out["psgn_" + ops.choose_method(s, *widths[n])] += 1
+    return out
+
+
+def rank_tp(dev, args) -> dict:
+    """30 on a rank: Yi-6B on the (data 1, model 2) rung, each block's heads
+    and FFN widths split over the ranks: 25a's program on the moment tier,
+    then the gram-tier steps; per step its ms, collectives by kind and the
+    tensor-parallel all-reduces; the heads the flash wrapper saw and the
+    widths the psgn kernels read."""
+    from repro_torch.dist.plan import reset_tensor_parallel_counts, tensor_parallel_counts
+    from repro_torch.launch.mesh import make_plan, make_production_mesh
+
+    cfg = shard_yi_cfg()
+    opt = sgd(momentum=0.9)
+    plan = make_plan(make_production_mesh(device=dev, tp=TP_WORLD))
+    params = place(tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), plan)
+    engine = StepEngine.for_lm(cfg, opt, micro_batch=SHARD_MICRO, attn_impl="pallas",
+                               plan=plan)
+    clock = CollectiveClock()
+    heads, widths = set(), {}
+    flash, tree = kattn.flash_attention, ops.persample_sq_norm_tree
+
+    def spy_flash(q, k, v, *a, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return flash(q, k, v, *a, **kw)
+
+    def spy_tree(acts, deltas, *a, **kw):
+        widths.update({n: (x.shape[-1], deltas[n].shape[-1]) for n, x in acts.items()})
+        return tree(acts, deltas, *a, **kw)
+
+    kattn.flash_attention, ops.persample_sq_norm_tree = spy_flash, spy_tree
+
+    def timed(fn, state, batch, lr, into: list):
+        before, tp0 = clock.snapshot(), tensor_parallel_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = fn(state, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        tp1 = tensor_parallel_counts()
+        into.append({"batch": int(next(iter(batch.values())).shape[0]), "loss": loss,
+                     "ms": 1e3 * (time.perf_counter() - t1),
+                     "coll": clock_delta(before, clock.snapshot()),
+                     "tp": {k: tp1[k] - tp0[k] for k in tp1}})
+        return state, metrics
+
+    steps, inner = [], engine.step
+    engine.step = lambda state, batch, lr: timed(inner, state, batch, lr, steps)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tf.reset_tp_counts()
+    reset_tensor_parallel_counts()
+    try:
+        out = train_lm.train(cfg, params, shard_yi_program(), steps=SHARD_STEPS,
+                             seq_len=SHARD_SEQ, micro_batch=SHARD_MICRO, engine=engine,
+                             plan=plan, log=lambda line: None)
+        torch.cuda.synchronize()
+        rec = {"steps": steps, "num_micro": [r["num_micro"] for r in out["records"]],
+               "buckets": list(engine.stats.buckets), "launches": kernels.launch_counts(),
+               "routes": kernels.route_counts(), "tp_counts": tf.tp_counts(),
+               "heads": sorted(heads), "plan": plan_of(cfg, torch.bfloat16)}
+        state = out["state"]
+        gram, rec["gram"] = tp_gram_step(cfg, opt, plan, dev), []
+        kernels.reset_launch_counts()
+        heads.clear()
+        for i in range(TP_GRAM_STEPS):
+            state, _ = timed(gram, state, tp_gram_batch(i), TRAIN_LR, rec["gram"])
+        torch.cuda.synchronize()
+        rec.update(gram_launches=kernels.launch_counts(), gram_routes=kernels.route_counts(),
+                   gram_heads=sorted(heads), widths=widths,
+                   sq_norm_sum=state.div_state.sq_norm_sum.item(),
+                   bytes=state_bytes(state),
+                   params=sum(p.numel() for p in state.params.parameters()),
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        whole = torch.load(args["whole"]) if dist.get_rank() == 0 else None
+        gap = 0.0
+        for n, w in whole_params(state.params).items():
+            if whole is not None:
+                gap = max(gap, (w.float().cpu() - whole[n].float()).abs().max().item())
+        rec["param_gap"] = gap
+    finally:
+        kattn.flash_attention, ops.persample_sq_norm_tree = flash, tree
+        clock.close()
+    return rec
+
+
+def tp_phase() -> dict[str, dict]:
+    """Phase 30, from the runs made within phase 25 (its one-process run in
+    the parent, its ranks in phase 25's gloo world); returns the launch
+    counts of its paths, summed over the ranks."""
+    phase(f"30. tensor-parallel training on {TP_WORLD} gloo ranks sharing the card: Yi-6B "
+          f"widths at {SHARD_LAYERS} of 32 layers on a (data 1, model {TP_WORLD}) rung, each "
+          f"block's heads and FFN widths split over the ranks (Megatron-style; run within "
+          f"phase 25's gloo world)")
+    cfg = shard_yi_cfg()
+    layers, t = cfg.num_layers, TP_WORLD
+    mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, t, tp_plan_abstract())
+    one, res = PHASE30["one"], dict(sorted(PHASE30["res"].items()))
+    print(f"  one process, whole state: losses {[round(x, 5) for x in one['loss']]}, "
+          f"batches {one['batch']}, step ms {[round(x, 1) for x in one['ms']]}; gram "
+          f"tier {[round(x, 5) for x in one['gram_loss']]}, "
+          f"{[round(x, 1) for x in one['gram_ms']]} ms; sq_norm_sum "
+          f"{one['sq_norm_sum']:.6e}; peak {one['peak_gib']:.2f} GiB")
+    hq, hk = cfg.num_heads // t, cfg.num_kv_heads // t
+    hd, d, ff = cfg.resolved_head_dim, cfg.d_model, cfg.d_ff // t
+    want_widths = {"q": (d, hq * hd), "k": (d, hk * hd), "v": (d, hk * hd), "o": (hq * hd, d),
+                   "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    for r, y in res.items():
+        tag = f"[gloo, world {t}, rank {r}]"
+        if y["bytes"] != mine or y["params"] != mine_params:
+            raise AssertionError(f"{tag} holds {y['bytes']} bytes ({y['params']} parameters), "
+                                 f"reckoned {mine} ({mine_params})")
+        losses = [st["loss"] for st in y["steps"]] + [g["loss"] for g in y["gram"]]
+        want_losses = one["loss"] + one["gram_loss"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        sq = abs(y["sq_norm_sum"] - one["sq_norm_sum"]) / one["sq_norm_sum"]
+        batches = [st["batch"] for st in y["steps"]]
+        if batches != one["batch"] or y["buckets"] != one["buckets"] \
+                or rel > SHARD_LOSS_RTOL or sq > SHARD_LOSS_RTOL:
+            raise AssertionError(f"{tag} batches {batches} buckets {y['buckets']} losses "
+                                 f"{losses} sq_norm_sum {y['sq_norm_sum']} against {one}")
+        if r == 0 and y["param_gap"] > SHARD_PARAM_ATOL:
+            raise AssertionError(f"{tag} gathered parameters {y['param_gap']:.3e} from the "
+                                 f"one-process run's (tol {SHARD_PARAM_ATOL})")
+        n_micro = sum(y["num_micro"])
+        want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+                "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+        if y["launches"] != want or [tuple(h) for h in y["heads"]] != [(hq, hk)]:
+            raise AssertionError(f"{tag} launches {y['launches']}, expected {want}; heads "
+                                 f"{y['heads']}, expected {[(hq, hk)]}")
+        attn_routes(y["launches"], y["plan"], what=f"{tag} tensor-parallel Yi",
+                    routes=y["routes"])
+        split = {"tp_split": {"attn": layers * n_micro, "dense": layers * n_micro},
+                 "tp_whole": {"embed": n_micro, "head": n_micro}}
+        if y["tp_counts"] != split:
+            raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split}")
+        got_widths = {n.rsplit(".", 1)[1]: tuple(w) for n, w in y["widths"].items()}
+        if got_widths != want_widths:
+            raise AssertionError(f"{tag} psgn widths {y['widths']}, expected {want_widths}")
+        psgn_want = psgn_expected(y["widths"], SHARD_MICRO, SHARD_SEQ, torch.bfloat16)
+        gram_want = {"chunk_attention": 2 * layers, "paged_decode_attention": 0,
+                     "flash_dq": layers, "flash_dkv": layers, "psgn_split": 0,
+                     "quantize_int8": 0, **psgn_want}
+        gram_want = {k: v * TP_GRAM_STEPS for k, v in gram_want.items()}
+        got_gram = {k: y["gram_launches"].get(k, 0) for k in gram_want}
+        if got_gram != gram_want or [tuple(h) for h in y["gram_heads"]] != [(hq, hk)]:
+            raise AssertionError(f"{tag} gram launches {y['gram_launches']}, expected "
+                                 f"{gram_want}; heads {y['gram_heads']}")
+        attn_routes(y["gram_launches"], y["plan"], what=f"{tag} tensor-parallel gram",
+                    routes=y["gram_routes"])
+        if any(v.get("fma", 0) for k, v in y["gram_routes"].items() if k.startswith("psgn")):
+            raise AssertionError(f"{tag} psgn routes {y['gram_routes']}: an FMA launch")
+        p25 = PHASE25.get("peak_gib", {}).get(r)
+        print(f"  {tag} resident state {y['bytes'] / 1e9:.3f} GB = the reckoning "
+              f"({100 * y['bytes'] / whole_bytes:.1f}% of the whole {whole_bytes / 1e9:.3f} "
+              f"GB), {y['params'] / 1e9:.4f} B parameters; peak {y['peak_gib']:.2f} GiB "
+              f"(phase 25's (data 2) rung at the same cut: "
+              + (f"{p25:.2f}" if p25 is not None else "not run") + f"; one process "
+              f"{one['peak_gib']:.2f})")
+        c25 = PHASE25.get("coll", {}).get(r, [])
+        for i, st in enumerate(y["steps"] + y["gram"]):
+            c = st["coll"]
+            coll_ms = sum(c["ms"][n] for n in COLLECTIVES)
+            gram_step = i >= len(y["steps"])
+            p25_line = ""
+            if not gram_step and i < len(c25):
+                g25 = c25[i]
+                p25_line = (f"; phase 25's step {i + 1} gathered "
+                            f"{g25['calls']['all_gather_into_tensor']} calls, "
+                            f"{g25['bytes']['all_gather_into_tensor'] / 1e9:.3f} GB")
+            print(f"    {'gram ' if gram_step else ''}step {i + 1}: batch {st['batch']}, loss "
+                  f"{st['loss']:.5f} (one process {want_losses[i]:.5f}), {st['ms']:.1f} ms "
+                  f"(one process {(one['ms'] + one['gram_ms'])[i]:.1f}); tp all-reduces "
+                  f"{st['tp']['calls']} calls, {st['tp']['bytes'] / 1e9:.3f} GB; collectives "
+                  f"{coll_ms:.1f} ms ({100 * coll_ms / st['ms']:.1f}%): {coll_line(c)}"
+                  + p25_line)
+        print(f"    losses within {rel:.3e} relative, sq_norm_sum {y['sq_norm_sum']:.6e} "
+              f"within {sq:.3e} (tol {SHARD_LOSS_RTOL}), batches and buckets {y['buckets']} "
+              f"the one process's"
+              + (f", gathered parameters within {y['param_gap']:.3e} (tol {SHARD_PARAM_ATOL})"
+                 if r == 0 else "")
+              + f"; heads a rank {hq}/{hk} (n_rep {hq // hk}); launches {y['launches']} (= "
+              f"{2 * layers}, {layers}, {layers} x {n_micro} microbatches), all three on tc; "
+              f"tp_counts {y['tp_counts']}")
+        print(f"    gram tier, {TP_GRAM_STEPS} steps: psgn widths (Din, Dout) "
+              f"{dict(sorted(got_widths.items()))}; launches {got_gram} (= main pass "
+              f"{2 * layers}, {layers}, {layers} + {psgn_want} x {TP_GRAM_STEPS}), psgn routes "
+              f"{ {k: v for k, v in y['gram_routes'].items() if k.startswith('psgn')} }")
+    return {"tensor-parallel training (ranks)": {
+                k: sum(res[r]["launches"][k] for r in res) for k in res[0]["launches"]},
+            "tensor-parallel gram steps (ranks)": {
+                k: sum(res[r]["gram_launches"][k] for r in res) for k in res[0]["gram_launches"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 29: the dry run's plan against the card
 # ---------------------------------------------------------------------------
 
@@ -6052,7 +6367,7 @@ def main() -> int:
 
 
 def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
-    """Phases 3-29, then the kernels' JSON line and the last line."""
+    """Phases 3-30, then the kernels' JSON line and the last line."""
     records = kernels_phase()
     serve_counts = full_width_phase()
     card_vs_cpu_phase()
@@ -6082,6 +6397,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
     elastic_local = elastic_local_phase()
     elastic_ranks = elastic_ranks_phase()
     plan_phase(smi, pod_plan, pod_dir)
+    tp_paths = tp_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -6091,7 +6407,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
              "pod training": pod_counts, "checkpoint-resume LM": lm_resume_counts,
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"],
-             "exact-tier training": exact_counts, **sharded_paths,
+             "exact-tier training": exact_counts, **sharded_paths, **tp_paths,
              "elastic serving (local ladder)": elastic_local,
              "elastic serving (ranks)": elastic_ranks}
     encoder_paths["exact-tier encoder"] = exact_encoder_counts

@@ -24,9 +24,10 @@ Implementations here:
   FromBatchPolicy   adapter lifting any legacy ``core.BatchPolicy`` into the
                     protocol (the ``AdaptiveBatchController`` shim uses it).
 
-The lr coupling lives in ``combinators.py`` (the reference's other
-combinators are not ported yet); ``program.AdaptationProgram`` runs a
-policy against the training clock.
+The lr coupling lives in ``combinators.py``, beside the reference's other
+combinators (``Clamped``, ``BoundedRung``, ``Warmup``, ``Hysteresis``,
+``Chain``, ``Switch``); ``program.AdaptationProgram`` runs a policy against
+the training clock.
 """
 
 from __future__ import annotations

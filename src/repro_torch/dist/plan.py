@@ -31,9 +31,14 @@ per dtype into one call over one axis group: :func:`all_gather_dim` and
 :func:`reduce_scatter_dim` along a dim, :func:`all_to_all_dim0` over the
 leading dim; :func:`gather_shards` is the autograd form a block's forward
 calls (its backward reduce-scatters the gradient over the data-parallel
-axes and slices it over the others) and :func:`all_to_all` the one
-``models/moe_ep.py`` routes tokens through (its backward is the reverse
-exchange).  Each tensor helper here reports the collective it issues to
+axes and slices it over the others, or sums it where each rank used a part
+of the whole) and :func:`all_to_all` the one ``models/moe_ep.py`` routes
+tokens through (its backward is the reverse exchange).  Tensor-parallel
+compute (``models/transformer.py``) brackets a block's split products with
+:func:`copy_to_group` (identity forward, all-reduce sum backward: in front
+of the column-parallel products) and :func:`reduce_from_group` (all-reduce
+sum forward, identity backward: after the row-parallel ones), Megatron's
+``f`` and ``g``; :func:`tensor_parallel_counts` counts their all-reduces.  Each tensor helper here reports the collective it issues to
 the recorders of :func:`record_collectives` (kind, bytes, the group's
 ranks): what the dry run (``utils/hlo.py``) and the scale-out tests count.
 The training step and the sharded state issue every collective through
@@ -567,14 +572,16 @@ class _GatherShards(torch.autograd.Function):
     """Forward: gathers each shard whole, round by round (one axis group a
     round).  Backward: the rounds in reverse; over data-parallel axes the
     gradient is reduce-scattered as a mean (the ranks saw different
-    samples), over the others each rank keeps its own slice (they computed
-    the same gradient)."""
+    samples); over the others each rank keeps its own slice (they computed
+    the same gradient), or, in a summed round, the gradient is
+    reduce-scattered as a sum (each rank used its part of the whole: a
+    tensor-parallel rank's KV head)."""
 
     @staticmethod
     def forward(ctx, mesh, dp, rounds, *shards):
         ctx.mesh, ctx.dp, ctx.rounds = mesh, dp, rounds
         out = list(shards)
-        for axes, members in rounds:
+        for (axes, _), members in rounds:
             idx = [i for i, _ in members]
             whole = all_gather_dim([out[i] for i in idx], [d for _, d in members], mesh, axes)
             for i, w in zip(idx, whole):
@@ -585,37 +592,106 @@ class _GatherShards(torch.autograd.Function):
     def backward(ctx, *grads):
         mesh, dp = ctx.mesh, set(ctx.dp)
         g = list(grads)
-        for axes, members in reversed(ctx.rounds):
+        for (axes, summed), members in reversed(ctx.rounds):
             idx = [i for i, _ in members]
             dims = [d for _, d in members]
             if set(axes) <= dp:
                 parts = reduce_scatter_dim([g[i] for i in idx], dims, mesh, axes, mean=True)
-            elif not set(axes) & dp:
-                parts = [_slice_own(g[i], d, mesh, axes) for i, d in zip(idx, dims)]
-            else:
+            elif set(axes) & dp:
                 raise NotImplementedError(
                     f"a dim sharded over {axes}, partly data-parallel ({sorted(dp)})")
+            elif summed:
+                parts = reduce_scatter_dim([g[i] for i in idx], dims, mesh, axes, mean=False)
+            else:
+                parts = [_slice_own(g[i], d, mesh, axes) for i, d in zip(idx, dims)]
             for i, p in zip(idx, parts):
                 g[i] = p
         return (None, None, None, *g)
 
 
 def gather_shards(shards: Sequence[torch.Tensor], dims: Sequence[Sequence[tuple[int, Any]]],
-                  mesh, dp: Sequence[str]) -> list[torch.Tensor]:
+                  mesh, dp: Sequence[str], summed: Sequence[bool] | None = None
+                  ) -> list[torch.Tensor]:
     """Every shard whole, under autograd: ``dims[i]`` lists ``(dim, axes)``
     of shard ``i``'s sharded dims.  One all-gather per axis group and dtype
     (the groups in mesh order), and the reverse reduce-scatters or slices in
     the backward (:class:`_GatherShards`); ``dp`` names the data-parallel
-    axes."""
-    rounds: dict[tuple[str, ...], list] = {}
+    axes.  ``summed[i]``: shard ``i``'s gradient is summed over its other
+    axes, not sliced (each rank there used only a part of the whole leaf);
+    such shards gather in rounds of their own."""
+    rounds: dict[tuple[tuple[str, ...], bool], list] = {}
     for i, entries in enumerate(dims):
         for d, axes in entries:
-            rounds.setdefault(_axes(axes), []).append((i, d))
+            part = bool(summed[i]) if summed is not None else False
+            rounds.setdefault((_axes(axes), part), []).append((i, d))
     if not rounds:
         return list(shards)
-    order = sorted(rounds, key=lambda k: [mesh.axis_names.index(a) for a in k])
+    order = sorted(rounds, key=lambda k: ([mesh.axis_names.index(a) for a in k[0]], k[1]))
     return list(_GatherShards.apply(mesh, tuple(dp), tuple((k, tuple(rounds[k])) for k in order),
                                     *shards))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute: Megatron's f and g over a mesh's tp group
+# ---------------------------------------------------------------------------
+
+#: all-reduces issued by :func:`copy_to_group` and :func:`reduce_from_group`
+#: (calls and operand bytes), from any thread
+_TP_COUNTS = {"calls": 0, "bytes": 0}
+
+
+def tensor_parallel_counts() -> dict[str, int]:
+    """``{"calls", "bytes"}``: the tensor-parallel all-reduces since the last
+    :func:`reset_tensor_parallel_counts` (forward and backward)."""
+    return dict(_TP_COUNTS)
+
+
+def reset_tensor_parallel_counts() -> None:
+    _TP_COUNTS.update(calls=0, bytes=0)
+
+
+def _tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous copy of ``x`` summed over ``group``."""
+    y = x.clone(memory_format=torch.contiguous_format)
+    _TP_COUNTS["calls"] += 1
+    _TP_COUNTS["bytes"] += y.numel() * y.element_size()
+    return all_reduce_sum_(y, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_all_reduce(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _tp_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """``x`` (the same on every rank along ``axes``) as it is; its gradient
+    summed over those ranks (each computed the part its products use).  An
+    identity on one rank."""
+    group, n, _ = mesh.axis_group(_axes(axes))
+    return x if n == 1 else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` along ``axes`` (one all-reduce);
+    its gradient passes to each rank as it is.  An identity on one rank."""
+    group, n, _ = mesh.axis_group(_axes(axes))
+    return x if n == 1 else _ReduceFromGroup.apply(x, group)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -49,6 +49,17 @@ whose entries share one device, keeps whole leaves, and so does a plan that
 shards nothing (the paper's small models match no rule): no layout then.
 The forward gathers a block's shards on entry (:func:`gathered`, the
 autograd all-gather of ``dist.plan.gather_shards``).
+
+Tensor-parallel compute: on a plan whose tp axes span T > 1 ranks,
+:func:`tp_split` says which sublayers of a block the training stack splits
+(attention heads, dense-FFN and expert widths, Megatron-style) and which
+compute whole on every tp rank; the shards stay those of the specs above.
+A split block's entry gathers the fsdp axes only and keeps its split
+leaves' tp dim resident (:meth:`TpSplit.role`, :meth:`StateLayout.gather`);
+a leaf each tp rank uses only a part of (the one KV head a group of ranks
+shares, a replicated bias) is gathered whole with its gradient summed over
+tp.  :func:`tensor_parallel` gives a rank its place on the tp axes and the
+two all-reduces (``dist.plan.copy_to_group``, ``reduce_from_group``).
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from typing import Any, Iterator, Mapping, Sequence
 import torch
 
 from repro_torch.dist.plan import (AxisNames, ShardingPlan, all_gather_dim, all_reduce_mean,
-                                   all_reduce_sum_, gather_shards)
+                                   all_reduce_sum_, copy_to_group, gather_shards,
+                                   reduce_from_group)
 
 
 class P(tuple):
@@ -367,6 +379,122 @@ def param_pspecs(model: torch.nn.Module, plan: ShardingPlan) -> dict[str, P]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel compute
+# ---------------------------------------------------------------------------
+
+#: a block's leaves (port names within the block) by the sublayer that
+#: splits them: their tp dim stays resident in a split block
+_TP_RESIDENT = {
+    "attn": ("attn.q.weight", "attn.o.weight"),
+    "kv": ("attn.k.weight", "attn.v.weight"),
+    "ffn": ("ffn.w_gate.weight", "ffn.w_up.weight", "ffn.w_in.weight", "ffn.w_out.weight",
+            "ffn.w_gate", "ffn.w_up", "ffn.w_out"),
+}
+_TP_BIASES = ("attn.q.bias", "attn.k.bias", "attn.v.bias")
+
+
+@dataclasses.dataclass(frozen=True)
+class TpSplit:
+    """What of one block the training stack splits over ``size`` tp ranks.
+
+    ``attn``: "local" (each rank its ``H/T`` query heads and ``KV/T`` KV
+    heads), "shared" (``H/T`` query heads over KV head ``rank // (T/KV)``,
+    the k/v leaves gathered whole), or None.  ``ffn``: "dense" or "moe"
+    (each rank its ``ff/T`` columns of the FFN or of every expert), or
+    None.  ``whole``: the sublayers that compute whole on every tp rank
+    ("attn" where the heads do not divide, "mamba", "dense" or "moe" where
+    ``ff`` does not divide, "moe_ep")."""
+
+    size: int
+    attn: str | None = None
+    ffn: str | None = None
+    whole: tuple[str, ...] = ()
+
+    def role(self, name: str) -> str | None:
+        """A block leaf's role (``name`` within the block): "resident" (its
+        tp dim stays on the rank), "partial" (gathered whole over tp, each
+        rank using a part: its gradient is summed over tp), or None (the
+        gather's default)."""
+        if self.attn is not None:
+            if name in _TP_RESIDENT["attn"]:
+                return "resident"
+            if name in _TP_RESIDENT["kv"]:
+                return "resident" if self.attn == "local" else "partial"
+            if name in _TP_BIASES:
+                return "partial"
+        if self.ffn is not None and name in _TP_RESIDENT["ffn"]:
+            return "resident"
+        return None
+
+
+def tp_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
+    """The split of the block at pattern position ``pos`` on ``plan``'s tp
+    axes (T ranks; arithmetic on ``cfg`` and the plan only).  Attention
+    splits when ``H % T == 0`` and ``KV % T == 0`` ("local") or ``T % KV ==
+    0`` ("shared"); a dense FFN, or a MoE FFN on ``moe_apply``, when ``ff %
+    T == 0``.  A Mamba mixer and ``moe_impl="ep"`` over several expert ranks
+    compute whole, as does a sublayer whose widths do not divide."""
+    t = plan.tp_size if plan is not None and plan.tp else 1
+    if t == 1:
+        return TpSplit(1)
+    attn = ffn = None
+    whole = []
+    if cfg.pattern[pos] == "mamba":
+        whole.append("mamba")
+    else:
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        if h % t == 0 and (kv % t == 0 or t % kv == 0):
+            attn = "local" if kv % t == 0 else "shared"
+        else:
+            whole.append("attn")
+    if cfg.d_ff > 0:
+        kind = cfg.ffn_kind(pos)
+        if kind == "moe" and cfg.moe_impl == "ep" and plan.ep_size > 1:
+            whole.append("moe_ep")
+        elif cfg.d_ff % t == 0:
+            ffn = kind
+        else:
+            whole.append(kind)
+    return TpSplit(t, attn, ffn, tuple(whole))
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """This rank's place on a plan's tp axes: ``rank`` of ``size``, and the
+    all-reduces that bracket a split sublayer over the axes' group."""
+
+    mesh: Any
+    axes: tuple[str, ...]
+    size: int
+    rank: int
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``dist.plan.copy_to_group``: in front of the column-parallel
+        products."""
+        return copy_to_group(x, self.mesh, self.axes)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``dist.plan.reduce_from_group``: after the row-parallel ones."""
+        return reduce_from_group(x, self.mesh, self.axes)
+
+    @property
+    def group(self):
+        return self.mesh.group(self.axes)
+
+
+def tensor_parallel(layout: "StateLayout | None") -> TensorParallel | None:
+    """Where a sharded state's compute splits over tp: its plan's tp axes
+    when they span several ranks, else None (no layout, or T = 1)."""
+    if layout is None or not layout.plan.tp or layout.plan.tp_size == 1:
+        return None
+    axes = _entry_axes(layout.plan.tp)
+    k = 0
+    for a in axes:
+        k = k * layout.mesh.shape[a] + layout.coords[a]
+    return TensorParallel(layout.mesh, axes, layout.plan.tp_size, k)
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafShard:
     """One parameter's place in a :class:`StateLayout`: its name, whole
@@ -403,13 +531,14 @@ class StateLayout:
         self.ep_resident = bool(ep_resident)
         self.coords = self.mesh.coords()
         dp = set(plan.dp)
-        #: per leaf, the data-parallel axes its gather's backward does not
-        #: reduce over (the step all-reduces the gradient over them)
+        #: per leaf, the data-parallel axes of several ranks its gather's
+        #: backward does not reduce over (the step all-reduces the gradient
+        #: over them)
         self.rest: list[tuple[str, ...]] = []
         for leaf in self.leaves:
             covered = {a for _, axes in leaf.dims for a in axes}
             self.rest.append(tuple(a for a in self.mesh.axis_names
-                                   if a in dp and a not in covered))
+                                   if a in dp and a not in covered and self.mesh.shape[a] > 1))
 
     def __deepcopy__(self, memo):
         return self
@@ -423,13 +552,23 @@ class StateLayout:
         leaf = self.by_name[name]
         return local_shape(leaf.shape, leaf.spec, self.plan)
 
-    def resident(self, leaf: LeafShard) -> tuple[tuple[int, tuple[str, ...]], ...]:
+    def resident(self, leaf: LeafShard, role: str | None = None, ep: bool = True
+                 ) -> tuple[tuple[int, tuple[str, ...]], ...]:
         """The sharded dims a block's gather leaves alone: an expert tensor's
-        expert dim under ``ep_resident``."""
-        if not (self.ep_resident and leaf.expert):
-            return ()
-        ep = tuple(self.plan.ep)
-        return tuple((d, axes) for d, axes in leaf.dims if axes == ep)
+        expert dim under ``ep_resident`` (unless ``ep`` is False), and the
+        tp dim of a leaf whose role in a split block is "resident"
+        (:meth:`TpSplit.role`; raises when the leaf is not sharded over all
+        the tp axes)."""
+        keep: tuple = ()
+        if ep and self.ep_resident and leaf.expert:
+            keep = tuple((d, axes) for d, axes in leaf.dims if axes == tuple(self.plan.ep))
+        if role == "resident":
+            tp = _entry_axes(self.plan.tp)
+            mine = tuple((d, axes) for d, axes in leaf.dims if axes == tp)
+            if not mine:
+                raise ValueError(f"{leaf.name} is split over tp {tp} but sharded {leaf.dims}")
+            keep += mine
+        return keep
 
     # -- data ------------------------------------------------------------------
     def shard(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
@@ -445,27 +584,43 @@ class StateLayout:
         return unshard(tensor, leaf.spec, self.plan)
 
     def gather(self, names: Sequence[str], tensors: Sequence[torch.Tensor],
-               keep_resident: bool = True) -> list[torch.Tensor]:
+               keep_resident: bool = True, roles: Mapping[str, str | None] | None = None
+               ) -> list[torch.Tensor]:
         """The tensors whole under autograd (``dist.plan.gather_shards``):
         the sharded ones that are still shards (a whole tensor, as in the
         exact tier's per-sample pass, passes through), all in one gather per
         axis group and dtype; expert dims stay resident under
-        ``ep_resident`` unless ``keep_resident`` is False."""
+        ``ep_resident`` unless ``keep_resident`` is False.  ``roles`` (a
+        split block's, :meth:`TpSplit.role` by name): a "resident" leaf
+        keeps its tp dim; a "partial" one is gathered whole with its
+        gradient summed over tp, and one the specs leave whole over tp (a
+        bias) passes through ``copy_to_group``."""
         out = list(tensors)
-        pick, dims = [], []
+        roles = roles or {}
+        tp = _entry_axes(self.plan.tp)
+        pick, dims, summed, copied = [], [], [], []
         for i, (n, t) in enumerate(zip(names, tensors)):
             leaf = self.by_name.get(n)
-            if leaf is None or not leaf.dims or tuple(t.shape) == leaf.shape:
+            if leaf is None:
                 continue
-            keep = self.resident(leaf) if keep_resident else ()
+            role = roles.get(n)
+            if role == "partial" and not any(axes == tp for _, axes in leaf.dims):
+                copied.append(i)
+            if not leaf.dims or tuple(t.shape) == leaf.shape:
+                continue
+            keep = self.resident(leaf, role, ep=keep_resident)
             todo = [e for e in leaf.dims if e not in keep]
             if todo:
                 pick.append(i)
                 dims.append(todo)
+                summed.append(role == "partial")
         if pick:
-            whole = gather_shards([tensors[i] for i in pick], dims, self.mesh, self.plan.dp)
+            whole = gather_shards([tensors[i] for i in pick], dims, self.mesh, self.plan.dp,
+                                  summed)
             for i, w in zip(pick, whole):
                 out[i] = w
+        for i in copied:
+            out[i] = copy_to_group(out[i], self.mesh, tp)
         return out
 
     # -- gradients and norms ---------------------------------------------------
@@ -476,7 +631,10 @@ class StateLayout:
         all-reduce mean over the data-parallel axes each leaf's gather did
         not cover (one per axis group and dtype), and for resident experts a
         division by the expert ranks (their tokens' gradients came back
-        summed over the ranks that sent them)."""
+        summed over the ranks that sent them).  Nothing over tp, which is
+        not a data axis: under tensor-parallel compute a split leaf's
+        gradient is already its shard's, and a partial leaf's came back
+        summed over tp (``TpSplit.role``)."""
         out = list(grads)
         by_rest: dict[tuple[str, ...], list[int]] = {}
         for i, (leaf, rest) in enumerate(zip(self.leaves, self.rest)):
@@ -494,7 +652,9 @@ class StateLayout:
     def owned(self, i: int) -> bool:
         """Whether this rank counts leaf ``i``'s shard in a norm: it holds
         position 0 on every axis the leaf is not sharded over (so each
-        element counts once over the mesh)."""
+        element counts once over the mesh; a leaf replicated over tp, the
+        same on every tp rank under split compute too, counts on tp rank
+        0)."""
         covered = {a for _, axes in self.leaves[i].dims for a in axes}
         return all(self.coords[a] == 0 for a in self.mesh.axis_names if a not in covered)
 
@@ -554,24 +714,29 @@ def full_shapes(model: torch.nn.Module) -> dict[str, tuple[int, ...]]:
 
 @contextlib.contextmanager
 def gathered(module: torch.nn.Module, layout: StateLayout | None, prefix: str = "",
-             keep_resident: bool = True) -> Iterator[torch.nn.Module]:
+             keep_resident: bool = True, split: TpSplit | None = None
+             ) -> Iterator[torch.nn.Module]:
     """``module`` with its sharded parameters swapped for whole tensors
     (gathered under autograd, one call per axis group and dtype) for the
     block's extent; ``prefix`` is the module's name in the layout's model,
-    ``keep_resident`` as in :meth:`StateLayout.gather`.  No layout: the
-    module as it is."""
+    ``keep_resident`` as in :meth:`StateLayout.gather`.  ``split`` (the
+    training stack's, on a tp plan): the block's split leaves keep their
+    tp dim, its partial ones are gathered for a sum (:meth:`TpSplit.role`).
+    No layout: the module as it is."""
     if layout is None:
         yield module
         return
-    names, owners, tensors = [], [], []
+    names, owners, tensors, roles = [], [], [], {}
     for name, p in module.named_parameters():
         leaf = layout.by_name.get(prefix + name)
-        if leaf is not None and leaf.dims:
+        role = split.role(name) if split is not None else None
+        if leaf is not None and (leaf.dims or role == "partial"):
             names.append(prefix + name)
+            roles[prefix + name] = role
             mod, _, attr = name.rpartition(".")
             owners.append((module.get_submodule(mod), attr))
             tensors.append(p)
-    whole = layout.gather(names, tensors, keep_resident)
+    whole = layout.gather(names, tensors, keep_resident, roles)
     saved = []
     try:
         for (mod, attr), w in zip(owners, whole):

@@ -30,9 +30,12 @@ The traced lane is the reference's: ``attn_impl="auto"`` takes the plain
 flash lane (``models/attention.py::flash_attention``) above the threshold,
 as the reference's dry run reaches its XLA flash lane; the kernel lane's
 wrappers take their plain (materialising) versions on host tensors, a
-different program.  The port shards no activations: ``act_specs_for`` has
-no counterpart, and every rank of a data row runs its rows whole (tp ranks
-gather a block's leaves and compute its whole products).
+different program.  A train cell's blocks split over the mesh's ``model``
+axis as the training stack splits them (``dist.sharding.tp_split``: each tp
+rank its heads and FFN widths, two all-reduces a layer over the model
+group); the embedding, the head and what does not split run whole on every
+tp rank.  Prefill and decode (serving) gather each block whole.
+``act_specs_for`` has no counterpart: the residual stream is not split.
 
 Usage (no card needed):
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
@@ -435,8 +438,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
             plan=plan_rec,
             tuning=info,
             attn_impl_traced=_attn_impl_traced(cfg, shape),
-            activations="not sharded: the port has no act_specs_for; every rank of a "
-                        "data row runs its rows whole",
+            activations=("train: heads and FFN widths split over the model axis "
+                         "(dist.sharding.tp_split), the residual stream whole" if
+                         shape.kind == "train" else "not sharded: serving gathers each "
+                         "block whole and every rank of a data row runs its rows whole"),
             memory=memory,
             cost={
                 "flops_per_device": analysis["flops"],

@@ -9,6 +9,7 @@ on; it refuses two NCCL ranks on one device and never switches backend by
 itself.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --dp 2 --backend gloo
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --tp 2 --backend gloo
 
 NCCL wants one card per rank (two ranks on one card fail with "Duplicate
 GPU detected"); gloo carries CUDA tensors by staging them through the
@@ -131,18 +132,20 @@ def data_plan(device: torch.device | str) -> ShardingPlan:
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device: torch.device | str | None = None) -> Mesh:
+                         device: torch.device | str | None = None, tp: int = 1) -> Mesh:
     """The world's ranks as a ``(data, model)`` mesh, or ``(pod, data,
     model)`` with two pods; one entry per rank, each on ``device`` (the
-    rank's own; default the card).  The ``model`` axis has size 1: compute
-    is not split over tp (ROADMAP.md)."""
+    rank's own; default the card).  The ``model`` axis has ``tp`` ranks
+    (the reference's production mesh 16), consecutive ranks: the training
+    stack splits each block's heads and FFN widths over them
+    (``models/transformer.py``)."""
     world = world_size()
     pods = 2 if multi_pod else 1
-    if world % pods:
-        raise ValueError(f"{world} ranks do not split into {pods} pods")
+    if world % (pods * tp):
+        raise ValueError(f"{world} ranks do not split into {pods} pod(s) of model axes of {tp}")
     dev = (torch.device("cpu") if device is not None and torch.device(device).type == "cpu"
            else resolve_device(device or "cuda"))
-    shape = ((pods,) if multi_pod else ()) + (world // pods, 1)
+    shape = ((pods,) if multi_pod else ()) + (world // pods // tp, tp)
     axes = (("pod",) if multi_pod else ()) + ("data", "model")
     return Mesh(np.asarray(rank_devices(dev, world), dtype=object).reshape(shape), axes)
 

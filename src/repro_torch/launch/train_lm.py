@@ -51,6 +51,15 @@ and rank 0 writes the checkpoints (each leaf gathered whole as it is
 written).
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --dp 2 --backend gloo
+
+``--tp N`` trains on a ``(data W/N, model N)`` rung of the torchrun world's
+W ranks (``launch.mesh.make_production_mesh(tp=N)``, ``make_plan``): the
+state sharded by the reference's rules, and each block's attention heads
+and FFN widths split over the N model ranks (``models/transformer.py``);
+``--micro-batch`` is the global microbatch, each data row taking
+``micro_batch / (W/N)`` of it.  With ``--dp D`` too the world must be D·N.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --tp 2 --backend gloo
 """
 
 from __future__ import annotations
@@ -77,7 +86,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenStream
 from repro_torch.dist import sharding
 from repro_torch.elastic.reshard import place
-from repro_torch.launch.mesh import data_plan, join_world
+from repro_torch.launch.mesh import data_plan, join_world, make_plan, make_production_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
 from repro_torch.train import StepEngine, TrainState, init_state
@@ -245,14 +254,21 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--dp", type=int, default=0,
                     help="data-parallel ranks (under torchrun, a world of N)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel ranks: a (data W/N, model N) rung of the "
+                         "torchrun world's W ranks")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
-                    help="the process group's backend with --dp")
+                    help="the process group's backend with --dp or --tp")
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="profile the steps after the first with torch.profiler: a "
                          "Chrome trace to PATH, the ops by device time, the busy share")
     args = ap.parse_args(argv)
     plan = None
-    if args.dp:
+    if args.tp:
+        dev = join_world(args.backend, ranks=args.dp * args.tp if args.dp else None,
+                         device=args.device, command="repro_torch.launch.train_lm")
+        plan = make_plan(make_production_mesh(device=dev, tp=args.tp))
+    elif args.dp:
         dev = join_world(args.backend, ranks=args.dp, device=args.device,
                          command="repro_torch.launch.train_lm")
         plan = data_plan(dev)
@@ -266,7 +282,8 @@ def main(argv: list[str] | None = None) -> dict:
     if plan is not None:  # every rank draws the same weights and keeps its shard
         params = place(params, plan)
     log(f"model: {cfg.name} x {cfg.num_layers} layers, {n_params / 1e6:.1f}M params "
-        f"on {dev}" + (f", rank {dist.get_rank()} of {args.dp} ({args.backend})"
+        f"on {dev}" + (f", rank {dist.get_rank()} of {dist.get_world_size()} "
+                       f"{dict(plan.mesh.shape)} ({args.backend})"
                        if plan is not None else ""))
     program = make_program(args.method, m0=args.m0, m_max=args.m_max, delta=args.delta,
                            granule=args.micro_batch, lr=args.lr,

@@ -18,6 +18,15 @@ lanes and a microbatch's other sequences take slots like real tokens, as in
 the reference.  So the port and the reference (or the card and the CPU)
 agree only when both are handed the same padded batch.
 
+Tensor-parallel (``tp``, a ``dist.sharding.TensorParallel``, the training
+stack's on a tp plan): the experts hold the rank's ``ff/T`` columns; the
+router is replicated and routes alike on every tp rank (so ``MoE.stats``
+and the aux loss are equal across them), each rank runs the expert products
+on its columns, and the combined output is all-reduced over tp.  The
+experts' input and the combine weights pass ``copy_to_group`` (each rank's
+gradient there is its columns' part); the routing's own use of the input
+does not (its gradient is whole on every rank).
+
 ``MoE`` holds the parameters in the reference's layout: ``router`` a
 bias-free ``nn.Linear(d, E)`` kept in float32 whatever the model's type,
 ``w_gate`` and ``w_up`` ``(E, d, f)``, ``w_out`` ``(E, f, d)``, so
@@ -101,8 +110,8 @@ def _capacity(tokens_per_group: int, top_k: int, num_experts: int, factor: float
 
 
 def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, groups: int = 1, act: str = "silu"
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25, groups: int = 1, act: str = "silu",
+              tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(output shaped like x, the load-balance aux loss)`` for x (B, S, d)
     or (T, d) in the compute type.
 
@@ -115,7 +124,8 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     reference's sequential scatter-add).  The aux loss is Switch's ``E *
     sum_e f_e p_e``, ``f_e`` from each token's first expert, averaged over
     the groups.  ``params.stats``, when a dict, gains the call's counts
-    (``MoE``)."""
+    (``MoE``).  ``tp``: the experts are the rank's ``ff/T`` columns (the
+    module docstring)."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -141,7 +151,9 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     slot = torch.where(keep, pos, cap - 1)
     token_idx = torch.arange(tg, device=dev).repeat_interleave(top_k)
     g_idx = torch.arange(groups, device=dev)[:, None].expand(groups, tg * top_k)
-    x_assign = xg[:, token_idx] * keep[..., None].to(dt)
+    if tp is not None:
+        w_flat = tp.copy(w_flat)
+    x_assign = (xg if tp is None else tp.copy(xg))[:, token_idx] * keep[..., None].to(dt)
     buf = torch.zeros((groups, num_e, cap, d), dtype=dt, device=dev).index_put(
         (g_idx, e_flat, slot), x_assign, accumulate=True)
 
@@ -164,6 +176,8 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     y = y_assign[:, :, 0]
     for j in range(1, top_k):
         y = y + y_assign[:, :, j]
+    if tp is not None:
+        y = tp.reduce(y)
     return y.reshape(shape), aux.mean()
 
 

@@ -92,6 +92,37 @@ for its extent only (``_serving_layers``), and the embedding and the head
 through ``_whole``, so a sharded model never stands whole on a rank; an
 unsharded model takes the same path with no gather.
 
+Tensor-parallel training (a sharded state whose plan's tp axes span T > 1
+ranks; ``loss_fn`` asks ``_run_stack`` for it, outside ``torch.func``
+transforms): each block splits by ``dist.sharding.tp_split``, Megatron-style
+on the shards the specs give the rank (tp rank t of T):
+
+  * attention, when ``H % T == 0`` and ``KV % T == 0`` or ``T % KV == 0``:
+    query heads ``[t H/T, (t+1) H/T)`` from the rank's column shard of
+    ``q``; its ``KV/T`` KV heads from its ``k``/``v`` shards, or, when T
+    ranks share each KV head, head ``t // (T/KV)`` of ``k``/``v`` gathered
+    whole over tp (their gradient summed back over tp); replicated biases
+    (qwen2's) sliced by head after ``copy_to_group``; the attention on the
+    lane ``resolve_impl`` names at the local head counts (the three flash
+    kernels on the card); ``o`` row-parallel, then one all-reduce;
+  * a dense FFN, and a MoE FFN on ``moe_apply``, when ``ff % T == 0``: the
+    rank's ``ff/T`` columns (of every expert: the router stays replicated
+    and routes alike on every tp rank), then one all-reduce.
+
+``dist.plan.copy_to_group`` goes in front of each split sublayer's
+column-parallel products and ``reduce_from_group`` after its row-parallel
+ones.  The residual stream and the norms stay replicated over tp (no
+sequence parallelism).  What does not split computes whole on every tp
+rank from leaves gathered whole, as without tp: the Mamba mixers (their
+``in_proj`` shards the ``[x | z]`` halves, ``x_proj`` contracts
+``d_inner``), ``moe_impl="ep"`` (the experts' ``ff`` gathered), the
+embedding or frontend and the head (vocab-parallel cross-entropy is not
+ported), and attention where the heads do not divide (qwen2-7b and
+internvl2-1b at T 16).  ``tp_counts()`` counts, by kind, the sublayers
+the training stack ran split (``tp_split``) and whole (``tp_whole``) on a
+tp plan; ROADMAP.md Queue A 5 lists the whole ones as still to port.
+Serving gathers whole.
+
 Mamba mixers ('mamba', ``models/ssm.py``): ``Block`` holds a ``Mamba``
 in the attention's place, and the layer still runs its FFN (none when
 ``d_ff == 0``, falcon-mamba's case).  Training runs ``mamba_apply`` over
@@ -126,6 +157,27 @@ from repro_torch.models.layers import (ACTIVATIONS, apply_rope, dense, embed, in
 
 #: the mixers the port runs, in training and serving
 MIXERS = ("attn", "attn_local", "mamba")
+
+#: sublayers the training stack ran split over tp and whole on every tp
+#: rank, by kind (forward calls on a tp plan), since ``reset_tp_counts``
+_TP_COUNTS: dict[str, dict[str, int]] = {"tp_split": {}, "tp_whole": {}}
+
+
+def tp_counts() -> dict[str, dict[str, int]]:
+    """``{"tp_split": {kind: n}, "tp_whole": {kind: n}}`` since the last
+    :func:`reset_tp_counts`: one count per sublayer a forward of the
+    training stack ran on a tp plan (the remat recompute not counted)."""
+    return {k: dict(v) for k, v in _TP_COUNTS.items()}
+
+
+def reset_tp_counts() -> None:
+    for v in _TP_COUNTS.values():
+        v.clear()
+
+
+def _count_tp(key: str, kinds) -> None:
+    for kind in kinds:
+        _TP_COUNTS[key][kind] = _TP_COUNTS[key].get(kind, 0) + 1
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -316,44 +368,63 @@ def _self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, tp=None, split: str | None = None
+                   ) -> torch.Tensor:
+    """The attention sublayer on ``x`` (normed); ``split`` ("local" or
+    "shared", ``dist.sharding.TpSplit.attn``) computes rank ``tp.rank``'s
+    heads and all-reduces the row-parallel ``o`` over tp."""
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, ap, x, positions)
     window = cfg.window if kind == "attn_local" else None
+    if split is None:
+        q, k, v = _qkv(cfg, ap, x, positions)
+        out = _self_attention(cfg, q, k, v, window, cfg.causal)
+        return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
+    q, k, v = _qkv(cfg, ap, tp.copy(x), positions, tp, split)
     out = _self_attention(cfg, q, k, v, window, cfg.causal)
-    return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
+    return tp.reduce(dense(out.reshape(b, s, -1), ap.o.weight))
 
 
 def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
-                 positions: torch.Tensor, moe_groups: int, plan=None
+                 positions: torch.Tensor, moe_groups: int, plan=None, tp=None,
+                 split: sharding.TpSplit | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer: the pre-norm mixer (attention, or Mamba over chunks of
     ``cfg.ssm_chunk``), then the pre-norm FFN; ``(x, the layer's MoE aux
-    loss)`` (None without a MoE FFN)."""
+    loss)`` (None without a MoE FFN).  ``tp``/``split``: the sublayers
+    ``split`` names run split over tp (``dist.sharding.TensorParallel``)."""
     h = blk.norm(x)
     if kind == "mamba":
         x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
     else:
-        x = x + _attn_sublayer(cfg, blk.attn, h, kind, positions)
-    return _ffn(cfg, blk, x, moe_groups, plan)
+        x = x + _attn_sublayer(cfg, blk.attn, h, kind, positions, tp,
+                               split.attn if split is not None else None)
+    return _ffn(cfg, blk, x, moe_groups, plan, tp, split.ffn if split is not None else None)
 
 
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
-               positions: torch.Tensor, moe_groups: int = 1
+               positions: torch.Tensor, moe_groups: int = 1, split_tp: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer in order; ``(x, moe_aux)``, the aux loss summed over the
     layers.  Under ``cfg.remat`` each layer is checkpointed where gradients
     are on, outside ``torch.func`` transforms: only its input is kept, and
-    the backward runs its forward again."""
+    the backward runs its forward again.  ``split_tp`` (the training
+    stack's): on a sharded state whose plan spans several tp ranks, outside
+    ``torch.func`` transforms, each block splits by
+    ``dist.sharding.tp_split`` (the module docstring)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt = cfg.remat and torch.is_grad_enabled() and not in_func_transform()
     layout = sharding.layout_of(params)
     # read here, not in the layer: the recompute under remat runs in the
     # backward, on the autograd engine's thread, outside any use_plan
     plan = current_plan()
+    tp = sharding.tensor_parallel(layout) if split_tp and not in_func_transform() else None
     for r, p, blk in _layers(cfg, params):
+        split = sharding.tp_split(cfg, p, layout.plan) if tp is not None else None
+        if split is not None:
+            _count_tp("tp_split", (["attn"] if split.attn else []) + [split.ffn] * bool(split.ffn))
+            _count_tp("tp_whole", split.whole)
         args = (cfg, cfg.pattern[p], blk, x, positions, moe_groups, layout,
-                f"blocks.{r * cfg.period + p}.", plan)
+                f"blocks.{r * cfg.period + p}.", plan, tp, split)
         if ckpt:
             # the forward draws no random numbers: no RNG state to replay
             x, a = checkpoint(_gathered_block, *args, use_reentrant=False,
@@ -366,11 +437,13 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
 
 
 def _gathered_block(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
-                    positions: torch.Tensor, moe_groups: int, layout, prefix: str, plan):
+                    positions: torch.Tensor, moe_groups: int, layout, prefix: str, plan,
+                    tp=None, split=None):
     """``_block_apply`` on the block's parameters gathered whole (a sharded
-    state; as they are otherwise)."""
-    with sharding.gathered(blk, layout, prefix):
-        return _block_apply(cfg, kind, blk, x, positions, moe_groups, plan)
+    state; as they are otherwise), but for the leaves ``split`` keeps on
+    the rank."""
+    with sharding.gathered(blk, layout, prefix, split=split):
+        return _block_apply(cfg, kind, blk, x, positions, moe_groups, plan, tp, split)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +548,10 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups: int 
     ``moe_groups`` groups of the batch's tokens."""
     x = _embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux = _run_stack(cfg, params, x, positions, moe_groups)
+    if sharding.tensor_parallel(sharding.layout_of(params)) is not None \
+            and not in_func_transform():
+        _count_tp("tp_whole", ("embed" if cfg.input_mode == "tokens" else "frontend", "head"))
+    x, aux = _run_stack(cfg, params, x, positions, moe_groups, split_tp=True)
     x = params.final_norm(x)
     loss = xent_chunked(x, _whole(params, "lm_head.weight"), batch["targets"],
                         cfg.xent_chunk, cfg.final_softcap)
@@ -638,25 +714,63 @@ def _write_state(entry: dict, r: int, state: dict) -> None:
     entry["conv"][r].copy_(state["conv"])
 
 
-def _qkv(cfg: ModelConfig, ap: Attention, h: torch.Tensor, positions: torch.Tensor):
+def tp_heads(cfg: ModelConfig, tp, split: str | None) -> tuple[int, int, int, int]:
+    """``(first query head, query heads, first KV head, KV heads)`` that
+    tp rank ``tp.rank`` computes under ``split`` ("local", "shared"; None:
+    every head)."""
+    if split is None:
+        return 0, cfg.num_heads, 0, cfg.num_kv_heads
+    t, n = tp.rank, tp.size
+    hq = cfg.num_heads // n
+    if split == "local":
+        hk = cfg.num_kv_heads // n
+        return t * hq, hq, t * hk, hk
+    return t * hq, hq, t // (n // cfg.num_kv_heads), 1
+
+
+def _rows(w: torch.Tensor | None, lo: int, n: int, hd: int) -> torch.Tensor | None:
+    """Heads ``[lo, lo + n)`` of a projection's weight or bias (``hd``
+    rows a head)."""
+    return None if w is None else w.narrow(0, lo * hd, n * hd)
+
+
+def _qkv(cfg: ModelConfig, ap: Attention, h: torch.Tensor, positions: torch.Tensor,
+         tp=None, split: str | None = None):
+    """q, k, v with RoPE, (B, S, heads, hd): every head, or under ``split``
+    tp rank ``tp.rank``'s (``tp_heads``) from its resident shards of ``q``
+    (and of ``k``/``v`` when "local"; the KV head it shares sliced from the
+    whole ``k``/``v`` when "shared") and its heads' rows of the biases."""
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
-    q = dense(h, ap.q.weight, ap.q.bias).reshape(b, s, cfg.num_heads, hd)
-    k = dense(h, ap.k.weight, ap.k.bias).reshape(b, s, cfg.num_kv_heads, hd)
-    v = dense(h, ap.v.weight, ap.v.bias).reshape(b, s, cfg.num_kv_heads, hd)
+    q0, hq, k0, hk = tp_heads(cfg, tp, split)
+
+    def proj(lin, lo: int, n: int, whole_weight: bool) -> torch.Tensor:
+        w, bias = lin.weight, lin.bias
+        if split is not None:  # the bias is replicated: this rank's heads of it
+            bias = _rows(bias, lo, n, hd)
+            w = _rows(w, lo, n, hd) if whole_weight else w
+        return dense(h, w, bias).reshape(b, s, n, hd)
+
+    q = proj(ap.q, q0, hq, False)
+    k = proj(ap.k, k0, hk, split == "shared")
+    v = proj(ap.v, k0, hk, split == "shared")
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=None
-         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=None,
+         tp=None, split: str | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The pre-norm FFN sublayer: ``(x + ffn(norm(x)), the MoE aux loss)``
     (None for a dense FFN or none).  ``plan`` is the training stack's
-    plan (``moe_impl="ep"`` routes over its expert ranks)."""
+    plan (``moe_impl="ep"`` routes over its expert ranks); ``split``
+    ("dense" or "moe") runs tp rank ``tp.rank``'s ``ff/T`` columns and
+    all-reduces the output over tp."""
     if blk.ffn is None:
         return x, None
     h = blk.ffn_norm(x)
     if not isinstance(blk.ffn, MoE):
+        if split == "dense":
+            return x + tp.reduce(blk.ffn(tp.copy(h))), None
         return x + blk.ffn(h), None
     if cfg.moe_impl == "ep" and expert_parallel(plan) and not in_func_transform():
         y, aux = moe_apply_ep(blk.ffn, h, top_k=cfg.top_k,
@@ -664,7 +778,8 @@ def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=No
                               mesh=plan.mesh, ep_axes=plan.ep)
         return x + y, aux
     y, aux = moe_apply(blk.ffn, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       groups=moe_groups, act=cfg.ffn_act)
+                       groups=moe_groups, act=cfg.ffn_act,
+                       tp=tp if split == "moe" else None)
     return x + y, aux
 
 

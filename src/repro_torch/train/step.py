@@ -59,6 +59,15 @@ without sharding.  Under ``cfg.moe_impl == "ep"`` the experts stay on
 their ranks and the tokens travel (``models/moe_ep.py``); the loss runs
 under ``use_plan(plan)`` so the MoE FFN sees the plan.
 
+Tensor-parallel compute: on a sharded state whose plan's tp axes span
+several ranks, the LM loss splits each block's attention heads and FFN
+widths over them (``models/transformer.py``); the gradients come out as
+the rank's shards and the reductions above are unchanged (tp is not a
+data axis: no mean over it).  The gram tier's probe pass splits likewise,
+and each microbatch's per-sample norms are summed over tp once
+(``probes.tp_sum``).  The exact tier's main pass splits like the moment
+tier's; its vmap pass runs on the parameters gathered whole, unsplit.
+
 MoE models (``moe_groups``): the LM loss routes each microbatch's tokens in
 ``moe_groups`` groups.  Under a rank plan a rank holds ``1/dp`` of each
 microbatch, a whole number of the reference's groups when ``dp`` divides
@@ -81,7 +90,7 @@ from repro_torch.dist.plan import ShardingPlan, all_reduce_mean, use_plan
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.moe_ep import expert_parallel
-from repro_torch.models.probes import probe_grads
+from repro_torch.models.probes import probe_grads, tp_sum
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.train.state import TrainState
 from repro_torch.utils import pytree as ptu
@@ -236,12 +245,13 @@ def make_train_step(
 
     def _probe_sq_norms(params, mb: dict, *, bias: bool) -> torch.Tensor:
         """One probe-gradient pass -> the summed per-sample sq-norms through
-        the psgn kernels (same-shape layers fused into one launch)."""
+        the psgn kernels (same-shape layers fused into one launch); on a tp
+        plan each rank's layers' part, summed over tp (``probes.tp_sum``)."""
         bsz = next(iter(mb.values())).shape[0]
-        with planned():
+        with planned():  # the probes take the plan's tp widths
             _, acts, pgrads = probe_grads(probe_loss, params, probe_specs(params, bsz), mb)
-        return kernel_ops.persample_sq_norm_tree(acts, pgrads, scale=float(bsz),
-                                                 bias=bias).sum()
+        norms = kernel_ops.persample_sq_norm_tree(acts, pgrads, scale=float(bsz), bias=bias)
+        return tp_sum(params, norms, bsz, next(iter(mb.values())).device).sum()
 
     def _vmap_sq_norms(params, mb: dict) -> torch.Tensor:
         """The exact tier's vmap path, ``psn_chunk`` samples at a time."""

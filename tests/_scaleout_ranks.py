@@ -813,18 +813,273 @@ def dryrun_collectives(a: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel compute (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def tp_batch(cfg, seed: int, step: int, n: int) -> dict:
+    """Step ``step``'s batch of ``n`` sequences of ``SEQ``: tokens from
+    ``TokenStream``, or for an embedding-input config N(0, 1) frames and
+    uniform targets from ``numpy.random.default_rng((seed, step))``."""
+    if cfg.input_mode == "tokens":
+        from repro_torch.data import TokenStream
+
+        return TokenStream(cfg.vocab_size, seed=seed).batch(step, n, SEQ)
+    r = np.random.default_rng((seed, step))
+    return {"embeddings": r.standard_normal((n, SEQ, cfg.d_model), dtype=np.float32),
+            "targets": r.integers(0, cfg.vocab_size, size=(n, SEQ)).astype(np.int32)}
+
+
+class SplitSpy:
+    """Records, while active, the head counts ``(query, KV)`` that
+    ``transformer._self_attention`` sees, the hidden widths of the dense
+    FFNs' products and the experts' widths ``moe_apply`` runs, and the
+    result bytes of the all-gathers issued inside block entries."""
+
+    def __init__(self):
+        self.heads, self.ffn, self.moe = set(), set(), set()
+        self.block_gather_bytes = 0
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        self.saved = (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block)
+        attn, ffn_fwd, moe, block = self.saved
+        inside = [False]
+
+        def spy_attn(cfg, q, k, v, *args):
+            self.heads.add((q.shape[2], k.shape[2]))
+            return attn(cfg, q, k, v, *args)
+
+        def spy_ffn(mod, x):
+            self.ffn.add((mod.w_up if mod.glu else mod.w_in).weight.shape[0])
+            return ffn_fwd(mod, x)
+
+        def spy_moe(params, x, **kw):
+            self.moe.add(params.w_gate.shape[-1])
+            return moe(params, x, **kw)
+
+        def spy_block(*args):
+            inside[0] = True
+            try:
+                return block(*args)
+            finally:
+                inside[0] = False
+
+        def record(kind, operand, result, ranks):
+            if kind == "all-gather" and inside[0]:
+                self.block_gather_bytes += result
+
+        from repro_torch.dist.plan import record_collectives
+
+        self.recording = record_collectives(record)
+        self.recording.__enter__()
+        tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block = (
+            spy_attn, spy_ffn, spy_moe, spy_block)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+
+        tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block = self.saved
+        self.recording.__exit__(*exc)
+
+
+def block_gather_reckoning(cfg, model) -> int:
+    """The bytes a forward's block entries gather on this rank, from the
+    layout and ``tp_split``: each leaf over its sharded dims' axes, round by
+    round in mesh order (a round's result is the leaf whole over the axes
+    so far), but for the tp dim a split block keeps resident."""
+    from repro_torch.dist import sharding
+
+    layout = sharding.layout_of(model)
+    size = {n: p.element_size() for n, p in model.named_parameters()}
+    total = 0
+    for leaf in layout.leaves:
+        if not leaf.name.startswith("blocks."):
+            continue
+        _, i, name = leaf.name.split(".", 2)
+        split = sharding.tp_split(cfg, int(i) % cfg.period, layout.plan)
+        keep = layout.resident(leaf, split.role(name))
+        n = math.prod(layout.local_shape(leaf.name)) * size[leaf.name]
+        for d, axes in sorted((e for e in leaf.dims if e not in keep),
+                              key=lambda e: [layout.mesh.axis_names.index(a) for a in e[1]]):
+            n *= layout.plan.axis_size(axes)
+            total += n
+    return total
+
+
+def tp_train(a: dict) -> dict:
+    """Each case of ``a["cases"]`` on its rung ``case["shape"]`` (``(data,
+    model)``), its blocks split over the model axis: the model from the
+    reference weights ``a[case["params"]]``, placed sharded, then steps of
+    ``make_train_step`` at ``case["lr"]`` (or, with ``program``, of
+    ``StepEngine.for_lm`` under :func:`lm_program`), under a
+    :class:`SplitSpy`; then one forward's block gathers beside their
+    reckoning."""
+    from repro_torch import adapt
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import use_plan
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import probes
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe import MoE
+    from repro_torch.optim import sgd
+    from repro_torch.train import StepEngine, init_state, make_train_step
+
+    plans, out = {}, {}
+    for case in a["cases"]:
+        shape = tuple(case["shape"])
+        if shape not in plans:  # every rank builds the meshes in the same order
+            plans[shape] = rung_plan(shape)
+        plan = plans[shape]
+        cfg = get_config(case["arch"], reduced=True).replace(**case.get("extra", {}))
+        opt = sgd(momentum=0.9)
+        state = init_state(place(params_from_jax(a[case["params"]], cfg), plan), opt)
+        layout = sharding.layout_of(state.params)
+        tier = case.get("tier", "moment")
+        kw = {}
+        if tier == "gram":
+            kw = dict(probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+                      probe_specs=lambda p, n: probes.probe_specs(cfg, n, SEQ, device="cpu"))
+        rec = {"loss": [], "sq_norm_sum": [], "batch": [], "diversity": [],
+               "held": sum(p.numel() for p in state.params.parameters()),
+               "reckoned": layout.numel()}
+        tf.reset_tp_counts()
+        with SplitSpy() as spy:
+            if case.get("program"):
+                eng = StepEngine.for_lm(cfg, opt, micro_batch=4, dp_size=plan.dp_size,
+                                        plan=plan, attn_impl="pallas")
+                program = lm_program(adapt)
+                m = program.batch_size
+                for step in range(6):
+                    state, metrics = eng.step(state, tp_batch(cfg, case["seed"], step, m), 0.1)
+                    rec["loss"].append(float(metrics["loss"]))
+                    rec["batch"].append(m)
+                    if step in (2, 5):
+                        sig, state = adapt.read_signals(state, "moment", reset=True,
+                                                        batch_size=m)
+                        program.observe(sig, adapt.Clock(epoch=step // 3, step=step + 1,
+                                                         boundary="tick"))
+                        rec["diversity"].append(sig.diversity)
+                        m = program.batch_size
+                rec["buckets"] = list(eng.stats.buckets)
+            else:
+                step = make_train_step(cfg, opt, 2, plan=plan, estimator=tier,
+                                       moe_groups=case.get("moe_groups", 1), **kw)
+                for i in range(case.get("steps", 3)):
+                    state, metrics = step(state, tp_batch(cfg, case["seed"], i, 8),
+                                          case.get("lr", 0.1))
+                    rec["loss"].append(float(metrics["loss"]))
+                    rec["sq_norm_sum"].append(state.div_state.sq_norm_sum.item())
+            rec["tp_counts"] = tf.tp_counts()
+            spy.block_gather_bytes = 0
+            batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 0, 0, 2).items()}
+            moes = [m for m in state.params.modules() if isinstance(m, MoE)]
+            for m in moes:
+                m.stats = {}
+            with torch.no_grad(), use_plan(plan):
+                tf.loss_fn(cfg, state.params, batch)
+            rec["moe_stats"] = [(int(m.stats["dropped"]), int(m.stats["first_top"]))
+                                for m in moes]
+            for m in moes:
+                m.stats = None
+        rec.update(heads=sorted(spy.heads), ffn=sorted(spy.ffn), moe=sorted(spy.moe),
+                   block_gather_bytes=spy.block_gather_bytes,
+                   block_gather_reckoned=block_gather_reckoning(cfg, state.params),
+                   params=_whole_numpy(state.params))
+        out[case["name"]] = rec
+    return out
+
+
+def tp_grads(a: dict) -> dict:
+    """Reduced qwen2-7b on ``a["shape"]`` (4 tp ranks: each KV head shared
+    by two, the biases replicated): the gradients of one microbatch's loss,
+    gathered whole, against the whole model's on this process, with the
+    k/v and bias gradients summed over the model group, and again with the
+    gather's slice-own rule (no sum: what ``_GatherShards`` did for every
+    non-data axis before tensor-parallel compute).  Max relative errors by
+    leaf kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import use_plan
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+
+    plan = rung_plan(tuple(a["shape"]))
+    cfg = get_config("qwen2-7b", reduced=True)
+    batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 3, 0, 2).items()}
+    whole = params_from_jax(a["qwen2"], cfg).requires_grad_(True)
+    names = [n for n, _ in whole.named_parameters()]
+    want = dict(zip(names, torch.autograd.grad(tf.loss_fn(cfg, whole, batch)[0],
+                                               list(whole.parameters()))))
+    model = place(params_from_jax(a["qwen2"], cfg), plan).requires_grad_(True)
+    layout = sharding.layout_of(model)
+
+    def errors() -> dict:
+        with use_plan(plan):
+            grads = torch.autograd.grad(tf.loss_fn(cfg, model, batch)[0],
+                                        list(model.parameters()))
+        grads = layout.finish_grads(grads)
+        err: dict = {}
+        for n, g in zip(names, grads):
+            kind = ("kv" if n.endswith(("attn.k.weight", "attn.v.weight")) else
+                    "bias" if n.endswith("bias") else "other")
+            g = layout.unshard(n, g)
+            e = float((g - want[n]).abs().max() / want[n].abs().max())
+            err[kind] = max(err.get(kind, 0.0), e)
+        return err
+
+    out = {"summed": errors(), "split": sharding.tp_split(cfg, 0, plan).attn}
+    role = sharding.TpSplit.role
+    sharding.TpSplit.role = lambda self, name: None if role(self, name) == "partial" \
+        else role(self, name)
+    try:
+        out["slice_own"] = errors()
+    finally:
+        sharding.TpSplit.role = role
+    return out
+
+
+def tp_gradcheck(a: dict) -> dict:
+    """``gradcheck`` in float64 of ``copy_to_group`` then a rank's own
+    linear map then ``reduce_from_group`` over the model axis of each rung
+    of ``a["shapes"]`` (the composite's Jacobian is the sum of the ranks'
+    maps on every rank when each collective's backward is its adjoint)."""
+    from repro_torch.dist.plan import copy_to_group, reduce_from_group
+
+    out = {}
+    for shape in a["shapes"]:
+        mesh = rung_plan(tuple(shape)).mesh
+        r = np.random.default_rng(dist.get_rank())
+        mine = torch.from_numpy(r.standard_normal((3, 4)))
+        z = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3))).requires_grad_(True)
+
+        def fn(z):
+            return reduce_from_group(copy_to_group(z, mesh, "model") @ mine, mesh, "model")
+
+        out["x".join(map(str, shape))] = bool(torch.autograd.gradcheck(fn, (z,), eps=1e-6,
+                                                                       atol=1e-8))
+    return out
+
+
 JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_moe,
         "pod": pod, "cli": cli, "pod_mean": pod_mean, "sharded_train": sharded_train,
         "sharded_collectives": sharded_collectives, "sharded_ckpt": sharded_ckpt,
         "sharded_restore": sharded_restore, "moe_ep": moe_ep,
         "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli,
-        "dryrun_collectives": dryrun_collectives}
+        "dryrun_collectives": dryrun_collectives, "tp_train": tp_train, "tp_grads": tp_grads,
+        "tp_gradcheck": tp_gradcheck}
 
 
-def spawn_ranks(tmp_path, job: str, args: dict, world: int, deadline_s: float = 240) -> dict:
-    """Run ``job`` on ``world`` gloo ranks (spawned, meeting through a
-    ``FileStore`` in ``tmp_path``); ``{rank: result}``.  Kills the ranks and
-    fails past the deadline or on any rank's error."""
+def start_ranks(tmp_path, job: str, args: dict, world: int):
+    """Start ``job`` on ``world`` gloo ranks (spawned, meeting through a
+    ``FileStore`` in ``tmp_path``) and return at once; :func:`collect`
+    waits for them."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -834,6 +1089,20 @@ def spawn_ranks(tmp_path, job: str, args: dict, world: int, deadline_s: float = 
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs, queue
+
+
+def spawn_ranks(tmp_path, job: str, args: dict, world: int, deadline_s: float = 240) -> dict:
+    """Run ``job`` on ``world`` gloo ranks (spawned, meeting through a
+    ``FileStore`` in ``tmp_path``); ``{rank: result}``.  Kills the ranks and
+    fails past the deadline or on any rank's error."""
+    return collect(start_ranks(tmp_path, job, args, world), deadline_s)
+
+
+def collect(started, deadline_s: float = 240) -> dict:
+    """``{rank: result}`` of :func:`start_ranks`' ranks; kills them and
+    fails past the deadline or on any rank's error."""
+    procs, queue = started
     try:
         results = dict(queue.get(timeout=deadline_s) for _ in procs)
         for p in procs:

@@ -23,6 +23,11 @@ reference's, on the CPU.
     autograd sums the two first; XLA rewrites the scan's outer product (a
     contraction of size 1) into an elementwise multiply, which a count of
     dots leaves out;
+  * tensor-parallel compute: ``dist.sharding.tp_split`` for the ten full
+    configs at T 16, one case per config; and on a fake ``(data 1, model
+    4)`` world rank 0's traced FLOPs for a reduced yi-6b train microbatch
+    equal the split layers' count divided by 4, plus the whole head and
+    the replicated-KV terms (two ranks share each KV head), exactly;
   * the reference's mini dry run (``tests/test_dryrun_mini.py``) on a
     ``(2, 2, 2)`` plan in a fake world of 8: reduced qwen2-7b, kimi-k2 and
     jamba train, yi-6b decode; FLOPs and peak above 0, collectives for
@@ -63,6 +68,7 @@ from repro.utils.hlo import HloProgram, analyze_hlo
 from repro_torch.configs import (ARCH_NAMES, ENCODER_ONLY_ARCHS, FULL_ATTENTION_ARCHS, SHAPES,
                                  cell_supported, get_config, input_specs)
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.dist import sharding
 from repro_torch.dist.plan import ShardingPlan, abstract_mesh
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as lmesh
@@ -293,6 +299,65 @@ def test_decode_and_prefill_flops_match_reference_hlo():
         .compile().as_text()
     assert dryrun.trace_prefill(cfg, None, 2, 64)["analysis"]["flops"] == \
         analyze_hlo(text)["flops"]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute
+# ---------------------------------------------------------------------------
+
+# (attention, FFN, whole) of each pattern position's tp_split at T 16
+TP16 = {
+    "yi-6b": {("shared", "dense", ())},
+    "qwen2-7b": {(None, "dense", ("attn",))},  # 28 heads
+    "llama3-405b": {("shared", "dense", ())},
+    "gemma2-27b": {("local", "dense", ())},
+    "internvl2-1b": {(None, "dense", ("attn",))},  # 14 heads
+    "dbrx-132b": {("shared", "moe", ())},
+    "kimi-k2-1t-a32b": {("shared", "moe", ())},
+    "falcon-mamba-7b": {(None, None, ("mamba",))},
+    "jamba-v0.1-52b": {("shared", "dense", ()), (None, "moe", ("mamba",)),
+                       (None, "dense", ("mamba",))},
+    "hubert-xlarge": {("local", "dense", ())},
+}
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_tp_split_of_the_full_configs_at_16(arch):
+    cfg = get_config(arch)
+    plan = ShardingPlan(mesh=abstract_mesh((16, 16), ("data", "model")))
+    got = {sharding.tp_split(cfg, p, plan) for p in range(cfg.period)}
+    assert {(s.attn, s.ffn, s.whole) for s in got} == TP16[arch]
+    assert all(s.size == 16 for s in got)
+    assert sharding.tp_split(cfg, 0, ShardingPlan(mesh=abstract_mesh((16, 1), (
+        "data", "model")))) == sharding.TpSplit(1)
+    if cfg.moe_impl != "ep" and cfg.num_experts:  # moe_impl="ep" over 16 expert ranks: whole
+        pos = next(p for p in range(cfg.period) if cfg.ffn_kind(p) == "moe")
+        ep = sharding.tp_split(cfg.replace(moe_impl="ep"), pos, plan)
+        assert ep.ffn is None and "moe_ep" in ep.whole
+
+
+def test_tp_trace_flops_split_over_the_model_axis():
+    """Reduced yi-6b (4 query heads over 2 KV heads) on 4 tp ranks: each
+    rank one query head and the KV head it shares with one other rank."""
+    b, s = 2, 64
+    cfg = get_config("yi-6b", reduced=True).replace(remat=True)
+
+    def flops(layers, plan=None):
+        return dryrun.trace_train(cfg.replace(num_layers=layers), plan, b, s, 1,
+                                  torch.float32)["analysis"]["flops"]
+
+    one, two = flops(1), flops(2)
+    layer, rest = two - one, 2 * one - two  # a layer's and the embedding's and head's
+    # k and v: forward, remat recompute, dx, dW, at every KV head on one device
+    kv = 4 * 2 * (2 * b * s * cfg.d_model * cfg.num_kv_heads * cfg.resolved_head_dim)
+    with dryrun.fake_world(4):
+        mesh = dryrun.rank_mesh((1, 4), ("data", "model"))
+        plan = ShardingPlan(mesh=mesh, dp=("data",), fsdp=("data",), tp="model", ep=("data",))
+        assert sharding.tp_split(cfg, 0, plan) == sharding.TpSplit(4, "shared", "dense")
+        got = flops(2, plan)
+    # a rank computes 1 of the 2 KV heads: kv / 2 = kv / 4 (its share) + kv / 4
+    assert layer % 4 == 0 and kv % 4 == 0
+    assert got == rest + 2 * (layer // 4 + kv // 4)
 
 
 # ---------------------------------------------------------------------------

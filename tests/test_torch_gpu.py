@@ -381,6 +381,40 @@ def test_tc_forward_and_dkv_at_new_forms(cuda, case):
         torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("case", [
+    # b, s, h, kv, hd, window, softcap, causal: a tp rank's heads
+    (2, 512, 16, 2, 128, None, None, True),    # Yi-6B at T 2 (32/4 heads)
+    (2, 512, 2, 1, 128, None, None, True),     # Yi-6B at T 16 (the KV head shared by 4)
+    (1, 512, 16, 8, 128, 128, 50.0, True),     # gemma2-27b at T 2, window and softcap
+    (2, 512, 8, 8, 80, None, None, False),     # hubert-xlarge at T 2, non-causal
+], ids=["yi-t2", "yi-t16", "gemma2-t2", "hubert-t2"])
+def test_flash_kernels_at_the_tensor_parallel_head_counts(cuda, case):
+    """The chunk forward, dq and dk/dv in bf16 at the head counts a tensor-
+    parallel rank of the full configs runs, against their plain versions
+    (out and lse at TOL, dq, dk and dv at FLASH_TOL), all three on the
+    tensor cores."""
+    b, s, h, kv, hd, window, softcap, causal = case
+    r = np.random.default_rng(s + h * 3 + kv)
+    kernels.reset_launch_counts()
+    q, k, v, dout, out, lse = _flash_case(r, cuda, torch.bfloat16, b, s, h, kv, hd, window,
+                                          softcap, causal)
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    pos = torch.arange(s, device=cuda)
+    want_out, want_lse = ref.attention_ref_lse(q, k, v, pos, pos, torch.ones_like(pos), **kw)
+    _close(out, want_out, torch.bfloat16)
+    _close(lse, want_lse, torch.bfloat16)
+    delta = ref.flash_delta(out, dout)
+    dq = kattn.flash_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(kernels.route_counts()[n] == {"tc": 1, "fma": 0} for n in kattn.ROUTED)
+    want = ref.flash_backward_ref(q, k, v, out, lse, dout, **kw)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    for got, exp in zip((dq, dk, dv), want):
+        assert got.shape == exp.shape
+        torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("hd", [80, 112])
 def test_tc_chunk_forward_with_sentinel_keys_and_padded_rows(cuda, hd, causal):
