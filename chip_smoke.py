@@ -458,7 +458,31 @@ MB L2.
      their grouping gives; ``tp_counts`` every attention and dense FFN
      split, the embedding and head whole; per step its ms, the tensor-
      parallel all-reduces (calls, GB), the collectives by kind beside
-     phase 25's block gathers, and each rank's peak beside phase 25's.
+     phase 25's block gathers, and each rank's peak beside phase 25's;
+ 31. tensor-parallel serving on ranks, run within phase 28's gloo world
+     (one spawn less) and reported after phase 30: phase 4's model (Yi-6B,
+     all 32 layers, bf16, the same seeded weights), engine settings and
+     trace on a ``(data 1, model 2)`` rung of the 2 gloo ranks sharing the
+     card, served under ``use_plan``: each rank computes its 16 query heads
+     over its 2 KV heads, its 5504 FFN columns, its 2048 embedding columns
+     and its 32000 logits (two all-reduces a layer, an all-gather each for
+     the embedding and the logits), and its pool holds its 2 KV heads.
+     Phase 3 holds both kernels at these head counts first (records
+     ``chunk_attention (tp rank: 16/2 heads, serving)`` and
+     ``paged_decode_attention (tp rank: 16/2 heads)``, rows 1f and 4e).
+     Against phase 4's one-process run: the tokens equal up to each
+     request's first near-tie (phase 4's top two logits within 4 bf16 ulps
+     of the top one; the request, token and gap printed), the first
+     tokens' logits within 0.1
+     of their largest magnitude (their RMS gap printed), each rank's pool
+     exactly half of phase 4's bytes, each rank's parameters equal to the
+     specs' reckoning; the kernels seeing 16/2 heads; exactly 32 chunk
+     launches a chunk and 32 paged-decode launches a decode step;
+     ``tp_counts`` every attention, dense FFN, embedding and head split.
+     Printed: decode step and chunk ms beside phase 4's and phase 28's,
+     the collectives of a step by kind (tp all-reduces, the embedding and
+     logit all-gathers, tokens, the policy), calls, MB and ms, the pool
+     and each rank's peak.
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -481,9 +505,10 @@ records phase 19b's serving path, the jamba records phase 21c's, the
 other records
 the causal paths (phases 4, 6, 8, 10, 12, 16's pod cell on both
 ranks, 23a, 25's sharded training, gram step and dbrx step on both
-ranks, and 30's tensor-parallel training and gram steps on both ranks), and
-phases 27 and 28 (rows 1 and 4: the local ladder, and both
-ranks of the rank ladder).
+ranks, 30's tensor-parallel training and gram steps on both ranks, and
+31's tensor-parallel serving on both ranks), and phases 27 and 28 (rows 1
+and 4: the local ladder, and both ranks of the rank ladder); the tp
+serving records (rows 1f, 4e) count phase 31's path.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  A record's ``ms`` is CUDA events
@@ -537,6 +562,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.pod import PodLadder  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import padded_prompt_len  # noqa: E402
 from repro_torch.train import StepEngine, init_state, lm_bucket_of  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
 from repro_torch.train.loop import ModelFns, Trainer  # noqa: E402
@@ -1853,7 +1879,8 @@ def kernels_phase() -> list[dict]:
             quant_case(name, x)
     records = [chunk_kernel_record(r), decode_kernel_record(r), *flash_kernel_records(r),
                *encoder_attention_records(r), *psgn_kernel_records(r), quant_kernel_record(),
-               *dense_kernel_records(r), *moe_kernel_records(r), *mamba_kernel_records(r)]
+               *dense_kernel_records(r), *moe_kernel_records(r), *mamba_kernel_records(r),
+               *tp_serve_kernel_records(r)]
     torch.cuda.empty_cache()
     for rec in records:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
@@ -1880,20 +1907,83 @@ def slice_requests(vocab: int, seed: int = 0):
     return [Request(prompt=p.astype(np.int32), max_new_tokens=32) for p in reqs]
 
 
-def pool_gib(engine: ServeEngine) -> float:
+def pool_bytes(engine: ServeEngine) -> int:
     return sum(x.numel() * x.element_size() for leaf in engine._pages.values()
-               for x in leaf.values()) / 2**30
+               for x in leaf.values())
 
 
-def serve_checked(cfg, params, reqs, **engine_kw) -> dict:
+def pool_gib(engine: ServeEngine) -> float:
+    return pool_bytes(engine) / 2**30
+
+
+#: phase 4's engine settings, which phase 31 serves at on its ranks
+SLICE_KW = dict(max_slots=8, max_seq=2048, block_size=16, prompt_granule=16,
+                prefill_chunk=256, prefix_sharing=True)
+#: phase 31's one-process reference (phase 4's run) and its ranks' results
+PHASE31: dict = {}
+
+
+def slice_trace(engine: ServeEngine, reqs, step) -> list[int]:
+    """Phase 4's arrivals: all but the last request up front, the last once
+    the one before it decodes (its prompt is registered by then, so a
+    prompt sharing its prefix, or repeating it, adopts its blocks);
+    ``step()`` advances the engine and says whether work remains.  Returns
+    the request ids in submit order."""
+    rids = [engine.submit(q) for q in reqs[:-1]]
+    sharer = rids[-1]
+    while sharer not in {rid for _, rid in engine.sched.running_slots()}:
+        step()
+    rids.append(engine.submit(reqs[-1]))
+    while step():
+        pass
+    return rids
+
+
+def record_samples(engine: ServeEngine, into: dict) -> None:
+    """Wrap ``engine._sample`` to keep, per (request, position), the gap
+    between the top two logits (kept on the card, ``sample_gaps`` reads
+    them; a rank samples the rows it speaks for), and ``_finish_job`` to
+    keep each prefilled request's first logits (the prompt's last
+    position; every rank computes them)."""
+    sample_fn, finish_fn = engine._sample, engine._finish_job
+    into.update(gaps=[], first={})
+
+    def sample(logits, rids, pos):
+        top = torch.topk(logits[:, -1, :].float(), 2, dim=-1).values
+        into["gaps"].append(([int(x) for x in rids], [int(x) for x in pos], top))
+        return sample_fn(logits, rids, pos)
+
+    def finish(job, tok, logits):
+        into["first"][job.rid] = logits[0, -1].float().cpu().numpy()
+        return finish_fn(job, tok, logits)
+
+    engine._sample, engine._finish_job = sample, finish
+
+
+def sample_gaps(rec: dict) -> dict[tuple[int, int], tuple[float, float]]:
+    """``{(request id, position): (top logit, top-two gap in bf16 ulps of
+    the top logit)}`` of ``record_samples``: the logits are bf16 products
+    cast to float32, so a gap of a few ulps is what two summation orders
+    can turn over."""
+    out = {}
+    for rids, pos, top in rec["gaps"]:
+        for rid, p, (a, b) in zip(rids, pos, top.cpu().tolist()):
+            if rid >= 0:
+                ulp = 2.0 ** (math.floor(math.log2(abs(a))) - 7) if a else 2.0 ** -133
+                out[(rid, p)] = (a, (a - b) / ulp)
+    return out
+
+
+def serve_checked(cfg, params, reqs, samples: dict | None = None, **engine_kw) -> dict:
     """Serve ``reqs`` on the card through ``ServeEngine(cfg, params,
-    **engine_kw)``: all but the last up front, the last once the one before
-    it decodes (its prompt is registered by then, so a prompt sharing its
-    prefix, or repeating it, adopts its blocks).  The launch counts are set
+    **engine_kw)`` in ``slice_trace``'s order.  The launch counts are set
     to 0 just before and read just after; every logit must be finite.
-    Returns the engine, counts, results, per-step (seconds, chunks run,
-    decoded) records, wall seconds and peak GiB."""
+    ``samples``: filled by ``record_samples``.  Returns the engine, counts,
+    results, per-step (seconds, chunks run, decoded) records, wall seconds
+    and peak GiB."""
     engine = ServeEngine(cfg, params, device="cuda", **engine_kw)
+    if samples is not None:
+        record_samples(engine, samples)
     print(f"  pool: {engine.pool.num_blocks} blocks of {engine.block_size} tokens, "
           f"{pool_gib(engine):.2f} GiB")
 
@@ -1917,9 +2007,7 @@ def serve_checked(cfg, params, reqs, **engine_kw) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t_start = time.perf_counter()
-        rids = [engine.submit(q) for q in reqs[:-1]]
         steps = []  # (seconds, chunks run, decoded?) per engine step
-        sharer = rids[-1]
 
         def step():
             c0, s0 = engine.stats.prefill_chunks, engine.stats.steps
@@ -1930,13 +2018,7 @@ def serve_checked(cfg, params, reqs, **engine_kw) -> dict:
                           engine.stats.steps - s0))
             return more
 
-        # the last request arrives once the one before it has registered its
-        # prompt (it decodes from then on)
-        while sharer not in {rid for _, rid in engine.sched.running_slots()}:
-            step()
-        rids.append(engine.submit(reqs[-1]))
-        while step():
-            pass
+        rids = slice_trace(engine, reqs, step)
         engine.pool.check()
         wall = time.perf_counter() - t_start
         counts = kernels.launch_counts()
@@ -2008,11 +2090,16 @@ def full_width_phase() -> dict:
     n_params = sum(p.numel() for p in params.parameters())
     print(f"  init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.2f} s")
     reqs = slice_requests(cfg.vocab_size)
-    out = serve_checked(cfg, params, reqs, max_slots=8, max_seq=2048, block_size=16,
-                        prompt_granule=16, prefill_chunk=256, prefix_sharing=True)
+    samples: dict = {}
+    out = serve_checked(cfg, params, reqs, samples, **SLICE_KW)
     if out["engine"].stats.shared_blocks == 0:
         raise AssertionError("the shared prefix was not adopted")
-    serve_report(out, cfg, reqs, per_chunk=cfg.num_layers, per_step=cfg.num_layers)
+    med = serve_report(out, cfg, reqs, per_chunk=cfg.num_layers, per_step=cfg.num_layers)
+    # phase 31's one-process reference: the tokens, the top-two gaps, the
+    # first logits, the pool's bytes
+    PHASE31["want"] = {"tokens": [res.tokens.tolist() for res in out["results"]],
+                       "gaps": sample_gaps(samples), "first": samples["first"],
+                       "pool_bytes": pool_bytes(out["engine"]), **med}
     counts = out["counts"]
     del out, params
     torch.cuda.empty_cache()
@@ -3561,8 +3648,10 @@ RANK_JOBS = {"world_one": rank_world_one, "scale_out": rank_scale_out}
 
 
 def rank_main(rank: int, world: int, backend: str, store: str, job: str, args: dict,
-              queue) -> None:
-    """A spawned rank: join the world, run ``job``, report on ``queue``."""
+              queue, received) -> None:
+    """A spawned rank: join the world, run ``job``, report on ``queue``,
+    and stay until the parent has ``received`` every result (a CPU tensor
+    in a result travels as a shared-memory handle this process serves)."""
     import traceback
 
     from repro_torch.launch.mesh import init_ranks
@@ -3578,6 +3667,7 @@ def rank_main(rank: int, world: int, backend: str, store: str, job: str, args: d
                           if r["seconds"] > 0}
         dist.barrier()
         queue.put((rank, out))
+        received.wait(DP_DEADLINE_S)
     except BaseException:
         queue.put((rank, traceback.format_exc()))
         raise
@@ -3597,15 +3687,18 @@ def spawn_ranks(job: str, backend: str, world: int, args: dict) -> dict:
     (ROOT / "build").mkdir(exist_ok=True)
     store = ROOT / "build" / f"store_{job}_{os.getpid()}"
     store.unlink(missing_ok=True)
+    received = ctx.Event()
     procs = [ctx.Process(target=rank_main, args=(r, world, backend, str(store), job, args,
-                                                 queue)) for r in range(world)]
+                                                 queue, received)) for r in range(world)]
     for p in procs:
         p.start()
     try:
         results = dict(queue.get(timeout=DP_DEADLINE_S) for _ in procs)
+        received.set()
         for p in procs:
             p.join(timeout=120)
     finally:
+        received.set()
         for p in procs:
             if p.is_alive():
                 p.kill()
@@ -5741,6 +5834,36 @@ class ServeClock(CollectiveClock):
     ARG = {**CollectiveClock.ARG, "broadcast": 0}
 
 
+class PartClock:
+    """Per named part of a serving step (a wrapped function): its calls, and
+    the ms and bytes of the collectives a ``ServeClock`` saw inside it (a
+    ``wall`` part, the policy's pickled broadcast the clock does not see,
+    by its wall time)."""
+
+    def __init__(self, clock, kinds):
+        self.clock = clock
+        self.part = {k: {"ms": 0.0, "bytes": 0, "calls": 0} for k in kinds}
+
+    def wrap(self, kind: str, fn, wall: bool = False):
+        def run(*a, **kw):
+            before = self.clock.snapshot()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            after = self.clock.snapshot()
+            rec = self.part[kind]
+            rec["calls"] += 1
+            rec["ms"] += (1e3 * (time.perf_counter() - t) if wall else
+                          sum(after["ms"][n] - before["ms"][n] for n in ServeClock.ARG))
+            rec["bytes"] += sum(after["bytes"][n] - before["bytes"][n] for n in ServeClock.ARG)
+            return out
+        return run
+
+    def snapshot(self) -> dict:
+        return copy.deepcopy(self.part)
+
+
 def rank_elastic_serve(dev, args) -> dict:
     """28 on a gloo rank: Yi-6B at ``ELASTIC_LAYERS`` layers served on a
     2-rank ladder through the ramping trace, per-step collectives by kind."""
@@ -5756,31 +5879,11 @@ def rank_elastic_serve(dev, args) -> dict:
     engine = ServeEngine(cfg, params, elastic=ladder, tracer=tracer, **ELASTIC_KW)
     del params
     clock = ServeClock()
-    part = {k: {"ms": 0.0, "bytes": 0, "calls": 0} for k in SERVE_KINDS[1:]}
-
-    def timed_part(kind, fn):
-        """``fn`` counted as one call of ``kind``: its collectives' ms and
-        bytes by the clock (the policy's pickled broadcast, which the clock
-        does not see, by its wall time)."""
-        def run(*a, **kw):
-            before = clock.snapshot()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            after = clock.snapshot()
-            part[kind]["calls"] += 1
-            part[kind]["ms"] += (1e3 * (time.perf_counter() - t) if kind == "policy" else
-                                 sum(after["ms"][n] - before["ms"][n] for n in ServeClock.ARG))
-            part[kind]["bytes"] += sum(after["bytes"][n] - before["bytes"][n]
-                                       for n in ServeClock.ARG)
-            return out
-        return run
-
-    engine._share_entries = timed_part("pool entries", engine._share_entries)
-    engine._agree = timed_part("tokens", engine._agree)
+    parts = PartClock(clock, SERVE_KINDS[1:])
+    engine._share_entries = parts.wrap("pool entries", engine._share_entries)
+    engine._agree = parts.wrap("tokens", engine._agree)
     inner_bcast = engine_mod.broadcast_object
-    engine_mod.broadcast_object = timed_part("policy", inner_bcast)
+    engine_mod.broadcast_object = parts.wrap("policy", inner_bcast, wall=True)
     calls = {"decode": 0, "chunk": 0}
     inner_decode, inner_chunk = tf.decode_step, tf.prefill_chunk
 
@@ -5801,7 +5904,7 @@ def rank_elastic_serve(dev, args) -> dict:
             held["bytes"] = sum(p.numel() * p.element_size() for p in engine.params.parameters())
         if engine.rung.index == ladder.full.index:
             held["pool"] = pool_digest(engine._pages)
-        return clock.snapshot(), copy.deepcopy(part)
+        return clock.snapshot(), parts.snapshot()
 
     recs = rung_steps(engine, snap)
     reqs = elastic_requests(cfg.vocab_size, ELASTIC_LENS, ELASTIC_NEW, seed=28)
@@ -5856,7 +5959,18 @@ def rank_elastic_world_one(dev, args) -> dict:
     return out
 
 
-RANK_JOBS.update(elastic_serve=rank_elastic_serve, elastic_world_one=rank_elastic_world_one)
+def rank_elastic_serve_tp(dev, args) -> dict:
+    """28, then 31 (reported after phase 30), on the ranks of one gloo
+    world (one spawn less)."""
+    out = rank_elastic_serve(dev, args)
+    free()
+    dist.barrier()
+    out["tp_serve"] = rank_tp_serve(dev, args)
+    return out
+
+
+RANK_JOBS.update(elastic_serve_tp=rank_elastic_serve_tp,
+                 elastic_world_one=rank_elastic_world_one)
 
 
 def elastic_rank_report(rk: int, got: dict, want: list, mine_params: int, plan: dict) -> None:
@@ -5938,15 +6052,19 @@ def elastic_ranks_phase() -> dict:
           f"pool bytes (the sentinel block aside) the engine's with no ladder, to the bit "
           f"({time.perf_counter() - t0:.1f} s with the spawn)")
     t0 = time.perf_counter()
-    res = dict(sorted(spawn_ranks("elastic_serve", "gloo", ELASTIC_WORLD, {}).items()))
+    res = dict(sorted(spawn_ranks("elastic_serve_tp", "gloo", ELASTIC_WORLD, {}).items()))
     spawn_s = time.perf_counter() - t0
+    PHASE31["res"] = {rk: res[rk].pop("tp_serve") for rk in res}
     plan = plan_of(cfg, torch.bfloat16)
     for rk, got in res.items():
         elastic_rank_report(rk, got, want, mine_params, plan)
+        d = rung_medians(got["steps"]).get(1, (None,))[0]
+        PHASE31.setdefault("phase28", {})[rk] = "-" if d is None else f"{d:.2f} ms"
     if res[0]["pool"] != res[1]["pool"]:
         raise AssertionError("the ranks' pools differ after their last step on the 2-rank rung")
     print(f"  (c) the pools equal across the ranks after the last step on the 2-rank rung; "
-          f"phase 28: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s)")
+          f"phase 28: {time.perf_counter() - t_phase:.1f} s (the gloo spawn {spawn_s:.1f} s, "
+          f"phase 31's ranks included)")
     return {k: sum(res[r]["launches"][k] for r in res) for k in res[0]["launches"]}
 
 
@@ -6217,6 +6335,270 @@ def tp_phase() -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 31: tensor-parallel serving on ranks
+# ---------------------------------------------------------------------------
+
+# phase 4's model (Yi-6B, all 32 layers), settings and trace on a (data 1,
+# model 2) rung of phase 28's 2 gloo ranks
+TP_SERVE_WORLD = 2
+#: phase 4's top-two logit gap (in bf16 ulps of the top logit) at or below
+#: which the tp run's token may differ: the logits are bf16 products, and
+#: the tp run rounds the o and FFN products' partial sums apart
+TP_SERVE_TIE_ULPS = 4
+#: the first tokens' logits: largest gap over phase 4's largest magnitude
+#: (bf16 logits, 32 layers, the o and FFN products' partial sums added
+#: over 2 ranks in bf16: the largest of 64000 gaps of a few bf16 ulps)
+TP_SERVE_LOGIT_RTOL = 1e-1
+#: the collectives a tensor-parallel serving step issues
+TP_SERVE_KINDS = ("tp all-reduces", "embedding all-gather", "logit all-gather", "tokens",
+                  "policy")
+
+
+def tp_serve_kernel_records(r) -> list[dict]:
+    """Rows 1f and 4e: the chunk forward (C 256 over 768 prior tokens) and
+    paged decode (B 8, lengths <= 1100) at phase 4's shapes with a tp
+    rank's heads, Yi-6B's 32/4 split over 2 ranks: 16 query heads over 2
+    KV heads (n_rep 8, hd 128); their launches count phase 31's path."""
+    rank = YI.replace(num_heads=YI.num_heads // TP_SERVE_WORLD,
+                      num_kv_heads=YI.num_kv_heads // TP_SERVE_WORLD,
+                      head_dim=YI.resolved_head_dim)
+    path = {"paths": ["tensor-parallel serving (ranks)"]}
+    return [chunk_kernel_record(r, rank, "a tp rank's serving shape (16/2 heads)",
+                                name="chunk_attention (tp rank: 16/2 heads, serving)",
+                                counter="chunk_attention", **path),
+            decode_kernel_record(r, rank, "a tp rank's serving shape (16/2 heads)",
+                                 name="paged_decode_attention (tp rank: 16/2 heads)",
+                                 counter="paged_decode_attention", **path)]
+
+
+class KernelSpy:
+    """``kernels/attention.py`` as ``models/transformer.py`` sees it while
+    installed (``tf.kernels_attn``): the paged-decode and chunk wrappers
+    record the heads ``(query, KV)`` of each call, then run as they are
+    (the module's own names stay theirs: each counts its launches under
+    its name)."""
+
+    def __init__(self):
+        self.heads = set()
+
+    def __getattr__(self, name):
+        return getattr(kattn, name)
+
+    def paged_decode_attention(self, q, k, *a, **kw):
+        self.heads.add((q.shape[2], k.shape[-2]))
+        return kattn.paged_decode_attention(q, k, *a, **kw)
+
+    def chunk_attention(self, q, k, *a, **kw):
+        self.heads.add((q.shape[2], k.shape[-2]))
+        return kattn.chunk_attention(q, k, *a, **kw)
+
+
+def rank_tp_serve(dev, args) -> dict:
+    """31 on a rank: Yi-6B (32 layers) on the (data 1, model 2) rung under
+    ``use_plan``, phase 4's engine settings and trace; per step its seconds
+    and the collectives by kind; the heads the kernels saw, the launches,
+    the pool's bytes, the parameters held, the first logits and tokens."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import (reset_tensor_parallel_counts, tensor_parallel_counts,
+                                       use_plan)
+    from repro_torch.launch.mesh import make_plan, make_production_mesh
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = YI
+    plan = make_plan(make_production_mesh(device=dev, tp=TP_SERVE_WORLD))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with use_plan(plan):  # the engine keeps this rank's shards of the whole model
+        engine = ServeEngine(cfg, tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                                 dev), **SLICE_KW)
+    free()
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    samples: dict = {}
+    record_samples(engine, samples)
+    clock = ServeClock()
+    parts = PartClock(clock, TP_SERVE_KINDS[1:])
+    spy, calls = KernelSpy(), {"decode": 0, "chunk": 0}
+    inner = (tf.decode_step, tf.prefill_chunk, tf._serve_input, tf._head,
+             engine_mod.broadcast_object)
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            calls[kind] += 1
+            return fn(*a, **kw)
+        return call
+
+    tf.kernels_attn = spy
+    tf.decode_step, tf.prefill_chunk = counted("decode", inner[0]), counted("chunk", inner[1])
+    tf._serve_input = parts.wrap("embedding all-gather", inner[2])
+    tf._head = parts.wrap("logit all-gather", inner[3])
+    engine._agree = parts.wrap("tokens", engine._agree)
+    engine_mod.broadcast_object = parts.wrap("policy", inner[4], wall=True)
+    steps = []
+
+    def step():
+        c0, s0 = engine.stats.prefill_chunks, engine.stats.steps
+        before, p0, tp0 = clock.snapshot(), parts.snapshot(), tensor_parallel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = engine.step()
+        torch.cuda.synchronize()
+        after, p1, tp1 = clock.snapshot(), parts.snapshot(), tensor_parallel_counts()
+        kinds = {k: {m: p1[k][m] - p0[k][m] for m in ("ms", "bytes", "calls")}
+                 for k in TP_SERVE_KINDS[1:]}
+        ar = {m: after[m]["all_reduce"] - before[m]["all_reduce"] for m in ("ms", "bytes")}
+        # the all-reduces outside the tokens' agreement: the tp ones
+        kinds["tp all-reduces"] = {"ms": ar["ms"] - kinds["tokens"]["ms"],
+                                   "bytes": tp1["bytes"] - tp0["bytes"],
+                                   "calls": tp1["calls"] - tp0["calls"]}
+        steps.append({"s": time.perf_counter() - t, "chunks": engine.stats.prefill_chunks - c0,
+                      "decoded": engine.stats.steps - s0, "coll": kinds,
+                      "coll_ms": sum(after["ms"][n] - before["ms"][n] for n in ServeClock.ARG)})
+        return more
+
+    reqs = slice_requests(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    tf.reset_tp_counts()
+    reset_tensor_parallel_counts()
+    t0 = time.perf_counter()
+    try:
+        rids = slice_trace(engine, reqs, step)
+        torch.cuda.synchronize()
+        engine.pool.check()
+    finally:
+        tf.kernels_attn = kattn
+        (tf.decode_step, tf.prefill_chunk, tf._serve_input, tf._head,
+         engine_mod.broadcast_object) = inner
+        clock.close()
+    layout = sharding.layout_of(engine.params)
+    out = {"tokens": [engine.result(rid).tokens.tolist() for rid in rids],
+           "first": samples["first"], "steps": steps, "calls": calls,
+           "heads": sorted(spy.heads),
+           "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+           "tp_counts": tf.tp_counts(), "pool_bytes": pool_bytes(engine),
+           "kv_heads": engine._kv_heads, "tp_rank": engine._tp_rank,
+           "params": sum(p.numel() for p in engine.params.parameters()),
+           "reckoned": layout.numel(), "wall_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "init_peak_gib": init_peak,
+           "stats": engine.stats.as_dict(), "plan": plan_of(cfg, torch.bfloat16)}
+    del engine
+    free()
+    return out
+
+
+def tp_serve_phase(phase28: dict) -> dict[str, dict]:
+    """Phase 31, from its ranks' run within phase 28's gloo world, against
+    phase 4's one-process run; ``phase28`` the medians phase 28's rank
+    ladder decoded at.  Returns the launch counts of its path, summed over
+    the ranks."""
+    phase(f"31. tensor-parallel serving on {TP_SERVE_WORLD} gloo ranks sharing the card: "
+          f"Yi-6B, all {YI.num_layers} layers, bf16, on a (data 1, model {TP_SERVE_WORLD}) "
+          f"rung, phase 4's engine settings and trace; each rank's heads, FFN columns, "
+          f"embedding columns, vocabulary and KV pool (run within phase 28's gloo world)")
+    cfg, t = YI, TP_SERVE_WORLD
+    want, res = PHASE31["want"], dict(sorted(PHASE31["res"].items()))
+    _, _, mine_params = reckoned_state_bytes(cfg, t, tp_plan_abstract())
+    hq, hk = cfg.num_heads // t, cfg.num_kv_heads // t
+    layers = cfg.num_layers
+    gaps = want["gaps"]
+    plens = [padded_prompt_len(len(q.prompt), SLICE_KW["prompt_granule"])
+             for q in slice_requests(cfg.vocab_size)]
+    failed = []
+    for r, y in res.items():
+        tag = f"[gloo, world {t}, rank {r}]"
+        if y["params"] != y["reckoned"] or y["params"] != mine_params:
+            raise AssertionError(f"{tag} holds {y['params']} parameters, reckoned "
+                                 f"{y['reckoned']} (the specs: {mine_params})")
+        if 2 * y["pool_bytes"] != want["pool_bytes"] or y["kv_heads"] != hk:
+            raise AssertionError(f"{tag} pool {y['pool_bytes']} bytes at {y['kv_heads']} KV "
+                                 f"heads; phase 4's {want['pool_bytes']}")
+        n_dec, n_chunk = y["calls"]["decode"], y["calls"]["chunk"]
+        want_counts = {"chunk_attention": layers * n_chunk,
+                       "paged_decode_attention": layers * n_dec,
+                       "flash_dq": 0, "flash_dkv": 0, **NO_PSGN}
+        if y["launches"] != want_counts or 0 in (n_dec, n_chunk) \
+                or n_dec != y["stats"]["steps"] or n_chunk != y["stats"]["prefill_chunks"]:
+            raise AssertionError(f"{tag} launches {y['launches']}, expected {want_counts} "
+                                 f"({n_dec} decode steps, {n_chunk} chunks; stats "
+                                 f"{y['stats']['steps']}, {y['stats']['prefill_chunks']})")
+        if [tuple(h) for h in y["heads"]] != [(hq, hk)]:
+            raise AssertionError(f"{tag} the kernels saw heads {y['heads']}, expected "
+                                 f"{[(hq, hk)]}")
+        attn_routes(y["launches"], y["plan"], what=f"{tag} tensor-parallel serving",
+                    routes=y["routes"])
+        split = {"attn": layers * (n_dec + n_chunk), "dense": layers * (n_dec + n_chunk),
+                 "embed": n_dec + n_chunk, "head": n_dec + n_chunk}
+        if y["tp_counts"] != {"tp_split": split, "tp_whole": {}}:
+            raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split} split")
+        # tokens: phase 4's up to its first near-tie (a top-two gap of at most
+        # TP_SERVE_TIE_ULPS bf16 ulps); each request's first differing token
+        ties, bad = [], []
+        for i, (got, ref_toks) in enumerate(zip(y["tokens"], want["tokens"])):
+            cut = next((j for j in range(len(ref_toks))
+                        if gaps[(i, plens[i] + j)][1] <= TP_SERVE_TIE_ULPS), len(ref_toks))
+            diff = next((j for j in range(len(ref_toks)) if got[j] != ref_toks[j]), None)
+            if diff is not None:
+                top, ulps = gaps[(i, plens[i] + diff)]
+                (bad if diff < cut else ties).append((i, diff, round(top, 4), round(ulps, 2)))
+            if len(got) != len(ref_toks):
+                bad.append((i, len(got)))
+        if set(y["first"]) != set(want["first"]):
+            raise AssertionError(f"{tag} prefilled requests {sorted(y['first'])}, phase 4 "
+                                 f"{sorted(want['first'])}")
+        rel = max(float(np.abs(y["first"][i] - want["first"][i]).max()
+                        / np.abs(want["first"][i]).max()) for i in want["first"])
+        rms = max(float(np.sqrt(np.mean((y["first"][i] - want["first"][i]) ** 2)
+                                / np.mean(want["first"][i] ** 2))) for i in want["first"])
+        big = max(float(np.abs(y["first"][i] - want["first"][i]).max()) for i in want["first"])
+        top_abs = max(float(np.abs(want["first"][i]).max()) for i in want["first"])
+        d_ms, c_ms, nd, nc = step_medians([(st["s"], st["chunks"], st["decoded"])
+                                           for st in y["steps"]])
+        print(f"  {tag} {y['params'] / 1e9:.4f} B parameters held = the reckoning "
+              f"({2 * y['params'] / 1e9:.3f} GB bf16; peak {y['init_peak_gib']:.2f} GiB while "
+              f"the whole model is drawn, then sharded); pool {y['pool_bytes'] / 2**30:.3f} GiB "
+              f"= half of phase 4's {want['pool_bytes'] / 2**30:.3f} ({y['kv_heads']} of "
+              f"{cfg.num_kv_heads} KV heads, tp rank {y['tp_rank']}); serving peak "
+              f"{y['peak_gib']:.2f} GiB; {y['wall_s']:.1f} s")
+        print(f"    tokens: phase 4's but where its top two logits lay within "
+              f"{TP_SERVE_TIE_ULPS} bf16 ulps; the first differing token of a request "
+              f"(request, token, phase 4's top logit, gap in ulps): near-ties {ties}, "
+              f"others {bad}; first logits within {rel:.3e} of their largest magnitude (tol "
+              f"{TP_SERVE_LOGIT_RTOL}), RMS gap {rms:.3e} of their RMS, the largest gap "
+              f"{big:.4f} against a largest magnitude of {top_abs:.4f}")
+        if bad or rel > TP_SERVE_LOGIT_RTOL:  # raised once both ranks have printed
+            failed.append(f"{tag} tokens differ from phase 4's before a near-tie: {bad}; "
+                          f"first logits {rel:.3e} of their largest magnitude from phase 4's "
+                          f"(tol {TP_SERVE_LOGIT_RTOL})")
+        print(f"    launches {y['launches']} (= {layers} x {n_chunk} chunks, {layers} x {n_dec} "
+              f"decode steps), the kernels at {hq}/{hk} heads (n_rep {hq // hk}); tp_counts "
+              f"{y['tp_counts']}")
+        print(f"    decode step: median {d_ms:.2f} ms over {nd} decode-only steps (phase 4, "
+              f"one process: {want['decode_ms']:.2f}; phase 28's 2-rank rung, 2 layers, "
+              f"block gathers: {phase28.get(r, '-')}); prefill chunk: median {c_ms:.2f} ms "
+              f"over {nc} (phase 4: {want['chunk_ms']:.2f})")
+        dec = [st for st in y["steps"] if st["decoded"] and not st["chunks"]]
+        chk = [st for st in y["steps"] if st["chunks"]]
+        for label, sts in (("a decode step", dec), ("a step with chunks (and its decode)", chk)):
+            if not sts:
+                continue
+            ms = statistics.median(1e3 * st["s"] for st in sts)
+            line = []
+            for kind in TP_SERVE_KINDS:
+                med = {m: statistics.median(st["coll"][kind][m] for st in sts)
+                       for m in ("calls", "bytes", "ms")}
+                line.append(f"{kind} {med['calls']:.0f} calls, {med['bytes'] / 1e6:.3f} MB, "
+                            f"{med['ms']:.1f} ms")
+            coll = statistics.median(st["coll_ms"] for st in sts)
+            print(f"    {label} ({len(sts)}, median {ms:.1f} ms; collectives {coll:.1f} ms, "
+                  f"{100 * coll / ms:.1f}%): " + "; ".join(line))
+    if failed:
+        raise AssertionError("\n".join(failed))
+    if res[0]["tokens"] != res[1]["tokens"]:
+        raise AssertionError("the tp ranks recorded different tokens")
+    return {"tensor-parallel serving (ranks)": {
+        k: sum(res[r]["launches"][k] for r in res) for k in res[0]["launches"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 29: the dry run's plan against the card
 # ---------------------------------------------------------------------------
 
@@ -6367,7 +6749,7 @@ def main() -> int:
 
 
 def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
-    """Phases 3-30, then the kernels' JSON line and the last line."""
+    """Phases 3-31, then the kernels' JSON line and the last line."""
     records = kernels_phase()
     serve_counts = full_width_phase()
     card_vs_cpu_phase()
@@ -6398,6 +6780,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
     elastic_ranks = elastic_ranks_phase()
     plan_phase(smi, pod_plan, pod_dir)
     tp_paths = tp_phase()
+    tp_serve_paths = tp_serve_phase(PHASE31.get("phase28", {}))
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -6408,6 +6791,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"],
              "exact-tier training": exact_counts, **sharded_paths, **tp_paths,
+             **tp_serve_paths,
              "elastic serving (local ladder)": elastic_local,
              "elastic serving (ranks)": elastic_ranks}
     encoder_paths["exact-tier encoder"] = exact_encoder_counts

@@ -60,6 +60,8 @@ a leaf each tp rank uses only a part of (the one KV head a group of ranks
 shares, a replicated bias) is gathered whole with its gradient summed over
 tp.  :func:`tensor_parallel` gives a rank its place on the tp axes and the
 two all-reduces (``dist.plan.copy_to_group``, ``reduce_from_group``).
+Serving splits the same way (:func:`serving_kv_heads`: the KV heads a tp
+rank computes are the ones its pool, rings and dense cache hold).
 """
 
 from __future__ import annotations
@@ -411,6 +413,17 @@ class TpSplit:
     ffn: str | None = None
     whole: tuple[str, ...] = ()
 
+    def kv_heads(self, kv: int, rank: int) -> tuple[int, int]:
+        """``(first, count)`` of the ``kv`` KV heads tp rank ``rank``
+        computes: its ``kv/T`` when "local", the one it shares when
+        "shared", every head when attention computes whole."""
+        if self.attn == "local":
+            n = kv // self.size
+            return rank * n, n
+        if self.attn == "shared":
+            return rank // (self.size // kv), 1
+        return 0, kv
+
     def role(self, name: str) -> str | None:
         """A block leaf's role (``name`` within the block): "resident" (its
         tp dim stays on the rank), "partial" (gathered whole over tp, each
@@ -483,16 +496,44 @@ class TensorParallel:
         return self.mesh.group(self.axes)
 
 
+def tp_rank(plan: ShardingPlan | None, coords: Mapping[str, int] | None = None) -> int:
+    """The position of the entry at ``coords`` (this rank's by default)
+    along ``plan``'s tp axes, in their order; 0 without tp axes."""
+    axes = _entry_axes(plan.tp) if plan is not None else ()
+    if not axes:
+        return 0
+    coords = plan.mesh.coords() if coords is None else coords
+    k = 0
+    for a in axes:
+        k = k * plan.mesh.shape[a] + coords[a]
+    return k
+
+
 def tensor_parallel(layout: "StateLayout | None") -> TensorParallel | None:
     """Where a sharded state's compute splits over tp: its plan's tp axes
     when they span several ranks, else None (no layout, or T = 1)."""
     if layout is None or not layout.plan.tp or layout.plan.tp_size == 1:
         return None
-    axes = _entry_axes(layout.plan.tp)
-    k = 0
-    for a in axes:
-        k = k * layout.mesh.shape[a] + layout.coords[a]
-    return TensorParallel(layout.mesh, axes, layout.plan.tp_size, k)
+    return TensorParallel(layout.mesh, _entry_axes(layout.plan.tp), layout.plan.tp_size,
+                          tp_rank(layout.plan, layout.coords))
+
+
+def serving_kv_heads(cfg, pos: int, plan: ShardingPlan | None, rank: int | None = None
+                     ) -> tuple[int, int]:
+    """``(first, count)``: the KV heads of pattern position ``pos`` that tp
+    rank ``rank`` of ``plan`` (default: this rank's, :func:`tp_rank`)
+    computes when serving, and so holds in its block pool, rings and dense
+    cache (arithmetic on ``cfg`` and the plan only).  By :func:`tp_split`:
+    every head where attention computes whole (T = 1, heads that do not
+    divide, a Mamba position); ``[t KV/T, (t+1) KV/T)`` "local" (the
+    reference's ``cache_pspecs`` rule, kv heads over tp); head ``t //
+    (T/KV)`` whole "shared" (the reference shards ``head_dim`` there and
+    holds ``KV/T`` of a head a rank: the port holds T/KV times as much, so
+    that the paged-decode and chunk kernels read whole scores)."""
+    split = tp_split(cfg, pos, plan)
+    if split.attn is None:
+        return 0, cfg.num_kv_heads
+    return split.kv_heads(cfg.num_kv_heads, tp_rank(plan) if rank is None else int(rank))
 
 
 @dataclasses.dataclass(frozen=True)

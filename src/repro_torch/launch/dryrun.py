@@ -20,11 +20,13 @@ device runs anything and no card is touched; what is counted is what rank
            ``num_micro`` microbatches from the trace's split around the
            microbatch (``utils.hlo.extrapolate``); the record says so.
   prefill  ``prefill_step`` on the rank's rows (``batch_pspecs``), the MoE
-           tokens in the reference's groups (the rank routes its share).
+           tokens in the reference's groups (the rank routes its share),
+           the dense cache at the rank's KV heads.
   decode   ``decode_step`` over the cache as the port holds it on the rank:
            its batch rows split over the data axes where ``cache_pspecs``
-           splits them, every other dim whole (``serve/engine.py``); the
-           reference's layout is recorded beside it.
+           splits them, its KV heads (``dist.sharding.serving_kv_heads``),
+           every other dim whole (``serve/engine.py``); the reference's
+           layout is recorded beside it.
 
 The traced lane is the reference's: ``attn_impl="auto"`` takes the plain
 flash lane (``models/attention.py::flash_attention``) above the threshold,
@@ -34,7 +36,12 @@ different program.  A train cell's blocks split over the mesh's ``model``
 axis as the training stack splits them (``dist.sharding.tp_split``: each tp
 rank its heads and FFN widths, two all-reduces a layer over the model
 group); the embedding, the head and what does not split run whole on every
-tp rank.  Prefill and decode (serving) gather each block whole.
+tp rank.  Prefill and decode (serving) split the same way, the embedding
+and the head too (``models/transformer.py``: each rank looks up its
+``d/T`` embedding columns and computes its ``V/T`` logits, then one
+all-gather over tp each), and hold the rank's KV heads only: ``KV/T`` of
+them, or where T ranks share a KV head that one whole (T/KV times the
+reference's layout, which splits ``head_dim`` there).
 ``act_specs_for`` has no counterpart: the residual stream is not split.
 
 Usage (no card needed):
@@ -292,7 +299,7 @@ def trace_train(cfg, plan: ShardingPlan | None, micro_global: int, seq: int, num
 def trace_prefill(cfg, plan: ShardingPlan | None, batch: int, seq: int) -> dict:
     """Rank ``plan.mesh.rank``'s ``prefill_step`` of its rows of a
     ``(batch, seq)`` prompt batch, traced on fake tensors (``plan`` None:
-    one device)."""
+    one device); its dense cache holds the rank's KV heads."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     plan = plan or one_device()
@@ -321,8 +328,8 @@ def trace_prefill(cfg, plan: ShardingPlan | None, batch: int, seq: int) -> dict:
 
 def trace_decode(cfg, plan: ShardingPlan | None, batch: int, seq: int) -> dict:
     """Rank ``plan.mesh.rank``'s ``decode_step`` of one token for its rows
-    of a batch over a ``seq``-token cache, traced on fake tensors (``plan``
-    None: one device)."""
+    of a batch over a ``seq``-token cache at its KV heads, traced on fake
+    tensors (``plan`` None: one device)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     plan = plan or one_device()
@@ -337,10 +344,14 @@ def trace_decode(cfg, plan: ShardingPlan | None, batch: int, seq: int) -> dict:
     with FakeTensorMode(), counter:
         _fake_params(model, sharding.state_layout(model, plan))
         cache = {"len": torch.zeros((), dtype=torch.int32)}
+        kv = tf.serving_kv_heads(cfg, plan)
         for path, t in cache_specs.items():
             if path != "len":  # (repeats, B, ...): the rows are dim 1
                 pos, leaf = path.split("/")
-                cache.setdefault(pos, {})[leaf] = _local(t, (None, rows), plan)
+                shape = sharding.local_shape(t.shape, (None, rows), plan)
+                if leaf in ("k", "v"):  # (.., KV, hd): the rank's KV heads
+                    shape = shape[:-2] + (kv, shape[-1])
+                cache.setdefault(pos, {})[leaf] = torch.empty(shape, dtype=t.dtype)
         tokens = _local(specs["tokens"], (rows,), plan)
         cache_bytes = sum(t.numel() * t.element_size()
                           for _, t in ptu.tree_flatten_with_paths(cache))
@@ -438,10 +449,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
             plan=plan_rec,
             tuning=info,
             attn_impl_traced=_attn_impl_traced(cfg, shape),
-            activations=("train: heads and FFN widths split over the model axis "
-                         "(dist.sharding.tp_split), the residual stream whole" if
-                         shape.kind == "train" else "not sharded: serving gathers each "
-                         "block whole and every rank of a data row runs its rows whole"),
+            activations=("heads and FFN widths split over the model axis "
+                         "(dist.sharding.tp_split), the residual stream whole"
+                         + ("" if shape.kind == "train" else "; the embedding's d and the "
+                            "head's V over tp, the cache at the rank's KV heads")),
             memory=memory,
             cost={
                 "flops_per_device": analysis["flops"],

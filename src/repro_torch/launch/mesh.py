@@ -10,6 +10,7 @@ itself.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --dp 2 --backend gloo
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --tp 2 --backend gloo
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --tp 2 --backend gloo
 
 NCCL wants one card per rank (two ranks on one card fail with "Duplicate
 GPU detected"); gloo carries CUDA tensors by staging them through the
@@ -108,17 +109,25 @@ def join_world(backend: str, *, ranks: int | None, device: torch.device | str,
 
 
 def rank_setup(backend: str, *, dp: int, device: torch.device | str, elastic: bool,
-               granule: int, command: str) -> tuple[torch.device, ShardingPlan | None, Any]:
-    """``(device, plan, ladder)`` of a CLI's ``--dp`` / ``--elastic`` under
-    torchrun: this process's rank joins the world on ``backend`` (``--dp N``
-    needs a world of N ranks, ``--elastic`` alone at least 2); ``--elastic``
-    gives a ``MeshLadder`` over the world's ranks, else the fixed
-    :func:`data_plan`."""
+               granule: int, command: str, tp: int = 0
+               ) -> tuple[torch.device, ShardingPlan | None, Any]:
+    """``(device, plan, ladder)`` of a CLI's ``--dp`` / ``--tp`` /
+    ``--elastic`` under torchrun: this process's rank joins the world on
+    ``backend`` (``--dp N`` needs a world of N ranks, N x ``--tp`` with
+    both, ``--elastic`` or ``--tp`` alone at least 2).  ``--elastic`` gives
+    a ``MeshLadder`` over the world's ranks (with ``--tp N`` its model
+    axes ``(("model", N),)``, fixed on every rung); else ``--tp N`` the
+    fixed ``(data W/N, model N)`` plan (:func:`make_production_mesh`,
+    :func:`make_plan`), and ``--dp`` alone :func:`data_plan`."""
     from repro_torch.elastic import MeshLadder  # elastic imports dist.plan, not this module
 
-    dev = join_world(backend, ranks=dp or None, device=device, command=command)
+    ranks = dp * max(tp, 1) if dp else None
+    dev = join_world(backend, ranks=ranks, device=device, command=command)
     if elastic:
-        return dev, None, MeshLadder(rank_devices(dev), granule=granule)
+        model = (("model", tp),) if tp > 1 else ()
+        return dev, None, MeshLadder(rank_devices(dev), granule=granule, model_axes=model)
+    if tp:
+        return dev, make_plan(make_production_mesh(device=dev, tp=tp)), None
     return dev, data_plan(dev), None
 
 

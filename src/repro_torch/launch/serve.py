@@ -9,8 +9,12 @@ it; under ``torchrun`` over the world's ranks (``--backend nccl|gloo``;
 NCCL wants a card per rank, gloo lets several ranks share one card), whose
 rungs shard the parameters and split the decode rows.  ``--dp N`` instead
 pins a fixed N-wide data-parallel plan: N virtual devices on one process, a
-world of N ranks under ``torchrun``.  Only the first rank prints and
-writes ``--out``.
+world of N ranks under ``torchrun``.  ``--tp N`` (under ``torchrun``
+only) serves tensor-parallel on a ``(data W/N, model N)`` rung of the W
+ranks: each rank computes its heads and FFN columns and its KV pool holds
+its KV heads (``serve/engine.py``); with ``--elastic`` the ladder keeps
+the model axis of N on every rung.  Only the first rank prints and writes
+``--out``.
 
 Examples:
   python -m repro_torch.launch.serve --arch yi-6b --full-size
@@ -21,6 +25,8 @@ Examples:
   python -m repro_torch.launch.serve --device cpu --elastic --requests 8 --ramp 2
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu --elastic \\
       --backend gloo --requests 8 --ramp 2
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu --tp 2 \\
+      --backend gloo --requests 8
 """
 
 from __future__ import annotations
@@ -136,6 +142,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--elastic", action="store_true",
                     help="MeshLadder over --dp (default: all) devices; the live slot "
                          "count picks the rung")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel ranks under torchrun: a (data W/N, model N) "
+                         "rung of the W ranks (the ladder's model axis with --elastic)")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
                     help="the process group's backend under torchrun")
     ap.add_argument("--out", default=None, help="write {results, stats} JSON")
@@ -153,10 +162,10 @@ def main(argv=None) -> dict:
 
     plan = ladder = None
     ranked = dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) > 1
-    if ranked and (args.dp or args.elastic):
+    if args.tp or (ranked and (args.dp or args.elastic)):
         device, plan, ladder = rank_setup(args.backend, dp=args.dp, device=args.device,
                                           elastic=args.elastic, granule=1,
-                                          command="repro_torch.launch.serve")
+                                          command="repro_torch.launch.serve", tp=args.tp)
     else:
         device = resolve_device(args.device)
         if args.elastic:

@@ -87,10 +87,10 @@ so the backward gathers again instead of holding every gathered block
 gradient); ``_embed_input`` and ``loss_fn`` gather the embedding (or
 frontend) and the head.  Under ``moe_impl="ep"`` the experts' expert dim
 stays resident.  Serving (``prefill_step``, ``decode_step``,
-``prefill_chunk``, under ``no_grad``, no remat) gathers each block whole
-for its extent only (``_serving_layers``), and the embedding and the head
-through ``_whole``, so a sharded model never stands whole on a rank; an
-unsharded model takes the same path with no gather.
+``prefill_chunk``, under ``no_grad``, no remat) gathers each block for
+its extent only (``_serving_layers``): whole without tp, so a sharded
+model never stands whole on a rank; an unsharded model takes the same
+path with no gather.
 
 Tensor-parallel training (a sharded state whose plan's tp axes span T > 1
 ranks; ``loss_fn`` asks ``_run_stack`` for it, outside ``torch.func``
@@ -119,9 +119,28 @@ rank from leaves gathered whole, as without tp: the Mamba mixers (their
 embedding or frontend and the head (vocab-parallel cross-entropy is not
 ported), and attention where the heads do not divide (qwen2-7b and
 internvl2-1b at T 16).  ``tp_counts()`` counts, by kind, the sublayers
-the training stack ran split (``tp_split``) and whole (``tp_whole``) on a
-tp plan; ROADMAP.md Queue A 5 lists the whole ones as still to port.
-Serving gathers whole.
+the stack ran split (``tp_split``) and whole (``tp_whole``) on a tp plan,
+in training and in serving; ROADMAP.md Queue A 5 lists the whole ones as
+still to port.
+
+Tensor-parallel serving (``prefill_step``, ``decode_step``,
+``prefill_chunk`` on a sharded model whose plan spans T > 1 tp ranks):
+each block splits by the same ``tp_split`` (``_serving_layers``), so a tp
+rank computes its query heads, its KV heads and its FFN columns, and its
+pool, rings and dense cache hold only those KV heads
+(``dist.sharding.serving_kv_heads``: ``KV/T`` of them "local", the one it
+shares, whole, "shared"; every head where attention computes whole);
+``o`` and the FFN's output all-reduce over tp.  The embedding (V over
+fsdp, d over tp) is gathered over fsdp only, each rank looks up its
+``d/T`` columns and one all-gather over tp joins them; the head (V over
+tp where T divides V) gives each rank its ``V/T`` float32 logits, capped,
+and one all-gather over tp joins them, so every rank samples from the
+whole row.  Whole on every tp rank: the Mamba mixers and their state, the
+frontend of an embedding-input config, a head whose V the tp ranks do not
+divide, and the sublayers ``tp_split`` leaves whole; each counted in
+``tp_whole``.  The caches must hold the rank's KV heads
+(``init_cache``/``init_pages(kv_heads=serving_kv_heads(cfg, plan))``);
+a split sublayer never falls back to the whole path.
 
 Mamba mixers ('mamba', ``models/ssm.py``): ``Block`` holds a ``Mamba``
 in the attention's place, and the layer still runs its FFN (none when
@@ -146,7 +165,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding
-from repro_torch.dist.plan import current_plan
+from repro_torch.dist.plan import all_gather_dim, current_plan
 from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm
@@ -158,15 +177,17 @@ from repro_torch.models.layers import (ACTIVATIONS, apply_rope, dense, embed, in
 #: the mixers the port runs, in training and serving
 MIXERS = ("attn", "attn_local", "mamba")
 
-#: sublayers the training stack ran split over tp and whole on every tp
-#: rank, by kind (forward calls on a tp plan), since ``reset_tp_counts``
+#: sublayers the stack ran split over tp and whole on every tp rank, by
+#: kind (forward calls on a tp plan, training or serving), since
+#: ``reset_tp_counts``
 _TP_COUNTS: dict[str, dict[str, int]] = {"tp_split": {}, "tp_whole": {}}
 
 
 def tp_counts() -> dict[str, dict[str, int]]:
     """``{"tp_split": {kind: n}, "tp_whole": {kind: n}}`` since the last
     :func:`reset_tp_counts`: one count per sublayer a forward of the
-    training stack ran on a tp plan (the remat recompute not counted)."""
+    training stack or a serving call ran on a tp plan (the remat recompute
+    not counted)."""
     return {k: dict(v) for k, v in _TP_COUNTS.items()}
 
 
@@ -178,6 +199,12 @@ def reset_tp_counts() -> None:
 def _count_tp(key: str, kinds) -> None:
     for kind in kinds:
         _TP_COUNTS[key][kind] = _TP_COUNTS[key].get(kind, 0) + 1
+
+
+def _count_split(split: sharding.TpSplit) -> None:
+    """Count a block's sublayers: split (attention, the FFN) and whole."""
+    _count_tp("tp_split", (["attn"] if split.attn else []) + [split.ffn] * bool(split.ffn))
+    _count_tp("tp_whole", split.whole)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -349,6 +376,40 @@ def _whole(params: Transformer, name: str) -> torch.Tensor:
     return t if layout is None else layout.gather([name], [t])[0]
 
 
+def _tp_shard(params: Transformer, name: str, tp) -> tuple[torch.Tensor, int | None]:
+    """Parameter ``name`` for serving under ``tp`` (None: whole, as
+    ``_whole``): gathered over every axis but the tp axes, and the dim its
+    tp shard lies along (None when the specs leave it whole over tp)."""
+    if tp is None:
+        return _whole(params, name), None
+    mod, _, attr = name.rpartition(".")
+    t = getattr(params.get_submodule(mod), attr)
+    layout = sharding.layout_of(params)
+    dim = next((d for d, axes in layout.by_name[name].dims if axes == tp.axes), None)
+    roles = {name: "resident"} if dim is not None else None
+    return layout.gather([name], [t], roles=roles)[0], dim
+
+
+def _serve_input(cfg: ModelConfig, params: Transformer, batch: dict, tp) -> torch.Tensor:
+    """``_embed_input`` for serving: under ``tp`` the embedding's ``d/T``
+    columns of this rank (its tp shard, gathered over fsdp only) looked up,
+    then one all-gather over tp; the frontend whole (counted)."""
+    if tp is None:
+        return _embed_input(cfg, params, batch)
+    if cfg.input_mode != "tokens":
+        _count_tp("tp_whole", ("frontend",))
+        return _embed_input(cfg, params, batch)
+    w, dim = _tp_shard(params, "embed.weight", tp)
+    x = embed(w, batch["tokens"].long()).to(_dtype(cfg.compute_dtype))
+    if dim is None:
+        _count_tp("tp_whole", ("embed",))
+        return x
+    if dim != 1:
+        raise ValueError(f"embed.weight is split over tp along dim {dim}, not d_model")
+    _count_tp("tp_split", ("embed",))
+    return all_gather_dim([x], [x.dim() - 1], tp.mesh, tp.axes)[0]
+
+
 def _self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, window: int | None, causal: bool) -> torch.Tensor:
     """Self-attention over positions ``arange(S)`` on the lane
@@ -421,8 +482,7 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
     for r, p, blk in _layers(cfg, params):
         split = sharding.tp_split(cfg, p, layout.plan) if tp is not None else None
         if split is not None:
-            _count_tp("tp_split", (["attn"] if split.attn else []) + [split.ffn] * bool(split.ffn))
-            _count_tp("tp_whole", split.whole)
+            _count_split(split)
         args = (cfg, cfg.pattern[p], blk, x, positions, moe_groups, layout,
                 f"blocks.{r * cfg.period + p}.", plan, tp, split)
         if ckpt:
@@ -575,35 +635,39 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups:
     ``decode_step``.  The stack runs on the lane ``resolve_impl`` names
     ("pallas": the chunk kernel forward).  An encoder (``cfg.causal == False``) returns the
     logits at every position, (B, S, V), and an empty cache, as the
-    reference's encoder branch."""
-    x = _embed_input(cfg, params, batch)
+    reference's encoder branch.  Under tp (the module docstring) the rank
+    computes its heads and columns and its cache holds its KV heads."""
+    layout = sharding.layout_of(params)
+    tp = sharding.tensor_parallel(layout)
+    x = _serve_input(cfg, params, batch, tp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
-    if not cfg.causal:
-        x, _ = _run_stack(cfg, params, x, positions, moe_groups)
-        # the reference's encoder branch: no final softcap
-        return dense(params.final_norm(x), _whole(params, "lm_head.weight")).float(), {}
-    cache = init_cache(cfg, b, s, device=x.device)
-    hd = cfg.resolved_head_dim
-    for r, p, blk in _serving_layers(cfg, params):
-        entry, h = cache[f"pos{p}"], blk.norm(x)
+    cache = init_cache(cfg, b, s, device=x.device,
+                       kv_heads=serving_kv_heads(cfg, layout and layout.plan)) \
+        if cfg.causal else {}
+    for r, p, blk, split in _serving_layers(cfg, params, tp):
+        entry, h = cache.get(f"pos{p}"), blk.norm(x)
         if cfg.pattern[p] == "mamba":
             y, state = ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, return_state=True)
-            _write_state(entry, r, state)
+            if entry is not None:
+                _write_state(entry, r, state)
             x = x + y
         else:
-            ap = blk.attn
-            q, k, v = _qkv(cfg, ap, h, positions)
+            ap, attn = blk.attn, split.attn
+            q, k, v = _qkv(cfg, ap, h, positions, tp, attn)
             window = cfg.window if cfg.pattern[p] == "attn_local" else None
-            h = _self_attention(cfg, q, k, v, window, True)
-            x = x + dense(h.reshape(b, s, cfg.num_heads * hd), ap.o.weight)
-            kc, vc = entry["k"][r], entry["v"][r]
-            s_c = kc.shape[1]
-            kc.copy_(k[:, s - s_c:])
-            vc.copy_(v[:, s - s_c:])
-        x, _ = _ffn(cfg, blk, x, moe_groups)
+            h = _self_attention(cfg, q, k, v, window, cfg.causal)
+            x = x + _o_proj(ap, h, tp, attn)
+            if entry is not None:
+                kc, vc = _held(entry["k"][r], k), _held(entry["v"][r], v)
+                s_c = kc.shape[1]
+                kc.copy_(k[:, s - s_c:])
+                vc.copy_(v[:, s - s_c:])
+        x, _ = _ffn(cfg, blk, x, moe_groups, None, tp, split.ffn)
+    if not cfg.causal:  # the reference's encoder branch: no final softcap
+        return _head(cfg, params, x, tp, softcap=False), {}
     cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
-    return _head(cfg, params, x[:, -1:, :]), cache
+    return _head(cfg, params, x[:, -1:, :], tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -626,7 +690,7 @@ def paged_positions(cfg: ModelConfig) -> tuple[int, ...]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, skip: tuple = (),
-               device: torch.device | str) -> dict:
+               device: torch.device | str, kv_heads: int | None = None) -> dict:
     """Per-slot decode state for a context of ``seq_len`` tokens:
     ``{"len": () int32}`` plus, per pattern position not in ``skip``,
     ``{"k", "v"}`` of shape ``(repeats, batch, s_c, KV, hd)`` in the compute
@@ -635,7 +699,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, skip: tuple = (),
     (the dense cache); for a Mamba position ``{"h"}`` float32 ``(repeats,
     batch, d_inner, d_state)`` and ``{"conv"}`` ``(repeats, batch, K-1,
     d_inner)`` in the compute type, whatever ``seq_len``.  Paged serving
-    skips every full-attention position (its KV is in the pool)."""
+    skips every full-attention position (its KV is in the pool).
+    ``kv_heads``: the KV heads a tp rank holds (``serving_kv_heads``;
+    default every head)."""
     cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=device)}
     cdt = _dtype(cfg.compute_dtype)
     for p in range(cfg.period):
@@ -649,21 +715,22 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, skip: tuple = (),
                 "conv": torch.zeros((cfg.repeats, batch, cfg.ssm_conv - 1, d_inner),
                                     dtype=cdt, device=device)}
             continue
-        shape = (cfg.repeats, batch, _cache_len_for(cfg, p, seq_len), cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+        shape = (cfg.repeats, batch, _cache_len_for(cfg, p, seq_len),
+                 cfg.num_kv_heads if kv_heads is None else kv_heads, cfg.resolved_head_dim)
         cache[f"pos{p}"] = {"k": torch.zeros(shape, dtype=cdt, device=device),
                             "v": torch.zeros(shape, dtype=cdt, device=device)}
     return cache
 
 
 def init_pages(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-               device: torch.device | str) -> dict:
+               device: torch.device | str, kv_heads: int | None = None) -> dict:
     """The paged KV pool: per full-attention pattern position a
-    ``(repeats, num_blocks, block_size, KV, hd)`` pool for k and for v.
-    Block 0 is the sentinel: never allocated, the write target of inactive
+    ``(repeats, num_blocks, block_size, KV, hd)`` pool for k and for v
+    (``KV`` = ``kv_heads``, a tp rank's count, default every head).  Block
+    0 is the sentinel: never allocated, the write target of inactive
     lanes."""
-    shape = (cfg.repeats, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (cfg.repeats, num_blocks, block_size,
+             cfg.num_kv_heads if kv_heads is None else kv_heads, cfg.resolved_head_dim)
     cdt = _dtype(cfg.compute_dtype)
     return {
         f"pos{p}": {
@@ -692,14 +759,42 @@ def _layers(cfg: ModelConfig, params: Transformer):
             yield r, p, params.blocks[r * cfg.period + p]
 
 
-def _serving_layers(cfg: ModelConfig, params: Transformer):
-    """``_layers`` with each block's parameters gathered whole while the
-    caller's loop body runs (a sharded model; as they are otherwise): one
-    block stands whole at a time."""
+def _serving_layers(cfg: ModelConfig, params: Transformer, tp=None):
+    """``(repeat, position, block, split)`` in layer order, each block's
+    parameters gathered while the caller's loop body runs (a sharded model;
+    as they are otherwise): one block at a time stands whole, or under
+    ``tp`` (``dist.sharding.tensor_parallel`` of the model's layout) split
+    by ``tp_split``, its split leaves kept as the rank's shards (``split``
+    splits nothing without tp).  Counts each block's sublayers in
+    ``tp_counts``."""
     layout = sharding.layout_of(params)
     for r, p, blk in _layers(cfg, params):
-        with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}."):
-            yield r, p, blk
+        split = sharding.tp_split(cfg, p, layout.plan if tp is not None else None)
+        if tp is not None:
+            _count_split(split)
+        with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}.", split=split):
+            yield r, p, blk, split
+
+
+def serving_kv_heads(cfg: ModelConfig, plan=None) -> int:
+    """The KV heads an attention layer keeps in this rank's serving caches
+    on ``plan``: ``dist.sharding.serving_kv_heads`` where the plan holds
+    sharded state (a rank rung: the model serves split over its tp axes),
+    every head otherwise (None, a local mesh)."""
+    attn = [p for p in range(cfg.period) if cfg.pattern[p] != "mamba"]
+    if not attn or not sharding.shards_state(plan):
+        return cfg.num_kv_heads
+    return sharding.serving_kv_heads(cfg, attn[0], plan)[1]
+
+
+def _held(cache: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``cache`` (a layer's pool, ring or dense cache, heads on dim -2),
+    checked to hold the KV heads of ``new``, the layer's k or v."""
+    if cache.shape[-2] != new.shape[-2]:
+        raise ValueError(f"a serving cache holds {cache.shape[-2]} KV heads a layer, this "
+                         f"rank computes {new.shape[-2]}: build it with kv_heads="
+                         f"serving_kv_heads(cfg, plan)")
+    return cache
 
 
 def _state(entry: dict, r: int) -> dict:
@@ -720,12 +815,9 @@ def tp_heads(cfg: ModelConfig, tp, split: str | None) -> tuple[int, int, int, in
     every head)."""
     if split is None:
         return 0, cfg.num_heads, 0, cfg.num_kv_heads
-    t, n = tp.rank, tp.size
-    hq = cfg.num_heads // n
-    if split == "local":
-        hk = cfg.num_kv_heads // n
-        return t * hq, hq, t * hk, hk
-    return t * hq, hq, t // (n // cfg.num_kv_heads), 1
+    hq = cfg.num_heads // tp.size
+    k0, hk = sharding.TpSplit(tp.size, split).kv_heads(cfg.num_kv_heads, tp.rank)
+    return tp.rank * hq, hq, k0, hk
 
 
 def _rows(w: torch.Tensor | None, lo: int, n: int, hd: int) -> torch.Tensor | None:
@@ -783,12 +875,34 @@ def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=No
     return x + y, aux
 
 
-def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
+def _o_proj(ap: Attention, h: torch.Tensor, tp=None, split: str | None = None
+            ) -> torch.Tensor:
+    """The attention's output projection of ``h`` (B, S, heads, hd): every
+    head, or under ``split`` the rank's heads' rows, all-reduced over tp."""
+    y = dense(h.reshape(*h.shape[:2], -1), ap.o.weight)
+    return y if split is None else tp.reduce(y)
+
+
+def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor, tp=None,
+          softcap: bool = True) -> torch.Tensor:
+    """float32 logits of the final-normed ``x``, capped by
+    ``cfg.final_softcap`` (``softcap``).  Under ``tp`` (serving) with V
+    split over tp: this rank's ``V/T`` logits, then one all-gather over tp;
+    a head the specs leave whole over tp computes whole (counted)."""
     x = params.final_norm(x)
-    logits = dense(x, _whole(params, "lm_head.weight")).float()
-    if cfg.final_softcap is not None:
+    w, dim = _tp_shard(params, "lm_head.weight", tp)
+    logits = dense(x, w).float()
+    if softcap and cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
+    if tp is None:
+        return logits
+    if dim is None:
+        _count_tp("tp_whole", ("head",))
+        return logits
+    if dim != 0:
+        raise ValueError(f"lm_head.weight is split over tp along dim {dim}, not the vocabulary")
+    _count_tp("tp_split", ("head",))
+    return all_gather_dim([logits], [logits.dim() - 1], tp.mesh, tp.axes)[0]
 
 
 @torch.no_grad()
@@ -816,9 +930,12 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
 
     The cache and the pool are updated IN PLACE (the reference returns new
     ones); the returned dicts hold the same tensors.  Returns (logits
-    (B, 1, V) float32, new cache), and the pool after them when paged."""
+    (B, 1, V) float32, new cache), and the pool after them when paged.
+    Under tp (the module docstring) the cache and the pool hold the rank's
+    KV heads, and every rank returns the whole logits."""
     key = "tokens" if cfg.input_mode == "tokens" else "embeddings"
-    x = _embed_input(cfg, params, {key: tokens})
+    tp = sharding.tensor_parallel(sharding.layout_of(params))
+    x = _serve_input(cfg, params, {key: tokens}, tp)
     b = x.shape[0]
     pos_now = cache["len"]
     posv = pos_now.reshape(b) if pos_now.dim() == 1 else pos_now.expand(b)
@@ -827,19 +944,18 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
     if pages_in and tables is None:
         raise ValueError("decode_step: paged decode needs the block tables")
     lengths = (posv + 1).to(torch.int32)  # the kernel's type, converted once
-    hd = cfg.resolved_head_dim
     rows = torch.arange(b, device=x.device)
-    for r, p, blk in _serving_layers(cfg, params):
+    for r, p, blk, split in _serving_layers(cfg, params, tp):
         name, hn = f"pos{p}", blk.norm(x)
         if cfg.pattern[p] == "mamba":
             y, state = ssm.mamba_decode_step(blk.mamba, _state(cache[name], r), hn)
             _write_state(cache[name], r, state)
-            x, _ = _ffn(cfg, blk, x + y, moe_groups)
+            x, _ = _ffn(cfg, blk, x + y, moe_groups, None, tp, split.ffn)
             continue
-        ap = blk.attn
-        q, k, v = _qkv(cfg, ap, hn, posv[:, None])
+        ap, attn = blk.attn, split.attn
+        q, k, v = _qkv(cfg, ap, hn, posv[:, None], tp, attn)
         if name in pages_in:
-            pk, pv = pages_in[name]["k"][r], pages_in[name]["v"][r]
+            pk, pv = _held(pages_in[name]["k"][r], k), _held(pages_in[name]["v"][r], v)
             blk_sz, n_max = pk.shape[1], tables.shape[1]
             # a free lane's position keeps counting while it idles; clamp its
             # table column (it writes the sentinel block either way)
@@ -854,18 +970,18 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
                 q, pk, pv, tables, lengths, softcap=cfg.attn_softcap
             )
         else:
-            kc, vc = cache[name]["k"][r], cache[name]["v"][r]
+            kc, vc = _held(cache[name]["k"][r], k), _held(cache[name]["v"][r], v)
             s_c = kc.shape[1]
             slot = posv % s_c  # a full dense cache wraps too, as the reference's
             kc[rows, slot] = k[:, 0]
             vc[rows, slot] = v[:, 0]
             h = attn_lib.decode_attention(q, kc, vc, (posv + 1).clamp(max=s_c),
                                           softcap=cfg.attn_softcap, window=None)
-        x = x + dense(h.reshape(b, 1, cfg.num_heads * hd), ap.o.weight)
-        x, _ = _ffn(cfg, blk, x, moe_groups)
+        x = x + _o_proj(ap, h, tp, attn)
+        x, _ = _ffn(cfg, blk, x, moe_groups, None, tp, split.ffn)
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
-    logits = _head(cfg, params, x)
+    logits = _head(cfg, params, x, tp)
     if pages is None:
         return logits, new_cache
     return logits, new_cache, pages
@@ -898,13 +1014,16 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
     (``init_cache(cfg, 1, max_seq, skip=paged_positions(cfg))`` shapes).
     batch: ``{"tokens": (1, C)}`` or ``{"embeddings": (1, C, d_model)}``, C
     a multiple of the block size.  Returns (last-position logits (1, 1, V)
-    float32, new row, pages)."""
-    x = _embed_input(cfg, params, batch)
+    float32, new row, pages).  Under tp (the module docstring) the rings
+    and the pool hold the rank's KV heads, and every rank returns the
+    whole logits."""
+    tp = sharding.tensor_parallel(sharding.layout_of(params))
+    x = _serve_input(cfg, params, batch, tp)
     c = x.shape[1]
     dev = x.device
     offset = int(offset)
     q_pos = offset + torch.arange(c, dtype=torch.int32, device=dev)
-    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     paged = set(paged_positions(cfg))
     prior_idx = prior_tab.long()
     ones = torch.ones(c, dtype=torch.int32, device=dev)
@@ -912,19 +1031,20 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
     sc = min(cfg.ssm_chunk, c)
     if c % sc:  # the scan needs an even split: one chunk of all C
         sc = c
-    for r, p, blk in _serving_layers(cfg, params):
+    for r, p, blk, split in _serving_layers(cfg, params, tp):
         hn = blk.norm(x)
         if cfg.pattern[p] == "mamba":
             entry = row[f"pos{p}"]
             y, state = ssm.mamba_apply(blk.mamba, hn, chunk=sc, return_state=True,
                                        state=_state(entry, r))
             _write_state(entry, r, state)
-            x, _ = _ffn(cfg, blk, x + y, moe_groups)
+            x, _ = _ffn(cfg, blk, x + y, moe_groups, None, tp, split.ffn)
             continue
-        ap = blk.attn
-        q, k, v = _qkv(cfg, ap, hn, q_pos[None, :])
+        ap, attn = blk.attn, split.attn
+        q, k, v = _qkv(cfg, ap, hn, q_pos[None, :], tp, attn)
+        kv = k.shape[2]  # the KV heads this rank computes and holds
         if p in paged:  # full attention: prior context from the pool
-            pk, pv = pages[f"pos{p}"]["k"][r], pages[f"pos{p}"]["v"][r]
+            pk, pv = _held(pages[f"pos{p}"]["k"][r], k), _held(pages[f"pos{p}"]["v"][r], v)
             blk_sz = pk.shape[1]
             prior = prior_idx.numel() * blk_sz
             if "pool" not in keys:
@@ -940,7 +1060,7 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
             pk[write_tab.long()] = k[0].reshape(-1, blk_sz, kv, hd)
             pv[write_tab.long()] = v[0].reshape(-1, blk_sz, kv, hd)
         else:  # sliding window: prior context from the ring
-            ring_k, ring_v = row[f"pos{p}"]["k"][r], row[f"pos{p}"]["v"][r]
+            ring_k, ring_v = _held(row[f"pos{p}"]["k"][r], k), _held(row[f"pos{p}"]["v"][r], v)
             s_c = ring_k.shape[1]
             if "ring" not in keys:
                 prior_pos = offset - s_c + torch.arange(s_c, dtype=torch.int32, device=dev)
@@ -959,8 +1079,8 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
             w = keys["ring_write"].numel()
             ring_k[:, keys["ring_write"]] = k[:, c - w:]
             ring_v[:, keys["ring_write"]] = v[:, c - w:]
-        x = x + dense(h.reshape(1, c, cfg.num_heads * hd), ap.o.weight)
-        x, _ = _ffn(cfg, blk, x, moe_groups)
+        x = x + _o_proj(ap, h, tp, attn)
+        x, _ = _ffn(cfg, blk, x, moe_groups, None, tp, split.ffn)
     new_row = dict(row)
     new_row["len"] = row["len"] + c
-    return _head(cfg, params, x[:, -1:, :]), new_row, pages
+    return _head(cfg, params, x[:, -1:, :], tp), new_row, pages

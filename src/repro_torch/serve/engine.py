@@ -61,15 +61,31 @@ physical device, so a rung change moves no byte.  On a rank rung
     ``Scheduler``, ``BlockPool`` and policy take the same decisions and
     issue the same collectives in the same order.
 
-Two layouts differ from the reference's (ROADMAP.md Queue A 5): the block
-pool stays whole on every rank of the rung (each decode step gathers the
-rows' newly written K/V entries, ``rows x layers x 2 x kv x hd`` elements,
-so the pools stay equal; the reference puts its block axis on dp), and a
-prefill chunk (one row) runs on every rank of the rung (the reference
-falls back to the sequence axis).  Ranks that enter a rung take the pool,
-the prefill rows and the cached prompt rows from its first rank.
-``moe_impl="ep"`` is refused on ranks (Queue A 5): serving gathers the
-experts whole.
+Tensor-parallel serving: on a rank rung or plan whose tp axes (the
+ladder's ``model_axes``, a ``(data, model)`` plan) span T > 1 ranks, each
+block splits over them as ``models/transformer.py`` describes (a rank's
+query heads, KV heads and FFN columns, two all-reduces a layer; the
+embedding and the head from their tp shards), and the pool, the slot
+cache's rings and dense caches, the prefill rows and the cached prompt
+rows hold only the rank's KV heads (``dist.sharding.serving_kv_heads`` on
+the ladder's widest rung: ``MeshLadder`` keeps the model axes, so a rank
+keeps its tp coordinate, and its heads, on every rung).  That is the
+reference's ``cache_pspecs`` kv-heads rule, but where T ranks share a KV
+head: the port holds that head whole on each of them (the reference
+splits its ``head_dim``; ROADMAP.md Queue C 3).  The rows of a data row
+group are decoded by each of its T ranks alike, so only tp coordinate 0
+of each group contributes them to the token agreement, and the state a
+rank that enters a rung takes comes from the first rank of its own tp
+coordinate, over the data axes.
+
+Two layouts differ from the reference's (ROADMAP.md Queue A 5): the
+pool's block axis stays whole on every rank of a data row (each decode
+step all-gathers the rows' newly written K/V entries over the data axes,
+``rows x layers x 2 x kv x hd`` elements of the rank's heads, so the pools
+of a tp coordinate stay equal; the reference puts its block axis on dp),
+and a prefill chunk (one row) runs on every data row of the rung (the
+reference falls back to the sequence axis).  ``moe_impl="ep"`` is refused
+on ranks (Queue A 5): serving gathers the experts over the data axes.
 """
 
 from __future__ import annotations
@@ -297,6 +313,10 @@ class ServeEngine:
             # the group every rank's tokens and the policy's decisions are agreed over
             self._control = elastic.control() if elastic is not None else (
                 mesh.group(mesh.axis_names), mesh.group_ranks(mesh.axis_names))
+        # the KV heads this rank serves: its tp coordinate's on the widest rung
+        widest = elastic.full.plan if elastic is not None else plan
+        self._kv_heads = tf.serving_kv_heads(cfg, widest)
+        self._tp_rank = sharding.tp_rank(widest) if sharding.shards_state(widest) else 0
         self.cfg = cfg
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
@@ -349,7 +369,7 @@ class ServeEngine:
             pool_blocks = padded_prompt_len(1 + self.max_slots * self._n_max, 1)
         self.pool = BlockPool(int(pool_blocks), self.block_size)
         self._pages = tf.init_pages(self.cfg, int(pool_blocks), self.block_size,
-                                    device=self.device)
+                                    device=self.device, kv_heads=self._kv_heads)
         self._req_blocks: dict[int, _BlockState] = {}
         self._jobs: list[_PrefillJob] = []
         self._prompt_cache: collections.OrderedDict = collections.OrderedDict()
@@ -398,7 +418,8 @@ class ServeEngine:
     def _agree(self, toks, n: int) -> np.ndarray:
         """The ``n`` tokens every rank records: ``toks`` off ranks; on ranks
         the sum over the control group of each rank's contribution (its own
-        entries, zeros elsewhere; ``None`` contributes nothing)."""
+        entries, zeros elsewhere; ``None`` contributes nothing: so at most
+        one rank contributes any entry)."""
         if not self._ranked:
             return np.asarray(toks)
         buf = torch.zeros(n, dtype=torch.int64)
@@ -481,15 +502,18 @@ class ServeEngine:
     def _fresh_cache(self, bucket: int) -> dict:
         """A zeroed whole slot cache of ``bucket`` rows."""
         cache = tf.init_cache(self.cfg, bucket, self.max_seq, skip=self._paged,
-                              device=self.device)
+                              device=self.device, kv_heads=self._kv_heads)
         cache["len"] = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
         return cache
 
     def _from_root(self, tensors: list[torch.Tensor]) -> None:
-        """Overwrite ``tensors`` with the live rung's first rank's, over the
-        rung (the ranks that just entered it receive)."""
-        mesh = self._live_plan.mesh
-        broadcast_(tensors, mesh.root, mesh.group(mesh.axis_names))
+        """Overwrite ``tensors`` with those of the live rung's first rank of
+        this rank's tp coordinate, over the rung's data axes (the ranks that
+        just entered it receive; under tp the tp ranks hold different KV
+        heads, so each coordinate has its own root)."""
+        plan = self._live_plan
+        mesh = plan.mesh
+        broadcast_(tensors, mesh.group_ranks(plan.dp)[0], mesh.group(plan.dp))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -694,7 +718,7 @@ class ServeEngine:
         """Zeroed per-request prefill carry (``len`` and the rings) starting
         at position ``off`` (> 0 when a shared prefix was adopted)."""
         row = tf.init_cache(self.cfg, 1, self.max_seq, skip=self._paged,
-                            device=self.device)
+                            device=self.device, kv_heads=self._kv_heads)
         row["len"] = torch.full((1,), off, dtype=torch.int32, device=self.device)
         return row
 
@@ -996,7 +1020,8 @@ class ServeEngine:
         records.  On a rank rung that splits the rows, this rank decodes its
         own (with its slice of the tokens, tables and lengths) and the rows'
         new pool entries are gathered; the per-step host transfer is one
-        (B,) vector."""
+        (B,) vector.  The T tp ranks of a data row decode its rows alike:
+        tp coordinate 0 alone contributes them."""
         b = self._bucket
         if not self._active:
             return self._agree(None, b)
@@ -1013,13 +1038,16 @@ class ServeEngine:
         split = hi - lo < b
         if split:
             self._share_entries(running, tables, lo, hi)
-        return self._agree(out if split or self._speaks else None, b)
+        mine = (split and self._tp_rank == 0) or self._speaks
+        return self._agree(out if mine else None, b)
 
     def _share_entries(self, running, tables: np.ndarray, lo: int, hi: int) -> None:
         """Every rank of the rung writes the K/V entries the other ranks'
         rows just wrote into their pools: one all-gather of each rank's
-        rows' entries (free lanes read from block 0 and are dropped), so the
-        pools stay equal but for the sentinel block's garbage."""
+        rows' entries over the data axes, within the rank's tp coordinate
+        (its KV heads; free lanes read from block 0 and are dropped), so the
+        pools of a tp coordinate stay equal but for the sentinel block's
+        garbage."""
         leaves = [x for entry in self._pages.values() for x in (entry["k"], entry["v"])]
         if not leaves:
             return

@@ -1,6 +1,7 @@
 """What each rank of the process-group tests (``tests/test_torch_scaleout.py``,
 ``test_torch_sharded.py``, ``test_torch_moe_ep.py``,
-``test_torch_serve_elastic.py``, ``test_torch_dryrun_ranks.py``) runs.
+``test_torch_serve_elastic.py``, ``test_torch_dryrun_ranks.py``,
+``test_torch_tensor_parallel.py``, ``test_torch_serve_tp.py``) runs.
 
 A spawned process imports this module (never JAX: the reference runs in
 the test process) and calls :func:`run`, which joins a gloo group of
@@ -1067,13 +1068,254 @@ def tp_gradcheck(a: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (tests/test_torch_serve_tp.py)
+# ---------------------------------------------------------------------------
+
+
+class _Attention:
+    """A module of attention functions as ``models/transformer.py`` sees it
+    while a :class:`ServeSpy` is active: the names ``spied`` record the
+    heads ``(query, KV)`` of each call, then run the module's own (whose
+    names stay theirs: a kernel wrapper counts its launches under its
+    name)."""
+
+    def __init__(self, module, spied, heads: set):
+        self._module, self._spied, self._heads = module, spied, heads
+
+    def __getattr__(self, name):
+        fn = getattr(self._module, name)
+        if name not in self._spied:
+            return fn
+
+        def call(q, k, *a, **kw):
+            self._heads.add((q.shape[2], k.shape[-2]))
+            return fn(q, k, *a, **kw)
+        return call
+
+
+class ServeSpy:
+    """Records, while active, the head counts ``(query, KV)`` the serving
+    attention calls see (the paged-decode and chunk wrappers, the plain
+    ring decode), the dense FFNs' hidden widths and the experts' widths."""
+
+    def __init__(self):
+        self.heads, self.ffn, self.moe = set(), set(), set()
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        self.saved = (tf.kernels_attn, tf.attn_lib, tf.FFN.forward, tf.moe_apply)
+        kattn, attn_lib, ffn_fwd, moe = self.saved
+
+        def spy_ffn(mod, x):
+            self.ffn.add((mod.w_up if mod.glu else mod.w_in).weight.shape[0])
+            return ffn_fwd(mod, x)
+
+        def spy_moe(params, x, **kw):
+            self.moe.add(params.w_gate.shape[-1])
+            return moe(params, x, **kw)
+
+        tf.kernels_attn = _Attention(kattn, ("paged_decode_attention", "chunk_attention"),
+                                     self.heads)
+        tf.attn_lib = _Attention(attn_lib, ("decode_attention",), self.heads)
+        tf.FFN.forward, tf.moe_apply = spy_ffn, spy_moe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+
+        tf.kernels_attn, tf.attn_lib, tf.FFN.forward, tf.moe_apply = self.saved
+
+
+def _np(tree) -> dict:
+    from repro_torch.ckpt.checkpoint import tree_flatten_with_paths
+
+    return {p: t.detach().cpu().numpy().copy() for p, t in tree_flatten_with_paths(tree)}
+
+
+def serve_recorded(eng, reqs, every: bool = False) -> dict:
+    """:func:`serve_ramp` on ``eng``, recording each decode step's logits
+    of the live rows (with the engine step and the slot rows ``[lo, hi)``
+    this process decoded; free lanes read the sentinel block) and, after every step on which this process computes on the
+    ladder's widest rung (every step off a ladder), a snapshot of the pool
+    and the slot cache: the last (``snap``), or with ``every`` all of them
+    by step (``snaps``)."""
+    from repro_torch.models import transformer as tf
+
+    rec = {"logits": [], "snap": None, "snaps": {}}
+    inner_step, inner_decode = eng.step, tf.decode_step
+    count = [0]
+
+    def decode(*a, **kw):
+        out = inner_decode(*a, **kw)
+        lo, hi = eng._row_range(eng._bucket)
+        live = np.asarray(eng.sched.slot_rids())[lo:hi] >= 0  # free lanes read garbage
+        rec["logits"].append((count[0], (lo, hi), live, out[0].detach().cpu().numpy()))
+        return out
+
+    def step():
+        more = inner_step()
+        count[0] += 1
+        on = eng._elastic is None or eng.rung.index == eng._elastic.full.index
+        if on and eng._active and eng._cache:
+            rec["snap"] = {"step": count[0], "rows": eng._row_range(eng._bucket),
+                           "split": eng._splits(), "pool": _np(eng._pages),
+                           "cache": _np(eng._cache)}
+            if every:
+                rec["snaps"][count[0]] = rec["snap"]
+        return more
+
+    eng.step, tf.decode_step = step, decode
+    try:
+        rec["tokens"], rec["rungs"] = serve_ramp(eng, reqs)
+    finally:
+        tf.decode_step = inner_decode
+    rec["rungs"] = sorted(r for r in rec["rungs"] if r is not None)
+    return rec
+
+
+def _tp_entries(cfg, tree, plan, max_seq: int) -> dict:
+    """``prefill_step`` (its dense cache), ``prefill_chunk`` (the pool and
+    the rings) then paged ``decode_step`` on a module sharded on the tp
+    ``plan`` and on the whole module: the logits' largest gap relative to
+    their largest magnitude, and the largest gap of the caches this rank
+    holds against the whole ones' heads ``[first, first + count)``,
+    relative to each leaf's largest magnitude."""
+    from repro_torch.dist import sharding
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+
+    whole = params_from_jax(tree, cfg)
+    shard = place(params_from_jax(tree, cfg), plan)
+    attn = [p for p in range(cfg.period) if cfg.pattern[p] != "mamba"][0]
+    first, count = sharding.serving_kv_heads(cfg, attn, plan)
+    r = np.random.default_rng(17)
+    toks = torch.from_numpy(r.integers(1, cfg.vocab_size, size=(2, 16)))
+    chunk = torch.from_numpy(r.integers(1, cfg.vocab_size, size=(1, 16)))
+
+    def serve(model):
+        kv = tf.serving_kv_heads(cfg, plan if model is shard else None)
+        logits, dense = tf.prefill_step(cfg, model, {"tokens": toks})
+        ld, dense = tf.decode_step(cfg, model, dense, toks[:, -1:])
+        pages = tf.init_pages(cfg, 8, 8, device="cpu", kv_heads=kv)
+        row = tf.init_cache(cfg, 1, max_seq, skip=tf.paged_positions(cfg), device="cpu",
+                            kv_heads=kv)
+        row["len"] = torch.zeros((1,), dtype=torch.int32)
+        lc, row, pages = tf.prefill_chunk(cfg, model, row, pages, {"tokens": chunk}, 0,
+                                          torch.zeros((0,), dtype=torch.int64),
+                                          torch.tensor([1, 2]))
+        lp, row, pages = tf.decode_step(cfg, model, row, chunk[:, -1:], pages=pages,
+                                        tables=torch.tensor([[1, 2, 3, 0]]))
+        return [logits, ld, lc, lp], {"dense": _np(dense), "row": _np(row),
+                                      "pages": _np(pages)}
+
+    (lw, cw), (ls, cs) = serve(whole), serve(shard)
+    gap = 0.0
+    for tree_w, tree_s in ((cw[k], cs[k]) for k in cw):
+        for path, w in tree_w.items():
+            x = tree_s[path]
+            if path.rsplit("/", 1)[-1] in ("k", "v"):
+                w = w[..., first:first + count, :]
+            if x.size:
+                gap = max(gap, float(np.abs(x - w).max() / max(np.abs(w).max(), 1e-30)))
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(ls, lw))
+    return {"logits_rel": rel, "cache_gap": gap, "heads": (first, count)}
+
+
+def serve_tp(a: dict) -> dict:
+    """Each case of ``a["cases"]`` served through :func:`serve_recorded` on
+    its rank rung: ``case["shape"]`` ``(data, model)`` a fixed plan under
+    ``use_plan``, or ``"ladder"``, ``MeshLadder(model_axes=(("model", 2),))``
+    over the world's ranks; the model from the reference weights
+    ``a["trees"][case["params"]]`` (``case["extra"]`` replaced in the
+    config), under a :class:`ServeSpy`.  Per case the tokens, the logits and
+    the snapshot, this rank's KV heads and tp coordinate, held and reckoned
+    parameters, ``tp_counts``; with ``case["entries"]``, :func:`_tp_entries`.
+    Then ``moe_impl="ep"`` on a tp rung, which must be refused."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import rank_devices, use_plan
+    from repro_torch.elastic import MeshLadder
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+
+    kw = dict(max_slots=8, max_seq=a["max_seq"], prompt_granule=a["granule"], block_size=8,
+              prefill_chunk=8)
+    plans, out = {}, {}
+    for case in a["cases"]:
+        shape = case["shape"]
+        if shape not in plans:  # every rank builds the meshes in the same order
+            plans[shape] = (MeshLadder(rank_devices("cpu"), granule=1,
+                                       model_axes=(("model", 2),)) if shape == "ladder"
+                            else rung_plan(tuple(shape)))
+        cfg = get_config(case["arch"], reduced=True).replace(**case.get("extra", {}))
+        params = params_from_jax(a["trees"][case["params"]], cfg)
+        reqs = [Request(prompt=p, max_new_tokens=m) for p, m in zip(a["prompts"], a["max_new"])]
+        tf.reset_tp_counts()
+        with ServeSpy() as spy:
+            if shape == "ladder":
+                eng = ServeEngine(cfg, params, elastic=plans[shape], **kw)
+                widest = plans[shape].full.plan
+            else:
+                with use_plan(plans[shape]):
+                    eng = ServeEngine(cfg, params, **kw)
+                widest = plans[shape]
+            rec = serve_recorded(eng, reqs)
+        layout = sharding.layout_of(eng.params)
+        attn = [p for p in range(cfg.period) if cfg.pattern[p] != "mamba"][0]
+        rec.update(heads=sorted(spy.heads), ffn=sorted(spy.ffn), moe=sorted(spy.moe),
+                   tp_counts=tf.tp_counts(), tp_rank=eng._tp_rank, kv_heads=eng._kv_heads,
+                   first=sharding.serving_kv_heads(cfg, attn, widest)[0],
+                   held=sum(p.numel() for p in eng.params.parameters()),
+                   reckoned=layout.numel() if layout is not None else None,
+                   reshards=eng.stats.reshards)
+        if case.get("entries"):
+            rec["entries"] = _tp_entries(cfg, a["trees"][case["params"]], widest,
+                                         a["max_seq"])
+        out[case["name"]] = rec
+    cfg = get_config("dbrx-132b", reduced=True)
+    try:
+        with use_plan(rung_plan((1, dist.get_world_size()))):
+            ServeEngine(cfg.replace(moe_impl="ep"), params_from_jax(a["trees"]["dbrx"], cfg),
+                        **kw)
+        out["ep_refused"] = ""
+    except NotImplementedError as e:
+        out["ep_refused"] = str(e)
+    return out
+
+
+def serve_tp_cli(a: dict) -> dict:
+    """``launch.serve --device cpu --tp 2 --backend gloo`` on the ranks; on
+    rank 0 also the one-process CLI on the same flags."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    flags = ["--device", "cpu", "--requests", "6", "--max-new", "6", "--prefill-chunk", "8",
+             "--block-size", "8"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = launch_serve.main(flags + ["--tp", "2", "--backend", "gloo"])
+    out = {"tokens": [r.tokens.tolist() for r in got["results"]], "out": buf.getvalue(),
+           "kv_heads": got["engine"]._kv_heads}
+    if dist.get_rank() == 0:
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = launch_serve.main(flags)
+        out["one"] = [r.tokens.tolist() for r in one["results"]]
+    return out
+
+
 JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_moe,
         "pod": pod, "cli": cli, "pod_mean": pod_mean, "sharded_train": sharded_train,
         "sharded_collectives": sharded_collectives, "sharded_ckpt": sharded_ckpt,
         "sharded_restore": sharded_restore, "moe_ep": moe_ep,
         "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli,
         "dryrun_collectives": dryrun_collectives, "tp_train": tp_train, "tp_grads": tp_grads,
-        "tp_gradcheck": tp_gradcheck}
+        "tp_gradcheck": tp_gradcheck, "serve_tp": serve_tp, "serve_tp_cli": serve_tp_cli}
 
 
 def start_ranks(tmp_path, job: str, args: dict, world: int):

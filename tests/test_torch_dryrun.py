@@ -360,6 +360,54 @@ def test_tp_trace_flops_split_over_the_model_axis():
     assert got == rest + 2 * (layer // 4 + kv // 4)
 
 
+# the serving KV heads of rank t of 16 by ``serving_kv_heads`` at the first
+# attention position: every head, "local" (KV/16 = 1 each) or the head 16/KV
+# ranks share
+SERVE16 = {"yi-6b": "shared", "qwen2-7b": "whole", "llama3-405b": "shared",
+           "gemma2-27b": "local", "internvl2-1b": "whole", "dbrx-132b": "shared",
+           "kimi-k2-1t-a32b": "shared", "falcon-mamba-7b": "whole",
+           "jamba-v0.1-52b": "shared", "hubert-xlarge": "local"}
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_serving_kv_heads_of_the_full_configs_at_16(arch):
+    """``serving_kv_heads`` of each tp rank of 16: every head where attention
+    computes whole (qwen2's 28 and internvl2's 14 heads, a Mamba
+    position), one head each where 16 divides the KV heads, else the one
+    head ``t // (16 / KV)`` whole; pure arithmetic, as ``tp_split``."""
+    cfg = get_config(arch)
+    plan = ShardingPlan(mesh=abstract_mesh((16, 16), ("data", "model")))
+    pos = next((p for p in range(cfg.period) if cfg.pattern[p] != "mamba"), 0)
+    got = [sharding.serving_kv_heads(cfg, pos, plan, t) for t in range(16)]
+    kv = cfg.num_kv_heads
+    want = {"whole": [(0, kv)] * 16, "local": [(t * kv // 16, kv // 16) for t in range(16)],
+            "shared": [(t // (16 // max(kv, 1)), 1) for t in range(16)]}[SERVE16[arch]]
+    assert got == want
+    if "mamba" in cfg.pattern:
+        assert sharding.serving_kv_heads(cfg, cfg.pattern.index("mamba"), plan, 3) == (0, kv)
+    assert sharding.serving_kv_heads(cfg, pos, None) == (0, kv)
+
+
+def test_serving_cache_holds_one_shared_head():
+    """Reduced yi-6b (4 query heads over 2 KV heads) on a fake ``(data 1,
+    model 4)`` world: two ranks share each KV head and each holds it whole,
+    so ``trace_decode``'s and ``trace_prefill``'s caches are one head's
+    exactly (k and v float32, and ``len``); the reference's layout splits
+    ``head_dim`` over the 4 ranks, half as much."""
+    cfg = get_config("yi-6b", reduced=True)
+    b, s = 2, 64
+    one_head = 2 * cfg.num_layers * b * s * cfg.resolved_head_dim * 4
+    with dryrun.fake_world(4):
+        mesh = dryrun.rank_mesh((1, 4), ("data", "model"))
+        plan = ShardingPlan(mesh=mesh, dp=("data",), fsdp=("data",), tp="model", ep=("data",))
+        assert sharding.serving_kv_heads(cfg, 0, plan) == (0, 1)
+        dec = dryrun.trace_decode(cfg, plan, b, s)
+        pre = dryrun.trace_prefill(cfg, plan, b, s)
+    assert dec["cache_bytes"] == pre["cache_bytes"] == one_head + 4
+    assert dec["cache_bytes_reference_layout"] == pre["cache_bytes_reference_layout"] \
+        == one_head // 2 + 4
+
+
 # ---------------------------------------------------------------------------
 # the mini dry run in a fake world, and a production cell
 # ---------------------------------------------------------------------------
@@ -387,9 +435,9 @@ def test_mini_dryrun_in_a_fake_world_of_8():
                                                             torch.float32), arch
         res = dryrun.trace_decode(get_config("yi-6b", reduced=True), plan, 16, 64)
         assert res["analysis"]["flops"] > 0 and res["analysis"]["peak_bytes"] > 0
-        # 16 rows over dp 4: 4 a rank, every other dim whole (the reference
-        # also splits the kv heads over tp)
-        assert res["cache_bytes"] == 2 * res["cache_bytes_reference_layout"] - 4
+        # 16 rows over dp 4: 4 a rank, and 1 of the 2 kv heads over tp 2:
+        # the reference's layout
+        assert res["cache_bytes"] == res["cache_bytes_reference_layout"]
     with pytest.raises(RuntimeError, match="process group exists"):
         with dryrun.fake_world(2):
             with dryrun.fake_world(2):
@@ -405,7 +453,9 @@ def test_run_cell_records_a_production_cell(tmp_path):
         tf.param_specs(dryrun.dryrun_config("yi-6b")), lmesh.make_plan(
             abstract_mesh((16, 16), ("data", "model"))), None)
     assert m["fits_80gb"] == (m["peak_bytes"] <= 80e9)
-    assert m["cache_bytes"] == 16 * m["cache_bytes_reference_layout"] - 15 * 4
+    # one KV head of 4 whole a rank (4 ranks share it), where the reference
+    # splits head_dim over the 16: 4 times its layout, but for ``len``
+    assert m["cache_bytes"] == 4 * m["cache_bytes_reference_layout"] - 3 * 4
     assert c["flops_per_device"] > 0 and 0 < c["useful_flops_ratio"] < 1
     assert rec["collectives"]["by_kind"]["all-gather"]["count"] > 0
     assert rec["roofline"]["step_time_lower_bound_s"] == max(

@@ -1604,6 +1604,59 @@ def test_chunk_forward_at_kimi_serving_shape(cuda, dtype):
     assert kernels.route_counts()["chunk_attention"][route] == 1
 
 
+# a tp rank's serving head counts (query, KV, hd, window, softcap): Yi-6B's
+# 32/4 at T 2 and T 16, llama3-405b's 128/8, gemma2-27b's 32/16 (its
+# softcap, and a window of 300 keys across the chunk's prior: its local
+# layers' 4096 at a shorter context) and kimi-k2's 64/8 of hd 112 at T 16
+TP_SERVING = {"yi T2": (16, 2, 128, None, None), "yi T16": (2, 1, 128, None, None),
+              "llama3 T16": (8, 1, 128, None, None), "gemma2 T16": (2, 1, 128, 300, 50.0),
+              "kimi-k2 T16": (4, 1, 112, None, None)}
+
+
+@pytest.mark.parametrize("form", list(TP_SERVING))
+def test_paged_decode_at_tp_serving_heads(cuda, form):
+    """Paged decode at a tp rank's heads (bf16, 8 slots, block 16, the
+    table of max_seq 2048, ragged lengths, a free lane on the sentinel
+    block) against its plain version."""
+    h, kv, hd, _, softcap = TP_SERVING[form]
+    r = np.random.default_rng(h * 7 + kv)
+    b, blk, n_max = 8, 16, 192
+    nb = n_max * b + 1
+    pool_k = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, torch.bfloat16)
+    pool_v = torch.from_numpy(r.standard_normal((nb, blk, kv, hd))).to(cuda, torch.bfloat16)
+    lengths = np.asarray([1, 16, 300, 1100, n_max * blk, 77, 5, 9], np.int32)
+    tables = np.zeros((b, n_max), np.int32)
+    ids = list(range(1, nb))
+    r.shuffle(ids)
+    for row, n in enumerate(lengths[:7]):
+        live = -(-int(n) // blk)
+        tables[row, :live] = ids[:live]
+        ids = ids[live:]
+    q = torch.from_numpy(r.standard_normal((b, 1, h, hd))).to(cuda, torch.bfloat16)
+    args = (q, pool_k, pool_v, torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(lengths).to(cuda))
+    kernels.reset_launch_counts()
+    got = kattn.paged_decode_attention(*args, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_decode_attention"] == 1
+    _close(got, ref.paged_decode_ref(*args, softcap=softcap), torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", list(TP_SERVING))
+def test_chunk_forward_at_tp_serving_heads(cuda, form):
+    """The chunk forward at a tp rank's heads: a 256-row chunk over 768
+    valid prior tokens in a 64-block table (gemma2's under its window and
+    softcap), bf16 on the tensor cores, against its plain version."""
+    h, kv, hd, window, softcap = TP_SERVING[form]
+    r = np.random.default_rng(h * 11 + kv)
+    args = _chunk_case(r, cuda, torch.bfloat16, 1, 256, 1024, 768, h, kv, hd)
+    kernels.reset_launch_counts()
+    got = kattn.chunk_attention(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    _close(got, ref.attention_ref(*args, window=window, softcap=softcap), torch.bfloat16)
+    assert kernels.route_counts()["chunk_attention"]["tc"] == 1
+
+
 # ---------------------------------------------------------------------------
 # the Mamba archs (the scan in plain PyTorch on the card; no kernel of its own)
 # ---------------------------------------------------------------------------
