@@ -6074,6 +6074,15 @@ def elastic_ranks_phase() -> dict:
 
 # phase 25's cut on a (data 1, model 2) rung: 3 moment-tier steps, then 2 gram-tier
 TP_WORLD, TP_GRAM_STEPS = 2, 2
+#: phase 30's peak a rank and step ms with the head and the embedding
+#: gathered whole on each rank (the vocabulary not split; NVIDIA H100 80GB
+#: HBM3, 700.00 W), printed beside this run's
+TP_WHOLE_VOCAB = {"peak_gib": 14.93, "ms": (2389.8, 2506.7)}
+#: the vocab-parallel collectives phase 30 prints apart (``transformer.
+#: vocab_parallel_counts``' kinds)
+TP_VOCAB_KINDS = {"xent_all_gather": "logsumexp/target all-gather",
+                  "input_all_gather": "embedding all-gather",
+                  "head_all_reduce": "head dx all-reduce"}
 
 
 def tp_plan_abstract():
@@ -6173,17 +6182,18 @@ def rank_tp(dev, args) -> dict:
     kattn.flash_attention, ops.persample_sq_norm_tree = spy_flash, spy_tree
 
     def timed(fn, state, batch, lr, into: list):
-        before, tp0 = clock.snapshot(), tensor_parallel_counts()
+        before, tp0, vp0 = clock.snapshot(), tensor_parallel_counts(), tf.vocab_parallel_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         state, metrics = fn(state, batch, lr)
         loss = float(metrics["loss"])
         torch.cuda.synchronize()
-        tp1 = tensor_parallel_counts()
+        tp1, vp1 = tensor_parallel_counts(), tf.vocab_parallel_counts()
         into.append({"batch": int(next(iter(batch.values())).shape[0]), "loss": loss,
                      "ms": 1e3 * (time.perf_counter() - t1),
                      "coll": clock_delta(before, clock.snapshot()),
-                     "tp": {k: tp1[k] - tp0[k] for k in tp1}})
+                     "tp": {k: tp1[k] - tp0[k] for k in tp1},
+                     "vp": {k: {m: vp1[k][m] - vp0[k][m] for m in vp1[k]} for k in vp1}})
         return state, metrics
 
     steps, inner = [], engine.step
@@ -6198,6 +6208,7 @@ def rank_tp(dev, args) -> dict:
                              plan=plan, log=lambda line: None)
         torch.cuda.synchronize()
         rec = {"steps": steps, "num_micro": [r["num_micro"] for r in out["records"]],
+               "moment_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
                "buckets": list(engine.stats.buckets), "launches": kernels.launch_counts(),
                "routes": kernels.route_counts(), "tp_counts": tf.tp_counts(),
                "heads": sorted(heads), "plan": plan_of(cfg, torch.bfloat16)}
@@ -6232,8 +6243,9 @@ def tp_phase() -> dict[str, dict]:
     counts of its paths, summed over the ranks."""
     phase(f"30. tensor-parallel training on {TP_WORLD} gloo ranks sharing the card: Yi-6B "
           f"widths at {SHARD_LAYERS} of 32 layers on a (data 1, model {TP_WORLD}) rung, each "
-          f"block's heads and FFN widths split over the ranks (Megatron-style; run within "
-          f"phase 25's gloo world)")
+          f"block's heads and FFN widths, the embedding's d and the head's V split over the "
+          f"ranks (Megatron-style, the cross-entropy vocab-parallel; run within phase 25's "
+          f"gloo world)")
     cfg = shard_yi_cfg()
     layers, t = cfg.num_layers, TP_WORLD
     mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, t, tp_plan_abstract())
@@ -6272,10 +6284,16 @@ def tp_phase() -> dict[str, dict]:
                                  f"{y['heads']}, expected {[(hq, hk)]}")
         attn_routes(y["launches"], y["plan"], what=f"{tag} tensor-parallel Yi",
                     routes=y["routes"])
-        split = {"tp_split": {"attn": layers * n_micro, "dense": layers * n_micro},
-                 "tp_whole": {"embed": n_micro, "head": n_micro}}
+        split = {"tp_split": {"attn": layers * n_micro, "dense": layers * n_micro,
+                              "embed": n_micro, "head": n_micro}, "tp_whole": {}}
         if y["tp_counts"] != split:
             raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split}")
+        # one of each a microbatch; a gram step's microbatch runs the probe pass too
+        for i, st in enumerate(y["steps"] + y["gram"]):
+            n = st["batch"] // SHARD_MICRO if i < len(y["steps"]) else 2
+            if any(st["vp"][k]["calls"] != n for k in TP_VOCAB_KINDS):
+                raise AssertionError(f"{tag} vocab-parallel collectives {st['vp']}, expected "
+                                     f"{n} calls of each")
         got_widths = {n.rsplit(".", 1)[1]: tuple(w) for n, w in y["widths"].items()}
         if got_widths != want_widths:
             raise AssertionError(f"{tag} psgn widths {y['widths']}, expected {want_widths}")
@@ -6296,9 +6314,19 @@ def tp_phase() -> dict[str, dict]:
         print(f"  {tag} resident state {y['bytes'] / 1e9:.3f} GB = the reckoning "
               f"({100 * y['bytes'] / whole_bytes:.1f}% of the whole {whole_bytes / 1e9:.3f} "
               f"GB), {y['params'] / 1e9:.4f} B parameters; peak {y['peak_gib']:.2f} GiB "
-              f"(phase 25's (data 2) rung at the same cut: "
+              f"(the moment-tier steps {y['moment_peak_gib']:.2f}; the gram steps' probe pass "
+              f"runs the dense attention lane; with the head and the embedding whole on each "
+              f"rank "
+              f"{TP_WHOLE_VOCAB['peak_gib']:.2f}; phase 25's (data 2) rung at the same cut: "
               + (f"{p25:.2f}" if p25 is not None else "not run") + f"; one process "
               f"{one['peak_gib']:.2f})")
+        lo, hi = TP_WHOLE_VOCAB["ms"]
+        print(f"    step ms {[round(st['ms'], 1) for st in y['steps']]} (with the head and the "
+              f"embedding whole on each rank {lo}-{hi}); vocab-parallel collectives a "
+              f"moment-tier step: "
+              + "; ".join(f"{what} {y['steps'][0]['vp'][k]['calls']} calls, "
+                          f"{y['steps'][0]['vp'][k]['bytes'] / 1e6:.3f} MB"
+                          for k, what in TP_VOCAB_KINDS.items()))
         c25 = PHASE25.get("coll", {}).get(r, [])
         for i, st in enumerate(y["steps"] + y["gram"]):
             c = st["coll"]
@@ -6310,10 +6338,16 @@ def tp_phase() -> dict[str, dict]:
                 p25_line = (f"; phase 25's step {i + 1} gathered "
                             f"{g25['calls']['all_gather_into_tensor']} calls, "
                             f"{g25['bytes']['all_gather_into_tensor'] / 1e9:.3f} GB")
+            head = st["vp"]["head_all_reduce"]
+            vp_line = "; ".join(f"{what} {st['vp'][k]['calls']} calls, "
+                                f"{st['vp'][k]['bytes'] / 1e6:.3f} MB"
+                                for k, what in TP_VOCAB_KINDS.items())
             print(f"    {'gram ' if gram_step else ''}step {i + 1}: batch {st['batch']}, loss "
                   f"{st['loss']:.5f} (one process {want_losses[i]:.5f}), {st['ms']:.1f} ms "
-                  f"(one process {(one['ms'] + one['gram_ms'])[i]:.1f}); tp all-reduces "
-                  f"{st['tp']['calls']} calls, {st['tp']['bytes'] / 1e9:.3f} GB; collectives "
+                  f"(one process {(one['ms'] + one['gram_ms'])[i]:.1f}); vocab-parallel: "
+                  f"{vp_line}; the other tp all-reduces "
+                  f"{st['tp']['calls'] - head['calls']} calls, "
+                  f"{(st['tp']['bytes'] - head['bytes']) / 1e9:.3f} GB; collectives "
                   f"{coll_ms:.1f} ms ({100 * coll_ms / st['ms']:.1f}%): {coll_line(c)}"
                   + p25_line)
         print(f"    losses within {rel:.3e} relative, sq_norm_sum {y['sq_norm_sum']:.6e} "
@@ -6417,7 +6451,7 @@ def rank_tp_serve(dev, args) -> dict:
     clock = ServeClock()
     parts = PartClock(clock, TP_SERVE_KINDS[1:])
     spy, calls = KernelSpy(), {"decode": 0, "chunk": 0}
-    inner = (tf.decode_step, tf.prefill_chunk, tf._serve_input, tf._head,
+    inner = (tf.decode_step, tf.prefill_chunk, tf._model_input, tf._head,
              engine_mod.broadcast_object)
 
     def counted(kind, fn):
@@ -6428,7 +6462,7 @@ def rank_tp_serve(dev, args) -> dict:
 
     tf.kernels_attn = spy
     tf.decode_step, tf.prefill_chunk = counted("decode", inner[0]), counted("chunk", inner[1])
-    tf._serve_input = parts.wrap("embedding all-gather", inner[2])
+    tf._model_input = parts.wrap("embedding all-gather", inner[2])
     tf._head = parts.wrap("logit all-gather", inner[3])
     engine._agree = parts.wrap("tokens", engine._agree)
     engine_mod.broadcast_object = parts.wrap("policy", inner[4], wall=True)
@@ -6466,7 +6500,7 @@ def rank_tp_serve(dev, args) -> dict:
         engine.pool.check()
     finally:
         tf.kernels_attn = kattn
-        (tf.decode_step, tf.prefill_chunk, tf._serve_input, tf._head,
+        (tf.decode_step, tf.prefill_chunk, tf._model_input, tf._head,
          engine_mod.broadcast_object) = inner
         clock.close()
     layout = sharding.layout_of(engine.params)

@@ -650,23 +650,25 @@ def reset_tensor_parallel_counts() -> None:
     _TP_COUNTS.update(calls=0, bytes=0)
 
 
-def _tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """A contiguous copy of ``x`` summed over ``group``."""
+def _tp_all_reduce(x: torch.Tensor, group, counts: dict | None = None) -> torch.Tensor:
+    """A contiguous copy of ``x`` summed over ``group``; counted, and in
+    ``counts`` too when given."""
     y = x.clone(memory_format=torch.contiguous_format)
-    _TP_COUNTS["calls"] += 1
-    _TP_COUNTS["bytes"] += y.numel() * y.element_size()
+    for c in (_TP_COUNTS,) if counts is None else (_TP_COUNTS, counts):
+        c["calls"] += 1
+        c["bytes"] += y.numel() * y.element_size()
     return all_reduce_sum_(y, group)
 
 
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, counts):
+        ctx.group, ctx.counts = group, counts
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _tp_all_reduce(g, ctx.group), None
+        return _tp_all_reduce(g, ctx.group, ctx.counts), None, None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -679,12 +681,14 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
-def copy_to_group(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+def copy_to_group(x: torch.Tensor, mesh, axes: AxisNames, counts: dict | None = None
+                  ) -> torch.Tensor:
     """``x`` (the same on every rank along ``axes``) as it is; its gradient
-    summed over those ranks (each computed the part its products use).  An
-    identity on one rank."""
+    summed over those ranks (each computed the part its products use), that
+    all-reduce counted in ``counts`` (``{"calls", "bytes"}``) too when
+    given.  An identity on one rank."""
     group, n, _ = mesh.axis_group(_axes(axes))
-    return x if n == 1 else _CopyToGroup.apply(x, group)
+    return x if n == 1 else _CopyToGroup.apply(x, group, counts)
 
 
 def reduce_from_group(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:

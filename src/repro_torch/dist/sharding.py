@@ -482,10 +482,10 @@ class TensorParallel:
     size: int
     rank: int
 
-    def copy(self, x: torch.Tensor) -> torch.Tensor:
+    def copy(self, x: torch.Tensor, counts: dict | None = None) -> torch.Tensor:
         """``dist.plan.copy_to_group``: in front of the column-parallel
-        products."""
-        return copy_to_group(x, self.mesh, self.axes)
+        products (its backward's all-reduce counted in ``counts`` too)."""
+        return copy_to_group(x, self.mesh, self.axes, counts)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """``dist.plan.reduce_from_group``: after the row-parallel ones."""

@@ -35,13 +35,16 @@ wrappers take their plain (materialising) versions on host tensors, a
 different program.  A train cell's blocks split over the mesh's ``model``
 axis as the training stack splits them (``dist.sharding.tp_split``: each tp
 rank its heads and FFN widths, two all-reduces a layer over the model
-group); the embedding, the head and what does not split run whole on every
-tp rank.  Prefill and decode (serving) split the same way, the embedding
-and the head too (``models/transformer.py``: each rank looks up its
-``d/T`` embedding columns and computes its ``V/T`` logits, then one
-all-gather over tp each), and hold the rank's KV heads only: ``KV/T`` of
-them, or where T ranks share a KV head that one whole (T/KV times the
-reference's layout, which splits ``head_dim`` there).
+group), and so do its input and head (``models/transformer.py``: each rank
+looks up its ``d/T`` embedding columns, or computes its ``d/T`` frontend
+columns, then one all-gather over tp; where T divides V the cross-entropy
+is vocab-parallel on the rank's ``V/T`` head rows, one all-gather of the
+logsumexps a microbatch and one all-reduce of the head's dx); what does not
+split runs whole on every tp rank.  Prefill and decode (serving) split the
+same way (each rank computes its ``V/T`` logits, then one all-gather over
+tp), and hold the rank's KV heads only: ``KV/T`` of them, or where T ranks
+share a KV head that one whole (T/KV times the reference's layout, which
+splits ``head_dim`` there).
 ``act_specs_for`` has no counterpart: the residual stream is not split.
 
 Usage (no card needed):
@@ -450,9 +453,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
             tuning=info,
             attn_impl_traced=_attn_impl_traced(cfg, shape),
             activations=("heads and FFN widths split over the model axis "
-                         "(dist.sharding.tp_split), the residual stream whole"
-                         + ("" if shape.kind == "train" else "; the embedding's d and the "
-                            "head's V over tp, the cache at the rank's KV heads")),
+                         "(dist.sharding.tp_split), the residual stream whole; the "
+                         "embedding's d and the head's V over tp"
+                         + ("" if shape.kind == "train" else ", the cache at the rank's "
+                            "KV heads")),
             memory=memory,
             cost={
                 "flops_per_device": analysis["flops"],
@@ -519,9 +523,9 @@ def main():
     meshes = [args.multi_pod] if not args.both_meshes else [False, True]
     tuning = {"num_micro": args.num_micro} if args.num_micro else None
     cells = []
-    if args.all:
+    if args.all:  # every arch, at --shape alone when given
         for arch in ARCH_NAMES:
-            for shape in SHAPES:
+            for shape in SHAPES if args.shape is None else (args.shape,):
                 cells.append((arch, shape))
     else:
         if not (args.arch and args.shape):

@@ -11,8 +11,10 @@ rungs shard the parameters and split the decode rows.  ``--dp N`` instead
 pins a fixed N-wide data-parallel plan: N virtual devices on one process, a
 world of N ranks under ``torchrun``.  ``--tp N`` (under ``torchrun``
 only) serves tensor-parallel on a ``(data W/N, model N)`` rung of the W
-ranks: each rank computes its heads and FFN columns and its KV pool holds
-its KV heads (``serve/engine.py``); with ``--elastic`` the ladder keeps
+ranks: each rank computes its heads and FFN columns, its ``d/N``
+embedding columns and, where N divides the vocabulary, its ``V/N`` logits,
+and its KV pool holds its KV heads (``serve/engine.py``,
+``models/transformer.py``); with ``--elastic`` the ladder keeps
 the model axis of N on every rung.  Only the first rank prints and writes
 ``--out``.
 

@@ -54,9 +54,12 @@ written).
 
 ``--tp N`` trains on a ``(data W/N, model N)`` rung of the torchrun world's
 W ranks (``launch.mesh.make_production_mesh(tp=N)``, ``make_plan``): the
-state sharded by the reference's rules, and each block's attention heads
-and FFN widths split over the N model ranks (``models/transformer.py``);
-``--micro-batch`` is the global microbatch, each data row taking
+state sharded by the reference's rules, each block's attention heads and
+FFN widths split over the N model ranks, the embedding's (or frontend's)
+``d/N`` columns looked up on each rank and the cross-entropy
+vocab-parallel where N divides the vocabulary (``models/transformer.py``;
+no rank gathers the ``(V, d)`` table or head whole); ``--micro-batch`` is
+the global microbatch, each data row taking
 ``micro_batch / (W/N)`` of it.  With ``--dp D`` too the world must be D·N.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --tp 2 --backend gloo

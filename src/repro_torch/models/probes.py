@@ -37,7 +37,11 @@ summed over tp afterwards (``tp_sum``).  Where T ranks share each KV head,
 k and v are probed at the whole KV width (every KV head computed from the
 gathered leaves, the rank's head used), the probe's gradient summed over
 tp, and their norms counted by tp rank 0 only; so are a layer's that
-computes whole on every tp rank.  ``probe_specs`` reads the widths off the
+computes whole on every tp rank.  The embedding (or frontend) and the
+head, unprobed, split as in ``transformer.loss_fn``: the rank's ``d/T``
+input columns joined by one all-gather, the vocab-parallel cross-entropy
+behind ``tp.copy`` (without it the probes' gradients would be the rank's
+part of the head's dx only).  ``probe_specs`` reads the widths off the
 current plan (the train step calls it under ``use_plan``), or off
 ``plan=``.  The exact tier's per-sample pass (``torch.func``) runs whole.
 
@@ -152,7 +156,7 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
                              "the state's plan")
         return dense(x, weight, bias, probe=tp.copy(probe) if summed else probe)
 
-    x = tf._embed_input(cfg, params, batch)  # the frontend is not probed
+    x = tf._model_input(cfg, params, batch, tp)  # the frontend is not probed
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, p, blk in tf._layers(cfg, params):
@@ -161,9 +165,7 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
                                keep_resident=False, split=split):
             x, aux = _probed_block(cfg, blk, x, r, p, positions, pdense, aux, moe_groups,
                                    tp, split)
-    x = params.final_norm(x)
-    loss = tf.xent_chunked(x, tf._whole(params, "lm_head.weight"), batch["targets"],
-                           cfg.xent_chunk, cfg.final_softcap)
+    loss = tf._xent(cfg, params, params.final_norm(x), batch["targets"], tp)
     if cfg.num_experts:
         loss = loss + 0.01 * aux
     return loss, acts

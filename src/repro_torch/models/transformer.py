@@ -58,6 +58,7 @@ Entry points:
   init_params(cfg, generator, device, dtype)    the model (random weights)
   loss_fn(cfg, params, batch)                   mean CE loss, metrics
   xent_chunked(x, weight, targets, chunk, softcap)
+  xent_vocab_parallel(x, w_t, v0, targets, chunk, softcap, tp)
   prefill_step(cfg, params, batch)              last logits and the cache
                                                 (an encoder: every logit)
   init_cache / init_pages / paged_positions     serving state
@@ -84,9 +85,9 @@ the parameters are this rank's shards.  ``_run_stack`` gathers each
 block's shards whole when the block is entered, inside the remat region,
 so the backward gathers again instead of holding every gathered block
 (``dist.sharding.gathered``; the gather's backward reduce-scatters the
-gradient); ``_embed_input`` and ``loss_fn`` gather the embedding (or
-frontend) and the head.  Under ``moe_impl="ep"`` the experts' expert dim
-stays resident.  Serving (``prefill_step``, ``decode_step``,
+gradient); without tp ``_model_input`` and ``loss_fn`` gather the
+embedding (or frontend) and the head.  Under ``moe_impl="ep"`` the
+experts' expert dim stays resident.  Serving (``prefill_step``, ``decode_step``,
 ``prefill_chunk``, under ``no_grad``, no remat) gathers each block for
 its extent only (``_serving_layers``): whole without tp, so a sharded
 model never stands whole on a rank; an unsharded model takes the same
@@ -112,16 +113,32 @@ on the shards the specs give the rank (tp rank t of T):
 ``dist.plan.copy_to_group`` goes in front of each split sublayer's
 column-parallel products and ``reduce_from_group`` after its row-parallel
 ones.  The residual stream and the norms stay replicated over tp (no
-sequence parallelism).  What does not split computes whole on every tp
-rank from leaves gathered whole, as without tp: the Mamba mixers (their
-``in_proj`` shards the ``[x | z]`` halves, ``x_proj`` contracts
-``d_inner``), ``moe_impl="ep"`` (the experts' ``ff`` gathered), the
-embedding or frontend and the head (vocab-parallel cross-entropy is not
-ported), and attention where the heads do not divide (qwen2-7b and
-internvl2-1b at T 16).  ``tp_counts()`` counts, by kind, the sublayers
-the stack ran split (``tp_split``) and whole (``tp_whole``) on a tp plan,
-in training and in serving; ROADMAP.md Queue A 5 lists the whole ones as
-still to port.
+sequence parallelism).  The input and the head split too, on the shards
+the specs give the rank, so no tp rank forms a ``(V, d)`` table or its
+gradient whole:
+
+  * the embedding (V over fsdp, d over tp): its tp shard gathered over
+    fsdp only, the rank's ``d/T`` columns looked up; the frontend
+    (column-parallel): the rank's ``d/T`` output columns; then one
+    all-gather over tp whose backward keeps the rank's columns
+    (``_model_input``);
+  * the head, where T divides V: ``x = tp.copy(final_norm(x))``, then
+    ``xent_vocab_parallel`` on the rank's ``V/T`` rows: per chunk its
+    float32 logits (capped), their logsumexp and the target logit where
+    the rank holds it, one all-gather over tp of both for the whole row's,
+    and in the backward the rank's dx part (summed by ``tp.copy``'s
+    all-reduce) and its rows' dW (``_xent``).
+
+What does not split computes whole on every tp rank from leaves gathered
+whole, as without tp: the Mamba mixers (their ``in_proj`` shards the ``[x
+| z]`` halves, ``x_proj`` contracts ``d_inner``), ``moe_impl="ep"`` (the
+experts' ``ff`` gathered), a head whose V the tp ranks do not divide, and
+attention where the heads do not divide (qwen2-7b and internvl2-1b at T
+16).  ``tp_counts()`` counts, by kind, the sublayers the stack ran split
+(``tp_split``) and whole (``tp_whole``) on a tp plan, in training and in
+serving, and the input and the head per call; ``vocab_parallel_counts()``
+the input's and the head's collectives; ROADMAP.md Queue A 5 lists the
+whole ones as still to port.
 
 Tensor-parallel serving (``prefill_step``, ``decode_step``,
 ``prefill_chunk`` on a sharded model whose plan spans T > 1 tp ranks):
@@ -130,15 +147,14 @@ rank computes its query heads, its KV heads and its FFN columns, and its
 pool, rings and dense cache hold only those KV heads
 (``dist.sharding.serving_kv_heads``: ``KV/T`` of them "local", the one it
 shares, whole, "shared"; every head where attention computes whole);
-``o`` and the FFN's output all-reduce over tp.  The embedding (V over
-fsdp, d over tp) is gathered over fsdp only, each rank looks up its
-``d/T`` columns and one all-gather over tp joins them; the head (V over
-tp where T divides V) gives each rank its ``V/T`` float32 logits, capped,
-and one all-gather over tp joins them, so every rank samples from the
-whole row.  Whole on every tp rank: the Mamba mixers and their state, the
-frontend of an embedding-input config, a head whose V the tp ranks do not
-divide, and the sublayers ``tp_split`` leaves whole; each counted in
-``tp_whole``.  The caches must hold the rank's KV heads
+``o`` and the FFN's output all-reduce over tp.  The input splits as in
+training (``_model_input``: the embedding's or the frontend's ``d/T``
+columns, one all-gather over tp); the head (V over tp where T divides V)
+gives each rank its ``V/T`` float32 logits, capped, and one all-gather
+over tp joins them, so every rank samples from the whole row.  Whole on
+every tp rank: the Mamba mixers and their state, a head whose V the tp
+ranks do not divide, and the sublayers ``tp_split`` leaves whole; each
+counted in ``tp_whole``.  The caches must hold the rank's KV heads
 (``init_cache``/``init_pages(kv_heads=serving_kv_heads(cfg, plan))``);
 a split sublayer never falls back to the whole path.
 
@@ -165,7 +181,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding
-from repro_torch.dist.plan import all_gather_dim, current_plan
+from repro_torch.dist.plan import all_gather_dim, current_plan, gather_shards
 from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm
@@ -181,19 +197,42 @@ MIXERS = ("attn", "attn_local", "mamba")
 #: kind (forward calls on a tp plan, training or serving), since
 #: ``reset_tp_counts``
 _TP_COUNTS: dict[str, dict[str, int]] = {"tp_split": {}, "tp_whole": {}}
+#: the collectives of the split input and head, by kind, since
+#: ``reset_tp_counts`` (``vocab_parallel_counts``)
+_VP_COUNTS: dict[str, dict[str, int]] = {
+    k: {"calls": 0, "bytes": 0}
+    for k in ("input_all_gather", "xent_all_gather", "head_all_reduce")}
 
 
 def tp_counts() -> dict[str, dict[str, int]]:
     """``{"tp_split": {kind: n}, "tp_whole": {kind: n}}`` since the last
     :func:`reset_tp_counts`: one count per sublayer a forward of the
     training stack or a serving call ran on a tp plan (the remat recompute
-    not counted)."""
+    not counted), and per call of the input ("embed" or "frontend") and
+    the head, the gram tier's probe pass included."""
     return {k: dict(v) for k, v in _TP_COUNTS.items()}
+
+
+def vocab_parallel_counts() -> dict[str, dict[str, int]]:
+    """``{kind: {"calls", "bytes"}}`` since the last :func:`reset_tp_counts`:
+    the all-gather over tp of the split input ("input_all_gather"), the
+    cross-entropy's all-gather of the ranks' logsumexps and target logits
+    ("xent_all_gather"), both by the gathered output's bytes, and the
+    all-reduce of the head's partial dx in the backward
+    ("head_all_reduce")."""
+    return {k: dict(v) for k, v in _VP_COUNTS.items()}
 
 
 def reset_tp_counts() -> None:
     for v in _TP_COUNTS.values():
         v.clear()
+    for v in _VP_COUNTS.values():
+        v.update(calls=0, bytes=0)
+
+
+def _count_vp(kind: str, out: torch.Tensor) -> None:
+    _VP_COUNTS[kind]["calls"] += 1
+    _VP_COUNTS[kind]["bytes"] += out.numel() * out.element_size()
 
 
 def _count_tp(key: str, kinds) -> None:
@@ -358,15 +397,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 
-def _embed_input(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Tensor:
-    """(B, S, d_model) in the compute type: the token embedding, or the
-    frontend applied to ``batch["embeddings"]`` cast to the compute type."""
-    cdt = _dtype(cfg.compute_dtype)
-    if cfg.input_mode == "tokens":
-        return embed(_whole(params, "embed.weight"), batch["tokens"].long()).to(cdt)
-    return dense(batch["embeddings"].to(cdt), _whole(params, "frontend.weight"))
-
-
 def _whole(params: Transformer, name: str) -> torch.Tensor:
     """Parameter ``name`` whole: gathered under autograd when the state is
     sharded."""
@@ -377,7 +407,7 @@ def _whole(params: Transformer, name: str) -> torch.Tensor:
 
 
 def _tp_shard(params: Transformer, name: str, tp) -> tuple[torch.Tensor, int | None]:
-    """Parameter ``name`` for serving under ``tp`` (None: whole, as
+    """Parameter ``name`` for split compute under ``tp`` (None: whole, as
     ``_whole``): gathered over every axis but the tp axes, and the dim its
     tp shard lies along (None when the specs leave it whole over tp)."""
     if tp is None:
@@ -390,24 +420,38 @@ def _tp_shard(params: Transformer, name: str, tp) -> tuple[torch.Tensor, int | N
     return layout.gather([name], [t], roles=roles)[0], dim
 
 
-def _serve_input(cfg: ModelConfig, params: Transformer, batch: dict, tp) -> torch.Tensor:
-    """``_embed_input`` for serving: under ``tp`` the embedding's ``d/T``
-    columns of this rank (its tp shard, gathered over fsdp only) looked up,
-    then one all-gather over tp; the frontend whole (counted)."""
+def _model_input(cfg: ModelConfig, params: Transformer, batch: dict, tp) -> torch.Tensor:
+    """The stack's input, (B, S, d_model) in the compute type: the token
+    embedding, or the frontend applied to ``batch["embeddings"]`` cast to
+    the compute type; in training and serving.  Under ``tp`` (None: from
+    the leaf whole) this rank's ``d/T`` columns, from the embedding's tp
+    shard (gathered over fsdp only) looked up, or from its rows of the
+    frontend (column-parallel), then one all-gather over tp whose backward
+    keeps the rank's columns of the gradient (``dist.plan.gather_shards``:
+    the residual stream's gradient is the same on every tp rank).  A leaf
+    the specs leave whole over tp computes whole.  Counted in
+    ``tp_counts`` and ``vocab_parallel_counts``."""
+    cdt = _dtype(cfg.compute_dtype)
+    if cfg.input_mode == "tokens":
+        kind, want = "embed", 1
+        w, dim = _tp_shard(params, "embed.weight", tp)
+        x = embed(w, batch["tokens"].long()).to(cdt)
+    else:
+        kind, want = "frontend", 0
+        w, dim = _tp_shard(params, "frontend.weight", tp)
+        x = dense(batch["embeddings"].to(cdt), w)
     if tp is None:
-        return _embed_input(cfg, params, batch)
-    if cfg.input_mode != "tokens":
-        _count_tp("tp_whole", ("frontend",))
-        return _embed_input(cfg, params, batch)
-    w, dim = _tp_shard(params, "embed.weight", tp)
-    x = embed(w, batch["tokens"].long()).to(_dtype(cfg.compute_dtype))
-    if dim is None:
-        _count_tp("tp_whole", ("embed",))
         return x
-    if dim != 1:
-        raise ValueError(f"embed.weight is split over tp along dim {dim}, not d_model")
-    _count_tp("tp_split", ("embed",))
-    return all_gather_dim([x], [x.dim() - 1], tp.mesh, tp.axes)[0]
+    if dim is None:
+        _count_tp("tp_whole", (kind,))
+        return x
+    if dim != want:
+        raise ValueError(f"{kind} is split over tp along dim {dim}, not d_model")
+    _count_tp("tp_split", (kind,))
+    x = gather_shards([x], [[(x.dim() - 1, tp.axes)]], tp.mesh,
+                      sharding.layout_of(params).plan.dp)[0]
+    _count_vp("input_all_gather", x)
+    return x
 
 
 def _self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -599,22 +643,123 @@ def xent_chunked(x: torch.Tensor, weight: torch.Tensor, targets: torch.Tensor,
     return _XentChunked.apply(x, weight, targets, chunk, softcap)
 
 
+class _XentVocabParallel(torch.autograd.Function):
+    """The chunked cross-entropy over a head split along the vocabulary:
+    this tp rank holds rows ``[v0, v0 + V_t)``.  Forward: per chunk the
+    rank's float32 logits, their logsumexp and the target's logit where the
+    rank holds it (0 elsewhere); one all-gather over tp of both gives the
+    whole row's logsumexp (a logsumexp over the ranks') and target logit (a
+    sum), the same on every rank.  Backward: per chunk the rank's softmax
+    from the saved logsumexp, its dx part (summed over tp by the caller's
+    ``tp.copy``) and its rows' dW in float32; no collective."""
+
+    @staticmethod
+    def forward(ctx, x, weight, targets, v0, chunk, softcap, tp):
+        b, s, _ = x.shape
+        w = weight.to(x.dtype)
+        rows, owned = _owned_targets(targets, v0, w.shape[0])
+        local = torch.empty((1, 2, b, s), dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            logits, _ = _chunk_logits(x[:, i:i + chunk], w, softcap)
+            local[0, 0, :, i:i + chunk] = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, rows[:, i:i + chunk, None])[..., 0]
+            local[0, 1, :, i:i + chunk] = torch.where(owned[:, i:i + chunk], tgt, 0.0)
+        parts = all_gather_dim([local], [0], tp.mesh, tp.axes)[0]
+        _count_vp("xent_all_gather", parts)
+        lse = torch.logsumexp(parts[:, 0], dim=0)
+        ctx.save_for_backward(x, weight, targets, lse)
+        ctx.v0, ctx.chunk, ctx.softcap = v0, chunk, softcap
+        return (lse - parts[:, 1].sum(0)).sum() / (b * s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, targets, lse = ctx.saved_tensors
+        chunk, softcap = ctx.chunk, ctx.softcap
+        b, s, d = x.shape
+        scale = g / (b * s)
+        w = weight.to(x.dtype)
+        rows, owned = _owned_targets(targets, ctx.v0, w.shape[0])
+        dx = torch.empty_like(x)
+        # the float32 dW product runs only where the head takes a gradient
+        dw = (torch.zeros(weight.shape, dtype=torch.float32, device=x.device)
+              if ctx.needs_input_grad[1] else None)
+        for i in range(0, s, chunk):
+            xc = x[:, i:i + chunk]
+            logits, capped = _chunk_logits(xc, w, softcap)
+            dlogits = torch.exp(logits - lse[:, i:i + chunk, None])
+            # probs - one_hot(targets), at the targets this rank holds
+            dlogits.scatter_add_(-1, rows[:, i:i + chunk, None],
+                                 -owned[:, i:i + chunk, None].float())
+            if capped is not None:
+                dlogits = dlogits * (1.0 - capped * capped)
+            dlogits = (dlogits * scale).to(x.dtype)
+            dx[:, i:i + chunk] = dlogits @ w
+            if dw is not None:
+                dw = torch.addmm(dw, dlogits.reshape(-1, dlogits.shape[-1]).t().float(),
+                                 xc.reshape(-1, d).float())
+        return (dx, None if dw is None else dw.to(weight.dtype), None, None, None, None, None)
+
+
+def _owned_targets(targets: torch.Tensor, v0: int, vt: int):
+    """``(rows, owned)``: each target's row in the shard ``[v0, v0 + vt)``
+    (clamped into it) and whether the shard holds it."""
+    t = targets.long() - v0
+    return t.clamp(0, vt - 1), (t >= 0) & (t < vt)
+
+
+def xent_vocab_parallel(x: torch.Tensor, weight: torch.Tensor, v0: int,
+                        targets: torch.Tensor, chunk: int, softcap: float | None, tp
+                        ) -> torch.Tensor:
+    """``xent_chunked`` with the head split along the vocabulary over
+    ``tp`` (``dist.sharding.TensorParallel``): ``weight`` is this rank's
+    ``(V_t, d)`` rows from ``v0``, ``x`` the same on every tp rank and
+    passed through ``tp.copy`` by the caller (the rank's dx is a part).
+    Every rank returns the whole mean; dW is the rank's rows'.  Outside
+    ``torch.func`` transforms only (no vmap rule)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the xent chunk {chunk}")
+    return _XentVocabParallel.apply(x, weight, targets, int(v0), chunk, softcap, tp)
+
+
+def _xent(cfg: ModelConfig, params: Transformer, x: torch.Tensor, targets: torch.Tensor,
+          tp) -> torch.Tensor:
+    """The mean CE of the final-normed ``x``: ``xent_chunked`` on the
+    whole head, or under ``tp`` (None: whole) where the specs split the
+    head's V over tp, ``xent_vocab_parallel`` on the rank's rows behind
+    ``tp.copy``; a head whole over tp computes whole.  Counted in
+    ``tp_counts``."""
+    w, dim = _tp_shard(params, "lm_head.weight", tp)
+    if tp is not None:
+        if dim is None:
+            _count_tp("tp_whole", ("head",))
+        elif dim != 0:
+            raise ValueError(f"lm_head.weight is split over tp along dim {dim}, "
+                             "not the vocabulary")
+        else:
+            _count_tp("tp_split", ("head",))
+            return xent_vocab_parallel(tp.copy(x, _VP_COUNTS["head_all_reduce"]), w,
+                                       tp.rank * w.shape[0], targets, cfg.xent_chunk,
+                                       cfg.final_softcap, tp)
+    return xent_chunked(x, w, targets, cfg.xent_chunk, cfg.final_softcap)
+
+
 def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups: int = 1,
             ) -> tuple[torch.Tensor, dict]:
     """Mean CE loss of ``batch`` ({"tokens" (B, S) int, or "embeddings" (B,
     S, d_model); "targets" (B, S) int}), plus ``0.01 * moe_aux`` when
     ``cfg.num_experts`` is set, and ``{"ce_loss", "moe_aux"}`` (the CE alone,
     and the aux loss summed over the layers).  The MoE FFNs route in
-    ``moe_groups`` groups of the batch's tokens."""
-    x = _embed_input(cfg, params, batch)
+    ``moe_groups`` groups of the batch's tokens.  Under tp (the module
+    docstring; not inside a ``torch.func`` transform) the input, the stack
+    and the head split."""
+    tp = sharding.tensor_parallel(sharding.layout_of(params)) \
+        if not in_func_transform() else None
+    x = _model_input(cfg, params, batch, tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    if sharding.tensor_parallel(sharding.layout_of(params)) is not None \
-            and not in_func_transform():
-        _count_tp("tp_whole", ("embed" if cfg.input_mode == "tokens" else "frontend", "head"))
     x, aux = _run_stack(cfg, params, x, positions, moe_groups, split_tp=True)
-    x = params.final_norm(x)
-    loss = xent_chunked(x, _whole(params, "lm_head.weight"), batch["targets"],
-                        cfg.xent_chunk, cfg.final_softcap)
+    loss = _xent(cfg, params, params.final_norm(x), batch["targets"], tp)
     metrics = {"ce_loss": loss, "moe_aux": aux}
     if cfg.num_experts:
         loss = loss + 0.01 * aux
@@ -639,7 +784,7 @@ def prefill_step(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups:
     computes its heads and columns and its cache holds its KV heads."""
     layout = sharding.layout_of(params)
     tp = sharding.tensor_parallel(layout)
-    x = _serve_input(cfg, params, batch, tp)
+    x = _model_input(cfg, params, batch, tp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     cache = init_cache(cfg, b, s, device=x.device,
@@ -891,9 +1036,7 @@ def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor, tp=None,
     a head the specs leave whole over tp computes whole (counted)."""
     x = params.final_norm(x)
     w, dim = _tp_shard(params, "lm_head.weight", tp)
-    logits = dense(x, w).float()
-    if softcap and cfg.final_softcap is not None:
-        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    logits, _ = _chunk_logits(x, w.to(x.dtype), cfg.final_softcap if softcap else None)
     if tp is None:
         return logits
     if dim is None:
@@ -935,7 +1078,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict,
     KV heads, and every rank returns the whole logits."""
     key = "tokens" if cfg.input_mode == "tokens" else "embeddings"
     tp = sharding.tensor_parallel(sharding.layout_of(params))
-    x = _serve_input(cfg, params, {key: tokens}, tp)
+    x = _model_input(cfg, params, {key: tokens}, tp)
     b = x.shape[0]
     pos_now = cache["len"]
     posv = pos_now.reshape(b) if pos_now.dim() == 1 else pos_now.expand(b)
@@ -1018,7 +1161,7 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, row: dict, pages: dict,
     and the pool hold the rank's KV heads, and every rank returns the
     whole logits."""
     tp = sharding.tensor_parallel(sharding.layout_of(params))
-    x = _serve_input(cfg, params, batch, tp)
+    x = _model_input(cfg, params, batch, tp)
     c = x.shape[1]
     dev = x.device
     offset = int(offset)

@@ -835,19 +835,45 @@ def tp_batch(cfg, seed: int, step: int, n: int) -> dict:
 class SplitSpy:
     """Records, while active, the head counts ``(query, KV)`` that
     ``transformer._self_attention`` sees, the hidden widths of the dense
-    FFNs' products and the experts' widths ``moe_apply`` runs, and the
-    result bytes of the all-gathers issued inside block entries."""
+    FFNs' products and the experts' widths ``moe_apply`` runs, the result
+    bytes of the all-gathers issued inside block entries and of those the
+    input and the head issue (``_model_input``, ``_xent``: the training
+    forward's and the probe pass's), and the shapes in which the
+    embedding, the frontend and the head reach the compute (``_whole``,
+    ``_tp_shard``)."""
 
     def __init__(self):
         self.heads, self.ffn, self.moe = set(), set(), set()
         self.block_gather_bytes = 0
+        self.vocab_gathers: list[int] = []
+        self.leaves: set = set()
 
     def __enter__(self):
         from repro_torch.models import transformer as tf
 
-        self.saved = (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block)
-        attn, ffn_fwd, moe, block = self.saved
-        inside = [False]
+        self.saved = (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block,
+                      tf._whole, tf._tp_shard, tf._model_input, tf._xent)
+        attn, ffn_fwd, moe, block, whole, tp_shard, model_input, xent = self.saved
+        inside, vocab = [False], [False]
+
+        def flagged(fn):
+            def call(*args):
+                vocab[0] = True
+                try:
+                    return fn(*args)
+                finally:
+                    vocab[0] = False
+            return call
+
+        def spy_whole(params, name):
+            out = whole(params, name)
+            self.leaves.add((name, tuple(out.shape)))
+            return out
+
+        def spy_tp_shard(params, name, tp):
+            out, dim = tp_shard(params, name, tp)
+            self.leaves.add((name, tuple(out.shape)))
+            return out, dim
 
         def spy_attn(cfg, q, k, v, *args):
             self.heads.add((q.shape[2], k.shape[2]))
@@ -871,19 +897,24 @@ class SplitSpy:
         def record(kind, operand, result, ranks):
             if kind == "all-gather" and inside[0]:
                 self.block_gather_bytes += result
+            elif kind == "all-gather" and vocab[0]:
+                self.vocab_gathers.append(result)
 
         from repro_torch.dist.plan import record_collectives
 
         self.recording = record_collectives(record)
         self.recording.__enter__()
-        tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block = (
-            spy_attn, spy_ffn, spy_moe, spy_block)
+        (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block, tf._whole,
+         tf._tp_shard, tf._model_input, tf._xent) = (
+            spy_attn, spy_ffn, spy_moe, spy_block, spy_whole, spy_tp_shard,
+            flagged(model_input), flagged(xent))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import transformer as tf
 
-        tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block = self.saved
+        (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block, tf._whole,
+         tf._tp_shard, tf._model_input, tf._xent) = self.saved
         self.recording.__exit__(*exc)
 
 
@@ -976,7 +1007,8 @@ def tp_train(a: dict) -> dict:
                                           case.get("lr", 0.1))
                     rec["loss"].append(float(metrics["loss"]))
                     rec["sq_norm_sum"].append(state.div_state.sq_norm_sum.item())
-            rec["tp_counts"] = tf.tp_counts()
+            rec["tp_counts"], rec["vp_counts"] = tf.tp_counts(), tf.vocab_parallel_counts()
+            rec["vocab_gathers"] = list(spy.vocab_gathers)
             spy.block_gather_bytes = 0
             batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 0, 0, 2).items()}
             moes = [m for m in state.params.modules() if isinstance(m, MoE)]
@@ -989,7 +1021,7 @@ def tp_train(a: dict) -> dict:
             for m in moes:
                 m.stats = None
         rec.update(heads=sorted(spy.heads), ffn=sorted(spy.ffn), moe=sorted(spy.moe),
-                   block_gather_bytes=spy.block_gather_bytes,
+                   leaves=sorted(spy.leaves), block_gather_bytes=spy.block_gather_bytes,
                    block_gather_reckoned=block_gather_reckoning(cfg, state.params),
                    params=_whole_numpy(state.params))
         out[case["name"]] = rec
@@ -1065,6 +1097,48 @@ def tp_gradcheck(a: dict) -> dict:
 
         out["x".join(map(str, shape))] = bool(torch.autograd.gradcheck(fn, (z,), eps=1e-6,
                                                                        atol=1e-8))
+    return out
+
+
+def tp_xent(a: dict) -> dict:
+    """``xent_vocab_parallel`` on each rung of ``a["shapes"]``, behind
+    ``copy_to_group`` over the model axis, against ``xent_chunked`` on the
+    whole head in float32 (B 2, S 8 in chunks of 4, V 64, d 16; targets
+    on every shard's edges ``v0 - 1``, ``v0``, ``v0 + V_t - 1``), with and
+    without the softcap: the loss's, dx's and the rank's dW rows' largest
+    gaps relative to the whole's largest magnitude."""
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer as tf
+
+    b, s, v, d = 2, 8, 64, 16
+    out = {}
+    for shape in a["shapes"]:
+        plan = rung_plan(tuple(shape))
+        t = shape[1]
+        tp = sharding.TensorParallel(plan.mesh, ("model",), t, sharding.tp_rank(plan))
+        vt = v // t
+        r = np.random.default_rng(21)
+        x0 = torch.from_numpy(r.standard_normal((b, s, d), dtype=np.float32))
+        w0 = torch.from_numpy(r.standard_normal((v, d), dtype=np.float32))
+        edges = sorted({e for k in range(t) for e in (k * vt - 1, k * vt, k * vt + vt - 1)
+                        if 0 <= e < v})
+        tgt = r.integers(0, v, size=b * s)
+        tgt[:len(edges)] = edges
+        targets = torch.from_numpy(tgt.reshape(b, s))
+        for cap in (None, 30.0):
+            x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+            want = tf.xent_chunked(x, w, targets, 4, cap)
+            dx_w, dw_w = torch.autograd.grad(want, (x, w))
+            x = x0.clone().requires_grad_(True)
+            wt = w0[tp.rank * vt:(tp.rank + 1) * vt].clone().requires_grad_(True)
+            got = tf.xent_vocab_parallel(tp.copy(x), wt, tp.rank * vt, targets, 4, cap, tp)
+            dx, dwt = torch.autograd.grad(got, (x, wt))
+            mine = dw_w[tp.rank * vt:(tp.rank + 1) * vt]
+            out[("x".join(map(str, shape)), cap)] = {
+                "loss": float((got - want).abs() / want.abs()),
+                "dx": float((dx - dx_w).abs().max() / dx_w.abs().max()),
+                "dw": float((dwt - mine).abs().max() / dw_w.abs().max()),
+                "edges": len(edges)}
     return out
 
 
@@ -1287,6 +1361,44 @@ def serve_tp(a: dict) -> dict:
     return out
 
 
+def serve_tp_frontend(a: dict) -> dict:
+    """Each case of ``a["frontend_cases"]``, an embedding-input config from
+    the reference weights ``a["trees"][case["params"]]`` (``case["extra"]``
+    replaced), on a ``(data 1, model W)`` plan over the world's ranks:
+    ``prefill_step`` on ``a["frames"]`` then, for a causal config, lockstep
+    ``decode_step`` on each of ``a["steps"]`` over its dense cache; the
+    logits of each call and ``tp_counts``."""
+    from repro_torch.configs import get_config
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+
+    plan = rung_plan((1, dist.get_world_size()))
+    out = {}
+    for case in a["frontend_cases"]:
+        cfg = get_config(case["arch"], reduced=True).replace(**case.get("extra", {}))
+        model = place(params_from_jax(a["trees"][case["params"]], cfg), plan)
+        tf.reset_tp_counts()
+        out[case["name"]] = {"logits": frontend_serve(cfg, model, a["frames"], a["steps"]),
+                             "tp_counts": tf.tp_counts()}
+    return out
+
+
+def frontend_serve(cfg, model, frames, steps) -> list:
+    """``prefill_step`` on ``frames`` (B, S, d_model) then, for a causal
+    config, lockstep ``decode_step`` on each of ``steps`` (B, 1, d_model)
+    over its dense cache: each call's float32 logits (numpy)."""
+    from repro_torch.models import transformer as tf
+
+    logits, cache = tf.prefill_step(cfg, model, {"embeddings": torch.as_tensor(frames)})
+    out = [logits.numpy()]
+    if cfg.causal:
+        for e in steps:
+            logits, cache = tf.decode_step(cfg, model, cache, torch.as_tensor(e))
+            out.append(logits.numpy())
+    return out
+
+
 def serve_tp_cli(a: dict) -> dict:
     """``launch.serve --device cpu --tp 2 --backend gloo`` on the ranks; on
     rank 0 also the one-process CLI on the same flags."""
@@ -1315,7 +1427,8 @@ JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_m
         "sharded_restore": sharded_restore, "moe_ep": moe_ep,
         "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli,
         "dryrun_collectives": dryrun_collectives, "tp_train": tp_train, "tp_grads": tp_grads,
-        "tp_gradcheck": tp_gradcheck, "serve_tp": serve_tp, "serve_tp_cli": serve_tp_cli}
+        "tp_gradcheck": tp_gradcheck, "tp_xent": tp_xent, "serve_tp": serve_tp,
+        "serve_tp_cli": serve_tp_cli, "serve_tp_frontend": serve_tp_frontend}
 
 
 def start_ranks(tmp_path, job: str, args: dict, world: int):

@@ -26,8 +26,9 @@ reference's, on the CPU.
   * tensor-parallel compute: ``dist.sharding.tp_split`` for the ten full
     configs at T 16, one case per config; and on a fake ``(data 1, model
     4)`` world rank 0's traced FLOPs for a reduced yi-6b train microbatch
-    equal the split layers' count divided by 4, plus the whole head and
-    the replicated-KV terms (two ranks share each KV head), exactly;
+    equal the split layers' count divided by 4, plus the head (whole at
+    vocab 251, a quarter at 256) and the replicated-KV terms (two ranks
+    share each KV head), exactly;
   * the reference's mini dry run (``tests/test_dryrun_mini.py``) on a
     ``(2, 2, 2)`` plan in a fake world of 8: reduced qwen2-7b, kimi-k2 and
     jamba train, yi-6b decode; FLOPs and peak above 0, collectives for
@@ -336,11 +337,12 @@ def test_tp_split_of_the_full_configs_at_16(arch):
         assert ep.ffn is None and "moe_ep" in ep.whole
 
 
-def test_tp_trace_flops_split_over_the_model_axis():
-    """Reduced yi-6b (4 query heads over 2 KV heads) on 4 tp ranks: each
-    rank one query head and the KV head it shares with one other rank."""
+def _tp_trace_flops(vocab: int):
+    """Reduced yi-6b at ``vocab`` on 4 tp ranks: rank 0's traced FLOPs of
+    a 2-layer train microbatch, and the one-device trace's split into a
+    layer's, the rest's (the embedding and the head) and k and v's."""
     b, s = 2, 64
-    cfg = get_config("yi-6b", reduced=True).replace(remat=True)
+    cfg = get_config("yi-6b", reduced=True).replace(remat=True, vocab_size=vocab)
 
     def flops(layers, plan=None):
         return dryrun.trace_train(cfg.replace(num_layers=layers), plan, b, s, 1,
@@ -357,7 +359,23 @@ def test_tp_trace_flops_split_over_the_model_axis():
         got = flops(2, plan)
     # a rank computes 1 of the 2 KV heads: kv / 2 = kv / 4 (its share) + kv / 4
     assert layer % 4 == 0 and kv % 4 == 0
+    return got, layer, rest, kv, 4 * 2 * b * s * cfg.d_model * vocab
+
+
+def test_tp_trace_flops_split_over_the_model_axis():
+    """Reduced yi-6b (4 query heads over 2 KV heads) on 4 tp ranks: each
+    rank one query head and the KV head it shares with one other rank; at
+    its vocab of 251 the head computes whole on every rank."""
+    got, layer, rest, kv, _ = _tp_trace_flops(251)
     assert got == rest + 2 * (layer // 4 + kv // 4)
+
+
+def test_tp_trace_flops_split_the_head_over_the_model_axis():
+    """The same at vocab 256: each rank computes its 64 head rows, so the
+    head's four products (the logits, their recompute in the backward, dx
+    and dW, each ``2 b s d V``) come to a quarter each."""
+    got, layer, rest, kv, head = _tp_trace_flops(256)
+    assert got == rest - (head - head // 4) + 2 * (layer // 4 + kv // 4)
 
 
 # the serving KV heads of rank t of 16 by ``serving_kv_heads`` at the first

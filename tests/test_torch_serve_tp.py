@@ -28,6 +28,10 @@ the ``model`` axis of a rank rung (``models/transformer.py``,
     holds exactly the parameter elements its layout reckons;
   * ``prefill_step`` (the dense cache), ``prefill_chunk`` and paged
     ``decode_step`` called on a tp-sharded module against the whole one;
+  * reduced internvl2-1b and hubert-xlarge (at vocab 64) on ``(model 2)``
+    through ``prefill_step`` and ``decode_step`` on frames: the frontend's
+    output columns split over tp, tokens equal one process's and the
+    reference's, logits within 1e-5 relative of one process's;
   * ``launch/serve.py --tp 2`` under two ranks against one process, and
     ``moe_impl="ep"`` on a tp rung refused, naming Queue A 5.
 
@@ -68,6 +72,13 @@ PARAMS = {"yi256": ("yi-6b", 11, {"vocab_size": 256}), "yi": ("yi-6b", 12, {}),
           "qwen2": ("qwen2-7b", 13, {}), "gemma2": ("gemma2-27b", 14, {}),
           "dbrx": ("dbrx-132b", 15, {}), "jamba": ("jamba-v0.1-52b", 16, {})}
 ENTRIES = ("yi256", "gemma2", "jamba")  # the entry points called directly
+# embedding-input configs, served through the entry points on the 2 ranks
+# (the engine is tokens-only): the frontend split, the head whole at vocab
+# 251 and split at 64
+FRONTEND = {"internvl2": ("internvl2-1b", 17, {}),
+            "hubert64": ("hubert-xlarge", 18, {"vocab_size": 64})}
+FRONTEND_CASES = [{"name": n, "params": n, "arch": arch, "extra": extra}
+                  for n, (arch, _, extra) in FRONTEND.items()]
 CASES_2 = [{"name": f"{n}@1x2", "params": n, "shape": (1, 2), "entries": n in ENTRIES}
            for n in PARAMS]
 CASES_4 = [{"name": f"{n}@1x4", "params": n, "shape": (1, 4), "entries": n in ENTRIES}
@@ -82,7 +93,7 @@ REL = 1e-5
 
 
 def _cfgs(name):
-    arch, _, extra = PARAMS[name]
+    arch, _, extra = {**PARAMS, **FRONTEND}[name]
     return get_config(arch, reduced=True).replace(**extra), \
         jget(arch, reduced=True).replace(**extra)
 
@@ -101,16 +112,21 @@ def runs(tmp_path_factory):
     every step) and the reference's engine."""
     tmp = tmp_path_factory.mktemp("serve_tp")
     trees = {}
-    for name, (arch, seed, _) in PARAMS.items():
+    for name, (arch, seed, _) in {**PARAMS, **FRONTEND}.items():
         _, jcfg = _cfgs(name)
         trees[name] = jax.tree.map(np.asarray, jtf.init_params(jcfg, jax.random.key(seed)))
     prompts = _prompts()
+    r = np.random.default_rng(19)
+    d = _cfgs("internvl2")[0].d_model  # the reduced configs' common width
+    frames = r.standard_normal((2, 16, d), dtype=np.float32)
+    steps = [r.standard_normal((2, 1, d), dtype=np.float32) for _ in range(4)]
     args = {"trees": trees, "prompts": prompts, "max_new": MAX_NEW, "max_seq": MAX_SEQ,
             "granule": GRANULE}
     (tmp / "two").mkdir()
     (tmp / "four").mkdir()
-    two = ranks.start_ranks(tmp / "two", "serve_tp+serve_tp_cli", {**args, "cases": CASES_2},
-                            2)
+    two = ranks.start_ranks(tmp / "two", "serve_tp+serve_tp_cli+serve_tp_frontend",
+                            {**args, "cases": CASES_2, "frontend_cases": FRONTEND_CASES,
+                             "frames": frames, "steps": steps}, 2)
     four = ranks.start_ranks(tmp / "four", "serve_tp", {**args, "cases": CASES_4}, 4)
     kw = dict(max_slots=8, max_seq=MAX_SEQ, prompt_granule=GRANULE, block_size=8,
               prefill_chunk=8)
@@ -123,6 +139,15 @@ def runs(tmp_path_factory):
         jeng = JServeEngine(jcfg, jax.tree.map(jax.numpy.asarray, trees[name]), **kw)
         ref[name] = [r.tokens.tolist() for r in jeng.generate(
             [JRequest(prompt=p, max_new_tokens=m) for p, m in zip(prompts, MAX_NEW)])]
+    for name in FRONTEND:
+        cfg, jcfg = _cfgs(name)
+        one[name] = ranks.frontend_serve(cfg, params_from_jax(trees[name], cfg), frames, steps)
+        jparams = jax.tree.map(jax.numpy.asarray, trees[name])
+        logits, cache = jtf.prefill_step(jcfg, jparams, {"embeddings": jax.numpy.asarray(frames)})
+        ref[name] = [np.asarray(logits)]
+        for e in steps if cfg.causal else []:
+            logits, cache = jtf.decode_step(jcfg, jparams, cache, jax.numpy.asarray(e))
+            ref[name].append(np.asarray(logits))
     return {"two": ranks.collect(two, 300), "four": ranks.collect(four, 300), "one": one,
             "ref": ref}
 
@@ -313,6 +338,33 @@ def test_entry_points_on_a_tp_sharded_module(runs, spawn, name):
     for r, out in runs[spawn].items():
         e = out["serve_tp"][case]["entries"]
         assert e["logits_rel"] <= REL and e["cache_gap"] <= REL, (r, e)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(FRONTEND))
+def test_frontend_serves_split_on_two_ranks(runs, name):
+    """An embedding-input config on ``(model 2)`` through ``prefill_step``
+    (every position's logits for hubert, an encoder) and, for internvl2, 4
+    lockstep ``decode_step``s on frames: the frontend's ``d/T`` output
+    columns a rank, joined by one all-gather; every call's argmax tokens
+    equal one process's and the reference's, its logits within 1e-5
+    relative of one process's; ``tp_counts`` names the frontend split and
+    the head split where 2 divides V."""
+    cfg, _ = _cfgs(name)
+    one, ref = runs["one"][name], runs["ref"][name]
+    assert len(one) == (5 if cfg.causal else 1) == len(ref)
+    for r, out in sorted(runs["two"].items()):
+        got = out["serve_tp_frontend"][name]
+        assert len(got["logits"]) == len(one)
+        for g, o, j in zip(got["logits"], one, ref):
+            assert g.shape == o.shape == j.shape
+            np.testing.assert_array_equal(g.argmax(-1), o.argmax(-1))
+            np.testing.assert_array_equal(g.argmax(-1), j.argmax(-1))
+            assert _rel_gap(g, o) <= REL, (r, _rel_gap(g, o))
+        head = "tp_split" if cfg.vocab_size % 2 == 0 else "tp_whole"
+        assert got["tp_counts"]["tp_split"]["frontend"] == len(one), got["tp_counts"]
+        assert got["tp_counts"][head]["head"] == len(one), got["tp_counts"]
+        assert "frontend" not in got["tp_counts"]["tp_whole"], got["tp_counts"]
 
 
 @pytest.mark.slow

@@ -24,7 +24,15 @@ lane of the repo's process-group tests).
     where every sublayer splits over local heads);
   * ``gradcheck`` in float64 of ``copy_to_group`` and ``reduce_from_group``,
     and the k/v and bias gradients of reduced qwen2-7b at T 4 summed over
-    the model group (the gather's former slice-own rule gets them wrong).
+    the model group (the gather's former slice-own rule gets them wrong);
+  * the input and the head split: reduced yi-6b at vocab 256 (both tiers,
+    on every rung), gemma2-27b at 256 (the final softcap on split logits)
+    and hubert-xlarge at 64 (the frontend) take the vocab-parallel
+    cross-entropy and the embedding's (frontend's) ``d/T`` columns, held
+    as above; the embedding, the frontend and the head reach the compute
+    as the rank's shards and no all-gather outside the blocks forms a
+    ``(V, d)`` table; ``xent_vocab_parallel`` against ``xent_chunked`` on
+    the whole head, targets on the shard edges, within 1e-6 relative.
 
 Two spawns, 2 ranks and 4, run beside the reference's runs in this
 process.
@@ -62,9 +70,14 @@ from repro_torch.train import init_state, make_train_step  # noqa: E402
 torch.set_num_threads(2)
 
 SEQ = ranks.SEQ
-ARCHS = {"yi": ("yi-6b", 2), "qwen2": ("qwen2-7b", 3), "gemma2": ("gemma2-27b", 4),
-         "hubert": ("hubert-xlarge", 5), "dbrx": ("dbrx-132b", 6),
-         "jamba": ("jamba-v0.1-52b", 7)}
+# params: (arch, seed of the reference init, config replacements); the
+# reduced configs' vocabularies (251, hubert's 63) leave the head whole over
+# tp, 256 and 64 split it
+ARCHS = {"yi": ("yi-6b", 2, {}), "qwen2": ("qwen2-7b", 3, {}), "gemma2": ("gemma2-27b", 4, {}),
+         "hubert": ("hubert-xlarge", 5, {}), "dbrx": ("dbrx-132b", 6, {}),
+         "jamba": ("jamba-v0.1-52b", 7, {}), "yi256": ("yi-6b", 9, {"vocab_size": 256}),
+         "gemma2_256": ("gemma2-27b", 10, {"vocab_size": 256}),
+         "hubert64": ("hubert-xlarge", 11, {"vocab_size": 64})}
 # each case names its rung (data, model); jamba at lr 0.01 (PERF.md: lr 0.1
 # turns its float32 rounding into 1e-4 of its parameters in a few steps)
 SHAPES_2, SHAPES_4 = [(1, 2)], [(1, 4), (2, 2)]
@@ -76,14 +89,26 @@ _BASE = [
     {"name": "dbrx", "params": "dbrx", "seed": 7, "moe_groups": 2},
     {"name": "jamba", "params": "jamba", "seed": 8, "moe_groups": 2, "lr": 0.01, "steps": 1},
 ]
+# the head split over the vocabulary: yi on both tiers on every rung
+_VOCAB = [{"name": "yi256", "params": "yi256", "seed": 9},
+          {"name": "yi256_gram", "params": "yi256", "seed": 10, "tier": "gram"}]
+_HUBERT64 = {"name": "hubert64", "params": "hubert64", "seed": 12}
 CASES_2 = [{**c, "shape": (1, 2)} for c in
-           [{"name": "yi_program", "params": "yi", "seed": 1, "program": True}] + _BASE]
-CASES_4 = [{**c, "shape": (1, 4)} for c in _BASE] + [
+           [{"name": "yi_program", "params": "yi", "seed": 1, "program": True}] + _BASE
+           + _VOCAB + [{"name": "gemma2_256", "params": "gemma2_256", "seed": 11}, _HUBERT64]]
+CASES_4 = [{**c, "shape": (1, 4)} for c in _BASE + _VOCAB + [_HUBERT64]] + [
     {"name": "yi_program_dp", "params": "yi", "seed": 1, "program": True, "shape": (2, 2)},
     {"name": "dbrx_dp", "params": "dbrx", "seed": 7, "moe_groups": 2, "shape": (2, 2)},
-]
+] + [{**c, "name": c["name"] + "_dp", "shape": (2, 2)} for c in _VOCAB]
 for _c in CASES_2 + CASES_4:
-    _c["arch"] = ARCHS[_c["params"]][0]
+    _c["arch"], _, _c["extra"] = ARCHS[_c["params"]]
+
+
+def _cfgs(case: dict):
+    """The port's and the reference's reduced config of a case, its
+    replacements applied to both."""
+    return get_config(case["arch"], reduced=True).replace(**case["extra"]), \
+        jget(case["arch"], reduced=True).replace(**case["extra"])
 
 
 def _np_tree(tree):
@@ -99,7 +124,7 @@ def _reference(case: dict, jparams) -> dict:
     """The reference's single-device run of a case at the rung's dp width:
     ``make_train_step(dp_size=dp)`` (the gram tier with its interpret-mode
     kernels), or ``StepEngine.for_lm`` under the program."""
-    jcfg = jget(case["arch"], reduced=True)
+    jcfg = _cfgs(case)[1]
     dp = case["shape"][0]
     out = {"loss": [], "sq_norm_sum": [], "batch": [], "diversity": []}
     opt = jsgd(momentum=0.9)
@@ -147,7 +172,7 @@ def _whole(case: dict, jparams) -> dict | None:
     program cases, held against the reference only."""
     if case.get("program"):
         return None
-    cfg = get_config(case["arch"], reduced=True)
+    cfg = _cfgs(case)[0]
     kw = {}
     if case.get("tier") == "gram":
         kw = dict(probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
@@ -176,14 +201,15 @@ def _close(got: np.ndarray, want: np.ndarray):
 def tp_runs(tmp_path_factory):
     """Both spawns started at once, the reference's and the one-process
     runs computed meanwhile, then the ranks' results."""
-    jparams = {k: jtf.init_params(jget(arch, reduced=True), jax.random.key(seed))
-               for k, (arch, seed) in ARCHS.items()}
+    jparams = {k: jtf.init_params(jget(arch, reduced=True).replace(**extra),
+                                  jax.random.key(seed))
+               for k, (arch, seed, extra) in ARCHS.items()}
     args = {k: _np_tree(v) for k, v in jparams.items()}
     started = {
-        2: ranks.start_ranks(tmp_path_factory.mktemp("tp2"), "tp_gradcheck+tp_train",
+        2: ranks.start_ranks(tmp_path_factory.mktemp("tp2"), "tp_gradcheck+tp_xent+tp_train",
                              {**args, "shapes": SHAPES_2, "cases": CASES_2}, 2),
         4: ranks.start_ranks(tmp_path_factory.mktemp("tp4"),
-                             "tp_gradcheck+tp_grads+tp_train",
+                             "tp_gradcheck+tp_xent+tp_grads+tp_train",
                              {**args, "shapes": SHAPES_4, "cases": CASES_4,
                               "shape": (1, 4)}, 4)}
     cases = {(w, c["name"]): c for w, cs in ((2, CASES_2), (4, CASES_4)) for c in cs}
@@ -210,7 +236,7 @@ def test_tp_training_matches_reference_and_whole_run(tp_runs, world, name):
     case = tp_runs["cases"][(world, name)]
     w = tp_runs["want"][_ref_key(case)]
     o = tp_runs["whole"][_ref_key(case)]
-    cfg = get_config(case["arch"], reduced=True)
+    cfg = _cfgs(case)[0]
     jref = {leaf.path: leaf for leaf in interop.layout(tf.build(cfg, "meta"))}
     flat = _flat(w["params"])
     for r in range(world):
@@ -240,7 +266,7 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
     """The spies' head counts and widths on every rank, the split and whole
     sublayers counted per forward, the block entries' gathered bytes."""
     case = tp_runs["cases"][(world, name)]
-    cfg = get_config(case["arch"], reduced=True)
+    cfg = _cfgs(case)[0]
     data, t = case["shape"]
     plan = ShardingPlan(mesh=abstract_mesh(case["shape"], ("data", "model")), tp="model")
     splits = [sharding.tp_split(cfg, p, plan) for p in range(cfg.period)]
@@ -256,11 +282,11 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
                                  else set())
         assert set(g["moe"]) == ({cfg.d_ff // t} if any(s.ffn == "moe" for s in splits)
                                  else set())
-        micro = sum(b // 4 for b in g["batch"]) if case.get("program") \
-            else 2 * case.get("steps", 3)
-        want_split, want_whole = {}, {"head": micro,
-                                      ("embed" if cfg.input_mode == "tokens" else "frontend"):
-                                      micro}
+        micro = _micro(case, g)
+        # the input and the head count per call: the gram tier's probe pass too
+        calls = micro * (2 if case.get("tier") == "gram" else 1)
+        want_split, want_whole = {_input_kind(cfg): calls}, {}
+        (want_split if cfg.vocab_size % t == 0 else want_whole)["head"] = calls
         for layer in range(cfg.num_layers):
             s = splits[layer % cfg.period]
             for kind in (["attn"] if s.attn else []) + ([s.ffn] if s.ffn else []):
@@ -280,6 +306,79 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
                        * p.element_size() for n, p in model.named_parameters()
                        if n.startswith("blocks.") and "data" in specs[n])
             assert g["block_gather_bytes"] == fsdp
+
+
+def _micro(case: dict, g: dict) -> int:
+    """The microbatches of a case's run on a rank (2 a step, 4 sequences
+    each under the program)."""
+    return sum(b // 4 for b in g["batch"]) if case.get("program") else 2 * case.get("steps", 3)
+
+
+def _input_kind(cfg) -> str:
+    return "embed" if cfg.input_mode == "tokens" else "frontend"
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("world,name", IDS)
+def test_tp_forms_no_vocab_table_whole(tp_runs, world, name):
+    """The embedding (or frontend) and the head reach the compute as the
+    rank's tp shards: ``(V, d/T)`` (the embedding gathered over fsdp only),
+    ``(d/T, d)``, ``(V/T, d)``; the head whole only where T does not divide
+    V.  The input and the head (the training forward's and the probe
+    pass's) all-gather only the input's columns, the logsumexps and target
+    logits, and the embedding's (the frontend's) tp shard over fsdp, by
+    calls and bytes; the vocab-parallel
+    collectives' calls and bytes are the reckoning's (2 microbatches a step
+    of ``4 / data`` sequences of ``SEQ``, float32)."""
+    case = tp_runs["cases"][(world, name)]
+    cfg = _cfgs(case)[0]
+    data, t = case["shape"]
+    v, d = cfg.vocab_size, cfg.d_model
+    split_head = v % t == 0
+    want = {"lm_head.weight": (v // t, d) if split_head else (v, d)}
+    if cfg.input_mode == "tokens":
+        want["embed.weight"] = (v, d // t)
+    else:
+        want["frontend.weight"] = (d // t, d)
+    for r in range(world):
+        g = tp_runs["got"][world][r]["tp_train"][name]
+        assert {n: tuple(shape) for n, shape in g["leaves"]} == want, g["leaves"]
+        assert len(g["leaves"]) == len(want), g["leaves"]  # one shape a leaf
+        vp = g["vp_counts"]
+        calls = _micro(case, g) * (2 if case.get("tier") == "gram" else 1)
+        head = calls if split_head else 0
+        assert {k: c["calls"] for k, c in vp.items()} == {
+            "input_all_gather": calls, "xent_all_gather": head, "head_all_reduce": head}, vp
+        # every all-gather of the input and the head accounted for: the
+        # input's columns, the logsumexps, and (over data) the rank's tp shard
+        # of the embedding or frontend, float32
+        rows = v if cfg.input_mode == "tokens" else d  # the leaf's dim over fsdp
+        fsdp = calls if data > 1 and rows % data == 0 else 0
+        shard = 4 * rows * (d // t)
+        assert len(g["vocab_gathers"]) == calls + head + fsdp, g["vocab_gathers"]
+        assert sum(g["vocab_gathers"]) == vp["input_all_gather"]["bytes"] \
+            + vp["xent_all_gather"]["bytes"] + fsdp * shard
+        if not case.get("program"):
+            bm = 4 // data
+            assert vp["input_all_gather"]["bytes"] == calls * bm * SEQ * d * 4
+            assert vp["head_all_reduce"]["bytes"] == head * bm * SEQ * d * 4
+            assert vp["xent_all_gather"]["bytes"] == head * t * 2 * bm * SEQ * 4
+
+
+@pytest.mark.slow
+def test_vocab_parallel_xent_matches_whole(tp_runs):
+    """``xent_vocab_parallel`` behind ``copy_to_group`` on 2 and 4 model
+    ranks and on ``(data 2, model 2)``, targets on the shard edges: the
+    loss, dx and the rank's dW rows within 1e-6 relative of
+    ``xent_chunked`` on the whole head, with and without the softcap."""
+    for world, shapes in ((2, SHAPES_2), (4, SHAPES_4)):
+        for r in range(world):
+            got = tp_runs["got"][world][r]["tp_xent"]
+            assert len(got) == 2 * len(shapes)
+            for key, e in got.items():
+                t = int(key[0].split("x")[1])
+                assert e["edges"] == 2 * t, (world, r, key)  # v0 - 1 is the last shard's end
+                assert max(e["loss"], e["dx"], e["dw"]) < 1e-6, (world, r, key, e)
 
 
 @pytest.mark.slow
