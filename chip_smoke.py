@@ -484,6 +484,40 @@ MB L2.
      logit all-gathers, tokens, the policy), calls, MB and ms, the pool
      and each rank's peak.
 
+ 32. context-parallel attention in tensor-parallel training, on 4 gloo
+     ranks of a world of their own sharing the card: internvl2-1b at full
+     width and depth (24 layers, d_model 896, 14/2 heads of hd 64, d_ff
+     4864, V 151655, the embedding frontend; bf16, remat) on a ``(data 1,
+     model 4)`` rung, B 2, S 2048: 4 does not divide the 14 heads, so each
+     rank projects its 224 q and 32 k/v columns, one all-to-all trades the
+     q columns for its 512 query rows of every head, one all-gather joins
+     k and v, the flash kernels run its rows at offset ``512 r`` against
+     the keys ``[0, 512 (r + 1))``, and the out all-to-all trades back
+     before its rows of ``o``; the FFN and the frontend split, the head
+     whole (V odd).  3 moment-tier steps under a DiveBatch program, then 2
+     gram-tier steps, against the same run on one process with whole
+     state: batches and buckets equal, losses and ``sq_norm_sum`` within
+     1e-3 relative, the gathered parameters within 1e-3; each rank's
+     resident bytes equal to the reckoning; 48, 24, 24 attention launches a
+     microbatch, all at the offset form on ranks 1-3 (``kernels.
+     offset_counts``) and none on rank 0 (offset 0, as many keys as rows);
+     the flash wrapper seeing 14/2 heads over the rank's rows; ``tp_counts``
+     attention context-parallel on every layer, the FFN and the frontend
+     split, the head whole; the exchanges ``context_parallel_counts``
+     reckons a step; in the gram tier the psgn kernels reading the rank's
+     columns (q 896 -> 224, k and v 896 -> 32, o 224 -> 896, gate and up
+     896 -> 1216, down 1216 -> 896).  Printed: step ms, the exchanges and
+     the tp all-reduces, the collectives by kind (calls, GB, ms), each
+     rank's peak.  Then rows 1-3 at the offset form on the card: each
+     rank's piece held against the plain versions and its forward and
+     backward timed (the causal imbalance of contiguous rows: 1, 3, 5 and
+     7 of 16 score tiles), qwen2-7b's piece at T 16 (28/4 heads of hd
+     128), a non-causal piece (hd 80) and a windowed, softcapped one (hd
+     128) held too, and the last rank's piece timed as the records
+     ``chunk_attention|flash_dq|flash_dkv (context-parallel rank 3 of 4:
+     ...)`` beside SDPA with an explicit boolean mask; their launches are
+     phase 32's at the offset form.
+
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
 50)`` and ``paged_decode_attention (gemma2: softcap 50, n_rep 2)``,
@@ -6633,6 +6667,491 @@ def tp_serve_phase(phase28: dict) -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 32: context-parallel attention in tensor-parallel training on ranks
+# ---------------------------------------------------------------------------
+
+INTERN = get_config("internvl2-1b")
+# internvl2-1b at full width and depth on a (data 1, model 4) rung of 4 gloo
+# ranks sharing the card: 4 is the smallest T its 14 heads do not divide,
+# and it divides H hd = 896, KV hd = 128 and S
+CP_WORLD, CP_SEQ, CP_MICRO, CP_STEPS, CP_GRAM_STEPS = 4, 2048, 2, 3, 2
+CP_LAYERS = INTERN.num_layers
+CP_SEED = 7
+#: the context-parallel collectives of a forward (``transformer.
+#: context_parallel_counts``' kinds)
+CP_KINDS = {"q_all_to_all": "q all-to-all", "kv_all_gather": "k/v all-gather",
+            "out_all_to_all": "out all-to-all"}
+
+
+def cp_cfg():
+    return INTERN.replace(num_layers=CP_LAYERS, attn_impl="pallas")
+
+
+def cp_program():
+    """32's tick-fired DiveBatch program: batch 2 (one microbatch), a tick
+    every 2 steps that may grow it to 4."""
+    return train_lm.make_program("divebatch", m0=CP_MICRO, m_max=2 * CP_MICRO, delta=0.5,
+                                 granule=CP_MICRO, lr=TRAIN_LR, tick_every=2)
+
+
+def cp_gram_step(cfg, opt, plan, dev):
+    return make_train_step(
+        cfg, opt, 1, plan=plan, estimator="gram",
+        probe_loss=lambda p, pr, b: probes.loss_with_probes(cfg, p, pr, b),
+        probe_specs=lambda p, n: probes.probe_specs(cfg, n, CP_SEQ, device=dev))
+
+
+def cp_gram_batch(cfg, i: int) -> dict:
+    return train_lm.frame_batches(cfg, CP_SEED)(100 + i, CP_MICRO, CP_SEQ)
+
+
+def cp_plan_abstract():
+    """32's rung roles on an abstract mesh (the reckoning's)."""
+    from repro_torch.dist.plan import ShardingPlan, abstract_mesh
+
+    return ShardingPlan(mesh=abstract_mesh((1, CP_WORLD), ("data", "model")), dp=("data",),
+                        fsdp=("data",), tp="model", ep=("data",))
+
+
+def cp_one_process(path: str, dev: str = "cuda") -> dict:
+    """32's reference in the parent: the run on one process with whole
+    state (the moment-tier steps under :func:`cp_program`, then the
+    gram-tier steps); its final parameters to ``path``."""
+    cfg = cp_cfg()
+    opt = sgd(momentum=0.9)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    engine = StepEngine.for_lm(cfg, opt, micro_batch=CP_MICRO, attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    out = train_lm.train(cfg, params, cp_program(), steps=CP_STEPS, seq_len=CP_SEQ,
+                         micro_batch=CP_MICRO, engine=engine,
+                         batches=train_lm.frame_batches(cfg, CP_SEED), log=lambda line: None)
+    state, gram = out["state"], cp_gram_step(cfg, opt, None, dev)
+    rec = {"loss": [r["loss"] for r in out["records"]],
+           "batch": [r["batch"] for r in out["records"]],
+           "buckets": list(engine.stats.buckets),
+           "ms": [1e3 * r["seconds"] for r in out["records"]], "gram_loss": [], "gram_ms": []}
+    for i in range(CP_GRAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = gram(state, cp_gram_batch(cfg, i), TRAIN_LR)
+        rec["gram_loss"].append(float(metrics["loss"]))
+        rec["gram_ms"].append(1e3 * (time.perf_counter() - t0))
+    rec["sq_norm_sum"] = state.div_state.sq_norm_sum.item()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save({n: p.detach().cpu() for n, p in params.named_parameters()}, path)
+    del out, state, params, engine
+    free()
+    return rec
+
+
+def rank_cp(dev, args) -> dict:
+    """32 on a rank: internvl2-1b on the (data 1, model 4) rung, attention
+    context-parallel (each rank its 512 query rows of every head), the FFN,
+    the frontend split, the head whole: the moment-tier steps under
+    :func:`cp_program`, then the gram-tier steps; per step its ms, the
+    collectives by kind, the context-parallel exchanges and the tensor-
+    parallel all-reduces; the heads and rows the flash wrapper saw, the
+    widths the psgn kernels read, the launches at the offset form."""
+    from repro_torch.dist.plan import reset_tensor_parallel_counts, tensor_parallel_counts
+    from repro_torch.launch.mesh import make_plan, make_production_mesh
+
+    cfg = cp_cfg()
+    opt = sgd(momentum=0.9)
+    plan = make_plan(make_production_mesh(device=dev, tp=CP_WORLD))
+    params = place(tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), plan)
+    engine = StepEngine.for_lm(cfg, opt, micro_batch=CP_MICRO, attn_impl="pallas",
+                               plan=plan)
+    clock = CollectiveClock()
+    seen, widths = set(), {}
+    flash, tree = kattn.flash_attention, ops.persample_sq_norm_tree
+
+    def spy_flash(q, k, v, causal=True, window=None, softcap=None, q_offset=0):
+        seen.add((q.shape[2], k.shape[2], q.shape[1], q_offset, k.shape[1]))
+        return flash(q, k, v, causal, window, softcap, q_offset)
+
+    def spy_tree(acts, deltas, *a, **kw):
+        widths.update({n: (x.shape[-1], deltas[n].shape[-1]) for n, x in acts.items()})
+        return tree(acts, deltas, *a, **kw)
+
+    kattn.flash_attention, ops.persample_sq_norm_tree = spy_flash, spy_tree
+
+    def timed(fn, state, batch, lr, into: list):
+        before, tp0, cp0 = clock.snapshot(), tensor_parallel_counts(), tf.context_parallel_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = fn(state, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        tp1, cp1 = tensor_parallel_counts(), tf.context_parallel_counts()
+        into.append({"batch": int(next(iter(batch.values())).shape[0]), "loss": loss,
+                     "ms": 1e3 * (time.perf_counter() - t1),
+                     "coll": clock_delta(before, clock.snapshot()),
+                     "tp": {k: tp1[k] - tp0[k] for k in tp1},
+                     "cp": {k: {m: cp1[k][m] - cp0[k][m] for m in cp1[k]} for k in cp1}})
+        return state, metrics
+
+    steps, inner = [], engine.step
+    engine.step = lambda state, batch, lr: timed(inner, state, batch, lr, steps)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tf.reset_tp_counts()
+    reset_tensor_parallel_counts()
+    try:
+        out = train_lm.train(cfg, params, cp_program(), steps=CP_STEPS, seq_len=CP_SEQ,
+                             micro_batch=CP_MICRO, engine=engine, plan=plan,
+                             batches=train_lm.frame_batches(cfg, CP_SEED),
+                             log=lambda line: None)
+        torch.cuda.synchronize()
+        rec = {"steps": steps, "num_micro": [r["num_micro"] for r in out["records"]],
+               "moment_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "buckets": list(engine.stats.buckets), "launches": kernels.launch_counts(),
+               "offset": kernels.offset_counts(), "routes": kernels.route_counts(),
+               "tp_counts": tf.tp_counts(), "seen": sorted(seen),
+               "plan": plan_of(cfg, torch.bfloat16)}
+        state = out["state"]
+        gram, rec["gram"] = cp_gram_step(cfg, opt, plan, dev), []
+        kernels.reset_launch_counts()
+        seen.clear()
+        for i in range(CP_GRAM_STEPS):
+            state, _ = timed(gram, state, cp_gram_batch(cfg, i), TRAIN_LR, rec["gram"])
+        torch.cuda.synchronize()
+        rec.update(gram_launches=kernels.launch_counts(), gram_offset=kernels.offset_counts(),
+                   gram_routes=kernels.route_counts(), gram_seen=sorted(seen), widths=widths,
+                   sq_norm_sum=state.div_state.sq_norm_sum.item(),
+                   bytes=state_bytes(state),
+                   params=sum(p.numel() for p in state.params.parameters()),
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        whole = torch.load(args["whole"]) if dist.get_rank() == 0 else None
+        gap = 0.0
+        for n, w in whole_params(state.params).items():
+            if whole is not None:
+                gap = max(gap, (w.float().cpu() - whole[n].float()).abs().max().item())
+        rec["param_gap"] = gap
+    finally:
+        kattn.flash_attention, ops.persample_sq_norm_tree = flash, tree
+        clock.close()
+    return rec
+
+
+RANK_JOBS.update(context_tp=rank_cp)
+
+
+def cp_offset_inputs(r, *, b, s, t, rank, h, kv, hd, window=None, softcap=None,
+                     causal=True) -> dict:
+    """Context-parallel rank ``rank`` of ``t`` over a length-``s`` sequence
+    in bf16: its ``s/t`` query rows at offset ``s0`` against the keys ``[0,
+    s1)`` (causal) or all ``s``, with the card forward's out and lse."""
+    st = s // t
+    s0, s1 = rank * st, (rank + 1) * st
+    sk = s1 if causal else s
+    q, dout = (torch.from_numpy(r.standard_normal((b, st, h, hd))).to("cuda", torch.bfloat16)
+               for _ in range(2))
+    k, v = (torch.from_numpy(r.standard_normal((b, sk, kv, hd))).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    q_pos = torch.arange(s0, s1, dtype=torch.int32, device="cuda")
+    k_pos = torch.arange(sk, dtype=torch.int32, device="cuda")
+    ones = torch.ones_like(k_pos)
+    out, lse = kattn.chunk_attention_fwd(q, k, v, q_pos, k_pos, ones, window=window,
+                                         softcap=softcap, causal=causal)
+    return dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse, q_pos=q_pos, k_pos=k_pos,
+                k_valid=ones, delta=ref.flash_delta(out, dout), s0=s0, window=window,
+                softcap=softcap, causal=causal)
+
+
+def cp_offset_case(name: str, inp: dict) -> tuple[float, float, float]:
+    """The chunk forward, dq and dk/dv at a context-parallel rank's offset
+    form against their plain versions: (forward, dq, dk/dv) max abs errors."""
+    kw = dict(window=inp["window"], softcap=inp["softcap"], causal=inp["causal"])
+    fwd = (inp["q"], inp["k"], inp["v"], inp["q_pos"], inp["k_pos"], inp["k_valid"])
+    want, want_lse = ref.attention_ref_lse(*fwd, **kw)
+    err_fwd = check(name + " forward", inp["out"], want, torch.bfloat16)
+    check(name + " lse", inp["lse"], want_lse, torch.bfloat16)
+    args = (inp["q"], inp["k"], inp["v"], inp["dout"], inp["lse"], inp["delta"])
+    dq = kattn.flash_dq(*args, q_offset=inp["s0"], **kw)
+    dk, dv = kattn.flash_dkv(*args, q_offset=inp["s0"], **kw)
+    torch.cuda.synchronize()
+    g = ref.flash_grads_ref(inp["q"], inp["k"], inp["v"], inp["lse"], inp["delta"],
+                            inp["dout"], q_offset=inp["s0"], **kw)
+    tol = FLASH_TOL[torch.bfloat16]
+    err_dq = check(name + " dq", dq, g[0], torch.bfloat16, tol=tol)
+    err_dkv = max(check(name + " dk", dk, g[1], torch.bfloat16, tol=tol),
+                  check(name + " dv", dv, g[2], torch.bfloat16, tol=tol))
+    plan = kattn.attention_plan(torch.bfloat16, inp["q"].shape[-1], inp["causal"])
+    print(f"  {name} [forward {plan['chunk_attention']}, dq {plan['flash_dq']}, dk/dv "
+          f"{plan['flash_dkv']}]: max abs err forward {err_fwd:.3e} (tol "
+          f"{TOL[torch.bfloat16]}), dq {err_dq:.3e}, dk/dv {err_dkv:.3e} (atol {tol[0]})")
+    return err_fwd, err_dq, err_dkv
+
+
+def cp_attention_pairs(inp: dict) -> int:
+    """The (row, key) pairs the mask lets through, over every (b, h)."""
+    q_pos, k_pos = inp["q_pos"].long(), inp["k_pos"].long()
+    rel = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones_like(rel, dtype=torch.bool)
+    if inp["causal"]:
+        ok &= rel >= 0
+    if inp["window"] is not None:
+        ok &= rel < inp["window"]
+    b, _, h, _ = inp["q"].shape
+    return b * h * int(ok.sum())
+
+
+def cp_kernel_phase() -> list[dict]:
+    """Rows 1-3 at the offset form on the card, after phase 32's ranks:
+    each rank's piece of phase 32's attention (B 2, S 2048, 14/2 heads of
+    hd 64, causal) held against the plain versions and its forward and
+    backward timed (the causal imbalance of contiguous rows); the last
+    rank's, the heaviest, timed as the kernels' records beside SDPA with an
+    explicit boolean mask; qwen2-7b's piece at T 16 (28/4 heads of hd 128),
+    a non-causal piece (hd 80) and a windowed, softcapped one (hd 128)
+    held too."""
+    r = np.random.default_rng(32)
+    h, kv, hd = INTERN.num_heads, INTERN.num_kv_heads, INTERN.resolved_head_dim
+    shape = dict(b=CP_MICRO, s=CP_SEQ, t=CP_WORLD, h=h, kv=kv, hd=hd)
+    alone_ms, host_ms = [], []
+    for rank in range(CP_WORLD):
+        inp = cp_offset_inputs(r, rank=rank, **shape)
+        cp_offset_case(f"internvl2-1b piece of rank {rank} (B {CP_MICRO}, "
+                       f"{CP_SEQ // CP_WORLD} rows at offset {inp['s0']}, "
+                       f"{inp['k'].shape[1]} keys, {h}/{kv} heads)", inp)
+        q, k, v, dout, lse, delta = (inp[n] for n in ("q", "k", "v", "dout", "lse", "delta"))
+        s0, fwd = inp["s0"], (q, k, v, inp["q_pos"], inp["k_pos"], inp["k_valid"])
+        # the card's time alone for the three kernels, and the autograd
+        # function's forward and backward host-timed (the host's queueing in)
+        alone_ms.append(
+            timed_ms(lambda: kattn.chunk_attention_fwd(*fwd), spin=True)
+            + timed_ms(lambda: kattn.flash_dq(q, k, v, dout, lse, delta, q_offset=s0),
+                       spin=True)
+            + timed_ms(lambda: kattn.flash_dkv(q, k, v, dout, lse, delta, q_offset=s0),
+                       spin=True))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def fwd_bwd():
+            out = kattn.flash_attention(*leaves, q_offset=s0)
+            torch.autograd.grad(out, leaves, dout)
+
+        host_ms.append(timed_ms(fwd_bwd))
+    tiles = [2 * t + 1 for t in range(CP_WORLD)]
+    print(f"  each rank's attention of one layer, forward, dq and dk/dv on the card alone "
+          f"(through autograd, host-timed): "
+          + ", ".join(f"rank {t} {a:.4f} ms ({b:.4f}; {tiles[t]}/{CP_WORLD ** 2} of the "
+                      f"score tiles)" for t, (a, b) in enumerate(zip(alone_ms, host_ms)))
+          + f"; the last over the first {alone_ms[-1] / alone_ms[0]:.2f}x alone "
+          f"({host_ms[-1] / host_ms[0]:.2f}x host-timed)")
+    qwen = get_config("qwen2-7b")
+    cp_offset_case("qwen2-7b piece of rank 15 of 16 (B 1, 256 rows at offset 3840, 4096 "
+                   "keys, 28/4 heads of hd 128)",
+                   cp_offset_inputs(r, b=1, s=4096, t=16, rank=15, h=qwen.num_heads,
+                                    kv=qwen.num_kv_heads, hd=qwen.resolved_head_dim))
+    cp_offset_case("non-causal piece (B 2, 256 rows at offset 512, 1024 keys, 16/4 heads of "
+                   "hd 80)",
+                   cp_offset_inputs(r, b=2, s=1024, t=4, rank=2, h=16, kv=4, hd=80,
+                                    causal=False))
+    cp_offset_case("windowed piece (B 1, 1024 rows at offset 3072, 4096 keys, window 1500, "
+                   "softcap 50, 8/4 heads of hd 128)",
+                   cp_offset_inputs(r, b=1, s=4096, t=4, rank=3, h=8, kv=4, hd=128,
+                                    window=1500, softcap=50.0))
+    # the records: the last rank's piece of phase 32
+    inp = cp_offset_inputs(r, rank=CP_WORLD - 1, **shape)
+    err_fwd, err_dq, err_dkv = cp_offset_case("internvl2-1b last rank (records)", inp)
+    q, k, v, dout, lse, delta = (inp[n] for n in ("q", "k", "v", "dout", "lse", "delta"))
+    fwd = (q, k, v, inp["q_pos"], inp["k_pos"], inp["k_valid"])
+    s0 = inp["s0"]
+    fwd_ms = timed_ms(lambda: kattn.chunk_attention_fwd(*fwd))
+    fwd_dev = timed_ms(lambda: kattn.chunk_attention_fwd(*fwd), spin=True)
+    dq_ms = timed_ms(lambda: kattn.flash_dq(q, k, v, dout, lse, delta, q_offset=s0))
+    dq_dev = timed_ms(lambda: kattn.flash_dq(q, k, v, dout, lse, delta, q_offset=s0),
+                      spin=True)
+    dkv_ms = timed_ms(lambda: kattn.flash_dkv(q, k, v, dout, lse, delta, q_offset=s0))
+    dkv_dev = timed_ms(lambda: kattn.flash_dkv(q, k, v, dout, lse, delta, q_offset=s0),
+                       spin=True)
+    plain_fwd = timed_ms(lambda: ref.attention_ref_lse(*fwd))
+    plain_bwd = timed_ms(lambda: ref.flash_grads_ref(q, k, v, lse, delta, dout, q_offset=s0))
+    # library yardstick: SDPA with an explicit boolean mask (Sq != Sk)
+    mask = inp["q_pos"].long()[:, None] >= inp["k_pos"].long()[None, :]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    gt = dout.transpose(1, 2)
+    sdpa_bwd = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    pairs = cp_attention_pairs(inp)
+    b, st = q.shape[:2]
+    fwd_bound, fwd_by = bound(nbytes(q, k, v, q), 4 * hd * pairs)
+    read = nbytes(q, k, v, dout, lse, delta)
+    dq_bound, dq_by = bound(read + b * st * h * hd * 4, 3 * 2 * hd * pairs)
+    dkv_bound, dkv_by = bound(read + 2 * nbytes(k) * 2, 4 * 2 * hd * pairs)
+    plan = kattn.attention_plan(torch.bfloat16, hd)
+    where = (f"context-parallel rank {CP_WORLD - 1} of {CP_WORLD}: {st} rows at offset {s0}, "
+             f"{k.shape[1]} keys, {h}/{kv} heads, B {b}")
+    for label, ms, dev_ms, bnd, by, lib in (
+            ("chunk_attention", fwd_ms, fwd_dev, fwd_bound, fwd_by, sdpa_fwd),
+            ("flash_dq", dq_ms, dq_dev, dq_bound, dq_by, sdpa_bwd),
+            ("flash_dkv", dkv_ms, dkv_dev, dkv_bound, dkv_by, sdpa_bwd)):
+        print(f"  {label} [{plan[label]}] at the offset form ({where}): {ms:.4f} ms "
+              f"({dev_ms:.4f} on the card alone); bound {bnd:.4f} ms by {by}, "
+              f"{100 * bnd / ms:.1f}% of it; library {lib:.4f} ms (SDPA "
+              f"{'forward' if label == 'chunk_attention' else 'backward'}, boolean mask)")
+    del out, qt, kt, vt
+    tc = {n: "_tc" if plan[n] == "tc" else "" for n in ROUTED_ATTENTION}
+    paths = ["context-parallel training (ranks)", "context-parallel gram steps (ranks)"]
+    common = {"route": "cuda", "paths": paths}
+    return [
+        {"name": f"chunk_attention ({where})", "counter": "chunk_attention@offset",
+         "source": f"src/repro_torch/kernels/csrc/chunk_attention{tc['chunk_attention']}.cu",
+         "replaces": "src/repro/kernels/attention.py:92", "max_abs_err": err_fwd,
+         "ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": plain_fwd, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "library_ms": sdpa_fwd, **common},
+        {"name": f"flash_dq ({where})", "counter": "flash_dq@offset",
+         "source": f"src/repro_torch/kernels/csrc/flash_dq{tc['flash_dq']}.cu",
+         "replaces": "src/repro/kernels/attention.py:218", "max_abs_err": err_dq,
+         "ms": dq_ms, "device_ms": dq_dev, "plain_ms": plain_bwd, "bound_ms": dq_bound,
+         "bound_by": dq_by, "library_ms": sdpa_bwd, **common},
+        {"name": f"flash_dkv ({where})", "counter": "flash_dkv@offset",
+         "source": f"src/repro_torch/kernels/csrc/flash_dkv{tc['flash_dkv']}.cu",
+         "replaces": "src/repro/kernels/attention.py:245", "max_abs_err": err_dkv,
+         "ms": dkv_ms, "device_ms": dkv_dev, "plain_ms": plain_bwd, "bound_ms": dkv_bound,
+         "bound_by": dkv_by, "library_ms": sdpa_bwd, **common},
+    ]
+
+
+def cp_phase() -> tuple[dict[str, dict], list[dict]]:
+    """Phase 32: its one-process run in the parent, its 4 ranks in a gloo
+    world of their own, then rows 1-3 at the offset form on the card;
+    returns the launch counts of its paths (summed over the ranks, with
+    the offset form's as ``<kernel>@offset``) and the records."""
+    cfg = cp_cfg()
+    layers, t = cfg.num_layers, CP_WORLD
+    h, kv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    st = CP_SEQ // t
+    phase(f"32. context-parallel attention in tensor-parallel training on {t} gloo ranks "
+          f"sharing the card: internvl2-1b at full width and {layers} of {INTERN.num_layers} "
+          f"layers on a (data 1, model {t}) rung, its {h}/{kv} heads (which {t} does not "
+          f"divide) over each rank's {st} query rows, k/v gathered whole, the FFN and the "
+          f"frontend split, the head whole (V {cfg.vocab_size})")
+    t_phase = time.perf_counter()
+    mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, t, cp_plan_abstract())
+    root = ckpt_root("context")
+    try:
+        path = os.path.join(root, "intern_whole.pt")
+        one = cp_one_process(path)
+        t0 = time.perf_counter()
+        res = dict(sorted(spawn_ranks("context_tp", "gloo", t, {"whole": path}).items()))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  one process, whole state: losses {[round(x, 5) for x in one['loss']]}, "
+          f"batches {one['batch']}, step ms {[round(x, 1) for x in one['ms']]}; gram "
+          f"tier {[round(x, 5) for x in one['gram_loss']]}, "
+          f"{[round(x, 1) for x in one['gram_ms']]} ms; sq_norm_sum "
+          f"{one['sq_norm_sum']:.6e}; peak {one['peak_gib']:.2f} GiB")
+    ff = cfg.d_ff // t
+    want_widths = {"q": (d, h * hd // t), "k": (d, kv * hd // t), "v": (d, kv * hd // t),
+                   "o": (h * hd // t, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    for rk, y in res.items():
+        tag = f"[gloo, world {t}, rank {rk}]"
+        s0, s1 = rk * st, (rk + 1) * st
+        if y["bytes"] != mine or y["params"] != mine_params:
+            raise AssertionError(f"{tag} holds {y['bytes']} bytes ({y['params']} parameters), "
+                                 f"reckoned {mine} ({mine_params})")
+        losses = [x["loss"] for x in y["steps"]] + [g["loss"] for g in y["gram"]]
+        want_losses = one["loss"] + one["gram_loss"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        sq = abs(y["sq_norm_sum"] - one["sq_norm_sum"]) / one["sq_norm_sum"]
+        batches = [x["batch"] for x in y["steps"]]
+        if batches != one["batch"] or y["buckets"] != one["buckets"] \
+                or rel > SHARD_LOSS_RTOL or sq > SHARD_LOSS_RTOL:
+            raise AssertionError(f"{tag} batches {batches} buckets {y['buckets']} losses "
+                                 f"{losses} sq_norm_sum {y['sq_norm_sum']} against {one}")
+        if rk == 0 and y["param_gap"] > SHARD_PARAM_ATOL:
+            raise AssertionError(f"{tag} gathered parameters {y['param_gap']:.3e} from the "
+                                 f"one-process run's (tol {SHARD_PARAM_ATOL})")
+        n_micro = sum(y["num_micro"])
+        want = {"chunk_attention": 2 * layers * n_micro, "paged_decode_attention": 0,
+                "flash_dq": layers * n_micro, "flash_dkv": layers * n_micro, **NO_PSGN}
+        seen = [(h, kv, st, s0, s1)]
+        offset = {k: want[k] if rk else 0 for k in ROUTED_ATTENTION}
+        if y["launches"] != want or [tuple(x) for x in y["seen"]] != seen \
+                or y["offset"] != offset:
+            raise AssertionError(f"{tag} launches {y['launches']} (at the offset form "
+                                 f"{y['offset']}), expected {want} ({offset}); the flash "
+                                 f"wrapper saw {y['seen']}, expected {seen}")
+        attn_routes(y["launches"], y["plan"], what=f"{tag} context-parallel internvl2",
+                    routes=y["routes"])
+        split = {"tp_split": {"attn_context": layers * n_micro, "dense": layers * n_micro,
+                              "frontend": n_micro}, "tp_whole": {"head": n_micro}}
+        if y["tp_counts"] != split:
+            raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split}")
+        # a forward and its remat recompute a layer a microbatch; the gram
+        # steps' probe pass (no remat) once more
+        for i, x in enumerate(y["steps"] + y["gram"]):
+            gram_step = i >= len(y["steps"])
+            n = (2 * layers * x["batch"] // CP_MICRO) + (layers if gram_step else 0)
+            if any(x["cp"][k]["calls"] != n for k in CP_KINDS):
+                raise AssertionError(f"{tag} step {i + 1} context-parallel collectives "
+                                     f"{x['cp']}, expected {n} calls of each")
+        got_widths = {n.rsplit(".", 1)[1]: tuple(w) for n, w in y["widths"].items()}
+        if got_widths != want_widths:
+            raise AssertionError(f"{tag} psgn widths {y['widths']}, expected {want_widths}")
+        psgn_want = psgn_expected(y["widths"], CP_MICRO, CP_SEQ, torch.bfloat16)
+        gram_want = {"chunk_attention": 2 * layers, "paged_decode_attention": 0,
+                     "flash_dq": layers, "flash_dkv": layers, "psgn_split": 0,
+                     "quantize_int8": 0, **psgn_want}
+        gram_want = {k: v * CP_GRAM_STEPS for k, v in gram_want.items()}
+        got_gram = {k: y["gram_launches"].get(k, 0) for k in gram_want}
+        if got_gram != gram_want or [tuple(x) for x in y["gram_seen"]] != seen:
+            raise AssertionError(f"{tag} gram launches {y['gram_launches']}, expected "
+                                 f"{gram_want}; the flash wrapper saw {y['gram_seen']}")
+        attn_routes(y["gram_launches"], y["plan"], what=f"{tag} context-parallel gram",
+                    routes=y["gram_routes"])
+        if any(v.get("fma", 0) for k, v in y["gram_routes"].items() if k.startswith("psgn")):
+            raise AssertionError(f"{tag} psgn routes {y['gram_routes']}: an FMA launch")
+        print(f"  {tag} rows [{s0}, {s1}) of every head against keys [0, {s1}); resident "
+              f"state {y['bytes'] / 1e9:.3f} GB = the reckoning ({100 * y['bytes'] / whole_bytes:.1f}% "
+              f"of the whole {whole_bytes / 1e9:.3f} GB), {y['params'] / 1e9:.4f} B "
+              f"parameters; peak {y['peak_gib']:.2f} GiB (the moment-tier steps "
+              f"{y['moment_peak_gib']:.2f}; one process {one['peak_gib']:.2f})")
+        for i, x in enumerate(y["steps"] + y["gram"]):
+            c = x["coll"]
+            coll_ms = sum(c["ms"][n] for n in COLLECTIVES)
+            gram_step = i >= len(y["steps"])
+            cp_line = "; ".join(f"{what} {x['cp'][k]['calls']} calls, "
+                                f"{x['cp'][k]['bytes'] / 1e6:.3f} MB"
+                                for k, what in CP_KINDS.items())
+            print(f"    {'gram ' if gram_step else ''}step {i + 1}: batch {x['batch']}, loss "
+                  f"{x['loss']:.5f} (one process {want_losses[i]:.5f}), {x['ms']:.1f} ms "
+                  f"(one process {(one['ms'] + one['gram_ms'])[i]:.1f}); the forwards' "
+                  f"exchanges: {cp_line}; tp all-reduces {x['tp']['calls']} calls, "
+                  f"{x['tp']['bytes'] / 1e9:.3f} GB; collectives {coll_ms:.1f} ms "
+                  f"({100 * coll_ms / x['ms']:.1f}%): {coll_line(c)}")
+        print(f"    losses within {rel:.3e} relative, sq_norm_sum {y['sq_norm_sum']:.6e} "
+              f"within {sq:.3e} (tol {SHARD_LOSS_RTOL}), batches and buckets {y['buckets']} "
+              f"the one process's"
+              + (f", gathered parameters within {y['param_gap']:.3e} (tol {SHARD_PARAM_ATOL})"
+                 if rk == 0 else "")
+              + f"; launches {y['launches']} (= {2 * layers}, {layers}, {layers} x {n_micro} "
+              f"microbatches), at the offset form {y['offset']}, all three on tc; tp_counts "
+              f"{y['tp_counts']}")
+        print(f"    gram tier, {CP_GRAM_STEPS} steps: psgn widths (Din, Dout) "
+              f"{dict(sorted(got_widths.items()))}; launches {got_gram}, psgn routes "
+              f"{ {k: v for k, v in y['gram_routes'].items() if k.startswith('psgn')} }")
+    print(f"  phase 32 ranks and one process: {time.perf_counter() - t_phase:.1f} s (the gloo "
+          f"spawn {spawn_s:.1f} s)")
+    free()
+    records = cp_kernel_phase()
+
+    def summed(key: str, off: str) -> dict:
+        out = {k: sum(res[rk][key][k] for rk in res) for k in res[0][key]}
+        out.update({f"{k}@offset": sum(res[rk][off][k] for rk in res) for k in res[0][off]})
+        return out
+
+    return ({"context-parallel training (ranks)": summed("launches", "offset"),
+             "context-parallel gram steps (ranks)": summed("gram_launches", "gram_offset")},
+            records)
+
+
+# ---------------------------------------------------------------------------
 # phase 29: the dry run's plan against the card
 # ---------------------------------------------------------------------------
 
@@ -6783,7 +7302,7 @@ def main() -> int:
 
 
 def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
-    """Phases 3-31, then the kernels' JSON line and the last line."""
+    """Phases 3-32, then the kernels' JSON line and the last line."""
     records = kernels_phase()
     serve_counts = full_width_phase()
     card_vs_cpu_phase()
@@ -6815,6 +7334,8 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
     plan_phase(smi, pod_plan, pod_dir)
     tp_paths = tp_phase()
     tp_serve_paths = tp_serve_phase(PHASE31.get("phase28", {}))
+    cp_paths, cp_records = cp_phase()
+    records += cp_records
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -6825,7 +7346,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"],
              "exact-tier training": exact_counts, **sharded_paths, **tp_paths,
-             **tp_serve_paths,
+             **tp_serve_paths, **cp_paths,
              "elastic serving (local ladder)": elastic_local,
              "elastic serving (ranks)": elastic_ranks}
     encoder_paths["exact-tier encoder"] = exact_encoder_counts

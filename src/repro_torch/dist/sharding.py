@@ -52,16 +52,19 @@ autograd all-gather of ``dist.plan.gather_shards``).
 
 Tensor-parallel compute: on a plan whose tp axes span T > 1 ranks,
 :func:`tp_split` says which sublayers of a block the training stack splits
-(attention heads, dense-FFN and expert widths, Megatron-style) and which
-compute whole on every tp rank; the shards stay those of the specs above.
+(attention heads, dense-FFN and expert widths, Megatron-style; attention
+context-parallel where T does not divide the heads but divides their
+widths and the length) and which compute whole on every tp rank; the
+shards stay those of the specs above.
 A split block's entry gathers the fsdp axes only and keeps its split
 leaves' tp dim resident (:meth:`TpSplit.role`, :meth:`StateLayout.gather`);
 a leaf each tp rank uses only a part of (the one KV head a group of ranks
 shares, a replicated bias) is gathered whole with its gradient summed over
 tp.  :func:`tensor_parallel` gives a rank its place on the tp axes and the
 two all-reduces (``dist.plan.copy_to_group``, ``reduce_from_group``).
-Serving splits the same way (:func:`serving_kv_heads`: the KV heads a tp
-rank computes are the ones its pool, rings and dense cache hold).
+Serving splits the same way (:func:`serving_split`, which keeps
+context-parallel attention whole; :func:`serving_kv_heads`: the KV heads a
+tp rank computes are the ones its pool, rings and dense cache hold).
 """
 
 from __future__ import annotations
@@ -402,10 +405,15 @@ class TpSplit:
 
     ``attn``: "local" (each rank its ``H/T`` query heads and ``KV/T`` KV
     heads), "shared" (``H/T`` query heads over KV head ``rank // (T/KV)``,
-    the k/v leaves gathered whole), or None.  ``ffn``: "dense" or "moe"
-    (each rank its ``ff/T`` columns of the FFN or of every expert), or
-    None.  ``whole``: the sublayers that compute whole on every tp rank
-    ("attn" where the heads do not divide, "mamba", "dense" or "moe" where
+    the k/v leaves gathered whole), "context" (Ulysses-style, where T does
+    not divide the heads: each rank projects its ``H hd/T`` and ``KV hd/T``
+    columns, one all-to-all trades the q columns for the rank's ``S/T``
+    query rows of every head, one all-gather over tp joins k and v whole,
+    and the out all-to-all trades back before the rank's rows of ``o``), or
+    None.  ``ffn``: "dense" or "moe" (each rank its ``ff/T`` columns of the
+    FFN or of every expert), or None.  ``whole``: the sublayers that
+    compute whole on every tp rank ("attn" where neither the heads nor
+    their widths and the length divide, "mamba", "dense" or "moe" where
     ``ff`` does not divide, "moe_ep")."""
 
     size: int
@@ -416,7 +424,8 @@ class TpSplit:
     def kv_heads(self, kv: int, rank: int) -> tuple[int, int]:
         """``(first, count)`` of the ``kv`` KV heads tp rank ``rank``
         computes: its ``kv/T`` when "local", the one it shares when
-        "shared", every head when attention computes whole."""
+        "shared", every head "context" (its query rows see them all) and
+        when attention computes whole."""
         if self.attn == "local":
             n = kv // self.size
             return rank * n, n
@@ -428,12 +437,14 @@ class TpSplit:
         """A block leaf's role (``name`` within the block): "resident" (its
         tp dim stays on the rank), "partial" (gathered whole over tp, each
         rank using a part: its gradient is summed over tp), or None (the
-        gather's default)."""
+        gather's default).  A replicated bias is "partial" under every
+        split: sliced by heads "local" and "shared", by columns
+        "context"."""
         if self.attn is not None:
             if name in _TP_RESIDENT["attn"]:
                 return "resident"
             if name in _TP_RESIDENT["kv"]:
-                return "resident" if self.attn == "local" else "partial"
+                return "resident" if self.attn in ("local", "context") else "partial"
             if name in _TP_BIASES:
                 return "partial"
         if self.ffn is not None and name in _TP_RESIDENT["ffn"]:
@@ -441,13 +452,18 @@ class TpSplit:
         return None
 
 
-def tp_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
+def tp_split(cfg, pos: int, plan: ShardingPlan | None, seq: int | None = None) -> TpSplit:
     """The split of the block at pattern position ``pos`` on ``plan``'s tp
-    axes (T ranks; arithmetic on ``cfg`` and the plan only).  Attention
-    splits when ``H % T == 0`` and ``KV % T == 0`` ("local") or ``T % KV ==
-    0`` ("shared"); a dense FFN, or a MoE FFN on ``moe_apply``, when ``ff %
-    T == 0``.  A Mamba mixer and ``moe_impl="ep"`` over several expert ranks
-    compute whole, as does a sublayer whose widths do not divide."""
+    axes (T ranks; arithmetic on ``cfg``, the plan and the training call's
+    length ``seq``, None where the caller has none).  Attention splits by
+    heads when ``H % T == 0`` and ``KV % T == 0`` ("local") or ``T % KV ==
+    0`` ("shared"); else context-parallel ("context") when T divides ``H
+    hd``, ``KV hd`` and ``seq`` (the reference's ``attn_q`` spec: qwen2-7b's
+    28/4 and internvl2-1b's 14/2 heads at T 16); a dense FFN, or a MoE FFN
+    on ``moe_apply``, when ``ff % T == 0``.  A Mamba mixer and
+    ``moe_impl="ep"`` over several expert ranks compute whole, as does a
+    sublayer whose widths do not divide.  Serving takes
+    :func:`serving_split`."""
     t = plan.tp_size if plan is not None and plan.tp else 1
     if t == 1:
         return TpSplit(1)
@@ -456,9 +472,11 @@ def tp_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
     if cfg.pattern[pos] == "mamba":
         whole.append("mamba")
     else:
-        h, kv = cfg.num_heads, cfg.num_kv_heads
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         if h % t == 0 and (kv % t == 0 or t % kv == 0):
             attn = "local" if kv % t == 0 else "shared"
+        elif h * hd % t == 0 and kv * hd % t == 0 and (seq is None or seq % t == 0):
+            attn = "context"
         else:
             whole.append("attn")
     if cfg.d_ff > 0:
@@ -518,19 +536,30 @@ def tensor_parallel(layout: "StateLayout | None") -> TensorParallel | None:
                           tp_rank(layout.plan, layout.coords))
 
 
+def serving_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
+    """:func:`tp_split` for serving: "context" attention computes whole
+    (counted in ``whole``), since a decode step has one query row per
+    sequence to split and context-parallel prefill is ROADMAP.md Queue A 5's
+    later item; every other split as in training."""
+    split = tp_split(cfg, pos, plan)
+    if split.attn != "context":
+        return split
+    return dataclasses.replace(split, attn=None, whole=("attn",) + split.whole)
+
+
 def serving_kv_heads(cfg, pos: int, plan: ShardingPlan | None, rank: int | None = None
                      ) -> tuple[int, int]:
     """``(first, count)``: the KV heads of pattern position ``pos`` that tp
     rank ``rank`` of ``plan`` (default: this rank's, :func:`tp_rank`)
     computes when serving, and so holds in its block pool, rings and dense
-    cache (arithmetic on ``cfg`` and the plan only).  By :func:`tp_split`:
-    every head where attention computes whole (T = 1, heads that do not
-    divide, a Mamba position); ``[t KV/T, (t+1) KV/T)`` "local" (the
+    cache (arithmetic on ``cfg`` and the plan only).  By
+    :func:`serving_split`: every head where attention computes whole (T =
+    1, heads that do not divide, a Mamba position); ``[t KV/T, (t+1) KV/T)`` "local" (the
     reference's ``cache_pspecs`` rule, kv heads over tp); head ``t //
     (T/KV)`` whole "shared" (the reference shards ``head_dim`` there and
     holds ``KV/T`` of a head a rank: the port holds T/KV times as much, so
     that the paged-decode and chunk kernels read whole scores)."""
-    split = tp_split(cfg, pos, plan)
+    split = serving_split(cfg, pos, plan)
     if split.attn is None:
         return 0, cfg.num_kv_heads
     return split.kv_heads(cfg.num_kv_heads, tp_rank(plan) if rank is None else int(rank))

@@ -9,7 +9,8 @@ a layer or a tree of layers, and the int8 entry points; ``quant.py`` the
 row-wise int8 quantisation of the gradient compressor; ``ref.py`` the
 float32 plain versions the CPU runs and the kernels are held against,
 ``_build.py`` the nvcc build, and ``csrc/`` the CUDA sources.  :func:`launch_counts` reads every wrapper's
-launch count, :func:`route_counts` the counts by route ("tc" tensor cores,
+launch count, :func:`offset_counts` the training attention's launches at
+the context-parallel (offset) form, :func:`route_counts` the counts by route ("tc" tensor cores,
 "fma" float32 FMA kernels, and for the psgn wrappers "split", float32
 operands split into bf16 terms for the tensor cores) of the wrappers that
 have several: the chunk forward, dq, dk/dv and the psgn wrappers.
@@ -24,16 +25,27 @@ _COUNTED = (attention.chunk_attention, attention.paged_decode_attention,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, and the counts by route, to 0."""
+    """Set every kernel's launch count, and the counts by route and at the
+    offset form, to 0."""
     for fn in _COUNTED:
         fn.launches = 0
         if hasattr(fn, "routes"):
             fn.routes = dict.fromkeys(fn.routes, 0)
+        if hasattr(fn, "offset_launches"):
+            fn.offset_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     """``{wrapper name: kernel launches}`` for every kernel of the package."""
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def offset_counts() -> dict[str, int]:
+    """``{wrapper name: launches}`` of the training attention's kernels (the
+    chunk forward, dq, dk/dv) at the context-parallel form: queries at an
+    offset, or against more keys than queries."""
+    return {fn.__name__: fn.offset_launches for fn in _COUNTED
+            if hasattr(fn, "offset_launches")}
 
 
 def route_counts() -> dict[str, dict[str, int]]:

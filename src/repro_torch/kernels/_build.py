@@ -59,28 +59,28 @@ SIGNATURES = {
     "flash_dq": (
         "flash_dq_bwd",
         # dtype, q, k, v, dout, lse, delta, dq,
-        # B, S, H, KV, hd, scale, softcap, window, causal, stream
+        # B, Sq, Sk, q0, H, KV, hd, scale, softcap, window, causal, stream
         [_I, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+         _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "flash_dq_tc": (
         "flash_dq_tc_bwd",
         # flash_dq_bwd's arguments (dtype bfloat16)
         [_I, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+         _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "flash_dkv": (
         "flash_dkv_bwd",
         # dtype, q, k, v, dout, lse, delta, dk, dv,
-        # B, S, H, KV, hd, scale, softcap, window, causal, stream
+        # B, Sq, Sk, q0, H, KV, hd, scale, softcap, window, causal, stream
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+         _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "flash_dkv_tc": (
         "flash_dkv_tc_bwd",
         # flash_dkv_bwd's arguments (dtype bfloat16)
         [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+         _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
     "psgn_direct": (
         "psgn_direct_fwd",

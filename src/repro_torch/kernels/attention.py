@@ -15,16 +15,20 @@ Wrappers over the hand-written CUDA kernels in ``csrc/`` (built by
                           tables and lengths, the gather inside the kernel,
                           split over the context by :func:`decode_plan`.
   flash_dq, flash_dkv     the flash backward's two passes for causal or
-                          non-causal self-attention: dq (B, S, H, hd), and dk, dv
-                          (B, S, KV, hd) summed over each KV head's query
-                          heads, all float32, from the forward's lse and
-                          ``delta = rowsum(dout * out)``.
+                          non-causal attention of Sq queries at positions
+                          ``q_offset + arange(Sq)`` against Sk >= Sq keys
+                          at ``arange(Sk)`` (self-attention: 0 and Sq): dq
+                          (B, Sq, H, hd), and dk, dv (B, Sk, KV, hd) summed
+                          over each KV head's query heads, all float32, from
+                          the forward's lse and ``delta = rowsum(dout *
+                          out)``.
   flash_attention         the training attention: an autograd function whose
                           forward is the chunk kernel at positions
-                          ``arange(S)`` and whose backward is the two
-                          kernels above.  Under ``torch.vmap`` (per-sample
-                          gradients) both directions fold the vmapped axis
-                          into B: one launch of each kernel for the fold.
+                          ``q_offset + arange(Sq)`` over keys ``arange(Sk)``
+                          and whose backward is the two kernels above.
+                          Under ``torch.vmap`` (per-sample gradients) both
+                          directions fold the vmapped axis into B: one
+                          launch of each kernel for the fold.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``), cast to
 q's type.  A tensor on the card goes to the kernel, or the wrapper raises: a
@@ -33,7 +37,8 @@ is an error, never a fall back to the plain version.  Each wrapper counts
 its kernel launches in a plain integer attribute (``chunk_attention.launches``,
 ``paged_decode_attention.launches``, ``flash_dq.launches``,
 ``flash_dkv.launches``), so a run can show that its path went through the
-kernels.
+kernels; ``offset_launches`` on the chunk forward, dq and dk/dv counts the
+training attention's launches at the context-parallel (offset) form.
 
 The chunk forward, dq and dk/dv have two routes each, chosen per kernel by
 :func:`attention_plan` from the type, head dim, causality and (for the
@@ -218,6 +223,9 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 chunk_attention.launches = 0
 chunk_attention.routes = {"tc": 0, "fma": 0}
+#: launches of the training attention's forward at the offset form (a
+#: context-parallel rank's queries at an offset or against more keys)
+chunk_attention.offset_launches = 0
 
 #: argument types of ``chunk_attention_tc_key_tiles(counts, reset)``
 KEY_TILES_ARGTYPES = [ctypes.c_void_p, ctypes.c_int]
@@ -318,20 +326,30 @@ paged_decode_attention.launches = 0
 paged_decode_attention.splits = 0
 
 
-def _check_backward(name: str, q, k, v, dout, lse, delta) -> None:
-    """Shapes of a flash backward call: self-attention, so Sk == S."""
-    b, s, h, hd = q.shape
-    kv = k.shape[2]
-    if k.shape != (b, s, kv, hd) or v.shape != k.shape or dout.shape != q.shape \
-            or h % kv:
+def _check_backward(name: str, q, k, v, dout, lse, delta, q_offset: int) -> None:
+    """Shapes of a flash backward call: Sq queries at positions ``q_offset
+    + arange(Sq)`` against Sk >= Sq keys at ``arange(Sk)`` (self-attention:
+    ``q_offset`` 0, Sk == Sq)."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if k.shape != (b, sk, kv, hd) or v.shape != k.shape or dout.shape != q.shape \
+            or h % kv or sk < sq:
         raise ValueError(f"{name}: q/dout {tuple(q.shape)}, {tuple(dout.shape)} with "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if lse.shape != (b, h, s) or delta.shape != (b, h, s):
-        raise ValueError(f"{name}: lse and delta must be (B, H, S) = {(b, h, s)}")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} (Sk >= Sq)")
+    if lse.shape != (b, h, sq) or delta.shape != (b, h, sq):
+        raise ValueError(f"{name}: lse and delta must be (B, H, Sq) = {(b, h, sq)}")
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset must be >= 0, got {q_offset}")
+
+
+def _offset_form(q, k, q_offset: int) -> bool:
+    """Whether a flash call is at the context-parallel form: queries at an
+    offset, or more keys than queries."""
+    return q_offset > 0 or k.shape[1] != q.shape[1]
 
 
 def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap,
-                     causal: bool, lib_name: str | None = None):
+                     causal: bool, lib_name: str | None = None, q_offset: int = 0):
     """Validate a card call of ``flash_dq``/``flash_dkv`` and launch it from
     library ``lib_name`` (``name`` unless given), entry ``<lib_name>_bwd``."""
     hd = q.shape[-1]
@@ -347,67 +365,76 @@ def _backward_launch(name: str, q, k, v, dout, lse, delta, outs, window, softcap
         raise ValueError(f"window must be >= 1, got {window}")
     _check_cuda(name, {"q": q, "k": k, "v": v, "dout": dout, "lse": lse,
                        "delta": delta}, q.dtype)
-    b, s, h, hd = q.shape
+    b, sq, h, hd = q.shape
     lib_name = lib_name or name
     lib = _build.library(lib_name)
     rc = getattr(lib, f"{lib_name}_bwd")(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-        b, s, h, k.shape[2], hd, hd ** -0.5, _cap(softcap), int(window or 0),
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+        b, sq, k.shape[1], int(q_offset), h, k.shape[2], hd, hd ** -0.5, _cap(softcap),
+        int(window or 0), int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, lib_name, rc)
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
              lse: torch.Tensor, delta: torch.Tensor, *, window: int | None = None,
-             softcap: float | None = None, causal: bool = True) -> torch.Tensor:
-    """dq of flash attention, float32 (B, S, H, hd).
+             softcap: float | None = None, causal: bool = True,
+             q_offset: int = 0) -> torch.Tensor:
+    """dq of flash attention, float32 (B, Sq, H, hd).
 
-    q, dout (B, S, H, hd); k, v (B, S, KV, hd); ``lse`` the forward's and
-    ``delta = rowsum(dout * out)``, both (B, H, S) float32."""
-    _check_backward("flash_dq", q, k, v, dout, lse, delta)
+    q, dout (B, Sq, H, hd) at positions ``q_offset + arange(Sq)``; k, v
+    (B, Sk, KV, hd) at ``arange(Sk)``, Sk >= Sq (self-attention: Sk == Sq,
+    ``q_offset`` 0); ``lse`` the forward's and ``delta = rowsum(dout *
+    out)``, both (B, H, Sq) float32.  A launch at an offset or over more
+    keys than queries also counts in ``flash_dq.offset_launches``."""
+    _check_backward("flash_dq", q, k, v, dout, lse, delta, q_offset)
     if q.device.type == "cpu":
         return ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
-                                   softcap=softcap, causal=causal)[0]
+                                   softcap=softcap, causal=causal, q_offset=q_offset)[0]
     route = attention_plan(q.dtype, q.shape[-1], causal)["flash_dq"] \
         if q.device.type == "cuda" else "fma"
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _backward_launch("flash_dq", q, k, v, dout, lse, delta, (dq,), window, softcap, causal,
-                     "flash_dq_tc" if route == "tc" else "flash_dq")
+                     "flash_dq_tc" if route == "tc" else "flash_dq", q_offset)
     flash_dq.launches += 1
     flash_dq.routes[route] += 1
+    flash_dq.offset_launches += _offset_form(q, k, q_offset)
     return dq
 
 
 flash_dq.launches = 0
 flash_dq.routes = {"tc": 0, "fma": 0}
+flash_dq.offset_launches = 0
 
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
               lse: torch.Tensor, delta: torch.Tensor, *, window: int | None = None,
-              softcap: float | None = None, causal: bool = True,
+              softcap: float | None = None, causal: bool = True, q_offset: int = 0,
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of flash attention, float32 (B, S, KV, hd) each, summed over
-    the query heads of each KV head.  Arguments as :func:`flash_dq`."""
-    _check_backward("flash_dkv", q, k, v, dout, lse, delta)
+    """(dk, dv) of flash attention, float32 (B, Sk, KV, hd) each, summed over
+    the query heads of each KV head (over this call's Sq query rows only).
+    Arguments as :func:`flash_dq`; ``flash_dkv.offset_launches`` as there."""
+    _check_backward("flash_dkv", q, k, v, dout, lse, delta, q_offset)
     if q.device.type == "cpu":
         _, dk, dv = ref.flash_grads_ref(q, k, v, lse, delta, dout, window=window,
-                                        softcap=softcap, causal=causal)
+                                        softcap=softcap, causal=causal, q_offset=q_offset)
         return dk, dv
     route = attention_plan(q.dtype, q.shape[-1], causal)["flash_dkv"] \
         if q.device.type == "cuda" else "fma"
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     _backward_launch("flash_dkv", q, k, v, dout, lse, delta, (dk, dv), window, softcap,
-                     causal, "flash_dkv_tc" if route == "tc" else "flash_dkv")
+                     causal, "flash_dkv_tc" if route == "tc" else "flash_dkv", q_offset)
     flash_dkv.launches += 1
     flash_dkv.routes[route] += 1
+    flash_dkv.offset_launches += _offset_form(q, k, q_offset)
     return dk, dv
 
 
 flash_dkv.launches = 0
 flash_dkv.routes = {"tc": 0, "fma": 0}
+flash_dkv.offset_launches = 0
 
 
 def _fold(t: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:
@@ -423,19 +450,22 @@ def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.reshape(n, t.shape[0] // n, *t.shape[1:])
 
 
-def _flash_forward(q, k, v, causal, window, softcap):
-    s = q.shape[1]
-    if k.shape[1] != s:
-        raise ValueError(f"flash_attention: self-attention needs Sk == Sq, got "
-                         f"{k.shape[1]} and {s}")
-    pos = torch.arange(s, dtype=torch.int32, device=q.device)
-    valid = torch.ones(s, dtype=torch.int32, device=q.device)
-    return chunk_attention_fwd(q, k, v, pos, pos, valid, window=window, softcap=softcap,
-                               causal=causal)
+def _flash_forward(q, k, v, causal, window, softcap, q_offset):
+    sq, sk = q.shape[1], k.shape[1]
+    if sk < sq or q_offset < 0:
+        raise ValueError(f"flash_attention: Sk {sk} keys for Sq {sq} queries at offset "
+                         f"{q_offset} (Sk >= Sq, offset >= 0)")
+    q_pos = torch.arange(q_offset, q_offset + sq, dtype=torch.int32, device=q.device)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=q.device)
+    out = chunk_attention_fwd(q, k, v, q_pos, k_pos, torch.ones_like(k_pos), window=window,
+                              softcap=softcap, causal=causal)
+    if q.device.type == "cuda":
+        chunk_attention.offset_launches += _offset_form(q, k, q_offset)
+    return out
 
 
-def _flash_grads(q, k, v, dout, lse, delta, causal, window, softcap):
-    kw = dict(window=window, softcap=softcap, causal=causal)
+def _flash_grads(q, k, v, dout, lse, delta, causal, window, softcap, q_offset):
+    kw = dict(window=window, softcap=softcap, causal=causal, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.flash_grads_ref(q, k, v, lse, delta, dout, **kw)
     return (flash_dq(q, k, v, dout, lse, delta, **kw),
@@ -451,28 +481,29 @@ class _FlashGrads(torch.autograd.Function):
     for the fold.  Not differentiable."""
 
     @staticmethod
-    def forward(q, k, v, dout, lse, delta, causal, window, softcap):
-        return _flash_grads(q, k, v, dout, lse, delta, causal, window, softcap)
+    def forward(q, k, v, dout, lse, delta, causal, window, softcap, q_offset):
+        return _flash_grads(q, k, v, dout, lse, delta, causal, window, softcap, q_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, dout, lse, delta, causal, window, softcap):
+    def vmap(info, in_dims, q, k, v, dout, lse, delta, causal, window, softcap, q_offset):
         n = info.batch_size
         args = [_fold(t, d, n) for t, d in zip((q, k, v, dout, lse, delta), in_dims)]
-        grads = _flash_grads(*args, causal, window, softcap)
+        grads = _flash_grads(*args, causal, window, softcap, q_offset)
         return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Self-attention, causal or not: the chunk kernel forward at positions
-    ``arange(S)`` with every key valid, ``(out, lse)`` with ``lse``
-    non-differentiable, saving ``(q, k, v, out, lse)``; the recompute
-    backward ``delta = rowsum(dout * out)`` (plain torch, as the reference
-    does) then :class:`_FlashGrads`.  On the CPU both directions take the
-    plain versions.
+    """Attention of the Sq queries at positions ``q_offset + arange(Sq)``
+    against the Sk keys at ``arange(Sk)``, causal or not (self-attention at
+    ``q_offset`` 0, Sk == Sq): the chunk kernel forward with every key
+    valid, ``(out, lse)`` with ``lse`` non-differentiable, saving ``(q, k,
+    v, out, lse)``; the recompute backward ``delta = rowsum(dout * out)``
+    (plain torch, as the reference does) then :class:`_FlashGrads`.  On the
+    CPU both directions take the plain versions.
 
     Under ``torch.vmap`` (the exact tier's ``vmap(grad(...))``) the forward
     folds the vmapped axis into B and launches the chunk kernel once for
@@ -480,22 +511,22 @@ class _FlashAttention(torch.autograd.Function):
     generated rule."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, softcap):
-        return _flash_forward(q, k, v, causal, window, softcap)
+    def forward(q, k, v, causal, window, softcap, q_offset):
+        return _flash_forward(q, k, v, causal, window, softcap, q_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, softcap = inputs
+        q, k, v, causal, window, softcap, q_offset = inputs
         out, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
+        ctx.causal, ctx.window, ctx.softcap, ctx.q_offset = causal, window, softcap, q_offset
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+    def vmap(info, in_dims, q, k, v, causal, window, softcap, q_offset):
         n = info.batch_size
         q, k, v = (_fold(t, d, n) for t, d in zip((q, k, v), in_dims))
-        out, lse = _flash_forward(q, k, v, causal, window, softcap)
+        out, lse = _flash_forward(q, k, v, causal, window, softcap, q_offset)
         return (_unfold(out, n), _unfold(lse, n)), (0, 0)
 
     @staticmethod
@@ -504,18 +535,21 @@ class _FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         delta = ref.flash_delta(out, dout)
         dq, dk, dv = _FlashGrads.apply(q, k, v, dout, lse, delta, ctx.causal, ctx.window,
-                                       ctx.softcap)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+                                       ctx.softcap, ctx.q_offset)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
-                    softcap: float | None = None) -> torch.Tensor:
-    """Flash self-attention with the recompute backward, (B, S, H, hd) in
-    q's type: scale ``hd**-0.5``, the softcap before the causal /
+                    softcap: float | None = None, q_offset: int = 0) -> torch.Tensor:
+    """Flash attention with the recompute backward, (B, Sq, H, hd) in q's
+    type: scale ``hd**-0.5``, the softcap before the causal /
     sliding-window mask, as ``repro/kernels/attention.py::flash_attention``.
-    ``causal=False`` is the encoder's form (a window then cuts one side
-    only).  In bf16 at head dims 64, 80, 112 and 128 the forward, dq and
-    dk/dv take the tensor cores under either causality."""
+    Self-attention by default; ``q_offset`` (with Sk >= Sq keys at
+    ``arange(Sk)``) puts the queries at ``q_offset + arange(Sq)``, a
+    context-parallel rank's rows.  ``causal=False`` is the encoder's form
+    (a window then cuts one side only).  In bf16 at head dims 64, 80, 112
+    and 128 the forward, dq and dk/dv take the tensor cores under either
+    causality."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                 bool(causal), window, softcap)[0]
+                                 bool(causal), window, softcap, int(q_offset))[0]

@@ -65,13 +65,15 @@ __device__ __forceinline__ void recompute(float s, float dp, float lse, float de
   if (softcap > 0.f) ds *= 1.f - capped * capped;
 }
 
-// The reference's _block_bias on positions = indices: in range, rel =
-// row - key >= 0 under causality, and rel < window where a window is set
-// (without causality a window cuts one side only).
+// The reference's _block_bias on query row `row` of Sq at position q0 +
+// row and key `key` of Sk at position key: in range, rel = (q0 + row) - key
+// >= 0 under causality, and rel < window where a window is set (without
+// causality a window cuts one side only).  Self-attention is q0 = 0, Sk =
+// Sq; a context-parallel rank's rows sit at q0 > 0 against Sk >= Sq keys.
 template <bool kCausal>
-__device__ __forceinline__ bool attend(int row, int key, int S, int window) {
-  const int rel = row - key;
-  return row < S && key < S && (!kCausal || rel >= 0) && (window <= 0 || rel < window);
+__device__ __forceinline__ bool attend(int row, int key, int Sq, int Sk, int q0, int window) {
+  const int rel = q0 + row - key;
+  return row < Sq && key < Sk && (!kCausal || rel >= 0) && (window <= 0 || rel < window);
 }
 
 }  // namespace flash_bwd

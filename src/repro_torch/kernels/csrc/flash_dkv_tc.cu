@@ -1,6 +1,8 @@
 // Flash-attention backward, dk/dv pass, on Hopper's tensor cores (sm_90a),
 // bf16 q, k, v, dout: causal or not (optionally sliding-window, softcapped)
-// self-attention with grouped KV heads, recomputing p from the lse the
+// attention with grouped KV heads of Sq query rows at positions q0 .. q0 +
+// Sq - 1 against Sk keys at 0 .. Sk - 1 (self-attention: q0 = 0, Sk = Sq;
+// a context-parallel rank's rows: q0 > 0), recomputing p from the lse the
 // forward wrote.
 //
 // Replaces, on bf16 inputs at head dims 64, 80, 112 and 128, causal or not:
@@ -25,9 +27,9 @@
 // one head at a time: at hd 80 and 112 a row's second box is zero-filled
 // past hd); each warpgroup keeps its own 64 x hd float32 dK and dV in
 // registers and takes half the block's items, an item one query head's
-// tile of 64 rows among those that see the key tile (from the diagonal
-// under causality, from row 0 without, to the last row the window lets
-// see it).  With an even n_rep a warpgroup takes every other head (wg, wg
+// tile of 64 rows among those that see the key tile (from the tile holding
+// the diagonal under causality, from row 0 without, to the last row the
+// window lets see it).  With an even n_rep a warpgroup takes every other head (wg, wg
 // + 2, ...) and all their tiles; with an odd one (n_rep 1: MHA, the
 // encoder) every other item of the list ordered by (head, tile), so
 // neither warpgroup idles.  The items stream as (q, dO) tiles of 64 rows
@@ -48,9 +50,12 @@
 // chains (flash_tc.cuh).
 //
 // Balance.  Under causality key tile t sees (S / 64 - t) query tiles per
-// head: 32 down to 1 at S 2048.  The grid is (KV, B, key tiles) with the
-// heaviest tiles launched first: 256 blocks at the training shape, the
-// heaviest 32 tiles x 4 heads per warpgroup.  Without causality every key
+// head in self-attention: 32 down to 1 at S 2048.  The grid is (KV, B, key
+// tiles) with the heaviest tiles launched first: 256 blocks at the training
+// shape, the heaviest 32 tiles x 4 heads per warpgroup.  At a query offset
+// q0 (a context-parallel rank's Sq rows against Sk = q0 + Sq keys) every
+// key tile below q0 sees all Sq / 64 query tiles and the later ones fewer,
+// so tile 0 is still the heaviest and the order still holds.  Without causality every key
 // tile sees every query tile: at hubert's shape (S 1024, 16 KV heads, B 2)
 // 512 blocks of 16 tiles, 8 per warpgroup.
 //
@@ -87,8 +92,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
                     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV,
-                    float scale, float softcap, int window) {
+                    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int q_off,
+                    int H, int KV, float scale, float softcap, int window) {
   using G = Shape<HD>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kWG][kStages];
@@ -104,12 +109,13 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   const int n_rep = H / KV;
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
   uint8_t* ring = smem + 2 * G::kTileBytes + wg * kStages * G::kStageBytes;
-  // the query tiles that see this key tile: from the diagonal (causal) to
-  // the last row within the window of its last key
-  const int k_last = min(k0 + kBK, S) - 1;
-  const int q_end = window > 0 ? min(S, k_last + window) : S;
-  const int qt_begin = kCausal ? k0 / kBQ : 0;
-  const int n_q = (q_end + kBQ - 1) / kBQ - qt_begin;
+  // the query tiles that see this key tile: from the one holding the first
+  // row whose position reaches its first key (causal) to the last row
+  // within the window of its last key
+  const int k_last = min(k0 + kBK, Sk) - 1;
+  const int q_end = window > 0 ? min(Sq, max(0, k_last + window - q_off)) : Sq;
+  const int qt_begin = kCausal ? max(0, k0 - q_off) / kBQ : 0;
+  const int n_q = max(0, (q_end + kBQ - 1) / kBQ - qt_begin);
   // warpgroup wg's items: the query heads wg, wg + 2, ... (n_rep even), or
   // items wg, wg + 2, ... of the list ordered by (head, tile) (n_rep odd)
   const bool by_head = n_rep % 2 == 0;
@@ -144,8 +150,8 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   // thread lt holds lse (lt < 64) or delta (lt >= 64) of row lt % 64
   auto row_stat = [&](int it) {
     const int row = rows_of(it) + lt % kBQ;
-    const size_t at = ((size_t)b * H + head_of(it)) * S + row;
-    return row < S ? (lt < kBQ ? lse[at] : delta[at]) : 0.0f;
+    const size_t at = ((size_t)b * H + head_of(it)) * Sq + row;
+    return row < Sq ? (lt < kBQ ? lse[at] : delta[at]) : 0.0f;
   };
   auto put_stat = [&](int it, float v) {
     float* dst = lt < kBQ ? slse[wg][it % kStages] : sdelta[wg][it % kStages];
@@ -193,15 +199,16 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     // p and ds in place: element 4 c + e is key (e < 2 ? a : b), row q0 +
     // 8 c + 2 tig + (e & 1)
     uint32_t ties = 0;  // elements whose p or ds lies near a bf16 rounding tie
-    const bool whole = (!kCausal || q0 >= k0 + kBK - 1) && q0 + kBQ <= S && k0 + kBK <= S &&
-                       (window <= 0 || q0 + kBQ - 1 - k0 < window);
+    const bool whole = (!kCausal || q_off + q0 >= k0 + kBK - 1) && q0 + kBQ <= Sq &&
+                       k0 + kBK <= Sk && (window <= 0 || q_off + q0 + kBQ - 1 - k0 < window);
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = 8 * c + 2 * tig + (e & 1);
         const int idx = 4 * c + e;
-        const bool ok = whole || attend<kCausal>(q0 + r, e < 2 ? key_a : key_b, S, window);
+        const bool ok =
+            whole || attend<kCausal>(q0 + r, e < 2 ? key_a : key_b, Sq, Sk, q_off, window);
         float p, ds;
         p_ds(st[idx], dpt[idx], slse[wg][s][r], sdelta[wg][s][r], ok, scale, softcap, p, ds);
         st[idx] = p;
@@ -284,11 +291,11 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int key = key_a + 8 * half;
-      if (key >= S) continue;
+      if (key >= Sk) continue;
       const float* row = part + (kl_a + 8 * half) * HD + col;
       const float2 k1 = *reinterpret_cast<const float2*>(row);
       const float2 v1 = *reinterpret_cast<const float2*>(row + kBK * HD);
-      const size_t at = ((size_t)b * S + key) * stride + (size_t)hk * HD + col;
+      const size_t at = ((size_t)b * Sk + key) * stride + (size_t)hk * HD + col;
       *reinterpret_cast<float2*>(dk + at) =
           make_float2((dka[4 * c + 2 * half] + k1.x) * scale, (dka[4 * c + 2 * half + 1] + k1.y) * scale);
       *reinterpret_cast<float2*>(dv + at) =
@@ -299,33 +306,35 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
 
 template <int HD, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dk, void* dv, int B, int S, int H, int KV, float scale,
-           float softcap, int window, cudaStream_t stream) {
+           const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int q_off, int H,
+           int KV, float scale, float softcap, int window, cudaStream_t stream) {
   using G = Shape<HD>;
   CUtensorMap mq, mdo, mk, mv;
-  int rc = encode_heads(&mq, q, B, S, H, HD);
-  if (rc == 0) rc = encode_heads(&mdo, dout, B, S, H, HD);
-  if (rc == 0) rc = encode_heads(&mk, k, B, S, KV, HD);
-  if (rc == 0) rc = encode_heads(&mv, v, B, S, KV, HD);
+  int rc = encode_heads(&mq, q, B, Sq, H, HD);
+  if (rc == 0) rc = encode_heads(&mdo, dout, B, Sq, H, HD);
+  if (rc == 0) rc = encode_heads(&mk, k, B, Sk, KV, HD);
+  if (rc == 0) rc = encode_heads(&mv, v, B, Sk, KV, HD);
   if (rc != 0) return rc;
   auto kernel = flash_dkv_tc_kernel<HD, kCausal>;
   static SmemOptIn opt_in;
   rc = opt_in.apply(kernel, G::kSmem);
   if (rc != 0) return rc;
-  const dim3 grid(KV, B, (S + kBK - 1) / kBK);
+  const dim3 grid(KV, B, (Sk + kBK - 1) / kBK);
   kernel<<<grid, kThreads, G::kSmem, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV, scale, softcap, window);
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, q_off, H, KV, scale, softcap,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kCausal>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                int KV, float scale, float softcap, int window, cudaStream_t stream) {
-#define REPRO_DKV_TC_LAUNCH(HD)                                                              \
-  return launch<HD, kCausal>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale, softcap, \
-                             window, stream)
+                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
+                int q_off, int H, int KV, float scale, float softcap, int window,
+                cudaStream_t stream) {
+#define REPRO_DKV_TC_LAUNCH(HD)                                                           \
+  return launch<HD, kCausal>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, q_off, H, KV, \
+                             scale, softcap, window, stream)
   switch (hd) {
     case 64: REPRO_DKV_TC_LAUNCH(64);
     case 80: REPRO_DKV_TC_LAUNCH(80);
@@ -340,26 +349,28 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 }  // namespace
 }  // namespace repro
 
-// q, dout: (B, S, H, hd); k, v: (B, S, KV, hd), bf16, contiguous, 16-byte
-// aligned; lse, delta: (B, H, S) float32 -> dk, dv: (B, S, KV, hd) float32,
-// summed over each KV head's H / KV query heads.  dtype must be 1
+// q, dout: (B, Sq, H, hd) at positions q0 .. q0 + Sq - 1; k, v: (B, Sk,
+// KV, hd) at positions 0 .. Sk - 1, bf16, contiguous, 16-byte aligned; lse,
+// delta: (B, H, Sq) float32 -> dk, dv: (B, Sk, KV, hd) float32, summed over
+// each KV head's H / KV query heads (self-attention: q0 = 0, Sk = Sq).  dtype must be 1
 // (bfloat16); hd 64, 80, 112 or 128; softcap <= 0 means none, window <= 0
 // means none; causal 0 or 1.  The signature is flash_dkv_bwd's.  Returns the launch's cudaError_t
 // (0 on success), or repro::tc::kTensorMapError + the CUresult when a tensor
 // map cannot be made.
 extern "C" int flash_dkv_tc_bwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta, void* dk,
-                                void* dv, int B, int S, int H, int KV, int hd, float scale,
-                                float softcap, int window, int causal, void* stream) {
+                                void* dv, int B, int Sq, int Sk, int q0, int H, int KV, int hd,
+                                float scale, float softcap, int window, int causal,
+                                void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || S < 1 || KV < 1 ||
-      KV > 65535 || H % KV != 0 || (S + kBK - 1) / kBK > 65535)
+  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || Sq < 1 ||
+      Sk < 1 || q0 < 0 || KV < 1 || KV > 65535 || H % KV != 0 || (Sk + kBK - 1) / kBK > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (causal)
-    return dispatch_hd<true>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+    return dispatch_hd<true>(hd, q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, q0, H, KV, scale,
                              softcap, window, s);
-  return dispatch_hd<false>(hd, q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+  return dispatch_hd<false>(hd, q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, q0, H, KV, scale,
                             softcap, window, s);
 }
 

@@ -1,6 +1,8 @@
 // Flash-attention backward, dq pass, on Hopper's tensor cores (sm_90a), bf16
 // q, k, v, dout: causal or not (optionally sliding-window, softcapped)
-// self-attention with grouped KV heads, recomputing p from the lse the
+// attention with grouped KV heads of Sq query rows at positions q0 .. q0 +
+// Sq - 1 against Sk keys at 0 .. Sk - 1 (self-attention: q0 = 0, Sk = Sq;
+// a context-parallel rank's rows: q0 > 0), recomputing p from the lse the
 // forward wrote.
 //
 // Replaces, on bf16 inputs at head dims 64, 80, 112 and 128, causal or not:
@@ -23,7 +25,7 @@
 // second box holds the head's last 16 or 48 features and zeros, never the
 // next head's), then streams K/V tiles of 64 keys of KV head h / n_rep
 // through a 3-stage ring, from the first tile the window reaches to the
-// diagonal (causal) or to the last tile below S (not): both warpgroups
+// diagonal (causal) or to the last tile below Sk (not): both warpgroups
 // read every tile, so K and V are read once per 128 rows.  Under causality
 // the earlier warpgroup skips the last tile (past its diagonal); with a
 // window the later one skips any first tile out of its window (without
@@ -41,7 +43,7 @@
 // warpgroup to say it has read it (a counter in shared memory), so neither
 // waits for the other.
 //
-// Balance.  Grid (S / 128, H, B), the latest row blocks (the most key tiles
+// Balance.  Grid (Sq / 128, H, B), the latest row blocks (the most key tiles
 // under causality) launched first: 1024 blocks at Yi-6B's training shape;
 // without causality every block reads every tile, 256 blocks of 16 tiles
 // at hubert's (S 1024, 16 heads, B 2), one a SM at 161 KB of shared memory.
@@ -78,8 +80,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
                    const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dq, int S, int H, int KV, float scale, float softcap,
-                   int window) {
+                   float* __restrict__ dq, int Sq, int Sk, int q_off, int H, int KV,
+                   float scale, float softcap, int window) {
   using G = Shape<HD>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
@@ -97,18 +99,21 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   const int hk = h / (H / KV);
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
 
-  // the key tiles rows r0 .. r0 + 63 see: from the first the window reaches
-  // of row r0 to the diagonal of the last row below S (causal) or to the
-  // last tile below S (not); none if r0 >= S
-  auto first_tile = [&](int r0) { return window > 0 ? max(0, r0 - window + 1) / kBK : 0; };
+  // the key tiles rows r0 .. r0 + 63 (positions q_off + r0 ..) see: from
+  // the first the window reaches of row r0 to the diagonal of the last row
+  // below Sq (causal) or to the last tile below Sk (not); none if r0 >= Sq
+  const int key_tiles = (Sk - 1) / kBK + 1;
+  auto first_tile = [&](int r0) {
+    return window > 0 ? max(0, q_off + r0 - window + 1) / kBK : 0;
+  };
   auto end_tile = [&](int r0) {
-    if (r0 >= S) return 0;
-    return kCausal ? (min(r0 + kBQ, S) - 1) / kBK + 1 : (S - 1) / kBK + 1;
+    if (r0 >= Sq) return 0;
+    return kCausal ? min((q_off + min(r0 + kBQ, Sq) - 1) / kBK + 1, key_tiles) : key_tiles;
   };
   const int r0 = q0 + wg * kBQ;
   const int my_begin = first_tile(r0), my_end = end_tile(r0);
   const int t_begin = first_tile(q0);  // the block's tiles: the union of both
-  const int n = max(end_tile(q0), end_tile(q0 + kBQ)) - t_begin;
+  const int n = max(0, max(end_tile(q0), end_tile(q0 + kBQ)) - t_begin);
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);  // the expect_tx arrival
@@ -118,8 +123,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   if (tid < kStages) released[tid] = 0;
   {  // thread t holds lse (t < 128) or delta (t >= 128) of block row t % 128
     const int row = q0 + tid % kRows;
-    const size_t at = ((size_t)b * H + h) * S + row;
-    const float v = row < S ? (tid < kRows ? lse[at] : delta[at]) : 0.0f;
+    const size_t at = ((size_t)b * H + h) * Sq + row;
+    const float v = row < Sq ? (tid < kRows ? lse[at] : delta[at]) : 0.0f;
     (tid < kRows ? slse : sdelta)[tid % kRows] = v;
   }
   __syncthreads();
@@ -176,8 +181,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
       // ds in place of dP: element 4 c + e is row (e < 2 ? a : b), key k0 +
       // 8 c + 2 tig + (e & 1)
       uint32_t ties = 0;  // elements whose ds lies near a bf16 rounding tie
-      const bool whole = (!kCausal || r0 >= k0 + kBK - 1) && r0 + kBQ <= S && k0 + kBK <= S &&
-                         (window <= 0 || r0 + kBQ - 1 - k0 < window);
+      const bool whole = (!kCausal || q_off + r0 >= k0 + kBK - 1) && r0 + kBQ <= Sq &&
+                         k0 + kBK <= Sk && (window <= 0 || q_off + r0 + kBQ - 1 - k0 < window);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
 #pragma unroll
@@ -185,7 +190,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
           const int rl = rl_a + (e < 2 ? 0 : 8);
           const int idx = 4 * c + e;
           const bool ok =
-              whole || attend<kCausal>(r0 + rl, k0 + 8 * c + 2 * tig + (e & 1), S, window);
+              whole || attend<kCausal>(r0 + rl, k0 + 8 * c + 2 * tig + (e & 1), Sq, Sk, q_off,
+                                       window);
           float p, ds;
           p_ds(st[idx], dpt[idx], my_lse[rl], my_delta[rl], ok, scale, softcap, p, ds);
           dpt[idx] = ds;
@@ -233,8 +239,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + rl_a + 8 * half;
-    if (row >= S) continue;
-    float* dst = dq + ((size_t)b * S + row) * stride + (size_t)h * HD + 2 * tig;
+    if (row >= Sq) continue;
+    float* dst = dq + ((size_t)b * Sq + row) * stride + (size_t)h * HD + 2 * tig;
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c)
       *reinterpret_cast<float2*>(dst + 8 * c) =
@@ -244,33 +250,33 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
 
 template <int HD, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq, int B, int S, int H, int KV, float scale, float softcap,
-           int window, cudaStream_t stream) {
+           const void* delta, void* dq, int B, int Sq, int Sk, int q_off, int H, int KV,
+           float scale, float softcap, int window, cudaStream_t stream) {
   using G = Shape<HD>;
   CUtensorMap mq, mdo, mk, mv;
-  int rc = encode_heads(&mq, q, B, S, H, HD);
-  if (rc == 0) rc = encode_heads(&mdo, dout, B, S, H, HD);
-  if (rc == 0) rc = encode_heads(&mk, k, B, S, KV, HD);
-  if (rc == 0) rc = encode_heads(&mv, v, B, S, KV, HD);
+  int rc = encode_heads(&mq, q, B, Sq, H, HD);
+  if (rc == 0) rc = encode_heads(&mdo, dout, B, Sq, H, HD);
+  if (rc == 0) rc = encode_heads(&mk, k, B, Sk, KV, HD);
+  if (rc == 0) rc = encode_heads(&mv, v, B, Sk, KV, HD);
   if (rc != 0) return rc;
   auto kernel = flash_dq_tc_kernel<HD, kCausal>;
   static SmemOptIn opt_in;
   rc = opt_in.apply(kernel, G::kSmem);
   if (rc != 0) return rc;
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   kernel<<<grid, kThreads, G::kSmem, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), S, H, KV, scale, softcap, window);
+      static_cast<float*>(dq), Sq, Sk, q_off, H, KV, scale, softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kCausal>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dq, int B, int S, int H, int KV,
-                float scale, float softcap, int window, cudaStream_t stream) {
-#define REPRO_DQ_TC_LAUNCH(HD)                                                                \
-  return launch<HD, kCausal>(q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap, window, \
-                             stream)
+                const void* lse, const void* delta, void* dq, int B, int Sq, int Sk, int q_off,
+                int H, int KV, float scale, float softcap, int window, cudaStream_t stream) {
+#define REPRO_DQ_TC_LAUNCH(HD)                                                           \
+  return launch<HD, kCausal>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, q_off, H, KV, scale, \
+                             softcap, window, stream)
   switch (hd) {
     case 64: REPRO_DQ_TC_LAUNCH(64);
     case 80: REPRO_DQ_TC_LAUNCH(80);
@@ -285,26 +291,29 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 }  // namespace
 }  // namespace repro
 
-// q, dout: (B, S, H, hd); k, v: (B, S, KV, hd), bf16, contiguous, 16-byte
-// aligned; lse, delta: (B, H, S) float32 -> dq: (B, S, H, hd) float32.
+// q, dout: (B, Sq, H, hd) at positions q0 .. q0 + Sq - 1; k, v: (B, Sk,
+// KV, hd) at positions 0 .. Sk - 1, bf16, contiguous, 16-byte aligned; lse,
+// delta: (B, H, Sq) float32 -> dq: (B, Sq, H, hd) float32 (self-attention:
+// q0 = 0, Sk = Sq).
 // dtype must be 1 (bfloat16); hd 64, 80, 112 or 128; softcap <= 0 means
 // none, window <= 0 means none; causal 0 or 1.  The signature is
 // flash_dq_bwd's.  Returns the launch's cudaError_t (0 on success), or
 // repro::tc::kTensorMapError + the CUresult when a tensor map cannot be made.
 extern "C" int flash_dq_tc_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta, void* dq,
-                               int B, int S, int H, int KV, int hd, float scale, float softcap,
-                               int window, int causal, void* stream) {
+                               int B, int Sq, int Sk, int q0, int H, int KV, int hd,
+                               float scale, float softcap, int window, int causal,
+                               void* stream) {
   using namespace repro;
-  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || S < 1 ||
-      KV < 1 || H % KV != 0 || H > 65535)
+  if (dtype != kBFloat16 || (causal != 0 && causal != 1) || B < 1 || B > 65535 || Sq < 1 ||
+      Sk < 1 || q0 < 0 || KV < 1 || H % KV != 0 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (causal)
-    return dispatch_hd<true>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
-                             window, s);
-  return dispatch_hd<false>(hd, q, k, v, dout, lse, delta, dq, B, S, H, KV, scale, softcap,
-                            window, s);
+    return dispatch_hd<true>(hd, q, k, v, dout, lse, delta, dq, B, Sq, Sk, q0, H, KV, scale,
+                             softcap, window, s);
+  return dispatch_hd<false>(hd, q, k, v, dout, lse, delta, dq, B, Sq, Sk, q0, H, KV, scale,
+                            softcap, window, s);
 }
 
 extern "C" const char* flash_dq_tc_error(int code) { return repro::tc::error_string(code); }

@@ -24,12 +24,13 @@ namespace tc {
 
 constexpr int kChain = 2;  // k16 steps per wgmma chain of a score tile (see tile_dot)
 
-// Self-attention at positions = indices; without causality a window cuts
-// one side only (a row sees every later key).
+// Query row `row` of Sq at position q0 + row against key `key` of Sk at
+// position key (self-attention: q0 = 0, Sk = Sq); without causality a
+// window cuts one side only (a row sees every later key).
 template <bool kCausal>
-__device__ __forceinline__ bool attend(int row, int key, int S, int window) {
-  const int rel = row - key;
-  return row < S && key < S && (!kCausal || rel >= 0) && (window <= 0 || rel < window);
+__device__ __forceinline__ bool attend(int row, int key, int Sq, int Sk, int q0, int window) {
+  const int rel = q0 + row - key;
+  return row < Sq && key < Sk && (!kCausal || rel >= 0) && (window <= 0 || rel < window);
 }
 
 // d (64 x 64) = A B^T over hd, A and B K-major 64-row tiles: chains of

@@ -189,21 +189,23 @@ def attention_ref(q, k, v, q_pos, k_pos, k_valid, *, causal: bool = True,
 def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor, *,
                     window: int | None = None, softcap: float | None = None,
-                    causal: bool = True,
+                    causal: bool = True, q_offset: int = 0,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash-attention backward from the forward's ``lse`` and
-    ``delta = rowsum(dout * out)`` (both (B, H, S) float32): self-attention,
-    causal or not, positions ``arange(S)``.
+    ``delta = rowsum(dout * out)`` (both (B, H, Sq) float32), causal or
+    not: the Sq queries at positions ``q_offset + arange(Sq)`` against the
+    Sk keys at ``arange(Sk)`` (self-attention at ``q_offset = 0``, Sk =
+    Sq; a context-parallel rank's rows otherwise).
 
     Follows ``_recompute_dlogits`` and ``_flash_backward`` of
     ``repro/kernels/attention.py``, casts included: dots in float32 from the
     inputs' values, the softcap before the mask, ``p`` forced to 0 where the
     mask is false, ``dlogits`` rounded to q's type before the dq and dk
     products and ``p`` to dout's type before the dv product, per-query-head
-    dk/dv summed onto their KV head.  Returns float32 ``(dq (B, S, H, hd),
-    dk (B, S, KV, hd), dv (B, S, KV, hd))``; the caller casts."""
-    b, s, h, hd = q.shape
-    kv = k.shape[2]
+    dk/dv summed onto their KV head.  Returns float32 ``(dq (B, Sq, H, hd),
+    dk (B, Sk, KV, hd), dv (B, Sk, KV, hd))``; the caller casts."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
     n_rep = h // kv
     scale = hd ** -0.5
     kr = _repeat(k.float(), n_rep)
@@ -214,8 +216,8 @@ def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = capped * softcap
     else:
         logits = raw
-    pos = torch.arange(s, device=q.device)
-    rel = pos[:, None] - pos[None, :]
+    rel = (torch.arange(sq, device=q.device) + q_offset)[:, None] \
+        - torch.arange(sk, device=q.device)[None, :]
     ok = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
     if window is not None:
         ok = ok & (rel < window)
@@ -228,8 +230,8 @@ def flash_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds_q, kr) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dout.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds_q, q.float()) * scale
-    return (dq, dk.reshape(b, s, kv, n_rep, hd).sum(3),
-            dv.reshape(b, s, kv, n_rep, hd).sum(3))
+    return (dq, dk.reshape(b, sk, kv, n_rep, hd).sum(3),
+            dv.reshape(b, sk, kv, n_rep, hd).sum(3))
 
 
 def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -241,12 +243,12 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                        window: int | None = None, softcap: float | None = None,
-                       causal: bool = True,
+                       causal: bool = True, q_offset: int = 0,
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """float32 ``(dq, dk, dv)`` of flash attention from its saved ``(q, k,
     v, out, lse)`` and the output gradient (see :func:`flash_grads_ref`)."""
     return flash_grads_ref(q, k, v, lse, flash_delta(out, dout), dout,
-                           window=window, softcap=softcap, causal=causal)
+                           window=window, softcap=softcap, causal=causal, q_offset=q_offset)
 
 
 def paged_decode_ref(q: torch.Tensor, pool_k: torch.Tensor,

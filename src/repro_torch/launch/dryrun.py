@@ -7,11 +7,14 @@ compiles each cell's SPMD program over 512 placeholder host devices and
 reads XLA's analyses.  The port runs one rank's program eagerly, so its
 plan traces that program: inside :func:`fake_world` (a fake process group
 of the mesh's size) it builds the rank mesh, the plan (``launch.mesh.
-make_plan``) and rank 0's shard of the state (``dist.sharding.
-state_layout``), then runs rank 0's step on fake tensors
+make_plan``) and the traced rank's shard of the state (``dist.sharding.
+state_layout``), then runs that rank's step on fake tensors
 (``FakeTensorMode``, device "cpu") under ``utils.hlo.TraceCounter``.  No
-device runs anything and no card is touched; what is counted is what rank
-0 of the mesh would dispatch:
+device runs anything and no card is touched; what is counted is what the
+traced rank would dispatch.  That is rank 0, but for a train cell whose
+attention runs context-parallel (:func:`traced_rank`): there the last tp
+rank, whose query rows see the most keys under causality (rank 0's share
+of the score tiles is the smallest), and the record names it:
 
   train    ``make_train_step`` (the step ``StepEngine.for_lm`` builds), sgd
            with momentum 0.9 at the reference's ``opt_dtype`` rule, the
@@ -39,12 +42,19 @@ group), and so do its input and head (``models/transformer.py``: each rank
 looks up its ``d/T`` embedding columns, or computes its ``d/T`` frontend
 columns, then one all-gather over tp; where T divides V the cross-entropy
 is vocab-parallel on the rank's ``V/T`` head rows, one all-gather of the
-logsumexps a microbatch and one all-reduce of the head's dx); what does not
-split runs whole on every tp rank.  Prefill and decode (serving) split the
-same way (each rank computes its ``V/T`` logits, then one all-gather over
-tp), and hold the rank's KV heads only: ``KV/T`` of them, or where T ranks
+logsumexps a microbatch and one all-reduce of the head's dx).  Where T
+does not divide the heads but divides their widths and the length
+(qwen2-7b's 28/4 and internvl2-1b's 14/2 heads at T 16), attention runs
+context-parallel as the reference's ``attn_q``/``attn_kv`` specs lay it
+out: each rank projects its ``H hd/T`` and ``KV hd/T`` columns, one
+all-to-all trades the q columns for its ``S/T`` query rows of every head,
+one all-gather joins k and v, and the out all-to-all trades back before
+its rows of ``o``.  What does not split runs whole on every tp rank.
+Prefill and decode (serving) split the same way (each rank computes its
+``V/T`` logits, then one all-gather over tp), and hold the rank's KV heads only: ``KV/T`` of them, or where T ranks
 share a KV head that one whole (T/KV times the reference's layout, which
-splits ``head_dim`` there).
+splits ``head_dim`` there); context-parallel attention computes whole when
+serving (``dist.sharding.serving_split``).
 ``act_specs_for`` has no counterpart: the residual stream is not split.
 
 Usage (no card needed):
@@ -165,6 +175,21 @@ def active_params(cfg, specs) -> float:
 # ---------------------------------------------------------------------------
 # the fake world and the rank mesh
 # ---------------------------------------------------------------------------
+
+
+def traced_rank(cfg, shape, multi_pod: bool, param_bytes: int) -> int:
+    """The rank a cell traces: 0, but for a train cell whose attention runs
+    context-parallel on the production mesh's plan (``dist.sharding.
+    tp_split`` "context"), the last tp rank at the first data coordinates
+    (``T - 1``: the mesh's last axis, ``model``, is its fastest)."""
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    plan = make_plan(abstract_mesh((2, 16, 16) if multi_pod else (16, 16), axes),
+                     param_bytes=param_bytes)
+    if shape.kind != "train" or not any(
+            sharding.tp_split(cfg, p, plan, shape.seq_len).attn == "context"
+            for p in range(cfg.period)):
+        return 0
+    return plan.tp_size - 1
 
 
 @contextlib.contextmanager
@@ -400,9 +425,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
     if "config" in tuning:
         cfg = cfg.replace(**tuning["config"])
     chips = 512 if multi_pod else 256
+    rank = traced_rank(cfg, shape, multi_pod, param_bytes)
     t0 = time.time()
     try:
-        with fake_world(chips):
+        with fake_world(chips, rank):
             mesh = production_mesh(multi_pod)
             plan = make_plan(mesh, param_bytes=param_bytes)
             info: dict = {}
@@ -451,10 +477,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
             param_bytes=param_bytes,
             plan=plan_rec,
             tuning=info,
+            traced_rank=rank,
             attn_impl_traced=_attn_impl_traced(cfg, shape),
             activations=("heads and FFN widths split over the model axis "
                          "(dist.sharding.tp_split), the residual stream whole; the "
                          "embedding's d and the head's V over tp"
+                         + ("; attention context-parallel where tp does not divide "
+                            "the heads: each rank's S/T query rows of every head, k/v "
+                            "gathered whole over tp (the reference's attn_q / attn_kv)"
+                            if rank else "")
                          + ("" if shape.kind == "train" else ", the cache at the rank's "
                             "KV heads")),
             memory=memory,
@@ -494,10 +525,12 @@ def summary(rec: dict) -> str:
     m, r, c = rec["memory"], rec["roofline"], rec["cost"]
     cache = (f", cache {m['cache_bytes'] / GIB:.2f} GiB (reference layout "
              f"{m['cache_bytes_reference_layout'] / GIB:.2f})" if "cache_bytes" in m else "")
+    traced = (f", traced rank {rec['traced_rank']} (the last tp rank: the most attention "
+              f"rows under causality)" if rec.get("traced_rank") else "")
     return (f"OK   {head} {m['hbm_per_device_gib']} GiB/dev (state "
             f"{m['state_bytes'] / GIB:.2f}{cache}), fits_80gb={m['fits_80gb']}, "
             f"dominant={r['dominant']}, bound {r['step_time_lower_bound_s']:.4g} s, "
-            f"useful {c['useful_flops_ratio']:.3f}")
+            f"useful {c['useful_flops_ratio']:.3f}{traced}")
 
 
 def _save(record: dict, out_dir: str | None):

@@ -61,8 +61,15 @@ vocab-parallel where N divides the vocabulary (``models/transformer.py``;
 no rank gathers the ``(V, d)`` table or head whole); ``--micro-batch`` is
 the global microbatch, each data row taking
 ``micro_batch / (W/N)`` of it.  With ``--dp D`` too the world must be D·N.
+Where N does not divide the heads but divides their widths and
+``--seq-len``, attention runs context-parallel (each rank its
+``seq_len/N`` query rows of every head): internvl2-1b's 14 heads at
+``--tp 4``, say.  Rank 0 prints each block kind's split (``tp: attention
+context, ffn dense``).
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train_lm --tp 2 --backend gloo
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train_lm --tp 4 --backend gloo \\
+      --arch internvl2-1b --full-width 1 --seq-len 16 --micro-batch 4 --m0 4 --m-max 4
 """
 
 from __future__ import annotations
@@ -288,6 +295,10 @@ def main(argv: list[str] | None = None) -> dict:
         f"on {dev}" + (f", rank {dist.get_rank()} of {dist.get_world_size()} "
                        f"{dict(plan.mesh.shape)} ({args.backend})"
                        if plan is not None else ""))
+    if args.tp:
+        splits = {sharding.tp_split(cfg, p, plan, args.seq_len) for p in range(cfg.period)}
+        log("tp: " + "; ".join(f"attention {s.attn or 'whole'}, ffn {s.ffn or 'whole'}"
+                               for s in sorted(splits, key=repr)))
     program = make_program(args.method, m0=args.m0, m_max=args.m_max, delta=args.delta,
                            granule=args.micro_batch, lr=args.lr,
                            tick_every=args.epoch_steps)

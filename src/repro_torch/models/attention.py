@@ -114,17 +114,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _flash_forward(q, k, v, causal, window, softcap, q_block, kv_block):
+def _flash_forward(q, k, v, causal, window, softcap, q_block, kv_block, q_offset=0):
     """``(out (B, Sq, H, hd), lse (B, nq, H, q_block) float32)``: every query
     block at once (the reference's vmap), a loop over KV blocks carrying the
-    running max, denominator and float32 numerator."""
+    running max, denominator and float32 numerator; the queries at
+    positions ``q_offset + arange(Sq)``, the keys at ``arange(Sk)``."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
     scale = hd ** -0.5
     nq, nk = sq // q_block, sk // kv_block
     qb = q.reshape(b, nq, q_block, h, hd)
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
     m = torch.full((b, nq, h, q_block), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, nq, h, q_block), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, nq, h, q_block, hd), dtype=torch.float32, device=q.device)
@@ -148,7 +149,8 @@ def _flash_forward(q, k, v, causal, window, softcap, q_block, kv_block):
     return out.reshape(b, sq, h, hd), m + torch.log(l_safe)
 
 
-def _flash_backward(q, k, v, out, lse, dout, causal, window, softcap, q_block, kv_block):
+def _flash_backward(q, k, v, out, lse, dout, causal, window, softcap, q_block, kv_block,
+                    q_offset=0):
     """The reference's recompute: ``delta = rowsum(dout * out)``; pass 1 runs
     every query block over the KV blocks for dq, pass 2 every KV block over
     the query blocks for dk and dv (summed onto the KV heads)."""
@@ -161,7 +163,7 @@ def _flash_backward(q, k, v, out, lse, dout, causal, window, softcap, q_block, k
     dob = dout.reshape(b, nq, q_block, h, hd)
     ob = out.reshape(b, nq, q_block, h, hd)
     delta = torch.einsum("bnqhd,bnqhd->bnhq", dob.float(), ob.float())
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
     k_pos = torch.arange(sk, device=q.device)
 
     def dlogits_of(q_blk, k_blk, v_blk, lse_blk, delta_blk, do_blk, bias):
@@ -220,39 +222,40 @@ class _FlashAttention(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(q, k, v, causal, window, softcap, q_block, kv_block):
-        return _flash_forward(q, k, v, causal, window, softcap, q_block, kv_block)
+    def forward(q, k, v, causal, window, softcap, q_block, kv_block, q_offset=0):
+        return _flash_forward(q, k, v, causal, window, softcap, q_block, kv_block, q_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, softcap, q_block, kv_block = inputs
+        q, k, v, *args = inputs  # causal, window, softcap, q_block, kv_block[, q_offset]
         out, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, window, softcap, q_block, kv_block)
+        ctx.args = tuple(args)
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         return (*_flash_backward(q, k, v, out, lse, dout.contiguous(), *ctx.args),
-                None, None, None, None, None)
+                *[None] * len(ctx.args))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None, q_block: int = 512,
-                    kv_block: int = 1024) -> torch.Tensor:
+                    kv_block: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Streaming-softmax attention (B, Sq, H, hd) with the flash recompute
-    backward, as the reference's ``flash_attention``: positions ``arange``,
-    the softcap before the causal / sliding-window mask, probabilities cast
-    to v's type before the value product.  Sq and Sk must be multiples of
-    ``q_block`` and ``kv_block``."""
+    backward, as the reference's ``flash_attention``: keys at ``arange``,
+    queries at ``q_offset + arange`` (a context-parallel rank's rows; 0 in
+    self-attention), the softcap before the causal / sliding-window mask,
+    probabilities cast to v's type before the value product.  Sq and Sk
+    must be multiples of ``q_block`` and ``kv_block``."""
     sq, sk = q.shape[1], k.shape[1]
     if sq % q_block or sk % kv_block:
         raise ValueError(f"flash_attention: Sq {sq} and Sk {sk} must tile by q_block "
                          f"{q_block} and kv_block {kv_block}")
     return _FlashAttention.apply(q, k, v, bool(causal), window, softcap, int(q_block),
-                                 int(kv_block))[0]
+                                 int(kv_block), int(q_offset))[0]
 
 
 def resolve_impl(cfg, s: int) -> str:

@@ -30,7 +30,13 @@ Tensor-parallel (a sharded state whose plan's tp axes span T > 1 ranks,
 training stack does, and the probes sit at the rank's widths: q ``H/T *
 hd``, k and v ``KV/T * hd``, the FFN's gate/up/in ``ff/T``, o and down
 ``d_model`` (added to the rank's partial output, so their gradient is the
-whole output's).  The psgn kernels then read the rank's ``X`` and ``Delta``:
+whole output's).  Where attention runs context-parallel (T divides the
+heads' widths but not the heads: ``TpSplit.attn == "context"``) the probes
+sit at the rank's columns, q ``H hd/T`` and k, v ``KV hd/T`` over every
+row, o ``d_model`` on the rank's ``H hd/T`` input columns, and the probe
+block runs the training stack's exchanges (``transformer._context_qkv``,
+``_context_out``) around the dense lane at the rank's query offset.  The
+psgn kernels then read the rank's ``X`` and ``Delta``:
 for a column-parallel layer X whole and Delta the rank's columns, for a
 row-parallel one X the rank's rows and Delta whole; each sample's norms are
 summed over tp afterwards (``tp_sum``).  Where T ranks share each KV head,
@@ -66,26 +72,28 @@ from repro_torch.models.layers import apply_rope, dense, in_func_transform
 from repro_torch.models.moe import MoE, moe_apply
 
 
-def _dense_probe_names(cfg: ModelConfig, plan=None) -> list[tuple[str, int]]:
+def _dense_probe_names(cfg: ModelConfig, plan=None, seq: int | None = None
+                       ) -> list[tuple[str, int]]:
     """[(probe name, output width)] for every covered dense layer, at a tp
-    rank's widths on ``plan`` (the module docstring)."""
+    rank's widths on ``plan`` for sequences of ``seq`` (the module
+    docstring)."""
     hd = cfg.resolved_head_dim
     out = []
     for r in range(cfg.repeats):
         for p in range(cfg.period):
             kind = cfg.pattern[p]
             base = f"l{r}p{p}"
-            split = sharding.tp_split(cfg, p, plan)
+            split = sharding.tp_split(cfg, p, plan, seq)
             t = split.size
             if kind in ("attn", "attn_local"):
-                hq, hk = cfg.num_heads, cfg.num_kv_heads
-                if split.attn is not None:
-                    hq //= t
-                    hk //= t if split.attn == "local" else 1
+                wq, wk = cfg.num_heads * hd, cfg.num_kv_heads * hd
+                if split.attn is not None:  # "context" too: the rank's columns
+                    wq //= t
+                    wk //= t if split.attn != "shared" else 1
                 out += [
-                    (f"{base}.q", hq * hd),
-                    (f"{base}.k", hk * hd),
-                    (f"{base}.v", hk * hd),
+                    (f"{base}.q", wq),
+                    (f"{base}.k", wk),
+                    (f"{base}.v", wk),
                     (f"{base}.o", cfg.d_model),
                 ]
             if cfg.d_ff > 0 and cfg.ffn_kind(p) == "dense":
@@ -110,7 +118,7 @@ def probe_specs(cfg: ModelConfig, batch: int, seq: int,
     if not sharding.shards_state(plan):
         plan = None
     return {name: torch.zeros((batch, seq, width), dtype=dt, device=dev)
-            for name, width in _dense_probe_names(cfg, plan)}
+            for name, width in _dense_probe_names(cfg, plan, seq)}
 
 
 def coverage(cfg: ModelConfig) -> float:
@@ -160,7 +168,7 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, p, blk in tf._layers(cfg, params):
-        split = sharding.tp_split(cfg, p, layout.plan) if tp is not None else None
+        split = sharding.tp_split(cfg, p, layout.plan, x.shape[1]) if tp is not None else None
         with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}.",
                                keep_resident=False, split=split):
             x, aux = _probed_block(cfg, blk, x, r, p, positions, pdense, aux, moe_groups,
@@ -185,6 +193,17 @@ def _probed_block(cfg: ModelConfig, blk, x, r: int, p: int, positions, pdense, a
     h = blk.norm(x)
     if kind == "mamba":
         x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+    elif split is not None and split.attn == "context":
+        ap = blk.attn
+        window = cfg.window if kind == "attn_local" else None
+        q, k, v = tf._context_qkv(
+            cfg, ap, tp.copy(h), positions, tp,
+            lambda n, hin, w, bias: pdense(hin, w, bias, f"{base}.{n}"))
+        o = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
+                               softcap=cfg.attn_softcap,
+                               q_offset=tf.context_rows(cfg, s, tp)[0])
+        o = pdense(tf._context_out(o, tp), ap.o.weight, None, f"{base}.o")
+        x = x + tp.reduce(o)
     else:
         ap = blk.attn
         mode = split.attn if split is not None else None

@@ -106,6 +106,21 @@ on the shards the specs give the rank (tp rank t of T):
     (qwen2's) sliced by head after ``copy_to_group``; the attention on the
     lane ``resolve_impl`` names at the local head counts (the three flash
     kernels on the card); ``o`` row-parallel, then one all-reduce;
+  * attention context-parallel (Ulysses-style, the reference's ``attn_q``
+    / ``attn_kv`` layout), when T does not divide the heads but divides
+    ``H hd``, ``KV hd`` and S (qwen2-7b's 28/4 and internvl2-1b's 14/2
+    heads at T 16): the rank's ``H hd/T`` columns of ``q`` and ``KV hd/T``
+    of ``k``/``v`` over every row (with its columns of a replicated bias),
+    one all-to-all trading the q columns for its ``S/T`` query rows
+    ``[s0, s1)`` of every head (RoPE at those positions), one all-gather
+    joining k and v whole (its backward summed over tp, the rank's columns
+    kept), the attention of its rows at ``q_offset = s0`` against the keys
+    ``[0, s1)`` (causal; every key without causality) on the lane
+    ``resolve_impl`` names for S (the flash kernels at the offset form on
+    the card), the out all-to-all trading the rows back for its ``H hd/T``
+    columns, then its rows of ``o`` and one all-reduce
+    (``_context_attention``); the rows are contiguous, so under causality
+    the last rank's rows see the most keys;
   * a dense FFN, and a MoE FFN on ``moe_apply``, when ``ff % T == 0``: the
     rank's ``ff/T`` columns (of every expert: the router stays replicated
     and routes alike on every tp rank), then one all-reduce.
@@ -133,12 +148,13 @@ What does not split computes whole on every tp rank from leaves gathered
 whole, as without tp: the Mamba mixers (their ``in_proj`` shards the ``[x
 | z]`` halves, ``x_proj`` contracts ``d_inner``), ``moe_impl="ep"`` (the
 experts' ``ff`` gathered), a head whose V the tp ranks do not divide, and
-attention where the heads do not divide (qwen2-7b and internvl2-1b at T
-16).  ``tp_counts()`` counts, by kind, the sublayers the stack ran split
-(``tp_split``) and whole (``tp_whole``) on a tp plan, in training and in
-serving, and the input and the head per call; ``vocab_parallel_counts()``
-the input's and the head's collectives; ROADMAP.md Queue A 5 lists the
-whole ones as still to port.
+attention whose heads, widths or length the tp ranks do not divide.
+``tp_counts()`` counts, by kind, the sublayers the stack ran split
+(``tp_split``: "attn" by heads, "attn_context" context-parallel) and whole
+(``tp_whole``) on a tp plan, in training and in serving, and the input and
+the head per call; ``vocab_parallel_counts()`` the input's and the head's
+collectives, ``context_parallel_counts()`` the context-parallel
+exchanges; ROADMAP.md Queue A 5 lists the whole ones as still to port.
 
 Tensor-parallel serving (``prefill_step``, ``decode_step``,
 ``prefill_chunk`` on a sharded model whose plan spans T > 1 tp ranks):
@@ -153,8 +169,10 @@ columns, one all-gather over tp); the head (V over tp where T divides V)
 gives each rank its ``V/T`` float32 logits, capped, and one all-gather
 over tp joins them, so every rank samples from the whole row.  Whole on
 every tp rank: the Mamba mixers and their state, a head whose V the tp
-ranks do not divide, and the sublayers ``tp_split`` leaves whole; each
-counted in ``tp_whole``.  The caches must hold the rank's KV heads
+ranks do not divide, the sublayers ``tp_split`` leaves whole, and
+context-parallel attention (``dist.sharding.serving_split``: prefill at
+the reference's ``attn_q`` split is a later item); each counted in
+``tp_whole``.  The caches must hold the rank's KV heads
 (``init_cache``/``init_pages(kv_heads=serving_kv_heads(cfg, plan))``);
 a split sublayer never falls back to the whole path.
 
@@ -174,6 +192,8 @@ reference does; all three write it in place.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -181,7 +201,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding
-from repro_torch.dist.plan import all_gather_dim, current_plan, gather_shards
+from repro_torch.dist.plan import all_gather_dim, all_to_all, current_plan, gather_shards
 from repro_torch.kernels import attention as kernels_attn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm
@@ -223,16 +243,35 @@ def vocab_parallel_counts() -> dict[str, dict[str, int]]:
     return {k: dict(v) for k, v in _VP_COUNTS.items()}
 
 
+#: the context-parallel attention's collectives, by kind, since
+#: ``reset_tp_counts`` (``context_parallel_counts``)
+_CP_COUNTS: dict[str, dict[str, int]] = {
+    k: {"calls": 0, "bytes": 0} for k in ("q_all_to_all", "kv_all_gather", "out_all_to_all")}
+
+
+def context_parallel_counts() -> dict[str, dict[str, int]]:
+    """``{kind: {"calls", "bytes"}}`` since the last :func:`reset_tp_counts`:
+    the collectives the forward of a context-parallel attention sublayer
+    issues, by the tensor each exchanges: the all-to-all of the rank's q
+    columns for its query rows ("q_all_to_all"), the all-gather of k and v
+    over tp ("kv_all_gather", by its whole output), the all-to-all of the
+    output rows back to columns ("out_all_to_all").  A remat recompute
+    issues and counts them again; the backward's inverse exchanges and the
+    k/v reduce-scatter are not counted here (``dist.plan.
+    record_collectives`` sees every call)."""
+    return {k: dict(v) for k, v in _CP_COUNTS.items()}
+
+
 def reset_tp_counts() -> None:
     for v in _TP_COUNTS.values():
         v.clear()
-    for v in _VP_COUNTS.values():
+    for v in (*_VP_COUNTS.values(), *_CP_COUNTS.values()):
         v.update(calls=0, bytes=0)
 
 
-def _count_vp(kind: str, out: torch.Tensor) -> None:
-    _VP_COUNTS[kind]["calls"] += 1
-    _VP_COUNTS[kind]["bytes"] += out.numel() * out.element_size()
+def _count_vp(kind: str, out: torch.Tensor, counts: dict = _VP_COUNTS) -> None:
+    counts[kind]["calls"] += 1
+    counts[kind]["bytes"] += out.numel() * out.element_size()
 
 
 def _count_tp(key: str, kinds) -> None:
@@ -241,8 +280,10 @@ def _count_tp(key: str, kinds) -> None:
 
 
 def _count_split(split: sharding.TpSplit) -> None:
-    """Count a block's sublayers: split (attention, the FFN) and whole."""
-    _count_tp("tp_split", (["attn"] if split.attn else []) + [split.ffn] * bool(split.ffn))
+    """Count a block's sublayers: split (attention by heads "attn",
+    context-parallel "attn_context", the FFN) and whole."""
+    attn = [] if not split.attn else ["attn_context" if split.attn == "context" else "attn"]
+    _count_tp("tp_split", attn + [split.ffn] * bool(split.ffn))
     _count_tp("tp_whole", split.whole)
 
 
@@ -454,22 +495,124 @@ def _model_input(cfg: ModelConfig, params: Transformer, batch: dict, tp) -> torc
     return x
 
 
+def _tile(n: int, block: int) -> int:
+    """A block size that tiles ``n``: ``min(block, n)`` where that divides
+    ``n``, else the largest common divisor of the two."""
+    b = min(block, n)
+    return b if n % b == 0 else math.gcd(n, block)
+
+
 def _self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor, window: int | None, causal: bool) -> torch.Tensor:
-    """Self-attention over positions ``arange(S)`` on the lane
-    ``resolve_impl`` names for the length."""
-    s = q.shape[1]
-    impl = attn_lib.resolve_impl(cfg, s)
+                    v: torch.Tensor, window: int | None, causal: bool, q_offset: int = 0,
+                    seq: int | None = None) -> torch.Tensor:
+    """Attention on the lane ``resolve_impl`` names for the length ``seq``
+    (default the queries'): self-attention over positions ``arange(S)``,
+    or a context-parallel rank's queries at ``q_offset + arange(S_t)``
+    against the keys ``arange(Sk)`` of the sequence of ``seq``."""
+    s, sk = q.shape[1], k.shape[1]
+    impl = attn_lib.resolve_impl(cfg, seq or s)
     if impl == "pallas":
-        return kernels_attn.flash_attention(q, k, v, causal, window, cfg.attn_softcap)
+        return kernels_attn.flash_attention(q, k, v, causal, window, cfg.attn_softcap,
+                                            q_offset)
     if impl == "flash":
-        return attn_lib.flash_attention(q, k, v, causal, window, cfg.attn_softcap,
-                                        min(cfg.flash_q_block, s),
-                                        min(cfg.flash_kv_block, s))
+        if q_offset == 0 and sk == s:
+            qb, kb = min(cfg.flash_q_block, s), min(cfg.flash_kv_block, s)
+        else:
+            qb, kb = _tile(s, cfg.flash_q_block), _tile(sk, cfg.flash_kv_block)
+        return attn_lib.flash_attention(q, k, v, causal, window, cfg.attn_softcap, qb, kb,
+                                        q_offset)
     if impl == "dense":
         return attn_lib.attention(q, k, v, causal=causal, window=window,
-                                  softcap=cfg.attn_softcap)
+                                  softcap=cfg.attn_softcap, q_offset=q_offset)
     raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def context_rows(cfg: ModelConfig, s: int, tp) -> tuple[int, int, int]:
+    """``(s0, s1, sk)`` of tp rank ``tp.rank`` under context-parallel
+    attention over a length-``s`` sequence: its query rows ``[s0, s1)``,
+    contiguous ``s/T`` positions (the reference's ``attn_q`` query blocks),
+    and the keys ``[0, sk)`` its rows attend: ``s1`` under causality (the
+    later keys mask to nothing), every key without."""
+    st = s // tp.size
+    s0, s1 = tp.rank * st, (tp.rank + 1) * st
+    return s0, s1, s1 if cfg.causal else s
+
+
+def _cols_to_rows(x: torch.Tensor, tp) -> torch.Tensor:
+    """(B, S, C) holding this rank's C columns of every row -> (B, S/T, T C)
+    holding every rank's columns, in tp order, of this rank's S/T rows: one
+    all-to-all over tp (``dist.plan.all_to_all``; its backward the inverse
+    exchange), the chunks laid out on dim 0."""
+    b, s, c = x.shape
+    t = tp.size
+    y = all_to_all(x.reshape(b, t, s // t, c).transpose(0, 1).contiguous(), tp.mesh, tp.axes)
+    return y.permute(1, 2, 0, 3).reshape(b, s // t, t * c)
+
+
+def _rows_to_cols(y: torch.Tensor, tp) -> torch.Tensor:
+    """The inverse of :func:`_cols_to_rows`: (B, S/T, T C) -> (B, S, C)."""
+    b, st, tc = y.shape
+    t = tp.size
+    c = tc // t
+    z = all_to_all(y.reshape(b, st, t, c).permute(2, 0, 1, 3).contiguous(), tp.mesh, tp.axes)
+    return z.transpose(0, 1).reshape(b, t * st, c)
+
+
+def _context_qkv(cfg: ModelConfig, ap: Attention, h: torch.Tensor, positions: torch.Tensor,
+                 tp, proj=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B, S/T, H, hd) of tp rank ``tp.rank``'s query rows ``[s0, s1)``
+    with RoPE at ``positions[:, s0:s1]``, and k, v (B, Sk, KV, hd) of the
+    keys ``[0, sk)`` (:func:`context_rows`), k with RoPE at every position:
+    the rank's resident column shards of ``q``, ``k`` and ``v`` applied to
+    every row of ``h`` (``proj(name, h, weight, bias)``, ``dense`` unless
+    given: the probe pass's hook) with its columns of the replicated biases,
+    then one all-to-all of the q columns for the rows and one all-gather of
+    k and v over tp whose backward sums every rank's contribution and keeps
+    the rank's columns (``gather_shards(summed=)``: every rank's queries
+    attend every key).  Counted in ``context_parallel_counts``."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    s0, s1, sk = context_rows(cfg, s, tp)
+    proj = proj or (lambda name, x, w, bias: dense(x, w, bias))
+
+    def cols(name: str, lin) -> torch.Tensor:
+        n = lin.weight.shape[0]  # the rank's columns: its resident shard's rows
+        bias = None if lin.bias is None else lin.bias.narrow(0, tp.rank * n, n)
+        return proj(name, h, lin.weight, bias)
+
+    q = _cols_to_rows(cols("q", ap.q), tp)
+    _count_vp("q_all_to_all", q, _CP_COUNTS)
+    k, v = gather_shards([cols("k", ap.k), cols("v", ap.v)], [[(2, tp.axes)]] * 2, tp.mesh,
+                         (), summed=[True, True])
+    _CP_COUNTS["kv_all_gather"]["calls"] += 1
+    _CP_COUNTS["kv_all_gather"]["bytes"] += 2 * k.numel() * k.element_size()
+    q = apply_rope(q.reshape(b, s1 - s0, cfg.num_heads, hd), positions[:, s0:s1],
+                   cfg.rope_theta)
+    k = apply_rope(k[:, :sk].reshape(b, sk, cfg.num_kv_heads, hd), positions[:, :sk],
+                   cfg.rope_theta)
+    return q, k, v[:, :sk].reshape(b, sk, cfg.num_kv_heads, hd)
+
+
+def _context_out(out: torch.Tensor, tp) -> torch.Tensor:
+    """The attention's (B, S/T, H, hd) output rows -> (B, S, H hd/T), the
+    rank's columns of every row, for its row shard of ``o`` (one all-to-all;
+    counted in ``context_parallel_counts``)."""
+    y = _rows_to_cols(out.reshape(*out.shape[:2], -1), tp)
+    _count_vp("out_all_to_all", y, _CP_COUNTS)
+    return y
+
+
+def _context_attention(cfg: ModelConfig, ap: Attention, h: torch.Tensor,
+                       positions: torch.Tensor, window: int | None, tp) -> torch.Tensor:
+    """Context-parallel attention (``TpSplit.attn == "context"``) on ``h``
+    (normed, behind ``tp.copy``): :func:`_context_qkv`, the rank's S/T
+    query rows at ``q_offset = s0`` against keys ``[0, sk)`` on the lane
+    ``resolve_impl`` names for the whole length, :func:`_context_out`, then
+    the rank's rows of ``o`` (row-parallel); the caller all-reduces."""
+    s = h.shape[1]
+    q, k, v = _context_qkv(cfg, ap, h, positions, tp)
+    out = _self_attention(cfg, q, k, v, window, cfg.causal, context_rows(cfg, s, tp)[0], s)
+    return dense(_context_out(out, tp), ap.o.weight)
 
 
 def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
@@ -477,13 +620,17 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
                    ) -> torch.Tensor:
     """The attention sublayer on ``x`` (normed); ``split`` ("local" or
     "shared", ``dist.sharding.TpSplit.attn``) computes rank ``tp.rank``'s
-    heads and all-reduces the row-parallel ``o`` over tp."""
+    heads, "context" its query rows of every head
+    (:func:`_context_attention`), and all-reduces the row-parallel ``o``
+    over tp."""
     b, s, _ = x.shape
     window = cfg.window if kind == "attn_local" else None
     if split is None:
         q, k, v = _qkv(cfg, ap, x, positions)
         out = _self_attention(cfg, q, k, v, window, cfg.causal)
         return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
+    if split == "context":
+        return tp.reduce(_context_attention(cfg, ap, tp.copy(x), positions, window, tp))
     q, k, v = _qkv(cfg, ap, tp.copy(x), positions, tp, split)
     out = _self_attention(cfg, q, k, v, window, cfg.causal)
     return tp.reduce(dense(out.reshape(b, s, -1), ap.o.weight))
@@ -524,7 +671,7 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
     plan = current_plan()
     tp = sharding.tensor_parallel(layout) if split_tp and not in_func_transform() else None
     for r, p, blk in _layers(cfg, params):
-        split = sharding.tp_split(cfg, p, layout.plan) if tp is not None else None
+        split = sharding.tp_split(cfg, p, layout.plan, x.shape[1]) if tp is not None else None
         if split is not None:
             _count_split(split)
         args = (cfg, cfg.pattern[p], blk, x, positions, moe_groups, layout,
@@ -909,12 +1056,12 @@ def _serving_layers(cfg: ModelConfig, params: Transformer, tp=None):
     parameters gathered while the caller's loop body runs (a sharded model;
     as they are otherwise): one block at a time stands whole, or under
     ``tp`` (``dist.sharding.tensor_parallel`` of the model's layout) split
-    by ``tp_split``, its split leaves kept as the rank's shards (``split``
-    splits nothing without tp).  Counts each block's sublayers in
-    ``tp_counts``."""
+    by ``serving_split`` (``tp_split`` with context-parallel attention
+    whole), its split leaves kept as the rank's shards (``split`` splits
+    nothing without tp).  Counts each block's sublayers in ``tp_counts``."""
     layout = sharding.layout_of(params)
     for r, p, blk in _layers(cfg, params):
-        split = sharding.tp_split(cfg, p, layout.plan if tp is not None else None)
+        split = sharding.serving_split(cfg, p, layout.plan if tp is not None else None)
         if tp is not None:
             _count_split(split)
         with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}.", split=split):

@@ -834,35 +834,40 @@ def tp_batch(cfg, seed: int, step: int, n: int) -> dict:
 
 class SplitSpy:
     """Records, while active, the head counts ``(query, KV)`` that
-    ``transformer._self_attention`` sees, the hidden widths of the dense
-    FFNs' products and the experts' widths ``moe_apply`` runs, the result
-    bytes of the all-gathers issued inside block entries and of those the
-    input and the head issue (``_model_input``, ``_xent``: the training
-    forward's and the probe pass's), and the shapes in which the
-    embedding, the frontend and the head reach the compute (``_whole``,
-    ``_tp_shard``)."""
+    ``transformer._self_attention`` sees and its ``(query rows, query
+    offset, keys)``, the hidden widths of the dense FFNs' products and the
+    experts' widths ``moe_apply`` runs, the result bytes of the all-gathers
+    issued inside block entries (the context-parallel exchanges apart) and
+    of those the input and the head issue (``_model_input``, ``_xent``: the
+    training forward's and the probe pass's), the collectives of the
+    context-parallel exchanges (``_context_qkv``, ``_context_out``) as
+    ``(kind, result bytes)``, and the shapes in which the embedding, the
+    frontend and the head reach the compute (``_whole``, ``_tp_shard``)."""
 
     def __init__(self):
-        self.heads, self.ffn, self.moe = set(), set(), set()
+        self.heads, self.ffn, self.moe, self.rows = set(), set(), set(), set()
         self.block_gather_bytes = 0
         self.vocab_gathers: list[int] = []
+        self.context_colls: list[tuple[str, int]] = []
         self.leaves: set = set()
 
     def __enter__(self):
         from repro_torch.models import transformer as tf
 
         self.saved = (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block,
-                      tf._whole, tf._tp_shard, tf._model_input, tf._xent)
-        attn, ffn_fwd, moe, block, whole, tp_shard, model_input, xent = self.saved
-        inside, vocab = [False], [False]
+                      tf._whole, tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv,
+                      tf._context_out)
+        (attn, ffn_fwd, moe, block, whole, tp_shard, model_input, xent, context_qkv,
+         context_out) = self.saved
+        inside, vocab, context = [False], [False], [False]
 
-        def flagged(fn):
+        def flagged(fn, flag=vocab):
             def call(*args):
-                vocab[0] = True
+                flag[0] = True
                 try:
                     return fn(*args)
                 finally:
-                    vocab[0] = False
+                    flag[0] = False
             return call
 
         def spy_whole(params, name):
@@ -875,9 +880,10 @@ class SplitSpy:
             self.leaves.add((name, tuple(out.shape)))
             return out, dim
 
-        def spy_attn(cfg, q, k, v, *args):
+        def spy_attn(cfg, q, k, v, window, causal, q_offset=0, seq=None):
             self.heads.add((q.shape[2], k.shape[2]))
-            return attn(cfg, q, k, v, *args)
+            self.rows.add((q.shape[1], q_offset, k.shape[1]))
+            return attn(cfg, q, k, v, window, causal, q_offset, seq)
 
         def spy_ffn(mod, x):
             self.ffn.add((mod.w_up if mod.glu else mod.w_in).weight.shape[0])
@@ -895,7 +901,9 @@ class SplitSpy:
                 inside[0] = False
 
         def record(kind, operand, result, ranks):
-            if kind == "all-gather" and inside[0]:
+            if context[0]:
+                self.context_colls.append((kind, result))
+            elif kind == "all-gather" and inside[0]:
                 self.block_gather_bytes += result
             elif kind == "all-gather" and vocab[0]:
                 self.vocab_gathers.append(result)
@@ -905,16 +913,18 @@ class SplitSpy:
         self.recording = record_collectives(record)
         self.recording.__enter__()
         (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block, tf._whole,
-         tf._tp_shard, tf._model_input, tf._xent) = (
+         tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv, tf._context_out) = (
             spy_attn, spy_ffn, spy_moe, spy_block, spy_whole, spy_tp_shard,
-            flagged(model_input), flagged(xent))
+            flagged(model_input), flagged(xent), flagged(context_qkv, context),
+            flagged(context_out, context))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import transformer as tf
 
         (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block, tf._whole,
-         tf._tp_shard, tf._model_input, tf._xent) = self.saved
+         tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv,
+         tf._context_out) = self.saved
         self.recording.__exit__(*exc)
 
 
@@ -1009,7 +1019,8 @@ def tp_train(a: dict) -> dict:
                     rec["sq_norm_sum"].append(state.div_state.sq_norm_sum.item())
             rec["tp_counts"], rec["vp_counts"] = tf.tp_counts(), tf.vocab_parallel_counts()
             rec["vocab_gathers"] = list(spy.vocab_gathers)
-            spy.block_gather_bytes = 0
+            rec["cp_counts"] = tf.context_parallel_counts()
+            spy.block_gather_bytes, spy.context_colls = 0, []
             batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 0, 0, 2).items()}
             moes = [m for m in state.params.modules() if isinstance(m, MoE)]
             for m in moes:
@@ -1021,6 +1032,7 @@ def tp_train(a: dict) -> dict:
             for m in moes:
                 m.stats = None
         rec.update(heads=sorted(spy.heads), ffn=sorted(spy.ffn), moe=sorted(spy.moe),
+                   rows=sorted(spy.rows), context_colls=list(spy.context_colls),
                    leaves=sorted(spy.leaves), block_gather_bytes=spy.block_gather_bytes,
                    block_gather_reckoned=block_gather_reckoning(cfg, state.params),
                    params=_whole_numpy(state.params))
@@ -1083,11 +1095,16 @@ def tp_gradcheck(a: dict) -> dict:
     linear map then ``reduce_from_group`` over the model axis of each rung
     of ``a["shapes"]`` (the composite's Jacobian is the sum of the ranks'
     maps on every rank when each collective's backward is its adjoint)."""
-    from repro_torch.dist.plan import copy_to_group, reduce_from_group
+    from repro_torch.dist.plan import copy_to_group, gather_shards, reduce_from_group
+    from repro_torch.dist.sharding import TensorParallel, tp_rank
+    from repro_torch.models import transformer as tf
 
     out = {}
     for shape in a["shapes"]:
-        mesh = rung_plan(tuple(shape)).mesh
+        plan = rung_plan(tuple(shape))
+        mesh = plan.mesh
+        t = mesh.shape["model"]
+        tp = TensorParallel(mesh, ("model",), t, tp_rank(plan))
         r = np.random.default_rng(dist.get_rank())
         mine = torch.from_numpy(r.standard_normal((3, 4)))
         z = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3))).requires_grad_(True)
@@ -1095,8 +1112,29 @@ def tp_gradcheck(a: dict) -> dict:
         def fn(z):
             return reduce_from_group(copy_to_group(z, mesh, "model") @ mine, mesh, "model")
 
-        out["x".join(map(str, shape))] = bool(torch.autograd.gradcheck(fn, (z,), eps=1e-6,
-                                                                       atol=1e-8))
+        # the context-parallel exchanges: (2, 2t, 3) rows through the rank's
+        # columns, the q all-to-all and the out all-to-all, and the k/v
+        # all-gather of the rank's columns with its summed backward
+        cols = torch.from_numpy(r.standard_normal((3, 2)))
+        scale = torch.from_numpy(r.standard_normal((2 * t, 2 * t)))
+        zz = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 2 * t, 3))
+                              ).requires_grad_(True)
+
+        def exchange(z):
+            x = copy_to_group(z, mesh, "model") @ cols  # (2, 2t, 2): this rank's columns
+            rows = tf._cols_to_rows(x, tp)  # (2, 2, 2t): its rows, every column
+            back = tf._rows_to_cols(rows * scale[:2], tp)
+            return reduce_from_group(back * x, mesh, "model")
+
+        def kv_gather(z):
+            x = copy_to_group(z, mesh, "model") @ cols
+            whole = gather_shards([x], [[(2, ("model",))]], mesh, (), summed=[True])[0]
+            return reduce_from_group(whole * scale[:, :2 * t], mesh, "model")
+
+        key = "x".join(map(str, shape))
+        for name, f, arg in ((key, fn, z), (key + " all-to-all", exchange, zz),
+                             (key + " k/v all-gather", kv_gather, zz)):
+            out[name] = bool(torch.autograd.gradcheck(f, (arg,), eps=1e-6, atol=1e-8))
     return out
 
 

@@ -309,10 +309,10 @@ def test_decode_and_prefill_flops_match_reference_hlo():
 # (attention, FFN, whole) of each pattern position's tp_split at T 16
 TP16 = {
     "yi-6b": {("shared", "dense", ())},
-    "qwen2-7b": {(None, "dense", ("attn",))},  # 28 heads
+    "qwen2-7b": {("context", "dense", ())},  # 28 heads: context-parallel
     "llama3-405b": {("shared", "dense", ())},
     "gemma2-27b": {("local", "dense", ())},
-    "internvl2-1b": {(None, "dense", ("attn",))},  # 14 heads
+    "internvl2-1b": {("context", "dense", ())},  # 14 heads: context-parallel
     "dbrx-132b": {("shared", "moe", ())},
     "kimi-k2-1t-a32b": {("shared", "moe", ())},
     "falcon-mamba-7b": {(None, None, ("mamba",))},
@@ -335,6 +335,40 @@ def test_tp_split_of_the_full_configs_at_16(arch):
         pos = next(p for p in range(cfg.period) if cfg.ffn_kind(p) == "moe")
         ep = sharding.tp_split(cfg.replace(moe_impl="ep"), pos, plan)
         assert ep.ffn is None and "moe_ep" in ep.whole
+
+
+def test_tp_trace_records_the_context_exchanges():
+    """Reduced qwen2-7b at 3/1 heads of hd 16 on 4 tp ranks (attention
+    context-parallel): the traced step records per layer two all-to-alls
+    of ``B S H hd/T`` float32 values in the forward and two in the
+    backward, one k/v all-gather, and one reduce-scatter of k and v's
+    gradient (summed over tp); the dry run traces the last tp rank, whose
+    rows see the most keys, and its FLOPs exceed rank 0's."""
+    b, s, t = 2, 32, 4
+    cfg = get_config("qwen2-7b", reduced=True).replace(num_heads=3, num_kv_heads=1,
+                                                        d_model=48)
+    hd = cfg.resolved_head_dim
+
+    def trace(rank):
+        with dryrun.fake_world(t, rank):
+            mesh = dryrun.rank_mesh((1, t), ("data", "model"))
+            plan = ShardingPlan(mesh=mesh, dp=("data",), fsdp=("data",), tp="model",
+                                ep=("data",))
+            assert sharding.tp_split(cfg, 0, plan, s).attn == "context"
+            return dryrun.trace_train(cfg, plan, b, s, 1, torch.float32)["analysis"]
+
+    last, first = trace(t - 1), trace(0)
+    coll = last["collectives"]["by_kind"]
+    layers = cfg.num_layers
+    assert coll["all-to-all"]["count"] == 4 * layers
+    assert coll["all-to-all"]["operand_bytes"] == 4 * layers * b * s * 3 * hd // t * 4
+    assert coll["reduce-scatter"]["count"] == layers
+    assert coll["reduce-scatter"]["operand_bytes"] == layers * 2 * b * s * hd * 4
+    assert last["flops"] > first["flops"]
+    full = get_config("qwen2-7b")
+    assert dryrun.traced_rank(full, dryrun.SHAPES["train_4k"], False, 0) == 15
+    assert dryrun.traced_rank(full, dryrun.SHAPES["prefill_32k"], False, 0) == 0
+    assert dryrun.traced_rank(get_config("yi-6b"), dryrun.SHAPES["train_4k"], True, 0) == 0
 
 
 def _tp_trace_flops(vocab: int):

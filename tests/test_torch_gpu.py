@@ -415,6 +415,91 @@ def test_flash_kernels_at_the_tensor_parallel_head_counts(cuda, case):
         torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
 
 
+def _offset_case(r, dev, dtype, b, s, t, rank, h, kv, hd, window, softcap, causal):
+    """Context-parallel rank ``rank`` of ``t`` over a length-``s`` sequence:
+    its ``s/t`` query rows at offset ``s0`` against the keys ``[0, s1)``
+    (causal) or all ``s`` (not), with the card forward's out and lse."""
+    st = s // t
+    s0, s1 = rank * st, (rank + 1) * st
+    sk = s1 if causal else s
+    q, dout = (torch.from_numpy(r.standard_normal((b, st, h, hd))).to(dev, dtype)
+               for _ in range(2))
+    k, v = (torch.from_numpy(r.standard_normal((b, sk, kv, hd))).to(dev, dtype)
+            for _ in range(2))
+    q_pos = torch.arange(s0, s1, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=dev)
+    out, lse = kattn.chunk_attention_fwd(q, k, v, q_pos, k_pos, torch.ones_like(k_pos),
+                                         window=window, softcap=softcap, causal=causal)
+    return q, k, v, dout, out, lse, q_pos, k_pos, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, s, t, h, kv, hd, window, softcap, causal
+    (2, 512, 4, 14, 2, 64, None, None, True),     # internvl2-1b at T 4 (n_rep 7)
+    (1, 512, 8, 28, 4, 128, None, None, True),    # qwen2-7b at T 8 (n_rep 7)
+    (1, 512, 4, 8, 2, 80, None, 30.0, False),     # non-causal, every key
+    (1, 600, 4, 8, 2, 128, 100, 20.0, True),      # a window, a softcap, S_t 150
+], ids=["intern-t4", "qwen2-t8", "noncausal", "window"])
+def test_flash_kernels_at_the_context_parallel_offset(cuda, dtype, case):
+    """The chunk forward, dq and dk/dv at every rank's piece of a context-
+    parallel split (queries at an offset, more keys than queries) against
+    their plain versions at that offset; each launch at an offset counts in
+    ``offset_counts``, rank 0's causal piece (offset 0, as many keys as
+    queries) in none; bf16 on the tensor cores at hd 64, 80 and 128."""
+    b, s, t, h, kv, hd, window, softcap, causal = case
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    for rank in range(t):
+        r = np.random.default_rng(s + 13 * rank + h)
+        kernels.reset_launch_counts()
+        q, k, v, dout, out, lse, q_pos, k_pos, s0 = _offset_case(
+            r, cuda, dtype, b, s, t, rank, h, kv, hd, window, softcap, causal)
+        want_out, want_lse = ref.attention_ref_lse(q, k, v, q_pos, k_pos,
+                                                   torch.ones_like(k_pos), **kw)
+        _close(out, want_out, dtype)
+        _close(lse, want_lse, dtype)
+        delta = ref.flash_delta(out, dout)
+        dq = kattn.flash_dq(q, k, v, dout, lse, delta, q_offset=s0, **kw)
+        dk, dv = kattn.flash_dkv(q, k, v, dout, lse, delta, q_offset=s0, **kw)
+        torch.cuda.synchronize()
+        offset = int(s0 > 0 or k.shape[1] != q.shape[1])
+        assert {n: c for n, c in kernels.offset_counts().items() if n != "chunk_attention"} \
+            == {"flash_dq": offset, "flash_dkv": offset}
+        if dtype == torch.bfloat16:
+            assert kernels.route_counts()["flash_dq"] == {"tc": 1, "fma": 0}
+            assert kernels.route_counts()["flash_dkv"] == {"tc": 1, "fma": 0}
+        want = ref.flash_backward_ref(q, k, v, out, lse, dout, q_offset=s0, **kw)
+        atol, rtol = FLASH_TOL[dtype]
+        for got, exp in zip((dq, dk, dv), want):
+            assert got.shape == exp.shape
+            torch.testing.assert_close(got.cpu(), exp.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_at_an_offset_on_card_matches_cpu(cuda, dtype):
+    """``flash_attention(..., q_offset=)`` through autograd on the card (the
+    three kernels at the offset form, counted) against the CPU's plain
+    versions on the same inputs."""
+    r = np.random.default_rng(5)
+    b, st, h, kv, hd, s0 = 1, 128, 14, 2, 64, 384
+    sk = s0 + st
+    q = torch.from_numpy(r.standard_normal((b, st, h, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(r.standard_normal((b, sk, kv, hd)).astype(np.float32))
+            for _ in range(2))
+    dout = torch.from_numpy(r.standard_normal((b, st, h, hd)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        leaves = [x.detach().to(dev, dtype).requires_grad_(True) for x in (q, k, v)]
+        kernels.reset_launch_counts()
+        out = kattn.flash_attention(*leaves, q_offset=s0)
+        out.backward(dout.to(dev, dtype))
+        res[str(dev)] = [out.detach().float().cpu()] + [x.grad.float().cpu() for x in leaves]
+    assert kernels.offset_counts() == {"chunk_attention": 1, "flash_dq": 1, "flash_dkv": 1}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("hd", [80, 112])
 def test_tc_chunk_forward_with_sentinel_keys_and_padded_rows(cuda, hd, causal):

@@ -70,6 +70,7 @@ from repro_torch.train import init_state, make_train_step  # noqa: E402
 torch.set_num_threads(2)
 
 SEQ = ranks.SEQ
+_CONTEXT = {"num_heads": 3, "num_kv_heads": 1, "d_model": 48}
 # params: (arch, seed of the reference init, config replacements); the
 # reduced configs' vocabularies (251, hubert's 63) leave the head whole over
 # tp, 256 and 64 split it
@@ -77,7 +78,11 @@ ARCHS = {"yi": ("yi-6b", 2, {}), "qwen2": ("qwen2-7b", 3, {}), "gemma2": ("gemma
          "hubert": ("hubert-xlarge", 5, {}), "dbrx": ("dbrx-132b", 6, {}),
          "jamba": ("jamba-v0.1-52b", 7, {}), "yi256": ("yi-6b", 9, {"vocab_size": 256}),
          "gemma2_256": ("gemma2-27b", 10, {"vocab_size": 256}),
-         "hubert64": ("hubert-xlarge", 11, {"vocab_size": 64})}
+         "hubert64": ("hubert-xlarge", 11, {"vocab_size": 64}),
+         # 3/1 heads of hd 16: no T of 2 or 4 divides the heads, every one
+         # their widths (48, 16) and SEQ, so attention runs context-parallel
+         "qwen2ctx": ("qwen2-7b", 13, {**_CONTEXT, "attn_impl": "pallas"}),
+         "intern": ("internvl2-1b", 14, _CONTEXT)}
 # each case names its rung (data, model); jamba at lr 0.01 (PERF.md: lr 0.1
 # turns its float32 rounding into 1e-4 of its parameters in a few steps)
 SHAPES_2, SHAPES_4 = [(1, 2)], [(1, 4), (2, 2)]
@@ -93,13 +98,19 @@ _BASE = [
 _VOCAB = [{"name": "yi256", "params": "yi256", "seed": 9},
           {"name": "yi256_gram", "params": "yi256", "seed": 10, "tier": "gram"}]
 _HUBERT64 = {"name": "hubert64", "params": "hubert64", "seed": 12}
+# context-parallel attention: qwen2 (its replicated biases) on the kernel
+# lane's plain versions, the moment tier; internvl2 (the frontend) on the
+# gram tier; on every rung
+_CONTEXT_CASES = [{"name": "qwen2ctx", "params": "qwen2ctx", "seed": 13},
+                  {"name": "intern_gram", "params": "intern", "seed": 14, "tier": "gram"}]
 CASES_2 = [{**c, "shape": (1, 2)} for c in
            [{"name": "yi_program", "params": "yi", "seed": 1, "program": True}] + _BASE
-           + _VOCAB + [{"name": "gemma2_256", "params": "gemma2_256", "seed": 11}, _HUBERT64]]
-CASES_4 = [{**c, "shape": (1, 4)} for c in _BASE + _VOCAB + [_HUBERT64]] + [
+           + _VOCAB + [{"name": "gemma2_256", "params": "gemma2_256", "seed": 11}, _HUBERT64]
+           + _CONTEXT_CASES]
+CASES_4 = [{**c, "shape": (1, 4)} for c in _BASE + _VOCAB + [_HUBERT64] + _CONTEXT_CASES] + [
     {"name": "yi_program_dp", "params": "yi", "seed": 1, "program": True, "shape": (2, 2)},
     {"name": "dbrx_dp", "params": "dbrx", "seed": 7, "moe_groups": 2, "shape": (2, 2)},
-] + [{**c, "name": c["name"] + "_dp", "shape": (2, 2)} for c in _VOCAB]
+] + [{**c, "name": c["name"] + "_dp", "shape": (2, 2)} for c in _VOCAB + _CONTEXT_CASES]
 for _c in CASES_2 + CASES_4:
     _c["arch"], _, _c["extra"] = ARCHS[_c["params"]]
 
@@ -264,20 +275,42 @@ def test_tp_training_matches_reference_and_whole_run(tp_runs, world, name):
 @pytest.mark.parametrize("world,name", IDS)
 def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
     """The spies' head counts and widths on every rank, the split and whole
-    sublayers counted per forward, the block entries' gathered bytes."""
+    sublayers counted per forward, the block entries' gathered bytes.
+    Context-parallel attention: every head over the rank's ``SEQ/T`` query
+    rows at offset ``r SEQ/T`` against the keys up to its last row, and
+    per layer of a forward one all-to-all each way of ``B SEQ H hd/T``
+    values and one all-gather of k and v (``2 B SEQ KV hd``), as the spies
+    and ``context_parallel_counts`` see them."""
     case = tp_runs["cases"][(world, name)]
     cfg = _cfgs(case)[0]
     data, t = case["shape"]
     plan = ShardingPlan(mesh=abstract_mesh(case["shape"], ("data", "model")), tp="model")
-    splits = [sharding.tp_split(cfg, p, plan) for p in range(cfg.period)]
+    splits = [sharding.tp_split(cfg, p, plan, SEQ) for p in range(cfg.period)]
     assert all(s.size == t for s in splits)
-    heads = {(cfg.num_heads // t, cfg.num_kv_heads // t if s.attn == "local" else 1)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    heads = {(h, kv) if s.attn == "context" else (h // t, kv // t if s.attn == "local" else 1)
              for s in splits if s.attn}
     shared = {s.attn for s in splits if s.attn} == {"shared"}
-    assert shared == (t % cfg.num_kv_heads == 0 and cfg.num_kv_heads < t)
+    assert shared == (h % t == 0 and t % kv == 0 and kv < t)
+    context = {s.attn for s in splits if s.attn} == {"context"}
+    assert context == (h % t != 0 and name.startswith(("qwen2ctx", "intern")))
+    st = SEQ // t
     for r in range(world):
         g = tp_runs["got"][world][r]["tp_train"][name]
         assert set(map(tuple, g["heads"])) == heads
+        rank = r % t  # the model axis is the rung's last
+        if context:
+            assert set(map(tuple, g["rows"])) == {(st, rank * st, (rank + 1) * st)}, g["rows"]
+            n = 2 * SEQ * h * hd // t * 4  # the forward's batch of 2 sequences, float32
+            want = [("all-to-all", n), ("all-gather", 2 * 2 * SEQ * kv * hd * 4),
+                    ("all-to-all", n)] * cfg.num_layers
+            assert [tuple(c) for c in g["context_colls"]] == want, g["context_colls"]
+            cp = g["cp_counts"]
+            calls = _micro(case, g) * cfg.num_layers * (2 if case.get("tier") == "gram" else 1)
+            assert {k: c["calls"] for k, c in cp.items()} == dict.fromkeys(cp, calls), cp
+        else:
+            assert set(map(tuple, g["rows"])) == {(SEQ, 0, SEQ)}, g["rows"]
+            assert not g["context_colls"]
         assert set(g["ffn"]) == ({cfg.d_ff // t} if any(s.ffn == "dense" for s in splits)
                                  else set())
         assert set(g["moe"]) == ({cfg.d_ff // t} if any(s.ffn == "moe" for s in splits)
@@ -289,7 +322,8 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
         (want_split if cfg.vocab_size % t == 0 else want_whole)["head"] = calls
         for layer in range(cfg.num_layers):
             s = splits[layer % cfg.period]
-            for kind in (["attn"] if s.attn else []) + ([s.ffn] if s.ffn else []):
+            attn = [] if not s.attn else ["attn_context" if s.attn == "context" else "attn"]
+            for kind in attn + ([s.ffn] if s.ffn else []):
                 want_split[kind] = want_split.get(kind, 0) + micro
             for kind in s.whole:
                 want_whole[kind] = want_whole.get(kind, 0) + micro
@@ -383,10 +417,16 @@ def test_vocab_parallel_xent_matches_whole(tp_runs):
 
 @pytest.mark.slow
 def test_copy_and_reduce_gradcheck(tp_runs):
+    """``gradcheck`` on every rank of ``copy_to_group`` / ``reduce_from_group``
+    around a rank's own map, and around the context-parallel exchanges: the
+    q and out all-to-alls, and the k/v all-gather whose backward sums over
+    tp (a slice-own backward fails it)."""
     for world, shapes in ((2, SHAPES_2), (4, SHAPES_4)):
         for r in range(world):
             got = tp_runs["got"][world][r]["tp_gradcheck"]
-            assert got == {"x".join(map(str, s)): True for s in shapes}, (world, r, got)
+            want = {"x".join(map(str, s)) + kind: True for s in shapes
+                    for kind in ("", " all-to-all", " k/v all-gather")}
+            assert got == want, (world, r, got)
 
 
 @pytest.mark.slow
