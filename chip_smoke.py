@@ -242,11 +242,12 @@ MB L2.
      losses and parameters to the bit; (b) gloo at a world of two on the
      one card: the same encoder data-parallel against one process (losses
      within 1e-5 relative, parameters within 1e-5), then hubert-xlarge at
-     full width (48 layers, bf16) through ``for_lm(dp_size=2)``, 2
+     full width **cut to 24 of 48 layers** (all 48 before phase 33 joined;
+     bf16) through ``for_lm(dp_size=2)``, 2
      sequences of 1024 frames per rank in each microbatch, global batch 8
      then 16 under a DiveBatch program (a tick every 2 steps, delta 16), 4
      steps: finite losses, equal parameter checksums on both ranks at every
-     step, exactly 96 chunk, 48 dq and 48 dk/dv launches per microbatch on
+     step, exactly 48 chunk, 24 dq and 24 dk/dv launches per microbatch on
      each rank, all on the tensor cores; step ms by batch, all-reduce ms and
      bytes a step, peak memory per rank; (c) phase 10's cell with each pod
      a rank (4 virtual devices each) through ``run_supervised(lose_pod=
@@ -342,7 +343,8 @@ MB L2.
      scan's share of a chunk, the peak beside its reckoning; (b)
      falcon-mamba widths **cut to 4 of 64 layers**, S 4096, micro batch 2,
      remat (each layer and each scan chunk checkpointed), ``for_lm`` on the
-     moment tier, DiveBatch (m0 2, m_max 4, granule 2), 4 steps: finite losses, step
+     moment tier, DiveBatch (m0 2, m_max 4, granule 2), 3 steps (4 before
+     phase 33 joined): finite losses, step
      ms, model FLOP/s (6 x the products' parameters x tokens), the scan's
      share of a step, the peak beside its reckoning; (c) jamba-v0.1-52b
      **cut to 8 of 32 layers** (one period: 13.30 B parameters, 24.77 GiB;
@@ -486,8 +488,9 @@ MB L2.
 
  32. context-parallel attention in tensor-parallel training, on 4 gloo
      ranks of a world of their own sharing the card: internvl2-1b at full
-     width and depth (24 layers, d_model 896, 14/2 heads of hd 64, d_ff
-     4864, V 151655, the embedding frontend; bf16, remat) on a ``(data 1,
+     width **cut to 12 of 24 layers** (all 24 before phase 33 joined; d_model
+     896, 14/2 heads of hd 64, d_ff 4864, V 151655, the embedding frontend;
+     bf16, remat) on a ``(data 1,
      model 4)`` rung, B 2, S 2048: 4 does not divide the 14 heads, so each
      rank projects its 224 q and 32 k/v columns, one all-to-all trades the
      q columns for its 512 query rows of every head, one all-gather joins
@@ -517,6 +520,33 @@ MB L2.
      ``chunk_attention|flash_dq|flash_dkv (context-parallel rank 3 of 4:
      ...)`` beside SDPA with an explicit boolean mask; their launches are
      phase 32's at the offset form.
+ 33. the Mamba mixers split over the tensor-parallel ranks in training,
+     run within phase 25's gloo world (one spawn less) and reported after
+     phase 32: falcon-mamba-7b at full width (d 4096, d_inner 8192, d_state
+     16, dt_rank 256, V 65024) **cut to 4 of 64 layers**, bf16, remat, S
+     2048, micro batch 2, ssm_chunk 256, 3 moment-tier steps of
+     ``make_train_step`` on a ``(data 1, model 2)`` rung of the 2 gloo ranks
+     sharing the card: each mixer on the rank's 4096 channels
+     (``models/ssm.py::mamba_apply_tp``: one exchange over tp for its
+     ``[x_t | z_t]`` rows of ``in_proj``, ``x_proj``'s partial summed over tp
+     in float32 with a summed backward, the scan on its channels, its rows
+     of ``out_proj`` and one all-reduce), the embedding's d and the head's V
+     split.  Against the same run on one process with whole state: losses
+     and ``sq_norm_sum`` within 1e-3 relative, the gathered parameters
+     within 1e-3; each rank's resident bytes equal to the reckoning; the
+     scan seeing 4096 channels and the mixers' products ``in_proj``'s (8192,
+     4096) rows, never (16384, 4096); ``tp_counts`` every mixer, the
+     embedding and the head split, nothing whole; the mixers' collectives a
+     step exactly the reckoning (``ssm.collective_counts``: the
+     exchange and the ``x_proj`` all-reduce twice a mixer, the forward's and
+     the remat recompute's, the ``out_proj`` all-reduce once, the exchange
+     back once and two ``tp.copy`` all-reduces in the backward); no kernel
+     launch (no attention).  Printed: step ms beside one process's, the
+     mixers' collectives by kind (calls, MB, ms; ``MixerClock``) and every
+     collective by kind, each rank's peak.
+
+The line before the kernels' JSON line gives each phase's wall seconds,
+header to header (30, 31 and 33 run inside 25 and 28).
 
 Phase 3 also holds the dense group's new forms at their path's shape and
 times them (records ``chunk_attention (gemma2 local: window 4096, softcap
@@ -618,7 +648,12 @@ NO_PSGN = {"psgn_direct": 0, "psgn_gram": 0, "psgn_fused": 0, "psgn_split": 0,
 T0 = time.perf_counter()
 
 
+#: (phase number, seconds since the start) of each phase header
+PHASE_STARTS: list[tuple[str, float]] = []
+
+
 def phase(name: str) -> None:
+    PHASE_STARTS.append((name.split(" ", 1)[0].rstrip("."), time.perf_counter() - T0))
     print(f"\n== {name} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
@@ -3497,6 +3532,9 @@ SMALL_SEQ, SMALL_STEPS = 128, 4
 # random frames) takes the batch from 8 to the cap 16 at the first tick
 DP_WORLD, DP_MICRO, DP_M0, DP_M_MAX, DP_DELTA, DP_STEPS = 2, 4, 8, 16, 16.0, 4
 DP_DEADLINE_S = 600
+# 16b's depth: 24 of hubert-xlarge's 48 layers since phase 33 joined (all
+# 48 before), so that the script keeps inside its limit
+DP_HUBERT_LAYERS = 24
 
 
 def small_encoder_run(dev, plan, micro_batch: int) -> dict:
@@ -3575,7 +3613,7 @@ def rank_world_one(dev, args) -> dict:
 
 def rank_hubert_dp(dev) -> dict:
     """16b, hubert-xlarge at full width, data-parallel over the ranks."""
-    cfg = HUBERT.replace(attn_impl="pallas")
+    cfg = HUBERT.replace(num_layers=DP_HUBERT_LAYERS, attn_impl="pallas")
     plan = data_plan(dev)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -3811,7 +3849,7 @@ def scale_out_phase(pod_final: dict) -> dict[str, dict]:
     checks = [[s["checksum"] for s in h["steps"]] for h in hub.values()]
     if any(c != checks[0] for c in checks):
         raise AssertionError(f"the replicas differ: parameter checksums {checks}")
-    layers = HUBERT.num_layers
+    layers = DP_HUBERT_LAYERS
     for r, h in hub.items():
         if not all(np.isfinite(s["loss"]) for s in h["steps"]):
             raise AssertionError(f"{tags[r]} non-finite loss {h['steps']}")
@@ -4590,7 +4628,8 @@ FALCON = get_config("falcon-mamba-7b")
 JAMBA = get_config("jamba-v0.1-52b")
 # 21a's long prompt (tokens), 21b's cut and run, 21c's depth (one period)
 FALCON_PROMPT = 8192
-FALCON_TRAIN_LAYERS, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 4, 4096, 4
+# 3 steps since phase 33 joined (4 before): the script keeps inside its limit
+FALCON_TRAIN_LAYERS, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 4, 4096, 3
 JAMBA_SERVE_LAYERS = 8
 
 
@@ -5478,7 +5517,7 @@ def card_restore_one(device, root: str) -> float:
 
 
 def rank_sharded(dev, args) -> dict:
-    """25a, 25c, 25d, 26 and 30 on the ranks of one gloo world."""
+    """25a, 25c, 25d, 26, 30 and 33 on the ranks of one gloo world."""
     plan = data_plan(dev)
     out = {"backend": dist.get_backend(), "yi": rank_shard_yi(dev, plan, args["yi_whole"])}
     free()
@@ -5492,6 +5531,10 @@ def rank_sharded(dev, args) -> dict:
     free()
     dist.barrier()
     out["tp"] = rank_tp(dev, {"whole": args["tp_whole"]})
+    # phase 33's, reported after phase 32
+    free()
+    dist.barrier()
+    out["mamba_tp"] = rank_mamba_tp(dev, {"whole": args["mamba_whole"]})
     return out
 
 
@@ -5570,12 +5613,17 @@ def sharded_phase(dev: str = "cuda") -> dict[str, dict]:
               f"({time.perf_counter() - t0:.1f} s with the spawn)")
         tp_whole_path = os.path.join(root, "yi_tp_whole.pt")
         PHASE30["one"] = tp_one_process(tp_whole_path, dev)
+        mamba_whole_path = os.path.join(root, "falcon_tp_whole.pt")
+        t0 = time.perf_counter()
+        PHASE33["one"] = mamba_tp_one_process(mamba_whole_path, dev)
+        PHASE33["one_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         res = spawn_ranks("sharded", "gloo", SHARD_WORLD,
                           {"yi_whole": yi_whole_path, "ckpt_dir": root,
-                           "tp_whole": tp_whole_path})
+                           "tp_whole": tp_whole_path, "mamba_whole": mamba_whole_path})
         spawn_s = time.perf_counter() - t0
         PHASE30["res"] = {r: res[r].pop("tp") for r in res}
+        PHASE33["res"] = {r: res[r].pop("mamba_tp") for r in res}
         restored = card_restore_one(dev, root)
         same_files = all(
             open(os.path.join(root, "sharded", "step_0000000002", k, f), "rb").read()
@@ -6671,11 +6719,12 @@ def tp_serve_phase(phase28: dict) -> dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 INTERN = get_config("internvl2-1b")
-# internvl2-1b at full width and depth on a (data 1, model 4) rung of 4 gloo
-# ranks sharing the card: 4 is the smallest T its 14 heads do not divide,
-# and it divides H hd = 896, KV hd = 128 and S
+# internvl2-1b at full width on a (data 1, model 4) rung of 4 gloo ranks
+# sharing the card: 4 is the smallest T its 14 heads do not divide, and it
+# divides H hd = 896, KV hd = 128 and S; 12 of its 24 layers since phase 33
+# joined (all 24 before), so that the script keeps inside its limit
 CP_WORLD, CP_SEQ, CP_MICRO, CP_STEPS, CP_GRAM_STEPS = 4, 2048, 2, 3, 2
-CP_LAYERS = INTERN.num_layers
+CP_LAYERS = 12
 CP_SEED = 7
 #: the context-parallel collectives of a forward (``transformer.
 #: context_parallel_counts``' kinds)
@@ -7152,6 +7201,271 @@ def cp_phase() -> tuple[dict[str, dict], list[dict]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 33: the Mamba mixers split over the tensor-parallel ranks in training
+# ---------------------------------------------------------------------------
+
+# falcon-mamba-7b at full width, 4 of 64 layers, on a (data 1, model 2) rung
+# of 2 gloo ranks sharing the card (each its 4096 of the 8192 channels); its
+# ranks run within phase 25's gloo world (one spawn less), its one-process
+# run in the parent before that spawn
+MAMBA_TP_WORLD, MAMBA_TP_LAYERS, MAMBA_TP_SEQ, MAMBA_TP_MICRO = 2, 4, 2048, 2
+MAMBA_TP_CHUNK, MAMBA_TP_STEPS, MAMBA_TP_SEED = 256, 3, 9
+#: the mixers' collectives (``ssm.collective_counts``' kinds)
+MAMBA_TP_KINDS = {"in_proj_exchange": "in_proj exchange",
+                  "x_proj_all_reduce": "x_proj all-reduce",
+                  "out_proj_all_reduce": "out_proj all-reduce",
+                  "in_proj_exchange_back": "exchange back",
+                  "copy_back": "tp.copy backward"}
+#: phase 33's one-process run and its ranks' results
+PHASE33: dict = {}
+
+
+def mamba_tp_cfg():
+    return FALCON.replace(num_layers=MAMBA_TP_LAYERS, ssm_chunk=MAMBA_TP_CHUNK, remat=True)
+
+
+def mamba_tp_batch(cfg, i: int) -> dict:
+    return TokenStream(cfg.vocab_size, seed=MAMBA_TP_SEED).batch(i, MAMBA_TP_MICRO,
+                                                                 MAMBA_TP_SEQ)
+
+
+def mamba_tp_one_process(path: str, dev: str = "cuda") -> dict:
+    """33's reference in the parent: the run on one process with whole
+    state (``make_train_step``, the moment tier, one microbatch a step);
+    its final parameters to ``path``."""
+    cfg = mamba_tp_cfg()
+    opt = sgd(momentum=0.9)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state, step = init_state(params, opt), make_train_step(cfg, opt, 1)
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"loss": [], "ms": []}
+    for i in range(MAMBA_TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, mamba_tp_batch(cfg, i), TRAIN_LR)
+        rec["loss"].append(float(metrics["loss"]))
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+    rec["sq_norm_sum"] = state.div_state.sq_norm_sum.item()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save({n: p.detach().cpu() for n, p in params.named_parameters()}, path)
+    del state, params, step
+    free()
+    return rec
+
+
+class MixerClock:
+    """Times the channel-parallel mixers' collectives by kind between two
+    synchronisations of the card: the ``in_proj`` exchange and its inverse
+    (``dist.plan.permute_blocks_dim0``, told apart by the counts each
+    carries), and the tensor-parallel all-reduces (``dist.plan.
+    _tp_all_reduce``): ``tp.copy``'s backward by the mixers' counts, the
+    forward all-reduces by type (``x_proj``'s sum float32, ``out_proj``'s in
+    the compute type: falcon-mamba has no other forward all-reduce over
+    tp)."""
+
+    def __init__(self):
+        from repro_torch.dist import plan as plan_mod
+
+        self.mod, self.ms = plan_mod, dict.fromkeys(MAMBA_TP_KINDS, 0.0)
+        self.inner = (plan_mod.permute_blocks_dim0, plan_mod._tp_all_reduce)
+        exchange, reduce = self.inner
+        counts = ssm._TP_COUNTS
+
+        def timed(kind, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            if kind is not None:
+                self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def spy_exchange(x, perm, mesh, axes, c=None):
+            kind = "in_proj_exchange" if c is counts["in_proj_exchange"] else \
+                "in_proj_exchange_back"
+            return timed(kind, exchange, x, perm, mesh, axes, c)
+
+        def spy_reduce(x, group, c=None):
+            if c is counts["copy_back"]:
+                kind = "copy_back"
+            elif c is None:
+                kind = "x_proj_all_reduce" if x.dtype == torch.float32 else \
+                    "out_proj_all_reduce"
+            else:
+                kind = None
+            return timed(kind, reduce, x, group, c)
+
+        plan_mod.permute_blocks_dim0, plan_mod._tp_all_reduce = spy_exchange, spy_reduce
+
+    def snapshot(self) -> dict:
+        return dict(self.ms)
+
+    def close(self) -> None:
+        self.mod.permute_blocks_dim0, self.mod._tp_all_reduce = self.inner
+
+
+def rank_mamba_tp(dev, args) -> dict:
+    """33 on a rank: falcon-mamba-7b on the (data 1, model 2) rung, each
+    mixer on the rank's 4096 channels, the embedding's d and the head's V
+    split: ``MAMBA_TP_STEPS`` moment-tier steps; per step its ms, the
+    collectives by kind and the mixers' by kind (calls, bytes, ms); the
+    channels the scan saw and the ``in_proj`` rows the product read."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_plan, make_production_mesh
+
+    cfg = mamba_tp_cfg()
+    opt = sgd(momentum=0.9)
+    plan = make_plan(make_production_mesh(device=dev, tp=MAMBA_TP_WORLD))
+    params = place(tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), plan)
+    state, step = init_state(params, opt), make_train_step(cfg, opt, 1, plan=plan)
+    tp = sharding.tensor_parallel(sharding.layout_of(params))
+    clock, mixer = CollectiveClock(), MixerClock()
+    scan, sdense, seen, weights = ssm._scan, ssm.dense, set(), set()
+
+    def spy_scan(layer, h, dt, *a):
+        seen.add((dt.shape[-1], layer.A_log.shape[0], h.shape[1]))
+        return scan(layer, h, dt, *a)
+
+    def spy_dense(x, w, *a, **kw):
+        weights.add(tuple(w.shape))
+        return sdense(x, w, *a, **kw)
+
+    ssm._scan, ssm.dense = spy_scan, spy_dense
+    steps, t0 = [], time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tf.reset_tp_counts()
+    try:
+        for i in range(MAMBA_TP_STEPS):
+            before, mix0, mc0 = clock.snapshot(), mixer.snapshot(), ssm.collective_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, mamba_tp_batch(cfg, i), TRAIN_LR)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            mix1, mc1 = mixer.snapshot(), ssm.collective_counts()
+            steps.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t1),
+                          "coll": clock_delta(before, clock.snapshot()),
+                          "mixer": {k: {"calls": mc1[k]["calls"] - mc0[k]["calls"],
+                                        "bytes": mc1[k]["bytes"] - mc0[k]["bytes"],
+                                        "ms": mix1[k] - mix0[k]} for k in MAMBA_TP_KINDS}})
+        rec = {"steps": steps, "tp_counts": tf.tp_counts(), "tp_rank": tp.rank,
+               "launches": kernels.launch_counts(),
+               "seen": sorted(seen), "weights": sorted(weights),
+               "sq_norm_sum": state.div_state.sq_norm_sum.item(), "bytes": state_bytes(state),
+               "params": sum(p.numel() for p in state.params.parameters()),
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    finally:
+        ssm._scan, ssm.dense = scan, sdense
+        mixer.close()
+        clock.close()
+    whole = torch.load(args["whole"]) if dist.get_rank() == 0 else None
+    gaps = {}
+    for n, w in whole_params(state.params).items():
+        if whole is not None:
+            gaps[n] = (w.float().cpu() - whole[n].float()).abs().max().item()
+    rec["param_gaps"] = gaps
+    rec["wall_s"] = time.perf_counter() - t0
+    del state, params, step, whole
+    return rec
+
+
+def mamba_tp_phase() -> dict[str, dict]:
+    """Phase 33, from the runs made within phase 25 (its one-process run in
+    the parent, its ranks in phase 25's gloo world): checks and prints
+    them; returns nothing launched (falcon-mamba runs no Pallas
+    counterpart), as the path's counts."""
+    cfg = mamba_tp_cfg()
+    layers, t = cfg.num_layers, MAMBA_TP_WORLD
+    d, d_inner = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    c = d_inner // t
+    phase(f"33. the Mamba mixers split over {t} tensor-parallel gloo ranks sharing the card: "
+          f"falcon-mamba-7b at full width (d {d}, d_inner {d_inner}, d_state "
+          f"{cfg.ssm_state}, dt_rank {cfg.dt_rank}, V {cfg.vocab_size}) and "
+          f"{layers} of {FALCON.num_layers} layers on a (data 1, model {t}) rung, S "
+          f"{MAMBA_TP_SEQ}, micro batch {MAMBA_TP_MICRO}, ssm_chunk {MAMBA_TP_CHUNK}, remat, "
+          f"{MAMBA_TP_STEPS} moment-tier steps; each rank's {c} channels, the embedding's d "
+          f"and the head's V split (run within phase 25's gloo world)")
+    mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, t, tp_plan_abstract())
+    one, res = PHASE33["one"], dict(sorted(PHASE33["res"].items()))
+    print(f"  one process, whole state: losses {[round(x, 5) for x in one['loss']]}, step ms "
+          f"{[round(x, 1) for x in one['ms']]}; sq_norm_sum {one['sq_norm_sum']:.6e}; peak "
+          f"{one['peak_gib']:.2f} GiB")
+    dt_rank = cfg.dt_rank
+    split = {"tp_split": {"embed": MAMBA_TP_STEPS, "mamba": layers * MAMBA_TP_STEPS,
+                          "head": MAMBA_TP_STEPS}, "tp_whole": {}}
+    for rk, y in res.items():
+        tag = f"[gloo, world {t}, rank {rk}]"
+        if y["bytes"] != mine or y["params"] != mine_params:
+            raise AssertionError(f"{tag} holds {y['bytes']} bytes ({y['params']} parameters), "
+                                 f"reckoned {mine} ({mine_params})")
+        losses = [x["loss"] for x in y["steps"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one["loss"]))
+        sq = abs(y["sq_norm_sum"] - one["sq_norm_sum"]) / one["sq_norm_sum"]
+        if rel > SHARD_LOSS_RTOL or sq > SHARD_LOSS_RTOL:
+            raise AssertionError(f"{tag} losses {losses} sq_norm_sum {y['sq_norm_sum']} "
+                                 f"against {one}")
+        gap = max(y["param_gaps"].values()) if y["param_gaps"] else 0.0
+        if rk == 0 and gap > SHARD_PARAM_ATOL:
+            worst = sorted(y["param_gaps"].items(), key=lambda kv: -kv[1])[:6]
+            raise AssertionError(f"{tag} gathered parameters {gap:.3e} from the one-process "
+                                 f"run's (tol {SHARD_PARAM_ATOL}): {worst}")
+        if y["tp_counts"] != split or any(y["launches"].values()):
+            raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split}; "
+                                 f"launches {y['launches']} (no attention: none)")
+        # the scan over the rank's channels; in_proj's [x_t | z_t] rows, never whole
+        if [tuple(s) for s in y["seen"]] != [(c, c, c)] \
+                or (2 * c, d) not in map(tuple, y["weights"]) \
+                or (2 * d_inner, d) in map(tuple, y["weights"]):
+            raise AssertionError(f"{tag} the scan saw {y['seen']} channels, the mixers' "
+                                 f"products weights {y['weights']}")
+        # a step: the forward and the remat recompute issue the exchange and
+        # the x_proj sum, the forward alone the out_proj all-reduce; the
+        # backward one exchange back and two tp.copy all-reduces a mixer.
+        # At T 2 each rank sends one of its two c-row blocks (the other is
+        # its own)
+        sent, tokens = c * d * 2, MAMBA_TP_MICRO * MAMBA_TP_SEQ
+        want = {"in_proj_exchange": (2 * layers, 2 * layers * sent),
+                "x_proj_all_reduce": (2 * layers, 2 * layers * tokens * (dt_rank + 2
+                                                                        * cfg.ssm_state) * 4),
+                "out_proj_all_reduce": (layers, layers * tokens * d * 2),
+                "in_proj_exchange_back": (layers, layers * sent),
+                "copy_back": (2 * layers, layers * tokens * (d * 2 + (dt_rank + 2
+                                                                      * cfg.ssm_state) * 4))}
+        for i, x in enumerate(y["steps"]):
+            got = {k: (v["calls"], v["bytes"]) for k, v in x["mixer"].items()}
+            if got != want:
+                raise AssertionError(f"{tag} step {i + 1} the mixers' collectives {got}, "
+                                     f"expected {want}")
+        print(f"  {tag} channels [{y['tp_rank'] * c}, {(y['tp_rank'] + 1) * c}) of "
+              f"{d_inner}: the scan saw {c} channels (dt, A_log, h), in_proj's [x_t | z_t] "
+              f"rows ({2 * c}, {d}) and never ({2 * d_inner}, {d}); resident state "
+              f"{y['bytes'] / 1e9:.3f} GB = the reckoning ({100 * y['bytes'] / whole_bytes:.1f}% "
+              f"of the whole {whole_bytes / 1e9:.3f} GB), {y['params'] / 1e9:.4f} B "
+              f"parameters; peak {y['peak_gib']:.2f} GiB (one process {one['peak_gib']:.2f})")
+        for i, x in enumerate(y["steps"]):
+            cl = x["coll"]
+            coll_ms = sum(cl["ms"][n] for n in COLLECTIVES)
+            mix = "; ".join(f"{what} {x['mixer'][k]['calls']} calls, "
+                            f"{x['mixer'][k]['bytes'] / 1e6:.3f} MB, {x['mixer'][k]['ms']:.1f} ms"
+                            for k, what in MAMBA_TP_KINDS.items())
+            print(f"    step {i + 1}: loss {x['loss']:.5f} (one process {one['loss'][i]:.5f}), "
+                  f"{x['ms']:.1f} ms (one process {one['ms'][i]:.1f}); the mixers' "
+                  f"collectives: {mix}; all collectives {coll_ms:.1f} ms "
+                  f"({100 * coll_ms / x['ms']:.1f}%): {coll_line(cl)}")
+        print(f"    losses within {rel:.3e} relative, sq_norm_sum {y['sq_norm_sum']:.6e} "
+              f"within {sq:.3e} (tol {SHARD_LOSS_RTOL})"
+              + (f", gathered parameters within {gap:.3e} (tol {SHARD_PARAM_ATOL})"
+                 if rk == 0 else "")
+              + f"; tp_counts {y['tp_counts']}")
+    print(f"  phase 33: its one-process run {PHASE33['one_s']:.1f} s, its ranks "
+          f"{max(y['wall_s'] for y in res.values()):.1f} s of phase 25's spawn")
+    free()
+    return {"Mamba tensor-parallel training (ranks)": {
+        k: sum(res[rk]["launches"][k] for rk in res) for k in res[0]["launches"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 29: the dry run's plan against the card
 # ---------------------------------------------------------------------------
 
@@ -7302,7 +7616,8 @@ def main() -> int:
 
 
 def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
-    """Phases 3-32, then the kernels' JSON line and the last line."""
+    """Phases 3-33, then each phase's wall seconds, the kernels' JSON line
+    and the last line."""
     records = kernels_phase()
     serve_counts = full_width_phase()
     card_vs_cpu_phase()
@@ -7336,6 +7651,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
     tp_serve_paths = tp_serve_phase(PHASE31.get("phase28", {}))
     cp_paths, cp_records = cp_phase()
     records += cp_records
+    mamba_tp_paths = mamba_tp_phase()
     # launches on the main paths: serving (phase 4), training on the moment
     # tier (phase 6), on the gram tier (phase 8), the standalone per-sample
     # norms (phase 8, last), the pod slice (phase 10) and the resumed runs
@@ -7346,7 +7662,7 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
              "checkpoint-resume pod": pod_resume_counts,
              "pod training (ranks)": rank_paths["pod training (ranks)"],
              "exact-tier training": exact_counts, **sharded_paths, **tp_paths,
-             **tp_serve_paths, **cp_paths,
+             **tp_serve_paths, **cp_paths, **mamba_tp_paths,
              "elastic serving (local ladder)": elastic_local,
              "elastic serving (ranks)": elastic_ranks}
     encoder_paths["exact-tier encoder"] = exact_encoder_counts
@@ -7363,6 +7679,9 @@ def phases(smi: str, pod_plan: subprocess.Popen, pod_dir: str) -> int:
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was launched on no path")
     print("\n  launches by path: " + "; ".join(f"{k} {v}" for k, v in every.items()))
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - T0]
+    print("  phase wall seconds (header to header; 30, 31 and 33 ran inside 25 and 28): "
+          + ", ".join(f"{name} {end - t:.1f}" for (name, t), end in zip(PHASE_STARTS, ends)))
 
     print()
     print(smi)

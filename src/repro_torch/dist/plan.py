@@ -557,13 +557,19 @@ def all_to_all_dim0(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
-def _slice_own(t: torch.Tensor, dim: int, mesh, axes: AxisNames) -> torch.Tensor:
-    """This rank's chunk of ``t`` along ``dim`` over ``axes`` (no exchange)."""
-    axes = _axes(axes)
+def _shard_index(mesh, axes: tuple[str, ...]) -> int:
+    """This rank's shard position along ``axes``, in their order."""
     c = mesh.coords()
     k = 0
     for a in axes:
         k = k * mesh.shape[a] + c[a]
+    return k
+
+
+def _slice_own(t: torch.Tensor, dim: int, mesh, axes: AxisNames) -> torch.Tensor:
+    """This rank's chunk of ``t`` along ``dim`` over ``axes`` (no exchange)."""
+    axes = _axes(axes)
+    k = _shard_index(mesh, axes)
     n = math.prod(mesh.shape[a] for a in axes)
     return t.narrow(dim, k * (t.shape[dim] // n), t.shape[dim] // n).contiguous()
 
@@ -715,3 +721,75 @@ def all_to_all(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         return _AllToAll.apply(x, mesh, axes)
     return all_to_all_dim0(x, mesh, axes)
+
+
+@torch.no_grad()
+def permute_blocks_dim0(x: torch.Tensor, perm: Sequence[int], mesh, axes: AxisNames,
+                        counts: dict | None = None) -> torch.Tensor:
+    """``x`` holds this shard's ``m`` blocks along dim 0 of a whole of
+    ``n m`` blocks in shard order (shard ``k`` holds blocks ``[k m, (k+1)
+    m)``, ``n`` shards along ``axes``); returns blocks ``perm[k m : (k+1)
+    m]`` of the whole, in that order, for this shard ``k``.  One
+    ``all_to_all_single`` with split sizes: a block goes only to the shard
+    that takes it, and one a shard takes of its own stays put.  Counted in
+    ``counts`` (``{"calls", "bytes"}``: the bytes sent) when given."""
+    axes = _axes(axes)
+    group, n, order = mesh.axis_group(axes)
+    m = len(perm) // n
+    blocks = x.reshape(m, -1)
+    if n == 1:
+        return blocks[list(perm)].reshape(x.shape)
+    me = _shard_index(mesh, axes)
+    # slot i of the whole's new layout takes block perm[i]; both sides list a
+    # pair's blocks in slot order
+    sends = [[perm[i] % m for i in range(k * m, (k + 1) * m) if perm[i] // m == me]
+             for k in range(n)]
+    recvs = [[i - me * m for i in range(me * m, (me + 1) * m) if perm[i] // m == k]
+             for k in range(n)]
+    by_pos = list(range(n)) if order is None else _inverse(order)  # group position -> shard
+    out = blocks.new_empty(blocks.shape)
+    for i in recvs[me]:  # its own blocks stay
+        out[i] = blocks[perm[me * m + i] % m]
+    send = torch.cat([blocks[sends[k]].reshape(-1) for k in by_pos if k != me])
+    recv = blocks.new_empty(sum(len(recvs[k]) for k in range(n) if k != me) * blocks.shape[1])
+    size = blocks.shape[1]
+    _record("all-to-all", send, recv, group)
+    if counts is not None:
+        counts["calls"] += 1
+        counts["bytes"] += send.numel() * send.element_size()
+    dist.all_to_all_single(recv, send,
+                           output_split_sizes=[0 if k == me else len(recvs[k]) * size
+                                               for k in by_pos],
+                           input_split_sizes=[0 if k == me else len(sends[k]) * size
+                                              for k in by_pos], group=group)
+    got = iter(recv.view(-1, size))
+    for k in by_pos:
+        if k != me:
+            for i in recvs[k]:
+                out[i] = next(got)
+    return out.reshape(x.shape)
+
+
+class _PermuteBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, mesh, axes, counts, back_counts):
+        ctx.mesh, ctx.axes, ctx.counts = mesh, axes, back_counts
+        ctx.inverse = _inverse(list(perm))
+        return permute_blocks_dim0(x, perm, mesh, axes, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (permute_blocks_dim0(g.contiguous(), ctx.inverse, ctx.mesh, ctx.axes,
+                                    ctx.counts), None, None, None, None, None)
+
+
+def permute_blocks(x: torch.Tensor, perm: Sequence[int], mesh, axes: AxisNames,
+                   counts: dict | None = None, back_counts: dict | None = None
+                   ) -> torch.Tensor:
+    """:func:`permute_blocks_dim0` under autograd: the backward sends each
+    block's gradient back to the shard that held the block (the inverse
+    permutation), counted in ``back_counts``."""
+    perm = tuple(int(p) for p in perm)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _PermuteBlocks.apply(x, perm, mesh, axes, counts, back_counts)
+    return permute_blocks_dim0(x, perm, mesh, axes, counts)

@@ -54,8 +54,8 @@ Tensor-parallel compute: on a plan whose tp axes span T > 1 ranks,
 :func:`tp_split` says which sublayers of a block the training stack splits
 (attention heads, dense-FFN and expert widths, Megatron-style; attention
 context-parallel where T does not divide the heads but divides their
-widths and the length) and which compute whole on every tp rank; the
-shards stay those of the specs above.
+widths and the length; a Mamba mixer's ``d_inner`` channels) and which
+compute whole on every tp rank; the shards stay those of the specs above.
 A split block's entry gathers the fsdp axes only and keeps its split
 leaves' tp dim resident (:meth:`TpSplit.role`, :meth:`StateLayout.gather`);
 a leaf each tp rank uses only a part of (the one KV head a group of ranks
@@ -63,8 +63,9 @@ shares, a replicated bias) is gathered whole with its gradient summed over
 tp.  :func:`tensor_parallel` gives a rank its place on the tp axes and the
 two all-reduces (``dist.plan.copy_to_group``, ``reduce_from_group``).
 Serving splits the same way (:func:`serving_split`, which keeps
-context-parallel attention whole; :func:`serving_kv_heads`: the KV heads a
-tp rank computes are the ones its pool, rings and dense cache hold).
+context-parallel attention and the Mamba mixers whole;
+:func:`serving_kv_heads`: the KV heads a tp rank computes are the ones its
+pool, rings and dense cache hold).
 """
 
 from __future__ import annotations
@@ -395,6 +396,9 @@ _TP_RESIDENT = {
     "kv": ("attn.k.weight", "attn.v.weight"),
     "ffn": ("ffn.w_gate.weight", "ffn.w_up.weight", "ffn.w_in.weight", "ffn.w_out.weight",
             "ffn.w_gate", "ffn.w_up", "ffn.w_out"),
+    "mamba": ("mamba.in_proj.weight", "mamba.conv_kernel", "mamba.conv_bias",
+              "mamba.x_proj.weight", "mamba.dt_proj.weight", "mamba.A_log", "mamba.D",
+              "mamba.out_proj.weight"),
 }
 _TP_BIASES = ("attn.q.bias", "attn.k.bias", "attn.v.bias")
 
@@ -411,15 +415,18 @@ class TpSplit:
     query rows of every head, one all-gather over tp joins k and v whole,
     and the out all-to-all trades back before the rank's rows of ``o``), or
     None.  ``ffn``: "dense" or "moe" (each rank its ``ff/T`` columns of the
-    FFN or of every expert), or None.  ``whole``: the sublayers that
-    compute whole on every tp rank ("attn" where neither the heads nor
-    their widths and the length divide, "mamba", "dense" or "moe" where
-    ``ff`` does not divide, "moe_ep")."""
+    FFN or of every expert), or None.  ``ssm``: "channels" (a Mamba mixer
+    on the rank's ``d_inner/T`` channels, ``models/ssm.py::
+    mamba_apply_tp``), or None.  ``whole``: the sublayers that compute
+    whole on every tp rank ("attn" where neither the heads nor their
+    widths and the length divide, "mamba" where ``d_inner`` does not
+    divide, "dense" or "moe" where ``ff`` does not divide, "moe_ep")."""
 
     size: int
     attn: str | None = None
     ffn: str | None = None
     whole: tuple[str, ...] = ()
+    ssm: str | None = None
 
     def kv_heads(self, kv: int, rank: int) -> tuple[int, int]:
         """``(first, count)`` of the ``kv`` KV heads tp rank ``rank``
@@ -438,8 +445,14 @@ class TpSplit:
         tp dim stays on the rank), "partial" (gathered whole over tp, each
         rank using a part: its gradient is summed over tp), or None (the
         gather's default).  A replicated bias is "partial" under every
-        split: sliced by heads "local" and "shared", by columns
-        "context"."""
+        split: sliced by heads "local" and "shared", by columns "context",
+        by channels (``dt_proj``'s) "channels"; every other Mamba leaf is
+        "resident" there."""
+        if self.ssm is not None:
+            if name in _TP_RESIDENT["mamba"]:
+                return "resident"
+            if name == "mamba.dt_proj.bias":
+                return "partial"
         if self.attn is not None:
             if name in _TP_RESIDENT["attn"]:
                 return "resident"
@@ -459,18 +472,22 @@ def tp_split(cfg, pos: int, plan: ShardingPlan | None, seq: int | None = None) -
     heads when ``H % T == 0`` and ``KV % T == 0`` ("local") or ``T % KV ==
     0`` ("shared"); else context-parallel ("context") when T divides ``H
     hd``, ``KV hd`` and ``seq`` (the reference's ``attn_q`` spec: qwen2-7b's
-    28/4 and internvl2-1b's 14/2 heads at T 16); a dense FFN, or a MoE FFN
-    on ``moe_apply``, when ``ff % T == 0``.  A Mamba mixer and
-    ``moe_impl="ep"`` over several expert ranks compute whole, as does a
-    sublayer whose widths do not divide.  Serving takes
-    :func:`serving_split`."""
+    28/4 and internvl2-1b's 14/2 heads at T 16); a Mamba mixer by
+    channels ("channels") when ``d_inner % T == 0`` (the reference's specs
+    put ``d_inner`` on tp); a dense FFN, or a MoE FFN on ``moe_apply``,
+    when ``ff % T == 0``.  ``moe_impl="ep"`` over several expert ranks
+    computes whole, as does a sublayer whose widths do not divide.  Serving
+    takes :func:`serving_split`."""
     t = plan.tp_size if plan is not None and plan.tp else 1
     if t == 1:
         return TpSplit(1)
-    attn = ffn = None
+    attn = ffn = ssm = None
     whole = []
     if cfg.pattern[pos] == "mamba":
-        whole.append("mamba")
+        if cfg.ssm_expand * cfg.d_model % t == 0:
+            ssm = "channels"
+        else:
+            whole.append("mamba")
     else:
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         if h % t == 0 and (kv % t == 0 or t % kv == 0):
@@ -487,7 +504,7 @@ def tp_split(cfg, pos: int, plan: ShardingPlan | None, seq: int | None = None) -
             ffn = kind
         else:
             whole.append(kind)
-    return TpSplit(t, attn, ffn, tuple(whole))
+    return TpSplit(t, attn, ffn, tuple(whole), ssm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -540,11 +557,15 @@ def serving_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
     """:func:`tp_split` for serving: "context" attention computes whole
     (counted in ``whole``), since a decode step has one query row per
     sequence to split and context-parallel prefill is ROADMAP.md Queue A 5's
-    later item; every other split as in training."""
+    later item; so does a Mamba mixer, whose per-slot state holds every
+    channel (Mamba channels when serving: a later Queue A 5 item); every
+    other split as in training."""
     split = tp_split(cfg, pos, plan)
-    if split.attn != "context":
-        return split
-    return dataclasses.replace(split, attn=None, whole=("attn",) + split.whole)
+    if split.attn == "context":
+        split = dataclasses.replace(split, attn=None, whole=("attn",) + split.whole)
+    if split.ssm is not None:
+        split = dataclasses.replace(split, ssm=None, whole=("mamba",) + split.whole)
+    return split
 
 
 def serving_kv_heads(cfg, pos: int, plan: ShardingPlan | None, rank: int | None = None

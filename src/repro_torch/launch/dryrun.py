@@ -49,7 +49,11 @@ context-parallel as the reference's ``attn_q``/``attn_kv`` specs lay it
 out: each rank projects its ``H hd/T`` and ``KV hd/T`` columns, one
 all-to-all trades the q columns for its ``S/T`` query rows of every head,
 one all-gather joins k and v, and the out all-to-all trades back before
-its rows of ``o``.  What does not split runs whole on every tp rank.
+its rows of ``o``.  A Mamba mixer whose ``d_inner`` T divides runs on the
+rank's ``d_inner/T`` channels (``models/ssm.py::mamba_apply_tp``: one
+exchange of ``in_proj``'s rows over tp, ``x_proj``'s partial summed over
+tp, its rows of ``out_proj`` and one all-reduce).  What does not split
+runs whole on every tp rank.
 Prefill and decode (serving) split the same way (each rank computes its
 ``V/T`` logits, then one all-gather over tp), and hold the rank's KV heads only: ``KV/T`` of them, or where T ranks
 share a KV head that one whole (T/KV times the reference's layout, which

@@ -18,7 +18,8 @@ FFN runs unprobed (``models/moe.py::moe_apply`` in ``moe_groups`` groups),
 and ``0.01 *`` its layers' summed aux loss joins the loss when
 ``cfg.num_experts`` is set, as in ``transformer.loss_fn``.  A 'mamba'
 position runs its mixer unprobed (``models/ssm.py::mamba_apply`` over
-chunks of ``cfg.ssm_chunk``), then its FFN as any layer's.
+chunks of ``cfg.ssm_chunk``; under tp ``mamba_apply_tp`` on the rank's
+channels, as the training stack runs it), then its FFN as any layer's.
 
 The probe forward runs the plain dense attention lane
 (``models/attention.py::attention``) whatever ``cfg.attn_impl`` says, as
@@ -192,7 +193,7 @@ def _probed_block(cfg: ModelConfig, blk, x, r: int, p: int, positions, pdense, a
     once = tp is None or tp.rank == 0
     h = blk.norm(x)
     if kind == "mamba":
-        x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+        x = x + tf._mamba_sublayer(cfg, blk.mamba, h, tp, split)
     elif split is not None and split.attn == "context":
         ap = blk.attn
         window = cfg.window if kind == "attn_local" else None

@@ -32,6 +32,20 @@ scan.
 its bias, the raw ``conv_kernel`` (K, d_inner) and ``conv_bias``, and
 ``A_log`` (d_inner, d_state) and ``D`` kept in float32 whatever the
 model's type, so ``interop`` carries them without a rule of their own.
+
+Channel-parallel (``mamba_apply_tp``, tensor-parallel training): the SSM is
+diagonal over channels, so tp rank t of T runs the mixer on its ``c =
+d_inner/T`` channels ``[t c, (t+1) c)`` from the shards the reference's
+specs give it (``conv_kernel``, ``conv_bias``, ``A_log``, ``D``, the
+columns of ``x_proj`` and ``dt_proj``'s rows: those channels; ``out_proj``
+row-parallel).  Two collectives besides Megatron's pair around it:
+``in_proj``'s column shard holds the contiguous rows ``[2 t c, 2 (t+1)
+c)`` of ``[x | z]``, not the rank's channels, so one exchange over tp
+(``dist.plan.permute_blocks``) gives each rank its ``[x_t | z_t]`` rows;
+and ``x_proj`` contracts ``d_inner``, so each rank's partial ``(dt_in, B,
+C)`` is summed over tp in float32, with a backward that sums too (every
+rank's channels read the whole of it).  ``collective_counts`` counts them
+by kind.
 """
 
 from __future__ import annotations
@@ -43,7 +57,34 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.plan import permute_blocks
 from repro_torch.models.layers import dense, in_func_transform, silu
+
+#: the channel-parallel mixer's collectives, by kind (``collective_counts``): the
+#: forwards' ``in_proj`` exchange (by the bytes a rank sends), ``x_proj``
+#: all-reduce and ``out_proj`` all-reduce, and in the backward the exchange
+#: back and the all-reduces of ``tp.copy`` (the mixer's input and the summed
+#: ``x_proj``)
+TP_KINDS = ("in_proj_exchange", "x_proj_all_reduce", "out_proj_all_reduce",
+            "in_proj_exchange_back", "copy_back")
+_TP_COUNTS: dict[str, dict[str, int]] = {k: {"calls": 0, "bytes": 0} for k in TP_KINDS}
+
+
+def collective_counts() -> dict[str, dict[str, int]]:
+    """``{kind: {"calls", "bytes"}}`` of :data:`TP_KINDS` since the last
+    :func:`reset_collective_counts` (a remat recompute issues and counts
+    the forward's again)."""
+    return {k: dict(v) for k, v in _TP_COUNTS.items()}
+
+
+def reset_collective_counts() -> None:
+    for v in _TP_COUNTS.values():
+        v.update(calls=0, bytes=0)
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    _TP_COUNTS[kind]["calls"] += 1
+    _TP_COUNTS[kind]["bytes"] += t.numel() * t.element_size()
 
 
 class Mamba(nn.Module):
@@ -101,14 +142,27 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return out + bias.to(x.dtype)
 
 
-def _ssm_params(layer: Mamba, x: torch.Tensor):
+def _ssm_params(layer: Mamba, x: torch.Tensor, tp=None):
     """x (..., d_inner) -> (dt (..., d_inner), B (..., d_state), C (...,
-    d_state)), all float32; the softplus of dt in float32."""
+    d_state)), all float32; the softplus of dt in float32.  Under ``tp``
+    x holds the rank's ``c`` channels and the layer their shards: ``x_proj``'s
+    partial product summed over tp in float32 and cast once (it rounds as
+    the whole product does), behind ``tp.copy`` so that its gradient sums
+    too; ``dt`` of the rank's channels, with their part of the replicated
+    bias."""
     d_state = layer.A_log.shape[1]
     dt_rank = layer.dt_proj.in_features
-    proj = dense(x, layer.x_proj.weight)
+    bias = layer.dt_proj.bias
+    if tp is None:
+        proj = dense(x, layer.x_proj.weight)
+    else:
+        proj = tp.reduce(dense(x.float(), layer.x_proj.weight))
+        _count("x_proj_all_reduce", proj)
+        proj = tp.copy(proj, _TP_COUNTS["copy_back"]).to(x.dtype)
+        c = x.shape[-1]
+        bias = bias.narrow(0, tp.rank * c, c)
     dt_in, b, c = proj.split([dt_rank, d_state, d_state], dim=-1)
-    dt = dense(dt_in, layer.dt_proj.weight, layer.dt_proj.bias)
+    dt = dense(dt_in, layer.dt_proj.weight, bias)
     return F.softplus(dt.float()), b.float(), c.float()
 
 
@@ -131,13 +185,27 @@ def _scan_chunk(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
     return b, b[:, -1]
 
 
-def _inputs(layer: Mamba, x: torch.Tensor, conv_state: torch.Tensor | None = None):
+def channel_rows(w: torch.Tensor, tp) -> torch.Tensor:
+    """tp rank ``tp.rank``'s ``[x_t | z_t]`` rows (2c, d) of ``in_proj``'s
+    weight (2 d_inner, d) from its column shard ``w`` (rows ``[2 t c, 2
+    (t+1) c)``): cut the whole into 2T blocks of c rows, block j < T the x
+    of channels j, block T + j their z; rank t takes blocks t and T + t,
+    one exchange over tp (``dist.plan.permute_blocks``, its backward the
+    inverse), counted in ``collective_counts``."""
+    t = tp.size
+    perm = [b for r in range(t) for b in (r, t + r)]
+    return permute_blocks(w, perm, tp.mesh, tp.axes, _TP_COUNTS["in_proj_exchange"],
+                          _TP_COUNTS["in_proj_exchange_back"])
+
+
+def _inputs(layer: Mamba, x: torch.Tensor, conv_state: torch.Tensor | None = None, tp=None):
     """``in_proj``, the convolution (after ``conv_state``) and the SSM's
     parameters of x (B, L, d_model): (xi before the convolution, the gate
-    z, xi after it, dt, B, C)."""
-    xi, z = dense(x, layer.in_proj.weight).chunk(2, dim=-1)
+    z, xi after it, dt, B, C); under ``tp`` on the rank's channels."""
+    w = layer.in_proj.weight if tp is None else channel_rows(layer.in_proj.weight, tp)
+    xi, z = dense(x, w).chunk(2, dim=-1)
     xc = silu(_causal_conv(xi, layer.conv_kernel, layer.conv_bias, conv_state))
-    return (xi, z, xc) + _ssm_params(layer, xc)
+    return (xi, z, xc) + _ssm_params(layer, xc, tp)
 
 
 def _chunk_step(h: torch.Tensor, a: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -185,25 +253,50 @@ def mamba_apply(layer: Mamba, x: torch.Tensor, *, chunk: int = 256,
     gives what one full-length call gives.  ``remat`` checkpoints each chunk
     step where gradients are on.  Returns the output (B, L, d_model), and
     with ``return_state`` the final state too."""
+    out, h, xi_preconv = _mix(layer, x, chunk, remat, state)
+    if not return_state:
+        return out
+    dtype = x.dtype
+    k = layer.conv_kernel.shape[0]
+    if state is not None:  # a chunk shorter than K-1 still needs K-1 rows of history
+        xi_preconv = torch.cat([state["conv"].to(dtype), xi_preconv], dim=1)
+    return out, {"h": h, "conv": xi_preconv[:, -(k - 1):, :]}
+
+
+def _mix(layer: Mamba, x: torch.Tensor, chunk: int, remat: bool, state: dict | None = None,
+         tp=None):
+    """:func:`mamba_apply`'s body: (the output, the final ``h``, xi before
+    the convolution); under ``tp`` the rank's channels' partial output."""
     b, l, _ = x.shape
     dtype = x.dtype
     chunk = min(chunk, l)
     if l % chunk:
         raise ValueError(f"sequence {l} is not a multiple of the ssm chunk {chunk}")
     xi_preconv, z, xi, dt, bmat, cmat = _inputs(
-        layer, x, None if state is None else state["conv"])
+        layer, x, None if state is None else state["conv"], tp)
     d_inner, d_state = layer.A_log.shape
     h = (torch.zeros((b, d_inner, d_state), dtype=torch.float32, device=x.device)
          if state is None else state["h"].float())
     h, y = _scan(layer, h, dt, bmat, cmat, xi, chunk, remat)
     y = y.float() + layer.D * xi.float()
-    out = dense(y.to(dtype) * silu(z), layer.out_proj.weight)
-    if not return_state:
-        return out
-    k = layer.conv_kernel.shape[0]
-    if state is not None:  # a chunk shorter than K-1 still needs K-1 rows of history
-        xi_preconv = torch.cat([state["conv"].to(dtype), xi_preconv], dim=1)
-    return out, {"h": h, "conv": xi_preconv[:, -(k - 1):, :]}
+    return dense(y.to(dtype) * silu(z), layer.out_proj.weight), h, xi_preconv
+
+
+def mamba_apply_tp(layer: Mamba, x: torch.Tensor, tp, *, chunk: int = 256,
+                   remat: bool = False) -> torch.Tensor:
+    """:func:`mamba_apply` channel-parallel over ``tp``
+    (``dist.sharding.TensorParallel``; the module docstring): ``layer``
+    holds tp rank ``tp.rank``'s resident shards of its ``c = d_inner/T``
+    channels (``dist.sharding.TpSplit.role``; ``dt_proj``'s bias whole),
+    ``x`` (B, L, d_model) the normed input, the same on every tp rank.
+    ``tp.copy(x)``, the rank's ``[x_t | z_t]`` rows of ``in_proj``
+    (:func:`channel_rows`), the convolution, ``x_proj`` summed over tp, the
+    scan over its channels, its rows of ``out_proj``, then one all-reduce:
+    the whole output on every rank."""
+    out, _, _ = _mix(layer, tp.copy(x, _TP_COUNTS["copy_back"]), chunk, remat, tp=tp)
+    out = tp.reduce(out)
+    _count("out_proj_all_reduce", out)
+    return out
 
 
 def mamba_decode_init(batch: int, d_model: int, d_state: int, expand: int, conv_dim: int,

@@ -123,7 +123,16 @@ on the shards the specs give the rank (tp rank t of T):
     the last rank's rows see the most keys;
   * a dense FFN, and a MoE FFN on ``moe_apply``, when ``ff % T == 0``: the
     rank's ``ff/T`` columns (of every expert: the router stays replicated
-    and routes alike on every tp rank), then one all-reduce.
+    and routes alike on every tp rank), then one all-reduce;
+  * a Mamba mixer, when T divides ``d_inner``: the rank's ``c = d_inner/T``
+    channels ``[t c, (t+1) c)`` (``models/ssm.py::mamba_apply_tp``): one
+    exchange over tp turns its column shard of ``in_proj`` (rows ``[2 t c,
+    2 (t+1) c)`` of ``[x | z]``) into its ``[x_t | z_t]`` rows, the
+    convolution, ``A_log``, ``D`` and ``dt_proj``'s rows on its channels
+    (``dt_proj``'s replicated bias sliced behind ``copy_to_group``),
+    ``x_proj``'s partial product summed over tp with a backward that sums
+    too, the scan over its channels, its rows of ``out_proj``, then one
+    all-reduce.
 
 ``dist.plan.copy_to_group`` goes in front of each split sublayer's
 column-parallel products and ``reduce_from_group`` after its row-parallel
@@ -145,16 +154,17 @@ gradient whole:
     all-reduce) and its rows' dW (``_xent``).
 
 What does not split computes whole on every tp rank from leaves gathered
-whole, as without tp: the Mamba mixers (their ``in_proj`` shards the ``[x
-| z]`` halves, ``x_proj`` contracts ``d_inner``), ``moe_impl="ep"`` (the
-experts' ``ff`` gathered), a head whose V the tp ranks do not divide, and
-attention whose heads, widths or length the tp ranks do not divide.
-``tp_counts()`` counts, by kind, the sublayers the stack ran split
-(``tp_split``: "attn" by heads, "attn_context" context-parallel) and whole
-(``tp_whole``) on a tp plan, in training and in serving, and the input and
-the head per call; ``vocab_parallel_counts()`` the input's and the head's
-collectives, ``context_parallel_counts()`` the context-parallel
-exchanges; ROADMAP.md Queue A 5 lists the whole ones as still to port.
+whole, as without tp: ``moe_impl="ep"`` (the experts' ``ff`` gathered), a
+head whose V the tp ranks do not divide, attention whose heads, widths or
+length the tp ranks do not divide, and a Mamba mixer whose ``d_inner``
+they do not divide.  ``tp_counts()`` counts, by kind, the sublayers the
+stack ran split (``tp_split``: "attn" by heads, "attn_context"
+context-parallel, "mamba" by channels) and whole (``tp_whole``) on a tp
+plan, in training and in serving, and the input and the head per call;
+``vocab_parallel_counts()`` the input's and the head's collectives,
+``context_parallel_counts()`` the context-parallel exchanges,
+``ssm.collective_counts()`` the channel-parallel mixers'; ROADMAP.md Queue
+A 5 lists the whole ones as still to port.
 
 Tensor-parallel serving (``prefill_step``, ``decode_step``,
 ``prefill_chunk`` on a sharded model whose plan spans T > 1 tp ranks):
@@ -170,9 +180,10 @@ gives each rank its ``V/T`` float32 logits, capped, and one all-gather
 over tp joins them, so every rank samples from the whole row.  Whole on
 every tp rank: the Mamba mixers and their state, a head whose V the tp
 ranks do not divide, the sublayers ``tp_split`` leaves whole, and
-context-parallel attention (``dist.sharding.serving_split``: prefill at
-the reference's ``attn_q`` split is a later item); each counted in
-``tp_whole``.  The caches must hold the rank's KV heads
+context-parallel attention and the Mamba mixers
+(``dist.sharding.serving_split``: prefill at the reference's ``attn_q``
+split and the mixers' state at the rank's channels are later items); each
+counted in ``tp_whole``.  The caches must hold the rank's KV heads
 (``init_cache``/``init_pages(kv_heads=serving_kv_heads(cfg, plan))``);
 a split sublayer never falls back to the whole path.
 
@@ -180,7 +191,8 @@ Mamba mixers ('mamba', ``models/ssm.py``): ``Block`` holds a ``Mamba``
 in the attention's place, and the layer still runs its FFN (none when
 ``d_ff == 0``, falcon-mamba's case).  Training runs ``mamba_apply`` over
 the sequence in chunks of ``cfg.ssm_chunk`` (``cfg.remat`` checkpoints
-each chunk step as well as the layer).  Serving keeps a Mamba position's
+each chunk step as well as the layer), or under tp ``mamba_apply_tp`` on
+the rank's channels.  Serving keeps a Mamba position's
 state per slot and in each prefill job's row, never in the pool:
 ``{"h" float32 (repeats, B, d_inner, d_state), "conv" (repeats, B, K-1,
 d_inner)}`` in the compute type, whatever the context's length.
@@ -263,10 +275,13 @@ def context_parallel_counts() -> dict[str, dict[str, int]]:
 
 
 def reset_tp_counts() -> None:
+    """Zero the counts above and the channel-parallel Mamba mixers'
+    (``ssm.collective_counts``)."""
     for v in _TP_COUNTS.values():
         v.clear()
     for v in (*_VP_COUNTS.values(), *_CP_COUNTS.values()):
         v.update(calls=0, bytes=0)
+    ssm.reset_collective_counts()
 
 
 def _count_vp(kind: str, out: torch.Tensor, counts: dict = _VP_COUNTS) -> None:
@@ -281,9 +296,10 @@ def _count_tp(key: str, kinds) -> None:
 
 def _count_split(split: sharding.TpSplit) -> None:
     """Count a block's sublayers: split (attention by heads "attn",
-    context-parallel "attn_context", the FFN) and whole."""
+    context-parallel "attn_context", the Mamba mixer by channels "mamba",
+    the FFN) and whole."""
     attn = [] if not split.attn else ["attn_context" if split.attn == "context" else "attn"]
-    _count_tp("tp_split", attn + [split.ffn] * bool(split.ffn))
+    _count_tp("tp_split", attn + ["mamba"] * bool(split.ssm) + [split.ffn] * bool(split.ffn))
     _count_tp("tp_whole", split.whole)
 
 
@@ -636,6 +652,16 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
     return tp.reduce(dense(out.reshape(b, s, -1), ap.o.weight))
 
 
+def _mamba_sublayer(cfg: ModelConfig, mixer: ssm.Mamba, h: torch.Tensor, tp=None,
+                    split: sharding.TpSplit | None = None) -> torch.Tensor:
+    """The Mamba mixer on ``h`` (normed) in chunks of ``cfg.ssm_chunk``:
+    whole, or on tp rank ``tp.rank``'s channels where ``split.ssm`` says
+    so (``ssm.mamba_apply_tp``)."""
+    if split is not None and split.ssm:
+        return ssm.mamba_apply_tp(mixer, h, tp, chunk=cfg.ssm_chunk, remat=cfg.remat)
+    return ssm.mamba_apply(mixer, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+
+
 def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
                  positions: torch.Tensor, moe_groups: int, plan=None, tp=None,
                  split: sharding.TpSplit | None = None
@@ -646,7 +672,7 @@ def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
     ``split`` names run split over tp (``dist.sharding.TensorParallel``)."""
     h = blk.norm(x)
     if kind == "mamba":
-        x = x + ssm.mamba_apply(blk.mamba, h, chunk=cfg.ssm_chunk, remat=cfg.remat)
+        x = x + _mamba_sublayer(cfg, blk.mamba, h, tp, split)
     else:
         x = x + _attn_sublayer(cfg, blk.attn, h, kind, positions, tp,
                                split.attn if split is not None else None)

@@ -841,22 +841,38 @@ class SplitSpy:
     of those the input and the head issue (``_model_input``, ``_xent``: the
     training forward's and the probe pass's), the collectives of the
     context-parallel exchanges (``_context_qkv``, ``_context_out``) as
-    ``(kind, result bytes)``, and the shapes in which the embedding, the
-    frontend and the head reach the compute (``_whole``, ``_tp_shard``)."""
+    ``(kind, result bytes)``, the shapes in which the embedding, the
+    frontend and the head reach the compute (``_whole``, ``_tp_shard``),
+    the channels the Mamba scan runs (``ssm._scan``' ``dt`` and ``A_log``)
+    and the weights the mixers' products see (``ssm.dense``)."""
 
     def __init__(self):
         self.heads, self.ffn, self.moe, self.rows = set(), set(), set(), set()
+        self.scan, self.mamba_weights = set(), set()
         self.block_gather_bytes = 0
         self.vocab_gathers: list[int] = []
         self.context_colls: list[tuple[str, int]] = []
         self.leaves: set = set()
 
     def __enter__(self):
+        from repro_torch.models import ssm
         from repro_torch.models import transformer as tf
 
         self.saved = (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block,
                       tf._whole, tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv,
                       tf._context_out)
+        self.saved_ssm = (ssm._scan, ssm.dense)
+        scan, sdense = self.saved_ssm
+
+        def spy_scan(layer, h, dt, *args):
+            self.scan.add((dt.shape[-1], layer.A_log.shape[0], h.shape[1]))
+            return scan(layer, h, dt, *args)
+
+        def spy_sdense(x, weight, *args, **kw):
+            self.mamba_weights.add(tuple(weight.shape))
+            return sdense(x, weight, *args, **kw)
+
+        ssm._scan, ssm.dense = spy_scan, spy_sdense
         (attn, ffn_fwd, moe, block, whole, tp_shard, model_input, xent, context_qkv,
          context_out) = self.saved
         inside, vocab, context = [False], [False], [False]
@@ -920,11 +936,13 @@ class SplitSpy:
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.models import ssm
         from repro_torch.models import transformer as tf
 
         (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block, tf._whole,
          tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv,
          tf._context_out) = self.saved
+        ssm._scan, ssm.dense = self.saved_ssm
         self.recording.__exit__(*exc)
 
 
@@ -966,7 +984,7 @@ def tp_train(a: dict) -> dict:
     from repro_torch.dist.plan import use_plan
     from repro_torch.elastic.reshard import place
     from repro_torch.interop import params_from_jax
-    from repro_torch.models import probes
+    from repro_torch.models import probes, ssm
     from repro_torch.models import transformer as tf
     from repro_torch.models.moe import MoE
     from repro_torch.optim import sgd
@@ -1020,6 +1038,7 @@ def tp_train(a: dict) -> dict:
             rec["tp_counts"], rec["vp_counts"] = tf.tp_counts(), tf.vocab_parallel_counts()
             rec["vocab_gathers"] = list(spy.vocab_gathers)
             rec["cp_counts"] = tf.context_parallel_counts()
+            rec["mamba_counts"] = ssm.collective_counts()
             spy.block_gather_bytes, spy.context_colls = 0, []
             batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 0, 0, 2).items()}
             moes = [m for m in state.params.modules() if isinstance(m, MoE)]
@@ -1033,6 +1052,7 @@ def tp_train(a: dict) -> dict:
                 m.stats = None
         rec.update(heads=sorted(spy.heads), ffn=sorted(spy.ffn), moe=sorted(spy.moe),
                    rows=sorted(spy.rows), context_colls=list(spy.context_colls),
+                   scan=sorted(spy.scan), mamba_weights=sorted(spy.mamba_weights),
                    leaves=sorted(spy.leaves), block_gather_bytes=spy.block_gather_bytes,
                    block_gather_reckoned=block_gather_reckoning(cfg, state.params),
                    params=_whole_numpy(state.params))
@@ -1094,9 +1114,15 @@ def tp_gradcheck(a: dict) -> dict:
     """``gradcheck`` in float64 of ``copy_to_group`` then a rank's own
     linear map then ``reduce_from_group`` over the model axis of each rung
     of ``a["shapes"]`` (the composite's Jacobian is the sum of the ranks'
-    maps on every rank when each collective's backward is its adjoint)."""
+    maps on every rank when each collective's backward is its adjoint);
+    the same around the context-parallel exchanges and the Mamba mixer's
+    two (``ssm.channel_rows``' exchange of ``in_proj``'s column shard,
+    ``x_proj``'s sum over tp behind ``copy_to_group``); and whether the
+    exchange yields the rank's ``[x_t | z_t]`` rows of the whole weight
+    exactly ("... in_proj rows")."""
     from repro_torch.dist.plan import copy_to_group, gather_shards, reduce_from_group
     from repro_torch.dist.sharding import TensorParallel, tp_rank
+    from repro_torch.models import ssm
     from repro_torch.models import transformer as tf
 
     out = {}
@@ -1131,10 +1157,38 @@ def tp_gradcheck(a: dict) -> dict:
             whole = gather_shards([x], [[(2, ("model",))]], mesh, (), summed=[True])[0]
             return reduce_from_group(whole * scale[:, :2 * t], mesh, "model")
 
+        # the Mamba mixer's: in_proj (2 d_inner, d) whole on every rank, this
+        # rank's column shard (rows [2 t c, 2 (t+1) c)) through the exchange,
+        # then a map of its own; x_proj's partial sums over tp, summed again
+        # in the backward, then each rank's channels read the whole
+        c, d = 2, 3
+        w_whole = torch.from_numpy(np.random.default_rng(2).standard_normal((2 * t * c, d))
+                                   ).requires_grad_(True)
+        rows_map = torch.from_numpy(r.standard_normal((2 * c, d)))
+        shard = slice(2 * tp.rank * c, 2 * (tp.rank + 1) * c)
+
+        def in_proj(w):
+            mine = ssm.channel_rows(copy_to_group(w, mesh, "model")[shard], tp)
+            return reduce_from_group((mine * rows_map).sum(0), mesh, "model")
+
+        part = torch.from_numpy(r.standard_normal((3, 4)))
+        reads = torch.from_numpy(r.standard_normal((4, 2)))
+
+        def x_proj(z):
+            whole = copy_to_group(reduce_from_group(copy_to_group(z, mesh, "model") @ part,
+                                                    mesh, "model"), mesh, "model")
+            return reduce_from_group(whole @ reads, mesh, "model")
+
         key = "x".join(map(str, shape))
         for name, f, arg in ((key, fn, z), (key + " all-to-all", exchange, zz),
-                             (key + " k/v all-gather", kv_gather, zz)):
+                             (key + " k/v all-gather", kv_gather, zz),
+                             (key + " in_proj exchange", in_proj, w_whole),
+                             (key + " x_proj sum", x_proj, z)):
             out[name] = bool(torch.autograd.gradcheck(f, (arg,), eps=1e-6, atol=1e-8))
+        w = w_whole.detach()
+        t0 = tp.rank * c
+        want = torch.cat([w[t0:t0 + c], w[t * c + t0:t * c + t0 + c]])
+        out[key + " in_proj rows"] = bool(torch.equal(ssm.channel_rows(w[shard], tp), want))
     return out
 
 

@@ -306,19 +306,20 @@ def test_decode_and_prefill_flops_match_reference_hlo():
 # tensor-parallel compute
 # ---------------------------------------------------------------------------
 
-# (attention, FFN, whole) of each pattern position's tp_split at T 16
+# (attention, Mamba mixer, FFN, whole) of each pattern position's tp_split
+# at T 16
 TP16 = {
-    "yi-6b": {("shared", "dense", ())},
-    "qwen2-7b": {("context", "dense", ())},  # 28 heads: context-parallel
-    "llama3-405b": {("shared", "dense", ())},
-    "gemma2-27b": {("local", "dense", ())},
-    "internvl2-1b": {("context", "dense", ())},  # 14 heads: context-parallel
-    "dbrx-132b": {("shared", "moe", ())},
-    "kimi-k2-1t-a32b": {("shared", "moe", ())},
-    "falcon-mamba-7b": {(None, None, ("mamba",))},
-    "jamba-v0.1-52b": {("shared", "dense", ()), (None, "moe", ("mamba",)),
-                       (None, "dense", ("mamba",))},
-    "hubert-xlarge": {("local", "dense", ())},
+    "yi-6b": {("shared", None, "dense", ())},
+    "qwen2-7b": {("context", None, "dense", ())},  # 28 heads: context-parallel
+    "llama3-405b": {("shared", None, "dense", ())},
+    "gemma2-27b": {("local", None, "dense", ())},
+    "internvl2-1b": {("context", None, "dense", ())},  # 14 heads: context-parallel
+    "dbrx-132b": {("shared", None, "moe", ())},
+    "kimi-k2-1t-a32b": {("shared", None, "moe", ())},
+    "falcon-mamba-7b": {(None, "channels", None, ())},  # d_inner 8192: 512 a rank
+    "jamba-v0.1-52b": {("shared", None, "dense", ()), (None, "channels", "moe", ()),
+                       (None, "channels", "dense", ())},
+    "hubert-xlarge": {("local", None, "dense", ())},
 }
 
 
@@ -327,7 +328,7 @@ def test_tp_split_of_the_full_configs_at_16(arch):
     cfg = get_config(arch)
     plan = ShardingPlan(mesh=abstract_mesh((16, 16), ("data", "model")))
     got = {sharding.tp_split(cfg, p, plan) for p in range(cfg.period)}
-    assert {(s.attn, s.ffn, s.whole) for s in got} == TP16[arch]
+    assert {(s.attn, s.ssm, s.ffn, s.whole) for s in got} == TP16[arch]
     assert all(s.size == 16 for s in got)
     assert sharding.tp_split(cfg, 0, ShardingPlan(mesh=abstract_mesh((16, 1), (
         "data", "model")))) == sharding.TpSplit(1)
@@ -335,6 +336,42 @@ def test_tp_split_of_the_full_configs_at_16(arch):
         pos = next(p for p in range(cfg.period) if cfg.ffn_kind(p) == "moe")
         ep = sharding.tp_split(cfg.replace(moe_impl="ep"), pos, plan)
         assert ep.ffn is None and "moe_ep" in ep.whole
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_serving_split_keeps_the_mamba_mixers_whole(arch):
+    """At T 16 training splits every Mamba mixer by channels; serving keeps
+    each whole, counted in ``whole`` (its per-slot state holds every
+    channel), and splits the rest as training does."""
+    cfg = get_config(arch)
+    plan = ShardingPlan(mesh=abstract_mesh((16, 16), ("data", "model")))
+    for p in range(cfg.period):
+        train, serve = sharding.tp_split(cfg, p, plan), sharding.serving_split(cfg, p, plan)
+        if cfg.pattern[p] == "mamba":
+            assert train.ssm == "channels" and "mamba" not in train.whole
+            assert serve.ssm is None and serve.whole == ("mamba",) + train.whole
+            assert serve.role("mamba.in_proj.weight") is None
+            assert serve.role("mamba.dt_proj.bias") is None
+        else:
+            assert serve == train
+
+
+def test_tp_split_keeps_a_mixer_whole_where_the_channels_do_not_divide():
+    """falcon-mamba-7b at d_model 36 (d_inner 72) on ``(16, 16)``: 16 does
+    not divide the channels, so the mixer computes whole, counted in
+    ``whole``, and no Mamba leaf is resident; at T 8 (72 = 8 x 9) it
+    splits."""
+    cfg = get_config("falcon-mamba-7b").replace(d_model=36)
+    split = sharding.tp_split(cfg, 0, ShardingPlan(mesh=abstract_mesh((16, 16), (
+        "data", "model"))))
+    assert (split.size, split.ssm, split.whole) == (16, None, ("mamba",))
+    assert all(split.role(n) is None for n in ("mamba.in_proj.weight", "mamba.A_log",
+                                                "mamba.dt_proj.bias"))
+    split = sharding.tp_split(cfg, 0, ShardingPlan(mesh=abstract_mesh((2, 8), (
+        "data", "model"))))
+    assert (split.size, split.ssm, split.whole) == (8, "channels", ())
+    assert split.role("mamba.in_proj.weight") == "resident"
+    assert split.role("mamba.dt_proj.bias") == "partial"
 
 
 def test_tp_trace_records_the_context_exchanges():

@@ -7,10 +7,11 @@ lane of the repo's process-group tests).
   * reduced yi-6b (4 query heads over 2 KV heads: "local" at T 2, "shared"
     at T 4), qwen2-7b (the replicated ``qkv_bias``), gemma2-27b (windows,
     both softcaps), hubert-xlarge (non-causal, the frontend), dbrx-132b at
-    ``moe_groups=2`` and jamba-v0.1-52b (Mamba mixers computing whole next
-    to split attention and MoE) on ``(model 2)``, ``(model 4)`` and ``(data
-    2, model 2)`` rungs: the moment tier (yi under a DiveBatch program) and
-    the gram tier for yi, against the one-process whole run and the
+    ``moe_groups=2``, jamba-v0.1-52b (Mamba mixers split by channels next
+    to split attention and MoE; the gram tier too at T 4) and falcon-mamba-7b
+    (the mixers alone, under remat) on ``(model 2)``, ``(model 4)`` and
+    ``(data 2, model 2)`` rungs: the moment tier (yi under a DiveBatch
+    program) and the gram tier for yi, against the one-process whole run and the
     reference's single-device ``make_train_step(dp_size=...)``: schedules
     and buckets exact, losses and ``sq_norm_sum`` within 1e-5 relative,
     parameters within 1e-5 relative plus 5e-5 of each tensor's RMS (the
@@ -21,10 +22,16 @@ lane of the repo's process-group tests).
     ``tp_counts`` names each sublayer split or whole, ``MoE.stats`` (drops,
     the commonest first expert) are equal on every tp rank, and the bytes
     the block entries gather equal their reckoning (the fsdp axes only
-    where every sublayer splits over local heads);
-  * ``gradcheck`` in float64 of ``copy_to_group`` and ``reduce_from_group``,
-    and the k/v and bias gradients of reduced qwen2-7b at T 4 summed over
-    the model group (the gather's former slice-own rule gets them wrong);
+    where every sublayer splits over local heads); the Mamba scan runs
+    ``d_inner/T`` channels, no mixer product sees ``in_proj`` whole, and
+    the ``in_proj`` exchange sends a rank's blocks that are not its own
+    (at most its shard) a layer and pass;
+  * ``gradcheck`` in float64 of ``copy_to_group`` and ``reduce_from_group``
+    (around the context-parallel exchanges and the Mamba mixer's ``in_proj``
+    exchange and ``x_proj`` sum too), the exchange's rows against the whole
+    weight's, and the k/v and bias gradients of reduced qwen2-7b at T 4
+    summed over the model group (the gather's former slice-own rule gets
+    them wrong);
   * the input and the head split: reduced yi-6b at vocab 256 (both tiers,
     on every rung), gemma2-27b at 256 (the final softcap on split logits)
     and hubert-xlarge at 64 (the frontend) take the vocab-parallel
@@ -38,6 +45,7 @@ Two spawns, 2 ranks and 4, run beside the reference's runs in this
 process.
 """
 
+import math
 import os
 import sys
 
@@ -82,7 +90,10 @@ ARCHS = {"yi": ("yi-6b", 2, {}), "qwen2": ("qwen2-7b", 3, {}), "gemma2": ("gemma
          # 3/1 heads of hd 16: no T of 2 or 4 divides the heads, every one
          # their widths (48, 16) and SEQ, so attention runs context-parallel
          "qwen2ctx": ("qwen2-7b", 13, {**_CONTEXT, "attn_impl": "pallas"}),
-         "intern": ("internvl2-1b", 14, _CONTEXT)}
+         "intern": ("internvl2-1b", 14, _CONTEXT),
+         # d_inner 128: its channels split at T 2 and 4; remat, so the
+         # recompute issues the mixer's exchanges again
+         "falcon": ("falcon-mamba-7b", 15, {"remat": True})}
 # each case names its rung (data, model); jamba at lr 0.01 (PERF.md: lr 0.1
 # turns its float32 rounding into 1e-4 of its parameters in a few steps)
 SHAPES_2, SHAPES_4 = [(1, 2)], [(1, 4), (2, 2)]
@@ -98,6 +109,7 @@ _BASE = [
 _VOCAB = [{"name": "yi256", "params": "yi256", "seed": 9},
           {"name": "yi256_gram", "params": "yi256", "seed": 10, "tier": "gram"}]
 _HUBERT64 = {"name": "hubert64", "params": "hubert64", "seed": 12}
+_FALCON = {"name": "falcon", "params": "falcon", "seed": 15}
 # context-parallel attention: qwen2 (its replicated biases) on the kernel
 # lane's plain versions, the moment tier; internvl2 (the frontend) on the
 # gram tier; on every rung
@@ -106,11 +118,14 @@ _CONTEXT_CASES = [{"name": "qwen2ctx", "params": "qwen2ctx", "seed": 13},
 CASES_2 = [{**c, "shape": (1, 2)} for c in
            [{"name": "yi_program", "params": "yi", "seed": 1, "program": True}] + _BASE
            + _VOCAB + [{"name": "gemma2_256", "params": "gemma2_256", "seed": 11}, _HUBERT64]
-           + _CONTEXT_CASES]
-CASES_4 = [{**c, "shape": (1, 4)} for c in _BASE + _VOCAB + [_HUBERT64] + _CONTEXT_CASES] + [
+           + _CONTEXT_CASES + [_FALCON]]
+CASES_4 = [{**c, "shape": (1, 4)} for c in _BASE + _VOCAB + [_HUBERT64] + _CONTEXT_CASES + [
+    _FALCON, {"name": "jamba_gram", "params": "jamba", "seed": 16, "moe_groups": 2,
+              "lr": 0.01, "steps": 1, "tier": "gram"}]] + [
     {"name": "yi_program_dp", "params": "yi", "seed": 1, "program": True, "shape": (2, 2)},
     {"name": "dbrx_dp", "params": "dbrx", "seed": 7, "moe_groups": 2, "shape": (2, 2)},
-] + [{**c, "name": c["name"] + "_dp", "shape": (2, 2)} for c in _VOCAB + _CONTEXT_CASES]
+] + [{**c, "name": c["name"] + "_dp", "shape": (2, 2)} for c in _VOCAB + _CONTEXT_CASES
+     + [_FALCON]]
 for _c in CASES_2 + CASES_4:
     _c["arch"], _, _c["extra"] = ARCHS[_c["params"]]
 
@@ -291,7 +306,7 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
     heads = {(h, kv) if s.attn == "context" else (h // t, kv // t if s.attn == "local" else 1)
              for s in splits if s.attn}
     shared = {s.attn for s in splits if s.attn} == {"shared"}
-    assert shared == (h % t == 0 and t % kv == 0 and kv < t)
+    assert shared == (kv > 0 and h % t == 0 and t % kv == 0 and kv < t)  # falcon: no heads
     context = {s.attn for s in splits if s.attn} == {"context"}
     assert context == (h % t != 0 and name.startswith(("qwen2ctx", "intern")))
     st = SEQ // t
@@ -309,7 +324,7 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
             calls = _micro(case, g) * cfg.num_layers * (2 if case.get("tier") == "gram" else 1)
             assert {k: c["calls"] for k, c in cp.items()} == dict.fromkeys(cp, calls), cp
         else:
-            assert set(map(tuple, g["rows"])) == {(SEQ, 0, SEQ)}, g["rows"]
+            assert set(map(tuple, g["rows"])) == ({(SEQ, 0, SEQ)} if heads else set()), g["rows"]
             assert not g["context_colls"]
         assert set(g["ffn"]) == ({cfg.d_ff // t} if any(s.ffn == "dense" for s in splits)
                                  else set())
@@ -323,7 +338,7 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
         for layer in range(cfg.num_layers):
             s = splits[layer % cfg.period]
             attn = [] if not s.attn else ["attn_context" if s.attn == "context" else "attn"]
-            for kind in attn + ([s.ffn] if s.ffn else []):
+            for kind in attn + (["mamba"] if s.ssm else []) + ([s.ffn] if s.ffn else []):
                 want_split[kind] = want_split.get(kind, 0) + micro
             for kind in s.whole:
                 want_whole[kind] = want_whole.get(kind, 0) + micro
@@ -332,6 +347,7 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
         assert g["moe_stats"] == tp_runs["got"][world][0]["tp_train"][name]["moe_stats"]
         assert bool(g["moe_stats"]) == bool(cfg.num_experts)
         assert g["block_gather_bytes"] == g["block_gather_reckoned"]
+        _mixers_split(cfg, case, g, splits, rank)
         if not shared and not any(s.whole for s in splits):
             # every block splits over local heads: its entry gathers the fsdp axes only
             model = tf.build(cfg, "meta")
@@ -340,6 +356,50 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
                        * p.element_size() for n, p in model.named_parameters()
                        if n.startswith("blocks.") and "data" in specs[n])
             assert g["block_gather_bytes"] == fsdp
+
+
+def _mixers_split(cfg, case: dict, g: dict, splits, rank: int) -> None:
+    """A rank's Mamba mixers: the scan over its ``c = d_inner/T`` channels
+    (``dt``, ``A_log`` and the state), no product seeing ``in_proj`` whole
+    but its ``[x_t | z_t]`` rows, and by ``ssm.collective_counts`` per
+    mixer and pass one ``in_proj`` exchange sending the rank's blocks that
+    are not its own, one ``x_proj`` all-reduce (float32) and one
+    ``out_proj`` all-reduce; in the backward one exchange back and two
+    ``tp.copy`` all-reduces.  The remat recompute issues the exchange and
+    the ``x_proj`` all-reduce again, not the ``out_proj`` one (it stops
+    once the layer's saved tensors are back).  The gram tier's probe pass
+    runs the mixers' forward once more and, its parameters frozen, the
+    backward's two all-reduces only behind a probe (jamba's layer 0 mixer
+    comes before the first)."""
+    layers = [layer for layer in range(cfg.num_layers) if splits[layer % cfg.period].ssm]
+    if not layers:
+        assert not g["scan"] and not any(v["calls"] for v in g["mamba_counts"].values())
+        return
+    t, d = splits[0].size, cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    c = d_inner // t
+    assert set(map(tuple, g["scan"])) == {(c, c, c)}, g["scan"]
+    weights = set(map(tuple, g["mamba_weights"]))
+    assert (2 * d_inner, d) not in weights and (2 * c, d) in weights, weights
+    assert (d, c) in weights and (d, d_inner) not in weights, weights
+    micro = _micro(case, g)
+    probed = [layer for layer in range(cfg.num_layers) if cfg.pattern[layer % cfg.period]
+              != "mamba" or (cfg.d_ff and cfg.ffn_kind(layer % cfg.period) == "dense")]
+    gram = case.get("tier") == "gram"
+    fwd = len(layers) * micro * (2 if gram else 1)
+    back = len(layers) * micro
+    copies = 2 * back + (2 * sum(lay > probed[0] for lay in layers) * micro if gram else 0)
+    again = back if cfg.remat else 0
+    sent = sum(b % t != rank for b in (2 * rank, 2 * rank + 1)) * c * d * 4
+    bm = 4 // case["shape"][0]  # a microbatch's sequences on the rank
+    x_proj = bm * SEQ * ((cfg.ssm_dt_rank or math.ceil(d / 16)) + 2 * cfg.ssm_state) * 4
+    want = {"in_proj_exchange": (fwd + again, (fwd + again) * sent),
+            "x_proj_all_reduce": (fwd + again, (fwd + again) * x_proj),
+            "out_proj_all_reduce": (fwd, fwd * bm * SEQ * d * 4),
+            "in_proj_exchange_back": (back, back * sent),
+            "copy_back": (copies, copies // 2 * (bm * SEQ * d * 4 + x_proj))}
+    got = {k: (v["calls"], v["bytes"]) for k, v in g["mamba_counts"].items()}
+    assert got == want, (got, want)
 
 
 def _micro(case: dict, g: dict) -> int:
@@ -420,12 +480,16 @@ def test_copy_and_reduce_gradcheck(tp_runs):
     """``gradcheck`` on every rank of ``copy_to_group`` / ``reduce_from_group``
     around a rank's own map, and around the context-parallel exchanges: the
     q and out all-to-alls, and the k/v all-gather whose backward sums over
-    tp (a slice-own backward fails it)."""
+    tp (a slice-own backward fails it); around the Mamba mixer's ``in_proj``
+    exchange and ``x_proj``'s sum over tp (summed in the backward too); and
+    the exchange gives each rank exactly its ``[x_t | z_t]`` rows of the
+    whole weight, at T 2 and 4."""
     for world, shapes in ((2, SHAPES_2), (4, SHAPES_4)):
         for r in range(world):
             got = tp_runs["got"][world][r]["tp_gradcheck"]
             want = {"x".join(map(str, s)) + kind: True for s in shapes
-                    for kind in ("", " all-to-all", " k/v all-gather")}
+                    for kind in ("", " all-to-all", " k/v all-gather", " in_proj exchange",
+                                 " x_proj sum", " in_proj rows")}
             assert got == want, (world, r, got)
 
 
