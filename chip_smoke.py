@@ -6167,6 +6167,135 @@ TP_VOCAB_KINDS = {"xent_all_gather": "logsumexp/target all-gather",
                   "head_all_reduce": "head dx all-reduce"}
 
 
+#: the split residual's collectives (``dist.plan.residual_counts``' kinds),
+#: which phases 30, 32 and 33 print by kind
+RESIDUAL_KINDS = {"entry_all_gather": "entry all-gather",
+                  "entry_reduce_scatter": "entry reduce-scatter (backward)",
+                  "exit_reduce_scatter": "exit reduce-scatter",
+                  "exit_all_gather": "exit all-gather (backward)",
+                  "slice_all_gather": "slice all-gather (backward)"}
+
+
+def residual_reckoning(cfg, plan, micro: int, bm: int, seq: int) -> dict[str, tuple[int, int]]:
+    """``{kind: (calls, bytes)}`` of the split residual's collectives a tp
+    rank of ``plan`` makes over ``micro`` training microbatches of ``bm``
+    sequences of ``seq``: an entry all-gather per sublayer and one at the
+    head, again in the remat recompute; an entry reduce-scatter behind each
+    split sublayer and a split head; an exit reduce-scatter per split
+    sublayer, again in the recompute but for a layer's last (the recompute
+    stops once the layer's saved tensors are back), an exit all-gather in
+    the backward; a slice all-gather behind each whole sublayer.  Each call
+    moves the whole ``(bm, seq, d)`` tensor in the compute type.  The gram
+    tier's probe pass keeps the residual whole: none of these."""
+    from repro_torch.dist import sharding
+
+    splits = [sharding.tp_split(cfg, p, plan, seq) for p in range(cfg.period)]
+    n_sub = n_split = n_last = 0
+    for layer in range(cfg.num_layers):
+        p = layer % cfg.period
+        subs = [bool(splits[p].ssm if cfg.pattern[p] == "mamba" else splits[p].attn)]
+        if cfg.d_ff > 0:
+            subs.append(splits[p].ffn is not None)
+        n_sub, n_split, n_last = n_sub + len(subs), n_split + sum(subs), n_last + subs[-1]
+    again = bool(cfg.remat)
+    head = cfg.vocab_size % plan.tp_size == 0
+    calls = {"entry_all_gather": n_sub + 1 + again * n_sub,
+             "entry_reduce_scatter": n_split + head,
+             "exit_reduce_scatter": n_split + again * (n_split - n_last),
+             "exit_all_gather": n_split, "slice_all_gather": n_sub - n_split}
+    whole = bm * seq * cfg.d_model * torch.empty((), dtype=getattr(
+        torch, cfg.compute_dtype)).element_size()
+    return {k: (n * micro, n * micro * whole) for k, n in calls.items()}
+
+
+class ResidualClock:
+    """Times the split residual's collectives by kind (``dist.plan.
+    _residual``, through which the entries, exits and slices issue theirs)
+    between two synchronisations of the card."""
+
+    def __init__(self):
+        from repro_torch.dist import plan as plan_mod
+
+        self.mod, self.ms = plan_mod, dict.fromkeys(RESIDUAL_KINDS, 0.0)
+        self.inner = inner = plan_mod._residual
+
+        def timed(kind, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(kind, *args)
+            torch.cuda.synchronize()
+            self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        plan_mod._residual = timed
+
+    def snapshot(self) -> dict:
+        from repro_torch.dist.plan import residual_counts
+
+        counts = residual_counts()
+        return {k: {**counts[k], "ms": self.ms[k]} for k in RESIDUAL_KINDS}
+
+    def close(self) -> None:
+        self.mod._residual = self.inner
+
+
+def residual_delta(before: dict, after: dict) -> dict:
+    return {k: {m: after[k][m] - before[k][m] for m in after[k]} for k in after}
+
+
+class RematKept:
+    """While active, the storage bytes of every tensor autograd saves
+    outside the remat regions whose shape is ``shape``: a checkpointed
+    layer's input, the rank's ``(B, S, d/T)`` columns of the residual (a
+    ``saved_tensors_hooks`` count, independent of the port's own
+    ``transformer.remat_counts``)."""
+
+    def __init__(self, shape):
+        self.shape, self.bytes = tuple(shape), []
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(self.pack, lambda t: t)
+
+    def pack(self, t):
+        if tuple(t.shape) == self.shape:
+            self.bytes.append(t.untyped_storage().nbytes())
+        return t
+
+    def __enter__(self):
+        self.hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.hooks.__exit__(*exc)
+
+
+def residual_check(tag: str, cfg, plan, steps: list[dict], micro: list[int], bm: int,
+                   seq: int) -> str:
+    """Phases 30, 32 and 33: each step's split residual against the
+    reckoning (its collectives by kind, calls and bytes; the bytes remat
+    keeps a microbatch, one ``(bm, seq, d/T)`` tensor a layer); raises on a
+    miss; returns the line that prints a step's kept bytes."""
+    t, d = plan.tp_size, cfg.d_model
+    layer = bm * seq * (d // t) * torch.empty((), dtype=getattr(
+        torch, cfg.compute_dtype)).element_size()
+    for i, (st, n) in enumerate(zip(steps, micro)):
+        want = residual_reckoning(cfg, plan, n, bm, seq)
+        got = {k: (v["calls"], v["bytes"]) for k, v in st["residual"].items()}
+        if got != want:
+            raise AssertionError(f"{tag} step {i + 1} the residual's collectives {got}, "
+                                 f"expected {want}")
+        if "kept" in st and st["kept"] != [layer] * (cfg.num_layers * n):
+            raise AssertionError(f"{tag} step {i + 1} remat kept {st['kept']}, expected "
+                                 f"{cfg.num_layers * n} x {layer} bytes")
+    return (f"remat keeps a rank {cfg.num_layers} tensors of ({bm}, {seq}, {d // t}) a "
+            f"microbatch, {cfg.num_layers * layer / 1e6:.3f} MB = the reckoning "
+            f"({cfg.num_layers} x {bm} x {seq} x {d}/{t} x 2 bytes; the whole residual's "
+            f"{t * cfg.num_layers * layer / 1e6:.3f} MB)")
+
+
+def residual_line(res: dict) -> str:
+    return "; ".join(f"{what} {res[k]['calls']} calls, {res[k]['bytes'] / 1e6:.3f} MB, "
+                     f"{res[k]['ms']:.1f} ms" for k, what in RESIDUAL_KINDS.items())
+
+
 def tp_plan_abstract():
     """Phase 30's rung roles on an abstract mesh (the reckoning's)."""
     from repro_torch.dist.plan import ShardingPlan, abstract_mesh
@@ -6262,24 +6391,29 @@ def rank_tp(dev, args) -> dict:
         return tree(acts, deltas, *a, **kw)
 
     kattn.flash_attention, ops.persample_sq_norm_tree = spy_flash, spy_tree
+    rclock, cols = ResidualClock(), (SHARD_MICRO, SHARD_SEQ, cfg.d_model // TP_WORLD)
 
-    def timed(fn, state, batch, lr, into: list):
+    def timed(fn, state, batch, lr, into: list, kept: bool = False):
         before, tp0, vp0 = clock.snapshot(), tensor_parallel_counts(), tf.vocab_parallel_counts()
+        r0 = rclock.snapshot()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        state, metrics = fn(state, batch, lr)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
+        with RematKept(cols) if kept else contextlib.nullcontext() as saved:
+            state, metrics = fn(state, batch, lr)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
         tp1, vp1 = tensor_parallel_counts(), tf.vocab_parallel_counts()
         into.append({"batch": int(next(iter(batch.values())).shape[0]), "loss": loss,
                      "ms": 1e3 * (time.perf_counter() - t1),
                      "coll": clock_delta(before, clock.snapshot()),
                      "tp": {k: tp1[k] - tp0[k] for k in tp1},
-                     "vp": {k: {m: vp1[k][m] - vp0[k][m] for m in vp1[k]} for k in vp1}})
+                     "vp": {k: {m: vp1[k][m] - vp0[k][m] for m in vp1[k]} for k in vp1},
+                     "residual": residual_delta(r0, rclock.snapshot()),
+                     **({"kept": saved.bytes} if kept else {})})
         return state, metrics
 
     steps, inner = [], engine.step
-    engine.step = lambda state, batch, lr: timed(inner, state, batch, lr, steps)
+    engine.step = lambda state, batch, lr: timed(inner, state, batch, lr, steps, kept=True)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     tf.reset_tp_counts()
@@ -6315,6 +6449,7 @@ def rank_tp(dev, args) -> dict:
         rec["param_gap"] = gap
     finally:
         kattn.flash_attention, ops.persample_sq_norm_tree = flash, tree
+        rclock.close()
         clock.close()
     return rec
 
@@ -6326,7 +6461,8 @@ def tp_phase() -> dict[str, dict]:
     phase(f"30. tensor-parallel training on {TP_WORLD} gloo ranks sharing the card: Yi-6B "
           f"widths at {SHARD_LAYERS} of 32 layers on a (data 1, model {TP_WORLD}) rung, each "
           f"block's heads and FFN widths, the embedding's d and the head's V split over the "
-          f"ranks (Megatron-style, the cross-entropy vocab-parallel; run within phase 25's "
+          f"ranks (Megatron-style, the cross-entropy vocab-parallel), the residual stream by "
+          f"d_model columns, d/{TP_WORLD} a rank between sublayers (run within phase 25's "
           f"gloo world)")
     cfg = shard_yi_cfg()
     layers, t = cfg.num_layers, TP_WORLD
@@ -6367,15 +6503,25 @@ def tp_phase() -> dict[str, dict]:
         attn_routes(y["launches"], y["plan"], what=f"{tag} tensor-parallel Yi",
                     routes=y["routes"])
         split = {"tp_split": {"attn": layers * n_micro, "dense": layers * n_micro,
-                              "embed": n_micro, "head": n_micro}, "tp_whole": {}}
+                              "residual": layers * n_micro, "embed": n_micro,
+                              "head": n_micro}, "tp_whole": {}}
         if y["tp_counts"] != split:
             raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split}")
-        # one of each a microbatch; a gram step's microbatch runs the probe pass too
+        # a logsumexp all-gather a microbatch; the split residual takes the
+        # embedding's columns as they are and sums the head's dx in its final
+        # entry, so only a gram step's probe pass (the residual whole) issues
+        # the other two, and one more logsumexp all-gather
         for i, st in enumerate(y["steps"] + y["gram"]):
-            n = st["batch"] // SHARD_MICRO if i < len(y["steps"]) else 2
-            if any(st["vp"][k]["calls"] != n for k in TP_VOCAB_KINDS):
+            n = st["batch"] // SHARD_MICRO if i < len(y["steps"]) else 1
+            probe = int(i >= len(y["steps"]))
+            want_vp = {"xent_all_gather": n + probe, "input_all_gather": probe,
+                       "head_all_reduce": probe}
+            if {k: st["vp"][k]["calls"] for k in TP_VOCAB_KINDS} != want_vp:
                 raise AssertionError(f"{tag} vocab-parallel collectives {st['vp']}, expected "
-                                     f"{n} calls of each")
+                                     f"{want_vp} calls")
+        kept_line = residual_check(tag, cfg, tp_plan_abstract(), y["steps"] + y["gram"],
+                                   [st["batch"] // SHARD_MICRO for st in y["steps"]]
+                                   + [1] * len(y["gram"]), SHARD_MICRO, SHARD_SEQ)
         got_widths = {n.rsplit(".", 1)[1]: tuple(w) for n, w in y["widths"].items()}
         if got_widths != want_widths:
             raise AssertionError(f"{tag} psgn widths {y['widths']}, expected {want_widths}")
@@ -6427,8 +6573,8 @@ def tp_phase() -> dict[str, dict]:
             print(f"    {'gram ' if gram_step else ''}step {i + 1}: batch {st['batch']}, loss "
                   f"{st['loss']:.5f} (one process {want_losses[i]:.5f}), {st['ms']:.1f} ms "
                   f"(one process {(one['ms'] + one['gram_ms'])[i]:.1f}); vocab-parallel: "
-                  f"{vp_line}; the other tp all-reduces "
-                  f"{st['tp']['calls'] - head['calls']} calls, "
+                  f"{vp_line}; the split residual: {residual_line(st['residual'])}; the "
+                  f"other tp all-reduces {st['tp']['calls'] - head['calls']} calls, "
                   f"{(st['tp']['bytes'] - head['bytes']) / 1e9:.3f} GB; collectives "
                   f"{coll_ms:.1f} ms ({100 * coll_ms / st['ms']:.1f}%): {coll_line(c)}"
                   + p25_line)
@@ -6439,7 +6585,8 @@ def tp_phase() -> dict[str, dict]:
                  if r == 0 else "")
               + f"; heads a rank {hq}/{hk} (n_rep {hq // hk}); launches {y['launches']} (= "
               f"{2 * layers}, {layers}, {layers} x {n_micro} microbatches), all three on tc; "
-              f"tp_counts {y['tp_counts']}")
+              f"tp_counts {y['tp_counts']}; the residual's collectives every step the "
+              f"reckoning's; {kept_line}")
         print(f"    gram tier, {TP_GRAM_STEPS} steps: psgn widths (Din, Dout) "
               f"{dict(sorted(got_widths.items()))}; launches {got_gram} (= main pass "
               f"{2 * layers}, {layers}, {layers} + {psgn_want} x {TP_GRAM_STEPS}), psgn routes "
@@ -6823,24 +6970,29 @@ def rank_cp(dev, args) -> dict:
         return tree(acts, deltas, *a, **kw)
 
     kattn.flash_attention, ops.persample_sq_norm_tree = spy_flash, spy_tree
+    rclock, cols = ResidualClock(), (CP_MICRO, CP_SEQ, cfg.d_model // CP_WORLD)
 
-    def timed(fn, state, batch, lr, into: list):
+    def timed(fn, state, batch, lr, into: list, kept: bool = False):
         before, tp0, cp0 = clock.snapshot(), tensor_parallel_counts(), tf.context_parallel_counts()
+        r0 = rclock.snapshot()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        state, metrics = fn(state, batch, lr)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
+        with RematKept(cols) if kept else contextlib.nullcontext() as saved:
+            state, metrics = fn(state, batch, lr)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
         tp1, cp1 = tensor_parallel_counts(), tf.context_parallel_counts()
         into.append({"batch": int(next(iter(batch.values())).shape[0]), "loss": loss,
                      "ms": 1e3 * (time.perf_counter() - t1),
                      "coll": clock_delta(before, clock.snapshot()),
                      "tp": {k: tp1[k] - tp0[k] for k in tp1},
-                     "cp": {k: {m: cp1[k][m] - cp0[k][m] for m in cp1[k]} for k in cp1}})
+                     "cp": {k: {m: cp1[k][m] - cp0[k][m] for m in cp1[k]} for k in cp1},
+                     "residual": residual_delta(r0, rclock.snapshot()),
+                     **({"kept": saved.bytes} if kept else {})})
         return state, metrics
 
     steps, inner = [], engine.step
-    engine.step = lambda state, batch, lr: timed(inner, state, batch, lr, steps)
+    engine.step = lambda state, batch, lr: timed(inner, state, batch, lr, steps, kept=True)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     tf.reset_tp_counts()
@@ -6878,6 +7030,7 @@ def rank_cp(dev, args) -> dict:
         rec["param_gap"] = gap
     finally:
         kattn.flash_attention, ops.persample_sq_norm_tree = flash, tree
+        rclock.close()
         clock.close()
     return rec
 
@@ -7078,7 +7231,8 @@ def cp_phase() -> tuple[dict[str, dict], list[dict]]:
           f"sharing the card: internvl2-1b at full width and {layers} of {INTERN.num_layers} "
           f"layers on a (data 1, model {t}) rung, its {h}/{kv} heads (which {t} does not "
           f"divide) over each rank's {st} query rows, k/v gathered whole, the FFN and the "
-          f"frontend split, the head whole (V {cfg.vocab_size})")
+          f"frontend split, the residual stream by d_model columns ({d // t} a rank), the "
+          f"head whole (V {cfg.vocab_size})")
     t_phase = time.perf_counter()
     mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, t, cp_plan_abstract())
     root = ckpt_root("context")
@@ -7129,9 +7283,13 @@ def cp_phase() -> tuple[dict[str, dict], list[dict]]:
         attn_routes(y["launches"], y["plan"], what=f"{tag} context-parallel internvl2",
                     routes=y["routes"])
         split = {"tp_split": {"attn_context": layers * n_micro, "dense": layers * n_micro,
-                              "frontend": n_micro}, "tp_whole": {"head": n_micro}}
+                              "residual": layers * n_micro, "frontend": n_micro},
+                 "tp_whole": {"head": n_micro}}
         if y["tp_counts"] != split:
             raise AssertionError(f"{tag} tp_counts {y['tp_counts']}, expected {split}")
+        kept_line = residual_check(tag, cfg, cp_plan_abstract(), y["steps"] + y["gram"],
+                                   [x["batch"] // CP_MICRO for x in y["steps"]]
+                                   + [1] * len(y["gram"]), CP_MICRO, CP_SEQ)
         # a forward and its remat recompute a layer a microbatch; the gram
         # steps' probe pass (no remat) once more
         for i, x in enumerate(y["steps"] + y["gram"]):
@@ -7171,7 +7329,8 @@ def cp_phase() -> tuple[dict[str, dict], list[dict]]:
             print(f"    {'gram ' if gram_step else ''}step {i + 1}: batch {x['batch']}, loss "
                   f"{x['loss']:.5f} (one process {want_losses[i]:.5f}), {x['ms']:.1f} ms "
                   f"(one process {(one['ms'] + one['gram_ms'])[i]:.1f}); the forwards' "
-                  f"exchanges: {cp_line}; tp all-reduces {x['tp']['calls']} calls, "
+                  f"exchanges: {cp_line}; the split residual: {residual_line(x['residual'])}; "
+                  f"tp all-reduces {x['tp']['calls']} calls, "
                   f"{x['tp']['bytes'] / 1e9:.3f} GB; collectives {coll_ms:.1f} ms "
                   f"({100 * coll_ms / x['ms']:.1f}%): {coll_line(c)}")
         print(f"    losses within {rel:.3e} relative, sq_norm_sum {y['sq_norm_sum']:.6e} "
@@ -7181,7 +7340,8 @@ def cp_phase() -> tuple[dict[str, dict], list[dict]]:
                  if rk == 0 else "")
               + f"; launches {y['launches']} (= {2 * layers}, {layers}, {layers} x {n_micro} "
               f"microbatches), at the offset form {y['offset']}, all three on tc; tp_counts "
-              f"{y['tp_counts']}")
+              f"{y['tp_counts']}; the residual's collectives every step the reckoning's; "
+              f"{kept_line}")
         print(f"    gram tier, {CP_GRAM_STEPS} steps: psgn widths (Din, Dout) "
               f"{dict(sorted(got_widths.items()))}; launches {got_gram}, psgn routes "
               f"{ {k: v for k, v in y['gram_routes'].items() if k.startswith('psgn')} }")
@@ -7259,9 +7419,11 @@ class MixerClock:
     (``dist.plan.permute_blocks_dim0``, told apart by the counts each
     carries), and the tensor-parallel all-reduces (``dist.plan.
     _tp_all_reduce``): ``tp.copy``'s backward by the mixers' counts, the
-    forward all-reduces by type (``x_proj``'s sum float32, ``out_proj``'s in
-    the compute type: falcon-mamba has no other forward all-reduce over
-    tp)."""
+    other all-reduces of activations by type (``x_proj``'s sum float32,
+    ``out_proj``'s in the compute type: falcon-mamba has no other such
+    all-reduce over tp; under the split residual the exits' reduce-scatters
+    take ``out_proj``'s place, timed by :class:`ResidualClock`); a norm
+    scale's gradient (one dim) is not the mixers'."""
 
     def __init__(self):
         from repro_torch.dist import plan as plan_mod
@@ -7288,7 +7450,7 @@ class MixerClock:
         def spy_reduce(x, group, c=None):
             if c is counts["copy_back"]:
                 kind = "copy_back"
-            elif c is None:
+            elif c is None and x.dim() > 1:
                 kind = "x_proj_all_reduce" if x.dtype == torch.float32 else \
                     "out_proj_all_reduce"
             else:
@@ -7319,7 +7481,8 @@ def rank_mamba_tp(dev, args) -> dict:
     params = place(tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), plan)
     state, step = init_state(params, opt), make_train_step(cfg, opt, 1, plan=plan)
     tp = sharding.tensor_parallel(sharding.layout_of(params))
-    clock, mixer = CollectiveClock(), MixerClock()
+    clock, mixer, rclock = CollectiveClock(), MixerClock(), ResidualClock()
+    cols = (MAMBA_TP_MICRO, MAMBA_TP_SEQ, cfg.d_model // MAMBA_TP_WORLD)
     scan, sdense, seen, weights = ssm._scan, ssm.dense, set(), set()
 
     def spy_scan(layer, h, dt, *a):
@@ -7338,14 +7501,18 @@ def rank_mamba_tp(dev, args) -> dict:
     try:
         for i in range(MAMBA_TP_STEPS):
             before, mix0, mc0 = clock.snapshot(), mixer.snapshot(), ssm.collective_counts()
+            r0 = rclock.snapshot()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            state, metrics = step(state, mamba_tp_batch(cfg, i), TRAIN_LR)
-            loss = float(metrics["loss"])
-            torch.cuda.synchronize()
+            with RematKept(cols) as saved:
+                state, metrics = step(state, mamba_tp_batch(cfg, i), TRAIN_LR)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
             mix1, mc1 = mixer.snapshot(), ssm.collective_counts()
             steps.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t1),
                           "coll": clock_delta(before, clock.snapshot()),
+                          "residual": residual_delta(r0, rclock.snapshot()),
+                          "kept": saved.bytes,
                           "mixer": {k: {"calls": mc1[k]["calls"] - mc0[k]["calls"],
                                         "bytes": mc1[k]["bytes"] - mc0[k]["bytes"],
                                         "ms": mix1[k] - mix0[k]} for k in MAMBA_TP_KINDS}})
@@ -7357,6 +7524,7 @@ def rank_mamba_tp(dev, args) -> dict:
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     finally:
         ssm._scan, ssm.dense = scan, sdense
+        rclock.close()
         mixer.close()
         clock.close()
     whole = torch.load(args["whole"]) if dist.get_rank() == 0 else None
@@ -7384,8 +7552,9 @@ def mamba_tp_phase() -> dict[str, dict]:
           f"{cfg.ssm_state}, dt_rank {cfg.dt_rank}, V {cfg.vocab_size}) and "
           f"{layers} of {FALCON.num_layers} layers on a (data 1, model {t}) rung, S "
           f"{MAMBA_TP_SEQ}, micro batch {MAMBA_TP_MICRO}, ssm_chunk {MAMBA_TP_CHUNK}, remat, "
-          f"{MAMBA_TP_STEPS} moment-tier steps; each rank's {c} channels, the embedding's d "
-          f"and the head's V split (run within phase 25's gloo world)")
+          f"{MAMBA_TP_STEPS} moment-tier steps; each rank's {c} channels, the embedding's d, "
+          f"the head's V and the residual stream's d_model columns ({d // t} a rank) split "
+          f"(run within phase 25's gloo world)")
     mine, whole_bytes, mine_params = reckoned_state_bytes(cfg, t, tp_plan_abstract())
     one, res = PHASE33["one"], dict(sorted(PHASE33["res"].items()))
     print(f"  one process, whole state: losses {[round(x, 5) for x in one['loss']]}, step ms "
@@ -7393,7 +7562,8 @@ def mamba_tp_phase() -> dict[str, dict]:
           f"{one['peak_gib']:.2f} GiB")
     dt_rank = cfg.dt_rank
     split = {"tp_split": {"embed": MAMBA_TP_STEPS, "mamba": layers * MAMBA_TP_STEPS,
-                          "head": MAMBA_TP_STEPS}, "tp_whole": {}}
+                          "residual": layers * MAMBA_TP_STEPS, "head": MAMBA_TP_STEPS},
+             "tp_whole": {}}
     for rk, y in res.items():
         tag = f"[gloo, world {t}, rank {rk}]"
         if y["bytes"] != mine or y["params"] != mine_params:
@@ -7420,23 +7590,24 @@ def mamba_tp_phase() -> dict[str, dict]:
             raise AssertionError(f"{tag} the scan saw {y['seen']} channels, the mixers' "
                                  f"products weights {y['weights']}")
         # a step: the forward and the remat recompute issue the exchange and
-        # the x_proj sum, the forward alone the out_proj all-reduce; the
-        # backward one exchange back and two tp.copy all-reduces a mixer.
-        # At T 2 each rank sends one of its two c-row blocks (the other is
-        # its own)
+        # the x_proj sum; the backward one exchange back and x_proj's tp.copy
+        # all-reduce a mixer.  The split residual's entry and exit take the
+        # out_proj all-reduce's and the input's tp.copy's place.  At T 2
+        # each rank sends one of its two c-row blocks (the other is its own)
         sent, tokens = c * d * 2, MAMBA_TP_MICRO * MAMBA_TP_SEQ
+        x_proj = tokens * (dt_rank + 2 * cfg.ssm_state) * 4
         want = {"in_proj_exchange": (2 * layers, 2 * layers * sent),
-                "x_proj_all_reduce": (2 * layers, 2 * layers * tokens * (dt_rank + 2
-                                                                        * cfg.ssm_state) * 4),
-                "out_proj_all_reduce": (layers, layers * tokens * d * 2),
+                "x_proj_all_reduce": (2 * layers, 2 * layers * x_proj),
+                "out_proj_all_reduce": (0, 0),
                 "in_proj_exchange_back": (layers, layers * sent),
-                "copy_back": (2 * layers, layers * tokens * (d * 2 + (dt_rank + 2
-                                                                      * cfg.ssm_state) * 4))}
+                "copy_back": (layers, layers * x_proj)}
         for i, x in enumerate(y["steps"]):
             got = {k: (v["calls"], v["bytes"]) for k, v in x["mixer"].items()}
             if got != want:
                 raise AssertionError(f"{tag} step {i + 1} the mixers' collectives {got}, "
                                      f"expected {want}")
+        kept_line = residual_check(tag, cfg, tp_plan_abstract(), y["steps"],
+                                   [1] * len(y["steps"]), MAMBA_TP_MICRO, MAMBA_TP_SEQ)
         print(f"  {tag} channels [{y['tp_rank'] * c}, {(y['tp_rank'] + 1) * c}) of "
               f"{d_inner}: the scan saw {c} channels (dt, A_log, h), in_proj's [x_t | z_t] "
               f"rows ({2 * c}, {d}) and never ({2 * d_inner}, {d}); resident state "
@@ -7451,13 +7622,15 @@ def mamba_tp_phase() -> dict[str, dict]:
                             for k, what in MAMBA_TP_KINDS.items())
             print(f"    step {i + 1}: loss {x['loss']:.5f} (one process {one['loss'][i]:.5f}), "
                   f"{x['ms']:.1f} ms (one process {one['ms'][i]:.1f}); the mixers' "
-                  f"collectives: {mix}; all collectives {coll_ms:.1f} ms "
+                  f"collectives: {mix}; the split residual: {residual_line(x['residual'])}; "
+                  f"all collectives {coll_ms:.1f} ms "
                   f"({100 * coll_ms / x['ms']:.1f}%): {coll_line(cl)}")
         print(f"    losses within {rel:.3e} relative, sq_norm_sum {y['sq_norm_sum']:.6e} "
               f"within {sq:.3e} (tol {SHARD_LOSS_RTOL})"
               + (f", gathered parameters within {gap:.3e} (tol {SHARD_PARAM_ATOL})"
                  if rk == 0 else "")
-              + f"; tp_counts {y['tp_counts']}")
+              + f"; tp_counts {y['tp_counts']}; the residual's collectives every step the "
+              f"reckoning's; {kept_line}")
     print(f"  phase 33: its one-process run {PHASE33['one_s']:.1f} s, its ranks "
           f"{max(y['wall_s'] for y in res.values()):.1f} s of phase 25's spawn")
     free()

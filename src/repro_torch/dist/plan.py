@@ -38,7 +38,14 @@ compute (``models/transformer.py``) brackets a block's split products with
 :func:`copy_to_group` (identity forward, all-reduce sum backward: in front
 of the column-parallel products) and :func:`reduce_from_group` (all-reduce
 sum forward, identity backward: after the row-parallel ones), Megatron's
-``f`` and ``g``; :func:`tensor_parallel_counts` counts their all-reduces.  Each tensor helper here reports the collective it issues to
+``f`` and ``g``; :func:`tensor_parallel_counts` counts their all-reduces.
+Where the training stack splits the residual stream by columns over tp,
+a sublayer enters by :func:`residual_entry` (all-gather forward; backward
+a sum reduce-scatter, or the rank's own columns) and leaves by
+:func:`residual_exit` (reduce-scatter sum forward, all-gather backward)
+or, when it computed whole, :func:`residual_slice` (the rank's columns,
+all-gather backward); :func:`residual_counts` counts them by kind.  Each
+tensor helper here reports the collective it issues to
 the recorders of :func:`record_collectives` (kind, bytes, the group's
 ranks): what the dry run (``utils/hlo.py``) and the scale-out tests count.
 The training step and the sharded state issue every collective through
@@ -793,3 +800,130 @@ def permute_blocks(x: torch.Tensor, perm: Sequence[int], mesh, axes: AxisNames,
     if x.requires_grad and torch.is_grad_enabled():
         return _PermuteBlocks.apply(x, perm, mesh, axes, counts, back_counts)
     return permute_blocks_dim0(x, perm, mesh, axes, counts)
+
+
+# ---------------------------------------------------------------------------
+# the residual stream split over tp: a sublayer's entry and exit, the slice
+# ---------------------------------------------------------------------------
+
+#: the residual stream's collectives in tensor-parallel training, by kind
+#: (:func:`residual_counts`): the sublayer entries' all-gathers and, behind
+#: a split sublayer, their backward's reduce-scatters; the exits'
+#: reduce-scatters and their backward's all-gathers; the slices' backward
+#: all-gathers
+RESIDUAL_KINDS = ("entry_all_gather", "entry_reduce_scatter", "exit_reduce_scatter",
+                  "exit_all_gather", "slice_all_gather")
+_RES_COUNTS: dict[str, dict[str, int]] = {k: {"calls": 0, "bytes": 0} for k in RESIDUAL_KINDS}
+
+
+def residual_counts() -> dict[str, dict[str, int]]:
+    """``{kind: {"calls", "bytes"}}`` of :data:`RESIDUAL_KINDS` since the
+    last :func:`reset_residual_counts`, each call by the bytes of the whole
+    tensor (a gather's output, a reduce-scatter's input); a remat recompute
+    issues and counts the forward's again."""
+    return {k: dict(v) for k, v in _RES_COUNTS.items()}
+
+
+def reset_residual_counts() -> None:
+    for v in _RES_COUNTS.values():
+        v.update(calls=0, bytes=0)
+
+
+def _residual(kind: str, x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """One of the residual's collectives along ``x``'s last dim over
+    ``axes``, counted by ``kind``: the ``*_all_gather`` kinds join the
+    ranks' columns, the others reduce-scatter the sum to the rank's."""
+    if kind.endswith("all_gather"):
+        out = whole = all_gather_dim([x], [x.dim() - 1], mesh, axes)[0]
+    else:
+        whole, out = x, reduce_scatter_dim([x], [x.dim() - 1], mesh, axes, mean=False)[0]
+    _RES_COUNTS[kind]["calls"] += 1
+    _RES_COUNTS[kind]["bytes"] += whole.numel() * whole.element_size()
+    return out
+
+
+class _ResidualEntry(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, summed):
+        ctx.mesh, ctx.axes, ctx.summed = mesh, axes, summed
+        return _residual("entry_all_gather", x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = _residual("entry_reduce_scatter", g, ctx.mesh, ctx.axes)
+        else:
+            g = _slice_own(g, g.dim() - 1, ctx.mesh, ctx.axes)
+        return g, None, None, None
+
+
+class _ResidualExit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _residual("exit_reduce_scatter", y, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _residual("exit_all_gather", g, ctx.mesh, ctx.axes), None, None
+
+
+class _ResidualSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _slice_own(x, x.dim() - 1, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _residual("slice_all_gather", g, ctx.mesh, ctx.axes), None, None
+
+
+def residual_entry(x: torch.Tensor, mesh, axes: AxisNames, summed: bool) -> torch.Tensor:
+    """A sublayer's entry: this rank's columns ``x`` (..., d/n) of the
+    residual joined whole (..., d) by one all-gather over ``axes``.  Its
+    backward is :func:`gather_shards`' rule for one axis group: ``summed``
+    (every consumer of the whole uses a part of it: a split sublayer's
+    column products) reduce-scatters the ranks' partial gradients as a sum;
+    else (the consumers' gradient is whole and alike on every rank: a
+    sublayer that computes whole) each rank keeps its own columns.  An
+    identity on one rank."""
+    if mesh.axis_group(_axes(axes))[1] == 1:
+        return x
+    return _ResidualEntry.apply(x, mesh, axes, bool(summed))
+
+
+def residual_exit(y: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """A split sublayer's exit: the ranks' partial outputs ``y`` (..., d)
+    summed and this rank's columns (..., d/n) kept, one reduce-scatter over
+    ``axes`` (``reduce_from_group``'s all-reduce, its other columns left on
+    their ranks); the backward all-gathers the columns' gradient.  An
+    identity on one rank."""
+    if mesh.axis_group(_axes(axes))[1] == 1:
+        return y
+    return _ResidualExit.apply(y, mesh, axes)
+
+
+def residual_slice(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """This rank's columns of ``x`` (..., d), whole and alike on every rank
+    along ``axes`` (a whole sublayer's output, a whole embedding); the
+    backward all-gathers the columns' gradient.  An identity on one rank."""
+    if mesh.axis_group(_axes(axes))[1] == 1:
+        return x
+    return _ResidualSlice.apply(x, mesh, axes)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def scale_grad(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """``x`` as it is; its gradient times ``factor``."""
+    return _ScaleGrad.apply(x, factor)

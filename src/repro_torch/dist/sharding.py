@@ -79,7 +79,8 @@ import torch
 
 from repro_torch.dist.plan import (AxisNames, ShardingPlan, all_gather_dim, all_reduce_mean,
                                    all_reduce_sum_, copy_to_group, gather_shards,
-                                   reduce_from_group)
+                                   reduce_from_group, residual_entry, residual_exit,
+                                   residual_slice, scale_grad)
 
 
 class P(tuple):
@@ -420,13 +421,19 @@ class TpSplit:
     mamba_apply_tp``), or None.  ``whole``: the sublayers that compute
     whole on every tp rank ("attn" where neither the heads nor their
     widths and the length divide, "mamba" where ``d_inner`` does not
-    divide, "dense" or "moe" where ``ff`` does not divide, "moe_ep")."""
+    divide, "dense" or "moe" where ``ff`` does not divide, "moe_ep").
+    ``residual``: the training stack holds the residual stream split by
+    ``d_model`` columns over the tp ranks (:func:`residual_split`): each
+    sublayer's norm then reads a whole input gathered from the ranks'
+    columns, and a split sublayer's norm scale takes a part of its
+    gradient on each rank."""
 
     size: int
     attn: str | None = None
     ffn: str | None = None
     whole: tuple[str, ...] = ()
     ssm: str | None = None
+    residual: bool = False
 
     def kv_heads(self, kv: int, rank: int) -> tuple[int, int]:
         """``(first, count)`` of the ``kv`` KV heads tp rank ``rank``
@@ -447,7 +454,12 @@ class TpSplit:
         gather's default).  A replicated bias is "partial" under every
         split: sliced by heads "local" and "shared", by columns "context",
         by channels (``dt_proj``'s) "channels"; every other Mamba leaf is
-        "resident" there."""
+        "resident" there.  Under a split residual the norm scale in front
+        of a split sublayer is "partial" too (its sublayer's products give
+        each rank a part of the normed input's gradient)."""
+        if self.residual and (name == "norm.scale" and (self.attn or self.ssm)
+                              or name == "ffn_norm.scale" and self.ffn):
+            return "partial"
         if self.ssm is not None:
             if name in _TP_RESIDENT["mamba"]:
                 return "resident"
@@ -476,8 +488,9 @@ def tp_split(cfg, pos: int, plan: ShardingPlan | None, seq: int | None = None) -
     channels ("channels") when ``d_inner % T == 0`` (the reference's specs
     put ``d_inner`` on tp); a dense FFN, or a MoE FFN on ``moe_apply``,
     when ``ff % T == 0``.  ``moe_impl="ep"`` over several expert ranks
-    computes whole, as does a sublayer whose widths do not divide.  Serving
-    takes :func:`serving_split`."""
+    computes whole, as does a sublayer whose widths do not divide.  The
+    residual stream splits by :func:`residual_split`.  Serving takes
+    :func:`serving_split`."""
     t = plan.tp_size if plan is not None and plan.tp else 1
     if t == 1:
         return TpSplit(1)
@@ -504,27 +517,74 @@ def tp_split(cfg, pos: int, plan: ShardingPlan | None, seq: int | None = None) -
             ffn = kind
         else:
             whole.append(kind)
-    return TpSplit(t, attn, ffn, tuple(whole), ssm)
+    return TpSplit(t, attn, ffn, tuple(whole), ssm, residual_split(cfg, plan))
+
+
+def residual_split(cfg, plan: ShardingPlan | None) -> bool:
+    """Whether the training stack splits the residual stream over
+    ``plan``'s tp axes (T > 1 ranks): by ``d_model`` columns, ``d/T`` a
+    rank, wherever T divides ``d_model`` (the reference's ``residual``
+    activation spec ``P(dp, None, tp)``).  Arithmetic on ``cfg`` and the
+    plan, so every rank gets the same answer."""
+    t = plan.tp_size if plan is not None and plan.tp else 1
+    return t > 1 and cfg.d_model % t == 0
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """This rank's place on a plan's tp axes: ``rank`` of ``size``, and the
-    all-reduces that bracket a split sublayer over the axes' group."""
+    collectives that bracket a split sublayer over the axes' group.
+    ``residual``: the residual stream is split by ``d_model`` columns (the
+    training stack's, :func:`residual_split`), so a sublayer enters by
+    gathering the ranks' columns and leaves by a reduce-scatter (split) or
+    a slice (whole); else it is whole on every rank, and a split sublayer
+    sits between ``copy`` and ``reduce``."""
 
     mesh: Any
     axes: tuple[str, ...]
     size: int
     rank: int
+    residual: bool = False
 
     def copy(self, x: torch.Tensor, counts: dict | None = None) -> torch.Tensor:
-        """``dist.plan.copy_to_group``: in front of the column-parallel
-        products (its backward's all-reduce counted in ``counts`` too)."""
+        """``dist.plan.copy_to_group``: ``x``'s gradient summed over tp (its
+        backward's all-reduce counted in ``counts`` too)."""
         return copy_to_group(x, self.mesh, self.axes, counts)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """``dist.plan.reduce_from_group``: after the row-parallel ones."""
+        """``dist.plan.reduce_from_group``: the ranks' partial ``x`` summed."""
         return reduce_from_group(x, self.mesh, self.axes)
+
+    def entry(self, x: torch.Tensor, summed: bool) -> torch.Tensor:
+        """A sublayer's residual input whole: under a split residual the
+        rank's columns gathered (``dist.plan.residual_entry``; ``summed``
+        for a split sublayer, whose products each use a part); else ``x``."""
+        return residual_entry(x, self.mesh, self.axes, summed) if self.residual else x
+
+    def enter(self, h: torch.Tensor, counts: dict | None = None) -> torch.Tensor:
+        """In front of a split sublayer's column-parallel products: ``copy``
+        (``counts`` as there) with the residual whole; ``h`` as it is under
+        a split residual, whose entry sums the parts."""
+        return h if self.residual else self.copy(h, counts)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """After a split sublayer's row-parallel products: the rank's
+        columns of their sum (``dist.plan.residual_exit``) under a split
+        residual; else ``reduce``."""
+        return residual_exit(y, self.mesh, self.axes) if self.residual else self.reduce(y)
+
+    def own(self, y: torch.Tensor) -> torch.Tensor:
+        """A whole sublayer's (or input's) output, alike on every rank, as
+        the residual holds it: the rank's columns under a split residual
+        (``dist.plan.residual_slice``); else ``y``."""
+        return residual_slice(y, self.mesh, self.axes) if self.residual else y
+
+    def shared(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` for a use whose gradient every rank computes whole and
+        alike (the MoE router): under a split residual that gradient
+        divided by T, so that the entry's summed backward counts it once;
+        else ``x``."""
+        return scale_grad(x, 1.0 / self.size) if self.residual else x
 
     @property
     def group(self):
@@ -544,13 +604,17 @@ def tp_rank(plan: ShardingPlan | None, coords: Mapping[str, int] | None = None) 
     return k
 
 
-def tensor_parallel(layout: "StateLayout | None") -> TensorParallel | None:
+def tensor_parallel(layout: "StateLayout | None", cfg=None) -> TensorParallel | None:
     """Where a sharded state's compute splits over tp: its plan's tp axes
-    when they span several ranks, else None (no layout, or T = 1)."""
+    when they span several ranks, else None (no layout, or T = 1).  With
+    ``cfg`` (the training stack's) the residual splits where
+    :func:`residual_split` says so; without, it stays whole (serving, the
+    probe pass)."""
     if layout is None or not layout.plan.tp or layout.plan.tp_size == 1:
         return None
     return TensorParallel(layout.mesh, _entry_axes(layout.plan.tp), layout.plan.tp_size,
-                          tp_rank(layout.plan, layout.coords))
+                          tp_rank(layout.plan, layout.coords),
+                          cfg is not None and residual_split(cfg, layout.plan))
 
 
 def serving_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
@@ -558,9 +622,10 @@ def serving_split(cfg, pos: int, plan: ShardingPlan | None) -> TpSplit:
     (counted in ``whole``), since a decode step has one query row per
     sequence to split and context-parallel prefill is ROADMAP.md Queue A 5's
     later item; so does a Mamba mixer, whose per-slot state holds every
-    channel (Mamba channels when serving: a later Queue A 5 item); every
-    other split as in training."""
-    split = tp_split(cfg, pos, plan)
+    channel (Mamba channels when serving: a later Queue A 5 item); the
+    residual stream stays whole (the reference splits it in training
+    only); every other split as in training."""
+    split = dataclasses.replace(tp_split(cfg, pos, plan), residual=False)
     if split.attn == "context":
         split = dataclasses.replace(split, attn=None, whole=("attn",) + split.whole)
     if split.ssm is not None:

@@ -37,12 +37,13 @@ as the reference's dry run reaches its XLA flash lane; the kernel lane's
 wrappers take their plain (materialising) versions on host tensors, a
 different program.  A train cell's blocks split over the mesh's ``model``
 axis as the training stack splits them (``dist.sharding.tp_split``: each tp
-rank its heads and FFN widths, two all-reduces a layer over the model
-group), and so do its input and head (``models/transformer.py``: each rank
-looks up its ``d/T`` embedding columns, or computes its ``d/T`` frontend
-columns, then one all-gather over tp; where T divides V the cross-entropy
-is vocab-parallel on the rank's ``V/T`` head rows, one all-gather of the
-logsumexps a microbatch and one all-reduce of the head's dx).  Where T
+rank its heads and FFN widths, an all-gather in and a reduce-scatter out
+of each sublayer over the model group), and so do its input and head
+(``models/transformer.py``: each rank looks up its ``d/T`` embedding
+columns, or computes its ``d/T`` frontend columns, its residual shard;
+where T divides V the cross-entropy is vocab-parallel on the rank's
+``V/T`` head rows, one all-gather of the logsumexps a microbatch, the
+head's dx summed by the final norm's entry).  Where T
 does not divide the heads but divides their widths and the length
 (qwen2-7b's 28/4 and internvl2-1b's 14/2 heads at T 16), attention runs
 context-parallel as the reference's ``attn_q``/``attn_kv`` specs lay it
@@ -53,13 +54,24 @@ its rows of ``o``.  A Mamba mixer whose ``d_inner`` T divides runs on the
 rank's ``d_inner/T`` channels (``models/ssm.py::mamba_apply_tp``: one
 exchange of ``in_proj``'s rows over tp, ``x_proj``'s partial summed over
 tp, its rows of ``out_proj`` and one all-reduce).  What does not split
-runs whole on every tp rank.
+runs whole on every tp rank.  The residual stream splits too, by
+``d_model`` columns over the model axis wherever T divides ``d_model``
+(``dist.sharding.residual_split``; every config at T 16), the reference's
+``residual`` activation spec ``P(dp, None, tp)``: each rank holds its
+``d/T`` columns between sublayers, each sublayer's entry all-gathers them
+before its norm and its exit reduce-scatters the row-parallel output (an
+all-reduce's bytes in two collectives), so remat keeps ``(B, S, d/T)`` of
+each layer's input a rank; the record's ``memory.remat_kept_bytes`` counts
+what the traced microbatch hands ``checkpoint`` (``transformer.
+remat_counts``).
 Prefill and decode (serving) split the same way (each rank computes its
 ``V/T`` logits, then one all-gather over tp), and hold the rank's KV heads only: ``KV/T`` of them, or where T ranks
 share a KV head that one whole (T/KV times the reference's layout, which
 splits ``head_dim`` there); context-parallel attention computes whole when
-serving (``dist.sharding.serving_split``).
-``act_specs_for`` has no counterpart: the residual stream is not split.
+serving (``dist.sharding.serving_split``), and so does the residual stream
+(the reference installs no ``residual`` spec for prefill or decode).
+``act_specs_for`` has no counterpart: the split is arithmetic on the config
+and the plan, not a table of specs.
 
 Usage (no card needed):
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
@@ -322,10 +334,12 @@ def trace_train(cfg, plan: ShardingPlan | None, micro_global: int, seq: int, num
              torch.zeros(micro_global, seq, cfg.d_model, dtype=getattr(torch, cfg.compute_dtype)))
         batch = {key: x, "targets": torch.zeros(micro_global, seq, dtype=torch.int32)}
         counter.reset_counts()
+        tf.reset_remat_counts()
         step(state, batch, 0.1)
         end = counter.snapshot()
     snap = hlo_lib.extrapolate(marks[0], marks[1], end, num_micro)
-    return {"analysis": counter.analysis(snap), "state_bytes": held}
+    return {"analysis": counter.analysis(snap), "state_bytes": held,
+            "remat_kept_bytes": tf.remat_counts()["bytes"]}
 
 
 def trace_prefill(cfg, plan: ShardingPlan | None, batch: int, seq: int) -> dict:
@@ -447,7 +461,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
                         "opt_dtype": str(opt_dtype).replace("torch.", ""),
                         "traced": "one microbatch and the update; counts extrapolated "
                                   f"to {num_micro} microbatches"}
-                memory = {"state_bytes": res["state_bytes"]}
+                memory = {"state_bytes": res["state_bytes"],
+                          "remat_kept_bytes": res["remat_kept_bytes"]}
             elif shape.kind == "prefill":
                 res = trace_prefill(cfg, plan, shape.global_batch, shape.seq_len)
                 info = {"moe_groups": res["moe_groups"]}
@@ -483,15 +498,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
             tuning=info,
             traced_rank=rank,
             attn_impl_traced=_attn_impl_traced(cfg, shape),
-            activations=("heads and FFN widths split over the model axis "
-                         "(dist.sharding.tp_split), the residual stream whole; the "
-                         "embedding's d and the head's V over tp"
-                         + ("; attention context-parallel where tp does not divide "
-                            "the heads: each rank's S/T query rows of every head, k/v "
-                            "gathered whole over tp (the reference's attn_q / attn_kv)"
-                            if rank else "")
-                         + ("" if shape.kind == "train" else ", the cache at the rank's "
-                            "KV heads")),
+            activations=activations(cfg, shape.kind, plan, rank),
             memory=memory,
             cost={
                 "flops_per_device": analysis["flops"],
@@ -517,6 +524,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None,
         log.error("%s x %s FAILED: %s", arch, shape_name, record["error"])
     _save(record, out_dir)
     return record
+
+
+def activations(cfg, kind: str, plan: ShardingPlan, rank: int = 0) -> str:
+    """The record's account of how a cell's activations lie over the
+    mesh: the split sublayers, the residual stream (split by columns in
+    training where :func:`dist.sharding.residual_split` says so, else
+    whole), the input and the head, context-parallel attention on a traced
+    rank past 0, the serving cache."""
+    residual = ("the residual stream split by d_model columns over the model axis "
+                "(P(dp, None, tp): remat keeps each layer's (B, S, d/T))"
+                if kind == "train" and sharding.residual_split(cfg, plan)
+                else "the residual stream whole")
+    return ("heads and FFN widths split over the model axis (dist.sharding.tp_split), "
+            + residual + "; the embedding's d and the head's V over tp"
+            + ("; attention context-parallel where tp does not divide the heads: each "
+               "rank's S/T query rows of every head, k/v gathered whole over tp (the "
+               "reference's attn_q / attn_kv)" if rank else "")
+            + ("" if kind == "train" else ", the cache at the rank's KV heads"))
 
 
 def summary(rec: dict) -> str:

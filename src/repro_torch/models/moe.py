@@ -22,10 +22,14 @@ Tensor-parallel (``tp``, a ``dist.sharding.TensorParallel``, the training
 stack's on a tp plan): the experts hold the rank's ``ff/T`` columns; the
 router is replicated and routes alike on every tp rank (so ``MoE.stats``
 and the aux loss are equal across them), each rank runs the expert products
-on its columns, and the combined output is all-reduced over tp.  The
-experts' input and the combine weights pass ``copy_to_group`` (each rank's
-gradient there is its columns' part); the routing's own use of the input
-does not (its gradient is whole on every rank).
+on its columns, and the combined output is summed over tp (``tp.exit``: an
+all-reduce, or under a split residual a reduce-scatter to the rank's
+``d/T`` columns).  The experts' input passes ``tp.enter`` and the combine
+weights ``tp.copy`` (each rank's gradient there is its columns' part); the
+routing's own use of the input has a gradient whole and alike on every
+rank: with the residual whole it passes nothing, under a split residual
+``tp.shared`` (divided by T, so that the entry's sum over tp counts it
+once).
 
 ``MoE`` holds the parameters in the reference's layout: ``router`` a
 bias-free ``nn.Linear(d, E)`` kept in float32 whatever the model's type,
@@ -140,7 +144,8 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     dev = xt.device
 
     xg = xt.reshape(groups, tg, d)
-    weights, experts, probs = _route(params.router.weight, xg, top_k)  # (G, tg, k)
+    weights, experts, probs = _route(params.router.weight,
+                                     xg if tp is None else tp.shared(xg), top_k)  # (G, tg, k)
     e_flat = experts.reshape(groups, tg * top_k)
     w_flat = weights.reshape(groups, tg * top_k)
     experts_e = torch.arange(num_e, device=dev)
@@ -153,7 +158,7 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     g_idx = torch.arange(groups, device=dev)[:, None].expand(groups, tg * top_k)
     if tp is not None:
         w_flat = tp.copy(w_flat)
-    x_assign = (xg if tp is None else tp.copy(xg))[:, token_idx] * keep[..., None].to(dt)
+    x_assign = (xg if tp is None else tp.enter(xg))[:, token_idx] * keep[..., None].to(dt)
     buf = torch.zeros((groups, num_e, cap, d), dtype=dt, device=dev).index_put(
         (g_idx, e_flat, slot), x_assign, accumulate=True)
 
@@ -176,9 +181,8 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     y = y_assign[:, :, 0]
     for j in range(1, top_k):
         y = y + y_assign[:, :, j]
-    if tp is not None:
-        y = tp.reduce(y)
-    return y.reshape(shape), aux.mean()
+    y = y.reshape(shape)
+    return (y if tp is None else tp.exit(y)), aux.mean()
 
 
 def moe_reference(params: MoE, x: torch.Tensor, *, top_k: int, act: str = "silu"

@@ -48,7 +48,8 @@ computes whole on every tp rank.  The embedding (or frontend) and the
 head, unprobed, split as in ``transformer.loss_fn``: the rank's ``d/T``
 input columns joined by one all-gather, the vocab-parallel cross-entropy
 behind ``tp.copy`` (without it the probes' gradients would be the rank's
-part of the head's dx only).  ``probe_specs`` reads the widths off the
+part of the head's dx only).  The probe pass keeps the residual stream
+whole on every tp rank, where the training stack splits it by columns.  ``probe_specs`` reads the widths off the
 current plan (the train step calls it under ``use_plan``), or off
 ``plan=``.  The exact tier's per-sample pass (``torch.func``) runs whole.
 
@@ -58,6 +59,8 @@ in that sorted order.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -169,12 +172,14 @@ def loss_with_probes(cfg: ModelConfig, params: tf.Transformer, probes: dict,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, p, blk in tf._layers(cfg, params):
-        split = sharding.tp_split(cfg, p, layout.plan, x.shape[1]) if tp is not None else None
+        # the probe pass keeps the residual stream whole (its own forward)
+        split = dataclasses.replace(sharding.tp_split(cfg, p, layout.plan, x.shape[1]),
+                                    residual=False) if tp is not None else None
         with sharding.gathered(blk, layout, f"blocks.{r * cfg.period + p}.",
                                keep_resident=False, split=split):
             x, aux = _probed_block(cfg, blk, x, r, p, positions, pdense, aux, moe_groups,
                                    tp, split)
-    loss = tf._xent(cfg, params, params.final_norm(x), batch["targets"], tp)
+    loss = tf._xent(cfg, params, x, batch["targets"], tp)
     if cfg.num_experts:
         loss = loss + 0.01 * aux
     return loss, acts

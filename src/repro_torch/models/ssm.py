@@ -38,7 +38,9 @@ diagonal over channels, so tp rank t of T runs the mixer on its ``c =
 d_inner/T`` channels ``[t c, (t+1) c)`` from the shards the reference's
 specs give it (``conv_kernel``, ``conv_bias``, ``A_log``, ``D``, the
 columns of ``x_proj`` and ``dt_proj``'s rows: those channels; ``out_proj``
-row-parallel).  Two collectives besides Megatron's pair around it:
+row-parallel).  Two collectives besides the pair around it (Megatron's
+``copy`` and ``reduce`` with the residual whole; under a split residual
+the entry's all-gather and the exit's reduce-scatter):
 ``in_proj``'s column shard holds the contiguous rows ``[2 t c, 2 (t+1)
 c)`` of ``[x | z]``, not the rank's channels, so one exchange over tp
 (``dist.plan.permute_blocks``) gives each rank its ``[x_t | z_t]`` rows;
@@ -62,9 +64,9 @@ from repro_torch.models.layers import dense, in_func_transform, silu
 
 #: the channel-parallel mixer's collectives, by kind (``collective_counts``): the
 #: forwards' ``in_proj`` exchange (by the bytes a rank sends), ``x_proj``
-#: all-reduce and ``out_proj`` all-reduce, and in the backward the exchange
-#: back and the all-reduces of ``tp.copy`` (the mixer's input and the summed
-#: ``x_proj``)
+#: all-reduce and ``out_proj`` all-reduce (the residual whole), and in the
+#: backward the exchange back and the all-reduces of ``tp.copy`` (the
+#: mixer's input with the residual whole, and the summed ``x_proj``)
 TP_KINDS = ("in_proj_exchange", "x_proj_all_reduce", "out_proj_all_reduce",
             "in_proj_exchange_back", "copy_back")
 _TP_COUNTS: dict[str, dict[str, int]] = {k: {"calls": 0, "bytes": 0} for k in TP_KINDS}
@@ -289,13 +291,16 @@ def mamba_apply_tp(layer: Mamba, x: torch.Tensor, tp, *, chunk: int = 256,
     holds tp rank ``tp.rank``'s resident shards of its ``c = d_inner/T``
     channels (``dist.sharding.TpSplit.role``; ``dt_proj``'s bias whole),
     ``x`` (B, L, d_model) the normed input, the same on every tp rank.
-    ``tp.copy(x)``, the rank's ``[x_t | z_t]`` rows of ``in_proj``
+    ``tp.enter(x)``, the rank's ``[x_t | z_t]`` rows of ``in_proj``
     (:func:`channel_rows`), the convolution, ``x_proj`` summed over tp, the
-    scan over its channels, its rows of ``out_proj``, then one all-reduce:
-    the whole output on every rank."""
-    out, _, _ = _mix(layer, tp.copy(x, _TP_COUNTS["copy_back"]), chunk, remat, tp=tp)
-    out = tp.reduce(out)
-    _count("out_proj_all_reduce", out)
+    scan over its channels, its rows of ``out_proj``, then ``tp.exit``: one
+    all-reduce, the whole output on every rank, or under a split residual
+    one reduce-scatter, the rank's ``d_model/T`` columns (counted with the
+    residual's collectives, ``dist.plan.residual_counts``)."""
+    out, _, _ = _mix(layer, tp.enter(x, _TP_COUNTS["copy_back"]), chunk, remat, tp=tp)
+    out = tp.exit(out)
+    if not tp.residual:
+        _count("out_proj_all_reduce", out)
     return out
 
 

@@ -105,7 +105,7 @@ on the shards the specs give the rank (tp rank t of T):
     whole over tp (their gradient summed back over tp); replicated biases
     (qwen2's) sliced by head after ``copy_to_group``; the attention on the
     lane ``resolve_impl`` names at the local head counts (the three flash
-    kernels on the card); ``o`` row-parallel, then one all-reduce;
+    kernels on the card); ``o`` row-parallel, then the exit;
   * attention context-parallel (Ulysses-style, the reference's ``attn_q``
     / ``attn_kv`` layout), when T does not divide the heads but divides
     ``H hd``, ``KV hd`` and S (qwen2-7b's 28/4 and internvl2-1b's 14/2
@@ -118,12 +118,12 @@ on the shards the specs give the rank (tp rank t of T):
     ``[0, s1)`` (causal; every key without causality) on the lane
     ``resolve_impl`` names for S (the flash kernels at the offset form on
     the card), the out all-to-all trading the rows back for its ``H hd/T``
-    columns, then its rows of ``o`` and one all-reduce
+    columns, then its rows of ``o`` and the exit
     (``_context_attention``); the rows are contiguous, so under causality
     the last rank's rows see the most keys;
   * a dense FFN, and a MoE FFN on ``moe_apply``, when ``ff % T == 0``: the
     rank's ``ff/T`` columns (of every expert: the router stays replicated
-    and routes alike on every tp rank), then one all-reduce;
+    and routes alike on every tp rank), then the exit;
   * a Mamba mixer, when T divides ``d_inner``: the rank's ``c = d_inner/T``
     channels ``[t c, (t+1) c)`` (``models/ssm.py::mamba_apply_tp``): one
     exchange over tp turns its column shard of ``in_proj`` (rows ``[2 t c,
@@ -131,36 +131,61 @@ on the shards the specs give the rank (tp rank t of T):
     convolution, ``A_log``, ``D`` and ``dt_proj``'s rows on its channels
     (``dt_proj``'s replicated bias sliced behind ``copy_to_group``),
     ``x_proj``'s partial product summed over tp with a backward that sums
-    too, the scan over its channels, its rows of ``out_proj``, then one
-    all-reduce.
+    too, the scan over its channels, its rows of ``out_proj``, then the
+    exit.
 
-``dist.plan.copy_to_group`` goes in front of each split sublayer's
-column-parallel products and ``reduce_from_group`` after its row-parallel
-ones.  The residual stream and the norms stay replicated over tp (no
-sequence parallelism).  The input and the head split too, on the shards
-the specs give the rank, so no tp rank forms a ``(V, d)`` table or its
-gradient whole:
+The residual stream splits too, by ``d_model`` columns, wherever T
+divides ``d_model`` (``dist.sharding.residual_split``; the reference's
+``residual`` activation spec ``P(dp, None, tp)``): tp rank t holds
+columns ``[t d/T, (t+1) d/T)`` between sublayers and across the layer
+boundary, so the input ``checkpoint`` keeps of each layer under remat is
+``(B, S, d/T)`` (``remat_counts``).  Each pre-norm sublayer enters by one
+all-gather of the ranks' columns (``dist.plan.residual_entry``), runs its
+norm on the whole x, and a split sublayer leaves by one reduce-scatter of
+its row-parallel output to the rank's columns (``residual_exit``: the
+all-reduce's bytes in two collectives); the residual adds run on the
+rank's columns.  The entry's backward sums the ranks' partial gradients
+by a reduce-scatter in front of a split sublayer (each of its products
+uses a part of the normed input), so the norm's scale takes a part of its
+gradient on each rank and is summed over tp once (``TpSplit.role``
+"partial"); the MoE router, which reads the whole normed input alike on
+every rank, passes ``tp.shared`` (its gradient divided by T, so the sum
+counts it once).  Where T does not divide ``d_model`` the residual stays
+whole on every rank (``tp_whole`` "residual") and a split sublayer sits
+between ``dist.plan.copy_to_group`` in front of its column-parallel
+products and ``reduce_from_group`` after its row-parallel ones.  The
+residual collectives are counted by kind in
+``dist.plan.residual_counts``.  The input and the head split too, on the
+shards the specs give the rank, so no tp rank forms a ``(V, d)`` table
+or its gradient whole:
 
   * the embedding (V over fsdp, d over tp): its tp shard gathered over
     fsdp only, the rank's ``d/T`` columns looked up; the frontend
-    (column-parallel): the rank's ``d/T`` output columns; then one
-    all-gather over tp whose backward keeps the rank's columns
-    (``_model_input``);
-  * the head, where T divides V: ``x = tp.copy(final_norm(x))``, then
+    (column-parallel): the rank's ``d/T`` output columns; these are its
+    residual shard as they are (with the residual whole: one all-gather
+    over tp whose backward keeps the rank's columns) (``_model_input``);
+  * the head, where T divides V: the final norm on the residual gathered
+    by an entry (its scale's gradient summed over tp once), then
     ``xent_vocab_parallel`` on the rank's ``V/T`` rows: per chunk its
     float32 logits (capped), their logsumexp and the target logit where
     the rank holds it, one all-gather over tp of both for the whole row's,
-    and in the backward the rank's dx part (summed by ``tp.copy``'s
-    all-reduce) and its rows' dW (``_xent``).
+    and in the backward the rank's dx part (summed by the entry's
+    reduce-scatter; with the residual whole, ``x = tp.copy(final_norm(x))``
+    and its all-reduce) and its rows' dW (``_xent``).
 
 What does not split computes whole on every tp rank from leaves gathered
 whole, as without tp: ``moe_impl="ep"`` (the experts' ``ff`` gathered), a
 head whose V the tp ranks do not divide, attention whose heads, widths or
 length the tp ranks do not divide, and a Mamba mixer whose ``d_inner``
-they do not divide.  ``tp_counts()`` counts, by kind, the sublayers the
-stack ran split (``tp_split``: "attn" by heads, "attn_context"
-context-parallel, "mamba" by channels) and whole (``tp_whole``) on a tp
-plan, in training and in serving, and the input and the head per call;
+they do not divide.  Under a split residual such a sublayer (or a whole
+input or head) enters by an all-gather whose backward keeps the rank's
+columns (its gradient is whole and alike on every rank) and leaves
+through ``dist.plan.residual_slice``, the rank's columns of its output.
+``tp_counts()`` counts, by kind, the sublayers the stack ran split
+(``tp_split``: "attn" by heads, "attn_context" context-parallel, "mamba"
+by channels) and whole (``tp_whole``) on a tp plan, in training and in
+serving, the training stack's residual a layer ("residual"), and the
+input and the head per call;
 ``vocab_parallel_counts()`` the input's and the head's collectives,
 ``context_parallel_counts()`` the context-parallel exchanges,
 ``ssm.collective_counts()`` the channel-parallel mixers'; ROADMAP.md Queue
@@ -173,9 +198,11 @@ rank computes its query heads, its KV heads and its FFN columns, and its
 pool, rings and dense cache hold only those KV heads
 (``dist.sharding.serving_kv_heads``: ``KV/T`` of them "local", the one it
 shares, whole, "shared"; every head where attention computes whole);
-``o`` and the FFN's output all-reduce over tp.  The input splits as in
-training (``_model_input``: the embedding's or the frontend's ``d/T``
-columns, one all-gather over tp); the head (V over tp where T divides V)
+``o`` and the FFN's output all-reduce over tp, and the residual stream
+stays whole (the reference splits it in training only).  The input
+splits as in training with the residual whole (``_model_input``: the
+embedding's or the frontend's ``d/T`` columns, one all-gather over tp);
+the head (V over tp where T divides V)
 gives each rank its ``V/T`` float32 logits, capped, and one all-gather
 over tp joins them, so every rank samples from the whole row.  Whole on
 every tp rank: the Mamba mixers and their state, a head whose V the tp
@@ -241,7 +268,9 @@ def tp_counts() -> dict[str, dict[str, int]]:
     :func:`reset_tp_counts`: one count per sublayer a forward of the
     training stack or a serving call ran on a tp plan (the remat recompute
     not counted), and per call of the input ("embed" or "frontend") and
-    the head, the gram tier's probe pass included."""
+    the head, the gram tier's probe pass included; and per layer of the
+    training stack its residual stream, "residual" split by columns or
+    whole (:func:`dist.sharding.residual_split`)."""
     return {k: dict(v) for k, v in _TP_COUNTS.items()}
 
 
@@ -251,7 +280,9 @@ def vocab_parallel_counts() -> dict[str, dict[str, int]]:
     cross-entropy's all-gather of the ranks' logsumexps and target logits
     ("xent_all_gather"), both by the gathered output's bytes, and the
     all-reduce of the head's partial dx in the backward
-    ("head_all_reduce")."""
+    ("head_all_reduce").  Under a split residual (the training stack's)
+    the input enters as the rank's columns and the final entry sums the
+    head's dx: neither the input all-gather nor the head all-reduce."""
     return {k: dict(v) for k, v in _VP_COUNTS.items()}
 
 
@@ -274,6 +305,24 @@ def context_parallel_counts() -> dict[str, dict[str, int]]:
     return {k: dict(v) for k, v in _CP_COUNTS.items()}
 
 
+#: the inputs the training stack hands ``checkpoint`` under remat (layers,
+#: storage bytes), since ``reset_remat_counts``
+_REMAT_COUNTS = {"layers": 0, "bytes": 0}
+
+
+def remat_counts() -> dict[str, int]:
+    """``{"layers", "bytes"}`` since the last :func:`reset_remat_counts`:
+    the layers the stack checkpointed (the remat recompute not counted) and
+    the bytes of the storages of their inputs, which the checkpoint keeps
+    until the backward (the rank's ``d/T`` columns under a split
+    residual)."""
+    return dict(_REMAT_COUNTS)
+
+
+def reset_remat_counts() -> None:
+    _REMAT_COUNTS.update(layers=0, bytes=0)
+
+
 def reset_tp_counts() -> None:
     """Zero the counts above and the channel-parallel Mamba mixers'
     (``ssm.collective_counts``)."""
@@ -294,13 +343,16 @@ def _count_tp(key: str, kinds) -> None:
         _TP_COUNTS[key][kind] = _TP_COUNTS[key].get(kind, 0) + 1
 
 
-def _count_split(split: sharding.TpSplit) -> None:
+def _count_split(split: sharding.TpSplit, stack: bool = False) -> None:
     """Count a block's sublayers: split (attention by heads "attn",
     context-parallel "attn_context", the Mamba mixer by channels "mamba",
-    the FFN) and whole."""
+    the FFN) and whole; and with ``stack`` (the training stack's) the
+    residual stream, "residual" split by columns or whole."""
     attn = [] if not split.attn else ["attn_context" if split.attn == "context" else "attn"]
     _count_tp("tp_split", attn + ["mamba"] * bool(split.ssm) + [split.ffn] * bool(split.ffn))
     _count_tp("tp_whole", split.whole)
+    if stack:
+        _count_tp("tp_split" if split.residual else "tp_whole", ("residual",))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -318,10 +370,13 @@ class Norm(nn.Module):
         self.kind = kind
         self.scale = nn.Parameter(torch.empty(d, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """The norm of ``x``; under ``tp`` its scale behind ``tp.copy`` (its
+        gradient a part on each tp rank, summed once)."""
+        scale = self.scale if tp is None else tp.copy(self.scale)
         if self.kind == "rms":
-            return rms_norm(x, self.scale)
-        return layer_norm(x, self.scale)
+            return rms_norm(x, scale)
+        return layer_norm(x, scale)
 
 
 class Attention(nn.Module):
@@ -486,8 +541,11 @@ def _model_input(cfg: ModelConfig, params: Transformer, batch: dict, tp) -> torc
     frontend (column-parallel), then one all-gather over tp whose backward
     keeps the rank's columns of the gradient (``dist.plan.gather_shards``:
     the residual stream's gradient is the same on every tp rank).  A leaf
-    the specs leave whole over tp computes whole.  Counted in
-    ``tp_counts`` and ``vocab_parallel_counts``."""
+    the specs leave whole over tp computes whole.  Under a split residual
+    (``tp.residual``, the training stack's) the rank's columns are its
+    residual shard and go in as they are, and a whole leaf's output is
+    sliced to them (``tp.own``).  Counted in ``tp_counts`` and
+    ``vocab_parallel_counts``."""
     cdt = _dtype(cfg.compute_dtype)
     if cfg.input_mode == "tokens":
         kind, want = "embed", 1
@@ -501,10 +559,12 @@ def _model_input(cfg: ModelConfig, params: Transformer, batch: dict, tp) -> torc
         return x
     if dim is None:
         _count_tp("tp_whole", (kind,))
-        return x
+        return tp.own(x)
     if dim != want:
         raise ValueError(f"{kind} is split over tp along dim {dim}, not d_model")
     _count_tp("tp_split", (kind,))
+    if tp.residual:
+        return x
     x = gather_shards([x], [[(x.dim() - 1, tp.axes)]], tp.mesh,
                       sharding.layout_of(params).plan.dp)[0]
     _count_vp("input_all_gather", x)
@@ -624,7 +684,8 @@ def _context_attention(cfg: ModelConfig, ap: Attention, h: torch.Tensor,
     (normed, behind ``tp.copy``): :func:`_context_qkv`, the rank's S/T
     query rows at ``q_offset = s0`` against keys ``[0, sk)`` on the lane
     ``resolve_impl`` names for the whole length, :func:`_context_out`, then
-    the rank's rows of ``o`` (row-parallel); the caller all-reduces."""
+    the rank's rows of ``o`` (row-parallel); the caller sums them over tp
+    (``tp.exit``)."""
     s = h.shape[1]
     q, k, v = _context_qkv(cfg, ap, h, positions, tp)
     out = _self_attention(cfg, q, k, v, window, cfg.causal, context_rows(cfg, s, tp)[0], s)
@@ -637,8 +698,8 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
     """The attention sublayer on ``x`` (normed); ``split`` ("local" or
     "shared", ``dist.sharding.TpSplit.attn``) computes rank ``tp.rank``'s
     heads, "context" its query rows of every head
-    (:func:`_context_attention`), and all-reduces the row-parallel ``o``
-    over tp."""
+    (:func:`_context_attention`), between ``tp.enter`` and ``tp.exit``
+    (the row-parallel ``o`` summed over tp)."""
     b, s, _ = x.shape
     window = cfg.window if kind == "attn_local" else None
     if split is None:
@@ -646,10 +707,10 @@ def _attn_sublayer(cfg: ModelConfig, ap: Attention, x: torch.Tensor, kind: str,
         out = _self_attention(cfg, q, k, v, window, cfg.causal)
         return dense(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), ap.o.weight)
     if split == "context":
-        return tp.reduce(_context_attention(cfg, ap, tp.copy(x), positions, window, tp))
-    q, k, v = _qkv(cfg, ap, tp.copy(x), positions, tp, split)
+        return tp.exit(_context_attention(cfg, ap, tp.enter(x), positions, window, tp))
+    q, k, v = _qkv(cfg, ap, tp.enter(x), positions, tp, split)
     out = _self_attention(cfg, q, k, v, window, cfg.causal)
-    return tp.reduce(dense(out.reshape(b, s, -1), ap.o.weight))
+    return tp.exit(dense(out.reshape(b, s, -1), ap.o.weight))
 
 
 def _mamba_sublayer(cfg: ModelConfig, mixer: ssm.Mamba, h: torch.Tensor, tp=None,
@@ -669,25 +730,42 @@ def _block_apply(cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor,
     """One layer: the pre-norm mixer (attention, or Mamba over chunks of
     ``cfg.ssm_chunk``), then the pre-norm FFN; ``(x, the layer's MoE aux
     loss)`` (None without a MoE FFN).  ``tp``/``split``: the sublayers
-    ``split`` names run split over tp (``dist.sharding.TensorParallel``)."""
-    h = blk.norm(x)
+    ``split`` names run split over tp (``dist.sharding.TensorParallel``).
+    Under a split residual ``x`` is the rank's ``d/T`` columns: each
+    sublayer's norm reads them gathered whole (``tp.entry``), a split
+    sublayer leaves by ``tp.exit`` and a whole one by ``tp.own``, and the
+    residual adds run on the rank's columns."""
+    mixer = split is not None and bool(split.ssm if kind == "mamba" else split.attn)
+    h = blk.norm(_entry(x, tp, mixer))
     if kind == "mamba":
-        x = x + _mamba_sublayer(cfg, blk.mamba, h, tp, split)
+        y = _mamba_sublayer(cfg, blk.mamba, h, tp, split)
     else:
-        x = x + _attn_sublayer(cfg, blk.attn, h, kind, positions, tp,
-                               split.attn if split is not None else None)
+        y = _attn_sublayer(cfg, blk.attn, h, kind, positions, tp,
+                           split.attn if split is not None else None)
+    x = x + (y if mixer else _own(y, tp))
     return _ffn(cfg, blk, x, moe_groups, plan, tp, split.ffn if split is not None else None)
 
 
+def _entry(x: torch.Tensor, tp, summed: bool) -> torch.Tensor:
+    """``tp.entry``: a sublayer's residual input whole (``x`` without tp)."""
+    return x if tp is None else tp.entry(x, summed)
+
+
+def _own(y: torch.Tensor, tp) -> torch.Tensor:
+    """``tp.own``: a whole sublayer's output as the residual holds it."""
+    return y if tp is None else tp.own(y)
+
+
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
-               positions: torch.Tensor, moe_groups: int = 1, split_tp: bool = False
+               positions: torch.Tensor, moe_groups: int = 1, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer in order; ``(x, moe_aux)``, the aux loss summed over the
     layers.  Under ``cfg.remat`` each layer is checkpointed where gradients
-    are on, outside ``torch.func`` transforms: only its input is kept, and
-    the backward runs its forward again.  ``split_tp`` (the training
-    stack's): on a sharded state whose plan spans several tp ranks, outside
-    ``torch.func`` transforms, each block splits by
+    are on, outside ``torch.func`` transforms: only its input is kept (the
+    rank's ``d/T`` columns under a split residual), and the backward runs
+    its forward again, its entries' gathers included.  ``tp`` (the training
+    stack's, ``loss_fn``'s; None outside ``torch.func`` transforms or
+    without a plan spanning several tp ranks): each block splits by
     ``dist.sharding.tp_split`` (the module docstring)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt = cfg.remat and torch.is_grad_enabled() and not in_func_transform()
@@ -695,14 +773,15 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
     # read here, not in the layer: the recompute under remat runs in the
     # backward, on the autograd engine's thread, outside any use_plan
     plan = current_plan()
-    tp = sharding.tensor_parallel(layout) if split_tp and not in_func_transform() else None
     for r, p, blk in _layers(cfg, params):
         split = sharding.tp_split(cfg, p, layout.plan, x.shape[1]) if tp is not None else None
         if split is not None:
-            _count_split(split)
+            _count_split(split, stack=True)
         args = (cfg, cfg.pattern[p], blk, x, positions, moe_groups, layout,
                 f"blocks.{r * cfg.period + p}.", plan, tp, split)
         if ckpt:
+            _REMAT_COUNTS["layers"] += 1
+            _REMAT_COUNTS["bytes"] += x.untyped_storage().nbytes()
             # the forward draws no random numbers: no RNG state to replay
             x, a = checkpoint(_gathered_block, *args, use_reentrant=False,
                               preserve_rng_state=False)
@@ -898,23 +977,31 @@ def xent_vocab_parallel(x: torch.Tensor, weight: torch.Tensor, v0: int,
 
 def _xent(cfg: ModelConfig, params: Transformer, x: torch.Tensor, targets: torch.Tensor,
           tp) -> torch.Tensor:
-    """The mean CE of the final-normed ``x``: ``xent_chunked`` on the
-    whole head, or under ``tp`` (None: whole) where the specs split the
-    head's V over tp, ``xent_vocab_parallel`` on the rank's rows behind
-    ``tp.copy``; a head whole over tp computes whole.  Counted in
-    ``tp_counts``."""
+    """The mean CE of the stack's output ``x`` through the final norm:
+    ``xent_chunked`` on the whole head, or under ``tp`` (None: whole) where
+    the specs split the head's V over tp, ``xent_vocab_parallel`` on the
+    rank's rows, the normed ``x`` behind ``tp.copy`` (each rank's dx a
+    part); a head whole over tp computes whole.  Under a split residual
+    ``x`` is the rank's columns, gathered whole first (``tp.entry``, summed
+    back where the head splits, the norm's scale then behind ``tp.copy``).
+    Counted in ``tp_counts``."""
     w, dim = _tp_shard(params, "lm_head.weight", tp)
-    if tp is not None:
-        if dim is None:
-            _count_tp("tp_whole", ("head",))
-        elif dim != 0:
-            raise ValueError(f"lm_head.weight is split over tp along dim {dim}, "
-                             "not the vocabulary")
+    split = dim is not None
+    if tp is None:
+        x = params.final_norm(x)
+    elif dim not in (None, 0):
+        raise ValueError(f"lm_head.weight is split over tp along dim {dim}, not the vocabulary")
+    else:
+        _count_tp("tp_split" if split else "tp_whole", ("head",))
+        if tp.residual:
+            x = params.final_norm(tp.entry(x, split), tp if split else None)
         else:
-            _count_tp("tp_split", ("head",))
-            return xent_vocab_parallel(tp.copy(x, _VP_COUNTS["head_all_reduce"]), w,
-                                       tp.rank * w.shape[0], targets, cfg.xent_chunk,
-                                       cfg.final_softcap, tp)
+            x = params.final_norm(x)
+            if split:
+                x = tp.copy(x, _VP_COUNTS["head_all_reduce"])
+    if split:
+        return xent_vocab_parallel(x, w, tp.rank * w.shape[0], targets, cfg.xent_chunk,
+                                   cfg.final_softcap, tp)
     return xent_chunked(x, w, targets, cfg.xent_chunk, cfg.final_softcap)
 
 
@@ -925,14 +1012,14 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict, moe_groups: int 
     ``cfg.num_experts`` is set, and ``{"ce_loss", "moe_aux"}`` (the CE alone,
     and the aux loss summed over the layers).  The MoE FFNs route in
     ``moe_groups`` groups of the batch's tokens.  Under tp (the module
-    docstring; not inside a ``torch.func`` transform) the input, the stack
-    and the head split."""
-    tp = sharding.tensor_parallel(sharding.layout_of(params)) \
+    docstring; not inside a ``torch.func`` transform) the input, the stack,
+    the residual stream and the head split."""
+    tp = sharding.tensor_parallel(sharding.layout_of(params), cfg) \
         if not in_func_transform() else None
     x = _model_input(cfg, params, batch, tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux = _run_stack(cfg, params, x, positions, moe_groups, split_tp=True)
-    loss = _xent(cfg, params, params.final_norm(x), batch["targets"], tp)
+    x, aux = _run_stack(cfg, params, x, positions, moe_groups, tp)
+    loss = _xent(cfg, params, x, batch["targets"], tp)
     metrics = {"ce_loss": loss, "moe_aux": aux}
     if cfg.num_experts:
         loss = loss + 0.01 * aux
@@ -1173,24 +1260,26 @@ def _ffn(cfg: ModelConfig, blk: Block, x: torch.Tensor, moe_groups: int, plan=No
     """The pre-norm FFN sublayer: ``(x + ffn(norm(x)), the MoE aux loss)``
     (None for a dense FFN or none).  ``plan`` is the training stack's
     plan (``moe_impl="ep"`` routes over its expert ranks); ``split``
-    ("dense" or "moe") runs tp rank ``tp.rank``'s ``ff/T`` columns and
-    all-reduces the output over tp."""
+    ("dense" or "moe") runs tp rank ``tp.rank``'s ``ff/T`` columns between
+    ``tp.enter`` and ``tp.exit``.  Under a split residual the norm reads
+    ``x`` gathered whole and a whole FFN leaves by ``tp.own``
+    (:func:`_block_apply`)."""
     if blk.ffn is None:
         return x, None
-    h = blk.ffn_norm(x)
+    h = blk.ffn_norm(_entry(x, tp, split is not None))
     if not isinstance(blk.ffn, MoE):
         if split == "dense":
-            return x + tp.reduce(blk.ffn(tp.copy(h))), None
-        return x + blk.ffn(h), None
+            return x + tp.exit(blk.ffn(tp.enter(h))), None
+        return x + _own(blk.ffn(h), tp), None
     if cfg.moe_impl == "ep" and expert_parallel(plan) and not in_func_transform():
         y, aux = moe_apply_ep(blk.ffn, h, top_k=cfg.top_k,
                               capacity_factor=cfg.capacity_factor, act=cfg.ffn_act,
                               mesh=plan.mesh, ep_axes=plan.ep)
-        return x + y, aux
+        return x + _own(y, tp), aux
     y, aux = moe_apply(blk.ffn, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                        groups=moe_groups, act=cfg.ffn_act,
                        tp=tp if split == "moe" else None)
-    return x + y, aux
+    return x + (y if split == "moe" else _own(y, tp)), aux
 
 
 def _o_proj(ap: Attention, h: torch.Tensor, tp=None, split: str | None = None

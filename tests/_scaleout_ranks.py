@@ -844,7 +844,9 @@ class SplitSpy:
     ``(kind, result bytes)``, the shapes in which the embedding, the
     frontend and the head reach the compute (``_whole``, ``_tp_shard``),
     the channels the Mamba scan runs (``ssm._scan``' ``dt`` and ``A_log``)
-    and the weights the mixers' products see (``ssm.dense``)."""
+    and the weights the mixers' products see (``ssm.dense``).  The split
+    residual's collectives (``dist.plan._residual``) are recorded apart, as
+    ``(kind, result bytes)``, and in none of the lists above."""
 
     def __init__(self):
         self.heads, self.ffn, self.moe, self.rows = set(), set(), set(), set()
@@ -852,9 +854,11 @@ class SplitSpy:
         self.block_gather_bytes = 0
         self.vocab_gathers: list[int] = []
         self.context_colls: list[tuple[str, int]] = []
+        self.residual_colls: list[tuple[str, int]] = []
         self.leaves: set = set()
 
     def __enter__(self):
+        from repro_torch.dist import plan as plan_mod
         from repro_torch.models import ssm
         from repro_torch.models import transformer as tf
 
@@ -875,7 +879,8 @@ class SplitSpy:
         ssm._scan, ssm.dense = spy_scan, spy_sdense
         (attn, ffn_fwd, moe, block, whole, tp_shard, model_input, xent, context_qkv,
          context_out) = self.saved
-        inside, vocab, context = [False], [False], [False]
+        inside, vocab, context, residual = [False], [False], [False], [False]
+        self.saved_residual = plan_mod._residual
 
         def flagged(fn, flag=vocab):
             def call(*args):
@@ -917,7 +922,9 @@ class SplitSpy:
                 inside[0] = False
 
         def record(kind, operand, result, ranks):
-            if context[0]:
+            if residual[0]:
+                self.residual_colls.append((kind, result))
+            elif context[0]:
                 self.context_colls.append((kind, result))
             elif kind == "all-gather" and inside[0]:
                 self.block_gather_bytes += result
@@ -928,6 +935,7 @@ class SplitSpy:
 
         self.recording = record_collectives(record)
         self.recording.__enter__()
+        plan_mod._residual = flagged(self.saved_residual, residual)
         (tf._self_attention, tf.FFN.forward, tf.moe_apply, tf._gathered_block, tf._whole,
          tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv, tf._context_out) = (
             spy_attn, spy_ffn, spy_moe, spy_block, spy_whole, spy_tp_shard,
@@ -943,6 +951,9 @@ class SplitSpy:
          tf._tp_shard, tf._model_input, tf._xent, tf._context_qkv,
          tf._context_out) = self.saved
         ssm._scan, ssm.dense = self.saved_ssm
+        from repro_torch.dist import plan as plan_mod
+
+        plan_mod._residual = self.saved_residual
         self.recording.__exit__(*exc)
 
 
@@ -981,7 +992,7 @@ def tp_train(a: dict) -> dict:
     from repro_torch import adapt
     from repro_torch.configs import get_config
     from repro_torch.dist import sharding
-    from repro_torch.dist.plan import use_plan
+    from repro_torch.dist.plan import reset_residual_counts, residual_counts, use_plan
     from repro_torch.elastic.reshard import place
     from repro_torch.interop import params_from_jax
     from repro_torch.models import probes, ssm
@@ -1009,6 +1020,7 @@ def tp_train(a: dict) -> dict:
                "held": sum(p.numel() for p in state.params.parameters()),
                "reckoned": layout.numel()}
         tf.reset_tp_counts()
+        reset_residual_counts()
         with SplitSpy() as spy:
             if case.get("program"):
                 eng = StepEngine.for_lm(cfg, opt, micro_batch=4, dp_size=plan.dp_size,
@@ -1039,6 +1051,7 @@ def tp_train(a: dict) -> dict:
             rec["vocab_gathers"] = list(spy.vocab_gathers)
             rec["cp_counts"] = tf.context_parallel_counts()
             rec["mamba_counts"] = ssm.collective_counts()
+            rec["residual_counts"] = residual_counts()
             spy.block_gather_bytes, spy.context_colls = 0, []
             batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 0, 0, 2).items()}
             moes = [m for m in state.params.modules() if isinstance(m, MoE)]
@@ -1066,8 +1079,9 @@ def tp_grads(a: dict) -> dict:
     gathered whole, against the whole model's on this process, with the
     k/v and bias gradients summed over the model group, and again with the
     gather's slice-own rule (no sum: what ``_GatherShards`` did for every
-    non-data axis before tensor-parallel compute).  Max relative errors by
-    leaf kind."""
+    non-data axis before tensor-parallel compute; under the split residual
+    it leaves each rank's part of a norm scale's gradient unsummed too).
+    Max relative errors by leaf kind."""
     from repro_torch.configs import get_config
     from repro_torch.dist import sharding
     from repro_torch.dist.plan import use_plan
@@ -1093,7 +1107,9 @@ def tp_grads(a: dict) -> dict:
         err: dict = {}
         for n, g in zip(names, grads):
             kind = ("kv" if n.endswith(("attn.k.weight", "attn.v.weight")) else
-                    "bias" if n.endswith("bias") else "other")
+                    "bias" if n.endswith("bias") else
+                    "norm" if n.endswith("norm.scale") and n.startswith("blocks.") else
+                    "other")
             g = layout.unshard(n, g)
             e = float((g - want[n]).abs().max() / want[n].abs().max())
             err[kind] = max(err.get(kind, 0.0), e)
@@ -1110,6 +1126,66 @@ def tp_grads(a: dict) -> dict:
     return out
 
 
+def tp_residual(a: dict) -> dict:
+    """The residual stream split over tp, on each rung of ``a["shapes"]``
+    with one data rank, for each ``(name, arch, replacements)`` of
+    ``a["residual_cases"]`` (the reference weights ``a[name]``): one
+    microbatch's loss and gradients of ``loss_fn`` on the placed model
+    under a ``saved_tensors_hooks`` that records the shape and storage bytes
+    of every tensor autograd saves outside the remat regions (the
+    checkpointed layers' inputs among them); ``dist.plan.residual_counts``
+    and ``tensor_parallel_counts`` of that forward and backward; every
+    norm scale's and MoE router's gradient (whole on every rank), and the
+    largest gap of each gradient, gathered, from the whole model's on this
+    process relative to its largest magnitude, by leaf kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.plan import (reset_residual_counts, reset_tensor_parallel_counts,
+                                       residual_counts, tensor_parallel_counts, use_plan)
+    from repro_torch.elastic.reshard import place
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for shape in a["shapes"]:
+        shape = tuple(shape)
+        plan = rung_plan(shape)  # every rank builds the meshes in the same order
+        if shape[0] != 1:
+            continue
+        for name, arch, extra in a["residual_cases"]:
+            cfg = get_config(arch, reduced=True).replace(**extra)
+            batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 17, 0, 2).items()}
+            whole = params_from_jax(a[name], cfg).requires_grad_(True)
+            names = [n for n, _ in whole.named_parameters()]
+            want = dict(zip(names, torch.autograd.grad(tf.loss_fn(cfg, whole, batch)[0],
+                                                       list(whole.parameters()))))
+            model = place(params_from_jax(a[name], cfg), plan).requires_grad_(True)
+            layout = sharding.layout_of(model)
+            saved = []
+
+            def pack(t):
+                saved.append((tuple(t.shape), t.untyped_storage().nbytes()))
+                return t
+
+            reset_residual_counts()
+            reset_tensor_parallel_counts()
+            with use_plan(plan), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                loss = tf.loss_fn(cfg, model, batch)[0]
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            rec = {"counts": residual_counts(), "tp": tensor_parallel_counts(),
+                   "saved": saved, "loss": float(loss), "grads": {}, "err": {}}
+            for n, g in zip(names, layout.finish_grads(grads)):
+                g = layout.unshard(n, g)
+                kind = ("norm" if n.endswith("norm.scale") else
+                        "router" if n.endswith("router.weight") else "other")
+                if kind != "other":
+                    rec["grads"][n] = g.numpy()
+                e = float((g - want[n]).abs().max() / want[n].abs().max())
+                rec["err"][kind] = max(rec["err"].get(kind, 0.0), e)
+            out["x".join(map(str, shape)) + " " + name] = rec
+    return out
+
+
 def tp_gradcheck(a: dict) -> dict:
     """``gradcheck`` in float64 of ``copy_to_group`` then a rank's own
     linear map then ``reduce_from_group`` over the model axis of each rung
@@ -1119,8 +1195,12 @@ def tp_gradcheck(a: dict) -> dict:
     two (``ssm.channel_rows``' exchange of ``in_proj``'s column shard,
     ``x_proj``'s sum over tp behind ``copy_to_group``); and whether the
     exchange yields the rank's ``[x_t | z_t]`` rows of the whole weight
-    exactly ("... in_proj rows")."""
-    from repro_torch.dist.plan import copy_to_group, gather_shards, reduce_from_group
+    exactly ("... in_proj rows"); and the split residual's pieces: the
+    entry with its summed backward around a rank's columns, the exit
+    (reduce-scatter, its backward an all-gather) under a slice-own entry,
+    and the slice under the same."""
+    from repro_torch.dist.plan import (copy_to_group, gather_shards, reduce_from_group,
+                                       residual_entry, residual_exit, residual_slice)
     from repro_torch.dist.sharding import TensorParallel, tp_rank
     from repro_torch.models import ssm
     from repro_torch.models import transformer as tf
@@ -1179,11 +1259,36 @@ def tp_gradcheck(a: dict) -> dict:
                                                     mesh, "model"), mesh, "model")
             return reduce_from_group(whole @ reads, mesh, "model")
 
+        # the residual's pieces on (2, 2t, 2t) columns: the entry of the
+        # rank's columns summed back; the ranks' partial sums through the
+        # exit, joined again by a slice-own entry (the output whole and alike
+        # on every rank); a whole tensor's columns through the slice, each
+        # rank scaling its own, joined likewise
+        wide = torch.from_numpy(r.standard_normal((3, 2 * t)))
+        shared = torch.from_numpy(np.random.default_rng(3).standard_normal((3, 2 * t)))
+        own = torch.from_numpy(r.standard_normal(2))
+
+        def entry(z):
+            x = copy_to_group(z, mesh, "model") @ cols  # (2, 2t, 2): this rank's columns
+            return reduce_from_group(residual_entry(x, mesh, "model", True)
+                                     * scale[:, :2 * t], mesh, "model")
+
+        def exit_(z):
+            y = copy_to_group(z, mesh, "model") @ wide  # this rank's partial (2, 2t, 2t)
+            return residual_entry(residual_exit(y, mesh, "model"), mesh, "model", False)
+
+        def slice_(z):
+            return residual_entry(residual_slice(z @ shared, mesh, "model") * own, mesh,
+                                  "model", False)
+
         key = "x".join(map(str, shape))
         for name, f, arg in ((key, fn, z), (key + " all-to-all", exchange, zz),
                              (key + " k/v all-gather", kv_gather, zz),
                              (key + " in_proj exchange", in_proj, w_whole),
-                             (key + " x_proj sum", x_proj, z)):
+                             (key + " x_proj sum", x_proj, z),
+                             (key + " residual entry", entry, zz),
+                             (key + " residual exit", exit_, zz),
+                             (key + " residual slice", slice_, zz)):
             out[name] = bool(torch.autograd.gradcheck(f, (arg,), eps=1e-6, atol=1e-8))
         w = w_whole.detach()
         t0 = tp.rank * c
@@ -1519,7 +1624,7 @@ JOBS = {"lm_moment": lm_moment, "lm_probe_tiers": lm_probe_tiers, "lm_moe": lm_m
         "sharded_restore": sharded_restore, "moe_ep": moe_ep,
         "sharded_rungs": sharded_rungs, "serve_ranks": serve_ranks, "serve_cli": serve_cli,
         "dryrun_collectives": dryrun_collectives, "tp_train": tp_train, "tp_grads": tp_grads,
-        "tp_gradcheck": tp_gradcheck, "tp_xent": tp_xent, "serve_tp": serve_tp,
+        "tp_gradcheck": tp_gradcheck, "tp_xent": tp_xent, "tp_residual": tp_residual, "serve_tp": serve_tp,
         "serve_tp_cli": serve_tp_cli, "serve_tp_frontend": serve_tp_frontend}
 
 

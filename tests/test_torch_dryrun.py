@@ -28,7 +28,11 @@ reference's, on the CPU.
     4)`` world rank 0's traced FLOPs for a reduced yi-6b train microbatch
     equal the split layers' count divided by 4, plus the head (whole at
     vocab 251, a quarter at 256) and the replicated-KV terms (two ranks
-    share each KV head), exactly;
+    share each KV head), exactly; the residual stream split by columns
+    there: the traced step's checkpointed layer inputs are ``layers x B S
+    (d/4)`` values (``remat_kept_bytes`` and a ``saved_tensors_hooks``
+    count), a quarter of one device's, and the record's ``activations``
+    names the split;
   * the reference's mini dry run (``tests/test_dryrun_mini.py``) on a
     ``(2, 2, 2)`` plan in a fake world of 8: reduced qwen2-7b, kimi-k2 and
     jamba train, yi-6b decode; FLOPs and peak above 0, collectives for
@@ -329,7 +333,7 @@ def test_tp_split_of_the_full_configs_at_16(arch):
     plan = ShardingPlan(mesh=abstract_mesh((16, 16), ("data", "model")))
     got = {sharding.tp_split(cfg, p, plan) for p in range(cfg.period)}
     assert {(s.attn, s.ssm, s.ffn, s.whole) for s in got} == TP16[arch]
-    assert all(s.size == 16 for s in got)
+    assert all(s.size == 16 and s.residual for s in got)  # 16 divides every d_model
     assert sharding.tp_split(cfg, 0, ShardingPlan(mesh=abstract_mesh((16, 1), (
         "data", "model")))) == sharding.TpSplit(1)
     if cfg.moe_impl != "ep" and cfg.num_experts:  # moe_impl="ep" over 16 expert ranks: whole
@@ -352,8 +356,8 @@ def test_serving_split_keeps_the_mamba_mixers_whole(arch):
             assert serve.ssm is None and serve.whole == ("mamba",) + train.whole
             assert serve.role("mamba.in_proj.weight") is None
             assert serve.role("mamba.dt_proj.bias") is None
-        else:
-            assert serve == train
+        else:  # serving keeps the residual stream whole
+            assert serve == dataclasses.replace(train, residual=False)
 
 
 def test_tp_split_keeps_a_mixer_whole_where_the_channels_do_not_divide():
@@ -379,7 +383,9 @@ def test_tp_trace_records_the_context_exchanges():
     context-parallel): the traced step records per layer two all-to-alls
     of ``B S H hd/T`` float32 values in the forward and two in the
     backward, one k/v all-gather, and one reduce-scatter of k and v's
-    gradient (summed over tp); the dry run traces the last tp rank, whose
+    gradient (summed over tp) beside the split residual's four (the
+    sublayers' exits and their entries' summed backward, each of the whole
+    ``B S d``); the dry run traces the last tp rank, whose
     rows see the most keys, and its FLOPs exceed rank 0's."""
     b, s, t = 2, 32, 4
     cfg = get_config("qwen2-7b", reduced=True).replace(num_heads=3, num_kv_heads=1,
@@ -399,8 +405,11 @@ def test_tp_trace_records_the_context_exchanges():
     layers = cfg.num_layers
     assert coll["all-to-all"]["count"] == 4 * layers
     assert coll["all-to-all"]["operand_bytes"] == 4 * layers * b * s * 3 * hd // t * 4
-    assert coll["reduce-scatter"]["count"] == layers
-    assert coll["reduce-scatter"]["operand_bytes"] == layers * 2 * b * s * hd * 4
+    # a layer's k/v gradient, and the split residual's: the attention's and
+    # the FFN's exits in the forward, their entries' sums in the backward
+    assert coll["reduce-scatter"]["count"] == 5 * layers
+    assert coll["reduce-scatter"]["operand_bytes"] == layers * (
+        2 * b * s * hd * 4 + 4 * b * s * cfg.d_model * 4)
     assert last["flops"] > first["flops"]
     full = get_config("qwen2-7b")
     assert dryrun.traced_rank(full, dryrun.SHAPES["train_4k"], False, 0) == 15
@@ -426,11 +435,74 @@ def _tp_trace_flops(vocab: int):
     with dryrun.fake_world(4):
         mesh = dryrun.rank_mesh((1, 4), ("data", "model"))
         plan = ShardingPlan(mesh=mesh, dp=("data",), fsdp=("data",), tp="model", ep=("data",))
-        assert sharding.tp_split(cfg, 0, plan) == sharding.TpSplit(4, "shared", "dense")
+        assert sharding.tp_split(cfg, 0, plan) == sharding.TpSplit(4, "shared", "dense",
+                                                                    residual=True)
         got = flops(2, plan)
     # a rank computes 1 of the 2 KV heads: kv / 2 = kv / 4 (its share) + kv / 4
     assert layer % 4 == 0 and kv % 4 == 0
     return got, layer, rest, kv, 4 * 2 * b * s * cfg.d_model * vocab
+
+
+def test_tp_trace_keeps_the_ranks_residual_columns():
+    """Reduced yi-6b under remat on a fake ``(data 1, model 4)`` world: the
+    traced train step's checkpointed layer inputs are each layer's ``(B,
+    S, d/4)`` columns of the residual, ``layers x B S (d/4)`` float32
+    values in all (``remat_kept_bytes``, from ``transformer.remat_counts``;
+    and a ``saved_tensors_hooks`` count of the fake tensors autograd keeps
+    outside the remat regions), a quarter of one device's trace; the
+    record's ``activations`` name the split for training and the whole
+    residual for serving."""
+    b, s, t = 2, 32, 4
+    cfg = get_config("yi-6b", reduced=True).replace(remat=True)
+    cols = (b, s, cfg.d_model // t)
+    saved = []
+
+    def pack(x):
+        saved.append((tuple(x.shape), x.untyped_storage().nbytes()))
+        return x
+
+    with dryrun.fake_world(t):
+        mesh = dryrun.rank_mesh((1, t), ("data", "model"))
+        plan = ShardingPlan(mesh=mesh, dp=("data",), fsdp=("data",), tp="model", ep=("data",))
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            kept = dryrun.trace_train(cfg, plan, b, s, 1, torch.float32)["remat_kept_bytes"]
+        train, serve = (dryrun.activations(cfg, kind, plan) for kind in ("train", "prefill"))
+    layer_bytes = math.prod(cols) * 4
+    assert kept == cfg.num_layers * layer_bytes
+    assert [n for shape, n in saved if shape == cols] == [layer_bytes] * cfg.num_layers
+    assert dryrun.trace_train(cfg, None, b, s, 1, torch.float32)["remat_kept_bytes"] \
+        == t * kept
+    assert "residual stream split by d_model columns" in train
+    assert "residual stream whole" in serve
+
+
+def test_tp_trace_keeps_the_residual_whole_where_t_does_not_divide_d_model():
+    """Reduced falcon-mamba-7b at d_model 36 (d_inner 72) under remat on a
+    fake ``(data 1, model 8)`` world: 8 divides the channels and not
+    ``d_model``, so the mixers split while the residual stays whole on the
+    rank (``tp_whole`` "residual" a layer, nothing falls back silently):
+    remat keeps each layer's whole ``(B, S, d)``, the residual issues none
+    of its collectives, and the mixers' exits are all-reduces."""
+    from repro_torch.dist.plan import reset_residual_counts, residual_counts
+    from repro_torch.models import ssm
+
+    b, s, t = 2, 32, 8
+    cfg = get_config("falcon-mamba-7b", reduced=True).replace(d_model=36, remat=True)
+    with dryrun.fake_world(t):
+        mesh = dryrun.rank_mesh((1, t), ("data", "model"))
+        plan = ShardingPlan(mesh=mesh, dp=("data",), fsdp=("data",), tp="model", ep=("data",))
+        assert not sharding.residual_split(cfg, plan)
+        assert sharding.tp_split(cfg, 0, plan).ssm == "channels"
+        tf.reset_tp_counts()
+        reset_residual_counts()
+        kept = dryrun.trace_train(cfg, plan, b, s, 1, torch.float32)["remat_kept_bytes"]
+        counts, res, mixers = tf.tp_counts(), residual_counts(), ssm.collective_counts()
+    layers = cfg.num_layers
+    assert kept == layers * b * s * cfg.d_model * 4
+    assert counts["tp_whole"]["residual"] == layers and "residual" not in counts["tp_split"]
+    assert counts["tp_split"]["mamba"] == layers
+    assert not any(v["calls"] for v in res.values()), res
+    assert mixers["out_proj_all_reduce"]["calls"] == layers
 
 
 def test_tp_trace_flops_split_over_the_model_axis():

@@ -39,7 +39,19 @@ lane of the repo's process-group tests).
     as above; the embedding, the frontend and the head reach the compute
     as the rank's shards and no all-gather outside the blocks forms a
     ``(V, d)`` table; ``xent_vocab_parallel`` against ``xent_chunked`` on
-    the whole head, targets on the shard edges, within 1e-6 relative.
+    the whole head, targets on the shard edges, within 1e-6 relative;
+  * the residual stream split by ``d_model`` columns in every case above
+    (T divides each reduced ``d_model``): ``tp_counts`` has "residual"
+    split on every layer, and ``dist.plan.residual_counts`` (the sublayers'
+    entry all-gathers and their summed backward's reduce-scatters, the
+    exits' reduce-scatters and their backward's all-gathers, the remat
+    recompute's again) equal the reckoning; reduced yi at vocab 256,
+    dbrx-132b and falcon-mamba-7b under remat on ``(model 2)`` and
+    ``(model 4)``: every checkpointed layer keeps the rank's ``(B, S,
+    d/T)`` columns in a storage of their size (a ``saved_tensors_hooks``
+    count), every norm scale's and the MoE router's gradient is the same on
+    every rank and within 1e-5 of one process's, and ``gradcheck`` of the
+    entry, the exit and the slice in float64.
 
 Two spawns, 2 ranks and 4, run beside the reference's runs in this
 process.
@@ -110,6 +122,10 @@ _VOCAB = [{"name": "yi256", "params": "yi256", "seed": 9},
           {"name": "yi256_gram", "params": "yi256", "seed": 10, "tier": "gram"}]
 _HUBERT64 = {"name": "hubert64", "params": "hubert64", "seed": 12}
 _FALCON = {"name": "falcon", "params": "falcon", "seed": 15}
+# the split residual's own checks (tp_residual): (params, arch, replacements)
+# under remat, so that each layer's input is what checkpoint keeps
+RESIDUAL_CASES = [(k, ARCHS[k][0], {**ARCHS[k][2], "remat": True})
+                  for k in ("yi256", "dbrx", "falcon")]
 # context-parallel attention: qwen2 (its replicated biases) on the kernel
 # lane's plain versions, the moment tier; internvl2 (the frontend) on the
 # gram tier; on every rung
@@ -232,12 +248,14 @@ def tp_runs(tmp_path_factory):
                for k, (arch, seed, extra) in ARCHS.items()}
     args = {k: _np_tree(v) for k, v in jparams.items()}
     started = {
-        2: ranks.start_ranks(tmp_path_factory.mktemp("tp2"), "tp_gradcheck+tp_xent+tp_train",
-                             {**args, "shapes": SHAPES_2, "cases": CASES_2}, 2),
+        2: ranks.start_ranks(tmp_path_factory.mktemp("tp2"),
+                             "tp_gradcheck+tp_xent+tp_residual+tp_train",
+                             {**args, "shapes": SHAPES_2, "cases": CASES_2,
+                              "residual_cases": RESIDUAL_CASES}, 2),
         4: ranks.start_ranks(tmp_path_factory.mktemp("tp4"),
-                             "tp_gradcheck+tp_xent+tp_grads+tp_train",
+                             "tp_gradcheck+tp_xent+tp_grads+tp_residual+tp_train",
                              {**args, "shapes": SHAPES_4, "cases": CASES_4,
-                              "shape": (1, 4)}, 4)}
+                              "residual_cases": RESIDUAL_CASES, "shape": (1, 4)}, 4)}
     cases = {(w, c["name"]): c for w, cs in ((2, CASES_2), (4, CASES_4)) for c in cs}
     want, whole = {}, {}
     for key, c in cases.items():
@@ -295,7 +313,9 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
     rows at offset ``r SEQ/T`` against the keys up to its last row, and
     per layer of a forward one all-to-all each way of ``B SEQ H hd/T``
     values and one all-gather of k and v (``2 B SEQ KV hd``), as the spies
-    and ``context_parallel_counts`` see them."""
+    and ``context_parallel_counts`` see them.  The residual split by columns
+    on every layer, its collectives by kind the reckoning's
+    (:func:`_residual_reckoning`)."""
     case = tp_runs["cases"][(world, name)]
     cfg = _cfgs(case)[0]
     data, t = case["shape"]
@@ -335,10 +355,12 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
         calls = micro * (2 if case.get("tier") == "gram" else 1)
         want_split, want_whole = {_input_kind(cfg): calls}, {}
         (want_split if cfg.vocab_size % t == 0 else want_whole)["head"] = calls
+        assert all(s.residual for s in splits)  # T divides every reduced d_model
         for layer in range(cfg.num_layers):
             s = splits[layer % cfg.period]
             attn = [] if not s.attn else ["attn_context" if s.attn == "context" else "attn"]
-            for kind in attn + (["mamba"] if s.ssm else []) + ([s.ffn] if s.ffn else []):
+            for kind in attn + (["mamba"] if s.ssm else []) + ([s.ffn] if s.ffn else []) \
+                    + ["residual"]:
                 want_split[kind] = want_split.get(kind, 0) + micro
             for kind in s.whole:
                 want_whole[kind] = want_whole.get(kind, 0) + micro
@@ -347,6 +369,8 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
         assert g["moe_stats"] == tp_runs["got"][world][0]["tp_train"][name]["moe_stats"]
         assert bool(g["moe_stats"]) == bool(cfg.num_experts)
         assert g["block_gather_bytes"] == g["block_gather_reckoned"]
+        assert g["residual_counts"] == _residual_reckoning(cfg, splits, _micro(case, g),
+                                                            4 // data)
         _mixers_split(cfg, case, g, splits, rank)
         if not shared and not any(s.whole for s in splits):
             # every block splits over local heads: its entry gathers the fsdp axes only
@@ -358,19 +382,52 @@ def test_tp_compute_splits_heads_and_widths(tp_runs, world, name):
             assert g["block_gather_bytes"] == fsdp
 
 
+def _residual_reckoning(cfg, splits, micro: int, bm: int) -> dict:
+    """The split residual's collectives on a rank over ``micro``
+    microbatches of ``bm`` sequences, by kind (``dist.plan.
+    residual_counts``), per microbatch: an entry
+    all-gather per sublayer and one at the head, again in the remat
+    recompute; an entry reduce-scatter behind each split sublayer and a
+    split head (a whole one slices); an exit reduce-scatter per split
+    sublayer, again in the recompute but for a layer's last (it stops once
+    the layer's saved tensors are back), and an exit all-gather in the
+    backward; a slice all-gather behind each whole sublayer (the embedding
+    and the frontend split whenever T divides ``d_model``).  Each call moves
+    the whole ``(bm, SEQ, d)`` float32 tensor.  The gram tier's probe pass
+    keeps the residual whole: none of these."""
+    n_sub = n_split = n_last = 0
+    for layer in range(cfg.num_layers):
+        p = layer % cfg.period
+        s = splits[p]
+        subs = [bool(s.ssm if cfg.pattern[p] == "mamba" else s.attn)]
+        if cfg.d_ff > 0:
+            subs.append(s.ffn is not None)
+        n_sub, n_split, n_last = n_sub + len(subs), n_split + sum(subs), n_last + subs[-1]
+    again = bool(cfg.remat)
+    head = cfg.vocab_size % splits[0].size == 0
+    calls = {"entry_all_gather": n_sub + 1 + again * n_sub,
+             "entry_reduce_scatter": n_split + head,
+             "exit_reduce_scatter": n_split + again * (n_split - n_last),
+             "exit_all_gather": n_split, "slice_all_gather": n_sub - n_split}
+    whole = bm * SEQ * cfg.d_model * 4
+    return {k: {"calls": n * micro, "bytes": n * micro * whole} for k, n in calls.items()}
+
+
 def _mixers_split(cfg, case: dict, g: dict, splits, rank: int) -> None:
     """A rank's Mamba mixers: the scan over its ``c = d_inner/T`` channels
     (``dt``, ``A_log`` and the state), no product seeing ``in_proj`` whole
     but its ``[x_t | z_t]`` rows, and by ``ssm.collective_counts`` per
     mixer and pass one ``in_proj`` exchange sending the rank's blocks that
-    are not its own, one ``x_proj`` all-reduce (float32) and one
-    ``out_proj`` all-reduce; in the backward one exchange back and two
-    ``tp.copy`` all-reduces.  The remat recompute issues the exchange and
-    the ``x_proj`` all-reduce again, not the ``out_proj`` one (it stops
-    once the layer's saved tensors are back).  The gram tier's probe pass
-    runs the mixers' forward once more and, its parameters frozen, the
-    backward's two all-reduces only behind a probe (jamba's layer 0 mixer
-    comes before the first)."""
+    are not its own and one ``x_proj`` all-reduce (float32); in the
+    backward one exchange back and ``x_proj``'s ``tp.copy`` all-reduce.
+    The training stack's split residual takes the mixer's entry and exit
+    (:func:`_residual_reckoning`): no ``out_proj`` all-reduce and no
+    ``tp.copy`` of its input.  The remat recompute issues the exchange and
+    the ``x_proj`` all-reduce again.  The gram tier's probe pass keeps the
+    residual whole: it runs the mixers' forward once more with one
+    ``out_proj`` all-reduce and, its parameters frozen, the backward's two
+    ``tp.copy`` all-reduces (the input's and ``x_proj``'s) only behind a
+    probe (jamba's layer 0 mixer comes before the first)."""
     layers = [layer for layer in range(cfg.num_layers) if splits[layer % cfg.period].ssm]
     if not layers:
         assert not g["scan"] and not any(v["calls"] for v in g["mamba_counts"].values())
@@ -388,16 +445,19 @@ def _mixers_split(cfg, case: dict, g: dict, splits, rank: int) -> None:
     gram = case.get("tier") == "gram"
     fwd = len(layers) * micro * (2 if gram else 1)
     back = len(layers) * micro
-    copies = 2 * back + (2 * sum(lay > probed[0] for lay in layers) * micro if gram else 0)
+    probe = len(layers) * micro if gram else 0  # the probe pass's forwards
+    probe_back = sum(lay > probed[0] for lay in layers) * micro if gram else 0
     again = back if cfg.remat else 0
     sent = sum(b % t != rank for b in (2 * rank, 2 * rank + 1)) * c * d * 4
     bm = 4 // case["shape"][0]  # a microbatch's sequences on the rank
     x_proj = bm * SEQ * ((cfg.ssm_dt_rank or math.ceil(d / 16)) + 2 * cfg.ssm_state) * 4
+    x = bm * SEQ * d * 4
     want = {"in_proj_exchange": (fwd + again, (fwd + again) * sent),
             "x_proj_all_reduce": (fwd + again, (fwd + again) * x_proj),
-            "out_proj_all_reduce": (fwd, fwd * bm * SEQ * d * 4),
+            "out_proj_all_reduce": (probe, probe * x),
             "in_proj_exchange_back": (back, back * sent),
-            "copy_back": (copies, copies // 2 * (bm * SEQ * d * 4 + x_proj))}
+            "copy_back": (back + 2 * probe_back,
+                          back * x_proj + probe_back * (x + x_proj))}
     got = {k: (v["calls"], v["bytes"]) for k, v in g["mamba_counts"].items()}
     assert got == want, (got, want)
 
@@ -423,7 +483,11 @@ def test_tp_forms_no_vocab_table_whole(tp_runs, world, name):
     logits, and the embedding's (the frontend's) tp shard over fsdp, by
     calls and bytes; the vocab-parallel
     collectives' calls and bytes are the reckoning's (2 microbatches a step
-    of ``4 / data`` sequences of ``SEQ``, float32)."""
+    of ``4 / data`` sequences of ``SEQ``, float32).  The training forward
+    splits the residual: its input enters as the rank's columns (no input
+    all-gather) and its head's dx is summed by the final entry's
+    reduce-scatter (no head all-reduce); the gram tier's probe pass keeps
+    the residual whole and issues both."""
     case = tp_runs["cases"][(world, name)]
     cfg = _cfgs(case)[0]
     data, t = case["shape"]
@@ -439,23 +503,26 @@ def test_tp_forms_no_vocab_table_whole(tp_runs, world, name):
         assert {n: tuple(shape) for n, shape in g["leaves"]} == want, g["leaves"]
         assert len(g["leaves"]) == len(want), g["leaves"]  # one shape a leaf
         vp = g["vp_counts"]
-        calls = _micro(case, g) * (2 if case.get("tier") == "gram" else 1)
+        probe = _micro(case, g) if case.get("tier") == "gram" else 0  # the probe pass's
+        calls = _micro(case, g) + probe
         head = calls if split_head else 0
         assert {k: c["calls"] for k, c in vp.items()} == {
-            "input_all_gather": calls, "xent_all_gather": head, "head_all_reduce": head}, vp
+            "input_all_gather": probe, "xent_all_gather": head,
+            "head_all_reduce": probe if split_head else 0}, vp
         # every all-gather of the input and the head accounted for: the
         # input's columns, the logsumexps, and (over data) the rank's tp shard
         # of the embedding or frontend, float32
         rows = v if cfg.input_mode == "tokens" else d  # the leaf's dim over fsdp
         fsdp = calls if data > 1 and rows % data == 0 else 0
         shard = 4 * rows * (d // t)
-        assert len(g["vocab_gathers"]) == calls + head + fsdp, g["vocab_gathers"]
+        assert len(g["vocab_gathers"]) == probe + head + fsdp, g["vocab_gathers"]
         assert sum(g["vocab_gathers"]) == vp["input_all_gather"]["bytes"] \
             + vp["xent_all_gather"]["bytes"] + fsdp * shard
         if not case.get("program"):
             bm = 4 // data
-            assert vp["input_all_gather"]["bytes"] == calls * bm * SEQ * d * 4
-            assert vp["head_all_reduce"]["bytes"] == head * bm * SEQ * d * 4
+            assert vp["input_all_gather"]["bytes"] == probe * bm * SEQ * d * 4
+            assert vp["head_all_reduce"]["bytes"] == (probe if split_head else 0) \
+                * bm * SEQ * d * 4
             assert vp["xent_all_gather"]["bytes"] == head * t * 2 * bm * SEQ * 4
 
 
@@ -481,15 +548,17 @@ def test_copy_and_reduce_gradcheck(tp_runs):
     around a rank's own map, and around the context-parallel exchanges: the
     q and out all-to-alls, and the k/v all-gather whose backward sums over
     tp (a slice-own backward fails it); around the Mamba mixer's ``in_proj``
-    exchange and ``x_proj``'s sum over tp (summed in the backward too); and
-    the exchange gives each rank exactly its ``[x_t | z_t]`` rows of the
-    whole weight, at T 2 and 4."""
+    exchange and ``x_proj``'s sum over tp (summed in the backward too); the
+    split residual's entry (summed backward), exit and slice; and the
+    exchange gives each rank exactly its ``[x_t | z_t]`` rows of the whole
+    weight, at T 2 and 4."""
     for world, shapes in ((2, SHAPES_2), (4, SHAPES_4)):
         for r in range(world):
             got = tp_runs["got"][world][r]["tp_gradcheck"]
             want = {"x".join(map(str, s)) + kind: True for s in shapes
                     for kind in ("", " all-to-all", " k/v all-gather", " in_proj exchange",
-                                 " x_proj sum", " in_proj rows")}
+                                 " x_proj sum", " in_proj rows", " residual entry",
+                                 " residual exit", " residual slice")}
             assert got == want, (world, r, got)
 
 
@@ -497,10 +566,82 @@ def test_copy_and_reduce_gradcheck(tp_runs):
 def test_kv_and_bias_gradients_summed_over_the_model_group(tp_runs):
     """qwen2 at T 4 (each KV head shared by 2 ranks, biases replicated):
     the gathered gradients equal the whole model's when the k/v and bias
-    gradients are summed over tp, and not with the slice-own rule."""
+    gradients are summed over tp, and not with the slice-own rule; under
+    the split residual the norm scales' too (each rank's a part)."""
     for r in range(4):
         got = tp_runs["got"][4][r]["tp_grads"]
         assert got["split"] == "shared"
         assert max(got["summed"].values()) < 1e-5, got
         assert got["slice_own"]["kv"] > 0.1 and got["slice_own"]["bias"] > 0.1, got
+        assert got["slice_own"]["norm"] > 0.1, got
         assert got["slice_own"]["other"] < 1e-5, got
+
+
+RESIDUAL_IDS = [(w, k) for w in (2, 4) for k, _, _ in RESIDUAL_CASES]
+
+
+def _residual_rec(tp_runs, world: int, r: int, name: str) -> dict:
+    return tp_runs["got"][world][r]["tp_residual"][f"1x{world} {name}"]
+
+
+def _residual_cfg(name: str):
+    _, arch, extra = next(c for c in RESIDUAL_CASES if c[0] == name)
+    return get_config(arch, reduced=True).replace(**extra)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("world,name", RESIDUAL_IDS)
+def test_residual_remat_keeps_the_ranks_columns(tp_runs, world, name):
+    """Under remat each checkpointed layer keeps its input, the rank's
+    ``(B, S, d/T)`` columns of the residual, in a storage of exactly their
+    bytes (not a view of a gathered whole), on every rank of ``(model 2)``
+    and ``(model 4)``: the ``saved_tensors_hooks`` count of one
+    microbatch (B 2), one such tensor a layer."""
+    cfg = _residual_cfg(name)
+    cols = (2, SEQ, cfg.d_model // world)
+    for r in range(world):
+        saved = _residual_rec(tp_runs, world, r, name)["saved"]
+        kept = [n for shape, n in saved if tuple(shape) == cols]
+        assert kept == [math.prod(cols) * 4] * cfg.num_layers, (r, saved)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("world,name", RESIDUAL_IDS)
+def test_residual_collectives_match_the_reckoning(tp_runs, world, name):
+    """One microbatch's forward, remat recompute and backward: the split
+    residual's collectives by kind, calls and bytes, equal
+    :func:`_residual_reckoning`'s; and the tensor-parallel all-reduces that
+    sum a norm scale's gradient once over tp: one behind each split
+    sublayer's norm and the vocab-parallel head's final norm (reduced yi
+    at vocab 256 issues no other)."""
+    cfg = _residual_cfg(name)
+    plan = ShardingPlan(mesh=abstract_mesh((1, world), ("data", "model")), tp="model")
+    splits = [sharding.tp_split(cfg, p, plan, SEQ) for p in range(cfg.period)]
+    want = _residual_reckoning(cfg, splits, 1, 2)  # one microbatch of 2 sequences
+    for r in range(world):
+        rec = _residual_rec(tp_runs, world, r, name)
+        assert rec["counts"] == want, (r, rec["counts"], want)
+        if name == "yi256":
+            norms = 2 * cfg.num_layers + 1
+            assert rec["tp"] == {"calls": norms, "bytes": norms * cfg.d_model * 4}, rec["tp"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("world,name", RESIDUAL_IDS)
+def test_norm_and_router_gradients_match_one_process(tp_runs, world, name):
+    """One microbatch's gradients under the split residual against the
+    whole model's on one process: every norm scale (a part on each rank,
+    summed over tp once), the MoE router (its input's gradient the same on
+    every rank, counted once), and every other leaf within 1e-5 of the
+    largest magnitude; each norm scale's and router's gradient is the same
+    on every tp rank, to the bit.  A sum taken T times or not at all misses
+    by far more."""
+    first = _residual_rec(tp_runs, world, 0, name)
+    assert ("router" in first["err"]) == (name == "dbrx")
+    for r in range(world):
+        rec = _residual_rec(tp_runs, world, r, name)
+        assert max(rec["err"].values()) < 1e-5, (r, rec["err"])
+        assert rec["grads"].keys() == first["grads"].keys()
+        for n, g in rec["grads"].items():
+            assert np.array_equal(g, first["grads"][n]), (r, n)
+        np.testing.assert_allclose(rec["loss"], first["loss"], rtol=1e-6)
